@@ -1,0 +1,204 @@
+"""Featherstone rigid-body algorithms over a batch of configurations.
+
+Counterpart of ``jiminy_tpu/core/algos.py`` (kinematics, RNEA with
+armature, CRBA, point Jacobians, Lie-group integrate). The reference
+writes them for one robot and vmaps; here every function takes batched
+``q (B, nq)``, ``v (B, nv)`` and loops over bodies in Python (the
+topology is static), so each step is one whole-batch tensor op.
+Spatial vectors are (angular, linear) in the local body frame at the
+body origin, as in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from jiminy_tpu_torch.core.tree import JointType, KinematicTree
+from jiminy_tpu_torch.math import so3
+from jiminy_tpu_torch.math.spatial import (
+    Transform,
+    motion_cross,
+    motion_cross_force,
+    mv,
+)
+
+
+def _axis_angle_matrix(axis: torch.Tensor, angle: torch.Tensor):
+    """Rodrigues rotation (B, 3, 3) about a constant unit axis."""
+    c, s = torch.cos(angle)[:, None, None], torch.sin(angle)[:, None, None]
+    K = so3.hat(axis)
+    eye = torch.eye(3, dtype=axis.dtype, device=axis.device)
+    return eye + s * K + (1.0 - c) * (K @ K)
+
+
+def joint_transform(tree: KinematicTree, i: int, q: torch.Tensor) -> Transform:
+    """Pose of body i's frame in its joint frame, X_J(q_i), batched."""
+    t = tree.joint_type[i]
+    off = tree.q_off[i]
+    B = q.shape[0]
+    if t == JointType.FREE:
+        return Transform(
+            rot=so3.quat_to_matrix(q[:, off + 3:off + 7]), pos=q[:, off:off + 3]
+        )
+    if t == JointType.REVOLUTE:
+        return Transform(
+            rot=_axis_angle_matrix(tree.axis[i], q[:, off]),
+            pos=q.new_zeros(B, 3),
+        )
+    raise NotImplementedError(
+        f"{t.name} joints are not ported yet (ROADMAP A.14, A.15)"
+    )
+
+
+def motion_subspace(tree: KinematicTree, i: int) -> torch.Tensor:
+    """S_i (6, nv_i): joint velocity → local spatial velocity."""
+    return tree.motion_subspaces[i]
+
+
+def _joint_velocity(tree, i, S, x):
+    """S @ x[:, v_slice(i)] → (B, 6)."""
+    return x[:, tree.v_slice(i)] @ S.T
+
+
+def local_transforms(tree: KinematicTree, q: torch.Tensor) -> list[Transform]:
+    """X_λi: pose of body i in its parent's frame, for every body."""
+    return [
+        tree.joint_placement(i).compose(joint_transform(tree, i, q))
+        for i in range(tree.nb)
+    ]
+
+
+def forward_kinematics(tree: KinematicTree, q: torch.Tensor) -> list[Transform]:
+    """World pose of every body frame."""
+    xl = local_transforms(tree, q)
+    xw: list[Transform] = []
+    for i in range(tree.nb):
+        p = tree.parent[i]
+        xw.append(xl[i] if p < 0 else xw[p].compose(xl[i]))
+    return xw
+
+
+def kinematics(tree: KinematicTree, q, v, xl=None):
+    """World poses and local spatial velocities (B, 6) of every body."""
+    xl = local_transforms(tree, q) if xl is None else xl
+    xw: list[Transform] = []
+    vel: list[torch.Tensor] = []
+    for i in range(tree.nb):
+        p = tree.parent[i]
+        vj = _joint_velocity(tree, i, motion_subspace(tree, i), v)
+        if p < 0:
+            xw.append(xl[i])
+            vel.append(vj)
+        else:
+            xw.append(xw[p].compose(xl[i]))
+            vel.append(xl[i].motion_parent_to_child(vel[p]) + vj)
+    return xw, vel
+
+
+def rnea(tree: KinematicTree, q, v, a, fext=None, xl=None) -> torch.Tensor:
+    """Inverse dynamics with armature, τ = ID(q, v, a) − Jᵀ f_ext
+    (B, nv). ``fext``: optional (B, nb, 6) local wrenches."""
+    xl = local_transforms(tree, q) if xl is None else xl
+    g = tree.gravity
+    a0 = torch.cat([torch.zeros_like(g), -g])
+    vel, acc, f, S_all = [None] * tree.nb, [None] * tree.nb, [None] * tree.nb, [None] * tree.nb
+    for i in range(tree.nb):
+        p = tree.parent[i]
+        S = S_all[i] = motion_subspace(tree, i)
+        vj = _joint_velocity(tree, i, S, v)
+        aj = _joint_velocity(tree, i, S, a)
+        if p < 0:
+            vel[i] = vj
+            acc[i] = xl[i].motion_parent_to_child(a0) + aj
+        else:
+            vel[i] = xl[i].motion_parent_to_child(vel[p]) + vj
+            acc[i] = (
+                xl[i].motion_parent_to_child(acc[p]) + aj
+                + motion_cross(vel[i], vj)
+            )
+        Ii = tree.body_inertia(i)
+        f[i] = Ii.mul_motion(acc[i]) + motion_cross_force(
+            vel[i], Ii.mul_motion(vel[i])
+        )
+        if fext is not None:
+            f[i] = f[i] - fext[:, i]
+    tau = torch.zeros_like(v)
+    for i in range(tree.nb - 1, -1, -1):
+        tau[:, tree.v_slice(i)] = f[i] @ S_all[i]
+        p = tree.parent[i]
+        if p >= 0:
+            f[p] = f[p] + xl[i].force_child_to_parent(f[i])
+    return tau + tree.armature * a
+
+
+def crba(tree: KinematicTree, q, xl=None) -> torch.Tensor:
+    """Composite-rigid-body mass matrix (B, nv, nv), armature on the
+    diagonal."""
+    xl = local_transforms(tree, q) if xl is None else xl
+    B = q.shape[0]
+    Ic = [tree.body_inertia(i) for i in range(tree.nb)]
+    M = q.new_zeros(B, tree.nv, tree.nv)
+    for i in range(tree.nb - 1, -1, -1):
+        p = tree.parent[i]
+        if p >= 0:
+            Ic[p] = Ic[p].add(Ic[i].transform_by(xl[i]))
+        S = motion_subspace(tree, i)
+        # F = Ic·S, one column per joint dof → (B, 6, nv_i)
+        F = torch.stack(
+            [Ic[i].mul_motion(S[:, k]) for k in range(S.shape[1])], dim=-1
+        ).expand(B, 6, S.shape[1])
+        sl_i = tree.v_slice(i)
+        M[:, sl_i, sl_i] = S.T @ F
+        j = i
+        while tree.parent[j] >= 0:
+            # propagate F into the parent's frame, fill off-diagonal blocks
+            F = torch.stack(
+                [xl[j].force_child_to_parent(F[..., k]) for k in range(F.shape[-1])],
+                dim=-1,
+            )
+            j = tree.parent[j]
+            blk = F.transpose(-1, -2) @ motion_subspace(tree, j)
+            sl_j = tree.v_slice(j)
+            M[:, sl_i, sl_j] = blk
+            M[:, sl_j, sl_i] = blk.transpose(-1, -2)
+    return M + torch.diag(tree.armature)
+
+
+def point_jacobian(
+    tree: KinematicTree, xw: list[Transform], body: int, point_world
+) -> torch.Tensor:
+    """World-frame linear-velocity Jacobian (B, 3, nv) of a point attached
+    to ``body``, walking the ancestor chain."""
+    B = point_world.shape[0]
+    J = point_world.new_zeros(B, 3, tree.nv)
+    j = body
+    while j >= 0:
+        S = motion_subspace(tree, j)
+        R, o = xw[j].rot, xw[j].pos
+        w_cols = R @ S[:3, :]  # (B, 3, nv_j) world angular
+        v_cols = R @ S[3:, :]  # world linear at the joint origin
+        r = (point_world - o)[:, None, :]
+        lin = v_cols + so3.cross(w_cols.transpose(-1, -2), r).transpose(-1, -2)
+        J[:, :, tree.v_slice(j)] = lin
+        j = tree.parent[j]
+    return J
+
+
+def integrate(tree: KinematicTree, q, v, dt) -> torch.Tensor:
+    """q ⊕ v·dt on the configuration manifold (the free joint's quaternion
+    by the exponential map with local tangents, Pinocchio semantics)."""
+    out = q.clone()
+    one = [i for i in range(tree.nb) if tree.joint_type[i] == JointType.REVOLUTE]
+    if one:
+        qi = [tree.q_off[i] for i in one]
+        vi = [tree.v_off[i] for i in one]
+        out[:, qi] = q[:, qi] + v[:, vi] * dt
+    for i in range(tree.nb):
+        t = tree.joint_type[i]
+        qo, vo = tree.q_off[i], tree.v_off[i]
+        if t == JointType.FREE:
+            quat = q[:, qo + 3:qo + 7]
+            dp = mv(so3.quat_to_matrix(quat), v[:, vo:vo + 3] * dt)
+            out[:, qo:qo + 3] = q[:, qo:qo + 3] + dp
+            out[:, qo + 3:qo + 7] = so3.quat_integrate(quat, v[:, vo + 3:vo + 6], dt)
+    return out
