@@ -6,22 +6,45 @@ Builds the port's CUDA kernels from ``jiminy_tpu_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version, drives the flagship
 ANYmal env step (B = 4096, 4 substeps of 5 ms, 8 PGS sweeps) through the
 port's public entry points, and times the env step and each kernel. It
-imports nothing of JAX and nothing of ``jiminy_tpu``.
+imports nothing of JAX and nothing of ``jiminy_tpu``. The kernels:
+
+- K1 ``constraint_solve`` (``csrc/constraint_solve.cu``): the solve chain;
+- K2 ``substep_multi`` (``csrc/substep.cu``): every substep of an env
+  step in one launch, τ recomputed in-kernel;
+- K3 ``substep`` (``csrc/substep.cu``): one substep, τ given.
 
 Phases (any failure raises and the script exits non-zero):
 
-0. a CUDA GPU is present; card name and power limit; nvcc build time;
-1. the constraint-solve kernel against ``solve_reference`` on random SPD
-   systems (ANYmal, Atlas and Cassie layouts, with and without the KKT
-   residual; ANYmal at B = 4096 with 8 sweeps; a ragged B = 1000),
-   max |Δ| ≤ 1e-4 on v⁺, λ and the residual;
-2. the main path: ``ANYmalEnv(observe="state", device="cuda")`` reset
-   from a seeded generator and 25 env steps with uniform actions; q, v,
-   obs and reward finite; the kernel launched exactly 4 × 25 times; one
-   env step through the kernel equals the same step through the inline
-   plain chain to 1e-4 on q and v, each substep from the same inputs;
-3. env-steps/s (3 timed loops of 25 steps) and the kernel's and the
-   plain version's times with CUDA events, beside the kernel's bound.
+0. a CUDA GPU is present; card name and power limit; nvcc build time of
+   every source and ptxas's registers, stack and spills;
+1. every kernel against its plain version from the same inputs:
+   - K1 on random SPD systems (ANYmal, Atlas and Cassie layouts, with and
+     without the KKT residual; ANYmal at B = 4096 with 8 sweeps; a ragged
+     B = 1000), max |Δ| ≤ 1e-4 on v⁺, λ and the residual;
+   - K3 and K2 at n_sub = 1 against ``substep_reference`` /
+     ``substep_multi_reference`` on perturbed ANYmal states with a root
+     wrench (a quarter of them at joint limits), at B = 4096 and a ragged
+     B = 1000: max |Δ| ≤ 1e-4 on q, v, λ, the impulses and the residual
+     (f32 is well posed over one substep from these states);
+   - K2 at n_sub = 4 (a whole env step): float32 rounding compounds over
+     4 substeps for any two f32 implementations, so the yardstick is the
+     plain version in float64, env by env (`_gate_vs_f64`);
+2. the paths, each with the launch counts set to 0 just before it and
+   read just after:
+   - the main path, ``ANYmalEnv(observe="state", device="cuda")`` reset
+     from a seeded generator and 25 env steps with uniform actions: q, v,
+     obs and reward finite; exactly one K2 launch per env step and no K1
+     or K3 launch; then one env step from that state substep by substep,
+     each substep from the same inputs: K1 equals the inline plain engine
+     to 1e-4 on q and v, and K2 on q, v and λ is held to the float64
+     engine env by env as in phase 1 (on these states one substep
+     amplifies float32 rounding to ~1e-3 in any f32 version);
+   - ``constraint_solver="kernel"`` (K1, 4 launches per env step) and an
+     engine with ``substep_fusion=False`` (K3, 4 launches per env step),
+     3 env steps each;
+3. env-steps/s on the main path (3 timed loops of 25 steps) and on the
+   ``"kernel"`` path, and each kernel's and its plain version's times
+   with CUDA events beside the kernel's bound.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -71,12 +94,14 @@ def _rand_system(gen, B, n, nc, dev, active_p=0.7):
 
 
 def _solve_flops(cfg) -> int:
-    """Floating-point operations of one env's chain (a multiply-add is
-    2), counted from the algorithm; no part of it depends on the data."""
+    """Floating-point operations that one env's chain needs (a
+    multiply-add is 2), counted from the algorithm on dense M and J, the
+    Delassus matrix J·M⁻¹·Jᵀ as its symmetric half; no part of it depends
+    on the data."""
     n, nc, m = cfg.n, cfg.nc, cfg.nc + 1
     chol = sum(2 * (n - j) * j + (n - j) for j in range(n))
     solves = 2 * (2 * (n * (n - 1) // 2) * m + n * m)
-    delassus = 2 * nc * nc * n + 2 * nc * n + 2 * n
+    delassus = nc * (nc + 1) * n + 2 * nc * n + 2 * n
     pgs = cfg.iters * nc * (2 * nc + 4)
     vnext = 2 * n * nc
     resid = 2 * nc * nc if cfg.compute_residual else 0
@@ -159,47 +184,354 @@ def phase_kernel_vs_plain(dev) -> float:
     return worst
 
 
+# Operations of the small helpers of csrc/substep.cu on general operands,
+# counted from their code (a multiply-add is 2; a sqrt, sin, cos, tanh or
+# division 1).
+_OPS = {"cross": 9, "dot": 5, "mat3_mul": 45, "mat3_vec": 15, "quat_to_m": 30,
+        "p2c": 42, "c2p": 42, "imul": 42, "mcross_f": 30}
+
+
+def _substep_flops(spec) -> int:
+    """Operations that one env's substep needs, walked over this tree in
+    the order of csrc/substep.cu `jt_substep`, without the arithmetic the
+    kernel's generic loops spend on known zeros, ones and duplicates: a
+    FREE joint's motion subspace is unit columns (projecting onto it or
+    multiplying by it selects entries: 0 operations), a REVOLUTE joint's
+    is (axis, 0) (half of the products), Rodrigues takes its constant K²,
+    gravity has no angular part, and the composite inertias and the
+    Delassus matrix are symmetric (one half counted). The chain is counted
+    on dense M and J, as K1 takes them (`_solve_flops`). No branch depends
+    on the data except sign and clamp selections, which cost the same
+    either way."""
+    t, O = spec.tree, _OPS
+    fk = rnea = crba = jac = integ = 0
+    for i in range(t.nb):
+        free, root = t.joint_type[i] == 0, t.parent[i] < 0
+        ndof = 6 if free else 1
+        # FK: joint rotation (quaternion; or sin, cos, 1 − cos and
+        # I + sin·K + (1 − cos)·K²: 9 products with K², 6 with K's
+        # nonzeros and their sums, 3 ones), local pose, S·q̇
+        fk += O["quat_to_m"] + O["mat3_vec"] + 3 if free else 3 + 9 + 12 + 3
+        fk += O["mat3_mul"] + (0 if free else 3)
+        if not root:  # world pose; velocity = parent's in this frame + S·q̇
+            fk += O["mat3_mul"] + O["mat3_vec"] + 3 + O["p2c"] + (6 if free else 3)
+        # RNEA: acceleration (gravity at the root: Rᵀ·g), v × S·q̇ (S·q̇
+        # from FK), I·a + v ×* (I·v), Sᵀ·f, force to the parent
+        if root:
+            rnea += O["mat3_vec"]
+        else:
+            rnea += O["p2c"] + (30 if free else 18) + 6
+        rnea += 2 * O["imul"] + O["mcross_f"] + 6 + (0 if free else 5)
+        if not root:
+            rnea += O["c2p"] + 6
+            # composite inertia to the parent: R·h, h + m·p, R·I·Rᵀ (its
+            # 6 unique entries), the two parallel-axis terms, the sums
+            crba += O["mat3_vec"] + 6 + O["mat3_mul"] + 6 * 5 + 2 * O["dot"] + 4 + 48
+        # F = Ic·S (I·axis, h × axis), its diagonal block Sᵀ·F, then F
+        # carried up the ancestors and projected on each one's subspace
+        crba += 0 if free else O["mat3_vec"] + O["cross"] + 5
+        j = i
+        while t.parent[j] >= 0:
+            crba += ndof * O["c2p"]
+            j = t.parent[j]
+            crba += 0 if t.joint_type[j] == 0 else ndof * 5
+        integ += 109 if free else 2
+    rnea += 6  # the root wrench
+    crba += 2 * t.nv  # armature + dt·damping (a constant), p = τ − bias
+    for b in t.contact_body:
+        jac += O["mat3_vec"] + 3 + 7  # point, depth, target, activation
+        j = b
+        while j >= 0:  # columns: R·axis × r (REVOLUTE); R's columns × r (FREE)
+            jac += 3 + (3 * O["cross"] if t.joint_type[j] == 0 else O["mat3_vec"] + O["cross"])
+            j = t.parent[j]
+    rows = 6 * len(spec.bounded_joints)
+    return fk + rnea + crba + jac + rows + _solve_flops(spec.cfg) + integ
+
+
+def _torque_flops(spec) -> int:
+    """Operations of `jt_torque`: ~23 per motor, damping 2 per dof."""
+    return 23 * spec.torque.nm + 2 * spec.tree.nv
+
+
+def _spec_bytes(spec) -> int:
+    si, sf = spec.packed("cpu")
+    return 4 * (si.numel() + sf.numel())
+
+
+def _substep_bytes(spec, B) -> int:
+    """K3: q, v, τ, λ0, wrench in; q, v, λ, residual, impulses out
+    (float32), and the packed spec once."""
+    t = spec.tree
+    per_env = (t.nq + 2 * t.nv + spec.nc + 6) + (t.nq + t.nv + spec.nc + 1 + 3 * t.ncp)
+    return 4 * B * per_env + _spec_bytes(spec)
+
+
+def _substep_multi_bytes(spec, B) -> int:
+    """K2: q, v, cmd, λ0, wrench in; q, v, λ, residual, impulses, a, τ
+    out (float32), and the packed spec once."""
+    t, nm = spec.tree, spec.torque.nm
+    per_env = (t.nq + t.nv + nm + spec.nc + 6) + (t.nq + 3 * t.nv + spec.nc + 1 + 3 * t.ncp)
+    return 4 * B * per_env + _spec_bytes(spec)
+
+
+def _anymal_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver="substep"):
+    """The flagship env's engine (PD kp 80, kd 2, 5 ms, 8 sweeps). In
+    float64 the model holds the float32 model's constants, so the two
+    differ by the arithmetic alone."""
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
+    from jiminy_tpu_torch.models.quadruped import make_anymal
+
+    tree, motors = make_anymal(device=dev)
+    opts = EngineOptions(dt=5e-3, pgs_iters=8, compute_solver_residual=residual,
+                         substep_fusion=fusion, constraint_solver=solver)
+    return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
+                  controller=PDController(80.0, 2.0), device=dev)
+
+
+def _substep_inputs(engine, gen, B):
+    """ANYmal states around the stand pose: joints ±0.15 rad, in a
+    quarter of the envs the four HAA joints within 1 cm·rad of a position
+    limit (either side of it, so that the bounds rows bind), base 2 cm
+    low to 1 cm high (feet penetrating, hovering within the contact margin
+    and clear of it) and tilted, v ~ 0.3·N(0, 1), λ0 ≥ 0, PD targets ±0.2
+    rad around the joints, a root wrench of ~5 N·m and ~20 N."""
+    from jiminy_tpu_torch.models.quadruped import stand_q
+
+    dev, t = engine.device, engine.tree
+    kw = dict(generator=gen, device=dev)
+    qi = list(engine.motors.q_idx)
+    q = torch.as_tensor(stand_q(t), device=dev).repeat(B, 1)
+    q[:, qi] += 0.3 * torch.rand(B, len(qi), **kw) - 0.15
+    haa = [t.q_off[t.joint_index(n)] for n in t.joint_name if n.endswith("_HAA")]
+    hi = t.q_max[haa].to(dev)
+    side = torch.where(torch.rand(B // 4, len(haa), **kw) < 0.5, -1.0, 1.0)
+    q[:B // 4, haa] = side * (hi + 0.02 * torch.rand(B // 4, len(haa), **kw) - 0.01)
+    q[:, 2] += 0.03 * torch.rand(B, **kw) - 0.02
+    quat = torch.cat([0.1 * torch.rand(B, 3, **kw) - 0.05, torch.ones(B, 1, device=dev)], 1)
+    q[:, 3:7] = quat / quat.norm(dim=1, keepdim=True)
+    v = 0.3 * torch.randn(B, engine.tree.nv, **kw)
+    lam0 = (0.05 * torch.randn(B, engine.nc, **kw)).abs()
+    cmd = q[:, qi] + 0.4 * torch.rand(B, len(qi), **kw) - 0.2
+    wrench = torch.cat([5.0 * torch.randn(B, 3, **kw), 20.0 * torch.randn(B, 3, **kw)], 1)
+    return q, v, cmd, lam0, wrench
+
+
+def _max_err(a, b) -> float:
+    return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+
+
+def _env_err(a, b):
+    """max |a − b| of each env, (B,) float64."""
+    return (a.double() - b.double()).abs().reshape(a.shape[0], -1).amax(dim=1)
+
+
+# Two float32 versions of the same physics round differently, and where
+# a state sits near a switch of the PGS active set (a contact on the
+# verge of sliding, a row about to release), one substep amplifies that
+# rounding to ~1e-3 in v, in any float32 version (PERF.md, Findings). So
+# K2 is held, env by env, against the plain version in float64 and beside
+# the plain version's own float32 distance to it:
+# - per env: |K2 − f64| ≤ 2·|plain f32 − f64| + 1e-4, in all but 1 % of
+#   the envs (an env where K2's rounding tips the active set and the
+#   plain version's does not); a fault of one mechanism (the bounds rows,
+#   the carried λ, a contact row) shows in every env that uses it;
+# - envs farther than 1e-4 from f64: K2's count ≤ 1.5 × the plain
+#   version's + 4 (counting noise where both are small);
+# - the worst env: K2's ≤ 2 × the plain version's + 1e-4.
+ENV_EXCEPTIONS = 0.01
+
+
+def _gate_vs_f64(label, k, p32, p64) -> dict:
+    """K2's output ``k`` against the plain version in float32 and float64
+    on the same inputs, by the three rules above; raises when one fails."""
+    dk, dp = _env_err(k, p64), _env_err(p32, p64)
+    g = {
+        "kernel_vs_f64": dk.max().item(),
+        "plain_f32_vs_f64": dp.max().item(),
+        "kernel_vs_plain_f32": _env_err(k, p32).max().item(),
+        "envs_kernel_over_1e-4": int((dk > TOL).sum()),
+        "envs_plain_over_1e-4": int((dp > TOL).sum()),
+        "envs_kernel_worse": int((dk > 2.0 * dp + TOL).sum()),
+    }
+    if g["envs_kernel_worse"] > ENV_EXCEPTIONS * k.shape[0]:
+        raise AssertionError(f"{label}: K2 is further from f64 than 2 × the plain f32 "
+                             f"version + 1e-4 in more than 1 % of the envs: {g}")
+    if g["envs_kernel_over_1e-4"] > 1.5 * g["envs_plain_over_1e-4"] + 4:
+        raise AssertionError(f"{label}: K2 is off f64 by more than 1e-4 in more envs "
+                             f"than 1.5 × the plain f32 version + 4: {g}")
+    if g["kernel_vs_f64"] > 2.0 * g["plain_f32_vs_f64"] + TOL:
+        raise AssertionError(f"{label}: K2's worst env is further from f64 than 2 × the "
+                             f"plain f32 version's + 1e-4: {g}")
+    return g
+
+
+def phase_substep_vs_plain(dev) -> dict:
+    """K3 and K2 against their plain versions; returns each kernel's
+    worst error at B = 4096 (K2 at n_sub = 1)."""
+    from jiminy_tpu_torch.ops.substep_kernel import (
+        substep_batched,
+        substep_batched_multi,
+        substep_multi_reference,
+        substep_reference,
+    )
+
+    eng = _anymal_engine(dev)
+    spec, dt = eng.substep_spec, eng.substep_spec.dt
+    gen = torch.Generator(device=dev).manual_seed(3)
+    names = ("q", "v", "lam", "residual", "impulse")
+    worst = {"substep": 0.0, "substep_multi": 0.0}
+    for label, B in ((f"B={B_MAIN}", B_MAIN), ("ragged B=1000", 1000)):
+        q, v, cmd, lam0, wrench = _substep_inputs(eng, gen, B)
+        tau = eng._joint_torque(cmd, q, v)
+        k3 = substep_batched(spec, q, v, tau, lam0, wrench)
+        r3 = substep_reference(spec, q, v, tau, lam0, wrench)
+        k2 = substep_batched_multi(spec, 1, q, v, cmd, lam0, wrench)
+        r2 = substep_multi_reference(spec, 1, q, v, cmd, lam0, wrench)
+        torch.cuda.synchronize()
+        e3 = {n: _max_err(a, b) for n, a, b in zip(names, k3, r3)}
+        e2 = {n: _max_err(a, b) for n, a, b in zip(names + ("a", "tau"), k2, r2)}
+        active = float((r3[2] != 0).double().mean())
+        bound = float((r3[2][:, :len(spec.bounded_joints)] != 0).any(1).double().mean())
+        print(f"[phase 1] substep (K3) {label}: " + json.dumps(e3)
+              + f" (share of λ nonzero {active:.3f}, of envs with a bound row "
+              f"nonzero {bound:.3f})")
+        print(f"[phase 1] substep_multi (K2) n_sub=1 {label}: " + json.dumps(e2))
+        if not all(e <= TOL for e in e3.values()):
+            raise AssertionError(f"K3 disagrees with substep_reference on {label}: {e3}")
+        # a = (v⁺ − v)/dt carries v's error ÷ dt; τ is relative to its size
+        tau_scale = max(1.0, r2[6].abs().max().item())
+        if not (all(e2[n] <= TOL for n in names) and e2["a"] <= TOL / dt
+                and e2["tau"] <= TOL * tau_scale):
+            raise AssertionError(f"K2 (n_sub=1) disagrees with the plain version on {label}: {e2}")
+        if B == B_MAIN:
+            worst["substep"] = max(e3[n] for n in names)
+            worst["substep_multi"] = max(e2[n] for n in names)
+
+    # a whole env step (4 substeps): f32 rounding compounds over substeps
+    # in any f32 version, so the float64 plain version is the yardstick
+    # (`_gate_vs_f64`)
+    eng64 = _anymal_engine(dev, dtype=torch.float64)
+    q, v, cmd, lam0, wrench = _substep_inputs(eng, gen, B_MAIN)
+    k2 = substep_batched_multi(spec, 4, q, v, cmd, lam0, wrench)
+    p32 = substep_multi_reference(spec, 4, q, v, cmd, lam0, wrench)
+    p64 = substep_multi_reference(
+        eng64.substep_spec, 4, *(x.double() for x in (q, v, cmd, lam0, wrench))
+    )
+    torch.cuda.synchronize()
+    gates = {n: _gate_vs_f64(f"K2 n_sub=4 {n}", k2[i], p32[i], p64[i])
+             for i, n in enumerate(names) if n != "residual"}
+    print("[phase 1] substep_multi (K2) n_sub=4 B=4096 vs the f64 plain version: "
+          + json.dumps(gates))
+    return worst
+
+
 def _as_f64(state):
     sim = type(state.sim)(**{k: getattr(state.sim, k).double() for k in state.sim.FIELDS})
     return state.replace(sim=sim, obs=state.obs.double())
 
 
 def _ab_env_step(env, state, act_gen, dev):
-    """One env step through the kernel against the same step through the
-    inline plain chain. Each of the 4 substeps feeds both backends the same
-    inputs (the kernel's trajectory), so the check holds the kernel to
-    1e-4 where float32 is well posed. The free-running steps are reported
-    too, beside the inline chain in float64: from the same state, float32
-    rounding compounds over the substeps to ~1e-3 in a few envs of 4096,
-    for any two float32 implementations."""
+    """One env step from the main path's state, substep by substep, each
+    substep feeding every backend the same inputs:
+
+    - K1 (``constraint_solver="kernel"``) against the inline plain engine:
+      only the chain differs, and it gets the same M and J, so |Δ| ≤ 1e-4
+      on q and v;
+    - K2 (the env's engine, one substep per launch) against the inline
+      engine in float32 and in float64 (same constants): K2 builds M, J
+      and the rows itself in another order of operations, and on these
+      states one substep amplifies float32 rounding to ~1e-3 in v in any
+      float32 implementation (the plain one included). So the float64
+      engine is the yardstick, env by env, as in phase 1 (`_gate_vs_f64`).
+
+    The free-running env steps are reported too, beside the inline env in
+    float64. Returns the numbers; raises when a gate fails."""
     from jiminy_tpu_torch.envs import ANYmalEnv
 
     kw = dict(observe="state", step_dt=0.02, sim_dt=5e-3, pgs_iters=8, device=dev)
     inline = ANYmalEnv(constraint_solver="inline", **kw)
     inline64 = ANYmalEnv(constraint_solver="inline", dtype=torch.float64, **kw)
-    a = torch.rand(state.obs.shape[0], 12, generator=act_gen, device=dev) * 2.0 - 1.0
+    k1 = _anymal_engine(dev, residual=False, solver="kernel")
+    plain64 = _anymal_engine(dev, torch.float64, residual=False, solver="inline")
+    a = _uniform(act_gen, dev)
     u = env._action_to_command(a, state.sim)
-    sim, dq, dv = state.sim, 0.0, 0.0
-    for _ in range(env.n_substeps):
+
+    def gap(x, y):
+        d = _env_err(x, y)
+        return {"max": d.max().item(), "envs_over_1e-4": int((d > TOL).sum())}
+
+    k1_err = {"q": 0.0, "v": 0.0}
+    k2 = {"q": [], "v": [], "lam": []}
+    sim = state.sim
+    for i in range(env.n_substeps):
         nk = env.engine.step(sim, u, n_substeps=1)
+        n1 = k1.step(sim, u, n_substeps=1)
         ni = inline.engine.step(sim, u, n_substeps=1)
-        dq = max(dq, (nk.q - ni.q).abs().max().item())
-        dv = max(dv, (nk.v - ni.v).abs().max().item())
+        n64 = plain64.step(_as_f64(state.replace(sim=sim)).sim, u.double(), n_substeps=1)
+        for f in ("q", "v"):
+            k1_err[f] = max(k1_err[f], gap(getattr(n1, f), getattr(ni, f))["max"])
+        if not (k1_err["q"] <= TOL and k1_err["v"] <= TOL):
+            raise AssertionError(f"K1 env step disagrees with the inline engine: {k1_err}")
+        for f, per_sub in k2.items():
+            per_sub.append(_gate_vs_f64(f"K2 substep {i} {f}", getattr(nk, f),
+                                        getattr(ni, f), getattr(n64, f)))
         sim = nk
+    print(f"[phase 2] one env step, K1 substep by substep vs the inline engine on the same "
+          f"inputs: max|dq|={k1_err['q']:.3g} max|dv|={k1_err['v']:.3g}")
+    print("[phase 2] one env step, K2 substep by substep vs the inline engine in f32 and f64 "
+          "on the same inputs: " + json.dumps(k2))
+
     s_k = env.step_no_reset(state, a)
     s_i = inline.step_no_reset(state, a)
     s_64 = inline64.step_no_reset(_as_f64(state), a.double())
-
-    def gap(x, y):
-        d = (x.double() - y.double()).abs().amax(dim=1)
-        return {"max": d.max().item(), "envs_over_1e-4": int((d > TOL).sum())}
-
     free = {
         "kernel_vs_inline_v": gap(s_k.sim.v, s_i.sim.v),
         "kernel_vs_inline_f64_v": gap(s_k.sim.v, s_64.sim.v),
         "inline_vs_inline_f64_v": gap(s_i.sim.v, s_64.sim.v),
     }
-    return dq, dv, free
+    print("[phase 2] free-running env step (f32 rounding compounds over 4 substeps; the "
+          "f64 inline env is the yardstick): " + json.dumps(free))
+
+
+def _reset_counts():
+    from jiminy_tpu_torch.ops.constraint_solve import solve_batched
+    from jiminy_tpu_torch.ops.substep_kernel import substep_batched, substep_batched_multi
+
+    for fn in (solve_batched, substep_batched, substep_batched_multi):
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    from jiminy_tpu_torch.ops.constraint_solve import solve_batched
+    from jiminy_tpu_torch.ops.substep_kernel import substep_batched, substep_batched_multi
+
+    return {"constraint_solve": solve_batched.launches, "substep": substep_batched.launches,
+            "substep_multi": substep_batched_multi.launches}
+
+
+def _uniform(gen, dev):
+    return torch.rand(B_MAIN, 12, generator=gen, device=dev) * 2.0 - 1.0
+
+
+def _check_finite(state, label):
+    for name, x in (("q", state.sim.q), ("v", state.sim.v), ("obs", state.obs),
+                    ("reward", state.reward)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"non-finite {name} after {label}")
+
+
+def _env_rate(env, state, act_gen, dev, steps, loops):
+    """env-steps/s over ``loops`` timed loops of ``steps`` env steps."""
+    rates = []
+    for _ in range(loops):
+        acts = [_uniform(act_gen, dev) for _ in range(steps)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in acts:
+            state = env.step(state, a)
+        torch.cuda.synchronize()
+        rates.append(B_MAIN * steps / (time.perf_counter() - t0))
+    return rates, state
 
 
 def main() -> None:
@@ -213,91 +545,142 @@ def main() -> None:
 
     from jiminy_tpu_torch.envs import ANYmalEnv
     from jiminy_tpu_torch.ops import _build
-    from jiminy_tpu_torch.ops.constraint_solve import (
-        solve_batched,
-        solve_reference,
+    from jiminy_tpu_torch.ops.constraint_solve import solve_batched, solve_reference
+    from jiminy_tpu_torch.ops.substep_kernel import (
+        substep_batched,
+        substep_batched_multi,
+        substep_multi_reference,
+        substep_reference,
     )
 
     t0 = time.perf_counter()
     build = _build.build_all()
     print(f"[phase 0] nvcc build {json.dumps(build)} "
           f"wall {time.perf_counter() - t0:.2f} s")
+    for name in sorted(build):
+        for line in _build.ptxas_report(name):
+            print(f"[phase 0] {name}: {line}")
 
     # ---- phase 1: every kernel against its plain version
-    main_err = phase_kernel_vs_plain(dev)
+    main_err = {"constraint_solve": phase_kernel_vs_plain(dev)}
+    main_err.update(phase_substep_vs_plain(dev))
 
-    # ---- phase 2: the main path through the public entry points
-    env = ANYmalEnv(observe="state", step_dt=0.02, sim_dt=5e-3, pgs_iters=8, device=dev)
+    # ---- phase 2: the paths through the public entry points
+    kw = dict(observe="state", step_dt=0.02, sim_dt=5e-3, pgs_iters=8, device=dev)
+    env = ANYmalEnv(**kw)
+    if env.engine.backend != "substep":
+        raise AssertionError("the env's default is not the whole-substep kernel")
     gen = torch.Generator(device=dev).manual_seed(0)
     act_gen = torch.Generator(device=dev).manual_seed(1)
     state = env.reset(gen, B_MAIN)
     torch.cuda.synchronize()
-    solve_batched.launches = 0
+    _reset_counts()
     for _ in range(STEPS):
-        a = torch.rand(B_MAIN, 12, generator=act_gen, device=dev) * 2.0 - 1.0
-        state = env.step(state, a)
+        state = env.step(state, _uniform(act_gen, dev))
     torch.cuda.synchronize()
-    launches = solve_batched.launches
-    print(f"[phase 2] {STEPS} env steps at B={B_MAIN}: constraint_solve launches={launches}")
-    if launches != env.n_substeps * STEPS:
-        raise AssertionError(f"expected {env.n_substeps * STEPS} kernel launches, saw {launches}")
-    for name, x in (("q", state.sim.q), ("v", state.sim.v), ("obs", state.obs),
-                    ("reward", state.reward)):
-        if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"non-finite {name} after the main path")
+    launches = _counts()
+    print(f"[phase 2] main path, {STEPS} env steps at B={B_MAIN}: launches {json.dumps(launches)}")
+    if launches != {"constraint_solve": 0, "substep": 0, "substep_multi": STEPS}:
+        raise AssertionError(f"expected {STEPS} K2 launches and no other, saw {launches}")
+    _check_finite(state, "the main path")
     print(f"[phase 2] finite q, v, obs, reward; done this step "
           f"{int(state.done.sum())}/{B_MAIN}; mean reward {state.reward.mean().item():.4f}")
 
-    dq, dv, free = _ab_env_step(env, state, act_gen, dev)
-    print(f"[phase 2] one env step, kernel vs inline chain on the same substep inputs: "
-          f"max|dq|={dq:.3g} max|dv|={dv:.3g}")
-    print("[phase 2] free-running (f32 rounding compounds over 4 substeps; the "
-          "f64 inline chain is the yardstick): " + json.dumps(free))
-    if not (dq <= TOL and dv <= TOL):
-        raise AssertionError(f"kernel env step disagrees with the inline chain: {dq}, {dv}")
+    _ab_env_step(env, state, act_gen, dev)
+
+    env_k1 = ANYmalEnv(constraint_solver="kernel", **kw)
+    state_k1 = env_k1.reset(torch.Generator(device=dev).manual_seed(4), B_MAIN)
+    torch.cuda.synchronize()
+    _reset_counts()
+    for _ in range(3):
+        state_k1 = env_k1.step(state_k1, _uniform(act_gen, dev))
+    torch.cuda.synchronize()
+    k1_path = _counts()
+    print(f"[phase 2] constraint_solver='kernel', 3 env steps: launches {json.dumps(k1_path)}")
+    if k1_path != {"constraint_solve": 12, "substep": 0, "substep_multi": 0}:
+        raise AssertionError(f"expected 12 K1 launches and no other, saw {k1_path}")
+    _check_finite(state_k1, "the kernel path")
+
+    eng_k3 = _anymal_engine(dev, residual=False, fusion=False)
+    sim = state.sim
+    torch.cuda.synchronize()
+    _reset_counts()
+    for _ in range(3):
+        u = env._action_to_command(_uniform(act_gen, dev), sim)
+        sim = eng_k3.step(sim, u, n_substeps=env.n_substeps)
+    torch.cuda.synchronize()
+    k3_path = _counts()
+    print(f"[phase 2] substep_fusion=False, 3 env steps: launches {json.dumps(k3_path)}")
+    if k3_path != {"constraint_solve": 0, "substep": 12, "substep_multi": 0}:
+        raise AssertionError(f"expected 12 K3 launches and no other, saw {k3_path}")
+    if not (bool(torch.isfinite(sim.q).all()) and bool(torch.isfinite(sim.v).all())):
+        raise AssertionError("non-finite state on the substep_fusion=False path")
 
     # ---- phase 3: times
     for _ in range(STEPS):  # warm-up
-        state = env.step(state, torch.rand(B_MAIN, 12, generator=act_gen, device=dev) * 2 - 1)
-    torch.cuda.synchronize()
-    rates = []
-    for _ in range(3):
-        acts = [torch.rand(B_MAIN, 12, generator=act_gen, device=dev) * 2 - 1
-                for _ in range(STEPS)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for a in acts:
-            state = env.step(state, a)
-        torch.cuda.synchronize()
-        rates.append(B_MAIN * STEPS / (time.perf_counter() - t0))
-    print(f"[phase 3] env-steps/s at B={B_MAIN}: {[round(r, 1) for r in rates]} "
+        state = env.step(state, _uniform(act_gen, dev))
+    rates, state = _env_rate(env, state, act_gen, dev, STEPS, 3)
+    print(f"[phase 3] env-steps/s at B={B_MAIN}, main path (K2): {[round(r, 1) for r in rates]} "
           f"(max {max(rates):.1f})")
+    state_k1 = env_k1.step(state_k1, _uniform(act_gen, dev))  # warm-up
+    rates_k1, _ = _env_rate(env_k1, state_k1, act_gen, dev, 5, 2)
+    print(f"[phase 3] env-steps/s at B={B_MAIN}, constraint_solver='kernel' (K1): "
+          f"{[round(r, 1) for r in rates_k1]}")
 
-    cfg = env.engine.solve_config
+    kernels = []
+
+    def entry(name, source, replaces, ms, plain_ms, n_bytes, n_ops):
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOP_PER_S
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        print(f"[phase 3] {name} B={B_MAIN}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({n_bytes} B, {n_ops} FLOP)")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": {"constraint_solve": k1_path, "substep": k3_path,
+                         "substep_multi": launches}[name][name],
+            "max_abs_err": main_err[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,  # no single PyTorch call computes these functions
+        })
+
+    spec = eng_k3.substep_spec
+    q, v, cmd, lam0, wrench = _substep_inputs(eng_k3, torch.Generator(device=dev).manual_seed(5), B_MAIN)
+    tau = eng_k3._joint_torque(cmd, q, v)
+    n_sub = env.n_substeps
+    entry(
+        "substep_multi", "jiminy_tpu_torch/csrc/substep.cu",
+        "jiminy_tpu/ops/substep_kernel.py:1815",
+        _time_cuda(lambda: substep_batched_multi(spec, n_sub, q, v, cmd, lam0, wrench), 20),
+        _time_cuda(lambda: substep_multi_reference(spec, n_sub, q, v, cmd, lam0, wrench), 3),
+        _substep_multi_bytes(spec, B_MAIN),
+        B_MAIN * (n_sub * (_substep_flops(spec) + _torque_flops(spec)) + 2 * spec.tree.nv),
+    )
+    entry(
+        "substep", "jiminy_tpu_torch/csrc/substep.cu",
+        "jiminy_tpu/ops/substep_kernel.py:1678",
+        _time_cuda(lambda: substep_batched(spec, q, v, tau, lam0, wrench), 20),
+        _time_cuda(lambda: substep_reference(spec, q, v, tau, lam0, wrench), 3),
+        _substep_bytes(spec, B_MAIN),
+        B_MAIN * _substep_flops(spec),
+    )
+    cfg = env_k1.engine.substep_spec.cfg
     args = _rand_system(torch.Generator(device=dev).manual_seed(2), B_MAIN, cfg.n, cfg.nc, dev)
-    ms = _time_cuda(lambda: solve_batched(cfg, *args, device=dev), 50)
-    plain_ms = _time_cuda(lambda: solve_reference(cfg, *args), 5)
-    t_bytes = _solve_bytes(cfg, B_MAIN) / HBM_BYTES_PER_S
-    t_ops = _solve_flops(cfg) * B_MAIN / F32_FLOP_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    print(f"[phase 3] constraint_solve B={B_MAIN}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.5f} ms ({_solve_bytes(cfg, B_MAIN)} B, "
-          f"{_solve_flops(cfg) * B_MAIN} FLOP)")
-
-    kernels = [{
-        "name": "constraint_solve",
-        "route": "cuda",
-        "source": "jiminy_tpu_torch/csrc/constraint_solve.cu",
-        "replaces": "jiminy_tpu/ops/constraint_solve.py:358",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-    }]
-    print(json.dumps({"env_steps_per_s": rates, "nvcc_build_s": build}))
+    entry(
+        "constraint_solve", "jiminy_tpu_torch/csrc/constraint_solve.cu",
+        "jiminy_tpu/ops/constraint_solve.py:358",
+        _time_cuda(lambda: solve_batched(cfg, *args, device=dev), 50),
+        _time_cuda(lambda: solve_reference(cfg, *args), 5),
+        _solve_bytes(cfg, B_MAIN),
+        _solve_flops(cfg) * B_MAIN,
+    )
+    print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_kernel_path": rates_k1,
+                      "nvcc_build_s": build}))
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -30,28 +30,13 @@
 // are one warp wide so that a 4096-env batch spreads over all SMs; each
 // thread's work is serial, so the kernel is latency-bound. A warp per
 // env, shared memory and tensor cores are later work.
+//
+// The chain itself is the device function `jt_solve_chain` of
+// solve_chain.cuh, which the whole-substep kernels (substep.cu) call too.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "solve_chain.cuh"
 
-#define JT_MAX_EQ 32
-#define JT_MAX_COLORS 16
 #define JT_THREADS 32
-
-struct BlockLayout {
-  int n_eq;                    // equality blocks, updated row by row
-  int eq[JT_MAX_EQ][2];        // (start, size)
-  int bounds_start;            // contiguous λ ≥ 0 rows
-  int bounds_size;             // 0: no bounds span
-  int n_colors;
-  int colors[JT_MAX_COLORS][2];  // (start, n_contacts), rows k×[t1,t2,n]
-};
-
-struct SolveParams {
-  int B, n, nc, iters, compute_residual;
-  float dt, relax, reg;
-};
 
 template <int NMAX, int NCMAX>
 __global__ void __launch_bounds__(JT_THREADS) solve_chain_kernel(
@@ -63,157 +48,11 @@ __global__ void __launch_bounds__(JT_THREADS) solve_chain_kernel(
     float* __restrict__ res_out, SolveParams prm, BlockLayout lay) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= prm.B) return;
-  const int n = prm.n, nc = prm.nc, m = nc + 1;
-
-  float L[NMAX * NMAX];          // L[i*NMAX + j], lower triangle
-  float X[NMAX * (NCMAX + 1)];   // X[k*m + c]: c = 0 → M⁻¹p, c ≥ 1 → M⁻¹Jᵀ
-  float A[NCMAX * NCMAX];        // Delassus + reg·I
-  float lam[NCMAX], rhs[NCMAX], diag[NCMAX], act[NCMAX], tmp[NCMAX];
-  float vfree[NMAX], jrow[NMAX];
-
-  const float* Mb = M + (size_t)b * n * n;
-  const float* Jb = J + (size_t)b * nc * n;
-  const size_t rb = (size_t)b * nc;
-
-  // ---- Cholesky–Crout, column j: s = M[j:, j] − L[j:, :j]·L[j, :j]
-  for (int j = 0; j < n; ++j) {
-    float s0 = Mb[j * n + j];
-    for (int k = 0; k < j; ++k) s0 -= L[j * NMAX + k] * L[j * NMAX + k];
-    const float d = sqrtf(fmaxf(s0, 1e-12f));
-    L[j * NMAX + j] = d;
-    for (int i = j + 1; i < n; ++i) {
-      float s = Mb[i * n + j];
-      for (int k = 0; k < j; ++k) s -= L[i * NMAX + k] * L[j * NMAX + k];
-      L[i * NMAX + j] = s / d;
-    }
-  }
-
-  // ---- X = M⁻¹ [p | Jᵀ]: forward L·y = rhs, then back Lᵀ·x = y
-  for (int i = 0; i < n; ++i) {
-    X[i * m] = p[(size_t)b * n + i];
-    for (int c = 0; c < nc; ++c) X[i * m + 1 + c] = Jb[c * n + i];
-  }
-  for (int i = 0; i < n; ++i) {
-    const float d = L[i * NMAX + i];
-    for (int c = 0; c < m; ++c) {
-      float s = X[i * m + c];
-      for (int k = 0; k < i; ++k) s -= L[i * NMAX + k] * X[k * m + c];
-      X[i * m + c] = s / d;
-    }
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    const float d = L[i * NMAX + i];
-    for (int c = 0; c < m; ++c) {
-      float s = X[i * m + c];
-      for (int k = i + 1; k < n; ++k) s -= L[k * NMAX + i] * X[k * m + c];
-      X[i * m + c] = s / d;
-    }
-  }
-  for (int k = 0; k < n; ++k)
-    vfree[k] = v[(size_t)b * n + k] + prm.dt * X[k * m];
-
-  // ---- Delassus A = J·M⁻¹Jᵀ + reg·I and rhs = target − J·v_free
-  for (int i = 0; i < nc; ++i) {
-    for (int k = 0; k < n; ++k) jrow[k] = Jb[i * n + k];
-    for (int c = 0; c < nc; ++c) {
-      float s = 0.f;
-      for (int k = 0; k < n; ++k) s += jrow[k] * X[k * m + 1 + c];
-      A[i * NCMAX + c] = s;
-    }
-    A[i * NCMAX + i] += prm.reg;
-    float jv = 0.f;
-    for (int k = 0; k < n; ++k) jv += jrow[k] * vfree[k];
-    rhs[i] = target[rb + i] - jv;
-    diag[i] = fmaxf(A[i * NCMAX + i], 1e-8f);
-    act[i] = active[rb + i];
-    lam[i] = act[i] != 0.f ? lam0[rb + i] : 0.f;
-  }
-
-  // residual of row i against the current λ: rhs_i − A_i·λ
-  auto row_r = [&](int i) {
-    float s = rhs[i];
-    for (int c = 0; c < nc; ++c) s -= A[i * NCMAX + c] * lam[c];
-    return s;
-  };
-
-  // ---- grouped PGS sweeps (order of engine/solver.py pgs_solve_grouped)
-  const float relax = prm.relax;
-  for (int it = 0; it < prm.iters; ++it) {
-    for (int e = 0; e < lay.n_eq; ++e) {
-      for (int i = lay.eq[e][0]; i < lay.eq[e][0] + lay.eq[e][1]; ++i) {
-        const float li = lam[i] + relax * row_r(i) / diag[i];
-        lam[i] = act[i] != 0.f ? li : 0.f;
-      }
-    }
-    if (lay.bounds_size > 0) {
-      const int s = lay.bounds_start, k = lay.bounds_size;
-      for (int i = s; i < s + k; ++i)
-        tmp[i] = fmaxf(lam[i] + relax * row_r(i) / diag[i], 0.f);
-      for (int i = s; i < s + k; ++i) lam[i] = act[i] != 0.f ? tmp[i] : 0.f;
-    }
-    for (int g = 0; g < lay.n_colors; ++g) {
-      const int s = lay.colors[g][0], k = lay.colors[g][1];
-      for (int t = 0; t < 3; ++t) {
-        const int j = t == 0 ? 2 : t - 1;  // normals, then t1, then t2
-        for (int c = 0; c < k; ++c) {
-          const int i = s + 3 * c + j;
-          float li = lam[i] + relax * row_r(i) / diag[i];
-          if (j == 2) li = fmaxf(li, 0.f);
-          tmp[c] = li;
-        }
-        for (int c = 0; c < k; ++c) {
-          const int i = s + 3 * c + j;
-          lam[i] = act[i] != 0.f ? tmp[c] : 0.f;
-        }
-      }
-      for (int c = 0; c < k; ++c) {  // friction-cone projection
-        const int i = s + 3 * c;
-        const float tn = sqrtf(lam[i] * lam[i] + lam[i + 1] * lam[i + 1] + 1e-24f);
-        const float lim = mu[rb + i + 2] * lam[i + 2];
-        const float scale = tn > lim ? lim / fmaxf(tn, 1e-12f) : 1.f;
-        lam[i] *= scale;
-        lam[i + 1] *= scale;
-      }
-    }
-  }
-
-  // ---- v⁺ = v_free + M⁻¹Jᵀ·λ and outputs
-  for (int k = 0; k < n; ++k) {
-    float s = vfree[k];
-    for (int c = 0; c < nc; ++c) s += X[k * m + 1 + c] * lam[c];
-    v_next[(size_t)b * n + k] = s;
-  }
-  for (int c = 0; c < nc; ++c) lam_out[rb + c] = lam[c];
-
-  float res = 0.f;
-  if (prm.compute_residual) {
-    for (int i = 0; i < nc; ++i) {
-      const float r = row_r(i);
-      tmp[i] = act[i] != 0.f ? fabsf(r) : 0.f;
-    }
-    for (int i = lay.bounds_start; i < lay.bounds_start + lay.bounds_size; ++i) {
-      const float r = row_r(i);
-      const float u = lam[i] > 1e-6f ? fabsf(r) : fmaxf(r, 0.f);
-      tmp[i] = act[i] != 0.f ? u : 0.f;
-    }
-    for (int g = 0; g < lay.n_colors; ++g) {
-      const int s = lay.colors[g][0], k = lay.colors[g][1];
-      for (int c = 0; c < k; ++c) {
-        const int i = s + 3 * c;
-        const float rn = row_r(i + 2);
-        const float nv = lam[i + 2] > 1e-6f ? fabsf(rn) : fmaxf(rn, 0.f);
-        const float tn = sqrtf(lam[i] * lam[i] + lam[i + 1] * lam[i + 1] + 1e-24f);
-        const bool sliding = tn >= 0.999f * fmaxf(lam[i + 2], 1e-9f);
-        const float t0 = sliding ? 0.f : fabsf(row_r(i));
-        const float t1 = sliding ? 0.f : fabsf(row_r(i + 1));
-        tmp[i] = act[i] != 0.f ? t0 : 0.f;
-        tmp[i + 1] = act[i + 1] != 0.f ? t1 : 0.f;
-        tmp[i + 2] = act[i + 2] != 0.f ? nv : 0.f;
-      }
-    }
-    for (int i = 0; i < nc; ++i) res = fmaxf(res, tmp[i]);
-  }
-  res_out[b] = res;
+  const int n = prm.n, nc = prm.nc;
+  const size_t rv = (size_t)b * n, rb = (size_t)b * nc;
+  res_out[b] = jt_solve_chain<NMAX, NCMAX>(
+      M + rv * n, n, p + rv, v + rv, J + rb * n, n, target + rb, mu + rb,
+      active + rb, lam0 + rb, v_next + rv, lam_out + rb, prm, lay);
 }
 
 // Largest sizes any instantiation takes (the wrapper checks them too).
@@ -227,44 +66,18 @@ extern "C" const char* jt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// layout: [n_eq, (start, size)×n_eq, bounds_start, bounds_size,
-//          n_colors, (start, n_contacts)×n_colors]
+// layout: see jt_parse_layout in solve_chain.cuh
 extern "C" int jt_solve_chain(
     const float* M, const float* p, const float* v, const float* J,
     const float* target, const float* mu, const float* active,
     const float* lam0, float* v_next, float* lam, float* res, int B, int n,
     int nc, const int* layout, int layout_len, int iters, float dt,
     float relax, float reg, int compute_residual, void* stream) {
-  if (B < 0 || n < 1 || nc < 1 || n > JT_MAX_N || nc > JT_MAX_NC ||
-      iters < 0 || layout_len < 4)
+  if (B < 0 || n < 1 || nc < 1 || n > JT_MAX_N || nc > JT_MAX_NC || iters < 0)
     return (int)cudaErrorInvalidValue;
-  BlockLayout lay = {};
-  int pos = 0;
-  lay.n_eq = layout[pos++];
-  if (lay.n_eq < 0 || lay.n_eq > JT_MAX_EQ) return (int)cudaErrorInvalidValue;
-  if (layout_len < 4 + 2 * lay.n_eq) return (int)cudaErrorInvalidValue;
-  for (int e = 0; e < lay.n_eq; ++e) {
-    lay.eq[e][0] = layout[pos++];
-    lay.eq[e][1] = layout[pos++];
-    if (lay.eq[e][0] < 0 || lay.eq[e][0] + lay.eq[e][1] > nc)
-      return (int)cudaErrorInvalidValue;
-  }
-  lay.bounds_start = layout[pos++];
-  lay.bounds_size = layout[pos++];
-  if (lay.bounds_size < 0 || lay.bounds_start < 0 ||
-      lay.bounds_start + lay.bounds_size > nc)
-    return (int)cudaErrorInvalidValue;
-  lay.n_colors = layout[pos++];
-  if (lay.n_colors < 0 || lay.n_colors > JT_MAX_COLORS ||
-      layout_len != pos + 2 * lay.n_colors)
-    return (int)cudaErrorInvalidValue;
-  for (int g = 0; g < lay.n_colors; ++g) {
-    lay.colors[g][0] = layout[pos++];
-    lay.colors[g][1] = layout[pos++];
-    if (lay.colors[g][0] < 0 || lay.colors[g][1] < 0 ||
-        lay.colors[g][0] + 3 * lay.colors[g][1] > nc)
-      return (int)cudaErrorInvalidValue;
-  }
+  BlockLayout lay;
+  const int err = jt_parse_layout(layout, layout_len, nc, &lay);
+  if (err != (int)cudaSuccess) return err;
   if (B == 0) return (int)cudaSuccess;
 
   SolveParams prm = {B, n, nc, iters, compute_residual, dt, relax, reg};

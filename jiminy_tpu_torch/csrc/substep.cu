@@ -1,0 +1,651 @@
+// Whole-substep kernels, one thread per env, for Hopper (sm_90a).
+//
+// Replaces: jiminy_tpu/ops/substep_kernel.py
+//   K2 `substep_batched_pallas_multi` → `_substep_multi_body` (n_sub
+//      substeps of an env step in one launch, τ recomputed in-kernel
+//      from the held command), and
+//   K3 `substep_batched_pallas` → `_substep_body` (one substep, τ given),
+// both reached through `_lane_kernel_call` → `pl.pallas_call`, in the
+// flagship configuration: flat ground, euler_symplectic, FREE and
+// REVOLUTE joints, joint bounds and bare-point ground contacts as PGS
+// rows, a (6,) local wrench on the root body, declarative PD or direct
+// motor command through the motor model (K2). No sensors, randomization,
+// collision pairs, distance rows or flexibility.
+//
+// One substep (`jt_substep`, the counterpart of `_substep_math`) is, per
+// env: FK → RNEA bias with the root wrench → CRBA + armature + dt·damping
+// → bounds rows and contact rows color-major (flat basis t1 = (0,−1,0),
+// t2 = (1,0,0), n = e_z; Baumgarte / velocity-barrier targets) → the
+// shared chain (solve_chain.cuh) → world impulses in the original
+// contact order → symplectic Euler with the quaternion exponential. The
+// arithmetic follows the plain version
+// (jiminy_tpu_torch/ops/substep_kernel.py `substep_reference`, i.e. the
+// engine's own plain physics) step for step.
+//
+// What bounds it on an H100 (ANYmal: nb 13, nv 18, nc 24, 8 sweeps,
+// 4 substeps): K2 moves ~0.76 KB per env (q, v, cmd, λ0, wrench in; q,
+// v, λ, residual, impulses, a, τ out), ~3.1 MB at B = 4096, ≈ 0.9 µs at
+// 3.35 TB/s; it does ~66 kFLOP per env per substep (the chain ~51k,
+// FK/RNEA/CRBA/Jacobians/integration the rest; counted by chip_smoke.py
+// `_substep_flops`), ≈ 1.07 GFLOP per env step at B = 4096, ≈ 16 µs at
+// the 67 TFLOP/s non-tensor f32 rate. So operations bound it. This design is far from that bound by choice: the TPU
+// kernel's lane-major layout (batch on the 128 vector lanes, the tree
+// unrolled into Python floats, the batch padded by repetition) does not
+// carry over, so one thread owns one env and keeps every intermediate
+// (body poses, M, J, the chain's L, X, A) in its local memory. The tree
+// arrives as a packed device buffer (read by every thread at the same
+// addresses, so it broadcasts from L1), bodies and rows are runtime loops
+// under compile-time caps ⟨NMAX, NCMAX, NBMAX⟩ = ⟨18, 24, 13⟩ (ANYmal)
+// or ⟨32, 48, 32⟩, one build serves every model. Blocks are one warp,
+// the ragged edge is masked. Each thread's work is serial, so the kernel
+// is latency-bound; a warp per env, shared memory and tensor cores are
+// later work.
+//
+// Packed spec (built by ops/substep_kernel.py `SubstepSpec.packed`):
+//   ints:   [nb, nq, nv, ncp, nbj, nm, torque mode, 0] then parent,
+//           joint type, q_off, v_off (nb each), contact body, color
+//           order (ncp each), bounded bodies (nbj), motor q_idx, v_idx
+//           (nm each);
+//   floats: 16 scalars (JT_S_* below), then per body [axis 3, placement
+//           rotation 9 (row-major), placement position 3, mass, h = m·c
+//           3, rotational inertia about the origin 9], armature (nv),
+//           damping (nv), contact positions (3·ncp), bounds low, high
+//           (nbj each), motors: reduction, effort limit, velocity limit,
+//           dry friction, viscous friction, friction velocity, kp, kd
+//           (nm each).
+
+#include "solve_chain.cuh"
+
+#define JT_THREADS 32
+#define JT_HDR_I 8
+#define JT_HDR_F 16
+#define JT_BODY_F 28
+#define JT_NQ_EXTRA 4  // nq ≤ nv + 4 (quaternion joints)
+
+enum { JT_FREE = 0, JT_REVOLUTE = 1 };
+enum { JT_TORQUE_NONE = 0, JT_TORQUE_PD = 1, JT_TORQUE_DIRECT = 2 };
+enum {
+  JT_S_DT = 0, JT_S_ALPHA_B, JT_S_ALPHA_C_DT, JT_S_SLOP, JT_S_MAX_CORR,
+  JT_S_MARGIN, JT_S_FRICTION, JT_S_GROUND, JT_S_GX, JT_S_GY, JT_S_GZ
+};
+
+struct SpecView {
+  int nb, nq, nv, ncp, nbj, nm, mode;
+  const int *parent, *jtype, *q_off, *v_off, *cbody, *corder, *bbody, *mq, *mv;
+  const float *scal, *body, *arm, *damp, *cpos, *blo, *bhi;
+  const float *red, *elim, *vlim, *fdry, *fvis, *feps, *kp, *kd;
+};
+
+__device__ __forceinline__ SpecView jt_view(const int* si, const float* sf) {
+  SpecView s;
+  s.nb = si[0]; s.nq = si[1]; s.nv = si[2]; s.ncp = si[3];
+  s.nbj = si[4]; s.nm = si[5]; s.mode = si[6];
+  const int* p = si + JT_HDR_I;
+  s.parent = p; p += s.nb;
+  s.jtype = p; p += s.nb;
+  s.q_off = p; p += s.nb;
+  s.v_off = p; p += s.nb;
+  s.cbody = p; p += s.ncp;
+  s.corder = p; p += s.ncp;
+  s.bbody = p; p += s.nbj;
+  s.mq = p; p += s.nm;
+  s.mv = p;
+  s.scal = sf;
+  const float* f = sf + JT_HDR_F;
+  s.body = f; f += JT_BODY_F * s.nb;
+  s.arm = f; f += s.nv;
+  s.damp = f; f += s.nv;
+  s.cpos = f; f += 3 * s.ncp;
+  s.blo = f; f += s.nbj;
+  s.bhi = f; f += s.nbj;
+  s.red = f; f += s.nm;
+  s.elim = f; f += s.nm;
+  s.vlim = f; f += s.nm;
+  s.fdry = f; f += s.nm;
+  s.fvis = f; f += s.nm;
+  s.feps = f; f += s.nm;
+  s.kp = f; f += s.nm;
+  s.kd = f;
+  return s;
+}
+
+// ---- 3-vectors, row-major 3×3 matrices, spatial (angular, linear) 6-vectors
+
+__device__ __forceinline__ void cross3(const float* a, const float* b, float* c) {
+  c[0] = a[1] * b[2] - a[2] * b[1];
+  c[1] = a[2] * b[0] - a[0] * b[2];
+  c[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+__device__ __forceinline__ void mat3_mul(const float* A, const float* B, float* C) {
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c)
+      C[3 * r + c] = A[3 * r] * B[c] + A[3 * r + 1] * B[3 + c] + A[3 * r + 2] * B[6 + c];
+}
+
+__device__ __forceinline__ void mat3_vec(const float* A, const float* x, float* y) {
+  for (int r = 0; r < 3; ++r)
+    y[r] = A[3 * r] * x[0] + A[3 * r + 1] * x[1] + A[3 * r + 2] * x[2];
+}
+
+__device__ __forceinline__ void mat3t_vec(const float* A, const float* x, float* y) {
+  for (int r = 0; r < 3; ++r)
+    y[r] = A[r] * x[0] + A[3 + r] * x[1] + A[6 + r] * x[2];
+}
+
+__device__ __forceinline__ void quat_to_m(const float* q, float* R) {
+  const float x = q[0], y = q[1], z = q[2], w = q[3];
+  const float xx = x * x, yy = y * y, zz = z * z;
+  const float xy = x * y, xz = x * z, yz = y * z;
+  const float wx = w * x, wy = w * y, wz = w * z;
+  R[0] = 1.f - 2.f * (yy + zz); R[1] = 2.f * (xy - wz); R[2] = 2.f * (xz + wy);
+  R[3] = 2.f * (xy + wz); R[4] = 1.f - 2.f * (xx + zz); R[5] = 2.f * (yz - wx);
+  R[6] = 2.f * (xz - wy); R[7] = 2.f * (yz + wx); R[8] = 1.f - 2.f * (xx + yy);
+}
+
+// Transform (R, p) of a child in its parent: motion parent → child
+__device__ __forceinline__ void motion_p2c(const float* R, const float* p,
+                                           const float* m, float* out) {
+  float pw[3], d[3];
+  mat3t_vec(R, m, out);
+  cross3(p, m, pw);
+  for (int k = 0; k < 3; ++k) d[k] = m[3 + k] - pw[k];
+  mat3t_vec(R, d, out + 3);
+}
+
+// force child → parent
+__device__ __forceinline__ void force_c2p(const float* R, const float* p,
+                                          const float* f, float* out) {
+  float ang[3], pl[3];
+  mat3_vec(R, f + 3, out + 3);
+  mat3_vec(R, f, ang);
+  cross3(p, out + 3, pl);
+  for (int k = 0; k < 3; ++k) out[k] = ang[k] + pl[k];
+}
+
+// spatial inertia (mass, h, I) times motion (w, v)
+__device__ __forceinline__ void inertia_mul(float mass, const float* h, const float* I,
+                                            const float* m, float* out) {
+  float Iw[3], hv[3], hw[3];
+  mat3_vec(I, m, Iw);
+  cross3(h, m + 3, hv);
+  cross3(h, m, hw);
+  for (int k = 0; k < 3; ++k) {
+    out[k] = Iw[k] + hv[k];
+    out[3 + k] = mass * m[3 + k] - hw[k];
+  }
+}
+
+// motion cross motion: (w×ow, w×ov + v×ow)
+__device__ __forceinline__ void motion_cross(const float* m, const float* o, float* out) {
+  float a[3], b[3];
+  cross3(m, o, out);
+  cross3(m, o + 3, a);
+  cross3(m + 3, o, b);
+  for (int k = 0; k < 3; ++k) out[3 + k] = a[k] + b[k];
+}
+
+// motion cross force: (w×n + v×f, w×f)
+__device__ __forceinline__ void motion_cross_force(const float* m, const float* f, float* out) {
+  float a[3], b[3];
+  cross3(m, f, a);
+  cross3(m + 3, f + 3, b);
+  for (int k = 0; k < 3; ++k) out[k] = a[k] + b[k];
+  cross3(m, f + 3, out + 3);
+}
+
+__device__ __forceinline__ int joint_nv(int jt) { return jt == JT_FREE ? 6 : 1; }
+
+// column c of joint i's motion subspace as (w, v)
+__device__ __forceinline__ void subspace_col(int jt, const float* axis, int c, float* col) {
+  for (int k = 0; k < 6; ++k) col[k] = 0.f;
+  if (jt == JT_FREE) {
+    if (c < 3) col[3 + c] = 1.f;  // linear dofs (v = [v_lin, ω])
+    else col[c - 3] = 1.f;        // angular dofs
+  } else {
+    for (int k = 0; k < 3; ++k) col[k] = axis[k];
+  }
+}
+
+// S_i · x[v_off(i):] as a spatial motion
+__device__ __forceinline__ void joint_motion(const SpecView& s, int i, const float* x, float* out) {
+  const int vo = s.v_off[i];
+  if (s.jtype[i] == JT_FREE) {
+    for (int k = 0; k < 3; ++k) {
+      out[k] = x[vo + 3 + k];
+      out[3 + k] = x[vo + k];
+    }
+  } else {
+    const float* axis = s.body + JT_BODY_F * i;
+    for (int k = 0; k < 3; ++k) {
+      out[k] = axis[k] * x[vo];
+      out[3 + k] = 0.f;
+    }
+  }
+}
+
+// ---- actuation torque (engine._joint_torque for a declarative controller:
+// PD or direct command → effort clamp → reduction → velocity derate →
+// dry + viscous friction, then joint damping)
+__device__ __forceinline__ float sign_of(float x) { return (float)((x > 0.f) - (x < 0.f)); }
+
+__device__ __forceinline__ void jt_torque(const SpecView& s, const float* q, const float* v,
+                                          const float* cmd, float* tau) {
+  for (int r = 0; r < s.nv; ++r) tau[r] = 0.f;
+  for (int m = 0; m < s.nm; ++m) {
+    const int vi = s.mv[m];
+    const float vj = v[vi];
+    float u = s.mode == JT_TORQUE_PD
+                  ? s.kp[m] * (cmd[m] - q[s.mq[m]]) - s.kd[m] * vj
+                  : cmd[m];
+    const float el = s.elim[m];
+    u = fminf(fmaxf(u, -el), el);
+    float tm = s.red[m] * u;
+    const float vl = s.vlim[m];
+    const float over =
+        fminf(fmaxf((fabsf(vj) - vl) / (0.1f * fmaxf(vl, 1e-6f)), 0.f), 1.f);
+    if (sign_of(tm) == sign_of(vj)) tm = tm * (1.f - over);
+    const float fric = s.fdry[m] * tanhf(vj / s.feps[m]) + s.fvis[m] * vj;
+    tau[vi] = tm - fric;
+  }
+  for (int r = 0; r < s.nv; ++r) tau[r] = tau[r] - s.damp[r] * v[r];
+}
+
+// ---- one impulse substep of one env (counterpart of `_substep_math`).
+// q (nq), v, tau (nv), lam0 (nc), w0 (6) → q_next (nq), v_next (nv),
+// lam_out (nc, may be lam0), fc (3·ncp world impulses); returns the
+// residual.
+template <int NMAX, int NCMAX, int NBMAX>
+__device__ __forceinline__ float jt_substep(
+    const SpecView& s, const float* q, const float* v, const float* tau,
+    const float* lam0, float* lam_out, const float* w0, float* q_next,
+    float* v_next, float* fc, const SolveParams& prm, const BlockLayout& lay) {
+  const int nb = s.nb, nv = s.nv, nc = prm.nc;
+  const float dt = s.scal[JT_S_DT];
+
+  float xlR[NBMAX][9], xlp[NBMAX][3], xwR[NBMAX][9], xwp[NBMAX][3];
+  float vel[NBMAX][6], acc[NBMAX][6], frc[NBMAX][6], Ic[NBMAX][13];
+  float M[NMAX * NMAX], J[NCMAX * NMAX], pf[NMAX];
+  float target[NCMAX], mu[NCMAX], active[NCMAX];
+  float col[6], t6[6], u6[6], vj[6];
+
+  // ---- FK: local transforms, world poses, local spatial velocities
+  for (int i = 0; i < nb; ++i) {
+    const float* bd = s.body + JT_BODY_F * i;  // axis, Rp, pp, ...
+    const int qo = s.q_off[i];
+    float Rj[9], pj[3] = {0.f, 0.f, 0.f}, t3[3];
+    if (s.jtype[i] == JT_FREE) {
+      quat_to_m(q + qo + 3, Rj);
+      for (int k = 0; k < 3; ++k) pj[k] = q[qo + k];
+    } else {  // Rodrigues: I + sin·K + (1 − cos)·K²
+      const float c = cosf(q[qo]), sn = sinf(q[qo]);
+      const float K[9] = {0.f, -bd[2], bd[1], bd[2], 0.f, -bd[0], -bd[1], bd[0], 0.f};
+      float KK[9];
+      mat3_mul(K, K, KK);
+      for (int r = 0; r < 9; ++r)
+        Rj[r] = ((r % 4 == 0) ? 1.f : 0.f) + sn * K[r] + (1.f - c) * KK[r];
+    }
+    mat3_mul(bd + 3, Rj, xlR[i]);
+    mat3_vec(bd + 3, pj, t3);
+    for (int k = 0; k < 3; ++k) xlp[i][k] = t3[k] + bd[12 + k];
+    joint_motion(s, i, v, vj);
+    const int p = s.parent[i];
+    if (p < 0) {
+      for (int k = 0; k < 9; ++k) xwR[i][k] = xlR[i][k];
+      for (int k = 0; k < 3; ++k) xwp[i][k] = xlp[i][k];
+      for (int k = 0; k < 6; ++k) vel[i][k] = vj[k];
+    } else {
+      mat3_mul(xwR[p], xlR[i], xwR[i]);
+      mat3_vec(xwR[p], xlp[i], t3);
+      for (int k = 0; k < 3; ++k) xwp[i][k] = t3[k] + xwp[p][k];
+      motion_p2c(xlR[i], xlp[i], vel[p], t6);
+      for (int k = 0; k < 6; ++k) vel[i][k] = t6[k] + vj[k];
+    }
+  }
+
+  // ---- RNEA bias rnea(q, v, 0) with the root wrench as fext[0]
+  float bias[NMAX];
+  {
+    const float a0[6] = {0.f, 0.f, 0.f, -s.scal[JT_S_GX], -s.scal[JT_S_GY], -s.scal[JT_S_GZ]};
+    for (int i = 0; i < nb; ++i) {
+      const float* bd = s.body + JT_BODY_F * i;
+      const int p = s.parent[i];
+      if (p < 0) {
+        motion_p2c(xlR[i], xlp[i], a0, acc[i]);
+      } else {
+        joint_motion(s, i, v, vj);
+        motion_p2c(xlR[i], xlp[i], acc[p], t6);
+        motion_cross(vel[i], vj, u6);
+        for (int k = 0; k < 6; ++k) acc[i][k] = t6[k] + u6[k];
+      }
+      inertia_mul(bd[15], bd + 16, bd + 19, acc[i], t6);
+      inertia_mul(bd[15], bd + 16, bd + 19, vel[i], u6);
+      motion_cross_force(vel[i], u6, col);
+      for (int k = 0; k < 6; ++k) frc[i][k] = t6[k] + col[k];
+    }
+    for (int k = 0; k < 6; ++k) frc[0][k] -= w0[k];
+    for (int i = nb - 1; i >= 0; --i) {
+      const int vo = s.v_off[i], jt = s.jtype[i];
+      for (int c = 0; c < joint_nv(jt); ++c) {
+        subspace_col(jt, s.body + JT_BODY_F * i, c, col);
+        float d = 0.f;
+        for (int k = 0; k < 6; ++k) d += frc[i][k] * col[k];
+        bias[vo + c] = d;
+      }
+      const int p = s.parent[i];
+      if (p >= 0) {
+        force_c2p(xlR[i], xlp[i], frc[i], t6);
+        for (int k = 0; k < 6; ++k) frc[p][k] += t6[k];
+      }
+    }
+  }
+
+  // ---- CRBA + armature + dt·damping (implicit joint damping)
+  for (int r = 0; r < nv * NMAX; ++r) M[r] = 0.f;
+  for (int i = 0; i < nb; ++i) {
+    const float* bd = s.body + JT_BODY_F * i;
+    for (int k = 0; k < 13; ++k) Ic[i][k] = bd[15 + k];  // mass, h, I
+  }
+  for (int i = nb - 1; i >= 0; --i) {
+    const int p = s.parent[i];
+    if (p >= 0) {  // Ic[p] += Ic[i] expressed in the parent
+      const float* R = xlR[i];
+      const float* pp = xlp[i];
+      const float m = Ic[i][0];
+      float rh[3], ha[3], RI[9], rot[9];
+      mat3_vec(R, Ic[i] + 1, rh);
+      for (int k = 0; k < 3; ++k) ha[k] = rh[k] + m * pp[k];
+      mat3_mul(R, Ic[i] + 4, RI);
+      for (int r = 0; r < 3; ++r)  // (R·I)·Rᵀ
+        for (int c = 0; c < 3; ++c)
+          rot[3 * r + c] = RI[3 * r] * R[3 * c] + RI[3 * r + 1] * R[3 * c + 1] +
+                           RI[3 * r + 2] * R[3 * c + 2];
+      // hat(a)·hat(b)ᵀ = (a·b)·I − b·aᵀ
+      const float d1 = dot3(pp, rh), d2 = dot3(ha, pp);
+      Ic[p][0] += m;
+      for (int k = 0; k < 3; ++k) Ic[p][1 + k] += ha[k];
+      for (int r = 0; r < 3; ++r)
+        for (int c = 0; c < 3; ++c) {
+          const float e = r == c ? 1.f : 0.f;
+          Ic[p][4 + 3 * r + c] +=
+              rot[3 * r + c] + (d1 * e - rh[r] * pp[c]) + (d2 * e - pp[r] * ha[c]);
+        }
+    }
+    const int jt = s.jtype[i], vo_i = s.v_off[i], nvi = joint_nv(jt);
+    const float* axis_i = s.body + JT_BODY_F * i;
+    float F[6][6];  // F[c] = Ic·S_c, one spatial force per dof of joint i
+    for (int c = 0; c < nvi; ++c) {
+      subspace_col(jt, axis_i, c, col);
+      inertia_mul(Ic[i][0], Ic[i] + 1, Ic[i] + 4, col, F[c]);
+    }
+    for (int a = 0; a < nvi; ++a) {
+      subspace_col(jt, axis_i, a, col);
+      for (int b = 0; b < nvi; ++b) {
+        float d = 0.f;
+        for (int k = 0; k < 6; ++k) d += col[k] * F[b][k];
+        M[(vo_i + a) * NMAX + vo_i + b] = d;
+      }
+    }
+    int j = i;
+    while (s.parent[j] >= 0) {
+      for (int c = 0; c < nvi; ++c) {
+        force_c2p(xlR[j], xlp[j], F[c], t6);
+        for (int k = 0; k < 6; ++k) F[c][k] = t6[k];
+      }
+      j = s.parent[j];
+      const int jtj = s.jtype[j], vo_j = s.v_off[j];
+      for (int b = 0; b < joint_nv(jtj); ++b) {
+        subspace_col(jtj, s.body + JT_BODY_F * j, b, col);
+        for (int a = 0; a < nvi; ++a) {
+          float d = 0.f;
+          for (int k = 0; k < 6; ++k) d += F[a][k] * col[k];
+          M[(vo_i + a) * NMAX + vo_j + b] = d;
+          M[(vo_j + b) * NMAX + vo_i + a] = d;
+        }
+      }
+    }
+  }
+  for (int r = 0; r < nv; ++r) {
+    M[r * NMAX + r] += s.arm[r];
+    M[r * NMAX + r] += dt * s.damp[r];
+    pf[r] = tau[r] - bias[r];
+  }
+
+  // ---- rows: bounds, then contacts color-major
+  for (int r = 0; r < nc * NMAX; ++r) J[r] = 0.f;
+  const float alpha_b = s.scal[JT_S_ALPHA_B];
+  for (int t = 0; t < s.nbj; ++t) {
+    const int i = s.bbody[t];
+    const float qj = q[s.q_off[i]];
+    const float d_lo = qj - s.blo[t], d_hi = s.bhi[t] - qj;
+    const float dist = fminf(d_lo, d_hi);
+    J[t * NMAX + s.v_off[i]] = d_lo < d_hi ? 1.f : -1.f;
+    target[t] = (dist < 0.f ? -alpha_b * dist : -dist) / dt;
+    active[t] = 1.f;
+    mu[t] = 0.f;
+  }
+  const float friction = s.scal[JT_S_FRICTION];
+  for (int jc = 0; jc < s.ncp; ++jc) {
+    const int k = s.corder[jc], b = s.cbody[k];
+    const int row = s.nbj + 3 * jc;
+    float pt[3], r3[3];
+    mat3_vec(xwR[b], s.cpos + 3 * k, pt);
+    for (int e = 0; e < 3; ++e) pt[e] += xwp[b][e];
+    // point Jacobian, written as the flat rows [t1; t2; n] = [−J_y; J_x; J_z]
+    for (int j = b; j >= 0; j = s.parent[j]) {
+      const int jt = s.jtype[j], vo = s.v_off[j];
+      for (int e = 0; e < 3; ++e) r3[e] = pt[e] - xwp[j][e];
+      for (int c = 0; c < joint_nv(jt); ++c) {
+        float wc[3], vc[3], wr[3], lin[3];
+        subspace_col(jt, s.body + JT_BODY_F * j, c, col);
+        mat3_vec(xwR[j], col, wc);
+        mat3_vec(xwR[j], col + 3, vc);
+        cross3(wc, r3, wr);
+        for (int e = 0; e < 3; ++e) lin[e] = vc[e] + wr[e];
+        J[row * NMAX + vo + c] = -lin[1];
+        J[(row + 1) * NMAX + vo + c] = lin[0];
+        J[(row + 2) * NMAX + vo + c] = lin[2];
+      }
+    }
+    // flat ground: penetrating → Baumgarte push-back; hovering within
+    // the margin → may approach the surface but not cross it
+    const float depth = s.scal[JT_S_GROUND] - pt[2];
+    const float corr = depth > 0.f
+        ? fminf(fmaxf(s.scal[JT_S_ALPHA_C_DT] * (depth - s.scal[JT_S_SLOP]), 0.f),
+                s.scal[JT_S_MAX_CORR])
+        : depth / dt;
+    const float act = depth > -s.scal[JT_S_MARGIN] ? 1.f : 0.f;
+    for (int e = 0; e < 3; ++e) {
+      target[row + e] = e == 2 ? corr : 0.f;
+      active[row + e] = act;
+      mu[row + e] = friction;
+    }
+  }
+
+  // ---- the shared chain
+  const float res = jt_solve_chain<NMAX, NCMAX>(
+      M, NMAX, pf, v, J, NMAX, target, mu, active, lam0, v_next, lam_out, prm, lay);
+
+  // ---- world impulses, original contact order: t1·λ₀ + t2·λ₁ + n·λ₂
+  for (int jc = 0; jc < s.ncp; ++jc) {
+    const int k = s.corder[jc], row = s.nbj + 3 * jc;
+    fc[3 * k] = lam_out[row + 1];
+    fc[3 * k + 1] = -lam_out[row];
+    fc[3 * k + 2] = lam_out[row + 2];
+  }
+
+  // ---- symplectic Euler: q ⊕ v⁺·dt
+  for (int i = 0; i < nb; ++i) {
+    const int qo = s.q_off[i], vo = s.v_off[i];
+    if (s.jtype[i] != JT_FREE) {
+      q_next[qo] = q[qo] + v_next[vo] * dt;
+      continue;
+    }
+    float R[9], dv[3], dp[3], w[3];
+    quat_to_m(q + qo + 3, R);
+    for (int k = 0; k < 3; ++k) dv[k] = v_next[vo + k] * dt;
+    mat3_vec(R, dv, dp);
+    for (int k = 0; k < 3; ++k) q_next[qo + k] = q[qo + k] + dp[k];
+    for (int k = 0; k < 3; ++k) w[k] = v_next[vo + 3 + k] * dt;
+    // exp of the local increment, Taylor-guarded at 0
+    const float th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+    const float th = sqrtf(th2 + 1e-24f);
+    const bool small = th2 < 1e-14f;
+    const float sh = small ? 0.5f - th2 / 48.f : sinf(0.5f * th) / th;
+    const float ew = small ? 1.f - th2 / 8.f : cosf(0.5f * th);
+    const float ex = w[0] * sh, ey = w[1] * sh, ez = w[2] * sh;
+    const float x = q[qo + 3], y = q[qo + 4], z = q[qo + 5], qw = q[qo + 6];
+    const float nx = qw * ex + x * ew + y * ez - z * ey;
+    const float ny = qw * ey - x * ez + y * ew + z * ex;
+    const float nz = qw * ez + x * ey - y * ex + z * ew;
+    const float nw = qw * ew - x * ex - y * ey - z * ez;
+    const float nrm = sqrtf(nx * nx + ny * ny + nz * nz + nw * nw + 1e-12f);
+    q_next[qo + 3] = nx / nrm;
+    q_next[qo + 4] = ny / nrm;
+    q_next[qo + 5] = nz / nrm;
+    q_next[qo + 6] = nw / nrm;
+  }
+  return res;
+}
+
+// ---- K3: one substep, τ given
+template <int NMAX, int NCMAX, int NBMAX>
+__global__ void __launch_bounds__(JT_THREADS) substep_kernel(
+    const int* __restrict__ si, const float* __restrict__ sf,
+    const float* __restrict__ q, const float* __restrict__ v,
+    const float* __restrict__ tau, const float* __restrict__ lam0,
+    const float* __restrict__ wrench, float* __restrict__ q_out,
+    float* __restrict__ v_out, float* __restrict__ lam_out,
+    float* __restrict__ res_out, float* __restrict__ fc_out, SolveParams prm,
+    BlockLayout lay) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= prm.B) return;
+  const SpecView s = jt_view(si, sf);
+  const size_t bq = (size_t)b * s.nq, bv = (size_t)b * s.nv, bc = (size_t)b * prm.nc;
+  res_out[b] = jt_substep<NMAX, NCMAX, NBMAX>(
+      s, q + bq, v + bv, tau + bv, lam0 + bc, lam_out + bc, wrench + 6 * (size_t)b,
+      q_out + bq, v_out + bv, fc_out + 3 * (size_t)b * s.ncp, prm, lay);
+}
+
+// ---- K2: n_sub substeps, (q, v, λ) resident, τ recomputed per substep
+template <int NMAX, int NCMAX, int NBMAX>
+__global__ void __launch_bounds__(JT_THREADS) substep_multi_kernel(
+    const int* __restrict__ si, const float* __restrict__ sf,
+    const float* __restrict__ q, const float* __restrict__ v,
+    const float* __restrict__ cmd, const float* __restrict__ lam0,
+    const float* __restrict__ wrench, float* __restrict__ q_out,
+    float* __restrict__ v_out, float* __restrict__ lam_out,
+    float* __restrict__ res_out, float* __restrict__ fc_out,
+    float* __restrict__ a_out, float* __restrict__ tau_out, int n_sub,
+    SolveParams prm, BlockLayout lay) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= prm.B) return;
+  const SpecView s = jt_view(si, sf);
+  const int nq = s.nq, nv = s.nv, nc = prm.nc;
+  constexpr int NQMAX = NMAX + JT_NQ_EXTRA;
+  float qs[NQMAX], vs[NMAX], qn[NQMAX], vn[NMAX], lam[NCMAX], fc[NCMAX];
+  float u[NMAX], tau[NMAX], w0[6];
+  for (int k = 0; k < nq; ++k) qs[k] = q[(size_t)b * nq + k];
+  for (int k = 0; k < nv; ++k) vs[k] = v[(size_t)b * nv + k];
+  for (int k = 0; k < nc; ++k) lam[k] = lam0[(size_t)b * nc + k];
+  for (int k = 0; k < s.nm; ++k) u[k] = cmd[(size_t)b * s.nm + k];
+  for (int k = 0; k < 6; ++k) w0[k] = wrench[6 * (size_t)b + k];
+  const float dt = s.scal[JT_S_DT];
+  float res = 0.f;
+  for (int it = 0; it < n_sub; ++it) {
+    jt_torque(s, qs, vs, u, tau);
+    res = jt_substep<NMAX, NCMAX, NBMAX>(s, qs, vs, tau, lam, lam, w0, qn, vn, fc, prm, lay);
+    if (it == n_sub - 1) {  // the last substep's accepted a and applied τ
+      for (int k = 0; k < nv; ++k) {
+        a_out[(size_t)b * nv + k] = (vn[k] - vs[k]) / dt;
+        tau_out[(size_t)b * nv + k] = tau[k];
+      }
+    }
+    for (int k = 0; k < nq; ++k) qs[k] = qn[k];
+    for (int k = 0; k < nv; ++k) vs[k] = vn[k];
+  }
+  for (int k = 0; k < nq; ++k) q_out[(size_t)b * nq + k] = qs[k];
+  for (int k = 0; k < nv; ++k) v_out[(size_t)b * nv + k] = vs[k];
+  for (int k = 0; k < nc; ++k) lam_out[(size_t)b * nc + k] = lam[k];
+  for (int k = 0; k < 3 * s.ncp; ++k) fc_out[(size_t)b * 3 * s.ncp + k] = fc[k];
+  res_out[b] = res;
+}
+
+// Largest sizes any instantiation takes (ops/substep_kernel.py MAX_* and
+// NQ_EXTRA check them before a launch too).
+#define JT_SUB_MAX_N 32
+#define JT_SUB_MAX_NC 48
+#define JT_SUB_MAX_NB 32
+
+extern "C" const char* jt_substep_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+static int jt_check_dims(int B, int nb, int nq, int nv, int nc, int nm,
+                         int iters, const int* layout, int layout_len,
+                         BlockLayout* lay) {
+  if (B < 0 || nb < 1 || nv < 1 || nc < 1 || nm < 0 || iters < 0 ||
+      nb > JT_SUB_MAX_NB || nv > JT_SUB_MAX_N || nc > JT_SUB_MAX_NC ||
+      nq < nv || nq > nv + JT_NQ_EXTRA || nm > nv)
+    return (int)cudaErrorInvalidValue;
+  return jt_parse_layout(layout, layout_len, nc, lay);
+}
+
+// the ANYmal main path takes the smallest frame
+static bool jt_small(int nb, int nv, int nc) { return nb <= 13 && nv <= 18 && nc <= 24; }
+
+// K3. si/sf: the packed spec; wrench (B, 6); fc (B, 3·ncp).
+extern "C" int jt_substep(
+    const int* si, const float* sf, const float* q, const float* v,
+    const float* tau, const float* lam0, const float* wrench, float* q_out,
+    float* v_out, float* lam_out, float* res, float* fc, int B, int nb,
+    int nq, int nv, int nc, const int* layout, int layout_len, int iters,
+    float dt, float relax, float reg, int compute_residual, void* stream) {
+  BlockLayout lay;
+  const int err = jt_check_dims(B, nb, nq, nv, nc, 0, iters, layout, layout_len, &lay);
+  if (err != (int)cudaSuccess) return err;
+  if (B == 0) return (int)cudaSuccess;
+  SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
+  const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (jt_small(nb, nv, nc)) {
+    substep_kernel<18, 24, 13><<<grid, block, 0, s>>>(
+        si, sf, q, v, tau, lam0, wrench, q_out, v_out, lam_out, res, fc, prm, lay);
+  } else {
+    substep_kernel<JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB><<<grid, block, 0, s>>>(
+        si, sf, q, v, tau, lam0, wrench, q_out, v_out, lam_out, res, fc, prm, lay);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2. cmd (B, nm); a and tau (B, nv) of the last substep.
+extern "C" int jt_substep_multi(
+    const int* si, const float* sf, const float* q, const float* v,
+    const float* cmd, const float* lam0, const float* wrench, float* q_out,
+    float* v_out, float* lam_out, float* res, float* fc, float* a_out,
+    float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int nm,
+    const int* layout, int layout_len, int iters, float dt, float relax,
+    float reg, int compute_residual, void* stream) {
+  BlockLayout lay;
+  const int err = jt_check_dims(B, nb, nq, nv, nc, nm, iters, layout, layout_len, &lay);
+  if (err != (int)cudaSuccess) return err;
+  if (n_sub < 1) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
+  const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (jt_small(nb, nv, nc)) {
+    substep_multi_kernel<18, 24, 13><<<grid, block, 0, s>>>(
+        si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out,
+        tau_out, n_sub, prm, lay);
+  } else {
+    substep_multi_kernel<JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB><<<grid, block, 0, s>>>(
+        si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out,
+        tau_out, n_sub, prm, lay);
+  }
+  return (int)cudaGetLastError();
+}

@@ -3,22 +3,33 @@
 Counterpart of ``jiminy_tpu/engine/engine.py`` for the slice's
 configuration: the impulse path (contacts and joint bounds as rows of a
 PGS velocity-level solve fused with a semi-implicit Euler step), flat
-ground, a declarative :class:`PDController` evaluated at every substep
-against the zero-order-hold command, and no whole-substep kernel.
+ground, a declarative :class:`PDController` or a direct motor command,
+and an optional (6,) local wrench on the root body held over the step.
 
-The dense solve chain of each substep has two backends, selected by
+The substep's physics has three backends, selected by
 ``EngineOptions.constraint_solver``:
 
-- ``"kernel"`` (default): :func:`jiminy_tpu_torch.ops.solve_batched`,
-  which launches the CUDA kernel on the card and runs its plain version
-  on the CPU (the reference's ``"pallas"`` branch);
-- ``"inline"``: the chain written inline in PyTorch (the reference's
-  ``"xla"`` branch), so the same physics runs with no kernel.
+- ``"substep"``: the whole-substep CUDA kernels of
+  :mod:`jiminy_tpu_torch.ops.substep_kernel` (the reference's
+  ``"pallas_substep"``): with ``substep_fusion`` and a declarative torque
+  path, all substeps of a step in one launch (K2), else one launch per
+  substep with τ computed outside (K3); on the CPU their plain versions;
+- ``"kernel"``: plain PyTorch physics around the chain kernel
+  :func:`jiminy_tpu_torch.ops.solve_batched` (K1; the reference's
+  ``"pallas"``);
+- ``"inline"``: plain PyTorch physics with the plain chain (the
+  reference's ``"xla"``), so the same physics runs with no kernel;
+- ``"auto"`` (the default): ``"substep"`` when the model is within the
+  whole-substep kernels' caps, else ``"kernel"``, as the reference's
+  ``"auto"`` builds on the accelerator. ``Engine.backend`` is the choice.
+
+Every backend runs the same substep: :func:`substep_reference` is the
+plain one, and the kernels are held against it.
 
 Not ported yet (each raises): penalty contacts and other steppers
 (ROADMAP A.16), kinematic constraints and collision pairs (A.12, A.13),
 flexibility and joint springs (A.14), model randomization (A.11), other
-grounds (A.10), the whole-substep kernel (B2/B3).
+grounds (A.10).
 """
 
 from __future__ import annotations
@@ -29,15 +40,15 @@ import numpy as np
 import torch
 
 from jiminy_tpu_torch import resolve_device
-from jiminy_tpu_torch.core import algos
-from jiminy_tpu_torch.core.tree import JointType, KinematicTree
-from jiminy_tpu_torch.engine import constraints as cstr
-from jiminy_tpu_torch.engine.contact import ContactParams, surface_contacts
+from jiminy_tpu_torch.core.tree import KinematicTree
+from jiminy_tpu_torch.engine.contact import ContactParams
 from jiminy_tpu_torch.engine.ground import FlatGround
-from jiminy_tpu_torch.engine.solver import pgs_solve_grouped
 from jiminy_tpu_torch.hardware.motors import Motors
-from jiminy_tpu_torch.math import linalg
-from jiminy_tpu_torch.ops.constraint_solve import SolveConfig, solve_batched
+
+# modules, not their names: ops.constraint_solve imports the engine's PGS
+# solver, so either package may be the one still importing
+from jiminy_tpu_torch.ops import constraint_solve as chain_ops
+from jiminy_tpu_torch.ops import substep_kernel as substep_ops
 
 
 @dataclasses.dataclass
@@ -69,8 +80,10 @@ def sim_state_from_arrays(d: dict, device="cuda", dtype=torch.float32) -> SimSta
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
     """The subset of the reference's EngineOptions that the slice reads
-    (same names and defaults, except ``constraint_solver``). Joint bounds
-    always run as PGS rows, the reference's choice on the impulse path."""
+    (same names and defaults; of ``constraint_solver``, the port's
+    ``"substep"``, ``"kernel"`` and ``"inline"`` are the reference's
+    ``"pallas_substep"``, ``"pallas"`` and ``"xla"``). Joint bounds always
+    run as PGS rows, the reference's choice on the impulse path."""
 
     solver: str = "euler_symplectic"
     dt: float = 1e-3
@@ -88,31 +101,32 @@ class EngineOptions:
     # so f32 noise between backends near grazing contact cannot flip the
     # active set
     contact_margin: float = 5e-3
-    constraint_solver: str = "kernel"  # "kernel" | "inline"
+    constraint_solver: str = "auto"  # "auto" | "substep" | "kernel" | "inline"
     bounds_baumgarte_freq: float = 20.0
     compute_solver_residual: bool = True
+    # with constraint_solver="substep" and a declarative torque path (PD
+    # or direct motor command): all substeps of a step() in one launch
+    substep_fusion: bool = True
 
 
 class PDController:
     """Declarative inner-loop PD: motor command = kp·(target − q_motor)
-    − kd·v_motor at every substep against the held env action."""
+    − kd·v_motor at every substep against the held env action (evaluated
+    by :func:`~jiminy_tpu_torch.ops.substep_kernel.torque_reference` and
+    in-kernel by K2)."""
 
     def __init__(self, kp, kd):
         self.kp = kp
         self.kd = kd
 
-    def bind(self, motors: Motors):
-        kp, kd = self.kp, self.kd
-
-        def fn(cmd, q, v):
-            qm, vm = motors.joint_state(q, v)
-            return kp * (cmd - qm) - kd * vm
-
-        return fn
-
 
 class Engine:
-    """Pure step function of one robot model, batched over envs."""
+    """Pure step function of one robot model, batched over envs.
+
+    ``controller`` is None (the command goes to the motors, or is the
+    joint torque when there are none), a :class:`PDController`, or any
+    ``fn(cmd, q, v) → motor command``. The first two are declarative, so
+    the fused kernel can evaluate them in-kernel."""
 
     def __init__(
         self,
@@ -128,77 +142,33 @@ class Engine:
         self.options = opts = options or EngineOptions()
         self.ground = ground if ground is not None else FlatGround()
         self.motors = motors.to(device=self.device) if motors is not None else None
-        if opts.solver != "euler_symplectic":
-            raise NotImplementedError(
-                f"stepper {opts.solver!r} is not ported yet (ROADMAP A.16)"
-            )
-        if opts.contact_model != "constraint":
-            raise NotImplementedError(
-                "only contact_model='constraint' is ported (ROADMAP A.16)"
-            )
-        if opts.constraint_solver not in ("kernel", "inline"):
+        if opts.constraint_solver not in ("auto", "substep", "kernel", "inline"):
             raise ValueError(f"unknown constraint_solver {opts.constraint_solver!r}")
-        if not isinstance(self.ground, FlatGround):
-            raise NotImplementedError("only FlatGround is ported (ROADMAP A.10)")
-        t = self.tree
-        if t.ncp and bool(torch.any(t.contact_radius > 0)):
-            raise NotImplementedError(
-                "sphere/capsule contact sites are not ported yet (ROADMAP A.13)"
-            )
-        if bool(torch.any(t.stiffness != 0)):
-            raise NotImplementedError(
-                "joint springs / flexibility are not ported yet (ROADMAP A.14)"
-            )
+        torque = None
         if isinstance(controller, PDController):
             if motors is None:
                 raise ValueError("PDController requires motors")
-            controller = controller.bind(self.motors)
+            torque = substep_ops.TorqueSpec.from_motors(self.motors, controller.kp, controller.kd)
+            controller = None  # declarative: spec.torque evaluates it
+        elif controller is None and self.motors is not None:
+            torque = substep_ops.TorqueSpec.from_motors(self.motors)
         self.controller = controller
-
-        # static row layout: [bounds | contacts color-major]
-        self.bounded_joints = self._bounded_joints()
-        ncp = t.ncp
-        # color-major contact order: interleaved halves (diagonal leg
-        # pairs on quadrupeds), each color's rows contiguous
-        self.color_order = list(range(0, ncp, 2)) + list(range(1, ncp, 2))
-        inv = [0] * ncp
-        for j, k in enumerate(self.color_order):
-            inv[k] = j
-        self.color_inverse = inv
-        nb_rows = len(self.bounded_joints)
-        n0 = len(range(0, ncp, 2))
-        self.contact_off = nb_rows
-        self.nc = nb_rows + 3 * ncp
-        self.solve_config = SolveConfig(
-            n=t.nv,
-            nc=self.nc,
-            dt=float(opts.dt),
-            eq_blocks=(),
-            bounds_span=(0, nb_rows) if nb_rows else None,
-            contact_colors=(
-                ((nb_rows, n0), (nb_rows + 3 * n0, ncp - n0)) if ncp else ()
-            ),
-            iters=opts.pgs_iters,
-            relax=opts.pgs_relax,
-            reg=opts.pgs_reg,
-            compute_residual=opts.compute_solver_residual,
+        # the static substep: row layout, solve configuration, constants
+        self.substep_spec = spec = substep_ops.SubstepSpec(
+            self.tree, opts, self.ground, motors=self.motors, torque=torque
         )
-        # float32 constants rounded as the reference's traced f32 math
-        f32 = np.float32
-        self._alpha_bounds = float(cstr.baumgarte_alpha(opts.bounds_baumgarte_freq, opts.dt))
-        alpha_c = cstr.baumgarte_alpha(opts.contact_baumgarte_freq, opts.dt)
-        self._alpha_c_over_dt = float(alpha_c / f32(opts.dt))
-
-    def _bounded_joints(self) -> list[int]:
-        """1-DoF joints with finite position limits."""
-        t = self.tree
-        q_min = t.q_min.cpu().numpy()
-        q_max = t.q_max.cpu().numpy()
-        return [
-            i for i in range(t.nb)
-            if t.joint_type[i] in (JointType.REVOLUTE, JointType.PRISMATIC)
-            and (q_min[t.q_off[i]] > -1e5 or q_max[t.q_off[i]] < 1e5)
-        ]
+        self.nc = spec.nc
+        self.backend = opts.constraint_solver
+        if self.backend == "substep":
+            # as the reference's explicit "pallas_substep" request, a model
+            # outside the kernels' scope fails here, not at the first step
+            spec.check_kernel_caps("constraint_solver='substep'")
+        elif self.backend == "auto":
+            try:
+                spec.check_kernel_caps("constraint_solver='auto'")
+                self.backend = "substep"
+            except ValueError:
+                self.backend = "kernel"
 
     def reset(self, q: torch.Tensor, v: torch.Tensor | None = None) -> SimState:
         """Fresh state at (q, v) for a batch: q (B, nq), v (B, nv)."""
@@ -220,111 +190,61 @@ class Engine:
     def _joint_torque(self, u, q, v):
         """Command → actuation torque: inner-loop controller, motor
         model, joint damping."""
+        if self.substep_spec.torque is not None:  # declarative: PD or direct
+            return substep_ops.torque_reference(self.substep_spec, q, v, u)
         if self.controller is not None:
             u = self.controller(u, q, v)
         tau = self.motors.compute_effort(u, v) if self.motors is not None else u
         return tau - self.tree.damping * v
 
-    def _impulse_substep(self, q, v, u, lam0):
+    def _solve_chain_kernel(self, cfg, *args):
+        return chain_ops.solve_batched(
+            cfg, *(a.contiguous() for a in args), device=self.device
+        )
+
+    def _impulse_substep(self, q, v, u, lam0, wrench):
         """One semi-implicit Euler substep with velocity-level PGS impulses
         for joint bounds and ground contacts. Returns (q⁺, v⁺,
         contact_forces, residual, λ, a, τ)."""
-        tree, opts = self.tree, self.options
-        dt = float(opts.dt)
-        xl = algos.local_transforms(tree, q)
-        xw, vel = algos.kinematics(tree, q, v, xl=xl)
+        dt = self.substep_spec.dt
         tau = self._joint_torque(u, q, v)
-        # implicit joint damping: (M + dt·C)·Δv = dt·(τ − C·v − bias)
-        M = algos.crba(tree, q, xl=xl) + torch.diag(dt * tree.damping)
-        bias = algos.rnea(tree, q, v, torch.zeros_like(v), xl=xl)
-        p_free = tau - bias
-
-        Js, targets, actives, mus = [], [], [], []
-        if self.bounded_joints:
-            Jb, tb = cstr.bound_rows(tree, self.bounded_joints, q, dt, self._alpha_bounds)
-            Js.append(Jb)
-            targets.append(tb)
-            actives.append(torch.ones_like(tb, dtype=torch.bool))
-            mus.append(torch.zeros_like(tb))
-        ncp = tree.ncp
-        if ncp:
-            pts, _, depth, n = surface_contacts(tree, xw, vel, self.ground)
-            t1, t2 = cstr.tangent_basis(n)
-            # penetrating: Baumgarte push-back; hovering within the
-            # margin: may approach the surface but not cross it
-            v_corr = torch.where(
-                depth > 0.0,
-                torch.clamp(
-                    self._alpha_c_over_dt * (depth - opts.contact_slop),
-                    0.0, opts.contact_max_correction_vel,
-                ),
-                depth / dt,
-            )
-            order = self.color_order
-            Jp = torch.stack(
-                [algos.point_jacobian(tree, xw, tree.contact_body[k], pts[:, k])
-                 for k in order],
-                dim=1,
-            )  # (B, ncp, 3, nv)
-            basis = torch.stack([t1, t2, n], dim=-2)[:, order]  # (B, ncp, 3, 3)
-            Js.append((basis @ Jp).reshape(q.shape[0], 3 * ncp, tree.nv))
-            tgt = torch.zeros_like(basis[..., 0])
-            tgt[..., 2] = v_corr[:, order]
-            targets.append(tgt.reshape(q.shape[0], 3 * ncp))
-            act = (depth > -opts.contact_margin)[:, order]
-            actives.append(act[:, :, None].expand(-1, -1, 3).reshape(q.shape[0], 3 * ncp))
-            mus.append(torch.full_like(targets[-1], float(opts.contacts.friction)))
-
-        J = torch.cat(Js, dim=1)
-        target = torch.cat(targets, dim=1)
-        active = torch.cat(actives, dim=1)
-        mu = torch.cat(mus, dim=1)
-        cfg = self.solve_config
-        if opts.constraint_solver == "kernel":
-            v_next, lam, residual = solve_batched(
-                cfg, M.contiguous(), p_free.contiguous(), v.contiguous(),
-                J.contiguous(), target.contiguous(), mu.contiguous(),
-                active.to(q.dtype).contiguous(), lam0.contiguous(),
-                device=self.device,
-            )
+        backend = self.backend
+        if backend == "substep":
+            out = substep_ops.substep_batched(self.substep_spec, q, v, tau, lam0, wrench)
         else:
-            L = linalg.cholesky(M)
-            a_free = linalg.cho_solve(L, p_free)
-            v_free = v + dt * a_free
-            MinvJT = linalg.cho_solve(L, J.transpose(-1, -2))
-            A = J @ MinvJT + opts.pgs_reg * torch.eye(cfg.nc, dtype=q.dtype, device=q.device)
-            rhs = target - (J @ v_free[:, :, None])[..., 0]
-            lam, residual = pgs_solve_grouped(
-                A, rhs, mu, active,
-                eq_blocks=cfg.eq_blocks,
-                bounds_span=cfg.bounds_span,
-                contact_colors=cfg.contact_colors,
-                iters=opts.pgs_iters,
-                relax=opts.pgs_relax,
-                lam0=lam0,
-                compute_residual=opts.compute_solver_residual,
+            solve = self._solve_chain_kernel if backend == "kernel" else None
+            out = substep_ops.substep_reference(
+                self.substep_spec, q, v, tau, lam0, wrench, solve=solve
             )
-            v_next = v_free + (MinvJT @ lam[:, :, None])[..., 0]
-        q_next = algos.integrate(tree, q, v_next, dt)
+        q_next, v_next, lam, residual, impulse = out
+        return q_next, v_next, impulse / dt, residual, lam, (v_next - v) / dt, tau
 
-        if ncp:
-            off = self.contact_off
-            lam_c = lam[:, off:off + 3 * ncp].reshape(-1, ncp, 3)[:, self.color_inverse]
-            f_contact = (
-                t1 * lam_c[..., 0:1] + t2 * lam_c[..., 1:2] + n * lam_c[..., 2:3]
-            ) / dt
-        else:
-            f_contact = q.new_zeros(q.shape[0], 0, 3)
-        return q_next, v_next, f_contact, residual, lam, (v_next - v) / dt, tau
-
-    def step(self, state: SimState, u: torch.Tensor, n_substeps: int = 1) -> SimState:
+    def step(
+        self, state: SimState, u: torch.Tensor, n_substeps: int = 1,
+        base_wrench: torch.Tensor | None = None,
+    ) -> SimState:
         """Advance by ``n_substeps × dt`` with the zero-order-hold command
-        ``u`` (B, nm)."""
+        ``u`` (B, nm). ``base_wrench``: optional (B, 6) local [ang; lin]
+        spatial wrench on the root body held over the step (push
+        disturbances)."""
+        spec, dt = self.substep_spec, self.substep_spec.dt
         q, v, t, lam = state.q, state.v, state.t, state.lam
+        wrench = base_wrench
+        if self.backend == "substep":
+            if wrench is None:  # the kernels always take one
+                wrench = q.new_zeros(q.shape[0], 6)
+            if self.options.substep_fusion and spec.torque is not None:
+                q, v, lam, res, impulse, a, tau = substep_ops.substep_batched_multi(
+                    spec, n_substeps, q, v, u, lam, wrench
+                )
+                return SimState(
+                    t=t + n_substeps * dt, q=q, v=v, contact_forces=impulse / dt,
+                    solver_residual=res, lam=lam, a=a, tau=tau,
+                )
         f_c, res, a, tau = state.contact_forces, state.solver_residual, state.a, state.tau
         for _ in range(n_substeps):
-            q, v, f_c, res, lam, a, tau = self._impulse_substep(q, v, u, lam)
-            t = t + self.options.dt
+            q, v, f_c, res, lam, a, tau = self._impulse_substep(q, v, u, lam, wrench)
+            t = t + dt
         return SimState(
             t=t, q=q, v=v, contact_forces=f_c, solver_residual=res,
             lam=lam, a=a, tau=tau,

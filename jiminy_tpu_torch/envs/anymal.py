@@ -50,7 +50,7 @@ class ANYmalEnv(WalkerEnv):
         terrain: str | None = None,
         push_magnitude: float = 0.0,
         observe: str = "state",
-        constraint_solver: str = "kernel",
+        constraint_solver: str = "auto",
         device="cuda",
         dtype=torch.float32,
         **kwargs,

@@ -46,7 +46,7 @@ class WalkerEnv(BaseEnv):
         reset_noise: float = 0.1,
         min_height: float = 0.3,
         max_tilt_cos: float = 0.6,
-        constraint_solver: str = "kernel",
+        constraint_solver: str = "auto",
         device="cuda",
     ):
         engine = Engine(

@@ -10,7 +10,9 @@ once. No PyTorch headers and no ninja are involved: nvcc alone, seconds
 per source.
 
 A missing nvcc or a failed build raises with nvcc's own output; nothing
-falls back to a plain version.
+falls back to a plain version. nvcc's output of a build (ptxas's
+registers, stack and spills per kernel) is kept beside the library and
+read back by :func:`ptxas_report`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -92,9 +94,19 @@ def build_all() -> dict[str, float]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            out.with_suffix(".log").write_text(log)
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds
+
+
+def ptxas_report(name: str) -> list[str]:
+    """ptxas's lines for ``csrc/<name>.cu`` from its build: per kernel
+    instantiation, the registers, stack frame and spills."""
+    log = library_path(name, find_nvcc()).with_suffix(".log")
+    lines = log.read_text().splitlines() if log.exists() else []
+    keep = ("Compiling entry", "Used", "stack frame")
+    return [ln.strip() for ln in lines if any(k in ln for k in keep)]
 
 
 @functools.cache

@@ -1,0 +1,514 @@
+"""Whole-substep kernels and their plain versions.
+
+Counterpart of ``jiminy_tpu/ops/substep_kernel.py``. One impulse substep
+of the engine, for every env of a batch:
+
+    FK → RNEA bias (with a root wrench) → CRBA + armature + dt·damping
+    → joint-bound rows and ground-contact rows, color-major
+    → the solve chain (chol → M⁻¹[p|Jᵀ] → Delassus → grouped PGS)
+    → world contact impulses → symplectic Euler
+
+- :func:`substep_reference` is the plain PyTorch substep, the very
+  function the engine runs on its ``"inline"`` and ``"kernel"`` paths;
+  :func:`substep_multi_reference` chains ``n_sub`` of them with the
+  actuation torque recomputed before each (:func:`torque_reference`).
+- :func:`substep_batched` (K3, one substep, τ given) and
+  :func:`substep_batched_multi` (K2, ``n_sub`` substeps in one launch)
+  are the entry points: on CUDA tensors they launch the hand-written
+  kernels of ``csrc/substep.cu`` (built with nvcc, loaded with ctypes); on
+  CPU tensors they run the plain versions. They never fall back from one
+  to the other. ``.launches`` on each counts kernel launches.
+
+:class:`SubstepSpec` is the static description of one engine's substep
+(row layout, solve configuration, Baumgarte constants, the tree) and
+packs it once per device into the buffers the kernels read;
+:class:`TorqueSpec` is the declarative actuation path that K2 evaluates
+in-kernel. Out of scope (each raises, naming its ROADMAP item): other
+steppers and the penalty contact model (A.16), grounds other than flat
+(A.10, B.4), sphere contact sites and collision pairs (A.13, B.7),
+joint springs and flexibility (A.14, B.8), joints other than FREE and
+REVOLUTE (A.14, A.15); randomization (B.5), the sensor stage (B.6) and
+distance rows (B.9) have no entry here yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from jiminy_tpu_torch.core import algos
+from jiminy_tpu_torch.core.tree import JointType, KinematicTree
+from jiminy_tpu_torch.engine import constraints as cstr
+from jiminy_tpu_torch.engine.contact import surface_contacts
+from jiminy_tpu_torch.engine.ground import FlatGround
+from jiminy_tpu_torch.hardware.motors import Motors
+# a module, not its names: the engine package imports this module while
+# ops.constraint_solve may still be importing the engine's PGS solver
+from jiminy_tpu_torch.ops import constraint_solve as chain
+
+_TORQUE_MODES = {"pd": 1, "direct": 2}
+_HDR_I, _HDR_F = 8, 16  # header lengths of the packed spec (csrc/substep.cu)
+# the kernels' largest instantiation (csrc/substep.cu JT_SUB_MAX_*,
+# JT_NQ_EXTRA); the C entry points refuse anything larger as well
+MAX_NB, MAX_NV, MAX_NC, NQ_EXTRA = 32, 32, 48, 4
+
+
+@dataclasses.dataclass(frozen=True)
+class TorqueSpec:
+    """Declarative actuation torque (the reference's ``TorqueSpec``, field
+    for field): mode ``"pd"``, u = kp·(cmd − q[q_idx]) − kd·v[v_idx], or
+    ``"direct"``, u = cmd; then the motor model and joint damping."""
+
+    mode: str
+    q_idx: tuple
+    v_idx: tuple
+    reduction: tuple
+    effort_limit: tuple
+    velocity_limit: tuple
+    friction_dry: tuple
+    friction_viscous: tuple
+    friction_vel_eps: tuple
+    kp: tuple | None = None
+    kd: tuple | None = None
+
+    @property
+    def nm(self) -> int:
+        return len(self.v_idx)
+
+    @staticmethod
+    def from_motors(motors: Motors, kp=None, kd=None) -> "TorqueSpec":
+        """PD mode when ``kp`` and ``kd`` are given (scalars or (nm,)),
+        else direct motor command."""
+
+        def floats(x):
+            return tuple(float(a) for a in np.broadcast_to(np.asarray(x, np.float64), (motors.nm,)))
+
+        def param(name):
+            return floats(getattr(motors, name).detach().cpu().numpy())
+
+        pd = kp is not None and kd is not None
+        return TorqueSpec(
+            mode="pd" if pd else "direct",
+            q_idx=tuple(motors.q_idx),
+            v_idx=tuple(motors.v_idx),
+            reduction=param("reduction"),
+            effort_limit=param("effort_limit"),
+            velocity_limit=param("velocity_limit"),
+            friction_dry=param("friction_dry"),
+            friction_viscous=param("friction_viscous"),
+            friction_vel_eps=param("friction_vel_eps"),
+            kp=floats(kp) if pd else None,
+            kd=floats(kd) if pd else None,
+        )
+
+
+class SubstepSpec:
+    """Static description of one engine's impulse substep.
+
+    Rows are [bounds | contacts color-major]: one row per bounded 1-DoF
+    joint, then [t1, t2, n] per contact site, the sites in
+    ``color_order`` (interleaved halves: diagonal leg pairs on
+    quadrupeds), each color's rows contiguous. ``torque`` (or None) is
+    the declarative actuation path that K2 needs; ``motors`` the bank it
+    reads."""
+
+    def __init__(
+        self,
+        tree: KinematicTree,
+        options,
+        ground,
+        motors: Motors | None = None,
+        torque: TorqueSpec | None = None,
+    ):
+        if options.solver != "euler_symplectic":
+            raise NotImplementedError(
+                f"stepper {options.solver!r} is not ported yet (ROADMAP A.16)"
+            )
+        if options.contact_model != "constraint":
+            raise NotImplementedError(
+                "only contact_model='constraint' is ported (ROADMAP A.16)"
+            )
+        if not isinstance(ground, FlatGround):
+            raise NotImplementedError("only FlatGround is ported (ROADMAP A.10, B.4)")
+        if tree.ncp and bool(torch.any(tree.contact_radius > 0)):
+            raise NotImplementedError(
+                "sphere/capsule contact sites are not ported yet (ROADMAP A.13)"
+            )
+        if bool(torch.any(tree.stiffness != 0)):
+            raise NotImplementedError(
+                "joint springs / flexibility are not ported yet (ROADMAP A.14, B.8)"
+            )
+        bad = [t for t in tree.joint_type if t not in (JointType.FREE, JointType.REVOLUTE)]
+        if bad:
+            raise NotImplementedError(
+                f"{JointType(bad[0]).name} joints are not ported yet (ROADMAP A.14, A.15)"
+            )
+        if torque is not None and motors is None:
+            raise ValueError("a TorqueSpec needs the motor bank")
+        self.tree = tree
+        self.options = opts = options
+        self.motors = motors
+        self.torque = torque
+        self.ground = ground
+        self.ground_height = float(ground.height)
+        self.friction = float(opts.contacts.friction)
+        self.dt = float(opts.dt)
+
+        self.bounded_joints = self._bounded_joints(tree)
+        ncp = tree.ncp
+        self.color_order = list(range(0, ncp, 2)) + list(range(1, ncp, 2))
+        inv = [0] * ncp
+        for j, k in enumerate(self.color_order):
+            inv[k] = j
+        self.color_inverse = inv
+        nbj = len(self.bounded_joints)
+        n0 = len(range(0, ncp, 2))
+        self.contact_off = nbj
+        self.nc = nbj + 3 * ncp
+        self.cfg = chain.SolveConfig(
+            n=tree.nv,
+            nc=self.nc,
+            dt=self.dt,
+            eq_blocks=(),
+            bounds_span=(0, nbj) if nbj else None,
+            contact_colors=((nbj, n0), (nbj + 3 * n0, ncp - n0)) if ncp else (),
+            iters=opts.pgs_iters,
+            relax=opts.pgs_relax,
+            reg=opts.pgs_reg,
+            compute_residual=opts.compute_solver_residual,
+        )
+        # float32 constants rounded as the reference's traced f32 math
+        f32 = np.float32
+        self.alpha_bounds = float(cstr.baumgarte_alpha(opts.bounds_baumgarte_freq, opts.dt))
+        alpha_c = cstr.baumgarte_alpha(opts.contact_baumgarte_freq, opts.dt)
+        self.alpha_c_over_dt = float(alpha_c / f32(opts.dt))
+        self._packed: dict = {}
+
+    @staticmethod
+    def _bounded_joints(tree: KinematicTree) -> list[int]:
+        """1-DoF joints with finite position limits."""
+        q_min = tree.q_min.cpu().numpy()
+        q_max = tree.q_max.cpu().numpy()
+        return [
+            i for i in range(tree.nb)
+            if tree.joint_type[i] in (JointType.REVOLUTE, JointType.PRISMATIC)
+            and (q_min[tree.q_off[i]] > -1e5 or q_max[tree.q_off[i]] < 1e5)
+        ]
+
+    def check_kernel_caps(self, who: str):
+        """Raise ValueError when the model is larger than the whole-substep
+        kernels take."""
+        t = self.tree
+        if t.nb > MAX_NB or t.nv > MAX_NV or not 1 <= self.nc <= MAX_NC \
+                or t.nq > t.nv + NQ_EXTRA:
+            raise ValueError(
+                f"{who}: nb={t.nb}, nv={t.nv}, nq={t.nq}, nc={self.nc} outside the "
+                f"whole-substep kernels' caps (nb ≤ {MAX_NB}, nv ≤ {MAX_NV}, "
+                f"1 ≤ nc ≤ {MAX_NC}, nq ≤ nv + {NQ_EXTRA})"
+            )
+
+    def packed(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """(int32, float32) buffers of the spec on ``device``, laid out as
+        ``csrc/substep.cu`` reads them; built once per device."""
+        key = str(device)
+        if key not in self._packed:
+            self._packed[key] = tuple(
+                torch.as_tensor(a, device=device) for a in self._pack()
+            )
+        return self._packed[key]
+
+    def _pack(self) -> tuple[np.ndarray, np.ndarray]:
+        t, ts = self.tree, self.torque
+        bj = self.bounded_joints
+        nm = ts.nm if ts is not None else 0
+        mode = _TORQUE_MODES[ts.mode] if ts is not None else 0
+        ints = [t.nb, t.nq, t.nv, t.ncp, len(bj), nm, mode]
+        ints += [0] * (_HDR_I - len(ints))
+        ints += list(t.parent) + [int(j) for j in t.joint_type]
+        ints += list(t.q_off) + list(t.v_off)
+        ints += list(t.contact_body) + self.color_order + bj
+        if ts is not None:
+            ints += list(ts.q_idx) + list(ts.v_idx)
+
+        def arr(x):
+            return x.detach().cpu().numpy().astype(np.float64)
+
+        g = arr(t.gravity)
+        scal = [
+            self.dt, self.alpha_bounds, self.alpha_c_over_dt,
+            self.options.contact_slop, self.options.contact_max_correction_vel,
+            self.options.contact_margin, self.friction, self.ground_height,
+            *g,
+        ]
+        scal += [0.0] * (_HDR_F - len(scal))
+        body = np.concatenate(
+            [
+                arr(t.axis), arr(t.jp_rot).reshape(t.nb, 9), arr(t.jp_pos),
+                arr(t.inertia_mass)[:, None], arr(t.inertia_h),
+                arr(t.inertia_mat).reshape(t.nb, 9),
+            ],
+            axis=1,
+        )
+        qo = [t.q_off[i] for i in bj]
+        parts = [
+            np.asarray(scal), body.ravel(), arr(t.armature), arr(t.damping),
+            arr(t.contact_pos).ravel(), arr(t.q_min)[qo], arr(t.q_max)[qo],
+        ]
+        if ts is not None:
+            zeros = (0.0,) * nm
+            parts += [
+                np.asarray(x) for x in (
+                    ts.reduction, ts.effort_limit, ts.velocity_limit,
+                    ts.friction_dry, ts.friction_viscous, ts.friction_vel_eps,
+                    ts.kp or zeros, ts.kd or zeros,
+                )
+            ]
+        floats = np.concatenate([np.asarray(p, np.float64).ravel() for p in parts])
+        return np.asarray(ints, np.int32), floats.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def torque_reference(spec: SubstepSpec, q, v, cmd):
+    """Actuation torque (B, nv) of the declarative path ``spec.torque``
+    at (q, v) for the held command ``cmd`` (B, nm)."""
+    ts = spec.torque
+    if ts.mode == "pd":
+        kw = dict(dtype=q.dtype, device=q.device)
+        qm, vm = spec.motors.joint_state(q, v)
+        cmd = torch.as_tensor(ts.kp, **kw) * (cmd - qm) - torch.as_tensor(ts.kd, **kw) * vm
+    return spec.motors.compute_effort(cmd, v) - spec.tree.damping * v
+
+
+def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=None):
+    """One semi-implicit Euler substep with velocity-level PGS impulses
+    for joint bounds and ground contacts: q (B, nq), v and τ (B, nv),
+    λ0 (B, nc), ``wrench`` None or (B, 6) local [ang; lin] on the root
+    body → (q⁺, v⁺, λ, residual (B,), world contact impulses (B, ncp,
+    3) in the original contact order). ``solve`` runs the chain:
+    the plain chain (``None``, the default) or a wrapper of the chain
+    kernel, called as ``solve(cfg, M, p, v, J, target, mu, active, λ0)``."""
+    solve = solve if solve is not None else chain.solve_reference
+    tree, opts = spec.tree, spec.options
+    dt = spec.dt
+    B = q.shape[0]
+    xl = algos.local_transforms(tree, q)
+    xw, vel = algos.kinematics(tree, q, v, xl=xl)
+    # implicit joint damping: (M + dt·C)·Δv = dt·(τ − C·v − bias)
+    M = algos.crba(tree, q, xl=xl) + torch.diag(dt * tree.damping)
+    fext = None
+    if wrench is not None:
+        fext = q.new_zeros(B, tree.nb, 6)
+        fext[:, 0] = wrench
+    bias = algos.rnea(tree, q, v, torch.zeros_like(v), fext=fext, xl=xl)
+    p_free = tau - bias
+
+    Js, targets, actives, mus = [], [], [], []
+    if spec.bounded_joints:
+        Jb, tb = cstr.bound_rows(tree, spec.bounded_joints, q, dt, spec.alpha_bounds)
+        Js.append(Jb)
+        targets.append(tb)
+        actives.append(torch.ones_like(tb))
+        mus.append(torch.zeros_like(tb))
+    ncp = tree.ncp
+    if ncp:
+        pts, _, depth, n = surface_contacts(tree, xw, vel, spec.ground)
+        t1, t2 = cstr.tangent_basis(n)
+        # penetrating: Baumgarte push-back; hovering within the margin:
+        # may approach the surface but not cross it
+        v_corr = torch.where(
+            depth > 0.0,
+            torch.clamp(
+                spec.alpha_c_over_dt * (depth - opts.contact_slop),
+                0.0, opts.contact_max_correction_vel,
+            ),
+            depth / dt,
+        )
+        order = spec.color_order
+        Jp = torch.stack(
+            [algos.point_jacobian(tree, xw, tree.contact_body[k], pts[:, k]) for k in order],
+            dim=1,
+        )  # (B, ncp, 3, nv)
+        basis = torch.stack([t1, t2, n], dim=-2)[:, order]  # (B, ncp, 3, 3)
+        Js.append((basis @ Jp).reshape(B, 3 * ncp, tree.nv))
+        tgt = torch.zeros_like(basis[..., 0])
+        tgt[..., 2] = v_corr[:, order]
+        targets.append(tgt.reshape(B, 3 * ncp))
+        act = (depth > -opts.contact_margin)[:, order].to(q.dtype)
+        actives.append(act[:, :, None].expand(-1, -1, 3).reshape(B, 3 * ncp))
+        mus.append(torch.full_like(targets[-1], spec.friction))
+
+    J = torch.cat(Js, dim=1)
+    target = torch.cat(targets, dim=1)
+    active = torch.cat(actives, dim=1)
+    mu = torch.cat(mus, dim=1)
+    v_next, lam, residual = solve(spec.cfg, M, p_free, v, J, target, mu, active, lam0)
+    q_next = algos.integrate(tree, q, v_next, dt)
+
+    if ncp:
+        off = spec.contact_off
+        lam_c = lam[:, off:off + 3 * ncp].reshape(B, ncp, 3)[:, spec.color_inverse]
+        impulse = t1 * lam_c[..., 0:1] + t2 * lam_c[..., 1:2] + n * lam_c[..., 2:3]
+    else:
+        impulse = q.new_zeros(B, 0, 3)
+    return q_next, v_next, lam, residual, impulse
+
+
+def substep_multi_reference(spec: SubstepSpec, n_sub: int, q, v, cmd, lam0, wrench=None):
+    """``n_sub`` chained substeps with τ recomputed from the held command
+    ``cmd`` (B, nm) before each → (q⁺, v⁺, λ, residual, impulses (B, ncp,
+    3), a, τ), the last three of the last substep; a = (v⁺ − v)/dt."""
+    if spec.torque is None:
+        raise ValueError("the multi-substep path needs spec.torque")
+    if n_sub < 1:
+        raise ValueError(f"n_sub must be ≥ 1, got {n_sub}")
+    lam = lam0
+    for _ in range(n_sub):
+        tau = torque_reference(spec, q, v, cmd)
+        q_next, v_next, lam, res, impulse = substep_reference(spec, q, v, tau, lam, wrench)
+        a = (v_next - v) / spec.dt
+        q, v = q_next, v_next
+    return q, v, lam, res, impulse, a, tau
+
+
+# ---------------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------------
+
+
+@functools.cache
+def _kernel():
+    from jiminy_tpu_torch.ops import _build
+
+    lib = _build.load("substep")
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [vp, ci, ci, cf, cf, cf, ci, vp]  # layout, len, iters, dt, relax, reg, resid, stream
+    lib.jt_substep.argtypes = [vp] * 12 + [ci] * 5 + tail
+    lib.jt_substep.restype = ci
+    lib.jt_substep_multi.argtypes = [vp] * 14 + [ci] * 7 + tail
+    lib.jt_substep_multi.restype = ci
+    lib.jt_substep_error_string.argtypes = [ci]
+    lib.jt_substep_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _device_of(name, *tensors) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def _check_inputs(name, items):
+    for arg, (t, shape) in items.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _raise_on(lib, err, name):
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            f"{lib.jt_substep_error_string(err).decode()} (cudaError {err})"
+        )
+
+
+def _tail(spec: SubstepSpec, device):
+    cfg = spec.cfg
+    layout = chain._layout(cfg)
+    c_layout = (ctypes.c_int * len(layout))(*layout)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return [
+        ctypes.cast(c_layout, ctypes.c_void_p), len(layout), cfg.iters, cfg.dt,
+        cfg.relax, cfg.reg, int(cfg.compute_residual), stream,
+    ], c_layout
+
+
+def _outputs(spec: SubstepSpec, B, device, extra=0):
+    t = spec.tree
+    shapes = [(B, t.nq), (B, t.nv), (B, spec.nc), (B,), (B, t.ncp, 3)] + [(B, t.nv)] * extra
+    return [torch.empty(s, dtype=torch.float32, device=device) for s in shapes]
+
+
+def substep_batched(spec: SubstepSpec, q, v, tau, lam0, wrench):
+    """K3, one substep with τ given: q (B, nq), v and τ (B, nv), λ0
+    (B, nc), wrench (B, 6), all on one device → (q⁺, v⁺, λ, residual
+    (B,), impulses (B, ncp, 3)). On CUDA tensors this launches the kernel
+    (float32, contiguous) and raises on anything else; on CPU tensors it
+    runs :func:`substep_reference`."""
+    dev = _device_of("substep_batched", q, v, tau, lam0, wrench)
+    if dev.type == "cpu":
+        return substep_reference(spec, q, v, tau, lam0, wrench)
+    t, B = spec.tree, q.shape[0]
+    _check_inputs("substep_batched", {
+        "q": (q, (B, t.nq)), "v": (v, (B, t.nv)), "tau": (tau, (B, t.nv)),
+        "lam0": (lam0, (B, spec.nc)), "wrench": (wrench, (B, 6)),
+    })
+    spec.check_kernel_caps("substep_batched")
+    lib = _kernel()
+    si, sf = spec.packed(dev)
+    outs = _outputs(spec, B, dev)
+    tail, _layout_alive = _tail(spec, dev)  # the int array the pointer in tail names
+    err = lib.jt_substep(
+        si.data_ptr(), sf.data_ptr(), q.data_ptr(), v.data_ptr(), tau.data_ptr(),
+        lam0.data_ptr(), wrench.data_ptr(), *(o.data_ptr() for o in outs),
+        B, t.nb, t.nq, t.nv, spec.nc, *tail,
+    )
+    _raise_on(lib, err, "substep")
+    substep_batched.launches += 1
+    return tuple(outs)
+
+
+substep_batched.launches = 0
+
+
+def substep_batched_multi(spec: SubstepSpec, n_sub: int, q, v, cmd, lam0, wrench):
+    """K2, ``n_sub`` substeps in one launch with τ recomputed in-kernel
+    from the held command: q (B, nq), v (B, nv), cmd (B, nm), λ0 (B, nc),
+    wrench (B, 6) → (q⁺, v⁺, λ, residual (B,), impulses (B, ncp, 3),
+    a (B, nv), τ (B, nv)), the last three of the last substep. Needs
+    ``spec.torque``. On CUDA tensors this launches the kernel (float32,
+    contiguous) and raises on anything else; on CPU tensors it runs
+    :func:`substep_multi_reference`."""
+    dev = _device_of("substep_batched_multi", q, v, cmd, lam0, wrench)
+    if spec.torque is None:
+        raise ValueError("substep_batched_multi needs spec.torque")
+    if n_sub < 1:
+        raise ValueError(f"n_sub must be ≥ 1, got {n_sub}")
+    if dev.type == "cpu":
+        return substep_multi_reference(spec, n_sub, q, v, cmd, lam0, wrench)
+    t, B, nm = spec.tree, q.shape[0], spec.torque.nm
+    _check_inputs("substep_batched_multi", {
+        "q": (q, (B, t.nq)), "v": (v, (B, t.nv)), "cmd": (cmd, (B, nm)),
+        "lam0": (lam0, (B, spec.nc)), "wrench": (wrench, (B, 6)),
+    })
+    spec.check_kernel_caps("substep_batched_multi")
+    lib = _kernel()
+    si, sf = spec.packed(dev)
+    outs = _outputs(spec, B, dev, extra=2)
+    tail, _layout_alive = _tail(spec, dev)
+    err = lib.jt_substep_multi(
+        si.data_ptr(), sf.data_ptr(), q.data_ptr(), v.data_ptr(), cmd.data_ptr(),
+        lam0.data_ptr(), wrench.data_ptr(), *(o.data_ptr() for o in outs),
+        B, n_sub, t.nb, t.nq, t.nv, spec.nc, nm, *tail,
+    )
+    _raise_on(lib, err, "substep_multi")
+    substep_batched_multi.launches += 1
+    return tuple(outs)
+
+
+substep_batched_multi.launches = 0

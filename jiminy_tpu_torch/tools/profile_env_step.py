@@ -1,8 +1,11 @@
 """Where the time of the ANYmal env step goes on a GPU.
 
     python -m jiminy_tpu_torch.tools.profile_env_step [--batch 4096] [--steps 5]
+        [--solver auto|substep|kernel|inline]
 
-Runs ``ANYmalEnv(observe="state", device="cuda")`` under
+Runs ``ANYmalEnv(observe="state", device="cuda")`` (by default on its
+main path, ``constraint_solver="auto"``, which is the fused whole-substep
+kernel for ANYmal) under
 ``torch.profiler`` for a few env steps after a warm-up, and prints one
 JSON line: the card (``nvidia-smi`` name and power limit), wall ms per env
 step, device busy ms per env step (the sum of GPU kernel times), the
@@ -24,6 +27,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--solver", default="auto", choices=("auto", "substep", "kernel", "inline"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_env_step: no CUDA GPU available")
@@ -33,7 +37,8 @@ def main() -> None:
     from jiminy_tpu_torch.envs import ANYmalEnv
 
     dev = torch.device("cuda")
-    env = ANYmalEnv(observe="state", step_dt=0.02, sim_dt=5e-3, pgs_iters=8, device=dev)
+    env = ANYmalEnv(observe="state", step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
+                    constraint_solver=args.solver, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = env.reset(gen, args.batch)
     acts = [torch.rand(args.batch, 12, generator=gen, device=dev) * 2 - 1
@@ -58,6 +63,7 @@ def main() -> None:
     print(json.dumps({
         "gpu": gpu,
         "batch": args.batch,
+        "constraint_solver": env.engine.backend,
         "wall_ms_per_env_step": 1e3 * wall / n,
         "device_busy_ms_per_env_step": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - (busy_us / 1e6) / wall,

@@ -8,8 +8,9 @@ States are the stand pose plus numpy noise, handed to both the JAX
 sweeps). Tolerances: q, v, λ and τ atol 1e-4; contact forces 2e-2 N and
 the acceleration a 2e-2 (the λ and v tolerances ÷ dt); obs and reward
 1e-4; terminated and truncated exact.
-Both of the port's chain backends run: ``"kernel"`` (on the CPU, the
-kernel's plain version) and ``"inline"``.
+All three of the port's backends run: ``"substep"`` (the env's default,
+the whole-substep kernels; on the CPU their plain versions), ``"kernel"``
+(the chain kernel; on the CPU its plain version) and ``"inline"``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from jiminy_tpu.envs.anymal import ANYmalEnv as JANYmalEnv
 from jiminy_tpu.models.quadruped import stand_q as j_stand_q
 from jiminy_tpu_torch.envs import ANYmalEnv, env_state_from_arrays
 from jiminy_tpu_torch.ops import solve_batched
+from jiminy_tpu_torch.ops.substep_kernel import substep_batched, substep_batched_multi
 
 B = 8
 SIM_FIELDS = ("t", "q", "v", "contact_forces", "solver_residual", "lam", "a", "tau")
@@ -86,7 +88,7 @@ def _close(port, ref, atol):
     np.testing.assert_allclose(port.numpy(), ref, atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("solver", ["kernel", "inline"])
+@pytest.mark.parametrize("solver", ["substep", "kernel", "inline"])
 def test_env_step_matches_reference(jax_env, solver):
     _, _, tnext, jnext = _run_both(jax_env, solver, seed=0)
     sim = jnext["sim"]
@@ -107,9 +109,14 @@ def test_env_step_matches_reference(jax_env, solver):
 
 
 def test_env_step_on_cpu_launches_no_kernel(jax_env):
-    before = solve_batched.launches
+    def counts():
+        return (solve_batched.launches, substep_batched.launches,
+                substep_batched_multi.launches)
+
+    before = counts()
     _run_both(jax_env, "kernel", seed=1)
-    assert solve_batched.launches == before
+    _run_both(jax_env, "substep", seed=1)
+    assert counts() == before
 
 
 def _force_done(q, v, steps):
@@ -119,7 +126,7 @@ def _force_done(q, v, steps):
     return q, v, steps
 
 
-@pytest.mark.parametrize("solver", ["kernel", "inline"])
+@pytest.mark.parametrize("solver", ["substep", "kernel", "inline"])
 def test_auto_reset_matches_reference(jax_env, solver):
     port, tst, tnext, jnext = _run_both(jax_env, solver, seed=2, edit=_force_done)
     term, trunc = jnext["terminated"], jnext["truncated"]

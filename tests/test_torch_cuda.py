@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions:
+K1 (``solve_batched``), K3 (``substep_batched``) and K2
+(``substep_batched_multi``).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -6,7 +8,9 @@ one. The file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 (``--noconftest`` because tests/conftest.py sets up JAX.) Tolerance
-1e-4: float32 reassociation between the kernel and the plain version.
+1e-4: float32 reassociation between the kernel and the plain version over
+one substep; the acceleration a = (v⁺ − v)/dt carries v's tolerance ÷ dt
+and τ is held relative to its size.
 """
 
 from __future__ import annotations
@@ -16,10 +20,17 @@ import pytest
 import torch
 
 from jiminy_tpu_torch.engine.solver import BlockSpec
+from jiminy_tpu_torch.models.quadruped import stand_q
 from jiminy_tpu_torch.ops.constraint_solve import (
     SolveConfig,
     solve_batched,
     solve_reference,
+)
+from jiminy_tpu_torch.ops.substep_kernel import (
+    substep_batched,
+    substep_batched_multi,
+    substep_multi_reference,
+    substep_reference,
 )
 
 ATOL = 1e-4
@@ -91,11 +102,11 @@ def test_kernel_rejects_bad_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_env_step_goes_through_the_kernel(cuda_device):
-    """4 launches per env step; each substep equals the inline plain chain
-    from the same inputs."""
+    """constraint_solver="kernel": 4 K1 launches per env step; each
+    substep equals the inline plain chain from the same inputs."""
     from jiminy_tpu_torch.envs import ANYmalEnv
 
-    env = ANYmalEnv(device=cuda_device)
+    env = ANYmalEnv(constraint_solver="kernel", device=cuda_device)
     inline = ANYmalEnv(constraint_solver="inline", device=cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     state = env.reset(gen, 256)
@@ -107,3 +118,111 @@ def test_env_step_goes_through_the_kernel(cuda_device):
     ni = inline.engine.step(state.sim, u, n_substeps=1)
     torch.testing.assert_close(nk.q, ni.q, atol=ATOL, rtol=0)
     torch.testing.assert_close(nk.v, ni.v, atol=ATOL, rtol=0)
+
+
+def _anymal_engine(dev, fusion=True):
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
+    from jiminy_tpu_torch.models.quadruped import make_anymal
+
+    tree, motors = make_anymal(device=dev)
+    opts = EngineOptions(dt=5e-3, pgs_iters=8, constraint_solver="substep",
+                         substep_fusion=fusion)
+    return Engine(tree, opts, motors=motors, controller=PDController(80.0, 2.0), device=dev)
+
+
+def _substep_inputs(seed, B, engine):
+    """Perturbed stand poses (feet penetrating, hovering and clear), PD
+    targets, λ0 ≥ 0 and a root wrench, made with numpy."""
+    rng = np.random.default_rng(seed)
+    q = np.tile(stand_q(engine.tree), (B, 1)).astype(np.float64)
+    q[:, 7:] += rng.uniform(-0.15, 0.15, (B, 12))
+    q[:, 2] += rng.uniform(-0.02, 0.01, B)
+    quat = np.concatenate([rng.uniform(-0.05, 0.05, (B, 3)), np.ones((B, 1))], 1)
+    q[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    arrays = (
+        q, 0.3 * rng.standard_normal((B, 18)), q[:, 7:] + rng.uniform(-0.2, 0.2, (B, 12)),
+        np.abs(0.05 * rng.standard_normal((B, engine.nc))),
+        np.concatenate([5 * rng.standard_normal((B, 3)), 20 * rng.standard_normal((B, 3))], 1),
+    )
+    return [torch.as_tensor(a, dtype=torch.float32, device=engine.device) for a in arrays]
+
+
+def _assert_outputs_close(out, ref, dt):
+    names = ("q", "v", "lam", "residual", "impulse", "a", "tau")
+    for name, o, r in zip(names, out, ref):
+        if name == "a":
+            atol = ATOL / dt
+        elif name == "tau":
+            atol = ATOL * max(1.0, r.abs().max().item())
+        else:
+            atol = ATOL
+        torch.testing.assert_close(o, r, atol=atol, rtol=0, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 1000])
+@pytest.mark.parametrize("kernel", ["substep", "substep_multi"])
+def test_substep_kernels_match_plain_versions(cuda_device, kernel, B):
+    """K3, and K2 over one substep, from the same inputs."""
+    eng = _anymal_engine(cuda_device)
+    spec = eng.substep_spec
+    q, v, cmd, lam0, wrench = _substep_inputs(7, B, eng)
+    if kernel == "substep":
+        tau = eng._joint_torque(cmd, q, v)
+        before = substep_batched.launches
+        out = substep_batched(spec, q, v, tau, lam0, wrench)
+        launched = substep_batched.launches - before
+        ref = substep_reference(spec, q, v, tau, lam0, wrench)
+    else:
+        before = substep_batched_multi.launches
+        out = substep_batched_multi(spec, 1, q, v, cmd, lam0, wrench)
+        launched = substep_batched_multi.launches - before
+        ref = substep_multi_reference(spec, 1, q, v, cmd, lam0, wrench)
+    torch.cuda.synchronize()
+    assert launched == 1
+    _assert_outputs_close(out, ref, spec.dt)
+
+
+@pytest.mark.cuda
+def test_substep_kernels_reject_bad_inputs(cuda_device):
+    eng = _anymal_engine(cuda_device)
+    spec = eng.substep_spec
+    q, v, cmd, lam0, wrench = _substep_inputs(8, 8, eng)
+    with pytest.raises(TypeError, match="float32"):
+        substep_batched_multi(spec, 4, q.double(), v, cmd, lam0, wrench)
+    with pytest.raises(ValueError, match="contiguous"):
+        substep_batched(spec, q, v, v.t().contiguous().t(), lam0, wrench)
+    with pytest.raises(ValueError, match="shape"):
+        substep_batched_multi(spec, 4, q, v, cmd[:, :-1], lam0, wrench)
+    with pytest.raises(ValueError, match="tensors on"):
+        substep_batched(spec, q, v, v, lam0, wrench.cpu())
+    with pytest.raises(ValueError, match="n_sub"):
+        substep_batched_multi(spec, 0, q, v, cmd, lam0, wrench)
+
+
+@pytest.mark.cuda
+def test_env_main_path_is_one_fused_launch(cuda_device):
+    """The default env: one K2 launch per env step, no K1 or K3; with
+    substep_fusion off, 4 K3 launches; each substep equals the inline
+    plain engine from the same inputs."""
+    from jiminy_tpu_torch.envs import ANYmalEnv
+
+    env = ANYmalEnv(device=cuda_device)
+    inline = ANYmalEnv(constraint_solver="inline", device=cuda_device)
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
+    counts = (solve_batched.launches, substep_batched.launches, substep_batched_multi.launches)
+    state = env.step(state, torch.zeros(256, 12, device=cuda_device))
+    after = (solve_batched.launches, substep_batched.launches, substep_batched_multi.launches)
+    assert (after[0] - counts[0], after[1] - counts[1], after[2] - counts[2]) == (0, 0, 1)
+    unfused = _anymal_engine(cuda_device, fusion=False)
+    u = env._action_to_command(torch.zeros(256, 12, device=cuda_device), state.sim)
+    before = substep_batched.launches
+    unfused.step(state.sim, u, n_substeps=4)
+    assert substep_batched.launches == before + 4
+    sim = state.sim
+    for _ in range(4):
+        nk = env.engine.step(sim, u, n_substeps=1)
+        ni = inline.engine.step(sim, u, n_substeps=1)
+        torch.testing.assert_close(nk.q, ni.q, atol=ATOL, rtol=0)
+        torch.testing.assert_close(nk.v, ni.v, atol=ATOL, rtol=0)
+        sim = nk

@@ -142,6 +142,19 @@ def test_rnea_matches_reference(robots, accel):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
+def test_crba_consistent_with_rnea_in_f64(robots):
+    """M(q)·a = rnea(q, 0, a) − rnea(q, 0, 0) to float64 rounding: the
+    port's float64 path carries no float32 step."""
+    _, _, tree, _, _ = robots
+    q, _, a = _states(tree, seed=5, dtype=np.float64)
+    t64 = tree.to(dtype=torch.float64)
+    q, a = _t(q), _t(a)
+    zero = torch.zeros_like(a)
+    lhs = (algos.crba(t64, q) @ a[:, :, None])[..., 0]
+    rhs = algos.rnea(t64, q, zero, a) - algos.rnea(t64, q, zero, zero)
+    np.testing.assert_allclose(lhs.numpy(), rhs.numpy(), atol=1e-10, rtol=0)
+
+
 def test_crba_matches_reference(robots):
     jrobot, _, tree, _, _ = robots
     q, _, _ = _states(tree, seed=3)

@@ -5,7 +5,12 @@ module of ``jiminy_tpu_torch`` and ``chip_smoke.py`` must import without
 them. In a fresh interpreter a ``sys.meta_path`` finder refuses the
 top-level names below (exact names: ``jiminy_tpu_torch`` still loads);
 then every module of the port is imported, ``chip_smoke`` is imported
-without running, and one CPU env step is taken at B = 2.
+without running, and one CPU env step is taken at B = 2 on the env's
+default path (the whole-substep kernels' plain versions) and on the
+chain-kernel path. The modules that hold kernels are named, so a rename
+cannot drop them from the walk. A second test imports each kernel module
+first in a fresh interpreter: the engine and ops packages import each
+other, and any order must work.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ _SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "jiminy_tpu"}
+KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops.substep_kernel")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -42,15 +48,18 @@ import jiminy_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(jiminy_tpu_torch.__path__, "jiminy_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+for m in KERNEL_MODULES:
+    assert m in mods, m
 import chip_smoke  # noqa: F401  (module only: main() is not run)
 
 import torch
 from jiminy_tpu_torch.envs import ANYmalEnv
 
-env = ANYmalEnv(device="cpu")
-st = env.reset(torch.Generator().manual_seed(0), 2)
-st = env.step(st, torch.zeros(2, 12))
-assert bool(torch.isfinite(st.sim.q).all()) and st.obs.shape == (2, 33)
+for solver in ("substep", "kernel"):
+    env = ANYmalEnv(constraint_solver=solver, device="cpu")
+    st = env.reset(torch.Generator().manual_seed(0), 2)
+    st = env.step(st, torch.zeros(2, 12))
+    assert bool(torch.isfinite(st.sim.q).all()) and st.obs.shape == (2, 33)
 leaked = sorted(k for k in sys.modules if k.partition(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK", len(mods))
@@ -65,3 +74,13 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
     assert "NO_JAX_OK" in r.stdout
     assert int(r.stdout.split("NO_JAX_OK")[1]) >= 20  # every port module walked
+
+
+def test_kernel_modules_import_first():
+    for mod in ("jiminy_tpu_torch.ops.substep_kernel", "jiminy_tpu_torch.ops.constraint_solve",
+                "jiminy_tpu_torch.ops"):
+        r = subprocess.run(
+            [sys.executable, "-c", f"import {mod}"],
+            capture_output=True, text=True, cwd=REPO, timeout=300,
+        )
+        assert r.returncode == 0, mod + "\n" + r.stderr
