@@ -11,7 +11,11 @@ imports nothing of JAX and nothing of ``jiminy_tpu``. The kernels:
 - K1 ``constraint_solve`` (``csrc/constraint_solve.cu``): the solve chain;
 - K2 ``substep_multi`` (``csrc/substep.cu``): every substep of an env
   step in one launch, τ recomputed in-kernel;
-- K3 ``substep`` (``csrc/substep.cu``): one substep, τ given.
+- K3 ``substep`` (``csrc/substep.cu``): one substep, τ given;
+- K2 with the sensor stage ``substep_multi_sensors`` (``csrc/substep.cu``,
+  ``substep_multi_kernel<…, true>``): the same, plus after every k_obs-th
+  substep the sensor suite's update (measure at the accepted state,
+  corrupt with pre-sampled eps, push the delay lines).
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -29,6 +33,19 @@ Phases (any failure raises and the script exits non-zero):
    - K2 at n_sub = 4 (a whole env step): float32 rounding compounds over
      4 substeps for any two f32 implementations, so the yardstick is the
      plain version in float64, env by env (`_gate_vs_f64`);
+   - K2 with the sensor stage (ANYmal's suite: IMU, 12 encoders, 12
+     efforts, 4 contacts; delay 0.004 s, noise 0.02 / 0.005) against
+     ``substep_multi_reference(..., sensors=...)`` on the same inputs,
+     buffers and eps, with a quarter of the envs' bases turned half a
+     turn about z (the IMU quaternion's w near 0): at n_sub = 1, B = 4096
+     and a ragged B = 1000, q, v, λ within 1e-4, the buffers within 1e-4
+     after scaling each reading by max(1, its largest value), and q, v, λ equal
+     to the sensor-free K2's bit for bit; the stage alone, against the
+     float64 plain stage from the kernel's own accepted state (its q⁺, v⁺,
+     a, impulses and τ), element by element, |Δ| ≤ 1e-4·max(1, |value|);
+     at n_sub = 4 env by env against
+     the float64 plain version, buffers included; at k_obs = 2 (an update
+     every other substep) through ``Engine.step_with_sensors``, likewise;
 2. the paths, each with the launch counts set to 0 just before it and
    read just after:
    - the main path, ``ANYmalEnv(observe="state", device="cuda")`` reset
@@ -42,9 +59,18 @@ Phases (any failure raises and the script exits non-zero):
    - ``constraint_solver="kernel"`` (K1, 4 launches per env step) and an
      engine with ``substep_fusion=False`` (K3, 4 launches per env step),
      3 env steps each;
-3. env-steps/s on the main path (3 timed loops of 25 steps) and on the
-   ``"kernel"`` path, and each kernel's and its plain version's times
-   with CUDA events beside the kernel's bound.
+   - the sensor path, ``ANYmalEnv(observe="sensors", sensor_delay=0.004,
+     imu_noise=0.02, encoder_noise=0.005)``, 25 env steps: obs (B, 33)
+     and rewards finite, exactly one launch of K2 with the sensor stage per
+     env step (the fused path; counted apart from the sensor-free K2's,
+     which the chunked fallback would launch four times) and no other
+     launch; then one env step from that state and the same eps, fused and
+     chunked (4 sensor-free K2 launches at n_sub = 1 and the plain update): q and v
+     bit-equal, the buffers within 1e-4 scaled as in phase 1, and each held env by env
+     against the float64 plain env;
+3. env-steps/s on the main path (3 timed loops of 25 steps), on the
+   sensor path and on the ``"kernel"`` path, and each kernel's and its
+   plain version's times with CUDA events beside the kernel's bound.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -274,6 +300,65 @@ def _substep_multi_bytes(spec, B) -> int:
     return 4 * B * per_env + _spec_bytes(spec)
 
 
+def _sensor_flops(spec, sens) -> int:
+    """Operations that one sensor update of one env needs (what
+    `jt_sensor_stage` does): the world rotations of the bodies on the
+    chains to the IMU and contact bodies (the joint rotation as
+    `_substep_flops` counts it, the placement product and, below the root,
+    the world product); on the chains to the IMU bodies alone the local
+    position, velocity and proper acceleration: a = Δv/dt on the joint's
+    dofs (2 each), S·v and S·a (3 products each on a REVOLUTE axis), at the
+    root Rᵀ·(−g) (gravity has no angular part) and the sums with S·a's
+    nonzeros, below it the velocity (p2c, the sums with S·v's) and the
+    acceleration (p2c, v × S·v, the sums with S·a's and with the cross
+    term); then per IMU the frame
+    rotation (45), the quaternion from it (30), the proper acceleration
+    (4 cross products and 9 sums), gyro and accelerometer (2 × 15), the
+    turn by exp(rv) (45) and 6 eps sums; per encoder 2, effort 1, contact
+    3 divisions, a transposed product and 3 sums (21). Pushing the ring
+    buffers moves data and does no arithmetic."""
+    t, O = spec.tree, _OPS
+    need = sens.packed("cpu")[0][:t.nb].tolist()  # 0, rotation 1, motion 3
+    n = 0
+    for i in range(t.nb):
+        if not need[i]:
+            continue
+        free, root = t.joint_type[i] == 0, t.parent[i] < 0
+        n += (O["quat_to_m"] if free else 3 + 9 + 12 + 3) + O["mat3_mul"]
+        if not root:
+            n += O["mat3_mul"]
+        if need[i] != 3:
+            continue
+        ndof = 6 if free else 1
+        n += 2 * ndof + (0 if free else 6)  # a = Δv/dt; S·v and S·a
+        n += O["mat3_vec"] + 3 if free else 0  # local position
+        sa = 6 if free else 3  # S·v's or S·a's nonzeros, summed
+        if root:
+            n += O["mat3_vec"] + sa
+        else:
+            n += O["p2c"] + sa + O["p2c"] + (30 if free else 18) + sa + 6
+    per = {"imu": 45 + 30 + 4 * O["cross"] + 9 + 2 * O["mat3_vec"] + 45 + 6,
+           "encoder": 2, "effort": 1, "contact": 3 + O["mat3_vec"] + 3}
+    return n + sum(per[g.type] * g.ns for g in sens.suite.groups)
+
+
+def _sensor_bytes(sens, B, n_upd) -> int:
+    """The sensor stage's own traffic: the buffers in and out and the eps
+    (float32), and the packed suite once."""
+    gi, gf = sens.packed("cpu")
+    return 4 * B * (2 * sens.n_buf + n_upd * sens.n_eps) + 4 * (gi.numel() + gf.numel())
+
+
+def _anymal_suite(dev, dtype=torch.float32, period=5e-3, delay=0.004):
+    """ANYmal's sensor suite at the flagship's settings (anymal_sensors_run5:
+    delay 0.004 s, IMU noise 0.02, encoder noise 0.005)."""
+    from jiminy_tpu_torch.models.quadruped import make_anymal
+
+    _, _, suite = make_anymal(device=dev, sensor_period=period, sensor_delay=delay,
+                              imu_noise=0.02, encoder_noise=0.005)
+    return suite.to(dtype=dtype)
+
+
 def _anymal_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver="substep"):
     """The flagship env's engine (PD kp 80, kd 2, 5 ms, 8 sweeps). In
     float64 the model holds the float32 model's constants, so the two
@@ -281,7 +366,7 @@ def _anymal_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver=
     from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
     from jiminy_tpu_torch.models.quadruped import make_anymal
 
-    tree, motors = make_anymal(device=dev)
+    tree, motors, _ = make_anymal(device=dev)
     opts = EngineOptions(dt=5e-3, pgs_iters=8, compute_solver_residual=residual,
                          substep_fusion=fusion, constraint_solver=solver)
     return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
@@ -425,6 +510,141 @@ def phase_substep_vs_plain(dev) -> dict:
     return worst
 
 
+def _half_turn(q, gen, lo, hi):
+    """Turn the bases of envs [lo, hi) half a turn (±1–11 mrad) about z:
+    the IMU quaternion then comes from the z candidate with w ≈ ±0.5–5e-3
+    (away from 0, where any two float32 versions could pick either sign)."""
+    from jiminy_tpu_torch.math import so3
+
+    n, dev = hi - lo, q.device
+    kw = dict(generator=gen, device=dev)
+    side = torch.where(torch.rand(n, **kw) < 0.5, -1.0, 1.0)
+    yaw = torch.pi + side * (1e-3 + 1e-2 * torch.rand(n, **kw))
+    zq = torch.stack([torch.zeros(n, device=dev), torch.zeros(n, device=dev),
+                      torch.sin(yaw / 2), torch.cos(yaw / 2)], 1)
+    q[lo:hi, 3:7] = so3.quat_normalize(so3.quat_mul(zq, q[lo:hi, 3:7]))
+
+
+def _reading_scale(sens, ref):
+    """(n_buf,) scale: for each reading (a group's dim), max(1, max |ref's
+    values of it| over envs, sensors and slots). The reference scales each
+    group by its largest value (tests/test_sensor_kernel.py); per reading
+    is stricter, so the accelerometer's 10² m/s² does not hide an error in
+    the quaternion or the gyro of the same group."""
+    out, o = [], 0
+    B = ref.shape[0]
+    for g in sens.suite.groups:
+        n = g.ns * g.buf_len * g.dim
+        blk = ref[:, o:o + n].reshape(B, g.ns, g.buf_len, g.dim).abs()
+        per_dim = blk.amax(dim=(0, 1, 2)).clamp(min=1.0).double()
+        out.append(per_dim.expand(g.ns, g.buf_len, g.dim).reshape(-1))
+        o += n
+    return torch.cat(out)
+
+
+def _sensor_inputs(eng, sens, gen, B, n_upd):
+    """_substep_inputs, a quarter of the bases turned half a turn about z,
+    ring buffers of distinct slots (the reset fill plus noise) and the
+    corruption of ``n_upd`` updates."""
+    suite = sens.suite
+    q, v, cmd, lam0, wrench = _substep_inputs(eng, gen, B)
+    _half_turn(q, gen, B // 4, B // 2)
+    bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B), q, v))
+    bufs = bufs + 0.1 * torch.randn(bufs.shape, generator=gen, device=bufs.device)
+    eps = torch.cat([suite.sample_eps(gen, B) for _ in range(n_upd)], 1)
+    return q, v, cmd, lam0, wrench, bufs, eps
+
+
+def phase_sensors_vs_plain(dev) -> float:
+    """K2 with the sensor stage against its plain version; returns the
+    worst error at n_sub = 1, B = 4096 (q, v, λ, impulses and the scaled
+    buffers)."""
+    from jiminy_tpu_torch.ops.substep_kernel import (
+        SensorKernelSpec,
+        sensor_stage_reference,
+        substep_batched_multi,
+        substep_multi_reference,
+    )
+
+    eng = _anymal_engine(dev)
+    eng64 = _anymal_engine(dev, dtype=torch.float64)
+    spec, dt = eng.substep_spec, eng.substep_spec.dt
+    sens = SensorKernelSpec(eng.tree, _anymal_suite(dev), 1)
+    sens64 = SensorKernelSpec(eng64.tree, _anymal_suite(dev, torch.float64), 1)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    names = ("q", "v", "lam", "residual", "impulse", "a", "tau")
+    worst = 0.0
+    for label, B in ((f"B={B_MAIN}", B_MAIN), ("ragged B=1000", 1000)):
+        q, v, cmd, lam0, wrench, bufs, eps = _sensor_inputs(eng, sens, gen, B, 1)
+        k = substep_batched_multi(spec, 1, q, v, cmd, lam0, wrench, sensors=sens, bufs=bufs, eps=eps)
+        r = substep_multi_reference(spec, 1, q, v, cmd, lam0, wrench, sensors=sens, bufs=bufs, eps=eps)
+        bare = substep_batched_multi(spec, 1, q, v, cmd, lam0, wrench)
+        torch.cuda.synchronize()
+        e = {n: _max_err(a, b) for n, a, b in zip(names, k, r)}
+        scale = _reading_scale(sens, r[7])
+        e["bufs_scaled"] = ((k[7].double() - r[7].double()).abs() / scale).max().item()
+        e["bufs_abs"] = _max_err(k[7], r[7])
+        # the stage alone: the plain stage in float64 from the kernel's own
+        # accepted state (q⁺, v⁺, a, impulses, τ are what its stage read),
+        # element by element: |k − r| ≤ 1e-4·max(1, |r|)
+        stage = sensor_stage_reference(sens64, *(x.double() for x in (k[0], k[1], k[5], k[4] / dt,
+                                                                       k[6], eps, bufs)))
+        e["bufs_vs_stage_relative"] = ((k[7].double() - stage).abs()
+                                       / stage.abs().clamp(min=1.0)).max().item()
+        same = all(torch.equal(k[i], bare[i]) for i in range(7))
+        imu_w = r[7][B // 4:B // 2, 3].abs()
+        print(f"[phase 1] substep_multi with sensors (K2) n_sub=1 {label}: " + json.dumps(e)
+              + f" (equal to the sensor-free K2: {same}; half-turned envs' pushed IMU |w| "
+              f"{imu_w.min().item():.3g}–{imu_w.max().item():.3g})")
+        tau_scale = max(1.0, r[6].abs().max().item())
+        ok = (all(e[n] <= TOL for n in ("q", "v", "lam", "residual", "impulse"))
+              and e["a"] <= TOL / dt and e["tau"] <= TOL * tau_scale and e["bufs_scaled"] <= TOL
+              and e["bufs_vs_stage_relative"] <= TOL)
+        if not (ok and same):
+            raise AssertionError(f"K2 with sensors (n_sub=1) disagrees with the plain version "
+                                 f"on {label}: {e}, equal to the sensor-free K2: {same}")
+        if B == B_MAIN:
+            worst = max(e["q"], e["v"], e["lam"], e["impulse"], e["bufs_scaled"])
+
+    # a whole env step, and the k_obs = 2 schedule through the engine:
+    # float64 plain version as the yardstick, env by env
+    for k_obs, period, delay in ((1, 5e-3, 0.004), (2, 1e-2, 0.008)):
+        suite = _anymal_suite(dev, period=period, delay=delay)
+        sens = SensorKernelSpec(eng.tree, suite, k_obs)
+        sens64 = SensorKernelSpec(eng64.tree, suite.to(dtype=torch.float64), k_obs)
+        n_upd = 4 // k_obs
+        q, v, cmd, lam0, wrench, bufs, eps = _sensor_inputs(eng, sens, gen, B_MAIN, n_upd)
+        if k_obs == 1:
+            before = _counts()["substep_multi_sensors"]
+            k = substep_batched_multi(spec, 4, q, v, cmd, lam0, wrench, sensors=sens, bufs=bufs, eps=eps)
+            k = (k[0], k[1], k[2], k[4], k[7])
+        else:
+            from jiminy_tpu_torch.engine.engine import SimState
+
+            z = torch.zeros(B_MAIN, device=dev)
+            sim = SimState(t=z, q=q, v=v, contact_forces=torch.zeros(B_MAIN, 4, 3, device=dev),
+                           solver_residual=z, lam=lam0, a=torch.zeros_like(v), tau=torch.zeros_like(v))
+            before = _counts()["substep_multi_sensors"]
+            out, kb = eng.step_with_sensors(sim, cmd, 4, suite, bufs, eps, k_obs=2, base_wrench=wrench)
+            k = (out.q, out.v, out.lam, out.contact_forces * dt, kb)
+        launched = _counts()["substep_multi_sensors"] - before
+        p32 = substep_multi_reference(spec, 4, q, v, cmd, lam0, wrench, sensors=sens, bufs=bufs, eps=eps)
+        p64 = substep_multi_reference(eng64.substep_spec, 4, *(x.double() for x in (q, v, cmd, lam0, wrench)),
+                                      sensors=sens64, bufs=bufs.double(), eps=eps.double())
+        torch.cuda.synchronize()
+        scale = _reading_scale(sens, p64[7])
+        gates = {n: _gate_vs_f64(f"K2 sensors k_obs={k_obs} n_sub=4 {n}", k[i], p32[j], p64[j])
+                 for i, (n, j) in enumerate((("q", 0), ("v", 1), ("lam", 2), ("impulse", 4)))}
+        gates["bufs_scaled"] = _gate_vs_f64(f"K2 sensors k_obs={k_obs} n_sub=4 bufs",
+                                            k[4].double() / scale, p32[7].double() / scale,
+                                            p64[7] / scale)
+        print(f"[phase 1] substep_multi with sensors (K2) k_obs={k_obs} n_sub=4 B={B_MAIN} "
+              f"({launched} launch) vs the f64 plain version: " + json.dumps(gates))
+        if launched != 1:
+            raise AssertionError(f"expected one launch of K2 with the sensor stage, saw {launched}")
+    return worst
+
+
 def _as_f64(state):
     sim = type(state.sim)(**{k: getattr(state.sim, k).double() for k in state.sim.FIELDS})
     return state.replace(sim=sim, obs=state.obs.double())
@@ -493,12 +713,74 @@ def _ab_env_step(env, state, act_gen, dev):
           "f64 inline env is the yardstick): " + json.dumps(free))
 
 
+SENSOR_KW = dict(observe="sensors", sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005,
+                 step_dt=0.02, sim_dt=5e-3, pgs_iters=8)
+
+
+def _ab_sensor_step(env, state, act_gen, dev):
+    """One env step of the sensor path from the same state and eps, fused
+    (one K2 launch with the sensor stage) and chunked (4 K2 launches at
+    n_sub = 1, each followed by the plain update), each held env by env
+    against the float64 plain env (chunked, inline engine) beside the
+    float32 plain env; the buffers scaled per group as in phase 1."""
+    from jiminy_tpu_torch.envs import ANYmalEnv
+
+    plain = ANYmalEnv(constraint_solver="inline", device=dev, **SENSOR_KW)
+    plain64 = ANYmalEnv(constraint_solver="inline", dtype=torch.float64, device=dev, **SENSOR_KW)
+    a = _uniform(act_gen, dev)
+    eps = env._sensor_eps(state.generator, B_MAIN, env.n_obs_updates)
+    st64 = _as_f64(state)
+    st64 = st64.replace(info={k: x.double() for k, x in state.info.items()})
+    outs, launched = {}, {}
+    for name, e, st, fused in (("fused", env, state, True), ("chunked", env, state, False),
+                               ("plain", plain, state, False), ("plain64", plain64, st64, False)):
+        e._fused_sensors = fused
+        e._sensor_eps = lambda generator, batch_size, n_updates, x=eps: x.to(st.obs.dtype)
+        before = _counts()
+        outs[name] = e.step_no_reset(st, a.to(st.obs.dtype))
+        torch.cuda.synchronize()
+        launched[name] = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+        del e._sensor_eps
+    env._fused_sensors = True
+    if launched != {"fused": {"substep_multi_sensors": 1}, "chunked": {"substep_multi": 4},
+                    "plain": {}, "plain64": {}}:
+        raise AssertionError(f"sensor A/B: unexpected K2 launches {launched}")
+    scale = _reading_scale(env.engine._sensor_spec(env.sensors, 1),
+                         outs["plain64"].info["sensor_bufs"])
+    # fused against chunked: the same K2 physics (phase 1 holds the two
+    # instantiations bit-equal), the in-kernel stage against the plain
+    # update at each of the 4 substeps' states
+    fu, ch = outs["fused"], outs["chunked"]
+    same = torch.equal(fu.sim.q, ch.sim.q) and torch.equal(fu.sim.v, ch.sim.v)
+    d_bufs = ((fu.info["sensor_bufs"].double() - ch.info["sensor_bufs"].double()).abs()
+              / scale).max().item()
+    print(f"[phase 2] sensor path, fused vs chunked from the same state and eps: q, v equal "
+          f"{same}; buffers max scaled |d| {d_bufs:.3g}")
+    if not (same and d_bufs <= TOL):
+        raise AssertionError(f"fused and chunked sensor steps differ: q, v equal {same}, "
+                             f"scaled buffers {d_bufs}")
+    gates = {}
+    for name in ("fused", "chunked"):
+        k, p32, p64 = outs[name], outs["plain"], outs["plain64"]
+        gates[name] = {
+            "q": _gate_vs_f64(f"sensor env step {name} q", k.sim.q, p32.sim.q, p64.sim.q),
+            "v": _gate_vs_f64(f"sensor env step {name} v", k.sim.v, p32.sim.v, p64.sim.v),
+            "bufs_scaled": _gate_vs_f64(
+                f"sensor env step {name} bufs", k.info["sensor_bufs"].double() / scale,
+                p32.info["sensor_bufs"].double() / scale, p64.info["sensor_bufs"] / scale),
+            "obs": _gate_vs_f64(f"sensor env step {name} obs", k.obs, p32.obs, p64.obs),
+        }
+    print(f"[phase 2] sensor path, one env step from the same state and eps, K2 launches "
+          f"{json.dumps(launched)}, fused and chunked vs the f64 plain env: " + json.dumps(gates))
+
+
 def _reset_counts():
     from jiminy_tpu_torch.ops.constraint_solve import solve_batched
     from jiminy_tpu_torch.ops.substep_kernel import substep_batched, substep_batched_multi
 
     for fn in (solve_batched, substep_batched, substep_batched_multi):
         fn.launches = 0
+    substep_batched_multi.sensor_launches = 0
 
 
 def _counts() -> dict:
@@ -506,7 +788,8 @@ def _counts() -> dict:
     from jiminy_tpu_torch.ops.substep_kernel import substep_batched, substep_batched_multi
 
     return {"constraint_solve": solve_batched.launches, "substep": substep_batched.launches,
-            "substep_multi": substep_batched_multi.launches}
+            "substep_multi": substep_batched_multi.launches,
+            "substep_multi_sensors": substep_batched_multi.sensor_launches}
 
 
 def _uniform(gen, dev):
@@ -564,6 +847,7 @@ def main() -> None:
     # ---- phase 1: every kernel against its plain version
     main_err = {"constraint_solve": phase_kernel_vs_plain(dev)}
     main_err.update(phase_substep_vs_plain(dev))
+    main_err["substep_multi_sensors"] = phase_sensors_vs_plain(dev)
 
     # ---- phase 2: the paths through the public entry points
     kw = dict(observe="state", step_dt=0.02, sim_dt=5e-3, pgs_iters=8, device=dev)
@@ -580,7 +864,8 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = _counts()
     print(f"[phase 2] main path, {STEPS} env steps at B={B_MAIN}: launches {json.dumps(launches)}")
-    if launches != {"constraint_solve": 0, "substep": 0, "substep_multi": STEPS}:
+    if launches != {"constraint_solve": 0, "substep": 0, "substep_multi": STEPS,
+                    "substep_multi_sensors": 0}:
         raise AssertionError(f"expected {STEPS} K2 launches and no other, saw {launches}")
     _check_finite(state, "the main path")
     print(f"[phase 2] finite q, v, obs, reward; done this step "
@@ -597,7 +882,8 @@ def main() -> None:
     torch.cuda.synchronize()
     k1_path = _counts()
     print(f"[phase 2] constraint_solver='kernel', 3 env steps: launches {json.dumps(k1_path)}")
-    if k1_path != {"constraint_solve": 12, "substep": 0, "substep_multi": 0}:
+    if k1_path != {"constraint_solve": 12, "substep": 0, "substep_multi": 0,
+                   "substep_multi_sensors": 0}:
         raise AssertionError(f"expected 12 K1 launches and no other, saw {k1_path}")
     _check_finite(state_k1, "the kernel path")
 
@@ -611,10 +897,34 @@ def main() -> None:
     torch.cuda.synchronize()
     k3_path = _counts()
     print(f"[phase 2] substep_fusion=False, 3 env steps: launches {json.dumps(k3_path)}")
-    if k3_path != {"constraint_solve": 0, "substep": 12, "substep_multi": 0}:
+    if k3_path != {"constraint_solve": 0, "substep": 12, "substep_multi": 0,
+                   "substep_multi_sensors": 0}:
         raise AssertionError(f"expected 12 K3 launches and no other, saw {k3_path}")
     if not (bool(torch.isfinite(sim.q).all()) and bool(torch.isfinite(sim.v).all())):
         raise AssertionError("non-finite state on the substep_fusion=False path")
+
+    env_s = ANYmalEnv(device=dev, **SENSOR_KW)
+    if not env_s._fused_sensors:
+        raise AssertionError("the sensor env does not take the fused sensor path")
+    state_s = env_s.reset(torch.Generator(device=dev).manual_seed(6), B_MAIN)
+    torch.cuda.synchronize()
+    _reset_counts()
+    for _ in range(STEPS):
+        state_s = env_s.step(state_s, _uniform(act_gen, dev))
+    torch.cuda.synchronize()
+    sensor_path = _counts()
+    print(f"[phase 2] sensor path, {STEPS} env steps at B={B_MAIN}: launches "
+          f"{json.dumps(sensor_path)}")
+    if sensor_path != {"constraint_solve": 0, "substep": 0, "substep_multi": 0,
+                       "substep_multi_sensors": STEPS}:
+        raise AssertionError(f"expected {STEPS} launches of K2 with the sensor stage and no "
+                             f"other, saw {sensor_path}")
+    _check_finite(state_s, "the sensor path")
+    if state_s.obs.shape != (B_MAIN, 33):
+        raise AssertionError(f"sensor obs of shape {tuple(state_s.obs.shape)}")
+    print(f"[phase 2] finite q, v, obs, reward; done this step {int(state_s.done.sum())}/{B_MAIN}; "
+          f"mean reward {state_s.reward.mean().item():.4f}")
+    _ab_sensor_step(env_s, state_s, act_gen, dev)
 
     # ---- phase 3: times
     for _ in range(STEPS):  # warm-up
@@ -622,6 +932,11 @@ def main() -> None:
     rates, state = _env_rate(env, state, act_gen, dev, STEPS, 3)
     print(f"[phase 3] env-steps/s at B={B_MAIN}, main path (K2): {[round(r, 1) for r in rates]} "
           f"(max {max(rates):.1f})")
+    for _ in range(5):  # warm-up
+        state_s = env_s.step(state_s, _uniform(act_gen, dev))
+    rates_s, _ = _env_rate(env_s, state_s, act_gen, dev, STEPS, 3)
+    print(f"[phase 3] env-steps/s at B={B_MAIN}, sensor path (K2 with the sensor stage): "
+          f"{[round(r, 1) for r in rates_s]} (max {max(rates_s):.1f})")
     state_k1 = env_k1.step(state_k1, _uniform(act_gen, dev))  # warm-up
     rates_k1, _ = _env_rate(env_k1, state_k1, act_gen, dev, 5, 2)
     print(f"[phase 3] env-steps/s at B={B_MAIN}, constraint_solver='kernel' (K1): "
@@ -639,8 +954,10 @@ def main() -> None:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": {"constraint_solve": k1_path, "substep": k3_path,
-                         "substep_multi": launches}[name][name],
+            "launches": {"constraint_solve": k1_path["constraint_solve"],
+                         "substep": k3_path["substep"],
+                         "substep_multi": launches["substep_multi"],
+                         "substep_multi_sensors": sensor_path["substep_multi_sensors"]}[name],
             "max_abs_err": main_err[name],
             "ms": ms,
             "plain_ms": plain_ms,
@@ -661,6 +978,22 @@ def main() -> None:
         _substep_multi_bytes(spec, B_MAIN),
         B_MAIN * (n_sub * (_substep_flops(spec) + _torque_flops(spec)) + 2 * spec.tree.nv),
     )
+    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
+
+    sens = SensorKernelSpec(eng_k3.tree, _anymal_suite(dev), env_s.n_substeps_per_obs)
+    n_upd = n_sub // sens.k_obs
+    _, _, _, _, _, bufs, eps = _sensor_inputs(eng_k3, sens, torch.Generator(device=dev).manual_seed(7),
+                                              B_MAIN, n_upd)
+    sw = dict(sensors=sens, bufs=bufs, eps=eps)
+    entry(
+        "substep_multi_sensors", "jiminy_tpu_torch/csrc/substep.cu",
+        "jiminy_tpu/ops/substep_kernel.py:1459",
+        _time_cuda(lambda: substep_batched_multi(spec, n_sub, q, v, cmd, lam0, wrench, **sw), 20),
+        _time_cuda(lambda: substep_multi_reference(spec, n_sub, q, v, cmd, lam0, wrench, **sw), 3),
+        _substep_multi_bytes(spec, B_MAIN) + _sensor_bytes(sens, B_MAIN, n_upd),
+        B_MAIN * (n_sub * (_substep_flops(spec) + _torque_flops(spec)) + 2 * spec.tree.nv
+                  + n_upd * _sensor_flops(spec, sens)),
+    )
     entry(
         "substep", "jiminy_tpu_torch/csrc/substep.cu",
         "jiminy_tpu/ops/substep_kernel.py:1678",
@@ -679,8 +1012,8 @@ def main() -> None:
         _solve_bytes(cfg, B_MAIN),
         _solve_flops(cfg) * B_MAIN,
     )
-    print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_kernel_path": rates_k1,
-                      "nvcc_build_s": build}))
+    print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_sensor_path": rates_s,
+                      "env_steps_per_s_kernel_path": rates_k1, "nvcc_build_s": build}))
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,12 @@
 """Featherstone rigid-body algorithms over a batch of configurations.
 
-Counterpart of ``jiminy_tpu/core/algos.py`` (kinematics, RNEA with
-armature, CRBA, point Jacobians, Lie-group integrate). The reference
-writes them for one robot and vmaps; here every function takes batched
-``q (B, nq)``, ``v (B, nv)`` and loops over bodies in Python (the
-topology is static), so each step is one whole-batch tensor op.
-Spatial vectors are (angular, linear) in the local body frame at the
-body origin, as in the reference.
+Counterpart of ``jiminy_tpu/core/algos.py`` (kinematics, body
+accelerations, RNEA with armature, CRBA, point Jacobians, Lie-group
+integrate). The reference writes them for one robot and vmaps; here
+every function takes batched ``q (B, nq)``, ``v (B, nv)`` and loops over
+bodies in Python (the topology is static), so each step is one
+whole-batch tensor op. Spatial vectors are (angular, linear) in the
+local body frame at the body origin, as in the reference.
 """
 
 from __future__ import annotations
@@ -93,6 +93,35 @@ def kinematics(tree: KinematicTree, q, v, xl=None):
             xw.append(xw[p].compose(xl[i]))
             vel.append(xl[i].motion_parent_to_child(vel[p]) + vj)
     return xw, vel
+
+
+def body_accelerations(tree: KinematicTree, q, v, a):
+    """World poses, local spatial velocities and local spatial
+    accelerations (B, 6) of every body for joint accelerations ``a``. The
+    root is accelerated by [0; −g], so the accelerations are proper ones:
+    what an accelerometer measures."""
+    xl = local_transforms(tree, q)
+    g = tree.gravity
+    a0 = torch.cat([torch.zeros_like(g), -g])
+    xw: list[Transform] = []
+    vel: list[torch.Tensor] = []
+    acc: list[torch.Tensor] = []
+    for i in range(tree.nb):
+        p = tree.parent[i]
+        S = motion_subspace(tree, i)
+        vj = _joint_velocity(tree, i, S, v)
+        aj = _joint_velocity(tree, i, S, a)
+        if p < 0:
+            xw.append(xl[i])
+            vel.append(vj)
+            acc.append(xl[i].motion_parent_to_child(a0) + aj)
+        else:
+            xw.append(xw[p].compose(xl[i]))
+            vel.append(xl[i].motion_parent_to_child(vel[p]) + vj)
+            acc.append(
+                xl[i].motion_parent_to_child(acc[p]) + aj + motion_cross(vel[i], vj)
+            )
+    return xw, vel, acc
 
 
 def rnea(tree: KinematicTree, q, v, a, fext=None, xl=None) -> torch.Tensor:

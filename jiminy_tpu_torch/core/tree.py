@@ -150,6 +150,13 @@ class KinematicTree:
     def joint_index(self, name: str) -> int:
         return self.joint_name.index(name)
 
+    def frame_index(self, name: str) -> int:
+        return self.frame_name.index(name)
+
+    def frame_placement(self, k: int) -> Transform:
+        """Pose of frame k in its body."""
+        return Transform(rot=self.fp_rot[k], pos=self.fp_pos[k])
+
     def v_slice(self, i: int) -> slice:
         o = self.v_off[i]
         return slice(o, o + JOINT_NV[self.joint_type[i]])

@@ -9,7 +9,10 @@
 // flagship configuration: flat ground, euler_symplectic, FREE and
 // REVOLUTE joints, joint bounds and bare-point ground contacts as PGS
 // rows, a (6,) local wrench on the root body, declarative PD or direct
-// motor command through the motor model (K2). No sensors, randomization,
+// motor command through the motor model (K2). K2 also carries the
+// sensor stage (`_sensor_stage`, with `SensorKernelSpec` and the
+// quaternion helpers `_quat_from_m_lane`, `_quat_exp_lane`,
+// `_quat_mul_lane`; see `jt_sensor_stage` below). No randomization,
 // collision pairs, distance rows or flexibility.
 //
 // One substep (`jt_substep`, the counterpart of `_substep_math`) is, per
@@ -25,10 +28,14 @@
 // What bounds it on an H100 (ANYmal: nb 13, nv 18, nc 24, 8 sweeps,
 // 4 substeps): K2 moves ~0.76 KB per env (q, v, cmd, λ0, wrench in; q,
 // v, λ, residual, impulses, a, τ out), ~3.1 MB at B = 4096, ≈ 0.9 µs at
-// 3.35 TB/s; it does ~66 kFLOP per env per substep (the chain ~51k,
+// 3.35 TB/s; it needs ~50 kFLOP per env per substep (the chain ~41k,
 // FK/RNEA/CRBA/Jacobians/integration the rest; counted by chip_smoke.py
-// `_substep_flops`), ≈ 1.07 GFLOP per env step at B = 4096, ≈ 16 µs at
-// the 67 TFLOP/s non-tensor f32 rate. So operations bound it. This design is far from that bound by choice: the TPU
+// `_substep_flops`), ≈ 0.83 GFLOP per env step at B = 4096, ≈ 12 µs at
+// the 67 TFLOP/s non-tensor f32 rate. So operations bound it. The sensor
+// stage adds per env the buffers in and out and each update's eps
+// (ANYmal's suite: 150 + 150 + 4·57 floats, ~2.1 KB) and ~1.9 kFLOP per
+// update (chip_smoke.py `_sensor_flops`): still operation-bound. This
+// design is far from that bound by choice: the TPU
 // kernel's lane-major layout (batch on the 128 vector lanes, the tree
 // unrolled into Python floats, the batch padded by repetition) does not
 // carry over, so one thread owns one env and keeps every intermediate
@@ -211,21 +218,56 @@ __device__ __forceinline__ void subspace_col(int jt, const float* axis, int c, f
   }
 }
 
-// S_i · x[v_off(i):] as a spatial motion
-__device__ __forceinline__ void joint_motion(const SpecView& s, int i, const float* x, float* out) {
-  const int vo = s.v_off[i];
+// S_i · xj as a spatial motion, xj the joint's own dofs
+__device__ __forceinline__ void joint_motion_of(const SpecView& s, int i, const float* xj,
+                                                float* out) {
   if (s.jtype[i] == JT_FREE) {
     for (int k = 0; k < 3; ++k) {
-      out[k] = x[vo + 3 + k];
-      out[3 + k] = x[vo + k];
+      out[k] = xj[3 + k];
+      out[3 + k] = xj[k];
     }
   } else {
     const float* axis = s.body + JT_BODY_F * i;
     for (int k = 0; k < 3; ++k) {
-      out[k] = axis[k] * x[vo];
+      out[k] = axis[k] * xj[0];
       out[3 + k] = 0.f;
     }
   }
+}
+
+// S_i · x[v_off(i):] as a spatial motion
+__device__ __forceinline__ void joint_motion(const SpecView& s, int i, const float* x, float* out) {
+  joint_motion_of(s, i, x + s.v_off[i], out);
+}
+
+// joint i's own transform (Rj, pj) at q
+__device__ __forceinline__ void jt_joint_transform(const SpecView& s, int i, const float* q,
+                                                   float* Rj, float* pj) {
+  const float* bd = s.body + JT_BODY_F * i;  // axis, Rp, pp, ...
+  const int qo = s.q_off[i];
+  for (int k = 0; k < 3; ++k) pj[k] = 0.f;
+  if (s.jtype[i] == JT_FREE) {
+    quat_to_m(q + qo + 3, Rj);
+    for (int k = 0; k < 3; ++k) pj[k] = q[qo + k];
+  } else {  // Rodrigues: I + sin·K + (1 − cos)·K²
+    const float c = cosf(q[qo]), sn = sinf(q[qo]);
+    const float K[9] = {0.f, -bd[2], bd[1], bd[2], 0.f, -bd[0], -bd[1], bd[0], 0.f};
+    float KK[9];
+    mat3_mul(K, K, KK);
+    for (int r = 0; r < 9; ++r)
+      Rj[r] = ((r % 4 == 0) ? 1.f : 0.f) + sn * K[r] + (1.f - c) * KK[r];
+  }
+}
+
+// pose (R, p) of body i in its parent: joint placement ∘ joint transform
+__device__ __forceinline__ void jt_local_pose(const SpecView& s, int i, const float* q,
+                                              float* R, float* p) {
+  const float* bd = s.body + JT_BODY_F * i;
+  float Rj[9], pj[3], t3[3];
+  jt_joint_transform(s, i, q, Rj, pj);
+  mat3_mul(bd + 3, Rj, R);
+  mat3_vec(bd + 3, pj, t3);
+  for (int k = 0; k < 3; ++k) p[k] = t3[k] + bd[12 + k];
 }
 
 // ---- actuation torque (engine._joint_torque for a declarative controller:
@@ -275,23 +317,8 @@ __device__ __forceinline__ float jt_substep(
 
   // ---- FK: local transforms, world poses, local spatial velocities
   for (int i = 0; i < nb; ++i) {
-    const float* bd = s.body + JT_BODY_F * i;  // axis, Rp, pp, ...
-    const int qo = s.q_off[i];
-    float Rj[9], pj[3] = {0.f, 0.f, 0.f}, t3[3];
-    if (s.jtype[i] == JT_FREE) {
-      quat_to_m(q + qo + 3, Rj);
-      for (int k = 0; k < 3; ++k) pj[k] = q[qo + k];
-    } else {  // Rodrigues: I + sin·K + (1 − cos)·K²
-      const float c = cosf(q[qo]), sn = sinf(q[qo]);
-      const float K[9] = {0.f, -bd[2], bd[1], bd[2], 0.f, -bd[0], -bd[1], bd[0], 0.f};
-      float KK[9];
-      mat3_mul(K, K, KK);
-      for (int r = 0; r < 9; ++r)
-        Rj[r] = ((r % 4 == 0) ? 1.f : 0.f) + sn * K[r] + (1.f - c) * KK[r];
-    }
-    mat3_mul(bd + 3, Rj, xlR[i]);
-    mat3_vec(bd + 3, pj, t3);
-    for (int k = 0; k < 3; ++k) xlp[i][k] = t3[k] + bd[12 + k];
+    float t3[3];
+    jt_local_pose(s, i, q, xlR[i], xlp[i]);
     joint_motion(s, i, v, vj);
     const int p = s.parent[i];
     if (p < 0) {
@@ -512,6 +539,180 @@ __device__ __forceinline__ float jt_substep(
   return res;
 }
 
+// ---- the sensor stage (counterpart of `_sensor_stage`, the plain version
+// being ops/substep_kernel.py `sensor_stage_reference`, i.e.
+// hardware/sensors.py `SensorSuite.update`)
+//
+// Packed suite (ops/substep_kernel.py `SensorKernelSpec.packed`):
+//   ints:   per body what the readings need of it (JT_NEED_ROTATION: its
+//           world rotation; JT_NEED_MOTION: its velocity and proper
+//           acceleration too; 0: nothing), per group [type, ns, buf_len,
+//           first sensor], then per sensor
+//           two ints: imu (body, offset of its floats), encoder and effort
+//           (q offset, v offset), contact (contact index, body);
+//   floats: per IMU, its frame's rotation in the body (9, row-major) and
+//           position (3).
+// The ring buffers stay in global memory: each thread's row of bufs_out
+// (n_buf floats, [group][sensor][slot][dim]) is a copy of its row of
+// bufs_in, shifted in place at each push; each update reads its eps
+// straight from global memory.
+enum { JT_IMU = 0, JT_ENCODER = 1, JT_EFFORT = 2, JT_CONTACT = 3 };
+enum { JT_NEED_ROTATION = 1, JT_NEED_MOTION = 2 };
+
+struct SensParams {
+  const int* gi;
+  const float* gf;
+  const float* bufs_in;  // (B, n_buf)
+  const float* eps;      // (B, n_sub / k_obs · n_eps)
+  float* bufs_out;       // (B, n_buf)
+  int n_groups, n_buf, n_eps, k_obs;
+};
+
+__device__ __forceinline__ int jt_sensor_dim(int type) {
+  return type == JT_IMU ? 10 : type == JT_ENCODER ? 2 : type == JT_EFFORT ? 1 : 3;
+}
+
+__device__ __forceinline__ int jt_noise_dim(int type) { return type == JT_IMU ? 9 : jt_sensor_dim(type); }
+
+// so3.matrix_to_quat: the candidate of the largest of (m00, m11, m22,
+// trace), the first of equal maxima; normalized; w ≥ 0 (w = 0 positive)
+__device__ __forceinline__ void jt_matrix_to_quat(const float* R, float* out) {
+  const float m00 = R[0], m01 = R[1], m02 = R[2];
+  const float m10 = R[3], m11 = R[4], m12 = R[5];
+  const float m20 = R[6], m21 = R[7], m22 = R[8];
+  const float tr = m00 + m11 + m22;
+  float q[4] = {1.f + m00 - m11 - m22, m01 + m10, m02 + m20, m21 - m12};
+  float best = m00;
+  if (m11 > best) {
+    best = m11;
+    q[0] = m01 + m10; q[1] = 1.f - m00 + m11 - m22; q[2] = m12 + m21; q[3] = m02 - m20;
+  }
+  if (m22 > best) {
+    best = m22;
+    q[0] = m02 + m20; q[1] = m12 + m21; q[2] = 1.f - m00 - m11 + m22; q[3] = m10 - m01;
+  }
+  if (tr > best) {
+    q[0] = m21 - m12; q[1] = m02 - m20; q[2] = m10 - m01; q[3] = 1.f + tr;
+  }
+  const float n = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3] + 1e-12f);
+  const float sgn = q[3] >= 0.f ? 1.f : -1.f;
+  for (int k = 0; k < 4; ++k) out[k] = q[k] / n * sgn;
+}
+
+// so3.quat_exp (Taylor-guarded at 0) then so3.quat_mul: qa ⊗ exp(rv)
+__device__ __forceinline__ void jt_quat_turn(const float* qa, const float* rv, float* out) {
+  const float th2 = rv[0] * rv[0] + rv[1] * rv[1] + rv[2] * rv[2];
+  const float th = sqrtf(th2 + 1e-24f);
+  const bool small = th2 < 1e-14f;
+  const float sh = small ? 0.5f - th2 / 48.f : sinf(0.5f * th) / th;
+  const float bw = small ? 1.f - th2 / 8.f : cosf(0.5f * th);
+  const float bx = rv[0] * sh, by = rv[1] * sh, bz = rv[2] * sh;
+  const float x = qa[0], y = qa[1], z = qa[2], w = qa[3];
+  out[0] = w * bx + x * bw + y * bz - z * by;
+  out[1] = w * by - x * bz + y * bw + z * bx;
+  out[2] = w * bz + x * by - y * bx + z * bw;
+  out[3] = w * bw - x * bx - y * by - z * bz;
+}
+
+// One sensor update of one env at the accepted state (q, v⁺ = v, v of the
+// substep's start v0, so a = Δv/dt; world impulses fc (3·ncp) → forces
+// fc/dt, applied τ): world rotations of the bodies the readings need, and
+// the velocities and proper accelerations from a0 = [0; −g]
+// (algos.body_accelerations) of the IMU bodies and their ancestors alone
+// (the suite's per-body needs), the measurements, + eps (the IMU
+// quaternion turned by exp(rv) on the right), pushed at slot 0 of each
+// delay line.
+template <int NBMAX>
+__device__ __forceinline__ void jt_sensor_stage(
+    const SpecView& s, const SensParams& sp, const float* q, const float* v,
+    const float* v0, const float* tau, const float* fc, const float* eps, float* buf) {
+  float xwR[NBMAX][9], vel[NBMAX][6], acc[NBMAX][6];
+  float Rl[9], pl[3], Rj[9], pj[3], t6[6], u6[6], vj[6], aj[6], ad[6];
+  const float dt = s.scal[JT_S_DT];
+  const int* need = sp.gi;
+  for (int i = 0; i < s.nb; ++i) {
+    if (need[i] == 0) continue;
+    const int p = s.parent[i];
+    if (!(need[i] & JT_NEED_MOTION)) {  // the rotation alone
+      jt_joint_transform(s, i, q, Rj, pj);
+      mat3_mul(s.body + JT_BODY_F * i + 3, Rj, Rl);
+      if (p < 0) for (int k = 0; k < 9; ++k) xwR[i][k] = Rl[k];
+      else mat3_mul(xwR[p], Rl, xwR[i]);
+      continue;
+    }
+    jt_local_pose(s, i, q, Rl, pl);
+    joint_motion(s, i, v, vj);
+    const int vo = s.v_off[i];  // the joint's part of a = Δv/dt
+    for (int k = 0; k < joint_nv(s.jtype[i]); ++k) ad[k] = (v[vo + k] - v0[vo + k]) / dt;
+    joint_motion_of(s, i, ad, aj);
+    if (p < 0) {
+      const float a0[6] = {0.f, 0.f, 0.f, -s.scal[JT_S_GX], -s.scal[JT_S_GY], -s.scal[JT_S_GZ]};
+      for (int k = 0; k < 9; ++k) xwR[i][k] = Rl[k];
+      motion_p2c(Rl, pl, a0, t6);
+      for (int k = 0; k < 6; ++k) {
+        vel[i][k] = vj[k];
+        acc[i][k] = t6[k] + aj[k];
+      }
+    } else {
+      mat3_mul(xwR[p], Rl, xwR[i]);
+      motion_p2c(Rl, pl, vel[p], t6);
+      for (int k = 0; k < 6; ++k) vel[i][k] = t6[k] + vj[k];
+      motion_p2c(Rl, pl, acc[p], t6);
+      motion_cross(vel[i], vj, u6);
+      for (int k = 0; k < 6; ++k) acc[i][k] = t6[k] + aj[k] + u6[k];
+    }
+  }
+  const int* group = sp.gi + s.nb;
+  const int* sensor = group + 4 * sp.n_groups;
+  int boff = 0, eoff = 0;
+  for (int gidx = 0; gidx < sp.n_groups; ++gidx) {
+    const int* G = group + 4 * gidx;
+    const int type = G[0], ns = G[1], bl = G[2];
+    const int dim = jt_sensor_dim(type), ndim = jt_noise_dim(type);
+    for (int k = 0; k < ns; ++k) {
+      const int* T = sensor + 2 * (G[3] + k);
+      const float* e = eps + eoff + k * ndim;
+      float row[10];
+      if (type == JT_IMU) {
+        const int b = T[0];
+        const float* Rfp = sp.gf + T[1];
+        const float* pfp = Rfp + 9;
+        float Rw[9], qt[4], c1[3], c2[3], c3[3], c4[3], apt[3];
+        mat3_mul(xwR[b], Rfp, Rw);
+        jt_matrix_to_quat(Rw, qt);
+        jt_quat_turn(qt, e, row);
+        const float* w = vel[b];
+        // a_lin + ω×v_lin + α×p + ω×(ω×p): proper acceleration of the
+        // frame origin in body coordinates
+        cross3(w, vel[b] + 3, c1);
+        cross3(acc[b], pfp, c2);
+        cross3(w, pfp, c3);
+        cross3(w, c3, c4);
+        for (int d = 0; d < 3; ++d) apt[d] = acc[b][3 + d] + c1[d] + c2[d] + c4[d];
+        mat3t_vec(Rfp, w, row + 4);
+        mat3t_vec(Rfp, apt, row + 7);
+        for (int d = 0; d < 6; ++d) row[4 + d] += e[3 + d];
+      } else if (type == JT_ENCODER) {
+        row[0] = q[T[0]] + e[0];
+        row[1] = v[T[1]] + e[1];
+      } else if (type == JT_EFFORT) {
+        row[0] = tau[T[1]] + e[0];
+      } else {  // contact: world force → the carrier body's frame
+        const float f[3] = {fc[3 * T[0]] / dt, fc[3 * T[0] + 1] / dt, fc[3 * T[0] + 2] / dt};
+        mat3t_vec(xwR[T[1]], f, row);
+        for (int d = 0; d < 3; ++d) row[d] += e[d];
+      }
+      // ring push: the older samples move one slot back, the new one at 0
+      float* r = buf + boff + k * bl * dim;
+      for (int slot = bl - 1; slot > 0; --slot)
+        for (int d = 0; d < dim; ++d) r[slot * dim + d] = r[(slot - 1) * dim + d];
+      for (int d = 0; d < dim; ++d) r[d] = row[d];
+    }
+    boff += ns * bl * dim;
+    eoff += ns * ndim;
+  }
+}
+
 // ---- K3: one substep, τ given
 template <int NMAX, int NCMAX, int NBMAX>
 __global__ void __launch_bounds__(JT_THREADS) substep_kernel(
@@ -531,8 +732,9 @@ __global__ void __launch_bounds__(JT_THREADS) substep_kernel(
       q_out + bq, v_out + bv, fc_out + 3 * (size_t)b * s.ncp, prm, lay);
 }
 
-// ---- K2: n_sub substeps, (q, v, λ) resident, τ recomputed per substep
-template <int NMAX, int NCMAX, int NBMAX>
+// ---- K2: n_sub substeps, (q, v, λ) resident, τ recomputed per substep;
+// with SENS, the sensor stage after every k_obs-th substep
+template <int NMAX, int NCMAX, int NBMAX, bool SENS>
 __global__ void __launch_bounds__(JT_THREADS) substep_multi_kernel(
     const int* __restrict__ si, const float* __restrict__ sf,
     const float* __restrict__ q, const float* __restrict__ v,
@@ -541,7 +743,7 @@ __global__ void __launch_bounds__(JT_THREADS) substep_multi_kernel(
     float* __restrict__ v_out, float* __restrict__ lam_out,
     float* __restrict__ res_out, float* __restrict__ fc_out,
     float* __restrict__ a_out, float* __restrict__ tau_out, int n_sub,
-    SolveParams prm, BlockLayout lay) {
+    SolveParams prm, BlockLayout lay, SensParams sp) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= prm.B) return;
   const SpecView s = jt_view(si, sf);
@@ -554,6 +756,11 @@ __global__ void __launch_bounds__(JT_THREADS) substep_multi_kernel(
   for (int k = 0; k < nc; ++k) lam[k] = lam0[(size_t)b * nc + k];
   for (int k = 0; k < s.nm; ++k) u[k] = cmd[(size_t)b * s.nm + k];
   for (int k = 0; k < 6; ++k) w0[k] = wrench[6 * (size_t)b + k];
+  float* buf = nullptr;
+  if constexpr (SENS) {
+    buf = sp.bufs_out + (size_t)b * sp.n_buf;
+    for (int k = 0; k < sp.n_buf; ++k) buf[k] = sp.bufs_in[(size_t)b * sp.n_buf + k];
+  }
   const float dt = s.scal[JT_S_DT];
   float res = 0.f;
   for (int it = 0; it < n_sub; ++it) {
@@ -563,6 +770,14 @@ __global__ void __launch_bounds__(JT_THREADS) substep_multi_kernel(
       for (int k = 0; k < nv; ++k) {
         a_out[(size_t)b * nv + k] = (vn[k] - vs[k]) / dt;
         tau_out[(size_t)b * nv + k] = tau[k];
+      }
+    }
+    if constexpr (SENS) {
+      // the schedule is the same for every thread: a uniform branch
+      if ((it + 1) % sp.k_obs == 0) {
+        const int upd = (it + 1) / sp.k_obs - 1;
+        const float* eps = sp.eps + (size_t)b * (n_sub / sp.k_obs) * sp.n_eps + upd * sp.n_eps;
+        jt_sensor_stage<NBMAX>(s, sp, qn, vn, vs, tau, fc, eps, buf);
       }
     }
     for (int k = 0; k < nq; ++k) qs[k] = qn[k];
@@ -580,6 +795,10 @@ __global__ void __launch_bounds__(JT_THREADS) substep_multi_kernel(
 #define JT_SUB_MAX_N 32
 #define JT_SUB_MAX_NC 48
 #define JT_SUB_MAX_NB 32
+// the sensor stage's (ops/substep_kernel.py MAX_SENS_*)
+#define JT_SENS_MAX_GROUPS 8
+#define JT_SENS_MAX_BUF 4096
+#define JT_SENS_MAX_EPS 1024
 
 extern "C" const char* jt_substep_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -636,16 +855,52 @@ extern "C" int jt_substep_multi(
   if (n_sub < 1) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
+  const SensParams sp = {nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 1};
   const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
   cudaStream_t s = (cudaStream_t)stream;
   if (jt_small(nb, nv, nc)) {
-    substep_multi_kernel<18, 24, 13><<<grid, block, 0, s>>>(
+    substep_multi_kernel<18, 24, 13, false><<<grid, block, 0, s>>>(
         si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out,
-        tau_out, n_sub, prm, lay);
+        tau_out, n_sub, prm, lay, sp);
   } else {
-    substep_multi_kernel<JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB><<<grid, block, 0, s>>>(
+    substep_multi_kernel<JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, false><<<grid, block, 0, s>>>(
         si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out,
-        tau_out, n_sub, prm, lay);
+        tau_out, n_sub, prm, lay, sp);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2 with the sensor stage. gi/gf: the packed suite; bufs_in, bufs_out
+// (B, n_buf); eps (B, n_sub / k_obs · n_eps).
+extern "C" int jt_substep_multi_sensors(
+    const int* si, const float* sf, const float* q, const float* v,
+    const float* cmd, const float* lam0, const float* wrench, float* q_out,
+    float* v_out, float* lam_out, float* res, float* fc, float* a_out,
+    float* tau_out, const int* gi, const float* gf, const float* bufs_in,
+    const float* eps, float* bufs_out, int B, int n_sub, int nb, int nq,
+    int nv, int nc, int nm, int n_groups, int n_buf, int n_eps, int k_obs,
+    const int* layout, int layout_len, int iters, float dt, float relax,
+    float reg, int compute_residual, void* stream) {
+  BlockLayout lay;
+  const int err = jt_check_dims(B, nb, nq, nv, nc, nm, iters, layout, layout_len, &lay);
+  if (err != (int)cudaSuccess) return err;
+  if (n_sub < 1 || k_obs < 1 || n_sub % k_obs != 0 || n_groups < 1 ||
+      n_groups > JT_SENS_MAX_GROUPS || n_buf < 1 || n_buf > JT_SENS_MAX_BUF ||
+      n_eps < 1 || n_eps > JT_SENS_MAX_EPS)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
+  const SensParams sp = {gi, gf, bufs_in, eps, bufs_out, n_groups, n_buf, n_eps, k_obs};
+  const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (jt_small(nb, nv, nc)) {
+    substep_multi_kernel<18, 24, 13, true><<<grid, block, 0, s>>>(
+        si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out,
+        tau_out, n_sub, prm, lay, sp);
+  } else {
+    substep_multi_kernel<JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, true><<<grid, block, 0, s>>>(
+        si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out,
+        tau_out, n_sub, prm, lay, sp);
   }
   return (int)cudaGetLastError();
 }

@@ -26,6 +26,13 @@ The substep's physics has three backends, selected by
 Every backend runs the same substep: :func:`substep_reference` is the
 plain one, and the kernels are held against it.
 
+:meth:`Engine.step_with_sensors` is the fused step with the sensor
+stage (the reference's ``step_with_sensors``): on the ``"substep"``
+backend with fusion, one K2 launch advances every substep and pushes a
+sensor update into the delay lines every ``k_obs`` substeps;
+:meth:`Engine.sensor_fusion_ready` says whether a suite and schedule can
+take it.
+
 Not ported yet (each raises): penalty contacts and other steppers
 (ROADMAP A.16), kinematic constraints and collision pairs (A.12, A.13),
 flexibility and joint springs (A.14), model randomization (A.11), other
@@ -169,6 +176,7 @@ class Engine:
                 self.backend = "substep"
             except ValueError:
                 self.backend = "kernel"
+        self._sensor_specs: dict = {}
 
     def reset(self, q: torch.Tensor, v: torch.Tensor | None = None) -> SimState:
         """Fresh state at (q, v) for a batch: q (B, nq), v (B, nv)."""
@@ -218,6 +226,64 @@ class Engine:
             )
         q_next, v_next, lam, residual, impulse = out
         return q_next, v_next, impulse / dt, residual, lam, (v_next - v) / dt, tau
+
+    # -- the fused path with the sensor stage ------------------------------
+    def _sensor_spec(self, suite, k_obs: int):
+        """The suite described for K2's sensor stage, built once per
+        (suite, k_obs); the entry holds the suite itself, so a new suite
+        at a reused address cannot hit a stale one."""
+        key = (id(suite), int(k_obs))
+        hit = self._sensor_specs.get(key)
+        if hit is None or hit[0] is not suite:
+            hit = (suite, substep_ops.SensorKernelSpec(self.tree, suite, k_obs))
+            self._sensor_specs[key] = hit
+        return hit[1]
+
+    def sensor_fusion_ready(self, suite, n_substeps: int, k_obs: int) -> bool:
+        """Can :meth:`step_with_sensors` serve this suite at this
+        schedule? Needs the fused whole-substep path (``"substep"``
+        backend, ``substep_fusion``, a declarative torque path), k_obs
+        dividing n_substeps, sensor types the kernel takes (not
+        ``force``) and the sensor stage's caps."""
+        if not (
+            self.backend == "substep"
+            and self.options.substep_fusion
+            and self.substep_spec.torque is not None
+            and k_obs >= 1
+            and n_substeps % k_obs == 0
+        ):
+            return False
+        try:
+            self._sensor_spec(suite, k_obs).check_kernel_caps("sensor_fusion_ready")
+        except ValueError:
+            return False
+        return True
+
+    def step_with_sensors(
+        self, state: SimState, u: torch.Tensor, n_substeps: int, suite,
+        bufs: torch.Tensor, eps: torch.Tensor, k_obs: int = 1,
+        base_wrench: torch.Tensor | None = None,
+    ) -> tuple[SimState, torch.Tensor]:
+        """The fused step with the sensor stage: every substep and a
+        sensor update (measure at the accepted state, corrupt, push)
+        every ``k_obs`` substeps in one K2 launch. ``bufs`` (B, n_buf) are
+        the suite's flattened ring buffers, ``eps`` (B, n_substeps/k_obs ·
+        n_eps) the pre-sampled corruption, update after update. Raises
+        ValueError when :meth:`sensor_fusion_ready` is False. Returns
+        (SimState, new bufs)."""
+        if not self.sensor_fusion_ready(suite, n_substeps, k_obs):
+            raise ValueError("this suite and schedule cannot take the fused sensor path")
+        spec, dt = self.substep_spec, self.substep_spec.dt
+        wrench = base_wrench if base_wrench is not None else state.q.new_zeros(state.q.shape[0], 6)
+        q, v, lam, res, impulse, a, tau, bufs = substep_ops.substep_batched_multi(
+            spec, n_substeps, state.q, state.v, u, state.lam, wrench,
+            sensors=self._sensor_spec(suite, k_obs), bufs=bufs, eps=eps,
+        )
+        sim = SimState(
+            t=state.t + n_substeps * dt, q=q, v=v, contact_forces=impulse / dt,
+            solver_residual=res, lam=lam, a=a, tau=tau,
+        )
+        return sim, bufs
 
     def step(
         self, state: SimState, u: torch.Tensor, n_substeps: int = 1,

@@ -1,11 +1,13 @@
 """ANYmal quadruped locomotion env — the flagship environment.
 
-Counterpart of ``jiminy_tpu/envs/anymal.py`` with ``terrain=None``,
-``push_magnitude=0`` and ``observe="state"``: 12 actuated joints, a PD
-inner loop at the physics rate, the policy setting PD targets at 50 Hz.
-Other options raise ``NotImplementedError`` naming the ROADMAP item that
-ports them. Unlike the reference, ``observe`` defaults to ``"state"``,
-the only path ported so far.
+Counterpart of ``jiminy_tpu/envs/anymal.py`` with ``terrain=None`` and
+``push_magnitude=0``: 12 actuated joints, a PD inner loop at the physics
+rate, the policy setting PD targets at 50 Hz. As in the reference,
+``observe`` defaults to ``"sensors"``: the policy sees the IMU and the
+encoders, sampled every ``sim_dt``, delayed by ``sensor_delay`` and
+corrupted with Gaussian noise (``imu_noise``, ``encoder_noise``);
+``observe="state"`` is the privileged path. Other options raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -17,9 +19,6 @@ from jiminy_tpu_torch.envs.locomotion import WalkerEnv
 from jiminy_tpu_torch.models.quadruped import make_anymal, stand_q
 
 _LATER = {
-    "sensor_delay": "A.9 (sensors)",
-    "imu_noise": "A.9 (sensors)",
-    "encoder_noise": "A.9 (sensors)",
     "terrain_seed": "A.10 (terrain)",
     "terrain_amplitude": "A.10 (terrain)",
     "terrain_wavelength": "A.10 (terrain)",
@@ -49,7 +48,10 @@ class ANYmalEnv(WalkerEnv):
         reset_noise: float = 0.1,
         terrain: str | None = None,
         push_magnitude: float = 0.0,
-        observe: str = "state",
+        observe: str = "sensors",
+        sensor_delay: float = 0.0,
+        imu_noise: float = 0.0,
+        encoder_noise: float = 0.0,
         constraint_solver: str = "auto",
         device="cuda",
         dtype=torch.float32,
@@ -61,12 +63,6 @@ class ANYmalEnv(WalkerEnv):
             raise NotImplementedError(
                 f"ANYmalEnv({k}=...) is not ported yet (ROADMAP {_LATER[k]})"
             )
-        if observe == "sensors":
-            raise NotImplementedError(
-                "observe='sensors' is not ported yet (ROADMAP A.9)"
-            )
-        if observe != "state":
-            raise ValueError(f"unknown observe mode {observe!r}")
         if terrain not in (None, "flat"):
             raise NotImplementedError(
                 f"terrain={terrain!r} is not ported yet (ROADMAP A.10)"
@@ -74,7 +70,10 @@ class ANYmalEnv(WalkerEnv):
         if push_magnitude:
             raise NotImplementedError("pushes are not ported yet (ROADMAP A.10)")
         dev = resolve_device(device)
-        tree, motors = make_anymal(device=dev, dtype=dtype)
+        tree, motors, sensors = make_anymal(
+            device=dev, dtype=dtype, sensor_period=sim_dt, sensor_delay=sensor_delay,
+            imu_noise=imu_noise, encoder_noise=encoder_noise,
+        )
         super().__init__(
             tree,
             motors,
@@ -89,5 +88,7 @@ class ANYmalEnv(WalkerEnv):
             pgs_iters=pgs_iters,
             reset_noise=reset_noise,
             constraint_solver=constraint_solver,
+            observe=observe,
+            sensors=sensors,
             device=dev,
         )

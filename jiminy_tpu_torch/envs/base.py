@@ -6,8 +6,18 @@ envs held in one :class:`EnvState`. The reference's per-env PRNG key
 becomes one ``torch.Generator`` carried by the state: ``reset`` takes it
 and auto-reset draws the fresh episodes from it.
 
-The sensor observation path, per-step grounds, pushes and model
-randomization are not ported yet (ROADMAP A.9–A.11).
+With ``sensors=`` (a :class:`~jiminy_tpu_torch.hardware.sensors.SensorSuite`)
+the observation comes from delayed, corrupted measurements: the ring
+buffers live in ``info["sensor_bufs"]`` as one flat (B, n_buf) tensor
+(the kernel's layout) and take ``n_obs_updates`` updates per env step,
+either inside the one K2 launch of :meth:`Engine.step_with_sensors` (the
+fused path) or after each of ``n_obs_updates`` engine steps (the chunked
+fallback). The corruption of each update is drawn by
+:meth:`BaseEnv._sensor_eps`, which a caller may replace to hand in its
+own draws.
+
+Per-step grounds, pushes and model randomization are not ported yet
+(ROADMAP A.10, A.11).
 """
 
 from __future__ import annotations
@@ -77,25 +87,75 @@ class BaseEnv:
     """Subclasses define the MDP on batched tensors:
 
     - ``_sample_state(generator, B) -> (q, v)``
-    - ``_observe(sim) -> obs``
+    - ``_observe(sim) -> obs``, or with sensors
+      ``_observe_from_sensors(readings, sim) -> obs``
     - ``_reward(prev, action, sim) -> (B,)``
     - ``_terminated(sim) -> (B,) bool``
     - ``_action_to_command(action, sim) -> (B, nm)``
     """
 
-    def __init__(self, engine: Engine, step_dt: float, max_steps: int = 1000):
+    def __init__(
+        self,
+        engine: Engine,
+        step_dt: float,
+        max_steps: int = 1000,
+        sensors=None,
+    ):
         self.engine = engine
         self.tree = engine.tree
         self.device = engine.device
         self.step_dt = step_dt
         self.n_substeps = max(1, round(step_dt / engine.options.dt))
         self.max_steps = max_steps
+        self.sensors = sensors
+        if sensors is not None:
+            # observations refresh at the suite's period: delay
+            # interpolation counts buffer slots in periods
+            self.observe_dt = float(sensors.period)
+            self.n_obs_updates = max(1, round(step_dt / self.observe_dt))
+            self.n_substeps_per_obs = max(1, round(self.observe_dt / engine.options.dt))
+            if self.n_obs_updates * self.n_substeps_per_obs != self.n_substeps:
+                raise ValueError(
+                    f"step_dt={step_dt} must be a multiple of observe_dt={self.observe_dt}, "
+                    f"itself a multiple of the engine dt={engine.options.dt}"
+                )
+        else:
+            self.observe_dt = float(step_dt)
+            self.n_obs_updates = 1
+            self.n_substeps_per_obs = self.n_substeps
+        # does the sensor path run the kernel's sensor stage (one launch
+        # per env step) rather than the chunked fallback? Decided once;
+        # setting it False forces the fallback
+        self._fused_sensors = sensors is not None and engine.sensor_fusion_ready(
+            sensors, self.n_substeps, self.n_substeps_per_obs
+        )
 
     def _sample_state(self, generator, batch_size):
         raise NotImplementedError
 
     def _observe(self, sim: SimState) -> torch.Tensor:
         raise NotImplementedError
+
+    def _observe_from_sensors(self, readings: dict, sim: SimState) -> torch.Tensor:
+        """Observation from the delayed readings {type: (B, ns, dim)} of
+        ``SensorSuite.read``; needed when the env has ``sensors``."""
+        raise NotImplementedError
+
+    def _make_obs(self, sim: SimState, info: dict) -> torch.Tensor:
+        if self.sensors is None:
+            return self._observe(sim)
+        suite = self.sensors
+        return self._observe_from_sensors(
+            suite.read(suite.unflatten_buffers(info["sensor_bufs"])), sim
+        )
+
+    def _sensor_eps(self, generator: torch.Generator, batch_size: int, n_updates: int) -> torch.Tensor:
+        """Corruption of ``n_updates`` sensor updates (B, n_updates·n_eps),
+        update after update; reset asks for one, a step for
+        ``n_obs_updates``."""
+        return torch.cat(
+            [self.sensors.sample_eps(generator, batch_size) for _ in range(n_updates)], dim=1
+        )
 
     def _reward(self, prev: EnvState, action, sim: SimState) -> torch.Tensor:
         raise NotImplementedError
@@ -107,10 +167,21 @@ class BaseEnv:
         raise NotImplementedError
 
     def reset(self, generator: torch.Generator, batch_size: int) -> EnvState:
-        """``batch_size`` fresh episodes drawn from ``generator``."""
+        """``batch_size`` fresh episodes drawn from ``generator``. With
+        sensors, the buffers hold one corrupted measurement at the
+        initial state (a, τ and contact forces zero) in every slot."""
         q, v = self._sample_state(generator, batch_size)
         sim = self.engine.reset(q=q, v=v)
-        obs = self._observe(sim)
+        info = {}
+        if self.sensors is not None:
+            suite = self.sensors
+            eps = self._sensor_eps(generator, batch_size, 1)
+            info["sensor_bufs"] = suite.flatten_buffers(suite.reset(eps, sim.q, sim.v))
+        obs = self._make_obs(sim, info)
+        if self.sensors is not None:
+            # the buffers that go with final_obs (after an auto-reset,
+            # sensor_bufs already hold the next episode's)
+            info["final_sensor_bufs"] = info["sensor_bufs"]
         B, dev = batch_size, self.device
         return EnvState(
             sim=sim,
@@ -120,14 +191,37 @@ class BaseEnv:
             truncated=torch.zeros(B, dtype=torch.bool, device=dev),
             steps=torch.zeros(B, dtype=torch.int32, device=dev),
             generator=generator,
-            info={"final_obs": obs},
+            info={"final_obs": obs, **info},
         )
+
+    def _step_sensors(self, state: EnvState, u: torch.Tensor):
+        """The engine step with the sensor updates → (sim, new flat
+        buffers): fused (one K2 launch) or chunked (n_obs_updates engine
+        steps of n_substeps_per_obs, each followed by the suite's
+        update at the accepted state)."""
+        suite = self.sensors
+        eps = self._sensor_eps(state.generator, state.obs.shape[0], self.n_obs_updates)
+        bufs = state.info["sensor_bufs"]
+        if self._fused_sensors:
+            return self.engine.step_with_sensors(
+                state.sim, u, self.n_substeps, suite, bufs, eps,
+                k_obs=self.n_substeps_per_obs,
+            )
+        sim, tup = state.sim, suite.unflatten_buffers(bufs)
+        for e in eps.split(suite.n_eps, dim=1):
+            sim = self.engine.step(sim, u, n_substeps=self.n_substeps_per_obs)
+            tup = suite.update(tup, e, sim.q, sim.v, sim.a, sim.contact_forces, sim.tau)
+        return sim, suite.flatten_buffers(tup)
 
     def step_no_reset(self, state: EnvState, action: torch.Tensor) -> EnvState:
         """One env step without auto-reset."""
         u = self._action_to_command(action, state.sim)
-        sim = self.engine.step(state.sim, u, n_substeps=self.n_substeps)
-        obs = self._observe(sim)
+        info = dict(state.info)
+        if self.sensors is None:
+            sim = self.engine.step(state.sim, u, n_substeps=self.n_substeps)
+        else:
+            sim, info["sensor_bufs"] = self._step_sensors(state, u)
+        obs = self._make_obs(sim, info)
         reward = self._reward(state, action, sim)
         steps = state.steps + 1
         # NaN guard: a non-finite or exploding env terminates with zero
@@ -144,14 +238,15 @@ class BaseEnv:
             terminated=terminated,
             truncated=truncated,
             steps=steps,
-            info=dict(state.info),
+            info=info,
         )
 
     def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
         """One env step with auto-reset: where an episode ends, the
         returned state is a fresh episode; reward/terminated/truncated
-        still describe the finished step and ``info["final_obs"]`` holds
-        its terminal observation."""
+        still describe the finished step, ``info["final_obs"]`` holds its
+        terminal observation and, with sensors,
+        ``info["final_sensor_bufs"]`` its buffers."""
         nxt = self.step_no_reset(state, action)
         fresh = self.reset(state.generator, state.obs.shape[0])
         done = nxt.terminated | nxt.truncated
@@ -166,6 +261,8 @@ class BaseEnv:
             for k in nxt.info if k in fresh.info
         }
         info["final_obs"] = nxt.obs
+        if self.sensors is not None:
+            info["final_sensor_bufs"] = nxt.info["sensor_bufs"]
         return nxt.replace(
             sim=sim,
             obs=_pick(done, fresh.obs, nxt.obs),

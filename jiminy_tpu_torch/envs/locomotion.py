@@ -1,14 +1,19 @@
 """Velocity-tracking locomotion env on a floating-base legged robot.
 
-Counterpart of ``jiminy_tpu/envs/locomotion.py`` (``WalkerEnv``) on its
-privileged-state observation path, on flat ground with no pushes:
-``_sample_state``, ``_observe``, ``_reward``, ``_terminated`` and
+Counterpart of ``jiminy_tpu/envs/locomotion.py`` (``WalkerEnv``) on flat
+ground with no pushes: ``_sample_state``, ``_observe``,
+``_observe_from_sensors``, ``_reward``, ``_terminated`` and
 ``_action_to_command``, batched.
 
 Action: (B, nm) PD target offsets around the stand pose in [-1, 1].
-Observation: gravity direction (3), base angular velocity (3), base
-linear velocity (3) [base-local], motor positions relative to the stand
-pose (nm) and 0.1 × motor velocities (nm).
+Observation, ``observe="sensors"`` (the default, as in the reference):
+from the delayed, corrupted readings of the sensor suite, gravity
+direction from the IMU quaternion (3), gyro (3), 0.05 × accelerometer
+(3), encoder positions relative to the stand pose (nm) and 0.1 × encoder
+velocities (nm). ``observe="state"`` (privileged): gravity direction (3),
+base angular velocity (3), base linear velocity (3) [base-local], motor
+positions relative to the stand pose (nm) and 0.1 × motor velocities
+(nm).
 """
 
 from __future__ import annotations
@@ -47,8 +52,23 @@ class WalkerEnv(BaseEnv):
         min_height: float = 0.3,
         max_tilt_cos: float = 0.6,
         constraint_solver: str = "auto",
+        observe: str = "sensors",  # "sensors" | "state" (privileged)
+        sensors=None,  # SensorSuite of the robot, needed by "sensors"
         device="cuda",
     ):
+        if observe == "sensors":
+            if sensors is None:
+                raise ValueError(
+                    "observe='sensors' requires the robot's sensor suite "
+                    "(make_anymal returns it)"
+                )
+            enc = next(g for g in sensors.groups if g.type == "encoder")
+            # static encoder → motor permutation (matched on q index)
+            enc_q = [tree.q_off[j] for j in enc.target]
+            self._enc_perm = [enc_q.index(qi) for qi in motors.q_idx]
+        elif observe != "state":
+            raise ValueError(f"unknown observe mode {observe!r}")
+        self.observe_mode = observe
         engine = Engine(
             tree,
             EngineOptions(
@@ -63,7 +83,10 @@ class WalkerEnv(BaseEnv):
             controller=PDController(kp, kd),
             device=device,
         )
-        super().__init__(engine, step_dt=step_dt, max_steps=max_steps)
+        suite = None
+        if observe == "sensors":
+            suite = sensors.to(device=engine.device, dtype=engine.tree.dtype)
+        super().__init__(engine, step_dt=step_dt, max_steps=max_steps, sensors=suite)
         self.motors = engine.motors
         self.action_scale = action_scale
         self.target_speed = target_speed
@@ -100,6 +123,20 @@ class WalkerEnv(BaseEnv):
         qm, vm = self.motors.joint_state(sim.q, sim.v)
         return torch.cat(
             [grav_b, w_b, v_b, qm - self._stand_targets, 0.1 * vm], dim=-1
+        )
+
+    def _observe_from_sensors(self, readings: dict, sim: SimState) -> torch.Tensor:
+        """Measurement observation, the layout of the privileged one with
+        the scaled accelerometer in place of the base linear velocity."""
+        imu = readings["imu"][:, 0]
+        R = so3.quat_to_matrix(imu[:, :4])
+        down = torch.tensor([0.0, 0.0, -1.0], dtype=R.dtype, device=R.device)
+        grav_b = mv(R.transpose(-1, -2), down)
+        enc = readings["encoder"][:, self._enc_perm]
+        return torch.cat(
+            [grav_b, imu[:, 4:7], 0.05 * imu[:, 7:10], enc[..., 0] - self._stand_targets,
+             0.1 * enc[..., 1]],
+            dim=-1,
         )
 
     def _action_to_command(self, action, sim):

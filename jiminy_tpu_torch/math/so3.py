@@ -1,7 +1,8 @@
 """SO(3) / quaternion operations on batched tensors.
 
 Counterpart of ``jiminy_tpu/math/so3.py``, the functions that the
-rigid-body algorithms, ``integrate`` and the state observation use.
+rigid-body algorithms, ``integrate``, the observations and the sensors
+use.
 Quaternions are scalar-last ``(x, y, z, w)`` as in the reference
 (Pinocchio's layout). Every function works on any leading batch shape:
 quaternions are ``(..., 4)``, vectors ``(..., 3)`` and matrices
@@ -66,6 +67,32 @@ def quat_exp(w: torch.Tensor) -> torch.Tensor:
     sinc_half = torch.where(small, 0.5 - theta_sq / 48.0, torch.sin(half) / theta)
     cos_half = torch.where(small, 1.0 - theta_sq / 8.0, torch.cos(half))
     return torch.cat([w * sinc_half[..., None], cos_half[..., None]], dim=-1)
+
+
+def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) → unit quaternion (..., 4), xyzw.
+
+    The four-candidate construction: the candidate of the largest of
+    (m00, m11, m22, trace) is taken (the first of equal maxima), then
+    normalized, and its sign set so that w ≥ 0 (w = 0 counts as
+    positive)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    cases = torch.stack(
+        [
+            torch.stack([1.0 + m00 - m11 - m22, m01 + m10, m02 + m20, m21 - m12], -1),
+            torch.stack([m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21, m02 - m20], -1),
+            torch.stack([m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22, m10 - m01], -1),
+            torch.stack([m21 - m12, m02 - m20, m10 - m01, 1.0 + tr], -1),
+        ],
+        dim=-2,
+    )  # (..., 4 candidates, xyzw)
+    idx = torch.argmax(torch.stack([m00, m11, m22, tr], -1), dim=-1)
+    q = torch.gather(cases, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    w = q[..., 3:4]
+    return quat_normalize(q) * torch.sign(w + (w == 0).to(w.dtype))
 
 
 def quat_integrate(q: torch.Tensor, w_local: torch.Tensor, dt) -> torch.Tensor:

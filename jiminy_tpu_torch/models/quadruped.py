@@ -5,8 +5,10 @@ the robot as URDF text and runs it through its URDF parser and hardware
 pipeline; the port builds the same tree directly, in the order that
 parser visits it (depth-first from the base, last-pushed leg first), with
 the feet fused into the shanks as fixed frames and contact points at the
-foot frames. The test ``tests/test_torch_model.py`` holds the result
-field for field against ``jiminy_tpu.models.make_anymal()``.
+foot frames, and the sensor suite from the same hardware description.
+``tests/test_torch_model.py`` holds the tree field for field against
+``jiminy_tpu.models.make_anymal()``'s, ``tests/test_torch_sensors.py``
+the suite against its ``robot.sensors``.
 
 Morphology (ANYmal-B-like, 12 actuated DoF): base (floating) → per leg
 {LF, RF, LH, RH}: HAA (x-axis) → HFE (y) → KFE (y); feet are fixed links.
@@ -21,6 +23,7 @@ import torch
 
 from jiminy_tpu_torch.core.tree import JointType, KinematicTree, TreeBuilder
 from jiminy_tpu_torch.hardware.motors import Motors
+from jiminy_tpu_torch.hardware.sensors import SensorSuite
 
 # leg name → (x sign, y sign)
 _LEGS = {"LF": (1, 1), "RF": (1, -1), "LH": (-1, 1), "RH": (-1, -1)}
@@ -64,10 +67,15 @@ def _box_inertia(m, x, y, z):
     )
 
 
-def quadruped_hardware(p: QuadrupedParams) -> dict:
-    """Motor and contact-frame constants (the reference's hardware
-    description, minus the sensors this slice does not port)."""
-    motors = {}
+def quadruped_hardware(
+    p: QuadrupedParams,
+    sensor_delay: float = 0.0,
+    imu_noise: float = 0.0,
+    encoder_noise: float = 0.0,
+) -> dict:
+    """Motor, contact-frame and sensor constants (the reference's hardware
+    description, same schema as a ``*_hardware.toml``)."""
+    motors, encoders, efforts = {}, {}, {}
     for leg in _LEGS:
         for j in ("HAA", "HFE", "KFE"):
             jn = f"{leg}_{j}"
@@ -80,10 +88,52 @@ def quadruped_hardware(p: QuadrupedParams) -> dict:
                 "effortLimit": p.effort,
                 "velocityLimit": p.velocity,
             }
+            encoders[jn] = {"joint_name": jn, "delay": sensor_delay, "noiseStd": encoder_noise}
+            efforts[jn] = {"motor_name": jn}
     return {
         "Global": {"contactFrameNames": [f"{leg}_FOOT" for leg in _LEGS]},
         "Motor": {"SimpleMotor": motors},
+        "Sensor": {
+            "ImuSensor": {
+                "base_imu": {"frame_name": "base_frame", "delay": sensor_delay, "noiseStd": imu_noise}
+            },
+            "EncoderSensor": encoders,
+            "EffortSensor": efforts,
+            "ContactSensor": {
+                f"{leg}_FOOT_SENSOR": {"frame_name": f"{leg}_FOOT"} for leg in _LEGS
+            },
+        },
     }
+
+
+# hardware section → (sensor type, key of its target), in the order the
+# reference's robot builder reads them (jiminy_tpu/robot.py)
+_SENSOR_SECTIONS = {
+    "ImuSensor": ("imu", "frame_name"),
+    "EncoderSensor": ("encoder", "joint_name"),
+    "EffortSensor": ("effort", None),
+    "ContactSensor": ("contact", "frame_name"),
+    "ForceSensor": ("force", "frame_name"),
+}
+
+
+def _sensor_specs(hw: dict) -> list[dict]:
+    """The hardware's sensors as ``*_spec`` dicts; an effort sensor reads
+    its motor's joint, a contact sensor the contact point of its name."""
+    specs = []
+    for section, (typ, key) in _SENSOR_SECTIONS.items():
+        for name, cfg in hw.get("Sensor", {}).get(section, {}).items():
+            target = (
+                hw["Motor"]["SimpleMotor"][cfg["motor_name"]]["joint_name"]
+                if key is None else cfg[key]
+            )
+            specs.append(dict(
+                type=typ, name=name, target=target,
+                delay=float(cfg.get("delay", 0.0)),
+                bias=float(cfg.get("bias", 0.0)),
+                noise_std=float(cfg.get("noiseStd", 0.0)),
+            ))
+    return specs
 
 
 def _links_and_joints(p: QuadrupedParams):
@@ -120,8 +170,19 @@ def _links_and_joints(p: QuadrupedParams):
     return links, joints
 
 
-def make_anymal(device="cuda", dtype=torch.float32) -> tuple[KinematicTree, Motors]:
-    """(tree, motors) of the ANYmal-class flagship quadruped."""
+def make_anymal(
+    device="cuda",
+    dtype=torch.float32,
+    sensor_period: float = 0.01,
+    sensor_delay: float = 0.0,
+    imu_noise: float = 0.0,
+    encoder_noise: float = 0.0,
+) -> tuple[KinematicTree, Motors, SensorSuite]:
+    """(tree, motors, sensors) of the ANYmal-class flagship quadruped. The
+    sensors, sampled every ``sensor_period`` s: one IMU on the base frame
+    and the 12 encoders (``sensor_delay``; Gaussian noise of std
+    ``imu_noise`` and ``encoder_noise``), 12 effort sensors and the 4 foot
+    contact sensors (no delay, no noise)."""
     params = ANYMAL
     links, joints = _links_and_joints(params)
     b = TreeBuilder()
@@ -160,7 +221,7 @@ def make_anymal(device="cuda", dtype=torch.float32) -> tuple[KinematicTree, Moto
                 b.add_frame(child + "_frame", idx)
             stack.append(child)
 
-    hw = quadruped_hardware(params)
+    hw = quadruped_hardware(params, sensor_delay, imu_noise, encoder_noise)
     for cname in hw["Global"]["contactFrameNames"]:
         f = frames[cname]
         b.add_contact_point(cname, b.frame_body[f], b.fp[f][:3, 3])
@@ -182,7 +243,7 @@ def make_anymal(device="cuda", dtype=torch.float32) -> tuple[KinematicTree, Moto
         device=device,
         dtype=dtype,
     )
-    return tree, motors
+    return tree, motors, SensorSuite.build(tree, _sensor_specs(hw), sensor_period)
 
 
 def stand_q(tree: KinematicTree, params: QuadrupedParams = ANYMAL) -> np.ndarray:

@@ -11,24 +11,31 @@ of the engine, for every env of a batch:
 - :func:`substep_reference` is the plain PyTorch substep, the very
   function the engine runs on its ``"inline"`` and ``"kernel"`` paths;
   :func:`substep_multi_reference` chains ``n_sub`` of them with the
-  actuation torque recomputed before each (:func:`torque_reference`).
+  actuation torque recomputed before each (:func:`torque_reference`)
+  and, given a :class:`SensorKernelSpec`, a sensor update every
+  ``k_obs`` substeps (:func:`sensor_stage_reference`: measure at the
+  accepted state, corrupt with pre-sampled eps, push the delay lines).
 - :func:`substep_batched` (K3, one substep, τ given) and
-  :func:`substep_batched_multi` (K2, ``n_sub`` substeps in one launch)
-  are the entry points: on CUDA tensors they launch the hand-written
-  kernels of ``csrc/substep.cu`` (built with nvcc, loaded with ctypes); on
-  CPU tensors they run the plain versions. They never fall back from one
-  to the other. ``.launches`` on each counts kernel launches.
+  :func:`substep_batched_multi` (K2, ``n_sub`` substeps in one launch,
+  with the sensor stage when given ``sensors=``) are the entry points:
+  on CUDA tensors they launch the hand-written kernels of
+  ``csrc/substep.cu`` (built with nvcc, loaded with ctypes); on CPU
+  tensors they run the plain versions. They never fall back from one to
+  the other. ``.launches`` on each counts kernel launches; K2's launches
+  with the sensor stage count apart, in
+  ``substep_batched_multi.sensor_launches``.
 
 :class:`SubstepSpec` is the static description of one engine's substep
 (row layout, solve configuration, Baumgarte constants, the tree) and
 packs it once per device into the buffers the kernels read;
 :class:`TorqueSpec` is the declarative actuation path that K2 evaluates
-in-kernel. Out of scope (each raises, naming its ROADMAP item): other
+in-kernel; :class:`SensorKernelSpec` packs a sensor suite for K2's
+sensor stage. Out of scope (each raises, naming its ROADMAP item): other
 steppers and the penalty contact model (A.16), grounds other than flat
 (A.10, B.4), sphere contact sites and collision pairs (A.13, B.7),
 joint springs and flexibility (A.14, B.8), joints other than FREE and
-REVOLUTE (A.14, A.15); randomization (B.5), the sensor stage (B.6) and
-distance rows (B.9) have no entry here yet.
+REVOLUTE (A.14, A.15); randomization (B.5) and distance rows (B.9) have
+no entry here yet.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from jiminy_tpu_torch.engine import constraints as cstr
 from jiminy_tpu_torch.engine.contact import surface_contacts
 from jiminy_tpu_torch.engine.ground import FlatGround
 from jiminy_tpu_torch.hardware.motors import Motors
+from jiminy_tpu_torch.hardware.sensors import SensorSuite
 # a module, not its names: the engine package imports this module while
 # ops.constraint_solve may still be importing the engine's PGS solver
 from jiminy_tpu_torch.ops import constraint_solve as chain
@@ -55,6 +63,11 @@ _HDR_I, _HDR_F = 8, 16  # header lengths of the packed spec (csrc/substep.cu)
 # the kernels' largest instantiation (csrc/substep.cu JT_SUB_MAX_*,
 # JT_NQ_EXTRA); the C entry points refuse anything larger as well
 MAX_NB, MAX_NV, MAX_NC, NQ_EXTRA = 32, 32, 48, 4
+# the sensor stage's caps (csrc/substep.cu JT_SENS_MAX_*)
+MAX_SENS_GROUPS, MAX_SENS_BUF, MAX_SENS_EPS = 8, 4096, 1024
+_SENSOR_CODES = {"imu": 0, "encoder": 1, "effort": 2, "contact": 3}
+# what a sensor needs of a body and its ancestors (csrc/substep.cu JT_NEED_*)
+_NEED_ROTATION, _NEED_MOTION = 1, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,6 +284,83 @@ class SubstepSpec:
         return np.asarray(ints, np.int32), floats.astype(np.float32)
 
 
+def _mark_chain(tree: KinematicTree, need: list, body: int, what: int):
+    """Mark ``body`` and its ancestors with ``what`` in ``need``."""
+    while body >= 0:
+        need[body] |= what
+        body = tree.parent[body]
+
+
+class SensorKernelSpec:
+    """A sensor suite described for K2's sensor stage: after every
+    ``k_obs``-th substep, measure at the accepted state, add the
+    pre-sampled eps and push the delay lines. Types imu, encoder, effort
+    and contact; a ``force`` sensor raises ValueError (the env then takes
+    the chunked path, as the reference does). The corruption is sampled
+    outside the kernel (:meth:`SensorSuite.sample_eps`): (B, n_upd·n_eps)
+    with n_upd = n_sub / k_obs updates per launch."""
+
+    def __init__(self, tree: KinematicTree, suite: SensorSuite, k_obs: int):
+        self.suite = suite
+        self.k_obs = int(k_obs)
+        if self.k_obs < 1:
+            raise ValueError(f"k_obs must be ≥ 1, got {k_obs}")
+        for g in suite.groups:
+            if g.type not in _SENSOR_CODES:
+                raise ValueError(f"sensor type {g.type!r} is not supported by the kernel")
+            if g.type == "imu" and any(tree.frame_body[f] < 0 for f in g.target):
+                raise ValueError("an IMU on a world frame")
+        self.n_groups = len(suite.groups)
+        self.n_buf = suite.n_buf
+        self.n_eps = suite.n_eps
+        self._tree = tree
+        self._packed: dict = {}
+
+    def check_kernel_caps(self, who: str):
+        if not (1 <= self.n_groups <= MAX_SENS_GROUPS and self.n_buf <= MAX_SENS_BUF
+                and self.n_eps <= MAX_SENS_EPS):
+            raise ValueError(
+                f"{who}: {self.n_groups} sensor groups, n_buf={self.n_buf}, "
+                f"n_eps={self.n_eps} outside the sensor stage's caps (1–{MAX_SENS_GROUPS} "
+                f"groups, n_buf ≤ {MAX_SENS_BUF}, n_eps ≤ {MAX_SENS_EPS})"
+            )
+
+    def packed(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """(int32, float32) buffers on ``device`` as ``csrc/substep.cu``
+        `jt_sensor_stage` reads them; built once per device:
+
+        - ints: per body what the readings need of it (1: its world
+          rotation, for the IMUs' and contacts' bodies and their
+          ancestors; 3: its velocity and proper acceleration too, for the
+          IMUs' bodies and their ancestors; 0: nothing), per group [type,
+          ns, buf_len, first sensor], then per sensor two ints: imu (body,
+          offset of its 12 floats), encoder and effort (q offset, v
+          offset), contact (contact, body);
+        - floats: per IMU, its frame's rotation in the body (9, row-major)
+          and position (3)."""
+        key = str(device)
+        if key not in self._packed:
+            t = self._tree
+            need, groups, sensors, floats = [0] * t.nb, [], [], []
+            for g in self.suite.groups:
+                groups += [_SENSOR_CODES[g.type], g.ns, g.buf_len, len(sensors) // 2]
+                for k in g.target:
+                    if g.type == "imu":
+                        sensors += [t.frame_body[k], len(floats)]
+                        floats += t.fp_rot[k].reshape(-1).tolist() + t.fp_pos[k].tolist()
+                        _mark_chain(t, need, t.frame_body[k], _NEED_MOTION)
+                    elif g.type == "contact":
+                        sensors += [k, t.contact_body[k]]
+                        _mark_chain(t, need, t.contact_body[k], _NEED_ROTATION)
+                    else:
+                        sensors += [t.q_off[k], t.v_off[k]]
+            self._packed[key] = (
+                torch.as_tensor(need + groups + sensors, dtype=torch.int32, device=device),
+                torch.as_tensor(floats or [0.0], dtype=torch.float32, device=device),
+            )
+        return self._packed[key]
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
@@ -361,21 +451,62 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
     return q_next, v_next, lam, residual, impulse
 
 
-def substep_multi_reference(spec: SubstepSpec, n_sub: int, q, v, cmd, lam0, wrench=None):
+def sensor_stage_reference(sensors: SensorKernelSpec, q, v, a, f_contact, tau, eps, bufs):
+    """One sensor update at an accepted state (q⁺, v⁺, a = Δv/dt, contact
+    forces = impulses/dt (B, ncp, 3), τ) with one update's eps (B,
+    n_eps): the suite's own ``update`` on the flattened buffers (B,
+    n_buf) → the new flattened buffers."""
+    suite = sensors.suite
+    return suite.flatten_buffers(
+        suite.update(suite.unflatten_buffers(bufs), eps, q, v, a, f_contact, tau)
+    )
+
+
+def _check_sensor_args(sensors, n_sub, B, bufs, eps):
+    if (sensors is None) != (bufs is None) or (sensors is None) != (eps is None):
+        raise ValueError("bufs and eps go with sensors, all three or none")
+    if sensors is None:
+        return
+    if n_sub % sensors.k_obs:
+        raise ValueError(f"n_sub={n_sub} is not a multiple of k_obs={sensors.k_obs}")
+    n_eps = n_sub // sensors.k_obs * sensors.n_eps
+    if tuple(bufs.shape) != (B, sensors.n_buf) or tuple(eps.shape) != (B, n_eps):
+        raise ValueError(
+            f"bufs {tuple(bufs.shape)} and eps {tuple(eps.shape)}: expected "
+            f"({B}, {sensors.n_buf}) and ({B}, {n_eps})"
+        )
+
+
+def substep_multi_reference(
+    spec: SubstepSpec, n_sub: int, q, v, cmd, lam0, wrench=None,
+    sensors: SensorKernelSpec | None = None, bufs=None, eps=None,
+):
     """``n_sub`` chained substeps with τ recomputed from the held command
     ``cmd`` (B, nm) before each → (q⁺, v⁺, λ, residual, impulses (B, ncp,
-    3), a, τ), the last three of the last substep; a = (v⁺ − v)/dt."""
+    3), a, τ), the last three of the last substep; a = (v⁺ − v)/dt. With
+    ``sensors``, after each substep i with (i + 1) % k_obs == 0 the
+    sensor update u = (i + 1)/k_obs − 1 runs at that substep's accepted
+    state with eps[:, u·n_eps:(u + 1)·n_eps], and the new buffers (B,
+    n_buf) are returned last."""
     if spec.torque is None:
         raise ValueError("the multi-substep path needs spec.torque")
     if n_sub < 1:
         raise ValueError(f"n_sub must be ≥ 1, got {n_sub}")
+    _check_sensor_args(sensors, n_sub, q.shape[0], bufs, eps)
     lam = lam0
-    for _ in range(n_sub):
+    for i in range(n_sub):
         tau = torque_reference(spec, q, v, cmd)
         q_next, v_next, lam, res, impulse = substep_reference(spec, q, v, tau, lam, wrench)
         a = (v_next - v) / spec.dt
+        if sensors is not None and (i + 1) % sensors.k_obs == 0:
+            u = (i + 1) // sensors.k_obs - 1
+            e = eps[:, u * sensors.n_eps:(u + 1) * sensors.n_eps]
+            bufs = sensor_stage_reference(
+                sensors, q_next, v_next, a, impulse / spec.dt, tau, e, bufs
+            )
         q, v = q_next, v_next
-    return q, v, lam, res, impulse, a, tau
+    out = (q, v, lam, res, impulse, a, tau)
+    return out if sensors is None else out + (bufs,)
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +525,8 @@ def _kernel():
     lib.jt_substep.restype = ci
     lib.jt_substep_multi.argtypes = [vp] * 14 + [ci] * 7 + tail
     lib.jt_substep_multi.restype = ci
+    lib.jt_substep_multi_sensors.argtypes = [vp] * 19 + [ci] * 11 + tail
+    lib.jt_substep_multi_sensors.restype = ci
     lib.jt_substep_error_string.argtypes = [ci]
     lib.jt_substep_error_string.restype = ctypes.c_char_p
     return lib
@@ -476,39 +609,67 @@ def substep_batched(spec: SubstepSpec, q, v, tau, lam0, wrench):
 substep_batched.launches = 0
 
 
-def substep_batched_multi(spec: SubstepSpec, n_sub: int, q, v, cmd, lam0, wrench):
+def substep_batched_multi(
+    spec: SubstepSpec, n_sub: int, q, v, cmd, lam0, wrench,
+    sensors: SensorKernelSpec | None = None, bufs=None, eps=None,
+):
     """K2, ``n_sub`` substeps in one launch with τ recomputed in-kernel
     from the held command: q (B, nq), v (B, nv), cmd (B, nm), λ0 (B, nc),
     wrench (B, 6) → (q⁺, v⁺, λ, residual (B,), impulses (B, ncp, 3),
-    a (B, nv), τ (B, nv)), the last three of the last substep. Needs
+    a (B, nv), τ (B, nv)), the last three of the last substep. With
+    ``sensors`` (a :class:`SensorKernelSpec`), ``bufs`` (B, n_buf) and
+    ``eps`` (B, n_sub/k_obs·n_eps), the kernel's sensor stage runs after
+    every k_obs-th substep and the new buffers are returned last. Needs
     ``spec.torque``. On CUDA tensors this launches the kernel (float32,
     contiguous) and raises on anything else; on CPU tensors it runs
     :func:`substep_multi_reference`."""
-    dev = _device_of("substep_batched_multi", q, v, cmd, lam0, wrench)
     if spec.torque is None:
         raise ValueError("substep_batched_multi needs spec.torque")
     if n_sub < 1:
         raise ValueError(f"n_sub must be ≥ 1, got {n_sub}")
+    _check_sensor_args(sensors, n_sub, q.shape[0], bufs, eps)
+    extra = () if sensors is None else (bufs, eps)
+    dev = _device_of("substep_batched_multi", q, v, cmd, lam0, wrench, *extra)
     if dev.type == "cpu":
-        return substep_multi_reference(spec, n_sub, q, v, cmd, lam0, wrench)
+        return substep_multi_reference(
+            spec, n_sub, q, v, cmd, lam0, wrench, sensors=sensors, bufs=bufs, eps=eps
+        )
     t, B, nm = spec.tree, q.shape[0], spec.torque.nm
-    _check_inputs("substep_batched_multi", {
+    items = {
         "q": (q, (B, t.nq)), "v": (v, (B, t.nv)), "cmd": (cmd, (B, nm)),
         "lam0": (lam0, (B, spec.nc)), "wrench": (wrench, (B, 6)),
-    })
+    }
+    if sensors is not None:
+        items.update({"bufs": (bufs, tuple(bufs.shape)), "eps": (eps, tuple(eps.shape))})
+    _check_inputs("substep_batched_multi", items)
     spec.check_kernel_caps("substep_batched_multi")
     lib = _kernel()
     si, sf = spec.packed(dev)
     outs = _outputs(spec, B, dev, extra=2)
     tail, _layout_alive = _tail(spec, dev)
-    err = lib.jt_substep_multi(
+    head = [
         si.data_ptr(), sf.data_ptr(), q.data_ptr(), v.data_ptr(), cmd.data_ptr(),
         lam0.data_ptr(), wrench.data_ptr(), *(o.data_ptr() for o in outs),
-        B, n_sub, t.nb, t.nq, t.nv, spec.nc, nm, *tail,
-    )
+    ]
+    dims = [B, n_sub, t.nb, t.nq, t.nv, spec.nc, nm]
+    if sensors is None:
+        err = lib.jt_substep_multi(*head, *dims, *tail)
+    else:
+        sensors.check_kernel_caps("substep_batched_multi")
+        gi, gf = sensors.packed(dev)
+        outs.append(torch.empty(B, sensors.n_buf, dtype=torch.float32, device=dev))
+        err = lib.jt_substep_multi_sensors(
+            *head, gi.data_ptr(), gf.data_ptr(), bufs.data_ptr(), eps.data_ptr(),
+            outs[-1].data_ptr(), *dims, sensors.n_groups, sensors.n_buf,
+            sensors.n_eps, sensors.k_obs, *tail,
+        )
     _raise_on(lib, err, "substep_multi")
-    substep_batched_multi.launches += 1
+    if sensors is None:
+        substep_batched_multi.launches += 1
+    else:
+        substep_batched_multi.sensor_launches += 1
     return tuple(outs)
 
 
 substep_batched_multi.launches = 0
+substep_batched_multi.sensor_launches = 0

@@ -1,16 +1,19 @@
 """Where the time of the ANYmal env step goes on a GPU.
 
     python -m jiminy_tpu_torch.tools.profile_env_step [--batch 4096] [--steps 5]
-        [--solver auto|substep|kernel|inline]
+        [--solver auto|substep|kernel|inline] [--observe state|sensors]
 
 Runs ``ANYmalEnv(observe="state", device="cuda")`` (by default on its
 main path, ``constraint_solver="auto"``, which is the fused whole-substep
-kernel for ANYmal) under
+kernel for ANYmal), or with ``--observe sensors`` the sensor-observing
+env of ``anymal_sensors_run5`` (delay 0.004 s, IMU noise 0.02, encoder
+noise 0.005; K2 with the sensor stage), under
 ``torch.profiler`` for a few env steps after a warm-up, and prints one
 JSON line: the card (``nvidia-smi`` name and power limit), wall ms per env
 step, device busy ms per env step (the sum of GPU kernel times), the
-device's idle share, GPU kernel launches per env step, and the kernels
-that take the most device time. Needs a CUDA GPU.
+device's idle share, GPU kernel launches per env step and, profiled
+apart, per step without auto-reset and per reset (an env step runs one
+of each), and the kernels that take the most device time. Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--solver", default="auto", choices=("auto", "substep", "kernel", "inline"))
+    ap.add_argument("--observe", default="state", choices=("state", "sensors"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_env_step: no CUDA GPU available")
@@ -37,8 +41,10 @@ def main() -> None:
     from jiminy_tpu_torch.envs import ANYmalEnv
 
     dev = torch.device("cuda")
-    env = ANYmalEnv(observe="state", step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
-                    constraint_solver=args.solver, device=dev)
+    sensors = (dict(sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005)
+               if args.observe == "sensors" else {})
+    env = ANYmalEnv(observe=args.observe, step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
+                    constraint_solver=args.solver, device=dev, **sensors)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = env.reset(gen, args.batch)
     acts = [torch.rand(args.batch, 12, generator=gen, device=dev) * 2 - 1
@@ -54,6 +60,18 @@ def main() -> None:
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    # the two halves of an env step alone, over as many calls: the step
+    # without auto-reset, and the reset that auto-reset runs every step
+    split = {}
+    for name, fn in (("step_no_reset", lambda a: env.step_no_reset(state, a)),
+                     ("reset", lambda a: env.reset(gen, args.batch))):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as part:
+            for a in acts[args.steps:]:
+                fn(a)
+            torch.cuda.synchronize()
+        split[name] = sum(
+            e.count for e in part.key_averages() if e.device_type == DeviceType.CUDA
+        ) / args.steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -64,10 +82,13 @@ def main() -> None:
         "gpu": gpu,
         "batch": args.batch,
         "constraint_solver": env.engine.backend,
+        "observe": args.observe,
         "wall_ms_per_env_step": 1e3 * wall / n,
         "device_busy_ms_per_env_step": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - (busy_us / 1e6) / wall,
         "gpu_kernel_launches_per_env_step": sum(e.count for e in kernels) / n,
+        "gpu_kernel_launches_per_step_no_reset": split["step_no_reset"],
+        "gpu_kernel_launches_per_reset": split["reset"],
         "top_kernels_ms_per_env_step": {
             e.key[:80]: e.self_device_time_total / 1e3 / n for e in top
         },

@@ -156,7 +156,7 @@ def test_auto_reset_matches_reference(jax_env, solver):
 
 
 def test_reset_is_seeded():
-    env = ANYmalEnv(device="cpu")
+    env = ANYmalEnv(observe="state", device="cpu")
     a = env.reset(torch.Generator().manual_seed(7), 4)
     b = env.reset(torch.Generator().manual_seed(7), 4)
     torch.testing.assert_close(a.sim.q, b.sim.q, atol=0, rtol=0)
@@ -167,10 +167,10 @@ def test_reset_is_seeded():
 @pytest.mark.parametrize(
     "kwargs, item",
     [
-        ({"observe": "sensors"}, "A.9"),
+        ({"terrain_seed": 3}, "A.10"),
         ({"terrain": "perlin"}, "A.10"),
         ({"push_magnitude": 50.0}, "A.10"),
-        ({"imu_noise": 0.01}, "A.9"),
+        ({"collision_pairs": ()}, "A.13"),
         ({"model_randomization": object()}, "A.11"),
     ],
 )

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions:
 K1 (``solve_batched``), K3 (``substep_batched``) and K2
-(``substep_batched_multi``).
+(``substep_batched_multi``), with and without its sensor stage.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -106,8 +106,8 @@ def test_env_step_goes_through_the_kernel(cuda_device):
     substep equals the inline plain chain from the same inputs."""
     from jiminy_tpu_torch.envs import ANYmalEnv
 
-    env = ANYmalEnv(constraint_solver="kernel", device=cuda_device)
-    inline = ANYmalEnv(constraint_solver="inline", device=cuda_device)
+    env = ANYmalEnv(observe="state", constraint_solver="kernel", device=cuda_device)
+    inline = ANYmalEnv(observe="state", constraint_solver="inline", device=cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     state = env.reset(gen, 256)
     before = solve_batched.launches
@@ -124,7 +124,7 @@ def _anymal_engine(dev, fusion=True):
     from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
     from jiminy_tpu_torch.models.quadruped import make_anymal
 
-    tree, motors = make_anymal(device=dev)
+    tree, motors, _ = make_anymal(device=dev)
     opts = EngineOptions(dt=5e-3, pgs_iters=8, constraint_solver="substep",
                          substep_fusion=fusion)
     return Engine(tree, opts, motors=motors, controller=PDController(80.0, 2.0), device=dev)
@@ -207,8 +207,8 @@ def test_env_main_path_is_one_fused_launch(cuda_device):
     plain engine from the same inputs."""
     from jiminy_tpu_torch.envs import ANYmalEnv
 
-    env = ANYmalEnv(device=cuda_device)
-    inline = ANYmalEnv(constraint_solver="inline", device=cuda_device)
+    env = ANYmalEnv(observe="state", device=cuda_device)
+    inline = ANYmalEnv(observe="state", constraint_solver="inline", device=cuda_device)
     state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
     counts = (solve_batched.launches, substep_batched.launches, substep_batched_multi.launches)
     state = env.step(state, torch.zeros(256, 12, device=cuda_device))
@@ -226,3 +226,110 @@ def test_env_main_path_is_one_fused_launch(cuda_device):
         torch.testing.assert_close(nk.q, ni.q, atol=ATOL, rtol=0)
         torch.testing.assert_close(nk.v, ni.v, atol=ATOL, rtol=0)
         sim = nk
+
+
+def _sensor_setup(eng, seed, B, k_obs=1, n_upd=1):
+    """ANYmal's suite at the flagship's settings, its kernel spec, ring
+    buffers of distinct slots and the corruption of ``n_upd`` updates."""
+    from jiminy_tpu_torch.models.quadruped import make_anymal
+    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
+
+    _, _, suite = make_anymal(device=eng.device, sensor_period=5e-3 * k_obs,
+                              sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005)
+    gen = torch.Generator(device=eng.device).manual_seed(seed)
+    q, v, cmd, lam0, wrench = _substep_inputs(seed, B, eng)
+    bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B), q, v))
+    bufs = bufs + 0.1 * torch.randn(bufs.shape, generator=gen, device=eng.device)
+    eps = torch.cat([suite.sample_eps(gen, B) for _ in range(n_upd)], 1)
+    return SensorKernelSpec(eng.tree, suite, k_obs), (q, v, cmd, lam0, wrench), bufs, eps
+
+
+def _assert_bufs_close(sens, out, ref):
+    """Each reading (a group's dim) scaled by max(1, its largest value):
+    |Δ| / scale ≤ ATOL (the accelerometer and the contact forces read
+    Δv/dt and λ/dt, 10²–10³ in size)."""
+    o, B = 0, out.shape[0]
+    for g in sens.suite.groups:
+        n = g.ns * g.buf_len * g.dim
+        o_, r_ = (x[:, o:o + n].reshape(B, g.ns, g.buf_len, g.dim) for x in (out, ref))
+        scale = r_.abs().amax(dim=(0, 1, 2)).clamp(min=1.0)
+        torch.testing.assert_close(o_ / scale, r_ / scale, atol=ATOL, rtol=0, msg=g.type)
+        o += n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 1000])
+def test_sensor_stage_matches_plain_version(cuda_device, B):
+    """K2 with the sensor stage over one substep against its plain
+    version from the same inputs, buffers and eps; its physics equals the
+    sensor-free K2's bit for bit."""
+    eng = _anymal_engine(cuda_device)
+    spec = eng.substep_spec
+    sens, args, bufs, eps = _sensor_setup(eng, 9, B)
+    before = substep_batched_multi.launches, substep_batched_multi.sensor_launches
+    out = substep_batched_multi(spec, 1, *args, sensors=sens, bufs=bufs, eps=eps)
+    assert (substep_batched_multi.launches, substep_batched_multi.sensor_launches) == (
+        before[0], before[1] + 1)
+    ref = substep_multi_reference(spec, 1, *args, sensors=sens, bufs=bufs, eps=eps)
+    bare = substep_batched_multi(spec, 1, *args)
+    torch.cuda.synchronize()
+    _assert_outputs_close(out[:7], ref[:7], spec.dt)
+    _assert_bufs_close(sens, out[7], ref[7])
+    for o, b in zip(out[:7], bare):
+        assert torch.equal(o, b)
+
+
+@pytest.mark.cuda
+def test_sensor_stage_k_obs2_pushes_every_other_substep(cuda_device):
+    """k_obs = 2 over 2 substeps: one update, at the second substep's
+    accepted state. The kernel returns that substep's q⁺, v⁺, a, τ and
+    impulses, so the plain stage applied to them from the same buffers
+    and eps must give the kernel's buffers."""
+    from jiminy_tpu_torch.ops.substep_kernel import sensor_stage_reference
+
+    eng = _anymal_engine(cuda_device)
+    spec = eng.substep_spec
+    sens, args, bufs, eps = _sensor_setup(eng, 10, 64, k_obs=2)
+    out = substep_batched_multi(spec, 2, *args, sensors=sens, bufs=bufs, eps=eps)
+    q, v, _, _, impulse, a, tau, kb = out
+    ref = sensor_stage_reference(sens, q, v, a, impulse / spec.dt, tau, eps, bufs)
+    torch.cuda.synchronize()
+    _assert_bufs_close(sens, kb, ref)
+
+
+@pytest.mark.cuda
+def test_sensor_stage_rejects_bad_inputs(cuda_device):
+    eng = _anymal_engine(cuda_device)
+    spec = eng.substep_spec
+    sens, args, bufs, eps = _sensor_setup(eng, 11, 8)
+    with pytest.raises(ValueError, match="expected"):
+        substep_batched_multi(spec, 4, *args, sensors=sens, bufs=bufs, eps=eps)  # 1 update of 4
+    with pytest.raises(ValueError, match="all three"):
+        substep_batched_multi(spec, 1, *args, sensors=sens, bufs=bufs)
+    with pytest.raises(TypeError, match="float32"):
+        substep_batched_multi(spec, 1, *args, sensors=sens, bufs=bufs.double(), eps=eps)
+    with pytest.raises(ValueError, match="tensors on"):
+        substep_batched_multi(spec, 1, *args, sensors=sens, bufs=bufs, eps=eps.cpu())
+
+
+@pytest.mark.cuda
+def test_sensor_env_is_one_fused_launch(cuda_device):
+    """The default env observes through sensors: one K2 launch per env
+    step, no K1 or K3; the chunked fallback takes four."""
+    from jiminy_tpu_torch.envs import ANYmalEnv
+
+    env = ANYmalEnv(sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005, device=cuda_device)
+    assert env._fused_sensors
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
+    def counts():
+        return (solve_batched.launches, substep_batched.launches,
+                substep_batched_multi.launches, substep_batched_multi.sensor_launches)
+
+    before = counts()
+    state = env.step(state, torch.zeros(256, 12, device=cuda_device))
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 0, 1)
+    assert state.obs.shape == (256, 33) and bool(torch.isfinite(state.obs).all())
+    env._fused_sensors = False
+    before = counts()
+    env.step(state, torch.zeros(256, 12, device=cuda_device))
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 4, 0)

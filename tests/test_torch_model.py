@@ -40,7 +40,7 @@ def robots():
     jt = jrobot.tree
     d = {k: np.asarray(getattr(jt, k)) for k in STATIC_FIELDS + ARRAY_FIELDS}
     md = {k: np.asarray(getattr(jrobot.motors, k)) for k in MOTOR_FIELDS}
-    tree, motors = make_anymal(device="cpu")
+    tree, motors, _ = make_anymal(device="cpu")
     return jrobot, tree_from_arrays(d, device="cpu"), tree, motors_from_arrays(md, device="cpu"), motors
 
 

@@ -5,10 +5,11 @@ module of ``jiminy_tpu_torch`` and ``chip_smoke.py`` must import without
 them. In a fresh interpreter a ``sys.meta_path`` finder refuses the
 top-level names below (exact names: ``jiminy_tpu_torch`` still loads);
 then every module of the port is imported, ``chip_smoke`` is imported
-without running, and one CPU env step is taken at B = 2 on the env's
-default path (the whole-substep kernels' plain versions) and on the
-chain-kernel path. The modules that hold kernels are named, so a rename
-cannot drop them from the walk. A second test imports each kernel module
+without running, and one CPU env step is taken at B = 2 on the
+state-observing env's whole-substep path (the kernels' plain versions)
+and chain-kernel path, and on the sensor-observing env's fused and
+chunked paths. The modules that hold kernels, and the sensor suite, are
+named, so a rename cannot drop them from the walk. A second test imports each kernel module
 first in a fresh interpreter: the engine and ops packages import each
 other, and any order must work.
 """
@@ -25,7 +26,8 @@ _SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "jiminy_tpu"}
-KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops.substep_kernel")
+KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops.substep_kernel",
+                  "jiminy_tpu_torch.hardware.sensors")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -56,10 +58,16 @@ import torch
 from jiminy_tpu_torch.envs import ANYmalEnv
 
 for solver in ("substep", "kernel"):
-    env = ANYmalEnv(constraint_solver=solver, device="cpu")
+    env = ANYmalEnv(observe="state", constraint_solver=solver, device="cpu")
     st = env.reset(torch.Generator().manual_seed(0), 2)
     st = env.step(st, torch.zeros(2, 12))
     assert bool(torch.isfinite(st.sim.q).all()) and st.obs.shape == (2, 33)
+for fused in (True, False):
+    env = ANYmalEnv(sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005, device="cpu")
+    env._fused_sensors = fused
+    st = env.reset(torch.Generator().manual_seed(0), 2)
+    st = env.step(st, torch.zeros(2, 12))
+    assert bool(torch.isfinite(st.obs).all()) and st.obs.shape == (2, 33)
 leaked = sorted(k for k in sys.modules if k.partition(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK", len(mods))

@@ -273,8 +273,9 @@ def test_auto_picks_the_whole_substep_kernel(robot):
                  controller=PDController(KP, KD), device="cpu")
     assert eng.options.constraint_solver == "auto"
     assert eng.backend == "substep"
-    assert ANYmalEnv(device="cpu").engine.backend == "substep"
-    assert ANYmalEnv(constraint_solver="kernel", device="cpu").engine.backend == "kernel"
+    assert ANYmalEnv(observe="state", device="cpu").engine.backend == "substep"
+    assert ANYmalEnv(observe="state", constraint_solver="kernel",
+                     device="cpu").engine.backend == "kernel"
 
 
 def _chain_tree(nb):
