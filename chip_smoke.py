@@ -13,9 +13,14 @@ imports nothing of JAX and nothing of ``jiminy_tpu``. The kernels:
   step in one launch, τ recomputed in-kernel;
 - K3 ``substep`` (``csrc/substep.cu``): one substep, τ given;
 - K2 with the sensor stage ``substep_multi_sensors`` (``csrc/substep.cu``,
-  ``substep_multi_kernel<…, true>``): the same, plus after every k_obs-th
-  substep the sensor suite's update (measure at the accepted state,
-  corrupt with pre-sampled eps, push the delay lines).
+  ``substep_multi_kernel<…, true, false>``): the same, plus after every
+  k_obs-th substep the sensor suite's update (measure at the accepted
+  state, corrupt with pre-sampled eps, push the delay lines);
+- the ground instantiations ``substep_ground``, ``substep_multi_ground``
+  and ``substep_multi_sensors_ground`` (``GEN``): K3, K2 and K2 with the
+  sensor stage on an analytic ground per env (Fourier, Perlin, Stairs),
+  queried in-kernel from each env's coefficients (``jt_ground_query``),
+  the contact rows and impulses in the basis of the ground's normal.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -46,6 +51,13 @@ Phases (any failure raises and the script exits non-zero):
      at n_sub = 4 env by env against
      the float64 plain version, buffers included; at k_obs = 2 (an update
      every other substep) through ``Engine.step_with_sensors``, likewise;
+   - the three ground instantiations on each ground (a fresh ground per
+     env, bases spread over ±2 m or the whole staircase and raised by the
+     height under the feet; the number of contacts on a steep normal
+     printed, and none on the stairs fails): at n_sub = 1, B = 4096 and a
+     ragged B = 1000, within 1e-4 as above (each through its own launch
+     counter; the sensor variant's physics bit-equal to the sensor-free
+     one's); at n_sub = 4 env by env against the float64 plain version;
 2. the paths, each with the launch counts set to 0 just before it and
    read just after:
    - the main path, ``ANYmalEnv(observe="state", device="cuda")`` reset
@@ -68,9 +80,21 @@ Phases (any failure raises and the script exits non-zero):
      chunked (4 sensor-free K2 launches at n_sub = 1 and the plain update): q and v
      bit-equal, the buffers within 1e-4 scaled as in phase 1, and each held env by env
      against the float64 plain env;
+   - the terrain path (the slice: ``TERRAIN_KW``, ``anymal_sim2real_run5``
+     without model randomization: a Fourier ground per env, 100 N pushes
+     of 0.2 s, the sensors), 25 env steps: exactly one launch of K2 with
+     the sensor stage and the ground query per env step and no other;
+     then fused against chunked as for the sensor path;
+   - ``terrain="perlin"`` with 6 N pushes on the state path (10 steps, one
+     sensor-free ground K2 launch each), ``terrain="perlin_grid"`` (3
+     steps, 12 K1 launches) and K3 on the stairs with ``substep_fusion=
+     False`` (3 steps, 12 launches of K3 with the ground query);
 3. env-steps/s on the main path (3 timed loops of 25 steps), on the
-   sensor path and on the ``"kernel"`` path, and each kernel's and its
-   plain version's times with CUDA events beside the kernel's bound.
+   sensor path, on the terrain path and on the ``"kernel"`` path, and
+   each kernel's and its plain version's times with CUDA events beside
+   the kernel's bound; the ground instantiations on each ground (the
+   kernels line carries the slice's: K2 with sensors on Fourier, K2 on
+   Perlin, K3 on Stairs).
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -349,6 +373,95 @@ def _sensor_bytes(sens, B, n_upd) -> int:
     return 4 * B * (2 * sens.n_buf + n_upd * sens.n_eps) + 4 * (gi.numel() + gf.numel())
 
 
+GROUND_KINDS = ("fourier", "perlin", "stairs")
+
+
+def _ground_template(kind, dev):
+    """The engine's ground of each analytic kind at ANYmalEnv's settings:
+    a 16-term Fourier ground and a 3-octave Perlin ground (amplitude 0.08,
+    wavelength 1.5), the staircase 0.4 × 0.08 m, 10 steps, 5 cm ramps."""
+    from jiminy_tpu_torch.engine import ground as pg
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if kind == "fourier":
+        return pg.sample_fourier_ground(gen, n_terms=16, amplitude=0.08, wavelength=1.5, octaves=3)
+    if kind == "perlin":
+        return pg.sample_perlin_ground(gen, amplitude=0.08, wavelength=1.5, octaves=3)
+    return pg.StairsGround.create(0.4, 0.08, 10, 0.05, device=dev)
+
+
+def _ground_inputs(eng, kind, gen, B):
+    """``_substep_inputs`` spread over the terrain: bases uniform over
+    ±2 m (stairs: x over [−0.5, 4.5] m, the whole flight, y ±1 m), raised
+    by the mean height under the feet; a fresh ground per env (stairs:
+    x0 ~ U(−0.2, 0.2)) as its coefficients (B, n_gc); and the number of
+    contacts whose ground normal takes the steep switch (n_z < 0.9)."""
+    from jiminy_tpu_torch.core import algos
+    from jiminy_tpu_torch.engine import ground as pg
+    from jiminy_tpu_torch.engine.contact import contact_points_world
+
+    q, v, cmd, lam0, wrench = _substep_inputs(eng, gen, B)
+    kw = dict(generator=gen, device=q.device)
+    if kind == "fourier":
+        gc = pg.sample_fourier_ground(gen, 16, 0.08, 1.5, 3, batch_shape=(B,)).coef()
+    elif kind == "perlin":
+        gc = pg.sample_perlin_ground(gen, 0.08, 1.5, 3, batch_shape=(B,)).coef()
+    else:
+        gc = eng.ground.coef().expand(B, -1).clone()
+        gc[:, 4] = 0.4 * torch.rand(B, **kw) - 0.2
+    if kind == "stairs":
+        q[:, 0] = 5.0 * torch.rand(B, **kw) - 0.5
+        q[:, 1] = 2.0 * torch.rand(B, **kw) - 1.0
+    else:
+        q[:, 0:2] = 4.0 * torch.rand(B, 2, **kw) - 2.0
+    ground = type(eng.ground).from_coef(gc, eng.ground)
+
+    def feet_xy():
+        xw, vel = algos.kinematics(eng.tree, q, v)
+        return contact_points_world(eng.tree, xw, vel)[0][..., :2]
+
+    q[:, 2] += ground.query(feet_xy())[0].mean(1)
+    steep = int((ground.query(feet_xy())[1][..., 2] < 0.9).sum())
+    return (q, v, cmd, lam0, wrench), gc.contiguous(), steep
+
+
+def _ground_query_flops(spec) -> int:
+    """Operations of one `jt_ground_query` on this spec's ground, counted
+    from its code (an add, multiply, compare, select, floor, conversion or
+    integer multiply, xor or shift 1, a multiply-add 2, sinf and cosf 1
+    each, a division 1): Fourier 14 per term (the argument 4, sin and cos
+    2, the height 2, each gradient component 3); Perlin 148 per octave
+    (frequency and weight 2, scaled point 2, floors, fractions and
+    conversions 6, four corners of 18 each: the two lattice sums and 9
+    for the hash, 2 sign selects, the corner's dot product 5; the two
+    fades and their derivatives 22, the height's blend 9, the x
+    gradient's 15, the y gradient's 12, the accumulation 8) and 16 for
+    the fBm scale; Stairs 21."""
+    if spec.ground_mode == "fourier":
+        return 14 * spec.ground_n
+    if spec.ground_mode == "perlin":
+        return 148 * spec.ground_n + 16
+    return 21 if spec.ground_mode == "stairs" else 0
+
+
+def _ground_flops(spec) -> int:
+    """What the analytic ground adds to one env's substep beyond
+    `_substep_flops` (flat ground): per contact the query, the contact
+    frame (`jt_contact_basis`: the normal 8, the steep switch 3, t1 = ref ×
+    n̂ 9 and its normalization 10, t2 = n̂ × t1 9: 39), the three rows
+    [t1; t2; n̂]·J_p (15 per Jacobian column, where flat ground permutes
+    the column for free) and the world impulse t1·λ₀ + t2·λ₁ + n̂·λ₂ (15)."""
+    t = spec.tree
+    n = 0
+    for b in t.contact_body:
+        cols, j = 0, b
+        while j >= 0:
+            cols += 6 if t.joint_type[j] == 0 else 1
+            j = t.parent[j]
+        n += _ground_query_flops(spec) + 39 + 15 * cols + 15
+    return n
+
+
 def _anymal_suite(dev, dtype=torch.float32, period=5e-3, delay=0.004):
     """ANYmal's sensor suite at the flagship's settings (anymal_sensors_run5:
     delay 0.004 s, IMU noise 0.02, encoder noise 0.005)."""
@@ -359,10 +472,11 @@ def _anymal_suite(dev, dtype=torch.float32, period=5e-3, delay=0.004):
     return suite.to(dtype=dtype)
 
 
-def _anymal_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver="substep"):
-    """The flagship env's engine (PD kp 80, kd 2, 5 ms, 8 sweeps). In
-    float64 the model holds the float32 model's constants, so the two
-    differ by the arithmetic alone."""
+def _anymal_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver="substep",
+                   ground=None):
+    """The flagship env's engine (PD kp 80, kd 2, 5 ms, 8 sweeps), on flat
+    ground or ``ground``. In float64 the model holds the float32 model's
+    constants, so the two differ by the arithmetic alone."""
     from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
     from jiminy_tpu_torch.models.quadruped import make_anymal
 
@@ -370,7 +484,7 @@ def _anymal_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver=
     opts = EngineOptions(dt=5e-3, pgs_iters=8, compute_solver_residual=residual,
                          substep_fusion=fusion, constraint_solver=solver)
     return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
-                  controller=PDController(80.0, 2.0), device=dev)
+                  controller=PDController(80.0, 2.0), ground=ground, device=dev)
 
 
 def _substep_inputs(engine, gen, B):
@@ -645,6 +759,122 @@ def phase_sensors_vs_plain(dev) -> float:
     return worst
 
 
+def phase_ground_vs_plain(dev) -> dict:
+    """K3, K2 and K2 with the sensor stage on per-env analytic grounds
+    (their GEN instantiations) against their plain versions, for each
+    ground kind, from the same inputs: at n_sub = 1, B = 4096 and a ragged
+    B = 1000, and at n_sub = 4, B = 4096. On terrain one substep is not
+    well posed at 1e-4 in every env (deeper and more numerous contacts:
+    in a few envs of 1000 the plain float32 version is itself 1e-4–1e-3
+    from float64), so each output is held env by env against the float64
+    plain version (`_gate_vs_f64`) at both depths; the actuation torque,
+    computed from the inputs alone, within 1e-4 of its size; and the
+    sensor variant's q, v, λ, impulses, a and τ bit-equal to the
+    sensor-free K2's. Returns each kernel's worst |Δ| against the plain
+    float32 version at n_sub = 1, B = 4096 over the three grounds."""
+    from jiminy_tpu_torch.ops.substep_kernel import (
+        SensorKernelSpec,
+        substep_batched,
+        substep_batched_multi,
+        substep_multi_reference,
+        substep_reference,
+    )
+
+    names = ("q", "v", "lam", "residual", "impulse")
+    worst = {"substep_ground": 0.0, "substep_multi_ground": 0.0,
+             "substep_multi_sensors_ground": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    suite, suite64 = _anymal_suite(dev), _anymal_suite(dev, torch.float64)
+    for kind in GROUND_KINDS:
+        template = _ground_template(kind, dev)
+        eng = _anymal_engine(dev, ground=template)
+        eng64 = _anymal_engine(dev, torch.float64, ground=template)
+        spec, dt = eng.substep_spec, eng.substep_spec.dt
+        sens = SensorKernelSpec(eng.tree, suite, 1)
+        for label, B in ((f"B={B_MAIN}", B_MAIN), ("ragged B=1000", 1000)):
+            args, gc, steep = _ground_inputs(eng, kind, gen, B)
+            q, v, cmd, lam0, wrench = args
+            tau = eng._joint_torque(cmd, q, v)
+            bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B), q, v))
+            sw = dict(sensors=sens, bufs=bufs, eps=suite.sample_eps(gen, B))
+            before = _counts()
+            k3 = substep_batched(spec, q, v, tau, lam0, wrench, gc=gc)
+            k2 = substep_batched_multi(spec, 1, *args, gc=gc)
+            ks = substep_batched_multi(spec, 1, *args, gc=gc, **sw)
+            launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+            r3 = substep_reference(spec, q, v, tau, lam0, wrench, gc=gc)
+            r2 = substep_multi_reference(spec, 1, *args, gc=gc, **sw)
+            a64 = [x.double() for x in args]
+            r3_64 = substep_reference(eng64.substep_spec, a64[0], a64[1], tau.double(), a64[3],
+                                      a64[4], gc=gc.double())
+            r2_64 = substep_multi_reference(
+                eng64.substep_spec, 1, *a64, gc=gc.double(),
+                sensors=SensorKernelSpec(eng64.tree, suite64, 1), bufs=bufs.double(),
+                eps=sw["eps"].double())
+            torch.cuda.synchronize()
+            e3 = {n: _max_err(a, b) for n, a, b in zip(names, k3, r3)}
+            e2 = {n: _max_err(a, b) for n, a, b in zip(names + ("a", "tau"), k2, r2)}
+            scale = _reading_scale(sens, r2_64[7])
+            es = {"bufs_scaled": ((ks[7].double() - r2[7].double()).abs() / scale).max().item()}
+            same = all(torch.equal(ks[i], k2[i]) for i in range(7))
+            gates = {}
+            for kname, k, p32, p64 in (("K3", k3, r3, r3_64), ("K2", k2, r2, r2_64)):
+                for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+                    gates[f"{kname} {n}"] = _gate_vs_f64(f"{kname} {kind} {label} n_sub=1 {n}",
+                                                         k[i], p32[i], p64[i])
+            gates["K2 sensors bufs_scaled"] = _gate_vs_f64(
+                f"K2 sensors {kind} {label} n_sub=1 bufs", ks[7].double() / scale,
+                r2[7].double() / scale, r2_64[7] / scale)
+            print(f"[phase 1] {kind} ground {label}: max |kernel − plain f32|: K3 {json.dumps(e3)}; "
+                  f"K2 n_sub=1 {json.dumps(e2)}; K2 with sensors {json.dumps(es)}, physics equal to "
+                  f"the sensor-free K2: {same}; contacts on a steep normal {steep}/{4 * B}; "
+                  f"launches {json.dumps(launched)}")
+            print(f"[phase 1] {kind} ground {label}, n_sub=1 vs the f64 plain version: "
+                  + json.dumps(gates))
+            tau_scale = max(1.0, r2[6].abs().max().item())
+            if not (e2["tau"] <= TOL * tau_scale and same):
+                raise AssertionError(f"{kind} ground, {label}: K2's τ off by {e2['tau']} or the "
+                                     f"sensor variant's physics not the sensor-free K2's ({same})")
+            if launched != {"substep_ground": 1, "substep_multi_ground": 1,
+                            "substep_multi_sensors_ground": 1}:
+                raise AssertionError(f"{kind} ground: unexpected launches {launched}")
+            if kind == "stairs" and steep == 0:
+                raise AssertionError("no contact of the stairs inputs took the steep switch")
+            if B == B_MAIN:
+                worst["substep_ground"] = max(worst["substep_ground"], *(e3[n] for n in names))
+                worst["substep_multi_ground"] = max(worst["substep_multi_ground"],
+                                                    *(e2[n] for n in names))
+                worst["substep_multi_sensors_ground"] = max(
+                    worst["substep_multi_sensors_ground"], *(e2[n] for n in names),
+                    es["bufs_scaled"])
+
+        # a whole env step: env by env against the float64 plain version
+        args, gc, _ = _ground_inputs(eng, kind, gen, B_MAIN)
+        bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B_MAIN), args[0], args[1]))
+        eps = torch.cat([suite.sample_eps(gen, B_MAIN) for _ in range(4)], 1)
+        sw = dict(sensors=sens, bufs=bufs, eps=eps)
+        k2 = substep_batched_multi(spec, 4, *args, gc=gc)
+        ks = substep_batched_multi(spec, 4, *args, gc=gc, **sw)
+        p32 = substep_multi_reference(spec, 4, *args, gc=gc, **sw)
+        p64 = substep_multi_reference(
+            eng64.substep_spec, 4, *(x.double() for x in args), gc=gc.double(),
+            sensors=SensorKernelSpec(eng64.tree, suite64, 1), bufs=bufs.double(),
+            eps=eps.double())
+        torch.cuda.synchronize()
+        scale = _reading_scale(sens, p64[7])
+        gates = {f"K2 {n}": _gate_vs_f64(f"K2 {kind} n_sub=4 {n}", k2[i], p32[i], p64[i])
+                 for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse"))}
+        gates.update({f"K2 sensors {n}": _gate_vs_f64(f"K2 sensors {kind} n_sub=4 {n}", ks[i],
+                                                      p32[i], p64[i])
+                      for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse"))})
+        gates["K2 sensors bufs_scaled"] = _gate_vs_f64(
+            f"K2 sensors {kind} n_sub=4 bufs", ks[7].double() / scale,
+            p32[7].double() / scale, p64[7] / scale)
+        print(f"[phase 1] {kind} ground, n_sub=4 B={B_MAIN} vs the f64 plain version: "
+              + json.dumps(gates))
+    return worst
+
+
 def _as_f64(state):
     sim = type(state.sim)(**{k: getattr(state.sim, k).double() for k in state.sim.FIELDS})
     return state.replace(sim=sim, obs=state.obs.double())
@@ -715,26 +945,33 @@ def _ab_env_step(env, state, act_gen, dev):
 
 SENSOR_KW = dict(observe="sensors", sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005,
                  step_dt=0.02, sim_dt=5e-3, pgs_iters=8)
+# the slice's env: anymal_sim2real_run5 without model randomization
+TERRAIN_KW = dict(SENSOR_KW, terrain="fourier", push_magnitude=100.0, push_duration=0.2)
 
 
-def _ab_sensor_step(env, state, act_gen, dev):
-    """One env step of the sensor path from the same state and eps, fused
-    (one K2 launch with the sensor stage) and chunked (4 K2 launches at
-    n_sub = 1, each followed by the plain update), each held env by env
-    against the float64 plain env (chunked, inline engine) beside the
-    float32 plain env; the buffers scaled per group as in phase 1."""
+def _ab_sensor_step(env, state, act_gen, dev, kw=None, fused="substep_multi_sensors",
+                    chunked="substep_multi", label="sensor path"):
+    """One env step of a sensor path (the env ``kw`` builds) from the same
+    state and eps, fused (one launch of K2 with the sensor stage, the
+    instantiation ``fused``) and chunked (4 launches of the sensor-free
+    instantiation ``chunked`` at n_sub = 1, each followed by the plain
+    update), each held env by env against the float64 plain env (chunked,
+    inline engine) beside the float32 plain env; the buffers scaled per
+    group as in phase 1."""
     from jiminy_tpu_torch.envs import ANYmalEnv
 
-    plain = ANYmalEnv(constraint_solver="inline", device=dev, **SENSOR_KW)
-    plain64 = ANYmalEnv(constraint_solver="inline", dtype=torch.float64, device=dev, **SENSOR_KW)
+    kw = kw or SENSOR_KW
+    plain = ANYmalEnv(constraint_solver="inline", device=dev, **kw)
+    plain64 = ANYmalEnv(constraint_solver="inline", dtype=torch.float64, device=dev, **kw)
     a = _uniform(act_gen, dev)
     eps = env._sensor_eps(state.generator, B_MAIN, env.n_obs_updates)
     st64 = _as_f64(state)
-    st64 = st64.replace(info={k: x.double() for k, x in state.info.items()})
+    st64 = st64.replace(info={k: x.double() if x.is_floating_point() else x
+                              for k, x in state.info.items()})
     outs, launched = {}, {}
-    for name, e, st, fused in (("fused", env, state, True), ("chunked", env, state, False),
-                               ("plain", plain, state, False), ("plain64", plain64, st64, False)):
-        e._fused_sensors = fused
+    for name, e, st, is_fused in (("fused", env, state, True), ("chunked", env, state, False),
+                                  ("plain", plain, state, False), ("plain64", plain64, st64, False)):
+        e._fused_sensors = is_fused
         e._sensor_eps = lambda generator, batch_size, n_updates, x=eps: x.to(st.obs.dtype)
         before = _counts()
         outs[name] = e.step_no_reset(st, a.to(st.obs.dtype))
@@ -742,8 +979,7 @@ def _ab_sensor_step(env, state, act_gen, dev):
         launched[name] = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
         del e._sensor_eps
     env._fused_sensors = True
-    if launched != {"fused": {"substep_multi_sensors": 1}, "chunked": {"substep_multi": 4},
-                    "plain": {}, "plain64": {}}:
+    if launched != {"fused": {fused: 1}, "chunked": {chunked: 4}, "plain": {}, "plain64": {}}:
         raise AssertionError(f"sensor A/B: unexpected K2 launches {launched}")
     scale = _reading_scale(env.engine._sensor_spec(env.sensors, 1),
                          outs["plain64"].info["sensor_bufs"])
@@ -754,7 +990,7 @@ def _ab_sensor_step(env, state, act_gen, dev):
     same = torch.equal(fu.sim.q, ch.sim.q) and torch.equal(fu.sim.v, ch.sim.v)
     d_bufs = ((fu.info["sensor_bufs"].double() - ch.info["sensor_bufs"].double()).abs()
               / scale).max().item()
-    print(f"[phase 2] sensor path, fused vs chunked from the same state and eps: q, v equal "
+    print(f"[phase 2] {label}, fused vs chunked from the same state and eps: q, v equal "
           f"{same}; buffers max scaled |d| {d_bufs:.3g}")
     if not (same and d_bufs <= TOL):
         raise AssertionError(f"fused and chunked sensor steps differ: q, v equal {same}, "
@@ -770,26 +1006,38 @@ def _ab_sensor_step(env, state, act_gen, dev):
                 p32.info["sensor_bufs"].double() / scale, p64.info["sensor_bufs"] / scale),
             "obs": _gate_vs_f64(f"sensor env step {name} obs", k.obs, p32.obs, p64.obs),
         }
-    print(f"[phase 2] sensor path, one env step from the same state and eps, K2 launches "
+    print(f"[phase 2] {label}, one env step from the same state and eps, K2 launches "
           f"{json.dumps(launched)}, fused and chunked vs the f64 plain env: " + json.dumps(gates))
 
 
-def _reset_counts():
+def _counters():
+    """{kernel instantiation: (wrapper, its launch counter)}."""
     from jiminy_tpu_torch.ops.constraint_solve import solve_batched
     from jiminy_tpu_torch.ops.substep_kernel import substep_batched, substep_batched_multi
 
-    for fn in (solve_batched, substep_batched, substep_batched_multi):
-        fn.launches = 0
-    substep_batched_multi.sensor_launches = 0
+    return {
+        "constraint_solve": (solve_batched, "launches"),
+        "substep": (substep_batched, "launches"),
+        "substep_ground": (substep_batched, "ground_launches"),
+        "substep_multi": (substep_batched_multi, "launches"),
+        "substep_multi_sensors": (substep_batched_multi, "sensor_launches"),
+        "substep_multi_ground": (substep_batched_multi, "ground_launches"),
+        "substep_multi_sensors_ground": (substep_batched_multi, "sensor_ground_launches"),
+    }
+
+
+def _reset_counts():
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def _counts() -> dict:
-    from jiminy_tpu_torch.ops.constraint_solve import solve_batched
-    from jiminy_tpu_torch.ops.substep_kernel import substep_batched, substep_batched_multi
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
-    return {"constraint_solve": solve_batched.launches, "substep": substep_batched.launches,
-            "substep_multi": substep_batched_multi.launches,
-            "substep_multi_sensors": substep_batched_multi.sensor_launches}
+
+def _only(**launched) -> dict:
+    """The counts of a run that launched ``launched`` and nothing else."""
+    return {name: launched.get(name, 0) for name in _counters()}
 
 
 def _uniform(gen, dev):
@@ -820,7 +1068,12 @@ def _env_rate(env, state, act_gen, dev, steps, loops):
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU available")
-    dev = torch.device("cuda")
+    run(torch.device("cuda"))
+
+
+def run(dev) -> None:
+    """Every phase on ``dev`` (the card; ``main`` refuses to start
+    without one)."""
     gpu = _gpu_line()
     print(f"[phase 0] {gpu}")
     print(f"[phase 0] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -848,83 +1101,92 @@ def main() -> None:
     main_err = {"constraint_solve": phase_kernel_vs_plain(dev)}
     main_err.update(phase_substep_vs_plain(dev))
     main_err["substep_multi_sensors"] = phase_sensors_vs_plain(dev)
+    main_err.update(phase_ground_vs_plain(dev))
 
     # ---- phase 2: the paths through the public entry points
     kw = dict(observe="state", step_dt=0.02, sim_dt=5e-3, pgs_iters=8, device=dev)
     env = ANYmalEnv(**kw)
     if env.engine.backend != "substep":
         raise AssertionError("the env's default is not the whole-substep kernel")
-    gen = torch.Generator(device=dev).manual_seed(0)
     act_gen = torch.Generator(device=dev).manual_seed(1)
-    state = env.reset(gen, B_MAIN)
-    torch.cuda.synchronize()
-    _reset_counts()
-    for _ in range(STEPS):
-        state = env.step(state, _uniform(act_gen, dev))
-    torch.cuda.synchronize()
-    launches = _counts()
-    print(f"[phase 2] main path, {STEPS} env steps at B={B_MAIN}: launches {json.dumps(launches)}")
-    if launches != {"constraint_solve": 0, "substep": 0, "substep_multi": STEPS,
-                    "substep_multi_sensors": 0}:
-        raise AssertionError(f"expected {STEPS} K2 launches and no other, saw {launches}")
-    _check_finite(state, "the main path")
-    print(f"[phase 2] finite q, v, obs, reward; done this step "
-          f"{int(state.done.sum())}/{B_MAIN}; mean reward {state.reward.mean().item():.4f}")
+    path = {}  # each path's launches
 
+    def drive(label, env_, seed, steps, **expect):
+        """``steps`` env steps from a fresh batch with the counts set to 0
+        just before and read just after; raises unless exactly
+        ``expect`` launched and the state is finite."""
+        st = env_.reset(torch.Generator(device=dev).manual_seed(seed), B_MAIN)
+        torch.cuda.synchronize()
+        _reset_counts()
+        for _ in range(steps):
+            st = env_.step(st, _uniform(act_gen, dev))
+        torch.cuda.synchronize()
+        path[label] = got = _counts()
+        print(f"[phase 2] {label}, {steps} env steps at B={B_MAIN}: launches "
+              f"{json.dumps({n: c for n, c in got.items() if c})}")
+        if got != _only(**expect):
+            raise AssertionError(f"{label}: expected the launches {expect} and no other, saw {got}")
+        _check_finite(st, label)
+        print(f"[phase 2] {label}: finite q, v, obs, reward; done this step "
+              f"{int(st.done.sum())}/{B_MAIN}; mean reward {st.reward.mean().item():.4f}")
+        return st
+
+    def drive_unfused(label, eng, **expect):
+        """3 env steps of an engine with ``substep_fusion=False`` (K3,
+        one launch per substep) from the main path's state."""
+        sim = state.sim
+        torch.cuda.synchronize()
+        _reset_counts()
+        for _ in range(3):
+            u = env._action_to_command(_uniform(act_gen, dev), sim)
+            sim = eng.step(sim, u, n_substeps=env.n_substeps)
+        torch.cuda.synchronize()
+        path[label] = got = _counts()
+        print(f"[phase 2] {label}, 3 env steps: launches "
+              f"{json.dumps({n: c for n, c in got.items() if c})}")
+        if got != _only(**expect):
+            raise AssertionError(f"{label}: expected the launches {expect} and no other, saw {got}")
+        if not (bool(torch.isfinite(sim.q).all()) and bool(torch.isfinite(sim.v).all())):
+            raise AssertionError(f"non-finite state on the {label} path")
+
+    state = drive("main path", env, 0, STEPS, substep_multi=STEPS)
     _ab_env_step(env, state, act_gen, dev)
 
     env_k1 = ANYmalEnv(constraint_solver="kernel", **kw)
-    state_k1 = env_k1.reset(torch.Generator(device=dev).manual_seed(4), B_MAIN)
-    torch.cuda.synchronize()
-    _reset_counts()
-    for _ in range(3):
-        state_k1 = env_k1.step(state_k1, _uniform(act_gen, dev))
-    torch.cuda.synchronize()
-    k1_path = _counts()
-    print(f"[phase 2] constraint_solver='kernel', 3 env steps: launches {json.dumps(k1_path)}")
-    if k1_path != {"constraint_solve": 12, "substep": 0, "substep_multi": 0,
-                   "substep_multi_sensors": 0}:
-        raise AssertionError(f"expected 12 K1 launches and no other, saw {k1_path}")
-    _check_finite(state_k1, "the kernel path")
-
+    state_k1 = drive("constraint_solver='kernel'", env_k1, 4, 3, constraint_solve=12)
     eng_k3 = _anymal_engine(dev, residual=False, fusion=False)
-    sim = state.sim
-    torch.cuda.synchronize()
-    _reset_counts()
-    for _ in range(3):
-        u = env._action_to_command(_uniform(act_gen, dev), sim)
-        sim = eng_k3.step(sim, u, n_substeps=env.n_substeps)
-    torch.cuda.synchronize()
-    k3_path = _counts()
-    print(f"[phase 2] substep_fusion=False, 3 env steps: launches {json.dumps(k3_path)}")
-    if k3_path != {"constraint_solve": 0, "substep": 12, "substep_multi": 0,
-                   "substep_multi_sensors": 0}:
-        raise AssertionError(f"expected 12 K3 launches and no other, saw {k3_path}")
-    if not (bool(torch.isfinite(sim.q).all()) and bool(torch.isfinite(sim.v).all())):
-        raise AssertionError("non-finite state on the substep_fusion=False path")
+    drive_unfused("substep_fusion=False", eng_k3, substep=12)
 
     env_s = ANYmalEnv(device=dev, **SENSOR_KW)
     if not env_s._fused_sensors:
         raise AssertionError("the sensor env does not take the fused sensor path")
-    state_s = env_s.reset(torch.Generator(device=dev).manual_seed(6), B_MAIN)
-    torch.cuda.synchronize()
-    _reset_counts()
-    for _ in range(STEPS):
-        state_s = env_s.step(state_s, _uniform(act_gen, dev))
-    torch.cuda.synchronize()
-    sensor_path = _counts()
-    print(f"[phase 2] sensor path, {STEPS} env steps at B={B_MAIN}: launches "
-          f"{json.dumps(sensor_path)}")
-    if sensor_path != {"constraint_solve": 0, "substep": 0, "substep_multi": 0,
-                       "substep_multi_sensors": STEPS}:
-        raise AssertionError(f"expected {STEPS} launches of K2 with the sensor stage and no "
-                             f"other, saw {sensor_path}")
-    _check_finite(state_s, "the sensor path")
+    state_s = drive("sensor path", env_s, 6, STEPS, substep_multi_sensors=STEPS)
     if state_s.obs.shape != (B_MAIN, 33):
         raise AssertionError(f"sensor obs of shape {tuple(state_s.obs.shape)}")
-    print(f"[phase 2] finite q, v, obs, reward; done this step {int(state_s.done.sum())}/{B_MAIN}; "
-          f"mean reward {state_s.reward.mean().item():.4f}")
     _ab_sensor_step(env_s, state_s, act_gen, dev)
+
+    # the slice's path: per-env Fourier terrain, pushes, sensors
+    env_t = ANYmalEnv(device=dev, **TERRAIN_KW)
+    if not (env_t._fused_sensors and env_t.engine.substep_spec.ground_mode == "fourier"):
+        raise AssertionError("the terrain env does not take the fused ground path")
+    state_t = drive("terrain path (fourier, pushes, sensors)", env_t, 8, STEPS,
+                    substep_multi_sensors_ground=STEPS)
+    pushed = int((state_t.info["push_steps_left"] > 0).sum())
+    h, _ = env_t._episode_ground(state_t.info).query(state_t.sim.q[:, :2])
+    print(f"[phase 2] terrain path: {pushed}/{B_MAIN} envs being pushed; base height above "
+          f"each env's own ground {(state_t.sim.q[:, 2] - h).mean().item():.4f} m (mean)")
+    _ab_sensor_step(env_t, state_t, act_gen, dev, TERRAIN_KW, fused="substep_multi_sensors_ground",
+                    chunked="substep_multi_ground", label="terrain path")
+    env_p = ANYmalEnv(terrain="perlin", push_magnitude=6.0, **kw)
+    drive("perlin terrain with pushes, state path", env_p, 9, 10, substep_multi_ground=10)
+    env_g = ANYmalEnv(terrain="perlin_grid", **kw)
+    if env_g.engine.backend != "kernel":
+        raise AssertionError("perlin_grid does not resolve to the chain kernel")
+    drive("perlin_grid heightmap", env_g, 10, 3, constraint_solve=12)
+    drive_unfused("stairs, substep_fusion=False",
+                  _anymal_engine(dev, residual=False, fusion=False,
+                                 ground=_ground_template("stairs", dev)),
+                  substep_ground=12)
 
     # ---- phase 3: times
     for _ in range(STEPS):  # warm-up
@@ -937,6 +1199,12 @@ def main() -> None:
     rates_s, _ = _env_rate(env_s, state_s, act_gen, dev, STEPS, 3)
     print(f"[phase 3] env-steps/s at B={B_MAIN}, sensor path (K2 with the sensor stage): "
           f"{[round(r, 1) for r in rates_s]} (max {max(rates_s):.1f})")
+    for _ in range(5):  # warm-up
+        state_t = env_t.step(state_t, _uniform(act_gen, dev))
+    rates_t, _ = _env_rate(env_t, state_t, act_gen, dev, STEPS, 3)
+    print(f"[phase 3] env-steps/s at B={B_MAIN}, terrain path (K2 with the sensor stage and the "
+          f"ground query): {[round(r, 1) for r in rates_t]} (max {max(rates_t):.1f}; "
+          f"{max(rates_t) / max(rates_s):.3f}× the sensor path's)")
     state_k1 = env_k1.step(state_k1, _uniform(act_gen, dev))  # warm-up
     rates_k1, _ = _env_rate(env_k1, state_k1, act_gen, dev, 5, 2)
     print(f"[phase 3] env-steps/s at B={B_MAIN}, constraint_solver='kernel' (K1): "
@@ -944,9 +1212,12 @@ def main() -> None:
 
     kernels = []
 
-    def entry(name, source, replaces, ms, plain_ms, n_bytes, n_ops):
+    def bound(n_bytes, n_ops):
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOP_PER_S
-        bound_ms = 1e3 * max(t_bytes, t_ops)
+        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def entry(name, source, replaces, launched, ms, plain_ms, n_bytes, n_ops):
+        bound_ms, bound_by = bound(n_bytes, n_ops)
         print(f"[phase 3] {name} B={B_MAIN}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.5f} ms ({n_bytes} B, {n_ops} FLOP)")
         kernels.append({
@@ -954,15 +1225,12 @@ def main() -> None:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": {"constraint_solve": k1_path["constraint_solve"],
-                         "substep": k3_path["substep"],
-                         "substep_multi": launches["substep_multi"],
-                         "substep_multi_sensors": sensor_path["substep_multi_sensors"]}[name],
+            "launches": launched,
             "max_abs_err": main_err[name],
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes these functions
         })
 
@@ -970,13 +1238,13 @@ def main() -> None:
     q, v, cmd, lam0, wrench = _substep_inputs(eng_k3, torch.Generator(device=dev).manual_seed(5), B_MAIN)
     tau = eng_k3._joint_torque(cmd, q, v)
     n_sub = env.n_substeps
+    k2_ops = B_MAIN * (n_sub * (_substep_flops(spec) + _torque_flops(spec)) + 2 * spec.tree.nv)
     entry(
         "substep_multi", "jiminy_tpu_torch/csrc/substep.cu",
-        "jiminy_tpu/ops/substep_kernel.py:1815",
+        "jiminy_tpu/ops/substep_kernel.py:1815", path["main path"]["substep_multi"],
         _time_cuda(lambda: substep_batched_multi(spec, n_sub, q, v, cmd, lam0, wrench), 20),
         _time_cuda(lambda: substep_multi_reference(spec, n_sub, q, v, cmd, lam0, wrench), 3),
-        _substep_multi_bytes(spec, B_MAIN),
-        B_MAIN * (n_sub * (_substep_flops(spec) + _torque_flops(spec)) + 2 * spec.tree.nv),
+        _substep_multi_bytes(spec, B_MAIN), k2_ops,
     )
     from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
 
@@ -985,34 +1253,78 @@ def main() -> None:
     _, _, _, _, _, bufs, eps = _sensor_inputs(eng_k3, sens, torch.Generator(device=dev).manual_seed(7),
                                               B_MAIN, n_upd)
     sw = dict(sensors=sens, bufs=bufs, eps=eps)
+    sens_bytes = _sensor_bytes(sens, B_MAIN, n_upd)
+    sens_ops = B_MAIN * n_upd * _sensor_flops(spec, sens)
     entry(
         "substep_multi_sensors", "jiminy_tpu_torch/csrc/substep.cu",
-        "jiminy_tpu/ops/substep_kernel.py:1459",
+        "jiminy_tpu/ops/substep_kernel.py:1459", path["sensor path"]["substep_multi_sensors"],
         _time_cuda(lambda: substep_batched_multi(spec, n_sub, q, v, cmd, lam0, wrench, **sw), 20),
         _time_cuda(lambda: substep_multi_reference(spec, n_sub, q, v, cmd, lam0, wrench, **sw), 3),
-        _substep_multi_bytes(spec, B_MAIN) + _sensor_bytes(sens, B_MAIN, n_upd),
-        B_MAIN * (n_sub * (_substep_flops(spec) + _torque_flops(spec)) + 2 * spec.tree.nv
-                  + n_upd * _sensor_flops(spec, sens)),
+        _substep_multi_bytes(spec, B_MAIN) + sens_bytes, k2_ops + sens_ops,
     )
     entry(
         "substep", "jiminy_tpu_torch/csrc/substep.cu",
-        "jiminy_tpu/ops/substep_kernel.py:1678",
+        "jiminy_tpu/ops/substep_kernel.py:1678", path["substep_fusion=False"]["substep"],
         _time_cuda(lambda: substep_batched(spec, q, v, tau, lam0, wrench), 20),
         _time_cuda(lambda: substep_reference(spec, q, v, tau, lam0, wrench), 3),
-        _substep_bytes(spec, B_MAIN),
-        B_MAIN * _substep_flops(spec),
+        _substep_bytes(spec, B_MAIN), B_MAIN * _substep_flops(spec),
     )
     cfg = env_k1.engine.substep_spec.cfg
     args = _rand_system(torch.Generator(device=dev).manual_seed(2), B_MAIN, cfg.n, cfg.nc, dev)
     entry(
         "constraint_solve", "jiminy_tpu_torch/csrc/constraint_solve.cu",
-        "jiminy_tpu/ops/constraint_solve.py:358",
+        "jiminy_tpu/ops/constraint_solve.py:358", path["constraint_solver='kernel'"]["constraint_solve"],
         _time_cuda(lambda: solve_batched(cfg, *args, device=dev), 50),
         _time_cuda(lambda: solve_reference(cfg, *args), 5),
-        _solve_bytes(cfg, B_MAIN),
-        _solve_flops(cfg) * B_MAIN,
+        _solve_bytes(cfg, B_MAIN), _solve_flops(cfg) * B_MAIN,
     )
+
+    # the ground instantiations on each ground (B.4), from the inputs of
+    # phase 1: the slice's Fourier ground enters the kernels line, each
+    # instantiation with the launches of the path that runs it
+    json_ground = {"substep_multi_sensors_ground": ("fourier", "terrain path (fourier, pushes, sensors)"),
+                   "substep_multi_ground": ("perlin", "perlin terrain with pushes, state path"),
+                   "substep_ground": ("stairs", "stairs, substep_fusion=False")}
+    for kind in GROUND_KINDS:
+        geng = _anymal_engine(dev, residual=False, fusion=False, ground=_ground_template(kind, dev))
+        gspec = geng.substep_spec
+        gargs, gc, _ = _ground_inputs(geng, kind, torch.Generator(device=dev).manual_seed(11), B_MAIN)
+        gq, gv, gcmd, glam0, gwrench = gargs
+        gtau = geng._joint_torque(gcmd, gq, gv)
+        gc_bytes = 4 * gc.numel()
+        g_ops = B_MAIN * _ground_flops(gspec)
+        print(f"[phase 3] {kind} ground: {_ground_query_flops(gspec)} FLOP per query, "
+              f"{_ground_flops(gspec)} per env per substep beyond the flat substep's "
+              f"{_substep_flops(gspec)}")
+        runs = {
+            "substep_multi_sensors_ground": (
+                lambda: substep_batched_multi(gspec, n_sub, *gargs, gc=gc, **sw),
+                lambda: substep_multi_reference(gspec, n_sub, *gargs, gc=gc, **sw),
+                _substep_multi_bytes(gspec, B_MAIN) + sens_bytes + gc_bytes,
+                k2_ops + sens_ops + n_sub * g_ops),
+            "substep_multi_ground": (
+                lambda: substep_batched_multi(gspec, n_sub, *gargs, gc=gc),
+                lambda: substep_multi_reference(gspec, n_sub, *gargs, gc=gc),
+                _substep_multi_bytes(gspec, B_MAIN) + gc_bytes, k2_ops + n_sub * g_ops),
+            "substep_ground": (
+                lambda: substep_batched(gspec, gq, gv, gtau, glam0, gwrench, gc=gc),
+                lambda: substep_reference(gspec, gq, gv, gtau, glam0, gwrench, gc=gc),
+                _substep_bytes(gspec, B_MAIN) + gc_bytes, B_MAIN * (_substep_flops(gspec) + _ground_flops(gspec))),
+        }
+        for name, (kernel, plain, n_bytes, n_ops) in runs.items():
+            ms, plain_ms = _time_cuda(kernel, 20), _time_cuda(plain, 3)
+            in_json = json_ground[name][0] == kind
+            if in_json:
+                entry(name, "jiminy_tpu_torch/csrc/substep.cu",
+                      "jiminy_tpu/ops/substep_kernel.py:1219", path[json_ground[name][1]][name],
+                      ms, plain_ms, n_bytes, n_ops)
+            else:
+                bound_ms, bound_by = bound(n_bytes, n_ops)
+                print(f"[phase 3] {name} on the {kind} ground B={B_MAIN}: kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
+                      f"{n_bytes} B, {n_ops} FLOP)")
     print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_sensor_path": rates_s,
+                      "env_steps_per_s_terrain_path": rates_t,
                       "env_steps_per_s_kernel_path": rates_k1, "nvcc_build_s": build}))
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())

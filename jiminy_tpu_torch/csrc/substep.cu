@@ -12,13 +12,17 @@
 // motor command through the motor model (K2). K2 also carries the
 // sensor stage (`_sensor_stage`, with `SensorKernelSpec` and the
 // quaternion helpers `_quat_from_m_lane`, `_quat_exp_lane`,
-// `_quat_mul_lane`; see `jt_sensor_stage` below). No randomization,
-// collision pairs, distance rows or flexibility.
+// `_quat_mul_lane`; see `jt_sensor_stage` below). Both take, beside flat
+// ground, an analytic ground per env (`_ground_query` and the
+// general-ground branch of `_substep_math`; see `jt_ground_query` below):
+// the `GEN` instantiations. No randomization, collision pairs, distance
+// rows, sphere contact sites or flexibility.
 //
 // One substep (`jt_substep`, the counterpart of `_substep_math`) is, per
 // env: FK → RNEA bias with the root wrench → CRBA + armature + dt·damping
 // → bounds rows and contact rows color-major (flat basis t1 = (0,−1,0),
-// t2 = (1,0,0), n = e_z; Baumgarte / velocity-barrier targets) → the
+// t2 = (1,0,0), n = e_z, or with GEN the basis of the ground's normal at
+// each contact; Baumgarte / velocity-barrier targets) → the
 // shared chain (solve_chain.cuh) → world impulses in the original
 // contact order → symplectic Euler with the quaternion exponential. The
 // arithmetic follows the plain version
@@ -34,7 +38,10 @@
 // the 67 TFLOP/s non-tensor f32 rate. So operations bound it. The sensor
 // stage adds per env the buffers in and out and each update's eps
 // (ANYmal's suite: 150 + 150 + 4·57 floats, ~2.1 KB) and ~1.9 kFLOP per
-// update (chip_smoke.py `_sensor_flops`): still operation-bound. This
+// update (chip_smoke.py `_sensor_flops`): still operation-bound. The
+// ground query (GEN) adds each env's coefficient row (≤ 512 B) and, per
+// env and substep, 0.8–2.6 kFLOP (Stairs, Fourier with 16 terms, Perlin
+// with 3 octaves; chip_smoke.py `_ground_flops`): operation-bound too. This
 // design is far from that bound by choice: the TPU
 // kernel's lane-major layout (batch on the 128 vector lanes, the tree
 // unrolled into Python floats, the batch padded by repetition) does not
@@ -49,7 +56,8 @@
 // later work.
 //
 // Packed spec (built by ops/substep_kernel.py `SubstepSpec.packed`):
-//   ints:   [nb, nq, nv, ncp, nbj, nm, torque mode, 0] then parent,
+//   ints:   [nb, nq, nv, ncp, nbj, nm, torque mode, ground mode, Fourier
+//           terms or Perlin octaves, 0] then parent,
 //           joint type, q_off, v_off (nb each), contact body, color
 //           order (ncp each), bounded bodies (nbj), motor q_idx, v_idx
 //           (nm each);
@@ -61,10 +69,12 @@
 //           dry friction, viscous friction, friction velocity, kp, kd
 //           (nm each).
 
+#include <cstdint>
+
 #include "solve_chain.cuh"
 
 #define JT_THREADS 32
-#define JT_HDR_I 8
+#define JT_HDR_I 10
 #define JT_HDR_F 16
 #define JT_BODY_F 28
 #define JT_NQ_EXTRA 4  // nq ≤ nv + 4 (quaternion joints)
@@ -77,7 +87,7 @@ enum {
 };
 
 struct SpecView {
-  int nb, nq, nv, ncp, nbj, nm, mode;
+  int nb, nq, nv, ncp, nbj, nm, mode, gmode, gn;
   const int *parent, *jtype, *q_off, *v_off, *cbody, *corder, *bbody, *mq, *mv;
   const float *scal, *body, *arm, *damp, *cpos, *blo, *bhi;
   const float *red, *elim, *vlim, *fdry, *fvis, *feps, *kp, *kd;
@@ -86,7 +96,7 @@ struct SpecView {
 __device__ __forceinline__ SpecView jt_view(const int* si, const float* sf) {
   SpecView s;
   s.nb = si[0]; s.nq = si[1]; s.nv = si[2]; s.ncp = si[3];
-  s.nbj = si[4]; s.nm = si[5]; s.mode = si[6];
+  s.nbj = si[4]; s.nm = si[5]; s.mode = si[6]; s.gmode = si[7]; s.gn = si[8];
   const int* p = si + JT_HDR_I;
   s.parent = p; p += s.nb;
   s.jtype = p; p += s.nb;
@@ -297,15 +307,130 @@ __device__ __forceinline__ void jt_torque(const SpecView& s, const float* q, con
   for (int r = 0; r < s.nv; ++r) tau[r] = tau[r] - s.damp[r] * v[r];
 }
 
+// ---- the ground query (counterpart of `_ground_query`; the plain
+// version is engine/ground.py's `query` of each ground): height and
+// gradient (h, ∂h/∂x, ∂h/∂y) of the env's analytic ground at (px, py),
+// from its coefficient row g (n_gc floats, the engine/ground.py layout),
+// the mode and the term or octave count s.gn from the spec's header:
+//   Fourier [amp | kx | ky | phase]: Σ amp·sin(kx·x + ky·y + phase), the
+//     gradient from the cosines; sinf/cosf with full range reduction (the
+//     arguments reach hundreds of radians a few metres out);
+//   Perlin [seed, freq, amp]: per octave o (frequency freq·2ᵒ, weight
+//     2⁻ᵒ, seed + 1013·o) lattice gradient noise with gradients (±1, ±1)
+//     from the two low bits of an arithmetic hash, blended by the quintic
+//     fade, and its analytic gradient; the hash wraps in uint32 (signed
+//     overflow would be undefined), and a logical shift of uint32 is the
+//     reference's masked arithmetic shift of int32;
+//   Stairs [w, H, n, ramp, x0]: H·clip(k + clip((u − k·w)/ramp, 0, 1), 0,
+//     n), k = ⌊u/w⌋, u = x − x0; slope H/ramp on the ramps.
+enum { JT_GROUND_FLAT = 0, JT_GROUND_FOURIER = 1, JT_GROUND_PERLIN = 2, JT_GROUND_STAIRS = 3 };
+#define JT_FOURIER_MAX 32  // terms (ops/substep_kernel.py MAX_FOURIER_TERMS)
+#define JT_PERLIN_MAX 8    // octaves (MAX_PERLIN_OCTAVES)
+#define JT_GC_MAX (4 * JT_FOURIER_MAX)
+
+__device__ __forceinline__ uint32_t jt_hash2(uint32_t ix, uint32_t iy, uint32_t seed) {
+  uint32_t h = ix * 0x27D4EB2Du + iy * 0x165667B1u + seed;
+  h ^= h >> 15;
+  h *= 0x2545F491u;
+  return h ^ (h >> 13);
+}
+
+// one octave at lattice scale 1: out = (h, ∂h/∂px, ∂h/∂py)
+__device__ __forceinline__ void jt_perlin_octave(float px, float py, uint32_t seed, float* out) {
+  const float fx = floorf(px), fy = floorf(py);
+  const float xf = px - fx, yf = py - fy;
+  const uint32_t ix = (uint32_t)(int)fx, iy = (uint32_t)(int)fy;
+  float n[4], sx[4], sy[4];  // corners (0,0), (1,0), (0,1), (1,1)
+  for (int c = 0; c < 4; ++c) {
+    const int di = c & 1, dj = c >> 1;
+    const uint32_t h = jt_hash2(ix + di, iy + dj, seed);
+    sx[c] = (h & 1u) ? -1.f : 1.f;
+    sy[c] = (h & 2u) ? -1.f : 1.f;
+    n[c] = sx[c] * (xf - (float)di) + sy[c] * (yf - (float)dj);
+  }
+  const float u = xf * xf * xf * (xf * (xf * 6.f - 15.f) + 10.f);
+  const float v = yf * yf * yf * (yf * (yf * 6.f - 15.f) + 10.f);
+  const float tu = xf * (xf - 1.f), tv = yf * (yf - 1.f);
+  const float du = 30.f * tu * tu, dv = 30.f * tv * tv;
+  const float nx0 = n[0] + u * (n[1] - n[0]), nx1 = n[2] + u * (n[3] - n[2]);
+  out[0] = nx0 + v * (nx1 - nx0);
+  const float dx0 = sx[0] + u * (sx[1] - sx[0]) + du * (n[1] - n[0]);
+  const float dx1 = sx[2] + u * (sx[3] - sx[2]) + du * (n[3] - n[2]);
+  out[1] = dx0 + v * (dx1 - dx0);
+  const float dy0 = sy[0] + u * (sy[1] - sy[0]), dy1 = sy[2] + u * (sy[3] - sy[2]);
+  out[2] = dy0 + v * (dy1 - dy0) + dv * (nx1 - nx0);
+}
+
+// out = (h, ∂h/∂x, ∂h/∂y) of the env's ground at (px, py)
+__device__ __forceinline__ void jt_ground_query(const SpecView& s, const float* g, int n_gc,
+                                                float px, float py, float* out) {
+  out[0] = out[1] = out[2] = 0.f;
+  if (s.gmode == JT_GROUND_FOURIER) {
+    const int K = n_gc / 4;  // the row's layout; s.gn ≤ K terms are summed
+    for (int j = 0; j < min(s.gn, K); ++j) {
+      const float amp = g[j], kx = g[K + j], ky = g[2 * K + j];
+      float sn, cs;
+      sincosf(kx * px + ky * py + g[3 * K + j], &sn, &cs);
+      out[0] += amp * sn;
+      out[1] += amp * kx * cs;
+      out[2] += amp * ky * cs;
+    }
+  } else if (s.gmode == JT_GROUND_PERLIN) {
+    const int octaves = min(s.gn, JT_PERLIN_MAX);
+    double norm = 0.0;  // fBm normalization, rounded once as the plain version's
+    for (int o = 0; o < octaves; ++o) norm += ldexp(1.0, -2 * o);
+    const float scale = g[2] * (float)(1.0 / (0.306 * sqrt(norm)));
+    const uint32_t seed = (uint32_t)(int)g[0];
+    for (int o = 0; o < octaves; ++o) {
+      const float f_o = g[1] * ldexpf(1.f, o), w_o = scale * ldexpf(1.f, -o);
+      float oc[3];
+      jt_perlin_octave(px * f_o, py * f_o, seed + 1013u * (uint32_t)o, oc);
+      out[0] += w_o * oc[0];
+      out[1] += w_o * f_o * oc[1];
+      out[2] += w_o * f_o * oc[2];
+    }
+  } else if (s.gmode == JT_GROUND_STAIRS) {
+    const float w = g[0], H = g[1], n = g[2], ramp = g[3], x0 = g[4];
+    const float u = px - x0;
+    const float k = floorf(u / w);
+    const float t = (u - k * w) / ramp;
+    const float kt = k + fminf(fmaxf(t, 0.f), 1.f);
+    out[0] = H * fminf(fmaxf(kt, 0.f), n);
+    out[1] = (t > 0.f && t < 1.f && kt > 0.f && kt < n) ? H / ramp : 0.f;
+  }
+}
+
+// the contact frame at a point of the ground: normal n̂ = (−∂h/∂x, −∂h/∂y,
+// 1)/‖·‖, then cstr.tangent_basis: ref = e_z where the slope is steep (n_z
+// < 0.9), else e_x; t1 = ref × n̂ normalized, t2 = n̂ × t1. basis = [t1 |
+// t2 | n̂]; returns the height h.
+__device__ __forceinline__ float jt_contact_basis(const SpecView& s, const float* g, int n_gc,
+                                                  const float* pt, float* basis) {
+  float hg[3];
+  jt_ground_query(s, g, n_gc, pt[0], pt[1], hg);
+  float* nn = basis + 6;
+  const float inv = rsqrtf(hg[1] * hg[1] + hg[2] * hg[2] + 1.f);
+  nn[0] = -hg[1] * inv;
+  nn[1] = -hg[2] * inv;
+  nn[2] = inv;
+  const bool steep = inv < 0.9f;
+  const float ref[3] = {steep ? 0.f : 1.f, 0.f, steep ? 1.f : 0.f};
+  cross3(ref, nn, basis);
+  const float r = rsqrtf(dot3(basis, basis) + 1e-24f);
+  for (int e = 0; e < 3; ++e) basis[e] *= r;
+  cross3(nn, basis, basis + 3);
+  return hg[0];
+}
+
 // ---- one impulse substep of one env (counterpart of `_substep_math`).
 // q (nq), v, tau (nv), lam0 (nc), w0 (6) → q_next (nq), v_next (nv),
 // lam_out (nc, may be lam0), fc (3·ncp world impulses); returns the
-// residual.
-template <int NMAX, int NCMAX, int NBMAX>
+// residual. With GEN, g (n_gc) is the env's analytic ground.
+template <int NMAX, int NCMAX, int NBMAX, bool GEN>
 __device__ __forceinline__ float jt_substep(
     const SpecView& s, const float* q, const float* v, const float* tau,
-    const float* lam0, float* lam_out, const float* w0, float* q_next,
-    float* v_next, float* fc, const SolveParams& prm, const BlockLayout& lay) {
+    const float* lam0, float* lam_out, const float* w0, const float* g, int n_gc,
+    float* q_next, float* v_next, float* fc, const SolveParams& prm, const BlockLayout& lay) {
   const int nb = s.nb, nv = s.nv, nc = prm.nc;
   const float dt = s.scal[JT_S_DT];
 
@@ -456,13 +581,17 @@ __device__ __forceinline__ float jt_substep(
     mu[t] = 0.f;
   }
   const float friction = s.scal[JT_S_FRICTION];
+  float basis[GEN ? NCMAX / 3 : 1][9];  // GEN: per contact, color order
   for (int jc = 0; jc < s.ncp; ++jc) {
     const int k = s.corder[jc], b = s.cbody[k];
     const int row = s.nbj + 3 * jc;
     float pt[3], r3[3];
     mat3_vec(xwR[b], s.cpos + 3 * k, pt);
     for (int e = 0; e < 3; ++e) pt[e] += xwp[b][e];
-    // point Jacobian, written as the flat rows [t1; t2; n] = [−J_y; J_x; J_z]
+    float h_gen = 0.f;
+    if constexpr (GEN) h_gen = jt_contact_basis(s, g, n_gc, pt, basis[jc]);
+    // point Jacobian, written as the rows [t1; t2; n]·J_p: on flat ground
+    // [−J_y; J_x; J_z]
     for (int j = b; j >= 0; j = s.parent[j]) {
       const int jt = s.jtype[j], vo = s.v_off[j];
       for (int e = 0; e < 3; ++e) r3[e] = pt[e] - xwp[j][e];
@@ -473,14 +602,18 @@ __device__ __forceinline__ float jt_substep(
         mat3_vec(xwR[j], col + 3, vc);
         cross3(wc, r3, wr);
         for (int e = 0; e < 3; ++e) lin[e] = vc[e] + wr[e];
-        J[row * NMAX + vo + c] = -lin[1];
-        J[(row + 1) * NMAX + vo + c] = lin[0];
-        J[(row + 2) * NMAX + vo + c] = lin[2];
+        if constexpr (GEN) {
+          for (int e = 0; e < 3; ++e) J[(row + e) * NMAX + vo + c] = dot3(basis[jc] + 3 * e, lin);
+        } else {
+          J[row * NMAX + vo + c] = -lin[1];
+          J[(row + 1) * NMAX + vo + c] = lin[0];
+          J[(row + 2) * NMAX + vo + c] = lin[2];
+        }
       }
     }
-    // flat ground: penetrating → Baumgarte push-back; hovering within
-    // the margin → may approach the surface but not cross it
-    const float depth = s.scal[JT_S_GROUND] - pt[2];
+    // penetrating → Baumgarte push-back; hovering within the margin → may
+    // approach the surface but not cross it
+    const float depth = (GEN ? h_gen : s.scal[JT_S_GROUND]) - pt[2];
     const float corr = depth > 0.f
         ? fminf(fmaxf(s.scal[JT_S_ALPHA_C_DT] * (depth - s.scal[JT_S_SLOP]), 0.f),
                 s.scal[JT_S_MAX_CORR])
@@ -500,9 +633,16 @@ __device__ __forceinline__ float jt_substep(
   // ---- world impulses, original contact order: t1·λ₀ + t2·λ₁ + n·λ₂
   for (int jc = 0; jc < s.ncp; ++jc) {
     const int k = s.corder[jc], row = s.nbj + 3 * jc;
-    fc[3 * k] = lam_out[row + 1];
-    fc[3 * k + 1] = -lam_out[row];
-    fc[3 * k + 2] = lam_out[row + 2];
+    if constexpr (GEN) {
+      const float* bs = basis[jc];
+      for (int e = 0; e < 3; ++e)
+        fc[3 * k + e] = bs[e] * lam_out[row] + bs[3 + e] * lam_out[row + 1] +
+                        bs[6 + e] * lam_out[row + 2];
+    } else {
+      fc[3 * k] = lam_out[row + 1];
+      fc[3 * k + 1] = -lam_out[row];
+      fc[3 * k + 2] = lam_out[row + 2];
+    }
   }
 
   // ---- symplectic Euler: q ⊕ v⁺·dt
@@ -713,28 +853,38 @@ __device__ __forceinline__ void jt_sensor_stage(
   }
 }
 
-// ---- K3: one substep, τ given
-template <int NMAX, int NCMAX, int NBMAX>
+// the env's ground coefficients (gc: B × n_gc) into g, once per launch
+template <bool GEN>
+__device__ __forceinline__ void jt_load_ground(const float* gc, int n_gc, int b, float* g) {
+  if constexpr (GEN)
+    for (int k = 0; k < n_gc; ++k) g[k] = gc[(size_t)b * n_gc + k];
+}
+
+// ---- K3: one substep, τ given; with GEN an analytic ground per env
+template <int NMAX, int NCMAX, int NBMAX, bool GEN>
 __global__ void __launch_bounds__(JT_THREADS) substep_kernel(
     const int* __restrict__ si, const float* __restrict__ sf,
     const float* __restrict__ q, const float* __restrict__ v,
     const float* __restrict__ tau, const float* __restrict__ lam0,
     const float* __restrict__ wrench, float* __restrict__ q_out,
     float* __restrict__ v_out, float* __restrict__ lam_out,
-    float* __restrict__ res_out, float* __restrict__ fc_out, SolveParams prm,
-    BlockLayout lay) {
+    float* __restrict__ res_out, float* __restrict__ fc_out,
+    const float* __restrict__ gc, int n_gc, SolveParams prm, BlockLayout lay) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= prm.B) return;
   const SpecView s = jt_view(si, sf);
+  float g[GEN ? JT_GC_MAX : 1];
+  jt_load_ground<GEN>(gc, n_gc, b, g);
   const size_t bq = (size_t)b * s.nq, bv = (size_t)b * s.nv, bc = (size_t)b * prm.nc;
-  res_out[b] = jt_substep<NMAX, NCMAX, NBMAX>(
-      s, q + bq, v + bv, tau + bv, lam0 + bc, lam_out + bc, wrench + 6 * (size_t)b,
+  res_out[b] = jt_substep<NMAX, NCMAX, NBMAX, GEN>(
+      s, q + bq, v + bv, tau + bv, lam0 + bc, lam_out + bc, wrench + 6 * (size_t)b, g, n_gc,
       q_out + bq, v_out + bv, fc_out + 3 * (size_t)b * s.ncp, prm, lay);
 }
 
 // ---- K2: n_sub substeps, (q, v, λ) resident, τ recomputed per substep;
-// with SENS, the sensor stage after every k_obs-th substep
-template <int NMAX, int NCMAX, int NBMAX, bool SENS>
+// with SENS, the sensor stage after every k_obs-th substep; with GEN, an
+// analytic ground per env
+template <int NMAX, int NCMAX, int NBMAX, bool SENS, bool GEN>
 __global__ void __launch_bounds__(JT_THREADS) substep_multi_kernel(
     const int* __restrict__ si, const float* __restrict__ sf,
     const float* __restrict__ q, const float* __restrict__ v,
@@ -743,10 +893,13 @@ __global__ void __launch_bounds__(JT_THREADS) substep_multi_kernel(
     float* __restrict__ v_out, float* __restrict__ lam_out,
     float* __restrict__ res_out, float* __restrict__ fc_out,
     float* __restrict__ a_out, float* __restrict__ tau_out, int n_sub,
-    SolveParams prm, BlockLayout lay, SensParams sp) {
+    const float* __restrict__ gc, int n_gc, SolveParams prm, BlockLayout lay,
+    SensParams sp) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= prm.B) return;
   const SpecView s = jt_view(si, sf);
+  float g[GEN ? JT_GC_MAX : 1];
+  jt_load_ground<GEN>(gc, n_gc, b, g);
   const int nq = s.nq, nv = s.nv, nc = prm.nc;
   constexpr int NQMAX = NMAX + JT_NQ_EXTRA;
   float qs[NQMAX], vs[NMAX], qn[NQMAX], vn[NMAX], lam[NCMAX], fc[NCMAX];
@@ -765,7 +918,8 @@ __global__ void __launch_bounds__(JT_THREADS) substep_multi_kernel(
   float res = 0.f;
   for (int it = 0; it < n_sub; ++it) {
     jt_torque(s, qs, vs, u, tau);
-    res = jt_substep<NMAX, NCMAX, NBMAX>(s, qs, vs, tau, lam, lam, w0, qn, vn, fc, prm, lay);
+    res = jt_substep<NMAX, NCMAX, NBMAX, GEN>(s, qs, vs, tau, lam, lam, w0, g, n_gc, qn, vn, fc,
+                                              prm, lay);
     if (it == n_sub - 1) {  // the last substep's accepted a and applied τ
       for (int k = 0; k < nv; ++k) {
         a_out[(size_t)b * nv + k] = (vn[k] - vs[k]) / dt;
@@ -805,11 +959,12 @@ extern "C" const char* jt_substep_error_string(int code) {
 }
 
 static int jt_check_dims(int B, int nb, int nq, int nv, int nc, int nm,
-                         int iters, const int* layout, int layout_len,
-                         BlockLayout* lay) {
+                         int iters, const float* gc, int n_gc, const int* layout,
+                         int layout_len, BlockLayout* lay) {
   if (B < 0 || nb < 1 || nv < 1 || nc < 1 || nm < 0 || iters < 0 ||
       nb > JT_SUB_MAX_NB || nv > JT_SUB_MAX_N || nc > JT_SUB_MAX_NC ||
-      nq < nv || nq > nv + JT_NQ_EXTRA || nm > nv)
+      nq < nv || nq > nv + JT_NQ_EXTRA || nm > nv || n_gc < 0 || n_gc > JT_GC_MAX ||
+      (n_gc > 0) != (gc != nullptr))
     return (int)cudaErrorInvalidValue;
   return jt_parse_layout(layout, layout_len, nc, lay);
 }
@@ -817,61 +972,85 @@ static int jt_check_dims(int B, int nb, int nq, int nv, int nc, int nm,
 // the ANYmal main path takes the smallest frame
 static bool jt_small(int nb, int nv, int nc) { return nb <= 13 && nv <= 18 && nc <= 24; }
 
-// K3. si/sf: the packed spec; wrench (B, 6); fc (B, 3·ncp).
+// K3. si/sf: the packed spec; wrench (B, 6); fc (B, 3·ncp); gc (B, n_gc)
+// the ground coefficients (null, 0 on flat ground).
 extern "C" int jt_substep(
     const int* si, const float* sf, const float* q, const float* v,
     const float* tau, const float* lam0, const float* wrench, float* q_out,
     float* v_out, float* lam_out, float* res, float* fc, int B, int nb,
-    int nq, int nv, int nc, const int* layout, int layout_len, int iters,
-    float dt, float relax, float reg, int compute_residual, void* stream) {
+    int nq, int nv, int nc, const float* gc, int n_gc, const int* layout,
+    int layout_len, int iters, float dt, float relax, float reg,
+    int compute_residual, void* stream) {
   BlockLayout lay;
-  const int err = jt_check_dims(B, nb, nq, nv, nc, 0, iters, layout, layout_len, &lay);
+  const int err = jt_check_dims(B, nb, nq, nv, nc, 0, iters, gc, n_gc, layout, layout_len, &lay);
   if (err != (int)cudaSuccess) return err;
   if (B == 0) return (int)cudaSuccess;
   SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
   const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
   cudaStream_t s = (cudaStream_t)stream;
+#define JT_K3(NM, NC, NB, GEN)                                                      \
+  substep_kernel<NM, NC, NB, GEN><<<grid, block, 0, s>>>(                           \
+      si, sf, q, v, tau, lam0, wrench, q_out, v_out, lam_out, res, fc, gc, n_gc, prm, lay)
   if (jt_small(nb, nv, nc)) {
-    substep_kernel<18, 24, 13><<<grid, block, 0, s>>>(
-        si, sf, q, v, tau, lam0, wrench, q_out, v_out, lam_out, res, fc, prm, lay);
+    if (n_gc) JT_K3(18, 24, 13, true); else JT_K3(18, 24, 13, false);
   } else {
-    substep_kernel<JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB><<<grid, block, 0, s>>>(
-        si, sf, q, v, tau, lam0, wrench, q_out, v_out, lam_out, res, fc, prm, lay);
+    if (n_gc) JT_K3(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, true);
+    else JT_K3(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, false);
   }
+#undef JT_K3
   return (int)cudaGetLastError();
 }
 
-// K2. cmd (B, nm); a and tau (B, nv) of the last substep.
+// K2 in its four instantiations (sensor stage or not, analytic ground or
+// flat) and two frames.
+template <bool SENS>
+static int jt_multi_launch(
+    const int* si, const float* sf, const float* q, const float* v,
+    const float* cmd, const float* lam0, const float* wrench, float* q_out,
+    float* v_out, float* lam_out, float* res, float* fc, float* a_out,
+    float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int nm,
+    const float* gc, int n_gc, const SensParams& sp, const int* layout,
+    int layout_len, int iters, float dt, float relax, float reg,
+    int compute_residual, void* stream) {
+  BlockLayout lay;
+  const int err = jt_check_dims(B, nb, nq, nv, nc, nm, iters, gc, n_gc, layout, layout_len, &lay);
+  if (err != (int)cudaSuccess) return err;
+  if (n_sub < 1) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
+  const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+#define JT_K2(NM, NC, NB, GEN)                                                        \
+  substep_multi_kernel<NM, NC, NB, SENS, GEN><<<grid, block, 0, s>>>(                 \
+      si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out, tau_out, \
+      n_sub, gc, n_gc, prm, lay, sp)
+  if (jt_small(nb, nv, nc)) {
+    if (n_gc) JT_K2(18, 24, 13, true); else JT_K2(18, 24, 13, false);
+  } else {
+    if (n_gc) JT_K2(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, true);
+    else JT_K2(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, false);
+  }
+#undef JT_K2
+  return (int)cudaGetLastError();
+}
+
+// K2. cmd (B, nm); a and tau (B, nv) of the last substep; gc as for K3.
 extern "C" int jt_substep_multi(
     const int* si, const float* sf, const float* q, const float* v,
     const float* cmd, const float* lam0, const float* wrench, float* q_out,
     float* v_out, float* lam_out, float* res, float* fc, float* a_out,
     float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int nm,
-    const int* layout, int layout_len, int iters, float dt, float relax,
-    float reg, int compute_residual, void* stream) {
-  BlockLayout lay;
-  const int err = jt_check_dims(B, nb, nq, nv, nc, nm, iters, layout, layout_len, &lay);
-  if (err != (int)cudaSuccess) return err;
-  if (n_sub < 1) return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaSuccess;
-  SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
+    const float* gc, int n_gc, const int* layout, int layout_len, int iters,
+    float dt, float relax, float reg, int compute_residual, void* stream) {
   const SensParams sp = {nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 1};
-  const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (jt_small(nb, nv, nc)) {
-    substep_multi_kernel<18, 24, 13, false><<<grid, block, 0, s>>>(
-        si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out,
-        tau_out, n_sub, prm, lay, sp);
-  } else {
-    substep_multi_kernel<JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, false><<<grid, block, 0, s>>>(
-        si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out,
-        tau_out, n_sub, prm, lay, sp);
-  }
-  return (int)cudaGetLastError();
+  return jt_multi_launch<false>(si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc,
+                                a_out, tau_out, B, n_sub, nb, nq, nv, nc, nm, gc, n_gc, sp,
+                                layout, layout_len, iters, dt, relax, reg, compute_residual,
+                                stream);
 }
 
 // K2 with the sensor stage. gi/gf: the packed suite; bufs_in, bufs_out
-// (B, n_buf); eps (B, n_sub / k_obs · n_eps).
+// (B, n_buf); eps (B, n_sub / k_obs · n_eps); gc as for K3.
 extern "C" int jt_substep_multi_sensors(
     const int* si, const float* sf, const float* q, const float* v,
     const float* cmd, const float* lam0, const float* wrench, float* q_out,
@@ -879,28 +1058,15 @@ extern "C" int jt_substep_multi_sensors(
     float* tau_out, const int* gi, const float* gf, const float* bufs_in,
     const float* eps, float* bufs_out, int B, int n_sub, int nb, int nq,
     int nv, int nc, int nm, int n_groups, int n_buf, int n_eps, int k_obs,
-    const int* layout, int layout_len, int iters, float dt, float relax,
-    float reg, int compute_residual, void* stream) {
-  BlockLayout lay;
-  const int err = jt_check_dims(B, nb, nq, nv, nc, nm, iters, layout, layout_len, &lay);
-  if (err != (int)cudaSuccess) return err;
+    const float* gc, int n_gc, const int* layout, int layout_len, int iters,
+    float dt, float relax, float reg, int compute_residual, void* stream) {
   if (n_sub < 1 || k_obs < 1 || n_sub % k_obs != 0 || n_groups < 1 ||
       n_groups > JT_SENS_MAX_GROUPS || n_buf < 1 || n_buf > JT_SENS_MAX_BUF ||
       n_eps < 1 || n_eps > JT_SENS_MAX_EPS)
     return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaSuccess;
-  SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
   const SensParams sp = {gi, gf, bufs_in, eps, bufs_out, n_groups, n_buf, n_eps, k_obs};
-  const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (jt_small(nb, nv, nc)) {
-    substep_multi_kernel<18, 24, 13, true><<<grid, block, 0, s>>>(
-        si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out,
-        tau_out, n_sub, prm, lay, sp);
-  } else {
-    substep_multi_kernel<JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, true><<<grid, block, 0, s>>>(
-        si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out,
-        tau_out, n_sub, prm, lay, sp);
-  }
-  return (int)cudaGetLastError();
+  return jt_multi_launch<true>(si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc,
+                               a_out, tau_out, B, n_sub, nb, nq, nv, nc, nm, gc, n_gc, sp,
+                               layout, layout_len, iters, dt, relax, reg, compute_residual,
+                               stream);
 }

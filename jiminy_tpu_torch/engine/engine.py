@@ -2,9 +2,16 @@
 
 Counterpart of ``jiminy_tpu/engine/engine.py`` for the slice's
 configuration: the impulse path (contacts and joint bounds as rows of a
-PGS velocity-level solve fused with a semi-implicit Euler step), flat
-ground, a declarative :class:`PDController` or a direct motor command,
-and an optional (6,) local wrench on the root body held over the step.
+PGS velocity-level solve fused with a semi-implicit Euler step), a
+declarative :class:`PDController` or a direct motor command, and an
+optional (6,) local wrench on the root body held over the step.
+
+The ground is flat, a heightmap, or an analytic ground (Fourier, Perlin,
+Stairs; :mod:`jiminy_tpu_torch.engine.ground`), which ``step`` and
+``step_with_sensors`` also take per env (``ground=``, a ground of the
+engine's own kind with a (B,) batch): the whole-substep kernels query it
+in-kernel from its coefficients. A heightmap is outside their scope, so
+``"auto"`` resolves to ``"kernel"`` for it.
 
 The substep's physics has three backends, selected by
 ``EngineOptions.constraint_solver``:
@@ -35,8 +42,7 @@ take it.
 
 Not ported yet (each raises): penalty contacts and other steppers
 (ROADMAP A.16), kinematic constraints and collision pairs (A.12, A.13),
-flexibility and joint springs (A.14), model randomization (A.11), other
-grounds (A.10).
+flexibility and joint springs (A.14), model randomization (A.11).
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ import torch
 from jiminy_tpu_torch import resolve_device
 from jiminy_tpu_torch.core.tree import KinematicTree
 from jiminy_tpu_torch.engine.contact import ContactParams
-from jiminy_tpu_torch.engine.ground import FlatGround
+from jiminy_tpu_torch.engine.ground import FlatGround, FourierGround, PerlinGround, StairsGround
 from jiminy_tpu_torch.hardware.motors import Motors
 
 # modules, not their names: ops.constraint_solve imports the engine's PGS
@@ -147,7 +153,9 @@ class Engine:
         self.device = resolve_device(device)
         self.tree = tree.to(device=self.device)
         self.options = opts = options or EngineOptions()
-        self.ground = ground if ground is not None else FlatGround()
+        self.ground = (ground if ground is not None else FlatGround()).to(
+            device=self.device, dtype=self.tree.dtype
+        )
         self.motors = motors.to(device=self.device) if motors is not None else None
         if opts.constraint_solver not in ("auto", "substep", "kernel", "inline"):
             raise ValueError(f"unknown constraint_solver {opts.constraint_solver!r}")
@@ -205,24 +213,60 @@ class Engine:
         tau = self.motors.compute_effort(u, v) if self.motors is not None else u
         return tau - self.tree.damping * v
 
+    def _kernel_ground_ok(self, ground) -> bool:
+        """Can the engine's substep take ``ground``? An analytic ground of
+        the engine's own kind (the same Fourier term count, the same
+        Perlin octaves), shared or one per env, rides the coefficient
+        input; a flat or heightmap ground must be the engine's own."""
+        own = self.ground
+        if isinstance(own, FourierGround):
+            return isinstance(ground, FourierGround) and ground.n_terms == own.n_terms
+        if isinstance(own, PerlinGround):
+            return isinstance(ground, PerlinGround) and ground.octaves == own.octaves
+        if isinstance(own, StairsGround):
+            return isinstance(ground, StairsGround)
+        return ground is own
+
+    def _ground_coef(self, ground, batch_size: int):
+        """The coefficient rows (B, n_gc) that the substep reads for
+        ``ground`` (None: the engine's own), or None on a flat or
+        heightmap ground. Raises ValueError for a ground the engine cannot
+        take (:meth:`_kernel_ground_ok`); nothing falls back to another
+        path."""
+        ground = ground if ground is not None else self.ground
+        if not self._kernel_ground_ok(ground):
+            raise ValueError(
+                f"a {type(ground).__name__} is outside this engine's substep (built for "
+                f"a {type(self.ground).__name__}); pass a ground of the engine's own kind"
+            )
+        if self.substep_spec.n_gc == 0:
+            return None
+        gc = ground.coef().to(device=self.device, dtype=self.tree.dtype)
+        if gc.dim() == 1:
+            gc = gc.expand(batch_size, -1)
+        if tuple(gc.shape) != (batch_size, self.substep_spec.n_gc):
+            raise ValueError(f"ground coefficients {tuple(gc.shape)} for a batch of {batch_size}")
+        return gc.contiguous()
+
     def _solve_chain_kernel(self, cfg, *args):
         return chain_ops.solve_batched(
             cfg, *(a.contiguous() for a in args), device=self.device
         )
 
-    def _impulse_substep(self, q, v, u, lam0, wrench):
+    def _impulse_substep(self, q, v, u, lam0, wrench, gc):
         """One semi-implicit Euler substep with velocity-level PGS impulses
-        for joint bounds and ground contacts. Returns (q⁺, v⁺,
-        contact_forces, residual, λ, a, τ)."""
+        for joint bounds and ground contacts (``gc``: the per-env ground
+        coefficients or None). Returns (q⁺, v⁺, contact_forces, residual,
+        λ, a, τ)."""
         dt = self.substep_spec.dt
         tau = self._joint_torque(u, q, v)
         backend = self.backend
         if backend == "substep":
-            out = substep_ops.substep_batched(self.substep_spec, q, v, tau, lam0, wrench)
+            out = substep_ops.substep_batched(self.substep_spec, q, v, tau, lam0, wrench, gc=gc)
         else:
             solve = self._solve_chain_kernel if backend == "kernel" else None
             out = substep_ops.substep_reference(
-                self.substep_spec, q, v, tau, lam0, wrench, solve=solve
+                self.substep_spec, q, v, tau, lam0, wrench, solve=solve, gc=gc
             )
         q_next, v_next, lam, residual, impulse = out
         return q_next, v_next, impulse / dt, residual, lam, (v_next - v) / dt, tau
@@ -239,18 +283,20 @@ class Engine:
             self._sensor_specs[key] = hit
         return hit[1]
 
-    def sensor_fusion_ready(self, suite, n_substeps: int, k_obs: int) -> bool:
+    def sensor_fusion_ready(self, suite, n_substeps: int, k_obs: int, ground=None) -> bool:
         """Can :meth:`step_with_sensors` serve this suite at this
-        schedule? Needs the fused whole-substep path (``"substep"``
-        backend, ``substep_fusion``, a declarative torque path), k_obs
-        dividing n_substeps, sensor types the kernel takes (not
-        ``force``) and the sensor stage's caps."""
+        schedule on ``ground`` (None: the engine's own)? Needs the fused
+        whole-substep path (``"substep"`` backend, ``substep_fusion``, a
+        declarative torque path), k_obs dividing n_substeps, a ground the
+        kernel takes (:meth:`_kernel_ground_ok`), sensor types the kernel
+        takes (not ``force``) and the sensor stage's caps."""
         if not (
             self.backend == "substep"
             and self.options.substep_fusion
             and self.substep_spec.torque is not None
             and k_obs >= 1
             and n_substeps % k_obs == 0
+            and self._kernel_ground_ok(ground if ground is not None else self.ground)
         ):
             return False
         try:
@@ -262,22 +308,25 @@ class Engine:
     def step_with_sensors(
         self, state: SimState, u: torch.Tensor, n_substeps: int, suite,
         bufs: torch.Tensor, eps: torch.Tensor, k_obs: int = 1,
-        base_wrench: torch.Tensor | None = None,
+        base_wrench: torch.Tensor | None = None, ground=None,
     ) -> tuple[SimState, torch.Tensor]:
         """The fused step with the sensor stage: every substep and a
         sensor update (measure at the accepted state, corrupt, push)
         every ``k_obs`` substeps in one K2 launch. ``bufs`` (B, n_buf) are
         the suite's flattened ring buffers, ``eps`` (B, n_substeps/k_obs ·
-        n_eps) the pre-sampled corruption, update after update. Raises
-        ValueError when :meth:`sensor_fusion_ready` is False. Returns
-        (SimState, new bufs)."""
-        if not self.sensor_fusion_ready(suite, n_substeps, k_obs):
-            raise ValueError("this suite and schedule cannot take the fused sensor path")
+        n_eps) the pre-sampled corruption, update after update; ``ground``
+        as in :meth:`step`. Raises ValueError when
+        :meth:`sensor_fusion_ready` is False. Returns (SimState, new
+        bufs)."""
+        if not self.sensor_fusion_ready(suite, n_substeps, k_obs, ground):
+            raise ValueError("this suite, schedule and ground cannot take the fused sensor path")
         spec, dt = self.substep_spec, self.substep_spec.dt
-        wrench = base_wrench if base_wrench is not None else state.q.new_zeros(state.q.shape[0], 6)
+        B = state.q.shape[0]
+        wrench = base_wrench if base_wrench is not None else state.q.new_zeros(B, 6)
         q, v, lam, res, impulse, a, tau, bufs = substep_ops.substep_batched_multi(
             spec, n_substeps, state.q, state.v, u, state.lam, wrench,
             sensors=self._sensor_spec(suite, k_obs), bufs=bufs, eps=eps,
+            gc=self._ground_coef(ground, B),
         )
         sim = SimState(
             t=state.t + n_substeps * dt, q=q, v=v, contact_forces=impulse / dt,
@@ -287,21 +336,24 @@ class Engine:
 
     def step(
         self, state: SimState, u: torch.Tensor, n_substeps: int = 1,
-        base_wrench: torch.Tensor | None = None,
+        base_wrench: torch.Tensor | None = None, ground=None,
     ) -> SimState:
         """Advance by ``n_substeps × dt`` with the zero-order-hold command
         ``u`` (B, nm). ``base_wrench``: optional (B, 6) local [ang; lin]
         spatial wrench on the root body held over the step (push
-        disturbances)."""
+        disturbances). ``ground``: optional ground of the engine's own
+        kind, an analytic one with a (B,) batch for per-env terrain
+        (None: the engine's ground); anything else raises ValueError."""
         spec, dt = self.substep_spec, self.substep_spec.dt
         q, v, t, lam = state.q, state.v, state.t, state.lam
         wrench = base_wrench
+        gc = self._ground_coef(ground, q.shape[0])
         if self.backend == "substep":
             if wrench is None:  # the kernels always take one
                 wrench = q.new_zeros(q.shape[0], 6)
             if self.options.substep_fusion and spec.torque is not None:
                 q, v, lam, res, impulse, a, tau = substep_ops.substep_batched_multi(
-                    spec, n_substeps, q, v, u, lam, wrench
+                    spec, n_substeps, q, v, u, lam, wrench, gc=gc
                 )
                 return SimState(
                     t=t + n_substeps * dt, q=q, v=v, contact_forces=impulse / dt,
@@ -309,7 +361,7 @@ class Engine:
                 )
         f_c, res, a, tau = state.contact_forces, state.solver_residual, state.a, state.tau
         for _ in range(n_substeps):
-            q, v, f_c, res, lam, a, tau = self._impulse_substep(q, v, u, lam, wrench)
+            q, v, f_c, res, lam, a, tau = self._impulse_substep(q, v, u, lam, wrench, gc)
             t = t + dt
         return SimState(
             t=t, q=q, v=v, contact_forces=f_c, solver_residual=res,

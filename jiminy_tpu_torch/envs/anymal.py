@@ -1,13 +1,23 @@
 """ANYmal quadruped locomotion env — the flagship environment.
 
-Counterpart of ``jiminy_tpu/envs/anymal.py`` with ``terrain=None`` and
-``push_magnitude=0``: 12 actuated joints, a PD inner loop at the physics
-rate, the policy setting PD targets at 50 Hz. As in the reference,
-``observe`` defaults to ``"sensors"``: the policy sees the IMU and the
-encoders, sampled every ``sim_dt``, delayed by ``sensor_delay`` and
-corrupted with Gaussian noise (``imu_noise``, ``encoder_noise``);
-``observe="state"`` is the privileged path. Other options raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Counterpart of ``jiminy_tpu/envs/anymal.py``: 12 actuated joints, a PD
+inner loop at the physics rate, the policy setting PD targets at 50 Hz.
+As in the reference, ``observe`` defaults to ``"sensors"``: the policy
+sees the IMU and the encoders, sampled every ``sim_dt``, delayed by
+``sensor_delay`` and corrupted with Gaussian noise (``imu_noise``,
+``encoder_noise``); ``observe="state"`` is the privileged path.
+
+``terrain``: None or ``"flat"``; ``"fourier"`` (a random Fourier ground
+per env, 16 terms, drawn again at every reset) and ``"perlin"`` (a
+random analytic Perlin ground per env, 3 octaves), both of
+``terrain_amplitude`` and ``terrain_wavelength``; ``"stairs"`` (the
+analytic staircase 0.4 m × 0.08 m, 10 steps, 5 cm ramps); these four run
+in the whole-substep kernels. ``"perlin_grid"`` is one shared bilinear
+heightmap from ``terrain_seed`` with a flat spawn disk and spawns within
+4 m, on the plain physics around the chain kernel. ``push_magnitude``
+(N) turns pushes on; ``push_prob`` and ``push_duration`` pass through
+to :class:`WalkerEnv`. Other options raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -15,13 +25,17 @@ from __future__ import annotations
 import torch
 
 from jiminy_tpu_torch import resolve_device
+from jiminy_tpu_torch.engine.ground import (
+    StairsGround,
+    sample_fourier_ground,
+    sample_perlin_ground,
+)
+from jiminy_tpu_torch.engine.terrain import perlin_ground
 from jiminy_tpu_torch.envs.locomotion import WalkerEnv
 from jiminy_tpu_torch.models.quadruped import make_anymal, stand_q
 
+_PASSED_ON = ("push_prob", "push_duration")
 _LATER = {
-    "terrain_seed": "A.10 (terrain)",
-    "terrain_amplitude": "A.10 (terrain)",
-    "terrain_wavelength": "A.10 (terrain)",
     "model_randomization": "A.11 (model randomization)",
     "constraints": "A.12 (closed loops)",
     "collision_pairs": "A.13 (body-body collision)",
@@ -47,6 +61,9 @@ class ANYmalEnv(WalkerEnv):
         pgs_iters: int = 8,
         reset_noise: float = 0.1,
         terrain: str | None = None,
+        terrain_seed: int = 0,
+        terrain_amplitude: float = 0.08,
+        terrain_wavelength: float = 1.5,
         push_magnitude: float = 0.0,
         observe: str = "sensors",
         sensor_delay: float = 0.0,
@@ -58,18 +75,36 @@ class ANYmalEnv(WalkerEnv):
         **kwargs,
     ):
         for k in kwargs:
+            if k in _PASSED_ON:
+                continue
             if k not in _LATER:
                 raise TypeError(f"ANYmalEnv: unexpected argument {k!r}")
             raise NotImplementedError(
                 f"ANYmalEnv({k}=...) is not ported yet (ROADMAP {_LATER[k]})"
             )
-        if terrain not in (None, "flat"):
-            raise NotImplementedError(
-                f"terrain={terrain!r} is not ported yet (ROADMAP A.10)"
-            )
-        if push_magnitude:
-            raise NotImplementedError("pushes are not ported yet (ROADMAP A.10)")
         dev = resolve_device(device)
+        ground, sampler, spawn_radius = None, None, 0.0
+        if terrain == "fourier":
+            def sampler(generator, batch_shape):
+                return sample_fourier_ground(
+                    generator, n_terms=16, amplitude=terrain_amplitude,
+                    wavelength=terrain_wavelength, octaves=3, batch_shape=batch_shape, dtype=dtype,
+                )
+        elif terrain == "perlin":
+            def sampler(generator, batch_shape):
+                return sample_perlin_ground(
+                    generator, amplitude=terrain_amplitude, wavelength=terrain_wavelength,
+                    octaves=3, batch_shape=batch_shape, dtype=dtype,
+                )
+        elif terrain == "perlin_grid":
+            ground = perlin_ground(seed=terrain_seed, size=8.0, resolution=0.1, amplitude=0.08,
+                                   wavelength=1.5, flat_radius=1.0, device=dev)
+            spawn_radius = 4.0
+        elif terrain == "stairs":
+            ground = StairsGround.create(step_width=0.4, step_height=0.08, n_steps=10,
+                                         ramp=0.05, device=dev)
+        elif terrain not in (None, "flat"):
+            raise ValueError(f"unknown terrain {terrain!r}")
         tree, motors, sensors = make_anymal(
             device=dev, dtype=dtype, sensor_period=sim_dt, sensor_delay=sensor_delay,
             imu_noise=imu_noise, encoder_noise=encoder_noise,
@@ -90,5 +125,10 @@ class ANYmalEnv(WalkerEnv):
             constraint_solver=constraint_solver,
             observe=observe,
             sensors=sensors,
+            ground=ground,
+            ground_sampler=sampler,
+            spawn_radius=spawn_radius,
+            push_magnitude=push_magnitude,
             device=dev,
+            **kwargs,
         )

@@ -16,8 +16,13 @@ fallback). The corruption of each update is drawn by
 :meth:`BaseEnv._sensor_eps`, which a caller may replace to hand in its
 own draws.
 
-Per-step grounds, pushes and model randomization are not ported yet
-(ROADMAP A.10, A.11).
+Per-env state beyond the simulation lives in ``info`` as tensors with a
+leading (B,) batch, so that auto-reset picks it like the rest: the hooks
+:meth:`BaseEnv._init_info` (drawn at reset), :meth:`BaseEnv._update_info`
+(after each step), :meth:`BaseEnv._step_ground` (a per-env ground for the
+engine, e.g. from its coefficients in ``info``) and
+:meth:`BaseEnv._base_wrench` (a push on the root body). Model
+randomization is not ported yet (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -66,6 +71,10 @@ def env_state_from_arrays(
     def f(x):
         return torch.as_tensor(np.array(x), dtype=dtype, device=dev)
 
+    def info_entry(x):  # floats take ``dtype``; integer and bool entries keep theirs
+        a = np.array(x)
+        return torch.as_tensor(a, dtype=dtype if a.dtype.kind == "f" else None, device=dev)
+
     return EnvState(
         sim=sim_state_from_arrays(d["sim"], device=dev, dtype=dtype),
         obs=f(d["obs"]),
@@ -74,7 +83,7 @@ def env_state_from_arrays(
         truncated=torch.as_tensor(np.array(d["truncated"]), dtype=torch.bool, device=dev),
         steps=torch.as_tensor(np.array(d["steps"]), dtype=torch.int32, device=dev),
         generator=generator,
-        info={k: f(x) for k, x in d.get("info", {}).items()},
+        info={k: info_entry(x) for k, x in d.get("info", {}).items()},
     )
 
 
@@ -86,12 +95,16 @@ def _pick(done: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class BaseEnv:
     """Subclasses define the MDP on batched tensors:
 
-    - ``_sample_state(generator, B) -> (q, v)``
+    - ``_sample_state(generator, B, info) -> (q, v)``, ``info`` being
+      what ``_init_info`` drew for the same episodes
     - ``_observe(sim) -> obs``, or with sensors
       ``_observe_from_sensors(readings, sim) -> obs``
     - ``_reward(prev, action, sim) -> (B,)``
-    - ``_terminated(sim) -> (B,) bool``
+    - ``_terminated(sim, info) -> (B,) bool``
     - ``_action_to_command(action, sim) -> (B, nm)``
+
+    and optionally the per-env hooks ``_init_info``, ``_update_info``,
+    ``_step_ground`` and ``_base_wrench``.
     """
 
     def __init__(
@@ -130,7 +143,7 @@ class BaseEnv:
             sensors, self.n_substeps, self.n_substeps_per_obs
         )
 
-    def _sample_state(self, generator, batch_size):
+    def _sample_state(self, generator, batch_size, info):
         raise NotImplementedError
 
     def _observe(self, sim: SimState) -> torch.Tensor:
@@ -160,19 +173,39 @@ class BaseEnv:
     def _reward(self, prev: EnvState, action, sim: SimState) -> torch.Tensor:
         raise NotImplementedError
 
-    def _terminated(self, sim: SimState) -> torch.Tensor:
+    def _terminated(self, sim: SimState, info: dict) -> torch.Tensor:
         raise NotImplementedError
 
     def _action_to_command(self, action, sim: SimState) -> torch.Tensor:
         raise NotImplementedError
 
+    def _init_info(self, generator: torch.Generator, batch_size: int) -> dict:
+        """Per-env info entries of fresh episodes, (B, ...) tensors drawn
+        from ``generator`` (e.g. each env's ground, the push state)."""
+        return {}
+
+    def _update_info(self, prev: EnvState, sim: SimState, generator: torch.Generator) -> dict:
+        """Info entries to replace after a step from ``prev`` to ``sim``
+        (the same keys as ``_init_info``'s)."""
+        return {}
+
+    def _step_ground(self, info: dict):
+        """The per-env ground that ``engine.step`` takes this step, or None
+        for the engine's own."""
+        return None
+
+    def _base_wrench(self, state: EnvState) -> torch.Tensor | None:
+        """A (B, 6) local [ang; lin] wrench on the root body held over the
+        next step (pushes), or None."""
+        return None
+
     def reset(self, generator: torch.Generator, batch_size: int) -> EnvState:
         """``batch_size`` fresh episodes drawn from ``generator``. With
         sensors, the buffers hold one corrupted measurement at the
         initial state (a, τ and contact forces zero) in every slot."""
-        q, v = self._sample_state(generator, batch_size)
+        info = self._init_info(generator, batch_size)
+        q, v = self._sample_state(generator, batch_size, info)
         sim = self.engine.reset(q=q, v=v)
-        info = {}
         if self.sensors is not None:
             suite = self.sensors
             eps = self._sensor_eps(generator, batch_size, 1)
@@ -194,43 +227,49 @@ class BaseEnv:
             info={"final_obs": obs, **info},
         )
 
-    def _step_sensors(self, state: EnvState, u: torch.Tensor):
+    def _step_sensors(self, state: EnvState, u: torch.Tensor, wrench, ground):
         """The engine step with the sensor updates → (sim, new flat
-        buffers): fused (one K2 launch) or chunked (n_obs_updates engine
-        steps of n_substeps_per_obs, each followed by the suite's
-        update at the accepted state)."""
-        suite = self.sensors
+        buffers): fused (one K2 launch) when the engine's kernel takes
+        this ground, else chunked (n_obs_updates engine steps of
+        n_substeps_per_obs, each followed by the suite's update at the
+        accepted state)."""
+        suite, eng = self.sensors, self.engine
         eps = self._sensor_eps(state.generator, state.obs.shape[0], self.n_obs_updates)
         bufs = state.info["sensor_bufs"]
-        if self._fused_sensors:
-            return self.engine.step_with_sensors(
+        if self._fused_sensors and eng._kernel_ground_ok(ground if ground is not None else eng.ground):
+            return eng.step_with_sensors(
                 state.sim, u, self.n_substeps, suite, bufs, eps,
-                k_obs=self.n_substeps_per_obs,
+                k_obs=self.n_substeps_per_obs, base_wrench=wrench, ground=ground,
             )
         sim, tup = state.sim, suite.unflatten_buffers(bufs)
         for e in eps.split(suite.n_eps, dim=1):
-            sim = self.engine.step(sim, u, n_substeps=self.n_substeps_per_obs)
+            sim = eng.step(sim, u, n_substeps=self.n_substeps_per_obs, base_wrench=wrench,
+                           ground=ground)
             tup = suite.update(tup, e, sim.q, sim.v, sim.a, sim.contact_forces, sim.tau)
         return sim, suite.flatten_buffers(tup)
 
     def step_no_reset(self, state: EnvState, action: torch.Tensor) -> EnvState:
         """One env step without auto-reset."""
         u = self._action_to_command(action, state.sim)
+        wrench = self._base_wrench(state)
+        ground = self._step_ground(state.info)
         info = dict(state.info)
         if self.sensors is None:
-            sim = self.engine.step(state.sim, u, n_substeps=self.n_substeps)
+            sim = self.engine.step(state.sim, u, n_substeps=self.n_substeps,
+                                   base_wrench=wrench, ground=ground)
         else:
-            sim, info["sensor_bufs"] = self._step_sensors(state, u)
+            sim, info["sensor_bufs"] = self._step_sensors(state, u, wrench, ground)
         obs = self._make_obs(sim, info)
         reward = self._reward(state, action, sim)
         steps = state.steps + 1
         # NaN guard: a non-finite or exploding env terminates with zero
         # reward and observation, so auto-reset recovers it
         bad = health.is_bad_state(sim)
-        terminated = self._terminated(sim) | bad
+        terminated = self._terminated(sim, state.info) | bad
         reward = torch.where(bad, torch.zeros_like(reward), reward)
         obs = torch.where(bad[:, None], torch.zeros_like(obs), obs)
         truncated = steps >= self.max_steps
+        info.update(self._update_info(state, sim, state.generator))
         return state.replace(
             sim=sim,
             obs=obs,

@@ -1,9 +1,23 @@
 """Velocity-tracking locomotion env on a floating-base legged robot.
 
-Counterpart of ``jiminy_tpu/envs/locomotion.py`` (``WalkerEnv``) on flat
-ground with no pushes: ``_sample_state``, ``_observe``,
-``_observe_from_sensors``, ``_reward``, ``_terminated`` and
-``_action_to_command``, batched.
+Counterpart of ``jiminy_tpu/envs/locomotion.py`` (``WalkerEnv``):
+``_sample_state``, ``_observe``, ``_observe_from_sensors``, ``_reward``,
+``_terminated`` and ``_action_to_command``, batched, with the terrain and
+push hooks:
+
+- ``ground`` (one ground for the batch) or ``ground_sampler`` (a fresh
+  analytic ground per env at every reset, carried in ``info["ground"]``
+  as its coefficients and handed to the engine each step); the spawn sits
+  on it: with ``spawn_radius`` at a uniform xy in the square of that
+  half-width, raised by the height there, else with a sampler raised by
+  the height at the stand xy;
+- pushes: each step an env not being pushed starts a push with
+  probability ``push_prob``, a horizontal world force of
+  ``push_magnitude`` N in a uniform direction held for ``push_duration``
+  s (``info["push_force"]``, ``info["push_steps_left"]``), applied at the
+  base as a local wrench (:meth:`WalkerEnv._base_wrench`). The draws come
+  from :meth:`WalkerEnv._push_draws`, which a caller may replace;
+- ``_terminated`` measures the base height against each env's own ground.
 
 Action: (B, nm) PD target offsets around the stand pose in [-1, 1].
 Observation, ``observe="sensors"`` (the default, as in the reference):
@@ -31,7 +45,7 @@ from jiminy_tpu_torch.engine.ground import FlatGround
 from jiminy_tpu_torch.envs.base import BaseEnv, EnvState
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.math import so3
-from jiminy_tpu_torch.math.spatial import mv
+from jiminy_tpu_torch.math.spatial import mtv, mv
 
 
 class WalkerEnv(BaseEnv):
@@ -54,6 +68,12 @@ class WalkerEnv(BaseEnv):
         constraint_solver: str = "auto",
         observe: str = "sensors",  # "sensors" | "state" (privileged)
         sensors=None,  # SensorSuite of the robot, needed by "sensors"
+        ground=None,  # one ground for the whole batch (default flat)
+        ground_sampler=None,  # (generator, batch_shape) -> analytic ground, per env
+        spawn_radius: float = 0.0,  # spawn xy uniform in [−r, r]² over the terrain
+        push_magnitude: float = 0.0,  # N; 0 disables pushes
+        push_prob: float = 0.01,  # per-step probability of a push onset
+        push_duration: float = 0.1,  # s
         device="cuda",
     ):
         if observe == "sensors":
@@ -69,6 +89,13 @@ class WalkerEnv(BaseEnv):
         elif observe != "state":
             raise ValueError(f"unknown observe mode {observe!r}")
         self.observe_mode = observe
+        self.ground_sampler = ground_sampler
+        if ground_sampler is not None:
+            if ground is not None:
+                raise ValueError("pass ground or ground_sampler, not both")
+            # the engine's ground fixes the kernel's kind and term count;
+            # each env's own coefficients come from info at every step
+            ground = ground_sampler(torch.Generator(device=device).manual_seed(0), ())
         engine = Engine(
             tree,
             EngineOptions(
@@ -78,7 +105,7 @@ class WalkerEnv(BaseEnv):
                 compute_solver_residual=False,
                 constraint_solver=constraint_solver,
             ),
-            ground=FlatGround(),
+            ground=ground if ground is not None else FlatGround(),
             motors=motors,
             controller=PDController(kp, kd),
             device=device,
@@ -93,6 +120,10 @@ class WalkerEnv(BaseEnv):
         self.reset_noise = reset_noise
         self.min_height = min_height
         self.max_tilt_cos = max_tilt_cos
+        self.spawn_radius = spawn_radius
+        self.push_magnitude = push_magnitude
+        self.push_prob = push_prob
+        self.push_steps = max(1, round(push_duration / step_dt))
         self._q_stand = torch.as_tensor(
             stand_pose, dtype=self.tree.dtype, device=self.device
         )
@@ -100,9 +131,16 @@ class WalkerEnv(BaseEnv):
             self._q_stand, torch.zeros(self.tree.nv, dtype=self.tree.dtype, device=self.device)
         )
 
-    def _sample_state(self, generator: torch.Generator, batch_size: int):
+    def _episode_ground(self, info: dict):
+        """Each env's ground: from its coefficients in ``info`` with a
+        sampler, else the engine's own."""
+        g = self.engine.ground
+        return type(g).from_coef(info["ground"], g) if "ground" in info else g
+
+    def _sample_state(self, generator: torch.Generator, batch_size: int, info: dict):
         """Stand pose + U(−1, 1)·reset_noise on the motor joints, and
-        N(0, 1)·0.1·reset_noise velocities."""
+        N(0, 1)·0.1·reset_noise velocities; the base on the episode's
+        ground (see the module's docstring)."""
         nm, nv = self.motors.nm, self.tree.nv
         kw = dict(generator=generator, device=generator.device)
         dq = self.reset_noise * (2.0 * torch.rand(batch_size, nm, **kw) - 1.0)
@@ -110,7 +148,64 @@ class WalkerEnv(BaseEnv):
         q = self._q_stand.expand(batch_size, -1).clone()
         idx = list(self.motors.q_idx)
         q[:, idx] = q[:, idx] + dq.to(device=self.device, dtype=q.dtype)
+        ground = self._episode_ground(info)
+        if self.spawn_radius > 0:
+            xy = self.spawn_radius * (2.0 * torch.rand(batch_size, 2, **kw) - 1.0)
+            q[:, 0:2] = xy.to(device=self.device, dtype=q.dtype)
+            q[:, 2] = q[:, 2] + ground.query(q[:, 0:2])[0]
+        elif self.ground_sampler is not None:
+            q[:, 2] = q[:, 2] + ground.query(q[:, 0:2])[0]
         return q, v.to(device=self.device, dtype=q.dtype)
+
+    # ---- terrain and pushes (info entries, picked by auto-reset) ---------
+    def _init_info(self, generator: torch.Generator, batch_size: int) -> dict:
+        info = {}
+        if self.ground_sampler is not None:
+            info["ground"] = self.ground_sampler(generator, (batch_size,)).coef().to(
+                device=self.device, dtype=self.tree.dtype)
+        if self.push_magnitude > 0.0:
+            info["push_force"] = torch.zeros(batch_size, 3, dtype=self.tree.dtype,
+                                             device=self.device)
+            info["push_steps_left"] = torch.zeros(batch_size, dtype=torch.int32,
+                                                  device=self.device)
+        return info
+
+    def _step_ground(self, info: dict):
+        return self._episode_ground(info) if "ground" in info else None
+
+    def _push_draws(self, generator: torch.Generator, batch_size: int):
+        """This step's push draws: (onset (B,) bool, Bernoulli(push_prob);
+        direction angle (B,), U(0, 2π))."""
+        kw = dict(generator=generator, device=generator.device)
+        onset = torch.rand(batch_size, **kw) < self.push_prob
+        theta = 2.0 * torch.pi * torch.rand(batch_size, **kw)
+        return onset.to(self.device), theta.to(device=self.device, dtype=self.tree.dtype)
+
+    def _update_info(self, prev: EnvState, sim: SimState, generator: torch.Generator) -> dict:
+        """The push schedule: an env whose push has run out starts a new
+        one on its onset draw; the others count down."""
+        if self.push_magnitude <= 0.0:
+            return {}
+        onset, theta = self._push_draws(generator, sim.q.shape[0])
+        left = prev.info["push_steps_left"]
+        start = onset & (left <= 0)
+        force = self.push_magnitude * torch.stack(
+            [torch.cos(theta), torch.sin(theta), torch.zeros_like(theta)], dim=-1)
+        return {
+            "push_force": torch.where(start[:, None], force, prev.info["push_force"]),
+            "push_steps_left": torch.where(
+                start, torch.full_like(left, self.push_steps), torch.clamp(left - 1, min=0)),
+        }
+
+    def _base_wrench(self, state: EnvState):
+        """The active push as a local wrench on the base: the world force
+        at the base origin rotated into the base frame, no torque."""
+        if self.push_magnitude <= 0.0:
+            return None
+        active = (state.info["push_steps_left"] > 0).to(state.sim.q.dtype)
+        f_world = active[:, None] * state.info["push_force"]
+        R = so3.quat_to_matrix(state.sim.q[:, 3:7])
+        return torch.cat([torch.zeros_like(f_world), mtv(R, f_world)], dim=-1)
 
     def _base_frames(self, sim: SimState):
         R = so3.quat_to_matrix(sim.q[:, 3:7])
@@ -157,9 +252,10 @@ class WalkerEnv(BaseEnv):
             - 0.05 * torch.square(v_world[:, 2])
         )
 
-    def _terminated(self, sim: SimState) -> torch.Tensor:
+    def _terminated(self, sim: SimState, info: dict) -> torch.Tensor:
         _, grav_b, _, _ = self._base_frames(sim)
         fallen = grav_b[:, 2] > -self.max_tilt_cos
-        h, _ = self.engine.ground.query(sim.q[:, :2])
+        # the height above each env's own ground
+        h, _ = self._episode_ground(info).query(sim.q[:, :2])
         low = (sim.q[:, 2] - h) < self.min_height
         return fallen | low

@@ -4,7 +4,8 @@ Counterpart of ``jiminy_tpu/ops/substep_kernel.py``. One impulse substep
 of the engine, for every env of a batch:
 
     FK → RNEA bias (with a root wrench) → CRBA + armature + dt·damping
-    → joint-bound rows and ground-contact rows, color-major
+    → joint-bound rows and ground-contact rows, color-major (the
+      contact basis from the ground's normal at each point)
     → the solve chain (chol → M⁻¹[p|Jᵀ] → Delassus → grouped PGS)
     → world contact impulses → symplectic Euler
 
@@ -30,12 +31,20 @@ of the engine, for every env of a batch:
 packs it once per device into the buffers the kernels read;
 :class:`TorqueSpec` is the declarative actuation path that K2 evaluates
 in-kernel; :class:`SensorKernelSpec` packs a sensor suite for K2's
-sensor stage. Out of scope (each raises, naming its ROADMAP item): other
-steppers and the penalty contact model (A.16), grounds other than flat
-(A.10, B.4), sphere contact sites and collision pairs (A.13, B.7),
-joint springs and flexibility (A.14, B.8), joints other than FREE and
-REVOLUTE (A.14, A.15); randomization (B.5) and distance rows (B.9) have
-no entry here yet.
+sensor stage.
+
+Grounds: flat (height baked into the spec) or, through the kernels'
+``GEN`` instantiations, an analytic ground (Fourier, Perlin, Stairs)
+per env, whose coefficients ``gc`` (B, n_gc) every entry point takes
+(``SubstepSpec.n_gc`` wide; the layout of
+:mod:`jiminy_tpu_torch.engine.ground`). A :class:`HeightmapGround` runs
+on the plain versions alone (``check_kernel_caps`` refuses it).
+
+Out of scope (each raises, naming its ROADMAP item): other steppers and
+the penalty contact model (A.16), sphere contact sites and collision
+pairs (A.13, B.7), joint springs and flexibility (A.14, B.8), joints
+other than FREE and REVOLUTE (A.14, A.15); randomization (B.5) and
+distance rows (B.9) have no entry here yet.
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ from jiminy_tpu_torch.core import algos
 from jiminy_tpu_torch.core.tree import JointType, KinematicTree
 from jiminy_tpu_torch.engine import constraints as cstr
 from jiminy_tpu_torch.engine.contact import surface_contacts
-from jiminy_tpu_torch.engine.ground import FlatGround
+from jiminy_tpu_torch.engine.ground import ANALYTIC, FlatGround, HeightmapGround
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.hardware.sensors import SensorSuite
 # a module, not its names: the engine package imports this module while
@@ -59,10 +68,14 @@ from jiminy_tpu_torch.hardware.sensors import SensorSuite
 from jiminy_tpu_torch.ops import constraint_solve as chain
 
 _TORQUE_MODES = {"pd": 1, "direct": 2}
-_HDR_I, _HDR_F = 8, 16  # header lengths of the packed spec (csrc/substep.cu)
+_HDR_I, _HDR_F = 10, 16  # header lengths of the packed spec (csrc/substep.cu)
 # the kernels' largest instantiation (csrc/substep.cu JT_SUB_MAX_*,
 # JT_NQ_EXTRA); the C entry points refuse anything larger as well
 MAX_NB, MAX_NV, MAX_NC, NQ_EXTRA = 32, 32, 48, 4
+# ground modes and the ground query's caps (csrc/substep.cu JT_GROUND_*,
+# JT_FOURIER_MAX, JT_PERLIN_MAX): K Fourier terms, Perlin octaves
+_GROUND_MODES = {"flat": 0, "fourier": 1, "perlin": 2, "stairs": 3}
+MAX_FOURIER_TERMS, MAX_PERLIN_OCTAVES = 32, 8
 # the sensor stage's caps (csrc/substep.cu JT_SENS_MAX_*)
 MAX_SENS_GROUPS, MAX_SENS_BUF, MAX_SENS_EPS = 8, 4096, 1024
 _SENSOR_CODES = {"imu": 0, "encoder": 1, "effort": 2, "contact": 3}
@@ -145,8 +158,11 @@ class SubstepSpec:
             raise NotImplementedError(
                 "only contact_model='constraint' is ported (ROADMAP A.16)"
             )
-        if not isinstance(ground, FlatGround):
-            raise NotImplementedError("only FlatGround is ported (ROADMAP A.10, B.4)")
+        if not isinstance(ground, (FlatGround, HeightmapGround, *ANALYTIC)):
+            raise TypeError(f"unknown ground {type(ground).__name__}")
+        if isinstance(ground, ANALYTIC) and ground.coef().dim() != 1:
+            raise ValueError("the engine's ground is one ground, not a batch: per-env "
+                             "grounds go to step(ground=...)")
         if tree.ncp and bool(torch.any(tree.contact_radius > 0)):
             raise NotImplementedError(
                 "sphere/capsule contact sites are not ported yet (ROADMAP A.13)"
@@ -167,7 +183,12 @@ class SubstepSpec:
         self.motors = motors
         self.torque = torque
         self.ground = ground
-        self.ground_height = float(ground.height)
+        self.ground_mode = ground.MODE
+        self.ground_height = float(ground.height) if isinstance(ground, FlatGround) else 0.0
+        # the Fourier term or Perlin octave count, static in the kernel's loop
+        self.ground_n = (ground.n_terms if self.ground_mode == "fourier"
+                         else ground.octaves if self.ground_mode == "perlin" else 0)
+        self.n_gc = ground.coef().shape[-1] if isinstance(ground, ANALYTIC) else 0
         self.friction = float(opts.contacts.friction)
         self.dt = float(opts.dt)
 
@@ -214,7 +235,8 @@ class SubstepSpec:
 
     def check_kernel_caps(self, who: str):
         """Raise ValueError when the model is larger than the whole-substep
-        kernels take."""
+        kernels take, or its ground is one they cannot query (a heightmap;
+        more than 32 Fourier terms or 8 Perlin octaves)."""
         t = self.tree
         if t.nb > MAX_NB or t.nv > MAX_NV or not 1 <= self.nc <= MAX_NC \
                 or t.nq > t.nv + NQ_EXTRA:
@@ -223,6 +245,18 @@ class SubstepSpec:
                 f"whole-substep kernels' caps (nb ≤ {MAX_NB}, nv ≤ {MAX_NV}, "
                 f"1 ≤ nc ≤ {MAX_NC}, nq ≤ nv + {NQ_EXTRA})"
             )
+        cap = {"fourier": MAX_FOURIER_TERMS, "perlin": MAX_PERLIN_OCTAVES}.get(self.ground_mode)
+        if self.ground_mode not in _GROUND_MODES or (cap and not 1 <= self.ground_n <= cap):
+            raise ValueError(
+                f"{who}: a {self.ground_mode} ground (n={self.ground_n}) is outside the "
+                f"kernels' ground query (flat, fourier ≤ {MAX_FOURIER_TERMS} terms, perlin "
+                f"≤ {MAX_PERLIN_OCTAVES} octaves, stairs)"
+            )
+
+    def ground_of(self, gc):
+        """The ground that per-env coefficients ``gc`` (B, n_gc) describe,
+        or the spec's own ground for None."""
+        return self.ground if gc is None else type(self.ground).from_coef(gc, self.ground)
 
     def packed(self, device) -> tuple[torch.Tensor, torch.Tensor]:
         """(int32, float32) buffers of the spec on ``device``, laid out as
@@ -239,7 +273,8 @@ class SubstepSpec:
         bj = self.bounded_joints
         nm = ts.nm if ts is not None else 0
         mode = _TORQUE_MODES[ts.mode] if ts is not None else 0
-        ints = [t.nb, t.nq, t.nv, t.ncp, len(bj), nm, mode]
+        ints = [t.nb, t.nq, t.nv, t.ncp, len(bj), nm, mode,
+                _GROUND_MODES.get(self.ground_mode, -1), self.ground_n]
         ints += [0] * (_HDR_I - len(ints))
         ints += list(t.parent) + [int(j) for j in t.joint_type]
         ints += list(t.q_off) + list(t.v_off)
@@ -377,14 +412,27 @@ def torque_reference(spec: SubstepSpec, q, v, cmd):
     return spec.motors.compute_effort(cmd, v) - spec.tree.damping * v
 
 
-def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=None):
+def _check_gc(name, spec: SubstepSpec, gc, B):
+    """``gc`` goes with an analytic ground: (B, n_gc), else None."""
+    if spec.n_gc == 0:
+        if gc is not None:
+            raise ValueError(f"{name}: ground coefficients given for a {spec.ground_mode} ground")
+    elif gc is None or tuple(gc.shape) != (B, spec.n_gc):
+        got = None if gc is None else tuple(gc.shape)
+        raise ValueError(f"{name}: a {spec.ground_mode} ground needs its coefficients gc "
+                         f"({B}, {spec.n_gc}), got {got}")
+
+
+def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=None, gc=None):
     """One semi-implicit Euler substep with velocity-level PGS impulses
     for joint bounds and ground contacts: q (B, nq), v and τ (B, nv),
     λ0 (B, nc), ``wrench`` None or (B, 6) local [ang; lin] on the root
     body → (q⁺, v⁺, λ, residual (B,), world contact impulses (B, ncp,
     3) in the original contact order). ``solve`` runs the chain:
     the plain chain (``None``, the default) or a wrapper of the chain
-    kernel, called as ``solve(cfg, M, p, v, J, target, mu, active, λ0)``."""
+    kernel, called as ``solve(cfg, M, p, v, J, target, mu, active, λ0)``.
+    ``gc`` (B, n_gc): each env's analytic ground (None: the spec's
+    own ground)."""
     solve = solve if solve is not None else chain.solve_reference
     tree, opts = spec.tree, spec.options
     dt = spec.dt
@@ -409,7 +457,7 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
         mus.append(torch.zeros_like(tb))
     ncp = tree.ncp
     if ncp:
-        pts, _, depth, n = surface_contacts(tree, xw, vel, spec.ground)
+        pts, _, depth, n = surface_contacts(tree, xw, vel, spec.ground_of(gc))
         t1, t2 = cstr.tangent_basis(n)
         # penetrating: Baumgarte push-back; hovering within the margin:
         # may approach the surface but not cross it
@@ -479,7 +527,7 @@ def _check_sensor_args(sensors, n_sub, B, bufs, eps):
 
 def substep_multi_reference(
     spec: SubstepSpec, n_sub: int, q, v, cmd, lam0, wrench=None,
-    sensors: SensorKernelSpec | None = None, bufs=None, eps=None,
+    sensors: SensorKernelSpec | None = None, bufs=None, eps=None, gc=None,
 ):
     """``n_sub`` chained substeps with τ recomputed from the held command
     ``cmd`` (B, nm) before each → (q⁺, v⁺, λ, residual, impulses (B, ncp,
@@ -487,7 +535,7 @@ def substep_multi_reference(
     ``sensors``, after each substep i with (i + 1) % k_obs == 0 the
     sensor update u = (i + 1)/k_obs − 1 runs at that substep's accepted
     state with eps[:, u·n_eps:(u + 1)·n_eps], and the new buffers (B,
-    n_buf) are returned last."""
+    n_buf) are returned last. ``gc`` as in :func:`substep_reference`."""
     if spec.torque is None:
         raise ValueError("the multi-substep path needs spec.torque")
     if n_sub < 1:
@@ -496,7 +544,7 @@ def substep_multi_reference(
     lam = lam0
     for i in range(n_sub):
         tau = torque_reference(spec, q, v, cmd)
-        q_next, v_next, lam, res, impulse = substep_reference(spec, q, v, tau, lam, wrench)
+        q_next, v_next, lam, res, impulse = substep_reference(spec, q, v, tau, lam, wrench, gc=gc)
         a = (v_next - v) / spec.dt
         if sensors is not None and (i + 1) % sensors.k_obs == 0:
             u = (i + 1) // sensors.k_obs - 1
@@ -521,11 +569,12 @@ def _kernel():
     lib = _build.load("substep")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [vp, ci, ci, cf, cf, cf, ci, vp]  # layout, len, iters, dt, relax, reg, resid, stream
-    lib.jt_substep.argtypes = [vp] * 12 + [ci] * 5 + tail
+    gc = [vp, ci]  # ground coefficients, their width
+    lib.jt_substep.argtypes = [vp] * 12 + [ci] * 5 + gc + tail
     lib.jt_substep.restype = ci
-    lib.jt_substep_multi.argtypes = [vp] * 14 + [ci] * 7 + tail
+    lib.jt_substep_multi.argtypes = [vp] * 14 + [ci] * 7 + gc + tail
     lib.jt_substep_multi.restype = ci
-    lib.jt_substep_multi_sensors.argtypes = [vp] * 19 + [ci] * 11 + tail
+    lib.jt_substep_multi_sensors.argtypes = [vp] * 19 + [ci] * 11 + gc + tail
     lib.jt_substep_multi_sensors.restype = ci
     lib.jt_substep_error_string.argtypes = [ci]
     lib.jt_substep_error_string.restype = ctypes.c_char_p
@@ -577,19 +626,29 @@ def _outputs(spec: SubstepSpec, B, device, extra=0):
     return [torch.empty(s, dtype=torch.float32, device=device) for s in shapes]
 
 
-def substep_batched(spec: SubstepSpec, q, v, tau, lam0, wrench):
+def _gc_args(spec: SubstepSpec, gc):
+    """The kernels' (pointer, width) of the ground coefficients."""
+    return [gc.data_ptr(), spec.n_gc] if gc is not None else [None, 0]
+
+
+def substep_batched(spec: SubstepSpec, q, v, tau, lam0, wrench, gc=None):
     """K3, one substep with τ given: q (B, nq), v and τ (B, nv), λ0
-    (B, nc), wrench (B, 6), all on one device → (q⁺, v⁺, λ, residual
+    (B, nc), wrench (B, 6), and for an analytic ground each env's
+    coefficients gc (B, n_gc), all on one device → (q⁺, v⁺, λ, residual
     (B,), impulses (B, ncp, 3)). On CUDA tensors this launches the kernel
     (float32, contiguous) and raises on anything else; on CPU tensors it
-    runs :func:`substep_reference`."""
-    dev = _device_of("substep_batched", q, v, tau, lam0, wrench)
+    runs :func:`substep_reference`. ``.launches`` counts the flat-ground
+    instantiation's launches, ``.ground_launches`` the analytic ground's."""
+    _check_gc("substep_batched", spec, gc, q.shape[0])
+    g = () if gc is None else (gc,)
+    dev = _device_of("substep_batched", q, v, tau, lam0, wrench, *g)
     if dev.type == "cpu":
-        return substep_reference(spec, q, v, tau, lam0, wrench)
+        return substep_reference(spec, q, v, tau, lam0, wrench, gc=gc)
     t, B = spec.tree, q.shape[0]
     _check_inputs("substep_batched", {
         "q": (q, (B, t.nq)), "v": (v, (B, t.nv)), "tau": (tau, (B, t.nv)),
         "lam0": (lam0, (B, spec.nc)), "wrench": (wrench, (B, 6)),
+        **({"gc": (gc, (B, spec.n_gc))} if g else {}),
     })
     spec.check_kernel_caps("substep_batched")
     lib = _kernel()
@@ -599,19 +658,23 @@ def substep_batched(spec: SubstepSpec, q, v, tau, lam0, wrench):
     err = lib.jt_substep(
         si.data_ptr(), sf.data_ptr(), q.data_ptr(), v.data_ptr(), tau.data_ptr(),
         lam0.data_ptr(), wrench.data_ptr(), *(o.data_ptr() for o in outs),
-        B, t.nb, t.nq, t.nv, spec.nc, *tail,
+        B, t.nb, t.nq, t.nv, spec.nc, *_gc_args(spec, gc), *tail,
     )
     _raise_on(lib, err, "substep")
-    substep_batched.launches += 1
+    if gc is None:
+        substep_batched.launches += 1
+    else:
+        substep_batched.ground_launches += 1
     return tuple(outs)
 
 
 substep_batched.launches = 0
+substep_batched.ground_launches = 0
 
 
 def substep_batched_multi(
     spec: SubstepSpec, n_sub: int, q, v, cmd, lam0, wrench,
-    sensors: SensorKernelSpec | None = None, bufs=None, eps=None,
+    sensors: SensorKernelSpec | None = None, bufs=None, eps=None, gc=None,
 ):
     """K2, ``n_sub`` substeps in one launch with τ recomputed in-kernel
     from the held command: q (B, nq), v (B, nv), cmd (B, nm), λ0 (B, nc),
@@ -619,20 +682,24 @@ def substep_batched_multi(
     a (B, nv), τ (B, nv)), the last three of the last substep. With
     ``sensors`` (a :class:`SensorKernelSpec`), ``bufs`` (B, n_buf) and
     ``eps`` (B, n_sub/k_obs·n_eps), the kernel's sensor stage runs after
-    every k_obs-th substep and the new buffers are returned last. Needs
+    every k_obs-th substep and the new buffers are returned last. For an
+    analytic ground, ``gc`` (B, n_gc) holds each env's coefficients. Needs
     ``spec.torque``. On CUDA tensors this launches the kernel (float32,
     contiguous) and raises on anything else; on CPU tensors it runs
-    :func:`substep_multi_reference`."""
+    :func:`substep_multi_reference`. Each instantiation counts its own
+    launches: ``.launches`` (flat, no sensors), ``.sensor_launches``,
+    ``.ground_launches`` and ``.sensor_ground_launches``."""
     if spec.torque is None:
         raise ValueError("substep_batched_multi needs spec.torque")
     if n_sub < 1:
         raise ValueError(f"n_sub must be ≥ 1, got {n_sub}")
     _check_sensor_args(sensors, n_sub, q.shape[0], bufs, eps)
-    extra = () if sensors is None else (bufs, eps)
+    _check_gc("substep_batched_multi", spec, gc, q.shape[0])
+    extra = (() if sensors is None else (bufs, eps)) + (() if gc is None else (gc,))
     dev = _device_of("substep_batched_multi", q, v, cmd, lam0, wrench, *extra)
     if dev.type == "cpu":
         return substep_multi_reference(
-            spec, n_sub, q, v, cmd, lam0, wrench, sensors=sensors, bufs=bufs, eps=eps
+            spec, n_sub, q, v, cmd, lam0, wrench, sensors=sensors, bufs=bufs, eps=eps, gc=gc
         )
     t, B, nm = spec.tree, q.shape[0], spec.torque.nm
     items = {
@@ -641,6 +708,8 @@ def substep_batched_multi(
     }
     if sensors is not None:
         items.update({"bufs": (bufs, tuple(bufs.shape)), "eps": (eps, tuple(eps.shape))})
+    if gc is not None:
+        items["gc"] = (gc, (B, spec.n_gc))
     _check_inputs("substep_batched_multi", items)
     spec.check_kernel_caps("substep_batched_multi")
     lib = _kernel()
@@ -653,7 +722,7 @@ def substep_batched_multi(
     ]
     dims = [B, n_sub, t.nb, t.nq, t.nv, spec.nc, nm]
     if sensors is None:
-        err = lib.jt_substep_multi(*head, *dims, *tail)
+        err = lib.jt_substep_multi(*head, *dims, *_gc_args(spec, gc), *tail)
     else:
         sensors.check_kernel_caps("substep_batched_multi")
         gi, gf = sensors.packed(dev)
@@ -661,15 +730,16 @@ def substep_batched_multi(
         err = lib.jt_substep_multi_sensors(
             *head, gi.data_ptr(), gf.data_ptr(), bufs.data_ptr(), eps.data_ptr(),
             outs[-1].data_ptr(), *dims, sensors.n_groups, sensors.n_buf,
-            sensors.n_eps, sensors.k_obs, *tail,
+            sensors.n_eps, sensors.k_obs, *_gc_args(spec, gc), *tail,
         )
     _raise_on(lib, err, "substep_multi")
-    if sensors is None:
-        substep_batched_multi.launches += 1
-    else:
-        substep_batched_multi.sensor_launches += 1
+    counter = ("sensor_" if sensors is not None else "") + ("ground_" if gc is not None else "")
+    setattr(substep_batched_multi, counter + "launches",
+            getattr(substep_batched_multi, counter + "launches") + 1)
     return tuple(outs)
 
 
 substep_batched_multi.launches = 0
 substep_batched_multi.sensor_launches = 0
+substep_batched_multi.ground_launches = 0
+substep_batched_multi.sensor_ground_launches = 0

@@ -2,12 +2,17 @@
 
     python -m jiminy_tpu_torch.tools.profile_env_step [--batch 4096] [--steps 5]
         [--solver auto|substep|kernel|inline] [--observe state|sensors]
+        [--terrain flat|fourier|perlin|perlin_grid|stairs] [--push N]
+        [--push-duration S]
 
 Runs ``ANYmalEnv(observe="state", device="cuda")`` (by default on its
 main path, ``constraint_solver="auto"``, which is the fused whole-substep
 kernel for ANYmal), or with ``--observe sensors`` the sensor-observing
 env of ``anymal_sensors_run5`` (delay 0.004 s, IMU noise 0.02, encoder
-noise 0.005; K2 with the sensor stage), under
+noise 0.005; K2 with the sensor stage), on ``--terrain`` (default flat)
+with pushes of ``--push`` N held ``--push-duration`` s (default none; the
+terrain slice is ``--observe sensors --terrain fourier --push 100
+--push-duration 0.2``, K2 with the sensor stage and the ground query), under
 ``torch.profiler`` for a few env steps after a warm-up, and prints one
 JSON line: the card (``nvidia-smi`` name and power limit), wall ms per env
 step, device busy ms per env step (the sum of GPU kernel times), the
@@ -32,6 +37,10 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--solver", default="auto", choices=("auto", "substep", "kernel", "inline"))
     ap.add_argument("--observe", default="state", choices=("state", "sensors"))
+    ap.add_argument("--terrain", default="flat",
+                    choices=("flat", "fourier", "perlin", "perlin_grid", "stairs"))
+    ap.add_argument("--push", type=float, default=0.0, help="push magnitude, N")
+    ap.add_argument("--push-duration", type=float, default=0.1, help="push duration, s")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_env_step: no CUDA GPU available")
@@ -44,7 +53,9 @@ def main() -> None:
     sensors = (dict(sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005)
                if args.observe == "sensors" else {})
     env = ANYmalEnv(observe=args.observe, step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
-                    constraint_solver=args.solver, device=dev, **sensors)
+                    constraint_solver=args.solver, terrain=args.terrain,
+                    push_magnitude=args.push, push_duration=args.push_duration, device=dev,
+                    **sensors)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = env.reset(gen, args.batch)
     acts = [torch.rand(args.batch, 12, generator=gen, device=dev) * 2 - 1
@@ -83,6 +94,8 @@ def main() -> None:
         "batch": args.batch,
         "constraint_solver": env.engine.backend,
         "observe": args.observe,
+        "terrain": args.terrain,
+        "push_magnitude": args.push,
         "wall_ms_per_env_step": 1e3 * wall / n,
         "device_busy_ms_per_env_step": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - (busy_us / 1e6) / wall,

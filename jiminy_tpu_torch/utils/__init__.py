@@ -1,1 +1,1 @@
-"""Utilities (numerical health checks)."""
+"""Utilities: numerical health checks, host-side random processes."""

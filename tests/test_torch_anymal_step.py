@@ -167,9 +167,9 @@ def test_reset_is_seeded():
 @pytest.mark.parametrize(
     "kwargs, item",
     [
-        ({"terrain_seed": 3}, "A.10"),
-        ({"terrain": "perlin"}, "A.10"),
-        ({"push_magnitude": 50.0}, "A.10"),
+        ({"constraints": ()}, "A.12"),
+        ({"reward_fn": object()}, "A.17"),
+        ({"engine_options": object()}, "A.16"),
         ({"collision_pairs": ()}, "A.13"),
         ({"model_randomization": object()}, "A.11"),
     ],

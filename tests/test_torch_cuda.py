@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions:
 K1 (``solve_batched``), K3 (``substep_batched``) and K2
-(``substep_batched_multi``), with and without its sensor stage.
+(``substep_batched_multi``), with and without its sensor stage, on flat
+ground and on per-env analytic grounds (the ``GEN`` instantiations).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -333,3 +334,157 @@ def test_sensor_env_is_one_fused_launch(cuda_device):
     before = counts()
     env.step(state, torch.zeros(256, 12, device=cuda_device))
     assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 4, 0)
+
+
+def _ground_setup(kind, seed, B, dev, sensors=False):
+    """An engine on a ``kind`` ground, B per-env grounds of it (numpy-made
+    coefficients: Fourier 16 terms of amplitude 0.08, Perlin [seed, 1/1.5,
+    0.08], Stairs with random x0 so that some feet stand on risers), and
+    substep inputs over ±2 m of it, the bases raised by the height under
+    them."""
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
+    from jiminy_tpu_torch.engine import ground as pg
+    from jiminy_tpu_torch.models.quadruped import make_anymal
+
+    rng = np.random.default_rng(seed)
+    if kind == "fourier":
+        K = 16
+        octave = np.arange(K) % 3
+        amp = 0.08 * 0.5**octave / np.sqrt(np.bincount(octave)[octave] * 1.3125)
+        th, mag = rng.uniform(0, 2 * np.pi, (B, K)), rng.uniform(0.75, 1.25, (B, K))
+        mag = mag * 2 * np.pi / 1.5 * 2.0**octave
+        gc = np.concatenate([np.tile(amp, (B, 1)), mag * np.cos(th), mag * np.sin(th),
+                             rng.uniform(0, 2 * np.pi, (B, K))], 1)
+        make = pg.FourierGround
+    elif kind == "perlin":
+        gc = np.stack([rng.integers(0, 1 << 24, B), np.full(B, 1 / 1.5), np.full(B, 0.08)], 1)
+        make = lambda c: pg.PerlinGround(c, 3)  # noqa: E731
+    else:
+        gc = np.stack([np.full(B, 0.4), np.full(B, 0.08), np.full(B, 10.0), np.full(B, 0.05),
+                       rng.uniform(-0.4, 0.0, B)], 1)
+        make = pg.StairsGround
+    gc = torch.as_tensor(gc, dtype=torch.float32, device=dev)
+    tree, motors, suite = make_anymal(device=dev, sensor_period=5e-3, sensor_delay=0.004,
+                                      imu_noise=0.02, encoder_noise=0.005)
+    opts = EngineOptions(dt=5e-3, pgs_iters=8, constraint_solver="substep")
+    eng = Engine(tree, opts, motors=motors, controller=PDController(80.0, 2.0),
+                 ground=make(gc[0]), device=dev)
+    q, v, cmd, lam0, wrench = _substep_inputs(seed, B, eng)
+    if kind != "stairs":
+        q[:, 0:2] = torch.as_tensor(rng.uniform(-2.0, 2.0, (B, 2)), dtype=torch.float32, device=dev)
+    q[:, 2] += make(gc).query(q[:, :2])[0]
+    return eng, suite, (q, v, cmd, lam0, wrench), gc
+
+
+def _assert_env_by_env_vs_f64(name, k, p32, p64):
+    """``chip_smoke.py`` `_gate_vs_f64`: on terrain one substep is not well
+    posed at 1e-4 in every env (in a few envs of 1000 the plain float32
+    version is itself 1e-4–1e-3 from float64), so the kernel's output k
+    is held env by env against the float64 plain version p64 beside the
+    float32 plain version p32: |k − p64| ≤ 2·|p32 − p64| + 1e-4 in all
+    but 1 % of the envs, no more envs off by 1e-4 than 1.5 × the plain
+    version's + 4, and the worst env within 2 × the plain version's worst
+    + 1e-4."""
+    def per_env(a, b):
+        return (a.double() - b.double()).abs().reshape(a.shape[0], -1).amax(dim=1)
+
+    dk, dp = per_env(k, p64), per_env(p32, p64)
+    B = k.shape[0]
+    assert int((dk > 2.0 * dp + ATOL).sum()) <= 0.01 * B, name
+    assert int((dk > ATOL).sum()) <= 1.5 * int((dp > ATOL).sum()) + 4, name
+    assert dk.max().item() <= 2.0 * dp.max().item() + ATOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 1000])
+@pytest.mark.parametrize("kernel", ["substep", "substep_multi", "substep_multi_sensors"])
+@pytest.mark.parametrize("kind", ["fourier", "perlin", "stairs"])
+def test_ground_kernels_match_plain_versions(cuda_device, kind, kernel, B):
+    """K3, K2 and K2 with the sensor stage on per-env analytic grounds,
+    one substep from the same inputs, each through its own instantiation
+    (its own launch counter), held env by env against the float64 plain
+    version; τ (from the inputs alone) within 1e-4 of its size."""
+    from jiminy_tpu_torch.engine import Engine, PDController
+    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
+
+    eng, suite, args, gc = _ground_setup(kind, 12, B, cuda_device)
+    eng64 = Engine(eng.tree.to(dtype=torch.float64), eng.options,
+                   motors=eng.motors.to(dtype=torch.float64), controller=PDController(80.0, 2.0),
+                   ground=eng.ground, device=cuda_device)
+    spec, spec64 = eng.substep_spec, eng64.substep_spec
+    q, v, cmd, lam0, wrench = args
+    a64 = [x.double() for x in args]
+    if kernel == "substep":
+        tau = eng._joint_torque(cmd, q, v)
+        before = substep_batched.ground_launches
+        out = substep_batched(spec, q, v, tau, lam0, wrench, gc=gc)
+        launched = substep_batched.ground_launches - before
+        ref = substep_reference(spec, q, v, tau, lam0, wrench, gc=gc)
+        ref64 = substep_reference(spec64, a64[0], a64[1], tau.double(), a64[3], a64[4],
+                                  gc=gc.double())
+    else:
+        sw, sw64 = {}, {}
+        if kernel == "substep_multi_sensors":
+            gen = torch.Generator(device=cuda_device).manual_seed(3)
+            bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B), q, v))
+            sw = dict(sensors=SensorKernelSpec(eng.tree, suite, 1), bufs=bufs,
+                      eps=suite.sample_eps(gen, B))
+            sw64 = dict(sensors=SensorKernelSpec(eng64.tree, suite.to(dtype=torch.float64), 1),
+                        bufs=bufs.double(), eps=sw["eps"].double())
+        name = "sensor_ground_launches" if sw else "ground_launches"
+        before = getattr(substep_batched_multi, name)
+        out = substep_batched_multi(spec, 1, *args, gc=gc, **sw)
+        launched = getattr(substep_batched_multi, name) - before
+        ref = substep_multi_reference(spec, 1, *args, gc=gc, **sw)
+        ref64 = substep_multi_reference(spec64, 1, *a64, gc=gc.double(), **sw64)
+        if sw:
+            scale = ref64[7].abs().amax(dim=0).clamp(min=1.0)
+            _assert_env_by_env_vs_f64("bufs", out[7] / scale, ref[7] / scale, ref64[7] / scale)
+        tau_atol = ATOL * max(1.0, ref[6].abs().max().item())
+        torch.testing.assert_close(out[6], ref[6], atol=tau_atol, rtol=0)
+    torch.cuda.synchronize()
+    assert launched == 1
+    for i, name in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+        _assert_env_by_env_vs_f64(name, out[i], ref[i], ref64[i])
+
+
+@pytest.mark.cuda
+def test_ground_kernels_reject_bad_inputs(cuda_device):
+    eng, _, args, gc = _ground_setup("fourier", 13, 8, cuda_device)
+    spec = eng.substep_spec
+    with pytest.raises(ValueError, match="needs its coefficients"):
+        substep_batched_multi(spec, 4, *args)
+    with pytest.raises(ValueError, match="needs its coefficients"):
+        substep_batched_multi(spec, 4, *args, gc=gc[:, :-4])
+    with pytest.raises(TypeError, match="float32"):
+        substep_batched_multi(spec, 4, *args, gc=gc.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        substep_batched_multi(spec, 4, *args, gc=gc.t().contiguous().t())
+    flat = _anymal_engine(cuda_device).substep_spec
+    with pytest.raises(ValueError, match="flat ground"):
+        substep_batched_multi(flat, 4, *args, gc=gc)
+
+
+@pytest.mark.cuda
+def test_terrain_env_is_one_fused_launch(cuda_device):
+    """The slice's env (per-env Fourier ground, pushes, sensors): one
+    launch of K2 with the sensor stage and the ground query per env step,
+    and no other kernel; the flat instantiations are not launched."""
+    from jiminy_tpu_torch.envs import ANYmalEnv
+
+    env = ANYmalEnv(terrain="fourier", push_magnitude=100.0, push_duration=0.2,
+                    sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005, device=cuda_device)
+    assert env._fused_sensors
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
+
+    def counts():
+        return (solve_batched.launches, substep_batched.launches, substep_batched.ground_launches,
+                substep_batched_multi.launches, substep_batched_multi.sensor_launches,
+                substep_batched_multi.ground_launches,
+                substep_batched_multi.sensor_ground_launches)
+
+    before = counts()
+    for _ in range(3):
+        state = env.step(state, torch.zeros(256, 12, device=cuda_device))
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 0, 0, 0, 0, 3)
+    assert bool(torch.isfinite(state.obs).all())

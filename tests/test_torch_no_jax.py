@@ -7,9 +7,11 @@ top-level names below (exact names: ``jiminy_tpu_torch`` still loads);
 then every module of the port is imported, ``chip_smoke`` is imported
 without running, and one CPU env step is taken at B = 2 on the
 state-observing env's whole-substep path (the kernels' plain versions)
-and chain-kernel path, and on the sensor-observing env's fused and
-chunked paths. The modules that hold kernels, and the sensor suite, are
-named, so a rename cannot drop them from the walk. A second test imports each kernel module
+and chain-kernel path, on the sensor-observing env's fused and chunked
+paths, and on the terrain and push env (per-env Fourier ground, fused
+and chunked; the ``"perlin_grid"`` heightmap). The modules that hold
+kernels, the sensor suite, the grounds, the terrain generators and the
+random processes are named, so a rename cannot drop them from the walk. A second test imports each kernel module
 first in a fresh interpreter: the engine and ops packages import each
 other, and any order must work.
 """
@@ -27,7 +29,8 @@ import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "jiminy_tpu"}
 KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops.substep_kernel",
-                  "jiminy_tpu_torch.hardware.sensors")
+                  "jiminy_tpu_torch.hardware.sensors", "jiminy_tpu_torch.engine.ground",
+                  "jiminy_tpu_torch.engine.terrain", "jiminy_tpu_torch.utils.random")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -68,6 +71,13 @@ for fused in (True, False):
     st = env.reset(torch.Generator().manual_seed(0), 2)
     st = env.step(st, torch.zeros(2, 12))
     assert bool(torch.isfinite(st.obs).all()) and st.obs.shape == (2, 33)
+for terrain, fused in (("fourier", True), ("fourier", False), ("perlin_grid", False)):
+    env = ANYmalEnv(terrain=terrain, push_magnitude=100.0, push_duration=0.2, sensor_delay=0.004,
+                    device="cpu")
+    env._fused_sensors = fused
+    st = env.reset(torch.Generator().manual_seed(0), 2)
+    st = env.step(st, torch.zeros(2, 12))
+    assert bool(torch.isfinite(st.obs).all()) and "push_force" in st.info
 leaked = sorted(k for k in sys.modules if k.partition(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK", len(mods))

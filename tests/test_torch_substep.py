@@ -336,8 +336,8 @@ def test_packed_spec_layout(robot):
     si, sf = spec.packed("cpu")
     nb, nv, ncp, nbj, nm = tree.nb, tree.nv, tree.ncp, len(spec.bounded_joints), 12
     assert si.dtype == torch.int32 and sf.dtype == torch.float32
-    assert si[:7].tolist() == [nb, tree.nq, nv, ncp, nbj, nm, 1]
-    assert si.numel() == 8 + 4 * nb + 2 * ncp + nbj + 2 * nm
+    assert si[:9].tolist() == [nb, tree.nq, nv, ncp, nbj, nm, 1, 0, 0]  # PD, flat ground
+    assert si.numel() == 10 + 4 * nb + 2 * ncp + nbj + 2 * nm
     assert sf.numel() == 16 + 28 * nb + 2 * nv + 3 * ncp + 2 * nbj + 8 * nm
     assert sf[0].item() == pytest.approx(DT)
     assert spec.packed("cpu")[0] is si  # built once per device
@@ -363,10 +363,10 @@ def test_cpu_tensors_run_the_plain_versions(robot):
 def test_out_of_scope_raises(robot):
     _, tree, motors = robot
 
-    class Stairs:
+    class Stairs:  # not a ground of engine/ground.py
         height = 0.0
 
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(TypeError, match="unknown ground"):
         SubstepSpec(tree, EngineOptions(), Stairs())
     with pytest.raises(NotImplementedError, match="A.16"):
         SubstepSpec(tree, EngineOptions(solver="runge_kutta_4"), FlatGround())
