@@ -9,18 +9,24 @@ port's public entry points, and times the env step and each kernel. It
 imports nothing of JAX and nothing of ``jiminy_tpu``. The kernels:
 
 - K1 ``constraint_solve`` (``csrc/constraint_solve.cu``): the solve chain;
-- K2 ``substep_multi`` (``csrc/substep.cu``): every substep of an env
-  step in one launch, τ recomputed in-kernel;
+- K2 ``substep_multi`` (``csrc/substep.cu``, the code in
+  ``csrc/substep.cuh``): every substep of an env step in one launch, τ
+  recomputed in-kernel;
 - K3 ``substep`` (``csrc/substep.cu``): one substep, τ given;
 - K2 with the sensor stage ``substep_multi_sensors`` (``csrc/substep.cu``,
-  ``substep_multi_kernel<…, true, false>``): the same, plus after every
+  ``substep_multi_kernel<…, true, false, false>``): the same, plus after every
   k_obs-th substep the sensor suite's update (measure at the accepted
   state, corrupt with pre-sampled eps, push the delay lines);
 - the ground instantiations ``substep_ground``, ``substep_multi_ground``
   and ``substep_multi_sensors_ground`` (``GEN``): K3, K2 and K2 with the
   sensor stage on an analytic ground per env (Fourier, Perlin, Stairs),
   queried in-kernel from each env's coefficients (``jt_ground_query``),
-  the contact rows and impulses in the basis of the ground's normal.
+  the contact rows and impulses in the basis of the ground's normal;
+- the randomized instantiations ``rand_substep``, ``rand_substep_multi``,
+  ``rand_substep_multi_sensors`` and their ``_ground`` twins
+  (``csrc/substep_rand.cu``, ``RAND``): each env's row of packed model
+  parameters in place of the baked inertials, armature and (K2) motor
+  gain and friction.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -58,6 +64,13 @@ Phases (any failure raises and the script exits non-zero):
      ragged B = 1000, within 1e-4 as above (each through its own launch
      counter; the sensor variant's physics bit-equal to the sensor-free
      one's); at n_sub = 4 env by env against the float64 plain version;
+   - the randomized instantiations with parameters drawn over the slice's
+     ranges widened to the armature and friction (a quarter of the envs at
+     the ranges' ends; `_rand_params`): flat, at n_sub = 1 (B = 4096 and
+     1000) within 1e-4 as above, on the Fourier ground env by env against
+     float64, at n_sub = 4 env by env against float64; the nominal
+     parameters within 1e-5 of the unrandomized kernels; one state with
+     different parameters steps apart;
 2. the paths, each with the launch counts set to 0 just before it and
    read just after:
    - the main path, ``ANYmalEnv(observe="state", device="cuda")`` reset
@@ -89,12 +102,23 @@ Phases (any failure raises and the script exits non-zero):
      sensor-free ground K2 launch each), ``terrain="perlin_grid"`` (3
      steps, 12 K1 launches) and K3 on the stairs with ``substep_fusion=
      False`` (3 steps, 12 launches of K3 with the ground query);
+   - the sim-to-real path (the slice: ``SIM2REAL_KW``, the terrain path
+     with per-episode model randomization, ``anymal_sim2real_run5``
+     whole), 25 env steps: exactly one launch of the randomized K2 with
+     the sensor stage and the ground query per env step and no other;
+     the auto-reset redraws exactly the finished envs' parameters; then
+     fused against chunked as for the sensor path; and each other
+     randomized instantiation through a path that runs it (the state,
+     sensor and Perlin paths with randomization, K3 flat and on the
+     stairs);
 3. env-steps/s on the main path (3 timed loops of 25 steps), on the
-   sensor path, on the terrain path and on the ``"kernel"`` path, and
+   sensor path, on the terrain path, on the sim-to-real path and on the
+   ``"kernel"`` path, and
    each kernel's and its plain version's times with CUDA events beside
    the kernel's bound; the ground instantiations on each ground (the
    kernels line carries the slice's: K2 with sensors on Fourier, K2 on
-   Perlin, K3 on Stairs).
+   Perlin, K3 on Stairs) and the randomized instantiations, flat and on
+   the Fourier ground.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -875,6 +899,215 @@ def phase_ground_vs_plain(dev) -> dict:
     return worst
 
 
+# model randomization (B.5): the slice's ranges (examples/train.py
+# --randomize 0.2) widened to the armature and the friction, which the
+# slice leaves at 1, so that every field of the row moves the physics
+RAND_RANGES = dict(mass_scale=(0.8, 1.2), com_offset=(-0.02, 0.02), inertia_scale=(0.8, 1.2),
+                   armature_scale=(0.7, 1.3), motor_gain=(0.9, 1.1),
+                   motor_friction_scale=(0.5, 2.0))
+NOMINAL_TOL = 1e-5  # the nominal row rebuilds I as I_c + shift: ~1 ulp off the baked inertia
+
+
+def _rand_params(eng, gen, B, nominal=False):
+    """Each env's packed model parameters (B, n_mp): drawn uniform over
+    ``RAND_RANGES``, a quarter of the envs with every value at one end of
+    its range; or the nominal ones."""
+    from jiminy_tpu_torch.engine.randomization import ModelParams
+
+    t, nm = eng.tree, eng.motors.nm
+    if nominal:
+        return eng._pack_model_params(ModelParams.nominal(t, eng.motors, B))
+    shapes = dict(mass_scale=(B, t.nb), com_offset=(B, t.nb, 3), inertia_scale=(B, t.nb),
+                  armature_scale=(B, t.nv), motor_gain=(B, nm), motor_friction_scale=(B, nm))
+    kw = dict(generator=gen, device=eng.device)
+    fields = {}
+    for k, (lo, hi) in RAND_RANGES.items():
+        x = lo + (hi - lo) * torch.rand(shapes[k], **kw)
+        ends = lo + (hi - lo) * (torch.rand(shapes[k], **kw) < 0.5).to(x.dtype)
+        x[:B // 4] = ends[:B // 4]
+        fields[k] = x
+    return eng._pack_model_params(ModelParams(**fields))
+
+
+def _rand_flops(spec) -> int:
+    """What the model parameters add to one env's K2 substep: the gain and
+    the friction scale, a multiply each per motor (`jt_torque`); reading
+    the inertials from the row instead of the spec moves data and does
+    no arithmetic, so K3 adds nothing."""
+    return 2 * spec.torque.nm
+
+
+def _nominal_gap(a, b) -> float:
+    """max |a − b| over the outputs q, v, λ, impulses."""
+    return max(_max_err(a[i], b[i]) for i in (0, 1, 2, 4))
+
+
+def phase_rand_vs_plain(dev) -> dict:
+    """The randomized instantiations (each env's model parameters) against
+    their plain versions from the same inputs and parameters
+    (``_rand_params``), and against the nominal kernels:
+
+    - flat ground, K3, K2 and K2 with the sensor stage at n_sub = 1,
+      B = 4096 and a ragged B = 1000: within 1e-4 as the nominal kernels
+      (phase 1), the sensor variant's physics bit-equal to the
+      sensor-free one's; with the nominal parameters, within 1e-5 of the
+      unrandomized kernels;
+    - one state in every env and different parameters: the envs step
+      apart (v by more than 1e-3 from env 0's in most envs);
+    - K2 at n_sub = 4 env by env against the float64 plain version;
+    - the Fourier ground (per-env coefficients as phase 1's), K3, K2 and
+      K2 with the sensor stage at n_sub = 1 (both B) and the sensor
+      variant at n_sub = 4, env by env against the float64 plain version
+      (as the nominal ground kernels); the nominal parameters within 1e-5
+      of the unrandomized ground kernels.
+
+    Returns each instantiation's worst |kernel − plain f32| at n_sub = 1,
+    B = 4096."""
+    from jiminy_tpu_torch.ops.substep_kernel import (
+        SensorKernelSpec,
+        substep_batched,
+        substep_batched_multi,
+        substep_multi_reference,
+        substep_reference,
+        unpack_model_params,
+    )
+
+    names = ("q", "v", "lam", "residual", "impulse")
+    worst = {}
+    gen = torch.Generator(device=dev).manual_seed(31)
+    suite, suite64 = _anymal_suite(dev), _anymal_suite(dev, torch.float64)
+    for kind in ("flat", "fourier"):
+        ground = _ground_template(kind, dev) if kind != "flat" else None
+        eng = _anymal_engine(dev, ground=ground)
+        eng64 = _anymal_engine(dev, torch.float64, ground=ground)
+        spec, dt = eng.substep_spec, eng.substep_spec.dt
+        sens = SensorKernelSpec(eng.tree, suite, 1)
+        sens64 = SensorKernelSpec(eng64.tree, suite64, 1)
+        sfx = "" if kind == "flat" else "_ground"
+        for label, B in ((f"B={B_MAIN}", B_MAIN), ("ragged B=1000", 1000)):
+            if kind == "flat":
+                args, gc = _substep_inputs(eng, gen, B), None
+            else:
+                args, gc, _ = _ground_inputs(eng, kind, gen, B)
+            q, v, cmd, lam0, wrench = args
+            bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B), q, v))
+            sw = dict(sensors=sens, bufs=bufs, eps=suite.sample_eps(gen, B))
+            mp = _rand_params(eng, gen, B)
+            tau = eng._joint_torque(cmd, q, v, unpack_model_params(spec, mp)[1])
+            before = _counts()
+            k3 = substep_batched(spec, q, v, tau, lam0, wrench, gc=gc, mp=mp)
+            k2 = substep_batched_multi(spec, 1, *args, gc=gc, mp=mp)
+            ks = substep_batched_multi(spec, 1, *args, gc=gc, mp=mp, **sw)
+            launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+            r3 = substep_reference(spec, q, v, tau, lam0, wrench, gc=gc, mp=mp)
+            r2 = substep_multi_reference(spec, 1, *args, gc=gc, mp=mp, **sw)
+            # the nominal parameters through the randomized kernels
+            mpn = _rand_params(eng, gen, B, nominal=True)
+            tau_n = eng._joint_torque(cmd, q, v)
+            nominal = {
+                "K3": _nominal_gap(substep_batched(spec, q, v, tau_n, lam0, wrench, gc=gc, mp=mpn),
+                                   substep_batched(spec, q, v, tau_n, lam0, wrench, gc=gc)),
+                "K2": _nominal_gap(substep_batched_multi(spec, 1, *args, gc=gc, mp=mpn),
+                                   substep_batched_multi(spec, 1, *args, gc=gc)),
+                "K2 sensors": _nominal_gap(
+                    substep_batched_multi(spec, 1, *args, gc=gc, mp=mpn, **sw),
+                    substep_batched_multi(spec, 1, *args, gc=gc, **sw)),
+            }
+            torch.cuda.synchronize()
+            e3 = {n: _max_err(a, b) for n, a, b in zip(names, k3, r3)}
+            e2 = {n: _max_err(a, b) for n, a, b in zip(names + ("a", "tau"), k2, r2)}
+            scale = _reading_scale(sens, r2[7])
+            es = {"bufs_scaled": ((ks[7].double() - r2[7].double()).abs() / scale).max().item()}
+            same = all(torch.equal(ks[i], k2[i]) for i in range(7))
+            print(f"[phase 1] randomized, {kind} ground, {label}: max |kernel − plain f32|: K3 "
+                  f"{json.dumps(e3)}; K2 n_sub=1 {json.dumps(e2)}; K2 with sensors "
+                  f"{json.dumps(es)}, physics equal to the sensor-free K2: {same}; nominal "
+                  f"parameters vs the unrandomized kernels {json.dumps(nominal)}; launches "
+                  f"{json.dumps(launched)}")
+            want = {f"rand_substep{sfx}": 1, f"rand_substep_multi{sfx}": 1,
+                    f"rand_substep_multi_sensors{sfx}": 1}
+            if launched != want:
+                raise AssertionError(f"randomized {kind}: unexpected launches {launched}")
+            tau_scale = max(1.0, r2[6].abs().max().item())
+            if not (e2["tau"] <= TOL * tau_scale and same):
+                raise AssertionError(f"randomized {kind} {label}: K2's τ off by {e2['tau']} or the "
+                                     f"sensor variant's physics not the sensor-free K2's ({same})")
+            if max(nominal.values()) > NOMINAL_TOL:
+                raise AssertionError(f"randomized {kind} {label}: the nominal parameters are more "
+                                     f"than {NOMINAL_TOL} off the unrandomized kernels: {nominal}")
+            if kind == "flat":
+                if not (all(e3[n] <= TOL for n in names) and all(e2[n] <= TOL for n in names)
+                        and e2["a"] <= TOL / dt and es["bufs_scaled"] <= TOL):
+                    raise AssertionError(f"randomized kernels disagree with their plain versions "
+                                         f"on {label}: K3 {e3}, K2 {e2}, K2 sensors {es}")
+            else:  # on terrain, env by env against float64 (phase_ground_vs_plain)
+                a64 = [x.double() for x in args]
+                r3_64 = substep_reference(eng64.substep_spec, a64[0], a64[1], tau.double(), a64[3],
+                                          a64[4], gc=gc.double(), mp=mp.double())
+                r2_64 = substep_multi_reference(
+                    eng64.substep_spec, 1, *a64, gc=gc.double(), mp=mp.double(), sensors=sens64,
+                    bufs=bufs.double(), eps=sw["eps"].double())
+                torch.cuda.synchronize()
+                gates = {}
+                for kname, k, p32, p64 in (("K3", k3, r3, r3_64), ("K2", k2, r2, r2_64)):
+                    for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+                        gates[f"{kname} {n}"] = _gate_vs_f64(
+                            f"randomized {kname} {kind} {label} n_sub=1 {n}", k[i], p32[i], p64[i])
+                s64 = _reading_scale(sens, r2_64[7])
+                gates["K2 sensors bufs_scaled"] = _gate_vs_f64(
+                    f"randomized K2 sensors {kind} {label} n_sub=1 bufs", ks[7].double() / s64,
+                    r2[7].double() / s64, r2_64[7] / s64)
+                print(f"[phase 1] randomized, {kind} ground, {label}, n_sub=1 vs the f64 plain "
+                      "version: " + json.dumps(gates))
+            if B == B_MAIN:
+                worst[f"rand_substep{sfx}"] = max(e3[n] for n in names)
+                worst[f"rand_substep_multi{sfx}"] = max(e2[n] for n in names)
+                worst[f"rand_substep_multi_sensors{sfx}"] = max(
+                    max(e2[n] for n in names), es["bufs_scaled"])
+
+        # a whole env step, env by env against the float64 plain version
+        if kind == "flat":
+            args, gc = _substep_inputs(eng, gen, B_MAIN), None
+        else:
+            args, gc, _ = _ground_inputs(eng, kind, gen, B_MAIN)
+        bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B_MAIN), args[0], args[1]))
+        eps = torch.cat([suite.sample_eps(gen, B_MAIN) for _ in range(4)], 1)
+        sw = dict(sensors=sens, bufs=bufs, eps=eps)
+        mp = _rand_params(eng, gen, B_MAIN)
+        g64 = None if gc is None else gc.double()
+        ks = substep_batched_multi(spec, 4, *args, gc=gc, mp=mp, **sw)
+        p32 = substep_multi_reference(spec, 4, *args, gc=gc, mp=mp, **sw)
+        p64 = substep_multi_reference(
+            eng64.substep_spec, 4, *(x.double() for x in args), gc=g64, mp=mp.double(),
+            sensors=sens64, bufs=bufs.double(), eps=eps.double())
+        torch.cuda.synchronize()
+        scale = _reading_scale(sens, p64[7])
+        gates = {f"K2 sensors {n}": _gate_vs_f64(f"randomized K2 sensors {kind} n_sub=4 {n}",
+                                                 ks[i], p32[i], p64[i])
+                 for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse"))}
+        gates["K2 sensors bufs_scaled"] = _gate_vs_f64(
+            f"randomized K2 sensors {kind} n_sub=4 bufs", ks[7].double() / scale,
+            p32[7].double() / scale, p64[7] / scale)
+        if kind == "flat":
+            k2 = substep_batched_multi(spec, 4, *args, mp=mp)
+            torch.cuda.synchronize()
+            gates.update({f"K2 {n}": _gate_vs_f64(f"randomized K2 {kind} n_sub=4 {n}",
+                                                  k2[i], p32[i], p64[i])
+                          for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse"))})
+            # one state in every env, different parameters: the envs step apart
+            one = [x[:1].expand_as(x).contiguous() for x in args]
+            v_one = substep_batched_multi(spec, 4, *one, mp=mp)[1].double()
+            apart = (v_one - v_one[:1]).abs().amax(dim=1)
+            share = float((apart[1:] > 1e-3).double().mean())
+            print(f"[phase 1] randomized K2, one state in every env, n_sub=4: share of envs whose v "
+                  f"is more than 1e-3 from env 0's {share:.4f} (max {apart.max().item():.3g})")
+            if share < 0.5:
+                raise AssertionError(f"randomization does not move the physics: {share}")
+        print(f"[phase 1] randomized, {kind} ground, n_sub=4 B={B_MAIN} vs the f64 plain version: "
+              + json.dumps(gates))
+    return worst
+
+
 def _as_f64(state):
     sim = type(state.sim)(**{k: getattr(state.sim, k).double() for k in state.sim.FIELDS})
     return state.replace(sim=sim, obs=state.obs.double())
@@ -945,8 +1178,17 @@ def _ab_env_step(env, state, act_gen, dev):
 
 SENSOR_KW = dict(observe="sensors", sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005,
                  step_dt=0.02, sim_dt=5e-3, pgs_iters=8)
-# the slice's env: anymal_sim2real_run5 without model randomization
+# anymal_sim2real_run5 without model randomization (PR 7's slice)
 TERRAIN_KW = dict(SENSOR_KW, terrain="fourier", push_magnitude=100.0, push_duration=0.2)
+# the slice's model randomization: examples/train.py --randomize 0.2
+SIM2REAL_RANDOMIZE = dict(mass_scale=(0.8, 1.2), com_offset=0.02, inertia_scale=(0.8, 1.2),
+                          motor_gain=(0.9, 1.1))
+
+
+def _randomization():
+    from jiminy_tpu_torch.engine.randomization import ModelRandomization
+
+    return ModelRandomization(**SIM2REAL_RANDOMIZE)
 
 
 def _ab_sensor_step(env, state, act_gen, dev, kw=None, fused="substep_multi_sensors",
@@ -972,7 +1214,7 @@ def _ab_sensor_step(env, state, act_gen, dev, kw=None, fused="substep_multi_sens
     for name, e, st, is_fused in (("fused", env, state, True), ("chunked", env, state, False),
                                   ("plain", plain, state, False), ("plain64", plain64, st64, False)):
         e._fused_sensors = is_fused
-        e._sensor_eps = lambda generator, batch_size, n_updates, x=eps: x.to(st.obs.dtype)
+        e._sensor_eps = lambda generator, batch_size, n_updates, bias_extra, x=eps: x.to(st.obs.dtype)
         before = _counts()
         outs[name] = e.step_no_reset(st, a.to(st.obs.dtype))
         torch.cuda.synchronize()
@@ -1015,15 +1257,18 @@ def _counters():
     from jiminy_tpu_torch.ops.constraint_solve import solve_batched
     from jiminy_tpu_torch.ops.substep_kernel import substep_batched, substep_batched_multi
 
-    return {
-        "constraint_solve": (solve_batched, "launches"),
-        "substep": (substep_batched, "launches"),
-        "substep_ground": (substep_batched, "ground_launches"),
-        "substep_multi": (substep_batched_multi, "launches"),
-        "substep_multi_sensors": (substep_batched_multi, "sensor_launches"),
-        "substep_multi_ground": (substep_batched_multi, "ground_launches"),
-        "substep_multi_sensors_ground": (substep_batched_multi, "sensor_ground_launches"),
-    }
+    out = {"constraint_solve": (solve_batched, "launches")}
+    for pre in ("", "rand_"):  # the nominal instantiations, then the randomized ones
+        out.update({
+            pre + "substep": (substep_batched, pre + "launches"),
+            pre + "substep_ground": (substep_batched, pre + "ground_launches"),
+            pre + "substep_multi": (substep_batched_multi, pre + "launches"),
+            pre + "substep_multi_sensors": (substep_batched_multi, pre + "sensor_launches"),
+            pre + "substep_multi_ground": (substep_batched_multi, pre + "ground_launches"),
+            pre + "substep_multi_sensors_ground": (substep_batched_multi,
+                                                   pre + "sensor_ground_launches"),
+        })
+    return out
 
 
 def _reset_counts():
@@ -1087,6 +1332,7 @@ def run(dev) -> None:
         substep_batched_multi,
         substep_multi_reference,
         substep_reference,
+        unpack_model_params,
     )
 
     t0 = time.perf_counter()
@@ -1102,6 +1348,7 @@ def run(dev) -> None:
     main_err.update(phase_substep_vs_plain(dev))
     main_err["substep_multi_sensors"] = phase_sensors_vs_plain(dev)
     main_err.update(phase_ground_vs_plain(dev))
+    main_err.update(phase_rand_vs_plain(dev))
 
     # ---- phase 2: the paths through the public entry points
     kw = dict(observe="state", step_dt=0.02, sim_dt=5e-3, pgs_iters=8, device=dev)
@@ -1131,15 +1378,16 @@ def run(dev) -> None:
               f"{int(st.done.sum())}/{B_MAIN}; mean reward {st.reward.mean().item():.4f}")
         return st
 
-    def drive_unfused(label, eng, **expect):
+    def drive_unfused(label, eng, model_params=None, **expect):
         """3 env steps of an engine with ``substep_fusion=False`` (K3,
-        one launch per substep) from the main path's state."""
+        one launch per substep) from the main path's state, with each
+        env's ``model_params`` when given."""
         sim = state.sim
         torch.cuda.synchronize()
         _reset_counts()
         for _ in range(3):
             u = env._action_to_command(_uniform(act_gen, dev), sim)
-            sim = eng.step(sim, u, n_substeps=env.n_substeps)
+            sim = eng.step(sim, u, n_substeps=env.n_substeps, model_params=model_params)
         torch.cuda.synchronize()
         path[label] = got = _counts()
         print(f"[phase 2] {label}, 3 env steps: launches "
@@ -1183,10 +1431,50 @@ def run(dev) -> None:
     if env_g.engine.backend != "kernel":
         raise AssertionError("perlin_grid does not resolve to the chain kernel")
     drive("perlin_grid heightmap", env_g, 10, 3, constraint_solve=12)
-    drive_unfused("stairs, substep_fusion=False",
-                  _anymal_engine(dev, residual=False, fusion=False,
-                                 ground=_ground_template("stairs", dev)),
-                  substep_ground=12)
+    eng_k3s = _anymal_engine(dev, residual=False, fusion=False, ground=_ground_template("stairs", dev))
+    drive_unfused("stairs, substep_fusion=False", eng_k3s, substep_ground=12)
+
+    # the slice's path: the terrain path with per-episode model randomization
+    SIM2REAL_KW = dict(TERRAIN_KW, model_randomization=_randomization())
+    env_r = ANYmalEnv(device=dev, **SIM2REAL_KW)
+    if not (env_r._fused_sensors and env_r.engine.substep_spec.ground_mode == "fourier"):
+        raise AssertionError("the sim-to-real env does not take the fused ground path")
+    state_r = drive("sim-to-real path (randomized, fourier, pushes, sensors)", env_r, 12, STEPS,
+                    rand_substep_multi_sensors_ground=STEPS)
+    inertials, (gain, _) = unpack_model_params(env_r.engine.substep_spec,
+                                               env_r._model_params(state_r.info))
+    m0 = env_r.tree.inertia_mass
+    mscale = inertials.mass[:, m0 > 0] / m0[m0 > 0]
+    print(f"[phase 2] sim-to-real path: info['model_params'] {tuple(state_r.info['model_params'].shape)}, "
+          f"mass scales {mscale.min().item():.4f}–{mscale.max().item():.4f}, motor "
+          f"gains {gain.min().item():.4f}–{gain.max().item():.4f}")
+    # where an episode ends the auto-reset draws fresh parameters: env 0
+    # sent below its ground, the others left as they are
+    q_low = state_r.sim.q.clone()
+    q_low[0, 2] = -1.0
+    low = state_r.replace(sim=dataclasses.replace(state_r.sim, q=q_low))
+    nxt = env_r.step(low, _uniform(act_gen, dev))
+    changed = (nxt.info["model_params"] != low.info["model_params"]).any(dim=1)
+    if not (bool(nxt.done[0]) and torch.equal(changed, nxt.done)):
+        raise AssertionError(f"the auto-reset did not redraw exactly the finished envs' parameters: "
+                             f"{int(changed.sum())} changed, {int(nxt.done.sum())} done")
+    print(f"[phase 2] sim-to-real path: the auto-reset redrew the parameters of exactly the "
+          f"{int(nxt.done.sum())} finished envs")
+    _ab_sensor_step(env_r, state_r, act_gen, dev, SIM2REAL_KW,
+                    fused="rand_substep_multi_sensors_ground",
+                    chunked="rand_substep_multi_ground", label="sim-to-real path")
+    # each other randomized instantiation through a path that runs it
+    drive("randomized state path", ANYmalEnv(model_randomization=_randomization(), **kw), 13, 10,
+          rand_substep_multi=10)
+    drive("randomized sensor path", ANYmalEnv(model_randomization=_randomization(), device=dev,
+                                              **SENSOR_KW), 14, 10, rand_substep_multi_sensors=10)
+    drive("randomized perlin terrain, state path",
+          ANYmalEnv(terrain="perlin", push_magnitude=6.0, model_randomization=_randomization(),
+                    **kw), 15, 10, rand_substep_multi_ground=10)
+    mp_k3 = eng_k3._pack_model_params(_randomization().sample(
+        torch.Generator(device=dev).manual_seed(16), eng_k3.tree, eng_k3.motors, B_MAIN))
+    drive_unfused("randomized, substep_fusion=False", eng_k3, mp_k3, rand_substep=12)
+    drive_unfused("randomized stairs, substep_fusion=False", eng_k3s, mp_k3, rand_substep_ground=12)
 
     # ---- phase 3: times
     for _ in range(STEPS):  # warm-up
@@ -1205,6 +1493,12 @@ def run(dev) -> None:
     print(f"[phase 3] env-steps/s at B={B_MAIN}, terrain path (K2 with the sensor stage and the "
           f"ground query): {[round(r, 1) for r in rates_t]} (max {max(rates_t):.1f}; "
           f"{max(rates_t) / max(rates_s):.3f}× the sensor path's)")
+    for _ in range(5):  # warm-up
+        state_r = env_r.step(state_r, _uniform(act_gen, dev))
+    rates_r, _ = _env_rate(env_r, state_r, act_gen, dev, STEPS, 3)
+    print(f"[phase 3] env-steps/s at B={B_MAIN}, sim-to-real path (the randomized K2 with the "
+          f"sensor stage and the ground query): {[round(r, 1) for r in rates_r]} (max "
+          f"{max(rates_r):.1f}; {max(rates_r) / max(rates_t):.3f}× the terrain path's)")
     state_k1 = env_k1.step(state_k1, _uniform(act_gen, dev))  # warm-up
     rates_k1, _ = _env_rate(env_k1, state_k1, act_gen, dev, 5, 2)
     print(f"[phase 3] env-steps/s at B={B_MAIN}, constraint_solver='kernel' (K1): "
@@ -1323,8 +1617,56 @@ def run(dev) -> None:
                 print(f"[phase 3] {name} on the {kind} ground B={B_MAIN}: kernel {ms:.4f} ms, "
                       f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
                       f"{n_bytes} B, {n_ops} FLOP)")
+
+    # the randomized instantiations (B.5), on phase 1's inputs with each
+    # env's parameters: flat, and on the slice's Fourier ground
+    rgen = torch.Generator(device=dev).manual_seed(17)
+    for kind in ("flat", "fourier"):
+        reng = _anymal_engine(dev, residual=False, fusion=False,
+                              ground=_ground_template(kind, dev) if kind != "flat" else None)
+        rspec = reng.substep_spec
+        if kind == "flat":
+            rargs, rgc, sfx, g_bytes, g_ops = _substep_inputs(reng, rgen, B_MAIN), None, "", 0, 0
+        else:
+            rargs, rgc, _ = _ground_inputs(reng, kind, rgen, B_MAIN)
+            sfx, g_bytes, g_ops = "_ground", 4 * rgc.numel(), B_MAIN * _ground_flops(rspec)
+        rq, rv, rcmd, rlam0, rwrench = rargs
+        mp = _rand_params(reng, rgen, B_MAIN)
+        rtau = reng._joint_torque(rcmd, rq, rv, unpack_model_params(rspec, mp)[1])
+        mp_bytes = 4 * mp.numel()
+        rand_ops = B_MAIN * n_sub * _rand_flops(rspec)
+        launched_by = {"rand_substep_multi_sensors_ground":
+                       "sim-to-real path (randomized, fourier, pushes, sensors)",
+                       "rand_substep_multi_ground": "randomized perlin terrain, state path",
+                       "rand_substep_ground": "randomized stairs, substep_fusion=False",
+                       "rand_substep_multi": "randomized state path",
+                       "rand_substep_multi_sensors": "randomized sensor path",
+                       "rand_substep": "randomized, substep_fusion=False"}
+        runs = {
+            "rand_substep_multi_sensors" + sfx: (
+                lambda: substep_batched_multi(rspec, n_sub, *rargs, gc=rgc, mp=mp, **sw),
+                lambda: substep_multi_reference(rspec, n_sub, *rargs, gc=rgc, mp=mp, **sw),
+                _substep_multi_bytes(rspec, B_MAIN) + sens_bytes + g_bytes + mp_bytes,
+                k2_ops + sens_ops + n_sub * g_ops + rand_ops),
+            "rand_substep_multi" + sfx: (
+                lambda: substep_batched_multi(rspec, n_sub, *rargs, gc=rgc, mp=mp),
+                lambda: substep_multi_reference(rspec, n_sub, *rargs, gc=rgc, mp=mp),
+                _substep_multi_bytes(rspec, B_MAIN) + g_bytes + mp_bytes,
+                k2_ops + n_sub * g_ops + rand_ops),
+            "rand_substep" + sfx: (
+                lambda: substep_batched(rspec, rq, rv, rtau, rlam0, rwrench, gc=rgc, mp=mp),
+                lambda: substep_reference(rspec, rq, rv, rtau, rlam0, rwrench, gc=rgc, mp=mp),
+                _substep_bytes(rspec, B_MAIN) + g_bytes + mp_bytes,
+                B_MAIN * _substep_flops(rspec) + g_ops),
+        }
+        for name, (kernel, plain, n_bytes, n_ops) in runs.items():
+            ms, plain_ms = _time_cuda(kernel, 20), _time_cuda(plain, 3)
+            entry(name, "jiminy_tpu_torch/csrc/substep_rand.cu",
+                  "jiminy_tpu/ops/substep_kernel.py:507", path[launched_by[name]][name],
+                  ms, plain_ms, n_bytes, n_ops)
     print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_sensor_path": rates_s,
                       "env_steps_per_s_terrain_path": rates_t,
+                      "env_steps_per_s_sim2real_path": rates_r,
                       "env_steps_per_s_kernel_path": rates_k1, "nvcc_build_s": build}))
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())

@@ -124,10 +124,13 @@ def body_accelerations(tree: KinematicTree, q, v, a):
     return xw, vel, acc
 
 
-def rnea(tree: KinematicTree, q, v, a, fext=None, xl=None) -> torch.Tensor:
+def rnea(tree: KinematicTree, q, v, a, fext=None, xl=None, inertials=None) -> torch.Tensor:
     """Inverse dynamics with armature, τ = ID(q, v, a) − Jᵀ f_ext
-    (B, nv). ``fext``: optional (B, nb, 6) local wrenches."""
+    (B, nv). ``fext``: optional (B, nb, 6) local wrenches. ``inertials``:
+    optional per-env masses, inertias and armature
+    (``engine.randomization.Inertials``) in place of the tree's."""
     xl = local_transforms(tree, q) if xl is None else xl
+    dyn = tree if inertials is None else inertials
     g = tree.gravity
     a0 = torch.cat([torch.zeros_like(g), -g])
     vel, acc, f, S_all = [None] * tree.nb, [None] * tree.nb, [None] * tree.nb, [None] * tree.nb
@@ -145,7 +148,7 @@ def rnea(tree: KinematicTree, q, v, a, fext=None, xl=None) -> torch.Tensor:
                 xl[i].motion_parent_to_child(acc[p]) + aj
                 + motion_cross(vel[i], vj)
             )
-        Ii = tree.body_inertia(i)
+        Ii = dyn.body_inertia(i)
         f[i] = Ii.mul_motion(acc[i]) + motion_cross_force(
             vel[i], Ii.mul_motion(vel[i])
         )
@@ -157,15 +160,16 @@ def rnea(tree: KinematicTree, q, v, a, fext=None, xl=None) -> torch.Tensor:
         p = tree.parent[i]
         if p >= 0:
             f[p] = f[p] + xl[i].force_child_to_parent(f[i])
-    return tau + tree.armature * a
+    return tau + dyn.armature * a
 
 
-def crba(tree: KinematicTree, q, xl=None) -> torch.Tensor:
+def crba(tree: KinematicTree, q, xl=None, inertials=None) -> torch.Tensor:
     """Composite-rigid-body mass matrix (B, nv, nv), armature on the
-    diagonal."""
+    diagonal; ``inertials`` as in :func:`rnea`."""
     xl = local_transforms(tree, q) if xl is None else xl
     B = q.shape[0]
-    Ic = [tree.body_inertia(i) for i in range(tree.nb)]
+    dyn = tree if inertials is None else inertials
+    Ic = [dyn.body_inertia(i) for i in range(tree.nb)]
     M = q.new_zeros(B, tree.nv, tree.nv)
     for i in range(tree.nb - 1, -1, -1):
         p = tree.parent[i]
@@ -190,7 +194,9 @@ def crba(tree: KinematicTree, q, xl=None) -> torch.Tensor:
             sl_j = tree.v_slice(j)
             M[:, sl_i, sl_j] = blk
             M[:, sl_j, sl_i] = blk.transpose(-1, -2)
-    return M + torch.diag(tree.armature)
+    if inertials is None:
+        return M + torch.diag(tree.armature)
+    return M + torch.diag_embed(inertials.armature)
 
 
 def point_jacobian(

@@ -1,0 +1,1145 @@
+// Whole-substep kernels, one thread per env, for Hopper (sm_90a).
+//
+// Included by two translation units, each its own library: csrc/substep.cu
+// (JT_RAND false, the nominal instantiations) and csrc/substep_rand.cu
+// (JT_RAND true, the randomized ones); both export the same entry points,
+// so nvcc builds the two halves at once.
+//
+// Replaces: jiminy_tpu/ops/substep_kernel.py
+//   K2 `substep_batched_pallas_multi` → `_substep_multi_body` (n_sub
+//      substeps of an env step in one launch, τ recomputed in-kernel
+//      from the held command), and
+//   K3 `substep_batched_pallas` → `_substep_body` (one substep, τ given),
+// both reached through `_lane_kernel_call` → `pl.pallas_call`, in the
+// flagship configuration: flat ground, euler_symplectic, FREE and
+// REVOLUTE joints, joint bounds and bare-point ground contacts as PGS
+// rows, a (6,) local wrench on the root body, declarative PD or direct
+// motor command through the motor model (K2). K2 also carries the
+// sensor stage (`_sensor_stage`, with `SensorKernelSpec` and the
+// quaternion helpers `_quat_from_m_lane`, `_quat_exp_lane`,
+// `_quat_mul_lane`; see `jt_sensor_stage` below). Both take, beside flat
+// ground, an analytic ground per env (`_ground_query` and the
+// general-ground branch of `_substep_math`; see `jt_ground_query` below):
+// the `GEN` instantiations. With model randomization (`_unpack_mp`,
+// `SubstepSpec.randomized` and `_compute_tau`'s `mscale`; the `RAND`
+// instantiations), each env's row of packed model parameters replaces
+// the baked masses, first moments and inertias in RNEA and CRBA, the
+// armature on M's diagonal and, in K2's torque, the motor reduction and
+// friction (see `jt_load_inertials` below). No collision pairs, distance
+// rows, sphere contact sites or flexibility.
+//
+// One substep (`jt_substep`, the counterpart of `_substep_math`) is, per
+// env: FK → RNEA bias with the root wrench → CRBA + armature + dt·damping
+// → bounds rows and contact rows color-major (flat basis t1 = (0,−1,0),
+// t2 = (1,0,0), n = e_z, or with GEN the basis of the ground's normal at
+// each contact; Baumgarte / velocity-barrier targets) → the
+// shared chain (solve_chain.cuh) → world impulses in the original
+// contact order → symplectic Euler with the quaternion exponential. The
+// arithmetic follows the plain version
+// (jiminy_tpu_torch/ops/substep_kernel.py `substep_reference`, i.e. the
+// engine's own plain physics) step for step.
+//
+// What bounds it on an H100 (ANYmal: nb 13, nv 18, nc 24, 8 sweeps,
+// 4 substeps): K2 moves ~0.76 KB per env (q, v, cmd, λ0, wrench in; q,
+// v, λ, residual, impulses, a, τ out), ~3.1 MB at B = 4096, ≈ 0.9 µs at
+// 3.35 TB/s; it needs ~50 kFLOP per env per substep (the chain ~41k,
+// FK/RNEA/CRBA/Jacobians/integration the rest; counted by chip_smoke.py
+// `_substep_flops`), ≈ 0.83 GFLOP per env step at B = 4096, ≈ 12 µs at
+// the 67 TFLOP/s non-tensor f32 rate. So operations bound it. The sensor
+// stage adds per env the buffers in and out and each update's eps
+// (ANYmal's suite: 150 + 150 + 4·57 floats, ~2.1 KB) and ~1.9 kFLOP per
+// update (chip_smoke.py `_sensor_flops`): still operation-bound. The
+// ground query (GEN) adds each env's coefficient row (≤ 512 B) and, per
+// env and substep, 0.8–2.6 kFLOP (Stairs, Fourier with 16 terms, Perlin
+// with 3 octaves; chip_smoke.py `_ground_flops`): operation-bound too. The
+// model parameters (RAND) add each env's row (172 floats for ANYmal, 688 B)
+// and two multiplies per motor and substep: operation-bound still. This
+// design is far from that bound by choice: the TPU
+// kernel's lane-major layout (batch on the 128 vector lanes, the tree
+// unrolled into Python floats, the batch padded by repetition) does not
+// carry over, so one thread owns one env and keeps every intermediate
+// (body poses, M, J, the chain's L, X, A) in its local memory. The tree
+// arrives as a packed device buffer (read by every thread at the same
+// addresses, so it broadcasts from L1), bodies and rows are runtime loops
+// under compile-time caps ⟨NMAX, NCMAX, NBMAX⟩ = ⟨18, 24, 13⟩ (ANYmal)
+// or ⟨32, 48, 32⟩, one build serves every model. Blocks are one warp,
+// the ragged edge is masked. Each thread's work is serial, so the kernel
+// is latency-bound; a warp per env, shared memory and tensor cores are
+// later work.
+//
+// Packed spec (built by ops/substep_kernel.py `SubstepSpec.packed`):
+//   ints:   [nb, nq, nv, ncp, nbj, nm, torque mode, ground mode, Fourier
+//           terms or Perlin octaves, 0] then parent,
+//           joint type, q_off, v_off (nb each), contact body, color
+//           order (ncp each), bounded bodies (nbj), motor q_idx, v_idx
+//           (nm each);
+//   floats: 16 scalars (JT_S_* below), then per body [axis 3, placement
+//           rotation 9 (row-major), placement position 3, mass, h = m·c
+//           3, rotational inertia about the origin 9], armature (nv),
+//           damping (nv), contact positions (3·ncp), bounds low, high
+//           (nbj each), motors: reduction, effort limit, velocity limit,
+//           dry friction, viscous friction, friction velocity, kp, kd
+//           (nm each).
+// Model parameters (RAND; ops/substep_kernel.py `SubstepSpec.n_mp`), one
+// row of n_mp floats per env: mass (nb), h (3·nb), origin inertia xx, yy,
+// zz, xy, xz, yz (6·nb), armature (nv), and for K2 motor gain (nm), motor
+// friction scale (nm); K3 reads the same row and ignores the motor tail.
+
+#ifndef JT_RAND
+#error "define JT_RAND (csrc/substep.cu: false, csrc/substep_rand.cu: true) before including"
+#endif
+
+#include <cstdint>
+
+#include "solve_chain.cuh"
+
+#define JT_THREADS 32
+#define JT_HDR_I 10
+#define JT_HDR_F 16
+#define JT_BODY_F 28
+#define JT_NQ_EXTRA 4  // nq ≤ nv + 4 (quaternion joints)
+
+enum { JT_FREE = 0, JT_REVOLUTE = 1 };
+enum { JT_TORQUE_NONE = 0, JT_TORQUE_PD = 1, JT_TORQUE_DIRECT = 2 };
+enum {
+  JT_S_DT = 0, JT_S_ALPHA_B, JT_S_ALPHA_C_DT, JT_S_SLOP, JT_S_MAX_CORR,
+  JT_S_MARGIN, JT_S_FRICTION, JT_S_GROUND, JT_S_GX, JT_S_GY, JT_S_GZ
+};
+
+struct SpecView {
+  int nb, nq, nv, ncp, nbj, nm, mode, gmode, gn;
+  const int *parent, *jtype, *q_off, *v_off, *cbody, *corder, *bbody, *mq, *mv;
+  const float *scal, *body, *arm, *damp, *cpos, *blo, *bhi;
+  const float *red, *elim, *vlim, *fdry, *fvis, *feps, *kp, *kd;
+};
+
+__device__ __forceinline__ SpecView jt_view(const int* si, const float* sf) {
+  SpecView s;
+  s.nb = si[0]; s.nq = si[1]; s.nv = si[2]; s.ncp = si[3];
+  s.nbj = si[4]; s.nm = si[5]; s.mode = si[6]; s.gmode = si[7]; s.gn = si[8];
+  const int* p = si + JT_HDR_I;
+  s.parent = p; p += s.nb;
+  s.jtype = p; p += s.nb;
+  s.q_off = p; p += s.nb;
+  s.v_off = p; p += s.nb;
+  s.cbody = p; p += s.ncp;
+  s.corder = p; p += s.ncp;
+  s.bbody = p; p += s.nbj;
+  s.mq = p; p += s.nm;
+  s.mv = p;
+  s.scal = sf;
+  const float* f = sf + JT_HDR_F;
+  s.body = f; f += JT_BODY_F * s.nb;
+  s.arm = f; f += s.nv;
+  s.damp = f; f += s.nv;
+  s.cpos = f; f += 3 * s.ncp;
+  s.blo = f; f += s.nbj;
+  s.bhi = f; f += s.nbj;
+  s.red = f; f += s.nm;
+  s.elim = f; f += s.nm;
+  s.vlim = f; f += s.nm;
+  s.fdry = f; f += s.nm;
+  s.fvis = f; f += s.nm;
+  s.feps = f; f += s.nm;
+  s.kp = f; f += s.nm;
+  s.kd = f;
+  return s;
+}
+
+// ---- 3-vectors, row-major 3×3 matrices, spatial (angular, linear) 6-vectors
+
+__device__ __forceinline__ void cross3(const float* a, const float* b, float* c) {
+  c[0] = a[1] * b[2] - a[2] * b[1];
+  c[1] = a[2] * b[0] - a[0] * b[2];
+  c[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+__device__ __forceinline__ void mat3_mul(const float* A, const float* B, float* C) {
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c)
+      C[3 * r + c] = A[3 * r] * B[c] + A[3 * r + 1] * B[3 + c] + A[3 * r + 2] * B[6 + c];
+}
+
+__device__ __forceinline__ void mat3_vec(const float* A, const float* x, float* y) {
+  for (int r = 0; r < 3; ++r)
+    y[r] = A[3 * r] * x[0] + A[3 * r + 1] * x[1] + A[3 * r + 2] * x[2];
+}
+
+__device__ __forceinline__ void mat3t_vec(const float* A, const float* x, float* y) {
+  for (int r = 0; r < 3; ++r)
+    y[r] = A[r] * x[0] + A[3 + r] * x[1] + A[6 + r] * x[2];
+}
+
+__device__ __forceinline__ void quat_to_m(const float* q, float* R) {
+  const float x = q[0], y = q[1], z = q[2], w = q[3];
+  const float xx = x * x, yy = y * y, zz = z * z;
+  const float xy = x * y, xz = x * z, yz = y * z;
+  const float wx = w * x, wy = w * y, wz = w * z;
+  R[0] = 1.f - 2.f * (yy + zz); R[1] = 2.f * (xy - wz); R[2] = 2.f * (xz + wy);
+  R[3] = 2.f * (xy + wz); R[4] = 1.f - 2.f * (xx + zz); R[5] = 2.f * (yz - wx);
+  R[6] = 2.f * (xz - wy); R[7] = 2.f * (yz + wx); R[8] = 1.f - 2.f * (xx + yy);
+}
+
+// Transform (R, p) of a child in its parent: motion parent → child
+__device__ __forceinline__ void motion_p2c(const float* R, const float* p,
+                                           const float* m, float* out) {
+  float pw[3], d[3];
+  mat3t_vec(R, m, out);
+  cross3(p, m, pw);
+  for (int k = 0; k < 3; ++k) d[k] = m[3 + k] - pw[k];
+  mat3t_vec(R, d, out + 3);
+}
+
+// force child → parent
+__device__ __forceinline__ void force_c2p(const float* R, const float* p,
+                                          const float* f, float* out) {
+  float ang[3], pl[3];
+  mat3_vec(R, f + 3, out + 3);
+  mat3_vec(R, f, ang);
+  cross3(p, out + 3, pl);
+  for (int k = 0; k < 3; ++k) out[k] = ang[k] + pl[k];
+}
+
+// spatial inertia (mass, h, I) times motion (w, v)
+__device__ __forceinline__ void inertia_mul(float mass, const float* h, const float* I,
+                                            const float* m, float* out) {
+  float Iw[3], hv[3], hw[3];
+  mat3_vec(I, m, Iw);
+  cross3(h, m + 3, hv);
+  cross3(h, m, hw);
+  for (int k = 0; k < 3; ++k) {
+    out[k] = Iw[k] + hv[k];
+    out[3 + k] = mass * m[3 + k] - hw[k];
+  }
+}
+
+// motion cross motion: (w×ow, w×ov + v×ow)
+__device__ __forceinline__ void motion_cross(const float* m, const float* o, float* out) {
+  float a[3], b[3];
+  cross3(m, o, out);
+  cross3(m, o + 3, a);
+  cross3(m + 3, o, b);
+  for (int k = 0; k < 3; ++k) out[3 + k] = a[k] + b[k];
+}
+
+// motion cross force: (w×n + v×f, w×f)
+__device__ __forceinline__ void motion_cross_force(const float* m, const float* f, float* out) {
+  float a[3], b[3];
+  cross3(m, f, a);
+  cross3(m + 3, f + 3, b);
+  for (int k = 0; k < 3; ++k) out[k] = a[k] + b[k];
+  cross3(m, f + 3, out + 3);
+}
+
+__device__ __forceinline__ int joint_nv(int jt) { return jt == JT_FREE ? 6 : 1; }
+
+// column c of joint i's motion subspace as (w, v)
+__device__ __forceinline__ void subspace_col(int jt, const float* axis, int c, float* col) {
+  for (int k = 0; k < 6; ++k) col[k] = 0.f;
+  if (jt == JT_FREE) {
+    if (c < 3) col[3 + c] = 1.f;  // linear dofs (v = [v_lin, ω])
+    else col[c - 3] = 1.f;        // angular dofs
+  } else {
+    for (int k = 0; k < 3; ++k) col[k] = axis[k];
+  }
+}
+
+// S_i · xj as a spatial motion, xj the joint's own dofs
+__device__ __forceinline__ void joint_motion_of(const SpecView& s, int i, const float* xj,
+                                                float* out) {
+  if (s.jtype[i] == JT_FREE) {
+    for (int k = 0; k < 3; ++k) {
+      out[k] = xj[3 + k];
+      out[3 + k] = xj[k];
+    }
+  } else {
+    const float* axis = s.body + JT_BODY_F * i;
+    for (int k = 0; k < 3; ++k) {
+      out[k] = axis[k] * xj[0];
+      out[3 + k] = 0.f;
+    }
+  }
+}
+
+// S_i · x[v_off(i):] as a spatial motion
+__device__ __forceinline__ void joint_motion(const SpecView& s, int i, const float* x, float* out) {
+  joint_motion_of(s, i, x + s.v_off[i], out);
+}
+
+// joint i's own transform (Rj, pj) at q
+__device__ __forceinline__ void jt_joint_transform(const SpecView& s, int i, const float* q,
+                                                   float* Rj, float* pj) {
+  const float* bd = s.body + JT_BODY_F * i;  // axis, Rp, pp, ...
+  const int qo = s.q_off[i];
+  for (int k = 0; k < 3; ++k) pj[k] = 0.f;
+  if (s.jtype[i] == JT_FREE) {
+    quat_to_m(q + qo + 3, Rj);
+    for (int k = 0; k < 3; ++k) pj[k] = q[qo + k];
+  } else {  // Rodrigues: I + sin·K + (1 − cos)·K²
+    const float c = cosf(q[qo]), sn = sinf(q[qo]);
+    const float K[9] = {0.f, -bd[2], bd[1], bd[2], 0.f, -bd[0], -bd[1], bd[0], 0.f};
+    float KK[9];
+    mat3_mul(K, K, KK);
+    for (int r = 0; r < 9; ++r)
+      Rj[r] = ((r % 4 == 0) ? 1.f : 0.f) + sn * K[r] + (1.f - c) * KK[r];
+  }
+}
+
+// pose (R, p) of body i in its parent: joint placement ∘ joint transform
+__device__ __forceinline__ void jt_local_pose(const SpecView& s, int i, const float* q,
+                                              float* R, float* p) {
+  const float* bd = s.body + JT_BODY_F * i;
+  float Rj[9], pj[3], t3[3];
+  jt_joint_transform(s, i, q, Rj, pj);
+  mat3_mul(bd + 3, Rj, R);
+  mat3_vec(bd + 3, pj, t3);
+  for (int k = 0; k < 3; ++k) p[k] = t3[k] + bd[12 + k];
+}
+
+// ---- actuation torque (engine._joint_torque for a declarative controller:
+// PD or direct command → effort clamp → reduction → velocity derate →
+// dry + viscous friction, then joint damping). With RAND, mscale is the
+// env's motor tail [gain (nm) | friction scale (nm)]: the reduction times
+// the gain, the friction torque times the scale (`_compute_tau`'s order).
+__device__ __forceinline__ float sign_of(float x) { return (float)((x > 0.f) - (x < 0.f)); }
+
+template <bool RAND>
+__device__ __forceinline__ void jt_torque(const SpecView& s, const float* q, const float* v,
+                                          const float* cmd, const float* mscale, float* tau) {
+  for (int r = 0; r < s.nv; ++r) tau[r] = 0.f;
+  for (int m = 0; m < s.nm; ++m) {
+    const int vi = s.mv[m];
+    const float vj = v[vi];
+    float u = s.mode == JT_TORQUE_PD
+                  ? s.kp[m] * (cmd[m] - q[s.mq[m]]) - s.kd[m] * vj
+                  : cmd[m];
+    const float el = s.elim[m];
+    u = fminf(fmaxf(u, -el), el);
+    float red = s.red[m];
+    if constexpr (RAND) red = red * mscale[m];
+    float tm = red * u;
+    const float vl = s.vlim[m];
+    const float over =
+        fminf(fmaxf((fabsf(vj) - vl) / (0.1f * fmaxf(vl, 1e-6f)), 0.f), 1.f);
+    if (sign_of(tm) == sign_of(vj)) tm = tm * (1.f - over);
+    float fric = s.fdry[m] * tanhf(vj / s.feps[m]) + s.fvis[m] * vj;
+    if constexpr (RAND) fric = fric * mscale[s.nm + m];
+    tau[vi] = tm - fric;
+  }
+  for (int r = 0; r < s.nv; ++r) tau[r] = tau[r] - s.damp[r] * v[r];
+}
+
+// ---- the ground query (counterpart of `_ground_query`; the plain
+// version is engine/ground.py's `query` of each ground): height and
+// gradient (h, ∂h/∂x, ∂h/∂y) of the env's analytic ground at (px, py),
+// from its coefficient row g (n_gc floats, the engine/ground.py layout),
+// the mode and the term or octave count s.gn from the spec's header:
+//   Fourier [amp | kx | ky | phase]: Σ amp·sin(kx·x + ky·y + phase), the
+//     gradient from the cosines; sinf/cosf with full range reduction (the
+//     arguments reach hundreds of radians a few metres out);
+//   Perlin [seed, freq, amp]: per octave o (frequency freq·2ᵒ, weight
+//     2⁻ᵒ, seed + 1013·o) lattice gradient noise with gradients (±1, ±1)
+//     from the two low bits of an arithmetic hash, blended by the quintic
+//     fade, and its analytic gradient; the hash wraps in uint32 (signed
+//     overflow would be undefined), and a logical shift of uint32 is the
+//     reference's masked arithmetic shift of int32;
+//   Stairs [w, H, n, ramp, x0]: H·clip(k + clip((u − k·w)/ramp, 0, 1), 0,
+//     n), k = ⌊u/w⌋, u = x − x0; slope H/ramp on the ramps.
+enum { JT_GROUND_FLAT = 0, JT_GROUND_FOURIER = 1, JT_GROUND_PERLIN = 2, JT_GROUND_STAIRS = 3 };
+#define JT_FOURIER_MAX 32  // terms (ops/substep_kernel.py MAX_FOURIER_TERMS)
+#define JT_PERLIN_MAX 8    // octaves (MAX_PERLIN_OCTAVES)
+#define JT_GC_MAX (4 * JT_FOURIER_MAX)
+
+__device__ __forceinline__ uint32_t jt_hash2(uint32_t ix, uint32_t iy, uint32_t seed) {
+  uint32_t h = ix * 0x27D4EB2Du + iy * 0x165667B1u + seed;
+  h ^= h >> 15;
+  h *= 0x2545F491u;
+  return h ^ (h >> 13);
+}
+
+// one octave at lattice scale 1: out = (h, ∂h/∂px, ∂h/∂py)
+__device__ __forceinline__ void jt_perlin_octave(float px, float py, uint32_t seed, float* out) {
+  const float fx = floorf(px), fy = floorf(py);
+  const float xf = px - fx, yf = py - fy;
+  const uint32_t ix = (uint32_t)(int)fx, iy = (uint32_t)(int)fy;
+  float n[4], sx[4], sy[4];  // corners (0,0), (1,0), (0,1), (1,1)
+  for (int c = 0; c < 4; ++c) {
+    const int di = c & 1, dj = c >> 1;
+    const uint32_t h = jt_hash2(ix + di, iy + dj, seed);
+    sx[c] = (h & 1u) ? -1.f : 1.f;
+    sy[c] = (h & 2u) ? -1.f : 1.f;
+    n[c] = sx[c] * (xf - (float)di) + sy[c] * (yf - (float)dj);
+  }
+  const float u = xf * xf * xf * (xf * (xf * 6.f - 15.f) + 10.f);
+  const float v = yf * yf * yf * (yf * (yf * 6.f - 15.f) + 10.f);
+  const float tu = xf * (xf - 1.f), tv = yf * (yf - 1.f);
+  const float du = 30.f * tu * tu, dv = 30.f * tv * tv;
+  const float nx0 = n[0] + u * (n[1] - n[0]), nx1 = n[2] + u * (n[3] - n[2]);
+  out[0] = nx0 + v * (nx1 - nx0);
+  const float dx0 = sx[0] + u * (sx[1] - sx[0]) + du * (n[1] - n[0]);
+  const float dx1 = sx[2] + u * (sx[3] - sx[2]) + du * (n[3] - n[2]);
+  out[1] = dx0 + v * (dx1 - dx0);
+  const float dy0 = sy[0] + u * (sy[1] - sy[0]), dy1 = sy[2] + u * (sy[3] - sy[2]);
+  out[2] = dy0 + v * (dy1 - dy0) + dv * (nx1 - nx0);
+}
+
+// out = (h, ∂h/∂x, ∂h/∂y) of the env's ground at (px, py)
+__device__ __forceinline__ void jt_ground_query(const SpecView& s, const float* g, int n_gc,
+                                                float px, float py, float* out) {
+  out[0] = out[1] = out[2] = 0.f;
+  if (s.gmode == JT_GROUND_FOURIER) {
+    const int K = n_gc / 4;  // the row's layout; s.gn ≤ K terms are summed
+    for (int j = 0; j < min(s.gn, K); ++j) {
+      const float amp = g[j], kx = g[K + j], ky = g[2 * K + j];
+      float sn, cs;
+      sincosf(kx * px + ky * py + g[3 * K + j], &sn, &cs);
+      out[0] += amp * sn;
+      out[1] += amp * kx * cs;
+      out[2] += amp * ky * cs;
+    }
+  } else if (s.gmode == JT_GROUND_PERLIN) {
+    const int octaves = min(s.gn, JT_PERLIN_MAX);
+    double norm = 0.0;  // fBm normalization, rounded once as the plain version's
+    for (int o = 0; o < octaves; ++o) norm += ldexp(1.0, -2 * o);
+    const float scale = g[2] * (float)(1.0 / (0.306 * sqrt(norm)));
+    const uint32_t seed = (uint32_t)(int)g[0];
+    for (int o = 0; o < octaves; ++o) {
+      const float f_o = g[1] * ldexpf(1.f, o), w_o = scale * ldexpf(1.f, -o);
+      float oc[3];
+      jt_perlin_octave(px * f_o, py * f_o, seed + 1013u * (uint32_t)o, oc);
+      out[0] += w_o * oc[0];
+      out[1] += w_o * f_o * oc[1];
+      out[2] += w_o * f_o * oc[2];
+    }
+  } else if (s.gmode == JT_GROUND_STAIRS) {
+    const float w = g[0], H = g[1], n = g[2], ramp = g[3], x0 = g[4];
+    const float u = px - x0;
+    const float k = floorf(u / w);
+    const float t = (u - k * w) / ramp;
+    const float kt = k + fminf(fmaxf(t, 0.f), 1.f);
+    out[0] = H * fminf(fmaxf(kt, 0.f), n);
+    out[1] = (t > 0.f && t < 1.f && kt > 0.f && kt < n) ? H / ramp : 0.f;
+  }
+}
+
+// the contact frame at a point of the ground: normal n̂ = (−∂h/∂x, −∂h/∂y,
+// 1)/‖·‖, then cstr.tangent_basis: ref = e_z where the slope is steep (n_z
+// < 0.9), else e_x; t1 = ref × n̂ normalized, t2 = n̂ × t1. basis = [t1 |
+// t2 | n̂]; returns the height h.
+__device__ __forceinline__ float jt_contact_basis(const SpecView& s, const float* g, int n_gc,
+                                                  const float* pt, float* basis) {
+  float hg[3];
+  jt_ground_query(s, g, n_gc, pt[0], pt[1], hg);
+  float* nn = basis + 6;
+  const float inv = rsqrtf(hg[1] * hg[1] + hg[2] * hg[2] + 1.f);
+  nn[0] = -hg[1] * inv;
+  nn[1] = -hg[2] * inv;
+  nn[2] = inv;
+  const bool steep = inv < 0.9f;
+  const float ref[3] = {steep ? 0.f : 1.f, 0.f, steep ? 1.f : 0.f};
+  cross3(ref, nn, basis);
+  const float r = rsqrtf(dot3(basis, basis) + 1e-24f);
+  for (int e = 0; e < 3; ++e) basis[e] *= r;
+  cross3(nn, basis, basis + 3);
+  return hg[0];
+}
+
+// the env's inertials from its model-parameter row (counterpart of
+// `_unpack_mp`) into the [mass, h (3), I (3×3, row-major)] layout of the
+// spec's bodies: I rebuilt symmetric from xx, yy, zz, xy, xz, yz
+__device__ __forceinline__ void jt_load_inertials(const SpecView& s, const float* mp,
+                                                  float (*Ic)[13]) {
+  const int nb = s.nb;
+  for (int i = 0; i < nb; ++i) {
+    const float* h = mp + nb + 3 * i;
+    const float* I6 = mp + 4 * nb + 6 * i;
+    Ic[i][0] = mp[i];
+    for (int k = 0; k < 3; ++k) Ic[i][1 + k] = h[k];
+    Ic[i][4] = I6[0]; Ic[i][5] = I6[3]; Ic[i][6] = I6[4];
+    Ic[i][7] = I6[3]; Ic[i][8] = I6[1]; Ic[i][9] = I6[5];
+    Ic[i][10] = I6[4]; Ic[i][11] = I6[5]; Ic[i][12] = I6[2];
+  }
+}
+
+// ---- one impulse substep of one env (counterpart of `_substep_math`).
+// q (nq), v, tau (nv), lam0 (nc), w0 (6) → q_next (nq), v_next (nv),
+// lam_out (nc, may be lam0), fc (3·ncp world impulses); returns the
+// residual. With GEN, g (n_gc) is the env's analytic ground; with RAND,
+// mp is the env's row of model parameters (read from global memory where
+// used: the inertials once, before RNEA, and the armature).
+template <int NMAX, int NCMAX, int NBMAX, bool GEN, bool RAND>
+__device__ __forceinline__ float jt_substep(
+    const SpecView& s, const float* q, const float* v, const float* tau,
+    const float* lam0, float* lam_out, const float* w0, const float* g, int n_gc,
+    const float* mp, float* q_next, float* v_next, float* fc, const SolveParams& prm,
+    const BlockLayout& lay) {
+  const int nb = s.nb, nv = s.nv, nc = prm.nc;
+  const float dt = s.scal[JT_S_DT];
+
+  float xlR[NBMAX][9], xlp[NBMAX][3], xwR[NBMAX][9], xwp[NBMAX][3];
+  float vel[NBMAX][6], acc[NBMAX][6], frc[NBMAX][6], Ic[NBMAX][13];
+  float M[NMAX * NMAX], J[NCMAX * NMAX], pf[NMAX];
+  float target[NCMAX], mu[NCMAX], active[NCMAX];
+  float col[6], t6[6], u6[6], vj[6];
+
+  // ---- FK: local transforms, world poses, local spatial velocities
+  for (int i = 0; i < nb; ++i) {
+    float t3[3];
+    jt_local_pose(s, i, q, xlR[i], xlp[i]);
+    joint_motion(s, i, v, vj);
+    const int p = s.parent[i];
+    if (p < 0) {
+      for (int k = 0; k < 9; ++k) xwR[i][k] = xlR[i][k];
+      for (int k = 0; k < 3; ++k) xwp[i][k] = xlp[i][k];
+      for (int k = 0; k < 6; ++k) vel[i][k] = vj[k];
+    } else {
+      mat3_mul(xwR[p], xlR[i], xwR[i]);
+      mat3_vec(xwR[p], xlp[i], t3);
+      for (int k = 0; k < 3; ++k) xwp[i][k] = t3[k] + xwp[p][k];
+      motion_p2c(xlR[i], xlp[i], vel[p], t6);
+      for (int k = 0; k < 6; ++k) vel[i][k] = t6[k] + vj[k];
+    }
+  }
+
+  // ---- RNEA bias rnea(q, v, 0) with the root wrench as fext[0]; with
+  // RAND on the env's own inertials, which CRBA then starts from
+  float bias[NMAX];
+  if constexpr (RAND) jt_load_inertials(s, mp, Ic);
+  {
+    const float a0[6] = {0.f, 0.f, 0.f, -s.scal[JT_S_GX], -s.scal[JT_S_GY], -s.scal[JT_S_GZ]};
+    for (int i = 0; i < nb; ++i) {
+      const float* bd = s.body + JT_BODY_F * i;
+      const int p = s.parent[i];
+      if (p < 0) {
+        motion_p2c(xlR[i], xlp[i], a0, acc[i]);
+      } else {
+        joint_motion(s, i, v, vj);
+        motion_p2c(xlR[i], xlp[i], acc[p], t6);
+        motion_cross(vel[i], vj, u6);
+        for (int k = 0; k < 6; ++k) acc[i][k] = t6[k] + u6[k];
+      }
+      const float* in;  // mass, h, I
+      if constexpr (RAND) in = Ic[i];
+      else in = bd + 15;
+      inertia_mul(in[0], in + 1, in + 4, acc[i], t6);
+      inertia_mul(in[0], in + 1, in + 4, vel[i], u6);
+      motion_cross_force(vel[i], u6, col);
+      for (int k = 0; k < 6; ++k) frc[i][k] = t6[k] + col[k];
+    }
+    for (int k = 0; k < 6; ++k) frc[0][k] -= w0[k];
+    for (int i = nb - 1; i >= 0; --i) {
+      const int vo = s.v_off[i], jt = s.jtype[i];
+      for (int c = 0; c < joint_nv(jt); ++c) {
+        subspace_col(jt, s.body + JT_BODY_F * i, c, col);
+        float d = 0.f;
+        for (int k = 0; k < 6; ++k) d += frc[i][k] * col[k];
+        bias[vo + c] = d;
+      }
+      const int p = s.parent[i];
+      if (p >= 0) {
+        force_c2p(xlR[i], xlp[i], frc[i], t6);
+        for (int k = 0; k < 6; ++k) frc[p][k] += t6[k];
+      }
+    }
+  }
+
+  // ---- CRBA + armature + dt·damping (implicit joint damping)
+  for (int r = 0; r < nv * NMAX; ++r) M[r] = 0.f;
+  if constexpr (!RAND) {
+    for (int i = 0; i < nb; ++i) {
+      const float* bd = s.body + JT_BODY_F * i;
+      for (int k = 0; k < 13; ++k) Ic[i][k] = bd[15 + k];  // mass, h, I
+    }
+  }
+  for (int i = nb - 1; i >= 0; --i) {
+    const int p = s.parent[i];
+    if (p >= 0) {  // Ic[p] += Ic[i] expressed in the parent
+      const float* R = xlR[i];
+      const float* pp = xlp[i];
+      const float m = Ic[i][0];
+      float rh[3], ha[3], RI[9], rot[9];
+      mat3_vec(R, Ic[i] + 1, rh);
+      for (int k = 0; k < 3; ++k) ha[k] = rh[k] + m * pp[k];
+      mat3_mul(R, Ic[i] + 4, RI);
+      for (int r = 0; r < 3; ++r)  // (R·I)·Rᵀ
+        for (int c = 0; c < 3; ++c)
+          rot[3 * r + c] = RI[3 * r] * R[3 * c] + RI[3 * r + 1] * R[3 * c + 1] +
+                           RI[3 * r + 2] * R[3 * c + 2];
+      // hat(a)·hat(b)ᵀ = (a·b)·I − b·aᵀ
+      const float d1 = dot3(pp, rh), d2 = dot3(ha, pp);
+      Ic[p][0] += m;
+      for (int k = 0; k < 3; ++k) Ic[p][1 + k] += ha[k];
+      for (int r = 0; r < 3; ++r)
+        for (int c = 0; c < 3; ++c) {
+          const float e = r == c ? 1.f : 0.f;
+          Ic[p][4 + 3 * r + c] +=
+              rot[3 * r + c] + (d1 * e - rh[r] * pp[c]) + (d2 * e - pp[r] * ha[c]);
+        }
+    }
+    const int jt = s.jtype[i], vo_i = s.v_off[i], nvi = joint_nv(jt);
+    const float* axis_i = s.body + JT_BODY_F * i;
+    float F[6][6];  // F[c] = Ic·S_c, one spatial force per dof of joint i
+    for (int c = 0; c < nvi; ++c) {
+      subspace_col(jt, axis_i, c, col);
+      inertia_mul(Ic[i][0], Ic[i] + 1, Ic[i] + 4, col, F[c]);
+    }
+    for (int a = 0; a < nvi; ++a) {
+      subspace_col(jt, axis_i, a, col);
+      for (int b = 0; b < nvi; ++b) {
+        float d = 0.f;
+        for (int k = 0; k < 6; ++k) d += col[k] * F[b][k];
+        M[(vo_i + a) * NMAX + vo_i + b] = d;
+      }
+    }
+    int j = i;
+    while (s.parent[j] >= 0) {
+      for (int c = 0; c < nvi; ++c) {
+        force_c2p(xlR[j], xlp[j], F[c], t6);
+        for (int k = 0; k < 6; ++k) F[c][k] = t6[k];
+      }
+      j = s.parent[j];
+      const int jtj = s.jtype[j], vo_j = s.v_off[j];
+      for (int b = 0; b < joint_nv(jtj); ++b) {
+        subspace_col(jtj, s.body + JT_BODY_F * j, b, col);
+        for (int a = 0; a < nvi; ++a) {
+          float d = 0.f;
+          for (int k = 0; k < 6; ++k) d += F[a][k] * col[k];
+          M[(vo_i + a) * NMAX + vo_j + b] = d;
+          M[(vo_j + b) * NMAX + vo_i + a] = d;
+        }
+      }
+    }
+  }
+  for (int r = 0; r < nv; ++r) {
+    if constexpr (RAND) M[r * NMAX + r] += mp[10 * nb + r];
+    else M[r * NMAX + r] += s.arm[r];
+    M[r * NMAX + r] += dt * s.damp[r];
+    pf[r] = tau[r] - bias[r];
+  }
+
+  // ---- rows: bounds, then contacts color-major
+  for (int r = 0; r < nc * NMAX; ++r) J[r] = 0.f;
+  const float alpha_b = s.scal[JT_S_ALPHA_B];
+  for (int t = 0; t < s.nbj; ++t) {
+    const int i = s.bbody[t];
+    const float qj = q[s.q_off[i]];
+    const float d_lo = qj - s.blo[t], d_hi = s.bhi[t] - qj;
+    const float dist = fminf(d_lo, d_hi);
+    J[t * NMAX + s.v_off[i]] = d_lo < d_hi ? 1.f : -1.f;
+    target[t] = (dist < 0.f ? -alpha_b * dist : -dist) / dt;
+    active[t] = 1.f;
+    mu[t] = 0.f;
+  }
+  const float friction = s.scal[JT_S_FRICTION];
+  float basis[GEN ? NCMAX / 3 : 1][9];  // GEN: per contact, color order
+  for (int jc = 0; jc < s.ncp; ++jc) {
+    const int k = s.corder[jc], b = s.cbody[k];
+    const int row = s.nbj + 3 * jc;
+    float pt[3], r3[3];
+    mat3_vec(xwR[b], s.cpos + 3 * k, pt);
+    for (int e = 0; e < 3; ++e) pt[e] += xwp[b][e];
+    float h_gen = 0.f;
+    if constexpr (GEN) h_gen = jt_contact_basis(s, g, n_gc, pt, basis[jc]);
+    // point Jacobian, written as the rows [t1; t2; n]·J_p: on flat ground
+    // [−J_y; J_x; J_z]
+    for (int j = b; j >= 0; j = s.parent[j]) {
+      const int jt = s.jtype[j], vo = s.v_off[j];
+      for (int e = 0; e < 3; ++e) r3[e] = pt[e] - xwp[j][e];
+      for (int c = 0; c < joint_nv(jt); ++c) {
+        float wc[3], vc[3], wr[3], lin[3];
+        subspace_col(jt, s.body + JT_BODY_F * j, c, col);
+        mat3_vec(xwR[j], col, wc);
+        mat3_vec(xwR[j], col + 3, vc);
+        cross3(wc, r3, wr);
+        for (int e = 0; e < 3; ++e) lin[e] = vc[e] + wr[e];
+        if constexpr (GEN) {
+          for (int e = 0; e < 3; ++e) J[(row + e) * NMAX + vo + c] = dot3(basis[jc] + 3 * e, lin);
+        } else {
+          J[row * NMAX + vo + c] = -lin[1];
+          J[(row + 1) * NMAX + vo + c] = lin[0];
+          J[(row + 2) * NMAX + vo + c] = lin[2];
+        }
+      }
+    }
+    // penetrating → Baumgarte push-back; hovering within the margin → may
+    // approach the surface but not cross it
+    const float depth = (GEN ? h_gen : s.scal[JT_S_GROUND]) - pt[2];
+    const float corr = depth > 0.f
+        ? fminf(fmaxf(s.scal[JT_S_ALPHA_C_DT] * (depth - s.scal[JT_S_SLOP]), 0.f),
+                s.scal[JT_S_MAX_CORR])
+        : depth / dt;
+    const float act = depth > -s.scal[JT_S_MARGIN] ? 1.f : 0.f;
+    for (int e = 0; e < 3; ++e) {
+      target[row + e] = e == 2 ? corr : 0.f;
+      active[row + e] = act;
+      mu[row + e] = friction;
+    }
+  }
+
+  // ---- the shared chain
+  const float res = jt_solve_chain<NMAX, NCMAX>(
+      M, NMAX, pf, v, J, NMAX, target, mu, active, lam0, v_next, lam_out, prm, lay);
+
+  // ---- world impulses, original contact order: t1·λ₀ + t2·λ₁ + n·λ₂
+  for (int jc = 0; jc < s.ncp; ++jc) {
+    const int k = s.corder[jc], row = s.nbj + 3 * jc;
+    if constexpr (GEN) {
+      const float* bs = basis[jc];
+      for (int e = 0; e < 3; ++e)
+        fc[3 * k + e] = bs[e] * lam_out[row] + bs[3 + e] * lam_out[row + 1] +
+                        bs[6 + e] * lam_out[row + 2];
+    } else {
+      fc[3 * k] = lam_out[row + 1];
+      fc[3 * k + 1] = -lam_out[row];
+      fc[3 * k + 2] = lam_out[row + 2];
+    }
+  }
+
+  // ---- symplectic Euler: q ⊕ v⁺·dt
+  for (int i = 0; i < nb; ++i) {
+    const int qo = s.q_off[i], vo = s.v_off[i];
+    if (s.jtype[i] != JT_FREE) {
+      q_next[qo] = q[qo] + v_next[vo] * dt;
+      continue;
+    }
+    float R[9], dv[3], dp[3], w[3];
+    quat_to_m(q + qo + 3, R);
+    for (int k = 0; k < 3; ++k) dv[k] = v_next[vo + k] * dt;
+    mat3_vec(R, dv, dp);
+    for (int k = 0; k < 3; ++k) q_next[qo + k] = q[qo + k] + dp[k];
+    for (int k = 0; k < 3; ++k) w[k] = v_next[vo + 3 + k] * dt;
+    // exp of the local increment, Taylor-guarded at 0
+    const float th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+    const float th = sqrtf(th2 + 1e-24f);
+    const bool small = th2 < 1e-14f;
+    const float sh = small ? 0.5f - th2 / 48.f : sinf(0.5f * th) / th;
+    const float ew = small ? 1.f - th2 / 8.f : cosf(0.5f * th);
+    const float ex = w[0] * sh, ey = w[1] * sh, ez = w[2] * sh;
+    const float x = q[qo + 3], y = q[qo + 4], z = q[qo + 5], qw = q[qo + 6];
+    const float nx = qw * ex + x * ew + y * ez - z * ey;
+    const float ny = qw * ey - x * ez + y * ew + z * ex;
+    const float nz = qw * ez + x * ey - y * ex + z * ew;
+    const float nw = qw * ew - x * ex - y * ey - z * ez;
+    const float nrm = sqrtf(nx * nx + ny * ny + nz * nz + nw * nw + 1e-12f);
+    q_next[qo + 3] = nx / nrm;
+    q_next[qo + 4] = ny / nrm;
+    q_next[qo + 5] = nz / nrm;
+    q_next[qo + 6] = nw / nrm;
+  }
+  return res;
+}
+
+// ---- the sensor stage (counterpart of `_sensor_stage`, the plain version
+// being ops/substep_kernel.py `sensor_stage_reference`, i.e.
+// hardware/sensors.py `SensorSuite.update`)
+//
+// Packed suite (ops/substep_kernel.py `SensorKernelSpec.packed`):
+//   ints:   per body what the readings need of it (JT_NEED_ROTATION: its
+//           world rotation; JT_NEED_MOTION: its velocity and proper
+//           acceleration too; 0: nothing), per group [type, ns, buf_len,
+//           first sensor], then per sensor
+//           two ints: imu (body, offset of its floats), encoder and effort
+//           (q offset, v offset), contact (contact index, body);
+//   floats: per IMU, its frame's rotation in the body (9, row-major) and
+//           position (3).
+// The ring buffers stay in global memory: each thread's row of bufs_out
+// (n_buf floats, [group][sensor][slot][dim]) is a copy of its row of
+// bufs_in, shifted in place at each push; each update reads its eps
+// straight from global memory.
+enum { JT_IMU = 0, JT_ENCODER = 1, JT_EFFORT = 2, JT_CONTACT = 3 };
+enum { JT_NEED_ROTATION = 1, JT_NEED_MOTION = 2 };
+
+struct SensParams {
+  const int* gi;
+  const float* gf;
+  const float* bufs_in;  // (B, n_buf)
+  const float* eps;      // (B, n_sub / k_obs · n_eps)
+  float* bufs_out;       // (B, n_buf)
+  int n_groups, n_buf, n_eps, k_obs;
+};
+
+__device__ __forceinline__ int jt_sensor_dim(int type) {
+  return type == JT_IMU ? 10 : type == JT_ENCODER ? 2 : type == JT_EFFORT ? 1 : 3;
+}
+
+__device__ __forceinline__ int jt_noise_dim(int type) { return type == JT_IMU ? 9 : jt_sensor_dim(type); }
+
+// so3.matrix_to_quat: the candidate of the largest of (m00, m11, m22,
+// trace), the first of equal maxima; normalized; w ≥ 0 (w = 0 positive)
+__device__ __forceinline__ void jt_matrix_to_quat(const float* R, float* out) {
+  const float m00 = R[0], m01 = R[1], m02 = R[2];
+  const float m10 = R[3], m11 = R[4], m12 = R[5];
+  const float m20 = R[6], m21 = R[7], m22 = R[8];
+  const float tr = m00 + m11 + m22;
+  float q[4] = {1.f + m00 - m11 - m22, m01 + m10, m02 + m20, m21 - m12};
+  float best = m00;
+  if (m11 > best) {
+    best = m11;
+    q[0] = m01 + m10; q[1] = 1.f - m00 + m11 - m22; q[2] = m12 + m21; q[3] = m02 - m20;
+  }
+  if (m22 > best) {
+    best = m22;
+    q[0] = m02 + m20; q[1] = m12 + m21; q[2] = 1.f - m00 - m11 + m22; q[3] = m10 - m01;
+  }
+  if (tr > best) {
+    q[0] = m21 - m12; q[1] = m02 - m20; q[2] = m10 - m01; q[3] = 1.f + tr;
+  }
+  const float n = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3] + 1e-12f);
+  const float sgn = q[3] >= 0.f ? 1.f : -1.f;
+  for (int k = 0; k < 4; ++k) out[k] = q[k] / n * sgn;
+}
+
+// so3.quat_exp (Taylor-guarded at 0) then so3.quat_mul: qa ⊗ exp(rv)
+__device__ __forceinline__ void jt_quat_turn(const float* qa, const float* rv, float* out) {
+  const float th2 = rv[0] * rv[0] + rv[1] * rv[1] + rv[2] * rv[2];
+  const float th = sqrtf(th2 + 1e-24f);
+  const bool small = th2 < 1e-14f;
+  const float sh = small ? 0.5f - th2 / 48.f : sinf(0.5f * th) / th;
+  const float bw = small ? 1.f - th2 / 8.f : cosf(0.5f * th);
+  const float bx = rv[0] * sh, by = rv[1] * sh, bz = rv[2] * sh;
+  const float x = qa[0], y = qa[1], z = qa[2], w = qa[3];
+  out[0] = w * bx + x * bw + y * bz - z * by;
+  out[1] = w * by - x * bz + y * bw + z * bx;
+  out[2] = w * bz + x * by - y * bx + z * bw;
+  out[3] = w * bw - x * bx - y * by - z * bz;
+}
+
+// One sensor update of one env at the accepted state (q, v⁺ = v, v of the
+// substep's start v0, so a = Δv/dt; world impulses fc (3·ncp) → forces
+// fc/dt, applied τ): world rotations of the bodies the readings need, and
+// the velocities and proper accelerations from a0 = [0; −g]
+// (algos.body_accelerations) of the IMU bodies and their ancestors alone
+// (the suite's per-body needs), the measurements, + eps (the IMU
+// quaternion turned by exp(rv) on the right), pushed at slot 0 of each
+// delay line.
+template <int NBMAX>
+__device__ __forceinline__ void jt_sensor_stage(
+    const SpecView& s, const SensParams& sp, const float* q, const float* v,
+    const float* v0, const float* tau, const float* fc, const float* eps, float* buf) {
+  float xwR[NBMAX][9], vel[NBMAX][6], acc[NBMAX][6];
+  float Rl[9], pl[3], Rj[9], pj[3], t6[6], u6[6], vj[6], aj[6], ad[6];
+  const float dt = s.scal[JT_S_DT];
+  const int* need = sp.gi;
+  for (int i = 0; i < s.nb; ++i) {
+    if (need[i] == 0) continue;
+    const int p = s.parent[i];
+    if (!(need[i] & JT_NEED_MOTION)) {  // the rotation alone
+      jt_joint_transform(s, i, q, Rj, pj);
+      mat3_mul(s.body + JT_BODY_F * i + 3, Rj, Rl);
+      if (p < 0) for (int k = 0; k < 9; ++k) xwR[i][k] = Rl[k];
+      else mat3_mul(xwR[p], Rl, xwR[i]);
+      continue;
+    }
+    jt_local_pose(s, i, q, Rl, pl);
+    joint_motion(s, i, v, vj);
+    const int vo = s.v_off[i];  // the joint's part of a = Δv/dt
+    for (int k = 0; k < joint_nv(s.jtype[i]); ++k) ad[k] = (v[vo + k] - v0[vo + k]) / dt;
+    joint_motion_of(s, i, ad, aj);
+    if (p < 0) {
+      const float a0[6] = {0.f, 0.f, 0.f, -s.scal[JT_S_GX], -s.scal[JT_S_GY], -s.scal[JT_S_GZ]};
+      for (int k = 0; k < 9; ++k) xwR[i][k] = Rl[k];
+      motion_p2c(Rl, pl, a0, t6);
+      for (int k = 0; k < 6; ++k) {
+        vel[i][k] = vj[k];
+        acc[i][k] = t6[k] + aj[k];
+      }
+    } else {
+      mat3_mul(xwR[p], Rl, xwR[i]);
+      motion_p2c(Rl, pl, vel[p], t6);
+      for (int k = 0; k < 6; ++k) vel[i][k] = t6[k] + vj[k];
+      motion_p2c(Rl, pl, acc[p], t6);
+      motion_cross(vel[i], vj, u6);
+      for (int k = 0; k < 6; ++k) acc[i][k] = t6[k] + aj[k] + u6[k];
+    }
+  }
+  const int* group = sp.gi + s.nb;
+  const int* sensor = group + 4 * sp.n_groups;
+  int boff = 0, eoff = 0;
+  for (int gidx = 0; gidx < sp.n_groups; ++gidx) {
+    const int* G = group + 4 * gidx;
+    const int type = G[0], ns = G[1], bl = G[2];
+    const int dim = jt_sensor_dim(type), ndim = jt_noise_dim(type);
+    for (int k = 0; k < ns; ++k) {
+      const int* T = sensor + 2 * (G[3] + k);
+      const float* e = eps + eoff + k * ndim;
+      float row[10];
+      if (type == JT_IMU) {
+        const int b = T[0];
+        const float* Rfp = sp.gf + T[1];
+        const float* pfp = Rfp + 9;
+        float Rw[9], qt[4], c1[3], c2[3], c3[3], c4[3], apt[3];
+        mat3_mul(xwR[b], Rfp, Rw);
+        jt_matrix_to_quat(Rw, qt);
+        jt_quat_turn(qt, e, row);
+        const float* w = vel[b];
+        // a_lin + ω×v_lin + α×p + ω×(ω×p): proper acceleration of the
+        // frame origin in body coordinates
+        cross3(w, vel[b] + 3, c1);
+        cross3(acc[b], pfp, c2);
+        cross3(w, pfp, c3);
+        cross3(w, c3, c4);
+        for (int d = 0; d < 3; ++d) apt[d] = acc[b][3 + d] + c1[d] + c2[d] + c4[d];
+        mat3t_vec(Rfp, w, row + 4);
+        mat3t_vec(Rfp, apt, row + 7);
+        for (int d = 0; d < 6; ++d) row[4 + d] += e[3 + d];
+      } else if (type == JT_ENCODER) {
+        row[0] = q[T[0]] + e[0];
+        row[1] = v[T[1]] + e[1];
+      } else if (type == JT_EFFORT) {
+        row[0] = tau[T[1]] + e[0];
+      } else {  // contact: world force → the carrier body's frame
+        const float f[3] = {fc[3 * T[0]] / dt, fc[3 * T[0] + 1] / dt, fc[3 * T[0] + 2] / dt};
+        mat3t_vec(xwR[T[1]], f, row);
+        for (int d = 0; d < 3; ++d) row[d] += e[d];
+      }
+      // ring push: the older samples move one slot back, the new one at 0
+      float* r = buf + boff + k * bl * dim;
+      for (int slot = bl - 1; slot > 0; --slot)
+        for (int d = 0; d < dim; ++d) r[slot * dim + d] = r[(slot - 1) * dim + d];
+      for (int d = 0; d < dim; ++d) r[d] = row[d];
+    }
+    boff += ns * bl * dim;
+    eoff += ns * ndim;
+  }
+}
+
+// the env's ground coefficients (gc: B × n_gc) into g, once per launch
+template <bool GEN>
+__device__ __forceinline__ void jt_load_ground(const float* gc, int n_gc, int b, float* g) {
+  if constexpr (GEN)
+    for (int k = 0; k < n_gc; ++k) g[k] = gc[(size_t)b * n_gc + k];
+}
+
+// ---- K3: one substep, τ given; with GEN an analytic ground per env; with
+// RAND each env's model parameters (mp: B × n_mp)
+template <int NMAX, int NCMAX, int NBMAX, bool GEN, bool RAND>
+__global__ void __launch_bounds__(JT_THREADS) substep_kernel(
+    const int* __restrict__ si, const float* __restrict__ sf,
+    const float* __restrict__ q, const float* __restrict__ v,
+    const float* __restrict__ tau, const float* __restrict__ lam0,
+    const float* __restrict__ wrench, float* __restrict__ q_out,
+    float* __restrict__ v_out, float* __restrict__ lam_out,
+    float* __restrict__ res_out, float* __restrict__ fc_out,
+    const float* __restrict__ gc, int n_gc, const float* __restrict__ mp, int n_mp,
+    SolveParams prm, BlockLayout lay) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= prm.B) return;
+  const SpecView s = jt_view(si, sf);
+  float g[GEN ? JT_GC_MAX : 1];
+  jt_load_ground<GEN>(gc, n_gc, b, g);
+  const float* row = RAND ? mp + (size_t)b * n_mp : nullptr;
+  const size_t bq = (size_t)b * s.nq, bv = (size_t)b * s.nv, bc = (size_t)b * prm.nc;
+  res_out[b] = jt_substep<NMAX, NCMAX, NBMAX, GEN, RAND>(
+      s, q + bq, v + bv, tau + bv, lam0 + bc, lam_out + bc, wrench + 6 * (size_t)b, g, n_gc,
+      row, q_out + bq, v_out + bv, fc_out + 3 * (size_t)b * s.ncp, prm, lay);
+}
+
+// ---- K2: n_sub substeps, (q, v, λ) resident, τ recomputed per substep;
+// with SENS, the sensor stage after every k_obs-th substep; with GEN, an
+// analytic ground per env; with RAND, each env's model parameters (mp:
+// B × n_mp), the motor tail scaling τ
+template <int NMAX, int NCMAX, int NBMAX, bool SENS, bool GEN, bool RAND>
+__global__ void __launch_bounds__(JT_THREADS) substep_multi_kernel(
+    const int* __restrict__ si, const float* __restrict__ sf,
+    const float* __restrict__ q, const float* __restrict__ v,
+    const float* __restrict__ cmd, const float* __restrict__ lam0,
+    const float* __restrict__ wrench, float* __restrict__ q_out,
+    float* __restrict__ v_out, float* __restrict__ lam_out,
+    float* __restrict__ res_out, float* __restrict__ fc_out,
+    float* __restrict__ a_out, float* __restrict__ tau_out, int n_sub,
+    const float* __restrict__ gc, int n_gc, const float* __restrict__ mp, int n_mp,
+    SolveParams prm, BlockLayout lay, SensParams sp) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= prm.B) return;
+  const SpecView s = jt_view(si, sf);
+  float g[GEN ? JT_GC_MAX : 1];
+  jt_load_ground<GEN>(gc, n_gc, b, g);
+  const float* row = RAND ? mp + (size_t)b * n_mp : nullptr;
+  const float* mscale = RAND ? row + 10 * s.nb + s.nv : nullptr;  // gain | friction scale
+  const int nq = s.nq, nv = s.nv, nc = prm.nc;
+  constexpr int NQMAX = NMAX + JT_NQ_EXTRA;
+  float qs[NQMAX], vs[NMAX], qn[NQMAX], vn[NMAX], lam[NCMAX], fc[NCMAX];
+  float u[NMAX], tau[NMAX], w0[6];
+  for (int k = 0; k < nq; ++k) qs[k] = q[(size_t)b * nq + k];
+  for (int k = 0; k < nv; ++k) vs[k] = v[(size_t)b * nv + k];
+  for (int k = 0; k < nc; ++k) lam[k] = lam0[(size_t)b * nc + k];
+  for (int k = 0; k < s.nm; ++k) u[k] = cmd[(size_t)b * s.nm + k];
+  for (int k = 0; k < 6; ++k) w0[k] = wrench[6 * (size_t)b + k];
+  float* buf = nullptr;
+  if constexpr (SENS) {
+    buf = sp.bufs_out + (size_t)b * sp.n_buf;
+    for (int k = 0; k < sp.n_buf; ++k) buf[k] = sp.bufs_in[(size_t)b * sp.n_buf + k];
+  }
+  const float dt = s.scal[JT_S_DT];
+  float res = 0.f;
+  for (int it = 0; it < n_sub; ++it) {
+    jt_torque<RAND>(s, qs, vs, u, mscale, tau);
+    res = jt_substep<NMAX, NCMAX, NBMAX, GEN, RAND>(s, qs, vs, tau, lam, lam, w0, g, n_gc, row,
+                                                    qn, vn, fc, prm, lay);
+    if (it == n_sub - 1) {  // the last substep's accepted a and applied τ
+      for (int k = 0; k < nv; ++k) {
+        a_out[(size_t)b * nv + k] = (vn[k] - vs[k]) / dt;
+        tau_out[(size_t)b * nv + k] = tau[k];
+      }
+    }
+    if constexpr (SENS) {
+      // the schedule is the same for every thread: a uniform branch
+      if ((it + 1) % sp.k_obs == 0) {
+        const int upd = (it + 1) / sp.k_obs - 1;
+        const float* eps = sp.eps + (size_t)b * (n_sub / sp.k_obs) * sp.n_eps + upd * sp.n_eps;
+        jt_sensor_stage<NBMAX>(s, sp, qn, vn, vs, tau, fc, eps, buf);
+      }
+    }
+    for (int k = 0; k < nq; ++k) qs[k] = qn[k];
+    for (int k = 0; k < nv; ++k) vs[k] = vn[k];
+  }
+  for (int k = 0; k < nq; ++k) q_out[(size_t)b * nq + k] = qs[k];
+  for (int k = 0; k < nv; ++k) v_out[(size_t)b * nv + k] = vs[k];
+  for (int k = 0; k < nc; ++k) lam_out[(size_t)b * nc + k] = lam[k];
+  for (int k = 0; k < 3 * s.ncp; ++k) fc_out[(size_t)b * 3 * s.ncp + k] = fc[k];
+  res_out[b] = res;
+}
+
+// Largest sizes any instantiation takes (ops/substep_kernel.py MAX_* and
+// NQ_EXTRA check them before a launch too).
+#define JT_SUB_MAX_N 32
+#define JT_SUB_MAX_NC 48
+#define JT_SUB_MAX_NB 32
+// the sensor stage's (ops/substep_kernel.py MAX_SENS_*)
+#define JT_SENS_MAX_GROUPS 8
+#define JT_SENS_MAX_BUF 4096
+#define JT_SENS_MAX_EPS 1024
+
+extern "C" const char* jt_substep_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// n_mp_min: the narrowest model-parameter row the kernel reads (K3:
+// 10·nb + nv; K2: with the motor tail); this library takes the model
+// parameters if and only if it holds the RAND instantiations
+static int jt_check_dims(int B, int nb, int nq, int nv, int nc, int nm,
+                         int iters, const float* gc, int n_gc, const float* mp,
+                         int n_mp, int n_mp_min, const int* layout, int layout_len,
+                         BlockLayout* lay) {
+  if (B < 0 || nb < 1 || nv < 1 || nc < 1 || nm < 0 || iters < 0 ||
+      nb > JT_SUB_MAX_NB || nv > JT_SUB_MAX_N || nc > JT_SUB_MAX_NC ||
+      nq < nv || nq > nv + JT_NQ_EXTRA || nm > nv || n_gc < 0 || n_gc > JT_GC_MAX ||
+      (n_gc > 0) != (gc != nullptr) || (mp != nullptr) != JT_RAND ||
+      (JT_RAND ? n_mp < n_mp_min : n_mp != 0))
+    return (int)cudaErrorInvalidValue;
+  return jt_parse_layout(layout, layout_len, nc, lay);
+}
+
+// the ANYmal main path takes the smallest frame
+static bool jt_small(int nb, int nv, int nc) { return nb <= 13 && nv <= 18 && nc <= 24; }
+
+// K3. si/sf: the packed spec; wrench (B, 6); fc (B, 3·ncp); gc (B, n_gc)
+// the ground coefficients (null, 0 on flat ground); mp (B, n_mp) the model
+// parameters (null, 0 in the nominal library; required in the randomized
+// one).
+extern "C" int jt_substep(
+    const int* si, const float* sf, const float* q, const float* v,
+    const float* tau, const float* lam0, const float* wrench, float* q_out,
+    float* v_out, float* lam_out, float* res, float* fc, int B, int nb,
+    int nq, int nv, int nc, const float* gc, int n_gc, const float* mp,
+    int n_mp, const int* layout, int layout_len, int iters, float dt,
+    float relax, float reg, int compute_residual, void* stream) {
+  BlockLayout lay;
+  const int err = jt_check_dims(B, nb, nq, nv, nc, 0, iters, gc, n_gc, mp, n_mp, 10 * nb + nv,
+                                layout, layout_len, &lay);
+  if (err != (int)cudaSuccess) return err;
+  if (B == 0) return (int)cudaSuccess;
+  SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
+  const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+#define JT_K3(NM, NC, NB, GEN)                                                            \
+  substep_kernel<NM, NC, NB, GEN, JT_RAND><<<grid, block, 0, s>>>(                        \
+      si, sf, q, v, tau, lam0, wrench, q_out, v_out, lam_out, res, fc, gc, n_gc, mp, n_mp, \
+      prm, lay)
+  if (jt_small(nb, nv, nc)) {
+    if (n_gc) JT_K3(18, 24, 13, true); else JT_K3(18, 24, 13, false);
+  } else {
+    if (n_gc) JT_K3(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, true);
+    else JT_K3(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, false);
+  }
+#undef JT_K3
+  return (int)cudaGetLastError();
+}
+
+// K2 in its four instantiations of this library (sensor stage or not,
+// analytic ground or flat; JT_RAND fixed) and two frames.
+template <bool SENS>
+static int jt_multi_launch(
+    const int* si, const float* sf, const float* q, const float* v,
+    const float* cmd, const float* lam0, const float* wrench, float* q_out,
+    float* v_out, float* lam_out, float* res, float* fc, float* a_out,
+    float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int nm,
+    const float* gc, int n_gc, const float* mp, int n_mp, const SensParams& sp,
+    const int* layout, int layout_len, int iters, float dt, float relax, float reg,
+    int compute_residual, void* stream) {
+  BlockLayout lay;
+  const int err = jt_check_dims(B, nb, nq, nv, nc, nm, iters, gc, n_gc, mp, n_mp,
+                                10 * nb + nv + 2 * nm, layout, layout_len, &lay);
+  if (err != (int)cudaSuccess) return err;
+  if (n_sub < 1) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
+  const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+#define JT_K2(NM, NC, NB, GEN)                                                        \
+  substep_multi_kernel<NM, NC, NB, SENS, GEN, JT_RAND><<<grid, block, 0, s>>>(        \
+      si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out, tau_out, \
+      n_sub, gc, n_gc, mp, n_mp, prm, lay, sp)
+  if (jt_small(nb, nv, nc)) {
+    if (n_gc) JT_K2(18, 24, 13, true); else JT_K2(18, 24, 13, false);
+  } else {
+    if (n_gc) JT_K2(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, true);
+    else JT_K2(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, false);
+  }
+#undef JT_K2
+  return (int)cudaGetLastError();
+}
+
+// K2. cmd (B, nm); a and tau (B, nv) of the last substep; gc and mp as
+// for K3, mp with the motor tail.
+extern "C" int jt_substep_multi(
+    const int* si, const float* sf, const float* q, const float* v,
+    const float* cmd, const float* lam0, const float* wrench, float* q_out,
+    float* v_out, float* lam_out, float* res, float* fc, float* a_out,
+    float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int nm,
+    const float* gc, int n_gc, const float* mp, int n_mp, const int* layout,
+    int layout_len, int iters, float dt, float relax, float reg,
+    int compute_residual, void* stream) {
+  const SensParams sp = {nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 1};
+  return jt_multi_launch<false>(si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc,
+                                a_out, tau_out, B, n_sub, nb, nq, nv, nc, nm, gc, n_gc, mp, n_mp,
+                                sp, layout, layout_len, iters, dt, relax, reg, compute_residual,
+                                stream);
+}
+
+// K2 with the sensor stage. gi/gf: the packed suite; bufs_in, bufs_out
+// (B, n_buf); eps (B, n_sub / k_obs · n_eps); gc and mp as for K2.
+extern "C" int jt_substep_multi_sensors(
+    const int* si, const float* sf, const float* q, const float* v,
+    const float* cmd, const float* lam0, const float* wrench, float* q_out,
+    float* v_out, float* lam_out, float* res, float* fc, float* a_out,
+    float* tau_out, const int* gi, const float* gf, const float* bufs_in,
+    const float* eps, float* bufs_out, int B, int n_sub, int nb, int nq,
+    int nv, int nc, int nm, int n_groups, int n_buf, int n_eps, int k_obs,
+    const float* gc, int n_gc, const float* mp, int n_mp, const int* layout,
+    int layout_len, int iters, float dt, float relax, float reg,
+    int compute_residual, void* stream) {
+  if (n_sub < 1 || k_obs < 1 || n_sub % k_obs != 0 || n_groups < 1 ||
+      n_groups > JT_SENS_MAX_GROUPS || n_buf < 1 || n_buf > JT_SENS_MAX_BUF ||
+      n_eps < 1 || n_eps > JT_SENS_MAX_EPS)
+    return (int)cudaErrorInvalidValue;
+  const SensParams sp = {gi, gf, bufs_in, eps, bufs_out, n_groups, n_buf, n_eps, k_obs};
+  return jt_multi_launch<true>(si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc,
+                               a_out, tau_out, B, n_sub, nb, nq, nv, nc, nm, gc, n_gc, mp, n_mp,
+                               sp, layout, layout_len, iters, dt, relax, reg, compute_residual,
+                               stream);
+}

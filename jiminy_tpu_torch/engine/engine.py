@@ -40,9 +40,17 @@ sensor update into the delay lines every ``k_obs`` substeps;
 :meth:`Engine.sensor_fusion_ready` says whether a suite and schedule can
 take it.
 
+Both steps take per-env model randomization (``model_params=``, each
+env's packed row (B, n_mp) that :meth:`Engine._pack_model_params` makes
+once from an :class:`~jiminy_tpu_torch.engine.randomization.ModelParams`
+with a (B,) batch): it rides the randomized instantiations of the
+whole-substep kernels (K2 with τ scaled in-kernel; K3 with τ from the
+scaled motors), and the plain physics of ``"kernel"`` and ``"inline"``
+reads the same rows.
+
 Not ported yet (each raises): penalty contacts and other steppers
 (ROADMAP A.16), kinematic constraints and collision pairs (A.12, A.13),
-flexibility and joint springs (A.14), model randomization (A.11).
+flexibility and joint springs (A.14).
 """
 
 from __future__ import annotations
@@ -203,15 +211,33 @@ class Engine:
             tau=torch.zeros(B, t.nv, **z),
         )
 
-    def _joint_torque(self, u, q, v):
+    def _joint_torque(self, u, q, v, mscale=None):
         """Command → actuation torque: inner-loop controller, motor
-        model, joint damping."""
+        model, joint damping. ``mscale``: each env's motor (gain,
+        friction scale), (B, nm) each, or None."""
         if self.substep_spec.torque is not None:  # declarative: PD or direct
-            return substep_ops.torque_reference(self.substep_spec, q, v, u)
+            return substep_ops.torque_reference(self.substep_spec, q, v, u, mscale)
         if self.controller is not None:
             u = self.controller(u, q, v)
-        tau = self.motors.compute_effort(u, v) if self.motors is not None else u
+        tau = self.motors.compute_effort(u, v, mscale) if self.motors is not None else u
         return tau - self.tree.damping * v
+
+    def _pack_model_params(self, model_params):
+        """Each env's packed model parameters (B, n_mp) in the tree's
+        dtype, the form ``step``'s ``model_params`` takes (the reference's
+        ``_pack_model_params``, row by row): the perturbed mass ‖ h ‖
+        origin inertia xx, yy, zz, xy, xz, yz ‖ armature
+        (``ModelParams.apply_to_tree``) ‖ with a torque path the motor
+        gain ‖ friction scale."""
+        mp = model_params.to(device=self.device, dtype=self.tree.dtype)
+        dyn = mp.apply_to_tree(self.tree)
+        I, B = dyn.inertia, mp.batch_size
+        i6 = torch.stack([I[..., 0, 0], I[..., 1, 1], I[..., 2, 2],
+                          I[..., 0, 1], I[..., 0, 2], I[..., 1, 2]], dim=-1)
+        parts = [dyn.mass, dyn.h.reshape(B, -1), i6.reshape(B, -1), dyn.armature]
+        if self.substep_spec.torque is not None:
+            parts += [mp.motor_gain, mp.motor_friction_scale]
+        return torch.cat(parts, dim=1).contiguous()
 
     def _kernel_ground_ok(self, ground) -> bool:
         """Can the engine's substep take ``ground``? An analytic ground of
@@ -253,20 +279,21 @@ class Engine:
             cfg, *(a.contiguous() for a in args), device=self.device
         )
 
-    def _impulse_substep(self, q, v, u, lam0, wrench, gc):
+    def _impulse_substep(self, q, v, u, lam0, wrench, gc, mp=None):
         """One semi-implicit Euler substep with velocity-level PGS impulses
         for joint bounds and ground contacts (``gc``: the per-env ground
-        coefficients or None). Returns (q⁺, v⁺, contact_forces, residual,
-        λ, a, τ)."""
-        dt = self.substep_spec.dt
-        tau = self._joint_torque(u, q, v)
+        coefficients or None; ``mp``: the per-env packed model parameters
+        or None). Returns (q⁺, v⁺, contact_forces, residual, λ, a, τ)."""
+        spec, dt = self.substep_spec, self.substep_spec.dt
+        mscale = substep_ops.unpack_model_params(spec, mp)[1] if mp is not None else None
+        tau = self._joint_torque(u, q, v, mscale)
         backend = self.backend
         if backend == "substep":
-            out = substep_ops.substep_batched(self.substep_spec, q, v, tau, lam0, wrench, gc=gc)
+            out = substep_ops.substep_batched(spec, q, v, tau, lam0, wrench, gc=gc, mp=mp)
         else:
             solve = self._solve_chain_kernel if backend == "kernel" else None
             out = substep_ops.substep_reference(
-                self.substep_spec, q, v, tau, lam0, wrench, solve=solve, gc=gc
+                spec, q, v, tau, lam0, wrench, solve=solve, gc=gc, mp=mp
             )
         q_next, v_next, lam, residual, impulse = out
         return q_next, v_next, impulse / dt, residual, lam, (v_next - v) / dt, tau
@@ -308,14 +335,14 @@ class Engine:
     def step_with_sensors(
         self, state: SimState, u: torch.Tensor, n_substeps: int, suite,
         bufs: torch.Tensor, eps: torch.Tensor, k_obs: int = 1,
-        base_wrench: torch.Tensor | None = None, ground=None,
+        base_wrench: torch.Tensor | None = None, ground=None, model_params=None,
     ) -> tuple[SimState, torch.Tensor]:
         """The fused step with the sensor stage: every substep and a
         sensor update (measure at the accepted state, corrupt, push)
         every ``k_obs`` substeps in one K2 launch. ``bufs`` (B, n_buf) are
         the suite's flattened ring buffers, ``eps`` (B, n_substeps/k_obs ·
         n_eps) the pre-sampled corruption, update after update; ``ground``
-        as in :meth:`step`. Raises ValueError when
+        and ``model_params`` as in :meth:`step`. Raises ValueError when
         :meth:`sensor_fusion_ready` is False. Returns (SimState, new
         bufs)."""
         if not self.sensor_fusion_ready(suite, n_substeps, k_obs, ground):
@@ -326,7 +353,7 @@ class Engine:
         q, v, lam, res, impulse, a, tau, bufs = substep_ops.substep_batched_multi(
             spec, n_substeps, state.q, state.v, u, state.lam, wrench,
             sensors=self._sensor_spec(suite, k_obs), bufs=bufs, eps=eps,
-            gc=self._ground_coef(ground, B),
+            gc=self._ground_coef(ground, B), mp=model_params,
         )
         sim = SimState(
             t=state.t + n_substeps * dt, q=q, v=v, contact_forces=impulse / dt,
@@ -336,24 +363,29 @@ class Engine:
 
     def step(
         self, state: SimState, u: torch.Tensor, n_substeps: int = 1,
-        base_wrench: torch.Tensor | None = None, ground=None,
+        base_wrench: torch.Tensor | None = None, ground=None, model_params=None,
     ) -> SimState:
         """Advance by ``n_substeps × dt`` with the zero-order-hold command
         ``u`` (B, nm). ``base_wrench``: optional (B, 6) local [ang; lin]
         spatial wrench on the root body held over the step (push
         disturbances). ``ground``: optional ground of the engine's own
         kind, an analytic one with a (B,) batch for per-env terrain
-        (None: the engine's ground); anything else raises ValueError."""
+        (None: the engine's ground); anything else raises ValueError.
+        ``model_params``: optional (B, n_mp) packed rows
+        (:meth:`_pack_model_params`) perturbing each env's inertials,
+        armature and motors."""
         spec, dt = self.substep_spec, self.substep_spec.dt
         q, v, t, lam = state.q, state.v, state.t, state.lam
         wrench = base_wrench
         gc = self._ground_coef(ground, q.shape[0])
+        mp = model_params
+        substep_ops._check_mp("Engine.step", spec, mp, q.shape[0])
         if self.backend == "substep":
             if wrench is None:  # the kernels always take one
                 wrench = q.new_zeros(q.shape[0], 6)
             if self.options.substep_fusion and spec.torque is not None:
                 q, v, lam, res, impulse, a, tau = substep_ops.substep_batched_multi(
-                    spec, n_substeps, q, v, u, lam, wrench, gc=gc
+                    spec, n_substeps, q, v, u, lam, wrench, gc=gc, mp=mp
                 )
                 return SimState(
                     t=t + n_substeps * dt, q=q, v=v, contact_forces=impulse / dt,
@@ -361,7 +393,7 @@ class Engine:
                 )
         f_c, res, a, tau = state.contact_forces, state.solver_residual, state.a, state.tau
         for _ in range(n_substeps):
-            q, v, f_c, res, lam, a, tau = self._impulse_substep(q, v, u, lam, wrench, gc)
+            q, v, f_c, res, lam, a, tau = self._impulse_substep(q, v, u, lam, wrench, gc, mp)
             t = t + dt
         return SimState(
             t=t, q=q, v=v, contact_forces=f_c, solver_residual=res,

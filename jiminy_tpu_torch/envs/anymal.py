@@ -15,9 +15,11 @@ analytic staircase 0.4 m × 0.08 m, 10 steps, 5 cm ramps); these four run
 in the whole-substep kernels. ``"perlin_grid"`` is one shared bilinear
 heightmap from ``terrain_seed`` with a flat spawn disk and spawns within
 4 m, on the plain physics around the chain kernel. ``push_magnitude``
-(N) turns pushes on; ``push_prob`` and ``push_duration`` pass through
-to :class:`WalkerEnv`. Other options raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+(N) turns pushes on; ``push_prob``, ``push_duration`` and
+``model_randomization`` (per-episode masses, centres of mass, inertias,
+armature, motor gains and friction, sensor offsets) pass through to
+:class:`WalkerEnv`. Other options raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -34,9 +36,8 @@ from jiminy_tpu_torch.engine.terrain import perlin_ground
 from jiminy_tpu_torch.envs.locomotion import WalkerEnv
 from jiminy_tpu_torch.models.quadruped import make_anymal, stand_q
 
-_PASSED_ON = ("push_prob", "push_duration")
+_PASSED_ON = ("push_prob", "push_duration", "model_randomization")
 _LATER = {
-    "model_randomization": "A.11 (model randomization)",
     "constraints": "A.12 (closed loops)",
     "collision_pairs": "A.13 (body-body collision)",
     "reward_fn": "A.17 (declarative layer)",

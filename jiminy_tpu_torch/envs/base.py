@@ -20,9 +20,11 @@ Per-env state beyond the simulation lives in ``info`` as tensors with a
 leading (B,) batch, so that auto-reset picks it like the rest: the hooks
 :meth:`BaseEnv._init_info` (drawn at reset), :meth:`BaseEnv._update_info`
 (after each step), :meth:`BaseEnv._step_ground` (a per-env ground for the
-engine, e.g. from its coefficients in ``info``) and
-:meth:`BaseEnv._base_wrench` (a push on the root body). Model
-randomization is not ported yet (ROADMAP A.11).
+engine, e.g. from its coefficients in ``info``),
+:meth:`BaseEnv._base_wrench` (a push on the root body),
+:meth:`BaseEnv._model_params` (each env's model randomization for the
+engine) and :meth:`BaseEnv._sensor_bias` (each env's sensor calibration
+offsets, added to every corruption draw).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from jiminy_tpu_torch import resolve_device
 from jiminy_tpu_torch.engine.engine import Engine, SimState, sim_state_from_arrays
+from jiminy_tpu_torch.engine.randomization import ModelParams
 from jiminy_tpu_torch.utils import health
 
 
@@ -59,19 +62,30 @@ class EnvState:
 
 
 def env_state_from_arrays(
-    d: dict, generator: torch.Generator, device="cuda", dtype=torch.float32
+    d: dict, generator: torch.Generator, device="cuda", dtype=torch.float32, engine=None
 ) -> EnvState:
     """EnvState from the reference's batched fields as numpy arrays:
     ``d["sim"]`` holds the SimState fields, ``d["info"]`` the info dict;
     ``obs``, ``reward``, ``terminated``, ``truncated`` and ``steps`` the
     rest. The reference's PRNG key has no counterpart: ``generator``
-    takes its place."""
+    takes its place. Two info entries change form: ``model_params`` (the
+    reference's ``ModelParams`` as a mapping of its fields, each (B, ...))
+    becomes ``engine``'s packed (B, n_mp) rows
+    (``Engine._pack_model_params``; it needs the env's ``engine``), and
+    ``sensor_bias`` (one (B, ns, ndim) array per sensor group) one (B,
+    n_eps) row in the eps layout."""
     dev = resolve_device(device)
 
     def f(x):
         return torch.as_tensor(np.array(x), dtype=dtype, device=dev)
 
-    def info_entry(x):  # floats take ``dtype``; integer and bool entries keep theirs
+    def info_entry(k, x):  # floats take ``dtype``; integer and bool entries keep theirs
+        if k == "model_params":
+            if engine is None:
+                raise ValueError("a state with model_params needs the env's engine to pack them")
+            return engine._pack_model_params(ModelParams(*(f(x[n]) for n in ModelParams.FIELDS)))
+        if k == "sensor_bias":
+            return torch.cat([f(g).flatten(1) for g in x], dim=1)
         a = np.array(x)
         return torch.as_tensor(a, dtype=dtype if a.dtype.kind == "f" else None, device=dev)
 
@@ -83,7 +97,7 @@ def env_state_from_arrays(
         truncated=torch.as_tensor(np.array(d["truncated"]), dtype=torch.bool, device=dev),
         steps=torch.as_tensor(np.array(d["steps"]), dtype=torch.int32, device=dev),
         generator=generator,
-        info={k: info_entry(x) for k, x in d.get("info", {}).items()},
+        info={k: info_entry(k, x) for k, x in d.get("info", {}).items()},
     )
 
 
@@ -104,7 +118,8 @@ class BaseEnv:
     - ``_action_to_command(action, sim) -> (B, nm)``
 
     and optionally the per-env hooks ``_init_info``, ``_update_info``,
-    ``_step_ground`` and ``_base_wrench``.
+    ``_step_ground``, ``_base_wrench``, ``_model_params`` and
+    ``_sensor_bias``.
     """
 
     def __init__(
@@ -162,12 +177,15 @@ class BaseEnv:
             suite.read(suite.unflatten_buffers(info["sensor_bufs"])), sim
         )
 
-    def _sensor_eps(self, generator: torch.Generator, batch_size: int, n_updates: int) -> torch.Tensor:
+    def _sensor_eps(self, generator: torch.Generator, batch_size: int, n_updates: int,
+                    bias_extra=None) -> torch.Tensor:
         """Corruption of ``n_updates`` sensor updates (B, n_updates·n_eps),
         update after update; reset asks for one, a step for
-        ``n_obs_updates``."""
+        ``n_obs_updates``. ``bias_extra``: each env's calibration offsets
+        (:meth:`_sensor_bias`) or None."""
         return torch.cat(
-            [self.sensors.sample_eps(generator, batch_size) for _ in range(n_updates)], dim=1
+            [self.sensors.sample_eps(generator, batch_size, bias_extra) for _ in range(n_updates)],
+            dim=1,
         )
 
     def _reward(self, prev: EnvState, action, sim: SimState) -> torch.Tensor:
@@ -199,6 +217,18 @@ class BaseEnv:
         next step (pushes), or None."""
         return None
 
+    def _model_params(self, info: dict):
+        """Each env's packed model parameters (B, n_mp) for ``engine.step``
+        (``Engine._pack_model_params``, drawn and packed into ``info`` at
+        reset, so that auto-reset draws anew per episode), or None for the
+        nominal model."""
+        return None
+
+    def _sensor_bias(self, info: dict):
+        """Each env's additive sensor offsets, one (B, ns, ndim) tensor per
+        sensor group, or None."""
+        return None
+
     def reset(self, generator: torch.Generator, batch_size: int) -> EnvState:
         """``batch_size`` fresh episodes drawn from ``generator``. With
         sensors, the buffers hold one corrupted measurement at the
@@ -208,7 +238,7 @@ class BaseEnv:
         sim = self.engine.reset(q=q, v=v)
         if self.sensors is not None:
             suite = self.sensors
-            eps = self._sensor_eps(generator, batch_size, 1)
+            eps = self._sensor_eps(generator, batch_size, 1, self._sensor_bias(info))
             info["sensor_bufs"] = suite.flatten_buffers(suite.reset(eps, sim.q, sim.v))
         obs = self._make_obs(sim, info)
         if self.sensors is not None:
@@ -227,24 +257,26 @@ class BaseEnv:
             info={"final_obs": obs, **info},
         )
 
-    def _step_sensors(self, state: EnvState, u: torch.Tensor, wrench, ground):
+    def _step_sensors(self, state: EnvState, u: torch.Tensor, wrench, ground, mp):
         """The engine step with the sensor updates → (sim, new flat
         buffers): fused (one K2 launch) when the engine's kernel takes
         this ground, else chunked (n_obs_updates engine steps of
         n_substeps_per_obs, each followed by the suite's update at the
-        accepted state)."""
+        accepted state). ``mp``: each env's model parameters or None."""
         suite, eng = self.sensors, self.engine
-        eps = self._sensor_eps(state.generator, state.obs.shape[0], self.n_obs_updates)
+        eps = self._sensor_eps(state.generator, state.obs.shape[0], self.n_obs_updates,
+                               self._sensor_bias(state.info))
         bufs = state.info["sensor_bufs"]
         if self._fused_sensors and eng._kernel_ground_ok(ground if ground is not None else eng.ground):
             return eng.step_with_sensors(
                 state.sim, u, self.n_substeps, suite, bufs, eps,
                 k_obs=self.n_substeps_per_obs, base_wrench=wrench, ground=ground,
+                model_params=mp,
             )
         sim, tup = state.sim, suite.unflatten_buffers(bufs)
         for e in eps.split(suite.n_eps, dim=1):
             sim = eng.step(sim, u, n_substeps=self.n_substeps_per_obs, base_wrench=wrench,
-                           ground=ground)
+                           ground=ground, model_params=mp)
             tup = suite.update(tup, e, sim.q, sim.v, sim.a, sim.contact_forces, sim.tau)
         return sim, suite.flatten_buffers(tup)
 
@@ -253,12 +285,13 @@ class BaseEnv:
         u = self._action_to_command(action, state.sim)
         wrench = self._base_wrench(state)
         ground = self._step_ground(state.info)
+        mp = self._model_params(state.info)
         info = dict(state.info)
         if self.sensors is None:
             sim = self.engine.step(state.sim, u, n_substeps=self.n_substeps,
-                                   base_wrench=wrench, ground=ground)
+                                   base_wrench=wrench, ground=ground, model_params=mp)
         else:
-            sim, info["sensor_bufs"] = self._step_sensors(state, u, wrench, ground)
+            sim, info["sensor_bufs"] = self._step_sensors(state, u, wrench, ground, mp)
         obs = self._make_obs(sim, info)
         reward = self._reward(state, action, sim)
         steps = state.steps + 1

@@ -17,7 +17,16 @@ push hooks:
   s (``info["push_force"]``, ``info["push_steps_left"]``), applied at the
   base as a local wrench (:meth:`WalkerEnv._base_wrench`). The draws come
   from :meth:`WalkerEnv._push_draws`, which a caller may replace;
-- ``_terminated`` measures the base height against each env's own ground.
+- ``_terminated`` measures the base height against each env's own ground;
+- ``model_randomization`` (a
+  :class:`~jiminy_tpu_torch.engine.randomization.ModelRandomization`):
+  each episode draws its env's masses, centres of mass, inertias,
+  armature and motor gains and friction, packed once into the engine's
+  row (``Engine._pack_model_params``, (B, n_mp)), carried in
+  ``info["model_params"]`` and handed to the engine each step, and with ``sensor_bias > 0`` on the sensor path its
+  calibration offsets, ``info["sensor_bias"]`` (B, n_eps), added to every
+  corruption draw. The draws come from :meth:`WalkerEnv._model_draws`,
+  which a caller may replace.
 
 Action: (B, nm) PD target offsets around the stand pose in [-1, 1].
 Observation, ``observe="sensors"`` (the default, as in the reference):
@@ -42,6 +51,7 @@ from jiminy_tpu_torch.engine.engine import (
     SimState,
 )
 from jiminy_tpu_torch.engine.ground import FlatGround
+from jiminy_tpu_torch.engine.randomization import ModelRandomization
 from jiminy_tpu_torch.envs.base import BaseEnv, EnvState
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.math import so3
@@ -74,6 +84,7 @@ class WalkerEnv(BaseEnv):
         push_magnitude: float = 0.0,  # N; 0 disables pushes
         push_prob: float = 0.01,  # per-step probability of a push onset
         push_duration: float = 0.1,  # s
+        model_randomization: ModelRandomization | None = None,  # per-episode draws
         device="cuda",
     ):
         if observe == "sensors":
@@ -124,6 +135,7 @@ class WalkerEnv(BaseEnv):
         self.push_magnitude = push_magnitude
         self.push_prob = push_prob
         self.push_steps = max(1, round(push_duration / step_dt))
+        self.model_randomization = model_randomization
         self._q_stand = torch.as_tensor(
             stand_pose, dtype=self.tree.dtype, device=self.device
         )
@@ -157,12 +169,29 @@ class WalkerEnv(BaseEnv):
             q[:, 2] = q[:, 2] + ground.query(q[:, 0:2])[0]
         return q, v.to(device=self.device, dtype=q.dtype)
 
-    # ---- terrain and pushes (info entries, picked by auto-reset) ---------
+    # ---- terrain, randomization and pushes (info entries, picked by auto-reset)
+    def _model_draws(self, generator: torch.Generator, batch_size: int):
+        """Fresh episodes' model randomization: (ModelParams (B,), the
+        sensor offsets as one (B, ns, ndim) tensor per group, or None when
+        ``sensor_bias`` is 0 or the env observes the state)."""
+        mr = self.model_randomization
+        params = mr.sample(generator, self.tree, self.motors, batch_size)
+        bias = None
+        if mr.sensor_bias > 0.0 and self.sensors is not None:
+            bias = mr.sample_sensor_bias(generator, self.sensors, batch_size)
+        return params, bias
+
     def _init_info(self, generator: torch.Generator, batch_size: int) -> dict:
         info = {}
         if self.ground_sampler is not None:
             info["ground"] = self.ground_sampler(generator, (batch_size,)).coef().to(
                 device=self.device, dtype=self.tree.dtype)
+        if self.model_randomization is not None:
+            params, bias = self._model_draws(generator, batch_size)
+            info["model_params"] = self.engine._pack_model_params(params)
+            if bias is not None:
+                info["sensor_bias"] = torch.cat([b.flatten(1) for b in bias], dim=1).to(
+                    device=self.device, dtype=self.tree.dtype)
         if self.push_magnitude > 0.0:
             info["push_force"] = torch.zeros(batch_size, 3, dtype=self.tree.dtype,
                                              device=self.device)
@@ -172,6 +201,12 @@ class WalkerEnv(BaseEnv):
 
     def _step_ground(self, info: dict):
         return self._episode_ground(info) if "ground" in info else None
+
+    def _model_params(self, info: dict):
+        return info.get("model_params")
+
+    def _sensor_bias(self, info: dict):
+        return self.sensors._split_eps(info["sensor_bias"]) if "sensor_bias" in info else None
 
     def _push_draws(self, generator: torch.Generator, batch_size: int):
         """This step's push draws: (onset (B,) bool, Bernoulli(push_prob);

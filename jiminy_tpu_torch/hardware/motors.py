@@ -68,12 +68,17 @@ class Motors:
             **{k: getattr(self, k).to(device=device, dtype=dtype) for k in _PARAMS},
         )
 
-    def compute_effort(self, command: torch.Tensor, v: torch.Tensor):
+    def compute_effort(self, command: torch.Tensor, v: torch.Tensor, mscale=None):
         """(B, nm) motor command + (B, nv) joint velocity → (B, nv) joint
-        torque: clamp, reduction, velocity-limit derating, friction."""
+        torque: clamp, reduction, velocity-limit derating, friction.
+        ``mscale``: optional per-env (gain, friction scale), (B, nm) each,
+        applied as the whole-substep kernels apply them (the reference's
+        ``_compute_tau``): the reduction times the gain, the friction
+        torque as a whole times the scale."""
         v_j = v[:, list(self.v_idx)]
         u = torch.clamp(command, -self.effort_limit, self.effort_limit)
-        tau_m = self.reduction * u
+        red = self.reduction if mscale is None else self.reduction * mscale[0]
+        tau_m = red * u
         over = torch.clamp(
             (torch.abs(v_j) - self.velocity_limit)
             / (0.1 * torch.clamp_min(self.velocity_limit, 1e-6)),
@@ -86,6 +91,8 @@ class Motors:
             self.friction_dry * torch.tanh(v_j / self.friction_vel_eps)
             + self.friction_viscous * v_j
         )
+        if mscale is not None:
+            fric = fric * mscale[1]
         out = torch.zeros_like(v)
         out[:, list(self.v_idx)] = tau_m - fric
         return out

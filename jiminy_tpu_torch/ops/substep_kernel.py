@@ -20,11 +20,12 @@ of the engine, for every env of a batch:
   :func:`substep_batched_multi` (K2, ``n_sub`` substeps in one launch,
   with the sensor stage when given ``sensors=``) are the entry points:
   on CUDA tensors they launch the hand-written kernels of
-  ``csrc/substep.cu`` (built with nvcc, loaded with ctypes); on CPU
-  tensors they run the plain versions. They never fall back from one to
-  the other. ``.launches`` on each counts kernel launches; K2's launches
-  with the sensor stage count apart, in
-  ``substep_batched_multi.sensor_launches``.
+  ``csrc/substep.cuh`` (built with nvcc from ``csrc/substep.cu`` and,
+  for the randomized instantiations, ``csrc/substep_rand.cu``; loaded
+  with ctypes); on CPU tensors they run the plain versions. They never
+  fall back from one to the other. Each instantiation counts its own
+  launches (``.launches``, ``.sensor_launches``, ``.ground_launches``,
+  ``.rand_launches``, …).
 
 :class:`SubstepSpec` is the static description of one engine's substep
 (row layout, solve configuration, Baumgarte constants, the tree) and
@@ -40,11 +41,20 @@ per env, whose coefficients ``gc`` (B, n_gc) every entry point takes
 :mod:`jiminy_tpu_torch.engine.ground`). A :class:`HeightmapGround` runs
 on the plain versions alone (``check_kernel_caps`` refuses it).
 
+Model randomization: every entry point takes each env's packed model
+parameters ``mp`` (B, n_mp) (``SubstepSpec.n_mp``: the perturbed
+masses, first moments and origin inertias, the armature, and with a
+torque path the motor gains and friction scales; built by
+``Engine._pack_model_params``), which replace the tree's inertials in
+RNEA and CRBA, the armature on M's diagonal and, in K2's torque, the
+reduction and friction. Kinematics, Jacobians and integration stay on
+the nominal tree.
+
 Out of scope (each raises, naming its ROADMAP item): other steppers and
 the penalty contact model (A.16), sphere contact sites and collision
 pairs (A.13, B.7), joint springs and flexibility (A.14, B.8), joints
-other than FREE and REVOLUTE (A.14, A.15); randomization (B.5) and
-distance rows (B.9) have no entry here yet.
+other than FREE and REVOLUTE (A.14, A.15); distance rows (B.9) have no
+entry here yet.
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ from jiminy_tpu_torch.core.tree import JointType, KinematicTree
 from jiminy_tpu_torch.engine import constraints as cstr
 from jiminy_tpu_torch.engine.contact import surface_contacts
 from jiminy_tpu_torch.engine.ground import ANALYTIC, FlatGround, HeightmapGround
+from jiminy_tpu_torch.engine.randomization import Inertials
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.hardware.sensors import SensorSuite
 # a module, not its names: the engine package imports this module while
@@ -233,6 +244,16 @@ class SubstepSpec:
             and (q_min[tree.q_off[i]] > -1e5 or q_max[tree.q_off[i]] < 1e5)
         ]
 
+    @property
+    def n_mp(self) -> int:
+        """Width of each env's packed model parameters (the reference's
+        layout): mass (nb) ‖ h (3·nb) ‖ origin inertia xx, yy, zz, xy, xz,
+        yz (6·nb) ‖ armature (nv) ‖ with a torque path motor gain (nm) ‖
+        motor friction scale (nm). K3 reads the same row and ignores the
+        motor tail."""
+        n = 10 * self.tree.nb + self.tree.nv
+        return n + 2 * self.torque.nm if self.torque is not None else n
+
     def check_kernel_caps(self, who: str):
         """Raise ValueError when the model is larger than the whole-substep
         kernels take, or its ground is one they cannot query (a heightmap;
@@ -401,15 +422,41 @@ class SensorKernelSpec:
 # ---------------------------------------------------------------------------
 
 
-def torque_reference(spec: SubstepSpec, q, v, cmd):
+def torque_reference(spec: SubstepSpec, q, v, cmd, mscale=None):
     """Actuation torque (B, nv) of the declarative path ``spec.torque``
-    at (q, v) for the held command ``cmd`` (B, nm)."""
+    at (q, v) for the held command ``cmd`` (B, nm). ``mscale``: optional
+    per-env (gain, friction scale), (B, nm) each (``Motors.compute_effort``)."""
     ts = spec.torque
     if ts.mode == "pd":
         kw = dict(dtype=q.dtype, device=q.device)
         qm, vm = spec.motors.joint_state(q, v)
         cmd = torch.as_tensor(ts.kp, **kw) * (cmd - qm) - torch.as_tensor(ts.kd, **kw) * vm
-    return spec.motors.compute_effort(cmd, v) - spec.tree.damping * v
+    return spec.motors.compute_effort(cmd, v, mscale) - spec.tree.damping * v
+
+
+def unpack_model_params(spec: SubstepSpec, mp):
+    """Each env's packed model parameters (B, n_mp) → (Inertials, the
+    motor (gain, friction scale) (B, nm) each, or None without a torque
+    path), as the reference's ``_unpack_mp`` reads the row: the inertia
+    rebuilt symmetric from its xx, yy, zz, xy, xz, yz."""
+    t = spec.tree
+    nb, B = t.nb, mp.shape[0]
+    mass, h, i6, arm, tail = torch.split(
+        mp, (nb, 3 * nb, 6 * nb, t.nv, mp.shape[1] - 10 * nb - t.nv), dim=1)
+    xx, yy, zz, xy, xz, yz = i6.reshape(B, nb, 6).unbind(-1)
+    inertia = torch.stack([xx, xy, xz, xy, yy, yz, xz, yz, zz], -1).reshape(B, nb, 3, 3)
+    inertials = Inertials(mass=mass, h=h.reshape(B, nb, 3), inertia=inertia, armature=arm)
+    if spec.torque is None:
+        return inertials, None
+    gain, fric = tail.split(spec.torque.nm, dim=1)
+    return inertials, (gain, fric)
+
+
+def _check_mp(name, spec: SubstepSpec, mp, B):
+    """``mp`` is None or each env's packed model parameters (B, n_mp)."""
+    if mp is not None and tuple(mp.shape) != (B, spec.n_mp):
+        raise ValueError(f"{name}: model parameters mp of shape {tuple(mp.shape)}, expected "
+                         f"({B}, {spec.n_mp})")
 
 
 def _check_gc(name, spec: SubstepSpec, gc, B):
@@ -423,7 +470,8 @@ def _check_gc(name, spec: SubstepSpec, gc, B):
                          f"({B}, {spec.n_gc}), got {got}")
 
 
-def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=None, gc=None):
+def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=None, gc=None,
+                      mp=None):
     """One semi-implicit Euler substep with velocity-level PGS impulses
     for joint bounds and ground contacts: q (B, nq), v and τ (B, nv),
     λ0 (B, nc), ``wrench`` None or (B, 6) local [ang; lin] on the root
@@ -432,20 +480,22 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
     the plain chain (``None``, the default) or a wrapper of the chain
     kernel, called as ``solve(cfg, M, p, v, J, target, mu, active, λ0)``.
     ``gc`` (B, n_gc): each env's analytic ground (None: the spec's
-    own ground)."""
+    own ground). ``mp`` (B, n_mp): each env's packed model parameters
+    (None: the tree's inertials); the motor tail is not read here."""
     solve = solve if solve is not None else chain.solve_reference
     tree, opts = spec.tree, spec.options
     dt = spec.dt
     B = q.shape[0]
+    inertials = unpack_model_params(spec, mp)[0] if mp is not None else None
     xl = algos.local_transforms(tree, q)
     xw, vel = algos.kinematics(tree, q, v, xl=xl)
     # implicit joint damping: (M + dt·C)·Δv = dt·(τ − C·v − bias)
-    M = algos.crba(tree, q, xl=xl) + torch.diag(dt * tree.damping)
+    M = algos.crba(tree, q, xl=xl, inertials=inertials) + torch.diag(dt * tree.damping)
     fext = None
     if wrench is not None:
         fext = q.new_zeros(B, tree.nb, 6)
         fext[:, 0] = wrench
-    bias = algos.rnea(tree, q, v, torch.zeros_like(v), fext=fext, xl=xl)
+    bias = algos.rnea(tree, q, v, torch.zeros_like(v), fext=fext, xl=xl, inertials=inertials)
     p_free = tau - bias
 
     Js, targets, actives, mus = [], [], [], []
@@ -527,7 +577,7 @@ def _check_sensor_args(sensors, n_sub, B, bufs, eps):
 
 def substep_multi_reference(
     spec: SubstepSpec, n_sub: int, q, v, cmd, lam0, wrench=None,
-    sensors: SensorKernelSpec | None = None, bufs=None, eps=None, gc=None,
+    sensors: SensorKernelSpec | None = None, bufs=None, eps=None, gc=None, mp=None,
 ):
     """``n_sub`` chained substeps with τ recomputed from the held command
     ``cmd`` (B, nm) before each → (q⁺, v⁺, λ, residual, impulses (B, ncp,
@@ -535,16 +585,21 @@ def substep_multi_reference(
     ``sensors``, after each substep i with (i + 1) % k_obs == 0 the
     sensor update u = (i + 1)/k_obs − 1 runs at that substep's accepted
     state with eps[:, u·n_eps:(u + 1)·n_eps], and the new buffers (B,
-    n_buf) are returned last. ``gc`` as in :func:`substep_reference`."""
+    n_buf) are returned last. ``gc`` as in :func:`substep_reference`;
+    ``mp`` (B, n_mp) each env's packed model parameters, the motor tail
+    scaling τ."""
     if spec.torque is None:
         raise ValueError("the multi-substep path needs spec.torque")
     if n_sub < 1:
         raise ValueError(f"n_sub must be ≥ 1, got {n_sub}")
     _check_sensor_args(sensors, n_sub, q.shape[0], bufs, eps)
+    _check_mp("substep_multi_reference", spec, mp, q.shape[0])
+    mscale = unpack_model_params(spec, mp)[1] if mp is not None else None
     lam = lam0
     for i in range(n_sub):
-        tau = torque_reference(spec, q, v, cmd)
-        q_next, v_next, lam, res, impulse = substep_reference(spec, q, v, tau, lam, wrench, gc=gc)
+        tau = torque_reference(spec, q, v, cmd, mscale)
+        q_next, v_next, lam, res, impulse = substep_reference(spec, q, v, tau, lam, wrench, gc=gc,
+                                                              mp=mp)
         a = (v_next - v) / spec.dt
         if sensors is not None and (i + 1) % sensors.k_obs == 0:
             u = (i + 1) // sensors.k_obs - 1
@@ -563,13 +618,16 @@ def substep_multi_reference(
 
 
 @functools.cache
-def _kernel():
+def _kernel(randomized: bool):
+    """The library of the nominal instantiations (``csrc/substep.cu``) or
+    of the randomized ones (``csrc/substep_rand.cu``); both export the
+    same entry points, the second requiring the model parameters."""
     from jiminy_tpu_torch.ops import _build
 
-    lib = _build.load("substep")
+    lib = _build.load("substep_rand" if randomized else "substep")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [vp, ci, ci, cf, cf, cf, ci, vp]  # layout, len, iters, dt, relax, reg, resid, stream
-    gc = [vp, ci]  # ground coefficients, their width
+    gc = [vp, ci, vp, ci]  # ground coefficients, their width; model parameters, their width
     lib.jt_substep.argtypes = [vp] * 12 + [ci] * 5 + gc + tail
     lib.jt_substep.restype = ci
     lib.jt_substep_multi.argtypes = [vp] * 14 + [ci] * 7 + gc + tail
@@ -626,55 +684,66 @@ def _outputs(spec: SubstepSpec, B, device, extra=0):
     return [torch.empty(s, dtype=torch.float32, device=device) for s in shapes]
 
 
-def _gc_args(spec: SubstepSpec, gc):
-    """The kernels' (pointer, width) of the ground coefficients."""
-    return [gc.data_ptr(), spec.n_gc] if gc is not None else [None, 0]
+def _gc_args(spec: SubstepSpec, gc, mp):
+    """The kernels' (pointer, width) of the ground coefficients and of the
+    model parameters."""
+    return ([gc.data_ptr(), spec.n_gc] if gc is not None else [None, 0]) + (
+        [mp.data_ptr(), spec.n_mp] if mp is not None else [None, 0])
 
 
-def substep_batched(spec: SubstepSpec, q, v, tau, lam0, wrench, gc=None):
+def _count(fn, sensors, gc, mp):
+    """Add one to the launch counter of the instantiation that ran:
+    ``[rand_][sensor_][ground_]launches``."""
+    name = (("rand_" if mp is not None else "") + ("sensor_" if sensors is not None else "")
+            + ("ground_" if gc is not None else "") + "launches")
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
+def substep_batched(spec: SubstepSpec, q, v, tau, lam0, wrench, gc=None, mp=None):
     """K3, one substep with τ given: q (B, nq), v and τ (B, nv), λ0
-    (B, nc), wrench (B, 6), and for an analytic ground each env's
-    coefficients gc (B, n_gc), all on one device → (q⁺, v⁺, λ, residual
-    (B,), impulses (B, ncp, 3)). On CUDA tensors this launches the kernel
-    (float32, contiguous) and raises on anything else; on CPU tensors it
-    runs :func:`substep_reference`. ``.launches`` counts the flat-ground
-    instantiation's launches, ``.ground_launches`` the analytic ground's."""
+    (B, nc), wrench (B, 6), for an analytic ground each env's
+    coefficients gc (B, n_gc), and for a randomized model each env's
+    packed model parameters mp (B, n_mp), all on one device → (q⁺, v⁺, λ,
+    residual (B,), impulses (B, ncp, 3)). On CUDA tensors this launches
+    the kernel (float32, contiguous) and raises on anything else; on CPU
+    tensors it runs :func:`substep_reference`. Each instantiation counts
+    its launches: ``.launches`` (flat, nominal), ``.ground_launches``,
+    ``.rand_launches`` and ``.rand_ground_launches``."""
     _check_gc("substep_batched", spec, gc, q.shape[0])
-    g = () if gc is None else (gc,)
-    dev = _device_of("substep_batched", q, v, tau, lam0, wrench, *g)
+    _check_mp("substep_batched", spec, mp, q.shape[0])
+    extra = tuple(x for x in (gc, mp) if x is not None)
+    dev = _device_of("substep_batched", q, v, tau, lam0, wrench, *extra)
     if dev.type == "cpu":
-        return substep_reference(spec, q, v, tau, lam0, wrench, gc=gc)
+        return substep_reference(spec, q, v, tau, lam0, wrench, gc=gc, mp=mp)
     t, B = spec.tree, q.shape[0]
     _check_inputs("substep_batched", {
         "q": (q, (B, t.nq)), "v": (v, (B, t.nv)), "tau": (tau, (B, t.nv)),
         "lam0": (lam0, (B, spec.nc)), "wrench": (wrench, (B, 6)),
-        **({"gc": (gc, (B, spec.n_gc))} if g else {}),
+        **({"gc": (gc, (B, spec.n_gc))} if gc is not None else {}),
+        **({"mp": (mp, (B, spec.n_mp))} if mp is not None else {}),
     })
     spec.check_kernel_caps("substep_batched")
-    lib = _kernel()
+    lib = _kernel(mp is not None)
     si, sf = spec.packed(dev)
     outs = _outputs(spec, B, dev)
     tail, _layout_alive = _tail(spec, dev)  # the int array the pointer in tail names
     err = lib.jt_substep(
         si.data_ptr(), sf.data_ptr(), q.data_ptr(), v.data_ptr(), tau.data_ptr(),
         lam0.data_ptr(), wrench.data_ptr(), *(o.data_ptr() for o in outs),
-        B, t.nb, t.nq, t.nv, spec.nc, *_gc_args(spec, gc), *tail,
+        B, t.nb, t.nq, t.nv, spec.nc, *_gc_args(spec, gc, mp), *tail,
     )
     _raise_on(lib, err, "substep")
-    if gc is None:
-        substep_batched.launches += 1
-    else:
-        substep_batched.ground_launches += 1
+    _count(substep_batched, None, gc, mp)
     return tuple(outs)
 
 
-substep_batched.launches = 0
-substep_batched.ground_launches = 0
+for _name in ("launches", "ground_launches", "rand_launches", "rand_ground_launches"):
+    setattr(substep_batched, _name, 0)
 
 
 def substep_batched_multi(
     spec: SubstepSpec, n_sub: int, q, v, cmd, lam0, wrench,
-    sensors: SensorKernelSpec | None = None, bufs=None, eps=None, gc=None,
+    sensors: SensorKernelSpec | None = None, bufs=None, eps=None, gc=None, mp=None,
 ):
     """K2, ``n_sub`` substeps in one launch with τ recomputed in-kernel
     from the held command: q (B, nq), v (B, nv), cmd (B, nm), λ0 (B, nc),
@@ -683,23 +752,29 @@ def substep_batched_multi(
     ``sensors`` (a :class:`SensorKernelSpec`), ``bufs`` (B, n_buf) and
     ``eps`` (B, n_sub/k_obs·n_eps), the kernel's sensor stage runs after
     every k_obs-th substep and the new buffers are returned last. For an
-    analytic ground, ``gc`` (B, n_gc) holds each env's coefficients. Needs
+    analytic ground, ``gc`` (B, n_gc) holds each env's coefficients; for
+    a randomized model, ``mp`` (B, n_mp) each env's packed model
+    parameters (inertials, armature, motor gain and friction scale). Needs
     ``spec.torque``. On CUDA tensors this launches the kernel (float32,
     contiguous) and raises on anything else; on CPU tensors it runs
     :func:`substep_multi_reference`. Each instantiation counts its own
-    launches: ``.launches`` (flat, no sensors), ``.sensor_launches``,
-    ``.ground_launches`` and ``.sensor_ground_launches``."""
+    launches: ``.launches`` (flat, no sensors, nominal),
+    ``.sensor_launches``, ``.ground_launches``,
+    ``.sensor_ground_launches``, and the randomized ones under the same
+    names with ``rand_`` in front."""
     if spec.torque is None:
         raise ValueError("substep_batched_multi needs spec.torque")
     if n_sub < 1:
         raise ValueError(f"n_sub must be ≥ 1, got {n_sub}")
     _check_sensor_args(sensors, n_sub, q.shape[0], bufs, eps)
     _check_gc("substep_batched_multi", spec, gc, q.shape[0])
-    extra = (() if sensors is None else (bufs, eps)) + (() if gc is None else (gc,))
+    _check_mp("substep_batched_multi", spec, mp, q.shape[0])
+    extra = (() if sensors is None else (bufs, eps)) + tuple(x for x in (gc, mp) if x is not None)
     dev = _device_of("substep_batched_multi", q, v, cmd, lam0, wrench, *extra)
     if dev.type == "cpu":
         return substep_multi_reference(
-            spec, n_sub, q, v, cmd, lam0, wrench, sensors=sensors, bufs=bufs, eps=eps, gc=gc
+            spec, n_sub, q, v, cmd, lam0, wrench, sensors=sensors, bufs=bufs, eps=eps, gc=gc,
+            mp=mp,
         )
     t, B, nm = spec.tree, q.shape[0], spec.torque.nm
     items = {
@@ -710,9 +785,11 @@ def substep_batched_multi(
         items.update({"bufs": (bufs, tuple(bufs.shape)), "eps": (eps, tuple(eps.shape))})
     if gc is not None:
         items["gc"] = (gc, (B, spec.n_gc))
+    if mp is not None:
+        items["mp"] = (mp, (B, spec.n_mp))
     _check_inputs("substep_batched_multi", items)
     spec.check_kernel_caps("substep_batched_multi")
-    lib = _kernel()
+    lib = _kernel(mp is not None)
     si, sf = spec.packed(dev)
     outs = _outputs(spec, B, dev, extra=2)
     tail, _layout_alive = _tail(spec, dev)
@@ -722,7 +799,7 @@ def substep_batched_multi(
     ]
     dims = [B, n_sub, t.nb, t.nq, t.nv, spec.nc, nm]
     if sensors is None:
-        err = lib.jt_substep_multi(*head, *dims, *_gc_args(spec, gc), *tail)
+        err = lib.jt_substep_multi(*head, *dims, *_gc_args(spec, gc, mp), *tail)
     else:
         sensors.check_kernel_caps("substep_batched_multi")
         gi, gf = sensors.packed(dev)
@@ -730,16 +807,13 @@ def substep_batched_multi(
         err = lib.jt_substep_multi_sensors(
             *head, gi.data_ptr(), gf.data_ptr(), bufs.data_ptr(), eps.data_ptr(),
             outs[-1].data_ptr(), *dims, sensors.n_groups, sensors.n_buf,
-            sensors.n_eps, sensors.k_obs, *_gc_args(spec, gc), *tail,
+            sensors.n_eps, sensors.k_obs, *_gc_args(spec, gc, mp), *tail,
         )
     _raise_on(lib, err, "substep_multi")
-    counter = ("sensor_" if sensors is not None else "") + ("ground_" if gc is not None else "")
-    setattr(substep_batched_multi, counter + "launches",
-            getattr(substep_batched_multi, counter + "launches") + 1)
+    _count(substep_batched_multi, sensors, gc, mp)
     return tuple(outs)
 
 
-substep_batched_multi.launches = 0
-substep_batched_multi.sensor_launches = 0
-substep_batched_multi.ground_launches = 0
-substep_batched_multi.sensor_ground_launches = 0
+for _name in ("launches", "sensor_launches", "ground_launches", "sensor_ground_launches"):
+    setattr(substep_batched_multi, _name, 0)
+    setattr(substep_batched_multi, "rand_" + _name, 0)

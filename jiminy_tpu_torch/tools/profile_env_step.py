@@ -3,7 +3,7 @@
     python -m jiminy_tpu_torch.tools.profile_env_step [--batch 4096] [--steps 5]
         [--solver auto|substep|kernel|inline] [--observe state|sensors]
         [--terrain flat|fourier|perlin|perlin_grid|stairs] [--push N]
-        [--push-duration S]
+        [--push-duration S] [--randomize R]
 
 Runs ``ANYmalEnv(observe="state", device="cuda")`` (by default on its
 main path, ``constraint_solver="auto"``, which is the fused whole-substep
@@ -12,7 +12,11 @@ env of ``anymal_sensors_run5`` (delay 0.004 s, IMU noise 0.02, encoder
 noise 0.005; K2 with the sensor stage), on ``--terrain`` (default flat)
 with pushes of ``--push`` N held ``--push-duration`` s (default none; the
 terrain slice is ``--observe sensors --terrain fourier --push 100
---push-duration 0.2``, K2 with the sensor stage and the ground query), under
+--push-duration 0.2``, K2 with the sensor stage and the ground query),
+with ``--randomize R`` per-episode model randomization mapped as
+examples/train.py maps it (mass and inertia scales 1 ± R, centre-of-mass
+offsets ±0.1·R m, motor gain 1 ± R/2; the sim-to-real slice adds
+``--randomize 0.2``: the randomized K2), under
 ``torch.profiler`` for a few env steps after a warm-up, and prints one
 JSON line: the card (``nvidia-smi`` name and power limit), wall ms per env
 step, device busy ms per env step (the sum of GPU kernel times), the
@@ -41,21 +45,28 @@ def main() -> None:
                     choices=("flat", "fourier", "perlin", "perlin_grid", "stairs"))
     ap.add_argument("--push", type=float, default=0.0, help="push magnitude, N")
     ap.add_argument("--push-duration", type=float, default=0.1, help="push duration, s")
+    ap.add_argument("--randomize", type=float, default=0.0,
+                    help="model randomization half-range R (0: none)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_env_step: no CUDA GPU available")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from jiminy_tpu_torch.engine.randomization import ModelRandomization
     from jiminy_tpu_torch.envs import ANYmalEnv
 
     dev = torch.device("cuda")
+    r = args.randomize
+    randomization = ModelRandomization(
+        mass_scale=(1 - r, 1 + r), com_offset=0.02 * r / 0.2, inertia_scale=(1 - r, 1 + r),
+        motor_gain=(1 - r / 2, 1 + r / 2)) if r else None
     sensors = (dict(sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005)
                if args.observe == "sensors" else {})
     env = ANYmalEnv(observe=args.observe, step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
                     constraint_solver=args.solver, terrain=args.terrain,
-                    push_magnitude=args.push, push_duration=args.push_duration, device=dev,
-                    **sensors)
+                    push_magnitude=args.push, push_duration=args.push_duration,
+                    model_randomization=randomization, device=dev, **sensors)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = env.reset(gen, args.batch)
     acts = [torch.rand(args.batch, 12, generator=gen, device=dev) * 2 - 1
@@ -96,6 +107,7 @@ def main() -> None:
         "observe": args.observe,
         "terrain": args.terrain,
         "push_magnitude": args.push,
+        "randomize": r,
         "wall_ms_per_env_step": 1e3 * wall / n,
         "device_busy_ms_per_env_step": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - (busy_us / 1e6) / wall,

@@ -171,7 +171,7 @@ def test_reset_is_seeded():
         ({"reward_fn": object()}, "A.17"),
         ({"engine_options": object()}, "A.16"),
         ({"collision_pairs": ()}, "A.13"),
-        ({"model_randomization": object()}, "A.11"),
+        ({"termination_fn": object()}, "A.17"),
     ],
 )
 def test_unported_options_raise(kwargs, item):

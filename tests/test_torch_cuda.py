@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions:
 K1 (``solve_batched``), K3 (``substep_batched``) and K2
 (``substep_batched_multi``), with and without its sensor stage, on flat
-ground and on per-env analytic grounds (the ``GEN`` instantiations).
+ground and on per-env analytic grounds (the ``GEN`` instantiations), with
+and without per-env model parameters (the ``RAND`` instantiations).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -488,3 +489,158 @@ def test_terrain_env_is_one_fused_launch(cuda_device):
         state = env.step(state, torch.zeros(256, 12, device=cuda_device))
     assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 0, 0, 0, 0, 3)
     assert bool(torch.isfinite(state.obs).all())
+
+
+def _rand_params(eng, seed, B, nominal=False):
+    """Each env's packed model parameters at the slice's ranges (mass and
+    inertia 0.8–1.2, centre of mass ±0.02 m, motor gain 0.9–1.1) with the
+    armature 0.7–1.3 and the friction 0.5–2.0, made with numpy; or the
+    nominal ones."""
+    from jiminy_tpu_torch.engine.randomization import ModelParams
+
+    t, nm, dev = eng.tree, eng.motors.nm, eng.device
+    if nominal:
+        return eng._pack_model_params(ModelParams.nominal(t, eng.motors, B))
+    rng = np.random.default_rng(seed)
+    ranges = {"mass_scale": ((B, t.nb), 0.8, 1.2), "com_offset": ((B, t.nb, 3), -0.02, 0.02),
+              "inertia_scale": ((B, t.nb), 0.8, 1.2), "armature_scale": ((B, t.nv), 0.7, 1.3),
+              "motor_gain": ((B, nm), 0.9, 1.1), "motor_friction_scale": ((B, nm), 0.5, 2.0)}
+    mp = ModelParams(*(torch.as_tensor(rng.uniform(lo, hi, shape), dtype=torch.float32, device=dev)
+                       for shape, lo, hi in ranges.values()))
+    return eng._pack_model_params(mp)
+
+
+def _rand_run(kernel, eng, suite, args, gc, mp, f64=False):
+    """One substep of ``kernel`` with the model parameters ``mp``: the
+    kernel (None for f64) and its plain version, in float32 or float64."""
+    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec, unpack_model_params
+
+    spec = eng.substep_spec
+    q, v, cmd, lam0, wrench = args
+    if kernel == "substep":
+        tau = eng._joint_torque(cmd, q, v, unpack_model_params(spec, mp)[1])
+        if f64:
+            return substep_reference(spec, q, v, tau, lam0, wrench, gc=gc, mp=mp)
+        return substep_batched(spec, q, v, tau, lam0, wrench, gc=gc, mp=mp)
+    sw = {}
+    if kernel == "substep_multi_sensors":
+        gen = torch.Generator(device=q.device).manual_seed(3)
+        s32 = suite.to(dtype=torch.float32)
+        bufs = s32.flatten_buffers(s32.reset(s32.sample_eps(gen, q.shape[0]), q.float(), v.float()))
+        sw = dict(sensors=SensorKernelSpec(eng.tree, suite, 1), bufs=bufs.to(q.dtype),
+                  eps=s32.sample_eps(gen, q.shape[0]).to(q.dtype))
+    if f64:
+        return substep_multi_reference(spec, 1, *args, gc=gc, mp=mp, **sw)
+    return substep_batched_multi(spec, 1, *args, gc=gc, mp=mp, **sw)
+
+
+RAND_COUNTERS = {"substep": "rand_launches", "substep_multi": "rand_launches",
+                 "substep_multi_sensors": "rand_sensor_launches"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 1000])
+@pytest.mark.parametrize("ground", ["flat", "fourier"])
+@pytest.mark.parametrize("kernel", ["substep", "substep_multi", "substep_multi_sensors"])
+def test_randomized_kernels_match_plain_versions(cuda_device, kernel, ground, B):
+    """K3, K2 and K2 with the sensor stage with per-env model parameters,
+    one substep from the same inputs, each through its own randomized
+    instantiation: on flat ground within 1e-4 of the plain version (as
+    the nominal kernels); on the Fourier ground env by env against the
+    float64 plain version (as the nominal ground kernels)."""
+    from jiminy_tpu_torch.engine import Engine, PDController
+    from jiminy_tpu_torch.models.quadruped import make_anymal
+
+    if ground == "flat":
+        eng = _anymal_engine(cuda_device)
+        suite = make_anymal(device=cuda_device, sensor_period=5e-3, sensor_delay=0.004,
+                            imu_noise=0.02, encoder_noise=0.005)[2]
+        args, gc = _substep_inputs(14, B, eng), None
+    else:
+        eng, suite, args, gc = _ground_setup("fourier", 14, B, cuda_device)
+    mp = _rand_params(eng, 15, B)
+    fn = substep_batched if kernel == "substep" else substep_batched_multi
+    name = RAND_COUNTERS[kernel].replace("launches", "ground_launches" if gc is not None else "launches")
+    before = getattr(fn, name)
+    out = _rand_run(kernel, eng, suite, args, gc, mp)
+    launched = getattr(fn, name) - before
+    ref = _rand_run(kernel, eng, suite, args, gc, mp, f64=True)
+    torch.cuda.synchronize()
+    assert launched == 1
+    if gc is None:
+        _assert_outputs_close(out[:7], ref[:7], eng.substep_spec.dt)
+        return
+    eng64 = Engine(eng.tree.to(dtype=torch.float64), eng.options,
+                   motors=eng.motors.to(dtype=torch.float64), controller=PDController(80.0, 2.0),
+                   ground=eng.ground, device=cuda_device)
+    a64 = [x.double() for x in args]
+    ref64 = _rand_run(kernel, eng64, suite.to(dtype=torch.float64), a64, gc.double(), mp.double(),
+                      f64=True)
+    for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+        _assert_env_by_env_vs_f64(n, out[i], ref[i], ref64[i])
+
+
+@pytest.mark.cuda
+def test_nominal_parameters_through_the_randomized_kernel(cuda_device):
+    """The nominal parameters through the randomized K2 give the
+    unrandomized K2's step to 1e-5 (the inertia is rebuilt as I_c + shift,
+    so not bit for bit); other parameters move it."""
+    eng = _anymal_engine(cuda_device)
+    args = _substep_inputs(16, 1000, eng)
+    bare = substep_batched_multi(eng.substep_spec, 4, *args)
+    nom = substep_batched_multi(eng.substep_spec, 4, *args, mp=_rand_params(eng, 0, 1000, True))
+    rand = substep_batched_multi(eng.substep_spec, 4, *args, mp=_rand_params(eng, 17, 1000))
+    for name, a, b in zip(("q", "v", "lam"), nom, bare):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0, msg=name)
+    assert (rand[1] - bare[1]).abs().max().item() > 1e-3
+
+
+@pytest.mark.cuda
+def test_randomized_kernels_reject_bad_inputs(cuda_device):
+    eng = _anymal_engine(cuda_device)
+    spec = eng.substep_spec
+    args = _substep_inputs(18, 8, eng)
+    mp = _rand_params(eng, 19, 8)
+    with pytest.raises(ValueError, match="model parameters"):
+        substep_batched_multi(spec, 4, *args, mp=mp[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="model parameters"):
+        substep_batched_multi(spec, 4, *args, mp=mp[:4])
+    with pytest.raises(TypeError, match="float32"):
+        substep_batched_multi(spec, 4, *args, mp=mp.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        substep_batched_multi(spec, 4, *args, mp=mp.t().contiguous().t())
+    with pytest.raises(ValueError, match="tensors on"):
+        substep_batched_multi(spec, 4, *args, mp=mp.cpu())
+
+
+@pytest.mark.cuda
+def test_sim2real_env_is_one_fused_launch(cuda_device):
+    """The slice's env (model randomization, per-env Fourier ground,
+    pushes, sensors): one launch of the randomized K2 with the sensor
+    stage and the ground query per env step, and no other kernel."""
+    from jiminy_tpu_torch.engine.randomization import ModelRandomization
+    from jiminy_tpu_torch.envs import ANYmalEnv
+
+    env = ANYmalEnv(terrain="fourier", push_magnitude=100.0, push_duration=0.2,
+                    sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005,
+                    model_randomization=ModelRandomization(
+                        mass_scale=(0.8, 1.2), com_offset=0.02, inertia_scale=(0.8, 1.2),
+                        motor_gain=(0.9, 1.1)),
+                    device=cuda_device)
+    assert env._fused_sensors
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
+    names = [(solve_batched, "launches")] + [
+        (fn, pre + n) for fn in (substep_batched, substep_batched_multi) for pre in ("", "rand_")
+        for n in ("launches", "ground_launches", "sensor_launches", "sensor_ground_launches")
+        if fn is substep_batched_multi or "sensor" not in n]
+
+    def counts():
+        return [getattr(fn, n) for fn, n in names]
+
+    before = counts()
+    for _ in range(3):
+        state = env.step(state, torch.zeros(256, 12, device=cuda_device))
+    launched = {f"{fn.__name__}.{n}": a - b for (fn, n), a, b in zip(names, counts(), before) if a != b}
+    assert launched == {"substep_batched_multi.rand_sensor_ground_launches": 3}
+    assert bool(torch.isfinite(state.obs).all())
+    assert state.info["model_params"].shape == (256, 172)

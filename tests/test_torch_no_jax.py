@@ -9,9 +9,11 @@ without running, and one CPU env step is taken at B = 2 on the
 state-observing env's whole-substep path (the kernels' plain versions)
 and chain-kernel path, on the sensor-observing env's fused and chunked
 paths, and on the terrain and push env (per-env Fourier ground, fused
-and chunked; the ``"perlin_grid"`` heightmap). The modules that hold
-kernels, the sensor suite, the grounds, the terrain generators and the
-random processes are named, so a rename cannot drop them from the walk. A second test imports each kernel module
+and chunked; the ``"perlin_grid"`` heightmap), and on the sim-to-real
+env with model randomization (fused and chunked). The modules that hold
+kernels, the sensor suite, the grounds, the terrain generators, the
+random processes and the model randomization are named, so a rename
+cannot drop them from the walk. A second test imports each kernel module
 first in a fresh interpreter: the engine and ops packages import each
 other, and any order must work.
 """
@@ -30,7 +32,8 @@ import importlib, importlib.abc, pkgutil, sys
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "jiminy_tpu"}
 KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops.substep_kernel",
                   "jiminy_tpu_torch.hardware.sensors", "jiminy_tpu_torch.engine.ground",
-                  "jiminy_tpu_torch.engine.terrain", "jiminy_tpu_torch.utils.random")
+                  "jiminy_tpu_torch.engine.terrain", "jiminy_tpu_torch.utils.random",
+                  "jiminy_tpu_torch.engine.randomization")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -78,6 +81,15 @@ for terrain, fused in (("fourier", True), ("fourier", False), ("perlin_grid", Fa
     st = env.reset(torch.Generator().manual_seed(0), 2)
     st = env.step(st, torch.zeros(2, 12))
     assert bool(torch.isfinite(st.obs).all()) and "push_force" in st.info
+from jiminy_tpu_torch.engine.randomization import ModelRandomization
+
+for fused in (True, False):
+    env = ANYmalEnv(terrain="fourier", push_magnitude=100.0, push_duration=0.2, sensor_delay=0.004,
+                    model_randomization=ModelRandomization(mass_scale=(0.8, 1.2)), device="cpu")
+    env._fused_sensors = fused
+    st = env.reset(torch.Generator().manual_seed(0), 2)
+    st = env.step(st, torch.zeros(2, 12))
+    assert bool(torch.isfinite(st.obs).all()) and "model_params" in st.info
 leaked = sorted(k for k in sys.modules if k.partition(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK", len(mods))

@@ -205,7 +205,7 @@ def test_step_no_reset_with_noise_matches_reference(ref_noisy, fused):
     eps = torch.as_tensor(ref_noisy.eps_of_step(jst))
     env = _port(fused, **NOISE)
     assert eps.shape == (B, 4 * env.sensors.n_eps)
-    env._sensor_eps = lambda generator, batch_size, n_updates: eps
+    env._sensor_eps = lambda generator, batch_size, n_updates, bias_extra: eps
     tst = env_state_from_arrays(ref_noisy.arrays(jst), torch.Generator().manual_seed(1),
                                 device="cpu")
     tnext = env.step_no_reset(tst, torch.as_tensor(action))

@@ -149,7 +149,7 @@ def test_step_no_reset_matches_reference(ref, fused):
     env = ANYmalEnv(push_prob=0.5, device="cpu", **SLICE)
     assert env.engine.backend == "substep" and env._fused_sensors
     env._fused_sensors = fused
-    env._sensor_eps = lambda generator, batch_size, n_updates: torch.as_tensor(eps)
+    env._sensor_eps = lambda generator, batch_size, n_updates, bias_extra: torch.as_tensor(eps)
     env._push_draws = lambda generator, batch_size: (torch.as_tensor(onset), torch.as_tensor(theta))
     tst = env_state_from_arrays(ref.arrays(jst), torch.Generator().manual_seed(0), device="cpu")
     assert tst.info["push_steps_left"].dtype == torch.int32
