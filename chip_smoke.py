@@ -26,7 +26,12 @@ imports nothing of JAX and nothing of ``jiminy_tpu``. The kernels:
   ``rand_substep_multi_sensors`` and their ``_ground`` twins
   (``csrc/substep_rand.cu``, ``RAND``): each env's row of packed model
   parameters in place of the baked inertials, armature and (K2) motor
-  gain and friction.
+  gain and friction;
+- the same kernels on the Cassie biped (``cassie_substep``,
+  ``cassie_substep_multi``, ``cassie_substep_multi_sensors`` in the
+  kernels line): the large frame ⟨32, 48, 32⟩, the pushrods' distance
+  rows ahead of the bounds and the shin springs, runtime branches of the
+  same instantiations.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -71,6 +76,13 @@ Phases (any failure raises and the script exits non-zero):
      float64, at n_sub = 4 env by env against float64; the nominal
      parameters within 1e-5 of the unrandomized kernels; one state with
      different parameters steps apart;
+   - the Cassie spec (`phase_cassie_vs_plain`): K3, K2 and K2 with the
+     sensor stage at n_sub = 1 (B = 4096 and 1000) held to the float64
+     plain version by the distribution of the per-env distance
+     (`_gate_dist_vs_f64`: Cassie's float32 is not well posed at 1e-4), τ
+     within 1e-4 of its size, the sensor variant's physics bit-equal; K2
+     over 10 substeps bit-equal to 10 chained launches; one randomized K2
+     launch; K3 on the two-pendulum loop tied to the world within 1e-4;
 2. the paths, each with the launch counts set to 0 just before it and
    read just after:
    - the main path, ``ANYmalEnv(observe="state", device="cuda")`` reset
@@ -111,6 +123,15 @@ Phases (any failure raises and the script exits non-zero):
      randomized instantiation through a path that runs it (the state,
      sensor and Perlin paths with randomization, K3 flat and on the
      stairs);
+   - Cassie (``CassieEnv(sim_dt=2e-3, target_speed=0.4)``,
+     ``examples/train.py --env cassie``): the state path (25 steps, one
+     K2 launch each; one env step substep by substep against the inline
+     engine in float32 and float64 by `_gate_dist_vs_f64`; the pushrods'
+     |d − d₀| ≤ 1e-3 m in the envs 5+ steps into their episode), the
+     sensor path (one launch of K2 with the sensor stage per step; fused
+     bit-equal to chunked), the push path (50 N, 0.2 s), ``"kernel"``
+     (K1 with the equality rows, 10 launches per step) and
+     ``substep_fusion=False`` (K3, 10 per step);
 3. env-steps/s on the main path (3 timed loops of 25 steps), on the
    sensor path, on the terrain path, on the sim-to-real path and on the
    ``"kernel"`` path, and
@@ -118,15 +139,22 @@ Phases (any failure raises and the script exits non-zero):
    the kernel's bound; the ground instantiations on each ground (the
    kernels line carries the slice's: K2 with sensors on Fourier, K2 on
    Perlin, K3 on Stairs) and the randomized instantiations, flat and on
-   the Fourier ground.
+   the Fourier ground; Cassie's three paths and its K2, K2 with the
+   sensor stage (10 substeps) and K3 against their bounds (with the
+   distance rows and springs counted) and plain versions.
 
-The line before the last is a JSON object with the kernels' numbers; the
-last line is ``{"ok": true, "device": {...}}``.
+The Cassie parts of phases 1–3 run last, after every ANYmal number: once
+a kernel in the large frame has run, the process keeps its local memory
+and the ANYmal sensor K2 runs slower, so the ANYmal numbers are those of
+a process that never launched the large frame, as a run that trains
+ANYmal alone. The line before the last is a JSON object with the
+kernels' numbers; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -319,12 +347,44 @@ def _substep_flops(spec) -> int:
             jac += 3 + (3 * O["cross"] if t.joint_type[j] == 0 else O["mat3_vec"] + O["cross"])
             j = t.parent[j]
     rows = 6 * len(spec.bounded_joints)
-    return fk + rnea + crba + jac + rows + _solve_flops(spec.cfg) + integ
+    return fk + rnea + crba + jac + rows + _distance_flops(spec) + _spring_flops(spec) \
+        + _solve_flops(spec.cfg) + integ
+
+
+def _distance_flops(spec) -> int:
+    """Operations of the distance rows (`jt_distance_row`), per constraint:
+    each point on a body R·p + x (18), p₁ − p₂ (3), d = √(|·|² + 1e-24)
+    (7), u (4), then per Jacobian column of each point's chain the column
+    as the contact rows count it (a REVOLUTE column: r, R·axis, its cross
+    with r: 3 + 15 + 9; a FREE joint's six: 3 + 3 crosses), its dot with
+    u, the sign and the sum (7), and the target −(α/dt)·(d − d₀) (3).
+    A point of the world costs nothing."""
+    t, O = spec.tree, _OPS
+    n = 0
+    for b1, _, b2, _, _, _ in spec.dist_constraints:
+        n += 3 + 7 + 4 + 3
+        for b in (b1, b2):
+            n += 18 if b >= 0 else 0
+            j = b
+            while j >= 0:
+                free = t.joint_type[j] == 0
+                n += (3 + 3 * O["cross"] + 6 * 7) if free else (3 + O["mat3_vec"] + O["cross"] + 7)
+                j = t.parent[j]
+    return n
+
+
+def _spring_flops(spec) -> int:
+    """The implicit springs' terms in the substep when the tree has any:
+    per dof dt·damping + dt²·k on M's diagonal (3 more than damping alone)
+    and τ − dt·k·v (3)."""
+    return 6 * spec.tree.nv if spec.springs else 0
 
 
 def _torque_flops(spec) -> int:
-    """Operations of `jt_torque`: ~23 per motor, damping 2 per dof."""
-    return 23 * spec.torque.nm + 2 * spec.tree.nv
+    """Operations of `jt_torque`: ~23 per motor, damping 2 per dof, −k·q 2
+    per sprung joint."""
+    t = spec.tree
+    return 23 * spec.torque.nm + 2 * t.nv + 2 * len(t.sprung_joints[0])
 
 
 def _spec_bytes(spec) -> int:
@@ -1108,6 +1168,340 @@ def phase_rand_vs_plain(dev) -> dict:
     return worst
 
 
+# ---- Cassie (A.12 with B.9): pushrod closed loops and shin springs in
+# the large frame ⟨32, 48, 32⟩ of the whole-substep kernels
+CASSIE_KW = dict(sim_dt=2e-3, target_speed=0.4, pgs_iters=8)  # examples/train.py --env cassie
+CASSIE_SENSOR_KW = dict(CASSIE_KW, observe="sensors", sensor_delay=0.004, imu_noise=0.02,
+                        encoder_noise=0.005)  # cassie_sensors_run's sensing
+CASSIE_PUSH_KW = dict(CASSIE_KW, observe="state", push_magnitude=50.0,
+                      push_duration=0.2)  # cassie_push_robust_run's pushes
+ROD_TOL = 1e-3  # the reference's TestCassie bound on |d − d₀|, m
+
+
+@functools.cache
+def _cassie_model(dev):
+    """(tree, motors, suite, pushrods, stand pose) of the biped with
+    cassie_sensors_run's suite (2 ms period, 4 ms delay, noise 0.02 /
+    0.005)."""
+    from jiminy_tpu_torch.models.biped import make_cassie
+
+    return make_cassie(sensor_period=2e-3, sensor_delay=0.004, imu_noise=0.02,
+                       encoder_noise=0.005, device=dev)
+
+
+def _cassie_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver="substep"):
+    """CassieEnv's engine (PD kp 150, kd 6, 2 ms, 8 sweeps, the pushrods);
+    in float64 on the float32 model's constants."""
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
+
+    tree, motors, _, rods, _ = _cassie_model(dev)
+    opts = EngineOptions(dt=2e-3, pgs_iters=8, compute_solver_residual=residual,
+                         substep_fusion=fusion, constraint_solver=solver)
+    return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
+                  controller=PDController(150.0, 6.0), constraints=rods, device=dev)
+
+
+def _cassie_inputs(engine, gen, B):
+    """Cassie states around the stand pose: the motor joints ±0.05 rad
+    (the pushrod loops open by millimetres), the shin springs ±0.05 rad,
+    in a quarter of the envs both hip rolls within 1 cm·rad of a limit
+    (either side, so that the bounds rows bind), the base 1 cm low to
+    0.5 cm high (toes penetrating, hovering within the margin and clear)
+    and tilted, v ~ 0.3·N(0, 1), λ0 ≥ 0, PD targets ±0.1 rad around the
+    joints, a root wrench of ~5 N·m and ~20 N."""
+    t = engine.tree
+    dev = engine.device
+    kw = dict(generator=gen, device=dev)
+    stand = _cassie_model(dev)[4]
+    qi = list(engine.motors.q_idx)
+    q = torch.as_tensor(stand, device=dev).repeat(B, 1)
+    q[:, qi] += 0.1 * torch.rand(B, len(qi), **kw) - 0.05
+    sp = [t.q_off[t.joint_index(n)] for n in ("L_shin_spring", "R_shin_spring")]
+    q[:, sp] += 0.1 * torch.rand(B, 2, **kw) - 0.05
+    roll = [t.q_off[t.joint_index(n)] for n in ("L_hip_roll", "R_hip_roll")]
+    side = torch.where(torch.rand(B // 4, 2, **kw) < 0.5, -1.0, 1.0)
+    q[:B // 4, roll] = side * (t.q_max[roll].to(dev) + 0.02 * torch.rand(B // 4, 2, **kw) - 0.01)
+    q[:, 2] += 0.015 * torch.rand(B, **kw) - 0.01
+    quat = torch.cat([0.06 * torch.rand(B, 3, **kw) - 0.03, torch.ones(B, 1, device=dev)], 1)
+    q[:, 3:7] = quat / quat.norm(dim=1, keepdim=True)
+    v = 0.3 * torch.randn(B, t.nv, **kw)
+    lam0 = (0.05 * torch.randn(B, engine.nc, **kw)).abs()
+    cmd = q[:, qi] + 0.2 * torch.rand(B, len(qi), **kw) - 0.1
+    wrench = torch.cat([5.0 * torch.randn(B, 3, **kw), 20.0 * torch.randn(B, 3, **kw)], 1)
+    return q, v, cmd, lam0, wrench
+
+
+# On Cassie no float32 version of one substep is within 1e-4 of float64:
+# its mass matrix's condition is of order 1e4 (a 0.3 kg foot of 1e-3 kg·m² at
+# the end of a 15-body chain, PD gains of 150), so float32 rounding alone
+# puts the plain version 1e-4–3e-3 from float64 in v in most envs, and
+# two float32 versions fall on either side of it at random. `_gate_vs_f64`'s
+# env-by-env rule (the kernel within 2 × the plain version's distance
+# + 1e-4 in all but 1 % of the envs) then fails on chance alone. So the
+# kernel is held to float64 by the distribution of its per-env distance
+# beside the plain float32 version's: at the 50th, 90th and 99th
+# percentiles within 1.5 × the plain version's + 1e-5, the worst env
+# within 2 × the plain version's worst + 1e-4, and no more envs off by
+# 1e-4 than 1.5 × the plain version's + 4. A fault of one mechanism (a
+# row, its target, the springs) moves every env that uses it and the
+# distribution with it.
+DIST_QUANTILES = (0.5, 0.9, 0.99)
+
+
+def _gate_dist_vs_f64(label, k, p32, p64, check=True) -> dict:
+    """K2's (or K3's) output ``k`` against the plain version in float32
+    and float64 on the same inputs, by the distribution rules above;
+    raises when one fails (with ``check``; else only reports)."""
+    dk, dp = _env_err(k, p64), _env_err(p32, p64)
+    qs = torch.tensor(DIST_QUANTILES, dtype=torch.float64, device=dk.device)
+    qk, qp = torch.quantile(dk, qs), torch.quantile(dp, qs)
+    g = {
+        "kernel_vs_f64_p50_p90_p99_max": qk.tolist() + [dk.max().item()],
+        "plain_f32_vs_f64_p50_p90_p99_max": qp.tolist() + [dp.max().item()],
+        "kernel_vs_plain_f32": _env_err(k, p32).max().item(),
+        "envs_kernel_over_1e-4": int((dk > TOL).sum()),
+        "envs_plain_over_1e-4": int((dp > TOL).sum()),
+    }
+    if not check:
+        return g
+    if bool((qk > 1.5 * qp + 1e-5).any()):
+        raise AssertionError(f"{label}: the kernel's distance to f64 exceeds 1.5 × the plain "
+                             f"f32 version's + 1e-5 at a percentile: {g}")
+    if dk.max().item() > 2.0 * dp.max().item() + TOL:
+        raise AssertionError(f"{label}: the kernel's worst env is further from f64 than 2 × the "
+                             f"plain f32 version's + 1e-4: {g}")
+    if g["envs_kernel_over_1e-4"] > 1.5 * g["envs_plain_over_1e-4"] + 4:
+        raise AssertionError(f"{label}: the kernel is off f64 by more than 1e-4 in more envs "
+                             f"than 1.5 × the plain f32 version + 4: {g}")
+    return g
+
+
+def _world_loop_toy(dev):
+    """tests/test_constraints.py's two-pendulum loop with the second tip
+    tied to a frame of the world (body −1): nb 2, nv 2, one distance row,
+    no contact (ncp 0, no contact color) and no bounds row."""
+    from jiminy_tpu_torch.core.tree import JointType, TreeBuilder
+    from jiminy_tpu_torch.engine import Engine, EngineOptions
+    from jiminy_tpu_torch.engine.constraints import DistanceConstraint
+
+    place = TreeBuilder.make_placement
+    b = TreeBuilder()
+    b.add_body("l1", -1, JointType.REVOLUTE, axis=(0, 1, 0), mass=1.0, com=(0, 0, -1))
+    b.add_body("l2", -1, JointType.REVOLUTE, placement=place((0.5, 0, 0)), axis=(0, 1, 0),
+               mass=1.0, com=(0, 0, -1))
+    f1 = b.add_frame("tip1", 0, place((0, 0, -1)))
+    f2 = b.add_frame("anchor", -1, place((0.5, 0, -1)))
+    rod = DistanceConstraint(f1, f2, distance=0.6, baumgarte_freq=20.0)
+    return Engine(b.build(device=dev), EngineOptions(dt=1e-3, constraint_solver="substep"),
+                  constraints=(rod,), device=dev)
+
+
+def _ab_cassie_substeps(env, state, act_gen, dev):
+    """One env step of the Cassie state path from its own state, substep
+    by substep, each substep feeding K2 (one launch at n_sub = 1) and the
+    inline plain engine in float32 and float64 the same inputs: K2 held to
+    the float64 engine by `_gate_dist_vs_f64` on q, v and λ."""
+    from jiminy_tpu_torch.envs import CassieEnv
+
+    inline = CassieEnv(constraint_solver="inline", device=dev, observe="state", **CASSIE_KW)
+    plain64 = _cassie_engine(dev, torch.float64, residual=False, solver="inline")
+    u = env._action_to_command(_uniform(act_gen, dev, env.motors.nm), state.sim)
+    sim, gates = state.sim, {"q": [], "v": [], "lam": []}
+    for i in range(env.n_substeps):
+        nk = env.engine.step(sim, u, n_substeps=1)
+        ni = inline.engine.step(sim, u, n_substeps=1)
+        n64 = plain64.step(_as_f64(state.replace(sim=sim)).sim, u.double(), n_substeps=1)
+        for f, per_sub in gates.items():
+            per_sub.append(_gate_dist_vs_f64(f"cassie K2 substep {i} {f}", getattr(nk, f),
+                                             getattr(ni, f), getattr(n64, f)))
+        sim = nk
+    print("[phase 2] cassie state path, one env step, K2 substep by substep vs the inline engine "
+          "in f32 and f64 on the same inputs: " + json.dumps(gates))
+
+
+def _rod_error(env, sim):
+    """|d − d₀| of each pushrod of ``env`` at ``sim``, (B, n_rods)."""
+    from jiminy_tpu_torch.core import algos
+
+    xw = algos.forward_kinematics(env.tree, sim.q)
+    out = []
+    for c in env.engine.constraints:
+        p1, p2 = c.points(env.tree, xw, sim.q)
+        out.append((torch.linalg.vector_norm(p1 - p2, dim=-1) - c.distance).abs())
+    return torch.stack(out, dim=1)
+
+
+def phase_cassie_vs_plain(dev) -> dict:
+    """The kernels on the Cassie spec (two distance rows, the shin springs,
+    the large frame) against their plain versions from the same inputs
+    (`_cassie_inputs`):
+
+    - K3, K2 and K2 with the sensor stage (IMU + 10 encoders) at n_sub = 1,
+      B = 4096 and a ragged B = 1000: the actuation torque (inputs only,
+      well posed) within 1e-4 of its size, the sensor variant's q, v, λ,
+      impulses, a and τ bit-equal to the sensor-free K2's, and q, v, λ,
+      the impulses and the scaled buffers held to the float64 plain
+      version by their distribution (`_gate_dist_vs_f64`);
+    - K2 over a whole env step (n_sub = 10) bit-equal to ten chained K2
+      launches at n_sub = 1 (λ, the distance rows' slots included, carried
+      through the launch as through memory), and K2 with the sensor stage
+      (an update per substep) bit-equal to it in q, v, λ, impulses, a and
+      τ; their distance to the float64 plain version reported: over ten
+      substeps from these inputs any two float32 versions part from
+      float64 by up to metres per second in a few envs (where an active
+      set switches), a chaos no gate can hold (ROADMAP C.2);
+    - one randomized K2 launch at n_sub = 1 (the distance rows and springs
+      are shared code), likewise; with the nominal parameters within 1e-5
+      of the unrandomized K2;
+    - K3 on the two-pendulum loop tied to the world (`_world_loop_toy`),
+      well posed: within 1e-4 of the plain version on q, v, λ and the
+      residual, and the distance row's impulse nonzero.
+
+    Returns each kernel's worst |kernel − plain f32| at n_sub = 1,
+    B = 4096."""
+    from jiminy_tpu_torch.ops.substep_kernel import (
+        SensorKernelSpec,
+        substep_batched,
+        substep_batched_multi,
+        substep_multi_reference,
+        substep_reference,
+    )
+
+    eng, eng64 = _cassie_engine(dev), _cassie_engine(dev, torch.float64)
+    spec, spec64, dt = eng.substep_spec, eng64.substep_spec, eng.substep_spec.dt
+    suite = _cassie_model(dev)[2]
+    sens = SensorKernelSpec(eng.tree, suite, 1)
+    sens64 = SensorKernelSpec(eng64.tree, suite.to(dtype=torch.float64), 1)
+    names = ("q", "v", "lam", "residual", "impulse")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    worst = {}
+
+    def held(label, outs, p32, p64, scale=None):
+        gates = {}
+        for kname, k in outs.items():
+            for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+                gates[f"{kname} {n}"] = _gate_dist_vs_f64(f"{label} {kname} {n}", k[i], p32[i],
+                                                          p64[i])
+            if len(k) > 7:
+                gates[f"{kname} bufs_scaled"] = _gate_dist_vs_f64(
+                    f"{label} {kname} bufs", k[7].double() / scale, p32[7].double() / scale,
+                    p64[7] / scale)
+        return gates
+
+    for label, B in ((f"B={B_MAIN}", B_MAIN), ("ragged B=1000", 1000)):
+        args = _cassie_inputs(eng, gen, B)
+        q, v, cmd, lam0, wrench = args
+        tau = eng._joint_torque(cmd, q, v)
+        bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B), q, v))
+        sw = dict(sensors=sens, bufs=bufs, eps=suite.sample_eps(gen, B))
+        before = _counts()
+        k3 = substep_batched(spec, q, v, tau, lam0, wrench)
+        k2 = substep_batched_multi(spec, 1, *args)
+        ks = substep_batched_multi(spec, 1, *args, **sw)
+        launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+        r3 = substep_reference(spec, q, v, tau, lam0, wrench)
+        r2 = substep_multi_reference(spec, 1, *args, **sw)
+        a64 = [x.double() for x in args]
+        r3_64 = substep_reference(spec64, a64[0], a64[1], tau.double(), a64[3], a64[4])
+        r2_64 = substep_multi_reference(spec64, 1, *a64, sensors=sens64, bufs=bufs.double(),
+                                        eps=sw["eps"].double())
+        torch.cuda.synchronize()
+        e3 = {n: _max_err(a, b) for n, a, b in zip(names, k3, r3)}
+        e2 = {n: _max_err(a, b) for n, a, b in zip(names + ("a", "tau"), k2, r2)}
+        scale = _reading_scale(sens, r2_64[7])
+        es = {"bufs_scaled": ((ks[7].double() - r2[7].double()).abs() / scale).max().item()}
+        same = all(torch.equal(ks[i], k2[i]) for i in range(7))
+        rods = {"pushrod": float((r3[2][:, :2] != 0).any(1).double().mean()),
+                "bound": float((r3[2][:, 2:16] != 0).any(1).double().mean())}
+        print(f"[phase 1] cassie {label}: max |kernel − plain f32|: K3 {json.dumps(e3)}; K2 n_sub=1 "
+              f"{json.dumps(e2)}; K2 with sensors {json.dumps(es)}, physics equal to the "
+              f"sensor-free K2: {same}; share of envs with a pushrod / bound row's λ nonzero "
+              f"{rods['pushrod']:.3f} / {rods['bound']:.3f}; launches {json.dumps(launched)}")
+        gates = held(f"cassie {label} n_sub=1", {"K3": k3}, r3, r3_64)
+        gates.update(held(f"cassie {label} n_sub=1", {"K2": k2, "K2 sensors": ks}, r2, r2_64,
+                          scale))
+        print(f"[phase 1] cassie {label}, n_sub=1 vs the f64 plain version: " + json.dumps(gates))
+        tau_scale = max(1.0, r2[6].abs().max().item())
+        if not (e2["tau"] <= TOL * tau_scale and same):
+            raise AssertionError(f"cassie {label}: K2's τ off by {e2['tau']} or the sensor "
+                                 f"variant's physics not the sensor-free K2's ({same})")
+        if launched != {"substep": 1, "substep_multi": 1, "substep_multi_sensors": 1}:
+            raise AssertionError(f"cassie: unexpected launches {launched}")
+        if rods["pushrod"] < 0.5 or rods["bound"] < 0.1:
+            raise AssertionError(f"cassie inputs engage too few pushrod or bound rows: {rods}")
+        if B == B_MAIN:
+            worst["cassie_substep"] = max(e3[n] for n in names)
+            worst["cassie_substep_multi"] = max(e2[n] for n in names)
+            worst["cassie_substep_multi_sensors"] = max(max(e2[n] for n in names),
+                                                        es["bufs_scaled"])
+
+    # a whole env step: 10 substeps in one launch against 10 launches of
+    # one, and with a sensor update after each substep
+    args = _cassie_inputs(eng, gen, B_MAIN)
+    bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B_MAIN), args[0], args[1]))
+    eps = torch.cat([suite.sample_eps(gen, B_MAIN) for _ in range(10)], 1)
+    sw = dict(sensors=sens, bufs=bufs, eps=eps)
+    k2 = substep_batched_multi(spec, 10, *args)
+    ks = substep_batched_multi(spec, 10, *args, **sw)
+    q, v, cmd, lam, wrench = args
+    for _ in range(10):
+        chained = substep_batched_multi(spec, 1, q, v, cmd, lam, wrench)
+        q, v, lam = chained[:3]
+    p32 = substep_multi_reference(spec, 10, *args, **sw)
+    p64 = substep_multi_reference(spec64, 10, *(x.double() for x in args), sensors=sens64,
+                                  bufs=bufs.double(), eps=eps.double())
+    torch.cuda.synchronize()
+    carried = all(torch.equal(k2[i], chained[i]) for i in range(7))
+    same = all(torch.equal(ks[i], k2[i]) for i in range(7))
+    report = {f"K2 {n}": _gate_dist_vs_f64("", k2[i], p32[i], p64[i], check=False)
+              for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse"))}
+    print(f"[phase 1] cassie n_sub=10 B={B_MAIN}: K2 equal to 10 chained K2 launches at n_sub=1: "
+          f"{carried}; K2 with sensors' physics equal to K2's: {same}; vs the f64 plain version "
+          "(reported): " + json.dumps(report))
+    if not (carried and same):
+        raise AssertionError(f"cassie n_sub=10: K2 not the chained single substeps ({carried}) or "
+                             f"the sensor variant's physics not K2's ({same})")
+
+    # one randomized K2 launch on the Cassie spec (the rows and springs are shared)
+    args = _cassie_inputs(eng, gen, B_MAIN)
+    mp, mpn = _rand_params(eng, gen, B_MAIN), _rand_params(eng, gen, B_MAIN, nominal=True)
+    before = _counts()["rand_substep_multi"]
+    kr = substep_batched_multi(spec, 1, *args, mp=mp)
+    nominal = _nominal_gap(substep_batched_multi(spec, 1, *args, mp=mpn),
+                           substep_batched_multi(spec, 1, *args))
+    launched = _counts()["rand_substep_multi"] - before
+    pr = substep_multi_reference(spec, 1, *args, mp=mp)
+    pr64 = substep_multi_reference(spec64, 1, *(x.double() for x in args), mp=mp.double())
+    torch.cuda.synchronize()
+    gates = held("cassie randomized n_sub=1", {"K2 randomized": kr}, pr, pr64)
+    print(f"[phase 1] cassie randomized K2 n_sub=1 B={B_MAIN} ({launched + 1} launches with the "
+          f"nominal run): nominal parameters vs the unrandomized K2 {nominal:.3g}; vs the f64 "
+          "plain version: " + json.dumps(gates))
+    if launched != 2 or nominal > NOMINAL_TOL:
+        raise AssertionError(f"cassie randomized K2: {launched} launches, nominal gap {nominal}")
+
+    # the loop tied to the world: one distance row, no contacts, well posed
+    toy = _world_loop_toy(dev)
+    tspec = toy.substep_spec
+    kw = dict(generator=gen, device=dev)
+    tq = 0.4 * torch.rand(B_MAIN, 2, **kw) - 0.2 + 0.6
+    tv, ttau = torch.randn(B_MAIN, 2, **kw), 5.0 * torch.randn(B_MAIN, 2, **kw)
+    tlam, tw = 0.1 * torch.randn(B_MAIN, 1, **kw), torch.zeros(B_MAIN, 6, device=dev)
+    before = _counts()["substep"]
+    kt = substep_batched(tspec, tq, tv, ttau, tlam, tw)
+    rt = substep_reference(tspec, tq, tv, ttau, tlam, tw)
+    torch.cuda.synchronize()
+    et = {n: _max_err(a, b) for n, a, b in zip(names, kt, rt)}
+    loaded = float((rt[2].abs() > 1e-3).double().mean())
+    print(f"[phase 1] world-anchored loop (nv 2, nc 1, no contact) K3 B={B_MAIN}: "
+          f"{json.dumps(et)}; share of envs whose row carries load {loaded:.3f}")
+    if _counts()["substep"] - before != 1 or not all(e <= TOL for e in et.values()) \
+            or loaded < 0.5:
+        raise AssertionError(f"world-anchored loop: K3 disagrees with its plain version {et} "
+                             f"(row loaded in {loaded} of the envs)")
+    return worst
+
+
 def _as_f64(state):
     sim = type(state.sim)(**{k: getattr(state.sim, k).double() for k in state.sim.FIELDS})
     return state.replace(sim=sim, obs=state.obs.double())
@@ -1192,20 +1586,20 @@ def _randomization():
 
 
 def _ab_sensor_step(env, state, act_gen, dev, kw=None, fused="substep_multi_sensors",
-                    chunked="substep_multi", label="sensor path"):
-    """One env step of a sensor path (the env ``kw`` builds) from the same
-    state and eps, fused (one launch of K2 with the sensor stage, the
-    instantiation ``fused``) and chunked (4 launches of the sensor-free
-    instantiation ``chunked`` at n_sub = 1, each followed by the plain
-    update), each held env by env against the float64 plain env (chunked,
-    inline engine) beside the float32 plain env; the buffers scaled per
-    group as in phase 1."""
-    from jiminy_tpu_torch.envs import ANYmalEnv
-
+                    chunked="substep_multi", label="sensor path", gate=None):
+    """One env step of a sensor path (the env of ``env``'s class that
+    ``kw`` builds) from the same state and eps, fused (one launch of K2
+    with the sensor stage, the instantiation ``fused``) and chunked (one
+    launch of the sensor-free instantiation ``chunked`` at n_sub = 1 per
+    sensor update, each followed by the plain update), each held env by
+    env against the float64 plain env (chunked, inline engine) beside the
+    float32 plain env by ``gate`` (`_gate_vs_f64` by default); the
+    buffers scaled per group as in phase 1."""
     kw = kw or SENSOR_KW
-    plain = ANYmalEnv(constraint_solver="inline", device=dev, **kw)
-    plain64 = ANYmalEnv(constraint_solver="inline", dtype=torch.float64, device=dev, **kw)
-    a = _uniform(act_gen, dev)
+    gate = gate or _gate_vs_f64
+    plain = type(env)(constraint_solver="inline", device=dev, **kw)
+    plain64 = type(env)(constraint_solver="inline", dtype=torch.float64, device=dev, **kw)
+    a = _uniform(act_gen, dev, env.motors.nm)
     eps = env._sensor_eps(state.generator, B_MAIN, env.n_obs_updates)
     st64 = _as_f64(state)
     st64 = st64.replace(info={k: x.double() if x.is_floating_point() else x
@@ -1221,7 +1615,8 @@ def _ab_sensor_step(env, state, act_gen, dev, kw=None, fused="substep_multi_sens
         launched[name] = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
         del e._sensor_eps
     env._fused_sensors = True
-    if launched != {"fused": {fused: 1}, "chunked": {chunked: 4}, "plain": {}, "plain64": {}}:
+    if launched != {"fused": {fused: 1}, "chunked": {chunked: env.n_obs_updates}, "plain": {},
+                    "plain64": {}}:
         raise AssertionError(f"sensor A/B: unexpected K2 launches {launched}")
     scale = _reading_scale(env.engine._sensor_spec(env.sensors, 1),
                          outs["plain64"].info["sensor_bufs"])
@@ -1241,12 +1636,12 @@ def _ab_sensor_step(env, state, act_gen, dev, kw=None, fused="substep_multi_sens
     for name in ("fused", "chunked"):
         k, p32, p64 = outs[name], outs["plain"], outs["plain64"]
         gates[name] = {
-            "q": _gate_vs_f64(f"sensor env step {name} q", k.sim.q, p32.sim.q, p64.sim.q),
-            "v": _gate_vs_f64(f"sensor env step {name} v", k.sim.v, p32.sim.v, p64.sim.v),
-            "bufs_scaled": _gate_vs_f64(
-                f"sensor env step {name} bufs", k.info["sensor_bufs"].double() / scale,
+            "q": gate(f"{label} env step {name} q", k.sim.q, p32.sim.q, p64.sim.q),
+            "v": gate(f"{label} env step {name} v", k.sim.v, p32.sim.v, p64.sim.v),
+            "bufs_scaled": gate(
+                f"{label} env step {name} bufs", k.info["sensor_bufs"].double() / scale,
                 p32.info["sensor_bufs"].double() / scale, p64.info["sensor_bufs"] / scale),
-            "obs": _gate_vs_f64(f"sensor env step {name} obs", k.obs, p32.obs, p64.obs),
+            "obs": gate(f"{label} env step {name} obs", k.obs, p32.obs, p64.obs),
         }
     print(f"[phase 2] {label}, one env step from the same state and eps, K2 launches "
           f"{json.dumps(launched)}, fused and chunked vs the f64 plain env: " + json.dumps(gates))
@@ -1285,8 +1680,8 @@ def _only(**launched) -> dict:
     return {name: launched.get(name, 0) for name in _counters()}
 
 
-def _uniform(gen, dev):
-    return torch.rand(B_MAIN, 12, generator=gen, device=dev) * 2.0 - 1.0
+def _uniform(gen, dev, nm=12):
+    return torch.rand(B_MAIN, nm, generator=gen, device=dev) * 2.0 - 1.0
 
 
 def _check_finite(state, label):
@@ -1300,7 +1695,7 @@ def _env_rate(env, state, act_gen, dev, steps, loops):
     """env-steps/s over ``loops`` timed loops of ``steps`` env steps."""
     rates = []
     for _ in range(loops):
-        acts = [_uniform(act_gen, dev) for _ in range(steps)]
+        acts = [_uniform(act_gen, dev, env.motors.nm) for _ in range(steps)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for a in acts:
@@ -1324,7 +1719,7 @@ def run(dev) -> None:
     print(f"[phase 0] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    from jiminy_tpu_torch.envs import ANYmalEnv
+    from jiminy_tpu_torch.envs import ANYmalEnv, CassieEnv
     from jiminy_tpu_torch.ops import _build
     from jiminy_tpu_torch.ops.constraint_solve import solve_batched, solve_reference
     from jiminy_tpu_torch.ops.substep_kernel import (
@@ -1366,7 +1761,7 @@ def run(dev) -> None:
         torch.cuda.synchronize()
         _reset_counts()
         for _ in range(steps):
-            st = env_.step(st, _uniform(act_gen, dev))
+            st = env_.step(st, _uniform(act_gen, dev, env_.motors.nm))
         torch.cuda.synchronize()
         path[label] = got = _counts()
         print(f"[phase 2] {label}, {steps} env steps at B={B_MAIN}: launches "
@@ -1378,16 +1773,18 @@ def run(dev) -> None:
               f"{int(st.done.sum())}/{B_MAIN}; mean reward {st.reward.mean().item():.4f}")
         return st
 
-    def drive_unfused(label, eng, model_params=None, **expect):
+    def drive_unfused(label, eng, model_params=None, walker=None, start=None, **expect):
         """3 env steps of an engine with ``substep_fusion=False`` (K3,
-        one launch per substep) from the main path's state, with each
-        env's ``model_params`` when given."""
-        sim = state.sim
+        one launch per substep) from the state ``start`` of the env
+        ``walker`` (the main path's by default), with each env's
+        ``model_params`` when given."""
+        walker = walker or env
+        sim = (start or state).sim
         torch.cuda.synchronize()
         _reset_counts()
         for _ in range(3):
-            u = env._action_to_command(_uniform(act_gen, dev), sim)
-            sim = eng.step(sim, u, n_substeps=env.n_substeps, model_params=model_params)
+            u = walker._action_to_command(_uniform(act_gen, dev, walker.motors.nm), sim)
+            sim = eng.step(sim, u, n_substeps=walker.n_substeps, model_params=model_params)
         torch.cuda.synchronize()
         path[label] = got = _counts()
         print(f"[phase 2] {label}, 3 env steps: launches "
@@ -1664,10 +2061,107 @@ def run(dev) -> None:
             entry(name, "jiminy_tpu_torch/csrc/substep_rand.cu",
                   "jiminy_tpu/ops/substep_kernel.py:507", path[launched_by[name]][name],
                   ms, plain_ms, n_bytes, n_ops)
+
+    # ---- Cassie, last: after one launch in the large frame (~40 KB of
+    # stack per thread; the CUDA runtime keeps the local memory it grew),
+    # the ANYmal frame's flat sensor K2 ran ~5 % slower for the rest of the
+    # process (this script, NVIDIA H100 80GB HBM3, 700 W), so the ANYmal
+    # numbers above come before any Cassie launch, as in a process that
+    # trains ANYmal alone
+    main_err.update(phase_cassie_vs_plain(dev))
+    # Cassie (A.12 with B.9): examples/train.py --env cassie, the large
+    # frame, the pushrods and shin springs on three paths
+    env_c = CassieEnv(device=dev, observe="state", **CASSIE_KW)
+    if env_c.engine.backend != "substep" or env_c.engine.substep_spec.n_dist != 2:
+        raise AssertionError("the Cassie env does not take the whole-substep kernel with its rods")
+    state_c = drive("cassie state path", env_c, 20, STEPS, substep_multi=STEPS)
+    _ab_cassie_substeps(env_c, state_c, act_gen, dev)
+    rod = _rod_error(env_c, state_c.sim)
+    settled = state_c.steps >= 5  # fresh episodes start with the loops open by the reset noise
+    rod_max = rod[settled].max().item()
+    print(f"[phase 2] cassie state path: pushrod |d − d₀| over the {int(settled.sum())} envs 5+ "
+          f"steps into their episode: max {rod_max:.3g} m, mean {rod[settled].mean().item():.3g} m "
+          f"(all envs: max {rod.max().item():.3g} m); base height mean "
+          f"{state_c.sim.q[:, 2].mean().item():.4f} m")
+    if rod_max > ROD_TOL or int(settled.sum()) < B_MAIN // 2:
+        raise AssertionError(f"the pushrod loops do not hold on the card: max |d − d₀| {rod_max}")
+    env_cs = CassieEnv(device=dev, **CASSIE_SENSOR_KW)
+    if not env_cs._fused_sensors:
+        raise AssertionError("the Cassie sensor env does not take the fused sensor path")
+    state_cs = drive("cassie sensor path", env_cs, 21, STEPS, substep_multi_sensors=STEPS)
+    if state_cs.obs.shape != (B_MAIN, 29):
+        raise AssertionError(f"cassie sensor obs of shape {tuple(state_cs.obs.shape)}")
+    # fused against chunked is held; over the env step's ten substeps the
+    # distance to the f64 env is reported only (ROADMAP C.2)
+    _ab_sensor_step(env_cs, state_cs, act_gen, dev, CASSIE_SENSOR_KW, label="cassie sensor path",
+                    gate=functools.partial(_gate_dist_vs_f64, check=False))
+    env_cp = CassieEnv(device=dev, **CASSIE_PUSH_KW)
+    state_cp = drive("cassie push path", env_cp, 22, STEPS, substep_multi=STEPS)
+    print(f"[phase 2] cassie push path: {int((state_cp.info['push_steps_left'] > 0).sum())}"
+          f"/{B_MAIN} envs being pushed")
+    drive("cassie constraint_solver='kernel'",
+          CassieEnv(device=dev, observe="state", constraint_solver="kernel", **CASSIE_KW), 23, 3,
+          constraint_solve=30)
+    eng_ck3 = _cassie_engine(dev, residual=False, fusion=False)
+    drive_unfused("cassie substep_fusion=False", eng_ck3, walker=env_c, start=state_c, substep=30)
+
+    rates_c = {}
+    for name, env_x, st_x in (("state", env_c, state_c), ("sensor", env_cs, state_cs),
+                              ("push", env_cp, state_cp)):
+        for _ in range(5):  # warm-up
+            st_x = env_x.step(st_x, _uniform(act_gen, dev, 10))
+        rates_c[name], _ = _env_rate(env_x, st_x, act_gen, dev, STEPS, 3)
+        print(f"[phase 3] env-steps/s at B={B_MAIN}, cassie {name} path: "
+              f"{[round(r, 1) for r in rates_c[name]]} (max {max(rates_c[name]):.1f})")
+
+    # Cassie (B.9 and the springs, the large frame): K2 over the env step's
+    # 10 substeps, with the sensor stage (10 updates), and K3
+    ceng = _cassie_engine(dev, residual=False, fusion=False)
+    cspec = ceng.substep_spec
+    cq, cv, ccmd, clam0, cwrench = cargs = _cassie_inputs(
+        ceng, torch.Generator(device=dev).manual_seed(25), B_MAIN)
+    ctau = ceng._joint_torque(ccmd, cq, cv)
+    c_sub = env_c.n_substeps
+    csens = SensorKernelSpec(ceng.tree, env_cs.sensors, env_cs.n_substeps_per_obs)
+    c_upd = c_sub // csens.k_obs
+    csuite = env_cs.sensors
+    cgen = torch.Generator(device=dev).manual_seed(26)
+    csw = dict(sensors=csens, bufs=csuite.flatten_buffers(csuite.reset(
+        csuite.sample_eps(cgen, B_MAIN), cq, cv)),
+        eps=torch.cat([csuite.sample_eps(cgen, B_MAIN) for _ in range(c_upd)], 1))
+    c_ops = B_MAIN * (c_sub * (_substep_flops(cspec) + _torque_flops(cspec)) + 2 * cspec.tree.nv)
+    print(f"[phase 3] cassie: {_substep_flops(cspec)} FLOP per env per substep (distance rows "
+          f"{_distance_flops(cspec)}, springs {_spring_flops(cspec)}, chain "
+          f"{_solve_flops(cspec.cfg)}), torque {_torque_flops(cspec)}; ANYmal's substep "
+          f"{_substep_flops(spec)}")
+    b9 = "jiminy_tpu/ops/substep_kernel.py:933"
+    entry(
+        "cassie_substep_multi", "jiminy_tpu_torch/csrc/substep.cu", b9,
+        path["cassie state path"]["substep_multi"],
+        _time_cuda(lambda: substep_batched_multi(cspec, c_sub, *cargs), 10),
+        _time_cuda(lambda: substep_multi_reference(cspec, c_sub, *cargs), 2),
+        _substep_multi_bytes(cspec, B_MAIN), c_ops,
+    )
+    entry(
+        "cassie_substep_multi_sensors", "jiminy_tpu_torch/csrc/substep.cu", b9,
+        path["cassie sensor path"]["substep_multi_sensors"],
+        _time_cuda(lambda: substep_batched_multi(cspec, c_sub, *cargs, **csw), 10),
+        _time_cuda(lambda: substep_multi_reference(cspec, c_sub, *cargs, **csw), 2),
+        _substep_multi_bytes(cspec, B_MAIN) + _sensor_bytes(csens, B_MAIN, c_upd),
+        c_ops + B_MAIN * c_upd * _sensor_flops(cspec, csens),
+    )
+    entry(
+        "cassie_substep", "jiminy_tpu_torch/csrc/substep.cu", b9,
+        path["cassie substep_fusion=False"]["substep"],
+        _time_cuda(lambda: substep_batched(cspec, cq, cv, ctau, clam0, cwrench), 20),
+        _time_cuda(lambda: substep_reference(cspec, cq, cv, ctau, clam0, cwrench), 3),
+        _substep_bytes(cspec, B_MAIN), B_MAIN * _substep_flops(cspec),
+    )
     print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_sensor_path": rates_s,
                       "env_steps_per_s_terrain_path": rates_t,
                       "env_steps_per_s_sim2real_path": rates_r,
-                      "env_steps_per_s_kernel_path": rates_k1, "nvcc_build_s": build}))
+                      "env_steps_per_s_kernel_path": rates_k1,
+                      "env_steps_per_s_cassie": rates_c, "nvcc_build_s": build}))
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ Models cross from the reference as numpy arrays: :func:`tree_from_arrays`
 takes every field of the reference's ``KinematicTree`` as a numpy array
 and returns the port's tree. :class:`TreeBuilder` is the subset of the
 reference's builder that the port's own model builders need (moving
-bodies, fixed-body fusion, frames and contact points).
+bodies with their armature, damping and joint springs, fixed-body
+fusion, frames, world-anchored frames included, and contact points).
 """
 
 from __future__ import annotations
@@ -133,6 +134,15 @@ class KinematicTree:
             out.append(S)
         return tuple(out)
 
+    @functools.cached_property
+    def sprung_joints(self) -> tuple[list, list]:
+        """(v offsets, q offsets) of the 1-DoF joints with a spring
+        (nonzero stiffness), read once per tree."""
+        stiff = self.stiffness.detach().cpu().numpy()
+        one_dof = [i for i, t in enumerate(self.joint_type)
+                   if t in (JointType.REVOLUTE, JointType.PRISMATIC) and stiff[self.v_off[i]] != 0]
+        return [self.v_off[i] for i in one_dof], [self.q_off[i] for i in one_dof]
+
     def joint_placement(self, i: int) -> Transform:
         return Transform(rot=self.jp_rot[i], pos=self.jp_pos[i])
 
@@ -254,10 +264,17 @@ class TreeBuilder:
         com=(0.0, 0.0, 0.0),
         inertia=None,
         joint_name: str | None = None,
+        armature=0.0,
+        damping=0.0,
+        stiffness=0.0,
         q_limits=None,
         v_max: float = 1e6,
         u_max: float = 1e6,
     ) -> int:
+        """A moving body under ``parent`` (−1: the world). ``armature``,
+        ``damping`` and ``stiffness`` are per joint dof (scalars
+        broadcast): a 1-DoF joint with stiffness k is a spring −k·q
+        toward 0. Returns the body's index."""
         nvj = JOINT_NV[joint_type]
         nqj = JOINT_NQ[joint_type]
         self.parent.append(parent)
@@ -280,9 +297,9 @@ class TreeBuilder:
         self.body_name.append(name)
         self.joint_name.append(joint_name or f"{name}_joint")
 
-        self.armature.append(np.zeros(nvj, np.float32))  # set by motors
-        self.damping.append(np.zeros(nvj, np.float32))
-        self.stiffness.append(np.zeros(nvj, np.float32))
+        for dst, x in ((self.armature, armature), (self.damping, damping),
+                       (self.stiffness, stiffness)):
+            dst.append(np.broadcast_to(np.asarray(x, np.float32), (nvj,)).copy())
         if q_limits is None:
             lo = np.full(nqj, -1e6, np.float32)
             hi = np.full(nqj, 1e6, np.float32)

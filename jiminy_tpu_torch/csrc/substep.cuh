@@ -25,12 +25,19 @@
 // instantiations), each env's row of packed model parameters replaces
 // the baked masses, first moments and inertias in RNEA and CRBA, the
 // armature on M's diagonal and, in K2's torque, the motor reduction and
-// friction (see `jt_load_inertials` below). No collision pairs, distance
-// rows, sphere contact sites or flexibility.
+// friction (see `jt_load_inertials` below). Closed loops
+// (`SubstepSpec.dist_constraints` and the distance rows of `_substep_math`)
+// are equality rows ahead of the bounds, and 1-DoF joint springs (the
+// spring branch of `_compute_tau` and the dt²·k, dt·k·v terms of
+// `_substep_math`) integrate implicitly; both are runtime branches on the
+// packed header, uniform across the warp, so a model without them runs
+// zero-trip loops (see `jt_distance_row` below). No collision pairs,
+// sphere contact sites or spherical flexibility.
 //
 // One substep (`jt_substep`, the counterpart of `_substep_math`) is, per
 // env: FK → RNEA bias with the root wrench → CRBA + armature + dt·damping
-// → bounds rows and contact rows color-major (flat basis t1 = (0,−1,0),
+// (+ dt²·stiffness) → distance rows, bounds rows and contact rows
+// color-major (flat basis t1 = (0,−1,0),
 // t2 = (1,0,0), n = e_z, or with GEN the basis of the ground's normal at
 // each contact; Baumgarte / velocity-barrier targets) → the
 // shared chain (solve_chain.cuh) → world impulses in the original
@@ -53,7 +60,11 @@
 // env and substep, 0.8–2.6 kFLOP (Stairs, Fourier with 16 terms, Perlin
 // with 3 octaves; chip_smoke.py `_ground_flops`): operation-bound too. The
 // model parameters (RAND) add each env's row (172 floats for ANYmal, 688 B)
-// and two multiplies per motor and substep: operation-bound still. This
+// and two multiplies per motor and substep: operation-bound still. Cassie
+// (nb 15, nv 20, nc 28 with its 2 distance rows, 10 substeps) takes the
+// large frame and ~1.4× ANYmal's operations per substep (chip_smoke.py
+// `_substep_flops`, with `_distance_flops` and `_spring_flops`):
+// operation-bound as well. This
 // design is far from that bound by choice: the TPU
 // kernel's lane-major layout (batch on the 128 vector lanes, the tree
 // unrolled into Python floats, the batch padded by repetition) does not
@@ -69,17 +80,21 @@
 //
 // Packed spec (built by ops/substep_kernel.py `SubstepSpec.packed`):
 //   ints:   [nb, nq, nv, ncp, nbj, nm, torque mode, ground mode, Fourier
-//           terms or Perlin octaves, 0] then parent,
+//           terms or Perlin octaves, n_dist] then parent,
 //           joint type, q_off, v_off (nb each), contact body, color
 //           order (ncp each), bounded bodies (nbj), motor q_idx, v_idx
-//           (nm each);
-//   floats: 16 scalars (JT_S_* below), then per body [axis 3, placement
+//           (nm each), per distance constraint its two bodies (−1: a
+//           point of the world);
+//   floats: 16 scalars (JT_S_* below; JT_S_SPRINGS is 1 when the tree has
+//           joint springs), then per body [axis 3, placement
 //           rotation 9 (row-major), placement position 3, mass, h = m·c
 //           3, rotational inertia about the origin 9], armature (nv),
 //           damping (nv), contact positions (3·ncp), bounds low, high
 //           (nbj each), motors: reduction, effort limit, velocity limit,
 //           dry friction, viscous friction, friction velocity, kp, kd
-//           (nm each).
+//           (nm each), per distance constraint [its two points in their
+//           bodies 3 + 3, the distance d₀, α/dt], and with springs the
+//           stiffness (nv).
 // Model parameters (RAND; ops/substep_kernel.py `SubstepSpec.n_mp`), one
 // row of n_mp floats per env: mass (nb), h (3·nb), origin inertia xx, yy,
 // zz, xy, xz, yz (6·nb), armature (nv), and for K2 motor gain (nm), motor
@@ -103,20 +118,31 @@ enum { JT_FREE = 0, JT_REVOLUTE = 1 };
 enum { JT_TORQUE_NONE = 0, JT_TORQUE_PD = 1, JT_TORQUE_DIRECT = 2 };
 enum {
   JT_S_DT = 0, JT_S_ALPHA_B, JT_S_ALPHA_C_DT, JT_S_SLOP, JT_S_MAX_CORR,
-  JT_S_MARGIN, JT_S_FRICTION, JT_S_GROUND, JT_S_GX, JT_S_GY, JT_S_GZ
+  JT_S_MARGIN, JT_S_FRICTION, JT_S_GROUND, JT_S_GX, JT_S_GY, JT_S_GZ, JT_S_SPRINGS
 };
 
 struct SpecView {
-  int nb, nq, nv, ncp, nbj, nm, mode, gmode, gn;
+  int nb, nq, nv, ncp, nbj, nm, mode, gmode, gn, n_dist;
+  bool springs;
   const int *parent, *jtype, *q_off, *v_off, *cbody, *corder, *bbody, *mq, *mv;
   const float *scal, *body, *arm, *damp, *cpos, *blo, *bhi;
   const float *red, *elim, *vlim, *fdry, *fvis, *feps, *kp, *kd;
 };
 
+// The distance constraints' bodies and floats and the stiffness follow the
+// motor arrays, derived where they are read.
+__device__ __forceinline__ const int* jt_dist_bodies(const SpecView& s) { return s.mv + s.nm; }
+__device__ __forceinline__ const float* jt_dist_floats(const SpecView& s) { return s.kd + s.nm; }
+__device__ __forceinline__ const float* jt_stiffness(const SpecView& s) {
+  return s.kd + s.nm + 8 * s.n_dist;
+}
+
 __device__ __forceinline__ SpecView jt_view(const int* si, const float* sf) {
   SpecView s;
   s.nb = si[0]; s.nq = si[1]; s.nv = si[2]; s.ncp = si[3];
   s.nbj = si[4]; s.nm = si[5]; s.mode = si[6]; s.gmode = si[7]; s.gn = si[8];
+  s.n_dist = si[9];
+  s.springs = sf[JT_S_SPRINGS] != 0.f;
   const int* p = si + JT_HDR_I;
   s.parent = p; p += s.nb;
   s.jtype = p; p += s.nb;
@@ -302,7 +328,8 @@ __device__ __forceinline__ void jt_local_pose(const SpecView& s, int i, const fl
 
 // ---- actuation torque (engine._joint_torque for a declarative controller:
 // PD or direct command → effort clamp → reduction → velocity derate →
-// dry + viscous friction, then joint damping). With RAND, mscale is the
+// dry + viscous friction, then joint damping, then the 1-DoF joint
+// springs' −k·q). With RAND, mscale is the
 // env's motor tail [gain (nm) | friction scale (nm)]: the reduction times
 // the gain, the friction torque times the scale (`_compute_tau`'s order).
 __device__ __forceinline__ float sign_of(float x) { return (float)((x > 0.f) - (x < 0.f)); }
@@ -331,6 +358,14 @@ __device__ __forceinline__ void jt_torque(const SpecView& s, const float* q, con
     tau[vi] = tm - fric;
   }
   for (int r = 0; r < s.nv; ++r) tau[r] = tau[r] - s.damp[r] * v[r];
+  if (s.springs) {  // the spec's, uniform across the warp
+    const float* stiff = jt_stiffness(s);
+    for (int i = 0; i < s.nb; ++i) {
+      if (s.jtype[i] == JT_FREE) continue;
+      const float k = stiff[s.v_off[i]];
+      if (k != 0.f) tau[s.v_off[i]] = tau[s.v_off[i]] - k * q[s.q_off[i]];
+    }
+  }
 }
 
 // ---- the ground query (counterpart of `_ground_query`; the plain
@@ -463,6 +498,49 @@ __device__ __forceinline__ void jt_load_inertials(const SpecView& s, const float
     Ic[i][7] = I6[3]; Ic[i][8] = I6[1]; Ic[i][9] = I6[5];
     Ic[i][10] = I6[4]; Ic[i][11] = I6[5]; Ic[i][12] = I6[2];
   }
+}
+
+// ---- one distance-constraint row (the closed loops of `_substep_math`):
+// p_k = R_bk·p_k,local + x_bk (the constant itself for a body < 0), d =
+// √(|p₁ − p₂|² + 1e-24), u = (p₁ − p₂)/max(d, 1e-9), the row u·(J_p(b₁, p₁)
+// − J_p(b₂, p₂)) written into Jrow (zeroed by the caller; a body < 0 adds
+// nothing), the Baumgarte target −(α/dt)·(d − d₀) returned. c: the
+// constraint's packed floats [p₁ local 3, p₂ local 3, d₀, α/dt].
+__device__ __forceinline__ float jt_distance_row(const SpecView& s, const float (*xwR)[9],
+                                                 const float (*xwp)[3], int b1, int b2,
+                                                 const float* c, float* Jrow) {
+  float p[2][3], d3[3], u[3], col[6];
+  const int bs[2] = {b1, b2};
+  for (int k = 0; k < 2; ++k) {
+    if (bs[k] < 0) {
+      for (int e = 0; e < 3; ++e) p[k][e] = c[3 * k + e];
+    } else {
+      mat3_vec(xwR[bs[k]], c + 3 * k, p[k]);
+      for (int e = 0; e < 3; ++e) p[k][e] += xwp[bs[k]][e];
+    }
+  }
+  for (int e = 0; e < 3; ++e) d3[e] = p[0][e] - p[1][e];
+  const float d = sqrtf(dot3(d3, d3) + 1e-24f);
+  for (int e = 0; e < 3; ++e) u[e] = d3[e] / fmaxf(d, 1e-9f);
+  for (int k = 0; k < 2; ++k) {
+    const float sign = k == 0 ? 1.f : -1.f;
+    for (int j = bs[k]; j >= 0; j = s.parent[j]) {
+      const int jt = s.jtype[j], vo = s.v_off[j];
+      float r3[3];
+      for (int e = 0; e < 3; ++e) r3[e] = p[k][e] - xwp[j][e];
+      for (int cc = 0; cc < joint_nv(jt); ++cc) {
+        float wc[3], vc[3], wr[3];
+        subspace_col(jt, s.body + JT_BODY_F * j, cc, col);
+        mat3_vec(xwR[j], col, wc);
+        mat3_vec(xwR[j], col + 3, vc);
+        cross3(wc, r3, wr);
+        float lin[3];
+        for (int e = 0; e < 3; ++e) lin[e] = vc[e] + wr[e];
+        Jrow[vo + cc] += sign * dot3(u, lin);
+      }
+    }
+  }
+  return -c[7] * (d - c[6]);
 }
 
 // ---- one impulse substep of one env (counterpart of `_substep_math`).
@@ -617,28 +695,42 @@ __device__ __forceinline__ float jt_substep(
   for (int r = 0; r < nv; ++r) {
     if constexpr (RAND) M[r * NMAX + r] += mp[10 * nb + r];
     else M[r * NMAX + r] += s.arm[r];
-    M[r * NMAX + r] += dt * s.damp[r];
-    pf[r] = tau[r] - bias[r];
+    if (s.springs) {  // (M + dt·C + dt²·K)·Δv = dt·(τ − C·v − dt·K·v − bias)
+      const float k = jt_stiffness(s)[r];
+      M[r * NMAX + r] += dt * s.damp[r] + dt * dt * k;
+      pf[r] = (tau[r] - dt * k * v[r]) - bias[r];
+    } else {
+      M[r * NMAX + r] += dt * s.damp[r];
+      pf[r] = tau[r] - bias[r];
+    }
   }
 
-  // ---- rows: bounds, then contacts color-major
+  // ---- rows: distance constraints, bounds, then contacts color-major
   for (int r = 0; r < nc * NMAX; ++r) J[r] = 0.f;
+  const int nd = s.n_dist;
+  for (int c = 0; c < nd; ++c) {
+    const int* bodies = jt_dist_bodies(s) + 2 * c;
+    target[c] = jt_distance_row(s, xwR, xwp, bodies[0], bodies[1], jt_dist_floats(s) + 8 * c,
+                                J + c * NMAX);
+    active[c] = 1.f;
+    mu[c] = 0.f;
+  }
   const float alpha_b = s.scal[JT_S_ALPHA_B];
   for (int t = 0; t < s.nbj; ++t) {
-    const int i = s.bbody[t];
+    const int i = s.bbody[t], row = nd + t;
     const float qj = q[s.q_off[i]];
     const float d_lo = qj - s.blo[t], d_hi = s.bhi[t] - qj;
     const float dist = fminf(d_lo, d_hi);
-    J[t * NMAX + s.v_off[i]] = d_lo < d_hi ? 1.f : -1.f;
-    target[t] = (dist < 0.f ? -alpha_b * dist : -dist) / dt;
-    active[t] = 1.f;
-    mu[t] = 0.f;
+    J[row * NMAX + s.v_off[i]] = d_lo < d_hi ? 1.f : -1.f;
+    target[row] = (dist < 0.f ? -alpha_b * dist : -dist) / dt;
+    active[row] = 1.f;
+    mu[row] = 0.f;
   }
   const float friction = s.scal[JT_S_FRICTION];
   float basis[GEN ? NCMAX / 3 : 1][9];  // GEN: per contact, color order
   for (int jc = 0; jc < s.ncp; ++jc) {
     const int k = s.corder[jc], b = s.cbody[k];
-    const int row = s.nbj + 3 * jc;
+    const int row = nd + s.nbj + 3 * jc;
     float pt[3], r3[3];
     mat3_vec(xwR[b], s.cpos + 3 * k, pt);
     for (int e = 0; e < 3; ++e) pt[e] += xwp[b][e];
@@ -686,7 +778,7 @@ __device__ __forceinline__ float jt_substep(
 
   // ---- world impulses, original contact order: t1·λ₀ + t2·λ₁ + n·λ₂
   for (int jc = 0; jc < s.ncp; ++jc) {
-    const int k = s.corder[jc], row = s.nbj + 3 * jc;
+    const int k = s.corder[jc], row = nd + s.nbj + 3 * jc;
     if constexpr (GEN) {
       const float* bs = basis[jc];
       for (int e = 0; e < 3; ++e)
@@ -941,9 +1033,14 @@ __global__ void __launch_bounds__(JT_THREADS) substep_kernel(
 // ---- K2: n_sub substeps, (q, v, λ) resident, τ recomputed per substep;
 // with SENS, the sensor stage after every k_obs-th substep; with GEN, an
 // analytic ground per env; with RAND, each env's model parameters (mp:
-// B × n_mp), the motor tail scaling τ
+// B × n_mp), the motor tail scaling τ. One block per SM is all the launch
+// bounds ask for: ptxas then gives each instantiation the registers it
+// needs instead of holding some at 96 and spilling (with the distance
+// rows and springs in the body and the bounds left at 32 threads alone,
+// the ANYmal sensor instantiation spilled 120 B and ran 3.4 % slower than
+// before them: chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W).
 template <int NMAX, int NCMAX, int NBMAX, bool SENS, bool GEN, bool RAND>
-__global__ void __launch_bounds__(JT_THREADS) substep_multi_kernel(
+__global__ void __launch_bounds__(JT_THREADS, 1) substep_multi_kernel(
     const int* __restrict__ si, const float* __restrict__ sf,
     const float* __restrict__ q, const float* __restrict__ v,
     const float* __restrict__ cmd, const float* __restrict__ lam0,
@@ -1020,8 +1117,11 @@ extern "C" const char* jt_substep_error_string(int code) {
 
 // n_mp_min: the narrowest model-parameter row the kernel reads (K3:
 // 10·nb + nv; K2: with the motor tail); this library takes the model
-// parameters if and only if it holds the RAND instantiations
-static int jt_check_dims(int B, int nb, int nq, int nv, int nc, int nm,
+// parameters if and only if it holds the RAND instantiations. The layout
+// must be the one the kernel writes its rows in: n_dist single-row
+// equality blocks (0, 1), …, (n_dist − 1, 1), then the bounds span at
+// n_dist, then the contact colors.
+static int jt_check_dims(int B, int nb, int nq, int nv, int nc, int n_dist, int nm,
                          int iters, const float* gc, int n_gc, const float* mp,
                          int n_mp, int n_mp_min, const int* layout, int layout_len,
                          BlockLayout* lay) {
@@ -1029,15 +1129,22 @@ static int jt_check_dims(int B, int nb, int nq, int nv, int nc, int nm,
       nb > JT_SUB_MAX_NB || nv > JT_SUB_MAX_N || nc > JT_SUB_MAX_NC ||
       nq < nv || nq > nv + JT_NQ_EXTRA || nm > nv || n_gc < 0 || n_gc > JT_GC_MAX ||
       (n_gc > 0) != (gc != nullptr) || (mp != nullptr) != JT_RAND ||
-      (JT_RAND ? n_mp < n_mp_min : n_mp != 0))
+      (JT_RAND ? n_mp < n_mp_min : n_mp != 0) || n_dist < 0 || n_dist > nc)
     return (int)cudaErrorInvalidValue;
-  return jt_parse_layout(layout, layout_len, nc, lay);
+  const int err = jt_parse_layout(layout, layout_len, nc, lay);
+  if (err != (int)cudaSuccess) return err;
+  bool ok = lay->n_eq == n_dist && (lay->bounds_size == 0 || lay->bounds_start == n_dist);
+  for (int e = 0; e < lay->n_eq; ++e) ok = ok && lay->eq[e][0] == e && lay->eq[e][1] == 1;
+  for (int g = 0; g < lay->n_colors; ++g)
+    ok = ok && lay->colors[g][0] >= n_dist + lay->bounds_size;
+  return ok ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
 // the ANYmal main path takes the smallest frame
 static bool jt_small(int nb, int nv, int nc) { return nb <= 13 && nv <= 18 && nc <= 24; }
 
-// K3. si/sf: the packed spec; wrench (B, 6); fc (B, 3·ncp); gc (B, n_gc)
+// K3. si/sf: the packed spec; n_dist its distance rows (the header's);
+// wrench (B, 6); fc (B, 3·ncp); gc (B, n_gc)
 // the ground coefficients (null, 0 on flat ground); mp (B, n_mp) the model
 // parameters (null, 0 in the nominal library; required in the randomized
 // one).
@@ -1045,12 +1152,12 @@ extern "C" int jt_substep(
     const int* si, const float* sf, const float* q, const float* v,
     const float* tau, const float* lam0, const float* wrench, float* q_out,
     float* v_out, float* lam_out, float* res, float* fc, int B, int nb,
-    int nq, int nv, int nc, const float* gc, int n_gc, const float* mp,
+    int nq, int nv, int nc, int n_dist, const float* gc, int n_gc, const float* mp,
     int n_mp, const int* layout, int layout_len, int iters, float dt,
     float relax, float reg, int compute_residual, void* stream) {
   BlockLayout lay;
-  const int err = jt_check_dims(B, nb, nq, nv, nc, 0, iters, gc, n_gc, mp, n_mp, 10 * nb + nv,
-                                layout, layout_len, &lay);
+  const int err = jt_check_dims(B, nb, nq, nv, nc, n_dist, 0, iters, gc, n_gc, mp, n_mp,
+                                10 * nb + nv, layout, layout_len, &lay);
   if (err != (int)cudaSuccess) return err;
   if (B == 0) return (int)cudaSuccess;
   SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
@@ -1077,12 +1184,12 @@ static int jt_multi_launch(
     const int* si, const float* sf, const float* q, const float* v,
     const float* cmd, const float* lam0, const float* wrench, float* q_out,
     float* v_out, float* lam_out, float* res, float* fc, float* a_out,
-    float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int nm,
+    float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int n_dist, int nm,
     const float* gc, int n_gc, const float* mp, int n_mp, const SensParams& sp,
     const int* layout, int layout_len, int iters, float dt, float relax, float reg,
     int compute_residual, void* stream) {
   BlockLayout lay;
-  const int err = jt_check_dims(B, nb, nq, nv, nc, nm, iters, gc, n_gc, mp, n_mp,
+  const int err = jt_check_dims(B, nb, nq, nv, nc, n_dist, nm, iters, gc, n_gc, mp, n_mp,
                                 10 * nb + nv + 2 * nm, layout, layout_len, &lay);
   if (err != (int)cudaSuccess) return err;
   if (n_sub < 1) return (int)cudaErrorInvalidValue;
@@ -1110,15 +1217,15 @@ extern "C" int jt_substep_multi(
     const int* si, const float* sf, const float* q, const float* v,
     const float* cmd, const float* lam0, const float* wrench, float* q_out,
     float* v_out, float* lam_out, float* res, float* fc, float* a_out,
-    float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int nm,
+    float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int n_dist, int nm,
     const float* gc, int n_gc, const float* mp, int n_mp, const int* layout,
     int layout_len, int iters, float dt, float relax, float reg,
     int compute_residual, void* stream) {
   const SensParams sp = {nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 1};
   return jt_multi_launch<false>(si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc,
-                                a_out, tau_out, B, n_sub, nb, nq, nv, nc, nm, gc, n_gc, mp, n_mp,
-                                sp, layout, layout_len, iters, dt, relax, reg, compute_residual,
-                                stream);
+                                a_out, tau_out, B, n_sub, nb, nq, nv, nc, n_dist, nm, gc, n_gc,
+                                mp, n_mp, sp, layout, layout_len, iters, dt, relax, reg,
+                                compute_residual, stream);
 }
 
 // K2 with the sensor stage. gi/gf: the packed suite; bufs_in, bufs_out
@@ -1129,7 +1236,7 @@ extern "C" int jt_substep_multi_sensors(
     float* v_out, float* lam_out, float* res, float* fc, float* a_out,
     float* tau_out, const int* gi, const float* gf, const float* bufs_in,
     const float* eps, float* bufs_out, int B, int n_sub, int nb, int nq,
-    int nv, int nc, int nm, int n_groups, int n_buf, int n_eps, int k_obs,
+    int nv, int nc, int n_dist, int nm, int n_groups, int n_buf, int n_eps, int k_obs,
     const float* gc, int n_gc, const float* mp, int n_mp, const int* layout,
     int layout_len, int iters, float dt, float relax, float reg,
     int compute_residual, void* stream) {
@@ -1139,7 +1246,7 @@ extern "C" int jt_substep_multi_sensors(
     return (int)cudaErrorInvalidValue;
   const SensParams sp = {gi, gf, bufs_in, eps, bufs_out, n_groups, n_buf, n_eps, k_obs};
   return jt_multi_launch<true>(si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc,
-                               a_out, tau_out, B, n_sub, nb, nq, nv, nc, nm, gc, n_gc, mp, n_mp,
-                               sp, layout, layout_len, iters, dt, relax, reg, compute_residual,
-                               stream);
+                               a_out, tau_out, B, n_sub, nb, nq, nv, nc, n_dist, nm, gc, n_gc,
+                               mp, n_mp, sp, layout, layout_len, iters, dt, relax, reg,
+                               compute_residual, stream);
 }

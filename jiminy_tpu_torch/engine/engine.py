@@ -48,9 +48,16 @@ whole-substep kernels (K2 with τ scaled in-kernel; K3 with τ from the
 scaled motors), and the plain physics of ``"kernel"`` and ``"inline"``
 reads the same rows.
 
+Closed loops: ``constraints`` (distance constraints,
+:class:`~jiminy_tpu_torch.engine.constraints.DistanceConstraint`) are
+equality rows of every substep, stacked ahead of the joint bounds and
+contacts, on every backend. Springs on 1-DoF joints (the tree's
+``stiffness``) are part of the actuation torque (−k·q) and integrate
+implicitly with the joint damping.
+
 Not ported yet (each raises): penalty contacts and other steppers
-(ROADMAP A.16), kinematic constraints and collision pairs (A.12, A.13),
-flexibility and joint springs (A.14).
+(ROADMAP A.16), collision pairs (A.13), spherical flexibility (A.14),
+kinematic constraints other than the distance constraint (A.22).
 """
 
 from __future__ import annotations
@@ -147,7 +154,9 @@ class Engine:
     ``controller`` is None (the command goes to the motors, or is the
     joint torque when there are none), a :class:`PDController`, or any
     ``fn(cmd, q, v) → motor command``. The first two are declarative, so
-    the fused kernel can evaluate them in-kernel."""
+    the fused kernel can evaluate them in-kernel. ``constraints``: the
+    kinematic constraints of the model (distance constraints, e.g.
+    Cassie's pushrods), rows of every substep's solve."""
 
     def __init__(
         self,
@@ -156,6 +165,7 @@ class Engine:
         ground=None,
         motors: Motors | None = None,
         controller=None,
+        constraints=(),
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -176,9 +186,11 @@ class Engine:
         elif controller is None and self.motors is not None:
             torque = substep_ops.TorqueSpec.from_motors(self.motors)
         self.controller = controller
+        self.constraints = tuple(constraints)
         # the static substep: row layout, solve configuration, constants
         self.substep_spec = spec = substep_ops.SubstepSpec(
-            self.tree, opts, self.ground, motors=self.motors, torque=torque
+            self.tree, opts, self.ground, motors=self.motors, torque=torque,
+            dist_constraints=self.constraints,
         )
         self.nc = spec.nc
         self.backend = opts.constraint_solver
@@ -213,14 +225,14 @@ class Engine:
 
     def _joint_torque(self, u, q, v, mscale=None):
         """Command → actuation torque: inner-loop controller, motor
-        model, joint damping. ``mscale``: each env's motor (gain,
-        friction scale), (B, nm) each, or None."""
+        model, joint damping, 1-DoF joint springs (−k·q). ``mscale``:
+        each env's motor (gain, friction scale), (B, nm) each, or None."""
         if self.substep_spec.torque is not None:  # declarative: PD or direct
             return substep_ops.torque_reference(self.substep_spec, q, v, u, mscale)
         if self.controller is not None:
             u = self.controller(u, q, v)
         tau = self.motors.compute_effort(u, v, mscale) if self.motors is not None else u
-        return tau - self.tree.damping * v
+        return substep_ops.with_springs(self.tree, q, tau - self.tree.damping * v)
 
     def _pack_model_params(self, model_params):
         """Each env's packed model parameters (B, n_mp) in the tree's
@@ -281,7 +293,7 @@ class Engine:
 
     def _impulse_substep(self, q, v, u, lam0, wrench, gc, mp=None):
         """One semi-implicit Euler substep with velocity-level PGS impulses
-        for joint bounds and ground contacts (``gc``: the per-env ground
+        for distance constraints, joint bounds and ground contacts (``gc``: the per-env ground
         coefficients or None; ``mp``: the per-env packed model parameters
         or None). Returns (q⁺, v⁺, contact_forces, residual, λ, a, τ)."""
         spec, dt = self.substep_spec, self.substep_spec.dt

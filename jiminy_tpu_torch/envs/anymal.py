@@ -15,10 +15,11 @@ analytic staircase 0.4 m × 0.08 m, 10 steps, 5 cm ramps); these four run
 in the whole-substep kernels. ``"perlin_grid"`` is one shared bilinear
 heightmap from ``terrain_seed`` with a flat spawn disk and spawns within
 4 m, on the plain physics around the chain kernel. ``push_magnitude``
-(N) turns pushes on; ``push_prob``, ``push_duration`` and
+(N) turns pushes on; ``push_prob``, ``push_duration``,
 ``model_randomization`` (per-episode masses, centres of mass, inertias,
-armature, motor gains and friction, sensor offsets) pass through to
-:class:`WalkerEnv`. Other options raise ``NotImplementedError`` naming
+armature, motor gains and friction, sensor offsets) and ``constraints``
+(kinematic constraints, of which the distance constraint is ported) pass
+through to :class:`WalkerEnv`. Other options raise ``NotImplementedError`` naming
 the ROADMAP item that ports them.
 """
 
@@ -33,17 +34,10 @@ from jiminy_tpu_torch.engine.ground import (
     sample_perlin_ground,
 )
 from jiminy_tpu_torch.engine.terrain import perlin_ground
-from jiminy_tpu_torch.envs.locomotion import WalkerEnv
+from jiminy_tpu_torch.envs.locomotion import WalkerEnv, check_options
 from jiminy_tpu_torch.models.quadruped import make_anymal, stand_q
 
-_PASSED_ON = ("push_prob", "push_duration", "model_randomization")
-_LATER = {
-    "constraints": "A.12 (closed loops)",
-    "collision_pairs": "A.13 (body-body collision)",
-    "reward_fn": "A.17 (declarative layer)",
-    "termination_fn": "A.17 (declarative layer)",
-    "engine_options": "A.16 (paths off the impulse engine)",
-}
+_PASSED_ON = ("push_prob", "push_duration", "model_randomization", "constraints")
 
 
 class ANYmalEnv(WalkerEnv):
@@ -75,14 +69,7 @@ class ANYmalEnv(WalkerEnv):
         dtype=torch.float32,
         **kwargs,
     ):
-        for k in kwargs:
-            if k in _PASSED_ON:
-                continue
-            if k not in _LATER:
-                raise TypeError(f"ANYmalEnv: unexpected argument {k!r}")
-            raise NotImplementedError(
-                f"ANYmalEnv({k}=...) is not ported yet (ROADMAP {_LATER[k]})"
-            )
+        check_options("ANYmalEnv", kwargs, _PASSED_ON)
         dev = resolve_device(device)
         ground, sampler, spawn_radius = None, None, 0.0
         if terrain == "fourier":

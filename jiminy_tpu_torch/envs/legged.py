@@ -1,0 +1,90 @@
+"""The Cassie biped env.
+
+Counterpart of ``jiminy_tpu/envs/legged.py``'s ``CassieEnv`` (the
+reference's ``CassieJiminyEnv``): a :class:`WalkerEnv` on the closed-loop
+biped of :mod:`jiminy_tpu_torch.models.biped`, its two pushrod distance
+constraints rows of every substep's solve and its shin springs in the
+actuation torque. The reference's defaults: 1 ms substeps, PD kp 150,
+kd 6, action scale 0.4, terminated below 0.6 m, observing through the
+pelvis IMU and the 10 motor encoders (``observe="sensors"``, sampled
+every ``sim_dt``). ``examples/train.py --env cassie`` trains it with
+``sim_dt=2e-3, target_speed=0.4``.
+
+Not ported: ``self_collision`` (ROADMAP A.13) and ``flexibility``
+(A.14); ``AtlasEnv`` waits for A.13, ``AntEnv`` and ``SpotmicroEnv`` for
+A.15.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from jiminy_tpu_torch import resolve_device
+from jiminy_tpu_torch.envs.locomotion import WalkerEnv, check_options
+from jiminy_tpu_torch.models.biped import make_cassie
+
+_PASSED_ON = ("push_prob", "push_duration", "model_randomization")
+
+
+class CassieEnv(WalkerEnv):
+    """Velocity-tracking biped locomotion with pushrod closed loops and
+    passive shin springs. Observation (B, 29); action (B, 10) in [-1, 1]."""
+
+    def __init__(
+        self,
+        step_dt: float = 0.02,
+        sim_dt: float = 1e-3,
+        max_steps: int = 1000,
+        kp: float = 150.0,
+        kd: float = 6.0,
+        action_scale: float = 0.4,
+        target_speed: float = 0.8,
+        pgs_iters: int = 8,
+        reset_noise: float = 0.1,
+        min_height: float = 0.6,
+        push_magnitude: float = 0.0,
+        observe: str = "sensors",
+        sensor_period: float | None = None,
+        sensor_delay: float = 0.0,
+        imu_noise: float = 0.0,
+        encoder_noise: float = 0.0,
+        self_collision: bool = False,
+        flexibility: bool = False,
+        constraint_solver: str = "auto",
+        device="cuda",
+        dtype=torch.float32,
+        **kwargs,
+    ):
+        check_options("CassieEnv", kwargs, _PASSED_ON)
+        if self_collision:
+            raise NotImplementedError(
+                "CassieEnv(self_collision=True) is not ported yet (ROADMAP A.13, B.7)"
+            )
+        dev = resolve_device(device)
+        tree, motors, sensors, constraints, stand = make_cassie(
+            sensor_period=sim_dt if sensor_period is None else sensor_period,
+            sensor_delay=sensor_delay, imu_noise=imu_noise, encoder_noise=encoder_noise,
+            flexibility=flexibility, device=dev, dtype=dtype,
+        )
+        super().__init__(
+            tree,
+            motors,
+            stand_pose=stand,
+            step_dt=step_dt,
+            sim_dt=sim_dt,
+            max_steps=max_steps,
+            kp=kp,
+            kd=kd,
+            action_scale=action_scale,
+            target_speed=target_speed,
+            pgs_iters=pgs_iters,
+            reset_noise=reset_noise,
+            min_height=min_height,
+            constraint_solver=constraint_solver,
+            observe=observe,
+            sensors=sensors,
+            push_magnitude=push_magnitude,
+            constraints=constraints,
+            device=dev,
+            **kwargs,
+        )

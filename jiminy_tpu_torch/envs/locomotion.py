@@ -26,7 +26,9 @@ push hooks:
   ``info["model_params"]`` and handed to the engine each step, and with ``sensor_bias > 0`` on the sensor path its
   calibration offsets, ``info["sensor_bias"]`` (B, n_eps), added to every
   corruption draw. The draws come from :meth:`WalkerEnv._model_draws`,
-  which a caller may replace.
+  which a caller may replace;
+- ``constraints``: the robot's kinematic constraints (Cassie's pushrod
+  distance constraints), handed to the engine.
 
 Action: (B, nm) PD target offsets around the stand pose in [-1, 1].
 Observation, ``observe="sensors"`` (the default, as in the reference):
@@ -58,6 +60,30 @@ from jiminy_tpu_torch.math import so3
 from jiminy_tpu_torch.math.spatial import mtv, mv
 
 
+# options of the reference's walker envs that the port does not take yet,
+# by the ROADMAP item that ports them
+UNPORTED_OPTIONS = {
+    "collision_pairs": "A.13 (body-body collision)",
+    "reward_fn": "A.17 (declarative layer)",
+    "termination_fn": "A.17 (declarative layer)",
+    "engine_options": "A.16 (paths off the impulse engine)",
+}
+
+
+def check_options(env: str, kwargs: dict, passed_on: tuple):
+    """Refuse an option of ``kwargs`` that is not in ``passed_on``:
+    NotImplementedError naming its ROADMAP item for an option still to
+    port, TypeError for an unknown one."""
+    for k in kwargs:
+        if k in passed_on:
+            continue
+        if k not in UNPORTED_OPTIONS:
+            raise TypeError(f"{env}: unexpected argument {k!r}")
+        raise NotImplementedError(
+            f"{env}({k}=...) is not ported yet (ROADMAP {UNPORTED_OPTIONS[k]})"
+        )
+
+
 class WalkerEnv(BaseEnv):
     def __init__(
         self,
@@ -85,6 +111,7 @@ class WalkerEnv(BaseEnv):
         push_prob: float = 0.01,  # per-step probability of a push onset
         push_duration: float = 0.1,  # s
         model_randomization: ModelRandomization | None = None,  # per-episode draws
+        constraints: tuple = (),  # kinematic constraints of the robot (closed loops)
         device="cuda",
     ):
         if observe == "sensors":
@@ -119,6 +146,7 @@ class WalkerEnv(BaseEnv):
             ground=ground if ground is not None else FlatGround(),
             motors=motors,
             controller=PDController(kp, kd),
+            constraints=constraints,
             device=device,
         )
         suite = None

@@ -4,8 +4,10 @@ Counterpart of ``jiminy_tpu/ops/substep_kernel.py``. One impulse substep
 of the engine, for every env of a batch:
 
     FK → RNEA bias (with a root wrench) → CRBA + armature + dt·damping
-    → joint-bound rows and ground-contact rows, color-major (the
-      contact basis from the ground's normal at each point)
+      + dt²·stiffness (implicit joint damping and springs)
+    → distance-constraint rows, joint-bound rows and ground-contact
+      rows, color-major (the contact basis from the ground's normal at
+      each point)
     → the solve chain (chol → M⁻¹[p|Jᵀ] → Delassus → grouped PGS)
     → world contact impulses → symplectic Euler
 
@@ -50,11 +52,17 @@ RNEA and CRBA, the armature on M's diagonal and, in K2's torque, the
 reduction and friction. Kinematics, Jacobians and integration stay on
 the nominal tree.
 
+Closed loops: the engine's distance constraints are rows of their own,
+one equality block each, ahead of the bounds (``SubstepSpec(...,
+dist_constraints=)``). Joint springs on 1-DoF joints (stiffness k) integrate
+implicitly: −k·q in the actuation torque, dt²·k on M's diagonal and
+−dt·k·v in the free-motion torque (the τ a step returns is the first).
+
 Out of scope (each raises, naming its ROADMAP item): other steppers and
 the penalty contact model (A.16), sphere contact sites and collision
-pairs (A.13, B.7), joint springs and flexibility (A.14, B.8), joints
-other than FREE and REVOLUTE (A.14, A.15); distance rows (B.9) have no
-entry here yet.
+pairs (A.13, B.7), springs on spherical joints (A.14, B.8), joints other
+than FREE and REVOLUTE (A.14, A.15), kinematic constraints other than
+the distance constraint (A.22).
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ from jiminy_tpu_torch.engine import constraints as cstr
 from jiminy_tpu_torch.engine.contact import surface_contacts
 from jiminy_tpu_torch.engine.ground import ANALYTIC, FlatGround, HeightmapGround
 from jiminy_tpu_torch.engine.randomization import Inertials
+from jiminy_tpu_torch.engine.solver import BlockSpec
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.hardware.sensors import SensorSuite
 # a module, not its names: the engine package imports this module while
@@ -79,18 +88,20 @@ from jiminy_tpu_torch.hardware.sensors import SensorSuite
 from jiminy_tpu_torch.ops import constraint_solve as chain
 
 _TORQUE_MODES = {"pd": 1, "direct": 2}
-_HDR_I, _HDR_F = 10, 16  # header lengths of the packed spec (csrc/substep.cu)
-# the kernels' largest instantiation (csrc/substep.cu JT_SUB_MAX_*,
-# JT_NQ_EXTRA); the C entry points refuse anything larger as well
-MAX_NB, MAX_NV, MAX_NC, NQ_EXTRA = 32, 32, 48, 4
-# ground modes and the ground query's caps (csrc/substep.cu JT_GROUND_*,
+_HDR_I, _HDR_F = 10, 16  # header lengths of the packed spec (csrc/substep.cuh)
+_S_SPRINGS = 11  # the float header's slot that says whether the tree has joint springs
+# the kernels' largest instantiation (csrc/substep.cuh JT_SUB_MAX_*,
+# JT_NQ_EXTRA) and the chain's equality blocks (csrc/solve_chain.cuh
+# JT_MAX_EQ); the C entry points refuse anything larger as well
+MAX_NB, MAX_NV, MAX_NC, NQ_EXTRA, MAX_DIST = 32, 32, 48, 4, 32
+# ground modes and the ground query's caps (csrc/substep.cuh JT_GROUND_*,
 # JT_FOURIER_MAX, JT_PERLIN_MAX): K Fourier terms, Perlin octaves
 _GROUND_MODES = {"flat": 0, "fourier": 1, "perlin": 2, "stairs": 3}
 MAX_FOURIER_TERMS, MAX_PERLIN_OCTAVES = 32, 8
-# the sensor stage's caps (csrc/substep.cu JT_SENS_MAX_*)
+# the sensor stage's caps (csrc/substep.cuh JT_SENS_MAX_*)
 MAX_SENS_GROUPS, MAX_SENS_BUF, MAX_SENS_EPS = 8, 4096, 1024
 _SENSOR_CODES = {"imu": 0, "encoder": 1, "effort": 2, "contact": 3}
-# what a sensor needs of a body and its ancestors (csrc/substep.cu JT_NEED_*)
+# what a sensor needs of a body and its ancestors (csrc/substep.cuh JT_NEED_*)
 _NEED_ROTATION, _NEED_MOTION = 1, 3
 
 
@@ -146,12 +157,16 @@ class TorqueSpec:
 class SubstepSpec:
     """Static description of one engine's impulse substep.
 
-    Rows are [bounds | contacts color-major]: one row per bounded 1-DoF
-    joint, then [t1, t2, n] per contact site, the sites in
-    ``color_order`` (interleaved halves: diagonal leg pairs on
-    quadrupeds), each color's rows contiguous. ``torque`` (or None) is
+    Rows are [distance | bounds | contacts color-major]: one equality row
+    per distance constraint (in declaration order, each its own block),
+    one row per bounded 1-DoF joint, then [t1, t2, n] per contact site,
+    the sites in ``color_order`` (interleaved halves: diagonal leg pairs
+    on quadrupeds), each color's rows contiguous. ``torque`` (or None) is
     the declarative actuation path that K2 needs; ``motors`` the bank it
-    reads."""
+    reads; ``dist_constraints`` the engine's distance constraints, kept
+    as ``constraints`` and as the reference's tuples (body 1, its local
+    point, body 2, its local point, distance, Baumgarte frequency) in
+    ``dist_constraints``."""
 
     def __init__(
         self,
@@ -160,6 +175,7 @@ class SubstepSpec:
         ground,
         motors: Motors | None = None,
         torque: TorqueSpec | None = None,
+        dist_constraints=(),
     ):
         if options.solver != "euler_symplectic":
             raise NotImplementedError(
@@ -178,9 +194,17 @@ class SubstepSpec:
             raise NotImplementedError(
                 "sphere/capsule contact sites are not ported yet (ROADMAP A.13)"
             )
-        if bool(torch.any(tree.stiffness != 0)):
+        for c in dist_constraints:
+            if not isinstance(c, cstr.DistanceConstraint):
+                raise NotImplementedError(
+                    f"{type(c).__name__} is not ported yet: of the kinematic constraints "
+                    "only DistanceConstraint is (ROADMAP A.22)"
+                )
+        stiff = tree.stiffness.detach().cpu().numpy()
+        if any(t == JointType.SPHERICAL and np.any(stiff[tree.v_slice(i)] != 0)
+               for i, t in enumerate(tree.joint_type)):
             raise NotImplementedError(
-                "joint springs / flexibility are not ported yet (ROADMAP A.14, B.8)"
+                "springs on spherical joints (flexibility) are not ported yet (ROADMAP A.14, B.8)"
             )
         bad = [t for t in tree.joint_type if t not in (JointType.FREE, JointType.REVOLUTE)]
         if bad:
@@ -202,6 +226,15 @@ class SubstepSpec:
         self.n_gc = ground.coef().shape[-1] if isinstance(ground, ANALYTIC) else 0
         self.friction = float(opts.contacts.friction)
         self.dt = float(opts.dt)
+        self.springs = bool(np.any(stiff != 0))
+        self.constraints = tuple(dist_constraints)
+        fb, fp = tree.frame_body, tree.fp_pos.detach().cpu().numpy()
+        self.dist_constraints = [
+            (fb[c.frame1], [float(x) for x in fp[c.frame1]], fb[c.frame2],
+             [float(x) for x in fp[c.frame2]], float(c.distance), float(c.baumgarte_freq))
+            for c in self.constraints
+        ]
+        n_eq = self.n_dist = len(self.constraints)
 
         self.bounded_joints = self._bounded_joints(tree)
         ncp = tree.ncp
@@ -212,15 +245,15 @@ class SubstepSpec:
         self.color_inverse = inv
         nbj = len(self.bounded_joints)
         n0 = len(range(0, ncp, 2))
-        self.contact_off = nbj
-        self.nc = nbj + 3 * ncp
+        off = self.contact_off = n_eq + nbj
+        self.nc = off + 3 * ncp
         self.cfg = chain.SolveConfig(
             n=tree.nv,
             nc=self.nc,
             dt=self.dt,
-            eq_blocks=(),
-            bounds_span=(0, nbj) if nbj else None,
-            contact_colors=((nbj, n0), (nbj + 3 * n0, ncp - n0)) if ncp else (),
+            eq_blocks=tuple(BlockSpec("equality", i, 1) for i in range(n_eq)),
+            bounds_span=(n_eq, nbj) if nbj else None,
+            contact_colors=((off, n0), (off + 3 * n0, ncp - n0)) if ncp else (),
             iters=opts.pgs_iters,
             relax=opts.pgs_relax,
             reg=opts.pgs_reg,
@@ -260,11 +293,12 @@ class SubstepSpec:
         more than 32 Fourier terms or 8 Perlin octaves)."""
         t = self.tree
         if t.nb > MAX_NB or t.nv > MAX_NV or not 1 <= self.nc <= MAX_NC \
-                or t.nq > t.nv + NQ_EXTRA:
+                or t.nq > t.nv + NQ_EXTRA or self.n_dist > MAX_DIST:
             raise ValueError(
-                f"{who}: nb={t.nb}, nv={t.nv}, nq={t.nq}, nc={self.nc} outside the "
-                f"whole-substep kernels' caps (nb ≤ {MAX_NB}, nv ≤ {MAX_NV}, "
-                f"1 ≤ nc ≤ {MAX_NC}, nq ≤ nv + {NQ_EXTRA})"
+                f"{who}: nb={t.nb}, nv={t.nv}, nq={t.nq}, nc={self.nc}, "
+                f"{self.n_dist} distance constraints outside the whole-substep kernels' "
+                f"caps (nb ≤ {MAX_NB}, nv ≤ {MAX_NV}, 1 ≤ nc ≤ {MAX_NC}, nq ≤ nv + "
+                f"{NQ_EXTRA}, ≤ {MAX_DIST} distance constraints)"
             )
         cap = {"fourier": MAX_FOURIER_TERMS, "perlin": MAX_PERLIN_OCTAVES}.get(self.ground_mode)
         if self.ground_mode not in _GROUND_MODES or (cap and not 1 <= self.ground_n <= cap):
@@ -281,7 +315,7 @@ class SubstepSpec:
 
     def packed(self, device) -> tuple[torch.Tensor, torch.Tensor]:
         """(int32, float32) buffers of the spec on ``device``, laid out as
-        ``csrc/substep.cu`` reads them; built once per device."""
+        ``csrc/substep.cuh`` reads them; built once per device."""
         key = str(device)
         if key not in self._packed:
             self._packed[key] = tuple(
@@ -295,13 +329,14 @@ class SubstepSpec:
         nm = ts.nm if ts is not None else 0
         mode = _TORQUE_MODES[ts.mode] if ts is not None else 0
         ints = [t.nb, t.nq, t.nv, t.ncp, len(bj), nm, mode,
-                _GROUND_MODES.get(self.ground_mode, -1), self.ground_n]
-        ints += [0] * (_HDR_I - len(ints))
+                _GROUND_MODES.get(self.ground_mode, -1), self.ground_n, self.n_dist]
         ints += list(t.parent) + [int(j) for j in t.joint_type]
         ints += list(t.q_off) + list(t.v_off)
         ints += list(t.contact_body) + self.color_order + bj
         if ts is not None:
             ints += list(ts.q_idx) + list(ts.v_idx)
+        for b1, _, b2, _, _, _ in self.dist_constraints:
+            ints += [b1, b2]
 
         def arr(x):
             return x.detach().cpu().numpy().astype(np.float64)
@@ -314,6 +349,7 @@ class SubstepSpec:
             *g,
         ]
         scal += [0.0] * (_HDR_F - len(scal))
+        scal[_S_SPRINGS] = float(self.springs)
         body = np.concatenate(
             [
                 arr(t.axis), arr(t.jp_rot).reshape(t.nb, 9), arr(t.jp_pos),
@@ -336,6 +372,10 @@ class SubstepSpec:
                     ts.kp or zeros, ts.kd or zeros,
                 )
             ]
+        for c, (_, p1, _, p2, d0, _) in zip(self.constraints, self.dist_constraints):
+            parts.append(np.asarray(p1 + p2 + [d0, c.alpha_over_dt(self.dt)]))
+        if self.springs:
+            parts.append(arr(t.stiffness))
         floats = np.concatenate([np.asarray(p, np.float64).ravel() for p in parts])
         return np.asarray(ints, np.int32), floats.astype(np.float32)
 
@@ -382,7 +422,7 @@ class SensorKernelSpec:
             )
 
     def packed(self, device) -> tuple[torch.Tensor, torch.Tensor]:
-        """(int32, float32) buffers on ``device`` as ``csrc/substep.cu``
+        """(int32, float32) buffers on ``device`` as ``csrc/substep.cuh``
         `jt_sensor_stage` reads them; built once per device:
 
         - ints: per body what the readings need of it (1: its world
@@ -422,16 +462,30 @@ class SensorKernelSpec:
 # ---------------------------------------------------------------------------
 
 
+def with_springs(tree: KinematicTree, q, tau):
+    """τ (B, nv) with the 1-DoF joint springs' −k·q added (the
+    reference's ``_spring_torques`` on REVOLUTE and PRISMATIC joints);
+    τ itself when the tree has none."""
+    vo, qo = tree.sprung_joints
+    if not vo:
+        return tau
+    tau = tau.clone()
+    tau[:, vo] = tau[:, vo] - tree.stiffness[vo] * q[:, qo]
+    return tau
+
+
 def torque_reference(spec: SubstepSpec, q, v, cmd, mscale=None):
     """Actuation torque (B, nv) of the declarative path ``spec.torque``
-    at (q, v) for the held command ``cmd`` (B, nm). ``mscale``: optional
-    per-env (gain, friction scale), (B, nm) each (``Motors.compute_effort``)."""
+    at (q, v) for the held command ``cmd`` (B, nm): the motors, joint
+    damping and the 1-DoF springs' −k·q. ``mscale``: optional per-env
+    (gain, friction scale), (B, nm) each (``Motors.compute_effort``)."""
     ts = spec.torque
     if ts.mode == "pd":
         kw = dict(dtype=q.dtype, device=q.device)
         qm, vm = spec.motors.joint_state(q, v)
         cmd = torch.as_tensor(ts.kp, **kw) * (cmd - qm) - torch.as_tensor(ts.kd, **kw) * vm
-    return spec.motors.compute_effort(cmd, v, mscale) - spec.tree.damping * v
+    return with_springs(spec.tree, q, spec.motors.compute_effort(cmd, v, mscale)
+                        - spec.tree.damping * v)
 
 
 def unpack_model_params(spec: SubstepSpec, mp):
@@ -473,7 +527,8 @@ def _check_gc(name, spec: SubstepSpec, gc, B):
 def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=None, gc=None,
                       mp=None):
     """One semi-implicit Euler substep with velocity-level PGS impulses
-    for joint bounds and ground contacts: q (B, nq), v and τ (B, nv),
+    for distance constraints, joint bounds and ground contacts, joint
+    damping and springs implicit: q (B, nq), v and τ (B, nv),
     λ0 (B, nc), ``wrench`` None or (B, 6) local [ang; lin] on the root
     body → (q⁺, v⁺, λ, residual (B,), world contact impulses (B, ncp,
     3) in the original contact order). ``solve`` runs the chain:
@@ -489,8 +544,14 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
     inertials = unpack_model_params(spec, mp)[0] if mp is not None else None
     xl = algos.local_transforms(tree, q)
     xw, vel = algos.kinematics(tree, q, v, xl=xl)
-    # implicit joint damping: (M + dt·C)·Δv = dt·(τ − C·v − bias)
-    M = algos.crba(tree, q, xl=xl, inertials=inertials) + torch.diag(dt * tree.damping)
+    # implicit joint damping and springs (τ holds −K·q already):
+    # (M + dt·C + dt²·K)·Δv = dt·(τ − C·v − dt·K·v − bias)
+    M = algos.crba(tree, q, xl=xl, inertials=inertials)
+    if spec.springs:
+        M = M + torch.diag(dt * tree.damping + dt * dt * tree.stiffness)
+        tau = tau - dt * tree.stiffness * v
+    else:
+        M = M + torch.diag(dt * tree.damping)
     fext = None
     if wrench is not None:
         fext = q.new_zeros(B, tree.nb, 6)
@@ -499,6 +560,12 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
     p_free = tau - bias
 
     Js, targets, actives, mus = [], [], [], []
+    if spec.constraints:
+        Jd, td, _ = cstr.assemble(tree, spec.constraints, q, xw, dt)
+        Js.append(Jd)
+        targets.append(td)
+        actives.append(torch.ones_like(td))
+        mus.append(torch.zeros_like(td))
     if spec.bounded_joints:
         Jb, tb = cstr.bound_rows(tree, spec.bounded_joints, q, dt, spec.alpha_bounds)
         Js.append(Jb)
@@ -628,11 +695,11 @@ def _kernel(randomized: bool):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [vp, ci, ci, cf, cf, cf, ci, vp]  # layout, len, iters, dt, relax, reg, resid, stream
     gc = [vp, ci, vp, ci]  # ground coefficients, their width; model parameters, their width
-    lib.jt_substep.argtypes = [vp] * 12 + [ci] * 5 + gc + tail
+    lib.jt_substep.argtypes = [vp] * 12 + [ci] * 6 + gc + tail
     lib.jt_substep.restype = ci
-    lib.jt_substep_multi.argtypes = [vp] * 14 + [ci] * 7 + gc + tail
+    lib.jt_substep_multi.argtypes = [vp] * 14 + [ci] * 8 + gc + tail
     lib.jt_substep_multi.restype = ci
-    lib.jt_substep_multi_sensors.argtypes = [vp] * 19 + [ci] * 11 + gc + tail
+    lib.jt_substep_multi_sensors.argtypes = [vp] * 19 + [ci] * 12 + gc + tail
     lib.jt_substep_multi_sensors.restype = ci
     lib.jt_substep_error_string.argtypes = [ci]
     lib.jt_substep_error_string.restype = ctypes.c_char_p
@@ -730,7 +797,7 @@ def substep_batched(spec: SubstepSpec, q, v, tau, lam0, wrench, gc=None, mp=None
     err = lib.jt_substep(
         si.data_ptr(), sf.data_ptr(), q.data_ptr(), v.data_ptr(), tau.data_ptr(),
         lam0.data_ptr(), wrench.data_ptr(), *(o.data_ptr() for o in outs),
-        B, t.nb, t.nq, t.nv, spec.nc, *_gc_args(spec, gc, mp), *tail,
+        B, t.nb, t.nq, t.nv, spec.nc, spec.n_dist, *_gc_args(spec, gc, mp), *tail,
     )
     _raise_on(lib, err, "substep")
     _count(substep_batched, None, gc, mp)
@@ -797,7 +864,7 @@ def substep_batched_multi(
         si.data_ptr(), sf.data_ptr(), q.data_ptr(), v.data_ptr(), cmd.data_ptr(),
         lam0.data_ptr(), wrench.data_ptr(), *(o.data_ptr() for o in outs),
     ]
-    dims = [B, n_sub, t.nb, t.nq, t.nv, spec.nc, nm]
+    dims = [B, n_sub, t.nb, t.nq, t.nv, spec.nc, spec.n_dist, nm]
     if sensors is None:
         err = lib.jt_substep_multi(*head, *dims, *_gc_args(spec, gc, mp), *tail)
     else:

@@ -1,9 +1,16 @@
-"""Where the time of the ANYmal env step goes on a GPU.
+"""Where the time of the ANYmal or Cassie env step goes on a GPU.
 
-    python -m jiminy_tpu_torch.tools.profile_env_step [--batch 4096] [--steps 5]
-        [--solver auto|substep|kernel|inline] [--observe state|sensors]
-        [--terrain flat|fourier|perlin|perlin_grid|stairs] [--push N]
-        [--push-duration S] [--randomize R]
+    python -m jiminy_tpu_torch.tools.profile_env_step [--env anymal|cassie]
+        [--batch 4096] [--steps 5] [--solver auto|substep|kernel|inline]
+        [--observe state|sensors] [--terrain flat|fourier|perlin|perlin_grid|stairs]
+        [--push N] [--push-duration S] [--randomize R]
+
+``--env cassie`` runs ``CassieEnv(sim_dt=2e-3, target_speed=0.4)``
+(``examples/train.py --env cassie``: 10 substeps of 2 ms, the pushrods
+and shin springs; flat ground, ``--terrain`` must stay flat), with
+``--observe sensors`` at ``cassie_sensors_run``'s sensing (delay 0.004
+s, noise 0.02 / 0.005) and ``--push 50 --push-duration 0.2`` for
+``cassie_push_robust_run``'s pushes. The rest is about ANYmal:
 
 Runs ``ANYmalEnv(observe="state", device="cuda")`` (by default on its
 main path, ``constraint_solver="auto"``, which is the fused whole-substep
@@ -37,6 +44,7 @@ import torch
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--env", default="anymal", choices=("anymal", "cassie"))
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--solver", default="auto", choices=("auto", "substep", "kernel", "inline"))
@@ -54,7 +62,7 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from jiminy_tpu_torch.engine.randomization import ModelRandomization
-    from jiminy_tpu_torch.envs import ANYmalEnv
+    from jiminy_tpu_torch.envs import ANYmalEnv, CassieEnv
 
     dev = torch.device("cuda")
     r = args.randomize
@@ -63,13 +71,21 @@ def main() -> None:
         motor_gain=(1 - r / 2, 1 + r / 2)) if r else None
     sensors = (dict(sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005)
                if args.observe == "sensors" else {})
-    env = ANYmalEnv(observe=args.observe, step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
-                    constraint_solver=args.solver, terrain=args.terrain,
-                    push_magnitude=args.push, push_duration=args.push_duration,
-                    model_randomization=randomization, device=dev, **sensors)
+    if args.env == "cassie":
+        if args.terrain != "flat":
+            raise SystemExit("profile_env_step: the Cassie env runs on flat ground")
+        env = CassieEnv(observe=args.observe, sim_dt=2e-3, target_speed=0.4, pgs_iters=8,
+                        constraint_solver=args.solver, push_magnitude=args.push,
+                        push_duration=args.push_duration, model_randomization=randomization,
+                        device=dev, **sensors)
+    else:
+        env = ANYmalEnv(observe=args.observe, step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
+                        constraint_solver=args.solver, terrain=args.terrain,
+                        push_magnitude=args.push, push_duration=args.push_duration,
+                        model_randomization=randomization, device=dev, **sensors)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = env.reset(gen, args.batch)
-    acts = [torch.rand(args.batch, 12, generator=gen, device=dev) * 2 - 1
+    acts = [torch.rand(args.batch, env.motors.nm, generator=gen, device=dev) * 2 - 1
             for _ in range(2 * args.steps)]
     for a in acts[:args.steps]:  # warm-up
         state = env.step(state, a)
@@ -102,6 +118,7 @@ def main() -> None:
     n = args.steps
     print(json.dumps({
         "gpu": gpu,
+        "env": args.env,
         "batch": args.batch,
         "constraint_solver": env.engine.backend,
         "observe": args.observe,

@@ -167,7 +167,7 @@ def test_reset_is_seeded():
 @pytest.mark.parametrize(
     "kwargs, item",
     [
-        ({"constraints": ()}, "A.12"),
+        ({"constraints": (object(),)}, "A.22"),
         ({"reward_fn": object()}, "A.17"),
         ({"engine_options": object()}, "A.16"),
         ({"collision_pairs": ()}, "A.13"),

@@ -2,7 +2,11 @@
 K1 (``solve_batched``), K3 (``substep_batched``) and K2
 (``substep_batched_multi``), with and without its sensor stage, on flat
 ground and on per-env analytic grounds (the ``GEN`` instantiations), with
-and without per-env model parameters (the ``RAND`` instantiations).
+and without per-env model parameters (the ``RAND`` instantiations),
+and on the Cassie biped (the large frame, the pushrods' distance rows
+and the shin springs; held to float64 by the distribution of the per-env
+distance, as ``chip_smoke.py`` ``_gate_dist_vs_f64``, since float32 is not
+well posed there at 1e-4).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -644,3 +648,172 @@ def test_sim2real_env_is_one_fused_launch(cuda_device):
     assert launched == {"substep_batched_multi.rand_sensor_ground_launches": 3}
     assert bool(torch.isfinite(state.obs).all())
     assert state.info["model_params"].shape == (256, 172)
+
+
+# ---- Cassie (pushrod closed loops, shin springs; the large frame)
+
+def _cassie_engine(dev, dtype=torch.float32, fusion=True):
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
+    from jiminy_tpu_torch.models.biped import make_cassie
+
+    tree, motors, suite, rods, stand = make_cassie(sensor_period=2e-3, sensor_delay=0.004,
+                                                   imu_noise=0.02, encoder_noise=0.005,
+                                                   device=dev)
+    opts = EngineOptions(dt=2e-3, pgs_iters=8, constraint_solver="substep", substep_fusion=fusion)
+    eng = Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
+                 controller=PDController(150.0, 6.0), constraints=rods, device=dev)
+    return eng, suite.to(dtype=dtype), stand
+
+
+def _cassie_inputs(seed, B, engine, stand):
+    """Stand poses with the motor joints and springs ±0.05 rad (the loops
+    open by millimetres), the base 1 cm low to 0.5 cm high, PD targets,
+    λ0 ≥ 0 and a root wrench, made with numpy."""
+    rng = np.random.default_rng(seed)
+    t = engine.tree
+    q = np.tile(stand, (B, 1)).astype(np.float64)
+    qi = list(engine.motors.q_idx)
+    q[:, qi] += rng.uniform(-0.05, 0.05, (B, 10))
+    q[:, [t.q_off[t.joint_index(n)] for n in ("L_shin_spring", "R_shin_spring")]] += \
+        rng.uniform(-0.05, 0.05, (B, 2))
+    q[:, 2] += rng.uniform(-0.01, 0.005, B)
+    arrays = (
+        q, 0.3 * rng.standard_normal((B, t.nv)), q[:, qi] + rng.uniform(-0.1, 0.1, (B, 10)),
+        np.abs(0.05 * rng.standard_normal((B, engine.nc))),
+        np.concatenate([5 * rng.standard_normal((B, 3)), 20 * rng.standard_normal((B, 3))], 1),
+    )
+    return [torch.as_tensor(a, dtype=torch.float32, device=engine.device) for a in arrays]
+
+
+def _assert_distribution_vs_f64(name, k, p32, p64):
+    """``chip_smoke.py`` `_gate_dist_vs_f64`: on Cassie no float32 version
+    of one substep is within 1e-4 of float64 (its mass matrix's condition
+    is of order 1e4; the plain float32 version is 1e-4–3e-3 off in most envs),
+    so the kernel's per-env distance to the float64 plain version is held
+    by its distribution beside the float32 plain version's: the 50th,
+    90th and 99th percentiles within 1.5 × + 1e-5, the worst env within
+    2 × + 1e-4, the envs off by 1e-4 within 1.5 × + 4."""
+    def per_env(a, b):
+        return (a.double() - b.double()).abs().reshape(a.shape[0], -1).amax(dim=1)
+
+    dk, dp = per_env(k, p64), per_env(p32, p64)
+    qs = torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64, device=dk.device)
+    assert bool((torch.quantile(dk, qs) <= 1.5 * torch.quantile(dp, qs) + 1e-5).all()), name
+    assert dk.max().item() <= 2.0 * dp.max().item() + ATOL, name
+    assert int((dk > ATOL).sum()) <= 1.5 * int((dp > ATOL).sum()) + 4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 1000])
+@pytest.mark.parametrize("kernel", ["substep", "substep_multi", "substep_multi_sensors"])
+def test_cassie_kernels_match_plain_versions(cuda_device, kernel, B):
+    """K3, K2 and K2 with the sensor stage on the Cassie spec (two distance
+    rows, the springs, the large frame) over one substep: the torque
+    within 1e-4 of its size, q, v, λ and the impulses held to the float64
+    plain version by their distribution."""
+    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
+
+    eng, suite, stand = _cassie_engine(cuda_device)
+    eng64, suite64, _ = _cassie_engine(cuda_device, torch.float64)
+    spec = eng.substep_spec
+    q, v, cmd, lam0, wrench = args = _cassie_inputs(30, B, eng, stand)
+    a64 = [x.double() for x in args]
+    if kernel == "substep":
+        tau = eng._joint_torque(cmd, q, v)
+        out = substep_batched(spec, q, v, tau, lam0, wrench)
+        p32 = substep_reference(spec, q, v, tau, lam0, wrench)
+        p64 = substep_reference(eng64.substep_spec, a64[0], a64[1], tau.double(), a64[3], a64[4])
+    else:
+        sw, sw64 = {}, {}
+        if kernel == "substep_multi_sensors":
+            gen = torch.Generator(device=cuda_device).manual_seed(31)
+            bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B), q, v))
+            eps = suite.sample_eps(gen, B)
+            sw = dict(sensors=SensorKernelSpec(eng.tree, suite, 1), bufs=bufs, eps=eps)
+            sw64 = dict(sensors=SensorKernelSpec(eng64.tree, suite64, 1), bufs=bufs.double(),
+                        eps=eps.double())
+        out = substep_batched_multi(spec, 1, *args, **sw)
+        p32 = substep_multi_reference(spec, 1, *args, **sw)
+        p64 = substep_multi_reference(eng64.substep_spec, 1, *a64, **sw64)
+        tau_scale = max(1.0, p32[6].abs().max().item())
+        torch.testing.assert_close(out[6], p32[6], atol=ATOL * tau_scale, rtol=0)
+        if sw:
+            bare = substep_batched_multi(spec, 1, *args)
+            assert all(torch.equal(out[i], bare[i]) for i in range(7))
+    torch.cuda.synchronize()
+    for i, name in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+        _assert_distribution_vs_f64(f"{kernel} {name}", out[i], p32[i], p64[i])
+    assert (p32[2][:, :2] != 0).any()  # the pushrods carry load
+
+
+@pytest.mark.cuda
+def test_cassie_k2_carries_lambda_across_substeps(cuda_device):
+    """K2 over ten substeps equals ten chained K2 launches of one substep,
+    bit for bit: λ, the distance rows' slots included, is carried in the
+    kernel as it is through memory."""
+    eng, _, stand = _cassie_engine(cuda_device)
+    spec = eng.substep_spec
+    q, v, cmd, lam, wrench = args = _cassie_inputs(32, 256, eng, stand)
+    whole = substep_batched_multi(spec, 10, *args)
+    for _ in range(10):
+        out = substep_batched_multi(spec, 1, q, v, cmd, lam, wrench)
+        q, v, lam = out[:3]
+    for i in range(7):
+        assert torch.equal(whole[i], out[i]), i
+
+
+@pytest.mark.cuda
+def test_world_anchored_loop_k3_matches_plain_version(cuda_device):
+    """The two-pendulum loop tied to a frame of the world (one distance
+    row, no contact, no bounds): K3 within 1e-4 of its plain version."""
+    from jiminy_tpu_torch.core.tree import JointType, TreeBuilder
+    from jiminy_tpu_torch.engine import Engine, EngineOptions
+    from jiminy_tpu_torch.engine.constraints import DistanceConstraint
+
+    place = TreeBuilder.make_placement
+    b = TreeBuilder()
+    b.add_body("l1", -1, JointType.REVOLUTE, axis=(0, 1, 0), mass=1.0, com=(0, 0, -1))
+    b.add_body("l2", -1, JointType.REVOLUTE, placement=place((0.5, 0, 0)), axis=(0, 1, 0),
+               mass=1.0, com=(0, 0, -1))
+    f1 = b.add_frame("tip1", 0, place((0, 0, -1)))
+    f2 = b.add_frame("anchor", -1, place((0.5, 0, -1)))
+    eng = Engine(b.build(device=cuda_device), EngineOptions(dt=1e-3, constraint_solver="substep"),
+                 constraints=(DistanceConstraint(f1, f2, 0.6, 20.0),), device=cuda_device)
+    rng = np.random.default_rng(33)
+    B = 1000
+    q, v, tau, lam = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (
+        rng.uniform(0.4, 0.8, (B, 2)), rng.standard_normal((B, 2)),
+        5 * rng.standard_normal((B, 2)), 0.1 * rng.standard_normal((B, 1))))
+    w = torch.zeros(B, 6, device=cuda_device)
+    before = substep_batched.launches
+    out = substep_batched(eng.substep_spec, q, v, tau, lam, w)
+    ref = substep_reference(eng.substep_spec, q, v, tau, lam, w)
+    torch.cuda.synchronize()
+    assert substep_batched.launches == before + 1
+    for name, o, r in zip(("q", "v", "lam", "residual"), out, ref):
+        torch.testing.assert_close(o, r, atol=ATOL, rtol=0, msg=name)
+    assert out[4].shape == (B, 0, 3) and float(ref[2].abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["state", "sensors", "push"])
+def test_cassie_env_is_one_fused_launch(cuda_device, path):
+    """CassieEnv(sim_dt=2e-3, target_speed=0.4) on the state, sensor and
+    push paths: one K2 launch per env step (with the sensor stage on the
+    sensor path), and no other kernel."""
+    from jiminy_tpu_torch.envs import CassieEnv
+
+    kw = {"state": dict(observe="state"),
+          "sensors": dict(observe="sensors", sensor_delay=0.004, imu_noise=0.02,
+                          encoder_noise=0.005),
+          "push": dict(observe="state", push_magnitude=50.0, push_duration=0.2)}[path]
+    env = CassieEnv(sim_dt=2e-3, target_speed=0.4, device=cuda_device, **kw)
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
+    names = [(solve_batched, "launches"), (substep_batched, "launches"),
+             (substep_batched_multi, "launches"), (substep_batched_multi, "sensor_launches")]
+    before = [getattr(fn, n) for fn, n in names]
+    for _ in range(3):
+        state = env.step(state, torch.zeros(256, 10, device=cuda_device))
+    launched = [getattr(fn, n) - b for (fn, n), b in zip(names, before)]
+    assert launched == ([0, 0, 0, 3] if path == "sensors" else [0, 0, 3, 0])
+    assert bool(torch.isfinite(state.obs).all()) and state.obs.shape == (256, 29)

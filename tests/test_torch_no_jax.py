@@ -9,11 +9,13 @@ without running, and one CPU env step is taken at B = 2 on the
 state-observing env's whole-substep path (the kernels' plain versions)
 and chain-kernel path, on the sensor-observing env's fused and chunked
 paths, and on the terrain and push env (per-env Fourier ground, fused
-and chunked; the ``"perlin_grid"`` heightmap), and on the sim-to-real
-env with model randomization (fused and chunked). The modules that hold
-kernels, the sensor suite, the grounds, the terrain generators, the
-random processes and the model randomization are named, so a rename
-cannot drop them from the walk. A second test imports each kernel module
+and chunked; the ``"perlin_grid"`` heightmap), on the sim-to-real
+env with model randomization (fused and chunked), and on the Cassie env
+(pushrod closed loops and shin springs) on the state path and the
+sensor path fused and chunked. The modules that hold kernels, the sensor
+suite, the grounds, the terrain generators, the random processes, the
+model randomization, the constraints, the biped and its env are named,
+so a rename cannot drop them from the walk. A second test imports each kernel module
 first in a fresh interpreter: the engine and ops packages import each
 other, and any order must work.
 """
@@ -33,7 +35,8 @@ BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "jiminy_tpu"}
 KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops.substep_kernel",
                   "jiminy_tpu_torch.hardware.sensors", "jiminy_tpu_torch.engine.ground",
                   "jiminy_tpu_torch.engine.terrain", "jiminy_tpu_torch.utils.random",
-                  "jiminy_tpu_torch.engine.randomization")
+                  "jiminy_tpu_torch.engine.randomization", "jiminy_tpu_torch.engine.constraints",
+                  "jiminy_tpu_torch.models.biped", "jiminy_tpu_torch.envs.legged")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -90,6 +93,15 @@ for fused in (True, False):
     st = env.reset(torch.Generator().manual_seed(0), 2)
     st = env.step(st, torch.zeros(2, 12))
     assert bool(torch.isfinite(st.obs).all()) and "model_params" in st.info
+from jiminy_tpu_torch.envs import CassieEnv
+
+for observe, fused in (("state", False), ("sensors", True), ("sensors", False)):
+    env = CassieEnv(sim_dt=2e-3, target_speed=0.4, observe=observe, sensor_delay=0.004,
+                    imu_noise=0.02, encoder_noise=0.005, device="cpu")
+    env._fused_sensors = fused
+    st = env.reset(torch.Generator().manual_seed(0), 2)
+    st = env.step(st, torch.zeros(2, 10))
+    assert bool(torch.isfinite(st.obs).all()) and st.obs.shape == (2, 29)
 leaked = sorted(k for k in sys.modules if k.partition(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK", len(mods))
