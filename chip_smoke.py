@@ -31,7 +31,14 @@ imports nothing of JAX and nothing of ``jiminy_tpu``. The kernels:
   ``cassie_substep_multi``, ``cassie_substep_multi_sensors`` in the
   kernels line): the large frame ⟨32, 48, 32⟩, the pushrods' distance
   rows ahead of the bounds and the shin springs, runtime branches of the
-  same instantiations.
+  same instantiations;
+- the same kernels with collision pairs (``cassie_selfcol_substep_multi``,
+  ``cassie_selfcol_substep``, ``pairs_ptbox_substep_multi``,
+  ``pairs_ptseg_substep_multi``: the pair narrow phases ``seg``, ``ptbox``
+  and ``ptseg`` and their contact rows, `jt_pair_rows`) and with sphere
+  contact sites (``sphere_sites_substep_multi``, ``…_ground``: the site
+  offset before the contact Jacobians, on flat ground and with the
+  two-pass ground query), runtime branches again.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -83,6 +90,18 @@ Phases (any failure raises and the script exits non-zero):
      within 1e-4 of its size, the sensor variant's physics bit-equal; K2
      over 10 substeps bit-equal to 10 chained launches; one randomized K2
      launch; K3 on the two-pendulum loop tied to the world within 1e-4;
+   - collision pairs on Cassie's tree (`phase_pairs_vs_plain`): the
+     slice's three leg capsule pairs (seg), a box on the pelvis against
+     the L thigh (ptbox, nc 43) and a convex cloud on the R tarsus against
+     the L tarsus (ptseg, nc 46), from states with the legs brought
+     together (the share of envs with an active pair row printed, and at
+     least 25 % asked): K3 and K2 at n_sub = 1, B = 4096, held to the
+     float64 plain version by `_gate_dist_vs_f64`; with the seg pairs the
+     sensor variant's physics bit-equal to K2's and K2 over 10 substeps
+     bit-equal to 10 chained launches;
+   - sphere sites (`phase_spheres_vs_plain`): ANYmal's feet as spheres of
+     2 cm on flat ground and on a Fourier ground per env, K3 and K2 at
+     n_sub = 1 env by env against float64 (`_gate_vs_f64`);
 2. the paths, each with the launch counts set to 0 just before it and
    read just after:
    - the main path, ``ANYmalEnv(observe="state", device="cuda")`` reset
@@ -132,6 +151,14 @@ Phases (any failure raises and the script exits non-zero):
      bit-equal to chunked), the push path (50 N, 0.2 s), ``"kernel"``
      (K1 with the equality rows, 10 launches per step) and
      ``substep_fusion=False`` (K3, 10 per step);
+   - Cassie with self-collision (the slice: ``CassieEnv(sim_dt=2e-3,
+     target_speed=0.4, self_collision=True)``, nc 37, 5 colors): the state
+     path (25 steps, one K2 launch each; one env step substep by substep
+     against the inline engine as above; the rods within 1e-3 m), the
+     sensor path (one launch of K2 with the sensor stage per step; fused
+     bit-equal to chunked), the push path, ``substep_fusion=False``; the
+     ptbox and ptseg pair sets on the state path; ANYmal with sphere feet
+     through ``WalkerEnv`` on flat ground and on per-env Fourier ground;
 3. env-steps/s on the main path (3 timed loops of 25 steps), on the
    sensor path, on the terrain path, on the sim-to-real path and on the
    ``"kernel"`` path, and
@@ -141,7 +168,9 @@ Phases (any failure raises and the script exits non-zero):
    Perlin, K3 on Stairs) and the randomized instantiations, flat and on
    the Fourier ground; Cassie's three paths and its K2, K2 with the
    sensor stage (10 substeps) and K3 against their bounds (with the
-   distance rows and springs counted) and plain versions.
+   distance rows and springs counted) and plain versions; the
+   self-collision paths' rates with their launches, and the pair and
+   sphere-site kernels against their bounds (`_pair_flops` counted).
 
 The Cassie parts of phases 1–3 run last, after every ANYmal number: once
 a kernel in the large frame has run, the process keeps its local memory
@@ -348,7 +377,7 @@ def _substep_flops(spec) -> int:
             j = t.parent[j]
     rows = 6 * len(spec.bounded_joints)
     return fk + rnea + crba + jac + rows + _distance_flops(spec) + _spring_flops(spec) \
-        + _solve_flops(spec.cfg) + integ
+        + _pair_flops(spec) + _solve_flops(spec.cfg) + integ
 
 
 def _distance_flops(spec) -> int:
@@ -371,6 +400,57 @@ def _distance_flops(spec) -> int:
                 n += (3 + 3 * O["cross"] + 6 * 7) if free else (3 + O["mat3_vec"] + O["cross"] + 7)
                 j = t.parent[j]
     return n
+
+
+def _chain_columns(t, b) -> list:
+    """Each Jacobian column's joint kind (True: FREE) on body b's chain."""
+    cols, j = [], b
+    while j >= 0:
+        cols += [t.joint_type[j] == 0]
+        j = t.parent[j]
+    return cols
+
+
+def _pair_contact_flops(t, ba, bb) -> int:
+    """Operations of one `jt_pair_contact`: the basis (n × ref 9, its
+    normalization 9, t2 = n × t1 9), per Jacobian column of each point's
+    chain the column as the contact rows count it (a REVOLUTE column: r,
+    R·axis, its cross with r: 3 + 15 + 9; a FREE joint's six: 3 + 3
+    crosses) and its three dots with the basis, each signed and summed (3 ·
+    7), and the target and activation (7)."""
+    n = 27 + 7
+    for b in (ba, bb):
+        for free in _chain_columns(t, b):
+            n += (3 + 3 * _OPS["cross"] + 6 * 21) if free \
+                else (3 + _OPS["mat3_vec"] + _OPS["cross"] + 21)
+    return n
+
+
+def _pair_flops(spec) -> int:
+    """Operations of the pairs' narrow phases and rows (`jt_pair_rows`)
+    and of the sphere sites' offset. seg: the four world endpoints (4 ·
+    18), `jt_seg_seg` (the differences 9, five dots 25, the clamped s and t
+    16, the re-clamped s 6, the closest points 12), the normal and depth
+    (d 3, its norm 7, n 3, depth 2) and the surface points (12); ptbox: the
+    box's world centre and axes (18 + 45), per point its world position
+    (18), the box frame (3 + 15), `jt_box_sdf` (40), the normal to the
+    world (15), depth and surface points (13); ptseg: the capsule's world
+    ends and axis (36 + 3 + 5), per point its world position (18), the
+    clamped projection (3 + 5 + 2 + 6), the normal and depth (3 + 7 + 3 +
+    2) and surface points (12). Each contact then `_pair_contact_flops`. A
+    sphere site adds its offset (1 on flat ground; a second ground query
+    and 9 on an analytic one)."""
+    t, n = spec.tree, 0
+    for kind, g in (spec.pairs.gens if spec.pairs is not None else ()):
+        if kind == "seg":
+            n += 4 * 18 + 9 + 25 + 16 + 6 + 12 + 15 + 12 + _pair_contact_flops(t, g["ba"], g["bb"])
+            continue
+        k = len(g["pts"])
+        n += 18 + 45 if kind == "ptbox" else 36 + 3 + 5
+        per = 18 + 18 + 40 + 15 + 13 if kind == "ptbox" else 18 + 16 + 15 + 12
+        n += k * (per + _pair_contact_flops(t, g["bp"], g["bf"]))
+    sites = sum(r > 0 for r in spec.contact_radius)
+    return n + sites * (1 if spec.ground_mode == "flat" else _ground_query_flops(spec) + 9)
 
 
 def _spring_flops(spec) -> int:
@@ -1189,16 +1269,19 @@ def _cassie_model(dev):
                        encoder_noise=0.005, device=dev)
 
 
-def _cassie_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver="substep"):
-    """CassieEnv's engine (PD kp 150, kd 6, 2 ms, 8 sweeps, the pushrods);
-    in float64 on the float32 model's constants."""
+def _cassie_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver="substep",
+                   pairs=()):
+    """CassieEnv's engine (PD kp 150, kd 6, 2 ms, 8 sweeps, the pushrods),
+    with the collision ``pairs``; in float64 on the float32 model's
+    constants."""
     from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
 
     tree, motors, _, rods, _ = _cassie_model(dev)
     opts = EngineOptions(dt=2e-3, pgs_iters=8, compute_solver_residual=residual,
                          substep_fusion=fusion, constraint_solver=solver)
     return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
-                  controller=PDController(150.0, 6.0), constraints=rods, device=dev)
+                  controller=PDController(150.0, 6.0), constraints=rods,
+                  collision_pairs=pairs, device=dev)
 
 
 def _cassie_inputs(engine, gen, B):
@@ -1248,10 +1331,13 @@ def _cassie_inputs(engine, gen, B):
 DIST_QUANTILES = (0.5, 0.9, 0.99)
 
 
-def _gate_dist_vs_f64(label, k, p32, p64, check=True) -> dict:
+def _gate_dist_vs_f64(label, k, p32, p64, check=True, worst_of=None) -> dict:
     """K2's (or K3's) output ``k`` against the plain version in float32
     and float64 on the same inputs, by the distribution rules above;
-    raises when one fails (with ``check``; else only reports)."""
+    raises when one fails (with ``check``; else only reports). ``worst_of``
+    (B,) bool: the envs the worst-env rule compares (every env if None;
+    their count and the kernel's and the plain version's worst over them
+    reported as ``worst_env_of``)."""
     dk, dp = _env_err(k, p64), _env_err(p32, p64)
     qs = torch.tensor(DIST_QUANTILES, dtype=torch.float64, device=dk.device)
     qk, qp = torch.quantile(dk, qs), torch.quantile(dp, qs)
@@ -1267,7 +1353,11 @@ def _gate_dist_vs_f64(label, k, p32, p64, check=True) -> dict:
     if bool((qk > 1.5 * qp + 1e-5).any()):
         raise AssertionError(f"{label}: the kernel's distance to f64 exceeds 1.5 × the plain "
                              f"f32 version's + 1e-5 at a percentile: {g}")
-    if dk.max().item() > 2.0 * dp.max().item() + TOL:
+    if worst_of is not None:
+        dk, dp = dk[worst_of], dp[worst_of]
+        g["worst_env_of"] = [int(worst_of.sum())] + [d.max().item() if d.numel() else 0.0
+                                                     for d in (dk, dp)]
+    if dk.numel() and dk.max().item() > 2.0 * dp.max().item() + TOL:
         raise AssertionError(f"{label}: the kernel's worst env is further from f64 than 2 × the "
                              f"plain f32 version's + 1e-4: {g}")
     if g["envs_kernel_over_1e-4"] > 1.5 * g["envs_plain_over_1e-4"] + 4:
@@ -1296,26 +1386,37 @@ def _world_loop_toy(dev):
                   constraints=(rod,), device=dev)
 
 
-def _ab_cassie_substeps(env, state, act_gen, dev):
-    """One env step of the Cassie state path from its own state, substep
-    by substep, each substep feeding K2 (one launch at n_sub = 1) and the
+def _ab_cassie_substeps(env, state, act_gen, dev, kw=None, label="cassie state path"):
+    """One env step of a Cassie state path (the env that ``kw`` builds;
+    the plain state path's by default) from its own state, substep by
+    substep, each substep feeding K2 (one launch at n_sub = 1) and the
     inline plain engine in float32 and float64 the same inputs: K2 held to
-    the float64 engine by `_gate_dist_vs_f64` on q, v and λ."""
+    the float64 engine by `_gate_dist_vs_f64` on q, v and λ. With
+    collision pairs the worst-env rule compares the envs with a pair row
+    active at the substep's start: on rollout states it fails on chance
+    alone elsewhere (in a run of this script on an NVIDIA H100 80GB HBM3,
+    700 W, one env of 4096 sat 6.3e-3 m/s from f64 in one substep against
+    the plain version's worst 2.2e-3, the same excursion, to the digit, as
+    on the same rollout without the pairs; ROADMAP C.2), and a fault of the
+    pair rows shows in those envs."""
     from jiminy_tpu_torch.envs import CassieEnv
 
-    inline = CassieEnv(constraint_solver="inline", device=dev, observe="state", **CASSIE_KW)
-    plain64 = _cassie_engine(dev, torch.float64, residual=False, solver="inline")
+    inline = CassieEnv(constraint_solver="inline", device=dev,
+                       **(kw or dict(CASSIE_KW, observe="state")))
+    plain64 = _cassie_engine(dev, torch.float64, residual=False, solver="inline",
+                             pairs=env.engine.collision_pairs)
     u = env._action_to_command(_uniform(act_gen, dev, env.motors.nm), state.sim)
     sim, gates = state.sim, {"q": [], "v": [], "lam": []}
     for i in range(env.n_substeps):
         nk = env.engine.step(sim, u, n_substeps=1)
         ni = inline.engine.step(sim, u, n_substeps=1)
         n64 = plain64.step(_as_f64(state.replace(sim=sim)).sim, u.double(), n_substeps=1)
+        paired = _active_pair_envs(env.engine, sim.q) if env.engine.collision_pairs else None
         for f, per_sub in gates.items():
-            per_sub.append(_gate_dist_vs_f64(f"cassie K2 substep {i} {f}", getattr(nk, f),
-                                             getattr(ni, f), getattr(n64, f)))
+            per_sub.append(_gate_dist_vs_f64(f"{label} K2 substep {i} {f}", getattr(nk, f),
+                                             getattr(ni, f), getattr(n64, f), worst_of=paired))
         sim = nk
-    print("[phase 2] cassie state path, one env step, K2 substep by substep vs the inline engine "
+    print(f"[phase 2] {label}, one env step, K2 substep by substep vs the inline engine "
           "in f32 and f64 on the same inputs: " + json.dumps(gates))
 
 
@@ -1499,6 +1600,233 @@ def phase_cassie_vs_plain(dev) -> dict:
             or loaded < 0.5:
         raise AssertionError(f"world-anchored loop: K3 disagrees with its plain version {et} "
                              f"(row loaded in {loaded} of the envs)")
+    return worst
+
+
+# ---- collision pairs and sphere sites (A.13 with B.7): the slice is
+# CassieEnv(sim_dt=2e-3, target_speed=0.4, self_collision=True)
+# (examples/train.py --env cassie --self-collision, cassie_selfcol_run5)
+CASSIE_SELFCOL_KW = dict(CASSIE_KW, observe="state", self_collision=True)
+CASSIE_SELFCOL_SENSOR_KW = dict(CASSIE_SENSOR_KW, self_collision=True)
+CASSIE_SELFCOL_PUSH_KW = dict(CASSIE_PUSH_KW, self_collision=True)
+ACTIVE_SHARE = 0.25  # the least share of envs with an active pair row in the pair gates
+SPHERE_RADIUS = 0.02  # ANYmal's foot sites as spheres
+
+
+def _pair_sets():
+    """Pair sets on Cassie's tree: ``seg``, the slice's three leg capsule
+    pairs; ``ptbox``, a box on the pelvis against the L thigh capsule (5
+    axis points, nc 43); ``ptseg``, a 6-point convex cloud on the R tarsus
+    against the L tarsus capsule (nc 46)."""
+    from jiminy_tpu_torch.engine.collision import Box, Capsule, CollisionPair, ConvexMesh
+    from jiminy_tpu_torch.models.biped import cassie_self_collision_pairs
+
+    def leg(body):
+        return Capsule(body, (0.0, 0.0, 0.0), (0.0, 0.0, -0.35), 0.04)
+
+    cloud = ((0.06, 0.0, -0.17), (-0.06, 0.0, -0.17), (0.0, 0.08, -0.17), (0.0, -0.08, -0.17),
+             (0.0, 0.0, -0.05), (0.0, 0.0, -0.29))
+    return {
+        "seg": cassie_self_collision_pairs(),
+        "ptbox": (CollisionPair(Box("pelvis", (0.0, 0.0, -0.15), (0.06, 0.08, 0.08)),
+                                leg("L_thigh")),),
+        "ptseg": (CollisionPair(ConvexMesh("R_tarsus", cloud), leg("L_tarsus"), friction=0.6),),
+    }
+
+
+def _selfcol_inputs(engine, gen, B):
+    """`_cassie_inputs` with the legs brought together: the hip rolls
+    inward (L −U(0, 0.4), R U(0, 0.4) rad, up to the limits) and the hip
+    yaws U(−0.3, 0.3) rad."""
+    q, v, cmd, lam0, wrench = _cassie_inputs(engine, gen, B)
+    t, kw = engine.tree, dict(generator=gen, device=q.device)
+    j = [t.q_off[t.joint_index(n)] for n in ("L_hip_roll", "R_hip_roll", "L_hip_yaw", "R_hip_yaw")]
+    q[:, j[0]] = -0.4 * torch.rand(B, **kw)
+    q[:, j[1]] = 0.4 * torch.rand(B, **kw)
+    q[:, j[2:]] = 0.6 * torch.rand(B, 2, **kw) - 0.3
+    return q, v, cmd, lam0, wrench
+
+
+def _active_pair_envs(engine, q) -> torch.Tensor:
+    """(B,) bool: the envs with a pair row active (depth > −margin) at q."""
+    from jiminy_tpu_torch.core import algos
+    from jiminy_tpu_torch.engine.collision import pair_rows
+
+    spec, o = engine.substep_spec, engine.options
+    xw = algos.forward_kinematics(spec.tree, q)
+    act = pair_rows(spec.pairs, spec.tree, xw, spec.dt, spec.alpha_c_over_dt, o.contact_margin,
+                    o.contact_slop, o.contact_max_correction_vel)[2]
+    return (act > 0).any(dim=1)
+
+
+def _active_pair_share(engine, q) -> float:
+    """Share of envs with a pair row active at q."""
+    return float(_active_pair_envs(engine, q).double().mean())
+
+
+def phase_pairs_vs_plain(dev) -> dict:
+    """The kernels with collision pairs (`jt_pair_rows`) against their plain
+    versions on Cassie's tree, each pair set of `_pair_sets` from
+    `_selfcol_inputs`, at B = 4096 and n_sub = 1:
+
+    - K3 and K2: q, v, λ (the pair rows included) and the impulses held to
+      the float64 plain version by their distribution (`_gate_dist_vs_f64`,
+      Cassie's float32 being ill posed), with at least a quarter of the
+      envs having an active pair row (the share printed); one launch each;
+    - the slice's pairs (seg): K2 with the sensor stage's physics bit-equal
+      to K2's, and K2 over a whole env step (n_sub = 10) bit-equal to ten
+      chained launches of one substep (λ of the pair rows carried).
+
+    Returns each kernel's worst |kernel − plain f32|."""
+    from jiminy_tpu_torch.ops.substep_kernel import (
+        SensorKernelSpec,
+        substep_batched,
+        substep_batched_multi,
+        substep_multi_reference,
+        substep_reference,
+    )
+
+    names = ("q", "v", "lam", "residual", "impulse")
+    gen = torch.Generator(device=dev).manual_seed(51)
+    worst = {}
+    for kind, pairs in _pair_sets().items():
+        eng = _cassie_engine(dev, pairs=pairs)
+        spec = eng.substep_spec
+        spec64 = _cassie_engine(dev, torch.float64, pairs=pairs).substep_spec
+        args = _selfcol_inputs(eng, gen, B_MAIN)
+        q, v, cmd, lam0, wrench = args
+        share = _active_pair_share(eng, q)
+        tau = eng._joint_torque(cmd, q, v)
+        before = _counts()
+        k3 = substep_batched(spec, q, v, tau, lam0, wrench)
+        k2 = substep_batched_multi(spec, 1, *args)
+        launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+        r3 = substep_reference(spec, q, v, tau, lam0, wrench)
+        r2 = substep_multi_reference(spec, 1, *args)
+        a64 = [x.double() for x in args]
+        r3_64 = substep_reference(spec64, a64[0], a64[1], tau.double(), a64[3], a64[4])
+        r2_64 = substep_multi_reference(spec64, 1, *a64)
+        torch.cuda.synchronize()
+        e3 = {n: _max_err(a, b) for n, a, b in zip(names, k3, r3)}
+        e2 = {n: _max_err(a, b) for n, a, b in zip(names, k2, r2)}
+        pushed = float((r3[2][:, spec.pair_off:] != 0).any(1).double().mean())
+        gates = {}
+        for kname, k, p32, p64 in (("K3", k3, r3, r3_64), ("K2", k2, r2, r2_64)):
+            for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+                gates[f"{kname} {n}"] = _gate_dist_vs_f64(f"pairs {kind} {kname} {n}", k[i],
+                                                          p32[i], p64[i])
+        print(f"[phase 1] pairs {kind} on cassie (nc {spec.nc}, {spec.n_pc} pair contacts, "
+              f"colors {list(spec.cfg.contact_colors)}) B={B_MAIN}: share of envs with an active "
+              f"pair row {share:.4f}, with a pair row's λ nonzero {pushed:.4f}; max |kernel − "
+              f"plain f32|: K3 {json.dumps(e3)}; K2 n_sub=1 {json.dumps(e2)}; launches "
+              f"{json.dumps(launched)}; vs the f64 plain version: " + json.dumps(gates))
+        if share < ACTIVE_SHARE:
+            raise AssertionError(f"pairs {kind}: only {share} of the envs have an active pair row")
+        if launched != {"substep": 1, "substep_multi": 1}:
+            raise AssertionError(f"pairs {kind}: unexpected launches {launched}")
+        worst[f"pairs_{kind}"] = max(max(e3[n] for n in names), max(e2[n] for n in names))
+
+    # the slice's pairs: the sensor variant's physics, and a whole env step
+    eng = _cassie_engine(dev, pairs=_pair_sets()["seg"])
+    spec = eng.substep_spec
+    suite = _cassie_model(dev)[2]
+    args = _selfcol_inputs(eng, gen, B_MAIN)
+    bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B_MAIN), args[0], args[1]))
+    k2 = substep_batched_multi(spec, 1, *args)
+    ks = substep_batched_multi(spec, 1, *args, sensors=SensorKernelSpec(eng.tree, suite, 1),
+                               bufs=bufs, eps=suite.sample_eps(gen, B_MAIN))
+    sens_same = all(torch.equal(ks[i], k2[i]) for i in range(7))
+    whole = substep_batched_multi(spec, 10, *args)
+    q, v, cmd, lam, wrench = args
+    for _ in range(10):
+        chained = substep_batched_multi(spec, 1, q, v, cmd, lam, wrench)
+        q, v, lam = chained[:3]
+    torch.cuda.synchronize()
+    carried = all(torch.equal(whole[i], chained[i]) for i in range(7))
+    print(f"[phase 1] pairs seg on cassie B={B_MAIN}: K2 with sensors' physics equal to K2's: "
+          f"{sens_same}; K2 at n_sub=10 equal to 10 chained K2 launches at n_sub=1: {carried}")
+    if not (sens_same and carried):
+        raise AssertionError(f"pairs seg: the sensor variant's physics not K2's ({sens_same}) or "
+                             f"K2 not the chained single substeps ({carried})")
+    return worst
+
+
+def _sphere_model(dev):
+    """ANYmal's tree with its four foot sites as spheres of SPHERE_RADIUS,
+    rebuilt from the tree's arrays, and its motors and stand pose."""
+    import numpy as np
+
+    from jiminy_tpu_torch.core.tree import ARRAY_FIELDS, STATIC_FIELDS, tree_from_arrays
+    from jiminy_tpu_torch.models.quadruped import make_anymal, stand_q
+
+    tree, motors, _ = make_anymal(device=dev)
+    d = {k: getattr(tree, k) for k in STATIC_FIELDS + ARRAY_FIELDS}
+    d = {k: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for k, x in d.items()}
+    d["contact_radius"] = np.full(tree.ncp, SPHERE_RADIUS, np.float32)
+    return tree_from_arrays(d, device=dev), motors, stand_q(tree)
+
+
+def _sphere_engine(dev, dtype=torch.float32, ground=None, fusion=True):
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
+
+    tree, motors, _ = _sphere_model(dev)
+    opts = EngineOptions(dt=5e-3, pgs_iters=8, substep_fusion=fusion, constraint_solver="substep")
+    return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
+                  controller=PDController(80.0, 2.0), ground=ground, device=dev)
+
+
+def phase_spheres_vs_plain(dev) -> dict:
+    """K3 and K2 (n_sub = 1, B = 4096) with sphere contact sites (ANYmal's
+    feet of radius SPHERE_RADIUS: the site offset before the contact
+    Jacobians) on flat ground and on a Fourier ground per env (the
+    two-pass query), held env by env to the float64 plain version
+    (`_gate_vs_f64`, as the ANYmal ground kernels). Returns each kernel's
+    worst |kernel − plain f32|."""
+    from jiminy_tpu_torch.ops.substep_kernel import (
+        substep_batched,
+        substep_batched_multi,
+        substep_multi_reference,
+        substep_reference,
+    )
+
+    names = ("q", "v", "lam", "residual", "impulse")
+    gen = torch.Generator(device=dev).manual_seed(61)
+    worst = {}
+    for kind in ("flat", "fourier"):
+        template = _ground_template(kind, dev) if kind != "flat" else None
+        eng = _sphere_engine(dev, ground=template)
+        spec = eng.substep_spec
+        spec64 = _sphere_engine(dev, torch.float64, ground=template).substep_spec
+        if kind == "flat":
+            args, gc = _substep_inputs(eng, gen, B_MAIN), None
+        else:
+            args, gc, _ = _ground_inputs(eng, kind, gen, B_MAIN)
+        q, v, cmd, lam0, wrench = args
+        tau = eng._joint_torque(cmd, q, v)
+        k3 = substep_batched(spec, q, v, tau, lam0, wrench, gc=gc)
+        k2 = substep_batched_multi(spec, 1, *args, gc=gc)
+        r3 = substep_reference(spec, q, v, tau, lam0, wrench, gc=gc)
+        r2 = substep_multi_reference(spec, 1, *args, gc=gc)
+        a64 = [x.double() for x in args]
+        g64 = gc.double() if gc is not None else None
+        r3_64 = substep_reference(spec64, a64[0], a64[1], tau.double(), a64[3], a64[4], gc=g64)
+        r2_64 = substep_multi_reference(spec64, 1, *a64, gc=g64)
+        torch.cuda.synchronize()
+        e3 = {n: _max_err(a, b) for n, a, b in zip(names, k3, r3)}
+        e2 = {n: _max_err(a, b) for n, a, b in zip(names, k2, r2)}
+        loaded = float((r3[4][..., 2] != 0).any(1).double().mean())
+        gates = {}
+        for kname, k, p32, p64 in (("K3", k3, r3, r3_64), ("K2", k2, r2, r2_64)):
+            for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+                gates[f"{kname} {n}"] = _gate_vs_f64(f"spheres {kind} {kname} {n}", k[i], p32[i],
+                                                     p64[i])
+        print(f"[phase 1] sphere sites (r {SPHERE_RADIUS}) on {kind} ground B={B_MAIN}: share of "
+              f"envs with a loaded foot {loaded:.4f}; max |kernel − plain f32|: K3 "
+              f"{json.dumps(e3)}; K2 n_sub=1 {json.dumps(e2)}; vs the f64 plain version: "
+              + json.dumps(gates))
+        if loaded < 0.5:
+            raise AssertionError(f"sphere sites on {kind} ground: {loaded} of the envs loaded")
+        worst[f"spheres_{kind}"] = max(max(e3[n] for n in names), max(e2[n] for n in names))
     return worst
 
 
@@ -2105,6 +2433,57 @@ def run(dev) -> None:
     eng_ck3 = _cassie_engine(dev, residual=False, fusion=False)
     drive_unfused("cassie substep_fusion=False", eng_ck3, walker=env_c, start=state_c, substep=30)
 
+    # the slice (A.13 with B.7): Cassie with its self-collision pairs, and
+    # the other narrow phases and the sphere sites through paths that run them
+    main_err.update(phase_pairs_vs_plain(dev))
+    main_err.update(phase_spheres_vs_plain(dev))
+    env_sc = CassieEnv(device=dev, **CASSIE_SELFCOL_KW)
+    sc_spec = env_sc.engine.substep_spec
+    if env_sc.engine.backend != "substep" or (sc_spec.nc, sc_spec.n_pc) != (37, 3) \
+            or len(sc_spec.cfg.contact_colors) != 5:
+        raise AssertionError("the self-collision env does not take the whole-substep kernel with "
+                             "its 37 rows and 5 colors")
+    state_sc = drive("cassie self-collision state path", env_sc, 30, STEPS, substep_multi=STEPS)
+    _ab_cassie_substeps(env_sc, state_sc, act_gen, dev, CASSIE_SELFCOL_KW,
+                        label="cassie self-collision state path")
+    rod = _rod_error(env_sc, state_sc.sim)[state_sc.steps >= 5]
+    print(f"[phase 2] cassie self-collision state path: share of envs with an active pair row "
+          f"{_active_pair_share(env_sc.engine, state_sc.sim.q):.4f}; pushrod |d − d₀| max "
+          f"{rod.max().item():.3g} m over the envs 5+ steps into their episode")
+    if rod.max().item() > ROD_TOL:
+        raise AssertionError(f"self-collision path: the pushrod loops open by {rod.max().item()}")
+    env_scs = CassieEnv(device=dev, **CASSIE_SELFCOL_SENSOR_KW)
+    state_scs = drive("cassie self-collision sensor path", env_scs, 31, 10,
+                      substep_multi_sensors=10)
+    _ab_sensor_step(env_scs, state_scs, act_gen, dev, CASSIE_SELFCOL_SENSOR_KW,
+                    label="cassie self-collision sensor path",
+                    gate=functools.partial(_gate_dist_vs_f64, check=False))
+    env_scp = CassieEnv(device=dev, **CASSIE_SELFCOL_PUSH_KW)
+    state_scp = drive("cassie self-collision push path", env_scp, 32, 10, substep_multi=10)
+    eng_sck3 = _cassie_engine(dev, residual=False, fusion=False, pairs=_pair_sets()["seg"])
+    drive_unfused("cassie self-collision substep_fusion=False", eng_sck3, walker=env_sc,
+                  start=state_sc, substep=30)
+    for kind in ("ptbox", "ptseg"):
+        drive(f"cassie {kind} pairs state path",
+              CassieEnv(device=dev, observe="state", collision_pairs=_pair_sets()[kind],
+                        **CASSIE_KW), 33, 5, substep_multi=5)
+    from jiminy_tpu_torch.engine.ground import sample_fourier_ground
+    from jiminy_tpu_torch.envs.locomotion import WalkerEnv
+
+    s_tree, s_motors, s_stand = _sphere_model(dev)
+    walker_kw = dict(stand_pose=s_stand, step_dt=0.02, sim_dt=5e-3, pgs_iters=8, observe="state",
+                     device=dev)
+    drive("anymal sphere feet state path", WalkerEnv(s_tree, s_motors, **walker_kw), 34, 5,
+          substep_multi=5)
+
+    def fourier(generator, batch_shape):
+        return sample_fourier_ground(generator, n_terms=16, amplitude=0.08, wavelength=1.5,
+                                     octaves=3, batch_shape=batch_shape)
+
+    drive("anymal sphere feet fourier terrain path",
+          WalkerEnv(s_tree, s_motors, ground_sampler=fourier, **walker_kw), 35, 5,
+          substep_multi_ground=5)
+
     rates_c = {}
     for name, env_x, st_x in (("state", env_c, state_c), ("sensor", env_cs, state_cs),
                               ("push", env_cp, state_cp)):
@@ -2113,6 +2492,18 @@ def run(dev) -> None:
         rates_c[name], _ = _env_rate(env_x, st_x, act_gen, dev, STEPS, 3)
         print(f"[phase 3] env-steps/s at B={B_MAIN}, cassie {name} path: "
               f"{[round(r, 1) for r in rates_c[name]]} (max {max(rates_c[name]):.1f})")
+    for name, env_x, st_x in (("self-collision state", env_sc, state_sc),
+                              ("self-collision sensor", env_scs, state_scs),
+                              ("self-collision push", env_scp, state_scp)):
+        for _ in range(5):  # warm-up
+            st_x = env_x.step(st_x, _uniform(act_gen, dev, 10))
+        torch.cuda.synchronize()
+        before = _counts()
+        rates_c[name], _ = _env_rate(env_x, st_x, act_gen, dev, STEPS, 3)
+        launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+        print(f"[phase 3] env-steps/s at B={B_MAIN}, cassie {name} path: "
+              f"{[round(r, 1) for r in rates_c[name]]} (max {max(rates_c[name]):.1f}); launches in "
+              f"the {3 * STEPS} timed steps {json.dumps(launched)}")
 
     # Cassie (B.9 and the springs, the large frame): K2 over the env step's
     # 10 substeps, with the sensor stage (10 updates), and K3
@@ -2157,6 +2548,67 @@ def run(dev) -> None:
         _time_cuda(lambda: substep_reference(cspec, cq, cv, ctau, clam0, cwrench), 3),
         _substep_bytes(cspec, B_MAIN), B_MAIN * _substep_flops(cspec),
     )
+
+    # B.7 (the pair narrow phases) on Cassie: the slice's seg pairs (K2 over
+    # the env step's 10 substeps, and K3), the ptbox and ptseg pair sets (K2)
+    pgen = torch.Generator(device=dev).manual_seed(27)
+    b7 = "jiminy_tpu/ops/substep_kernel.py:998"
+    for kind, pairs in _pair_sets().items():
+        peng = _cassie_engine(dev, residual=False, fusion=False, pairs=pairs)
+        pspec = peng.substep_spec
+        pargs = _selfcol_inputs(peng, pgen, B_MAIN)
+        p_ops = B_MAIN * (c_sub * (_substep_flops(pspec) + _torque_flops(pspec))
+                          + 2 * pspec.tree.nv)
+        print(f"[phase 3] pairs {kind}: {_substep_flops(pspec)} FLOP per env per substep (pairs "
+              f"{_pair_flops(pspec)}, chain {_solve_flops(pspec.cfg)} at nc {pspec.nc})")
+        name = "cassie_selfcol_substep_multi" if kind == "seg" else f"pairs_{kind}_substep_multi"
+        launched_by = ("cassie self-collision state path" if kind == "seg"
+                       else f"cassie {kind} pairs state path")
+        main_err[name] = main_err[f"pairs_{kind}"]
+        entry(
+            name, "jiminy_tpu_torch/csrc/substep.cu", b7, path[launched_by]["substep_multi"],
+            _time_cuda(lambda: substep_batched_multi(pspec, c_sub, *pargs), 10),
+            _time_cuda(lambda: substep_multi_reference(pspec, c_sub, *pargs), 2),
+            _substep_multi_bytes(pspec, B_MAIN), p_ops,
+        )
+        if kind == "seg":
+            pq, pv, pcmd, plam0, pwrench = pargs
+            ptau = peng._joint_torque(pcmd, pq, pv)
+            main_err["cassie_selfcol_substep"] = main_err["pairs_seg"]
+            entry(
+                "cassie_selfcol_substep", "jiminy_tpu_torch/csrc/substep.cu", b7,
+                path["cassie self-collision substep_fusion=False"]["substep"],
+                _time_cuda(lambda: substep_batched(pspec, pq, pv, ptau, plam0, pwrench), 20),
+                _time_cuda(lambda: substep_reference(pspec, pq, pv, ptau, plam0, pwrench), 3),
+                _substep_bytes(pspec, B_MAIN), B_MAIN * _substep_flops(pspec),
+            )
+    # B.4′ (the sphere sites' offset) on ANYmal's feet: K2 over the env
+    # step's 4 substeps on flat ground and on a Fourier ground per env
+    sgen = torch.Generator(device=dev).manual_seed(28)
+    b4s = "jiminy_tpu/ops/substep_kernel.py:862"
+    for kind in ("flat", "fourier"):
+        template = _ground_template(kind, dev) if kind != "flat" else None
+        seng = _sphere_engine(dev, ground=template, fusion=False)
+        sspec = seng.substep_spec
+        if kind == "flat":
+            sargs, sgc, g_bytes, g_ops = _substep_inputs(seng, sgen, B_MAIN), None, 0, 0
+            name, counter, launched_by = ("sphere_sites_substep_multi", "substep_multi",
+                                          "anymal sphere feet state path")
+        else:
+            sargs, sgc, _ = _ground_inputs(seng, kind, sgen, B_MAIN)
+            g_bytes, g_ops = 4 * sgc.numel(), B_MAIN * n_sub * _ground_flops(sspec)
+            name, counter, launched_by = ("sphere_sites_substep_multi_ground",
+                                          "substep_multi_ground",
+                                          "anymal sphere feet fourier terrain path")
+        main_err[name] = main_err[f"spheres_{kind}"]
+        s_ops = B_MAIN * (n_sub * (_substep_flops(sspec) + _torque_flops(sspec))
+                          + 2 * sspec.tree.nv)
+        entry(
+            name, "jiminy_tpu_torch/csrc/substep.cu", b4s, path[launched_by][counter],
+            _time_cuda(lambda: substep_batched_multi(sspec, n_sub, *sargs, gc=sgc), 20),
+            _time_cuda(lambda: substep_multi_reference(sspec, n_sub, *sargs, gc=sgc), 3),
+            _substep_multi_bytes(sspec, B_MAIN) + g_bytes, s_ops + g_ops,
+        )
     print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_sensor_path": rates_s,
                       "env_steps_per_s_terrain_path": rates_t,
                       "env_steps_per_s_sim2real_path": rates_r,

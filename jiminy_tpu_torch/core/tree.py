@@ -361,13 +361,24 @@ class TreeBuilder:
         )
         return len(self.frame_body) - 1
 
-    def add_contact_point(self, name, body, pos=(0.0, 0.0, 0.0)):
-        """A bare contact point (radius 0) on ``body``."""
+    def add_contact_point(self, name, body, pos=(0.0, 0.0, 0.0), radius: float = 0.0):
+        """A contact site on ``body``: a bare point (radius 0) or the
+        centre of a sphere of ``radius``."""
         self.contact_body.append(body)
         self.contact_pos.append(np.asarray(pos, np.float32))
-        self.contact_radius.append(0.0)
+        self.contact_radius.append(float(radius))
         self.contact_frame_name.append(name)
         return len(self.contact_body) - 1
+
+    def add_contact_sphere(self, name, body, center=(0.0, 0.0, 0.0), radius: float = 0.0):
+        """A sphere against the ground: it touches at centre − r·n̂."""
+        return self.add_contact_point(name, body, center, radius=radius)
+
+    def add_contact_capsule(self, name, body, p0, p1, radius: float) -> tuple[int, int]:
+        """A capsule against the ground as its two end spheres (on flat
+        ground its side touches only where both ends do)."""
+        return (self.add_contact_sphere(f"{name}_a", body, p0, radius=radius),
+                self.add_contact_sphere(f"{name}_b", body, p1, radius=radius))
 
     def build(self, device="cuda", dtype=torch.float32) -> KinematicTree:
         q_off, v_off = [], []

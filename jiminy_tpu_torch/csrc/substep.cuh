@@ -31,15 +31,21 @@
 // spring branch of `_compute_tau` and the dt²·k, dt·k·v terms of
 // `_substep_math`) integrate implicitly; both are runtime branches on the
 // packed header, uniform across the warp, so a model without them runs
-// zero-trip loops (see `jt_distance_row` below). No collision pairs,
-// sphere contact sites or spherical flexibility.
+// zero-trip loops (see `jt_distance_row` below). Declared collision pairs
+// (`SubstepSpec.pair_gens`, the pair block of `_substep_math` with
+// `emit_pair_contact` and `_seg_seg_lane`) add one [t1, t2, n] block per
+// pair contact after the ground contacts, and sphere contact sites touch
+// at centre − r·n̂ (the site offset of `_substep_math`); both are runtime
+// branches on the header too (see `jt_pair_contact` below). No spherical
+// flexibility.
 //
 // One substep (`jt_substep`, the counterpart of `_substep_math`) is, per
 // env: FK → RNEA bias with the root wrench → CRBA + armature + dt·damping
 // (+ dt²·stiffness) → distance rows, bounds rows and contact rows
 // color-major (flat basis t1 = (0,−1,0),
 // t2 = (1,0,0), n = e_z, or with GEN the basis of the ground's normal at
-// each contact; Baumgarte / velocity-barrier targets) → the
+// each contact; Baumgarte / velocity-barrier targets) → pair contact rows
+// (each pair its own PGS color) → the
 // shared chain (solve_chain.cuh) → world impulses in the original
 // contact order → symplectic Euler with the quaternion exponential. The
 // arithmetic follows the plain version
@@ -64,7 +70,9 @@
 // (nb 15, nv 20, nc 28 with its 2 distance rows, 10 substeps) takes the
 // large frame and ~1.4× ANYmal's operations per substep (chip_smoke.py
 // `_substep_flops`, with `_distance_flops` and `_spring_flops`):
-// operation-bound as well. This
+// operation-bound as well; its three self-collision capsule pairs add the
+// narrow phase and 9 rows, and the chain grows with nc (37 against 28;
+// chip_smoke.py `_pair_flops`). This
 // design is far from that bound by choice: the TPU
 // kernel's lane-major layout (batch on the 128 vector lanes, the tree
 // unrolled into Python floats, the batch padded by repetition) does not
@@ -86,15 +94,20 @@
 //           (nm each), per distance constraint its two bodies (−1: a
 //           point of the world);
 //   floats: 16 scalars (JT_S_* below; JT_S_SPRINGS is 1 when the tree has
-//           joint springs), then per body [axis 3, placement
+//           joint springs, JT_S_NGEN the number of pair contact generators,
+//           JT_S_SPHERES 1 when a contact site has a radius), then per body [axis 3, placement
 //           rotation 9 (row-major), placement position 3, mass, h = m·c
 //           3, rotational inertia about the origin 9], armature (nv),
 //           damping (nv), contact positions (3·ncp), bounds low, high
 //           (nbj each), motors: reduction, effort limit, velocity limit,
 //           dry friction, viscous friction, friction velocity, kp, kd
 //           (nm each), per distance constraint [its two points in their
-//           bodies 3 + 3, the distance d₀, α/dt], and with springs the
-//           stiffness (nv).
+//           bodies 3 + 3, the distance d₀, α/dt], with springs the
+//           stiffness (nv), with sphere sites the contact radii (ncp), and
+//           the pair generators' floats (see `jt_pair_contact`).
+//   ints after the distance bodies: per pair generator [kind, the points'
+//           body, the other shape's body, contact count, offset of its
+//           floats].
 // Model parameters (RAND; ops/substep_kernel.py `SubstepSpec.n_mp`), one
 // row of n_mp floats per env: mass (nb), h (3·nb), origin inertia xx, yy,
 // zz, xy, xz, yz (6·nb), armature (nv), and for K2 motor gain (nm), motor
@@ -118,12 +131,13 @@ enum { JT_FREE = 0, JT_REVOLUTE = 1 };
 enum { JT_TORQUE_NONE = 0, JT_TORQUE_PD = 1, JT_TORQUE_DIRECT = 2 };
 enum {
   JT_S_DT = 0, JT_S_ALPHA_B, JT_S_ALPHA_C_DT, JT_S_SLOP, JT_S_MAX_CORR,
-  JT_S_MARGIN, JT_S_FRICTION, JT_S_GROUND, JT_S_GX, JT_S_GY, JT_S_GZ, JT_S_SPRINGS
+  JT_S_MARGIN, JT_S_FRICTION, JT_S_GROUND, JT_S_GX, JT_S_GY, JT_S_GZ, JT_S_SPRINGS,
+  JT_S_NGEN, JT_S_SPHERES
 };
 
 struct SpecView {
-  int nb, nq, nv, ncp, nbj, nm, mode, gmode, gn, n_dist;
-  bool springs;
+  int nb, nq, nv, ncp, nbj, nm, mode, gmode, gn, n_dist, n_gen;
+  bool springs, spheres;
   const int *parent, *jtype, *q_off, *v_off, *cbody, *corder, *bbody, *mq, *mv;
   const float *scal, *body, *arm, *damp, *cpos, *blo, *bhi;
   const float *red, *elim, *vlim, *fdry, *fvis, *feps, *kp, *kd;
@@ -136,6 +150,15 @@ __device__ __forceinline__ const float* jt_dist_floats(const SpecView& s) { retu
 __device__ __forceinline__ const float* jt_stiffness(const SpecView& s) {
   return s.kd + s.nm + 8 * s.n_dist;
 }
+__device__ __forceinline__ const float* jt_radii(const SpecView& s) {
+  return jt_stiffness(s) + (s.springs ? s.nv : 0);
+}
+__device__ __forceinline__ const int* jt_pair_ints(const SpecView& s) {
+  return jt_dist_bodies(s) + 2 * s.n_dist;
+}
+__device__ __forceinline__ const float* jt_pair_floats(const SpecView& s) {
+  return jt_radii(s) + (s.spheres ? s.ncp : 0);
+}
 
 __device__ __forceinline__ SpecView jt_view(const int* si, const float* sf) {
   SpecView s;
@@ -143,6 +166,8 @@ __device__ __forceinline__ SpecView jt_view(const int* si, const float* sf) {
   s.nbj = si[4]; s.nm = si[5]; s.mode = si[6]; s.gmode = si[7]; s.gn = si[8];
   s.n_dist = si[9];
   s.springs = sf[JT_S_SPRINGS] != 0.f;
+  s.n_gen = (int)sf[JT_S_NGEN];
+  s.spheres = sf[JT_S_SPHERES] != 0.f;
   const int* p = si + JT_HDR_I;
   s.parent = p; p += s.nb;
   s.jtype = p; p += s.nb;
@@ -543,6 +568,206 @@ __device__ __forceinline__ float jt_distance_row(const SpecView& s, const float 
   return -c[7] * (d - c[6]);
 }
 
+// ---- collision pairs (the pair block of `_substep_math`; the plain
+// version is engine/collision.py `pair_rows`). Generators, in the packed
+// spec's pair section (ops/substep_kernel.py `SubstepSpec._pack_pairs`),
+// each [kind, b_p, b_f, k, offset] and its floats:
+//   seg   (one contact): [μ, r_a, r_b, a0 3, a1 3, b0 3, b1 3], segment a on
+//         b_p, segment b on b_f;
+//   ptbox (k contacts): [μ, r_p, box centre 3, box rotation 9 (row-major),
+//         half-extents 3, k points 3k], points on b_p, the box on b_f;
+//   ptseg (k contacts): [μ, r_p, r_s, p0 3, p1 3, k points 3k], points on
+//         b_p, the capsule [p0, p1] of radius r_s on b_f;
+// every point in its body's frame.
+enum { JT_GEN_SEG = 0, JT_GEN_PTBOX = 1, JT_GEN_PTSEG = 2 };
+
+__device__ __forceinline__ void jt_world_point(const float (*xwR)[9], const float (*xwp)[3],
+                                               int b, const float* pl, float* pw) {
+  mat3_vec(xwR[b], pl, pw);
+  for (int e = 0; e < 3; ++e) pw[e] += xwp[b][e];
+}
+
+// closest points ca, cb of the segments [p1, q1], [p2, q2] (counterpart of
+// `_seg_seg_lane`, Ericson §5.1.9): s of the infinite lines clamped to
+// [0, 1], then t, then s again at the clamped t where t left [0, 1]
+__device__ __forceinline__ void jt_seg_seg(const float* p1, const float* q1, const float* p2,
+                                           const float* q2, float* ca, float* cb) {
+  const float eps = 1e-9f;
+  float d1[3], d2[3], r[3];
+  for (int e = 0; e < 3; ++e) {
+    d1[e] = q1[e] - p1[e];
+    d2[e] = q2[e] - p2[e];
+    r[e] = p1[e] - p2[e];
+  }
+  const float a = dot3(d1, d1), ee = dot3(d2, d2);
+  const float f = dot3(d2, r), c = dot3(d1, r), b = dot3(d1, d2);
+  const float denom = a * ee - b * b;
+  float sc = denom > eps ? fminf(fmaxf((b * f - c * ee) / fmaxf(denom, eps), 0.f), 1.f) : 0.f;
+  const float t = ee > eps ? (b * sc + f) / fmaxf(ee, eps) : 0.f;
+  const float tc = fminf(fmaxf(t, 0.f), 1.f);
+  if (t != tc) sc = a > eps ? fminf(fmaxf((tc * b - c) / fmaxf(a, eps), 0.f), 1.f) : 0.f;
+  for (int e = 0; e < 3; ++e) {
+    ca[e] = p1[e] + sc * d1[e];
+    cb[e] = p2[e] + tc * d2[e];
+  }
+}
+
+// exact box signed distance of pl (box frame), half-extents h, and its
+// outward normal nl: outside the gradient of the distance to the box,
+// inside the axis of least penetration (ties to within 1e-12 averaged)
+__device__ __forceinline__ float jt_box_sdf(const float* pl, const float* h, float* nl) {
+  float qd[3], out[3], sg[3], one[3];
+  for (int e = 0; e < 3; ++e) {
+    qd[e] = fabsf(pl[e]) - h[e];
+    out[e] = fmaxf(qd[e], 0.f);
+    sg[e] = pl[e] >= 0.f ? 1.f : -1.f;
+  }
+  const float d_out = sqrtf(dot3(out, out) + 1e-18f);
+  const float m = fmaxf(fmaxf(qd[0], qd[1]), qd[2]);
+  for (int e = 0; e < 3; ++e) one[e] = qd[e] >= m - 1e-12f ? 1.f : 0.f;
+  const float tot = one[0] + one[1] + one[2];
+  for (int e = 0; e < 3; ++e) nl[e] = m < 0.f ? sg[e] * one[e] / tot : sg[e] * out[e] / d_out;
+  return d_out + fminf(m, 0.f);
+}
+
+// one pair contact's rows (counterpart of `emit_pair_contact`) at row:
+// [t1; t2; n]·(J_p(b_a, sa) − J_p(b_b, sb)) added into J (zeroed by the
+// caller; the two chains may share ancestors), t1 = n × ref normalized
+// (ref = e_x where |n_x| < 0.9, else e_y), t2 = n × t1; the ground
+// contacts' Baumgarte / velocity-barrier target on the normal row, active
+// where depth > −margin, μ the pair's friction.
+template <int NMAX>
+__device__ __forceinline__ void jt_pair_contact(
+    const SpecView& s, const float (*xwR)[9], const float (*xwp)[3], int ba, const float* sa,
+    int bb, const float* sb, const float* n, float depth, float mu_g, int row, float* J,
+    float* target, float* active, float* mu) {
+  float bs[9], col[6];
+  const bool cnd = fabsf(n[0]) < 0.9f;
+  const float ref[3] = {cnd ? 1.f : 0.f, cnd ? 0.f : 1.f, 0.f};
+  cross3(n, ref, bs);
+  const float r = rsqrtf(dot3(bs, bs) + 1e-18f);
+  for (int e = 0; e < 3; ++e) bs[e] *= r;
+  cross3(n, bs, bs + 3);
+  for (int e = 0; e < 3; ++e) bs[6 + e] = n[e];
+  const int bodies[2] = {ba, bb};
+  for (int k = 0; k < 2; ++k) {
+    const float sign = k == 0 ? 1.f : -1.f;
+    const float* p = k == 0 ? sa : sb;
+    for (int j = bodies[k]; j >= 0; j = s.parent[j]) {
+      const int jt = s.jtype[j], vo = s.v_off[j];
+      float r3[3];
+      for (int e = 0; e < 3; ++e) r3[e] = p[e] - xwp[j][e];
+      for (int cc = 0; cc < joint_nv(jt); ++cc) {
+        float wc[3], vc[3], wr[3], lin[3];
+        subspace_col(jt, s.body + JT_BODY_F * j, cc, col);
+        mat3_vec(xwR[j], col, wc);
+        mat3_vec(xwR[j], col + 3, vc);
+        cross3(wc, r3, wr);
+        for (int e = 0; e < 3; ++e) lin[e] = vc[e] + wr[e];
+        for (int e = 0; e < 3; ++e) J[(row + e) * NMAX + vo + cc] += sign * dot3(bs + 3 * e, lin);
+      }
+    }
+  }
+  const float dt = s.scal[JT_S_DT];
+  const float corr = depth > 0.f
+      ? fminf(fmaxf(s.scal[JT_S_ALPHA_C_DT] * (depth - s.scal[JT_S_SLOP]), 0.f),
+              s.scal[JT_S_MAX_CORR])
+      : depth / dt;
+  const float act = depth > -s.scal[JT_S_MARGIN] ? 1.f : 0.f;
+  for (int e = 0; e < 3; ++e) {
+    target[row + e] = e == 2 ? corr : 0.f;
+    active[row + e] = act;
+    mu[row + e] = mu_g;
+  }
+}
+
+// every pair generator's contacts (the narrow phases of `_substep_math`'s
+// pair block) as rows from row0, contact after contact in generator order;
+// stops at nc (the layout jt_check_dims holds makes that the end)
+template <int NMAX>
+__device__ __forceinline__ void jt_pair_rows(const SpecView& s, const float (*xwR)[9],
+                                             const float (*xwp)[3], int row0, int nc, float* J,
+                                             float* target, float* active, float* mu) {
+  const int* gi = jt_pair_ints(s);
+  const float* gfl = jt_pair_floats(s);
+  int row = row0;
+  for (int gidx = 0; gidx < s.n_gen; ++gidx) {
+    const int* G = gi + 5 * gidx;
+    const int kind = G[0], bp = G[1], bf = G[2], npt = G[3];
+    const float* f = gfl + G[4];
+    float n[3], sa[3], sb[3];
+    if (kind == JT_GEN_SEG) {
+      if (row + 3 > nc) return;
+      float pa0[3], pa1[3], pb0[3], pb1[3], ca[3], cb[3], d[3];
+      jt_world_point(xwR, xwp, bp, f + 3, pa0);
+      jt_world_point(xwR, xwp, bp, f + 6, pa1);
+      jt_world_point(xwR, xwp, bf, f + 9, pb0);
+      jt_world_point(xwR, xwp, bf, f + 12, pb1);
+      jt_seg_seg(pa0, pa1, pb0, pb1, ca, cb);
+      for (int e = 0; e < 3; ++e) d[e] = ca[e] - cb[e];
+      const float dist = sqrtf(dot3(d, d) + 1e-18f);
+      for (int e = 0; e < 3; ++e) {
+        n[e] = d[e] / dist;  // from b toward a
+        sa[e] = ca[e] - f[1] * n[e];
+        sb[e] = cb[e] + f[2] * n[e];
+      }
+      jt_pair_contact<NMAX>(s, xwR, xwp, bp, sa, bf, sb, n, (f[1] + f[2]) - dist, f[0], row, J,
+                            target, active, mu);
+      row += 3;
+    } else if (kind == JT_GEN_PTBOX) {
+      const float rp = f[1];
+      const float* pts = f + 17;
+      float cw[3], Rw[9];  // the box's centre and axes in the world: Rw = R_bf·R
+      jt_world_point(xwR, xwp, bf, f + 2, cw);
+      mat3_mul(xwR[bf], f + 5, Rw);
+      for (int k = 0; k < npt; ++k) {
+        if (row + 3 > nc) return;
+        float pw[3], rel[3], pl[3], nl[3];
+        jt_world_point(xwR, xwp, bp, pts + 3 * k, pw);
+        for (int e = 0; e < 3; ++e) rel[e] = pw[e] - cw[e];
+        mat3t_vec(Rw, rel, pl);  // box frame
+        const float sdf = jt_box_sdf(pl, f + 14, nl);
+        mat3_vec(Rw, nl, n);  // outward from the box, toward the point
+        for (int e = 0; e < 3; ++e) {
+          sa[e] = pw[e] - rp * n[e];
+          sb[e] = pw[e] - sdf * n[e];
+        }
+        jt_pair_contact<NMAX>(s, xwR, xwp, bp, sa, bf, sb, n, rp - sdf, f[0], row, J, target,
+                              active, mu);
+        row += 3;
+      }
+    } else {  // JT_GEN_PTSEG: the points against a capsule on bf
+      const float rp = f[1], rs = f[2];
+      const float* pts = f + 9;
+      float p0[3], p1[3], seg[3];
+      jt_world_point(xwR, xwp, bf, f + 3, p0);
+      jt_world_point(xwR, xwp, bf, f + 6, p1);
+      for (int e = 0; e < 3; ++e) seg[e] = p1[e] - p0[e];
+      const float denom = fmaxf(dot3(seg, seg), 1e-12f);
+      for (int k = 0; k < npt; ++k) {
+        if (row + 3 > nc) return;
+        float pw[3], rel[3], cpt[3], d[3];
+        jt_world_point(xwR, xwp, bp, pts + 3 * k, pw);
+        for (int e = 0; e < 3; ++e) rel[e] = pw[e] - p0[e];
+        const float st = fminf(fmaxf(dot3(rel, seg) / denom, 0.f), 1.f);
+        for (int e = 0; e < 3; ++e) {
+          cpt[e] = p0[e] + st * seg[e];
+          d[e] = pw[e] - cpt[e];
+        }
+        const float dist = sqrtf(dot3(d, d) + 1e-18f);
+        for (int e = 0; e < 3; ++e) {
+          n[e] = d[e] / dist;
+          sa[e] = pw[e] - rp * n[e];
+          sb[e] = cpt[e] + rs * n[e];
+        }
+        jt_pair_contact<NMAX>(s, xwR, xwp, bp, sa, bf, sb, n, (rp + rs) - dist, f[0], row, J,
+                              target, active, mu);
+        row += 3;
+      }
+    }
+  }
+}
+
 // ---- one impulse substep of one env (counterpart of `_substep_math`).
 // q (nq), v, tau (nv), lam0 (nc), w0 (6) → q_next (nq), v_next (nv),
 // lam_out (nc, may be lam0), fc (3·ncp world impulses); returns the
@@ -706,6 +931,7 @@ __device__ __forceinline__ float jt_substep(
   }
 
   // ---- rows: distance constraints, bounds, then contacts color-major
+  // (sphere sites at their surface points), then the pairs' contacts
   for (int r = 0; r < nc * NMAX; ++r) J[r] = 0.f;
   const int nd = s.n_dist;
   for (int c = 0; c < nd; ++c) {
@@ -734,6 +960,21 @@ __device__ __forceinline__ float jt_substep(
     float pt[3], r3[3];
     mat3_vec(xwR[b], s.cpos + 3 * k, pt);
     for (int e = 0; e < 3; ++e) pt[e] += xwp[b][e];
+    if (s.spheres) {  // a sphere site touches at centre − r·n̂, n̂ at the centre's xy
+      const float rk = jt_radii(s)[k];
+      if (rk > 0.f) {
+        if constexpr (GEN) {
+          float hg[3];
+          jt_ground_query(s, g, n_gc, pt[0], pt[1], hg);
+          const float inv = rsqrtf(hg[1] * hg[1] + hg[2] * hg[2] + 1.f);
+          pt[0] += rk * hg[1] * inv;
+          pt[1] += rk * hg[2] * inv;
+          pt[2] -= rk * inv;
+        } else {
+          pt[2] -= rk;
+        }
+      }
+    }
     float h_gen = 0.f;
     if constexpr (GEN) h_gen = jt_contact_basis(s, g, n_gc, pt, basis[jc]);
     // point Jacobian, written as the rows [t1; t2; n]·J_p: on flat ground
@@ -771,6 +1012,10 @@ __device__ __forceinline__ float jt_substep(
       mu[row + e] = friction;
     }
   }
+
+  // ---- collision pairs after the ground contacts, one color each
+  if (s.n_gen > 0)
+    jt_pair_rows<NMAX>(s, xwR, xwp, nd + s.nbj + 3 * s.ncp, nc, J, target, active, mu);
 
   // ---- the shared chain
   const float res = jt_solve_chain<NMAX, NCMAX>(
@@ -1120,7 +1365,9 @@ extern "C" const char* jt_substep_error_string(int code) {
 // parameters if and only if it holds the RAND instantiations. The layout
 // must be the one the kernel writes its rows in: n_dist single-row
 // equality blocks (0, 1), …, (n_dist − 1, 1), then the bounds span at
-// n_dist, then the contact colors.
+// n_dist, then the contact colors covering every row after the bounds
+// (the packed spec's pair generators write the last ones; SubstepSpec
+// checks their counts against the pair colors when it packs).
 static int jt_check_dims(int B, int nb, int nq, int nv, int nc, int n_dist, int nm,
                          int iters, const float* gc, int n_gc, const float* mp,
                          int n_mp, int n_mp_min, const int* layout, int layout_len,
@@ -1135,8 +1382,12 @@ static int jt_check_dims(int B, int nb, int nq, int nv, int nc, int n_dist, int 
   if (err != (int)cudaSuccess) return err;
   bool ok = lay->n_eq == n_dist && (lay->bounds_size == 0 || lay->bounds_start == n_dist);
   for (int e = 0; e < lay->n_eq; ++e) ok = ok && lay->eq[e][0] == e && lay->eq[e][1] == 1;
-  for (int g = 0; g < lay->n_colors; ++g)
+  int color_rows = 0;
+  for (int g = 0; g < lay->n_colors; ++g) {
     ok = ok && lay->colors[g][0] >= n_dist + lay->bounds_size;
+    color_rows += 3 * lay->colors[g][1];
+  }
+  ok = ok && n_dist + lay->bounds_size + color_rows == nc;
   return ok ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
@@ -1184,8 +1435,8 @@ static int jt_multi_launch(
     const int* si, const float* sf, const float* q, const float* v,
     const float* cmd, const float* lam0, const float* wrench, float* q_out,
     float* v_out, float* lam_out, float* res, float* fc, float* a_out,
-    float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int n_dist, int nm,
-    const float* gc, int n_gc, const float* mp, int n_mp, const SensParams& sp,
+    float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int n_dist,
+    int nm, const float* gc, int n_gc, const float* mp, int n_mp, const SensParams& sp,
     const int* layout, int layout_len, int iters, float dt, float relax, float reg,
     int compute_residual, void* stream) {
   BlockLayout lay;
@@ -1217,14 +1468,14 @@ extern "C" int jt_substep_multi(
     const int* si, const float* sf, const float* q, const float* v,
     const float* cmd, const float* lam0, const float* wrench, float* q_out,
     float* v_out, float* lam_out, float* res, float* fc, float* a_out,
-    float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int n_dist, int nm,
-    const float* gc, int n_gc, const float* mp, int n_mp, const int* layout,
+    float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int n_dist,
+    int nm, const float* gc, int n_gc, const float* mp, int n_mp, const int* layout,
     int layout_len, int iters, float dt, float relax, float reg,
     int compute_residual, void* stream) {
   const SensParams sp = {nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 1};
   return jt_multi_launch<false>(si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc,
-                                a_out, tau_out, B, n_sub, nb, nq, nv, nc, n_dist, nm, gc, n_gc,
-                                mp, n_mp, sp, layout, layout_len, iters, dt, relax, reg,
+                                a_out, tau_out, B, n_sub, nb, nq, nv, nc, n_dist, nm, gc,
+                                n_gc, mp, n_mp, sp, layout, layout_len, iters, dt, relax, reg,
                                 compute_residual, stream);
 }
 
@@ -1246,7 +1497,7 @@ extern "C" int jt_substep_multi_sensors(
     return (int)cudaErrorInvalidValue;
   const SensParams sp = {gi, gf, bufs_in, eps, bufs_out, n_groups, n_buf, n_eps, k_obs};
   return jt_multi_launch<true>(si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc,
-                               a_out, tau_out, B, n_sub, nb, nq, nv, nc, n_dist, nm, gc, n_gc,
-                               mp, n_mp, sp, layout, layout_len, iters, dt, relax, reg,
+                               a_out, tau_out, B, n_sub, nb, nq, nv, nc, n_dist, nm, gc,
+                               n_gc, mp, n_mp, sp, layout, layout_len, iters, dt, relax, reg,
                                compute_residual, stream);
 }

@@ -2,9 +2,10 @@
 
 Counterpart of ``jiminy_tpu/engine/contact.py`` for the constraint
 (impulse) contact model: ``ContactParams``, the world positions and
-velocities of the contact sites, and the per-substep contact manifold.
-The penalty (spring-damper) model and sphere/capsule sites wait for
-later slices (ROADMAP A.13, A.16).
+velocities of the contact sites, and the per-substep contact manifold,
+for bare points and for sphere sites (a capsule against the ground is its
+two end spheres, ``TreeBuilder.add_contact_capsule``). The penalty
+(spring-damper) model waits for a later slice (ROADMAP A.16).
 """
 
 from __future__ import annotations
@@ -56,10 +57,25 @@ def contact_points_world(
     return torch.stack(ps, dim=1), torch.stack(vs, dim=1)
 
 
-def surface_contacts(tree: KinematicTree, xw, vel, ground):
+def surface_contacts(tree: KinematicTree, xw, vel, ground, spheres: bool):
     """(points, velocities, depth, normal) of every site against the
-    ground: (B, ncp, 3), (B, ncp, 3), (B, ncp), (B, ncp, 3). Bare points
-    only (the engine refuses sphere sites, ROADMAP A.13)."""
+    ground: (B, ncp, 3), (B, ncp, 3), (B, ncp), (B, ncp, 3). A bare point
+    is its body point. A sphere site (radius r > 0) touches at its
+    surface point p = c − r·n̂, the normal n̂ taken at the centre's xy; the
+    height at p's xy gives the depth and the normal there the contact's
+    (exact on flat ground, first order on curved terrain; the kernels do
+    the same), and p moves at v_c + ω × (p − c), the rolling lever arm.
+    ``spheres``: whether any site has a radius, known on the host
+    (``SubstepSpec.spheres``), so that the step does not wait for the
+    device to read the tree's radii."""
     centers, v_c = contact_points_world(tree, xw, vel)
-    h, n = ground.query(centers[..., :2])
-    return centers, v_c, h - centers[..., 2], n
+    if not spheres:
+        h, n = ground.query(centers[..., :2])
+        return centers, v_c, h - centers[..., 2], n
+    _, n1 = ground.query(centers[..., :2])
+    pts = centers - tree.contact_radius[:, None] * n1
+    h2, n2 = ground.query(pts[..., :2])
+    omegas = torch.stack(
+        [mv(xw[b].rot, vel[b][:, :3]) for b in tree.contact_body], dim=1
+    )
+    return pts, v_c + cross(omegas, pts - centers), h2 - pts[..., 2], n2

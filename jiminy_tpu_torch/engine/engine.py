@@ -27,8 +27,11 @@ The substep's physics has three backends, selected by
 - ``"inline"``: plain PyTorch physics with the plain chain (the
   reference's ``"xla"``), so the same physics runs with no kernel;
 - ``"auto"`` (the default): ``"substep"`` when the model is within the
-  whole-substep kernels' caps, else ``"kernel"``, as the reference's
-  ``"auto"`` builds on the accelerator. ``Engine.backend`` is the choice.
+  whole-substep kernels' caps, else ``"kernel"`` when it is within the
+  chain kernel's. Beyond both, ``"inline"`` on the CPU (where every
+  backend runs the plain versions), and on CUDA a ValueError: the plain
+  physics runs on the card only when ``"inline"`` is asked for.
+  ``Engine.backend`` is the choice.
 
 Every backend runs the same substep: :func:`substep_reference` is the
 plain one, and the kernels are held against it.
@@ -48,6 +51,15 @@ whole-substep kernels (K2 with τ scaled in-kernel; K3 with τ from the
 scaled motors), and the plain physics of ``"kernel"`` and ``"inline"``
 reads the same rows.
 
+Collision: contact sites may be spheres (the tree's ``contact_radius``),
+and ``collision_pairs`` (:class:`~jiminy_tpu_torch.engine.collision.CollisionPair`:
+spheres, capsules, boxes, convex meshes on two bodies) add a [t1, t2, n]
+block per pair contact after the ground contacts, each pair one PGS
+color, on every backend (the reference's ``pair_rows``); they need
+``contact_model="constraint"``. As the reference gates its in-kernel
+assembly, more than 24 pair contacts keep a model off the whole-substep
+kernels.
+
 Closed loops: ``constraints`` (distance constraints,
 :class:`~jiminy_tpu_torch.engine.constraints.DistanceConstraint`) are
 equality rows of every substep, stacked ahead of the joint bounds and
@@ -56,8 +68,8 @@ contacts, on every backend. Springs on 1-DoF joints (the tree's
 implicitly with the joint damping.
 
 Not ported yet (each raises): penalty contacts and other steppers
-(ROADMAP A.16), collision pairs (A.13), spherical flexibility (A.14),
-kinematic constraints other than the distance constraint (A.22).
+(ROADMAP A.16), spherical flexibility (A.14), kinematic constraints other
+than the distance constraint (A.22).
 """
 
 from __future__ import annotations
@@ -69,6 +81,7 @@ import torch
 
 from jiminy_tpu_torch import resolve_device
 from jiminy_tpu_torch.core.tree import KinematicTree
+from jiminy_tpu_torch.engine.collision import CollisionPairSet
 from jiminy_tpu_torch.engine.contact import ContactParams
 from jiminy_tpu_torch.engine.ground import FlatGround, FourierGround, PerlinGround, StairsGround
 from jiminy_tpu_torch.hardware.motors import Motors
@@ -156,7 +169,10 @@ class Engine:
     ``fn(cmd, q, v) → motor command``. The first two are declarative, so
     the fused kernel can evaluate them in-kernel. ``constraints``: the
     kinematic constraints of the model (distance constraints, e.g.
-    Cassie's pushrods), rows of every substep's solve."""
+    Cassie's pushrods), rows of every substep's solve.
+    ``collision_pairs``: declared body-body pairs
+    (:class:`~jiminy_tpu_torch.engine.collision.CollisionPair`), contact
+    rows of every substep's solve."""
 
     def __init__(
         self,
@@ -166,6 +182,7 @@ class Engine:
         motors: Motors | None = None,
         controller=None,
         constraints=(),
+        collision_pairs=(),
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -177,6 +194,10 @@ class Engine:
         self.motors = motors.to(device=self.device) if motors is not None else None
         if opts.constraint_solver not in ("auto", "substep", "kernel", "inline"):
             raise ValueError(f"unknown constraint_solver {opts.constraint_solver!r}")
+        self.collision_pairs = tuple(collision_pairs)
+        if self.collision_pairs and opts.contact_model != "constraint":
+            raise ValueError("collision_pairs require contact_model='constraint' "
+                             "(pair impulses resolve in the PGS)")
         torque = None
         if isinstance(controller, PDController):
             if motors is None:
@@ -191,6 +212,8 @@ class Engine:
         self.substep_spec = spec = substep_ops.SubstepSpec(
             self.tree, opts, self.ground, motors=self.motors, torque=torque,
             dist_constraints=self.constraints,
+            pairs=CollisionPairSet(self.tree, self.collision_pairs, float(opts.contacts.friction))
+            if self.collision_pairs else None,
         )
         self.nc = spec.nc
         self.backend = opts.constraint_solver
@@ -199,12 +222,28 @@ class Engine:
             # outside the kernels' scope fails here, not at the first step
             spec.check_kernel_caps("constraint_solver='substep'")
         elif self.backend == "auto":
-            try:
-                spec.check_kernel_caps("constraint_solver='auto'")
-                self.backend = "substep"
-            except ValueError:
-                self.backend = "kernel"
+            self.backend = self.auto_backend(spec, self.device)
         self._sensor_specs: dict = {}
+
+    @staticmethod
+    def auto_backend(spec: substep_ops.SubstepSpec, device: torch.device) -> str:
+        """What ``"auto"`` resolves to for ``spec`` on ``device``: the
+        whole-substep kernels, else the chain kernel; beyond both
+        ``"inline"`` on the CPU, and a ValueError on CUDA."""
+        try:
+            spec.check_kernel_caps("constraint_solver='auto'")
+            return "substep"
+        except ValueError as e:
+            if chain_ops.kernel_takes(spec.cfg):
+                return "kernel"
+            if device.type == "cpu":  # where every backend runs the plain versions
+                return "inline"
+            raise ValueError(
+                f"{e}; nor does the chain kernel take it (nv ≤ {chain_ops.MAX_N}, nc ≤ "
+                f"{chain_ops.MAX_NC}, ≤ {chain_ops.MAX_EQ} equality blocks, ≤ "
+                f"{chain_ops.MAX_COLORS} colors). A larger frame is ROADMAP A.23; pass "
+                "constraint_solver='inline' to run the plain physics on the card"
+            ) from e
 
     def reset(self, q: torch.Tensor, v: torch.Tensor | None = None) -> SimState:
         """Fresh state at (q, v) for a batch: q (B, nq), v (B, nv)."""
@@ -293,7 +332,8 @@ class Engine:
 
     def _impulse_substep(self, q, v, u, lam0, wrench, gc, mp=None):
         """One semi-implicit Euler substep with velocity-level PGS impulses
-        for distance constraints, joint bounds and ground contacts (``gc``: the per-env ground
+        for distance constraints, joint bounds, ground contacts and
+        collision pairs (``gc``: the per-env ground
         coefficients or None; ``mp``: the per-env packed model parameters
         or None). Returns (q⁺, v⁺, contact_forces, residual, λ, a, τ)."""
         spec, dt = self.substep_spec, self.substep_spec.dt

@@ -17,9 +17,10 @@ heightmap from ``terrain_seed`` with a flat spawn disk and spawns within
 4 m, on the plain physics around the chain kernel. ``push_magnitude``
 (N) turns pushes on; ``push_prob``, ``push_duration``,
 ``model_randomization`` (per-episode masses, centres of mass, inertias,
-armature, motor gains and friction, sensor offsets) and ``constraints``
-(kinematic constraints, of which the distance constraint is ported) pass
-through to :class:`WalkerEnv`. Other options raise ``NotImplementedError`` naming
+armature, motor gains and friction, sensor offsets), ``constraints``
+(kinematic constraints, of which the distance constraint is ported) and
+``collision_pairs`` (declared body-body pairs) pass through to
+:class:`WalkerEnv`. Other options raise ``NotImplementedError`` naming
 the ROADMAP item that ports them.
 """
 
@@ -37,7 +38,8 @@ from jiminy_tpu_torch.engine.terrain import perlin_ground
 from jiminy_tpu_torch.envs.locomotion import WalkerEnv, check_options
 from jiminy_tpu_torch.models.quadruped import make_anymal, stand_q
 
-_PASSED_ON = ("push_prob", "push_duration", "model_randomization", "constraints")
+_PASSED_ON = ("push_prob", "push_duration", "model_randomization", "constraints",
+              "collision_pairs")
 
 
 class ANYmalEnv(WalkerEnv):

@@ -4,15 +4,18 @@ Counterpart of ``jiminy_tpu/envs/legged.py``'s ``CassieEnv`` (the
 reference's ``CassieJiminyEnv``): a :class:`WalkerEnv` on the closed-loop
 biped of :mod:`jiminy_tpu_torch.models.biped`, its two pushrod distance
 constraints rows of every substep's solve and its shin springs in the
-actuation torque. The reference's defaults: 1 ms substeps, PD kp 150,
+actuation torque; with ``self_collision=True`` the legs' capsule pairs
+(:func:`~jiminy_tpu_torch.models.biped.cassie_self_collision_pairs`, or
+``collision_pairs`` given) are contact rows of the solve too. The
+reference's defaults: 1 ms substeps, PD kp 150,
 kd 6, action scale 0.4, terminated below 0.6 m, observing through the
 pelvis IMU and the 10 motor encoders (``observe="sensors"``, sampled
 every ``sim_dt``). ``examples/train.py --env cassie`` trains it with
 ``sim_dt=2e-3, target_speed=0.4``.
 
-Not ported: ``self_collision`` (ROADMAP A.13) and ``flexibility``
-(A.14); ``AtlasEnv`` waits for A.13, ``AntEnv`` and ``SpotmicroEnv`` for
-A.15.
+Not ported: ``flexibility`` (ROADMAP A.14); ``AtlasEnv`` waits for A.23
+(the humanoid builder and a frame for its 83 rows), ``AntEnv`` and
+``SpotmicroEnv`` for A.15.
 """
 
 from __future__ import annotations
@@ -21,9 +24,9 @@ import torch
 
 from jiminy_tpu_torch import resolve_device
 from jiminy_tpu_torch.envs.locomotion import WalkerEnv, check_options
-from jiminy_tpu_torch.models.biped import make_cassie
+from jiminy_tpu_torch.models.biped import cassie_self_collision_pairs, make_cassie
 
-_PASSED_ON = ("push_prob", "push_duration", "model_randomization")
+_PASSED_ON = ("push_prob", "push_duration", "model_randomization", "collision_pairs")
 
 
 class CassieEnv(WalkerEnv):
@@ -57,9 +60,7 @@ class CassieEnv(WalkerEnv):
     ):
         check_options("CassieEnv", kwargs, _PASSED_ON)
         if self_collision:
-            raise NotImplementedError(
-                "CassieEnv(self_collision=True) is not ported yet (ROADMAP A.13, B.7)"
-            )
+            kwargs.setdefault("collision_pairs", cassie_self_collision_pairs())
         dev = resolve_device(device)
         tree, motors, sensors, constraints, stand = make_cassie(
             sensor_period=sim_dt if sensor_period is None else sensor_period,

@@ -28,7 +28,10 @@ push hooks:
   corruption draw. The draws come from :meth:`WalkerEnv._model_draws`,
   which a caller may replace;
 - ``constraints``: the robot's kinematic constraints (Cassie's pushrod
-  distance constraints), handed to the engine.
+  distance constraints), handed to the engine;
+- ``collision_pairs``: declared body-body pairs
+  (:class:`~jiminy_tpu_torch.engine.collision.CollisionPair`, e.g.
+  Cassie's leg capsules), handed to the engine.
 
 Action: (B, nm) PD target offsets around the stand pose in [-1, 1].
 Observation, ``observe="sensors"`` (the default, as in the reference):
@@ -63,7 +66,6 @@ from jiminy_tpu_torch.math.spatial import mtv, mv
 # options of the reference's walker envs that the port does not take yet,
 # by the ROADMAP item that ports them
 UNPORTED_OPTIONS = {
-    "collision_pairs": "A.13 (body-body collision)",
     "reward_fn": "A.17 (declarative layer)",
     "termination_fn": "A.17 (declarative layer)",
     "engine_options": "A.16 (paths off the impulse engine)",
@@ -112,6 +114,7 @@ class WalkerEnv(BaseEnv):
         push_duration: float = 0.1,  # s
         model_randomization: ModelRandomization | None = None,  # per-episode draws
         constraints: tuple = (),  # kinematic constraints of the robot (closed loops)
+        collision_pairs: tuple = (),  # engine.collision.CollisionPair
         device="cuda",
     ):
         if observe == "sensors":
@@ -147,6 +150,7 @@ class WalkerEnv(BaseEnv):
             motors=motors,
             controller=PDController(kp, kd),
             constraints=constraints,
+            collision_pairs=collision_pairs,
             device=device,
         )
         suite = None

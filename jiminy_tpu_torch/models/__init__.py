@@ -6,4 +6,4 @@ from jiminy_tpu_torch.models.quadruped import (  # noqa: F401
     make_anymal,
     stand_q,
 )
-from jiminy_tpu_torch.models.biped import make_cassie  # noqa: F401
+from jiminy_tpu_torch.models.biped import cassie_self_collision_pairs, make_cassie  # noqa: F401

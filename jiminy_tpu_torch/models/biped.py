@@ -10,10 +10,11 @@ thigh → knee (motor) → shin upper → shin spring (a passive 1-DoF spring
 of 1500 N·m/rad) → shin → tarsus (passive) → toe (motor) → foot (two
 contact points). A rigid pushrod (a :class:`DistanceConstraint`) ties the
 thigh to the tarsus, so knee motion drives the tarsus through the loop.
+:func:`cassie_self_collision_pairs` declares the legs' self-collision
+pairs (left against right thigh, shin and tarsus capsules).
 
 Not ported: the hip flexibility joints (``flexibility=True``, ROADMAP
-A.14) and the self-collision pairs (``cassie_self_collision_pairs``,
-A.13).
+A.14).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from jiminy_tpu_torch.core import algos
 from jiminy_tpu_torch.core.tree import JointType, KinematicTree, TreeBuilder
+from jiminy_tpu_torch.engine.collision import Capsule, CollisionPair
 from jiminy_tpu_torch.engine.constraints import DistanceConstraint
 from jiminy_tpu_torch.engine.contact import contact_points_world
 from jiminy_tpu_torch.hardware.motors import Motors
@@ -97,6 +99,21 @@ def _build_tree(device, dtype) -> tuple[KinematicTree, dict]:
         b.add_contact_point(f"{side}_toe_front", foot, (_FOOT_HALF, 0, -0.02))
         b.add_contact_point(f"{side}_toe_back", foot, (-_FOOT_HALF, 0, -0.02))
     return b.build(device=device, dtype=dtype), rod_frames
+
+
+def cassie_self_collision_pairs(radius: float = 0.04) -> tuple[CollisionPair, ...]:
+    """The legs' declared self-collision pairs: the left against the right
+    thigh, shin and tarsus, each a capsule of ``radius`` along its body's
+    −z axis over the segment's length (the segments that cross first when
+    a gait collapses inward)."""
+
+    def seg(side, body, length):
+        return Capsule(f"{side}_{body}", (0.0, 0.0, 0.0), (0.0, 0.0, -length), radius)
+
+    return tuple(
+        CollisionPair(seg("L", body, length), seg("R", body, length))
+        for body, length in (("thigh", _THIGH), ("shin", _SHIN), ("tarsus", _TARSUS))
+    )
 
 
 def make_cassie(

@@ -32,7 +32,9 @@ _LEGS = {"LF": (1, 1), "RF": (1, -1), "LH": (-1, 1), "RH": (-1, -1)}
 @dataclasses.dataclass(frozen=True)
 class QuadrupedParams:
     """Morphology parameters (the reference's, without the capsule-foot
-    options: sphere/capsule sites are ROADMAP A.13)."""
+    options, which the reference builds through its URDF ``<collision>``
+    parsing, ROADMAP A.20; the sites themselves are ported:
+    ``TreeBuilder.add_contact_capsule``)."""
 
     name: str = "anymal"
     base_mass: float = 16.8

@@ -27,6 +27,11 @@ from jiminy_tpu_torch.engine.solver import pgs_solve_grouped
 from jiminy_tpu_torch.math import linalg
 
 
+# the chain kernel's caps (csrc/constraint_solve.cu JT_MAX_N, JT_MAX_NC;
+# csrc/solve_chain.cuh JT_MAX_EQ, JT_MAX_COLORS)
+MAX_N, MAX_NC, MAX_EQ, MAX_COLORS = 32, 48, 32, 16
+
+
 @dataclasses.dataclass(frozen=True)
 class SolveConfig:
     """Static shape/solver description (the reference's, field for
@@ -42,6 +47,12 @@ class SolveConfig:
     relax: float = 1.0
     reg: float = 1e-6
     compute_residual: bool = False
+
+
+def kernel_takes(cfg: SolveConfig) -> bool:
+    """Whether the chain kernel takes systems of this configuration."""
+    return (cfg.n <= MAX_N and cfg.nc <= MAX_NC and len(cfg.eq_blocks) <= MAX_EQ
+            and len(cfg.contact_colors) <= MAX_COLORS)
 
 
 def solve_reference(cfg: SolveConfig, M, p, v, J, target, mu, active, lam0):

@@ -5,9 +5,10 @@ of the engine, for every env of a batch:
 
     FK → RNEA bias (with a root wrench) → CRBA + armature + dt·damping
       + dt²·stiffness (implicit joint damping and springs)
-    → distance-constraint rows, joint-bound rows and ground-contact
-      rows, color-major (the contact basis from the ground's normal at
-      each point)
+    → distance-constraint rows, joint-bound rows, ground-contact rows
+      color-major (the contact basis from the ground's normal at each
+      point; a sphere site touches at its surface point) and the
+      collision pairs' contact rows, one color per pair
     → the solve chain (chol → M⁻¹[p|Jᵀ] → Delassus → grouped PGS)
     → world contact impulses → symplectic Euler
 
@@ -58,11 +59,19 @@ dist_constraints=)``). Joint springs on 1-DoF joints (stiffness k) integrate
 implicitly: −k·q in the actuation torque, dt²·k on M's diagonal and
 −dt·k·v in the free-motion torque (the τ a step returns is the first).
 
+Contact sites may be spheres (``tree.contact_radius`` > 0): the site
+touches at centre − r·n̂, the normal taken at the centre's xy
+(``surface_contacts``). Declared collision pairs
+(:class:`~jiminy_tpu_torch.engine.collision.CollisionPairSet`,
+``SubstepSpec(..., pairs=)``) add one [t1, t2, n] block per contact after
+the ground contacts, each pair one PGS color with its own friction; the
+kernels run the three narrow phases (``seg``, ``ptbox``, ``ptseg``)
+in-kernel.
+
 Out of scope (each raises, naming its ROADMAP item): other steppers and
-the penalty contact model (A.16), sphere contact sites and collision
-pairs (A.13, B.7), springs on spherical joints (A.14, B.8), joints other
-than FREE and REVOLUTE (A.14, A.15), kinematic constraints other than
-the distance constraint (A.22).
+the penalty contact model (A.16), springs on spherical joints (A.14,
+B.8), joints other than FREE and REVOLUTE (A.14, A.15), kinematic
+constraints other than the distance constraint (A.22).
 """
 
 from __future__ import annotations
@@ -76,6 +85,7 @@ import torch
 
 from jiminy_tpu_torch.core import algos
 from jiminy_tpu_torch.core.tree import JointType, KinematicTree
+from jiminy_tpu_torch.engine import collision
 from jiminy_tpu_torch.engine import constraints as cstr
 from jiminy_tpu_torch.engine.contact import surface_contacts
 from jiminy_tpu_torch.engine.ground import ANALYTIC, FlatGround, HeightmapGround
@@ -89,11 +99,20 @@ from jiminy_tpu_torch.ops import constraint_solve as chain
 
 _TORQUE_MODES = {"pd": 1, "direct": 2}
 _HDR_I, _HDR_F = 10, 16  # header lengths of the packed spec (csrc/substep.cuh)
-_S_SPRINGS = 11  # the float header's slot that says whether the tree has joint springs
-# the kernels' largest instantiation (csrc/substep.cuh JT_SUB_MAX_*,
-# JT_NQ_EXTRA) and the chain's equality blocks (csrc/solve_chain.cuh
-# JT_MAX_EQ); the C entry points refuse anything larger as well
-MAX_NB, MAX_NV, MAX_NC, NQ_EXTRA, MAX_DIST = 32, 32, 48, 4, 32
+# the float header's slots that say whether the tree has joint springs, how
+# many pair contact generators the spec holds and whether any contact site
+# is a sphere
+_S_SPRINGS, _S_NGEN, _S_SPHERES = 11, 12, 13
+# pair contact generators (csrc/substep.cuh JT_GEN_*) and the ints each takes
+_GEN_KINDS = {"seg": 0, "ptbox": 1, "ptseg": 2}
+# the kernels' largest instantiation (csrc/substep.cuh JT_SUB_MAX_NB,
+# JT_SUB_MAX_N, JT_NQ_EXTRA); nc, the distance constraints (equality
+# blocks) and the colors are capped by the chain's limits
+# (ops/constraint_solve.py MAX_NC, MAX_EQ, MAX_COLORS). The C entry points
+# refuse anything larger as well.
+MAX_NB, MAX_NV, NQ_EXTRA = 32, 32, 4
+# as the reference gates its in-kernel assembly, the pair contacts the kernels take
+MAX_PAIR_CONTACTS = 24
 # ground modes and the ground query's caps (csrc/substep.cuh JT_GROUND_*,
 # JT_FOURIER_MAX, JT_PERLIN_MAX): K Fourier terms, Perlin octaves
 _GROUND_MODES = {"flat": 0, "fourier": 1, "perlin": 2, "stairs": 3}
@@ -157,16 +176,20 @@ class TorqueSpec:
 class SubstepSpec:
     """Static description of one engine's impulse substep.
 
-    Rows are [distance | bounds | contacts color-major]: one equality row
-    per distance constraint (in declaration order, each its own block),
-    one row per bounded 1-DoF joint, then [t1, t2, n] per contact site,
-    the sites in ``color_order`` (interleaved halves: diagonal leg pairs
-    on quadrupeds), each color's rows contiguous. ``torque`` (or None) is
-    the declarative actuation path that K2 needs; ``motors`` the bank it
-    reads; ``dist_constraints`` the engine's distance constraints, kept
-    as ``constraints`` and as the reference's tuples (body 1, its local
-    point, body 2, its local point, distance, Baumgarte frequency) in
-    ``dist_constraints``."""
+    Rows are [distance | bounds | contacts color-major | pair contacts]:
+    one equality row per distance constraint (in declaration order, each
+    its own block), one row per bounded 1-DoF joint, then [t1, t2, n] per
+    contact site, the sites in ``color_order`` (interleaved halves:
+    diagonal leg pairs on quadrupeds), each color's rows contiguous, then
+    [t1, t2, n] per pair contact in generator order, each pair one color
+    spanning its contacts (the reference's layout). ``torque`` (or None)
+    is the declarative actuation path that K2 needs; ``motors`` the bank
+    it reads; ``dist_constraints`` the engine's distance constraints,
+    kept as ``constraints`` and as the reference's tuples (body 1, its
+    local point, body 2, its local point, distance, Baumgarte frequency)
+    in ``dist_constraints``; ``pairs`` the engine's
+    :class:`~jiminy_tpu_torch.engine.collision.CollisionPairSet` or
+    None."""
 
     def __init__(
         self,
@@ -176,6 +199,7 @@ class SubstepSpec:
         motors: Motors | None = None,
         torque: TorqueSpec | None = None,
         dist_constraints=(),
+        pairs: collision.CollisionPairSet | None = None,
     ):
         if options.solver != "euler_symplectic":
             raise NotImplementedError(
@@ -190,10 +214,6 @@ class SubstepSpec:
         if isinstance(ground, ANALYTIC) and ground.coef().dim() != 1:
             raise ValueError("the engine's ground is one ground, not a batch: per-env "
                              "grounds go to step(ground=...)")
-        if tree.ncp and bool(torch.any(tree.contact_radius > 0)):
-            raise NotImplementedError(
-                "sphere/capsule contact sites are not ported yet (ROADMAP A.13)"
-            )
         for c in dist_constraints:
             if not isinstance(c, cstr.DistanceConstraint):
                 raise NotImplementedError(
@@ -235,6 +255,11 @@ class SubstepSpec:
             for c in self.constraints
         ]
         n_eq = self.n_dist = len(self.constraints)
+        self.contact_radius = [float(r) for r in tree.contact_radius.detach().cpu().numpy()]
+        self.spheres = any(r > 0.0 for r in self.contact_radius)
+        self.pairs = pairs if pairs is not None and pairs.gens else None
+        self.pair_contacts = list(pairs.contacts_per_pair) if self.pairs else []
+        self.n_pc = sum(self.pair_contacts)
 
         self.bounded_joints = self._bounded_joints(tree)
         ncp = tree.ncp
@@ -246,14 +271,19 @@ class SubstepSpec:
         nbj = len(self.bounded_joints)
         n0 = len(range(0, ncp, 2))
         off = self.contact_off = n_eq + nbj
-        self.nc = off + 3 * ncp
+        colors = [(off, n0), (off + 3 * n0, ncp - n0)] if ncp else []
+        self.pair_off = pair = off + 3 * ncp
+        for k in self.pair_contacts:  # one color per pair
+            colors.append((pair, k))
+            pair += 3 * k
+        self.nc = pair
         self.cfg = chain.SolveConfig(
             n=tree.nv,
             nc=self.nc,
             dt=self.dt,
             eq_blocks=tuple(BlockSpec("equality", i, 1) for i in range(n_eq)),
             bounds_span=(n_eq, nbj) if nbj else None,
-            contact_colors=((off, n0), (off + 3 * n0, ncp - n0)) if ncp else (),
+            contact_colors=tuple(colors),
             iters=opts.pgs_iters,
             relax=opts.pgs_relax,
             reg=opts.pgs_reg,
@@ -289,16 +319,22 @@ class SubstepSpec:
 
     def check_kernel_caps(self, who: str):
         """Raise ValueError when the model is larger than the whole-substep
-        kernels take, or its ground is one they cannot query (a heightmap;
-        more than 32 Fourier terms or 8 Perlin octaves)."""
+        kernels take (with more than 24 pair contacts, the reference's gate
+        on in-kernel assembly, or more PGS colors than the chain's 16), or
+        its ground is one they cannot query (a heightmap; more than 32
+        Fourier terms or 8 Perlin octaves)."""
         t = self.tree
-        if t.nb > MAX_NB or t.nv > MAX_NV or not 1 <= self.nc <= MAX_NC \
-                or t.nq > t.nv + NQ_EXTRA or self.n_dist > MAX_DIST:
+        n_colors = len(self.cfg.contact_colors)
+        max_nc, max_dist, max_colors = chain.MAX_NC, chain.MAX_EQ, chain.MAX_COLORS
+        if t.nb > MAX_NB or t.nv > MAX_NV or not 1 <= self.nc <= max_nc \
+                or t.nq > t.nv + NQ_EXTRA or self.n_dist > max_dist \
+                or self.n_pc > MAX_PAIR_CONTACTS or n_colors > max_colors:
             raise ValueError(
                 f"{who}: nb={t.nb}, nv={t.nv}, nq={t.nq}, nc={self.nc}, "
-                f"{self.n_dist} distance constraints outside the whole-substep kernels' "
-                f"caps (nb ≤ {MAX_NB}, nv ≤ {MAX_NV}, 1 ≤ nc ≤ {MAX_NC}, nq ≤ nv + "
-                f"{NQ_EXTRA}, ≤ {MAX_DIST} distance constraints)"
+                f"{self.n_dist} distance constraints, {self.n_pc} pair contacts, {n_colors} "
+                f"colors outside the whole-substep kernels' caps (nb ≤ {MAX_NB}, nv ≤ "
+                f"{MAX_NV}, 1 ≤ nc ≤ {max_nc}, nq ≤ nv + {NQ_EXTRA}, ≤ {max_dist} distance "
+                f"constraints, ≤ {MAX_PAIR_CONTACTS} pair contacts, ≤ {max_colors} colors)"
             )
         cap = {"fourier": MAX_FOURIER_TERMS, "perlin": MAX_PERLIN_OCTAVES}.get(self.ground_mode)
         if self.ground_mode not in _GROUND_MODES or (cap and not 1 <= self.ground_n <= cap):
@@ -337,6 +373,9 @@ class SubstepSpec:
             ints += list(ts.q_idx) + list(ts.v_idx)
         for b1, _, b2, _, _, _ in self.dist_constraints:
             ints += [b1, b2]
+        gen_ints, gen_floats = self._pack_pairs()
+        self._check_pair_colors(gen_ints[3::5])
+        ints += gen_ints
 
         def arr(x):
             return x.detach().cpu().numpy().astype(np.float64)
@@ -350,6 +389,8 @@ class SubstepSpec:
         ]
         scal += [0.0] * (_HDR_F - len(scal))
         scal[_S_SPRINGS] = float(self.springs)
+        scal[_S_NGEN] = float(len(self.pairs.gens) if self.pairs else 0)
+        scal[_S_SPHERES] = float(self.spheres)
         body = np.concatenate(
             [
                 arr(t.axis), arr(t.jp_rot).reshape(t.nb, 9), arr(t.jp_pos),
@@ -376,8 +417,53 @@ class SubstepSpec:
             parts.append(np.asarray(p1 + p2 + [d0, c.alpha_over_dt(self.dt)]))
         if self.springs:
             parts.append(arr(t.stiffness))
+        if self.spheres:
+            parts.append(arr(t.contact_radius))
+        parts.append(np.asarray(gen_floats))
         floats = np.concatenate([np.asarray(p, np.float64).ravel() for p in parts])
         return np.asarray(ints, np.int32), floats.astype(np.float32)
+
+
+    def _check_pair_colors(self, gen_counts):
+        """The kernels write the generators' contacts (``gen_counts``, each
+        generator's packed count) in order from ``pair_off``: the colors
+        from there must cover exactly those contacts, each ending at a
+        generator's last, and the colors before it the ground sites."""
+        sizes = [k for _, k in self.cfg.contact_colors]
+        n_ground = 2 if self.tree.ncp else 0  # the ground sites' two colors
+        ground, pair = sizes[:n_ground], sizes[n_ground:]
+        ends = set(np.cumsum(gen_counts).tolist())
+        if sum(ground) != self.tree.ncp or sum(gen_counts) != sum(pair) \
+                or 3 * sum(pair) != self.nc - self.pair_off \
+                or not ends.issuperset(np.cumsum(pair).tolist()):
+            raise ValueError(
+                f"the pair generators' contact counts {list(gen_counts)} do not match the "
+                f"pair colors {pair} (rows {self.pair_off}–{self.nc} after "
+                f"{self.tree.ncp} ground sites)"
+            )
+
+    def _pack_pairs(self) -> tuple[list, list]:
+        """The pair section of the packed spec: per generator five ints
+        [kind, the points' body, the other shape's body, contact count,
+        offset of its floats in the section] and its floats — seg: [μ,
+        r_a, r_b, a0, a1, b0, b1]; ptbox: [μ, r_p, box centre c, box
+        rotation R (row-major), half-extents h, points]; ptseg: [μ, r_p,
+        r_s, p0, p1, points]; every point and segment in its body's
+        frame."""
+        ints, floats = [], []
+        for kind, g in (self.pairs.gens if self.pairs else ()):
+            if kind == "seg":
+                f = [g["mu"], g["ra"], g["rb"], *g["a0"], *g["a1"], *g["b0"], *g["b1"]]
+                ints += [_GEN_KINDS[kind], g["ba"], g["bb"], 1, len(floats)]
+            else:
+                pts = np.asarray(g["pts"], np.float64).ravel().tolist()
+                if kind == "ptbox":
+                    f = [g["mu"], g["rp"], *g["c"], *np.ravel(g["R"]), *g["h"], *pts]
+                else:
+                    f = [g["mu"], g["rp"], g["rs"], *g["p0"], *g["p1"], *pts]
+                ints += [_GEN_KINDS[kind], g["bp"], g["bf"], len(g["pts"]), len(floats)]
+            floats += [float(x) for x in f]
+        return ints, floats
 
 
 def _mark_chain(tree: KinematicTree, need: list, body: int, what: int):
@@ -527,8 +613,8 @@ def _check_gc(name, spec: SubstepSpec, gc, B):
 def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=None, gc=None,
                       mp=None):
     """One semi-implicit Euler substep with velocity-level PGS impulses
-    for distance constraints, joint bounds and ground contacts, joint
-    damping and springs implicit: q (B, nq), v and τ (B, nv),
+    for distance constraints, joint bounds, ground contacts and collision
+    pairs, joint damping and springs implicit: q (B, nq), v and τ (B, nv),
     λ0 (B, nc), ``wrench`` None or (B, 6) local [ang; lin] on the root
     body → (q⁺, v⁺, λ, residual (B,), world contact impulses (B, ncp,
     3) in the original contact order). ``solve`` runs the chain:
@@ -574,7 +660,7 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
         mus.append(torch.zeros_like(tb))
     ncp = tree.ncp
     if ncp:
-        pts, _, depth, n = surface_contacts(tree, xw, vel, spec.ground_of(gc))
+        pts, _, depth, n = surface_contacts(tree, xw, vel, spec.ground_of(gc), spec.spheres)
         t1, t2 = cstr.tangent_basis(n)
         # penetrating: Baumgarte push-back; hovering within the margin:
         # may approach the surface but not cross it
@@ -599,6 +685,11 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
         act = (depth > -opts.contact_margin)[:, order].to(q.dtype)
         actives.append(act[:, :, None].expand(-1, -1, 3).reshape(B, 3 * ncp))
         mus.append(torch.full_like(targets[-1], spec.friction))
+    if spec.pairs is not None:
+        for acc, x in zip((Js, targets, actives, mus), collision.pair_rows(
+                spec.pairs, tree, xw, dt, spec.alpha_c_over_dt, opts.contact_margin,
+                opts.contact_slop, opts.contact_max_correction_vel)):
+            acc.append(x)
 
     J = torch.cat(Js, dim=1)
     target = torch.cat(targets, dim=1)

@@ -3,14 +3,16 @@
     python -m jiminy_tpu_torch.tools.profile_env_step [--env anymal|cassie]
         [--batch 4096] [--steps 5] [--solver auto|substep|kernel|inline]
         [--observe state|sensors] [--terrain flat|fourier|perlin|perlin_grid|stairs]
-        [--push N] [--push-duration S] [--randomize R]
+        [--push N] [--push-duration S] [--randomize R] [--self-collision]
 
 ``--env cassie`` runs ``CassieEnv(sim_dt=2e-3, target_speed=0.4)``
 (``examples/train.py --env cassie``: 10 substeps of 2 ms, the pushrods
 and shin springs; flat ground, ``--terrain`` must stay flat), with
 ``--observe sensors`` at ``cassie_sensors_run``'s sensing (delay 0.004
-s, noise 0.02 / 0.005) and ``--push 50 --push-duration 0.2`` for
-``cassie_push_robust_run``'s pushes. The rest is about ANYmal:
+s, noise 0.02 / 0.005), ``--push 50 --push-duration 0.2`` for
+``cassie_push_robust_run``'s pushes and ``--self-collision`` for the
+legs' self-collision pairs (``examples/train.py --env cassie
+--self-collision``, ``cassie_selfcol_run5``). The rest is about ANYmal:
 
 Runs ``ANYmalEnv(observe="state", device="cuda")`` (by default on its
 main path, ``constraint_solver="auto"``, which is the fused whole-substep
@@ -55,7 +57,11 @@ def main() -> None:
     ap.add_argument("--push-duration", type=float, default=0.1, help="push duration, s")
     ap.add_argument("--randomize", type=float, default=0.0,
                     help="model randomization half-range R (0: none)")
+    ap.add_argument("--self-collision", action="store_true",
+                    help="Cassie with its self-collision pairs")
     args = ap.parse_args()
+    if args.self_collision and args.env != "cassie":
+        raise SystemExit("profile_env_step: --self-collision is Cassie's")
     if not torch.cuda.is_available():
         raise SystemExit("profile_env_step: no CUDA GPU available")
     from torch.autograd import DeviceType
@@ -77,7 +83,7 @@ def main() -> None:
         env = CassieEnv(observe=args.observe, sim_dt=2e-3, target_speed=0.4, pgs_iters=8,
                         constraint_solver=args.solver, push_magnitude=args.push,
                         push_duration=args.push_duration, model_randomization=randomization,
-                        device=dev, **sensors)
+                        self_collision=args.self_collision, device=dev, **sensors)
     else:
         env = ANYmalEnv(observe=args.observe, step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
                         constraint_solver=args.solver, terrain=args.terrain,
@@ -125,6 +131,7 @@ def main() -> None:
         "terrain": args.terrain,
         "push_magnitude": args.push,
         "randomize": r,
+        "self_collision": args.self_collision,
         "wall_ms_per_env_step": 1e3 * wall / n,
         "device_busy_ms_per_env_step": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - (busy_us / 1e6) / wall,

@@ -170,13 +170,26 @@ def test_reset_is_seeded():
         ({"constraints": (object(),)}, "A.22"),
         ({"reward_fn": object()}, "A.17"),
         ({"engine_options": object()}, "A.16"),
-        ({"collision_pairs": ()}, "A.13"),
         ({"termination_fn": object()}, "A.17"),
     ],
 )
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         ANYmalEnv(device="cpu", **kwargs)
+
+
+def test_collision_pairs_pass_through():
+    """``collision_pairs`` (ported, ROADMAP A.13) reach the engine: a pair
+    of foot spheres adds its contact rows after the ground's."""
+    from jiminy_tpu_torch.engine.collision import CollisionPair, Sphere
+
+    pair = CollisionPair(Sphere("LF_SHANK", (0, 0, -0.2), 0.05),
+                         Sphere("RF_SHANK", (0, 0, -0.2), 0.05))
+    env = ANYmalEnv(observe="state", collision_pairs=(pair,), device="cpu")
+    assert env.engine.collision_pairs == (pair,) and env.engine.nc == 24 + 3
+    assert env.engine.backend == "substep"
+    st = env.step(env.reset(torch.Generator().manual_seed(0), 2), torch.zeros(2, 12))
+    assert bool(torch.isfinite(st.obs).all())
 
 
 def test_env_without_gpu_raises():

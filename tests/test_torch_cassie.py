@@ -26,7 +26,8 @@
   its default): the loops hold within 1e-3 over 15 env steps and stand;
   a knee command moves the tarsus through the loop by > 0.01 rad.
 - The sensor stage's caps hold for Cassie's suite at 2 ms and 1 ms.
-- ``self_collision`` (A.13) and ``flexibility`` (A.14) raise.
+- ``flexibility`` (A.14) raises; ``self_collision`` builds (A.13, held in
+  tests/test_torch_pair_substep.py and tests/test_torch_cassie_selfcol_env.py).
 """
 
 from __future__ import annotations
@@ -323,8 +324,6 @@ def test_sensor_stage_caps_hold(sim_dt):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A.13"):
-        CassieEnv(self_collision=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A.14"):
         CassieEnv(flexibility=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A.17"):

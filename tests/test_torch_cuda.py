@@ -3,10 +3,13 @@ K1 (``solve_batched``), K3 (``substep_batched``) and K2
 (``substep_batched_multi``), with and without its sensor stage, on flat
 ground and on per-env analytic grounds (the ``GEN`` instantiations), with
 and without per-env model parameters (the ``RAND`` instantiations),
-and on the Cassie biped (the large frame, the pushrods' distance rows
+on the Cassie biped (the large frame, the pushrods' distance rows
 and the shin springs; held to float64 by the distribution of the per-env
 distance, as ``chip_smoke.py`` ``_gate_dist_vs_f64``, since float32 is not
-well posed there at 1e-4).
+well posed there at 1e-4), with collision pairs (the three narrow phases
+on Cassie's tree, likewise; on a forest of two free balls within 1e-4)
+and with sphere contact sites (ANYmal's feet, env by env against
+float64).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -652,7 +655,7 @@ def test_sim2real_env_is_one_fused_launch(cuda_device):
 
 # ---- Cassie (pushrod closed loops, shin springs; the large frame)
 
-def _cassie_engine(dev, dtype=torch.float32, fusion=True):
+def _cassie_engine(dev, dtype=torch.float32, fusion=True, pairs=()):
     from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
     from jiminy_tpu_torch.models.biped import make_cassie
 
@@ -661,7 +664,8 @@ def _cassie_engine(dev, dtype=torch.float32, fusion=True):
                                                    device=dev)
     opts = EngineOptions(dt=2e-3, pgs_iters=8, constraint_solver="substep", substep_fusion=fusion)
     eng = Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
-                 controller=PDController(150.0, 6.0), constraints=rods, device=dev)
+                 controller=PDController(150.0, 6.0), constraints=rods, collision_pairs=pairs,
+                 device=dev)
     return eng, suite.to(dtype=dtype), stand
 
 
@@ -808,6 +812,243 @@ def test_cassie_env_is_one_fused_launch(cuda_device, path):
                           encoder_noise=0.005),
           "push": dict(observe="state", push_magnitude=50.0, push_duration=0.2)}[path]
     env = CassieEnv(sim_dt=2e-3, target_speed=0.4, device=cuda_device, **kw)
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
+    names = [(solve_batched, "launches"), (substep_batched, "launches"),
+             (substep_batched_multi, "launches"), (substep_batched_multi, "sensor_launches")]
+    before = [getattr(fn, n) for fn, n in names]
+    for _ in range(3):
+        state = env.step(state, torch.zeros(256, 10, device=cuda_device))
+    launched = [getattr(fn, n) - b for (fn, n), b in zip(names, before)]
+    assert launched == ([0, 0, 0, 3] if path == "sensors" else [0, 0, 3, 0])
+    assert bool(torch.isfinite(state.obs).all()) and state.obs.shape == (256, 29)
+
+
+# ---- collision pairs (B.7) and sphere sites
+
+def _pair_set(kind):
+    """Pair sets on Cassie's tree (as chip_smoke.py `_pair_sets`): the
+    legs' three capsule pairs (seg); a box on the pelvis against the L
+    thigh (ptbox, 5 contacts); a 6-point cloud on the R tarsus against the
+    L tarsus (ptseg)."""
+    from jiminy_tpu_torch.engine.collision import Box, Capsule, CollisionPair, ConvexMesh
+    from jiminy_tpu_torch.models.biped import cassie_self_collision_pairs
+
+    leg = lambda b: Capsule(b, (0.0, 0.0, 0.0), (0.0, 0.0, -0.35), 0.04)  # noqa: E731
+    if kind == "seg":
+        return cassie_self_collision_pairs()
+    if kind == "ptbox":
+        return (CollisionPair(Box("pelvis", (0.0, 0.0, -0.15), (0.06, 0.08, 0.08)),
+                              leg("L_thigh")),)
+    cloud = ((0.06, 0, -0.17), (-0.06, 0, -0.17), (0, 0.08, -0.17), (0, -0.08, -0.17),
+             (0, 0, -0.05), (0, 0, -0.29))
+    return (CollisionPair(ConvexMesh("R_tarsus", cloud), leg("L_tarsus"), friction=0.6),)
+
+
+def _selfcol_inputs(seed, B, engine, stand):
+    """`_cassie_inputs` with the hip rolls inward (L −U(0, 0.4), R U(0,
+    0.4) rad) and the hip yaws U(−0.3, 0.3) rad: the legs together."""
+    q, v, cmd, lam0, wrench = _cassie_inputs(seed, B, engine, stand)
+    rng = np.random.default_rng(seed + 1)
+    t = engine.tree
+    j = [t.q_off[t.joint_index(n)] for n in ("L_hip_roll", "R_hip_roll", "L_hip_yaw", "R_hip_yaw")]
+    q[:, j[0]] = torch.as_tensor(-rng.uniform(0.0, 0.4, B), dtype=q.dtype, device=q.device)
+    q[:, j[1]] = torch.as_tensor(rng.uniform(0.0, 0.4, B), dtype=q.dtype, device=q.device)
+    q[:, j[2:]] = torch.as_tensor(rng.uniform(-0.3, 0.3, (B, 2)), dtype=q.dtype, device=q.device)
+    return q, v, cmd, lam0, wrench
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 1000])
+@pytest.mark.parametrize("kernel", ["substep", "substep_multi"])
+@pytest.mark.parametrize("kind", ["seg", "ptbox", "ptseg"])
+def test_pair_kernels_match_plain_versions(cuda_device, kind, kernel, B):
+    """K3 and K2 with each narrow phase on Cassie's tree over one substep:
+    q, v, λ (the pair rows included) and the impulses held to the float64
+    plain version by their distribution; some pair rows active."""
+    eng, _, stand = _cassie_engine(cuda_device, pairs=_pair_set(kind))
+    eng64, _, _ = _cassie_engine(cuda_device, torch.float64, pairs=_pair_set(kind))
+    spec = eng.substep_spec
+    q, v, cmd, lam0, wrench = args = _selfcol_inputs(40, B, eng, stand)
+    a64 = [x.double() for x in args]
+    if kernel == "substep":
+        tau = eng._joint_torque(cmd, q, v)
+        out = substep_batched(spec, q, v, tau, lam0, wrench)
+        p32 = substep_reference(spec, q, v, tau, lam0, wrench)
+        p64 = substep_reference(eng64.substep_spec, a64[0], a64[1], tau.double(), a64[3], a64[4])
+    else:
+        out = substep_batched_multi(spec, 1, *args)
+        p32 = substep_multi_reference(spec, 1, *args)
+        p64 = substep_multi_reference(eng64.substep_spec, 1, *a64)
+    torch.cuda.synchronize()
+    assert (p64[2][:, spec.pair_off:] != 0).any()  # a pair row pushes
+    for i, name in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+        _assert_distribution_vs_f64(f"{kind} {kernel} {name}", out[i], p32[i], p64[i])
+
+
+@pytest.mark.cuda
+def test_pair_k2_carries_lambda_across_substeps(cuda_device):
+    """With the self-collision pairs, K2 over ten substeps equals ten
+    chained K2 launches of one substep, bit for bit."""
+    eng, _, stand = _cassie_engine(cuda_device, pairs=_pair_set("seg"))
+    spec = eng.substep_spec
+    q, v, cmd, lam, wrench = args = _selfcol_inputs(41, 256, eng, stand)
+    whole = substep_batched_multi(spec, 10, *args)
+    for _ in range(10):
+        out = substep_batched_multi(spec, 1, q, v, cmd, lam, wrench)
+        q, v, lam = out[:3]
+    for i in range(7):
+        assert torch.equal(whole[i], out[i]), i
+
+
+@pytest.mark.cuda
+def test_forest_pairs_k3_matches_plain_version(cuda_device):
+    """Two free balls in one tree (two FREE roots, no ground contact, no
+    bounds; the small frame): a sphere pair and a box against a capsule
+    (ptbox, its 5 contacts one color updated Jacobi-style), K3 held env by
+    env against the float64 plain version (the float32 plain version's
+    worst env is itself about as far from it in v on these inputs as K3's
+    worst, so 1e-4 against float32 is not well posed)."""
+    from jiminy_tpu_torch.core.tree import JointType, TreeBuilder
+    from jiminy_tpu_torch.engine import Engine, EngineOptions
+    from jiminy_tpu_torch.engine.collision import Box, Capsule, CollisionPair, Sphere
+
+    def forest(dtype):
+        b = TreeBuilder(gravity=(0.0, 0.0, 0.0))
+        for name in ("ball_a", "ball_b"):
+            b.add_frame(name, b.add_body(name, -1, JointType.FREE, mass=1.0,
+                                         inertia=(4e-3, 4e-3, 4e-3)))
+        pairs = (CollisionPair(Sphere("ball_a", (0, 0, 0), 0.1), Sphere("ball_b", (0, 0, 0), 0.1)),
+                 CollisionPair(Box("ball_a", (0.01, 0, 0), (0.09, 0.07, 0.06)),
+                               Capsule("ball_b", (0, 0, -0.06), (0, 0, 0.06), 0.03),
+                               friction=0.7))
+        return Engine(b.build(device=cuda_device, dtype=dtype),
+                      EngineOptions(dt=1e-3, constraint_solver="substep"), collision_pairs=pairs,
+                      device=cuda_device)
+
+    eng, eng64 = forest(torch.float32), forest(torch.float64)
+    assert eng.nc == 3 * 6 and eng.backend == "substep"
+    rng = np.random.default_rng(42)
+    B = 1000
+    q = np.zeros((B, 14))
+    for o in (3, 10):
+        quat = rng.standard_normal((B, 4))
+        q[:, o:o + 4] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    d = rng.standard_normal((B, 3))
+    q[:, 7:10] = d / np.linalg.norm(d, axis=1, keepdims=True) * rng.uniform(0.12, 0.3, (B, 1))
+    q, v, tau, lam = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (
+        q, 0.3 * rng.standard_normal((B, 12)), rng.standard_normal((B, 12)),
+        np.abs(0.05 * rng.standard_normal((B, 18)))))
+    w = torch.zeros(B, 6, device=cuda_device)
+    before = substep_batched.launches
+    out = substep_batched(eng.substep_spec, q, v, tau, lam, w)
+    ref = substep_reference(eng.substep_spec, q, v, tau, lam, w)
+    ref64 = substep_reference(eng64.substep_spec, *(x.double() for x in (q, v, tau, lam, w)))
+    torch.cuda.synchronize()
+    assert substep_batched.launches == before + 1
+    for i, name in enumerate(("q", "v", "lam", "residual")):
+        _assert_env_by_env_vs_f64(f"forest {name}", out[i], ref[i], ref64[i])
+    assert out[4].shape == (B, 0, 3) and float((ref[2] != 0).any(1).double().mean()) > 0.25
+
+
+def _mismatched_pairs(spec, case):
+    """``spec`` with its packed generators' contact counts off its pair
+    colors: one of Cassie's three seg generators dropped (the generators
+    write 2 contacts, the colors hold 3), or a ptbox generator with 4 of
+    its 5 points."""
+    import copy
+
+    pairs = spec.pairs = copy.copy(spec.pairs)
+    if case == "seg_dropped":
+        pairs.gens = pairs.gens[:2]
+    else:
+        kind, g = pairs.gens[0]
+        pairs.gens = [(kind, {**g, "pts": g["pts"][:4]})]
+    spec._packed.clear()
+    return spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["seg_dropped", "ptbox_short"])
+def test_pair_layout_is_checked(cuda_device, case):
+    """The entry points refuse, before any launch, a packed spec whose
+    generators' contact counts do not match the pair colors."""
+    eng, _, stand = _cassie_engine(cuda_device, pairs=_pair_set(case.split("_")[0]))
+    args = _selfcol_inputs(43, 32, eng, stand)
+    spec = _mismatched_pairs(eng.substep_spec, case)
+    before = substep_batched_multi.launches
+    with pytest.raises(ValueError, match="do not match the pair colors"):
+        substep_batched_multi(spec, 1, *args)
+    assert substep_batched_multi.launches == before
+
+
+def _sphere_engine(dev, dtype=torch.float32, ground=None):
+    """ANYmal with its four foot sites as spheres of radius 0.02."""
+    from jiminy_tpu_torch.core.tree import ARRAY_FIELDS, STATIC_FIELDS, tree_from_arrays
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
+    from jiminy_tpu_torch.models.quadruped import make_anymal
+
+    tree, motors, _ = make_anymal(device=dev)
+    d = {k: getattr(tree, k) for k in STATIC_FIELDS + ARRAY_FIELDS}
+    d = {k: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for k, x in d.items()}
+    d["contact_radius"] = np.full(tree.ncp, 0.02, np.float32)
+    opts = EngineOptions(dt=5e-3, pgs_iters=8, constraint_solver="substep")
+    return Engine(tree_from_arrays(d, device=dev, dtype=dtype), opts,
+                  motors=motors.to(dtype=dtype), controller=PDController(80.0, 2.0),
+                  ground=ground, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["substep", "substep_multi"])
+@pytest.mark.parametrize("ground", ["flat", "fourier"])
+def test_sphere_site_kernels_match_plain_versions(cuda_device, ground, kernel):
+    """K3 and K2 with sphere sites (the offset before the Jacobians; on
+    the Fourier ground the two-pass query) over one substep, env by env
+    against the float64 plain version."""
+    gc = None
+    if ground == "fourier":
+        eng0, _, _, gc = _ground_setup("fourier", 44, 1000, cuda_device)
+        tmpl = eng0.ground
+    else:
+        tmpl = None
+    eng, eng64 = _sphere_engine(cuda_device, ground=tmpl), _sphere_engine(
+        cuda_device, torch.float64, ground=tmpl.to(dtype=torch.float64) if tmpl else None)
+    spec = eng.substep_spec
+    q, v, cmd, lam0, wrench = args = _substep_inputs(44, 1000, eng)
+    if gc is not None:
+        xy = np.random.default_rng(45).uniform(-2.0, 2.0, (1000, 2))
+        q[:, 0:2] = torch.as_tensor(xy, dtype=torch.float32, device=cuda_device)
+        q[:, 2] += type(tmpl).from_coef(gc, tmpl).query(q[:, :2])[0]
+    a64 = [x.double() for x in args]
+    g64 = gc.double() if gc is not None else None
+    if kernel == "substep":
+        tau = eng._joint_torque(cmd, q, v)
+        out = substep_batched(spec, q, v, tau, lam0, wrench, gc=gc)
+        p32 = substep_reference(spec, q, v, tau, lam0, wrench, gc=gc)
+        p64 = substep_reference(eng64.substep_spec, a64[0], a64[1], tau.double(), a64[3], a64[4],
+                                gc=g64)
+    else:
+        out = substep_batched_multi(spec, 1, *args, gc=gc)
+        p32 = substep_multi_reference(spec, 1, *args, gc=gc)
+        p64 = substep_multi_reference(eng64.substep_spec, 1, *a64, gc=g64)
+    torch.cuda.synchronize()
+    assert spec.spheres and float((p64[4][..., 2] != 0).any(1).double().mean()) > 0.5
+    for i, name in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+        _assert_env_by_env_vs_f64(f"{ground} {kernel} {name}", out[i], p32[i], p64[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["state", "sensors", "push"])
+def test_selfcol_env_is_one_fused_launch(cuda_device, path):
+    """CassieEnv(sim_dt=2e-3, target_speed=0.4, self_collision=True) on the
+    state, sensor and push paths: one K2 launch per env step, no other."""
+    from jiminy_tpu_torch.envs import CassieEnv
+
+    kw = {"state": dict(observe="state"),
+          "sensors": dict(observe="sensors", sensor_delay=0.004, imu_noise=0.02,
+                          encoder_noise=0.005),
+          "push": dict(observe="state", push_magnitude=50.0, push_duration=0.2)}[path]
+    env = CassieEnv(sim_dt=2e-3, target_speed=0.4, self_collision=True, device=cuda_device, **kw)
+    assert env.engine.nc == 37 and env.engine.backend == "substep"
     state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
     names = [(solve_batched, "launches"), (substep_batched, "launches"),
              (substep_batched_multi, "launches"), (substep_batched_multi, "sensor_launches")]

@@ -12,9 +12,10 @@ paths, and on the terrain and push env (per-env Fourier ground, fused
 and chunked; the ``"perlin_grid"`` heightmap), on the sim-to-real
 env with model randomization (fused and chunked), and on the Cassie env
 (pushrod closed loops and shin springs) on the state path and the
-sensor path fused and chunked. The modules that hold kernels, the sensor
-suite, the grounds, the terrain generators, the random processes, the
-model randomization, the constraints, the biped and its env are named,
+sensor path fused and chunked, with the self-collision pairs too. The
+modules that hold kernels, the sensor suite, the grounds, the terrain
+generators, the random processes, the model randomization, the
+constraints, the collision pairs, the biped and its env are named,
 so a rename cannot drop them from the walk. A second test imports each kernel module
 first in a fresh interpreter: the engine and ops packages import each
 other, and any order must work.
@@ -36,7 +37,8 @@ KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops
                   "jiminy_tpu_torch.hardware.sensors", "jiminy_tpu_torch.engine.ground",
                   "jiminy_tpu_torch.engine.terrain", "jiminy_tpu_torch.utils.random",
                   "jiminy_tpu_torch.engine.randomization", "jiminy_tpu_torch.engine.constraints",
-                  "jiminy_tpu_torch.models.biped", "jiminy_tpu_torch.envs.legged")
+                  "jiminy_tpu_torch.models.biped", "jiminy_tpu_torch.envs.legged",
+                  "jiminy_tpu_torch.engine.collision")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -95,9 +97,11 @@ for fused in (True, False):
     assert bool(torch.isfinite(st.obs).all()) and "model_params" in st.info
 from jiminy_tpu_torch.envs import CassieEnv
 
-for observe, fused in (("state", False), ("sensors", True), ("sensors", False)):
+for observe, fused, pairs in (("state", False, False), ("sensors", True, False),
+                              ("sensors", False, False), ("state", False, True),
+                              ("sensors", True, True)):
     env = CassieEnv(sim_dt=2e-3, target_speed=0.4, observe=observe, sensor_delay=0.004,
-                    imu_noise=0.02, encoder_noise=0.005, device="cpu")
+                    imu_noise=0.02, encoder_noise=0.005, self_collision=pairs, device="cpu")
     env._fused_sensors = fused
     st = env.reset(torch.Generator().manual_seed(0), 2)
     st = env.step(st, torch.zeros(2, 10))

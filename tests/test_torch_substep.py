@@ -27,8 +27,10 @@ same constants.
 - On CPU tensors the kernel wrappers run the plain versions and launch
   nothing.
 - ``constraint_solver="auto"`` (the default) picks the whole-substep
-  kernels within their caps and the chain kernel beyond them; the PD law
-  as an opaque controller and as ``PDController`` give the same step.
+  kernels within their caps, the chain kernel beyond them where it takes
+  the system, and the plain physics beyond both (nv > 32, nc > 48); the
+  PD law as an opaque controller and as ``PDController`` give the same
+  step.
 
 The fused Pallas kernel itself (interpret mode) is held against the plain
 version in tests/test_torch_substep_interpret.py; the CUDA kernels on the
@@ -294,15 +296,50 @@ def _chain_tree(nb):
 
 
 def test_auto_falls_back_beyond_the_kernel_caps():
-    """Beyond the kernels' caps, ``"auto"`` takes the chain kernel and an
-    explicit ``"substep"`` raises at construction."""
+    """Beyond the whole-substep kernels' caps, ``"auto"`` takes the chain
+    kernel where it takes the system (a forest of five free bodies: nq =
+    nv + 5 is beyond the whole-substep kernels' nq ≤ nv + 4, within the
+    chain kernel's n ≤ 32) and the plain physics where the chain kernel
+    does not either (nv 33 > 32); an explicit ``"substep"`` raises at
+    construction."""
     nb = MAX_NV - 5  # nv = 6 + (nb − 1)
     small = Engine(_chain_tree(nb), EngineOptions(dt=DT), device="cpu")
     assert small.tree.nv == MAX_NV and small.backend == "substep"
     big = _chain_tree(nb + 1)
-    assert Engine(big, EngineOptions(dt=DT), device="cpu").backend == "kernel"
+    assert Engine(big, EngineOptions(dt=DT), device="cpu").backend == "inline"
     with pytest.raises(ValueError, match="caps"):
         Engine(big, EngineOptions(dt=DT, constraint_solver="substep"), device="cpu")
+    b = TreeBuilder()
+    for i in range(5):
+        b.add_frame(f"ball{i}", b.add_body(f"ball{i}", -1, JointType.FREE, mass=1.0,
+                                           inertia=(1e-2, 1e-2, 1e-2)))
+    forest = Engine(b.build(device="cpu"), EngineOptions(dt=DT), device="cpu")
+    assert (forest.tree.nv, forest.tree.nq) == (30, 35) and forest.backend == "kernel"
+
+
+def test_auto_takes_the_plain_physics_beyond_48_rows():
+    """A model whose rows exceed 48 (Cassie's 28 and a box-box pair's 16
+    contacts, nc 76; more than 24 pair contacts is beyond the
+    whole-substep kernels too, as the reference gates them) runs the plain
+    physics under ``"auto"`` on the CPU: the chain kernel's nc ≤ 48 would
+    refuse it at the first step. On CUDA ``"auto"`` refuses it, naming
+    A.23 and ``"inline"``, rather than run the plain physics on the card."""
+    from jiminy_tpu_torch.engine.collision import Box, CollisionPair
+    from jiminy_tpu_torch.models import make_cassie
+
+    tree, motors, _, rods, stand = make_cassie(device="cpu")
+    boxes = (CollisionPair(Box("L_thigh", (0, 0, -0.17), (0.04, 0.04, 0.17)),
+                           Box("R_thigh", (0, 0, -0.17), (0.04, 0.04, 0.17))),)
+    eng = Engine(tree, EngineOptions(dt=2e-3, pgs_iters=8), motors=motors,
+                 controller=PDController(150.0, 6.0), constraints=rods, collision_pairs=boxes,
+                 device="cpu")
+    assert eng.substep_spec.n_pc == 16 and eng.nc == 28 + 48 and eng.backend == "inline"
+    q = torch.as_tensor(stand)[None].repeat(2, 1)
+    out = eng.step(eng.reset(q), torch.as_tensor(stand)[list(motors.q_idx)].repeat(2, 1))
+    assert bool(torch.isfinite(out.q).all()) and out.lam.shape == (2, 76)
+    with pytest.raises(ValueError, match=r"A\.23.*constraint_solver='inline'"):
+        Engine.auto_backend(eng.substep_spec, torch.device("cuda"))
+    assert Engine.auto_backend(eng.substep_spec, torch.device("cpu")) == "inline"
 
 
 def test_opaque_controller_matches_declarative_pd(robot):
