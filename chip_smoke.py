@@ -38,7 +38,12 @@ imports nothing of JAX and nothing of ``jiminy_tpu``. The kernels:
   and ``ptseg`` and their contact rows, `jt_pair_rows`) and with sphere
   contact sites (``sphere_sites_substep_multi``, ``…_ground``: the site
   offset before the contact Jacobians, on flat ground and with the
-  two-pass ground query), runtime branches again.
+  two-pass ground query), runtime branches again;
+- the same kernels on the flexible-hip Cassie (``cassie_flex_substep_multi``,
+  ``cassie_flex_substep_multi_sensors``, ``cassie_flex_substep``): the
+  SPHERICAL joints' branches and the springs' −k·log(quat)
+  (`jt_quat_log`, `jt_quat_step`), runtime branches on the packed joint
+  types.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -102,6 +107,13 @@ Phases (any failure raises and the script exits non-zero):
    - sphere sites (`phase_spheres_vs_plain`): ANYmal's feet as spheres of
      2 cm on flat ground and on a Fourier ground per env, K3 and K2 at
      n_sub = 1 env by env against float64 (`_gate_vs_f64`);
+   - spherical flexibility (`phase_flex_vs_plain`, after every other
+     Cassie part): K3, K2 and K2 with the sensor stage (three IMUs, two
+     below the SPHERICAL joints) on the flexible-hip spec from hip
+     quaternions on every branch of `jt_quat_log` (the shares printed, a
+     nonzero share asked on each), held by `_gate_dist_vs_f64`, the sensor
+     variant's physics bit-equal to K2's and K2 over 10 substeps to
+     chained launches; with the self-collision pairs too (nc 37);
 2. the paths, each with the launch counts set to 0 just before it and
    read just after:
    - the main path, ``ANYmalEnv(observe="state", device="cuda")`` reset
@@ -159,6 +171,12 @@ Phases (any failure raises and the script exits non-zero):
      bit-equal to chunked), the push path, ``substep_fusion=False``; the
      ptbox and ptseg pair sets on the state path; ANYmal with sphere feet
      through ``WalkerEnv`` on flat ground and on per-env Fourier ground;
+   - the flexible-hip Cassie (the slice: ``CassieEnv(sim_dt=2e-3,
+     target_speed=0.4, flexibility=True)``, nv 26, nq 29, nc 28), last:
+     the state path (25 steps, one K2 launch each; one env step substep
+     by substep against the inline engine; the rods within 1e-3 m), the
+     sensor path (one launch of K2 with the sensor stage per step; fused
+     bit-equal to chunked), the push path, ``substep_fusion=False``;
 3. env-steps/s on the main path (3 timed loops of 25 steps), on the
    sensor path, on the terrain path, on the sim-to-real path and on the
    ``"kernel"`` path, and
@@ -170,7 +188,11 @@ Phases (any failure raises and the script exits non-zero):
    sensor stage (10 substeps) and K3 against their bounds (with the
    distance rows and springs counted) and plain versions; the
    self-collision paths' rates with their launches, and the pair and
-   sphere-site kernels against their bounds (`_pair_flops` counted).
+   sphere-site kernels against their bounds (`_pair_flops` counted); the
+   flexible paths' rates (exactly one launch per timed env step) and its
+   K2, K2 with sensors and K3 against their bounds (`_JOINT`'s SPHERICAL
+   terms counted); the bound of K3 on ``make_cartpole()``'s sizes for
+   the PRISMATIC branches still to port (`_cartpole_k3_counts`).
 
 The Cassie parts of phases 1–3 run last, after every ANYmal number: once
 a kernel in the large frame has run, the process keeps its local memory
@@ -322,59 +344,96 @@ _OPS = {"cross": 9, "dot": 5, "mat3_mul": 45, "mat3_vec": 15, "quat_to_m": 30,
         "p2c": 42, "c2p": 42, "imul": 42, "mcross_f": 30}
 
 
+# Per joint type (0 FREE, 1 REVOLUTE, 2 PRISMATIC, 3 SPHERICAL: the codes
+# of core/tree.py JointType), the operations of its branches in
+# csrc/substep.cuh, without those the kernel's generic loops spend on
+# known zeros, ones and duplicates. A FREE or SPHERICAL joint's motion
+# subspace is unit columns (projecting onto it or multiplying by it
+# selects entries: 0 operations), a REVOLUTE joint's (axis, 0) and a
+# PRISMATIC one's (0, axis) (3 products):
+# - rot: the joint's rotation (a quaternion to a matrix; Rodrigues: sin,
+#   cos, 1 − cos and I + sin·K + (1 − cos)·K² with its constant K², 27;
+#   a PRISMATIC joint's rotation is the identity);
+# - pose: the local pose from the placement (R_p·R_j; R_p·p_j + p_p, the
+#   product skipped where p_j is 0, 3 more for the axis·q of PRISMATIC);
+# - sq: the nonzeros of S·q̇ (summed into the body's velocity);
+# - vcross: v × S·q̇ on S·q̇'s nonzeros (RNEA, and the sensor stage);
+# - proj: Sᵀ·f (a dot with the axis for the 1-DoF joints);
+# - f_is: F = I_c·S and its diagonal block SᵀF (I·axis, h × axis and a
+#   dot for REVOLUTE; h × axis, m·axis and a dot for PRISMATIC);
+# - col: one point-Jacobian column R·S_c (× r for an angular one);
+# - integ: the configuration step (FREE: R·v_lin·dt and the quaternion's
+#   exp, product and normalization, 109; SPHERICAL the quaternion's
+#   alone, 58; a scalar joint 2);
+# - spring: −k·log(quat) of a sprung SPHERICAL joint (`jt_quat_log`: |xyz|²
+#   5, the sqrt 2, atan2, ×2 and ÷ 3, the scaled vector 3; k·rv and τ −
+#   6), −k·q of a sprung 1-DoF joint (2).
+_JOINT = {
+    0: dict(ndof=6, rot=30, pose=15 + 3 + 45, sq=6, vcross=30, proj=0, f_is=0, col=(3, 9),
+            integ=109, spring=0),
+    1: dict(ndof=1, rot=27, pose=45 + 3, sq=3, vcross=18, proj=5, f_is=15 + 9 + 5,
+            col=(1, 24), integ=2, spring=2),
+    2: dict(ndof=1, rot=0, pose=3 + 15 + 3, sq=3, vcross=9, proj=5, f_is=9 + 3 + 5,
+            col=(1, 15), integ=2, spring=2),
+    3: dict(ndof=3, rot=30, pose=45 + 3, sq=3, vcross=18, proj=0, f_is=0, col=(3, 9),
+            integ=58, spring=19),
+}
+
+
+def _col_flops(jt, per_col) -> int:
+    """A Jacobian's columns on a joint of type ``jt`` (r = p − o, 3, then
+    each column as `_JOINT`'s col counts it), each followed by ``per_col``
+    operations of the caller (0 for the contact rows, which store
+    [−J_y; J_x; J_z]); FREE: three unit linear columns (0) and three
+    angular ones (× r, 9 each)."""
+    k = _JOINT[jt]
+    n_cols, ops = k["col"]
+    return 3 + n_cols * ops + k["ndof"] * per_col
+
+
 def _substep_flops(spec) -> int:
     """Operations that one env's substep needs, walked over this tree in
-    the order of csrc/substep.cu `jt_substep`, without the arithmetic the
-    kernel's generic loops spend on known zeros, ones and duplicates: a
-    FREE joint's motion subspace is unit columns (projecting onto it or
-    multiplying by it selects entries: 0 operations), a REVOLUTE joint's
-    is (axis, 0) (half of the products), Rodrigues takes its constant K²,
-    gravity has no angular part, and the composite inertias and the
-    Delassus matrix are symmetric (one half counted). The chain is counted
-    on dense M and J, as K1 takes them (`_solve_flops`). No branch depends
-    on the data except sign and clamp selections, which cost the same
-    either way."""
+    the order of csrc/substep.cu `jt_substep`, with each joint's branches
+    as `_JOINT` counts them: gravity has no angular part, and the composite
+    inertias and the Delassus matrix are symmetric (one half counted). The
+    chain is counted on dense M and J, as K1 takes them (`_solve_flops`).
+    No branch depends on the data except sign and clamp selections, which
+    cost the same either way."""
     t, O = spec.tree, _OPS
     fk = rnea = crba = jac = integ = 0
     for i in range(t.nb):
-        free, root = t.joint_type[i] == 0, t.parent[i] < 0
-        ndof = 6 if free else 1
-        # FK: joint rotation (quaternion; or sin, cos, 1 − cos and
-        # I + sin·K + (1 − cos)·K²: 9 products with K², 6 with K's
-        # nonzeros and their sums, 3 ones), local pose, S·q̇
-        fk += O["quat_to_m"] + O["mat3_vec"] + 3 if free else 3 + 9 + 12 + 3
-        fk += O["mat3_mul"] + (0 if free else 3)
+        k, root = _JOINT[int(t.joint_type[i])], t.parent[i] < 0
+        # FK: joint rotation, local pose, S·q̇
+        fk += k["rot"] + k["pose"]
         if not root:  # world pose; velocity = parent's in this frame + S·q̇
-            fk += O["mat3_mul"] + O["mat3_vec"] + 3 + O["p2c"] + (6 if free else 3)
+            fk += O["mat3_mul"] + O["mat3_vec"] + 3 + O["p2c"] + k["sq"]
         # RNEA: acceleration (gravity at the root: Rᵀ·g), v × S·q̇ (S·q̇
         # from FK), I·a + v ×* (I·v), Sᵀ·f, force to the parent
         if root:
             rnea += O["mat3_vec"]
         else:
-            rnea += O["p2c"] + (30 if free else 18) + 6
-        rnea += 2 * O["imul"] + O["mcross_f"] + 6 + (0 if free else 5)
+            rnea += O["p2c"] + k["vcross"] + 6
+        rnea += 2 * O["imul"] + O["mcross_f"] + 6 + k["proj"]
         if not root:
             rnea += O["c2p"] + 6
             # composite inertia to the parent: R·h, h + m·p, R·I·Rᵀ (its
             # 6 unique entries), the two parallel-axis terms, the sums
             crba += O["mat3_vec"] + 6 + O["mat3_mul"] + 6 * 5 + 2 * O["dot"] + 4 + 48
-        # F = Ic·S (I·axis, h × axis), its diagonal block Sᵀ·F, then F
-        # carried up the ancestors and projected on each one's subspace
-        crba += 0 if free else O["mat3_vec"] + O["cross"] + 5
+        # F = Ic·S, its diagonal block Sᵀ·F, then F carried up the
+        # ancestors and projected on each one's subspace
+        crba += k["f_is"]
         j = i
         while t.parent[j] >= 0:
-            crba += ndof * O["c2p"]
+            crba += k["ndof"] * O["c2p"]
             j = t.parent[j]
-            crba += 0 if t.joint_type[j] == 0 else ndof * 5
-        integ += 109 if free else 2
+            crba += k["ndof"] * _JOINT[int(t.joint_type[j])]["proj"]
+        integ += k["integ"]
     rnea += 6  # the root wrench
     crba += 2 * t.nv  # armature + dt·damping (a constant), p = τ − bias
     for b in t.contact_body:
         jac += O["mat3_vec"] + 3 + 7  # point, depth, target, activation
-        j = b
-        while j >= 0:  # columns: R·axis × r (REVOLUTE); R's columns × r (FREE)
-            jac += 3 + (3 * O["cross"] if t.joint_type[j] == 0 else O["mat3_vec"] + O["cross"])
-            j = t.parent[j]
+        for jt in _chain_types(t, b):
+            jac += _col_flops(jt, 0)
     rows = 6 * len(spec.bounded_joints)
     return fk + rnea + crba + jac + rows + _distance_flops(spec) + _spring_flops(spec) \
         + _pair_flops(spec) + _solve_flops(spec.cfg) + integ
@@ -384,46 +443,33 @@ def _distance_flops(spec) -> int:
     """Operations of the distance rows (`jt_distance_row`), per constraint:
     each point on a body R·p + x (18), p₁ − p₂ (3), d = √(|·|² + 1e-24)
     (7), u (4), then per Jacobian column of each point's chain the column
-    as the contact rows count it (a REVOLUTE column: r, R·axis, its cross
-    with r: 3 + 15 + 9; a FREE joint's six: 3 + 3 crosses), its dot with
-    u, the sign and the sum (7), and the target −(α/dt)·(d − d₀) (3).
-    A point of the world costs nothing."""
-    t, O = spec.tree, _OPS
+    (`_col_flops`), its dot with u, the sign and the sum (7), and the
+    target −(α/dt)·(d − d₀) (3). A point of the world costs nothing."""
+    t = spec.tree
     n = 0
     for b1, _, b2, _, _, _ in spec.dist_constraints:
         n += 3 + 7 + 4 + 3
         for b in (b1, b2):
             n += 18 if b >= 0 else 0
-            j = b
-            while j >= 0:
-                free = t.joint_type[j] == 0
-                n += (3 + 3 * O["cross"] + 6 * 7) if free else (3 + O["mat3_vec"] + O["cross"] + 7)
-                j = t.parent[j]
+            n += sum(_col_flops(jt, 7) for jt in _chain_types(t, b))
     return n
 
 
-def _chain_columns(t, b) -> list:
-    """Each Jacobian column's joint kind (True: FREE) on body b's chain."""
-    cols, j = [], b
+def _chain_types(t, b) -> list:
+    """The joint types on body b's chain to the root."""
+    types, j = [], b
     while j >= 0:
-        cols += [t.joint_type[j] == 0]
+        types.append(int(t.joint_type[j]))
         j = t.parent[j]
-    return cols
+    return types
 
 
 def _pair_contact_flops(t, ba, bb) -> int:
     """Operations of one `jt_pair_contact`: the basis (n × ref 9, its
     normalization 9, t2 = n × t1 9), per Jacobian column of each point's
-    chain the column as the contact rows count it (a REVOLUTE column: r,
-    R·axis, its cross with r: 3 + 15 + 9; a FREE joint's six: 3 + 3
-    crosses) and its three dots with the basis, each signed and summed (3 ·
-    7), and the target and activation (7)."""
-    n = 27 + 7
-    for b in (ba, bb):
-        for free in _chain_columns(t, b):
-            n += (3 + 3 * _OPS["cross"] + 6 * 21) if free \
-                else (3 + _OPS["mat3_vec"] + _OPS["cross"] + 21)
-    return n
+    chain the column (`_col_flops`) and its three dots with the basis,
+    each signed and summed (3 · 7), and the target and activation (7)."""
+    return 27 + 7 + sum(_col_flops(jt, 21) for b in (ba, bb) for jt in _chain_types(t, b))
 
 
 def _pair_flops(spec) -> int:
@@ -461,10 +507,12 @@ def _spring_flops(spec) -> int:
 
 
 def _torque_flops(spec) -> int:
-    """Operations of `jt_torque`: ~23 per motor, damping 2 per dof, −k·q 2
-    per sprung joint."""
+    """Operations of `jt_torque`: ~23 per motor, damping 2 per dof, the
+    springs (−k·q 2 per sprung 1-DoF joint, −k·log(quat) 19 per sprung
+    SPHERICAL joint; `_JOINT`)."""
     t = spec.tree
-    return 23 * spec.torque.nm + 2 * t.nv + 2 * len(t.sprung_joints[0])
+    return (23 * spec.torque.nm + 2 * t.nv + _JOINT[1]["spring"] * len(t.sprung_joints[0])
+            + _JOINT[3]["spring"] * len(t.sprung_spherical[0]))
 
 
 def _spec_bytes(spec) -> int:
@@ -492,10 +540,10 @@ def _sensor_flops(spec, sens) -> int:
     """Operations that one sensor update of one env needs (what
     `jt_sensor_stage` does): the world rotations of the bodies on the
     chains to the IMU and contact bodies (the joint rotation as
-    `_substep_flops` counts it, the placement product and, below the root,
+    `_JOINT` counts it, the placement product and, below the root,
     the world product); on the chains to the IMU bodies alone the local
     position, velocity and proper acceleration: a = Δv/dt on the joint's
-    dofs (2 each), S·v and S·a (3 products each on a REVOLUTE axis), at the
+    dofs (2 each), S·v and S·a (3 products each on a 1-DoF axis), at the
     root Rᵀ·(−g) (gravity has no angular part) and the sums with S·a's
     nonzeros, below it the velocity (p2c, the sums with S·v's) and the
     acceleration (p2c, v × S·v, the sums with S·a's and with the cross
@@ -511,20 +559,20 @@ def _sensor_flops(spec, sens) -> int:
     for i in range(t.nb):
         if not need[i]:
             continue
-        free, root = t.joint_type[i] == 0, t.parent[i] < 0
-        n += (O["quat_to_m"] if free else 3 + 9 + 12 + 3) + O["mat3_mul"]
+        k, root = _JOINT[int(t.joint_type[i])], t.parent[i] < 0
+        n += k["rot"] + O["mat3_mul"]
         if not root:
             n += O["mat3_mul"]
         if need[i] != 3:
             continue
-        ndof = 6 if free else 1
-        n += 2 * ndof + (0 if free else 6)  # a = Δv/dt; S·v and S·a
-        n += O["mat3_vec"] + 3 if free else 0  # local position
-        sa = 6 if free else 3  # S·v's or S·a's nonzeros, summed
+        # a = Δv/dt; S·v and S·a (3 products each on a 1-DoF joint's axis)
+        n += 2 * k["ndof"] + (6 if k["proj"] else 0)
+        n += O["mat3_vec"] + 3 if t.joint_type[i] == 0 else 0  # local position
+        sa = k["sq"]  # S·v's or S·a's nonzeros, summed
         if root:
             n += O["mat3_vec"] + sa
         else:
-            n += O["p2c"] + sa + O["p2c"] + (30 if free else 18) + sa + 6
+            n += O["p2c"] + sa + O["p2c"] + k["vcross"] + sa + 6
     per = {"imu": 45 + 30 + 4 * O["cross"] + 9 + 2 * O["mat3_vec"] + 45 + 6,
            "encoder": 2, "effort": 1, "contact": 3 + O["mat3_vec"] + 3}
     return n + sum(per[g.type] * g.ns for g in sens.suite.groups)
@@ -618,10 +666,7 @@ def _ground_flops(spec) -> int:
     t = spec.tree
     n = 0
     for b in t.contact_body:
-        cols, j = 0, b
-        while j >= 0:
-            cols += 6 if t.joint_type[j] == 0 else 1
-            j = t.parent[j]
+        cols = sum(_JOINT[jt]["ndof"] for jt in _chain_types(t, b))
         n += _ground_query_flops(spec) + 39 + 15 * cols + 15
     return n
 
@@ -645,7 +690,8 @@ def _anymal_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver=
     from jiminy_tpu_torch.models.quadruped import make_anymal
 
     tree, motors, _ = make_anymal(device=dev)
-    opts = EngineOptions(dt=5e-3, pgs_iters=8, compute_solver_residual=residual,
+    opts = EngineOptions(contact_model="constraint", dt=5e-3, pgs_iters=8,
+                         compute_solver_residual=residual,
                          substep_fusion=fusion, constraint_solver=solver)
     return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
                   controller=PDController(80.0, 2.0), ground=ground, device=dev)
@@ -1259,33 +1305,36 @@ ROD_TOL = 1e-3  # the reference's TestCassie bound on |d − d₀|, m
 
 
 @functools.cache
-def _cassie_model(dev):
+def _cassie_model(dev, flexibility=False):
     """(tree, motors, suite, pushrods, stand pose) of the biped with
     cassie_sensors_run's suite (2 ms period, 4 ms delay, noise 0.02 /
-    0.005)."""
+    0.005); with ``flexibility`` the flexible-hip model (its suite: the
+    pelvis and both hip IMUs, the encoders)."""
     from jiminy_tpu_torch.models.biped import make_cassie
 
     return make_cassie(sensor_period=2e-3, sensor_delay=0.004, imu_noise=0.02,
-                       encoder_noise=0.005, device=dev)
+                       encoder_noise=0.005, flexibility=flexibility, device=dev)
 
 
 def _cassie_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver="substep",
-                   pairs=()):
+                   pairs=(), flexibility=False):
     """CassieEnv's engine (PD kp 150, kd 6, 2 ms, 8 sweeps, the pushrods),
-    with the collision ``pairs``; in float64 on the float32 model's
-    constants."""
+    with the collision ``pairs``, on the flexible-hip model with
+    ``flexibility``; in float64 on the float32 model's constants."""
     from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
 
-    tree, motors, _, rods, _ = _cassie_model(dev)
-    opts = EngineOptions(dt=2e-3, pgs_iters=8, compute_solver_residual=residual,
+    tree, motors, _, rods, _ = _cassie_model(dev, flexibility)
+    opts = EngineOptions(contact_model="constraint", dt=2e-3, pgs_iters=8,
+                         compute_solver_residual=residual,
                          substep_fusion=fusion, constraint_solver=solver)
     return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
                   controller=PDController(150.0, 6.0), constraints=rods,
                   collision_pairs=pairs, device=dev)
 
 
-def _cassie_inputs(engine, gen, B):
-    """Cassie states around the stand pose: the motor joints ±0.05 rad
+def _cassie_inputs(engine, gen, B, flexibility=False):
+    """Cassie states around the stand pose (of the flexible-hip model with
+    ``flexibility``, its hips at the identity): the motor joints ±0.05 rad
     (the pushrod loops open by millimetres), the shin springs ±0.05 rad,
     in a quarter of the envs both hip rolls within 1 cm·rad of a limit
     (either side, so that the bounds rows bind), the base 1 cm low to
@@ -1295,7 +1344,7 @@ def _cassie_inputs(engine, gen, B):
     t = engine.tree
     dev = engine.device
     kw = dict(generator=gen, device=dev)
-    stand = _cassie_model(dev)[4]
+    stand = _cassie_model(dev, flexibility)[4]
     qi = list(engine.motors.q_idx)
     q = torch.as_tensor(stand, device=dev).repeat(B, 1)
     q[:, qi] += 0.1 * torch.rand(B, len(qi), **kw) - 0.05
@@ -1366,6 +1415,21 @@ def _gate_dist_vs_f64(label, k, p32, p64, check=True, worst_of=None) -> dict:
     return g
 
 
+def _held(label, outs, p32, p64, scale=None):
+    """Each kernel's outputs of ``outs`` {name: outputs} held to the
+    float64 plain version by `_gate_dist_vs_f64` on q, v, λ, the impulses
+    and, where present, the buffers divided by ``scale``."""
+    gates = {}
+    for kname, k in outs.items():
+        for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+            gates[f"{kname} {n}"] = _gate_dist_vs_f64(f"{label} {kname} {n}", k[i], p32[i], p64[i])
+        if len(k) > 7:
+            gates[f"{kname} bufs_scaled"] = _gate_dist_vs_f64(
+                f"{label} {kname} bufs", k[7].double() / scale, p32[7].double() / scale,
+                p64[7] / scale)
+    return gates
+
+
 def _world_loop_toy(dev):
     """tests/test_constraints.py's two-pendulum loop with the second tip
     tied to a frame of the world (body −1): nb 2, nv 2, one distance row,
@@ -1382,7 +1446,8 @@ def _world_loop_toy(dev):
     f1 = b.add_frame("tip1", 0, place((0, 0, -1)))
     f2 = b.add_frame("anchor", -1, place((0.5, 0, -1)))
     rod = DistanceConstraint(f1, f2, distance=0.6, baumgarte_freq=20.0)
-    return Engine(b.build(device=dev), EngineOptions(dt=1e-3, constraint_solver="substep"),
+    return Engine(b.build(device=dev), EngineOptions(contact_model="constraint", dt=1e-3,
+                                                     constraint_solver="substep"),
                   constraints=(rod,), device=dev)
 
 
@@ -1404,7 +1469,8 @@ def _ab_cassie_substeps(env, state, act_gen, dev, kw=None, label="cassie state p
     inline = CassieEnv(constraint_solver="inline", device=dev,
                        **(kw or dict(CASSIE_KW, observe="state")))
     plain64 = _cassie_engine(dev, torch.float64, residual=False, solver="inline",
-                             pairs=env.engine.collision_pairs)
+                             pairs=env.engine.collision_pairs,
+                             flexibility=(kw or {}).get("flexibility", False))
     u = env._action_to_command(_uniform(act_gen, dev, env.motors.nm), state.sim)
     sim, gates = state.sim, {"q": [], "v": [], "lam": []}
     for i in range(env.n_substeps):
@@ -1477,18 +1543,6 @@ def phase_cassie_vs_plain(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(41)
     worst = {}
 
-    def held(label, outs, p32, p64, scale=None):
-        gates = {}
-        for kname, k in outs.items():
-            for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
-                gates[f"{kname} {n}"] = _gate_dist_vs_f64(f"{label} {kname} {n}", k[i], p32[i],
-                                                          p64[i])
-            if len(k) > 7:
-                gates[f"{kname} bufs_scaled"] = _gate_dist_vs_f64(
-                    f"{label} {kname} bufs", k[7].double() / scale, p32[7].double() / scale,
-                    p64[7] / scale)
-        return gates
-
     for label, B in ((f"B={B_MAIN}", B_MAIN), ("ragged B=1000", 1000)):
         args = _cassie_inputs(eng, gen, B)
         q, v, cmd, lam0, wrench = args
@@ -1518,8 +1572,8 @@ def phase_cassie_vs_plain(dev) -> dict:
               f"{json.dumps(e2)}; K2 with sensors {json.dumps(es)}, physics equal to the "
               f"sensor-free K2: {same}; share of envs with a pushrod / bound row's λ nonzero "
               f"{rods['pushrod']:.3f} / {rods['bound']:.3f}; launches {json.dumps(launched)}")
-        gates = held(f"cassie {label} n_sub=1", {"K3": k3}, r3, r3_64)
-        gates.update(held(f"cassie {label} n_sub=1", {"K2": k2, "K2 sensors": ks}, r2, r2_64,
+        gates = _held(f"cassie {label} n_sub=1", {"K3": k3}, r3, r3_64)
+        gates.update(_held(f"cassie {label} n_sub=1", {"K2": k2, "K2 sensors": ks}, r2, r2_64,
                           scale))
         print(f"[phase 1] cassie {label}, n_sub=1 vs the f64 plain version: " + json.dumps(gates))
         tau_scale = max(1.0, r2[6].abs().max().item())
@@ -1574,7 +1628,7 @@ def phase_cassie_vs_plain(dev) -> dict:
     pr = substep_multi_reference(spec, 1, *args, mp=mp)
     pr64 = substep_multi_reference(spec64, 1, *(x.double() for x in args), mp=mp.double())
     torch.cuda.synchronize()
-    gates = held("cassie randomized n_sub=1", {"K2 randomized": kr}, pr, pr64)
+    gates = _held("cassie randomized n_sub=1", {"K2 randomized": kr}, pr, pr64)
     print(f"[phase 1] cassie randomized K2 n_sub=1 B={B_MAIN} ({launched + 1} launches with the "
           f"nominal run): nominal parameters vs the unrandomized K2 {nominal:.3g}; vs the f64 "
           "plain version: " + json.dumps(gates))
@@ -1634,11 +1688,11 @@ def _pair_sets():
     }
 
 
-def _selfcol_inputs(engine, gen, B):
+def _selfcol_inputs(engine, gen, B, flexibility=False):
     """`_cassie_inputs` with the legs brought together: the hip rolls
     inward (L −U(0, 0.4), R U(0, 0.4) rad, up to the limits) and the hip
     yaws U(−0.3, 0.3) rad."""
-    q, v, cmd, lam0, wrench = _cassie_inputs(engine, gen, B)
+    q, v, cmd, lam0, wrench = _cassie_inputs(engine, gen, B, flexibility)
     t, kw = engine.tree, dict(generator=gen, device=q.device)
     j = [t.q_off[t.joint_index(n)] for n in ("L_hip_roll", "R_hip_roll", "L_hip_yaw", "R_hip_yaw")]
     q[:, j[0]] = -0.4 * torch.rand(B, **kw)
@@ -1770,7 +1824,8 @@ def _sphere_engine(dev, dtype=torch.float32, ground=None, fusion=True):
     from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
 
     tree, motors, _ = _sphere_model(dev)
-    opts = EngineOptions(dt=5e-3, pgs_iters=8, substep_fusion=fusion, constraint_solver="substep")
+    opts = EngineOptions(contact_model="constraint", dt=5e-3, pgs_iters=8, substep_fusion=fusion,
+                         constraint_solver="substep")
     return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
                   controller=PDController(80.0, 2.0), ground=ground, device=dev)
 
@@ -1828,6 +1883,211 @@ def phase_spheres_vs_plain(dev) -> dict:
             raise AssertionError(f"sphere sites on {kind} ground: {loaded} of the envs loaded")
         worst[f"spheres_{kind}"] = max(max(e3[n] for n in names), max(e2[n] for n in names))
     return worst
+
+
+# ---- spherical flexibility (A.14 with B.8): the slice is
+# CassieEnv(sim_dt=2e-3, target_speed=0.4, flexibility=True)
+# (examples/train.py --env cassie_flex, cassie_flex_run5): a SPHERICAL
+# joint of 600 N·m/rad above each hip roll, nb 17, nv 26, nq 29, nc 28
+CASSIE_FLEX_KW = dict(CASSIE_KW, observe="state", flexibility=True)
+CASSIE_FLEX_SENSOR_KW = dict(CASSIE_SENSOR_KW, flexibility=True)
+CASSIE_FLEX_PUSH_KW = dict(CASSIE_PUSH_KW, flexibility=True)
+FLEX_ANGLE = 0.5  # rad, the largest hip deflection of the phase-1 inputs
+
+
+def _flex_quats(engine, q, gen):
+    """Set each flexibility joint's quaternion in ``q`` (B, nq), in place:
+    a rotation of U(0, FLEX_ANGLE) rad about a uniform axis, negated
+    (w < 0) in a quarter of the envs, the exact identity in an eighth and a
+    rotation of 1e-8–1e-7 rad in another eighth (both `jt_quat_log`'s
+    small-angle branch). Returns the share of env-joints on each branch."""
+    B, dev = q.shape[0], q.device
+    kw = dict(generator=gen, device=dev)
+    e = B // 8
+    for qo in engine.tree.sprung_spherical[1]:
+        axis = torch.randn(B, 3, **kw)
+        axis = axis / axis.norm(dim=1, keepdim=True)
+        angle = FLEX_ANGLE * torch.rand(B, **kw)
+        angle[e:2 * e] = 1e-8 + 9e-8 * torch.rand(e, **kw)
+        half = 0.5 * angle[:, None]
+        quat = torch.cat([axis * torch.sin(half), torch.cos(half)], 1)
+        quat[:e] = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+        quat[torch.rand(B, **kw) < 0.25] *= -1.0
+        q[:, qo:qo + 4] = quat
+    quats = torch.stack([q[:, o:o + 4] for o in engine.tree.sprung_spherical[1]]).reshape(-1, 4)
+    small = (quats[:, :3].double() ** 2).sum(1) < 1e-14
+    return {"w<0": float((quats[:, 3] < 0).double().mean()),
+            "small_angle": float(small.double().mean()),
+            "large_angle": float((~small).double().mean())}
+
+
+def _flex_inputs(engine, gen, B):
+    """`_cassie_inputs` on the flexible-hip model with the hips deflected
+    (`_flex_quats`; the rollouts' deflections are small at 600 N·m/rad,
+    these reach every branch of the spring's log) → (the inputs, the
+    branch shares)."""
+    args = _cassie_inputs(engine, gen, B, flexibility=True)
+    return args, _flex_quats(engine, args[0], gen)
+
+
+def phase_flex_vs_plain(dev) -> dict:
+    """The kernels on the flexible-hip Cassie spec (B.8: the SPHERICAL
+    joints' columns, FK, RNEA bias, quaternion integrate and the springs'
+    −k·log(quat)) against their plain versions from `_flex_inputs`, at
+    B = 4096:
+
+    - K3, K2 and K2 with the sensor stage (the pelvis and both hip IMUs,
+      below the flexibility joints; the 10 encoders) at n_sub = 1: τ within
+      1e-4 of its size, the sensor variant's q, v, λ, impulses, a and τ
+      bit-equal to K2's, and q, v, λ, the impulses and the scaled buffers
+      held to the float64 plain version by `_gate_dist_vs_f64`; a nonzero
+      share of the env-joints on each branch of `jt_quat_log` (w < 0,
+      small angle, large angle);
+    - K2 over a whole env step (n_sub = 10) bit-equal to ten chained K2
+      launches, and K2 with the sensor stage's physics bit-equal to it;
+    - flexibility with the self-collision pairs (nc 37), K3 and K2 at
+      n_sub = 1 from `_selfcol_inputs` with the hips deflected, held the
+      same way, a quarter of the envs at least with an active pair row.
+
+    Returns each kernel's worst |kernel − plain f32|."""
+    from jiminy_tpu_torch.ops.substep_kernel import (
+        SensorKernelSpec,
+        substep_batched,
+        substep_batched_multi,
+        substep_multi_reference,
+        substep_reference,
+    )
+
+    eng, eng64 = _cassie_engine(dev, flexibility=True), _cassie_engine(dev, torch.float64,
+                                                                        flexibility=True)
+    spec, spec64 = eng.substep_spec, eng64.substep_spec
+    suite = _cassie_model(dev, True)[2]
+    sens = SensorKernelSpec(eng.tree, suite, 1)
+    sens64 = SensorKernelSpec(eng64.tree, suite.to(dtype=torch.float64), 1)
+    names = ("q", "v", "lam", "residual", "impulse")
+    gen = torch.Generator(device=dev).manual_seed(61)
+    args, branches = _flex_inputs(eng, gen, B_MAIN)
+    q, v, cmd, lam0, wrench = args
+    tau = eng._joint_torque(cmd, q, v)
+    bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B_MAIN), q, v))
+    sw = dict(sensors=sens, bufs=bufs, eps=suite.sample_eps(gen, B_MAIN))
+    before = _counts()
+    k3 = substep_batched(spec, q, v, tau, lam0, wrench)
+    k2 = substep_batched_multi(spec, 1, *args)
+    ks = substep_batched_multi(spec, 1, *args, **sw)
+    launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+    r3 = substep_reference(spec, q, v, tau, lam0, wrench)
+    r2 = substep_multi_reference(spec, 1, *args, **sw)
+    a64 = [x.double() for x in args]
+    r3_64 = substep_reference(spec64, a64[0], a64[1], tau.double(), a64[3], a64[4])
+    r2_64 = substep_multi_reference(spec64, 1, *a64, sensors=sens64, bufs=bufs.double(),
+                                    eps=sw["eps"].double())
+    torch.cuda.synchronize()
+    e3 = {n: _max_err(a, b) for n, a, b in zip(names, k3, r3)}
+    e2 = {n: _max_err(a, b) for n, a, b in zip(names + ("a", "tau"), k2, r2)}
+    scale = _reading_scale(sens, r2_64[7])
+    es = {"bufs_scaled": ((ks[7].double() - r2[7].double()).abs() / scale).max().item()}
+    same = all(torch.equal(ks[i], k2[i]) for i in range(7))
+    rows = {"pushrod": float((r3[2][:, :2] != 0).any(1).double().mean()),
+            "bound": float((r3[2][:, 2:16] != 0).any(1).double().mean()),
+            "contact": float((r3[2][:, 16:] != 0).any(1).double().mean())}
+    vo = spec.tree.sprung_spherical[0]
+    flex_tau = max(r2[6][:, o:o + 3].abs().max().item() for o in vo)
+    print(f"[phase 1] cassie flex B={B_MAIN}: share of the hip flexibility joints on each "
+          f"branch of jt_quat_log {json.dumps(branches)}; largest |τ| on a flexibility dof "
+          f"{flex_tau:.4g} N·m; share of envs with a pushrod / bound / contact row's λ nonzero "
+          f"{json.dumps(rows)}; max |kernel − plain f32|: K3 {json.dumps(e3)}; K2 n_sub=1 "
+          f"{json.dumps(e2)}; K2 with sensors {json.dumps(es)}, physics equal to the sensor-free "
+          f"K2: {same}; launches {json.dumps(launched)}")
+    gates = _held("cassie flex n_sub=1", {"K3": k3}, r3, r3_64)
+    gates.update(_held("cassie flex n_sub=1", {"K2": k2, "K2 sensors": ks}, r2, r2_64, scale))
+    print("[phase 1] cassie flex n_sub=1 vs the f64 plain version: " + json.dumps(gates))
+    tau_scale = max(1.0, r2[6].abs().max().item())
+    if not (e2["tau"] <= TOL * tau_scale and same):
+        raise AssertionError(f"cassie flex: K2's τ off by {e2['tau']} or the sensor variant's "
+                             f"physics not the sensor-free K2's ({same})")
+    if launched != {"substep": 1, "substep_multi": 1, "substep_multi_sensors": 1}:
+        raise AssertionError(f"cassie flex: unexpected launches {launched}")
+    if min(branches.values()) <= 0.0 or rows["pushrod"] < 0.5 or rows["bound"] < 0.1:
+        raise AssertionError(f"cassie flex inputs miss a branch of the log {branches} or engage "
+                             f"too few pushrod or bound rows {rows}")
+    worst = {"cassie_flex_substep": max(e3[n] for n in names),
+             "cassie_flex_substep_multi": max(e2[n] for n in names),
+             "cassie_flex_substep_multi_sensors": max(max(e2[n] for n in names),
+                                                      es["bufs_scaled"])}
+
+    # a whole env step in one launch against ten launches of one substep
+    eps10 = torch.cat([suite.sample_eps(gen, B_MAIN) for _ in range(10)], 1)
+    k2 = substep_batched_multi(spec, 10, *args)
+    ks = substep_batched_multi(spec, 10, *args, sensors=sens, bufs=bufs, eps=eps10)
+    q, v, cmd, lam, wrench = args
+    for _ in range(10):
+        chained = substep_batched_multi(spec, 1, q, v, cmd, lam, wrench)
+        q, v, lam = chained[:3]
+    torch.cuda.synchronize()
+    carried = all(torch.equal(k2[i], chained[i]) for i in range(7))
+    same = all(torch.equal(ks[i], k2[i]) for i in range(7))
+    print(f"[phase 1] cassie flex n_sub=10 B={B_MAIN}: K2 equal to 10 chained K2 launches at "
+          f"n_sub=1: {carried}; K2 with sensors' physics equal to K2's: {same}")
+    if not (carried and same):
+        raise AssertionError(f"cassie flex n_sub=10: K2 not the chained single substeps "
+                             f"({carried}) or the sensor variant's physics not K2's ({same})")
+
+    # flexibility with the self-collision pairs, at n_sub = 1
+    pairs = _pair_sets()["seg"]
+    peng = _cassie_engine(dev, pairs=pairs, flexibility=True)
+    pspec = peng.substep_spec
+    pspec64 = _cassie_engine(dev, torch.float64, pairs=pairs, flexibility=True).substep_spec
+    pargs = _selfcol_inputs(peng, gen, B_MAIN, flexibility=True)
+    pbranches = _flex_quats(peng, pargs[0], gen)
+    q, v, cmd, lam0, wrench = pargs
+    share = _active_pair_share(peng, q)
+    tau = peng._joint_torque(cmd, q, v)
+    before = _counts()
+    k3 = substep_batched(pspec, q, v, tau, lam0, wrench)
+    k2 = substep_batched_multi(pspec, 1, *pargs)
+    launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+    r3 = substep_reference(pspec, q, v, tau, lam0, wrench)
+    r2 = substep_multi_reference(pspec, 1, *pargs)
+    a64 = [x.double() for x in pargs]
+    r3_64 = substep_reference(pspec64, a64[0], a64[1], tau.double(), a64[3], a64[4])
+    r2_64 = substep_multi_reference(pspec64, 1, *a64)
+    torch.cuda.synchronize()
+    e3 = {n: _max_err(a, b) for n, a, b in zip(names, k3, r3)}
+    e2 = {n: _max_err(a, b) for n, a, b in zip(names, k2, r2)}
+    gates = _held("cassie flex self-collision n_sub=1", {"K3": k3}, r3, r3_64)
+    gates.update(_held("cassie flex self-collision n_sub=1", {"K2": k2}, r2, r2_64))
+    print(f"[phase 1] cassie flex with self-collision (nc {pspec.nc}) B={B_MAIN}: branches "
+          f"{json.dumps(pbranches)}; share of envs with an active pair row {share:.4f}; max "
+          f"|kernel − plain f32|: K3 {json.dumps(e3)}; K2 n_sub=1 {json.dumps(e2)}; launches "
+          f"{json.dumps(launched)}; vs the f64 plain version: " + json.dumps(gates))
+    if share < ACTIVE_SHARE or launched != {"substep": 1, "substep_multi": 1}:
+        raise AssertionError(f"cassie flex self-collision: active pair share {share}, "
+                             f"launches {launched}")
+    return worst
+
+
+def _cartpole_k3_counts(B) -> tuple[int, int]:
+    """(bytes, operations) of K3 on the sizes of the reference's
+    ``make_cartpole()`` (jiminy_tpu/models/toys.py: a PRISMATIC cart along
+    x bounded to ±2.4 m, a REVOLUTE pole; nb 2, nq = nv = 2, no contact
+    site, no motor) with ``EngineOptions(contact_model="constraint")``
+    (16 sweeps, the residual): one bounds row, nc 1. The port cannot
+    build the model yet (PRISMATIC joints, ROADMAP A.15), so its spec is
+    written out here for the counting rules of `_substep_flops` and
+    `_substep_bytes`; the packed spec, 19 ints and 78 floats by
+    csrc/substep.cuh's layout, is counted once."""
+    from types import SimpleNamespace
+
+    from jiminy_tpu_torch.ops.constraint_solve import SolveConfig
+
+    tree = SimpleNamespace(nb=2, nq=2, nv=2, parent=(-1, 0), joint_type=(2, 1), contact_body=())
+    cfg = SolveConfig(n=2, nc=1, dt=1e-3, eq_blocks=(), bounds_span=(0, 1), contact_colors=(),
+                      iters=16, compute_residual=True)
+    spec = SimpleNamespace(tree=tree, bounded_joints=[0], dist_constraints=[], springs=False,
+                           pairs=None, contact_radius=[], ground_mode="flat", cfg=cfg)
+    per_env = (2 + 2 * 2 + 1 + 6) + (2 + 2 + 1 + 1)
+    return 4 * B * per_env + 4 * (19 + 78), B * _substep_flops(spec)
 
 
 def _as_f64(state):
@@ -2484,6 +2744,47 @@ def run(dev) -> None:
           WalkerEnv(s_tree, s_motors, ground_sampler=fourier, **walker_kw), 35, 5,
           substep_multi_ground=5)
 
+    # the slice (A.14 with B.8): the flexible-hip Cassie on its state,
+    # sensor and push paths, after every other Cassie part
+    main_err.update(phase_flex_vs_plain(dev))
+    env_f = CassieEnv(device=dev, **CASSIE_FLEX_KW)
+    f_spec = env_f.engine.substep_spec
+    if env_f.engine.backend != "substep" or (f_spec.tree.nv, f_spec.tree.nq, f_spec.nc) \
+            != (26, 29, 28):
+        raise AssertionError("the flexible Cassie env does not take the whole-substep kernel "
+                             "with nv 26, nq 29, nc 28")
+    state_f = drive("cassie flex state path", env_f, 40, STEPS, substep_multi=STEPS)
+    _ab_cassie_substeps(env_f, state_f, act_gen, dev, CASSIE_FLEX_KW,
+                        label="cassie flex state path")
+    rod = _rod_error(env_f, state_f.sim)[state_f.steps >= 5]
+    from jiminy_tpu_torch.math import so3
+
+    hip = torch.cat([so3.quat_log(state_f.sim.q[:, o:o + 4]).norm(dim=1)
+                     for o in f_spec.tree.sprung_spherical[1]])
+    print(f"[phase 2] cassie flex state path: hip deflection |log(quat)| mean "
+          f"{hip.mean().item():.4g} rad, max {hip.max().item():.4g} rad; pushrod |d − d₀| max "
+          f"{rod.max().item():.3g} m over the envs 5+ steps into their episode; base height "
+          f"mean {state_f.sim.q[:, 2].mean().item():.4f} m")
+    if rod.max().item() > ROD_TOL:
+        raise AssertionError(f"flexible Cassie: the pushrod loops open by {rod.max().item()}")
+    env_fs = CassieEnv(device=dev, **CASSIE_FLEX_SENSOR_KW)
+    if not env_fs._fused_sensors:
+        raise AssertionError("the flexible Cassie sensor env does not take the fused sensor path")
+    state_fs = drive("cassie flex sensor path", env_fs, 41, STEPS, substep_multi_sensors=STEPS)
+    if state_fs.obs.shape != (B_MAIN, 29) or state_fs.info["sensor_bufs"].shape[1] != \
+            env_fs.sensors.n_buf:
+        raise AssertionError(f"flexible Cassie sensor obs of shape {tuple(state_fs.obs.shape)}")
+    _ab_sensor_step(env_fs, state_fs, act_gen, dev, CASSIE_FLEX_SENSOR_KW,
+                    label="cassie flex sensor path",
+                    gate=functools.partial(_gate_dist_vs_f64, check=False))
+    env_fp = CassieEnv(device=dev, **CASSIE_FLEX_PUSH_KW)
+    state_fp = drive("cassie flex push path", env_fp, 42, STEPS, substep_multi=STEPS)
+    print(f"[phase 2] cassie flex push path: {int((state_fp.info['push_steps_left'] > 0).sum())}"
+          f"/{B_MAIN} envs being pushed")
+    eng_fk3 = _cassie_engine(dev, residual=False, fusion=False, flexibility=True)
+    drive_unfused("cassie flex substep_fusion=False", eng_fk3, walker=env_f, start=state_f,
+                  substep=30)
+
     rates_c = {}
     for name, env_x, st_x in (("state", env_c, state_c), ("sensor", env_cs, state_cs),
                               ("push", env_cp, state_cp)):
@@ -2504,6 +2805,20 @@ def run(dev) -> None:
         print(f"[phase 3] env-steps/s at B={B_MAIN}, cassie {name} path: "
               f"{[round(r, 1) for r in rates_c[name]]} (max {max(rates_c[name]):.1f}); launches in "
               f"the {3 * STEPS} timed steps {json.dumps(launched)}")
+    for name, env_x, st_x, launch in (("flex state", env_f, state_f, "substep_multi"),
+                                      ("flex sensor", env_fs, state_fs, "substep_multi_sensors"),
+                                      ("flex push", env_fp, state_fp, "substep_multi")):
+        for _ in range(5):  # warm-up
+            st_x = env_x.step(st_x, _uniform(act_gen, dev, 10))
+        torch.cuda.synchronize()
+        before = _counts()
+        rates_c[name], _ = _env_rate(env_x, st_x, act_gen, dev, STEPS, 3)
+        launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+        print(f"[phase 3] env-steps/s at B={B_MAIN}, cassie {name} path: "
+              f"{[round(r, 1) for r in rates_c[name]]} (max {max(rates_c[name]):.1f}); launches in "
+              f"the {3 * STEPS} timed steps {json.dumps(launched)}")
+        if launched != {launch: 3 * STEPS}:
+            raise AssertionError(f"cassie {name} path: {launched} in {3 * STEPS} env steps")
 
     # Cassie (B.9 and the springs, the large frame): K2 over the env step's
     # 10 substeps, with the sensor stage (10 updates), and K3
@@ -2609,6 +2924,50 @@ def run(dev) -> None:
             _time_cuda(lambda: substep_multi_reference(sspec, n_sub, *sargs, gc=sgc), 3),
             _substep_multi_bytes(sspec, B_MAIN) + g_bytes, s_ops + g_ops,
         )
+    # B.8 (spherical flexibility) on the slice: K2 over the env step's 10
+    # substeps, with the sensor stage (10 updates, three IMUs), and K3
+    feng = _cassie_engine(dev, residual=False, fusion=False, flexibility=True)
+    fspec = feng.substep_spec
+    fargs = _flex_inputs(feng, torch.Generator(device=dev).manual_seed(29), B_MAIN)[0]
+    fq, fv, fcmd, flam0, fwrench = fargs
+    ftau = feng._joint_torque(fcmd, fq, fv)
+    fsens = SensorKernelSpec(feng.tree, env_fs.sensors, env_fs.n_substeps_per_obs)
+    fsuite, fgen = env_fs.sensors, torch.Generator(device=dev).manual_seed(30)
+    fsw = dict(sensors=fsens, bufs=fsuite.flatten_buffers(fsuite.reset(
+        fsuite.sample_eps(fgen, B_MAIN), fq, fv)),
+        eps=torch.cat([fsuite.sample_eps(fgen, B_MAIN) for _ in range(c_upd)], 1))
+    f_ops = B_MAIN * (c_sub * (_substep_flops(fspec) + _torque_flops(fspec)) + 2 * fspec.tree.nv)
+    print(f"[phase 3] cassie flex: {_substep_flops(fspec)} FLOP per env per substep (chain "
+          f"{_solve_flops(fspec.cfg)} at nv {fspec.tree.nv}), torque {_torque_flops(fspec)}, "
+          f"sensor update {_sensor_flops(fspec, fsens)}; the rigid Cassie's substep "
+          f"{_substep_flops(cspec)}")
+    b8 = "jiminy_tpu/ops/substep_kernel.py:448"
+    entry(
+        "cassie_flex_substep_multi", "jiminy_tpu_torch/csrc/substep.cu", b8,
+        path["cassie flex state path"]["substep_multi"],
+        _time_cuda(lambda: substep_batched_multi(fspec, c_sub, *fargs), 10),
+        _time_cuda(lambda: substep_multi_reference(fspec, c_sub, *fargs), 2),
+        _substep_multi_bytes(fspec, B_MAIN), f_ops,
+    )
+    entry(
+        "cassie_flex_substep_multi_sensors", "jiminy_tpu_torch/csrc/substep.cu", b8,
+        path["cassie flex sensor path"]["substep_multi_sensors"],
+        _time_cuda(lambda: substep_batched_multi(fspec, c_sub, *fargs, **fsw), 10),
+        _time_cuda(lambda: substep_multi_reference(fspec, c_sub, *fargs, **fsw), 2),
+        _substep_multi_bytes(fspec, B_MAIN) + _sensor_bytes(fsens, B_MAIN, c_upd),
+        f_ops + B_MAIN * c_upd * _sensor_flops(fspec, fsens),
+    )
+    entry(
+        "cassie_flex_substep", "jiminy_tpu_torch/csrc/substep.cu", b8,
+        path["cassie flex substep_fusion=False"]["substep"],
+        _time_cuda(lambda: substep_batched(fspec, fq, fv, ftau, flam0, fwrench), 20),
+        _time_cuda(lambda: substep_reference(fspec, fq, fv, ftau, flam0, fwrench), 3),
+        _substep_bytes(fspec, B_MAIN), B_MAIN * _substep_flops(fspec),
+    )
+    b10_bytes, b10_ops = _cartpole_k3_counts(B_MAIN)
+    b10_ms, b10_by = bound(b10_bytes, b10_ops)
+    print(f"[phase 3] B.10 (PRISMATIC joints, still to port): K3 on make_cartpole()'s sizes "
+          f"B={B_MAIN}: bound {b10_ms:.6f} ms ({b10_by}; {b10_bytes} B, {b10_ops} FLOP)")
     print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_sensor_path": rates_s,
                       "env_steps_per_s_terrain_path": rates_t,
                       "env_steps_per_s_sim2real_path": rates_r,

@@ -2,11 +2,13 @@
 
 Counterpart of ``jiminy_tpu/core/algos.py`` (kinematics, body
 accelerations, RNEA with armature, CRBA, point Jacobians, Lie-group
-integrate). The reference writes them for one robot and vmaps; here
-every function takes batched ``q (B, nq)``, ``v (B, nv)`` and loops over
-bodies in Python (the topology is static), so each step is one
-whole-batch tensor op. Spatial vectors are (angular, linear) in the
-local body frame at the body origin, as in the reference.
+integrate) for FREE, REVOLUTE and SPHERICAL joints; a joint's columns
+enter every algorithm through its motion subspace alone. The reference
+writes them for one robot and vmaps; here every function takes batched
+``q (B, nq)``, ``v (B, nv)`` and loops over bodies in Python (the
+topology is static), so each step is one whole-batch tensor op.
+Spatial vectors are (angular, linear) in the local body frame at the
+body origin, as in the reference.
 """
 
 from __future__ import annotations
@@ -45,9 +47,9 @@ def joint_transform(tree: KinematicTree, i: int, q: torch.Tensor) -> Transform:
             rot=_axis_angle_matrix(tree.axis[i], q[:, off]),
             pos=q.new_zeros(B, 3),
         )
-    raise NotImplementedError(
-        f"{t.name} joints are not ported yet (ROADMAP A.14, A.15)"
-    )
+    if t == JointType.SPHERICAL:
+        return Transform(rot=so3.quat_to_matrix(q[:, off:off + 4]), pos=q.new_zeros(B, 3))
+    raise NotImplementedError(f"{t.name} joints are not ported yet (ROADMAP A.15)")
 
 
 def motion_subspace(tree: KinematicTree, i: int) -> torch.Tensor:
@@ -220,10 +222,12 @@ def point_jacobian(
 
 
 def integrate(tree: KinematicTree, q, v, dt) -> torch.Tensor:
-    """q ⊕ v·dt on the configuration manifold (the free joint's quaternion
-    by the exponential map with local tangents, Pinocchio semantics)."""
+    """q ⊕ v·dt on the configuration manifold (the quaternions of FREE and
+    SPHERICAL joints by the exponential map with local tangents,
+    Pinocchio semantics)."""
     out = q.clone()
-    one = [i for i in range(tree.nb) if tree.joint_type[i] == JointType.REVOLUTE]
+    one = [i for i in range(tree.nb)
+           if tree.joint_type[i] in (JointType.REVOLUTE, JointType.PRISMATIC)]
     if one:
         qi = [tree.q_off[i] for i in one]
         vi = [tree.v_off[i] for i in one]
@@ -236,4 +240,6 @@ def integrate(tree: KinematicTree, q, v, dt) -> torch.Tensor:
             dp = mv(so3.quat_to_matrix(quat), v[:, vo:vo + 3] * dt)
             out[:, qo:qo + 3] = q[:, qo:qo + 3] + dp
             out[:, qo + 3:qo + 7] = so3.quat_integrate(quat, v[:, vo + 3:vo + 6], dt)
+        elif t == JointType.SPHERICAL:
+            out[:, qo:qo + 4] = so3.quat_integrate(q[:, qo:qo + 4], v[:, vo:vo + 3], dt)
     return out

@@ -10,7 +10,8 @@ takes every field of the reference's ``KinematicTree`` as a numpy array
 and returns the port's tree. :class:`TreeBuilder` is the subset of the
 reference's builder that the port's own model builders need (moving
 bodies with their armature, damping and joint springs, fixed-body
-fusion, frames, world-anchored frames included, and contact points).
+fusion, frames, world-anchored frames included, contact points, and
+spherical flexibility joints inserted upstream of a joint).
 """
 
 from __future__ import annotations
@@ -127,21 +128,41 @@ class KinematicTree:
                 S[3:6, 0:3] = torch.eye(3, **kw)
             elif t == JointType.REVOLUTE:
                 S[0:3, 0] = self.axis[i]
+            elif t == JointType.SPHERICAL:  # v = ω local
+                S[0:3, 0:3] = torch.eye(3, **kw)
             else:
-                raise NotImplementedError(
-                    f"{t.name} joints are not ported yet (ROADMAP A.14, A.15)"
-                )
+                raise NotImplementedError(f"{t.name} joints are not ported yet (ROADMAP A.15)")
             out.append(S)
         return tuple(out)
+
+    def _sprung(self, types) -> tuple[list, list]:
+        stiff = self.stiffness.detach().cpu().numpy()
+        sprung = [i for i, t in enumerate(self.joint_type)
+                  if t in types and np.any(stiff[self.v_slice(i)] != 0)]
+        return [self.v_off[i] for i in sprung], [self.q_off[i] for i in sprung]
 
     @functools.cached_property
     def sprung_joints(self) -> tuple[list, list]:
         """(v offsets, q offsets) of the 1-DoF joints with a spring
         (nonzero stiffness), read once per tree."""
-        stiff = self.stiffness.detach().cpu().numpy()
-        one_dof = [i for i, t in enumerate(self.joint_type)
-                   if t in (JointType.REVOLUTE, JointType.PRISMATIC) and stiff[self.v_off[i]] != 0]
-        return [self.v_off[i] for i in one_dof], [self.q_off[i] for i in one_dof]
+        return self._sprung((JointType.REVOLUTE, JointType.PRISMATIC))
+
+    @functools.cached_property
+    def sprung_spherical(self) -> tuple[list, list]:
+        """(v offsets, q offsets) of the SPHERICAL joints with a spring on
+        any of their 3 dofs (the flexibility joints), read once per tree."""
+        return self._sprung((JointType.SPHERICAL,))
+
+    def neutral_q(self) -> np.ndarray:
+        """The neutral configuration (nq,) as numpy float32: identity
+        quaternions (FREE and SPHERICAL), zeros elsewhere."""
+        q = np.zeros(self.nq, np.float32)
+        for t, off in zip(self.joint_type, self.q_off):
+            if t == JointType.FREE:
+                q[off + 6] = 1.0
+            elif t == JointType.SPHERICAL:
+                q[off + 3] = 1.0
+        return q
 
     def joint_placement(self, i: int) -> Transform:
         return Transform(rot=self.jp_rot[i], pos=self.jp_pos[i])
@@ -191,12 +212,15 @@ def tree_from_arrays(
     def strs(k):
         return tuple(str(x) for x in np.asarray(d[k]).reshape(-1))
 
+    jtypes = tuple(JointType(j) for j in ints("joint_type"))
+    if JointType.PRISMATIC in jtypes:
+        raise NotImplementedError("PRISMATIC joints are not ported yet (ROADMAP A.15)")
     static = dict(
         nb=int(d["nb"]),
         nq=int(d["nq"]),
         nv=int(d["nv"]),
         parent=ints("parent"),
-        joint_type=tuple(JointType(j) for j in ints("joint_type")),
+        joint_type=jtypes,
         q_off=ints("q_off"),
         v_off=ints("v_off"),
         body_name=strs("body_name"),
@@ -314,6 +338,45 @@ class TreeBuilder:
         self.v_max.append(np.full(nvj, v_max, np.float32))
         self.u_max.append(np.full(nvj, u_max, np.float32))
         return len(self.parent) - 1
+
+    def insert_flexibility(self, joint_name: str, stiffness=100.0, damping=1.0,
+                           inertia=1e-3) -> int:
+        """Insert a 3-DoF SPHERICAL flexibility joint upstream of the named
+        joint: the new body ``<body>_flex`` takes the joint's body index,
+        parent and placement, carries the rotary ``inertia`` (no mass),
+        and a spring-damper of ``stiffness`` and ``damping`` per axis pulls
+        it to the identity (−k·log(quat)); the original body hangs off it at
+        the identity. Every body index ≥ it that the builder holds (parents,
+        frames, contact sites) shifts by one. Returns the new body's
+        index."""
+        i = self.joint_name.index(joint_name)
+        name = self.body_name[i] + "_flex"
+
+        def bump(idx: int) -> int:
+            return idx + 1 if idx >= i else idx
+
+        self.parent = [bump(p) for p in self.parent]
+        self.frame_body = [bump(b) for b in self.frame_body]
+        self.contact_body = [bump(b) for b in self.contact_body]
+
+        def per_axis(x):
+            return np.broadcast_to(np.asarray(x, np.float32), (3,)).copy()
+
+        for dst, x in (
+            (self.parent, self.parent[i]), (self.joint_type, JointType.SPHERICAL),
+            (self.jp, self.jp[i]), (self.axis, np.array([0, 0, 1], np.float32)),
+            (self.mass, 0.0), (self.com, np.zeros(3, np.float32)),
+            (self.inertia_com, np.diag(per_axis(inertia)).astype(np.float32)),
+            (self.body_name, name), (self.joint_name, name + "_joint"),
+            (self.armature, np.zeros(3, np.float32)), (self.damping, per_axis(damping)),
+            (self.stiffness, per_axis(stiffness)), (self.q_min, np.full(4, -1e6, np.float32)),
+            (self.q_max, np.full(4, 1e6, np.float32)), (self.v_max, np.full(3, 1e6, np.float32)),
+            (self.u_max, np.full(3, 1e6, np.float32)),
+        ):
+            dst.insert(i, x)
+        self.parent[i + 1] = i
+        self.jp[i + 1] = np.eye(4, dtype=np.float32)
+        return i
 
     def fuse_fixed_body(
         self, name, parent, placement, mass=0.0, com=(0.0, 0.0, 0.0),

@@ -36,8 +36,14 @@
 // `emit_pair_contact` and `_seg_seg_lane`) add one [t1, t2, n] block per
 // pair contact after the ground contacts, and sphere contact sites touch
 // at centre − r·n̂ (the site offset of `_substep_math`); both are runtime
-// branches on the header too (see `jt_pair_contact` below). No spherical
-// flexibility.
+// branches on the header too (see `jt_pair_contact` below). SPHERICAL
+// joints (spherical flexibility, B.8: a quaternion of 4 and ω local of 3)
+// take the branches of `_lane_joint_motion`, `_lane_fk`, the RNEA bias,
+// `dof_cols` and the quaternion integrate (`subspace_col`,
+// `joint_motion_of`, `jt_joint_transform`, `jt_quat_step`), and a sprung
+// one the spring branch of `_compute_tau`, −k·log(quat) (`jt_quat_log`,
+// atan2f where the TPU kernel had a polynomial), in `jt_torque`; joint
+// types are runtime branches on the packed spec as well.
 //
 // One substep (`jt_substep`, the counterpart of `_substep_math`) is, per
 // env: FK → RNEA bias with the root wrench → CRBA + armature + dt·damping
@@ -72,7 +78,9 @@
 // `_substep_flops`, with `_distance_flops` and `_spring_flops`):
 // operation-bound as well; its three self-collision capsule pairs add the
 // narrow phase and 9 rows, and the chain grows with nc (37 against 28;
-// chip_smoke.py `_pair_flops`). This
+// chip_smoke.py `_pair_flops`); its flexible twin (nb 17, nv 26, nq 29,
+// nc 28: two SPHERICAL joints above the hips) grows the columns, not the
+// rows (chip_smoke.py `_substep_flops` counts the SPHERICAL terms). This
 // design is far from that bound by choice: the TPU
 // kernel's lane-major layout (batch on the 128 vector lanes, the tree
 // unrolled into Python floats, the batch padded by repetition) does not
@@ -127,7 +135,9 @@
 #define JT_BODY_F 28
 #define JT_NQ_EXTRA 4  // nq ≤ nv + 4 (quaternion joints)
 
-enum { JT_FREE = 0, JT_REVOLUTE = 1 };
+// joint types, the codes of ops/substep_kernel.py (core/tree.py JointType);
+// PRISMATIC (2) is refused before a launch (SubstepSpec)
+enum { JT_FREE = 0, JT_REVOLUTE = 1, JT_SPHERICAL = 3 };
 enum { JT_TORQUE_NONE = 0, JT_TORQUE_PD = 1, JT_TORQUE_DIRECT = 2 };
 enum {
   JT_S_DT = 0, JT_S_ALPHA_B, JT_S_ALPHA_C_DT, JT_S_SLOP, JT_S_MAX_CORR,
@@ -286,7 +296,9 @@ __device__ __forceinline__ void motion_cross_force(const float* m, const float* 
   cross3(m, f + 3, out + 3);
 }
 
-__device__ __forceinline__ int joint_nv(int jt) { return jt == JT_FREE ? 6 : 1; }
+__device__ __forceinline__ int joint_nv(int jt) {
+  return jt == JT_FREE ? 6 : jt == JT_SPHERICAL ? 3 : 1;
+}
 
 // column c of joint i's motion subspace as (w, v)
 __device__ __forceinline__ void subspace_col(int jt, const float* axis, int c, float* col) {
@@ -294,6 +306,8 @@ __device__ __forceinline__ void subspace_col(int jt, const float* axis, int c, f
   if (jt == JT_FREE) {
     if (c < 3) col[3 + c] = 1.f;  // linear dofs (v = [v_lin, ω])
     else col[c - 3] = 1.f;        // angular dofs
+  } else if (jt == JT_SPHERICAL) {
+    col[c] = 1.f;  // v = ω local
   } else {
     for (int k = 0; k < 3; ++k) col[k] = axis[k];
   }
@@ -302,10 +316,16 @@ __device__ __forceinline__ void subspace_col(int jt, const float* axis, int c, f
 // S_i · xj as a spatial motion, xj the joint's own dofs
 __device__ __forceinline__ void joint_motion_of(const SpecView& s, int i, const float* xj,
                                                 float* out) {
-  if (s.jtype[i] == JT_FREE) {
+  const int jt = s.jtype[i];
+  if (jt == JT_FREE) {
     for (int k = 0; k < 3; ++k) {
       out[k] = xj[3 + k];
       out[3 + k] = xj[k];
+    }
+  } else if (jt == JT_SPHERICAL) {
+    for (int k = 0; k < 3; ++k) {
+      out[k] = xj[k];
+      out[3 + k] = 0.f;
     }
   } else {
     const float* axis = s.body + JT_BODY_F * i;
@@ -330,6 +350,8 @@ __device__ __forceinline__ void jt_joint_transform(const SpecView& s, int i, con
   if (s.jtype[i] == JT_FREE) {
     quat_to_m(q + qo + 3, Rj);
     for (int k = 0; k < 3; ++k) pj[k] = q[qo + k];
+  } else if (s.jtype[i] == JT_SPHERICAL) {
+    quat_to_m(q + qo, Rj);
   } else {  // Rodrigues: I + sin·K + (1 − cos)·K²
     const float c = cosf(q[qo]), sn = sinf(q[qo]);
     const float K[9] = {0.f, -bd[2], bd[1], bd[2], 0.f, -bd[0], -bd[1], bd[0], 0.f};
@@ -351,10 +373,47 @@ __device__ __forceinline__ void jt_local_pose(const SpecView& s, int i, const fl
   for (int k = 0; k < 3; ++k) p[k] = t3[k] + bd[12 + k];
 }
 
+// so3.quat_log (counterpart of `_quat_log_lane`, with atan2f in place of its
+// polynomial): the rotation vector of a unit quaternion, the shorter
+// rotation (w < 0 flips the sign), the scale 2/max(w, 1e-12) where
+// |xyz|² < 1e-14, else 2·atan2(|xyz|, |w|)/|xyz| with 1e-24 under the sqrt
+__device__ __forceinline__ void jt_quat_log(const float* q, float* rv) {
+  const float s2 = q[0] * q[0] + q[1] * q[1] + q[2] * q[2];
+  const float sh = sqrtf(s2 + 1e-24f);
+  const float w = fabsf(q[3]);
+  const float scale = s2 < 1e-14f ? 2.f / fmaxf(w, 1e-12f) : 2.f * atan2f(sh, w) / sh;
+  for (int k = 0; k < 3; ++k) rv[k] = (q[3] < 0.f ? -q[k] : q[k]) * scale;
+}
+
+// so3.quat_exp (Taylor-guarded at 0) then so3.quat_mul: qa ⊗ exp(rv)
+__device__ __forceinline__ void jt_quat_turn(const float* qa, const float* rv, float* out) {
+  const float th2 = rv[0] * rv[0] + rv[1] * rv[1] + rv[2] * rv[2];
+  const float th = sqrtf(th2 + 1e-24f);
+  const bool small = th2 < 1e-14f;
+  const float sh = small ? 0.5f - th2 / 48.f : sinf(0.5f * th) / th;
+  const float bw = small ? 1.f - th2 / 8.f : cosf(0.5f * th);
+  const float bx = rv[0] * sh, by = rv[1] * sh, bz = rv[2] * sh;
+  const float x = qa[0], y = qa[1], z = qa[2], w = qa[3];
+  out[0] = w * bx + x * bw + y * bz - z * by;
+  out[1] = w * by - x * bz + y * bw + z * bx;
+  out[2] = w * bz + x * by - y * bx + z * bw;
+  out[3] = w * bw - x * bx - y * by - z * bz;
+}
+
+// so3.quat_integrate: normalize(q ⊗ exp(ω·dt)), the step of the FREE and
+// SPHERICAL joints' quaternions (q and out may not alias)
+__device__ __forceinline__ void jt_quat_step(const float* q, const float* w_dt, float* out) {
+  float t[4];
+  jt_quat_turn(q, w_dt, t);
+  const float nrm = sqrtf(t[0] * t[0] + t[1] * t[1] + t[2] * t[2] + t[3] * t[3] + 1e-12f);
+  for (int k = 0; k < 4; ++k) out[k] = t[k] / nrm;
+}
+
 // ---- actuation torque (engine._joint_torque for a declarative controller:
 // PD or direct command → effort clamp → reduction → velocity derate →
-// dry + viscous friction, then joint damping, then the 1-DoF joint
-// springs' −k·q). With RAND, mscale is the
+// dry + viscous friction, then joint damping, then the joint springs: −k·q
+// on a 1-DoF joint, −k·log(quat) on a SPHERICAL one's 3 dofs, the
+// flexibility joints of `_compute_tau`). With RAND, mscale is the
 // env's motor tail [gain (nm) | friction scale (nm)]: the reduction times
 // the gain, the friction torque times the scale (`_compute_tau`'s order).
 __device__ __forceinline__ float sign_of(float x) { return (float)((x > 0.f) - (x < 0.f)); }
@@ -386,9 +445,18 @@ __device__ __forceinline__ void jt_torque(const SpecView& s, const float* q, con
   if (s.springs) {  // the spec's, uniform across the warp
     const float* stiff = jt_stiffness(s);
     for (int i = 0; i < s.nb; ++i) {
-      if (s.jtype[i] == JT_FREE) continue;
-      const float k = stiff[s.v_off[i]];
-      if (k != 0.f) tau[s.v_off[i]] = tau[s.v_off[i]] - k * q[s.q_off[i]];
+      const int jt = s.jtype[i], vo = s.v_off[i], qo = s.q_off[i];
+      if (jt == JT_FREE) continue;
+      if (jt == JT_SPHERICAL) {
+        if (stiff[vo] != 0.f || stiff[vo + 1] != 0.f || stiff[vo + 2] != 0.f) {
+          float rv[3];
+          jt_quat_log(q + qo, rv);
+          for (int r = 0; r < 3; ++r) tau[vo + r] = tau[vo + r] - stiff[vo + r] * rv[r];
+        }
+        continue;
+      }
+      const float k = stiff[vo];
+      if (k != 0.f) tau[vo] = tau[vo] - k * q[qo];
     }
   }
 }
@@ -1036,36 +1104,25 @@ __device__ __forceinline__ float jt_substep(
     }
   }
 
-  // ---- symplectic Euler: q ⊕ v⁺·dt
+  // ---- symplectic Euler: q ⊕ v⁺·dt (the quaternions of FREE and
+  // SPHERICAL joints by the exponential of the local increment)
   for (int i = 0; i < nb; ++i) {
-    const int qo = s.q_off[i], vo = s.v_off[i];
-    if (s.jtype[i] != JT_FREE) {
+    const int qo = s.q_off[i], vo = s.v_off[i], jt = s.jtype[i];
+    float w[3];
+    if (jt == JT_FREE) {
+      float R[9], dv[3], dp[3];
+      quat_to_m(q + qo + 3, R);
+      for (int k = 0; k < 3; ++k) dv[k] = v_next[vo + k] * dt;
+      mat3_vec(R, dv, dp);
+      for (int k = 0; k < 3; ++k) q_next[qo + k] = q[qo + k] + dp[k];
+      for (int k = 0; k < 3; ++k) w[k] = v_next[vo + 3 + k] * dt;
+      jt_quat_step(q + qo + 3, w, q_next + qo + 3);
+    } else if (jt == JT_SPHERICAL) {
+      for (int k = 0; k < 3; ++k) w[k] = v_next[vo + k] * dt;
+      jt_quat_step(q + qo, w, q_next + qo);
+    } else {
       q_next[qo] = q[qo] + v_next[vo] * dt;
-      continue;
     }
-    float R[9], dv[3], dp[3], w[3];
-    quat_to_m(q + qo + 3, R);
-    for (int k = 0; k < 3; ++k) dv[k] = v_next[vo + k] * dt;
-    mat3_vec(R, dv, dp);
-    for (int k = 0; k < 3; ++k) q_next[qo + k] = q[qo + k] + dp[k];
-    for (int k = 0; k < 3; ++k) w[k] = v_next[vo + 3 + k] * dt;
-    // exp of the local increment, Taylor-guarded at 0
-    const float th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
-    const float th = sqrtf(th2 + 1e-24f);
-    const bool small = th2 < 1e-14f;
-    const float sh = small ? 0.5f - th2 / 48.f : sinf(0.5f * th) / th;
-    const float ew = small ? 1.f - th2 / 8.f : cosf(0.5f * th);
-    const float ex = w[0] * sh, ey = w[1] * sh, ez = w[2] * sh;
-    const float x = q[qo + 3], y = q[qo + 4], z = q[qo + 5], qw = q[qo + 6];
-    const float nx = qw * ex + x * ew + y * ez - z * ey;
-    const float ny = qw * ey - x * ez + y * ew + z * ex;
-    const float nz = qw * ez + x * ey - y * ex + z * ew;
-    const float nw = qw * ew - x * ex - y * ey - z * ez;
-    const float nrm = sqrtf(nx * nx + ny * ny + nz * nz + nw * nw + 1e-12f);
-    q_next[qo + 3] = nx / nrm;
-    q_next[qo + 4] = ny / nrm;
-    q_next[qo + 5] = nz / nrm;
-    q_next[qo + 6] = nw / nrm;
   }
   return res;
 }
@@ -1128,21 +1185,6 @@ __device__ __forceinline__ void jt_matrix_to_quat(const float* R, float* out) {
   const float n = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3] + 1e-12f);
   const float sgn = q[3] >= 0.f ? 1.f : -1.f;
   for (int k = 0; k < 4; ++k) out[k] = q[k] / n * sgn;
-}
-
-// so3.quat_exp (Taylor-guarded at 0) then so3.quat_mul: qa ⊗ exp(rv)
-__device__ __forceinline__ void jt_quat_turn(const float* qa, const float* rv, float* out) {
-  const float th2 = rv[0] * rv[0] + rv[1] * rv[1] + rv[2] * rv[2];
-  const float th = sqrtf(th2 + 1e-24f);
-  const bool small = th2 < 1e-14f;
-  const float sh = small ? 0.5f - th2 / 48.f : sinf(0.5f * th) / th;
-  const float bw = small ? 1.f - th2 / 8.f : cosf(0.5f * th);
-  const float bx = rv[0] * sh, by = rv[1] * sh, bz = rv[2] * sh;
-  const float x = qa[0], y = qa[1], z = qa[2], w = qa[3];
-  out[0] = w * bx + x * bw + y * bz - z * by;
-  out[1] = w * by - x * bz + y * bw + z * bx;
-  out[2] = w * bz + x * by - y * bx + z * bw;
-  out[3] = w * bw - x * bx - y * by - z * bz;
 }
 
 // One sensor update of one env at the accepted state (q, v⁺ = v, v of the

@@ -63,13 +63,16 @@ kernels.
 Closed loops: ``constraints`` (distance constraints,
 :class:`~jiminy_tpu_torch.engine.constraints.DistanceConstraint`) are
 equality rows of every substep, stacked ahead of the joint bounds and
-contacts, on every backend. Springs on 1-DoF joints (the tree's
-``stiffness``) are part of the actuation torque (−k·q) and integrate
-implicitly with the joint damping.
+contacts, on every backend. Joint springs (the tree's ``stiffness``: −k·q
+on 1-DoF joints, −k·log(quat) on the SPHERICAL flexibility joints) are
+part of the actuation torque and integrate implicitly with the joint
+damping.
 
-Not ported yet (each raises): penalty contacts and other steppers
-(ROADMAP A.16), spherical flexibility (A.14), kinematic constraints other
-than the distance constraint (A.22).
+Contacts run as PGS rows: ``EngineOptions.contact_model`` defaults to the
+reference's ``"spring_damper"``, which the engine refuses. Not ported
+yet (each raises): penalty contacts and other steppers (ROADMAP A.16),
+PRISMATIC joints (A.15), kinematic constraints other than the distance
+constraint (A.22).
 """
 
 from __future__ import annotations
@@ -121,7 +124,8 @@ def sim_state_from_arrays(d: dict, device="cuda", dtype=torch.float32) -> SimSta
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
     """The subset of the reference's EngineOptions that the slice reads
-    (same names and defaults; of ``constraint_solver``, the port's
+    (same names and defaults, so ``contact_model="constraint"`` is asked
+    for, as the walker envs do; of ``constraint_solver``, the port's
     ``"substep"``, ``"kernel"`` and ``"inline"`` are the reference's
     ``"pallas_substep"``, ``"pallas"`` and ``"xla"``). Joint bounds always
     run as PGS rows, the reference's choice on the impulse path."""
@@ -129,7 +133,9 @@ class EngineOptions:
     solver: str = "euler_symplectic"
     dt: float = 1e-3
     contacts: ContactParams = dataclasses.field(default_factory=ContactParams)
-    contact_model: str = "constraint"
+    # "spring_damper" (penalty contacts, ROADMAP A.16: Engine refuses it)
+    # or "constraint" (contacts as PGS rows), the reference's default first
+    contact_model: str = "spring_damper"
     pgs_iters: int = 16
     pgs_relax: float = 1.0
     pgs_reg: float = 1e-6

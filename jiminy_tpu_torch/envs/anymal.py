@@ -18,10 +18,11 @@ heightmap from ``terrain_seed`` with a flat spawn disk and spawns within
 (N) turns pushes on; ``push_prob``, ``push_duration``,
 ``model_randomization`` (per-episode masses, centres of mass, inertias,
 armature, motor gains and friction, sensor offsets), ``constraints``
-(kinematic constraints, of which the distance constraint is ported) and
-``collision_pairs`` (declared body-body pairs) pass through to
-:class:`WalkerEnv`. Other options raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+(kinematic constraints, of which the distance constraint is ported),
+``collision_pairs`` (declared body-body pairs), ``min_height``,
+``max_tilt_cos`` (the termination's limits) and ``nan_guard`` pass
+through to :class:`WalkerEnv`. Other options raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from jiminy_tpu_torch.envs.locomotion import WalkerEnv, check_options
 from jiminy_tpu_torch.models.quadruped import make_anymal, stand_q
 
 _PASSED_ON = ("push_prob", "push_duration", "model_randomization", "constraints",
-              "collision_pairs")
+              "collision_pairs", "min_height", "max_tilt_cos", "nan_guard")
 
 
 class ANYmalEnv(WalkerEnv):

@@ -128,8 +128,13 @@ class BaseEnv:
         step_dt: float,
         max_steps: int = 1000,
         sensors=None,
+        nan_guard: bool = True,
     ):
+        """``nan_guard``: terminate, with zero reward and observation, any
+        env whose state goes non-finite or explodes, so that auto-reset
+        recovers it (the reference's default)."""
         self.engine = engine
+        self.nan_guard = nan_guard
         self.tree = engine.tree
         self.device = engine.device
         self.step_dt = step_dt
@@ -295,12 +300,12 @@ class BaseEnv:
         obs = self._make_obs(sim, info)
         reward = self._reward(state, action, sim)
         steps = state.steps + 1
-        # NaN guard: a non-finite or exploding env terminates with zero
-        # reward and observation, so auto-reset recovers it
-        bad = health.is_bad_state(sim)
-        terminated = self._terminated(sim, state.info) | bad
-        reward = torch.where(bad, torch.zeros_like(reward), reward)
-        obs = torch.where(bad[:, None], torch.zeros_like(obs), obs)
+        terminated = self._terminated(sim, state.info)
+        if self.nan_guard:
+            bad = health.is_bad_state(sim)
+            terminated = terminated | bad
+            reward = torch.where(bad, torch.zeros_like(reward), reward)
+            obs = torch.where(bad[:, None], torch.zeros_like(obs), obs)
         truncated = steps >= self.max_steps
         info.update(self._update_info(state, sim, state.generator))
         return state.replace(

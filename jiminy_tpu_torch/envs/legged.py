@@ -6,16 +6,20 @@ biped of :mod:`jiminy_tpu_torch.models.biped`, its two pushrod distance
 constraints rows of every substep's solve and its shin springs in the
 actuation torque; with ``self_collision=True`` the legs' capsule pairs
 (:func:`~jiminy_tpu_torch.models.biped.cassie_self_collision_pairs`, or
-``collision_pairs`` given) are contact rows of the solve too. The
-reference's defaults: 1 ms substeps, PD kp 150,
-kd 6, action scale 0.4, terminated below 0.6 m, observing through the
-pelvis IMU and the 10 motor encoders (``observe="sensors"``, sampled
-every ``sim_dt``). ``examples/train.py --env cassie`` trains it with
-``sim_dt=2e-3, target_speed=0.4``.
+``collision_pairs`` given) are contact rows of the solve too; with
+``flexibility=True`` a SPHERICAL flexibility joint sits above each hip
+roll (stiffness 600, damping 5) and an IMU on each hip (the observation
+still reads the pelvis IMU, the suite's first). The reference's defaults:
+1 ms substeps, PD kp 150, kd 6, action scale 0.4, terminated below 0.6
+m, observing through the pelvis IMU and the 10 motor encoders
+(``observe="sensors"``, sampled every ``sim_dt``). ``examples/train.py
+--env cassie`` trains it with ``sim_dt=2e-3, target_speed=0.4``,
+``--env cassie_flex`` with ``flexibility=True`` too. ``max_tilt_cos``,
+``nan_guard``, ``ground``, ``ground_sampler``, ``spawn_radius`` and the
+push and randomization options pass through to :class:`WalkerEnv`.
 
-Not ported: ``flexibility`` (ROADMAP A.14); ``AtlasEnv`` waits for A.23
-(the humanoid builder and a frame for its 83 rows), ``AntEnv`` and
-``SpotmicroEnv`` for A.15.
+Not ported: ``AtlasEnv`` waits for A.23 (the humanoid builder and a frame
+for its 83 rows), ``AntEnv`` and ``SpotmicroEnv`` for A.15.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from jiminy_tpu_torch import resolve_device
 from jiminy_tpu_torch.envs.locomotion import WalkerEnv, check_options
 from jiminy_tpu_torch.models.biped import cassie_self_collision_pairs, make_cassie
 
-_PASSED_ON = ("push_prob", "push_duration", "model_randomization", "collision_pairs")
+_PASSED_ON = ("push_prob", "push_duration", "model_randomization", "collision_pairs",
+              "max_tilt_cos", "nan_guard", "ground", "ground_sampler", "spawn_radius")
 
 
 class CassieEnv(WalkerEnv):

@@ -31,7 +31,13 @@ push hooks:
   distance constraints), handed to the engine;
 - ``collision_pairs``: declared body-body pairs
   (:class:`~jiminy_tpu_torch.engine.collision.CollisionPair`, e.g.
-  Cassie's leg capsules), handed to the engine.
+  Cassie's leg capsules), handed to the engine;
+- ``nan_guard`` (default True): an env whose state goes non-finite or
+  explodes terminates with zero reward and observation
+  (:class:`~jiminy_tpu_torch.envs.base.BaseEnv`).
+
+The engine runs contacts as PGS rows (``contact_model="constraint"``, as
+the reference's walker envs ask for).
 
 Action: (B, nm) PD target offsets around the stand pose in [-1, 1].
 Observation, ``observe="sensors"`` (the default, as in the reference):
@@ -115,6 +121,7 @@ class WalkerEnv(BaseEnv):
         model_randomization: ModelRandomization | None = None,  # per-episode draws
         constraints: tuple = (),  # kinematic constraints of the robot (closed loops)
         collision_pairs: tuple = (),  # engine.collision.CollisionPair
+        nan_guard: bool = True,  # BaseEnv: auto-reset non-finite envs
         device="cuda",
     ):
         if observe == "sensors":
@@ -141,6 +148,7 @@ class WalkerEnv(BaseEnv):
             tree,
             EngineOptions(
                 dt=sim_dt,
+                contact_model="constraint",
                 pgs_iters=pgs_iters,
                 # RL envs do not read the solver residual
                 compute_solver_residual=False,
@@ -156,7 +164,8 @@ class WalkerEnv(BaseEnv):
         suite = None
         if observe == "sensors":
             suite = sensors.to(device=engine.device, dtype=engine.tree.dtype)
-        super().__init__(engine, step_dt=step_dt, max_steps=max_steps, sensors=suite)
+        super().__init__(engine, step_dt=step_dt, max_steps=max_steps, sensors=suite,
+                         nan_guard=nan_guard)
         self.motors = engine.motors
         self.action_scale = action_scale
         self.target_speed = target_speed

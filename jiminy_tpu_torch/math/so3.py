@@ -1,8 +1,8 @@
 """SO(3) / quaternion operations on batched tensors.
 
 Counterpart of ``jiminy_tpu/math/so3.py``, the functions that the
-rigid-body algorithms, ``integrate``, the observations and the sensors
-use.
+rigid-body algorithms, ``integrate``, the springs of the flexibility
+joints (``quat_log``), the observations and the sensors use.
 Quaternions are scalar-last ``(x, y, z, w)`` as in the reference
 (Pinocchio's layout). Every function works on any leading batch shape:
 quaternions are ``(..., 4)``, vectors ``(..., 3)`` and matrices
@@ -67,6 +67,20 @@ def quat_exp(w: torch.Tensor) -> torch.Tensor:
     sinc_half = torch.where(small, 0.5 - theta_sq / 48.0, torch.sin(half) / theta)
     cos_half = torch.where(small, 1.0 - theta_sq / 8.0, torch.cos(half))
     return torch.cat([w * sinc_half[..., None], cos_half[..., None]], dim=-1)
+
+
+def quat_log(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) → rotation vector (..., 3): the shorter
+    rotation (q and −q are one rotation, so w < 0 flips the sign), and
+    the small-angle scale 2/w where |xyz|² < 1e-14."""
+    sin_half_sq = torch.sum(q[..., :3] * q[..., :3], dim=-1)
+    sin_half = torch.sqrt(sin_half_sq + 1e-24)
+    w = torch.abs(q[..., 3])
+    vec = torch.where((q[..., 3] < 0.0)[..., None], -q[..., :3], q[..., :3])
+    angle = 2.0 * torch.atan2(sin_half, w)
+    small = sin_half_sq < 1e-14
+    scale = torch.where(small, 2.0 / torch.clamp(w, min=1e-12), angle / sin_half)
+    return vec * scale[..., None]
 
 
 def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:

@@ -12,9 +12,9 @@ contact points). A rigid pushrod (a :class:`DistanceConstraint`) ties the
 thigh to the tarsus, so knee motion drives the tarsus through the loop.
 :func:`cassie_self_collision_pairs` declares the legs' self-collision
 pairs (left against right thigh, shin and tarsus capsules).
-
-Not ported: the hip flexibility joints (``flexibility=True``, ROADMAP
-A.14).
+``flexibility=True`` inserts a 3-DoF SPHERICAL flexibility joint (a
+spring-damper toward the identity, −k·log(quat)) upstream of each hip
+roll and mounts an IMU on each hip-roll body, below it.
 """
 
 from __future__ import annotations
@@ -44,8 +44,10 @@ MOTOR_JOINTS = tuple(
 )
 
 
-def _build_tree(device, dtype) -> tuple[KinematicTree, dict]:
-    """The tree and each side's pushrod frames (thigh, tarsus)."""
+def _build_tree(device, dtype, flexibility=False, flex_stiffness=600.0,
+                flex_damping=5.0) -> tuple[KinematicTree, dict]:
+    """The tree and each side's pushrod frames (thigh, tarsus); with
+    ``flexibility`` the hip IMU frames and the two flexibility joints."""
     place = TreeBuilder.make_placement
     b = TreeBuilder()
     pelvis = b.add_body("pelvis", -1, JointType.FREE, mass=10.0, inertia=np.diag([0.1] * 3),
@@ -98,6 +100,12 @@ def _build_tree(device, dtype) -> tuple[KinematicTree, dict]:
         )
         b.add_contact_point(f"{side}_toe_front", foot, (_FOOT_HALF, 0, -0.02))
         b.add_contact_point(f"{side}_toe_back", foot, (-_FOOT_HALF, 0, -0.02))
+        if flexibility:  # an IMU on the hip, below its flexibility joint
+            b.add_frame(f"{side}_hip_imu", hip_r)
+    if flexibility:
+        for side in ("L", "R"):
+            b.insert_flexibility(f"{side}_hip_roll", stiffness=flex_stiffness,
+                                 damping=flex_damping, inertia=1e-3)
     return b.build(device=device, dtype=dtype), rod_frames
 
 
@@ -122,6 +130,8 @@ def make_cassie(
     imu_noise: float = 0.0,
     encoder_noise: float = 0.0,
     flexibility: bool = False,
+    flex_stiffness: float = 600.0,
+    flex_damping: float = 5.0,
     device="cuda",
     dtype=torch.float32,
 ) -> tuple[KinematicTree, Motors, SensorSuite, tuple, np.ndarray]:
@@ -132,17 +142,15 @@ def make_cassie(
     so that the lowest toe point sits 2 mm above z = 0. The sensors,
     sampled every ``sensor_period`` s: one IMU on the pelvis and the 10
     motor joints' encoders (``sensor_delay``; Gaussian noise of std
-    ``imu_noise`` and ``encoder_noise``). The stand pose and the rod
-    lengths are computed in float32, as the reference computes them."""
-    if flexibility:
-        raise NotImplementedError(
-            "make_cassie(flexibility=True): spherical flexibility joints are not ported yet "
-            "(ROADMAP A.14, B.8)"
-        )
-    tree, rod_frames = _build_tree(device, dtype)
+    ``imu_noise`` and ``encoder_noise``). With ``flexibility`` a SPHERICAL
+    flexibility joint of stiffness ``flex_stiffness`` and damping
+    ``flex_damping`` per axis (inertia 1e-3) above each hip roll, and an
+    IMU on each hip-roll body after the encoders (the suite's IMU group:
+    pelvis, L hip, R hip). The stand pose and the rod lengths are computed
+    in float32, as the reference computes them."""
+    tree, rod_frames = _build_tree(device, dtype, flexibility, flex_stiffness, flex_damping)
     t32 = tree.to(dtype=torch.float32)
-    q = np.zeros(tree.nq, np.float32)
-    q[6] = 1.0  # identity quaternion of the free base (xyzw)
+    q = tree.neutral_q()  # identity quaternions: the base and the flexibility joints
     for side in ("L", "R"):
         for key, value in _STAND.items():
             q[tree.q_off[tree.joint_index(f"{side}_{key}")]] = value
@@ -172,5 +180,8 @@ def make_cassie(
     specs = [imu_spec("pelvis_frame", delay=sensor_delay, noise_std=imu_noise)] + [
         encoder_spec(j, delay=sensor_delay, noise_std=encoder_noise) for j in MOTOR_JOINTS
     ]
+    if flexibility:
+        specs += [imu_spec(f"{side}_hip_imu", delay=sensor_delay, noise_std=imu_noise)
+                  for side in ("L", "R")]
     sensors = SensorSuite.build(tree, specs, sensor_period)
     return tree, motors, sensors, tuple(constraints), q

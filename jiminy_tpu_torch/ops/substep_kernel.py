@@ -55,9 +55,11 @@ the nominal tree.
 
 Closed loops: the engine's distance constraints are rows of their own,
 one equality block each, ahead of the bounds (``SubstepSpec(...,
-dist_constraints=)``). Joint springs on 1-DoF joints (stiffness k) integrate
-implicitly: −k·q in the actuation torque, dt²·k on M's diagonal and
-−dt·k·v in the free-motion torque (the τ a step returns is the first).
+dist_constraints=)``). Joint springs (stiffness k per dof) integrate
+implicitly: −k·q on a 1-DoF joint and −k·log(quat) on a SPHERICAL one
+(the flexibility joints, 3 dofs each) in the actuation torque, dt²·k on
+M's diagonal and −dt·k·v in the free-motion torque (the τ a step
+returns is the first).
 
 Contact sites may be spheres (``tree.contact_radius`` > 0): the site
 touches at centre − r·n̂, the normal taken at the centre's xy
@@ -68,9 +70,11 @@ the ground contacts, each pair one PGS color with its own friction; the
 kernels run the three narrow phases (``seg``, ``ptbox``, ``ptseg``)
 in-kernel.
 
+Joints: FREE, REVOLUTE and SPHERICAL (a quaternion of 4 and ω local
+of 3; the kernels' frame takes nq ≤ nv + 4).
+
 Out of scope (each raises, naming its ROADMAP item): other steppers and
-the penalty contact model (A.16), springs on spherical joints (A.14,
-B.8), joints other than FREE and REVOLUTE (A.14, A.15), kinematic
+the penalty contact model (A.16), PRISMATIC joints (A.15), kinematic
 constraints other than the distance constraint (A.22).
 """
 
@@ -93,6 +97,7 @@ from jiminy_tpu_torch.engine.randomization import Inertials
 from jiminy_tpu_torch.engine.solver import BlockSpec
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.hardware.sensors import SensorSuite
+from jiminy_tpu_torch.math import so3
 # a module, not its names: the engine package imports this module while
 # ops.constraint_solve may still be importing the engine's PGS solver
 from jiminy_tpu_torch.ops import constraint_solve as chain
@@ -207,7 +212,8 @@ class SubstepSpec:
             )
         if options.contact_model != "constraint":
             raise NotImplementedError(
-                "only contact_model='constraint' is ported (ROADMAP A.16)"
+                f"contact_model={options.contact_model!r}: penalty contacts are not ported yet "
+                "(ROADMAP A.16); contacts run as PGS rows with contact_model='constraint'"
             )
         if not isinstance(ground, (FlatGround, HeightmapGround, *ANALYTIC)):
             raise TypeError(f"unknown ground {type(ground).__name__}")
@@ -220,17 +226,9 @@ class SubstepSpec:
                     f"{type(c).__name__} is not ported yet: of the kinematic constraints "
                     "only DistanceConstraint is (ROADMAP A.22)"
                 )
+        if JointType.PRISMATIC in tree.joint_type:
+            raise NotImplementedError("PRISMATIC joints are not ported yet (ROADMAP A.15)")
         stiff = tree.stiffness.detach().cpu().numpy()
-        if any(t == JointType.SPHERICAL and np.any(stiff[tree.v_slice(i)] != 0)
-               for i, t in enumerate(tree.joint_type)):
-            raise NotImplementedError(
-                "springs on spherical joints (flexibility) are not ported yet (ROADMAP A.14, B.8)"
-            )
-        bad = [t for t in tree.joint_type if t not in (JointType.FREE, JointType.REVOLUTE)]
-        if bad:
-            raise NotImplementedError(
-                f"{JointType(bad[0]).name} joints are not ported yet (ROADMAP A.14, A.15)"
-            )
         if torque is not None and motors is None:
             raise ValueError("a TorqueSpec needs the motor bank")
         self.tree = tree
@@ -549,14 +547,20 @@ class SensorKernelSpec:
 
 
 def with_springs(tree: KinematicTree, q, tau):
-    """τ (B, nv) with the 1-DoF joint springs' −k·q added (the
-    reference's ``_spring_torques`` on REVOLUTE and PRISMATIC joints);
-    τ itself when the tree has none."""
+    """τ (B, nv) with the joint springs added (the reference's
+    ``_spring_torques``): −k·q on the sprung 1-DoF joints, −k·log(quat)
+    on the 3 dofs of each sprung SPHERICAL joint (the flexibility
+    joints); τ itself when the tree has none."""
     vo, qo = tree.sprung_joints
-    if not vo:
+    svo, sqo = tree.sprung_spherical
+    if not (vo or svo):
         return tau
     tau = tau.clone()
-    tau[:, vo] = tau[:, vo] - tree.stiffness[vo] * q[:, qo]
+    if vo:
+        tau[:, vo] = tau[:, vo] - tree.stiffness[vo] * q[:, qo]
+    for v0, q0 in zip(svo, sqo):
+        sl = slice(v0, v0 + 3)
+        tau[:, sl] = tau[:, sl] - tree.stiffness[sl] * so3.quat_log(q[:, q0:q0 + 4])
     return tau
 
 

@@ -3,16 +3,19 @@
     python -m jiminy_tpu_torch.tools.profile_env_step [--env anymal|cassie]
         [--batch 4096] [--steps 5] [--solver auto|substep|kernel|inline]
         [--observe state|sensors] [--terrain flat|fourier|perlin|perlin_grid|stairs]
-        [--push N] [--push-duration S] [--randomize R] [--self-collision]
+        [--push N] [--push-duration S] [--randomize R] [--self-collision] [--flexibility]
 
 ``--env cassie`` runs ``CassieEnv(sim_dt=2e-3, target_speed=0.4)``
 (``examples/train.py --env cassie``: 10 substeps of 2 ms, the pushrods
 and shin springs; flat ground, ``--terrain`` must stay flat), with
 ``--observe sensors`` at ``cassie_sensors_run``'s sensing (delay 0.004
 s, noise 0.02 / 0.005), ``--push 50 --push-duration 0.2`` for
-``cassie_push_robust_run``'s pushes and ``--self-collision`` for the
+``cassie_push_robust_run``'s pushes, ``--self-collision`` for the
 legs' self-collision pairs (``examples/train.py --env cassie
---self-collision``, ``cassie_selfcol_run5``). The rest is about ANYmal:
+--self-collision``, ``cassie_selfcol_run5``) and ``--flexibility`` for
+the flexible hips (``examples/train.py --env cassie_flex``,
+``cassie_flex_run5``: a SPHERICAL flexibility joint above each hip roll).
+The rest is about ANYmal:
 
 Runs ``ANYmalEnv(observe="state", device="cuda")`` (by default on its
 main path, ``constraint_solver="auto"``, which is the fused whole-substep
@@ -59,9 +62,11 @@ def main() -> None:
                     help="model randomization half-range R (0: none)")
     ap.add_argument("--self-collision", action="store_true",
                     help="Cassie with its self-collision pairs")
+    ap.add_argument("--flexibility", action="store_true",
+                    help="Cassie with its flexible hips")
     args = ap.parse_args()
-    if args.self_collision and args.env != "cassie":
-        raise SystemExit("profile_env_step: --self-collision is Cassie's")
+    if (args.self_collision or args.flexibility) and args.env != "cassie":
+        raise SystemExit("profile_env_step: --self-collision and --flexibility are Cassie's")
     if not torch.cuda.is_available():
         raise SystemExit("profile_env_step: no CUDA GPU available")
     from torch.autograd import DeviceType
@@ -83,7 +88,8 @@ def main() -> None:
         env = CassieEnv(observe=args.observe, sim_dt=2e-3, target_speed=0.4, pgs_iters=8,
                         constraint_solver=args.solver, push_magnitude=args.push,
                         push_duration=args.push_duration, model_randomization=randomization,
-                        self_collision=args.self_collision, device=dev, **sensors)
+                        self_collision=args.self_collision, flexibility=args.flexibility,
+                        device=dev, **sensors)
     else:
         env = ANYmalEnv(observe=args.observe, step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
                         constraint_solver=args.solver, terrain=args.terrain,
@@ -132,6 +138,7 @@ def main() -> None:
         "push_magnitude": args.push,
         "randomize": r,
         "self_collision": args.self_collision,
+        "flexibility": args.flexibility,
         "wall_ms_per_env_step": 1e3 * wall / n,
         "device_busy_ms_per_env_step": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - (busy_us / 1e6) / wall,

@@ -26,8 +26,10 @@
   its default): the loops hold within 1e-3 over 15 env steps and stand;
   a knee command moves the tarsus through the loop by > 0.01 rad.
 - The sensor stage's caps hold for Cassie's suite at 2 ms and 1 ms.
-- ``flexibility`` (A.14) raises; ``self_collision`` builds (A.13, held in
-  tests/test_torch_pair_substep.py and tests/test_torch_cassie_selfcol_env.py).
+- ``flexibility`` (A.14) builds the reference's flexible tree (held in
+  tests/test_torch_flex.py and tests/test_torch_flex_env.py);
+  ``self_collision`` builds (A.13, held in tests/test_torch_pair_substep.py
+  and tests/test_torch_cassie_selfcol_env.py).
 """
 
 from __future__ import annotations
@@ -104,13 +106,23 @@ def test_make_cassie_matches_reference(ref):
         assert tuple(g.target) == tuple(h.target) and g.buf_len == h.buf_len
         np.testing.assert_array_equal(np.asarray(g.delay), np.asarray(h.delay))
         np.testing.assert_array_equal(g.noise_std.numpy(), np.asarray(h.noise_std))
-    with pytest.raises(NotImplementedError, match="A.14"):
-        make_cassie(flexibility=True, device="cpu")
+    # the flexible model (A.14) builds, the reference's to the bit
+    # (field for field with its sensors and motors in tests/test_torch_flex.py)
+    jflex = j_make_cassie(flexibility=True, **SENSOR_KW)[0].tree
+    flex = make_cassie(flexibility=True, device="cpu", **SENSOR_KW)[0]
+    want = tree_from_arrays(
+        {k: np.asarray(getattr(jflex, k)) for k in STATIC_FIELDS + ARRAY_FIELDS}, device="cpu")
+    assert (flex.nb, flex.nv, flex.nq) == (17, 26, 29)
+    for k in STATIC_FIELDS:
+        assert getattr(flex, k) == getattr(want, k), k
+    for k in ARRAY_FIELDS:
+        torch.testing.assert_close(getattr(flex, k), getattr(want, k), atol=0, rtol=0)
 
 
 def _port_engine(ref, solver, dtype):
     _, _, _, tree, motors, pcons = ref
-    opts = EngineOptions(dt=DT, pgs_iters=8, compute_solver_residual=True,
+    opts = EngineOptions(contact_model="constraint", dt=DT, pgs_iters=8,
+                         compute_solver_residual=True,
                          constraint_solver=solver)
     return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
                   controller=PDController(KP, KD), constraints=pcons, device="cpu")
@@ -324,7 +336,10 @@ def test_sensor_stage_caps_hold(sim_dt):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A.14"):
-        CassieEnv(flexibility=True, device="cpu")
+    # flexibility (A.14) is ported: the env builds on the flexible model,
+    # within the whole-substep kernels' caps, and observes 29 floats
+    env = CassieEnv(flexibility=True, observe="state", device="cpu")
+    assert env.engine.backend == "substep" and env.tree.nv == 26 and env.engine.nc == 28
+    assert env.reset(torch.Generator().manual_seed(0), 2).obs.shape == (2, 29)
     with pytest.raises(NotImplementedError, match="A.17"):
         CassieEnv(reward_fn=object(), device="cpu")

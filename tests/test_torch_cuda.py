@@ -134,7 +134,8 @@ def _anymal_engine(dev, fusion=True):
     from jiminy_tpu_torch.models.quadruped import make_anymal
 
     tree, motors, _ = make_anymal(device=dev)
-    opts = EngineOptions(dt=5e-3, pgs_iters=8, constraint_solver="substep",
+    opts = EngineOptions(contact_model="constraint", dt=5e-3, pgs_iters=8,
+                         constraint_solver="substep",
                          substep_fusion=fusion)
     return Engine(tree, opts, motors=motors, controller=PDController(80.0, 2.0), device=dev)
 
@@ -374,7 +375,8 @@ def _ground_setup(kind, seed, B, dev, sensors=False):
     gc = torch.as_tensor(gc, dtype=torch.float32, device=dev)
     tree, motors, suite = make_anymal(device=dev, sensor_period=5e-3, sensor_delay=0.004,
                                       imu_noise=0.02, encoder_noise=0.005)
-    opts = EngineOptions(dt=5e-3, pgs_iters=8, constraint_solver="substep")
+    opts = EngineOptions(contact_model="constraint", dt=5e-3, pgs_iters=8,
+                         constraint_solver="substep")
     eng = Engine(tree, opts, motors=motors, controller=PDController(80.0, 2.0),
                  ground=make(gc[0]), device=dev)
     q, v, cmd, lam0, wrench = _substep_inputs(seed, B, eng)
@@ -655,14 +657,15 @@ def test_sim2real_env_is_one_fused_launch(cuda_device):
 
 # ---- Cassie (pushrod closed loops, shin springs; the large frame)
 
-def _cassie_engine(dev, dtype=torch.float32, fusion=True, pairs=()):
+def _cassie_engine(dev, dtype=torch.float32, fusion=True, pairs=(), flexibility=False):
     from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
     from jiminy_tpu_torch.models.biped import make_cassie
 
     tree, motors, suite, rods, stand = make_cassie(sensor_period=2e-3, sensor_delay=0.004,
                                                    imu_noise=0.02, encoder_noise=0.005,
-                                                   device=dev)
-    opts = EngineOptions(dt=2e-3, pgs_iters=8, constraint_solver="substep", substep_fusion=fusion)
+                                                   flexibility=flexibility, device=dev)
+    opts = EngineOptions(contact_model="constraint", dt=2e-3, pgs_iters=8,
+                         constraint_solver="substep", substep_fusion=fusion)
     eng = Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
                  controller=PDController(150.0, 6.0), constraints=rods, collision_pairs=pairs,
                  device=dev)
@@ -672,7 +675,9 @@ def _cassie_engine(dev, dtype=torch.float32, fusion=True, pairs=()):
 def _cassie_inputs(seed, B, engine, stand):
     """Stand poses with the motor joints and springs ±0.05 rad (the loops
     open by millimetres), the base 1 cm low to 0.5 cm high, PD targets,
-    λ0 ≥ 0 and a root wrench, made with numpy."""
+    λ0 ≥ 0 and a root wrench, made with numpy; on the flexible-hip model
+    each hip quaternion turned U(0, 0.5) rad about a random axis, a
+    quarter of them negated (w < 0) and an eighth the identity."""
     rng = np.random.default_rng(seed)
     t = engine.tree
     q = np.tile(stand, (B, 1)).astype(np.float64)
@@ -680,6 +685,14 @@ def _cassie_inputs(seed, B, engine, stand):
     q[:, qi] += rng.uniform(-0.05, 0.05, (B, 10))
     q[:, [t.q_off[t.joint_index(n)] for n in ("L_shin_spring", "R_shin_spring")]] += \
         rng.uniform(-0.05, 0.05, (B, 2))
+    for qo in t.sprung_spherical[1]:
+        axis = rng.standard_normal((B, 3))
+        axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+        half = 0.5 * rng.uniform(0.0, 0.5, B)[:, None]
+        quat = np.concatenate([axis * np.sin(half), np.cos(half)], 1)
+        quat[rng.uniform(size=B) < 0.25] *= -1.0
+        quat[: max(1, B // 8)] = [0.0, 0.0, 0.0, 1.0]
+        q[:, qo:qo + 4] = quat
     q[:, 2] += rng.uniform(-0.01, 0.005, B)
     arrays = (
         q, 0.3 * rng.standard_normal((B, t.nv)), q[:, qi] + rng.uniform(-0.1, 0.1, (B, 10)),
@@ -781,7 +794,8 @@ def test_world_anchored_loop_k3_matches_plain_version(cuda_device):
                mass=1.0, com=(0, 0, -1))
     f1 = b.add_frame("tip1", 0, place((0, 0, -1)))
     f2 = b.add_frame("anchor", -1, place((0.5, 0, -1)))
-    eng = Engine(b.build(device=cuda_device), EngineOptions(dt=1e-3, constraint_solver="substep"),
+    eng = Engine(b.build(device=cuda_device), EngineOptions(contact_model="constraint", dt=1e-3,
+                                                            constraint_solver="substep"),
                  constraints=(DistanceConstraint(f1, f2, 0.6, 20.0),), device=cuda_device)
     rng = np.random.default_rng(33)
     B = 1000
@@ -922,7 +936,8 @@ def test_forest_pairs_k3_matches_plain_version(cuda_device):
                                Capsule("ball_b", (0, 0, -0.06), (0, 0, 0.06), 0.03),
                                friction=0.7))
         return Engine(b.build(device=cuda_device, dtype=dtype),
-                      EngineOptions(dt=1e-3, constraint_solver="substep"), collision_pairs=pairs,
+                      EngineOptions(contact_model="constraint", dt=1e-3,
+                                    constraint_solver="substep"), collision_pairs=pairs,
                       device=cuda_device)
 
     eng, eng64 = forest(torch.float32), forest(torch.float64)
@@ -991,7 +1006,8 @@ def _sphere_engine(dev, dtype=torch.float32, ground=None):
     d = {k: getattr(tree, k) for k in STATIC_FIELDS + ARRAY_FIELDS}
     d = {k: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for k, x in d.items()}
     d["contact_radius"] = np.full(tree.ncp, 0.02, np.float32)
-    opts = EngineOptions(dt=5e-3, pgs_iters=8, constraint_solver="substep")
+    opts = EngineOptions(contact_model="constraint", dt=5e-3, pgs_iters=8,
+                         constraint_solver="substep")
     return Engine(tree_from_arrays(d, device=dev, dtype=dtype), opts,
                   motors=motors.to(dtype=dtype), controller=PDController(80.0, 2.0),
                   ground=ground, device=dev)
@@ -1049,6 +1065,91 @@ def test_selfcol_env_is_one_fused_launch(cuda_device, path):
           "push": dict(observe="state", push_magnitude=50.0, push_duration=0.2)}[path]
     env = CassieEnv(sim_dt=2e-3, target_speed=0.4, self_collision=True, device=cuda_device, **kw)
     assert env.engine.nc == 37 and env.engine.backend == "substep"
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
+    names = [(solve_batched, "launches"), (substep_batched, "launches"),
+             (substep_batched_multi, "launches"), (substep_batched_multi, "sensor_launches")]
+    before = [getattr(fn, n) for fn, n in names]
+    for _ in range(3):
+        state = env.step(state, torch.zeros(256, 10, device=cuda_device))
+    launched = [getattr(fn, n) - b for (fn, n), b in zip(names, before)]
+    assert launched == ([0, 0, 0, 3] if path == "sensors" else [0, 0, 3, 0])
+    assert bool(torch.isfinite(state.obs).all()) and state.obs.shape == (256, 29)
+
+
+# ---- spherical flexibility (B.8): the flexible-hip Cassie
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 1000])
+@pytest.mark.parametrize("kernel", ["substep", "substep_multi", "substep_multi_sensors"])
+def test_flex_kernels_match_plain_versions(cuda_device, kernel, B):
+    """K3, K2 and K2 with the sensor stage (the pelvis and both hip IMUs)
+    on the flexible-hip Cassie spec over one substep, from states with the
+    hips deflected (every branch of the spring's log): the torque within
+    1e-4 of its size, q, v, λ and the impulses held to the float64 plain
+    version by their distribution, the sensor variant's physics K2's."""
+    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
+
+    eng, suite, stand = _cassie_engine(cuda_device, flexibility=True)
+    eng64, suite64, _ = _cassie_engine(cuda_device, torch.float64, flexibility=True)
+    spec = eng.substep_spec
+    assert spec.tree.nv == 26 and spec.nc == 28
+    q, v, cmd, lam0, wrench = args = _cassie_inputs(60, B, eng, stand)
+    a64 = [x.double() for x in args]
+    if kernel == "substep":
+        tau = eng._joint_torque(cmd, q, v)
+        out = substep_batched(spec, q, v, tau, lam0, wrench)
+        p32 = substep_reference(spec, q, v, tau, lam0, wrench)
+        p64 = substep_reference(eng64.substep_spec, a64[0], a64[1], tau.double(), a64[3], a64[4])
+    else:
+        sw, sw64 = {}, {}
+        if kernel == "substep_multi_sensors":
+            gen = torch.Generator(device=cuda_device).manual_seed(61)
+            bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B), q, v))
+            eps = suite.sample_eps(gen, B)
+            sw = dict(sensors=SensorKernelSpec(eng.tree, suite, 1), bufs=bufs, eps=eps)
+            sw64 = dict(sensors=SensorKernelSpec(eng64.tree, suite64, 1), bufs=bufs.double(),
+                        eps=eps.double())
+        out = substep_batched_multi(spec, 1, *args, **sw)
+        p32 = substep_multi_reference(spec, 1, *args, **sw)
+        p64 = substep_multi_reference(eng64.substep_spec, 1, *a64, **sw64)
+        tau_scale = max(1.0, p32[6].abs().max().item())
+        torch.testing.assert_close(out[6], p32[6], atol=ATOL * tau_scale, rtol=0)
+        if sw:
+            bare = substep_batched_multi(spec, 1, *args)
+            assert all(torch.equal(out[i], bare[i]) for i in range(7))
+    torch.cuda.synchronize()
+    for i, name in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+        _assert_distribution_vs_f64(f"{kernel} {name}", out[i], p32[i], p64[i])
+
+
+@pytest.mark.cuda
+def test_flex_k2_carries_lambda_across_substeps(cuda_device):
+    """On the flexible-hip spec, K2 over ten substeps equals ten chained
+    K2 launches of one substep, bit for bit."""
+    eng, _, stand = _cassie_engine(cuda_device, flexibility=True)
+    spec = eng.substep_spec
+    q, v, cmd, lam, wrench = args = _cassie_inputs(62, 256, eng, stand)
+    whole = substep_batched_multi(spec, 10, *args)
+    for _ in range(10):
+        out = substep_batched_multi(spec, 1, q, v, cmd, lam, wrench)
+        q, v, lam = out[:3]
+    for i in range(7):
+        assert torch.equal(whole[i], out[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["state", "sensors", "push"])
+def test_flex_env_is_one_fused_launch(cuda_device, path):
+    """CassieEnv(sim_dt=2e-3, target_speed=0.4, flexibility=True) on the
+    state, sensor and push paths: one K2 launch per env step (with the
+    sensor stage on the sensor path), and no other kernel."""
+    from jiminy_tpu_torch.envs import CassieEnv
+
+    kw = {"state": dict(observe="state"),
+          "sensors": dict(observe="sensors", sensor_delay=0.004, imu_noise=0.02,
+                          encoder_noise=0.005),
+          "push": dict(observe="state", push_magnitude=50.0, push_duration=0.2)}[path]
+    env = CassieEnv(sim_dt=2e-3, target_speed=0.4, flexibility=True, device=cuda_device, **kw)
     state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
     names = [(solve_batched, "launches"), (substep_batched, "launches"),
              (substep_batched_multi, "launches"), (substep_batched_multi, "sensor_launches")]

@@ -18,8 +18,10 @@ is built by both packages' ``TreeBuilder`` and held field for field.
 - 1-DoF joint springs: ``TreeBuilder(stiffness=)``, the actuation torque
   −k·q on Cassie against the reference engine's ``_joint_torque``, and a
   sprung pendulum's period.
-- The engine refuses the other kinematic constraints (ROADMAP A.22) and
-  ``SubstepSpec`` springs on spherical joints (A.14).
+- The engine refuses the other kinematic constraints (ROADMAP A.22);
+  ``SubstepSpec`` takes springs on spherical joints (A.14, held in
+  tests/test_torch_flex.py) and a tree with a prismatic joint raises
+  (A.15).
 """
 
 from __future__ import annotations
@@ -149,7 +151,8 @@ def test_closed_loop_distance_maintained(world_anchor):
     q0 = torch.tensor([[0.3, 0.3]])
     d0 = float(_tip_distance(tree, DistanceConstraint(f1, f2), q0)[0])
     c = DistanceConstraint(f1, f2, distance=d0 if world_anchor else 0.5, baumgarte_freq=20.0)
-    eng = Engine(tree, EngineOptions(dt=DT), constraints=(c,), device="cpu")
+    eng = Engine(tree, EngineOptions(contact_model="constraint", dt=DT), constraints=(c,),
+                 device="cpu")
     assert eng.backend == "substep" and eng.nc == 1
     st = eng.reset(q0)
     st = eng.step(st, torch.zeros(1, 2), n_substeps=1000)  # no motors: u is the joint torque
@@ -183,7 +186,8 @@ def test_loop_substep_matches_reference_in_f64(world_anchor):
     ref = jax.jit(jax.vmap(lambda s: jeng.step(s, jnp.zeros(2))))(states)
     pc = DistanceConstraint(f1, f2, float(np.float32(0.5)), 20.0)
     for solver in ("substep", "kernel", "inline"):
-        eng = Engine(tree, EngineOptions(dt=DT, constraint_solver=solver,
+        eng = Engine(tree, EngineOptions(contact_model="constraint", dt=DT,
+                                         constraint_solver=solver,
                                          compute_solver_residual=True),
                      constraints=(pc,), device="cpu")
         st = eng.reset(torch.as_tensor(q), torch.as_tensor(v))
@@ -239,11 +243,12 @@ def test_spring_torque_matches_reference():
 
     taus = []
     for ctrl in (PDController(150.0, 6.0), pd):
-        eng = Engine(tree, EngineOptions(dt=2e-3), motors=motors, controller=ctrl, device="cpu")
+        eng = Engine(tree, EngineOptions(contact_model="constraint", dt=2e-3), motors=motors,
+                     controller=ctrl, device="cpu")
         taus.append(eng._joint_torque(ut, qt, vt))
         np.testing.assert_allclose(taus[-1].numpy(), ref, atol=2e-4, rtol=1e-6)
     unsprung = dataclasses.replace(tree, stiffness=torch.zeros_like(tree.stiffness))
-    eng0 = Engine(unsprung, EngineOptions(dt=2e-3), motors=motors,
+    eng0 = Engine(unsprung, EngineOptions(contact_model="constraint", dt=2e-3), motors=motors,
                   controller=PDController(150.0, 6.0), device="cpu")
     d = taus[0] - eng0._joint_torque(ut, qt, vt)
     names = ("L_shin_spring", "R_shin_spring")
@@ -264,7 +269,7 @@ def test_sprung_pendulum_period():
                stiffness=2.0, q_limits=(-3.0, 3.0))  # a bounds row: the solve has one row
     b.add_frame("rotor_frame", 0)
     tree = b.build(device="cpu", dtype=torch.float64)
-    eng = Engine(tree, EngineOptions(dt=DT), device="cpu")
+    eng = Engine(tree, EngineOptions(contact_model="constraint", dt=DT), device="cpu")
     st = eng.reset(torch.tensor([[0.1]], dtype=torch.float64))
     period = 2 * np.pi * np.sqrt(0.02 / 2.0)
     u = torch.zeros(1, 1, dtype=torch.float64)
@@ -277,10 +282,19 @@ def test_sprung_pendulum_period():
 def test_other_constraints_and_spherical_springs_raise():
     tree = _trees(False)[1]
     with pytest.raises(NotImplementedError, match="A.22"):
-        Engine(tree, EngineOptions(dt=DT), constraints=(object(),), device="cpu")
+        Engine(tree, EngineOptions(contact_model="constraint", dt=DT), constraints=(object(),),
+               device="cpu")
+    # springs on spherical joints (A.14, B.8) are ported: the spec takes
+    # them, its stiffness packed for the kernels; prismatic joints (A.15)
+    # still raise
     b = TreeBuilder()
     b.add_body("ball", -1, JointType.SPHERICAL, mass=1.0, inertia=(0.1, 0.1, 0.1),
                stiffness=10.0)
     b.add_frame("ball_frame", 0)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        SubstepSpec(b.build(device="cpu"), EngineOptions(), FlatGround())
+    spec = SubstepSpec(b.build(device="cpu"), EngineOptions(contact_model="constraint"),
+                       FlatGround())
+    assert spec.springs and spec.tree.sprung_spherical == ([0], [0])
+    assert spec.packed("cpu")[1][-3:].tolist() == [10.0] * 3
+    b.add_body("slider", 0, JointType.PRISMATIC, mass=1.0)
+    with pytest.raises(NotImplementedError, match="A.15"):
+        b.build(device="cpu")

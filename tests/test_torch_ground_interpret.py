@@ -74,7 +74,8 @@ def test_multi_reference_matches_pallas_kernel_on_fourier_ground():
         {k: np.asarray(getattr(jrobot.motors, k)) for k in MOTOR_FIELDS}, device="cpu"
     )
     eng = Engine(
-        tree, EngineOptions(dt=DT, pgs_iters=4, compute_solver_residual=True),
+        tree, EngineOptions(contact_model="constraint", dt=DT, pgs_iters=4,
+                            compute_solver_residual=True),
         motors=motors, controller=PDController(60.0, 2.0),
         ground=FourierGround(torch.as_tensor(gc[0])), device="cpu",
     )

@@ -160,7 +160,8 @@ def _jax_step(jrobot, kind, gc, arrays, n_substeps, dtype):
 
 
 def _port_engine(tree, motors, kind, gc, solver, dtype):
-    opts = EngineOptions(dt=DT, pgs_iters=8, compute_solver_residual=True,
+    opts = EngineOptions(contact_model="constraint", dt=DT, pgs_iters=8,
+                         compute_solver_residual=True,
                          constraint_solver=solver)
     return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
                   controller=PDController(KP, KD),
@@ -257,11 +258,13 @@ def test_heightmap_runs_the_chain_kernel_path(robot):
     _, tree, motors = robot
     hm = perlin_ground(seed=1, size=3.0, resolution=0.1, amplitude=0.08, wavelength=1.5,
                        device="cpu")
-    eng = Engine(tree, EngineOptions(dt=DT), motors=motors, controller=PDController(KP, KD),
+    eng = Engine(tree, EngineOptions(contact_model="constraint", dt=DT), motors=motors,
+                 controller=PDController(KP, KD),
                  ground=hm, device="cpu")
     assert eng.backend == "kernel" and eng.substep_spec.n_gc == 0
     with pytest.raises(ValueError, match="heightmap"):
-        Engine(tree, EngineOptions(dt=DT, constraint_solver="substep"), motors=motors,
+        Engine(tree, EngineOptions(contact_model="constraint", dt=DT, constraint_solver="substep"),
+               motors=motors,
                controller=PDController(KP, KD), ground=hm, device="cpu")
     assert not eng._kernel_ground_ok(perlin_ground(seed=1, size=3.0, device="cpu"))
     q = torch.as_tensor(np.tile(j_stand_q(j_make_anymal().tree), (B, 1)), dtype=torch.float32)

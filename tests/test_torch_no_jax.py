@@ -12,7 +12,8 @@ paths, and on the terrain and push env (per-env Fourier ground, fused
 and chunked; the ``"perlin_grid"`` heightmap), on the sim-to-real
 env with model randomization (fused and chunked), and on the Cassie env
 (pushrod closed loops and shin springs) on the state path and the
-sensor path fused and chunked, with the self-collision pairs too. The
+sensor path fused and chunked, with the self-collision pairs too, and
+the flexible-hip Cassie on the state path and the fused sensor path. The
 modules that hold kernels, the sensor suite, the grounds, the terrain
 generators, the random processes, the model randomization, the
 constraints, the collision pairs, the biped and its env are named,
@@ -97,11 +98,13 @@ for fused in (True, False):
     assert bool(torch.isfinite(st.obs).all()) and "model_params" in st.info
 from jiminy_tpu_torch.envs import CassieEnv
 
-for observe, fused, pairs in (("state", False, False), ("sensors", True, False),
-                              ("sensors", False, False), ("state", False, True),
-                              ("sensors", True, True)):
+for observe, fused, pairs, flex in (("state", False, False, False), ("sensors", True, False, False),
+                                    ("sensors", False, False, False), ("state", False, True, False),
+                                    ("sensors", True, True, False), ("state", False, False, True),
+                                    ("sensors", True, False, True)):
     env = CassieEnv(sim_dt=2e-3, target_speed=0.4, observe=observe, sensor_delay=0.004,
-                    imu_noise=0.02, encoder_noise=0.005, self_collision=pairs, device="cpu")
+                    imu_noise=0.02, encoder_noise=0.005, self_collision=pairs, flexibility=flex,
+                    device="cpu")
     env._fused_sensors = fused
     st = env.reset(torch.Generator().manual_seed(0), 2)
     st = env.step(st, torch.zeros(2, 10))

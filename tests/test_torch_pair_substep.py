@@ -103,7 +103,8 @@ def _port_engine(case, solver, dtype=torch.float64):
     motors = case.get("motors")
     return Engine(
         case["tree"].to(dtype=dtype),
-        EngineOptions(dt=case["dt"], pgs_iters=8, compute_solver_residual=True,
+        EngineOptions(contact_model="constraint", dt=case["dt"], pgs_iters=8,
+                      compute_solver_residual=True,
                       constraint_solver=solver),
         ground=case.get("ground"), motors=motors.to(dtype=dtype) if motors else None,
         controller=PDController(*case["pd"]) if case.get("pd") else None,
@@ -351,7 +352,8 @@ def test_collision_pairs_need_constraint_contacts():
     same = pc.CollisionPair(pc.Sphere("robot0/ball_a", (0, 0, 0), 0.1),
                             pc.Sphere("robot0/ball_a", (0.1, 0, 0), 0.1))
     with pytest.raises(ValueError, match="same body"):
-        Engine(case["tree"], EngineOptions(), collision_pairs=(same,), device="cpu")
+        Engine(case["tree"], EngineOptions(contact_model="constraint"), collision_pairs=(same,),
+               device="cpu")
 
 
 def test_sphere_sites_pack_their_radii():

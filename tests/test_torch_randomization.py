@@ -181,7 +181,8 @@ def test_packed_row_matches_reference(robot):
         JEngineOptions(contact_model="constraint", constraint_solver="pallas_substep", dt=5e-3),
         motors=jrobot.motors, controller=JPDController(80.0, 2.0),
     )
-    eng = Engine(tree, EngineOptions(dt=5e-3), motors=motors, controller=PDController(80.0, 2.0),
+    eng = Engine(tree, EngineOptions(contact_model="constraint", dt=5e-3), motors=motors,
+                 controller=PDController(80.0, 2.0),
                  device="cpu")
     spec = eng.substep_spec
     assert spec.n_mp == 10 * tree.nb + tree.nv + 2 * motors.nm == 172

@@ -171,7 +171,8 @@ def _jax_step(jrobot, gc, params, arrays, dtype=jnp.float64):
 
 
 def _port_engine(tree, motors, gc, solver, dtype, fusion=True):
-    opts = EngineOptions(dt=DT, pgs_iters=8, compute_solver_residual=True,
+    opts = EngineOptions(contact_model="constraint", dt=DT, pgs_iters=8,
+                         compute_solver_residual=True,
                          constraint_solver=solver, substep_fusion=fusion)
     ground = pg.FourierGround(torch.as_tensor(gc[0], dtype=dtype)) if gc is not None else None
     return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),

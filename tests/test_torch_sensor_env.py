@@ -273,7 +273,8 @@ def test_engine_k_obs2_fused_equals_chunked():
     update, on the same eps."""
     tree, motors, suite = make_anymal(device="cpu", sensor_period=1e-2, sensor_delay=0.01,
                                       imu_noise=0.02, encoder_noise=0.005)
-    eng = Engine(tree, EngineOptions(dt=5e-3, pgs_iters=8, compute_solver_residual=False),
+    eng = Engine(tree, EngineOptions(contact_model="constraint", dt=5e-3, pgs_iters=8,
+                                     compute_solver_residual=False),
                  motors=motors, controller=PDController(80.0, 2.0), device="cpu")
     assert eng.sensor_fusion_ready(suite, 4, 2) and not eng.sensor_fusion_ready(suite, 3, 2)
     gen = torch.Generator().manual_seed(6)

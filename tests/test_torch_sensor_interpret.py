@@ -50,7 +50,8 @@ def test_sensor_multi_reference_matches_pallas_kernel():
     jspec = copy.copy(jeng._substep_spec)
     jspec.sensors = JSensorKernelSpec(jrobot.tree, jrobot.sensors, 1)
     tree, motors, suite = make_anymal(device="cpu", **SENSORS)
-    eng = Engine(tree, EngineOptions(dt=DT, pgs_iters=8, compute_solver_residual=False),
+    eng = Engine(tree, EngineOptions(contact_model="constraint", dt=DT, pgs_iters=8,
+                                     compute_solver_residual=False),
                  motors=motors, controller=PDController(80.0, 2.0), device="cpu")
     sens = SensorKernelSpec(eng.tree, suite, 1)
     assert (sens.n_buf, sens.n_eps) == (jspec.sensors.n_buf, jspec.sensors.n_eps) == (150, 57)

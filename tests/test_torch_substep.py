@@ -136,6 +136,7 @@ def _jax_step(jrobot, arrays, n_substeps, dtype):
 
 def _port_engine(tree, motors, solver, dtype, fusion=True):
     opts = EngineOptions(
+        contact_model="constraint",
         dt=DT, pgs_iters=8, compute_solver_residual=True,
         constraint_solver=solver, substep_fusion=fusion,
     )
@@ -259,7 +260,8 @@ def test_direct_command_spec_matches_reference(robot):
         JEngineOptions(contact_model="constraint", constraint_solver="pallas_substep", dt=DT),
         motors=jrobot.motors,
     )
-    eng = Engine(tree, EngineOptions(dt=DT), motors=motors, device="cpu")
+    eng = Engine(tree, EngineOptions(contact_model="constraint", dt=DT), motors=motors,
+                 device="cpu")
     ref, port = jeng._substep_spec.torque, eng.substep_spec.torque
     assert port.mode == ref.mode == "direct"
     assert port.kp is None and ref.kp is None
@@ -271,7 +273,7 @@ def test_auto_picks_the_whole_substep_kernel(robot):
     kernels for a model within their caps, as the reference's ``"auto"``
     does on the accelerator; the env inherits the choice."""
     _, tree, motors = robot
-    eng = Engine(tree, EngineOptions(dt=DT), motors=motors,
+    eng = Engine(tree, EngineOptions(contact_model="constraint", dt=DT), motors=motors,
                  controller=PDController(KP, KD), device="cpu")
     assert eng.options.constraint_solver == "auto"
     assert eng.backend == "substep"
@@ -303,17 +305,20 @@ def test_auto_falls_back_beyond_the_kernel_caps():
     does not either (nv 33 > 32); an explicit ``"substep"`` raises at
     construction."""
     nb = MAX_NV - 5  # nv = 6 + (nb − 1)
-    small = Engine(_chain_tree(nb), EngineOptions(dt=DT), device="cpu")
+    small = Engine(_chain_tree(nb), EngineOptions(contact_model="constraint", dt=DT), device="cpu")
     assert small.tree.nv == MAX_NV and small.backend == "substep"
     big = _chain_tree(nb + 1)
-    assert Engine(big, EngineOptions(dt=DT), device="cpu").backend == "inline"
+    assert Engine(big, EngineOptions(contact_model="constraint", dt=DT),
+                  device="cpu").backend == "inline"
     with pytest.raises(ValueError, match="caps"):
-        Engine(big, EngineOptions(dt=DT, constraint_solver="substep"), device="cpu")
+        Engine(big, EngineOptions(contact_model="constraint", dt=DT, constraint_solver="substep"),
+               device="cpu")
     b = TreeBuilder()
     for i in range(5):
         b.add_frame(f"ball{i}", b.add_body(f"ball{i}", -1, JointType.FREE, mass=1.0,
                                            inertia=(1e-2, 1e-2, 1e-2)))
-    forest = Engine(b.build(device="cpu"), EngineOptions(dt=DT), device="cpu")
+    forest = Engine(b.build(device="cpu"), EngineOptions(contact_model="constraint", dt=DT),
+                    device="cpu")
     assert (forest.tree.nv, forest.tree.nq) == (30, 35) and forest.backend == "kernel"
 
 
@@ -330,7 +335,8 @@ def test_auto_takes_the_plain_physics_beyond_48_rows():
     tree, motors, _, rods, stand = make_cassie(device="cpu")
     boxes = (CollisionPair(Box("L_thigh", (0, 0, -0.17), (0.04, 0.04, 0.17)),
                            Box("R_thigh", (0, 0, -0.17), (0.04, 0.04, 0.17))),)
-    eng = Engine(tree, EngineOptions(dt=2e-3, pgs_iters=8), motors=motors,
+    eng = Engine(tree, EngineOptions(contact_model="constraint", dt=2e-3, pgs_iters=8),
+                 motors=motors,
                  controller=PDController(150.0, 6.0), constraints=rods, collision_pairs=boxes,
                  device="cpu")
     assert eng.substep_spec.n_pc == 16 and eng.nc == 28 + 48 and eng.backend == "inline"
@@ -354,7 +360,7 @@ def test_opaque_controller_matches_declarative_pd(robot):
         qm, vm = m64.joint_state(qq, vv)
         return KP * (cmd - qm) - KD * vm
 
-    opts = EngineOptions(dt=DT, pgs_iters=8, substep_fusion=False)
+    opts = EngineOptions(contact_model="constraint", dt=DT, pgs_iters=8, substep_fusion=False)
     declarative = _port_engine(tree, motors, "auto", torch.float64)
     opaque = Engine(tree.to(dtype=torch.float64), opts, motors=m64, controller=pd, device="cpu")
     assert opaque.substep_spec.torque is None and declarative.substep_spec.torque is not None
@@ -404,11 +410,14 @@ def test_out_of_scope_raises(robot):
         height = 0.0
 
     with pytest.raises(TypeError, match="unknown ground"):
-        SubstepSpec(tree, EngineOptions(), Stairs())
+        SubstepSpec(tree, EngineOptions(contact_model="constraint"), Stairs())
     with pytest.raises(NotImplementedError, match="A.16"):
-        SubstepSpec(tree, EngineOptions(solver="runge_kutta_4"), FlatGround())
+        SubstepSpec(tree, EngineOptions(contact_model="constraint", solver="runge_kutta_4"),
+                    FlatGround())
     with pytest.raises(ValueError, match="unknown constraint_solver"):
-        Engine(tree, EngineOptions(constraint_solver="pallas"), device="cpu")
-    spec = SubstepSpec(tree, EngineOptions(), FlatGround())  # no torque path
+        Engine(tree, EngineOptions(contact_model="constraint", constraint_solver="pallas"),
+               device="cpu")
+    spec = SubstepSpec(tree, EngineOptions(contact_model="constraint"),
+                       FlatGround())  # no torque path
     with pytest.raises(ValueError, match="torque"):
         substep_batched_multi(spec, 4, *[torch.zeros(1, 1)] * 5)
