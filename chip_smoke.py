@@ -43,7 +43,17 @@ imports nothing of JAX and nothing of ``jiminy_tpu``. The kernels:
   ``cassie_flex_substep_multi_sensors``, ``cassie_flex_substep``): the
   SPHERICAL joints' branches and the springs' −k·log(quat)
   (`jt_quat_log`, `jt_quat_step`), runtime branches on the packed joint
-  types.
+  types;
+- the same kernels with PRISMATIC joints (B.10: the slider's subspace [0;
+  axis] and transform (I, axis·q), `JT_PRISMATIC`): on the cartpole
+  (``cartpole_substep_multi``, ``cartpole_substep``) and on the
+  reference's PRISMATIC kernel scene (``prismatic_slab_substep_multi``,
+  ``prismatic_slab_substep``: tests/test_box_pairs.py's sprung slab and
+  free cube with their box pair, nc 48);
+- K2 and K2 with the sensor stage on the Ant and the Spotmicro
+  (``ant_substep_multi``, ``ant_substep_multi_sensors``,
+  ``spotmicro_substep_multi``, ``spotmicro_substep_multi_sensors``: 20
+  substeps per env step; the Ant's sensor update every second substep).
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -191,8 +201,30 @@ Phases (any failure raises and the script exits non-zero):
    sphere-site kernels against their bounds (`_pair_flops` counted); the
    flexible paths' rates (exactly one launch per timed env step) and its
    K2, K2 with sensors and K3 against their bounds (`_JOINT`'s SPHERICAL
-   terms counted); the bound of K3 on ``make_cartpole()``'s sizes for
-   the PRISMATIC branches still to port (`_cartpole_k3_counts`).
+   terms counted).
+
+Phases 1–3 of PRISMATIC joints and of the Ant and Spotmicro (A.15 with
+B.10) run between the ANYmal parts and the Cassie parts, the slab scene
+(the large frame) last:
+- phase 1, `phase_prismatic_vs_plain`: K3, K2 at n_sub = 1 and over a
+  step's substeps, and the randomized K3 and K2, env by env against the
+  float64 plain version (`_gate_vs_f64`) on the cartpole (a third of the
+  carts at a limit, the share whose bound row binds printed, a quarter
+  asked) and on the slab scene with its slider along z and along the
+  oblique (0.6, 0, 0.8) (the share of envs with an active pair row
+  printed, a quarter asked);
+- phase 2: the cartpole and the slab scene through ``Engine.step`` (one
+  K2 launch per step, the carts held at their limits, the cube resting on
+  the slab), and with ``substep_fusion=False`` (K3, one launch per
+  substep); ``AntEnv()`` and ``SpotmicroEnv()`` on the state and sensor
+  paths, 25 env steps each with exactly one K2 launch per step, the state
+  path's env step substep by substep against the inline engine in
+  float32 and float64 (`_gate_vs_f64`), the sensor path's fused step
+  bit-equal to the chunked one;
+- phase 3: the four walker paths' env-steps/s (exactly one launch per
+  timed step) and the slab scene's steps/s; K2 with the sensor stage's
+  first update held to float64 on each walker; the eight kernels against
+  their bounds and plain versions.
 
 The Cassie parts of phases 1–3 run last, after every ANYmal number: once
 a kernel in the large frame has run, the process keeps its local memory
@@ -2067,27 +2099,269 @@ def phase_flex_vs_plain(dev) -> dict:
     return worst
 
 
-def _cartpole_k3_counts(B) -> tuple[int, int]:
-    """(bytes, operations) of K3 on the sizes of the reference's
-    ``make_cartpole()`` (jiminy_tpu/models/toys.py: a PRISMATIC cart along
-    x bounded to ±2.4 m, a REVOLUTE pole; nb 2, nq = nv = 2, no contact
-    site, no motor) with ``EngineOptions(contact_model="constraint")``
-    (16 sweeps, the residual): one bounds row, nc 1. The port cannot
-    build the model yet (PRISMATIC joints, ROADMAP A.15), so its spec is
-    written out here for the counting rules of `_substep_flops` and
-    `_substep_bytes`; the packed spec, 19 ints and 78 floats by
-    csrc/substep.cuh's layout, is counted once."""
-    from types import SimpleNamespace
+# ---- B.10 (PRISMATIC joints, A.15): the reference's PRISMATIC kernel
+# scene (tests/test_box_pairs.py `test_box_pair_kernel_matches_xla`), a
+# twin of it whose slider is oblique, and the cartpole
 
-    from jiminy_tpu_torch.ops.constraint_solve import SolveConfig
+SLAB_DT, SLAB_ITERS, SLAB_SUBSTEPS = 1e-3, 8, 6  # tests/test_box_pairs.py:201-225
+OBLIQUE_AXIS = (0.6, 0.0, 0.8)  # the twin's slider: both halves and two axis components
+CARTPOLE_SUBSTEPS = 20  # a 20 ms env step at EngineOptions' default 1 ms
+CART_LIMIT = 2.4  # make_cartpole()'s x_limit, m
 
-    tree = SimpleNamespace(nb=2, nq=2, nv=2, parent=(-1, 0), joint_type=(2, 1), contact_body=())
-    cfg = SolveConfig(n=2, nc=1, dt=1e-3, eq_blocks=(), bounds_span=(0, 1), contact_colors=(),
-                      iters=16, compute_residual=True)
-    spec = SimpleNamespace(tree=tree, bounded_joints=[0], dist_constraints=[], springs=False,
-                           pairs=None, contact_radius=[], ground_mode="flat", cfg=cfg)
-    per_env = (2 + 2 * 2 + 1 + 6) + (2 + 2 + 1 + 1)
-    return 4 * B * per_env + 4 * (19 + 78), B * _substep_flops(spec)
+
+@functools.cache
+def _slab_model(dev, axis=(0.0, 0.0, 1.0)):
+    """(tree, motors, pairs) of tests/test_box_pairs.py's
+    `_slab_and_free_body` with its ptbox pair (friction 0.8): a stiff-sprung
+    PRISMATIC slab along ``axis`` (100 kg, stiffness 1e7, damping 1e4) and a
+    FREE 1 kg cube; nb 2, nq 8, nv 7, 16 pair contacts, nc 48 (the large
+    frame). A direct motor on the slider without friction: a zero command
+    is the reference test's zero torque, and the torque path is
+    declarative, so ``Engine.step`` is one K2 launch."""
+    import numpy as np
+
+    from jiminy_tpu_torch.core.tree import JointType, TreeBuilder
+    from jiminy_tpu_torch.engine.collision import Box, CollisionPair
+    from jiminy_tpu_torch.hardware.motors import Motors
+
+    b = TreeBuilder()
+    b.add_body("slab", -1, JointType.PRISMATIC, axis=axis, mass=100.0, com=(0, 0, 0.05),
+               inertia=np.diag([10.0] * 3), joint_name="slab_z", stiffness=1e7, damping=1e4)
+    b.add_body("cube", -1, JointType.FREE, mass=1.0, inertia=np.diag([0.004] * 3),
+               joint_name="cube_root")
+    pair = CollisionPair(Box("slab", (0, 0, 0.05), (0.3, 0.3, 0.05)),
+                         Box("cube", (0, 0, 0), (0.1, 0.1, 0.1)), friction=0.8)
+    return b.build(device=dev), Motors.create([0], names=["slab_z"], device=dev), (pair,)
+
+
+def _slab_engine(dev, dtype=torch.float32, axis=(0.0, 0.0, 1.0), fusion=True,
+                 solver="substep"):
+    """The slab scene's engine (1 ms, 8 sweeps, the residual), float64 on
+    the float32 model's constants."""
+    from jiminy_tpu_torch.engine import Engine, EngineOptions
+
+    tree, motors, pairs = _slab_model(dev, axis)
+    opts = EngineOptions(contact_model="constraint", dt=SLAB_DT, pgs_iters=SLAB_ITERS,
+                         substep_fusion=fusion, constraint_solver=solver)
+    return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
+                  collision_pairs=pairs, device=dev)
+
+
+def _slab_inputs(engine, gen, B):
+    """States around the reference test's landing (`tests/test_box_pairs.py:211-223`:
+    the cube at z 0.203 over the slab's face at 0.1, lateral speed (−0.3,
+    0.2) scaled 0.5–1.5): the cube at z 0.197–0.207 (its face 3 mm in to 7
+    mm above, the margin 5 mm), xy ±0.1 m, tilted up to ~0.06 rad, falling
+    at 0–0.3 m/s and turning at ~0.5 rad/s; the slab 1e-4 m ± 1e-4 m below
+    its spring's rest (its sag under the two bodies' weight) at ~0.01 m/s;
+    λ0 ≥ 0, a motor command of ±50 N, a root (slab) wrench of ~5 N·m and
+    ~20 N."""
+    dev, t = engine.device, engine.tree
+    kw = dict(generator=gen, device=dev)
+    q = torch.zeros(B, t.nq, device=dev)
+    q[:, 0] = -1e-4 + 2e-4 * torch.rand(B, **kw) - 1e-4
+    q[:, 1:3] = 0.2 * torch.rand(B, 2, **kw) - 0.1
+    q[:, 3] = 0.197 + 0.01 * torch.rand(B, **kw)
+    quat = torch.cat([0.06 * torch.rand(B, 3, **kw) - 0.03, torch.ones(B, 1, device=dev)], 1)
+    q[:, 4:8] = quat / quat.norm(dim=1, keepdim=True)
+    scale = 0.5 + torch.rand(B, **kw)
+    v = torch.zeros(B, t.nv, device=dev)
+    v[:, 0] = 0.01 * torch.randn(B, **kw)
+    v[:, 1], v[:, 2] = -0.3 * scale, 0.2 * scale
+    v[:, 3] = -0.3 * torch.rand(B, **kw)
+    v[:, 4:7] = 0.5 * torch.randn(B, 3, **kw)
+    cmd = 100.0 * torch.rand(B, 1, **kw) - 50.0
+    lam0 = (0.05 * torch.randn(B, engine.nc, **kw)).abs()
+    wrench = torch.cat([5.0 * torch.randn(B, 3, **kw), 20.0 * torch.randn(B, 3, **kw)], 1)
+    return q, v, cmd, lam0, wrench
+
+
+def _cartpole_engine(dev, dtype=torch.float32, fusion=True, solver="substep"):
+    """``make_cartpole()`` under ``EngineOptions(contact_model="constraint")``
+    (1 ms, 16 sweeps, the residual): the cart's ±2.4 m limits one PGS
+    bound row (nc 1), a direct motor on the slider (effort 30, the
+    reference CartPoleEnv's force), so that the step is one K2 launch."""
+    from jiminy_tpu_torch.engine import Engine, EngineOptions
+    from jiminy_tpu_torch.hardware.motors import Motors
+    from jiminy_tpu_torch.models.toys import make_cartpole
+
+    opts = EngineOptions(contact_model="constraint", substep_fusion=fusion,
+                         constraint_solver=solver)
+    motors = Motors.create([0], names=["slider"], effort_limit=30.0, device=dev)
+    return Engine(make_cartpole(device=dev, dtype=dtype), opts, motors=motors.to(dtype=dtype),
+                  device=dev)
+
+
+def _cartpole_inputs(engine, gen, B):
+    """Cartpole states: the cart over ±2.6 m, in a third of the envs
+    within 2 mm of a limit (either side) moving outward at 0.5–2.5 m/s, so
+    that the bound row binds; the pole ±0.5 rad at ~1 rad/s; λ0 ≥ 0; a
+    command of ±40 N (past the effort limit in a quarter of the envs)."""
+    dev = engine.device
+    kw = dict(generator=gen, device=dev)
+    q = torch.cat([5.2 * torch.rand(B, 1, **kw) - 2.6, torch.rand(B, 1, **kw) - 0.5], 1)
+    v = torch.randn(B, 2, **kw)
+    n = B // 3
+    side = torch.where(torch.rand(n, **kw) < 0.5, -1.0, 1.0)
+    q[:n, 0] = side * (CART_LIMIT + 0.004 * torch.rand(n, **kw) - 0.002)
+    v[:n, 0] = side * (0.5 + 2.0 * torch.rand(n, **kw))
+    cmd = 80.0 * torch.rand(B, 1, **kw) - 40.0
+    lam0 = (0.05 * torch.randn(B, engine.nc, **kw)).abs()
+    return q, v, cmd, lam0, torch.zeros(B, 6, device=dev)
+
+
+def _prismatic_case(dev, name, gen):
+    """(engine, float64 engine, inputs, the n_sub of a step, the inputs'
+    shares) of the B.10 case ``name``: "slab", "oblique" or "cartpole"."""
+    if name == "cartpole":
+        eng, eng64 = _cartpole_engine(dev), _cartpole_engine(dev, torch.float64)
+        args = _cartpole_inputs(eng, gen, B_MAIN)
+        return eng, eng64, args, CARTPOLE_SUBSTEPS, {}
+    axis = OBLIQUE_AXIS if name == "oblique" else (0.0, 0.0, 1.0)
+    eng, eng64 = _slab_engine(dev, axis=axis), _slab_engine(dev, torch.float64, axis=axis)
+    args = _slab_inputs(eng, gen, B_MAIN)
+    spring = (1e7 * args[0][:, 0]).abs()
+    shares = {"active_pair_row": _active_pair_share(eng, args[0]),
+              "slider_spring_force_mean_N": spring.mean().item()}
+    return eng, eng64, args, SLAB_SUBSTEPS, shares
+
+
+def phase_prismatic_vs_plain(dev, names) -> dict:
+    """The PRISMATIC branches (B.10) in K3 and K2, nominal and randomized,
+    against their plain versions on each case of ``names`` at B = 4096:
+    K3, K2 at n_sub = 1 and K2 over a step's substeps (6 on the slab
+    scenes, 20 on the cartpole), nominal, and K3 and K2 at n_sub = 1 with
+    each env's model parameters (`_rand_params`), each held env by env
+    against the float64 plain version by `_gate_vs_f64` on q, v and λ. The
+    shares of envs with an active pair row (the slab scenes) and with the
+    slider's bound row binding (its λ nonzero, the cartpole) are printed
+    and a quarter is asked of each. Returns each kernel's worst |kernel −
+    plain f32| per case."""
+    from jiminy_tpu_torch.ops.substep_kernel import (
+        substep_batched,
+        substep_batched_multi,
+        substep_multi_reference,
+        substep_reference,
+        unpack_model_params,
+    )
+
+    worst = {}
+    for name in names:
+        gen = torch.Generator(device=dev).manual_seed(70 + len(worst))
+        eng, eng64, args, n_step, shares = _prismatic_case(dev, name, gen)
+        spec, spec64 = eng.substep_spec, eng64.substep_spec
+        q, v, cmd, lam0, wrench = args
+        a64 = [x.double() for x in args]
+        mp = _rand_params(eng, gen, B_MAIN)
+        gates, errs = {}, {}
+        before = _counts()
+        for rand in (False, True):
+            m, m64, pre = (mp, mp.double(), "rand ") if rand else (None, None, "")
+            tau = eng._joint_torque(cmd, q, v, unpack_model_params(spec, m)[1] if rand else None)
+            runs = {pre + "K3": (
+                substep_batched(spec, q, v, tau, lam0, wrench, mp=m),
+                substep_reference(spec, q, v, tau, lam0, wrench, mp=m),
+                substep_reference(spec64, a64[0], a64[1], tau.double(), a64[3], a64[4], mp=m64))}
+            for n in ((1,) if rand else (1, n_step)):
+                runs[f"{pre}K2 n_sub={n}"] = (
+                    substep_batched_multi(spec, n, *args, mp=m),
+                    substep_multi_reference(spec, n, *args, mp=m),
+                    substep_multi_reference(spec64, n, *a64, mp=m64))
+            for kname, (k, p32, p64) in runs.items():
+                errs[kname] = max(_max_err(k[i], p32[i]) for i in range(3))
+                gates[kname] = {f: _gate_vs_f64(f"{name} {kname} {f}", k[i], p32[i], p64[i])
+                                for i, f in ((0, "q"), (1, "v"), (2, "lam"))}
+            if not rand and name == "cartpole":
+                shares["bound_row_binding"] = float((runs["K3"][2][2][:, 0] != 0).double().mean())
+                shares["at_or_past_limit"] = float((q[:, 0].abs() >= CART_LIMIT - 0.01)
+                                                   .double().mean())
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+        print(f"[phase 1] B.10 {name} (nb {spec.tree.nb}, nv {spec.tree.nv}, nc {spec.nc}, "
+              f"axis {spec.tree.axis[0].tolist()}) B={B_MAIN}: shares {json.dumps(shares)}; max "
+              f"|kernel − plain f32| {json.dumps(errs)}; launches {json.dumps(launched)}; vs the "
+              f"f64 plain version: " + json.dumps(gates))
+        share = shares.get("bound_row_binding", shares.get("active_pair_row"))
+        if share < 0.25:
+            raise AssertionError(f"B.10 {name}: the inputs engage the rows in too few envs {shares}")
+        if launched != {"substep": 1, "substep_multi": 2, "rand_substep": 1,
+                        "rand_substep_multi": 1}:
+            raise AssertionError(f"B.10 {name}: unexpected launches {launched}")
+        stem = "cartpole" if name == "cartpole" else f"prismatic_{name}"
+        worst[f"{stem}_substep"] = max(errs["K3"], errs["rand K3"])
+        worst[f"{stem}_substep_multi"] = max(errs["K2 n_sub=1"], errs[f"K2 n_sub={n_step}"],
+                                             errs["rand K2 n_sub=1"])
+    return worst
+
+
+def _prismatic_path(dev, name, steps, fusion=True):
+    """``steps`` engine steps of the B.10 case ``name`` at B = 4096
+    through ``Engine.step`` (6 substeps of 1 ms on the slab scene, 20 on
+    the cartpole with its motor pushing outward at the limit) from fresh
+    inputs, the counts set to 0 just before and read just after. Returns
+    (the launches, the last state, the engine)."""
+    gen = torch.Generator(device=dev).manual_seed(80)
+    if name == "cartpole":
+        eng, n_sub = _cartpole_engine(dev, fusion=fusion), CARTPOLE_SUBSTEPS
+        q, v, cmd, _, _ = _cartpole_inputs(eng, gen, B_MAIN)
+        cmd = 30.0 * torch.sign(q[:, :1])  # full force toward the nearer limit
+    else:
+        eng, n_sub = _slab_engine(dev, fusion=fusion), SLAB_SUBSTEPS
+        q, v, _, _, _ = _slab_inputs(eng, gen, B_MAIN)
+        cmd = torch.zeros(B_MAIN, 1, device=dev)  # the reference test's zero torque
+    sim = eng.reset(q, v)
+    torch.cuda.synchronize()
+    _reset_counts()
+    for _ in range(steps):
+        sim = eng.step(sim, cmd, n_substeps=n_sub)
+    torch.cuda.synchronize()
+    got = _counts()
+    if not (bool(torch.isfinite(sim.q).all()) and bool(torch.isfinite(sim.v).all())):
+        raise AssertionError(f"non-finite state on the B.10 {name} path")
+    return got, sim, eng
+
+
+# ---- A.15's walkers: AntEnv (ant_run, ant_sensors_run5) and SpotmicroEnv
+# (spotmicro_run, spotmicro_sensors_run) as examples/train.py builds them:
+# the reference's defaults, 20 substeps per env step, the ANYmal frame
+WALKERS = ("ant", "spotmicro")
+
+
+def _walker_env(name, dev, **kw):
+    from jiminy_tpu_torch.envs import AntEnv, SpotmicroEnv
+
+    return {"ant": AntEnv, "spotmicro": SpotmicroEnv}[name](device=dev, **kw)
+
+
+def _ab_walker_substeps(env, state, act_gen, dev, kw, label):
+    """One env step of a walker's state path from its own state, substep
+    by substep, each substep feeding K2 (one launch at n_sub = 1) and the
+    inline plain engine in float32 and float64 the same inputs: K2 held to
+    the float64 engine env by env by `_gate_vs_f64` on q, v and λ. Prints
+    each quantity's worst distances over the substeps."""
+    inline = type(env)(constraint_solver="inline", device=dev, **kw)
+    inline64 = type(env)(constraint_solver="inline", dtype=torch.float64, device=dev, **kw)
+    u = env._action_to_command(_uniform(act_gen, dev, env.motors.nm), state.sim)
+    sim, worst = state.sim, {}
+    before = _counts()
+    for i in range(env.n_substeps):
+        nk = env.engine.step(sim, u, n_substeps=1)
+        ni = inline.engine.step(sim, u, n_substeps=1)
+        n64 = inline64.engine.step(_as_f64(state.replace(sim=sim)).sim, u.double(), n_substeps=1)
+        for f in ("q", "v", "lam"):
+            g = _gate_vs_f64(f"{label} K2 substep {i} {f}", getattr(nk, f), getattr(ni, f),
+                             getattr(n64, f))
+            w = worst.setdefault(f, dict.fromkeys(g, 0))
+            for key, x in g.items():
+                w[key] = max(w[key], x)
+        sim = nk
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+    print(f"[phase 2] {label}, one env step, K2 substep by substep vs the inline engine in f32 "
+          f"and f64 on the same inputs, launches {json.dumps(launched)}; the worst over the "
+          f"{env.n_substeps} substeps: " + json.dumps(worst))
+    if launched != {"substep_multi": env.n_substeps}:
+        raise AssertionError(f"{label}: unexpected launches {launched}")
 
 
 def _as_f64(state):
@@ -2650,6 +2924,143 @@ def run(dev) -> None:
                   "jiminy_tpu/ops/substep_kernel.py:507", path[launched_by[name]][name],
                   ms, plain_ms, n_bytes, n_ops)
 
+    # ---- A.15 with B.10 in the ANYmal frame, before any large-frame launch
+    # (see "Cassie, last" below): the cartpole's kernels and engine paths,
+    # then the Ant and Spotmicro env paths and their numbers
+    main_err.update(phase_prismatic_vs_plain(dev, ("cartpole",)))
+    path["cartpole engine path"], sim_cp, eng_cp = _prismatic_path(dev, "cartpole", 5)
+    x = sim_cp.q[:, 0].abs()
+    print(f"[phase 2] cartpole engine path, 5 steps of {CARTPOLE_SUBSTEPS} substeps at "
+          f"B={B_MAIN} (the motor at 30 N toward the nearer limit): launches "
+          f"{json.dumps({n: c for n, c in path['cartpole engine path'].items() if c})}; share of "
+          f"envs at the ±{CART_LIMIT} m limit {float((x > CART_LIMIT - 1e-3).double().mean()):.4f},"
+          f" largest |x| {x.max().item():.5f} m")
+    if path["cartpole engine path"] != _only(substep_multi=5) or x.max().item() > CART_LIMIT + 0.003:
+        raise AssertionError(f"cartpole engine path: launches {path['cartpole engine path']}, "
+                             f"largest |x| {x.max().item()} past the limit's 2 mm of the inputs")
+    path["cartpole substep_fusion=False"] = _prismatic_path(dev, "cartpole", 3, fusion=False)[0]
+    if path["cartpole substep_fusion=False"] != _only(substep=3 * CARTPOLE_SUBSTEPS):
+        raise AssertionError(f"cartpole unfused: {path['cartpole substep_fusion=False']}")
+
+    walkers = {}
+    for wi, wname in enumerate(WALKERS):
+        for obs in ("state", "sensors"):
+            env_w = _walker_env(wname, dev, observe=obs)
+            label = f"{wname} {obs} path"
+            if env_w.engine.backend != "substep" or (obs == "sensors") != env_w._fused_sensors:
+                raise AssertionError(f"{label}: not the whole-substep kernel's fused path")
+            counter = "substep_multi" if obs == "state" else "substep_multi_sensors"
+            st = drive(label, env_w, 50 + 2 * wi + (obs == "sensors"), STEPS, **{counter: STEPS})
+            t = env_w.tree
+            print(f"[phase 2] {label}: nb {t.nb}, nq {t.nq}, nv {t.nv}, nc {env_w.engine.nc}, "
+                  f"{env_w.n_substeps} substeps per env step, k_obs "
+                  f"{env_w.n_substeps_per_obs}; obs {tuple(st.obs.shape)}; base height mean "
+                  f"{st.sim.q[:, 2].mean().item():.4f} m")
+            if obs == "state":
+                _ab_walker_substeps(env_w, st, act_gen, dev, dict(observe="state"), label)
+            else:
+                # fused against chunked held; over the 20 substeps the distance
+                # to the f64 env is reported only (float32 compounds, ROADMAP C.2)
+                _ab_sensor_step(env_w, st, act_gen, dev, dict(observe="sensors"), label=label,
+                                gate=functools.partial(_gate_dist_vs_f64, check=False))
+            walkers[(wname, obs)] = (env_w, st)
+
+    rates_w = {}
+    for (wname, obs), (env_w, st) in walkers.items():
+        for _ in range(5):  # warm-up
+            st = env_w.step(st, _uniform(act_gen, dev, env_w.motors.nm))
+        torch.cuda.synchronize()
+        before = _counts()
+        rates_w[f"{wname} {obs}"], st = _env_rate(env_w, st, act_gen, dev, STEPS, 3)
+        launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+        print(f"[phase 3] env-steps/s at B={B_MAIN}, {wname} {obs} path: "
+              f"{[round(r, 1) for r in rates_w[f'{wname} {obs}']]} (max "
+              f"{max(rates_w[f'{wname} {obs}']):.1f}); launches in the {3 * STEPS} timed steps "
+              f"{json.dumps(launched)}")
+        counter = "substep_multi" if obs == "state" else "substep_multi_sensors"
+        if launched != {counter: 3 * STEPS}:
+            raise AssertionError(f"{wname} {obs} path: {launched} in {3 * STEPS} env steps")
+        walkers[(wname, obs)] = (env_w, st)
+
+    k2_entry = "jiminy_tpu/ops/substep_kernel.py:1815"
+    for wname in WALKERS:
+        env_w, st = walkers[(wname, "state")]
+        env_ws = walkers[(wname, "sensors")][0]
+        wspec, n_w = env_w.engine.substep_spec, env_w.n_substeps
+        wargs = (st.sim.q, st.sim.v, env_w._action_to_command(
+            _uniform(act_gen, dev, env_w.motors.nm), st.sim), st.sim.lam,
+            torch.zeros(B_MAIN, 6, device=dev))
+        wsens = SensorKernelSpec(env_w.tree, env_ws.sensors, env_ws.n_substeps_per_obs)
+        k_obs, suite = wsens.k_obs, env_ws.sensors
+        wgen = torch.Generator(device=dev).manual_seed(60)
+        wbufs = suite.flatten_buffers(suite.reset(suite.sample_eps(wgen, B_MAIN), *wargs[:2]))
+        wsw = dict(sensors=wsens, bufs=wbufs, eps=torch.cat(
+            [suite.sample_eps(wgen, B_MAIN) for _ in range(n_w // k_obs)], 1))
+        # the sensor stage's first update (n_sub = k_obs) against the plain
+        # version in float32 and float64 from this rollout state
+        spec64 = _walker_env(wname, dev, observe="sensors", dtype=torch.float64).engine.substep_spec
+        sens64 = SensorKernelSpec(spec64.tree, suite.to(dtype=torch.float64), k_obs)
+        one = dict(sensors=wsens, bufs=wbufs, eps=wsw["eps"][:, :wsens.n_eps].contiguous())
+        k = substep_batched_multi(wspec, k_obs, *wargs, **one)
+        p32 = substep_multi_reference(wspec, k_obs, *wargs, **one)
+        p64 = substep_multi_reference(spec64, k_obs, *(x.double() for x in wargs), sensors=sens64,
+                                      bufs=wbufs.double(), eps=one["eps"].double())
+        scale = _reading_scale(wsens, p64[7])
+        wg = {f: _gate_vs_f64(f"{wname} K2 sensors n_sub={k_obs} {f}", k[i], p32[i], p64[i])
+              for i, f in ((0, "q"), (1, "v"), (2, "lam"))}
+        wg["bufs_scaled"] = _gate_vs_f64(f"{wname} K2 sensors bufs", k[7].double() / scale,
+                                         p32[7].double() / scale, p64[7] / scale)
+        print(f"[phase 3] {wname}: K2 with the sensor stage at n_sub={k_obs} (one update) vs the "
+              f"f64 plain version: " + json.dumps(wg))
+        main_err[f"{wname}_substep_multi"] = max(_max_err(k[i], p32[i]) for i in range(3))
+        main_err[f"{wname}_substep_multi_sensors"] = max(
+            main_err[f"{wname}_substep_multi"],
+            ((k[7].double() - p32[7].double()).abs() / scale).max().item())
+        w_ops = B_MAIN * (n_w * (_substep_flops(wspec) + _torque_flops(wspec)) + 2 * wspec.tree.nv)
+        n_upd = n_w // k_obs
+        print(f"[phase 3] {wname}: {_substep_flops(wspec)} FLOP per env per substep (chain "
+              f"{_solve_flops(wspec.cfg)} at nv {wspec.tree.nv}, nc {wspec.nc}), torque "
+              f"{_torque_flops(wspec)}, sensor update {_sensor_flops(wspec, wsens)}; "
+              f"{n_w} substeps, {n_upd} sensor updates per env step")
+        entry(
+            f"{wname}_substep_multi", "jiminy_tpu_torch/csrc/substep.cu", k2_entry,
+            path[f"{wname} state path"]["substep_multi"],
+            _time_cuda(lambda: substep_batched_multi(wspec, n_w, *wargs), 20),
+            _time_cuda(lambda: substep_multi_reference(wspec, n_w, *wargs), 2),
+            _substep_multi_bytes(wspec, B_MAIN), w_ops,
+        )
+        entry(
+            f"{wname}_substep_multi_sensors", "jiminy_tpu_torch/csrc/substep.cu", k2_entry,
+            path[f"{wname} sensors path"]["substep_multi_sensors"],
+            _time_cuda(lambda: substep_batched_multi(wspec, n_w, *wargs, **wsw), 20),
+            _time_cuda(lambda: substep_multi_reference(wspec, n_w, *wargs, **wsw), 2),
+            _substep_multi_bytes(wspec, B_MAIN) + _sensor_bytes(wsens, B_MAIN, n_upd),
+            w_ops + B_MAIN * n_upd * _sensor_flops(wspec, wsens),
+        )
+
+    # B.10 on the cartpole: K2 over a 20 ms step and K3, from phase 1's inputs
+    b10 = "jiminy_tpu/ops/substep_kernel.py:596"
+    cp_spec = eng_cp.substep_spec
+    cp_args = _cartpole_inputs(eng_cp, torch.Generator(device=dev).manual_seed(81), B_MAIN)
+    cq, cv, ccmd, clam0, cwrench = cp_args
+    cp_tau = eng_cp._joint_torque(ccmd, cq, cv)
+    entry(
+        "cartpole_substep_multi", "jiminy_tpu_torch/csrc/substep.cu", b10,
+        path["cartpole engine path"]["substep_multi"],
+        _time_cuda(lambda: substep_batched_multi(cp_spec, CARTPOLE_SUBSTEPS, *cp_args), 20),
+        _time_cuda(lambda: substep_multi_reference(cp_spec, CARTPOLE_SUBSTEPS, *cp_args), 2),
+        _substep_multi_bytes(cp_spec, B_MAIN),
+        B_MAIN * (CARTPOLE_SUBSTEPS * (_substep_flops(cp_spec) + _torque_flops(cp_spec))
+                  + 2 * cp_spec.tree.nv),
+    )
+    entry(
+        "cartpole_substep", "jiminy_tpu_torch/csrc/substep.cu", b10,
+        path["cartpole substep_fusion=False"]["substep"],
+        _time_cuda(lambda: substep_batched(cp_spec, cq, cv, cp_tau, clam0, cwrench), 20),
+        _time_cuda(lambda: substep_reference(cp_spec, cq, cv, cp_tau, clam0, cwrench), 3),
+        _substep_bytes(cp_spec, B_MAIN), B_MAIN * _substep_flops(cp_spec),
+    )
+
     # ---- Cassie, last: after one launch in the large frame (~40 KB of
     # stack per thread; the CUDA runtime keeps the local memory it grew),
     # the ANYmal frame's flat sensor K2 ran ~5 % slower for the rest of the
@@ -2964,15 +3375,65 @@ def run(dev) -> None:
         _time_cuda(lambda: substep_reference(fspec, fq, fv, ftau, flam0, fwrench), 3),
         _substep_bytes(fspec, B_MAIN), B_MAIN * _substep_flops(fspec),
     )
-    b10_bytes, b10_ops = _cartpole_k3_counts(B_MAIN)
-    b10_ms, b10_by = bound(b10_bytes, b10_ops)
-    print(f"[phase 3] B.10 (PRISMATIC joints, still to port): K3 on make_cartpole()'s sizes "
-          f"B={B_MAIN}: bound {b10_ms:.6f} ms ({b10_by}; {b10_bytes} B, {b10_ops} FLOP)")
+    # ---- B.10 on the reference's PRISMATIC kernel scene and its oblique
+    # twin (the large frame: nc 48), after every other part
+    main_err.update(phase_prismatic_vs_plain(dev, ("slab", "oblique")))
+    path["prismatic slab engine path"], sim_sl, eng_sl = _prismatic_path(dev, "slab", STEPS)
+    cube_z = sim_sl.q[:, 3]
+    print(f"[phase 2] prismatic slab engine path, {STEPS} steps of {SLAB_SUBSTEPS} substeps at "
+          f"B={B_MAIN}: launches "
+          f"{json.dumps({n: c for n, c in path['prismatic slab engine path'].items() if c})}; "
+          f"cube height {cube_z.min().item():.5f}–{cube_z.max().item():.5f} m over the slab's face "
+          f"at 0.1 m (resting: 0.2); slab q {sim_sl.q[:, 0].min().item():.3g}–"
+          f"{sim_sl.q[:, 0].max().item():.3g} m; share of envs with an active pair row "
+          f"{_active_pair_share(eng_sl, sim_sl.q):.4f}")
+    if path["prismatic slab engine path"] != _only(substep_multi=STEPS) \
+            or cube_z.min().item() < 0.19:
+        raise AssertionError(f"prismatic slab engine path: launches "
+                             f"{path['prismatic slab engine path']}, lowest cube {cube_z.min()}")
+    path["prismatic slab substep_fusion=False"] = _prismatic_path(dev, "slab", 3, fusion=False)[0]
+    if path["prismatic slab substep_fusion=False"] != _only(substep=3 * SLAB_SUBSTEPS):
+        raise AssertionError(f"slab unfused: {path['prismatic slab substep_fusion=False']}")
+    sl_cmd = torch.zeros(B_MAIN, 1, device=dev)
+    rates_sl = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            sim_sl = eng_sl.step(sim_sl, sl_cmd, n_substeps=SLAB_SUBSTEPS)
+        torch.cuda.synchronize()
+        rates_sl.append(B_MAIN * STEPS / (time.perf_counter() - t0))
+    print(f"[phase 3] steps/s at B={B_MAIN}, prismatic slab engine path ({SLAB_SUBSTEPS} "
+          f"substeps of 1 ms): {[round(r, 1) for r in rates_sl]} (max {max(rates_sl):.1f})")
+    sl_spec = eng_sl.substep_spec
+    sl_args = _slab_inputs(eng_sl, torch.Generator(device=dev).manual_seed(82), B_MAIN)
+    sq, sv, scmd, slam0, swrench = sl_args
+    sl_tau = eng_sl._joint_torque(scmd, sq, sv)
+    print(f"[phase 3] prismatic slab: {_substep_flops(sl_spec)} FLOP per env per substep (pairs "
+          f"{_pair_flops(sl_spec)}, chain {_solve_flops(sl_spec.cfg)} at nc {sl_spec.nc}); "
+          f"the cartpole's {_substep_flops(cp_spec)}")
+    entry(
+        "prismatic_slab_substep_multi", "jiminy_tpu_torch/csrc/substep.cu", b10,
+        path["prismatic slab engine path"]["substep_multi"],
+        _time_cuda(lambda: substep_batched_multi(sl_spec, SLAB_SUBSTEPS, *sl_args), 20),
+        _time_cuda(lambda: substep_multi_reference(sl_spec, SLAB_SUBSTEPS, *sl_args), 2),
+        _substep_multi_bytes(sl_spec, B_MAIN),
+        B_MAIN * (SLAB_SUBSTEPS * (_substep_flops(sl_spec) + _torque_flops(sl_spec))
+                  + 2 * sl_spec.tree.nv),
+    )
+    entry(
+        "prismatic_slab_substep", "jiminy_tpu_torch/csrc/substep.cu", b10,
+        path["prismatic slab substep_fusion=False"]["substep"],
+        _time_cuda(lambda: substep_batched(sl_spec, sq, sv, sl_tau, slam0, swrench), 20),
+        _time_cuda(lambda: substep_reference(sl_spec, sq, sv, sl_tau, slam0, swrench), 3),
+        _substep_bytes(sl_spec, B_MAIN), B_MAIN * _substep_flops(sl_spec),
+    )
     print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_sensor_path": rates_s,
                       "env_steps_per_s_terrain_path": rates_t,
                       "env_steps_per_s_sim2real_path": rates_r,
                       "env_steps_per_s_kernel_path": rates_k1,
-                      "env_steps_per_s_cassie": rates_c, "nvcc_build_s": build}))
+                      "env_steps_per_s_cassie": rates_c, "env_steps_per_s_walkers": rates_w,
+                      "steps_per_s_prismatic_slab": rates_sl, "nvcc_build_s": build}))
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())
     print(json.dumps({"ok": True, "device": {

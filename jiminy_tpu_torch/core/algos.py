@@ -2,7 +2,7 @@
 
 Counterpart of ``jiminy_tpu/core/algos.py`` (kinematics, body
 accelerations, RNEA with armature, CRBA, point Jacobians, Lie-group
-integrate) for FREE, REVOLUTE and SPHERICAL joints; a joint's columns
+integrate) for FREE, REVOLUTE, PRISMATIC and SPHERICAL joints; a joint's columns
 enter every algorithm through its motion subspace alone. The reference
 writes them for one robot and vmaps; here every function takes batched
 ``q (B, nq)``, ``v (B, nv)`` and loops over bodies in Python (the
@@ -47,9 +47,12 @@ def joint_transform(tree: KinematicTree, i: int, q: torch.Tensor) -> Transform:
             rot=_axis_angle_matrix(tree.axis[i], q[:, off]),
             pos=q.new_zeros(B, 3),
         )
+    if t == JointType.PRISMATIC:
+        eye = torch.eye(3, dtype=q.dtype, device=q.device)
+        return Transform(rot=eye.expand(B, 3, 3), pos=tree.axis[i] * q[:, off:off + 1])
     if t == JointType.SPHERICAL:
         return Transform(rot=so3.quat_to_matrix(q[:, off:off + 4]), pos=q.new_zeros(B, 3))
-    raise NotImplementedError(f"{t.name} joints are not ported yet (ROADMAP A.15)")
+    raise ValueError(f"unsupported joint type {t}")
 
 
 def motion_subspace(tree: KinematicTree, i: int) -> torch.Tensor:

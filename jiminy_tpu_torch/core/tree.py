@@ -11,7 +11,8 @@ and returns the port's tree. :class:`TreeBuilder` is the subset of the
 reference's builder that the port's own model builders need (moving
 bodies with their armature, damping and joint springs, fixed-body
 fusion, frames, world-anchored frames included, contact points, and
-spherical flexibility joints inserted upstream of a joint).
+spherical flexibility joints inserted upstream of a joint) on FREE,
+REVOLUTE, PRISMATIC and SPHERICAL joints.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from jiminy_tpu_torch.math import so3
 from jiminy_tpu_torch.math.spatial import SpatialInertia, Transform
 
 
@@ -128,10 +130,12 @@ class KinematicTree:
                 S[3:6, 0:3] = torch.eye(3, **kw)
             elif t == JointType.REVOLUTE:
                 S[0:3, 0] = self.axis[i]
+            elif t == JointType.PRISMATIC:  # a translation along the axis
+                S[3:6, 0] = self.axis[i]
             elif t == JointType.SPHERICAL:  # v = ω local
                 S[0:3, 0:3] = torch.eye(3, **kw)
             else:
-                raise NotImplementedError(f"{t.name} joints are not ported yet (ROADMAP A.15)")
+                raise ValueError(f"unsupported joint type {t}")
             out.append(S)
         return tuple(out)
 
@@ -213,8 +217,6 @@ def tree_from_arrays(
         return tuple(str(x) for x in np.asarray(d[k]).reshape(-1))
 
     jtypes = tuple(JointType(j) for j in ints("joint_type"))
-    if JointType.PRISMATIC in jtypes:
-        raise NotImplementedError("PRISMATIC joints are not ported yet (ROADMAP A.15)")
     static = dict(
         nb=int(d["nb"]),
         nq=int(d["nq"]),
@@ -270,10 +272,19 @@ class TreeBuilder:
         self.contact_frame_name: list[str] = []
 
     @staticmethod
-    def make_placement(pos=(0.0, 0.0, 0.0)) -> np.ndarray:
-        """4×4 placement with identity rotation (the only kind the
-        port's builders emit)."""
+    def make_placement(pos=(0.0, 0.0, 0.0), rpy=(0.0, 0.0, 0.0)) -> np.ndarray:
+        """4×4 placement at ``pos`` turned by roll-pitch-yaw ``rpy`` (the
+        URDF convention), in float32 as the reference's."""
         T = np.eye(4, dtype=np.float32)
+        # the reference's so3.rpy_to_quat in float32, with the sine and
+        # cosine of the float32 half angles correctly rounded (as the
+        # reference's round at the Ant's placements; torch's and numpy's
+        # float32 ones are an ulp off there)
+        half = (np.float32(0.5) * np.asarray(rpy, np.float32)).astype(np.float64)
+        (cr, cp, cy), (sr, sp, sy) = np.cos(half).astype(np.float32), np.sin(half).astype(np.float32)
+        quat = np.array([sr * cp * cy - cr * sp * sy, cr * sp * cy + sr * cp * sy,
+                         cr * cp * sy - sr * sp * cy, cr * cp * cy + sr * sp * sy], np.float32)
+        T[:3, :3] = so3.quat_to_matrix(torch.from_numpy(quat)).numpy()
         T[:3, 3] = np.asarray(pos, dtype=np.float32)
         return T
 
@@ -461,7 +472,7 @@ class TreeBuilder:
             mats.append(ic + m * (ch @ ch.T))
             hs.append(m * c)
             masses.append(m)
-        fp = np.stack(self.fp)
+        fp = np.stack(self.fp) if self.fp else np.zeros((0, 4, 4), np.float32)
         cp = (
             np.stack(self.contact_pos)
             if self.contact_pos else np.zeros((0, 3), np.float32)

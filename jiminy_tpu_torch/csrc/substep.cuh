@@ -42,8 +42,12 @@
 // `dof_cols` and the quaternion integrate (`subspace_col`,
 // `joint_motion_of`, `jt_joint_transform`, `jt_quat_step`), and a sprung
 // one the spring branch of `_compute_tau`, −k·log(quat) (`jt_quat_log`,
-// atan2f where the TPU kernel had a polynomial), in `jt_torque`; joint
-// types are runtime branches on the packed spec as well.
+// atan2f where the TPU kernel had a polynomial), in `jt_torque`. PRISMATIC
+// joints (B.10: a scalar q along the axis) take those functions' PRISMATIC
+// branches: S = [0; axis], X_J = (I, axis·q), the RNEA bias and every
+// Jacobian column through `subspace_col`, and REVOLUTE's scalar integrate,
+// −k·q spring and bound row. Joint types are runtime branches on the
+// packed spec as well, and each site names every type it serves.
 //
 // One substep (`jt_substep`, the counterpart of `_substep_math`) is, per
 // env: FK → RNEA bias with the root wrench → CRBA + armature + dt·damping
@@ -136,8 +140,9 @@
 #define JT_NQ_EXTRA 4  // nq ≤ nv + 4 (quaternion joints)
 
 // joint types, the codes of ops/substep_kernel.py (core/tree.py JointType);
-// PRISMATIC (2) is refused before a launch (SubstepSpec)
-enum { JT_FREE = 0, JT_REVOLUTE = 1, JT_SPHERICAL = 3 };
+// every site that reads one names each type it serves, so a code without
+// its branch gets no dofs, never another type's arithmetic
+enum { JT_FREE = 0, JT_REVOLUTE = 1, JT_PRISMATIC = 2, JT_SPHERICAL = 3 };
 enum { JT_TORQUE_NONE = 0, JT_TORQUE_PD = 1, JT_TORQUE_DIRECT = 2 };
 enum {
   JT_S_DT = 0, JT_S_ALPHA_B, JT_S_ALPHA_C_DT, JT_S_SLOP, JT_S_MAX_CORR,
@@ -297,7 +302,8 @@ __device__ __forceinline__ void motion_cross_force(const float* m, const float* 
 }
 
 __device__ __forceinline__ int joint_nv(int jt) {
-  return jt == JT_FREE ? 6 : jt == JT_SPHERICAL ? 3 : 1;
+  return jt == JT_FREE ? 6 : jt == JT_SPHERICAL ? 3
+       : (jt == JT_REVOLUTE || jt == JT_PRISMATIC) ? 1 : 0;
 }
 
 // column c of joint i's motion subspace as (w, v)
@@ -308,8 +314,14 @@ __device__ __forceinline__ void subspace_col(int jt, const float* axis, int c, f
     else col[c - 3] = 1.f;        // angular dofs
   } else if (jt == JT_SPHERICAL) {
     col[c] = 1.f;  // v = ω local
-  } else {
-    for (int k = 0; k < 3; ++k) col[k] = axis[k];
+  } else if (jt == JT_REVOLUTE || jt == JT_PRISMATIC) {
+    // [axis; 0] turns about the axis, [0; axis] slides along it (selects,
+    // not an index into col, which would put col in local memory)
+    const bool lin = jt == JT_PRISMATIC;
+    for (int k = 0; k < 3; ++k) {
+      col[k] = lin ? 0.f : axis[k];
+      col[3 + k] = lin ? axis[k] : 0.f;
+    }
   }
 }
 
@@ -327,12 +339,16 @@ __device__ __forceinline__ void joint_motion_of(const SpecView& s, int i, const 
       out[k] = xj[k];
       out[3 + k] = 0.f;
     }
-  } else {
+  } else if (jt == JT_REVOLUTE || jt == JT_PRISMATIC) {
     const float* axis = s.body + JT_BODY_F * i;
+    const bool lin = jt == JT_PRISMATIC;
     for (int k = 0; k < 3; ++k) {
-      out[k] = axis[k] * xj[0];
-      out[3 + k] = 0.f;
+      const float a = axis[k] * xj[0];
+      out[k] = lin ? 0.f : a;
+      out[3 + k] = lin ? a : 0.f;
     }
+  } else {
+    for (int k = 0; k < 6; ++k) out[k] = 0.f;
   }
 }
 
@@ -346,19 +362,25 @@ __device__ __forceinline__ void jt_joint_transform(const SpecView& s, int i, con
                                                    float* Rj, float* pj) {
   const float* bd = s.body + JT_BODY_F * i;  // axis, Rp, pp, ...
   const int qo = s.q_off[i];
+  const int jt = s.jtype[i];
   for (int k = 0; k < 3; ++k) pj[k] = 0.f;
-  if (s.jtype[i] == JT_FREE) {
+  if (jt == JT_FREE) {
     quat_to_m(q + qo + 3, Rj);
     for (int k = 0; k < 3; ++k) pj[k] = q[qo + k];
-  } else if (s.jtype[i] == JT_SPHERICAL) {
+  } else if (jt == JT_SPHERICAL) {
     quat_to_m(q + qo, Rj);
-  } else {  // Rodrigues: I + sin·K + (1 − cos)·K²
+  } else if (jt == JT_PRISMATIC) {  // (I, axis·q)
+    for (int r = 0; r < 9; ++r) Rj[r] = (r % 4 == 0) ? 1.f : 0.f;
+    for (int k = 0; k < 3; ++k) pj[k] = bd[k] * q[qo];
+  } else if (jt == JT_REVOLUTE) {  // Rodrigues: I + sin·K + (1 − cos)·K²
     const float c = cosf(q[qo]), sn = sinf(q[qo]);
     const float K[9] = {0.f, -bd[2], bd[1], bd[2], 0.f, -bd[0], -bd[1], bd[0], 0.f};
     float KK[9];
     mat3_mul(K, K, KK);
     for (int r = 0; r < 9; ++r)
       Rj[r] = ((r % 4 == 0) ? 1.f : 0.f) + sn * K[r] + (1.f - c) * KK[r];
+  } else {
+    for (int r = 0; r < 9; ++r) Rj[r] = (r % 4 == 0) ? 1.f : 0.f;
   }
 }
 
@@ -446,17 +468,16 @@ __device__ __forceinline__ void jt_torque(const SpecView& s, const float* q, con
     const float* stiff = jt_stiffness(s);
     for (int i = 0; i < s.nb; ++i) {
       const int jt = s.jtype[i], vo = s.v_off[i], qo = s.q_off[i];
-      if (jt == JT_FREE) continue;
       if (jt == JT_SPHERICAL) {
         if (stiff[vo] != 0.f || stiff[vo + 1] != 0.f || stiff[vo + 2] != 0.f) {
           float rv[3];
           jt_quat_log(q + qo, rv);
           for (int r = 0; r < 3; ++r) tau[vo + r] = tau[vo + r] - stiff[vo + r] * rv[r];
         }
-        continue;
+      } else if (jt == JT_REVOLUTE || jt == JT_PRISMATIC) {  // −k·q, angle or length
+        const float k = stiff[vo];
+        if (k != 0.f) tau[vo] = tau[vo] - k * q[qo];
       }
-      const float k = stiff[vo];
-      if (k != 0.f) tau[vo] = tau[vo] - k * q[qo];
     }
   }
 }
@@ -1120,7 +1141,7 @@ __device__ __forceinline__ float jt_substep(
     } else if (jt == JT_SPHERICAL) {
       for (int k = 0; k < 3; ++k) w[k] = v_next[vo + k] * dt;
       jt_quat_step(q + qo, w, q_next + qo);
-    } else {
+    } else if (jt == JT_REVOLUTE || jt == JT_PRISMATIC) {
       q_next[qo] = q[qo] + v_next[vo] * dt;
     }
   }

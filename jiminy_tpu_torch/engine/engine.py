@@ -71,8 +71,7 @@ damping.
 Contacts run as PGS rows: ``EngineOptions.contact_model`` defaults to the
 reference's ``"spring_damper"``, which the engine refuses. Not ported
 yet (each raises): penalty contacts and other steppers (ROADMAP A.16),
-PRISMATIC joints (A.15), kinematic constraints other than the distance
-constraint (A.22).
+kinematic constraints other than the distance constraint (A.22).
 """
 
 from __future__ import annotations

@@ -1,9 +1,21 @@
 """Robot models built by the port itself (no reference import)."""
 
+from jiminy_tpu_torch.models.ant import make_ant  # noqa: F401
+from jiminy_tpu_torch.models.biped import cassie_self_collision_pairs, make_cassie  # noqa: F401
 from jiminy_tpu_torch.models.quadruped import (  # noqa: F401
     ANYMAL,
+    SPOTMICRO,
     QuadrupedParams,
     make_anymal,
+    make_quadruped,
+    make_spotmicro,
     stand_q,
 )
-from jiminy_tpu_torch.models.biped import cassie_self_collision_pairs, make_cassie  # noqa: F401
+from jiminy_tpu_torch.models.toys import (  # noqa: F401
+    make_acrobot,
+    make_ball,
+    make_cartpole,
+    make_double_pendulum,
+    make_free_box,
+    make_pendulum,
+)

@@ -1,17 +1,20 @@
-"""ANYmal-class quadruped — the port's own builder of the flagship model.
+"""The quadruped family: ANYmal (the flagship) and Spotmicro.
 
 Counterpart of ``jiminy_tpu/models/quadruped.py``. The reference writes
-the robot as URDF text and runs it through its URDF parser and hardware
-pipeline; the port builds the same tree directly, in the order that
-parser visits it (depth-first from the base, last-pushed leg first), with
-the feet fused into the shanks as fixed frames and contact points at the
-foot frames, and the sensor suite from the same hardware description.
-``tests/test_torch_model.py`` holds the tree field for field against
+each robot as URDF text from its :class:`QuadrupedParams` and runs it
+through its URDF parser and hardware pipeline; the port builds the same
+tree directly (:func:`make_quadruped`), in the order that parser visits
+it (depth-first from the base, last-pushed leg first), with the feet
+fused into the shanks as fixed frames and contact points at the foot
+frames, and the sensor suite from the same hardware description.
+``tests/test_torch_model.py`` holds ANYmal's tree field for field against
 ``jiminy_tpu.models.make_anymal()``'s, ``tests/test_torch_sensors.py``
-the suite against its ``robot.sensors``.
+its suite against the reference's ``robot.sensors``, and
+``tests/test_torch_ant_spotmicro.py`` Spotmicro's tree, motors, sensors
+and stand pose against ``make_spotmicro()``'s.
 
-Morphology (ANYmal-B-like, 12 actuated DoF): base (floating) → per leg
-{LF, RF, LH, RH}: HAA (x-axis) → HFE (y) → KFE (y); feet are fixed links.
+Morphology (12 actuated DoF): base (floating) → per leg {LF, RF, LH,
+RH}: HAA (x-axis) → HFE (y) → KFE (y); feet are fixed links.
 """
 
 from __future__ import annotations
@@ -59,6 +62,26 @@ class QuadrupedParams:
 
 
 ANYMAL = QuadrupedParams()
+SPOTMICRO = QuadrupedParams(
+    name="spotmicro",
+    base_mass=1.2,
+    base_dims=(0.25, 0.11, 0.07),
+    hip_mass=0.12,
+    thigh_mass=0.09,
+    shank_mass=0.04,
+    foot_mass=0.01,
+    hip_x=0.093,
+    hip_y=0.039,
+    hfe_off_x=0.0,
+    hfe_off_y=0.028,
+    thigh_len=0.11,
+    shank_len=0.13,
+    effort=2.0,
+    velocity=8.0,
+    armature=0.002,
+    friction_dry=0.02,
+    friction_viscous=0.005,
+)
 
 
 def _box_inertia(m, x, y, z):
@@ -172,20 +195,20 @@ def _links_and_joints(p: QuadrupedParams):
     return links, joints
 
 
-def make_anymal(
+def make_quadruped(
+    params: QuadrupedParams,
     device="cuda",
     dtype=torch.float32,
-    sensor_period: float = 0.01,
+    sensor_period: float = 0.0025,
     sensor_delay: float = 0.0,
     imu_noise: float = 0.0,
     encoder_noise: float = 0.0,
 ) -> tuple[KinematicTree, Motors, SensorSuite]:
-    """(tree, motors, sensors) of the ANYmal-class flagship quadruped. The
+    """(tree, motors, sensors) of the quadruped of ``params``. The
     sensors, sampled every ``sensor_period`` s: one IMU on the base frame
     and the 12 encoders (``sensor_delay``; Gaussian noise of std
     ``imu_noise`` and ``encoder_noise``), 12 effort sensors and the 4 foot
     contact sensors (no delay, no noise)."""
-    params = ANYMAL
     links, joints = _links_and_joints(params)
     b = TreeBuilder()
     carrier = {}  # link → (body index carrying it, 4×4 offset)
@@ -246,6 +269,22 @@ def make_anymal(
         dtype=dtype,
     )
     return tree, motors, SensorSuite.build(tree, _sensor_specs(hw), sensor_period)
+
+
+def make_anymal(device="cuda", dtype=torch.float32, sensor_period: float = 0.01,
+                **kwargs) -> tuple[KinematicTree, Motors, SensorSuite]:
+    """(tree, motors, sensors) of the ANYmal-class flagship quadruped
+    (:func:`make_quadruped` of :data:`ANYMAL`)."""
+    return make_quadruped(ANYMAL, device=device, dtype=dtype, sensor_period=sensor_period,
+                          **kwargs)
+
+
+def make_spotmicro(device="cuda", dtype=torch.float32, sensor_period: float = 0.0025,
+                   **kwargs) -> tuple[KinematicTree, Motors, SensorSuite]:
+    """(tree, motors, sensors) of the Spotmicro-class small quadruped
+    (:func:`make_quadruped` of :data:`SPOTMICRO`)."""
+    return make_quadruped(SPOTMICRO, device=device, dtype=dtype, sensor_period=sensor_period,
+                          **kwargs)
 
 
 def stand_q(tree: KinematicTree, params: QuadrupedParams = ANYMAL) -> np.ndarray:

@@ -70,12 +70,14 @@ the ground contacts, each pair one PGS color with its own friction; the
 kernels run the three narrow phases (``seg``, ``ptbox``, ``ptseg``)
 in-kernel.
 
-Joints: FREE, REVOLUTE and SPHERICAL (a quaternion of 4 and ω local
-of 3; the kernels' frame takes nq ≤ nv + 4).
+Joints: FREE, REVOLUTE, PRISMATIC (a translation q along the axis, its
+motion subspace [0; axis]; bounded and sprung as REVOLUTE) and SPHERICAL
+(a quaternion of 4 and ω local of 3; the kernels' frame takes nq ≤ nv +
+4).
 
 Out of scope (each raises, naming its ROADMAP item): other steppers and
-the penalty contact model (A.16), PRISMATIC joints (A.15), kinematic
-constraints other than the distance constraint (A.22).
+the penalty contact model (A.16), kinematic constraints other than the
+distance constraint (A.22).
 """
 
 from __future__ import annotations
@@ -226,8 +228,6 @@ class SubstepSpec:
                     f"{type(c).__name__} is not ported yet: of the kinematic constraints "
                     "only DistanceConstraint is (ROADMAP A.22)"
                 )
-        if JointType.PRISMATIC in tree.joint_type:
-            raise NotImplementedError("PRISMATIC joints are not ported yet (ROADMAP A.15)")
         stiff = tree.stiffness.detach().cpu().numpy()
         if torque is not None and motors is None:
             raise ValueError("a TorqueSpec needs the motor bank")

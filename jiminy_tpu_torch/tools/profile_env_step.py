@@ -1,6 +1,6 @@
-"""Where the time of the ANYmal or Cassie env step goes on a GPU.
+"""Where the time of the ANYmal, Cassie, Ant or Spotmicro env step goes on a GPU.
 
-    python -m jiminy_tpu_torch.tools.profile_env_step [--env anymal|cassie]
+    python -m jiminy_tpu_torch.tools.profile_env_step [--env anymal|cassie|ant|spotmicro]
         [--batch 4096] [--steps 5] [--solver auto|substep|kernel|inline]
         [--observe state|sensors] [--terrain flat|fourier|perlin|perlin_grid|stairs]
         [--push N] [--push-duration S] [--randomize R] [--self-collision] [--flexibility]
@@ -15,6 +15,10 @@ legs' self-collision pairs (``examples/train.py --env cassie
 --self-collision``, ``cassie_selfcol_run5``) and ``--flexibility`` for
 the flexible hips (``examples/train.py --env cassie_flex``,
 ``cassie_flex_run5``: a SPHERICAL flexibility joint above each hip roll).
+``--env ant`` and ``--env spotmicro`` run ``AntEnv()`` and
+``SpotmicroEnv()`` at the reference's defaults (``examples/train.py --env
+ant | spotmicro``: 20 substeps per env step; the Ant's sensors every
+second substep), on ``--observe`` and with ``--push`` as above.
 The rest is about ANYmal:
 
 Runs ``ANYmalEnv(observe="state", device="cuda")`` (by default on its
@@ -49,7 +53,7 @@ import torch
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--env", default="anymal", choices=("anymal", "cassie"))
+    ap.add_argument("--env", default="anymal", choices=("anymal", "cassie", "ant", "spotmicro"))
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--solver", default="auto", choices=("auto", "substep", "kernel", "inline"))
@@ -73,7 +77,7 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from jiminy_tpu_torch.engine.randomization import ModelRandomization
-    from jiminy_tpu_torch.envs import ANYmalEnv, CassieEnv
+    from jiminy_tpu_torch.envs import AntEnv, ANYmalEnv, CassieEnv, SpotmicroEnv
 
     dev = torch.device("cuda")
     r = args.randomize
@@ -82,7 +86,15 @@ def main() -> None:
         motor_gain=(1 - r / 2, 1 + r / 2)) if r else None
     sensors = (dict(sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005)
                if args.observe == "sensors" else {})
-    if args.env == "cassie":
+    if args.env in ("ant", "spotmicro"):
+        if args.terrain != "flat" or r:
+            raise SystemExit(f"profile_env_step: the {args.env} env runs on flat ground, nominal")
+        env = (AntEnv(observe=args.observe, constraint_solver=args.solver, push_magnitude=args.push,
+                      push_duration=args.push_duration, device=dev) if args.env == "ant" else
+               SpotmicroEnv(observe=args.observe, constraint_solver=args.solver,
+                            push_magnitude=args.push, push_duration=args.push_duration,
+                            device=dev))
+    elif args.env == "cassie":
         if args.terrain != "flat":
             raise SystemExit("profile_env_step: the Cassie env runs on flat ground")
         env = CassieEnv(observe=args.observe, sim_dt=2e-3, target_speed=0.4, pgs_iters=8,

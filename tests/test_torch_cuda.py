@@ -8,8 +8,11 @@ and the shin springs; held to float64 by the distribution of the per-env
 distance, as ``chip_smoke.py`` ``_gate_dist_vs_f64``, since float32 is not
 well posed there at 1e-4), with collision pairs (the three narrow phases
 on Cassie's tree, likewise; on a forest of two free balls within 1e-4)
-and with sphere contact sites (ANYmal's feet, env by env against
-float64).
+with sphere contact sites (ANYmal's feet, env by env against
+float64), with PRISMATIC joints (the reference's sprung-slab kernel scene
+along z and along an oblique axis, the cartpole at its limits; env by
+env against float64, nominal and randomized) and on the Ant's and
+Spotmicro's env paths (one fused launch per env step).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -1159,3 +1162,144 @@ def test_flex_env_is_one_fused_launch(cuda_device, path):
     launched = [getattr(fn, n) - b for (fn, n), b in zip(names, before)]
     assert launched == ([0, 0, 0, 3] if path == "sensors" else [0, 0, 3, 0])
     assert bool(torch.isfinite(state.obs).all()) and state.obs.shape == (256, 29)
+
+
+def _prismatic_engine(dev, scene, dtype=torch.float32):
+    """The B.10 scenes: tests/test_box_pairs.py's sprung PRISMATIC slab and
+    free cube with their ptbox pair (friction 0.8, nc 48, the large frame),
+    the slider along z or along the oblique (0.6, 0, 0.8), a frictionless
+    direct motor on it; or ``make_cartpole()`` with a direct motor on the
+    cart (effort 30) and its ±2.4 m bound row (nc 1)."""
+    from jiminy_tpu_torch.core.tree import JointType, TreeBuilder
+    from jiminy_tpu_torch.engine import Engine, EngineOptions
+    from jiminy_tpu_torch.engine.collision import Box, CollisionPair
+    from jiminy_tpu_torch.hardware.motors import Motors
+    from jiminy_tpu_torch.models.toys import make_cartpole
+
+    if scene == "cartpole":
+        motors = Motors.create([0], effort_limit=30.0, device=dev, dtype=dtype)
+        return Engine(make_cartpole(device=dev, dtype=dtype),
+                      EngineOptions(contact_model="constraint", constraint_solver="substep"),
+                      motors=motors, device=dev)
+    b = TreeBuilder()
+    b.add_body("slab", -1, JointType.PRISMATIC, axis=(0.6, 0.0, 0.8) if scene == "oblique"
+               else (0, 0, 1), mass=100.0, com=(0, 0, 0.05), inertia=np.diag([10.0] * 3),
+               stiffness=1e7, damping=1e4)
+    b.add_body("cube", -1, JointType.FREE, mass=1.0, inertia=np.diag([0.004] * 3))
+    pair = CollisionPair(Box("slab", (0, 0, 0.05), (0.3, 0.3, 0.05)),
+                         Box("cube", (0, 0, 0), (0.1, 0.1, 0.1)), friction=0.8)
+    opts = EngineOptions(contact_model="constraint", dt=1e-3, pgs_iters=8,
+                         constraint_solver="substep")
+    return Engine(b.build(device=dev, dtype=dtype), opts,
+                  motors=Motors.create([0], device=dev, dtype=dtype), collision_pairs=(pair,),
+                  device=dev)
+
+
+def _prismatic_inputs(seed, B, engine, scene):
+    """Made with numpy: the slab scenes around tests/test_box_pairs.py's
+    landing (the cube 3 mm into to 7 mm above the slab's face, lateral
+    speed (−0.3, 0.2) scaled 0.5–1.5, the slab sagging 0–2e-4 m), or carts
+    over ±2.6 m with a third at a limit moving outward; a motor command,
+    λ0 ≥ 0 and a root wrench."""
+    rng = np.random.default_rng(seed)
+    if scene == "cartpole":
+        q = np.stack([rng.uniform(-2.6, 2.6, B), rng.uniform(-0.5, 0.5, B)], 1)
+        v = rng.standard_normal((B, 2))
+        n = B // 3
+        side = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+        q[:n, 0] = side * (2.4 + rng.uniform(-0.002, 0.002, n))
+        v[:n, 0] = side * rng.uniform(0.5, 2.5, n)
+        cmd, wrench = rng.uniform(-40, 40, (B, 1)), np.zeros((B, 6))
+    else:
+        q = np.zeros((B, 8))
+        q[:, 0] = rng.uniform(-2e-4, 0.0, B)
+        q[:, 1:3] = rng.uniform(-0.1, 0.1, (B, 2))
+        q[:, 3] = rng.uniform(0.197, 0.207, B)
+        quat = np.concatenate([rng.uniform(-0.03, 0.03, (B, 3)), np.ones((B, 1))], 1)
+        q[:, 4:8] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+        s = rng.uniform(0.5, 1.5, B)
+        v = np.zeros((B, 7))
+        v[:, 0], v[:, 1], v[:, 2] = 0.01 * rng.standard_normal(B), -0.3 * s, 0.2 * s
+        v[:, 3], v[:, 4:7] = rng.uniform(-0.3, 0.0, B), 0.5 * rng.standard_normal((B, 3))
+        cmd = rng.uniform(-50, 50, (B, 1))
+        wrench = np.concatenate([5 * rng.standard_normal((B, 3)),
+                                 20 * rng.standard_normal((B, 3))], 1)
+    arrays = (q, v, cmd, np.abs(0.05 * rng.standard_normal((B, engine.nc))), wrench)
+    return [torch.as_tensor(a, dtype=torch.float32, device=engine.device) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("randomized", [False, True])
+@pytest.mark.parametrize("kernel", ["substep", "substep_multi"])
+@pytest.mark.parametrize("scene", ["slab", "oblique", "cartpole"])
+def test_prismatic_kernels_match_plain_versions(cuda_device, scene, kernel, randomized):
+    """K3 and K2 (n_sub = 1), nominal and with each env's model
+    parameters, on the PRISMATIC scenes (B.10: the slider's subspace [0;
+    axis], its transform (I, axis·q), its spring and bound row) over one
+    substep, env by env against the float64 plain version; the rows that
+    the scene exercises engaged in a quarter of the envs at least."""
+    from jiminy_tpu_torch.ops.substep_kernel import unpack_model_params
+
+    B = 1000
+    eng, eng64 = (_prismatic_engine(cuda_device, scene),
+                  _prismatic_engine(cuda_device, scene, torch.float64))
+    spec = eng.substep_spec
+    assert spec.tree.joint_type[0] == 2 and spec.nc == (1 if scene == "cartpole" else 48)
+    q, v, cmd, lam0, wrench = args = _prismatic_inputs(70, B, eng, scene)
+    a64 = [x.double() for x in args]
+    mp = _rand_params(eng, 71, B) if randomized else None
+    mp64 = mp.double() if randomized else None
+    if kernel == "substep":
+        tau = eng._joint_torque(cmd, q, v, unpack_model_params(spec, mp)[1] if randomized else None)
+        out = substep_batched(spec, q, v, tau, lam0, wrench, mp=mp)
+        p32 = substep_reference(spec, q, v, tau, lam0, wrench, mp=mp)
+        p64 = substep_reference(eng64.substep_spec, a64[0], a64[1], tau.double(), a64[3], a64[4],
+                                mp=mp64)
+    else:
+        out = substep_batched_multi(spec, 1, *args, mp=mp)
+        p32 = substep_multi_reference(spec, 1, *args, mp=mp)
+        p64 = substep_multi_reference(eng64.substep_spec, 1, *a64, mp=mp64)
+    torch.cuda.synchronize()
+    engaged = (p64[2] != 0).any(1).double().mean().item()
+    assert engaged >= 0.25, engaged
+    for i, name in ((0, "q"), (1, "v"), (2, "lam")):
+        _assert_env_by_env_vs_f64(f"{scene} {kernel} {name}", out[i], p32[i], p64[i])
+
+
+@pytest.mark.cuda
+def test_prismatic_slab_step_is_one_fused_launch(cuda_device):
+    """The slab scene through Engine.step (6 substeps of 1 ms, the
+    reference test's step): one K2 launch per step, the cube resting on
+    the slab."""
+    eng = _prismatic_engine(cuda_device, "slab")
+    q, v, _, _, _ = _prismatic_inputs(72, 256, eng, "slab")
+    sim = eng.reset(q, v)
+    before = (substep_batched.launches, substep_batched_multi.launches)
+    for _ in range(5):
+        sim = eng.step(sim, torch.zeros(256, 1, device=cuda_device), n_substeps=6)
+    after = (substep_batched.launches, substep_batched_multi.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (0, 5)
+    assert bool(torch.isfinite(sim.q).all()) and sim.q[:, 3].min().item() > 0.19
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["state", "sensors"])
+@pytest.mark.parametrize("walker", ["ant", "spotmicro"])
+def test_walker_env_is_one_fused_launch(cuda_device, walker, path):
+    """AntEnv and SpotmicroEnv (20 substeps per env step; Ant's sensor
+    update every second substep) on the state and sensor paths: one K2
+    launch per env step (with the sensor stage on the sensor path), and
+    no other kernel."""
+    from jiminy_tpu_torch.envs import AntEnv, SpotmicroEnv
+
+    env = {"ant": AntEnv, "spotmicro": SpotmicroEnv}[walker](observe=path, device=cuda_device)
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
+    names = [(solve_batched, "launches"), (substep_batched, "launches"),
+             (substep_batched_multi, "launches"), (substep_batched_multi, "sensor_launches")]
+    before = [getattr(fn, n) for fn, n in names]
+    for _ in range(3):
+        state = env.step(state, torch.zeros(256, env.motors.nm, device=cuda_device))
+    launched = [getattr(fn, n) - b for (fn, n), b in zip(names, before)]
+    assert launched == ([0, 0, 0, 3] if path == "sensors" else [0, 0, 3, 0])
+    nobs = {"ant": 25, "spotmicro": 33}[walker]
+    assert bool(torch.isfinite(state.obs).all()) and state.obs.shape == (256, nobs)

@@ -20,8 +20,9 @@ is built by both packages' ``TreeBuilder`` and held field for field.
   sprung pendulum's period.
 - The engine refuses the other kinematic constraints (ROADMAP A.22);
   ``SubstepSpec`` takes springs on spherical joints (A.14, held in
-  tests/test_torch_flex.py) and a tree with a prismatic joint raises
-  (A.15).
+  tests/test_torch_flex.py) and a tree with a sprung prismatic joint,
+  whose type it packs as 2 for the kernels (A.15, held in
+  tests/test_torch_prismatic.py).
 """
 
 from __future__ import annotations
@@ -284,9 +285,9 @@ def test_other_constraints_and_spherical_springs_raise():
     with pytest.raises(NotImplementedError, match="A.22"):
         Engine(tree, EngineOptions(contact_model="constraint", dt=DT), constraints=(object(),),
                device="cpu")
-    # springs on spherical joints (A.14, B.8) are ported: the spec takes
-    # them, its stiffness packed for the kernels; prismatic joints (A.15)
-    # still raise
+    # springs on spherical joints (A.14, B.8) and prismatic joints (A.15,
+    # B.10) are ported: the spec takes them, the stiffness and the joint
+    # types packed for the kernels
     b = TreeBuilder()
     b.add_body("ball", -1, JointType.SPHERICAL, mass=1.0, inertia=(0.1, 0.1, 0.1),
                stiffness=10.0)
@@ -295,6 +296,12 @@ def test_other_constraints_and_spherical_springs_raise():
                        FlatGround())
     assert spec.springs and spec.tree.sprung_spherical == ([0], [0])
     assert spec.packed("cpu")[1][-3:].tolist() == [10.0] * 3
-    b.add_body("slider", 0, JointType.PRISMATIC, mass=1.0)
-    with pytest.raises(NotImplementedError, match="A.15"):
-        b.build(device="cpu")
+    b.add_body("slider", 0, JointType.PRISMATIC, axis=(0.6, 0.0, 0.8), mass=1.0, stiffness=5.0,
+               q_limits=(-0.1, 0.1))
+    spec = SubstepSpec(b.build(device="cpu"), EngineOptions(contact_model="constraint"),
+                       FlatGround())
+    si, sf = spec.packed("cpu")
+    nb = spec.tree.nb
+    assert si[10 + nb:10 + 2 * nb].tolist() == [int(JointType.SPHERICAL), 2]
+    assert spec.bounded_joints == [1] and spec.nc == 1
+    assert spec.tree.sprung_joints == ([3], [4]) and sf[-4:].tolist() == [10.0] * 3 + [5.0]

@@ -13,10 +13,13 @@ and chunked; the ``"perlin_grid"`` heightmap), on the sim-to-real
 env with model randomization (fused and chunked), and on the Cassie env
 (pushrod closed loops and shin springs) on the state path and the
 sensor path fused and chunked, with the self-collision pairs too, and
-the flexible-hip Cassie on the state path and the fused sensor path. The
+the flexible-hip Cassie on the state path and the fused sensor path, the
+Ant and the Spotmicro on the state path and the fused and chunked sensor
+paths, and the PRISMATIC cartpole through ``Engine.step``. The
 modules that hold kernels, the sensor suite, the grounds, the terrain
 generators, the random processes, the model randomization, the
-constraints, the collision pairs, the biped and its env are named,
+constraints, the collision pairs, the biped, the Ant, the toys and the
+legged envs are named,
 so a rename cannot drop them from the walk. A second test imports each kernel module
 first in a fresh interpreter: the engine and ops packages import each
 other, and any order must work.
@@ -39,7 +42,8 @@ KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops
                   "jiminy_tpu_torch.engine.terrain", "jiminy_tpu_torch.utils.random",
                   "jiminy_tpu_torch.engine.randomization", "jiminy_tpu_torch.engine.constraints",
                   "jiminy_tpu_torch.models.biped", "jiminy_tpu_torch.envs.legged",
-                  "jiminy_tpu_torch.engine.collision")
+                  "jiminy_tpu_torch.engine.collision", "jiminy_tpu_torch.models.ant",
+                  "jiminy_tpu_torch.models.toys")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -109,6 +113,24 @@ for observe, fused, pairs, flex in (("state", False, False, False), ("sensors", 
     st = env.reset(torch.Generator().manual_seed(0), 2)
     st = env.step(st, torch.zeros(2, 10))
     assert bool(torch.isfinite(st.obs).all()) and st.obs.shape == (2, 29)
+from jiminy_tpu_torch.envs import AntEnv, SpotmicroEnv
+
+for Env, nm, nobs in ((AntEnv, 8, 25), (SpotmicroEnv, 12, 33)):
+    for observe, fused in (("state", False), ("sensors", True), ("sensors", False)):
+        env = Env(observe=observe, device="cpu")
+        env._fused_sensors = fused
+        st = env.reset(torch.Generator().manual_seed(0), 2)
+        st = env.step(st, torch.zeros(2, nm))
+        assert bool(torch.isfinite(st.obs).all()) and st.obs.shape == (2, nobs)
+from jiminy_tpu_torch.engine import Engine, EngineOptions
+from jiminy_tpu_torch.hardware.motors import Motors
+from jiminy_tpu_torch.models import make_cartpole
+
+eng = Engine(make_cartpole(device="cpu"), EngineOptions(contact_model="constraint"),
+             motors=Motors.create([0], effort_limit=30.0, device="cpu"), device="cpu")
+sim = eng.step(eng.reset(torch.tensor([[2.399, 0.1], [-1.0, -0.1]])), torch.full((2, 1), 30.0),
+               n_substeps=20)
+assert eng.backend == "substep" and float(sim.q[0, 0]) <= 2.4 + 1e-3
 leaked = sorted(k for k in sys.modules if k.partition(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK", len(mods))
