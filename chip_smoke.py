@@ -239,6 +239,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -755,6 +756,42 @@ def _substep_inputs(engine, gen, B):
     cmd = q[:, qi] + 0.4 * torch.rand(B, len(qi), **kw) - 0.2
     wrench = torch.cat([5.0 * torch.randn(B, 3, **kw), 20.0 * torch.randn(B, 3, **kw)], 1)
     return q, v, cmd, lam0, wrench
+
+
+K2_WARP_SOURCE = "jiminy_tpu_torch/csrc/substep_warp.cuh"  # K2 in the ANYmal frame
+
+
+def _warp_report(dev):
+    """Phase 0 for K2's warp body: per instantiation (SENS, GEN, RAND)
+    ptxas's registers, stack and spills, and on ANYmal (flat and on the
+    Fourier ground, with and without the sensor stage) the bytes per env,
+    W and the warps one SM holds (registers and shared memory counted)."""
+    from jiminy_tpu_torch.ops import _build
+    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec, warp_blocks_per_sm
+
+    for lib in ("substep", "substep_rand"):
+        name, frame = None, ""
+        for line in _build.ptxas_report(lib):
+            if "Compiling entry" in line:
+                m = re.search(r"substep_multi_warp_kernelILb(\d)ELb(\d)ELb(\d)E", line)
+                name = None if m is None else "SENS {} GEN {} RAND {}".format(*m.groups())
+            elif name and "stack frame" in line:
+                frame = line
+            elif name and "Used" in line:
+                print(f"[phase 0] K2 warp body <{name}> ({lib}): {line}; {frame}")
+                name = None
+    sens = SensorKernelSpec(_anymal_engine(dev).tree, _anymal_suite(dev), 1)
+    for kind in ("flat", "fourier"):
+        spec = _anymal_engine(dev, ground=_ground_template(kind, dev)
+                              if kind != "flat" else None).substep_spec
+        for with_sens in (False, True):
+            ws = spec.warp_workspace(sens if with_sens else None)
+            warps = {rand: ws.W * warp_blocks_per_sm(ws, with_sens, kind != "flat", rand)
+                     for rand in (False, True)}
+            print(f"[phase 0] K2 warp body on ANYmal, {kind} ground, sensor stage {with_sens}: "
+                  f"{ws.bytes_per_env} B per env, W = {ws.W} envs per block "
+                  f"({ws.W * ws.bytes_per_env} B), warps per SM (nominal, randomized) "
+                  f"{warps[False]}, {warps[True]}")
 
 
 def _max_err(a, b) -> float:
@@ -2529,8 +2566,26 @@ def _counters():
 
 
 def _reset_counts():
+    from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi
+
     for fn, attr in _counters().values():
         setattr(fn, attr, 0)
+    substep_batched_multi.warp_launches = 0
+
+
+def _check_warp(label, spec, launched) -> int:
+    """K2's launches ``launched`` (counts by instantiation) went through the
+    warp body, all of them in the ANYmal frame and none past it: its
+    launches since the counts were last set to 0."""
+    from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi
+
+    k2 = sum(c for n, c in launched.items() if "substep_multi" in n)
+    expect = k2 if spec.warp_workspace() is not None else 0
+    got = substep_batched_multi.warp_launches
+    if got != expect:
+        raise AssertionError(f"{label}: {got} launches of K2's warp body, expected {expect} "
+                             f"(of {k2} K2 launches)")
+    return got
 
 
 def _counts() -> dict:
@@ -2599,6 +2654,7 @@ def run(dev) -> None:
     for name in sorted(build):
         for line in _build.ptxas_report(name):
             print(f"[phase 0] {name}: {line}")
+    _warp_report(dev)
 
     # ---- phase 1: every kernel against its plain version
     main_err = {"constraint_solve": phase_kernel_vs_plain(dev)}
@@ -2626,8 +2682,9 @@ def run(dev) -> None:
             st = env_.step(st, _uniform(act_gen, dev, env_.motors.nm))
         torch.cuda.synchronize()
         path[label] = got = _counts()
+        warp = _check_warp(label, env_.engine.substep_spec, got)
         print(f"[phase 2] {label}, {steps} env steps at B={B_MAIN}: launches "
-              f"{json.dumps({n: c for n, c in got.items() if c})}")
+              f"{json.dumps({n: c for n, c in got.items() if c})} (K2's warp body {warp})")
         if got != _only(**expect):
             raise AssertionError(f"{label}: expected the launches {expect} and no other, saw {got}")
         _check_finite(st, label)
@@ -2649,6 +2706,7 @@ def run(dev) -> None:
             sim = eng.step(sim, u, n_substeps=walker.n_substeps, model_params=model_params)
         torch.cuda.synchronize()
         path[label] = got = _counts()
+        _check_warp(label, eng.substep_spec, got)
         print(f"[phase 2] {label}, 3 env steps: launches "
               f"{json.dumps({n: c for n, c in got.items() if c})}")
         if got != _only(**expect):
@@ -2793,7 +2851,7 @@ def run(dev) -> None:
     n_sub = env.n_substeps
     k2_ops = B_MAIN * (n_sub * (_substep_flops(spec) + _torque_flops(spec)) + 2 * spec.tree.nv)
     entry(
-        "substep_multi", "jiminy_tpu_torch/csrc/substep.cu",
+        "substep_multi", K2_WARP_SOURCE,
         "jiminy_tpu/ops/substep_kernel.py:1815", path["main path"]["substep_multi"],
         _time_cuda(lambda: substep_batched_multi(spec, n_sub, q, v, cmd, lam0, wrench), 20),
         _time_cuda(lambda: substep_multi_reference(spec, n_sub, q, v, cmd, lam0, wrench), 3),
@@ -2808,10 +2866,15 @@ def run(dev) -> None:
     sw = dict(sensors=sens, bufs=bufs, eps=eps)
     sens_bytes = _sensor_bytes(sens, B_MAIN, n_upd)
     sens_ops = B_MAIN * n_upd * _sensor_flops(spec, sens)
+
+    def sensor_k2():
+        return substep_batched_multi(spec, n_sub, q, v, cmd, lam0, wrench, **sw)
+
+    sensor_k2_ms = _time_cuda(sensor_k2, 20)
     entry(
-        "substep_multi_sensors", "jiminy_tpu_torch/csrc/substep.cu",
+        "substep_multi_sensors", K2_WARP_SOURCE,
         "jiminy_tpu/ops/substep_kernel.py:1459", path["sensor path"]["substep_multi_sensors"],
-        _time_cuda(lambda: substep_batched_multi(spec, n_sub, q, v, cmd, lam0, wrench, **sw), 20),
+        sensor_k2_ms,
         _time_cuda(lambda: substep_multi_reference(spec, n_sub, q, v, cmd, lam0, wrench, **sw), 3),
         _substep_multi_bytes(spec, B_MAIN) + sens_bytes, k2_ops + sens_ops,
     )
@@ -2868,7 +2931,7 @@ def run(dev) -> None:
             ms, plain_ms = _time_cuda(kernel, 20), _time_cuda(plain, 3)
             in_json = json_ground[name][0] == kind
             if in_json:
-                entry(name, "jiminy_tpu_torch/csrc/substep.cu",
+                entry(name, K2_WARP_SOURCE if "multi" in name else "jiminy_tpu_torch/csrc/substep.cu",
                       "jiminy_tpu/ops/substep_kernel.py:1219", path[json_ground[name][1]][name],
                       ms, plain_ms, n_bytes, n_ops)
             else:
@@ -2920,7 +2983,7 @@ def run(dev) -> None:
         }
         for name, (kernel, plain, n_bytes, n_ops) in runs.items():
             ms, plain_ms = _time_cuda(kernel, 20), _time_cuda(plain, 3)
-            entry(name, "jiminy_tpu_torch/csrc/substep_rand.cu",
+            entry(name, K2_WARP_SOURCE if "multi" in name else "jiminy_tpu_torch/csrc/substep_rand.cu",
                   "jiminy_tpu/ops/substep_kernel.py:507", path[launched_by[name]][name],
                   ms, plain_ms, n_bytes, n_ops)
 
@@ -2970,9 +3033,10 @@ def run(dev) -> None:
         for _ in range(5):  # warm-up
             st = env_w.step(st, _uniform(act_gen, dev, env_w.motors.nm))
         torch.cuda.synchronize()
-        before = _counts()
+        _reset_counts()
         rates_w[f"{wname} {obs}"], st = _env_rate(env_w, st, act_gen, dev, STEPS, 3)
-        launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+        launched = {n: c for n, c in _counts().items() if c}
+        _check_warp(f"{wname} {obs} path, timed", env_w.engine.substep_spec, launched)
         print(f"[phase 3] env-steps/s at B={B_MAIN}, {wname} {obs} path: "
               f"{[round(r, 1) for r in rates_w[f'{wname} {obs}']]} (max "
               f"{max(rates_w[f'{wname} {obs}']):.1f}); launches in the {3 * STEPS} timed steps "
@@ -3023,14 +3087,14 @@ def run(dev) -> None:
               f"{_torque_flops(wspec)}, sensor update {_sensor_flops(wspec, wsens)}; "
               f"{n_w} substeps, {n_upd} sensor updates per env step")
         entry(
-            f"{wname}_substep_multi", "jiminy_tpu_torch/csrc/substep.cu", k2_entry,
+            f"{wname}_substep_multi", K2_WARP_SOURCE, k2_entry,
             path[f"{wname} state path"]["substep_multi"],
             _time_cuda(lambda: substep_batched_multi(wspec, n_w, *wargs), 20),
             _time_cuda(lambda: substep_multi_reference(wspec, n_w, *wargs), 2),
             _substep_multi_bytes(wspec, B_MAIN), w_ops,
         )
         entry(
-            f"{wname}_substep_multi_sensors", "jiminy_tpu_torch/csrc/substep.cu", k2_entry,
+            f"{wname}_substep_multi_sensors", K2_WARP_SOURCE, k2_entry,
             path[f"{wname} sensors path"]["substep_multi_sensors"],
             _time_cuda(lambda: substep_batched_multi(wspec, n_w, *wargs, **wsw), 20),
             _time_cuda(lambda: substep_multi_reference(wspec, n_w, *wargs, **wsw), 2),
@@ -3045,7 +3109,7 @@ def run(dev) -> None:
     cq, cv, ccmd, clam0, cwrench = cp_args
     cp_tau = eng_cp._joint_torque(ccmd, cq, cv)
     entry(
-        "cartpole_substep_multi", "jiminy_tpu_torch/csrc/substep.cu", b10,
+        "cartpole_substep_multi", K2_WARP_SOURCE, b10,
         path["cartpole engine path"]["substep_multi"],
         _time_cuda(lambda: substep_batched_multi(cp_spec, CARTPOLE_SUBSTEPS, *cp_args), 20),
         _time_cuda(lambda: substep_multi_reference(cp_spec, CARTPOLE_SUBSTEPS, *cp_args), 2),
@@ -3060,6 +3124,13 @@ def run(dev) -> None:
         _time_cuda(lambda: substep_reference(cp_spec, cq, cv, cp_tau, clam0, cwrench), 3),
         _substep_bytes(cp_spec, B_MAIN), B_MAIN * _substep_flops(cp_spec),
     )
+
+    # K2's warp body stage by stage (the measuring build, csrc/substep_stages.cu)
+    from jiminy_tpu_torch.tools.profile_warp_stages import profile as stage_profile
+
+    for row in stage_profile(B_MAIN, dev):
+        print(f"[phase 3] K2 warp body stages, {row['model']} {row['path']} (n_sub "
+              f"{row['n_sub']}): cycles per env per substep {json.dumps(row['cycles_per_env_substep'])}")
 
     # ---- Cassie, last: after one launch in the large frame (~40 KB of
     # stack per thread; the CUDA runtime keeps the local memory it grew),
@@ -3330,7 +3401,7 @@ def run(dev) -> None:
         s_ops = B_MAIN * (n_sub * (_substep_flops(sspec) + _torque_flops(sspec))
                           + 2 * sspec.tree.nv)
         entry(
-            name, "jiminy_tpu_torch/csrc/substep.cu", b4s, path[launched_by][counter],
+            name, K2_WARP_SOURCE, b4s, path[launched_by][counter],
             _time_cuda(lambda: substep_batched_multi(sspec, n_sub, *sargs, gc=sgc), 20),
             _time_cuda(lambda: substep_multi_reference(sspec, n_sub, *sargs, gc=sgc), 3),
             _substep_multi_bytes(sspec, B_MAIN) + g_bytes, s_ops + g_ops,
@@ -3428,6 +3499,12 @@ def run(dev) -> None:
         _time_cuda(lambda: substep_reference(sl_spec, sq, sv, sl_tau, slam0, swrench), 3),
         _substep_bytes(sl_spec, B_MAIN), B_MAIN * _substep_flops(sl_spec),
     )
+    # after every large-frame launch: the ANYmal sensor K2 again (the
+    # one-thread body ran it ~5 % slower here than before them)
+    late_ms = _time_cuda(sensor_k2, 20)
+    print(f"[phase 3] substep_multi_sensors B={B_MAIN} after the large-frame launches: "
+          f"{late_ms:.4f} ms against {sensor_k2_ms:.4f} ms before them "
+          f"({late_ms / sensor_k2_ms:.4f}×)")
     print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_sensor_path": rates_s,
                       "env_steps_per_s_terrain_path": rates_t,
                       "env_steps_per_s_sim2real_path": rates_r,

@@ -1,9 +1,12 @@
-// Whole-substep kernels, one thread per env, for Hopper (sm_90a).
+// Whole-substep kernels for Hopper (sm_90a): K2 in the ANYmal frame one
+// warp per env (substep_warp.cuh), K2 in the large frame and K3 one thread
+// per env.
 //
 // Included by two translation units, each its own library: csrc/substep.cu
 // (JT_RAND false, the nominal instantiations) and csrc/substep_rand.cu
 // (JT_RAND true, the randomized ones); both export the same entry points,
-// so nvcc builds the two halves at once.
+// so nvcc builds the two halves at once (csrc/substep_stages.cu, a third,
+// is the nominal half counting K2's stages, for measurement alone).
 //
 // Replaces: jiminy_tpu/ops/substep_kernel.py
 //   K2 `substep_batched_pallas_multi` → `_substep_multi_body` (n_sub
@@ -84,19 +87,31 @@
 // narrow phase and 9 rows, and the chain grows with nc (37 against 28;
 // chip_smoke.py `_pair_flops`); its flexible twin (nb 17, nv 26, nq 29,
 // nc 28: two SPHERICAL joints above the hips) grows the columns, not the
-// rows (chip_smoke.py `_substep_flops` counts the SPHERICAL terms). This
-// design is far from that bound by choice: the TPU
-// kernel's lane-major layout (batch on the 128 vector lanes, the tree
-// unrolled into Python floats, the batch padded by repetition) does not
-// carry over, so one thread owns one env and keeps every intermediate
-// (body poses, M, J, the chain's L, X, A) in its local memory. The tree
-// arrives as a packed device buffer (read by every thread at the same
-// addresses, so it broadcasts from L1), bodies and rows are runtime loops
-// under compile-time caps ⟨NMAX, NCMAX, NBMAX⟩ = ⟨18, 24, 13⟩ (ANYmal)
-// or ⟨32, 48, 32⟩, one build serves every model. Blocks are one warp,
-// the ragged edge is masked. Each thread's work is serial, so the kernel
-// is latency-bound; a warp per env, shared memory and tensor cores are
-// later work.
+// rows (chip_smoke.py `_substep_flops` counts the SPHERICAL terms).
+//
+// The TPU kernel's lane-major layout (batch on the 128 vector lanes, the
+// tree unrolled into Python floats, the batch padded by repetition) does
+// not carry over. The tree arrives as a packed device buffer (read at the
+// same addresses by every lane of a warp, so it broadcasts from L1), and
+// bodies and rows are runtime loops, so one build serves every model.
+// The one-thread design (one thread one env, blocks of one warp, the caps
+// ⟨NMAX, NCMAX, NBMAX⟩ = ⟨18, 24, 13⟩ or ⟨32, 48, 32⟩) ran K2 at ~196× its
+// bound on ANYmal (2.42 ms against 0.0124 ms at B = 4096; PERF.md), held
+// back by three things: (1) under one warp per SM (B = 4096 is 128 warps
+// for 132 SMs; one scheduler of four busy, nothing to hide latency behind);
+// (2) every intermediate in local memory (body poses, M, J, the chain's L,
+// X, A and the carry are indexed under runtime bounds: ~13 KB per thread
+// in the ANYmal frame, ~40 KB in the large one); (3) serial work, ~20
+// cycles per operation. K2 in the ANYmal frame (substep_warp.cuh) answers
+// each: (1) a warp per env and four envs per block, so B = 4096 is 4096
+// warps and an SM holds 16 of them; (2) the env's working set in shared
+// memory, sized from the model (8,752 B for ANYmal, L factored in place
+// of M, the tree passes' arrays in the chain's X and A), with odd row
+// strides; (3) the lanes across the bodies of one depth, the motors, the
+// rows, the contacts, Cholesky's column, the right-hand sides of M⁻¹[p |
+// Jᵀ], A's columns and each PGS group, so a substep's dependent chain is
+// the tree's depth and the chain's length, not its size. The large frame,
+// K3 and K1 (solve_chain.cuh) keep the one-thread design.
 //
 // Packed spec (built by ops/substep_kernel.py `SubstepSpec.packed`):
 //   ints:   [nb, nq, nv, ncp, nbj, nm, torque mode, ground mode, Fourier
@@ -308,12 +323,14 @@ __device__ __forceinline__ int joint_nv(int jt) {
 
 // column c of joint i's motion subspace as (w, v)
 __device__ __forceinline__ void subspace_col(int jt, const float* axis, int c, float* col) {
+  // unit columns by selects, not an index into col (which would put col
+  // in local memory)
   for (int k = 0; k < 6; ++k) col[k] = 0.f;
   if (jt == JT_FREE) {
-    if (c < 3) col[3 + c] = 1.f;  // linear dofs (v = [v_lin, ω])
-    else col[c - 3] = 1.f;        // angular dofs
+    const int hot = c < 3 ? 3 + c : c - 3;  // linear dofs (v = [v_lin, ω]), then angular
+    for (int k = 0; k < 6; ++k) col[k] = k == hot ? 1.f : 0.f;
   } else if (jt == JT_SPHERICAL) {
-    col[c] = 1.f;  // v = ω local
+    for (int k = 0; k < 6; ++k) col[k] = k == c ? 1.f : 0.f;  // v = ω local
   } else if (jt == JT_REVOLUTE || jt == JT_PRISMATIC) {
     // [axis; 0] turns about the axis, [0; axis] slides along it (selects,
     // not an index into col, which would put col in local memory)
@@ -440,46 +457,55 @@ __device__ __forceinline__ void jt_quat_step(const float* q, const float* w_dt, 
 // the gain, the friction torque times the scale (`_compute_tau`'s order).
 __device__ __forceinline__ float sign_of(float x) { return (float)((x > 0.f) - (x < 0.f)); }
 
+// motor m's torque on its dof v_idx[m] (the part before joint damping)
+template <bool RAND>
+__device__ __forceinline__ float jt_motor_tau(const SpecView& s, int m, const float* q,
+                                              const float* v, const float* cmd,
+                                              const float* mscale) {
+  const int vi = s.mv[m];
+  const float vj = v[vi];
+  float u = s.mode == JT_TORQUE_PD
+                ? s.kp[m] * (cmd[m] - q[s.mq[m]]) - s.kd[m] * vj
+                : cmd[m];
+  const float el = s.elim[m];
+  u = fminf(fmaxf(u, -el), el);
+  float red = s.red[m];
+  if constexpr (RAND) red = red * mscale[m];
+  float tm = red * u;
+  const float vl = s.vlim[m];
+  const float over =
+      fminf(fmaxf((fabsf(vj) - vl) / (0.1f * fmaxf(vl, 1e-6f)), 0.f), 1.f);
+  if (sign_of(tm) == sign_of(vj)) tm = tm * (1.f - over);
+  float fric = s.fdry[m] * tanhf(vj / s.feps[m]) + s.fvis[m] * vj;
+  if constexpr (RAND) fric = fric * mscale[s.nm + m];
+  return tm - fric;
+}
+
+// joint i's spring torque taken from its dofs of tau (springs in the spec)
+__device__ __forceinline__ void jt_spring_tau(const SpecView& s, int i, const float* q,
+                                              float* tau) {
+  const float* stiff = jt_stiffness(s);
+  const int jt = s.jtype[i], vo = s.v_off[i], qo = s.q_off[i];
+  if (jt == JT_SPHERICAL) {
+    if (stiff[vo] != 0.f || stiff[vo + 1] != 0.f || stiff[vo + 2] != 0.f) {
+      float rv[3];
+      jt_quat_log(q + qo, rv);
+      for (int r = 0; r < 3; ++r) tau[vo + r] = tau[vo + r] - stiff[vo + r] * rv[r];
+    }
+  } else if (jt == JT_REVOLUTE || jt == JT_PRISMATIC) {  // −k·q, angle or length
+    const float k = stiff[vo];
+    if (k != 0.f) tau[vo] = tau[vo] - k * q[qo];
+  }
+}
+
 template <bool RAND>
 __device__ __forceinline__ void jt_torque(const SpecView& s, const float* q, const float* v,
                                           const float* cmd, const float* mscale, float* tau) {
   for (int r = 0; r < s.nv; ++r) tau[r] = 0.f;
-  for (int m = 0; m < s.nm; ++m) {
-    const int vi = s.mv[m];
-    const float vj = v[vi];
-    float u = s.mode == JT_TORQUE_PD
-                  ? s.kp[m] * (cmd[m] - q[s.mq[m]]) - s.kd[m] * vj
-                  : cmd[m];
-    const float el = s.elim[m];
-    u = fminf(fmaxf(u, -el), el);
-    float red = s.red[m];
-    if constexpr (RAND) red = red * mscale[m];
-    float tm = red * u;
-    const float vl = s.vlim[m];
-    const float over =
-        fminf(fmaxf((fabsf(vj) - vl) / (0.1f * fmaxf(vl, 1e-6f)), 0.f), 1.f);
-    if (sign_of(tm) == sign_of(vj)) tm = tm * (1.f - over);
-    float fric = s.fdry[m] * tanhf(vj / s.feps[m]) + s.fvis[m] * vj;
-    if constexpr (RAND) fric = fric * mscale[s.nm + m];
-    tau[vi] = tm - fric;
-  }
+  for (int m = 0; m < s.nm; ++m) tau[s.mv[m]] = jt_motor_tau<RAND>(s, m, q, v, cmd, mscale);
   for (int r = 0; r < s.nv; ++r) tau[r] = tau[r] - s.damp[r] * v[r];
-  if (s.springs) {  // the spec's, uniform across the warp
-    const float* stiff = jt_stiffness(s);
-    for (int i = 0; i < s.nb; ++i) {
-      const int jt = s.jtype[i], vo = s.v_off[i], qo = s.q_off[i];
-      if (jt == JT_SPHERICAL) {
-        if (stiff[vo] != 0.f || stiff[vo + 1] != 0.f || stiff[vo + 2] != 0.f) {
-          float rv[3];
-          jt_quat_log(q + qo, rv);
-          for (int r = 0; r < 3; ++r) tau[vo + r] = tau[vo + r] - stiff[vo + r] * rv[r];
-        }
-      } else if (jt == JT_REVOLUTE || jt == JT_PRISMATIC) {  // −k·q, angle or length
-        const float k = stiff[vo];
-        if (k != 0.f) tau[vo] = tau[vo] - k * q[qo];
-      }
-    }
-  }
+  if (s.springs)  // the spec's, uniform across the warp
+    for (int i = 0; i < s.nb; ++i) jt_spring_tau(s, i, q, tau);
 }
 
 // ---- the ground query (counterpart of `_ground_query`; the plain
@@ -600,18 +626,21 @@ __device__ __forceinline__ float jt_contact_basis(const SpecView& s, const float
 // the env's inertials from its model-parameter row (counterpart of
 // `_unpack_mp`) into the [mass, h (3), I (3×3, row-major)] layout of the
 // spec's bodies: I rebuilt symmetric from xx, yy, zz, xy, xz, yz
+__device__ __forceinline__ void jt_load_inertial(const SpecView& s, const float* mp, int i,
+                                                 float* Ic) {
+  const int nb = s.nb;
+  const float* h = mp + nb + 3 * i;
+  const float* I6 = mp + 4 * nb + 6 * i;
+  Ic[0] = mp[i];
+  for (int k = 0; k < 3; ++k) Ic[1 + k] = h[k];
+  Ic[4] = I6[0]; Ic[5] = I6[3]; Ic[6] = I6[4];
+  Ic[7] = I6[3]; Ic[8] = I6[1]; Ic[9] = I6[5];
+  Ic[10] = I6[4]; Ic[11] = I6[5]; Ic[12] = I6[2];
+}
+
 __device__ __forceinline__ void jt_load_inertials(const SpecView& s, const float* mp,
                                                   float (*Ic)[13]) {
-  const int nb = s.nb;
-  for (int i = 0; i < nb; ++i) {
-    const float* h = mp + nb + 3 * i;
-    const float* I6 = mp + 4 * nb + 6 * i;
-    Ic[i][0] = mp[i];
-    for (int k = 0; k < 3; ++k) Ic[i][1 + k] = h[k];
-    Ic[i][4] = I6[0]; Ic[i][5] = I6[3]; Ic[i][6] = I6[4];
-    Ic[i][7] = I6[3]; Ic[i][8] = I6[1]; Ic[i][9] = I6[5];
-    Ic[i][10] = I6[4]; Ic[i][11] = I6[5]; Ic[i][12] = I6[2];
-  }
+  for (int i = 0; i < s.nb; ++i) jt_load_inertial(s, mp, i, Ic[i]);
 }
 
 // ---- one distance-constraint row (the closed loops of `_substep_math`):
@@ -725,10 +754,9 @@ __device__ __forceinline__ float jt_box_sdf(const float* pl, const float* h, flo
 // (ref = e_x where |n_x| < 0.9, else e_y), t2 = n × t1; the ground
 // contacts' Baumgarte / velocity-barrier target on the normal row, active
 // where depth > −margin, μ the pair's friction.
-template <int NMAX>
 __device__ __forceinline__ void jt_pair_contact(
     const SpecView& s, const float (*xwR)[9], const float (*xwp)[3], int ba, const float* sa,
-    int bb, const float* sb, const float* n, float depth, float mu_g, int row, float* J,
+    int bb, const float* sb, const float* n, float depth, float mu_g, int row, float* J, int ldj,
     float* target, float* active, float* mu) {
   float bs[9], col[6];
   const bool cnd = fabsf(n[0]) < 0.9f;
@@ -753,7 +781,7 @@ __device__ __forceinline__ void jt_pair_contact(
         mat3_vec(xwR[j], col + 3, vc);
         cross3(wc, r3, wr);
         for (int e = 0; e < 3; ++e) lin[e] = vc[e] + wr[e];
-        for (int e = 0; e < 3; ++e) J[(row + e) * NMAX + vo + cc] += sign * dot3(bs + 3 * e, lin);
+        for (int e = 0; e < 3; ++e) J[(row + e) * ldj + vo + cc] += sign * dot3(bs + 3 * e, lin);
       }
     }
   }
@@ -772,11 +800,11 @@ __device__ __forceinline__ void jt_pair_contact(
 
 // every pair generator's contacts (the narrow phases of `_substep_math`'s
 // pair block) as rows from row0, contact after contact in generator order;
-// stops at nc (the layout jt_check_dims holds makes that the end)
-template <int NMAX>
+// stops at nc (the layout jt_check_dims holds makes that the end); J's
+// rows ldj apart
 __device__ __forceinline__ void jt_pair_rows(const SpecView& s, const float (*xwR)[9],
                                              const float (*xwp)[3], int row0, int nc, float* J,
-                                             float* target, float* active, float* mu) {
+                                             int ldj, float* target, float* active, float* mu) {
   const int* gi = jt_pair_ints(s);
   const float* gfl = jt_pair_floats(s);
   int row = row0;
@@ -800,8 +828,8 @@ __device__ __forceinline__ void jt_pair_rows(const SpecView& s, const float (*xw
         sa[e] = ca[e] - f[1] * n[e];
         sb[e] = cb[e] + f[2] * n[e];
       }
-      jt_pair_contact<NMAX>(s, xwR, xwp, bp, sa, bf, sb, n, (f[1] + f[2]) - dist, f[0], row, J,
-                            target, active, mu);
+      jt_pair_contact(s, xwR, xwp, bp, sa, bf, sb, n, (f[1] + f[2]) - dist, f[0], row, J,
+                      ldj, target, active, mu);
       row += 3;
     } else if (kind == JT_GEN_PTBOX) {
       const float rp = f[1];
@@ -821,8 +849,8 @@ __device__ __forceinline__ void jt_pair_rows(const SpecView& s, const float (*xw
           sa[e] = pw[e] - rp * n[e];
           sb[e] = pw[e] - sdf * n[e];
         }
-        jt_pair_contact<NMAX>(s, xwR, xwp, bp, sa, bf, sb, n, rp - sdf, f[0], row, J, target,
-                              active, mu);
+        jt_pair_contact(s, xwR, xwp, bp, sa, bf, sb, n, rp - sdf, f[0], row, J, ldj, target,
+                        active, mu);
         row += 3;
       }
     } else {  // JT_GEN_PTSEG: the points against a capsule on bf
@@ -849,11 +877,242 @@ __device__ __forceinline__ void jt_pair_rows(const SpecView& s, const float (*xw
           sa[e] = pw[e] - rp * n[e];
           sb[e] = cpt[e] + rs * n[e];
         }
-        jt_pair_contact<NMAX>(s, xwR, xwp, bp, sa, bf, sb, n, (rp + rs) - dist, f[0], row, J,
-                              target, active, mu);
+        jt_pair_contact(s, xwR, xwp, bp, sa, bf, sb, n, (rp + rs) - dist, f[0], row, J,
+                        ldj, target, active, mu);
         row += 3;
       }
     }
+  }
+}
+
+// ---- the pieces of one substep, each for one body, dof, row or contact:
+// the one-thread body (jt_substep) runs them in loops, the warp body
+// (substep_warp.cuh) across its lanes, with the same arithmetic.
+
+// FK of body i, its local pose (xlR, xlp)[i] known and its parent's done:
+// world pose and local spatial velocity
+__device__ __forceinline__ void jt_fk_body(const SpecView& s, int i, const float* v,
+                                           const float (*xlR)[9], const float (*xlp)[3],
+                                           float (*xwR)[9], float (*xwp)[3], float (*vel)[6]) {
+  float t3[3], t6[6], vj[6];
+  joint_motion(s, i, v, vj);
+  const int p = s.parent[i];
+  if (p < 0) {
+    for (int k = 0; k < 9; ++k) xwR[i][k] = xlR[i][k];
+    for (int k = 0; k < 3; ++k) xwp[i][k] = xlp[i][k];
+    for (int k = 0; k < 6; ++k) vel[i][k] = vj[k];
+  } else {
+    mat3_mul(xwR[p], xlR[i], xwR[i]);
+    mat3_vec(xwR[p], xlp[i], t3);
+    for (int k = 0; k < 3; ++k) xwp[i][k] = t3[k] + xwp[p][k];
+    motion_p2c(xlR[i], xlp[i], vel[p], t6);
+    for (int k = 0; k < 6; ++k) vel[i][k] = t6[k] + vj[k];
+  }
+}
+
+// RNEA's forward pass at body i (its parent's done): the acceleration from
+// a0 = [0; −g] at the root, and the force I·a + v ×* I·v; in: [mass, h, I]
+__device__ __forceinline__ void jt_rnea_fwd_body(const SpecView& s, int i, const float* v,
+                                                 const float* in, const float (*xlR)[9],
+                                                 const float (*xlp)[3], const float (*vel)[6],
+                                                 float (*acc)[6], float (*frc)[6]) {
+  float t6[6], u6[6], vj[6], col[6];
+  const int p = s.parent[i];
+  if (p < 0) {
+    const float a0[6] = {0.f, 0.f, 0.f, -s.scal[JT_S_GX], -s.scal[JT_S_GY], -s.scal[JT_S_GZ]};
+    motion_p2c(xlR[i], xlp[i], a0, acc[i]);
+  } else {
+    joint_motion(s, i, v, vj);
+    motion_p2c(xlR[i], xlp[i], acc[p], t6);
+    motion_cross(vel[i], vj, u6);
+    for (int k = 0; k < 6; ++k) acc[i][k] = t6[k] + u6[k];
+  }
+  inertia_mul(in[0], in + 1, in + 4, acc[i], t6);
+  inertia_mul(in[0], in + 1, in + 4, vel[i], u6);
+  motion_cross_force(vel[i], u6, col);
+  for (int k = 0; k < 6; ++k) frc[i][k] = t6[k] + col[k];
+}
+
+// RNEA's backward pass at body i (its force complete): the bias of its
+// dofs, and its force in its parent's frame into up (a root leaves up as is)
+__device__ __forceinline__ void jt_rnea_bwd_body(const SpecView& s, int i,
+                                                 const float (*xlR)[9], const float (*xlp)[3],
+                                                 const float* frc_i, float* bias, float* up) {
+  float col[6];
+  const int vo = s.v_off[i], jt = s.jtype[i];
+  for (int c = 0; c < joint_nv(jt); ++c) {
+    subspace_col(jt, s.body + JT_BODY_F * i, c, col);
+    float d = 0.f;
+    for (int k = 0; k < 6; ++k) d += frc_i[k] * col[k];
+    bias[vo + c] = d;
+  }
+  if (s.parent[i] >= 0) force_c2p(xlR[i], xlp[i], frc_i, up);
+}
+
+// CRBA: what body i's composite inertia (mass, h, I about its origin) adds
+// to its parent's, expressed in the parent (pose R, pp of i in it)
+__device__ __forceinline__ void jt_composite_terms(const float* R, const float* pp,
+                                                   const float* Ici, float* out) {
+  const float m = Ici[0];
+  float rh[3], ha[3], RI[9], rot[9];
+  mat3_vec(R, Ici + 1, rh);
+  for (int k = 0; k < 3; ++k) ha[k] = rh[k] + m * pp[k];
+  mat3_mul(R, Ici + 4, RI);
+  for (int r = 0; r < 3; ++r)  // (R·I)·Rᵀ
+    for (int c = 0; c < 3; ++c)
+      rot[3 * r + c] = RI[3 * r] * R[3 * c] + RI[3 * r + 1] * R[3 * c + 1] +
+                       RI[3 * r + 2] * R[3 * c + 2];
+  // hat(a)·hat(b)ᵀ = (a·b)·I − b·aᵀ
+  const float d1 = dot3(pp, rh), d2 = dot3(ha, pp);
+  out[0] = m;
+  for (int k = 0; k < 3; ++k) out[1 + k] = ha[k];
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c) {
+      const float e = r == c ? 1.f : 0.f;
+      out[4 + 3 * r + c] = rot[3 * r + c] + (d1 * e - rh[r] * pp[c]) + (d2 * e - pp[r] * ha[c]);
+    }
+}
+
+// dof r's diagonal of M (armature, dt·damping, dt²·stiffness) and its
+// free-motion torque pf[r] from τ and the bias b
+template <bool RAND>
+__device__ __forceinline__ void jt_diag_row(const SpecView& s, int r, const float* mp, float dt,
+                                            const float* tau, const float* v, float b, float* Mrr,
+                                            float* pf) {
+  if constexpr (RAND) *Mrr += mp[10 * s.nb + r];
+  else *Mrr += s.arm[r];
+  if (s.springs) {  // (M + dt·C + dt²·K)·Δv = dt·(τ − C·v − dt·K·v − bias)
+    const float k = jt_stiffness(s)[r];
+    *Mrr += dt * s.damp[r] + dt * dt * k;
+    pf[r] = (tau[r] - dt * k * v[r]) - b;
+  } else {
+    *Mrr += dt * s.damp[r];
+    pf[r] = tau[r] - b;
+  }
+}
+
+// bound t's row (J's row zeroed by the caller, ldj apart)
+__device__ __forceinline__ void jt_bound_row(const SpecView& s, int t, int row, const float* q,
+                                             float* J, int ldj, float* target, float* active,
+                                             float* mu) {
+  const float dt = s.scal[JT_S_DT], alpha_b = s.scal[JT_S_ALPHA_B];
+  const int i = s.bbody[t];
+  const float qj = q[s.q_off[i]];
+  const float d_lo = qj - s.blo[t], d_hi = s.bhi[t] - qj;
+  const float dist = fminf(d_lo, d_hi);
+  J[row * ldj + s.v_off[i]] = d_lo < d_hi ? 1.f : -1.f;
+  target[row] = (dist < 0.f ? -alpha_b * dist : -dist) / dt;
+  active[row] = 1.f;
+  mu[row] = 0.f;
+}
+
+// contact jc's rows [t1; t2; n] at row (color order: the site corder[jc];
+// J's rows zeroed by the caller, ldj apart), its target, active flag and
+// μ; a sphere site at its surface point; with GEN its basis [t1 | t2 | n̂]
+// into basis (9)
+template <bool GEN>
+__device__ __forceinline__ void jt_contact_row(const SpecView& s, int jc, int row,
+                                               const float (*xwR)[9], const float (*xwp)[3],
+                                               const float* g, int n_gc, float* J, int ldj,
+                                               float* target, float* active, float* mu,
+                                               float* basis) {
+  const float dt = s.scal[JT_S_DT];
+  const int k = s.corder[jc], b = s.cbody[k];
+  float pt[3], r3[3], col[6];
+  mat3_vec(xwR[b], s.cpos + 3 * k, pt);
+  for (int e = 0; e < 3; ++e) pt[e] += xwp[b][e];
+  if (s.spheres) {  // a sphere site touches at centre − r·n̂, n̂ at the centre's xy
+    const float rk = jt_radii(s)[k];
+    if (rk > 0.f) {
+      if constexpr (GEN) {
+        float hg[3];
+        jt_ground_query(s, g, n_gc, pt[0], pt[1], hg);
+        const float inv = rsqrtf(hg[1] * hg[1] + hg[2] * hg[2] + 1.f);
+        pt[0] += rk * hg[1] * inv;
+        pt[1] += rk * hg[2] * inv;
+        pt[2] -= rk * inv;
+      } else {
+        pt[2] -= rk;
+      }
+    }
+  }
+  float h_gen = 0.f;
+  if constexpr (GEN) h_gen = jt_contact_basis(s, g, n_gc, pt, basis);
+  // point Jacobian, written as the rows [t1; t2; n]·J_p: on flat ground
+  // [−J_y; J_x; J_z]
+  for (int j = b; j >= 0; j = s.parent[j]) {
+    const int jt = s.jtype[j], vo = s.v_off[j];
+    for (int e = 0; e < 3; ++e) r3[e] = pt[e] - xwp[j][e];
+    for (int c = 0; c < joint_nv(jt); ++c) {
+      float wc[3], vc[3], wr[3], lin[3];
+      subspace_col(jt, s.body + JT_BODY_F * j, c, col);
+      mat3_vec(xwR[j], col, wc);
+      mat3_vec(xwR[j], col + 3, vc);
+      cross3(wc, r3, wr);
+      for (int e = 0; e < 3; ++e) lin[e] = vc[e] + wr[e];
+      if constexpr (GEN) {
+        for (int e = 0; e < 3; ++e) J[(row + e) * ldj + vo + c] = dot3(basis + 3 * e, lin);
+      } else {
+        J[row * ldj + vo + c] = -lin[1];
+        J[(row + 1) * ldj + vo + c] = lin[0];
+        J[(row + 2) * ldj + vo + c] = lin[2];
+      }
+    }
+  }
+  // penetrating → Baumgarte push-back; hovering within the margin → may
+  // approach the surface but not cross it
+  const float depth = (GEN ? h_gen : s.scal[JT_S_GROUND]) - pt[2];
+  const float corr = depth > 0.f
+      ? fminf(fmaxf(s.scal[JT_S_ALPHA_C_DT] * (depth - s.scal[JT_S_SLOP]), 0.f),
+              s.scal[JT_S_MAX_CORR])
+      : depth / dt;
+  const float act = depth > -s.scal[JT_S_MARGIN] ? 1.f : 0.f;
+  const float friction = s.scal[JT_S_FRICTION];
+  for (int e = 0; e < 3; ++e) {
+    target[row + e] = e == 2 ? corr : 0.f;
+    active[row + e] = act;
+    mu[row + e] = friction;
+  }
+}
+
+// contact jc's world impulse in the original contact order: t1·λ₀ + t2·λ₁
+// + n·λ₂ of its rows at row (basis: its GEN basis)
+template <bool GEN>
+__device__ __forceinline__ void jt_contact_impulse(const SpecView& s, int jc, int row,
+                                                   const float* lam, const float* basis,
+                                                   float* fc) {
+  const int k = s.corder[jc];
+  if constexpr (GEN) {
+    for (int e = 0; e < 3; ++e)
+      fc[3 * k + e] = basis[e] * lam[row] + basis[3 + e] * lam[row + 1] +
+                      basis[6 + e] * lam[row + 2];
+  } else {
+    fc[3 * k] = lam[row + 1];
+    fc[3 * k + 1] = -lam[row];
+    fc[3 * k + 2] = lam[row + 2];
+  }
+}
+
+// symplectic Euler of joint i: q ⊕ v⁺·dt (the quaternions of FREE and
+// SPHERICAL joints by the exponential of the local increment)
+__device__ __forceinline__ void jt_integrate_joint(const SpecView& s, int i, const float* q,
+                                                   const float* v_next, float dt,
+                                                   float* q_next) {
+  const int qo = s.q_off[i], vo = s.v_off[i], jt = s.jtype[i];
+  float w[3];
+  if (jt == JT_FREE) {
+    float R[9], dv[3], dp[3];
+    quat_to_m(q + qo + 3, R);
+    for (int k = 0; k < 3; ++k) dv[k] = v_next[vo + k] * dt;
+    mat3_vec(R, dv, dp);
+    for (int k = 0; k < 3; ++k) q_next[qo + k] = q[qo + k] + dp[k];
+    for (int k = 0; k < 3; ++k) w[k] = v_next[vo + 3 + k] * dt;
+    jt_quat_step(q + qo + 3, w, q_next + qo + 3);
+  } else if (jt == JT_SPHERICAL) {
+    for (int k = 0; k < 3; ++k) w[k] = v_next[vo + k] * dt;
+    jt_quat_step(q + qo, w, q_next + qo);
+  } else if (jt == JT_REVOLUTE || jt == JT_PRISMATIC) {
+    q_next[qo] = q[qo] + v_next[vo] * dt;
   }
 }
 
@@ -876,67 +1135,30 @@ __device__ __forceinline__ float jt_substep(
   float vel[NBMAX][6], acc[NBMAX][6], frc[NBMAX][6], Ic[NBMAX][13];
   float M[NMAX * NMAX], J[NCMAX * NMAX], pf[NMAX];
   float target[NCMAX], mu[NCMAX], active[NCMAX];
-  float col[6], t6[6], u6[6], vj[6];
+  float col[6], t6[6];
 
   // ---- FK: local transforms, world poses, local spatial velocities
   for (int i = 0; i < nb; ++i) {
-    float t3[3];
     jt_local_pose(s, i, q, xlR[i], xlp[i]);
-    joint_motion(s, i, v, vj);
-    const int p = s.parent[i];
-    if (p < 0) {
-      for (int k = 0; k < 9; ++k) xwR[i][k] = xlR[i][k];
-      for (int k = 0; k < 3; ++k) xwp[i][k] = xlp[i][k];
-      for (int k = 0; k < 6; ++k) vel[i][k] = vj[k];
-    } else {
-      mat3_mul(xwR[p], xlR[i], xwR[i]);
-      mat3_vec(xwR[p], xlp[i], t3);
-      for (int k = 0; k < 3; ++k) xwp[i][k] = t3[k] + xwp[p][k];
-      motion_p2c(xlR[i], xlp[i], vel[p], t6);
-      for (int k = 0; k < 6; ++k) vel[i][k] = t6[k] + vj[k];
-    }
+    jt_fk_body(s, i, v, xlR, xlp, xwR, xwp, vel);
   }
 
   // ---- RNEA bias rnea(q, v, 0) with the root wrench as fext[0]; with
   // RAND on the env's own inertials, which CRBA then starts from
   float bias[NMAX];
   if constexpr (RAND) jt_load_inertials(s, mp, Ic);
-  {
-    const float a0[6] = {0.f, 0.f, 0.f, -s.scal[JT_S_GX], -s.scal[JT_S_GY], -s.scal[JT_S_GZ]};
-    for (int i = 0; i < nb; ++i) {
-      const float* bd = s.body + JT_BODY_F * i;
-      const int p = s.parent[i];
-      if (p < 0) {
-        motion_p2c(xlR[i], xlp[i], a0, acc[i]);
-      } else {
-        joint_motion(s, i, v, vj);
-        motion_p2c(xlR[i], xlp[i], acc[p], t6);
-        motion_cross(vel[i], vj, u6);
-        for (int k = 0; k < 6; ++k) acc[i][k] = t6[k] + u6[k];
-      }
-      const float* in;  // mass, h, I
-      if constexpr (RAND) in = Ic[i];
-      else in = bd + 15;
-      inertia_mul(in[0], in + 1, in + 4, acc[i], t6);
-      inertia_mul(in[0], in + 1, in + 4, vel[i], u6);
-      motion_cross_force(vel[i], u6, col);
-      for (int k = 0; k < 6; ++k) frc[i][k] = t6[k] + col[k];
-    }
-    for (int k = 0; k < 6; ++k) frc[0][k] -= w0[k];
-    for (int i = nb - 1; i >= 0; --i) {
-      const int vo = s.v_off[i], jt = s.jtype[i];
-      for (int c = 0; c < joint_nv(jt); ++c) {
-        subspace_col(jt, s.body + JT_BODY_F * i, c, col);
-        float d = 0.f;
-        for (int k = 0; k < 6; ++k) d += frc[i][k] * col[k];
-        bias[vo + c] = d;
-      }
-      const int p = s.parent[i];
-      if (p >= 0) {
-        force_c2p(xlR[i], xlp[i], frc[i], t6);
-        for (int k = 0; k < 6; ++k) frc[p][k] += t6[k];
-      }
-    }
+  for (int i = 0; i < nb; ++i) {
+    const float* in;  // mass, h, I
+    if constexpr (RAND) in = Ic[i];
+    else in = s.body + JT_BODY_F * i + 15;
+    jt_rnea_fwd_body(s, i, v, in, xlR, xlp, vel, acc, frc);
+  }
+  for (int k = 0; k < 6; ++k) frc[0][k] -= w0[k];
+  for (int i = nb - 1; i >= 0; --i) {
+    jt_rnea_bwd_body(s, i, xlR, xlp, frc[i], bias, t6);
+    const int p = s.parent[i];
+    if (p >= 0)
+      for (int k = 0; k < 6; ++k) frc[p][k] += t6[k];
   }
 
   // ---- CRBA + armature + dt·damping (implicit joint damping)
@@ -950,27 +1172,9 @@ __device__ __forceinline__ float jt_substep(
   for (int i = nb - 1; i >= 0; --i) {
     const int p = s.parent[i];
     if (p >= 0) {  // Ic[p] += Ic[i] expressed in the parent
-      const float* R = xlR[i];
-      const float* pp = xlp[i];
-      const float m = Ic[i][0];
-      float rh[3], ha[3], RI[9], rot[9];
-      mat3_vec(R, Ic[i] + 1, rh);
-      for (int k = 0; k < 3; ++k) ha[k] = rh[k] + m * pp[k];
-      mat3_mul(R, Ic[i] + 4, RI);
-      for (int r = 0; r < 3; ++r)  // (R·I)·Rᵀ
-        for (int c = 0; c < 3; ++c)
-          rot[3 * r + c] = RI[3 * r] * R[3 * c] + RI[3 * r + 1] * R[3 * c + 1] +
-                           RI[3 * r + 2] * R[3 * c + 2];
-      // hat(a)·hat(b)ᵀ = (a·b)·I − b·aᵀ
-      const float d1 = dot3(pp, rh), d2 = dot3(ha, pp);
-      Ic[p][0] += m;
-      for (int k = 0; k < 3; ++k) Ic[p][1 + k] += ha[k];
-      for (int r = 0; r < 3; ++r)
-        for (int c = 0; c < 3; ++c) {
-          const float e = r == c ? 1.f : 0.f;
-          Ic[p][4 + 3 * r + c] +=
-              rot[3 * r + c] + (d1 * e - rh[r] * pp[c]) + (d2 * e - pp[r] * ha[c]);
-        }
+      float terms[13];
+      jt_composite_terms(xlR[i], xlp[i], Ic[i], terms);
+      for (int k = 0; k < 13; ++k) Ic[p][k] += terms[k];
     }
     const int jt = s.jtype[i], vo_i = s.v_off[i], nvi = joint_nv(jt);
     const float* axis_i = s.body + JT_BODY_F * i;
@@ -1006,18 +1210,7 @@ __device__ __forceinline__ float jt_substep(
       }
     }
   }
-  for (int r = 0; r < nv; ++r) {
-    if constexpr (RAND) M[r * NMAX + r] += mp[10 * nb + r];
-    else M[r * NMAX + r] += s.arm[r];
-    if (s.springs) {  // (M + dt·C + dt²·K)·Δv = dt·(τ − C·v − dt·K·v − bias)
-      const float k = jt_stiffness(s)[r];
-      M[r * NMAX + r] += dt * s.damp[r] + dt * dt * k;
-      pf[r] = (tau[r] - dt * k * v[r]) - bias[r];
-    } else {
-      M[r * NMAX + r] += dt * s.damp[r];
-      pf[r] = tau[r] - bias[r];
-    }
-  }
+  for (int r = 0; r < nv; ++r) jt_diag_row<RAND>(s, r, mp, dt, tau, v, bias[r], &M[r * NMAX + r], pf);
 
   // ---- rows: distance constraints, bounds, then contacts color-major
   // (sphere sites at their surface points), then the pairs' contacts
@@ -1030,121 +1223,24 @@ __device__ __forceinline__ float jt_substep(
     active[c] = 1.f;
     mu[c] = 0.f;
   }
-  const float alpha_b = s.scal[JT_S_ALPHA_B];
-  for (int t = 0; t < s.nbj; ++t) {
-    const int i = s.bbody[t], row = nd + t;
-    const float qj = q[s.q_off[i]];
-    const float d_lo = qj - s.blo[t], d_hi = s.bhi[t] - qj;
-    const float dist = fminf(d_lo, d_hi);
-    J[row * NMAX + s.v_off[i]] = d_lo < d_hi ? 1.f : -1.f;
-    target[row] = (dist < 0.f ? -alpha_b * dist : -dist) / dt;
-    active[row] = 1.f;
-    mu[row] = 0.f;
-  }
-  const float friction = s.scal[JT_S_FRICTION];
+  for (int t = 0; t < s.nbj; ++t) jt_bound_row(s, t, nd + t, q, J, NMAX, target, active, mu);
   float basis[GEN ? NCMAX / 3 : 1][9];  // GEN: per contact, color order
-  for (int jc = 0; jc < s.ncp; ++jc) {
-    const int k = s.corder[jc], b = s.cbody[k];
-    const int row = nd + s.nbj + 3 * jc;
-    float pt[3], r3[3];
-    mat3_vec(xwR[b], s.cpos + 3 * k, pt);
-    for (int e = 0; e < 3; ++e) pt[e] += xwp[b][e];
-    if (s.spheres) {  // a sphere site touches at centre − r·n̂, n̂ at the centre's xy
-      const float rk = jt_radii(s)[k];
-      if (rk > 0.f) {
-        if constexpr (GEN) {
-          float hg[3];
-          jt_ground_query(s, g, n_gc, pt[0], pt[1], hg);
-          const float inv = rsqrtf(hg[1] * hg[1] + hg[2] * hg[2] + 1.f);
-          pt[0] += rk * hg[1] * inv;
-          pt[1] += rk * hg[2] * inv;
-          pt[2] -= rk * inv;
-        } else {
-          pt[2] -= rk;
-        }
-      }
-    }
-    float h_gen = 0.f;
-    if constexpr (GEN) h_gen = jt_contact_basis(s, g, n_gc, pt, basis[jc]);
-    // point Jacobian, written as the rows [t1; t2; n]·J_p: on flat ground
-    // [−J_y; J_x; J_z]
-    for (int j = b; j >= 0; j = s.parent[j]) {
-      const int jt = s.jtype[j], vo = s.v_off[j];
-      for (int e = 0; e < 3; ++e) r3[e] = pt[e] - xwp[j][e];
-      for (int c = 0; c < joint_nv(jt); ++c) {
-        float wc[3], vc[3], wr[3], lin[3];
-        subspace_col(jt, s.body + JT_BODY_F * j, c, col);
-        mat3_vec(xwR[j], col, wc);
-        mat3_vec(xwR[j], col + 3, vc);
-        cross3(wc, r3, wr);
-        for (int e = 0; e < 3; ++e) lin[e] = vc[e] + wr[e];
-        if constexpr (GEN) {
-          for (int e = 0; e < 3; ++e) J[(row + e) * NMAX + vo + c] = dot3(basis[jc] + 3 * e, lin);
-        } else {
-          J[row * NMAX + vo + c] = -lin[1];
-          J[(row + 1) * NMAX + vo + c] = lin[0];
-          J[(row + 2) * NMAX + vo + c] = lin[2];
-        }
-      }
-    }
-    // penetrating → Baumgarte push-back; hovering within the margin → may
-    // approach the surface but not cross it
-    const float depth = (GEN ? h_gen : s.scal[JT_S_GROUND]) - pt[2];
-    const float corr = depth > 0.f
-        ? fminf(fmaxf(s.scal[JT_S_ALPHA_C_DT] * (depth - s.scal[JT_S_SLOP]), 0.f),
-                s.scal[JT_S_MAX_CORR])
-        : depth / dt;
-    const float act = depth > -s.scal[JT_S_MARGIN] ? 1.f : 0.f;
-    for (int e = 0; e < 3; ++e) {
-      target[row + e] = e == 2 ? corr : 0.f;
-      active[row + e] = act;
-      mu[row + e] = friction;
-    }
-  }
+  for (int jc = 0; jc < s.ncp; ++jc)
+    jt_contact_row<GEN>(s, jc, nd + s.nbj + 3 * jc, xwR, xwp, g, n_gc, J, NMAX, target, active,
+                        mu, basis[GEN ? jc : 0]);
 
   // ---- collision pairs after the ground contacts, one color each
   if (s.n_gen > 0)
-    jt_pair_rows<NMAX>(s, xwR, xwp, nd + s.nbj + 3 * s.ncp, nc, J, target, active, mu);
+    jt_pair_rows(s, xwR, xwp, nd + s.nbj + 3 * s.ncp, nc, J, NMAX, target, active, mu);
 
   // ---- the shared chain
   const float res = jt_solve_chain<NMAX, NCMAX>(
       M, NMAX, pf, v, J, NMAX, target, mu, active, lam0, v_next, lam_out, prm, lay);
 
-  // ---- world impulses, original contact order: t1·λ₀ + t2·λ₁ + n·λ₂
-  for (int jc = 0; jc < s.ncp; ++jc) {
-    const int k = s.corder[jc], row = nd + s.nbj + 3 * jc;
-    if constexpr (GEN) {
-      const float* bs = basis[jc];
-      for (int e = 0; e < 3; ++e)
-        fc[3 * k + e] = bs[e] * lam_out[row] + bs[3 + e] * lam_out[row + 1] +
-                        bs[6 + e] * lam_out[row + 2];
-    } else {
-      fc[3 * k] = lam_out[row + 1];
-      fc[3 * k + 1] = -lam_out[row];
-      fc[3 * k + 2] = lam_out[row + 2];
-    }
-  }
-
-  // ---- symplectic Euler: q ⊕ v⁺·dt (the quaternions of FREE and
-  // SPHERICAL joints by the exponential of the local increment)
-  for (int i = 0; i < nb; ++i) {
-    const int qo = s.q_off[i], vo = s.v_off[i], jt = s.jtype[i];
-    float w[3];
-    if (jt == JT_FREE) {
-      float R[9], dv[3], dp[3];
-      quat_to_m(q + qo + 3, R);
-      for (int k = 0; k < 3; ++k) dv[k] = v_next[vo + k] * dt;
-      mat3_vec(R, dv, dp);
-      for (int k = 0; k < 3; ++k) q_next[qo + k] = q[qo + k] + dp[k];
-      for (int k = 0; k < 3; ++k) w[k] = v_next[vo + 3 + k] * dt;
-      jt_quat_step(q + qo + 3, w, q_next + qo + 3);
-    } else if (jt == JT_SPHERICAL) {
-      for (int k = 0; k < 3; ++k) w[k] = v_next[vo + k] * dt;
-      jt_quat_step(q + qo, w, q_next + qo);
-    } else if (jt == JT_REVOLUTE || jt == JT_PRISMATIC) {
-      q_next[qo] = q[qo] + v_next[vo] * dt;
-    }
-  }
+  // ---- world impulses, original contact order; symplectic Euler
+  for (int jc = 0; jc < s.ncp; ++jc)
+    jt_contact_impulse<GEN>(s, jc, nd + s.nbj + 3 * jc, lam_out, basis[GEN ? jc : 0], fc);
+  for (int i = 0; i < nb; ++i) jt_integrate_joint(s, i, q, v_next, dt, q_next);
   return res;
 }
 
@@ -1208,54 +1304,107 @@ __device__ __forceinline__ void jt_matrix_to_quat(const float* R, float* out) {
   for (int k = 0; k < 4; ++k) out[k] = q[k] / n * sgn;
 }
 
+// One body of a sensor update (its parent's done), at the accepted state
+// (q, v⁺ = v, v of the substep's start v0, so a = Δv/dt): its world
+// rotation, and with JT_NEED_MOTION its velocity and proper acceleration
+// from a0 = [0; −g] (algos.body_accelerations)
+__device__ __forceinline__ void jt_sensor_body(const SpecView& s, int i, int need, const float* q,
+                                               const float* v, const float* v0, float (*xwR)[9],
+                                               float (*vel)[6], float (*acc)[6]) {
+  float Rl[9], pl[3], Rj[9], pj[3], t6[6], u6[6], vj[6], aj[6], ad[6];
+  const float dt = s.scal[JT_S_DT];
+  const int p = s.parent[i];
+  if (!(need & JT_NEED_MOTION)) {  // the rotation alone
+    jt_joint_transform(s, i, q, Rj, pj);
+    mat3_mul(s.body + JT_BODY_F * i + 3, Rj, Rl);
+    if (p < 0) for (int k = 0; k < 9; ++k) xwR[i][k] = Rl[k];
+    else mat3_mul(xwR[p], Rl, xwR[i]);
+    return;
+  }
+  jt_local_pose(s, i, q, Rl, pl);
+  joint_motion(s, i, v, vj);
+  const int vo = s.v_off[i], nvj = joint_nv(s.jtype[i]);  // the joint's part of a = Δv/dt
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {  // constant indices: ad stays in registers
+    if (k < nvj) ad[k] = (v[vo + k] - v0[vo + k]) / dt;
+    else ad[k] = 0.f;
+  }
+  joint_motion_of(s, i, ad, aj);
+  if (p < 0) {
+    const float a0[6] = {0.f, 0.f, 0.f, -s.scal[JT_S_GX], -s.scal[JT_S_GY], -s.scal[JT_S_GZ]};
+    for (int k = 0; k < 9; ++k) xwR[i][k] = Rl[k];
+    motion_p2c(Rl, pl, a0, t6);
+    for (int k = 0; k < 6; ++k) {
+      vel[i][k] = vj[k];
+      acc[i][k] = t6[k] + aj[k];
+    }
+  } else {
+    mat3_mul(xwR[p], Rl, xwR[i]);
+    motion_p2c(Rl, pl, vel[p], t6);
+    for (int k = 0; k < 6; ++k) vel[i][k] = t6[k] + vj[k];
+    motion_p2c(Rl, pl, acc[p], t6);
+    motion_cross(vel[i], vj, u6);
+    for (int k = 0; k < 6; ++k) acc[i][k] = t6[k] + aj[k] + u6[k];
+  }
+}
+
+// One sensor's reading + its eps e into row (its type's dim), from the
+// bodies' rotations, velocities and accelerations (jt_sensor_body), the
+// accepted q, v, the applied τ and the world impulses fc (3·ncp) → forces
+// fc/dt; T: the sensor's two packed ints
+__device__ __forceinline__ void jt_sensor_measure(const SpecView& s, const SensParams& sp,
+                                                  int type, const int* T, const float* e,
+                                                  const float* q, const float* v, const float* tau,
+                                                  const float* fc, const float (*xwR)[9],
+                                                  const float (*vel)[6], const float (*acc)[6],
+                                                  float* row) {
+  const float dt = s.scal[JT_S_DT];
+  if (type == JT_IMU) {
+    const int b = T[0];
+    const float* Rfp = sp.gf + T[1];
+    const float* pfp = Rfp + 9;
+    float Rw[9], qt[4], c1[3], c2[3], c3[3], c4[3], apt[3];
+    mat3_mul(xwR[b], Rfp, Rw);
+    jt_matrix_to_quat(Rw, qt);
+    jt_quat_turn(qt, e, row);
+    const float* w = vel[b];
+    // a_lin + ω×v_lin + α×p + ω×(ω×p): proper acceleration of the
+    // frame origin in body coordinates
+    cross3(w, vel[b] + 3, c1);
+    cross3(acc[b], pfp, c2);
+    cross3(w, pfp, c3);
+    cross3(w, c3, c4);
+    for (int d = 0; d < 3; ++d) apt[d] = acc[b][3 + d] + c1[d] + c2[d] + c4[d];
+    mat3t_vec(Rfp, w, row + 4);
+    mat3t_vec(Rfp, apt, row + 7);
+    for (int d = 0; d < 6; ++d) row[4 + d] += e[3 + d];
+  } else if (type == JT_ENCODER) {
+    row[0] = q[T[0]] + e[0];
+    row[1] = v[T[1]] + e[1];
+  } else if (type == JT_EFFORT) {
+    row[0] = tau[T[1]] + e[0];
+  } else {  // contact: world force → the carrier body's frame
+    const float f[3] = {fc[3 * T[0]] / dt, fc[3 * T[0] + 1] / dt, fc[3 * T[0] + 2] / dt};
+    mat3t_vec(xwR[T[1]], f, row);
+    for (int d = 0; d < 3; ++d) row[d] += e[d];
+  }
+}
+
 // One sensor update of one env at the accepted state (q, v⁺ = v, v of the
 // substep's start v0, so a = Δv/dt; world impulses fc (3·ncp) → forces
 // fc/dt, applied τ): world rotations of the bodies the readings need, and
-// the velocities and proper accelerations from a0 = [0; −g]
-// (algos.body_accelerations) of the IMU bodies and their ancestors alone
-// (the suite's per-body needs), the measurements, + eps (the IMU
-// quaternion turned by exp(rv) on the right), pushed at slot 0 of each
-// delay line.
+// the velocities and proper accelerations of the IMU bodies and their
+// ancestors alone (the suite's per-body needs), the measurements, + eps
+// (the IMU quaternion turned by exp(rv) on the right), pushed at slot 0
+// of each delay line.
 template <int NBMAX>
 __device__ __forceinline__ void jt_sensor_stage(
     const SpecView& s, const SensParams& sp, const float* q, const float* v,
     const float* v0, const float* tau, const float* fc, const float* eps, float* buf) {
   float xwR[NBMAX][9], vel[NBMAX][6], acc[NBMAX][6];
-  float Rl[9], pl[3], Rj[9], pj[3], t6[6], u6[6], vj[6], aj[6], ad[6];
-  const float dt = s.scal[JT_S_DT];
   const int* need = sp.gi;
-  for (int i = 0; i < s.nb; ++i) {
-    if (need[i] == 0) continue;
-    const int p = s.parent[i];
-    if (!(need[i] & JT_NEED_MOTION)) {  // the rotation alone
-      jt_joint_transform(s, i, q, Rj, pj);
-      mat3_mul(s.body + JT_BODY_F * i + 3, Rj, Rl);
-      if (p < 0) for (int k = 0; k < 9; ++k) xwR[i][k] = Rl[k];
-      else mat3_mul(xwR[p], Rl, xwR[i]);
-      continue;
-    }
-    jt_local_pose(s, i, q, Rl, pl);
-    joint_motion(s, i, v, vj);
-    const int vo = s.v_off[i];  // the joint's part of a = Δv/dt
-    for (int k = 0; k < joint_nv(s.jtype[i]); ++k) ad[k] = (v[vo + k] - v0[vo + k]) / dt;
-    joint_motion_of(s, i, ad, aj);
-    if (p < 0) {
-      const float a0[6] = {0.f, 0.f, 0.f, -s.scal[JT_S_GX], -s.scal[JT_S_GY], -s.scal[JT_S_GZ]};
-      for (int k = 0; k < 9; ++k) xwR[i][k] = Rl[k];
-      motion_p2c(Rl, pl, a0, t6);
-      for (int k = 0; k < 6; ++k) {
-        vel[i][k] = vj[k];
-        acc[i][k] = t6[k] + aj[k];
-      }
-    } else {
-      mat3_mul(xwR[p], Rl, xwR[i]);
-      motion_p2c(Rl, pl, vel[p], t6);
-      for (int k = 0; k < 6; ++k) vel[i][k] = t6[k] + vj[k];
-      motion_p2c(Rl, pl, acc[p], t6);
-      motion_cross(vel[i], vj, u6);
-      for (int k = 0; k < 6; ++k) acc[i][k] = t6[k] + aj[k] + u6[k];
-    }
-  }
+  for (int i = 0; i < s.nb; ++i)
+    if (need[i] != 0) jt_sensor_body(s, i, need[i], q, v, v0, xwR, vel, acc);
   const int* group = sp.gi + s.nb;
   const int* sensor = group + 4 * sp.n_groups;
   int boff = 0, eoff = 0;
@@ -1264,38 +1413,9 @@ __device__ __forceinline__ void jt_sensor_stage(
     const int type = G[0], ns = G[1], bl = G[2];
     const int dim = jt_sensor_dim(type), ndim = jt_noise_dim(type);
     for (int k = 0; k < ns; ++k) {
-      const int* T = sensor + 2 * (G[3] + k);
-      const float* e = eps + eoff + k * ndim;
       float row[10];
-      if (type == JT_IMU) {
-        const int b = T[0];
-        const float* Rfp = sp.gf + T[1];
-        const float* pfp = Rfp + 9;
-        float Rw[9], qt[4], c1[3], c2[3], c3[3], c4[3], apt[3];
-        mat3_mul(xwR[b], Rfp, Rw);
-        jt_matrix_to_quat(Rw, qt);
-        jt_quat_turn(qt, e, row);
-        const float* w = vel[b];
-        // a_lin + ω×v_lin + α×p + ω×(ω×p): proper acceleration of the
-        // frame origin in body coordinates
-        cross3(w, vel[b] + 3, c1);
-        cross3(acc[b], pfp, c2);
-        cross3(w, pfp, c3);
-        cross3(w, c3, c4);
-        for (int d = 0; d < 3; ++d) apt[d] = acc[b][3 + d] + c1[d] + c2[d] + c4[d];
-        mat3t_vec(Rfp, w, row + 4);
-        mat3t_vec(Rfp, apt, row + 7);
-        for (int d = 0; d < 6; ++d) row[4 + d] += e[3 + d];
-      } else if (type == JT_ENCODER) {
-        row[0] = q[T[0]] + e[0];
-        row[1] = v[T[1]] + e[1];
-      } else if (type == JT_EFFORT) {
-        row[0] = tau[T[1]] + e[0];
-      } else {  // contact: world force → the carrier body's frame
-        const float f[3] = {fc[3 * T[0]] / dt, fc[3 * T[0] + 1] / dt, fc[3 * T[0] + 2] / dt};
-        mat3t_vec(xwR[T[1]], f, row);
-        for (int d = 0; d < 3; ++d) row[d] += e[d];
-      }
+      jt_sensor_measure(s, sp, type, sensor + 2 * (G[3] + k), eps + eoff + k * ndim, q, v, tau,
+                        fc, xwR, vel, acc, row);
       // ring push: the older samples move one slot back, the new one at 0
       float* r = buf + boff + k * bl * dim;
       for (int slot = bl - 1; slot > 0; --slot)
@@ -1313,6 +1433,8 @@ __device__ __forceinline__ void jt_load_ground(const float* gc, int n_gc, int b,
   if constexpr (GEN)
     for (int k = 0; k < n_gc; ++k) g[k] = gc[(size_t)b * n_gc + k];
 }
+
+#include "substep_warp.cuh"
 
 // ---- K3: one substep, τ given; with GEN an analytic ground per env; with
 // RAND each env's model parameters (mp: B × n_mp)
@@ -1338,10 +1460,11 @@ __global__ void __launch_bounds__(JT_THREADS) substep_kernel(
       row, q_out + bq, v_out + bv, fc_out + 3 * (size_t)b * s.ncp, prm, lay);
 }
 
-// ---- K2: n_sub substeps, (q, v, λ) resident, τ recomputed per substep;
-// with SENS, the sensor stage after every k_obs-th substep; with GEN, an
-// analytic ground per env; with RAND, each env's model parameters (mp:
-// B × n_mp), the motor tail scaling τ. One block per SM is all the launch
+// ---- K2 in the large frame (the ANYmal frame takes the warp body,
+// substep_warp.cuh): n_sub substeps, (q, v, λ) resident, τ recomputed per
+// substep; with SENS, the sensor stage after every k_obs-th substep; with
+// GEN, an analytic ground per env; with RAND, each env's model parameters
+// (mp: B × n_mp), the motor tail scaling τ. One block per SM is all the launch
 // bounds ask for: ptxas then gives each instantiation the registers it
 // needs instead of holding some at 96 and spilling (with the distance
 // rows and springs in the body and the bounds left at 32 threads alone,
@@ -1492,7 +1615,9 @@ extern "C" int jt_substep(
 }
 
 // K2 in its four instantiations of this library (sensor stage or not,
-// analytic ground or flat; JT_RAND fixed) and two frames.
+// analytic ground or flat; JT_RAND fixed): the ANYmal frame on the warp
+// body with the workspace layout wl (checked; required there, refused
+// elsewhere), the large frame on the one-thread body.
 template <bool SENS>
 static int jt_multi_launch(
     const int* si, const float* sf, const float* q, const float* v,
@@ -1500,50 +1625,64 @@ static int jt_multi_launch(
     float* v_out, float* lam_out, float* res, float* fc, float* a_out,
     float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int n_dist,
     int nm, const float* gc, int n_gc, const float* mp, int n_mp, const SensParams& sp,
-    const int* layout, int layout_len, int iters, float dt, float relax, float reg,
-    int compute_residual, void* stream) {
+    const int* wl, int wl_len, const int* layout, int layout_len, int iters, float dt,
+    float relax, float reg, int compute_residual, void* stream) {
   BlockLayout lay;
-  const int err = jt_check_dims(B, nb, nq, nv, nc, n_dist, nm, iters, gc, n_gc, mp, n_mp,
-                                10 * nb + nv + 2 * nm, layout, layout_len, &lay);
+  int err = jt_check_dims(B, nb, nq, nv, nc, n_dist, nm, iters, gc, n_gc, mp, n_mp,
+                          10 * nb + nv + 2 * nm, layout, layout_len, &lay);
   if (err != (int)cudaSuccess) return err;
   if (n_sub < 1) return (int)cudaErrorInvalidValue;
+  WarpLayout w;
+  const bool warp = jt_small(nb, nv, nc);
+  if (warp) {
+    err = jt_check_warp_layout(wl, wl_len, nb, nq, nv, nc, nm, n_gc, SENS, &w);
+    if (err != (int)cudaSuccess) return err;
+  } else if (wl != nullptr || wl_len != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (B == 0) return (int)cudaSuccess;
   SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
-  const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
   cudaStream_t s = (cudaStream_t)stream;
+  if (warp) {
+    return n_gc ? jt_warp_launch<SENS, true>(w, si, sf, q, v, cmd, lam0, wrench, q_out, v_out,
+                                             lam_out, res, fc, a_out, tau_out, n_sub, gc, n_gc,
+                                             mp, n_mp, prm, lay, sp, s)
+                : jt_warp_launch<SENS, false>(w, si, sf, q, v, cmd, lam0, wrench, q_out, v_out,
+                                              lam_out, res, fc, a_out, tau_out, n_sub, gc, n_gc,
+                                              mp, n_mp, prm, lay, sp, s);
+  }
+  const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
 #define JT_K2(NM, NC, NB, GEN)                                                        \
   substep_multi_kernel<NM, NC, NB, SENS, GEN, JT_RAND><<<grid, block, 0, s>>>(        \
       si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out, tau_out, \
       n_sub, gc, n_gc, mp, n_mp, prm, lay, sp)
-  if (jt_small(nb, nv, nc)) {
-    if (n_gc) JT_K2(18, 24, 13, true); else JT_K2(18, 24, 13, false);
-  } else {
-    if (n_gc) JT_K2(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, true);
-    else JT_K2(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, false);
-  }
+  if (n_gc) JT_K2(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, true);
+  else JT_K2(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, false);
 #undef JT_K2
   return (int)cudaGetLastError();
 }
 
 // K2. cmd (B, nm); a and tau (B, nv) of the last substep; gc and mp as
-// for K3, mp with the motor tail.
+// for K3, mp with the motor tail; wl (wl_len ints) the warp body's
+// workspace layout (ops/substep_kernel.py `SubstepSpec.warp_workspace`) in
+// the ANYmal frame, else null and 0.
 extern "C" int jt_substep_multi(
     const int* si, const float* sf, const float* q, const float* v,
     const float* cmd, const float* lam0, const float* wrench, float* q_out,
     float* v_out, float* lam_out, float* res, float* fc, float* a_out,
     float* tau_out, int B, int n_sub, int nb, int nq, int nv, int nc, int n_dist,
-    int nm, const float* gc, int n_gc, const float* mp, int n_mp, const int* layout,
-    int layout_len, int iters, float dt, float relax, float reg,
+    int nm, const float* gc, int n_gc, const float* mp, int n_mp, const int* wl, int wl_len,
+    const int* layout, int layout_len, int iters, float dt, float relax, float reg,
     int compute_residual, void* stream) {
   const SensParams sp = {nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 1};
   return jt_multi_launch<false>(si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc,
                                 a_out, tau_out, B, n_sub, nb, nq, nv, nc, n_dist, nm, gc,
-                                n_gc, mp, n_mp, sp, layout, layout_len, iters, dt, relax, reg,
-                                compute_residual, stream);
+                                n_gc, mp, n_mp, sp, wl, wl_len, layout, layout_len, iters, dt,
+                                relax, reg, compute_residual, stream);
 }
 
 // K2 with the sensor stage. gi/gf: the packed suite; bufs_in, bufs_out
-// (B, n_buf); eps (B, n_sub / k_obs · n_eps); gc and mp as for K2.
+// (B, n_buf); eps (B, n_sub / k_obs · n_eps); gc, mp and wl as for K2.
 extern "C" int jt_substep_multi_sensors(
     const int* si, const float* sf, const float* q, const float* v,
     const float* cmd, const float* lam0, const float* wrench, float* q_out,
@@ -1551,8 +1690,8 @@ extern "C" int jt_substep_multi_sensors(
     float* tau_out, const int* gi, const float* gf, const float* bufs_in,
     const float* eps, float* bufs_out, int B, int n_sub, int nb, int nq,
     int nv, int nc, int n_dist, int nm, int n_groups, int n_buf, int n_eps, int k_obs,
-    const float* gc, int n_gc, const float* mp, int n_mp, const int* layout,
-    int layout_len, int iters, float dt, float relax, float reg,
+    const float* gc, int n_gc, const float* mp, int n_mp, const int* wl, int wl_len,
+    const int* layout, int layout_len, int iters, float dt, float relax, float reg,
     int compute_residual, void* stream) {
   if (n_sub < 1 || k_obs < 1 || n_sub % k_obs != 0 || n_groups < 1 ||
       n_groups > JT_SENS_MAX_GROUPS || n_buf < 1 || n_buf > JT_SENS_MAX_BUF ||
@@ -1561,6 +1700,6 @@ extern "C" int jt_substep_multi_sensors(
   const SensParams sp = {gi, gf, bufs_in, eps, bufs_out, n_groups, n_buf, n_eps, k_obs};
   return jt_multi_launch<true>(si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc,
                                a_out, tau_out, B, n_sub, nb, nq, nv, nc, n_dist, nm, gc,
-                               n_gc, mp, n_mp, sp, layout, layout_len, iters, dt, relax, reg,
-                               compute_residual, stream);
+                               n_gc, mp, n_mp, sp, wl, wl_len, layout, layout_len, iters, dt,
+                               relax, reg, compute_residual, stream);
 }

@@ -129,6 +129,39 @@ MAX_SENS_GROUPS, MAX_SENS_BUF, MAX_SENS_EPS = 8, 4096, 1024
 _SENSOR_CODES = {"imu": 0, "encoder": 1, "effort": 2, "contact": 3}
 # what a sensor needs of a body and its ancestors (csrc/substep.cuh JT_NEED_*)
 _NEED_ROTATION, _NEED_MOTION = 1, 3
+# K2's warp body (csrc/substep_warp.cuh): the ANYmal frame it serves (jt_small),
+# its envs per block at most (JT_WARP_MAX_W), the shared memory one block may
+# take on an H100 (JT_SMEM_PER_BLOCK), the floats each body adds to its
+# parent in the backward pass (JT_CC), and its layout's slots in the order of
+# the JT_WL_* enum: a header, then the regions outside the union, the union,
+# and the union's three views (each live at its own time)
+WARP_FRAME = (13, 18, 24)  # nb, nv, nc at most
+WARP_MAX_W, SMEM_PER_BLOCK, _CC = 4, 232_448, 19
+_WARP_HEAD = ("W", "stride", "ncp", "n_rows", "ldm", "ldj", "ldx", "lda")
+_WARP_OUTSIDE = ("q0", "q1", "v0", "v1", "tau", "lam", "cmd", "w0", "fc", "g", "M", "dL", "pf",
+                 "J", "target", "mu", "active", "basis", "rhs", "diag", "vfree")
+WARP_VIEWS = {
+    "tree": ("xlR", "xlp", "xwR", "xwp", "vel", "acc", "frc", "Ic", "cc"),
+    "chain": ("X", "A"),
+    "sensors": ("s_xwR", "s_vel", "s_acc", "rows"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class WarpWorkspace:
+    """Shared-memory layout of one env of K2's warp body: ``regions`` maps
+    each region to its (offset, size) in floats from the env's slice (the
+    regions outside ``"union"`` live throughout; each of
+    :data:`WARP_VIEWS` lies inside the union and lives at its own time),
+    ``lds`` the row strides (odd: no two lanes of a column on one bank),
+    ``bytes_per_env`` the slice, ``W`` the envs per block and ``ints`` the
+    layout as the C entry point reads and checks it."""
+
+    regions: dict
+    lds: dict
+    bytes_per_env: int
+    W: int
+    ints: tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,6 +326,7 @@ class SubstepSpec:
         alpha_c = cstr.baumgarte_alpha(opts.contact_baumgarte_freq, opts.dt)
         self.alpha_c_over_dt = float(alpha_c / f32(opts.dt))
         self._packed: dict = {}
+        self._warp: dict = {}
 
     @staticmethod
     def _bounded_joints(tree: KinematicTree) -> list[int]:
@@ -341,6 +375,60 @@ class SubstepSpec:
                 f"kernels' ground query (flat, fourier ≤ {MAX_FOURIER_TERMS} terms, perlin "
                 f"≤ {MAX_PERLIN_OCTAVES} octaves, stairs)"
             )
+
+    def warp_workspace(self, sensors: "SensorKernelSpec | None" = None) -> WarpWorkspace | None:
+        """The layout of K2's warp body for this spec (with ``sensors``, the
+        sensor stage's too), or None for a model outside the ANYmal frame,
+        which K2's one-thread body takes (``csrc/substep.cuh``
+        ``jt_small``). Sized from the model's own dimensions; W, the envs
+        per block, as many as fit one block up to ``WARP_MAX_W``."""
+        t = self.tree
+        if not (t.nb <= WARP_FRAME[0] and t.nv <= WARP_FRAME[1] and self.nc <= WARP_FRAME[2]):
+            return None
+        n_rows = sensors.n_rows if sensors is not None else 0
+        if n_rows not in self._warp:
+            self._warp[n_rows] = self._warp_layout(n_rows)
+        return self._warp[n_rows]
+
+    def _warp_layout(self, n_rows: int) -> WarpWorkspace:
+        t = self.tree
+        nb, nq, nv, nc, ncp = t.nb, t.nq, t.nv, self.nc, t.ncp
+        nm = self.torque.nm if self.torque is not None else 0
+        lds = dict(ldm=nv | 1, ldj=nv | 1, ldx=(nc + 1) | 1, lda=nc | 1)
+        sb = nb if n_rows else 0
+        sizes = dict(
+            q0=nq, q1=nq, v0=nv, v1=nv, tau=nv, lam=nc, cmd=nm, w0=6, fc=3 * ncp, g=self.n_gc,
+            M=nv * lds["ldm"], dL=nv, pf=nv, J=nc * lds["ldj"], target=nc, mu=nc, active=nc,
+            basis=9 * ncp if self.n_gc else 0, rhs=nc, diag=nc, vfree=nv,
+            xlR=9 * nb, xlp=3 * nb, xwR=9 * nb, xwp=3 * nb, vel=6 * nb, acc=6 * nb, frc=6 * nb,
+            Ic=13 * nb, cc=_CC * nb, X=nv * lds["ldx"], A=nc * lds["lda"],
+            s_xwR=9 * sb, s_vel=6 * sb, s_acc=6 * sb, rows=n_rows,
+        )
+
+        def align(n):  # 16 bytes
+            return -(-n // 4) * 4
+
+        regions, end = {}, 0
+        for name in _WARP_OUTSIDE:
+            regions[name] = (end, sizes[name])
+            end += align(sizes[name])
+        union, stride = end, end
+        for view in WARP_VIEWS.values():
+            at = union
+            for name in view:
+                regions[name] = (at, sizes[name])
+                at += align(sizes[name])
+            stride = max(stride, at)
+        regions["union"] = (union, stride - union)
+        nbytes = 4 * stride
+        W = min(WARP_MAX_W, SMEM_PER_BLOCK // nbytes)
+        if W < 1:
+            raise ValueError(f"K2's warp workspace of {nbytes} B per env exceeds one block's "
+                             f"{SMEM_PER_BLOCK} B")
+        head = dict(W=W, stride=stride, ncp=ncp, n_rows=n_rows, **lds)
+        order = _WARP_OUTSIDE + ("union",) + sum(WARP_VIEWS.values(), ())
+        ints = tuple(head[k] for k in _WARP_HEAD) + tuple(regions[k][0] for k in order)
+        return WarpWorkspace(regions=regions, lds=lds, bytes_per_env=nbytes, W=W, ints=ints)
 
     def ground_of(self, gc):
         """The ground that per-env coefficients ``gc`` (B, n_gc) describe,
@@ -493,6 +581,8 @@ class SensorKernelSpec:
         self.n_groups = len(suite.groups)
         self.n_buf = suite.n_buf
         self.n_eps = suite.n_eps
+        # one update's readings, the rows the warp body writes before the push
+        self.n_rows = sum(g.ns * g.dim for g in suite.groups)
         self._tree = tree
         self._packed: dict = {}
 
@@ -786,16 +876,24 @@ def _kernel(randomized: bool):
     same entry points, the second requiring the model parameters."""
     from jiminy_tpu_torch.ops import _build
 
-    lib = _build.load("substep_rand" if randomized else "substep")
+    return bind(_build.load("substep_rand" if randomized else "substep"))
+
+
+def bind(lib):
+    """``lib``, a library built from ``csrc/substep.cuh``, with its entry
+    points' ctypes signatures set."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [vp, ci, ci, cf, cf, cf, ci, vp]  # layout, len, iters, dt, relax, reg, resid, stream
     gc = [vp, ci, vp, ci]  # ground coefficients, their width; model parameters, their width
     lib.jt_substep.argtypes = [vp] * 12 + [ci] * 6 + gc + tail
     lib.jt_substep.restype = ci
-    lib.jt_substep_multi.argtypes = [vp] * 14 + [ci] * 8 + gc + tail
+    wl = [vp, ci]  # the warp body's workspace layout, its length
+    lib.jt_substep_multi.argtypes = [vp] * 14 + [ci] * 8 + gc + wl + tail
     lib.jt_substep_multi.restype = ci
-    lib.jt_substep_multi_sensors.argtypes = [vp] * 19 + [ci] * 12 + gc + tail
+    lib.jt_substep_multi_sensors.argtypes = [vp] * 19 + [ci] * 12 + gc + wl + tail
     lib.jt_substep_multi_sensors.restype = ci
+    lib.jt_warp_occupancy.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+    lib.jt_warp_occupancy.restype = ci
     lib.jt_substep_error_string.argtypes = [ci]
     lib.jt_substep_error_string.restype = ctypes.c_char_p
     return lib
@@ -903,6 +1001,19 @@ for _name in ("launches", "ground_launches", "rand_launches", "rand_ground_launc
     setattr(substep_batched, _name, 0)
 
 
+def warp_blocks_per_sm(ws: WarpWorkspace, sensors: bool, ground: bool, randomized: bool) -> int:
+    """Blocks of K2's warp body (W warps of ``ws``) one SM of the card holds
+    at once, its registers and shared memory both counted, for the
+    instantiation with or without the sensor stage, the ground query and
+    the model parameters (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = _kernel(randomized)
+    blocks = ctypes.c_int(0)
+    err = lib.jt_warp_occupancy(int(sensors), int(ground), ws.W, ws.bytes_per_env,
+                                ctypes.byref(blocks))
+    _raise_on(lib, err, "warp occupancy")
+    return blocks.value
+
+
 def substep_batched_multi(
     spec: SubstepSpec, n_sub: int, q, v, cmd, lam0, wrench,
     sensors: SensorKernelSpec | None = None, bufs=None, eps=None, gc=None, mp=None,
@@ -923,7 +1034,9 @@ def substep_batched_multi(
     launches: ``.launches`` (flat, no sensors, nominal),
     ``.sensor_launches``, ``.ground_launches``,
     ``.sensor_ground_launches``, and the randomized ones under the same
-    names with ``rand_`` in front."""
+    names with ``rand_`` in front; ``.warp_launches`` counts those that ran
+    the warp body (every model in the ANYmal frame,
+    :meth:`SubstepSpec.warp_workspace`)."""
     if spec.torque is None:
         raise ValueError("substep_batched_multi needs spec.torque")
     if n_sub < 1:
@@ -955,13 +1068,16 @@ def substep_batched_multi(
     si, sf = spec.packed(dev)
     outs = _outputs(spec, B, dev, extra=2)
     tail, _layout_alive = _tail(spec, dev)
+    ws = spec.warp_workspace(sensors)
+    c_wl = (ctypes.c_int * len(ws.ints))(*ws.ints) if ws is not None else None
+    wl = [ctypes.cast(c_wl, ctypes.c_void_p), len(ws.ints)] if ws is not None else [None, 0]
     head = [
         si.data_ptr(), sf.data_ptr(), q.data_ptr(), v.data_ptr(), cmd.data_ptr(),
         lam0.data_ptr(), wrench.data_ptr(), *(o.data_ptr() for o in outs),
     ]
     dims = [B, n_sub, t.nb, t.nq, t.nv, spec.nc, spec.n_dist, nm]
     if sensors is None:
-        err = lib.jt_substep_multi(*head, *dims, *_gc_args(spec, gc, mp), *tail)
+        err = lib.jt_substep_multi(*head, *dims, *_gc_args(spec, gc, mp), *wl, *tail)
     else:
         sensors.check_kernel_caps("substep_batched_multi")
         gi, gf = sensors.packed(dev)
@@ -969,13 +1085,16 @@ def substep_batched_multi(
         err = lib.jt_substep_multi_sensors(
             *head, gi.data_ptr(), gf.data_ptr(), bufs.data_ptr(), eps.data_ptr(),
             outs[-1].data_ptr(), *dims, sensors.n_groups, sensors.n_buf,
-            sensors.n_eps, sensors.k_obs, *_gc_args(spec, gc, mp), *tail,
+            sensors.n_eps, sensors.k_obs, *_gc_args(spec, gc, mp), *wl, *tail,
         )
     _raise_on(lib, err, "substep_multi")
     _count(substep_batched_multi, sensors, gc, mp)
+    if ws is not None:
+        substep_batched_multi.warp_launches += 1
     return tuple(outs)
 
 
 for _name in ("launches", "sensor_launches", "ground_launches", "sensor_ground_launches"):
     setattr(substep_batched_multi, _name, 0)
     setattr(substep_batched_multi, "rand_" + _name, 0)
+substep_batched_multi.warp_launches = 0  # of the above, those of the warp body

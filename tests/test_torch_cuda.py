@@ -917,45 +917,58 @@ def test_pair_k2_carries_lambda_across_substeps(cuda_device):
         assert torch.equal(whole[i], out[i]), i
 
 
-@pytest.mark.cuda
-def test_forest_pairs_k3_matches_plain_version(cuda_device):
+def _forest_engine(dev, dtype, motor=False):
     """Two free balls in one tree (two FREE roots, no ground contact, no
     bounds; the small frame): a sphere pair and a box against a capsule
-    (ptbox, its 5 contacts one color updated Jacobi-style), K3 held env by
-    env against the float64 plain version (the float32 plain version's
-    worst env is itself about as far from it in v on these inputs as K3's
-    worst, so 1e-4 against float32 is not well posed)."""
+    (ptbox, 5 contacts, one color); with ``motor`` a frictionless direct
+    motor on the first ball's x (K2 needs a torque path)."""
     from jiminy_tpu_torch.core.tree import JointType, TreeBuilder
     from jiminy_tpu_torch.engine import Engine, EngineOptions
     from jiminy_tpu_torch.engine.collision import Box, Capsule, CollisionPair, Sphere
+    from jiminy_tpu_torch.hardware.motors import Motors
 
-    def forest(dtype):
-        b = TreeBuilder(gravity=(0.0, 0.0, 0.0))
-        for name in ("ball_a", "ball_b"):
-            b.add_frame(name, b.add_body(name, -1, JointType.FREE, mass=1.0,
-                                         inertia=(4e-3, 4e-3, 4e-3)))
-        pairs = (CollisionPair(Sphere("ball_a", (0, 0, 0), 0.1), Sphere("ball_b", (0, 0, 0), 0.1)),
-                 CollisionPair(Box("ball_a", (0.01, 0, 0), (0.09, 0.07, 0.06)),
-                               Capsule("ball_b", (0, 0, -0.06), (0, 0, 0.06), 0.03),
-                               friction=0.7))
-        return Engine(b.build(device=cuda_device, dtype=dtype),
-                      EngineOptions(contact_model="constraint", dt=1e-3,
-                                    constraint_solver="substep"), collision_pairs=pairs,
-                      device=cuda_device)
+    b = TreeBuilder(gravity=(0.0, 0.0, 0.0))
+    for name in ("ball_a", "ball_b"):
+        b.add_frame(name, b.add_body(name, -1, JointType.FREE, mass=1.0,
+                                     inertia=(4e-3, 4e-3, 4e-3)))
+    pairs = (CollisionPair(Sphere("ball_a", (0, 0, 0), 0.1), Sphere("ball_b", (0, 0, 0), 0.1)),
+             CollisionPair(Box("ball_a", (0.01, 0, 0), (0.09, 0.07, 0.06)),
+                           Capsule("ball_b", (0, 0, -0.06), (0, 0, 0.06), 0.03),
+                           friction=0.7))
+    return Engine(b.build(device=dev, dtype=dtype),
+                  EngineOptions(contact_model="constraint", dt=1e-3,
+                                constraint_solver="substep"), collision_pairs=pairs,
+                  motors=Motors.create([0], device=dev, dtype=dtype) if motor else None,
+                  device=dev)
 
-    eng, eng64 = forest(torch.float32), forest(torch.float64)
-    assert eng.nc == 3 * 6 and eng.backend == "substep"
-    rng = np.random.default_rng(42)
-    B = 1000
+
+def _forest_inputs(seed, B, dev):
+    """Random orientations, the second ball 0.12–0.3 m from the first in a
+    random direction (the pairs touching in about half the envs), v, τ
+    and λ0 ≥ 0, made with numpy."""
+    rng = np.random.default_rng(seed)
     q = np.zeros((B, 14))
     for o in (3, 10):
         quat = rng.standard_normal((B, 4))
         q[:, o:o + 4] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
     d = rng.standard_normal((B, 3))
     q[:, 7:10] = d / np.linalg.norm(d, axis=1, keepdims=True) * rng.uniform(0.12, 0.3, (B, 1))
-    q, v, tau, lam = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
         q, 0.3 * rng.standard_normal((B, 12)), rng.standard_normal((B, 12)),
-        np.abs(0.05 * rng.standard_normal((B, 18)))))
+        np.abs(0.05 * rng.standard_normal((B, 18))))]
+
+
+@pytest.mark.cuda
+def test_forest_pairs_k3_matches_plain_version(cuda_device):
+    """K3 on the forest of two free balls (`_forest_engine`), env by env
+    against the float64 plain version (the float32 plain version's worst
+    env is itself about as far from it in v on these inputs as K3's
+    worst, so 1e-4 against float32 is not well posed)."""
+    eng, eng64 = _forest_engine(cuda_device, torch.float32), _forest_engine(cuda_device,
+                                                                            torch.float64)
+    assert eng.nc == 3 * 6 and eng.backend == "substep"
+    B = 1000
+    q, v, tau, lam = _forest_inputs(42, B, cuda_device)
     w = torch.zeros(B, 6, device=cuda_device)
     before = substep_batched.launches
     out = substep_batched(eng.substep_spec, q, v, tau, lam, w)
@@ -1303,3 +1316,237 @@ def test_walker_env_is_one_fused_launch(cuda_device, walker, path):
     assert launched == ([0, 0, 0, 3] if path == "sensors" else [0, 0, 3, 0])
     nobs = {"ant": 25, "spotmicro": 33}[walker]
     assert bool(torch.isfinite(state.obs).all()) and state.obs.shape == (256, nobs)
+
+
+# ---- K2's warp body (csrc/substep_warp.cuh): every model of the ANYmal
+# frame, each held as its own card test holds it
+
+
+def _world_loop_engine(dev, dtype):
+    """The two-pendulum loop tied to a frame of the world (one distance
+    row, an equality block of the PGS), with direct motors on both joints."""
+    from jiminy_tpu_torch.core.tree import JointType, TreeBuilder
+    from jiminy_tpu_torch.engine import Engine, EngineOptions
+    from jiminy_tpu_torch.engine.constraints import DistanceConstraint
+    from jiminy_tpu_torch.hardware.motors import Motors
+
+    place = TreeBuilder.make_placement
+    b = TreeBuilder()
+    b.add_body("l1", -1, JointType.REVOLUTE, axis=(0, 1, 0), mass=1.0, com=(0, 0, -1))
+    b.add_body("l2", -1, JointType.REVOLUTE, placement=place((0.5, 0, 0)), axis=(0, 1, 0),
+               mass=1.0, com=(0, 0, -1))
+    f1 = b.add_frame("tip1", 0, place((0, 0, -1)))
+    f2 = b.add_frame("anchor", -1, place((0.5, 0, -1)))
+    return Engine(b.build(device=dev, dtype=dtype),
+                  EngineOptions(contact_model="constraint", dt=1e-3, constraint_solver="substep"),
+                  constraints=(DistanceConstraint(f1, f2, 0.6, 20.0),),
+                  motors=Motors.create([0, 1], effort_limit=20.0, device=dev, dtype=dtype),
+                  device=dev)
+
+
+def _walker_case(name, seed, B, dev, dtype=torch.float32):
+    """The Ant's or the Spotmicro's engine and suite, and substep inputs
+    from reset states (made on the card from a seed): a uniform action's
+    command, λ0 ≥ 0 and a root wrench."""
+    from jiminy_tpu_torch.envs import AntEnv, SpotmicroEnv
+
+    env = {"ant": AntEnv, "spotmicro": SpotmicroEnv}[name](observe="sensors", device=dev,
+                                                          dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = env.reset(gen, B)
+    act = torch.rand(B, env.motors.nm, generator=gen, device=dev) * 2.0 - 1.0
+    cmd = env._action_to_command(act, state.sim)
+    lam0 = 0.05 * torch.rand(B, env.engine.nc, generator=gen, device=dev)
+    wrench = torch.randn(B, 6, generator=gen, device=dev) * torch.tensor(
+        [5.0, 5.0, 5.0, 20.0, 20.0, 20.0], device=dev)
+    args = [x.to(dtype).contiguous() for x in (state.sim.q, state.sim.v, cmd, lam0, wrench)]
+    return env.engine, env.sensors, args
+
+
+WARP_MODELS = ("anymal", "anymal_fourier", "anymal_randomized", "ant", "spotmicro", "cartpole",
+               "forest", "sphere_feet", "world_loop")
+
+
+def _warp_case(model, B, dev):
+    """(spec, its float64 twin, float32 inputs, their float64 copies, the
+    kernel's extra arguments in float32 and float64, the suite or None,
+    whether 1e-4 against the float32 plain version is well posed there)."""
+    from jiminy_tpu_torch.engine import Engine, PDController
+    from jiminy_tpu_torch.models.quadruped import make_anymal
+
+    f64 = torch.float64
+    kw = kw64 = {}
+    if model in ("anymal", "anymal_randomized"):
+        eng = _anymal_engine(dev)
+        suite = make_anymal(device=dev, sensor_period=5e-3, sensor_delay=0.004, imu_noise=0.02,
+                            encoder_noise=0.005)[2]
+        args = _substep_inputs(60, B, eng)
+        eng64 = Engine(eng.tree.to(dtype=f64), eng.options, motors=eng.motors.to(dtype=f64),
+                       controller=PDController(80.0, 2.0), device=dev)
+        if model == "anymal_randomized":
+            mp = _rand_params(eng, 61, B)
+            kw, kw64 = dict(mp=mp), dict(mp=mp.double())
+    elif model == "anymal_fourier":
+        eng, suite, args, gc = _ground_setup("fourier", 62, B, dev)
+        eng64 = Engine(eng.tree.to(dtype=f64), eng.options, motors=eng.motors.to(dtype=f64),
+                       controller=PDController(80.0, 2.0), ground=eng.ground, device=dev)
+        kw, kw64 = dict(gc=gc), dict(gc=gc.double())
+    elif model in ("ant", "spotmicro"):
+        eng, suite, args = _walker_case(model, 63, B, dev)
+        eng64 = _walker_case(model, 63, 1, dev, f64)[0]
+    elif model == "cartpole":
+        eng, eng64 = _prismatic_engine(dev, model), _prismatic_engine(dev, model, f64)
+        suite, args = None, _prismatic_inputs(64, B, eng, model)
+    elif model == "forest":
+        eng, eng64 = _forest_engine(dev, torch.float32, True), _forest_engine(dev, f64, True)
+        q, v, tau, lam = _forest_inputs(42, B, dev)  # the K3 forest test's inputs
+        suite, args = None, [q, v, tau[:, :1].contiguous(), lam, torch.zeros(B, 6, device=dev)]
+    elif model == "sphere_feet":
+        eng, eng64 = _sphere_engine(dev), _sphere_engine(dev, f64)
+        suite, args = None, _substep_inputs(66, B, eng)
+    else:
+        eng, eng64 = _world_loop_engine(dev, torch.float32), _world_loop_engine(dev, f64)
+        rng = np.random.default_rng(67)
+        suite, args = None, [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+            rng.uniform(0.4, 0.8, (B, 2)), rng.standard_normal((B, 2)),
+            20 * rng.standard_normal((B, 2)), 0.1 * rng.standard_normal((B, 1)),
+            np.zeros((B, 6)))]
+    # the forest: float32 is as ill posed as on Cassie in a few envs (one
+    # env of 4097 from seed 65 sits 0.023 from float64 in v for the warp
+    # and the one-thread bodies alike, bit-equal, the plain version 0.005)
+    well_posed = model in ("anymal", "world_loop")
+    return (eng.substep_spec, eng64.substep_spec, args, [x.double() for x in args], kw, kw64,
+            suite, well_posed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 31, 1000, 4097])
+@pytest.mark.parametrize("model", WARP_MODELS)
+def test_warp_k2_matches_plain_versions(cuda_device, model, B):
+    """K2's warp body over one substep on each model of the ANYmal frame,
+    at batches that are not multiples of the envs per block: through the
+    warp body (its counter) and the instantiation's own counter; two
+    launches from the same inputs bit-equal; held within 1e-4 of the
+    float32 plain version where that is well posed (ANYmal from the
+    perturbed stand, the world-anchored loop), else env by env against the
+    float64 plain version; with the sensor stage (where the model has a
+    suite) its physics bit-equal to the sensor-free launch and its buffers
+    held as the physics is."""
+    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
+
+    spec, spec64, args, a64, kw, kw64, suite, well_posed = _warp_case(model, B, cuda_device)
+    assert spec.warp_workspace() is not None
+    counter = ("rand_" if "mp" in kw else "") + ("ground_" if "gc" in kw else "") + "launches"
+    before = substep_batched_multi.warp_launches, getattr(substep_batched_multi, counter)
+    out = substep_batched_multi(spec, 1, *args, **kw)
+    assert (substep_batched_multi.warp_launches, getattr(substep_batched_multi, counter)) == (
+        before[0] + 1, before[1] + 1)
+    again = substep_batched_multi(spec, 1, *args, **kw)
+    p32 = substep_multi_reference(spec, 1, *args, **kw)
+    torch.cuda.synchronize()
+    for i in range(7):
+        assert torch.equal(out[i], again[i]), i
+    if well_posed:
+        _assert_outputs_close(out, p32, spec.dt)
+    else:
+        p64 = substep_multi_reference(spec64, 1, *a64, **kw64)
+        for i, name in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+            if out[i].numel():  # no impulses without ground contacts
+                _assert_env_by_env_vs_f64(f"{model} {name}", out[i], p32[i], p64[i])
+    if model == "forest":
+        # the one-thread body (K3, the same τ) computes the same bits: what
+        # the K3 forest test holds against float64
+        from jiminy_tpu_torch.ops.substep_kernel import torque_reference
+
+        q, v, cmd, lam, w = args
+        k3 = substep_batched(spec, q, v, torque_reference(spec, q, v, cmd).contiguous(), lam, w)
+        for i in range(4):
+            assert torch.equal(out[i], k3[i]), i
+    if suite is None:
+        return
+    gen = torch.Generator(device=cuda_device).manual_seed(68)
+    q, v = args[:2]
+    bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B), q, v))
+    sw = dict(sensors=SensorKernelSpec(spec.tree, suite, 1), bufs=bufs,
+              eps=suite.sample_eps(gen, B))
+    outs = substep_batched_multi(spec, 1, *args, **kw, **sw)
+    ps32 = substep_multi_reference(spec, 1, *args, **kw, **sw)
+    torch.cuda.synchronize()
+    for i in range(7):
+        assert torch.equal(outs[i], out[i]), i
+    if well_posed:
+        _assert_bufs_close(sw["sensors"], outs[7], ps32[7])
+        return
+    s64 = suite.to(dtype=torch.float64)
+    ps64 = substep_multi_reference(
+        spec64, 1, *a64, **kw64, sensors=SensorKernelSpec(spec64.tree, s64, 1),
+        bufs=bufs.double(), eps=sw["eps"].double())
+    scale = ps64[7].abs().amax(dim=0).clamp(min=1.0)
+    _assert_env_by_env_vs_f64(f"{model} bufs", outs[7] / scale, ps32[7] / scale, ps64[7] / scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sensors", [False, True])
+def test_warp_k2_steps_as_chained_launches(cuda_device, sensors):
+    """The warp body over an env step's four substeps equals four chained
+    launches of one substep, bit for bit (q, v, λ carried in shared memory
+    as through device memory); with the sensor stage, its physics equals
+    the sensor-free launch's."""
+    eng = _anymal_engine(cuda_device)
+    spec = eng.substep_spec
+    sens, args, bufs, eps = _sensor_setup(eng, 69, 1000, n_upd=4)
+    q, v, cmd, lam, wrench = args
+    whole = substep_batched_multi(spec, 4, *args)
+    for _ in range(4):
+        out = substep_batched_multi(spec, 1, q, v, cmd, lam, wrench)
+        q, v, lam = out[:3]
+    for i in range(7):
+        assert torch.equal(whole[i], out[i]), i
+    if sensors:
+        fused = substep_batched_multi(spec, 4, *args, sensors=sens, bufs=bufs, eps=eps)
+        for i in range(7):
+            assert torch.equal(fused[i], whole[i]), i
+
+
+@pytest.mark.cuda
+def test_large_frame_takes_the_one_thread_body(cuda_device):
+    """Cassie (nb 15, nv 20, nc 28) is past the ANYmal frame: no warp
+    workspace, and K2 runs the one-thread body."""
+    eng, _, stand = _cassie_engine(cuda_device)
+    assert eng.substep_spec.warp_workspace() is None
+    args = _cassie_inputs(70, 16, eng, stand)
+    before = substep_batched_multi.warp_launches, substep_batched_multi.launches
+    substep_batched_multi(eng.substep_spec, 1, *args)
+    torch.cuda.synchronize()
+    assert (substep_batched_multi.warp_launches, substep_batched_multi.launches) == (
+        before[0], before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["overlap", "too_large", "misaligned", "no_layout"])
+def test_warp_layout_is_checked(cuda_device, fault):
+    """A layout the warp body cannot take raises, nothing falls back:
+    two live regions on one another, more shared memory than a block may
+    take, an offset off 16 bytes, or no layout at all."""
+    import dataclasses
+
+    eng = _anymal_engine(cuda_device)
+    spec = eng.substep_spec
+    args = _substep_inputs(71, 8, eng)
+    ws = spec.warp_workspace()
+    ints = list(ws.ints)
+    if fault == "overlap":  # J onto M
+        ints[8 + 13] = ints[8 + 10]
+    elif fault == "too_large":  # one env's slice past the block's shared memory
+        ints[1] = 232_448 // 4 + 4
+    elif fault == "misaligned":
+        ints[8 + 13] += 1
+    spec._warp[0] = None if fault == "no_layout" else dataclasses.replace(ws, ints=tuple(ints))
+    try:
+        if fault == "no_layout":
+            spec.warp_workspace = lambda sensors=None: None
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            substep_batched_multi(spec, 1, *args)
+    finally:
+        spec._warp.clear()
+        spec.__dict__.pop("warp_workspace", None)
