@@ -10,11 +10,12 @@ imports nothing of JAX and nothing of ``jiminy_tpu``. The kernels:
 
 - K1 ``constraint_solve`` (``csrc/constraint_solve.cu``): the solve chain;
 - K2 ``substep_multi`` (``csrc/substep.cu``, the code in
-  ``csrc/substep.cuh``): every substep of an env step in one launch, τ
-  recomputed in-kernel;
+  ``csrc/substep.cuh`` and its warp body ``csrc/substep_warp.cuh``, one
+  warp per env for every model): every substep of an env step in one
+  launch, τ recomputed in-kernel;
 - K3 ``substep`` (``csrc/substep.cu``): one substep, τ given;
 - K2 with the sensor stage ``substep_multi_sensors`` (``csrc/substep.cu``,
-  ``substep_multi_kernel<…, true, false, false>``): the same, plus after every
+  ``substep_multi_warp_kernel<true, false, false>``): the same, plus after every
   k_obs-th substep the sensor suite's update (measure at the accepted
   state, corrupt with pre-sampled eps, push the delay lines);
 - the ground instantiations ``substep_ground``, ``substep_multi_ground``
@@ -29,7 +30,8 @@ imports nothing of JAX and nothing of ``jiminy_tpu``. The kernels:
   gain and friction;
 - the same kernels on the Cassie biped (``cassie_substep``,
   ``cassie_substep_multi``, ``cassie_substep_multi_sensors`` in the
-  kernels line): the large frame ⟨32, 48, 32⟩, the pushrods' distance
+  kernels line): the large frame (nb ≤ 32, nv ≤ 32, nc ≤ 48; K2's warp
+  body there too, K3 under the caps ⟨32, 48, 32⟩), the pushrods' distance
   rows ahead of the bounds and the shin springs, runtime branches of the
   same instantiations;
 - the same kernels with collision pairs (``cassie_selfcol_substep_multi``,
@@ -226,12 +228,18 @@ B.10) run between the ANYmal parts and the Cassie parts, the slab scene
   first update held to float64 on each walker; the eight kernels against
   their bounds and plain versions.
 
-The Cassie parts of phases 1–3 run last, after every ANYmal number: once
-a kernel in the large frame has run, the process keeps its local memory
-and the ANYmal sensor K2 runs slower, so the ANYmal numbers are those of
-a process that never launched the large frame, as a run that trains
-ANYmal alone. The line before the last is a JSON object with the
-kernels' numbers; the last line is ``{"ok": true, "device": {...}}``.
+Phase 0 prints, for K2's warp body on ANYmal and on every large-frame
+model (Cassie's state and sensor paths, its self-collision, ptbox and
+ptseg pairs, the flexible hips, the slab scene), the bytes per env, W and
+the warps one SM holds, and every K2 launch of phase 2, in either frame,
+is checked to have run the warp body (`_check_warp`). The Cassie parts of
+phases 1–3 run last, after every ANYmal number: once a one-thread kernel
+of the large frame (K3, or K1 on Cassie's ``"kernel"`` path) has run, the
+process keeps its local memory and the ANYmal sensor K2 ran slower after
+it, so the ANYmal numbers are those of a process that never launched the
+large frame, as a run that trains ANYmal alone. The line before the last
+is a JSON object with the kernels' numbers; the last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -758,14 +766,15 @@ def _substep_inputs(engine, gen, B):
     return q, v, cmd, lam0, wrench
 
 
-K2_WARP_SOURCE = "jiminy_tpu_torch/csrc/substep_warp.cuh"  # K2 in the ANYmal frame
+K2_WARP_SOURCE = "jiminy_tpu_torch/csrc/substep_warp.cuh"  # K2, every model
 
 
 def _warp_report(dev):
     """Phase 0 for K2's warp body: per instantiation (SENS, GEN, RAND)
     ptxas's registers, stack and spills, and on ANYmal (flat and on the
-    Fourier ground, with and without the sensor stage) the bytes per env,
-    W and the warps one SM holds (registers and shared memory counted)."""
+    Fourier ground, with and without the sensor stage) and on every
+    large-frame model the bytes per env, W and the warps one SM holds
+    (registers and shared memory counted)."""
     from jiminy_tpu_torch.ops import _build
     from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec, warp_blocks_per_sm
 
@@ -792,6 +801,30 @@ def _warp_report(dev):
                   f"{ws.bytes_per_env} B per env, W = {ws.W} envs per block "
                   f"({ws.W * ws.bytes_per_env} B), warps per SM (nominal, randomized) "
                   f"{warps[False]}, {warps[True]}")
+    # the large frame: Cassie's paths, its pair sets and flexible hips, the slab
+    pairs = _pair_sets()
+    tree, _, suite, _, _ = _cassie_model(dev)
+    ftree, _, fsuite, _, _ = _cassie_model(dev, flexibility=True)
+    large = (
+        ("cassie state", _cassie_engine(dev), None),
+        ("cassie sensors", _cassie_engine(dev), SensorKernelSpec(tree, suite, 1)),
+        ("cassie self-collision", _cassie_engine(dev, pairs=pairs["seg"]), None),
+        ("cassie ptbox", _cassie_engine(dev, pairs=pairs["ptbox"]), None),
+        ("cassie ptseg", _cassie_engine(dev, pairs=pairs["ptseg"]), None),
+        ("cassie flex", _cassie_engine(dev, flexibility=True), None),
+        ("cassie flex sensors", _cassie_engine(dev, flexibility=True),
+         SensorKernelSpec(ftree, fsuite, 1)),
+        ("prismatic slab", _slab_engine(dev), None),
+    )
+    for name, eng, sens in large:
+        spec = eng.substep_spec
+        ws = spec.warp_workspace(sens)
+        warps = {rand: ws.W * warp_blocks_per_sm(ws, sens is not None, False, rand)
+                 for rand in (False, True)}
+        print(f"[phase 0] K2 warp body on {name} (nb {spec.tree.nb}, nv {spec.tree.nv}, nc "
+              f"{spec.nc}): {ws.bytes_per_env} B per env, W = {ws.W} envs per block "
+              f"({ws.W * ws.bytes_per_env} B), warps per SM (nominal, randomized) "
+              f"{warps[False]}, {warps[True]}")
 
 
 def _max_err(a, b) -> float:
@@ -2574,17 +2607,19 @@ def _reset_counts():
 
 
 def _check_warp(label, spec, launched) -> int:
-    """K2's launches ``launched`` (counts by instantiation) went through the
-    warp body, all of them in the ANYmal frame and none past it: its
-    launches since the counts were last set to 0."""
+    """K2's launches ``launched`` (counts by instantiation) all went through
+    the warp body, in either frame, as ``spec.warp_workspace()`` lays it out
+    for every model inside the caps: its launches since the counts were
+    last set to 0."""
     from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi
 
     k2 = sum(c for n, c in launched.items() if "substep_multi" in n)
-    expect = k2 if spec.warp_workspace() is not None else 0
+    if k2:
+        spec.warp_workspace()  # the layout K2 ran with; raises for a model past the caps
     got = substep_batched_multi.warp_launches
-    if got != expect:
-        raise AssertionError(f"{label}: {got} launches of K2's warp body, expected {expect} "
-                             f"(of {k2} K2 launches)")
+    if got != k2:
+        raise AssertionError(f"{label}: {got} launches of K2's warp body, expected all {k2} "
+                             f"K2 launches")
     return got
 
 
@@ -3324,14 +3359,14 @@ def run(dev) -> None:
           f"{_substep_flops(spec)}")
     b9 = "jiminy_tpu/ops/substep_kernel.py:933"
     entry(
-        "cassie_substep_multi", "jiminy_tpu_torch/csrc/substep.cu", b9,
+        "cassie_substep_multi", K2_WARP_SOURCE, b9,
         path["cassie state path"]["substep_multi"],
         _time_cuda(lambda: substep_batched_multi(cspec, c_sub, *cargs), 10),
         _time_cuda(lambda: substep_multi_reference(cspec, c_sub, *cargs), 2),
         _substep_multi_bytes(cspec, B_MAIN), c_ops,
     )
     entry(
-        "cassie_substep_multi_sensors", "jiminy_tpu_torch/csrc/substep.cu", b9,
+        "cassie_substep_multi_sensors", K2_WARP_SOURCE, b9,
         path["cassie sensor path"]["substep_multi_sensors"],
         _time_cuda(lambda: substep_batched_multi(cspec, c_sub, *cargs, **csw), 10),
         _time_cuda(lambda: substep_multi_reference(cspec, c_sub, *cargs, **csw), 2),
@@ -3363,7 +3398,7 @@ def run(dev) -> None:
                        else f"cassie {kind} pairs state path")
         main_err[name] = main_err[f"pairs_{kind}"]
         entry(
-            name, "jiminy_tpu_torch/csrc/substep.cu", b7, path[launched_by]["substep_multi"],
+            name, K2_WARP_SOURCE, b7, path[launched_by]["substep_multi"],
             _time_cuda(lambda: substep_batched_multi(pspec, c_sub, *pargs), 10),
             _time_cuda(lambda: substep_multi_reference(pspec, c_sub, *pargs), 2),
             _substep_multi_bytes(pspec, B_MAIN), p_ops,
@@ -3425,14 +3460,14 @@ def run(dev) -> None:
           f"{_substep_flops(cspec)}")
     b8 = "jiminy_tpu/ops/substep_kernel.py:448"
     entry(
-        "cassie_flex_substep_multi", "jiminy_tpu_torch/csrc/substep.cu", b8,
+        "cassie_flex_substep_multi", K2_WARP_SOURCE, b8,
         path["cassie flex state path"]["substep_multi"],
         _time_cuda(lambda: substep_batched_multi(fspec, c_sub, *fargs), 10),
         _time_cuda(lambda: substep_multi_reference(fspec, c_sub, *fargs), 2),
         _substep_multi_bytes(fspec, B_MAIN), f_ops,
     )
     entry(
-        "cassie_flex_substep_multi_sensors", "jiminy_tpu_torch/csrc/substep.cu", b8,
+        "cassie_flex_substep_multi_sensors", K2_WARP_SOURCE, b8,
         path["cassie flex sensor path"]["substep_multi_sensors"],
         _time_cuda(lambda: substep_batched_multi(fspec, c_sub, *fargs, **fsw), 10),
         _time_cuda(lambda: substep_multi_reference(fspec, c_sub, *fargs, **fsw), 2),
@@ -3484,7 +3519,7 @@ def run(dev) -> None:
           f"{_pair_flops(sl_spec)}, chain {_solve_flops(sl_spec.cfg)} at nc {sl_spec.nc}); "
           f"the cartpole's {_substep_flops(cp_spec)}")
     entry(
-        "prismatic_slab_substep_multi", "jiminy_tpu_torch/csrc/substep.cu", b10,
+        "prismatic_slab_substep_multi", K2_WARP_SOURCE, b10,
         path["prismatic slab engine path"]["substep_multi"],
         _time_cuda(lambda: substep_batched_multi(sl_spec, SLAB_SUBSTEPS, *sl_args), 20),
         _time_cuda(lambda: substep_multi_reference(sl_spec, SLAB_SUBSTEPS, *sl_args), 2),
@@ -3500,7 +3535,8 @@ def run(dev) -> None:
         _substep_bytes(sl_spec, B_MAIN), B_MAIN * _substep_flops(sl_spec),
     )
     # after every large-frame launch: the ANYmal sensor K2 again (the
-    # one-thread body ran it ~5 % slower here than before them)
+    # one-thread K2 ran it ~5 % slower here than before them; since then
+    # only K3 and K1 run one thread per env in the large frame)
     late_ms = _time_cuda(sensor_k2, 20)
     print(f"[phase 3] substep_multi_sensors B={B_MAIN} after the large-frame launches: "
           f"{late_ms:.4f} ms against {sensor_k2_ms:.4f} ms before them "

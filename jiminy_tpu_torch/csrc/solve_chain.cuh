@@ -1,6 +1,7 @@
 // The constraint-solve chain of one env as a device function, shared by
-// the chain kernel (constraint_solve.cu, K1) and the whole-substep
-// kernels (substep.cu, K2 and K3).
+// the chain kernel (constraint_solve.cu, K1) and the one-thread
+// whole-substep kernel (substep.cu, K3; K2's warp body has its own,
+// substep_warp.cuh `jt_warp_chain`, with the same arithmetic).
 //
 // Counterpart of jiminy_tpu/ops/constraint_solve.py `_solve_chain`:
 //

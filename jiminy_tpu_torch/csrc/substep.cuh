@@ -1,6 +1,5 @@
-// Whole-substep kernels for Hopper (sm_90a): K2 in the ANYmal frame one
-// warp per env (substep_warp.cuh), K2 in the large frame and K3 one thread
-// per env.
+// Whole-substep kernels for Hopper (sm_90a): K2 one warp per env
+// (substep_warp.cuh), in both frames; K3 one thread per env.
 //
 // Included by two translation units, each its own library: csrc/substep.cu
 // (JT_RAND false, the nominal instantiations) and csrc/substep_rand.cu
@@ -20,7 +19,7 @@
 // motor command through the motor model (K2). K2 also carries the
 // sensor stage (`_sensor_stage`, with `SensorKernelSpec` and the
 // quaternion helpers `_quat_from_m_lane`, `_quat_exp_lane`,
-// `_quat_mul_lane`; see `jt_sensor_stage` below). Both take, beside flat
+// `_quat_mul_lane`; see `jt_sensor_measure` below). Both take, beside flat
 // ground, an analytic ground per env (`_ground_query` and the
 // general-ground branch of `_substep_math`; see `jt_ground_query` below):
 // the `GEN` instantiations. With model randomization (`_unpack_mp`,
@@ -45,7 +44,7 @@
 // `dof_cols` and the quaternion integrate (`subspace_col`,
 // `joint_motion_of`, `jt_joint_transform`, `jt_quat_step`), and a sprung
 // one the spring branch of `_compute_tau`, −k·log(quat) (`jt_quat_log`,
-// atan2f where the TPU kernel had a polynomial), in `jt_torque`. PRISMATIC
+// atan2f where the TPU kernel had a polynomial), in `jt_spring_tau`. PRISMATIC
 // joints (B.10: a scalar q along the axis) take those functions' PRISMATIC
 // branches: S = [0; axis], X_J = (I, axis·q), the RNEA bias and every
 // Jacobian column through `subspace_col`, and REVOLUTE's scalar integrate,
@@ -102,16 +101,19 @@
 // (2) every intermediate in local memory (body poses, M, J, the chain's L,
 // X, A and the carry are indexed under runtime bounds: ~13 KB per thread
 // in the ANYmal frame, ~40 KB in the large one); (3) serial work, ~20
-// cycles per operation. K2 in the ANYmal frame (substep_warp.cuh) answers
-// each: (1) a warp per env and four envs per block, so B = 4096 is 4096
-// warps and an SM holds 16 of them; (2) the env's working set in shared
-// memory, sized from the model (8,752 B for ANYmal, L factored in place
-// of M, the tree passes' arrays in the chain's X and A), with odd row
-// strides; (3) the lanes across the bodies of one depth, the motors, the
-// rows, the contacts, Cholesky's column, the right-hand sides of M⁻¹[p |
-// Jᵀ], A's columns and each PGS group, so a substep's dependent chain is
-// the tree's depth and the chain's length, not its size. The large frame,
-// K3 and K1 (solve_chain.cuh) keep the one-thread design.
+// cycles per operation; in the large frame K2 ran 206–340× its bound
+// (Cassie 9.07 ms, the slab 8.97 ms; PERF.md), its time tracking nc² as
+// A and X moved through local memory row by row. K2 (substep_warp.cuh),
+// in both frames, answers each: (1) a warp per env and four envs per
+// block, so B = 4096 is 4096 warps and an SM holds 12–16 of them; (2) the
+// env's working set in shared memory, sized from the model and not from
+// the caps (8,752 B for ANYmal, 11,072 for Cassie, 13,792 for the slab;
+// L factored in place of M, the tree passes' arrays in the chain's X and
+// A), with odd row strides; (3) the lanes across the bodies of one depth,
+// the motors, the row items, Cholesky's column, the right-hand sides of
+// M⁻¹[p | Jᵀ], A's columns and each PGS group, so a substep's dependent
+// chain is the tree's depth and the chain's length, not its size. K3 and
+// K1 (solve_chain.cuh) keep the one-thread design.
 //
 // Packed spec (built by ops/substep_kernel.py `SubstepSpec.packed`):
 //   ints:   [nb, nq, nv, ncp, nbj, nm, torque mode, ground mode, Fourier
@@ -498,16 +500,6 @@ __device__ __forceinline__ void jt_spring_tau(const SpecView& s, int i, const fl
   }
 }
 
-template <bool RAND>
-__device__ __forceinline__ void jt_torque(const SpecView& s, const float* q, const float* v,
-                                          const float* cmd, const float* mscale, float* tau) {
-  for (int r = 0; r < s.nv; ++r) tau[r] = 0.f;
-  for (int m = 0; m < s.nm; ++m) tau[s.mv[m]] = jt_motor_tau<RAND>(s, m, q, v, cmd, mscale);
-  for (int r = 0; r < s.nv; ++r) tau[r] = tau[r] - s.damp[r] * v[r];
-  if (s.springs)  // the spec's, uniform across the warp
-    for (int i = 0; i < s.nb; ++i) jt_spring_tau(s, i, q, tau);
-}
-
 // ---- the ground query (counterpart of `_ground_query`; the plain
 // version is engine/ground.py's `query` of each ground): height and
 // gradient (h, ∂h/∂x, ∂h/∂y) of the env's analytic ground at (px, py),
@@ -798,23 +790,26 @@ __device__ __forceinline__ void jt_pair_contact(
   }
 }
 
-// every pair generator's contacts (the narrow phases of `_substep_math`'s
-// pair block) as rows from row0, contact after contact in generator order;
-// stops at nc (the layout jt_check_dims holds makes that the end); J's
-// rows ldj apart
-__device__ __forceinline__ void jt_pair_rows(const SpecView& s, const float (*xwR)[9],
-                                             const float (*xwp)[3], int row0, int nc, float* J,
+// pair contact p (0 from the first generator's first contact, in
+// generator order) as rows at row: its generator's narrow phase (the pair
+// block of `_substep_math`) for that contact alone; nothing when the
+// generators hold fewer contacts. J's rows ldj apart.
+__device__ __forceinline__ void jt_pair_item(const SpecView& s, const float (*xwR)[9],
+                                             const float (*xwp)[3], int p, int row, float* J,
                                              int ldj, float* target, float* active, float* mu) {
   const int* gi = jt_pair_ints(s);
   const float* gfl = jt_pair_floats(s);
-  int row = row0;
   for (int gidx = 0; gidx < s.n_gen; ++gidx) {
     const int* G = gi + 5 * gidx;
-    const int kind = G[0], bp = G[1], bf = G[2], npt = G[3];
+    const int kind = G[0], bp = G[1], bf = G[2];
+    const int count = kind == JT_GEN_SEG ? 1 : G[3];
+    if (p >= count) {
+      p -= count;
+      continue;
+    }
     const float* f = gfl + G[4];
-    float n[3], sa[3], sb[3];
+    float n[3], sa[3], sb[3], depth;
     if (kind == JT_GEN_SEG) {
-      if (row + 3 > nc) return;
       float pa0[3], pa1[3], pb0[3], pb1[3], ca[3], cb[3], d[3];
       jt_world_point(xwR, xwp, bp, f + 3, pa0);
       jt_world_point(xwR, xwp, bp, f + 6, pa1);
@@ -828,61 +823,59 @@ __device__ __forceinline__ void jt_pair_rows(const SpecView& s, const float (*xw
         sa[e] = ca[e] - f[1] * n[e];
         sb[e] = cb[e] + f[2] * n[e];
       }
-      jt_pair_contact(s, xwR, xwp, bp, sa, bf, sb, n, (f[1] + f[2]) - dist, f[0], row, J,
-                      ldj, target, active, mu);
-      row += 3;
+      depth = (f[1] + f[2]) - dist;
     } else if (kind == JT_GEN_PTBOX) {
       const float rp = f[1];
-      const float* pts = f + 17;
       float cw[3], Rw[9];  // the box's centre and axes in the world: Rw = R_bf·R
       jt_world_point(xwR, xwp, bf, f + 2, cw);
       mat3_mul(xwR[bf], f + 5, Rw);
-      for (int k = 0; k < npt; ++k) {
-        if (row + 3 > nc) return;
-        float pw[3], rel[3], pl[3], nl[3];
-        jt_world_point(xwR, xwp, bp, pts + 3 * k, pw);
-        for (int e = 0; e < 3; ++e) rel[e] = pw[e] - cw[e];
-        mat3t_vec(Rw, rel, pl);  // box frame
-        const float sdf = jt_box_sdf(pl, f + 14, nl);
-        mat3_vec(Rw, nl, n);  // outward from the box, toward the point
-        for (int e = 0; e < 3; ++e) {
-          sa[e] = pw[e] - rp * n[e];
-          sb[e] = pw[e] - sdf * n[e];
-        }
-        jt_pair_contact(s, xwR, xwp, bp, sa, bf, sb, n, rp - sdf, f[0], row, J, ldj, target,
-                        active, mu);
-        row += 3;
+      float pw[3], rel[3], pl[3], nl[3];
+      jt_world_point(xwR, xwp, bp, f + 17 + 3 * p, pw);
+      for (int e = 0; e < 3; ++e) rel[e] = pw[e] - cw[e];
+      mat3t_vec(Rw, rel, pl);  // box frame
+      const float sdf = jt_box_sdf(pl, f + 14, nl);
+      mat3_vec(Rw, nl, n);  // outward from the box, toward the point
+      for (int e = 0; e < 3; ++e) {
+        sa[e] = pw[e] - rp * n[e];
+        sb[e] = pw[e] - sdf * n[e];
       }
+      depth = rp - sdf;
     } else {  // JT_GEN_PTSEG: the points against a capsule on bf
       const float rp = f[1], rs = f[2];
-      const float* pts = f + 9;
       float p0[3], p1[3], seg[3];
       jt_world_point(xwR, xwp, bf, f + 3, p0);
       jt_world_point(xwR, xwp, bf, f + 6, p1);
       for (int e = 0; e < 3; ++e) seg[e] = p1[e] - p0[e];
       const float denom = fmaxf(dot3(seg, seg), 1e-12f);
-      for (int k = 0; k < npt; ++k) {
-        if (row + 3 > nc) return;
-        float pw[3], rel[3], cpt[3], d[3];
-        jt_world_point(xwR, xwp, bp, pts + 3 * k, pw);
-        for (int e = 0; e < 3; ++e) rel[e] = pw[e] - p0[e];
-        const float st = fminf(fmaxf(dot3(rel, seg) / denom, 0.f), 1.f);
-        for (int e = 0; e < 3; ++e) {
-          cpt[e] = p0[e] + st * seg[e];
-          d[e] = pw[e] - cpt[e];
-        }
-        const float dist = sqrtf(dot3(d, d) + 1e-18f);
-        for (int e = 0; e < 3; ++e) {
-          n[e] = d[e] / dist;
-          sa[e] = pw[e] - rp * n[e];
-          sb[e] = cpt[e] + rs * n[e];
-        }
-        jt_pair_contact(s, xwR, xwp, bp, sa, bf, sb, n, (rp + rs) - dist, f[0], row, J,
-                        ldj, target, active, mu);
-        row += 3;
+      float pw[3], rel[3], cpt[3], d[3];
+      jt_world_point(xwR, xwp, bp, f + 9 + 3 * p, pw);
+      for (int e = 0; e < 3; ++e) rel[e] = pw[e] - p0[e];
+      const float st = fminf(fmaxf(dot3(rel, seg) / denom, 0.f), 1.f);
+      for (int e = 0; e < 3; ++e) {
+        cpt[e] = p0[e] + st * seg[e];
+        d[e] = pw[e] - cpt[e];
       }
+      const float dist = sqrtf(dot3(d, d) + 1e-18f);
+      for (int e = 0; e < 3; ++e) {
+        n[e] = d[e] / dist;
+        sa[e] = pw[e] - rp * n[e];
+        sb[e] = cpt[e] + rs * n[e];
+      }
+      depth = (rp + rs) - dist;
     }
+    jt_pair_contact(s, xwR, xwp, bp, sa, bf, sb, n, depth, f[0], row, J, ldj, target, active, mu);
+    return;
   }
+}
+
+// every pair generator's contacts as rows from row0, contact after contact
+// in generator order, up to nc (the layout jt_check_dims holds makes that
+// the end)
+__device__ __forceinline__ void jt_pair_rows(const SpecView& s, const float (*xwR)[9],
+                                             const float (*xwp)[3], int row0, int nc, float* J,
+                                             int ldj, float* target, float* active, float* mu) {
+  for (int p = 0; row0 + 3 * p + 3 <= nc; ++p)
+    jt_pair_item(s, xwR, xwp, p, row0 + 3 * p, J, ldj, target, active, mu);
 }
 
 // ---- the pieces of one substep, each for one body, dof, row or contact:
@@ -1257,7 +1250,7 @@ __device__ __forceinline__ float jt_substep(
 //           (q offset, v offset), contact (contact index, body);
 //   floats: per IMU, its frame's rotation in the body (9, row-major) and
 //           position (3).
-// The ring buffers stay in global memory: each thread's row of bufs_out
+// The ring buffers stay in global memory: each env's row of bufs_out
 // (n_buf floats, [group][sensor][slot][dim]) is a copy of its row of
 // bufs_in, shifted in place at each push; each update reads its eps
 // straight from global memory.
@@ -1390,49 +1383,18 @@ __device__ __forceinline__ void jt_sensor_measure(const SpecView& s, const SensP
   }
 }
 
-// One sensor update of one env at the accepted state (q, v⁺ = v, v of the
-// substep's start v0, so a = Δv/dt; world impulses fc (3·ncp) → forces
-// fc/dt, applied τ): world rotations of the bodies the readings need, and
-// the velocities and proper accelerations of the IMU bodies and their
-// ancestors alone (the suite's per-body needs), the measurements, + eps
-// (the IMU quaternion turned by exp(rv) on the right), pushed at slot 0
-// of each delay line.
-template <int NBMAX>
-__device__ __forceinline__ void jt_sensor_stage(
-    const SpecView& s, const SensParams& sp, const float* q, const float* v,
-    const float* v0, const float* tau, const float* fc, const float* eps, float* buf) {
-  float xwR[NBMAX][9], vel[NBMAX][6], acc[NBMAX][6];
-  const int* need = sp.gi;
-  for (int i = 0; i < s.nb; ++i)
-    if (need[i] != 0) jt_sensor_body(s, i, need[i], q, v, v0, xwR, vel, acc);
-  const int* group = sp.gi + s.nb;
-  const int* sensor = group + 4 * sp.n_groups;
-  int boff = 0, eoff = 0;
-  for (int gidx = 0; gidx < sp.n_groups; ++gidx) {
-    const int* G = group + 4 * gidx;
-    const int type = G[0], ns = G[1], bl = G[2];
-    const int dim = jt_sensor_dim(type), ndim = jt_noise_dim(type);
-    for (int k = 0; k < ns; ++k) {
-      float row[10];
-      jt_sensor_measure(s, sp, type, sensor + 2 * (G[3] + k), eps + eoff + k * ndim, q, v, tau,
-                        fc, xwR, vel, acc, row);
-      // ring push: the older samples move one slot back, the new one at 0
-      float* r = buf + boff + k * bl * dim;
-      for (int slot = bl - 1; slot > 0; --slot)
-        for (int d = 0; d < dim; ++d) r[slot * dim + d] = r[(slot - 1) * dim + d];
-      for (int d = 0; d < dim; ++d) r[d] = row[d];
-    }
-    boff += ns * bl * dim;
-    eoff += ns * ndim;
-  }
-}
-
 // the env's ground coefficients (gc: B × n_gc) into g, once per launch
 template <bool GEN>
 __device__ __forceinline__ void jt_load_ground(const float* gc, int n_gc, int b, float* g) {
   if constexpr (GEN)
     for (int k = 0; k < n_gc; ++k) g[k] = gc[(size_t)b * n_gc + k];
 }
+
+// Largest sizes any instantiation takes (ops/substep_kernel.py MAX_* and
+// NQ_EXTRA check them before a launch too).
+#define JT_SUB_MAX_N 32
+#define JT_SUB_MAX_NC 48
+#define JT_SUB_MAX_NB 32
 
 #include "substep_warp.cuh"
 
@@ -1460,83 +1422,6 @@ __global__ void __launch_bounds__(JT_THREADS) substep_kernel(
       row, q_out + bq, v_out + bv, fc_out + 3 * (size_t)b * s.ncp, prm, lay);
 }
 
-// ---- K2 in the large frame (the ANYmal frame takes the warp body,
-// substep_warp.cuh): n_sub substeps, (q, v, λ) resident, τ recomputed per
-// substep; with SENS, the sensor stage after every k_obs-th substep; with
-// GEN, an analytic ground per env; with RAND, each env's model parameters
-// (mp: B × n_mp), the motor tail scaling τ. One block per SM is all the launch
-// bounds ask for: ptxas then gives each instantiation the registers it
-// needs instead of holding some at 96 and spilling (with the distance
-// rows and springs in the body and the bounds left at 32 threads alone,
-// the ANYmal sensor instantiation spilled 120 B and ran 3.4 % slower than
-// before them: chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W).
-template <int NMAX, int NCMAX, int NBMAX, bool SENS, bool GEN, bool RAND>
-__global__ void __launch_bounds__(JT_THREADS, 1) substep_multi_kernel(
-    const int* __restrict__ si, const float* __restrict__ sf,
-    const float* __restrict__ q, const float* __restrict__ v,
-    const float* __restrict__ cmd, const float* __restrict__ lam0,
-    const float* __restrict__ wrench, float* __restrict__ q_out,
-    float* __restrict__ v_out, float* __restrict__ lam_out,
-    float* __restrict__ res_out, float* __restrict__ fc_out,
-    float* __restrict__ a_out, float* __restrict__ tau_out, int n_sub,
-    const float* __restrict__ gc, int n_gc, const float* __restrict__ mp, int n_mp,
-    SolveParams prm, BlockLayout lay, SensParams sp) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= prm.B) return;
-  const SpecView s = jt_view(si, sf);
-  float g[GEN ? JT_GC_MAX : 1];
-  jt_load_ground<GEN>(gc, n_gc, b, g);
-  const float* row = RAND ? mp + (size_t)b * n_mp : nullptr;
-  const float* mscale = RAND ? row + 10 * s.nb + s.nv : nullptr;  // gain | friction scale
-  const int nq = s.nq, nv = s.nv, nc = prm.nc;
-  constexpr int NQMAX = NMAX + JT_NQ_EXTRA;
-  float qs[NQMAX], vs[NMAX], qn[NQMAX], vn[NMAX], lam[NCMAX], fc[NCMAX];
-  float u[NMAX], tau[NMAX], w0[6];
-  for (int k = 0; k < nq; ++k) qs[k] = q[(size_t)b * nq + k];
-  for (int k = 0; k < nv; ++k) vs[k] = v[(size_t)b * nv + k];
-  for (int k = 0; k < nc; ++k) lam[k] = lam0[(size_t)b * nc + k];
-  for (int k = 0; k < s.nm; ++k) u[k] = cmd[(size_t)b * s.nm + k];
-  for (int k = 0; k < 6; ++k) w0[k] = wrench[6 * (size_t)b + k];
-  float* buf = nullptr;
-  if constexpr (SENS) {
-    buf = sp.bufs_out + (size_t)b * sp.n_buf;
-    for (int k = 0; k < sp.n_buf; ++k) buf[k] = sp.bufs_in[(size_t)b * sp.n_buf + k];
-  }
-  const float dt = s.scal[JT_S_DT];
-  float res = 0.f;
-  for (int it = 0; it < n_sub; ++it) {
-    jt_torque<RAND>(s, qs, vs, u, mscale, tau);
-    res = jt_substep<NMAX, NCMAX, NBMAX, GEN, RAND>(s, qs, vs, tau, lam, lam, w0, g, n_gc, row,
-                                                    qn, vn, fc, prm, lay);
-    if (it == n_sub - 1) {  // the last substep's accepted a and applied τ
-      for (int k = 0; k < nv; ++k) {
-        a_out[(size_t)b * nv + k] = (vn[k] - vs[k]) / dt;
-        tau_out[(size_t)b * nv + k] = tau[k];
-      }
-    }
-    if constexpr (SENS) {
-      // the schedule is the same for every thread: a uniform branch
-      if ((it + 1) % sp.k_obs == 0) {
-        const int upd = (it + 1) / sp.k_obs - 1;
-        const float* eps = sp.eps + (size_t)b * (n_sub / sp.k_obs) * sp.n_eps + upd * sp.n_eps;
-        jt_sensor_stage<NBMAX>(s, sp, qn, vn, vs, tau, fc, eps, buf);
-      }
-    }
-    for (int k = 0; k < nq; ++k) qs[k] = qn[k];
-    for (int k = 0; k < nv; ++k) vs[k] = vn[k];
-  }
-  for (int k = 0; k < nq; ++k) q_out[(size_t)b * nq + k] = qs[k];
-  for (int k = 0; k < nv; ++k) v_out[(size_t)b * nv + k] = vs[k];
-  for (int k = 0; k < nc; ++k) lam_out[(size_t)b * nc + k] = lam[k];
-  for (int k = 0; k < 3 * s.ncp; ++k) fc_out[(size_t)b * 3 * s.ncp + k] = fc[k];
-  res_out[b] = res;
-}
-
-// Largest sizes any instantiation takes (ops/substep_kernel.py MAX_* and
-// NQ_EXTRA check them before a launch too).
-#define JT_SUB_MAX_N 32
-#define JT_SUB_MAX_NC 48
-#define JT_SUB_MAX_NB 32
 // the sensor stage's (ops/substep_kernel.py MAX_SENS_*)
 #define JT_SENS_MAX_GROUPS 8
 #define JT_SENS_MAX_BUF 4096
@@ -1577,9 +1462,6 @@ static int jt_check_dims(int B, int nb, int nq, int nv, int nc, int n_dist, int 
   return ok ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
-// the ANYmal main path takes the smallest frame
-static bool jt_small(int nb, int nv, int nc) { return nb <= 13 && nv <= 18 && nc <= 24; }
-
 // K3. si/sf: the packed spec; n_dist its distance rows (the header's);
 // wrench (B, 6); fc (B, 3·ncp); gc (B, n_gc)
 // the ground coefficients (null, 0 on flat ground); mp (B, n_mp) the model
@@ -1604,7 +1486,7 @@ extern "C" int jt_substep(
   substep_kernel<NM, NC, NB, GEN, JT_RAND><<<grid, block, 0, s>>>(                        \
       si, sf, q, v, tau, lam0, wrench, q_out, v_out, lam_out, res, fc, gc, n_gc, mp, n_mp, \
       prm, lay)
-  if (jt_small(nb, nv, nc)) {
+  if (nb <= 13 && nv <= 18 && nc <= 24) {  // the ANYmal frame: K3's smaller caps
     if (n_gc) JT_K3(18, 24, 13, true); else JT_K3(18, 24, 13, false);
   } else {
     if (n_gc) JT_K3(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, true);
@@ -1615,9 +1497,9 @@ extern "C" int jt_substep(
 }
 
 // K2 in its four instantiations of this library (sensor stage or not,
-// analytic ground or flat; JT_RAND fixed): the ANYmal frame on the warp
-// body with the workspace layout wl (checked; required there, refused
-// elsewhere), the large frame on the one-thread body.
+// analytic ground or flat; JT_RAND fixed), every model on the warp body
+// with the workspace layout wl (checked; a missing or bad layout, or a PGS
+// group wider than a warp, is refused: nothing falls back).
 template <bool SENS>
 static int jt_multi_launch(
     const int* si, const float* sf, const float* q, const float* v,
@@ -1633,39 +1515,22 @@ static int jt_multi_launch(
   if (err != (int)cudaSuccess) return err;
   if (n_sub < 1) return (int)cudaErrorInvalidValue;
   WarpLayout w;
-  const bool warp = jt_small(nb, nv, nc);
-  if (warp) {
-    err = jt_check_warp_layout(wl, wl_len, nb, nq, nv, nc, nm, n_gc, SENS, &w);
-    if (err != (int)cudaSuccess) return err;
-  } else if (wl != nullptr || wl_len != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
+  err = jt_check_warp_layout(wl, wl_len, nb, nq, nv, nc, nm, n_gc, SENS, lay, &w);
+  if (err != (int)cudaSuccess) return err;
   if (B == 0) return (int)cudaSuccess;
   SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
   cudaStream_t s = (cudaStream_t)stream;
-  if (warp) {
-    return n_gc ? jt_warp_launch<SENS, true>(w, si, sf, q, v, cmd, lam0, wrench, q_out, v_out,
-                                             lam_out, res, fc, a_out, tau_out, n_sub, gc, n_gc,
-                                             mp, n_mp, prm, lay, sp, s)
-                : jt_warp_launch<SENS, false>(w, si, sf, q, v, cmd, lam0, wrench, q_out, v_out,
-                                              lam_out, res, fc, a_out, tau_out, n_sub, gc, n_gc,
-                                              mp, n_mp, prm, lay, sp, s);
-  }
-  const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
-#define JT_K2(NM, NC, NB, GEN)                                                        \
-  substep_multi_kernel<NM, NC, NB, SENS, GEN, JT_RAND><<<grid, block, 0, s>>>(        \
-      si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out, tau_out, \
-      n_sub, gc, n_gc, mp, n_mp, prm, lay, sp)
-  if (n_gc) JT_K2(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, true);
-  else JT_K2(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, false);
-#undef JT_K2
-  return (int)cudaGetLastError();
+  return n_gc ? jt_warp_launch<SENS, true>(w, si, sf, q, v, cmd, lam0, wrench, q_out, v_out,
+                                           lam_out, res, fc, a_out, tau_out, n_sub, gc, n_gc, mp,
+                                           n_mp, prm, lay, sp, s)
+              : jt_warp_launch<SENS, false>(w, si, sf, q, v, cmd, lam0, wrench, q_out, v_out,
+                                            lam_out, res, fc, a_out, tau_out, n_sub, gc, n_gc, mp,
+                                            n_mp, prm, lay, sp, s);
 }
 
 // K2. cmd (B, nm); a and tau (B, nv) of the last substep; gc and mp as
 // for K3, mp with the motor tail; wl (wl_len ints) the warp body's
-// workspace layout (ops/substep_kernel.py `SubstepSpec.warp_workspace`) in
-// the ANYmal frame, else null and 0.
+// workspace layout (ops/substep_kernel.py `SubstepSpec.warp_workspace`).
 extern "C" int jt_substep_multi(
     const int* si, const float* sf, const float* q, const float* v,
     const float* cmd, const float* lam0, const float* wrench, float* q_out,

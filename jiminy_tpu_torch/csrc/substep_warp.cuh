@@ -1,41 +1,57 @@
-// K2 in the ANYmal frame for Hopper: one warp per env, the env's working
-// set in shared memory. Included by substep.cuh (both libraries), after the
-// per-item pieces of a substep, which it runs across its lanes.
+// K2 for Hopper: one warp per env, the env's working set in shared memory.
+// Included by substep.cuh (both libraries), after the per-item pieces of a
+// substep, which it runs across its lanes.
 //
-// Replaces the one-thread K2 (`substep_multi_kernel`) for every model that
-// takes the ANYmal frame (`jt_small`: nb ≤ 13, nv ≤ 18, nc ≤ 24), in every
-// SENS / GEN / RAND instantiation; the one-thread body stays for the large
-// frame, K3 and K1. Same arithmetic as that body step for step (the plain
-// versions ops/substep_kernel.py `substep_multi_reference` and
-// `substep_reference` are the yardstick), save the equality rows' dot in
-// the PGS, a fixed xor tree across the lanes (jt_warp_sum). Every
-// reduction has a fixed order, so the kernel is deterministic, and the
-// physics does not depend on SENS: the sensor variant steps as K2 does, bit
-// for bit, and n_sub substeps in one launch equal n_sub launches of one.
+// Every K2 launch runs this body, in every SENS / GEN / RAND instantiation
+// and for every model inside the kernels' caps (nb ≤ 32, nv ≤ 32, nc ≤ 48:
+// JT_SUB_MAX_*): the ANYmal frame (ANYmal, Ant, Spotmicro, the toys) and
+// the large frame (Cassie with its self-collision pairs and flexible hips,
+// the PRISMATIC slab scene) alike. It replaces the one-thread K2, which
+// sized every array for the caps and kept them in local memory (~40 KB a
+// thread in the large frame, A and X walked row by row: its time tracked
+// nc²). Operations bound it, as substep.cuh's note counts them. Same
+// arithmetic as the one-thread body step for step (the plain versions
+// ops/substep_kernel.py `substep_multi_reference` and `substep_reference`
+// are the yardstick), save the equality rows' dot in the PGS, a fixed xor
+// tree across the lanes (jt_warp_sum). Every reduction has a fixed order
+// and nothing is atomic, so the kernel is deterministic, and the physics
+// does not depend on SENS: the sensor variant steps as K2 does, bit for
+// bit, and n_sub substeps in one launch equal n_sub launches of one.
 //
 // Grid: W envs (warps) per block (ops/substep_kernel.py
 // `SubstepSpec.warp_workspace` picks W ≤ JT_WARP_MAX_W), ⌈B / W⌉ blocks; a
 // warp past B returns whole. Workspace: each env's slice of the block's
-// dynamic shared memory, laid out from the runtime sizes (WarpLayout; the
-// C entry checks it, jt_check_warp_layout): the carried state (q, v twice,
-// τ, λ, the command, the wrench, the impulses, the ground's coefficients),
-// the substep's M (L factored in its place, the diagonal apart), J and the
-// rows' vectors, and one union that holds in turn the tree passes' body
-// arrays, the chain's X = M⁻¹[p | Jᵀ] and Delassus A, and the sensor
-// stage's body arrays and readings. Row strides are odd (no two lanes of a
-// column walk on one bank). ANYmal: 8,752 B per env (SENS too), so W = 4.
+// dynamic shared memory, laid out from the model's own sizes, not the
+// caps (WarpLayout; the C entry checks it, jt_check_warp_layout): the
+// carried state (q, v twice, τ, λ, the command, the wrench, the impulses,
+// the ground's coefficients), the substep's M (L factored in its place,
+// the diagonal apart), J and the rows' vectors, and one union that holds
+// in turn the tree passes' body arrays, the chain's X = M⁻¹[p | Jᵀ] and
+// Delassus A, and the sensor stage's body arrays and readings. Row strides
+// are odd (no two lanes of a column walk on one bank). Bytes per env:
+// ANYmal 8,752, Cassie 11,072, with self-collision 15,168, flexible
+// 13,840, the slab 13,792; W = 4 for each. Registers (the launch bounds'
+// 128) hold an SM to 16 warps; shared memory holds it to 12 at nc 37–43
+// and to 8 at nc 46 (Cassie's self-collision, its ptbox and ptseg sets).
 //
 // Lanes, stage by stage, __syncwarp() between: τ across the motors and
 // dofs; local poses across the bodies, then FK with RNEA's forward pass and
 // RNEA's backward pass with CRBA's composite inertias by depth (the bodies
 // of one depth across the lanes; a parent sums its children's terms in
 // decreasing body order, the one-thread body's order); M's rows and columns
-// across the bodies; the diagonal terms across the dofs; the distance,
-// bounds and contact rows across the lanes (the pairs on one lane); the
-// chain (jt_warp_chain); the impulses across the contacts and Euler across
-// the joints; the sensor stage's bodies by depth, its readings across the
+// across the bodies; the diagonal terms across the dofs; the row items
+// (distance constraints, bounds, ground contacts, then each pair contact
+// at its own fixed rows, jt_pair_item) across the lanes; the chain
+// (jt_warp_chain); the impulses across the contacts and Euler across the
+// joints; the sensor stage's bodies by depth, its readings across the
 // sensors and its delay lines across their columns (the rings stay in
-// global memory).
+// global memory). A stage with more items than lanes (the row items; X's
+// nc + 1 right-hand sides; A's nc columns with their rows' setup; the
+// residual) gives lane l the items l, l + 32, …; the equality rows' dot
+// sums each lane's own entries in that order before the xor tree. Each PGS
+// group stays one row per lane: the C entry refuses a bounds span or a
+// color wider than a warp (a span has at most nv rows, a color at most
+// nc / 3 contacts).
 //
 // JT_WARP_STAGES builds count the cycles of each stage (clock64, summed
 // over every env's warp) for tools/profile_warp_stages.py.
@@ -99,14 +115,16 @@ static void jt_warp_sizes(const WarpLayout& w, int nb, int nq, int nv, int nc, i
   size[JT_WL_ROWS] = sens ? o[JT_WL_NROWS] : 0;
 }
 
-// Host side: the layout from its ints into w, checked against the dims:
-// W envs of `stride` floats fit a block, every offset is 16-byte aligned,
-// every region lies inside its env's slice (a view of the union inside the
-// union), and no two regions live at one time overlap (the regions outside
-// the union with each other and with it; within each view of the union).
-// Returns cudaSuccess or cudaErrorInvalidValue.
+// Host side: the layout from its ints into w, checked against the dims
+// and the PGS layout lay: the dims within the caps and every PGS group
+// (the bounds span, each color) no wider than a warp, W envs of `stride`
+// floats fit a block, every offset is 16-byte aligned, every region lies
+// inside its env's slice (a view of the union inside the union), and no
+// two regions live at one time overlap (the regions outside the union with
+// each other and with it; within each view of the union). Returns
+// cudaSuccess or cudaErrorInvalidValue.
 static int jt_check_warp_layout(const int* wl, int wl_len, int nb, int nq, int nv, int nc, int nm,
-                                int n_gc, bool sens, WarpLayout* w) {
+                                int n_gc, bool sens, const BlockLayout& lay, WarpLayout* w) {
   if (wl == nullptr || wl_len != JT_WL_LEN) return (int)cudaErrorInvalidValue;
   for (int r = 0; r < JT_WL_LEN; ++r) w->o[r] = wl[r];
   const int* o = w->o;
@@ -115,8 +133,10 @@ static int jt_check_warp_layout(const int* wl, int wl_len, int nb, int nq, int n
       W * stride * (long long)sizeof(float) > JT_SMEM_PER_BLOCK || o[JT_WL_NCP] < 0 ||
       3 * o[JT_WL_NCP] > nc || o[JT_WL_NROWS] < 0 || (o[JT_WL_NROWS] > 0) != sens ||
       o[JT_WL_LDM] < nv || o[JT_WL_LDJ] < nv || o[JT_WL_LDX] < nc + 1 || o[JT_WL_LDA] < nc ||
-      nb > 32 || nv > 32 || nc + 1 > 32)
+      nb > JT_SUB_MAX_NB || nv > JT_SUB_MAX_N || nc > JT_SUB_MAX_NC || lay.bounds_size > 32)
     return (int)cudaErrorInvalidValue;
+  for (int g = 0; g < lay.n_colors; ++g)
+    if (lay.colors[g][1] > 32) return (int)cudaErrorInvalidValue;
   int size[JT_WL_LEN];
   jt_warp_sizes(*w, nb, nq, nv, nc, nm, n_gc, sens, size);
   struct Set { int first, last, lo, hi; };
@@ -233,10 +253,11 @@ __device__ __forceinline__ void jt_crba_cols(const SpecView& s, int i, const flo
 // ---- the chain of one env on its warp (the counterpart of jt_solve_chain,
 // its arithmetic and sweep order): L (M's lower triangle, factored in
 // place, row stride ldm) with its diagonal in dL; X (nv × ldx) = M⁻¹[p |
-// Jᵀ], one right-hand side per lane; A (nc × lda) = J·X[:, 1:] + reg·I, one
-// column per lane; the grouped PGS with each bounds span and each (color,
-// row type) group across the lanes from one λ, the equality rows one by
-// one (a warp dot); v⁺ and the residual across the dofs and rows. λ (nc)
+// Jᵀ], lane l the right-hand sides l, l + 32; A (nc × lda) = J·X[:, 1:] +
+// reg·I, lane l the columns l, l + 32 and their rows' setup; the grouped
+// PGS with each bounds span and each (color, row type) group across the
+// lanes from one λ, one row per lane, the equality rows one by one (a warp
+// dot); v⁺ across the dofs, the residual across the rows, strided. λ (nc)
 // in place: λ0 in, λ out. Returns the residual (0 unless asked), the same
 // in every lane.
 __device__ __forceinline__ float jt_warp_chain(
@@ -262,9 +283,8 @@ __device__ __forceinline__ float jt_warp_chain(
     __syncwarp();
   }
 
-  // ---- X = M⁻¹[p | Jᵀ], lane c its column: forward L·y = rhs, back Lᵀ·x = y
-  if (lane < m) {
-    const int c = lane;
+  // ---- X = M⁻¹[p | Jᵀ], lane c its columns: forward L·y = rhs, back Lᵀ·x = y
+  for (int c = lane; c < m; c += 32) {
     for (int i = 0; i < n; ++i) {
       if (c == 0) X[i * ldx] = pf[i];
       else X[i * ldx + c] = J[(c - 1) * ldj + i];
@@ -285,16 +305,16 @@ __device__ __forceinline__ float jt_warp_chain(
   if (lane < n) vfree[lane] = v[lane] + prm.dt * X[lane * ldx];
   __syncwarp();
 
-  // ---- Delassus A = J·M⁻¹Jᵀ + reg·I, lane c its column (X's column c + 1
-  // is its own); rhs = target − J·v_free, the diagonal and λ0 across the rows
-  if (lane < nc) {
-    const int c = lane;
+  // ---- Delassus A = J·M⁻¹Jᵀ + reg·I, lane c its columns (X's column c + 1
+  // is its own); rhs = target − J·v_free, the diagonal and λ0 of row c (A's
+  // diagonal entry in the lane's own column)
+  for (int c = lane; c < nc; c += 32) {
     for (int i = 0; i < nc; ++i) {
       float s = 0.f;
       for (int k = 0; k < n; ++k) s += J[i * ldj + k] * X[k * ldx + 1 + c];
       A[i * lda + c] = i == c ? s + prm.reg : s;
     }
-    const int i = lane;
+    const int i = c;
     float jv = 0.f;
     for (int k = 0; k < n; ++k) jv += J[i * ldj + k] * vfree[k];
     rhs[i] = target[i] - jv;
@@ -317,7 +337,10 @@ __device__ __forceinline__ float jt_warp_chain(
   for (int it = 0; it < prm.iters; ++it) {
     for (int e = 0; e < lay.n_eq; ++e) {
       for (int i = lay.eq[e][0]; i < lay.eq[e][0] + lay.eq[e][1]; ++i) {
-        const float dot = jt_warp_sum(lane < nc ? A[i * lda + lane] * lam[lane] : 0.f);
+        // each lane's own entries in order, then the xor tree
+        float part = lane < nc ? A[i * lda + lane] * lam[lane] : 0.f;
+        for (int c = lane + 32; c < nc; c += 32) part += A[i * lda + c] * lam[c];
+        const float dot = jt_warp_sum(part);
         if (lane == 0) {
           const float li = lam[i] + relax * (rhs[i] - dot) / dg[i];
           lam[i] = active[i] != 0.f ? li : 0.f;
@@ -362,7 +385,8 @@ __device__ __forceinline__ float jt_warp_chain(
   }
   st.mark(JT_ST_PGS);
 
-  // ---- v⁺ = v_free + M⁻¹Jᵀ·λ across the dofs; the residual across the rows
+  // ---- v⁺ = v_free + M⁻¹Jᵀ·λ across the dofs; the residual across the
+  // rows, each lane's largest from 0 (as jt_solve_chain), then the warp's
   if (lane < n) {
     float s = vfree[lane];
     for (int c = 0; c < nc; ++c) s += X[lane * ldx + 1 + c] * lam[c];
@@ -371,8 +395,7 @@ __device__ __forceinline__ float jt_warp_chain(
   float res = 0.f;
   if (prm.compute_residual) {
     float val = 0.f;
-    if (lane < nc) {
-      const int i = lane;
+    for (int i = lane; i < nc; i += 32) {
       const float r = row_r(i);
       float u = fabsf(r);
       if (i >= lay.bounds_start && i < lay.bounds_start + lay.bounds_size)
@@ -389,7 +412,7 @@ __device__ __forceinline__ float jt_warp_chain(
           u = sliding ? 0.f : fabsf(r);
         }
       }
-      val = active[i] != 0.f ? u : 0.f;
+      val = fmaxf(val, active[i] != 0.f ? u : 0.f);
     }
     res = jt_warp_max(val);
   }
@@ -478,27 +501,32 @@ __device__ __forceinline__ float jt_warp_substep(int lane, int dep, int maxd, co
   __syncwarp();
   st.mark(JT_ST_CRBA);
 
-  // ---- the diagonal terms and p = τ − bias across the dofs; the rows:
-  // distance constraints, bounds and contacts across the lanes, the pairs'
-  // contacts on the last lane
+  // ---- the diagonal terms and p = τ − bias across the dofs; the row
+  // items across the lanes: distance constraints, bounds and ground
+  // contacts, then the pair contacts, each at its own rows (up to nc, as
+  // jt_pair_rows stops) on the lanes that follow the others' (item
+  // crow + ncp + p on lane (crow + ncp + p) mod 32)
   if (lane < nv) jt_diag_row<RAND>(s, lane, mp, dt, tau, v, pf[lane], &M[lane * ldm + lane], pf);
-  const int nd = s.n_dist, nbj = s.nbj, crow = nd + nbj;
+  const int nd = s.n_dist, crow = nd + s.nbj, prow = crow + 3 * s.ncp;
   const float* g = JT_W(G);
-  if (lane < nd) {
-    const int* bodies = jt_dist_bodies(s) + 2 * lane;
-    tgt[lane] = jt_distance_row(s, xwR, xwp, bodies[0], bodies[1], jt_dist_floats(s) + 8 * lane,
-                                J + lane * ldj);
-    act[lane] = 1.f;
-    mu[lane] = 0.f;
-  } else if (lane < crow) {
-    jt_bound_row(s, lane - nd, lane, q, J, ldj, tgt, act, mu);
-  } else if (lane < crow + s.ncp) {
-    const int jc = lane - crow;
-    jt_contact_row<GEN>(s, jc, crow + 3 * jc, xwR, xwp, g, n_gc, J, ldj, tgt, act, mu,
-                        basis + 9 * jc);
+  for (int r = lane; r < crow + s.ncp; r += 32) {
+    if (r < nd) {
+      const int* bodies = jt_dist_bodies(s) + 2 * r;
+      tgt[r] = jt_distance_row(s, xwR, xwp, bodies[0], bodies[1], jt_dist_floats(s) + 8 * r,
+                               J + r * ldj);
+      act[r] = 1.f;
+      mu[r] = 0.f;
+    } else if (r < crow) {
+      jt_bound_row(s, r - nd, r, q, J, ldj, tgt, act, mu);
+    } else {
+      const int jc = r - crow;
+      jt_contact_row<GEN>(s, jc, crow + 3 * jc, xwR, xwp, g, n_gc, J, ldj, tgt, act, mu,
+                          basis + 9 * jc);
+    }
   }
-  if (s.n_gen > 0 && lane == 31)
-    jt_pair_rows(s, xwR, xwp, crow + 3 * s.ncp, nc, J, ldj, tgt, act, mu);
+  if (s.n_gen > 0)  // the spec's, uniform across the warp
+    for (int p = (lane - crow - s.ncp) & 31; prow + 3 * p + 3 <= nc; p += 32)
+      jt_pair_item(s, xwR, xwp, p, prow + 3 * p, J, ldj, tgt, act, mu);
   __syncwarp();
   st.mark(JT_ST_ROWS);
 
@@ -574,7 +602,8 @@ __device__ __forceinline__ void jt_warp_sensor_stage(int lane, int dep, int maxd
 // every k_obs-th substep; with GEN an analytic ground per env; with RAND
 // each env's model parameters (mp: B × n_mp), the motor tail scaling τ.
 // Launch bounds: JT_WARP_MAX_W warps a block and four blocks an SM, so that
-// ptxas keeps a thread to 128 registers and 16 warps stay resident.
+// ptxas keeps a thread to 128 registers and up to 16 warps stay resident
+// (as many as the blocks' shared memory lets in).
 template <bool SENS, bool GEN, bool RAND>
 __global__ void __launch_bounds__(JT_WARP_MAX_W * 32, 16 / JT_WARP_MAX_W) substep_multi_warp_kernel(
     const int* __restrict__ si, const float* __restrict__ sf,

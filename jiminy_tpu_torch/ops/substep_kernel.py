@@ -23,7 +23,10 @@ of the engine, for every env of a batch:
   :func:`substep_batched_multi` (K2, ``n_sub`` substeps in one launch,
   with the sensor stage when given ``sensors=``) are the entry points:
   on CUDA tensors they launch the hand-written kernels of
-  ``csrc/substep.cuh`` (built with nvcc from ``csrc/substep.cu`` and,
+  ``csrc/substep.cuh`` (K2 one warp per env, ``csrc/substep_warp.cuh``,
+  its workspace in shared memory laid out by
+  :meth:`SubstepSpec.warp_workspace`; K3 one thread per env; built with
+  nvcc from ``csrc/substep.cu`` and,
   for the randomized instantiations, ``csrc/substep_rand.cu``; loaded
   with ctypes); on CPU tensors they run the plain versions. They never
   fall back from one to the other. Each instantiation counts its own
@@ -129,13 +132,12 @@ MAX_SENS_GROUPS, MAX_SENS_BUF, MAX_SENS_EPS = 8, 4096, 1024
 _SENSOR_CODES = {"imu": 0, "encoder": 1, "effort": 2, "contact": 3}
 # what a sensor needs of a body and its ancestors (csrc/substep.cuh JT_NEED_*)
 _NEED_ROTATION, _NEED_MOTION = 1, 3
-# K2's warp body (csrc/substep_warp.cuh): the ANYmal frame it serves (jt_small),
-# its envs per block at most (JT_WARP_MAX_W), the shared memory one block may
-# take on an H100 (JT_SMEM_PER_BLOCK), the floats each body adds to its
-# parent in the backward pass (JT_CC), and its layout's slots in the order of
-# the JT_WL_* enum: a header, then the regions outside the union, the union,
-# and the union's three views (each live at its own time)
-WARP_FRAME = (13, 18, 24)  # nb, nv, nc at most
+# K2's warp body (csrc/substep_warp.cuh), which every K2 launch runs: its envs
+# per block at most (JT_WARP_MAX_W), the shared memory one block may take on
+# an H100 (JT_SMEM_PER_BLOCK), the floats each body adds to its parent in the
+# backward pass (JT_CC), and its layout's slots in the order of the JT_WL_*
+# enum: a header, then the regions outside the union, the union, and the
+# union's three views (each live at its own time)
 WARP_MAX_W, SMEM_PER_BLOCK, _CC = 4, 232_448, 19
 _WARP_HEAD = ("W", "stride", "ncp", "n_rows", "ldm", "ldj", "ldx", "lda")
 _WARP_OUTSIDE = ("q0", "q1", "v0", "v1", "tau", "lam", "cmd", "w0", "fc", "g", "M", "dL", "pf",
@@ -376,15 +378,13 @@ class SubstepSpec:
                 f"≤ {MAX_PERLIN_OCTAVES} octaves, stairs)"
             )
 
-    def warp_workspace(self, sensors: "SensorKernelSpec | None" = None) -> WarpWorkspace | None:
+    def warp_workspace(self, sensors: "SensorKernelSpec | None" = None) -> WarpWorkspace:
         """The layout of K2's warp body for this spec (with ``sensors``, the
-        sensor stage's too), or None for a model outside the ANYmal frame,
-        which K2's one-thread body takes (``csrc/substep.cuh``
-        ``jt_small``). Sized from the model's own dimensions; W, the envs
-        per block, as many as fit one block up to ``WARP_MAX_W``."""
-        t = self.tree
-        if not (t.nb <= WARP_FRAME[0] and t.nv <= WARP_FRAME[1] and self.nc <= WARP_FRAME[2]):
-            return None
+        sensor stage's too); every model inside the kernels' caps has one,
+        and a model past them raises ValueError (:meth:`check_kernel_caps`).
+        Sized from the model's own dimensions; W, the envs per block, as
+        many as fit one block up to ``WARP_MAX_W``."""
+        self.check_kernel_caps("warp_workspace")
         n_rows = sensors.n_rows if sensors is not None else 0
         if n_rows not in self._warp:
             self._warp[n_rows] = self._warp_layout(n_rows)
@@ -1035,7 +1035,7 @@ def substep_batched_multi(
     ``.sensor_launches``, ``.ground_launches``,
     ``.sensor_ground_launches``, and the randomized ones under the same
     names with ``rand_`` in front; ``.warp_launches`` counts those that ran
-    the warp body (every model in the ANYmal frame,
+    the warp body, which every launch does (its layout
     :meth:`SubstepSpec.warp_workspace`)."""
     if spec.torque is None:
         raise ValueError("substep_batched_multi needs spec.torque")
@@ -1069,8 +1069,8 @@ def substep_batched_multi(
     outs = _outputs(spec, B, dev, extra=2)
     tail, _layout_alive = _tail(spec, dev)
     ws = spec.warp_workspace(sensors)
-    c_wl = (ctypes.c_int * len(ws.ints))(*ws.ints) if ws is not None else None
-    wl = [ctypes.cast(c_wl, ctypes.c_void_p), len(ws.ints)] if ws is not None else [None, 0]
+    c_wl = (ctypes.c_int * len(ws.ints))(*ws.ints)
+    wl = [ctypes.cast(c_wl, ctypes.c_void_p), len(ws.ints)]
     head = [
         si.data_ptr(), sf.data_ptr(), q.data_ptr(), v.data_ptr(), cmd.data_ptr(),
         lam0.data_ptr(), wrench.data_ptr(), *(o.data_ptr() for o in outs),
@@ -1089,8 +1089,7 @@ def substep_batched_multi(
         )
     _raise_on(lib, err, "substep_multi")
     _count(substep_batched_multi, sensors, gc, mp)
-    if ws is not None:
-        substep_batched_multi.warp_launches += 1
+    substep_batched_multi.warp_launches += 1
     return tuple(outs)
 
 

@@ -1508,31 +1508,148 @@ def test_warp_k2_steps_as_chained_launches(cuda_device, sensors):
             assert torch.equal(fused[i], whole[i]), i
 
 
+# the large frame on the warp body: Cassie (its state and sensor paths'
+# spec), its three pair sets, its flexible hips, the PRISMATIC slab along z
+# and along the oblique axis
+LARGE_WARP_MODELS = ("cassie", "cassie_selfcol", "cassie_ptbox", "cassie_ptseg", "cassie_flex",
+                     "slab", "slab_oblique")
+LARGE_B = 4097  # the batch the gates read; smaller batches are its first envs
+
+
+def _large_case(model, dev):
+    """(spec, its float64 twin, float32 inputs at LARGE_B, the suite and
+    its float64 twin or None, the gate): Cassie's models held by the
+    distribution of the per-env distance to float64, the slab env by env."""
+    if model.startswith("slab"):
+        scene = "oblique" if model == "slab_oblique" else "slab"
+        eng, eng64 = _prismatic_engine(dev, scene), _prismatic_engine(dev, scene, torch.float64)
+        return (eng.substep_spec, eng64.substep_spec, _prismatic_inputs(73, LARGE_B, eng, scene),
+                None, None, _assert_env_by_env_vs_f64)
+    kind = model.partition("_")[2]
+    pairs = _pair_set(kind if kind != "selfcol" else "seg") if kind not in ("", "flex") else ()
+    flex = kind == "flex"
+    eng, suite, stand = _cassie_engine(dev, pairs=pairs, flexibility=flex)
+    eng64, suite64, _ = _cassie_engine(dev, torch.float64, pairs=pairs, flexibility=flex)
+    make = _selfcol_inputs if pairs else _cassie_inputs
+    args = make(74, LARGE_B, eng, stand)
+    with_sensors = kind in ("", "flex")  # the state and sensor paths' models
+    return (eng.substep_spec, eng64.substep_spec, args, suite if with_sensors else None,
+            suite64 if with_sensors else None, _assert_distribution_vs_f64)
+
+
 @pytest.mark.cuda
-def test_large_frame_takes_the_one_thread_body(cuda_device):
-    """Cassie (nb 15, nv 20, nc 28) is past the ANYmal frame: no warp
-    workspace, and K2 runs the one-thread body."""
-    eng, _, stand = _cassie_engine(cuda_device)
-    assert eng.substep_spec.warp_workspace() is None
-    args = _cassie_inputs(70, 16, eng, stand)
+@pytest.mark.parametrize("B", [1, 31, LARGE_B])
+@pytest.mark.parametrize("model", LARGE_WARP_MODELS)
+def test_warp_k2_large_frame_matches_plain_versions(cuda_device, model, B):
+    """K2's warp body over one substep on each large-frame model (nc 28 to
+    48: the strided stages, X's nc + 1 right-hand sides and A's nc columns
+    past one per lane, the pair contacts one per row item): through the
+    warp body (its counter); two launches from the same inputs bit-equal;
+    each env's bits those of the same env in a launch of LARGE_B envs (a
+    warp's env does not depend on the batch or its ragged edge); q, v, λ
+    and the impulses held to the float64 plain version by the model's gate
+    at B ≥ 31 (Cassie by the distribution of the per-env distance, the
+    slab env by env; one env is no distribution); on Cassie and its
+    flexible twin the sensor stage's physics bit-equal to the sensor-free
+    launch and its buffers held as the physics is; on the slab (no
+    equality rows) the one-thread K3 given K2's applied τ bit-equal."""
+    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
+
+    spec, spec64, big, suite, suite64, gate = _large_case(model, cuda_device)
+    ws = spec.warp_workspace()
+    assert ws.W == 4 and (spec.tree.nb > 13 or spec.tree.nv > 18 or spec.nc > 24)
+    args = [x[:B].contiguous() for x in big]
+    a64 = [x.double() for x in args]
     before = substep_batched_multi.warp_launches, substep_batched_multi.launches
-    substep_batched_multi(eng.substep_spec, 1, *args)
-    torch.cuda.synchronize()
+    out = substep_batched_multi(spec, 1, *args)
     assert (substep_batched_multi.warp_launches, substep_batched_multi.launches) == (
-        before[0], before[1] + 1)
+        before[0] + 1, before[1] + 1)
+    again = substep_batched_multi(spec, 1, *args)
+    whole = substep_batched_multi(spec, 1, *big)
+    torch.cuda.synchronize()
+    for i in range(7):
+        assert torch.equal(out[i], again[i]), i
+        assert torch.equal(out[i], whole[i][:B]), i
+    if B >= 31:
+        p32 = substep_multi_reference(spec, 1, *args)
+        p64 = substep_multi_reference(spec64, 1, *a64)
+        assert (p64[2] != 0).any()
+        for i, name in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+            if out[i].numel():  # no impulses without ground contacts
+                gate(f"{model} {name}", out[i], p32[i], p64[i])
+        if spec.n_pc:
+            assert (p64[2][:, spec.pair_off:] != 0).any()  # a pair row pushes
+    if model.startswith("slab"):
+        q, v, _, lam, w = args
+        k3 = substep_batched(spec, q, v, out[6], lam, w)
+        for i in range(4):
+            assert torch.equal(out[i], k3[i]), i
+    if suite is None:
+        return
+    gen = torch.Generator(device=cuda_device).manual_seed(75)
+    q, v = big[:2]
+    bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, LARGE_B), q, v))[:B]
+    sw = dict(sensors=SensorKernelSpec(spec.tree, suite, 1), bufs=bufs.contiguous(),
+              eps=suite.sample_eps(gen, LARGE_B)[:B].contiguous())
+    outs = substep_batched_multi(spec, 1, *args, **sw)
+    torch.cuda.synchronize()
+    for i in range(7):
+        assert torch.equal(outs[i], out[i]), i
+    if B < 31:
+        return
+    ps32 = substep_multi_reference(spec, 1, *args, **sw)
+    ps64 = substep_multi_reference(
+        spec64, 1, *a64, sensors=SensorKernelSpec(spec64.tree, suite64, 1),
+        bufs=sw["bufs"].double(), eps=sw["eps"].double())
+    scale = ps64[7].abs().amax(dim=0).clamp(min=1.0)
+    gate(f"{model} bufs", outs[7] / scale, ps32[7] / scale, ps64[7] / scale)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fault", ["overlap", "too_large", "misaligned", "no_layout"])
+def test_large_frame_takes_the_warp_body(cuda_device):
+    """Cassie (nb 15, nv 20, nc 28), past the ANYmal frame, has a warp
+    workspace, and every K2 launch there, with and without the sensor
+    stage, runs the warp body: its counter rises by one per launch."""
+    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
+
+    eng, suite, stand = _cassie_engine(cuda_device)
+    spec = eng.substep_spec
+    assert (spec.tree.nb, spec.tree.nv, spec.nc) == (15, 20, 28)
+    assert spec.warp_workspace().bytes_per_env == 11072
+    q, v, cmd, lam, wrench = args = _cassie_inputs(70, 16, eng, stand)
+    gen = torch.Generator(device=cuda_device).manual_seed(76)
+    sw = dict(sensors=SensorKernelSpec(eng.tree, suite, 1),
+              bufs=suite.flatten_buffers(suite.reset(suite.sample_eps(gen, 16), q, v)),
+              eps=suite.sample_eps(gen, 16))
+    before = (substep_batched_multi.warp_launches, substep_batched_multi.launches,
+              substep_batched_multi.sensor_launches)
+    substep_batched_multi(spec, 1, *args)
+    substep_batched_multi(spec, 10, *args)
+    substep_batched_multi(spec, 1, *args, **sw)
+    torch.cuda.synchronize()
+    assert (substep_batched_multi.warp_launches, substep_batched_multi.launches,
+            substep_batched_multi.sensor_launches) == (before[0] + 3, before[1] + 2,
+                                                       before[2] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["overlap", "too_large", "misaligned", "no_layout",
+                                   "slab_overlap", "slab_short_lda"])
 def test_warp_layout_is_checked(cuda_device, fault):
     """A layout the warp body cannot take raises, nothing falls back:
     two live regions on one another, more shared memory than a block may
-    take, an offset off 16 bytes, or no layout at all."""
+    take, an offset off 16 bytes, or no layout at all (ANYmal); on the slab
+    scene (nc 48, past one row per lane) A onto X in the chain's view, or
+    A's row stride short of nc."""
     import dataclasses
 
-    eng = _anymal_engine(cuda_device)
+    if fault.startswith("slab"):
+        eng = _prismatic_engine(cuda_device, "slab")
+        args = _prismatic_inputs(77, 8, eng, "slab")
+    else:
+        eng = _anymal_engine(cuda_device)
+        args = _substep_inputs(71, 8, eng)
     spec = eng.substep_spec
-    args = _substep_inputs(71, 8, eng)
     ws = spec.warp_workspace()
     ints = list(ws.ints)
     if fault == "overlap":  # J onto M
@@ -1541,12 +1658,17 @@ def test_warp_layout_is_checked(cuda_device, fault):
         ints[1] = 232_448 // 4 + 4
     elif fault == "misaligned":
         ints[8 + 13] += 1
-    spec._warp[0] = None if fault == "no_layout" else dataclasses.replace(ws, ints=tuple(ints))
+    elif fault == "no_layout":
+        ints = []
+    elif fault == "slab_overlap":  # A (the chain view's second region) onto X
+        ints[8 + 32] = ints[8 + 31]
+    else:  # lda = nc − 1
+        ints[7] = spec.nc - 1
+    spec._warp[0] = dataclasses.replace(ws, ints=tuple(ints))
     try:
-        if fault == "no_layout":
-            spec.warp_workspace = lambda sensors=None: None
+        before = substep_batched_multi.launches
         with pytest.raises(RuntimeError, match="kernel launch failed"):
             substep_batched_multi(spec, 1, *args)
+        assert substep_batched_multi.launches == before
     finally:
         spec._warp.clear()
-        spec.__dict__.pop("warp_workspace", None)

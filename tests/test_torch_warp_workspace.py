@@ -1,10 +1,12 @@
 """The shared-memory workspace of K2's warp body (``csrc/substep_warp.cuh``),
-as ``SubstepSpec.warp_workspace`` lays it out, on every model that takes
-the ANYmal frame: every region inside the env's slice, the regions that
-live at one time apart, every offset on 16 bytes, W envs per block that
-fit one block's shared memory, the ints in the order the C entry point
-reads them; a large-frame model gets no workspace (the one-thread body, as
-``jt_small`` routes it). Builds the port's engines on the CPU; no JAX."""
+as ``SubstepSpec.warp_workspace`` lays it out, on every model K2 runs, the
+ANYmal frame and the large frame (Cassie with its pairs and flexible hips,
+the PRISMATIC slab scene): every region inside the env's slice, the
+regions that live at one time apart, every offset on 16 bytes, W envs per
+block that fit one block's shared memory, the ints in the order the C
+entry point reads them; each large-frame model's bytes per env; a model
+past the kernels' caps refused, not routed. Builds the port's engines on
+the CPU; no JAX."""
 
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ from jiminy_tpu_torch.ops.substep_kernel import (
     SensorKernelSpec,
 )
 
-# ANYmal's bytes per env, as PERF.md and csrc/substep_warp.cuh state them
+# bytes per env, as PERF.md and csrc/substep_warp.cuh state them
 ANYMAL_BYTES = 8752
+LARGE_FRAME_BYTES = {"cassie_state": 11072, "cassie_sensors": 11072, "cassie_selfcol": 15168,
+                     "cassie_flex": 13840, "slab": 13792}
 
 
 def _walker_env(name, **kw):
@@ -29,8 +33,52 @@ def _walker_env(name, **kw):
                                                                              **kw)
 
 
+def _cassie_pairs(kind):
+    """``chip_smoke.py`` `_pair_sets`' ptbox (a box on the pelvis against
+    the L thigh capsule, nc 43) and ptseg (a 6-point cloud on the R tarsus
+    against the L tarsus capsule, nc 46) on Cassie's tree."""
+    from jiminy_tpu_torch.engine.collision import Box, Capsule, CollisionPair, ConvexMesh
+
+    def leg(body):
+        return Capsule(body, (0.0, 0.0, 0.0), (0.0, 0.0, -0.35), 0.04)
+
+    if kind == "ptbox":
+        return (CollisionPair(Box("pelvis", (0.0, 0.0, -0.15), (0.06, 0.08, 0.08)),
+                              leg("L_thigh")),)
+    cloud = ((0.06, 0.0, -0.17), (-0.06, 0.0, -0.17), (0.0, 0.08, -0.17), (0.0, -0.08, -0.17),
+             (0.0, 0.0, -0.05), (0.0, 0.0, -0.29))
+    return (CollisionPair(ConvexMesh("R_tarsus", cloud), leg("L_tarsus"), friction=0.6),)
+
+
+def _slab_engine(n_cubes=1, solver="substep"):
+    """``chip_smoke.py`` `_slab_model`'s scene (tests/test_box_pairs.py's
+    sprung PRISMATIC slab and free cube with their box pair, friction 0.8:
+    nb 2, nv 7, 16 pair contacts, nc 48) with a direct motor on the slider;
+    with ``n_cubes`` 2 a second cube and pair (32 pair contacts, nc 96:
+    past the kernels' caps)."""
+    import numpy as np
+
+    from jiminy_tpu_torch.core.tree import JointType, TreeBuilder
+    from jiminy_tpu_torch.engine import Engine, EngineOptions
+    from jiminy_tpu_torch.engine.collision import Box, CollisionPair
+    from jiminy_tpu_torch.hardware.motors import Motors
+
+    b = TreeBuilder()
+    b.add_body("slab", -1, JointType.PRISMATIC, axis=(0, 0, 1), mass=100.0, com=(0, 0, 0.05),
+               inertia=np.diag([10.0] * 3), joint_name="slab_z", stiffness=1e7, damping=1e4)
+    pairs = []
+    for k in range(n_cubes):
+        b.add_body(f"cube{k}", -1, JointType.FREE, mass=1.0, inertia=np.diag([0.004] * 3))
+        pairs.append(CollisionPair(Box("slab", (0, 0, 0.05), (0.3, 0.3, 0.05)),
+                                   Box(f"cube{k}", (0, 0, 0), (0.1, 0.1, 0.1)), friction=0.8))
+    opts = EngineOptions(contact_model="constraint", dt=1e-3, pgs_iters=8,
+                         constraint_solver=solver)
+    return Engine(b.build(device="cpu"), opts, motors=Motors.create([0], device="cpu"),
+                  collision_pairs=tuple(pairs), device="cpu")
+
+
 def _model(name):
-    """(spec, sensor spec or None) of each model of the ANYmal frame."""
+    """(spec, sensor spec or None) of each model K2 runs."""
     from jiminy_tpu_torch.core.tree import JointType, TreeBuilder
     from jiminy_tpu_torch.engine import Engine, EngineOptions
     from jiminy_tpu_torch.engine.collision import Box, Capsule, CollisionPair, Sphere
@@ -43,6 +91,25 @@ def _model(name):
         eng = Engine(make_cartpole(device="cpu"), opts,
                      motors=Motors.create([0], effort_limit=30.0, device="cpu"), device="cpu")
         return eng.substep_spec, None
+    if name == "slab":
+        return _slab_engine().substep_spec, None
+    if name.startswith("cassie"):
+        from jiminy_tpu_torch.envs import CassieEnv
+
+        path = name.partition("_")[2]
+        if path in ("ptbox", "ptseg"):
+            env = CassieEnv(observe="state", device="cpu")
+            eng = env.engine
+            eng = Engine(env.tree, eng.options, motors=env.motors,
+                         constraints=eng.constraints, collision_pairs=_cassie_pairs(path),
+                         device="cpu")
+            return eng.substep_spec, None
+        observe = "sensors" if path.endswith("sensors") else "state"
+        env = CassieEnv(observe=observe, self_collision=path == "selfcol",
+                        flexibility=path.startswith("flex"), device="cpu")
+        sens = (SensorKernelSpec(env.tree, env.sensors, env.n_substeps_per_obs)
+                if observe == "sensors" else None)
+        return env.engine.substep_spec, sens
     if name == "forest":
         b = TreeBuilder(gravity=(0.0, 0.0, 0.0))
         for body in ("ball_a", "ball_b"):
@@ -79,7 +146,9 @@ def _model(name):
 
 
 MODELS = ("anymal_state", "anymal_sensors", "anymal_terrain", "anymal_sim2real", "anymal_spheres",
-          "ant_state", "ant_sensors", "spotmicro_state", "spotmicro_sensors", "cartpole", "forest")
+          "ant_state", "ant_sensors", "spotmicro_state", "spotmicro_sensors", "cartpole", "forest",
+          "cassie_state", "cassie_sensors", "cassie_selfcol", "cassie_ptbox", "cassie_ptseg",
+          "cassie_flex", "cassie_flex_sensors", "slab")
 
 
 def _expected_sizes(spec, sens, lds):
@@ -109,7 +178,7 @@ def _disjoint(regions, names):
 def test_warp_workspace_layout(name):
     spec, sens = _model(name)
     t = spec.tree
-    assert t.nb <= 13 and t.nv <= 18 and spec.nc <= 24, "a model of the ANYmal frame"
+    assert t.nb <= 32 and t.nv <= 32 and spec.nc <= 48, "a model of the large frame's caps"
     ws = spec.warp_workspace(sens)
     assert ws is not None and spec.warp_workspace(sens) is ws  # built once
     regions, lds = ws.regions, ws.lds
@@ -154,13 +223,25 @@ def test_anymal_workspace_bytes(observe):
     assert (ws.bytes_per_env, ws.W) == (ANYMAL_BYTES, 4)
 
 
-def test_large_frame_gets_no_workspace():
-    """Cassie (nb 15, nv 20, nc 28) is past the ANYmal frame: K2 runs its
-    one-thread body there, as ``jt_small`` routes it."""
-    from jiminy_tpu_torch.envs import CassieEnv
+@pytest.mark.parametrize("name", sorted(LARGE_FRAME_BYTES))
+def test_large_frame_workspace_bytes(name):
+    """Each large-frame model's slice, the figures PERF.md and the source
+    note give (the union's chain view, X and A, the largest), four envs
+    per block: the warp body takes the large frame, as every K2 launch."""
+    spec, sens = _model(name)
+    t = spec.tree
+    assert t.nb > 13 or t.nv > 18 or spec.nc > 24, "past the ANYmal frame"
+    ws = spec.warp_workspace(sens)
+    assert (ws.bytes_per_env, ws.W) == (LARGE_FRAME_BYTES[name], 4)
+    a_off, a_size = ws.regions["A"]
+    assert 4 * (a_off + -(-a_size // 4) * 4) == ws.bytes_per_env  # the chain view ends the slice
 
-    env = CassieEnv(observe="sensors", device="cpu")
-    spec = env.engine.substep_spec
-    assert (spec.tree.nb, spec.tree.nv, spec.nc) == (15, 20, 28)
-    sens = SensorKernelSpec(env.tree, env.sensors, env.n_substeps_per_obs)
-    assert spec.warp_workspace() is None and spec.warp_workspace(sens) is None
+
+def test_past_the_caps_is_refused():
+    """A model past the kernels' caps (the slab with two cubes: 32 pair
+    contacts, nc 96) gets no layout: ``warp_workspace`` raises, as the
+    entry points do, rather than route it anywhere."""
+    spec = _slab_engine(n_cubes=2, solver="inline").substep_spec
+    assert spec.nc == 96
+    with pytest.raises(ValueError, match="caps"):
+        spec.warp_workspace()
