@@ -8,12 +8,17 @@ ANYmal env step (B = 4096, 4 substeps of 5 ms, 8 PGS sweeps) through the
 port's public entry points, and times the env step and each kernel. It
 imports nothing of JAX and nothing of ``jiminy_tpu``. The kernels:
 
-- K1 ``constraint_solve`` (``csrc/constraint_solve.cu``): the solve chain;
+Every kernel runs one warp per env, the env's working set in shared
+memory:
+
+- K1 ``constraint_solve`` (``csrc/constraint_solve.cu``, the chain of
+  ``csrc/solve_chain.cuh``): the solve chain;
 - K2 ``substep_multi`` (``csrc/substep.cu``, the code in
-  ``csrc/substep.cuh`` and its warp body ``csrc/substep_warp.cuh``, one
-  warp per env for every model): every substep of an env step in one
-  launch, τ recomputed in-kernel;
-- K3 ``substep`` (``csrc/substep.cu``): one substep, τ given;
+  ``csrc/substep.cuh`` and its warp body ``csrc/substep_warp.cuh``, for
+  every model): every substep of an env step in one launch, τ recomputed
+  in-kernel;
+- K3 ``substep`` (``csrc/substep.cu``, the same warp body): one substep,
+  τ given;
 - K2 with the sensor stage ``substep_multi_sensors`` (``csrc/substep.cu``,
   ``substep_multi_warp_kernel<true, false, false>``): the same, plus after every
   k_obs-th substep the sensor suite's update (measure at the accepted
@@ -30,14 +35,14 @@ imports nothing of JAX and nothing of ``jiminy_tpu``. The kernels:
   gain and friction;
 - the same kernels on the Cassie biped (``cassie_substep``,
   ``cassie_substep_multi``, ``cassie_substep_multi_sensors`` in the
-  kernels line): the large frame (nb ≤ 32, nv ≤ 32, nc ≤ 48; K2's warp
-  body there too, K3 under the caps ⟨32, 48, 32⟩), the pushrods' distance
+  kernels line): the large frame (nb ≤ 32, nv ≤ 32, nc ≤ 48; the warp
+  body there too), the pushrods' distance
   rows ahead of the bounds and the shin springs, runtime branches of the
   same instantiations;
 - the same kernels with collision pairs (``cassie_selfcol_substep_multi``,
   ``cassie_selfcol_substep``, ``pairs_ptbox_substep_multi``,
   ``pairs_ptseg_substep_multi``: the pair narrow phases ``seg``, ``ptbox``
-  and ``ptseg`` and their contact rows, `jt_pair_rows`) and with sphere
+  and ``ptseg`` and their contact rows, `jt_pair_item`) and with sphere
   contact sites (``sphere_sites_substep_multi``, ``…_ground``: the site
   offset before the contact Jacobians, on flat ground and with the
   two-pass ground query), runtime branches again;
@@ -64,7 +69,13 @@ Phases (any failure raises and the script exits non-zero):
 1. every kernel against its plain version from the same inputs:
    - K1 on random SPD systems (ANYmal, Atlas and Cassie layouts, with and
      without the KKT residual; ANYmal at B = 4096 with 8 sweeps; a ragged
-     B = 1000), max |Δ| ≤ 1e-4 on v⁺, λ and the residual;
+     B = 1000), max |Δ| ≤ 1e-4 on v⁺, λ and the residual, and at B = 4096
+     a second launch bit-equal;
+   - on every model (ANYmal flat, on each ground and randomized, sphere
+     feet, the cartpole, the slab scenes nominal and randomized, the Ant,
+     the Spotmicro, Cassie, its pair sets and flexible hips), K3 given
+     K2's applied τ bit-equal to K2 at n_sub = 1 on q, v, λ, the residual
+     and the impulses (`_k3_equals_k2`: one substep body);
    - K3 and K2 at n_sub = 1 against ``substep_reference`` /
      ``substep_multi_reference`` on perturbed ANYmal states with a root
      wrench (a quarter of them at joint limits), at B = 4096 and a ragged
@@ -190,8 +201,8 @@ Phases (any failure raises and the script exits non-zero):
      sensor path (one launch of K2 with the sensor stage per step; fused
      bit-equal to chunked), the push path, ``substep_fusion=False``;
 3. env-steps/s on the main path (3 timed loops of 25 steps), on the
-   sensor path, on the terrain path, on the sim-to-real path and on the
-   ``"kernel"`` path, and
+   sensor path, on the terrain path, on the sim-to-real path, on the
+   ``"kernel"`` path (K1) and on ``substep_fusion=False`` (K3), and
    each kernel's and its plain version's times with CUDA events beside
    the kernel's bound; the ground instantiations on each ground (the
    kernels line carries the slice's: K2 with sensors on Fourier, K2 on
@@ -228,18 +239,17 @@ B.10) run between the ANYmal parts and the Cassie parts, the slab scene
   first update held to float64 on each walker; the eight kernels against
   their bounds and plain versions.
 
-Phase 0 prints, for K2's warp body on ANYmal and on every large-frame
-model (Cassie's state and sensor paths, its self-collision, ptbox and
-ptseg pairs, the flexible hips, the slab scene), the bytes per env, W and
-the warps one SM holds, and every K2 launch of phase 2, in either frame,
-is checked to have run the warp body (`_check_warp`). The Cassie parts of
-phases 1–3 run last, after every ANYmal number: once a one-thread kernel
-of the large frame (K3, or K1 on Cassie's ``"kernel"`` path) has run, the
-process keeps its local memory and the ANYmal sensor K2 ran slower after
-it, so the ANYmal numbers are those of a process that never launched the
-large frame, as a run that trains ANYmal alone. The line before the last
-is a JSON object with the kernels' numbers; the last line is ``{"ok":
-true, "device": {...}}``.
+Phase 0 prints, for the warp body of K2 and K3 on ANYmal and on every
+large-frame model (Cassie's state and sensor paths, its self-collision,
+ptbox and ptseg pairs, the flexible hips, the slab scene) and of K1 on
+phase 1's systems and the ``"kernel"`` paths', the bytes per env, W and
+the warps one SM holds, and every K1, K3 and K2 launch of phase 2, in
+either frame, is checked to have run the warp body (`_check_warp`). The
+Cassie parts of phases 1–3 run after every ANYmal number, the slab scene
+last; at the end the ANYmal sensor K2 is timed again, after every
+large-frame launch, beside its time before them. The line before the last is a JSON object
+with the kernels' numbers; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -324,15 +334,12 @@ def _time_cuda(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def phase_kernel_vs_plain(dev) -> float:
+def _chain_configs() -> dict:
+    """Phase 1's systems for K1: ANYmal's, Atlas's and Cassie's layouts."""
     from jiminy_tpu_torch.engine.solver import BlockSpec
-    from jiminy_tpu_torch.ops.constraint_solve import (
-        SolveConfig,
-        solve_batched,
-        solve_reference,
-    )
+    from jiminy_tpu_torch.ops.constraint_solve import SolveConfig
 
-    base = {
+    return {
         "anymal": SolveConfig(
             n=18, nc=24, dt=5e-3, eq_blocks=(), bounds_span=(0, 12),
             contact_colors=((12, 2), (18, 2)), iters=4,
@@ -347,6 +354,12 @@ def phase_kernel_vs_plain(dev) -> float:
             iters=4, relax=0.9,
         ),
     }
+
+
+def phase_kernel_vs_plain(dev) -> float:
+    from jiminy_tpu_torch.ops.constraint_solve import solve_batched, solve_reference
+
+    base = _chain_configs()
     cases = []
     for name, cfg in base.items():
         for resid in (True, False):
@@ -375,6 +388,11 @@ def phase_kernel_vs_plain(dev) -> float:
             raise AssertionError(f"kernel disagrees with the plain version on {label}: {errs}")
         if "B=4096" in label and not cfg.compute_residual:
             worst = max(worst, errs[0], errs[1])
+            again = solve_batched(cfg, *args, device=dev)
+            same = all(torch.equal(a, b) for a, b in zip(again, (vk, lk, rk)))
+            print(f"[phase 1] {label}: a second launch bit-equal: {same}")
+            if not same:
+                raise AssertionError(f"K1 is not deterministic on {label}")
     return worst
 
 
@@ -434,7 +452,7 @@ def _col_flops(jt, per_col) -> int:
 
 def _substep_flops(spec) -> int:
     """Operations that one env's substep needs, walked over this tree in
-    the order of csrc/substep.cu `jt_substep`, with each joint's branches
+    the order of csrc/substep_warp.cuh `jt_warp_substep`, with each joint's branches
     as `_JOINT` counts them: gravity has no angular part, and the composite
     inertias and the Delassus matrix are symmetric (one half counted). The
     chain is counted on dense M and J, as K1 takes them (`_solve_flops`).
@@ -514,7 +532,7 @@ def _pair_contact_flops(t, ba, bb) -> int:
 
 
 def _pair_flops(spec) -> int:
-    """Operations of the pairs' narrow phases and rows (`jt_pair_rows`)
+    """Operations of the pairs' narrow phases and rows (`jt_pair_item`)
     and of the sphere sites' offset. seg: the four world endpoints (4 ·
     18), `jt_seg_seg` (the differences 9, five dots 25, the clamped s and t
     16, the re-clamped s 6, the closest points 12), the normal and depth
@@ -766,41 +784,60 @@ def _substep_inputs(engine, gen, B):
     return q, v, cmd, lam0, wrench
 
 
-K2_WARP_SOURCE = "jiminy_tpu_torch/csrc/substep_warp.cuh"  # K2, every model
+WARP_SOURCE = "jiminy_tpu_torch/csrc/substep_warp.cuh"  # K3 and K2, every model
 
 
 def _warp_report(dev):
-    """Phase 0 for K2's warp body: per instantiation (SENS, GEN, RAND)
-    ptxas's registers, stack and spills, and on ANYmal (flat and on the
-    Fourier ground, with and without the sensor stage) and on every
-    large-frame model the bytes per env, W and the warps one SM holds
-    (registers and shared memory counted)."""
+    """Phase 0 for the warp kernels: per instantiation of K2 (SENS, GEN,
+    RAND), K3 (GEN, RAND) and K1 ptxas's registers, stack and spills; the
+    bytes per env, W and the warps one SM holds (registers and shared
+    memory counted) of K2 and K3 on ANYmal (flat and on the Fourier ground,
+    K2 with and without the sensor stage) and on every large-frame model,
+    and of K1 on phase 1's systems and on each ``"kernel"`` path's."""
     from jiminy_tpu_torch.ops import _build
+    from jiminy_tpu_torch.ops import constraint_solve as cs
     from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec, warp_blocks_per_sm
 
-    for lib in ("substep", "substep_rand"):
+    kernels = ((r"substep_multi_warp_kernelILb(\d)ELb(\d)ELb(\d)E", "K2 warp body <SENS {} GEN {} "
+                "RAND {}>"), (r"substep_warp_kernelILb(\d)ELb(\d)E", "K3 warp body <GEN {} RAND {}>"),
+               (r"solve_chain_warp_kernel()", "K1 warp body{}"))
+    for lib in ("substep", "substep_rand", "constraint_solve"):
         name, frame = None, ""
         for line in _build.ptxas_report(lib):
             if "Compiling entry" in line:
-                m = re.search(r"substep_multi_warp_kernelILb(\d)ELb(\d)ELb(\d)E", line)
-                name = None if m is None else "SENS {} GEN {} RAND {}".format(*m.groups())
+                name = None
+                for pattern, fmt in kernels:
+                    m = re.search(pattern, line)
+                    if m is not None:
+                        name = fmt.format(*m.groups())
+                        break
             elif name and "stack frame" in line:
                 frame = line
             elif name and "Used" in line:
-                print(f"[phase 0] K2 warp body <{name}> ({lib}): {line}; {frame}")
+                print(f"[phase 0] {name} ({lib}): {line}; {frame}")
                 name = None
+
+    def report(label, spec, sens=None, ground=False):
+        ws = spec.warp_workspace(sens)
+        k2 = {rand: ws.W * warp_blocks_per_sm(ws, sens is not None, ground, rand)
+              for rand in (False, True)}
+        line = (f"[phase 0] K2 warp body on {label} (nb {spec.tree.nb}, nv {spec.tree.nv}, nc "
+                f"{spec.nc}): {ws.bytes_per_env} B per env, W = {ws.W} envs per block "
+                f"({ws.W * ws.bytes_per_env} B), warps per SM (nominal, randomized) {k2[False]}, "
+                f"{k2[True]}")
+        if sens is None:  # K3 takes K2's layout without the sensor stage
+            k3 = {rand: ws.W * warp_blocks_per_sm(ws, False, ground, rand, multi=False)
+                  for rand in (False, True)}
+            line += f"; K3 in the same layout: warps per SM {k3[False]}, {k3[True]}"
+        print(line)
+
     sens = SensorKernelSpec(_anymal_engine(dev).tree, _anymal_suite(dev), 1)
     for kind in ("flat", "fourier"):
         spec = _anymal_engine(dev, ground=_ground_template(kind, dev)
                               if kind != "flat" else None).substep_spec
         for with_sens in (False, True):
-            ws = spec.warp_workspace(sens if with_sens else None)
-            warps = {rand: ws.W * warp_blocks_per_sm(ws, with_sens, kind != "flat", rand)
-                     for rand in (False, True)}
-            print(f"[phase 0] K2 warp body on ANYmal, {kind} ground, sensor stage {with_sens}: "
-                  f"{ws.bytes_per_env} B per env, W = {ws.W} envs per block "
-                  f"({ws.W * ws.bytes_per_env} B), warps per SM (nominal, randomized) "
-                  f"{warps[False]}, {warps[True]}")
+            report(f"ANYmal, {kind} ground, sensor stage {with_sens}", spec,
+                   sens if with_sens else None, kind != "flat")
     # the large frame: Cassie's paths, its pair sets and flexible hips, the slab
     pairs = _pair_sets()
     tree, _, suite, _, _ = _cassie_model(dev)
@@ -816,15 +853,16 @@ def _warp_report(dev):
          SensorKernelSpec(ftree, fsuite, 1)),
         ("prismatic slab", _slab_engine(dev), None),
     )
-    for name, eng, sens in large:
-        spec = eng.substep_spec
-        ws = spec.warp_workspace(sens)
-        warps = {rand: ws.W * warp_blocks_per_sm(ws, sens is not None, False, rand)
-                 for rand in (False, True)}
-        print(f"[phase 0] K2 warp body on {name} (nb {spec.tree.nb}, nv {spec.tree.nv}, nc "
-              f"{spec.nc}): {ws.bytes_per_env} B per env, W = {ws.W} envs per block "
-              f"({ws.W * ws.bytes_per_env} B), warps per SM (nominal, randomized) "
-              f"{warps[False]}, {warps[True]}")
+    for name, eng, s in large:
+        report(name, eng.substep_spec, s)
+    # K1: phase 1's systems, and the "kernel" paths' (ANYmal, its heightmap, Cassie)
+    for name, cfg in list(_chain_configs().items()) + [
+            ("anymal 'kernel' path", _anymal_engine(dev).substep_spec.cfg),
+            ("cassie 'kernel' path", _cassie_engine(dev).substep_spec.cfg)]:
+        ws = cs.warp_workspace(cfg)
+        print(f"[phase 0] K1 warp body on {name} (n {cfg.n}, nc {cfg.nc}): {ws.bytes_per_env} B "
+              f"per env, W = {ws.W} envs per block ({ws.W * ws.bytes_per_env} B), warps per SM "
+              f"{ws.W * cs.warp_blocks_per_sm(ws)}")
 
 
 def _max_err(a, b) -> float:
@@ -876,6 +914,24 @@ def _gate_vs_f64(label, k, p32, p64) -> dict:
     return g
 
 
+def _k3_equals_k2(label, spec, args, **kw):
+    """K3 given K2's applied τ against K2 at n_sub = 1 from ``args`` (q, v,
+    cmd, λ0, wrench) and ``kw`` (gc, mp): one substep body, so q, v, λ, the
+    residual and the impulses bit-equal; raises when one is not."""
+    from jiminy_tpu_torch.ops.substep_kernel import substep_batched, substep_batched_multi
+
+    q, v, _, lam0, wrench = args
+    k2 = substep_batched_multi(spec, 1, *args, **kw)
+    k3 = substep_batched(spec, q, v, k2[6], lam0, wrench, **kw)
+    torch.cuda.synchronize()
+    differ = [n for n, a, b in zip(("q", "v", "lam", "residual", "impulse"), k3, k2)
+              if not torch.equal(a, b)]
+    print(f"[phase 1] {label}: K3 given K2's applied τ bit-equal to K2 at n_sub=1 on q, v, λ, the "
+          f"residual and the impulses: {not differ}")
+    if differ:
+        raise AssertionError(f"{label}: K3 given K2's τ differs from K2 at n_sub=1 in {differ}")
+
+
 def phase_substep_vs_plain(dev) -> dict:
     """K3 and K2 against their plain versions; returns each kernel's
     worst error at B = 4096 (K2 at n_sub = 1)."""
@@ -915,6 +971,7 @@ def phase_substep_vs_plain(dev) -> dict:
                 and e2["tau"] <= TOL * tau_scale):
             raise AssertionError(f"K2 (n_sub=1) disagrees with the plain version on {label}: {e2}")
         if B == B_MAIN:
+            _k3_equals_k2("anymal", spec, (q, v, cmd, lam0, wrench))
             worst["substep"] = max(e3[n] for n in names)
             worst["substep_multi"] = max(e2[n] for n in names)
 
@@ -1153,6 +1210,7 @@ def phase_ground_vs_plain(dev) -> dict:
             if kind == "stairs" and steep == 0:
                 raise AssertionError("no contact of the stairs inputs took the steep switch")
             if B == B_MAIN:
+                _k3_equals_k2(f"{kind} ground", spec, args, gc=gc)
                 worst["substep_ground"] = max(worst["substep_ground"], *(e3[n] for n in names))
                 worst["substep_multi_ground"] = max(worst["substep_multi_ground"],
                                                     *(e2[n] for n in names))
@@ -1348,6 +1406,7 @@ def phase_rand_vs_plain(dev) -> dict:
                 print(f"[phase 1] randomized, {kind} ground, {label}, n_sub=1 vs the f64 plain "
                       "version: " + json.dumps(gates))
             if B == B_MAIN:
+                _k3_equals_k2(f"randomized, {kind} ground", spec, args, gc=gc, mp=mp)
                 worst[f"rand_substep{sfx}"] = max(e3[n] for n in names)
                 worst[f"rand_substep_multi{sfx}"] = max(e2[n] for n in names)
                 worst[f"rand_substep_multi_sensors{sfx}"] = max(
@@ -1397,7 +1456,7 @@ def phase_rand_vs_plain(dev) -> dict:
 
 
 # ---- Cassie (A.12 with B.9): pushrod closed loops and shin springs in
-# the large frame ⟨32, 48, 32⟩ of the whole-substep kernels
+# the large frame of the whole-substep kernels
 CASSIE_KW = dict(sim_dt=2e-3, target_speed=0.4, pgs_iters=8)  # examples/train.py --env cassie
 CASSIE_SENSOR_KW = dict(CASSIE_KW, observe="sensors", sensor_delay=0.004, imu_noise=0.02,
                         encoder_noise=0.005)  # cassie_sensors_run's sensing
@@ -1687,6 +1746,7 @@ def phase_cassie_vs_plain(dev) -> dict:
         if rods["pushrod"] < 0.5 or rods["bound"] < 0.1:
             raise AssertionError(f"cassie inputs engage too few pushrod or bound rows: {rods}")
         if B == B_MAIN:
+            _k3_equals_k2("cassie", spec, args)
             worst["cassie_substep"] = max(e3[n] for n in names)
             worst["cassie_substep_multi"] = max(e2[n] for n in names)
             worst["cassie_substep_multi_sensors"] = max(max(e2[n] for n in names),
@@ -1821,7 +1881,7 @@ def _active_pair_share(engine, q) -> float:
 
 
 def phase_pairs_vs_plain(dev) -> dict:
-    """The kernels with collision pairs (`jt_pair_rows`) against their plain
+    """The kernels with collision pairs (`jt_pair_item`) against their plain
     versions on Cassie's tree, each pair set of `_pair_sets` from
     `_selfcol_inputs`, at B = 4096 and n_sub = 1:
 
@@ -1880,6 +1940,7 @@ def phase_pairs_vs_plain(dev) -> dict:
             raise AssertionError(f"pairs {kind}: only {share} of the envs have an active pair row")
         if launched != {"substep": 1, "substep_multi": 1}:
             raise AssertionError(f"pairs {kind}: unexpected launches {launched}")
+        _k3_equals_k2(f"pairs {kind} on cassie", spec, args)
         worst[f"pairs_{kind}"] = max(max(e3[n] for n in names), max(e2[n] for n in names))
 
     # the slice's pairs: the sensor variant's physics, and a whole env step
@@ -1983,6 +2044,7 @@ def phase_spheres_vs_plain(dev) -> dict:
               + json.dumps(gates))
         if loaded < 0.5:
             raise AssertionError(f"sphere sites on {kind} ground: {loaded} of the envs loaded")
+        _k3_equals_k2(f"sphere sites on {kind} ground", spec, args, gc=gc)
         worst[f"spheres_{kind}"] = max(max(e3[n] for n in names), max(e2[n] for n in names))
     return worst
 
@@ -2113,6 +2175,7 @@ def phase_flex_vs_plain(dev) -> dict:
     if min(branches.values()) <= 0.0 or rows["pushrod"] < 0.5 or rows["bound"] < 0.1:
         raise AssertionError(f"cassie flex inputs miss a branch of the log {branches} or engage "
                              f"too few pushrod or bound rows {rows}")
+    _k3_equals_k2("cassie flex", spec, args)
     worst = {"cassie_flex_substep": max(e3[n] for n in names),
              "cassie_flex_substep_multi": max(e2[n] for n in names),
              "cassie_flex_substep_multi_sensors": max(max(e2[n] for n in names),
@@ -2166,6 +2229,7 @@ def phase_flex_vs_plain(dev) -> dict:
     if share < ACTIVE_SHARE or launched != {"substep": 1, "substep_multi": 1}:
         raise AssertionError(f"cassie flex self-collision: active pair share {share}, "
                              f"launches {launched}")
+    _k3_equals_k2("cassie flex with self-collision", pspec, pargs)
     return worst
 
 
@@ -2357,6 +2421,8 @@ def phase_prismatic_vs_plain(dev, names) -> dict:
         if launched != {"substep": 1, "substep_multi": 2, "rand_substep": 1,
                         "rand_substep_multi": 1}:
             raise AssertionError(f"B.10 {name}: unexpected launches {launched}")
+        _k3_equals_k2(f"B.10 {name}", spec, args)
+        _k3_equals_k2(f"B.10 {name} randomized", spec, args, mp=mp)
         stem = "cartpole" if name == "cartpole" else f"prismatic_{name}"
         worst[f"{stem}_substep"] = max(errs["K3"], errs["rand K3"])
         worst[f"{stem}_substep_multi"] = max(errs["K2 n_sub=1"], errs[f"K2 n_sub={n_step}"],
@@ -2386,6 +2452,7 @@ def _prismatic_path(dev, name, steps, fusion=True):
         sim = eng.step(sim, cmd, n_substeps=n_sub)
     torch.cuda.synchronize()
     got = _counts()
+    _check_warp(f"B.10 {name} engine path", eng.substep_spec, got)
     if not (bool(torch.isfinite(sim.q).all()) and bool(torch.isfinite(sim.v).all())):
         raise AssertionError(f"non-finite state on the B.10 {name} path")
     return got, sim, eng
@@ -2598,29 +2665,42 @@ def _counters():
     return out
 
 
-def _reset_counts():
-    from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi
+def _warp_wrappers():
+    """(K1, K3, K2): the wrappers whose ``warp_launches`` count their
+    launches of the warp body."""
+    from jiminy_tpu_torch.ops.constraint_solve import solve_batched
+    from jiminy_tpu_torch.ops.substep_kernel import substep_batched, substep_batched_multi
 
+    return solve_batched, substep_batched, substep_batched_multi
+
+
+def _reset_counts():
     for fn, attr in _counters().values():
         setattr(fn, attr, 0)
-    substep_batched_multi.warp_launches = 0
+    for fn in _warp_wrappers():
+        fn.warp_launches = 0
 
 
 def _check_warp(label, spec, launched) -> int:
-    """K2's launches ``launched`` (counts by instantiation) all went through
-    the warp body, in either frame, as ``spec.warp_workspace()`` lays it out
-    for every model inside the caps: its launches since the counts were
-    last set to 0."""
-    from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi
+    """The launches ``launched`` (counts by instantiation) of K1, K3 and K2
+    all went through the warp body, in either frame, as ``spec.warp_workspace()``
+    (K3, K2) and ``warp_workspace(spec.cfg)`` (K1) lay it out for every
+    model inside the caps: their launches since the counts were last set
+    to 0. Returns the warp launches."""
+    from jiminy_tpu_torch.ops.constraint_solve import warp_workspace
 
+    k1 = launched.get("constraint_solve", 0)
     k2 = sum(c for n, c in launched.items() if "substep_multi" in n)
-    if k2:
-        spec.warp_workspace()  # the layout K2 ran with; raises for a model past the caps
-    got = substep_batched_multi.warp_launches
-    if got != k2:
-        raise AssertionError(f"{label}: {got} launches of K2's warp body, expected all {k2} "
-                             f"K2 launches")
-    return got
+    k3 = sum(c for n, c in launched.items() if "substep" in n) - k2
+    if k2 or k3:
+        spec.warp_workspace()  # the layout K3 and K2 ran with; raises past the caps
+    if k1:
+        warp_workspace(spec.cfg)  # K1's; raises for a system it does not take
+    got = tuple(fn.warp_launches for fn in _warp_wrappers())
+    if got != (k1, k3, k2):
+        raise AssertionError(f"{label}: launches of the warp body (K1, K3, K2) {got}, expected "
+                             f"all of them, {(k1, k3, k2)}")
+    return sum(got)
 
 
 def _counts() -> dict:
@@ -2655,6 +2735,24 @@ def _env_rate(env, state, act_gen, dev, steps, loops):
         torch.cuda.synchronize()
         rates.append(B_MAIN * steps / (time.perf_counter() - t0))
     return rates, state
+
+
+def _engine_rate(eng, walker, sim, act_gen, dev, steps, loops):
+    """env-steps/s of ``eng.step`` over ``walker``'s substeps (its actions
+    mapped to commands) from ``sim``, over ``loops`` timed loops of
+    ``steps`` env steps, and the launches of the timed steps."""
+    rates = []
+    torch.cuda.synchronize()
+    before = _counts()
+    for _ in range(loops):
+        acts = [_uniform(act_gen, dev, walker.motors.nm) for _ in range(steps)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in acts:
+            sim = eng.step(sim, walker._action_to_command(a, sim), n_substeps=walker.n_substeps)
+        torch.cuda.synchronize()
+        rates.append(B_MAIN * steps / (time.perf_counter() - t0))
+    return rates, {n: c - before[n] for n, c in _counts().items() if c != before[n]}
 
 
 def main() -> None:
@@ -2719,7 +2817,7 @@ def run(dev) -> None:
         path[label] = got = _counts()
         warp = _check_warp(label, env_.engine.substep_spec, got)
         print(f"[phase 2] {label}, {steps} env steps at B={B_MAIN}: launches "
-              f"{json.dumps({n: c for n, c in got.items() if c})} (K2's warp body {warp})")
+              f"{json.dumps({n: c for n, c in got.items() if c})} (the warp body {warp})")
         if got != _only(**expect):
             raise AssertionError(f"{label}: expected the launches {expect} and no other, saw {got}")
         _check_finite(st, label)
@@ -2741,9 +2839,9 @@ def run(dev) -> None:
             sim = eng.step(sim, u, n_substeps=walker.n_substeps, model_params=model_params)
         torch.cuda.synchronize()
         path[label] = got = _counts()
-        _check_warp(label, eng.substep_spec, got)
+        warp = _check_warp(label, eng.substep_spec, got)
         print(f"[phase 2] {label}, 3 env steps: launches "
-              f"{json.dumps({n: c for n, c in got.items() if c})}")
+              f"{json.dumps({n: c for n, c in got.items() if c})} (the warp body {warp})")
         if got != _only(**expect):
             raise AssertionError(f"{label}: expected the launches {expect} and no other, saw {got}")
         if not (bool(torch.isfinite(sim.q).all()) and bool(torch.isfinite(sim.v).all())):
@@ -2852,9 +2950,21 @@ def run(dev) -> None:
           f"sensor stage and the ground query): {[round(r, 1) for r in rates_r]} (max "
           f"{max(rates_r):.1f}; {max(rates_r) / max(rates_t):.3f}× the terrain path's)")
     state_k1 = env_k1.step(state_k1, _uniform(act_gen, dev))  # warm-up
+    before = _counts()
     rates_k1, _ = _env_rate(env_k1, state_k1, act_gen, dev, 5, 2)
+    launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
     print(f"[phase 3] env-steps/s at B={B_MAIN}, constraint_solver='kernel' (K1): "
-          f"{[round(r, 1) for r in rates_k1]}")
+          f"{[round(r, 1) for r in rates_k1]}; launches in the 10 timed steps {json.dumps(launched)}")
+    if launched != {"constraint_solve": 40}:
+        raise AssertionError(f"the 'kernel' path, timed: {launched} in 10 env steps")
+    eng_k3.step(state.sim, env._action_to_command(_uniform(act_gen, dev), state.sim),
+                n_substeps=env.n_substeps)  # warm-up
+    rates_k3, launched = _engine_rate(eng_k3, env, state.sim, act_gen, dev, 10, 3)
+    print(f"[phase 3] env-steps/s at B={B_MAIN}, substep_fusion=False (K3, 4 launches per env "
+          f"step): {[round(r, 1) for r in rates_k3]}; launches in the 30 timed steps "
+          f"{json.dumps(launched)}")
+    if launched != {"substep": 120}:
+        raise AssertionError(f"the unfused path, timed: {launched} in 30 env steps")
 
     kernels = []
 
@@ -2886,7 +2996,7 @@ def run(dev) -> None:
     n_sub = env.n_substeps
     k2_ops = B_MAIN * (n_sub * (_substep_flops(spec) + _torque_flops(spec)) + 2 * spec.tree.nv)
     entry(
-        "substep_multi", K2_WARP_SOURCE,
+        "substep_multi", WARP_SOURCE,
         "jiminy_tpu/ops/substep_kernel.py:1815", path["main path"]["substep_multi"],
         _time_cuda(lambda: substep_batched_multi(spec, n_sub, q, v, cmd, lam0, wrench), 20),
         _time_cuda(lambda: substep_multi_reference(spec, n_sub, q, v, cmd, lam0, wrench), 3),
@@ -2907,14 +3017,14 @@ def run(dev) -> None:
 
     sensor_k2_ms = _time_cuda(sensor_k2, 20)
     entry(
-        "substep_multi_sensors", K2_WARP_SOURCE,
+        "substep_multi_sensors", WARP_SOURCE,
         "jiminy_tpu/ops/substep_kernel.py:1459", path["sensor path"]["substep_multi_sensors"],
         sensor_k2_ms,
         _time_cuda(lambda: substep_multi_reference(spec, n_sub, q, v, cmd, lam0, wrench, **sw), 3),
         _substep_multi_bytes(spec, B_MAIN) + sens_bytes, k2_ops + sens_ops,
     )
     entry(
-        "substep", "jiminy_tpu_torch/csrc/substep.cu",
+        "substep", WARP_SOURCE,
         "jiminy_tpu/ops/substep_kernel.py:1678", path["substep_fusion=False"]["substep"],
         _time_cuda(lambda: substep_batched(spec, q, v, tau, lam0, wrench), 20),
         _time_cuda(lambda: substep_reference(spec, q, v, tau, lam0, wrench), 3),
@@ -2966,7 +3076,7 @@ def run(dev) -> None:
             ms, plain_ms = _time_cuda(kernel, 20), _time_cuda(plain, 3)
             in_json = json_ground[name][0] == kind
             if in_json:
-                entry(name, K2_WARP_SOURCE if "multi" in name else "jiminy_tpu_torch/csrc/substep.cu",
+                entry(name, WARP_SOURCE,
                       "jiminy_tpu/ops/substep_kernel.py:1219", path[json_ground[name][1]][name],
                       ms, plain_ms, n_bytes, n_ops)
             else:
@@ -3018,13 +3128,13 @@ def run(dev) -> None:
         }
         for name, (kernel, plain, n_bytes, n_ops) in runs.items():
             ms, plain_ms = _time_cuda(kernel, 20), _time_cuda(plain, 3)
-            entry(name, K2_WARP_SOURCE if "multi" in name else "jiminy_tpu_torch/csrc/substep_rand.cu",
+            entry(name, WARP_SOURCE,
                   "jiminy_tpu/ops/substep_kernel.py:507", path[launched_by[name]][name],
                   ms, plain_ms, n_bytes, n_ops)
 
-    # ---- A.15 with B.10 in the ANYmal frame, before any large-frame launch
-    # (see "Cassie, last" below): the cartpole's kernels and engine paths,
-    # then the Ant and Spotmicro env paths and their numbers
+    # ---- A.15 with B.10 in the ANYmal frame, before any large-frame launch:
+    # the cartpole's kernels and engine paths, then the Ant and Spotmicro env
+    # paths and their numbers
     main_err.update(phase_prismatic_vs_plain(dev, ("cartpole",)))
     path["cartpole engine path"], sim_cp, eng_cp = _prismatic_path(dev, "cartpole", 5)
     x = sim_cp.q[:, 0].abs()
@@ -3089,6 +3199,7 @@ def run(dev) -> None:
         wargs = (st.sim.q, st.sim.v, env_w._action_to_command(
             _uniform(act_gen, dev, env_w.motors.nm), st.sim), st.sim.lam,
             torch.zeros(B_MAIN, 6, device=dev))
+        _k3_equals_k2(wname, wspec, wargs)
         wsens = SensorKernelSpec(env_w.tree, env_ws.sensors, env_ws.n_substeps_per_obs)
         k_obs, suite = wsens.k_obs, env_ws.sensors
         wgen = torch.Generator(device=dev).manual_seed(60)
@@ -3122,14 +3233,14 @@ def run(dev) -> None:
               f"{_torque_flops(wspec)}, sensor update {_sensor_flops(wspec, wsens)}; "
               f"{n_w} substeps, {n_upd} sensor updates per env step")
         entry(
-            f"{wname}_substep_multi", K2_WARP_SOURCE, k2_entry,
+            f"{wname}_substep_multi", WARP_SOURCE, k2_entry,
             path[f"{wname} state path"]["substep_multi"],
             _time_cuda(lambda: substep_batched_multi(wspec, n_w, *wargs), 20),
             _time_cuda(lambda: substep_multi_reference(wspec, n_w, *wargs), 2),
             _substep_multi_bytes(wspec, B_MAIN), w_ops,
         )
         entry(
-            f"{wname}_substep_multi_sensors", K2_WARP_SOURCE, k2_entry,
+            f"{wname}_substep_multi_sensors", WARP_SOURCE, k2_entry,
             path[f"{wname} sensors path"]["substep_multi_sensors"],
             _time_cuda(lambda: substep_batched_multi(wspec, n_w, *wargs, **wsw), 20),
             _time_cuda(lambda: substep_multi_reference(wspec, n_w, *wargs, **wsw), 2),
@@ -3144,7 +3255,7 @@ def run(dev) -> None:
     cq, cv, ccmd, clam0, cwrench = cp_args
     cp_tau = eng_cp._joint_torque(ccmd, cq, cv)
     entry(
-        "cartpole_substep_multi", K2_WARP_SOURCE, b10,
+        "cartpole_substep_multi", WARP_SOURCE, b10,
         path["cartpole engine path"]["substep_multi"],
         _time_cuda(lambda: substep_batched_multi(cp_spec, CARTPOLE_SUBSTEPS, *cp_args), 20),
         _time_cuda(lambda: substep_multi_reference(cp_spec, CARTPOLE_SUBSTEPS, *cp_args), 2),
@@ -3153,7 +3264,7 @@ def run(dev) -> None:
                   + 2 * cp_spec.tree.nv),
     )
     entry(
-        "cartpole_substep", "jiminy_tpu_torch/csrc/substep.cu", b10,
+        "cartpole_substep", WARP_SOURCE, b10,
         path["cartpole substep_fusion=False"]["substep"],
         _time_cuda(lambda: substep_batched(cp_spec, cq, cv, cp_tau, clam0, cwrench), 20),
         _time_cuda(lambda: substep_reference(cp_spec, cq, cv, cp_tau, clam0, cwrench), 3),
@@ -3167,12 +3278,7 @@ def run(dev) -> None:
         print(f"[phase 3] K2 warp body stages, {row['model']} {row['path']} (n_sub "
               f"{row['n_sub']}): cycles per env per substep {json.dumps(row['cycles_per_env_substep'])}")
 
-    # ---- Cassie, last: after one launch in the large frame (~40 KB of
-    # stack per thread; the CUDA runtime keeps the local memory it grew),
-    # the ANYmal frame's flat sensor K2 ran ~5 % slower for the rest of the
-    # process (this script, NVIDIA H100 80GB HBM3, 700 W), so the ANYmal
-    # numbers above come before any Cassie launch, as in a process that
-    # trains ANYmal alone
+    # ---- Cassie and the large frame, after every ANYmal number
     main_err.update(phase_cassie_vs_plain(dev))
     # Cassie (A.12 with B.9): examples/train.py --env cassie, the large
     # frame, the pushrods and shin springs on three paths
@@ -3359,14 +3465,14 @@ def run(dev) -> None:
           f"{_substep_flops(spec)}")
     b9 = "jiminy_tpu/ops/substep_kernel.py:933"
     entry(
-        "cassie_substep_multi", K2_WARP_SOURCE, b9,
+        "cassie_substep_multi", WARP_SOURCE, b9,
         path["cassie state path"]["substep_multi"],
         _time_cuda(lambda: substep_batched_multi(cspec, c_sub, *cargs), 10),
         _time_cuda(lambda: substep_multi_reference(cspec, c_sub, *cargs), 2),
         _substep_multi_bytes(cspec, B_MAIN), c_ops,
     )
     entry(
-        "cassie_substep_multi_sensors", K2_WARP_SOURCE, b9,
+        "cassie_substep_multi_sensors", WARP_SOURCE, b9,
         path["cassie sensor path"]["substep_multi_sensors"],
         _time_cuda(lambda: substep_batched_multi(cspec, c_sub, *cargs, **csw), 10),
         _time_cuda(lambda: substep_multi_reference(cspec, c_sub, *cargs, **csw), 2),
@@ -3374,7 +3480,7 @@ def run(dev) -> None:
         c_ops + B_MAIN * c_upd * _sensor_flops(cspec, csens),
     )
     entry(
-        "cassie_substep", "jiminy_tpu_torch/csrc/substep.cu", b9,
+        "cassie_substep", WARP_SOURCE, b9,
         path["cassie substep_fusion=False"]["substep"],
         _time_cuda(lambda: substep_batched(cspec, cq, cv, ctau, clam0, cwrench), 20),
         _time_cuda(lambda: substep_reference(cspec, cq, cv, ctau, clam0, cwrench), 3),
@@ -3398,7 +3504,7 @@ def run(dev) -> None:
                        else f"cassie {kind} pairs state path")
         main_err[name] = main_err[f"pairs_{kind}"]
         entry(
-            name, K2_WARP_SOURCE, b7, path[launched_by]["substep_multi"],
+            name, WARP_SOURCE, b7, path[launched_by]["substep_multi"],
             _time_cuda(lambda: substep_batched_multi(pspec, c_sub, *pargs), 10),
             _time_cuda(lambda: substep_multi_reference(pspec, c_sub, *pargs), 2),
             _substep_multi_bytes(pspec, B_MAIN), p_ops,
@@ -3408,7 +3514,7 @@ def run(dev) -> None:
             ptau = peng._joint_torque(pcmd, pq, pv)
             main_err["cassie_selfcol_substep"] = main_err["pairs_seg"]
             entry(
-                "cassie_selfcol_substep", "jiminy_tpu_torch/csrc/substep.cu", b7,
+                "cassie_selfcol_substep", WARP_SOURCE, b7,
                 path["cassie self-collision substep_fusion=False"]["substep"],
                 _time_cuda(lambda: substep_batched(pspec, pq, pv, ptau, plam0, pwrench), 20),
                 _time_cuda(lambda: substep_reference(pspec, pq, pv, ptau, plam0, pwrench), 3),
@@ -3436,7 +3542,7 @@ def run(dev) -> None:
         s_ops = B_MAIN * (n_sub * (_substep_flops(sspec) + _torque_flops(sspec))
                           + 2 * sspec.tree.nv)
         entry(
-            name, K2_WARP_SOURCE, b4s, path[launched_by][counter],
+            name, WARP_SOURCE, b4s, path[launched_by][counter],
             _time_cuda(lambda: substep_batched_multi(sspec, n_sub, *sargs, gc=sgc), 20),
             _time_cuda(lambda: substep_multi_reference(sspec, n_sub, *sargs, gc=sgc), 3),
             _substep_multi_bytes(sspec, B_MAIN) + g_bytes, s_ops + g_ops,
@@ -3460,14 +3566,14 @@ def run(dev) -> None:
           f"{_substep_flops(cspec)}")
     b8 = "jiminy_tpu/ops/substep_kernel.py:448"
     entry(
-        "cassie_flex_substep_multi", K2_WARP_SOURCE, b8,
+        "cassie_flex_substep_multi", WARP_SOURCE, b8,
         path["cassie flex state path"]["substep_multi"],
         _time_cuda(lambda: substep_batched_multi(fspec, c_sub, *fargs), 10),
         _time_cuda(lambda: substep_multi_reference(fspec, c_sub, *fargs), 2),
         _substep_multi_bytes(fspec, B_MAIN), f_ops,
     )
     entry(
-        "cassie_flex_substep_multi_sensors", K2_WARP_SOURCE, b8,
+        "cassie_flex_substep_multi_sensors", WARP_SOURCE, b8,
         path["cassie flex sensor path"]["substep_multi_sensors"],
         _time_cuda(lambda: substep_batched_multi(fspec, c_sub, *fargs, **fsw), 10),
         _time_cuda(lambda: substep_multi_reference(fspec, c_sub, *fargs, **fsw), 2),
@@ -3475,7 +3581,7 @@ def run(dev) -> None:
         f_ops + B_MAIN * c_upd * _sensor_flops(fspec, fsens),
     )
     entry(
-        "cassie_flex_substep", "jiminy_tpu_torch/csrc/substep.cu", b8,
+        "cassie_flex_substep", WARP_SOURCE, b8,
         path["cassie flex substep_fusion=False"]["substep"],
         _time_cuda(lambda: substep_batched(fspec, fq, fv, ftau, flam0, fwrench), 20),
         _time_cuda(lambda: substep_reference(fspec, fq, fv, ftau, flam0, fwrench), 3),
@@ -3519,7 +3625,7 @@ def run(dev) -> None:
           f"{_pair_flops(sl_spec)}, chain {_solve_flops(sl_spec.cfg)} at nc {sl_spec.nc}); "
           f"the cartpole's {_substep_flops(cp_spec)}")
     entry(
-        "prismatic_slab_substep_multi", K2_WARP_SOURCE, b10,
+        "prismatic_slab_substep_multi", WARP_SOURCE, b10,
         path["prismatic slab engine path"]["substep_multi"],
         _time_cuda(lambda: substep_batched_multi(sl_spec, SLAB_SUBSTEPS, *sl_args), 20),
         _time_cuda(lambda: substep_multi_reference(sl_spec, SLAB_SUBSTEPS, *sl_args), 2),
@@ -3528,15 +3634,15 @@ def run(dev) -> None:
                   + 2 * sl_spec.tree.nv),
     )
     entry(
-        "prismatic_slab_substep", "jiminy_tpu_torch/csrc/substep.cu", b10,
+        "prismatic_slab_substep", WARP_SOURCE, b10,
         path["prismatic slab substep_fusion=False"]["substep"],
         _time_cuda(lambda: substep_batched(sl_spec, sq, sv, sl_tau, slam0, swrench), 20),
         _time_cuda(lambda: substep_reference(sl_spec, sq, sv, sl_tau, slam0, swrench), 3),
         _substep_bytes(sl_spec, B_MAIN), B_MAIN * _substep_flops(sl_spec),
     )
-    # after every large-frame launch: the ANYmal sensor K2 again (the
-    # one-thread K2 ran it ~5 % slower here than before them; since then
-    # only K3 and K1 run one thread per env in the large frame)
+    # after every large-frame launch: the ANYmal sensor K2 again, beside its
+    # time before them (every kernel runs the warp body; none keeps local
+    # memory that a launch could grow)
     late_ms = _time_cuda(sensor_k2, 20)
     print(f"[phase 3] substep_multi_sensors B={B_MAIN} after the large-frame launches: "
           f"{late_ms:.4f} ms against {sensor_k2_ms:.4f} ms before them "
@@ -3545,6 +3651,7 @@ def run(dev) -> None:
                       "env_steps_per_s_terrain_path": rates_t,
                       "env_steps_per_s_sim2real_path": rates_r,
                       "env_steps_per_s_kernel_path": rates_k1,
+                      "env_steps_per_s_unfused_path": rates_k3,
                       "env_steps_per_s_cassie": rates_c, "env_steps_per_s_walkers": rates_w,
                       "steps_per_s_prismatic_slab": rates_sl, "nvcc_build_s": build}))
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-// Whole-substep kernels for Hopper (sm_90a): K2 one warp per env
-// (substep_warp.cuh), in both frames; K3 one thread per env.
+// Whole-substep kernels for Hopper (sm_90a): K3 and K2, one warp per env
+// (substep_warp.cuh), in both frames.
 //
 // Included by two translation units, each its own library: csrc/substep.cu
 // (JT_RAND false, the nominal instantiations) and csrc/substep_rand.cu
@@ -27,7 +27,7 @@
 // instantiations), each env's row of packed model parameters replaces
 // the baked masses, first moments and inertias in RNEA and CRBA, the
 // armature on M's diagonal and, in K2's torque, the motor reduction and
-// friction (see `jt_load_inertials` below). Closed loops
+// friction (see `jt_load_inertial` below). Closed loops
 // (`SubstepSpec.dist_constraints` and the distance rows of `_substep_math`)
 // are equality rows ahead of the bounds, and 1-DoF joint springs (the
 // spring branch of `_compute_tau` and the dt²·k, dt·k·v terms of
@@ -51,16 +51,15 @@
 // −k·q spring and bound row. Joint types are runtime branches on the
 // packed spec as well, and each site names every type it serves.
 //
-// One substep (`jt_substep`, the counterpart of `_substep_math`) is, per
-// env: FK → RNEA bias with the root wrench → CRBA + armature + dt·damping
-// (+ dt²·stiffness) → distance rows, bounds rows and contact rows
-// color-major (flat basis t1 = (0,−1,0),
-// t2 = (1,0,0), n = e_z, or with GEN the basis of the ground's normal at
-// each contact; Baumgarte / velocity-barrier targets) → pair contact rows
-// (each pair its own PGS color) → the
-// shared chain (solve_chain.cuh) → world impulses in the original
-// contact order → symplectic Euler with the quaternion exponential. The
-// arithmetic follows the plain version
+// One substep (`jt_warp_substep` in substep_warp.cuh, the counterpart of
+// `_substep_math`) is, per env: FK → RNEA bias with the root wrench → CRBA
+// + armature + dt·damping (+ dt²·stiffness) → distance rows, bounds rows
+// and contact rows color-major (flat basis t1 = (0,−1,0), t2 = (1,0,0),
+// n = e_z, or with GEN the basis of the ground's normal at each contact;
+// Baumgarte / velocity-barrier targets) → pair contact rows (each pair its
+// own PGS color) → the chain (solve_chain.cuh `jt_warp_chain`) → world
+// impulses in the original contact order → symplectic Euler with the
+// quaternion exponential. The arithmetic follows the plain version
 // (jiminy_tpu_torch/ops/substep_kernel.py `substep_reference`, i.e. the
 // engine's own plain physics) step for step.
 //
@@ -92,28 +91,19 @@
 // tree unrolled into Python floats, the batch padded by repetition) does
 // not carry over. The tree arrives as a packed device buffer (read at the
 // same addresses by every lane of a warp, so it broadcasts from L1), and
-// bodies and rows are runtime loops, so one build serves every model.
-// The one-thread design (one thread one env, blocks of one warp, the caps
-// ⟨NMAX, NCMAX, NBMAX⟩ = ⟨18, 24, 13⟩ or ⟨32, 48, 32⟩) ran K2 at ~196× its
-// bound on ANYmal (2.42 ms against 0.0124 ms at B = 4096; PERF.md), held
-// back by three things: (1) under one warp per SM (B = 4096 is 128 warps
-// for 132 SMs; one scheduler of four busy, nothing to hide latency behind);
-// (2) every intermediate in local memory (body poses, M, J, the chain's L,
-// X, A and the carry are indexed under runtime bounds: ~13 KB per thread
-// in the ANYmal frame, ~40 KB in the large one); (3) serial work, ~20
-// cycles per operation; in the large frame K2 ran 206–340× its bound
-// (Cassie 9.07 ms, the slab 8.97 ms; PERF.md), its time tracking nc² as
-// A and X moved through local memory row by row. K2 (substep_warp.cuh),
-// in both frames, answers each: (1) a warp per env and four envs per
-// block, so B = 4096 is 4096 warps and an SM holds 12–16 of them; (2) the
-// env's working set in shared memory, sized from the model and not from
-// the caps (8,752 B for ANYmal, 11,072 for Cassie, 13,792 for the slab;
-// L factored in place of M, the tree passes' arrays in the chain's X and
-// A), with odd row strides; (3) the lanes across the bodies of one depth,
-// the motors, the row items, Cholesky's column, the right-hand sides of
-// M⁻¹[p | Jᵀ], A's columns and each PGS group, so a substep's dependent
-// chain is the tree's depth and the chain's length, not its size. K3 and
-// K1 (solve_chain.cuh) keep the one-thread design.
+// bodies and rows are runtime loops, so one build serves every model. Both
+// kernels run one warp per env (substep_warp.cuh): four envs per block, so
+// B = 4096 is 4096 warps and an SM holds 12–16 of them; the env's working
+// set in shared memory, sized from the model and not from the caps (8,752 B
+// for ANYmal, 11,072 for Cassie, 13,792 for the slab; L factored in place
+// of M, the tree passes' arrays in the chain's X and A), with odd row
+// strides; the lanes across the bodies of one depth, the motors, the row
+// items, Cholesky's column, the right-hand sides of M⁻¹[p | Jᵀ], A's
+// columns and each PGS group, so a substep's dependent chain is the tree's
+// depth and the chain's length, not its size. A first design ran one
+// thread per env with every array in local memory, sized for the caps
+// (~13 KB a thread in the ANYmal frame, ~40 KB in the large one), one warp
+// a block: K2 at 196–340× its bound and K3 at 196–375× (PERF.md).
 //
 // Packed spec (built by ops/substep_kernel.py `SubstepSpec.packed`):
 //   ints:   [nb, nq, nv, ncp, nbj, nm, torque mode, ground mode, Fourier
@@ -150,7 +140,6 @@
 
 #include "solve_chain.cuh"
 
-#define JT_THREADS 32
 #define JT_HDR_I 10
 #define JT_HDR_F 16
 #define JT_BODY_F 28
@@ -630,11 +619,6 @@ __device__ __forceinline__ void jt_load_inertial(const SpecView& s, const float*
   Ic[10] = I6[4]; Ic[11] = I6[5]; Ic[12] = I6[2];
 }
 
-__device__ __forceinline__ void jt_load_inertials(const SpecView& s, const float* mp,
-                                                  float (*Ic)[13]) {
-  for (int i = 0; i < s.nb; ++i) jt_load_inertial(s, mp, i, Ic[i]);
-}
-
 // ---- one distance-constraint row (the closed loops of `_substep_math`):
 // p_k = R_bk·p_k,local + x_bk (the constant itself for a body < 0), d =
 // √(|p₁ − p₂|² + 1e-24), u = (p₁ − p₂)/max(d, 1e-9), the row u·(J_p(b₁, p₁)
@@ -868,19 +852,8 @@ __device__ __forceinline__ void jt_pair_item(const SpecView& s, const float (*xw
   }
 }
 
-// every pair generator's contacts as rows from row0, contact after contact
-// in generator order, up to nc (the layout jt_check_dims holds makes that
-// the end)
-__device__ __forceinline__ void jt_pair_rows(const SpecView& s, const float (*xwR)[9],
-                                             const float (*xwp)[3], int row0, int nc, float* J,
-                                             int ldj, float* target, float* active, float* mu) {
-  for (int p = 0; row0 + 3 * p + 3 <= nc; ++p)
-    jt_pair_item(s, xwR, xwp, p, row0 + 3 * p, J, ldj, target, active, mu);
-}
-
-// ---- the pieces of one substep, each for one body, dof, row or contact:
-// the one-thread body (jt_substep) runs them in loops, the warp body
-// (substep_warp.cuh) across its lanes, with the same arithmetic.
+// ---- the pieces of one substep, each for one body, dof, row or contact,
+// which the warp body (substep_warp.cuh) runs across its lanes.
 
 // FK of body i, its local pose (xlR, xlp)[i] known and its parent's done:
 // world pose and local spatial velocity
@@ -1109,134 +1082,6 @@ __device__ __forceinline__ void jt_integrate_joint(const SpecView& s, int i, con
   }
 }
 
-// ---- one impulse substep of one env (counterpart of `_substep_math`).
-// q (nq), v, tau (nv), lam0 (nc), w0 (6) → q_next (nq), v_next (nv),
-// lam_out (nc, may be lam0), fc (3·ncp world impulses); returns the
-// residual. With GEN, g (n_gc) is the env's analytic ground; with RAND,
-// mp is the env's row of model parameters (read from global memory where
-// used: the inertials once, before RNEA, and the armature).
-template <int NMAX, int NCMAX, int NBMAX, bool GEN, bool RAND>
-__device__ __forceinline__ float jt_substep(
-    const SpecView& s, const float* q, const float* v, const float* tau,
-    const float* lam0, float* lam_out, const float* w0, const float* g, int n_gc,
-    const float* mp, float* q_next, float* v_next, float* fc, const SolveParams& prm,
-    const BlockLayout& lay) {
-  const int nb = s.nb, nv = s.nv, nc = prm.nc;
-  const float dt = s.scal[JT_S_DT];
-
-  float xlR[NBMAX][9], xlp[NBMAX][3], xwR[NBMAX][9], xwp[NBMAX][3];
-  float vel[NBMAX][6], acc[NBMAX][6], frc[NBMAX][6], Ic[NBMAX][13];
-  float M[NMAX * NMAX], J[NCMAX * NMAX], pf[NMAX];
-  float target[NCMAX], mu[NCMAX], active[NCMAX];
-  float col[6], t6[6];
-
-  // ---- FK: local transforms, world poses, local spatial velocities
-  for (int i = 0; i < nb; ++i) {
-    jt_local_pose(s, i, q, xlR[i], xlp[i]);
-    jt_fk_body(s, i, v, xlR, xlp, xwR, xwp, vel);
-  }
-
-  // ---- RNEA bias rnea(q, v, 0) with the root wrench as fext[0]; with
-  // RAND on the env's own inertials, which CRBA then starts from
-  float bias[NMAX];
-  if constexpr (RAND) jt_load_inertials(s, mp, Ic);
-  for (int i = 0; i < nb; ++i) {
-    const float* in;  // mass, h, I
-    if constexpr (RAND) in = Ic[i];
-    else in = s.body + JT_BODY_F * i + 15;
-    jt_rnea_fwd_body(s, i, v, in, xlR, xlp, vel, acc, frc);
-  }
-  for (int k = 0; k < 6; ++k) frc[0][k] -= w0[k];
-  for (int i = nb - 1; i >= 0; --i) {
-    jt_rnea_bwd_body(s, i, xlR, xlp, frc[i], bias, t6);
-    const int p = s.parent[i];
-    if (p >= 0)
-      for (int k = 0; k < 6; ++k) frc[p][k] += t6[k];
-  }
-
-  // ---- CRBA + armature + dt·damping (implicit joint damping)
-  for (int r = 0; r < nv * NMAX; ++r) M[r] = 0.f;
-  if constexpr (!RAND) {
-    for (int i = 0; i < nb; ++i) {
-      const float* bd = s.body + JT_BODY_F * i;
-      for (int k = 0; k < 13; ++k) Ic[i][k] = bd[15 + k];  // mass, h, I
-    }
-  }
-  for (int i = nb - 1; i >= 0; --i) {
-    const int p = s.parent[i];
-    if (p >= 0) {  // Ic[p] += Ic[i] expressed in the parent
-      float terms[13];
-      jt_composite_terms(xlR[i], xlp[i], Ic[i], terms);
-      for (int k = 0; k < 13; ++k) Ic[p][k] += terms[k];
-    }
-    const int jt = s.jtype[i], vo_i = s.v_off[i], nvi = joint_nv(jt);
-    const float* axis_i = s.body + JT_BODY_F * i;
-    float F[6][6];  // F[c] = Ic·S_c, one spatial force per dof of joint i
-    for (int c = 0; c < nvi; ++c) {
-      subspace_col(jt, axis_i, c, col);
-      inertia_mul(Ic[i][0], Ic[i] + 1, Ic[i] + 4, col, F[c]);
-    }
-    for (int a = 0; a < nvi; ++a) {
-      subspace_col(jt, axis_i, a, col);
-      for (int b = 0; b < nvi; ++b) {
-        float d = 0.f;
-        for (int k = 0; k < 6; ++k) d += col[k] * F[b][k];
-        M[(vo_i + a) * NMAX + vo_i + b] = d;
-      }
-    }
-    int j = i;
-    while (s.parent[j] >= 0) {
-      for (int c = 0; c < nvi; ++c) {
-        force_c2p(xlR[j], xlp[j], F[c], t6);
-        for (int k = 0; k < 6; ++k) F[c][k] = t6[k];
-      }
-      j = s.parent[j];
-      const int jtj = s.jtype[j], vo_j = s.v_off[j];
-      for (int b = 0; b < joint_nv(jtj); ++b) {
-        subspace_col(jtj, s.body + JT_BODY_F * j, b, col);
-        for (int a = 0; a < nvi; ++a) {
-          float d = 0.f;
-          for (int k = 0; k < 6; ++k) d += F[a][k] * col[k];
-          M[(vo_i + a) * NMAX + vo_j + b] = d;
-          M[(vo_j + b) * NMAX + vo_i + a] = d;
-        }
-      }
-    }
-  }
-  for (int r = 0; r < nv; ++r) jt_diag_row<RAND>(s, r, mp, dt, tau, v, bias[r], &M[r * NMAX + r], pf);
-
-  // ---- rows: distance constraints, bounds, then contacts color-major
-  // (sphere sites at their surface points), then the pairs' contacts
-  for (int r = 0; r < nc * NMAX; ++r) J[r] = 0.f;
-  const int nd = s.n_dist;
-  for (int c = 0; c < nd; ++c) {
-    const int* bodies = jt_dist_bodies(s) + 2 * c;
-    target[c] = jt_distance_row(s, xwR, xwp, bodies[0], bodies[1], jt_dist_floats(s) + 8 * c,
-                                J + c * NMAX);
-    active[c] = 1.f;
-    mu[c] = 0.f;
-  }
-  for (int t = 0; t < s.nbj; ++t) jt_bound_row(s, t, nd + t, q, J, NMAX, target, active, mu);
-  float basis[GEN ? NCMAX / 3 : 1][9];  // GEN: per contact, color order
-  for (int jc = 0; jc < s.ncp; ++jc)
-    jt_contact_row<GEN>(s, jc, nd + s.nbj + 3 * jc, xwR, xwp, g, n_gc, J, NMAX, target, active,
-                        mu, basis[GEN ? jc : 0]);
-
-  // ---- collision pairs after the ground contacts, one color each
-  if (s.n_gen > 0)
-    jt_pair_rows(s, xwR, xwp, nd + s.nbj + 3 * s.ncp, nc, J, NMAX, target, active, mu);
-
-  // ---- the shared chain
-  const float res = jt_solve_chain<NMAX, NCMAX>(
-      M, NMAX, pf, v, J, NMAX, target, mu, active, lam0, v_next, lam_out, prm, lay);
-
-  // ---- world impulses, original contact order; symplectic Euler
-  for (int jc = 0; jc < s.ncp; ++jc)
-    jt_contact_impulse<GEN>(s, jc, nd + s.nbj + 3 * jc, lam_out, basis[GEN ? jc : 0], fc);
-  for (int i = 0; i < nb; ++i) jt_integrate_joint(s, i, q, v_next, dt, q_next);
-  return res;
-}
-
 // ---- the sensor stage (counterpart of `_sensor_stage`, the plain version
 // being ops/substep_kernel.py `sensor_stage_reference`, i.e.
 // hardware/sensors.py `SensorSuite.update`)
@@ -1383,13 +1228,6 @@ __device__ __forceinline__ void jt_sensor_measure(const SpecView& s, const SensP
   }
 }
 
-// the env's ground coefficients (gc: B × n_gc) into g, once per launch
-template <bool GEN>
-__device__ __forceinline__ void jt_load_ground(const float* gc, int n_gc, int b, float* g) {
-  if constexpr (GEN)
-    for (int k = 0; k < n_gc; ++k) g[k] = gc[(size_t)b * n_gc + k];
-}
-
 // Largest sizes any instantiation takes (ops/substep_kernel.py MAX_* and
 // NQ_EXTRA check them before a launch too).
 #define JT_SUB_MAX_N 32
@@ -1397,30 +1235,6 @@ __device__ __forceinline__ void jt_load_ground(const float* gc, int n_gc, int b,
 #define JT_SUB_MAX_NB 32
 
 #include "substep_warp.cuh"
-
-// ---- K3: one substep, τ given; with GEN an analytic ground per env; with
-// RAND each env's model parameters (mp: B × n_mp)
-template <int NMAX, int NCMAX, int NBMAX, bool GEN, bool RAND>
-__global__ void __launch_bounds__(JT_THREADS) substep_kernel(
-    const int* __restrict__ si, const float* __restrict__ sf,
-    const float* __restrict__ q, const float* __restrict__ v,
-    const float* __restrict__ tau, const float* __restrict__ lam0,
-    const float* __restrict__ wrench, float* __restrict__ q_out,
-    float* __restrict__ v_out, float* __restrict__ lam_out,
-    float* __restrict__ res_out, float* __restrict__ fc_out,
-    const float* __restrict__ gc, int n_gc, const float* __restrict__ mp, int n_mp,
-    SolveParams prm, BlockLayout lay) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= prm.B) return;
-  const SpecView s = jt_view(si, sf);
-  float g[GEN ? JT_GC_MAX : 1];
-  jt_load_ground<GEN>(gc, n_gc, b, g);
-  const float* row = RAND ? mp + (size_t)b * n_mp : nullptr;
-  const size_t bq = (size_t)b * s.nq, bv = (size_t)b * s.nv, bc = (size_t)b * prm.nc;
-  res_out[b] = jt_substep<NMAX, NCMAX, NBMAX, GEN, RAND>(
-      s, q + bq, v + bv, tau + bv, lam0 + bc, lam_out + bc, wrench + 6 * (size_t)b, g, n_gc,
-      row, q_out + bq, v_out + bv, fc_out + 3 * (size_t)b * s.ncp, prm, lay);
-}
 
 // the sensor stage's (ops/substep_kernel.py MAX_SENS_*)
 #define JT_SENS_MAX_GROUPS 8
@@ -1463,37 +1277,37 @@ static int jt_check_dims(int B, int nb, int nq, int nv, int nc, int n_dist, int 
 }
 
 // K3. si/sf: the packed spec; n_dist its distance rows (the header's);
-// wrench (B, 6); fc (B, 3·ncp); gc (B, n_gc)
-// the ground coefficients (null, 0 on flat ground); mp (B, n_mp) the model
-// parameters (null, 0 in the nominal library; required in the randomized
-// one).
+// wrench (B, 6); fc (B, 3·ncp); gc (B, n_gc) the ground coefficients (null,
+// 0 on flat ground); mp (B, n_mp) the model parameters (null, 0 in the
+// nominal library; required in the randomized one); wl (wl_len ints) the
+// warp body's workspace layout, K2's without the sensor stage
+// (ops/substep_kernel.py `SubstepSpec.warp_workspace`), checked: a missing
+// or bad layout, or a PGS group wider than a warp, is refused and nothing
+// falls back.
 extern "C" int jt_substep(
     const int* si, const float* sf, const float* q, const float* v,
     const float* tau, const float* lam0, const float* wrench, float* q_out,
     float* v_out, float* lam_out, float* res, float* fc, int B, int nb,
     int nq, int nv, int nc, int n_dist, const float* gc, int n_gc, const float* mp,
-    int n_mp, const int* layout, int layout_len, int iters, float dt,
+    int n_mp, const int* wl, int wl_len, const int* layout, int layout_len, int iters, float dt,
     float relax, float reg, int compute_residual, void* stream) {
   BlockLayout lay;
-  const int err = jt_check_dims(B, nb, nq, nv, nc, n_dist, 0, iters, gc, n_gc, mp, n_mp,
-                                10 * nb + nv, layout, layout_len, &lay);
+  int err = jt_check_dims(B, nb, nq, nv, nc, n_dist, 0, iters, gc, n_gc, mp, n_mp,
+                          10 * nb + nv, layout, layout_len, &lay);
+  if (err != (int)cudaSuccess) return err;
+  WarpLayout w;  // K3 reads no command: nm 0
+  err = jt_check_warp_layout(wl, wl_len, nb, nq, nv, nc, 0, n_gc, false, lay, &w);
   if (err != (int)cudaSuccess) return err;
   if (B == 0) return (int)cudaSuccess;
-  SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
-  const dim3 grid((B + JT_THREADS - 1) / JT_THREADS), block(JT_THREADS);
-  cudaStream_t s = (cudaStream_t)stream;
-#define JT_K3(NM, NC, NB, GEN)                                                            \
-  substep_kernel<NM, NC, NB, GEN, JT_RAND><<<grid, block, 0, s>>>(                        \
-      si, sf, q, v, tau, lam0, wrench, q_out, v_out, lam_out, res, fc, gc, n_gc, mp, n_mp, \
-      prm, lay)
-  if (nb <= 13 && nv <= 18 && nc <= 24) {  // the ANYmal frame: K3's smaller caps
-    if (n_gc) JT_K3(18, 24, 13, true); else JT_K3(18, 24, 13, false);
-  } else {
-    if (n_gc) JT_K3(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, true);
-    else JT_K3(JT_SUB_MAX_N, JT_SUB_MAX_NC, JT_SUB_MAX_NB, false);
-  }
-#undef JT_K3
-  return (int)cudaGetLastError();
+  const SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
+  const int W = w.o[JT_WL_W], stride = w.o[JT_WL_STRIDE];
+  const cudaStream_t s = (cudaStream_t)stream;
+  return n_gc ? jt_warp_launch(substep_warp_kernel<true, JT_RAND>, B, W, stride, s, si, sf, q, v,
+                               tau, lam0, wrench, q_out, v_out, lam_out, res, fc, gc, n_gc, mp,
+                               n_mp, prm, lay, w)
+              : jt_warp_launch(substep_warp_kernel<false, JT_RAND>, B, W, stride, s, si, sf, q, v,
+                               tau, lam0, wrench, q_out, v_out, lam_out, res, fc, gc, n_gc, mp,
+                               n_mp, prm, lay, w);
 }
 
 // K2 in its four instantiations of this library (sensor stage or not,
@@ -1518,14 +1332,15 @@ static int jt_multi_launch(
   err = jt_check_warp_layout(wl, wl_len, nb, nq, nv, nc, nm, n_gc, SENS, lay, &w);
   if (err != (int)cudaSuccess) return err;
   if (B == 0) return (int)cudaSuccess;
-  SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
-  cudaStream_t s = (cudaStream_t)stream;
-  return n_gc ? jt_warp_launch<SENS, true>(w, si, sf, q, v, cmd, lam0, wrench, q_out, v_out,
-                                           lam_out, res, fc, a_out, tau_out, n_sub, gc, n_gc, mp,
-                                           n_mp, prm, lay, sp, s)
-              : jt_warp_launch<SENS, false>(w, si, sf, q, v, cmd, lam0, wrench, q_out, v_out,
-                                            lam_out, res, fc, a_out, tau_out, n_sub, gc, n_gc, mp,
-                                            n_mp, prm, lay, sp, s);
+  const SolveParams prm = {B, nv, nc, iters, compute_residual, dt, relax, reg};
+  const int W = w.o[JT_WL_W], stride = w.o[JT_WL_STRIDE];
+  const cudaStream_t s = (cudaStream_t)stream;
+  return n_gc ? jt_warp_launch(substep_multi_warp_kernel<SENS, true, JT_RAND>, B, W, stride, s, si,
+                               sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc, a_out,
+                               tau_out, n_sub, gc, n_gc, mp, n_mp, prm, lay, sp, w)
+              : jt_warp_launch(substep_multi_warp_kernel<SENS, false, JT_RAND>, B, W, stride, s,
+                               si, sf, q, v, cmd, lam0, wrench, q_out, v_out, lam_out, res, fc,
+                               a_out, tau_out, n_sub, gc, n_gc, mp, n_mp, prm, lay, sp, w);
 }
 
 // K2. cmd (B, nm); a and tau (B, nv) of the last substep; gc and mp as

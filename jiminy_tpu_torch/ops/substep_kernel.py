@@ -23,10 +23,10 @@ of the engine, for every env of a batch:
   :func:`substep_batched_multi` (K2, ``n_sub`` substeps in one launch,
   with the sensor stage when given ``sensors=``) are the entry points:
   on CUDA tensors they launch the hand-written kernels of
-  ``csrc/substep.cuh`` (K2 one warp per env, ``csrc/substep_warp.cuh``,
-  its workspace in shared memory laid out by
-  :meth:`SubstepSpec.warp_workspace`; K3 one thread per env; built with
-  nvcc from ``csrc/substep.cu`` and,
+  ``csrc/substep.cuh`` (both one warp per env on one substep body,
+  ``csrc/substep_warp.cuh``, the workspace in shared memory laid out by
+  :meth:`SubstepSpec.warp_workspace`; built with nvcc from
+  ``csrc/substep.cu`` and,
   for the randomized instantiations, ``csrc/substep_rand.cu``; loaded
   with ctypes); on CPU tensors they run the plain versions. They never
   fall back from one to the other. Each instantiation counts its own
@@ -103,6 +103,8 @@ from jiminy_tpu_torch.engine.solver import BlockSpec
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.hardware.sensors import SensorSuite
 from jiminy_tpu_torch.math import so3
+from jiminy_tpu_torch.ops import _warp
+from jiminy_tpu_torch.ops._warp import SMEM_PER_BLOCK, WARP_MAX_W, WarpWorkspace  # noqa: F401
 # a module, not its names: the engine package imports this module while
 # ops.constraint_solve may still be importing the engine's PGS solver
 from jiminy_tpu_torch.ops import constraint_solve as chain
@@ -132,13 +134,13 @@ MAX_SENS_GROUPS, MAX_SENS_BUF, MAX_SENS_EPS = 8, 4096, 1024
 _SENSOR_CODES = {"imu": 0, "encoder": 1, "effort": 2, "contact": 3}
 # what a sensor needs of a body and its ancestors (csrc/substep.cuh JT_NEED_*)
 _NEED_ROTATION, _NEED_MOTION = 1, 3
-# K2's warp body (csrc/substep_warp.cuh), which every K2 launch runs: its envs
-# per block at most (JT_WARP_MAX_W), the shared memory one block may take on
-# an H100 (JT_SMEM_PER_BLOCK), the floats each body adds to its parent in the
-# backward pass (JT_CC), and its layout's slots in the order of the JT_WL_*
-# enum: a header, then the regions outside the union, the union, and the
-# union's three views (each live at its own time)
-WARP_MAX_W, SMEM_PER_BLOCK, _CC = 4, 232_448, 19
+# the warp body (csrc/substep_warp.cuh), which every K3 and K2 launch runs:
+# the floats each body adds to its parent in the backward pass (JT_CC), and
+# its layout's slots in the order of the JT_WL_* enum: a header, then the
+# regions outside the union, the union, and the union's three views (each
+# live at its own time); its envs per block and a block's shared memory are
+# ops/_warp.py's
+_CC = 19
 _WARP_HEAD = ("W", "stride", "ncp", "n_rows", "ldm", "ldj", "ldx", "lda")
 _WARP_OUTSIDE = ("q0", "q1", "v0", "v1", "tau", "lam", "cmd", "w0", "fc", "g", "M", "dL", "pf",
                  "J", "target", "mu", "active", "basis", "rhs", "diag", "vfree")
@@ -147,23 +149,6 @@ WARP_VIEWS = {
     "chain": ("X", "A"),
     "sensors": ("s_xwR", "s_vel", "s_acc", "rows"),
 }
-
-
-@dataclasses.dataclass(frozen=True)
-class WarpWorkspace:
-    """Shared-memory layout of one env of K2's warp body: ``regions`` maps
-    each region to its (offset, size) in floats from the env's slice (the
-    regions outside ``"union"`` live throughout; each of
-    :data:`WARP_VIEWS` lies inside the union and lives at its own time),
-    ``lds`` the row strides (odd: no two lanes of a column on one bank),
-    ``bytes_per_env`` the slice, ``W`` the envs per block and ``ints`` the
-    layout as the C entry point reads and checks it."""
-
-    regions: dict
-    lds: dict
-    bytes_per_env: int
-    W: int
-    ints: tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -379,8 +364,9 @@ class SubstepSpec:
             )
 
     def warp_workspace(self, sensors: "SensorKernelSpec | None" = None) -> WarpWorkspace:
-        """The layout of K2's warp body for this spec (with ``sensors``, the
-        sensor stage's too); every model inside the kernels' caps has one,
+        """The layout of the warp body for this spec (with ``sensors``, the
+        sensor stage's too: K2 with its sensor stage; without, K2's and
+        K3's); every model inside the kernels' caps has one,
         and a model past them raises ValueError (:meth:`check_kernel_caps`).
         Sized from the model's own dimensions; W, the envs per block, as
         many as fit one block up to ``WARP_MAX_W``."""
@@ -404,27 +390,15 @@ class SubstepSpec:
             Ic=13 * nb, cc=_CC * nb, X=nv * lds["ldx"], A=nc * lds["lda"],
             s_xwR=9 * sb, s_vel=6 * sb, s_acc=6 * sb, rows=n_rows,
         )
-
-        def align(n):  # 16 bytes
-            return -(-n // 4) * 4
-
-        regions, end = {}, 0
-        for name in _WARP_OUTSIDE:
-            regions[name] = (end, sizes[name])
-            end += align(sizes[name])
-        union, stride = end, end
+        regions, union = _warp.pack(sizes, _WARP_OUTSIDE)
+        stride = union
         for view in WARP_VIEWS.values():
-            at = union
-            for name in view:
-                regions[name] = (at, sizes[name])
-                at += align(sizes[name])
-            stride = max(stride, at)
+            placed, end = _warp.pack(sizes, view, union)
+            regions.update(placed)
+            stride = max(stride, end)
         regions["union"] = (union, stride - union)
         nbytes = 4 * stride
-        W = min(WARP_MAX_W, SMEM_PER_BLOCK // nbytes)
-        if W < 1:
-            raise ValueError(f"K2's warp workspace of {nbytes} B per env exceeds one block's "
-                             f"{SMEM_PER_BLOCK} B")
+        W = _warp.envs_per_block(nbytes, "the substep kernels' warp workspace")
         head = dict(W=W, stride=stride, ncp=ncp, n_rows=n_rows, **lds)
         order = _WARP_OUTSIDE + ("union",) + sum(WARP_VIEWS.values(), ())
         ints = tuple(head[k] for k in _WARP_HEAD) + tuple(regions[k][0] for k in order)
@@ -885,14 +859,14 @@ def bind(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [vp, ci, ci, cf, cf, cf, ci, vp]  # layout, len, iters, dt, relax, reg, resid, stream
     gc = [vp, ci, vp, ci]  # ground coefficients, their width; model parameters, their width
-    lib.jt_substep.argtypes = [vp] * 12 + [ci] * 6 + gc + tail
-    lib.jt_substep.restype = ci
     wl = [vp, ci]  # the warp body's workspace layout, its length
+    lib.jt_substep.argtypes = [vp] * 12 + [ci] * 6 + gc + wl + tail
+    lib.jt_substep.restype = ci
     lib.jt_substep_multi.argtypes = [vp] * 14 + [ci] * 8 + gc + wl + tail
     lib.jt_substep_multi.restype = ci
     lib.jt_substep_multi_sensors.argtypes = [vp] * 19 + [ci] * 12 + gc + wl + tail
     lib.jt_substep_multi_sensors.restype = ci
-    lib.jt_warp_occupancy.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+    lib.jt_warp_occupancy.argtypes = [ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
     lib.jt_warp_occupancy.restype = ci
     lib.jt_substep_error_string.argtypes = [ci]
     lib.jt_substep_error_string.restype = ctypes.c_char_p
@@ -938,6 +912,13 @@ def _tail(spec: SubstepSpec, device):
     ], c_layout
 
 
+def _warp_ints(ws: WarpWorkspace):
+    """The kernels' (pointer, length) of the layout's ints, and the int
+    array the pointer names (kept alive by the caller)."""
+    c_wl = (ctypes.c_int * len(ws.ints))(*ws.ints)
+    return [ctypes.cast(c_wl, ctypes.c_void_p), len(ws.ints)], c_wl
+
+
 def _outputs(spec: SubstepSpec, B, device, extra=0):
     t = spec.tree
     shapes = [(B, t.nq), (B, t.nv), (B, spec.nc), (B,), (B, t.ncp, 3)] + [(B, t.nv)] * extra
@@ -965,10 +946,13 @@ def substep_batched(spec: SubstepSpec, q, v, tau, lam0, wrench, gc=None, mp=None
     coefficients gc (B, n_gc), and for a randomized model each env's
     packed model parameters mp (B, n_mp), all on one device → (q⁺, v⁺, λ,
     residual (B,), impulses (B, ncp, 3)). On CUDA tensors this launches
-    the kernel (float32, contiguous) and raises on anything else; on CPU
-    tensors it runs :func:`substep_reference`. Each instantiation counts
-    its launches: ``.launches`` (flat, nominal), ``.ground_launches``,
-    ``.rand_launches`` and ``.rand_ground_launches``."""
+    the kernel (float32, contiguous; the warp body in K2's workspace
+    without the sensor stage, :meth:`SubstepSpec.warp_workspace`) and
+    raises on anything else; on CPU tensors it runs
+    :func:`substep_reference`. Each instantiation counts its launches:
+    ``.launches`` (flat, nominal), ``.ground_launches``, ``.rand_launches``
+    and ``.rand_ground_launches``; ``.warp_launches`` counts those that
+    ran the warp body, which every launch does."""
     _check_gc("substep_batched", spec, gc, q.shape[0])
     _check_mp("substep_batched", spec, mp, q.shape[0])
     extra = tuple(x for x in (gc, mp) if x is not None)
@@ -987,28 +971,35 @@ def substep_batched(spec: SubstepSpec, q, v, tau, lam0, wrench, gc=None, mp=None
     si, sf = spec.packed(dev)
     outs = _outputs(spec, B, dev)
     tail, _layout_alive = _tail(spec, dev)  # the int array the pointer in tail names
+    wl, _wl_alive = _warp_ints(spec.warp_workspace())
     err = lib.jt_substep(
         si.data_ptr(), sf.data_ptr(), q.data_ptr(), v.data_ptr(), tau.data_ptr(),
         lam0.data_ptr(), wrench.data_ptr(), *(o.data_ptr() for o in outs),
-        B, t.nb, t.nq, t.nv, spec.nc, spec.n_dist, *_gc_args(spec, gc, mp), *tail,
+        B, t.nb, t.nq, t.nv, spec.nc, spec.n_dist, *_gc_args(spec, gc, mp), *wl, *tail,
     )
     _raise_on(lib, err, "substep")
     _count(substep_batched, None, gc, mp)
+    substep_batched.warp_launches += 1
     return tuple(outs)
 
 
 for _name in ("launches", "ground_launches", "rand_launches", "rand_ground_launches"):
     setattr(substep_batched, _name, 0)
+substep_batched.warp_launches = 0  # of the above, those of the warp body: all
 
 
-def warp_blocks_per_sm(ws: WarpWorkspace, sensors: bool, ground: bool, randomized: bool) -> int:
-    """Blocks of K2's warp body (W warps of ``ws``) one SM of the card holds
-    at once, its registers and shared memory both counted, for the
-    instantiation with or without the sensor stage, the ground query and
-    the model parameters (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+def warp_blocks_per_sm(ws: WarpWorkspace, sensors: bool, ground: bool, randomized: bool,
+                       multi: bool = True) -> int:
+    """Blocks of the warp body (W warps of ``ws``) one SM of the card holds
+    at once, its registers and shared memory both counted, for K2's
+    instantiation (``multi``) with or without the sensor stage, or K3's,
+    with or without the ground query and the model parameters
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if sensors and not multi:
+        raise ValueError("K3 has no sensor stage")
     lib = _kernel(randomized)
     blocks = ctypes.c_int(0)
-    err = lib.jt_warp_occupancy(int(sensors), int(ground), ws.W, ws.bytes_per_env,
+    err = lib.jt_warp_occupancy(int(multi), int(sensors), int(ground), ws.W, ws.bytes_per_env,
                                 ctypes.byref(blocks))
     _raise_on(lib, err, "warp occupancy")
     return blocks.value
@@ -1068,9 +1059,7 @@ def substep_batched_multi(
     si, sf = spec.packed(dev)
     outs = _outputs(spec, B, dev, extra=2)
     tail, _layout_alive = _tail(spec, dev)
-    ws = spec.warp_workspace(sensors)
-    c_wl = (ctypes.c_int * len(ws.ints))(*ws.ints)
-    wl = [ctypes.cast(c_wl, ctypes.c_void_p), len(ws.ints)]
+    wl, _wl_alive = _warp_ints(spec.warp_workspace(sensors))
     head = [
         si.data_ptr(), sf.data_ptr(), q.data_ptr(), v.data_ptr(), cmd.data_ptr(),
         lam0.data_ptr(), wrench.data_ptr(), *(o.data_ptr() for o in outs),

@@ -98,6 +98,33 @@ def test_kernel_matches_plain_version(cuda_device, name, B):
         torch.testing.assert_close(o, r, atol=ATOL, rtol=0)
 
 
+CHAIN_B = 4097  # the batch the K1 gates read; smaller batches are its first envs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("B", [16, 1000, CHAIN_B])
+def test_kernel_launches_are_bit_equal(cuda_device, name, B):
+    """K1's warp body (one warp per env, the workspace in shared memory):
+    two launches from the same inputs bit-equal, each env's bits those of
+    the same env in a launch of CHAIN_B envs (a warp's env does not depend
+    on the batch or its ragged edge), through the warp body (its counter),
+    and within 1e-4 of the plain version."""
+    cfg = CONFIGS[name]
+    big = _rand_system(7, CHAIN_B, cfg.n, cfg.nc, cuda_device)
+    args = [x[:B].contiguous() for x in big]
+    before = solve_batched.warp_launches, solve_batched.launches
+    out = solve_batched(cfg, *args, device=cuda_device)
+    assert (solve_batched.warp_launches, solve_batched.launches) == (before[0] + 1, before[1] + 1)
+    again = solve_batched(cfg, *args, device=cuda_device)
+    whole = solve_batched(cfg, *big, device=cuda_device)
+    torch.cuda.synchronize()
+    for o, a, w in zip(out, again, whole):
+        assert torch.equal(o, a) and torch.equal(o, w[:B])
+    for o, r in zip(out, solve_reference(cfg, *args)):
+        torch.testing.assert_close(o, r, atol=ATOL, rtol=0)
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_bad_inputs(cuda_device):
     cfg = CONFIGS["anymal"]
@@ -1412,8 +1439,8 @@ def _warp_case(model, B, dev):
             20 * rng.standard_normal((B, 2)), 0.1 * rng.standard_normal((B, 1)),
             np.zeros((B, 6)))]
     # the forest: float32 is as ill posed as on Cassie in a few envs (one
-    # env of 4097 from seed 65 sits 0.023 from float64 in v for the warp
-    # and the one-thread bodies alike, bit-equal, the plain version 0.005)
+    # env of 4097 from seed 65 sits 0.023 from float64 in v for K2 and K3
+    # alike, bit-equal, the plain version 0.005)
     well_posed = model in ("anymal", "world_loop")
     return (eng.substep_spec, eng64.substep_spec, args, [x.double() for x in args], kw, kw64,
             suite, well_posed)
@@ -1454,7 +1481,7 @@ def test_warp_k2_matches_plain_versions(cuda_device, model, B):
             if out[i].numel():  # no impulses without ground contacts
                 _assert_env_by_env_vs_f64(f"{model} {name}", out[i], p32[i], p64[i])
     if model == "forest":
-        # the one-thread body (K3, the same τ) computes the same bits: what
+        # K3 (the same τ) computes the same bits: what
         # the K3 forest test holds against float64
         from jiminy_tpu_torch.ops.substep_kernel import torque_reference
 
@@ -1552,7 +1579,7 @@ def test_warp_k2_large_frame_matches_plain_versions(cuda_device, model, B):
     slab env by env; one env is no distribution); on Cassie and its
     flexible twin the sensor stage's physics bit-equal to the sensor-free
     launch and its buffers held as the physics is; on the slab (no
-    equality rows) the one-thread K3 given K2's applied τ bit-equal."""
+    equality rows) K3 given K2's applied τ bit-equal."""
     from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
 
     spec, spec64, big, suite, suite64, gate = _large_case(model, cuda_device)
@@ -1606,11 +1633,46 @@ def test_warp_k2_large_frame_matches_plain_versions(cuda_device, model, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 31, LARGE_B])
+@pytest.mark.parametrize("model", WARP_MODELS + LARGE_WARP_MODELS)
+def test_k3_equals_k2_given_its_tau(cuda_device, model, B):
+    """K3 and K2 run one substep body: K3 given K2's applied τ at n_sub = 1
+    is bit-equal to K2 on q, v, λ, the residual and the impulses, on every
+    model of both frames (ANYmal flat, on a Fourier ground and randomized;
+    the Ant, the Spotmicro, the cartpole, the two-ball forest, sphere feet,
+    the world-anchored loop; Cassie, its three pair sets and its flexible
+    hips; the slab along z and oblique), through the warp body (its
+    counter), and each env's bits those of the same env in a launch of
+    LARGE_B envs."""
+    if model in LARGE_WARP_MODELS:
+        spec, _, big, _, _, _ = _large_case(model, cuda_device)
+        kw = {}
+    else:
+        spec, _, big, _, kw, _, _, _ = _warp_case(model, LARGE_B, cuda_device)
+    args = [x[:B].contiguous() for x in big]
+    kb = {k: x[:B].contiguous() for k, x in kw.items()}
+    q, v, _, lam, w = args
+    k2 = substep_batched_multi(spec, 1, *args, **kb)
+    before = substep_batched.warp_launches
+    k3 = substep_batched(spec, q, v, k2[6], lam, w, **kb)
+    assert substep_batched.warp_launches == before + 1
+    tau = substep_batched_multi(spec, 1, *big, **kw)[6]
+    whole = substep_batched(spec, big[0], big[1], tau, big[3], big[4], **kw)
+    torch.cuda.synchronize()
+    for i in range(5):
+        assert torch.equal(k3[i], k2[i]), i
+        assert torch.equal(k3[i], whole[i][:B]), i
+
+
+@pytest.mark.cuda
 def test_large_frame_takes_the_warp_body(cuda_device):
     """Cassie (nb 15, nv 20, nc 28), past the ANYmal frame, has a warp
-    workspace, and every K2 launch there, with and without the sensor
-    stage, runs the warp body: its counter rises by one per launch."""
-    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
+    workspace, and every launch there runs the warp body, each counter
+    rising by one per launch: K2 with and without the sensor stage, K3 in
+    K2's workspace, and K1 on Cassie's chain (its ``"kernel"`` path's
+    system) in its own."""
+    from jiminy_tpu_torch.ops.constraint_solve import warp_workspace
+    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec, torque_reference
 
     eng, suite, stand = _cassie_engine(cuda_device)
     spec = eng.substep_spec
@@ -1630,19 +1692,60 @@ def test_large_frame_takes_the_warp_body(cuda_device):
     assert (substep_batched_multi.warp_launches, substep_batched_multi.launches,
             substep_batched_multi.sensor_launches) == (before[0] + 3, before[1] + 2,
                                                        before[2] + 1)
+    before = substep_batched.warp_launches, substep_batched.launches
+    substep_batched(spec, q, v, torque_reference(spec, q, v, cmd).contiguous(), lam, wrench)
+    assert (substep_batched.warp_launches, substep_batched.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    cfg = spec.cfg
+    assert warp_workspace(cfg).bytes_per_env == 10592
+    before = solve_batched.warp_launches, solve_batched.launches
+    solve_batched(cfg, *_rand_system(78, 16, cfg.n, cfg.nc, cuda_device), device=cuda_device)
+    torch.cuda.synchronize()
+    assert (solve_batched.warp_launches, solve_batched.launches) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", ["overlap", "too_large", "misaligned", "no_layout",
-                                   "slab_overlap", "slab_short_lda"])
-def test_warp_layout_is_checked(cuda_device, fault):
+                                   "slab_overlap", "slab_short_lda", "k3_overlap",
+                                   "k3_no_layout", "k3_slab_overlap", "k3_slab_short_lda",
+                                   "k1_overlap", "k1_short_ldx", "k1_no_layout",
+                                   "k1_wide_span"])
+def test_warp_layout_is_checked(cuda_device, fault, monkeypatch):
     """A layout the warp body cannot take raises, nothing falls back:
     two live regions on one another, more shared memory than a block may
     take, an offset off 16 bytes, or no layout at all (ANYmal); on the slab
     scene (nc 48, past one row per lane) A onto X in the chain's view, or
-    A's row stride short of nc."""
+    A's row stride short of nc. K3 (``k3_``) refuses K2's faults in K2's
+    layout; K1 (``k1_``, on the Atlas system, nc 47) refuses A onto X, X's
+    row stride short of nc + 1, no layout, and a PGS group wider than a
+    warp (a bounds span of 33 rows; within nc ≤ 48 a color has at most 16
+    contacts), which its wrapper would refuse first (``kernel_takes``)."""
     import dataclasses
 
+    if fault.startswith("k1_"):
+        from jiminy_tpu_torch.ops import constraint_solve as cs
+
+        cfg = CONFIGS["atlas"]
+        if fault == "k1_wide_span":
+            cfg = dataclasses.replace(cfg, bounds_span=(0, 33), contact_colors=((33, 4),))
+            monkeypatch.setattr(cs, "kernel_takes", lambda c: True)
+        ws = cs.warp_workspace.__wrapped__(cfg)  # past the cache: no layout kept for it
+        ints = list(ws.ints)
+        if fault == "k1_overlap":  # A onto X
+            ints[6 + 10] = ints[6 + 9]
+        elif fault == "k1_short_ldx":  # X's row stride nc: no room for p's column
+            ints[4] = cfg.nc
+        elif fault == "k1_no_layout":
+            ints = []
+        monkeypatch.setattr(cs, "warp_workspace", lambda c: dataclasses.replace(ws, ints=tuple(ints)))
+        args = _rand_system(79, 8, cfg.n, cfg.nc, cuda_device)
+        before = solve_batched.launches
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            solve_batched(cfg, *args, device=cuda_device)
+        assert solve_batched.launches == before
+        return
+    k3 = fault.startswith("k3_")
+    fault = fault.removeprefix("k3_")
     if fault.startswith("slab"):
         eng = _prismatic_engine(cuda_device, "slab")
         args = _prismatic_inputs(77, 8, eng, "slab")
@@ -1665,10 +1768,18 @@ def test_warp_layout_is_checked(cuda_device, fault):
     else:  # lda = nc − 1
         ints[7] = spec.nc - 1
     spec._warp[0] = dataclasses.replace(ws, ints=tuple(ints))
+    if k3:
+        from jiminy_tpu_torch.ops.substep_kernel import torque_reference
+
+        q, v, cmd, lam, w = args
+        tau = torque_reference(spec, q, v, cmd).contiguous()
+        fn, launch = substep_batched, lambda: substep_batched(spec, q, v, tau, lam, w)
+    else:
+        fn, launch = substep_batched_multi, lambda: substep_batched_multi(spec, 1, *args)
     try:
-        before = substep_batched_multi.launches
+        before = fn.launches
         with pytest.raises(RuntimeError, match="kernel launch failed"):
-            substep_batched_multi(spec, 1, *args)
-        assert substep_batched_multi.launches == before
+            launch()
+        assert fn.launches == before
     finally:
         spec._warp.clear()
