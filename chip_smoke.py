@@ -247,9 +247,31 @@ the warps one SM holds, and every K1, K3 and K2 launch of phase 2, in
 either frame, is checked to have run the warp body (`_check_warp`). The
 Cassie parts of phases 1–3 run after every ANYmal number, the slab scene
 last; at the end the ANYmal sensor K2 is timed again, after every
-large-frame launch, beside its time before them. The line before the last is a JSON object
-with the kernels' numbers; the last line is ``{"ok": true, "device":
-{...}}``.
+large-frame launch, beside its time before them.
+
+4. the policy and PPO (A.7, A.8), after every kernel number
+   (`phase_training`), on ``ANYmalEnv(observe="state", max_steps=500)``
+   at ``examples/train.py``'s ANYmal settings (B = 2048, rollout 32, 4
+   epochs × 8 minibatches of 8,192 rows, hidden (256, 256), lr 3e-4 with
+   ``anneal_lr`` over its default 4,000 iterations, ``ent_coef`` 0.005,
+   the symmetry loss at 0.1):
+   - the learner on the card against the CPU from the same seeded params,
+     flat batch and permutations, one update and an iteration's 32:
+     within 1e-5 of the params' largest |value| (`phase_learner_vs_cpu`);
+   - 20 iterations of ``train_step`` with the launch counts set to 0 just
+     before and read just after: exactly one K2 launch per rollout env
+     step (640) and no other, the mean ``reward_mean`` of iterations
+     15–19 at least 1.3 × that of iterations 0–2, every param finite; the
+     curve printed;
+   - env-steps/s of the rollout alone and of the whole iteration, and the
+     learner's time and share of the iteration, 3 loops each;
+   - the carry saved with the torch checkpoint and restored bit for bit
+     (params, Adam's state, both generators), then ``evaluate`` of the
+     restored greedy policy at 256 envs for 50 steps: finite, one K2
+     launch per step.
+
+The line before the last is a JSON object with the kernels' numbers; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2755,6 +2777,219 @@ def _engine_rate(eng, walker, sim, act_gen, dev, steps, loops):
     return rates, {n: c - before[n] for n, c in _counts().items() if c != before[n]}
 
 
+# ---- phase 4: the policy and PPO training (A.7, A.8) on the main path's
+# env, at examples/train.py's ANYmal settings
+PPO_B = 2048
+PPO_ITERS = 20
+PPO_TOTAL_ITERS = 4000  # examples/train.py's default --iters: the lr schedule's length
+LEARNER_REL_TOL = 1e-5
+
+
+def _ppo_cfg():
+    from jiminy_tpu_torch.rl import PPOConfig
+
+    return PPOConfig(num_envs=PPO_B, rollout_len=32, minibatches=8, epochs=4, hidden=(256, 256),
+                     lr=3e-4, ent_coef=0.005, symmetry_coef=0.1, anneal_lr=True,
+                     total_iters=PPO_TOTAL_ITERS)
+
+
+def _learner_inputs(ppo, n, seed):
+    """Seeded params (on the CPU) and a flat batch of ``n`` rows whose
+    log-probs and values come from those params (ratios near 1, as in a
+    run), and ``epochs`` permutations."""
+    gen = torch.Generator().manual_seed(seed)
+    pol = ppo.policy
+    params = pol.init(gen)
+    obs = torch.randn(n, pol.obs_size, generator=gen)
+    with torch.no_grad():
+        mean, std = pol.action_dist(params, obs)
+        action = mean + std * torch.randn(n, pol.action_size, generator=gen)
+        value = pol.value(params, obs)
+        adv = torch.randn(n, generator=gen)
+        flat = {"obs": obs, "action": action, "logp": pol.log_prob(params, obs, action),
+                "value": value + 0.1 * torch.randn(n, generator=gen), "adv": adv,
+                "ret": value + adv}
+    perms = torch.stack([torch.randperm(n, generator=gen) for _ in range(ppo.cfg.epochs)])
+    return params, flat, perms
+
+
+def phase_learner_vs_cpu(dev, env) -> float:
+    """The learner on the card and on the CPU from the same params, flat
+    batch and permutations, the symmetry loss on: one PPO update (one
+    minibatch of 8,192 rows, the reference's size at B = 2048) and an
+    iteration's whole learner stage (4 epochs × 8 such updates). Each
+    within LEARNER_REL_TOL relative: max |Δ| over every param over max
+    |param| (each leaf's own ratio is printed too; a leaf that starts at
+    zero or at the output layer's scale 0.01 has no scale of its own).
+    Returns the worst relative gap."""
+    from jiminy_tpu_torch.rl.networks import map_params, param_leaves
+    from jiminy_tpu_torch.rl.ppo import PPO, adam_init
+
+    cfg = _ppo_cfg()
+    worst = 0.0
+    for label, epochs, minibatches, n in (("one update", 1, 1, PPO_B * 32 // cfg.minibatches),
+                                          ("the learner stage", cfg.epochs, cfg.minibatches,
+                                           PPO_B * 32)):
+        ppo = PPO(env, dataclasses.replace(cfg, epochs=epochs, minibatches=minibatches),
+                  env.symmetry_fn)
+        params, flat, perms = _learner_inputs(ppo, n, seed=21)
+        ent = ppo.ent_coef(0)
+        cpu = ppo.learn(params, adam_init(params), flat, perms, ent)
+        on_card = map_params(lambda x: x.to(dev), params)
+        gpu = ppo.learn(on_card, adam_init(on_card), {k: v.to(dev) for k, v in flat.items()},
+                        perms.to(dev), ent)
+        torch.cuda.synchronize()
+        pairs = list(zip(param_leaves(cpu[0]), [x.cpu() for x in param_leaves(gpu[0])]))
+        gap = max((b - a).abs().max().item() for a, b in pairs)
+        scale = max(a.abs().max().item() for a, _ in pairs)
+        per_leaf = [f"{((b - a).abs().max() / a.abs().max()).item():.3g}" for a, b in pairs]
+        moved = max((a - p).abs().max().item() for (a, _), p in zip(pairs, param_leaves(params)))
+        rel = gap / scale
+        worst = max(worst, rel)
+        print(f"[phase 4] learner, {label} ({epochs} epoch(s) × {minibatches} minibatch "
+              f"update(s) of {n // minibatches} rows, symmetry on), card vs CPU from the same "
+              f"params, batch and permutations: max |Δ| {gap:.3g} over max |param| {scale:.3g} = "
+              f"{rel:.3g} (gate {LEARNER_REL_TOL}); per leaf max |Δ| / max |leaf| "
+              f"[{', '.join(per_leaf)}]; the params moved up to {moved:.3g}; aux card "
+              f"{json.dumps({k: round(v.item(), 6) for k, v in gpu[2].items()})} CPU "
+              f"{json.dumps({k: round(v.item(), 6) for k, v in cpu[2].items()})}")
+        if not rel <= LEARNER_REL_TOL:
+            raise AssertionError(f"the learner on the card ({label}) is {rel} from the CPU's")
+    return worst
+
+
+def _spread(xs) -> str:
+    return (f"{[round(x, 1) for x in xs]} (mean {sum(xs) / len(xs):.1f}, spread "
+            f"{(max(xs) - min(xs)) / (sum(xs) / len(xs)):.3f})")
+
+
+def phase_training(dev) -> dict:
+    """PPO on ``ANYmalEnv(observe="state", max_steps=500)`` at B = 2048,
+    examples/train.py's settings (rollout 32, 8 × 4 minibatch updates,
+    symmetry 0.1, ``anneal_lr``): 20 iterations with the launch counts set
+    to 0 just before and read just after (exactly one K2 launch per rollout
+    env step and no other launch); the curve, with mean ``reward_mean`` of
+    iterations 15–19 ≥ 1.3 × that of 0–2; every param finite. Then the
+    rates of the rollout alone, the whole iteration and the learner alone
+    (3 loops each), a checkpoint round trip (params, Adam's state and both
+    generators bit for bit) and ``evaluate`` of the greedy policy at 256
+    envs for 50 steps (finite)."""
+    import tempfile
+    from pathlib import Path
+
+    from jiminy_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from jiminy_tpu_torch.envs import ANYmalEnv
+    from jiminy_tpu_torch.rl import evaluate, greedy_policy
+    from jiminy_tpu_torch.rl.networks import param_leaves
+    from jiminy_tpu_torch.rl.ppo import PPO, _gae
+
+    env = ANYmalEnv(observe="state", max_steps=500, device=dev)
+    out = {"learner_rel_err": phase_learner_vs_cpu(dev, env)}
+    cfg = _ppo_cfg()
+    ppo = PPO(env, cfg, env.symmetry_fn)  # make_train_fn returns its init and train_step
+    carry = ppo.init(0, PPO_B)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    history = []
+    for _ in range(PPO_ITERS):
+        carry, metrics = ppo.train_step(carry)
+        history.append(metrics)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    got = _counts()
+    warp = _check_warp("training", env.engine.substep_spec, got)
+    steps = PPO_ITERS * cfg.rollout_len
+    curve = {k: torch.stack([m[k] for m in history]).tolist() for k in history[0]}
+    reward = curve["reward_mean"]
+    early, late = sum(reward[:3]) / 3, sum(reward[15:20]) / 5
+    print(f"[phase 4] training, {PPO_ITERS} iterations at B={PPO_B} ({steps} rollout env steps, "
+          f"{steps * PPO_B} env-steps) in {train_s:.2f} s: launches "
+          f"{json.dumps({n: c for n, c in got.items() if c})} (the warp body {warp})")
+    for k in ("reward_mean", "episode_done_frac", "approx_kl", "entropy", "v_loss"):
+        print(f"[phase 4] curve {k}: {[round(x, 4) for x in curve[k]]}")
+    print(f"[phase 4] mean reward_mean over iterations 15–19 {late:.4f} against 0–2 "
+          f"{early:.4f}: {late / early:.3f}× (gate 1.3×)")
+    if got != _only(substep_multi=steps):
+        raise AssertionError(f"training: expected {steps} K2 launches and no other, saw {got}")
+    if not late >= 1.3 * early:
+        raise AssertionError(f"training did not learn: reward_mean {early} → {late}")
+    params = carry[0]
+    if not all(bool(torch.isfinite(x).all()) for x in param_leaves(params)):
+        raise AssertionError("training: non-finite params")
+    _check_finite(carry[2], "training")
+
+    # ---- rates: the rollout alone, the whole iteration, the learner alone
+    n = PPO_B * cfg.rollout_len
+    roll, whole, learn = [], [], []
+    states, gen = carry[2], carry[3]
+    for _ in range(3):
+        noise = ppo.draw_noise(gen, PPO_B, torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, traj = ppo.rollout(params, states, noise)
+        torch.cuda.synchronize()
+        roll.append(n / (time.perf_counter() - t0))
+    with torch.no_grad():
+        adv, ret = _gae(traj, cfg.gamma, cfg.lam)
+    flat = ppo.flatten(traj, adv, ret)
+    perms = torch.stack([torch.randperm(n, generator=gen, device=dev) for _ in range(cfg.epochs)])
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ppo.learn(params, carry[1], flat, perms, ppo.ent_coef(carry[4]))
+        torch.cuda.synchronize()
+        learn.append(time.perf_counter() - t0)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, _ = ppo.train_step(carry)
+        torch.cuda.synchronize()
+        whole.append(n / (time.perf_counter() - t0))
+    it_s = sum(n / r for r in whole) / 3
+    share = sum(learn) / 3 / it_s
+    print(f"[phase 4] env-steps/s at B={PPO_B}, rollout alone (the policy's samples and values "
+          f"and {cfg.rollout_len} env steps): {_spread(roll)}")
+    print(f"[phase 4] env-steps/s at B={PPO_B}, rollout + learner (train_step): {_spread(whole)}")
+    print(f"[phase 4] the learner alone (GAE excluded; {cfg.epochs * cfg.minibatches} updates): "
+          f"{[round(1e3 * t, 2) for t in learn]} ms; its share of the iteration "
+          f"({1e3 * it_s:.2f} ms): {share:.3f}")
+    out.update(rollout=roll, train_step=whole, learner_ms=[1e3 * t for t in learn],
+               learner_share=share, reward_curve=reward)
+
+    # ---- checkpoint round trip, then evaluate the restored policy
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        path = Path(tmp) / "carry.pt"
+        save_checkpoint(path, carry)
+        size = path.stat().st_size
+        restored = restore_checkpoint(path, carry)
+    same = {
+        "params": all(torch.equal(a, b) for a, b in zip(param_leaves(carry[0]),
+                                                          param_leaves(restored[0]))),
+        "adam": torch.equal(carry[1]["count"], restored[1]["count"]) and all(
+            torch.equal(a, b) for k in ("mu", "nu") for a, b in zip(carry[1][k], restored[1][k])),
+        "run generator": torch.equal(carry[3].get_state(), restored[3].get_state()),
+        "env generator": torch.equal(carry[2].generator.get_state(),
+                                     restored[2].generator.get_state()),
+        "env obs": torch.equal(carry[2].obs, restored[2].obs),
+        "iteration": carry[4] == restored[4],
+    }
+    print(f"[phase 4] checkpoint of the carry ({size} B), restored bit for bit: {json.dumps(same)}")
+    if not all(same.values()):
+        raise AssertionError(f"checkpoint round trip: {same}")
+    _reset_counts()
+    stats = evaluate(env, greedy_policy(ppo.policy, restored[0]), n_envs=256, n_steps=50,
+                     generator=torch.Generator(device=dev).manual_seed(123))
+    got = _counts()
+    print(f"[phase 4] evaluate of the restored greedy policy, 256 envs × 50 steps: "
+          f"{json.dumps(stats)}; launches {json.dumps({n: c for n, c in got.items() if c})}")
+    if not all(torch.isfinite(torch.tensor(v)) for v in stats.values()):
+        raise AssertionError(f"evaluate: non-finite statistics {stats}")
+    if got != _only(substep_multi=50):
+        raise AssertionError(f"evaluate: expected 50 K2 launches, saw {got}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU available")
@@ -3647,13 +3882,16 @@ def run(dev) -> None:
     print(f"[phase 3] substep_multi_sensors B={B_MAIN} after the large-frame launches: "
           f"{late_ms:.4f} ms against {sensor_k2_ms:.4f} ms before them "
           f"({late_ms / sensor_k2_ms:.4f}×)")
+    # ---- phase 4: the policy and PPO, after every kernel number
+    training = phase_training(dev)
     print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_sensor_path": rates_s,
                       "env_steps_per_s_terrain_path": rates_t,
                       "env_steps_per_s_sim2real_path": rates_r,
                       "env_steps_per_s_kernel_path": rates_k1,
                       "env_steps_per_s_unfused_path": rates_k3,
                       "env_steps_per_s_cassie": rates_c, "env_steps_per_s_walkers": rates_w,
-                      "steps_per_s_prismatic_slab": rates_sl, "nvcc_build_s": build}))
+                      "steps_per_s_prismatic_slab": rates_sl, "nvcc_build_s": build,
+                      "ppo": training}))
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())
     print(json.dumps({"ok": True, "device": {

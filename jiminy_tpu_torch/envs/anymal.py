@@ -23,10 +23,15 @@ armature, motor gains and friction, sensor offsets), ``constraints``
 ``max_tilt_cos`` (the termination's limits) and ``nan_guard`` pass
 through to :class:`WalkerEnv`. Other options raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
+
+``mirror_spec`` and ``symmetry_fn`` are the reference's left-right mirror
+(the reflection across the robot's xz-plane), which PPO's symmetry loss
+reads (``PPOConfig.symmetry_coef``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from jiminy_tpu_torch import resolve_device
@@ -123,3 +128,46 @@ class ANYmalEnv(WalkerEnv):
             device=dev,
             **kwargs,
         )
+        self._mirror = None  # ((device, dtype), mirror_spec as tensors), made on first use
+
+    # ---- left-right mirror symmetry: reflection across the robot's
+    # xz-plane; linear (x, y, z) → (x, −y, z), angular (ωx, ωy, ωz) →
+    # (−ωx, ωy, −ωz); the legs swap L↔R with the abduction (HAA) sign flipped
+    def mirror_spec(self):
+        """(obs_perm, obs_sign, act_perm, act_sign) as numpy arrays."""
+        names = list(self.motors.name)
+        act_perm = np.zeros(12, np.int32)
+        act_sign = np.ones(12, np.float32)
+        swap = {"LF": "RF", "RF": "LF", "LH": "RH", "RH": "LH"}
+        for i, n in enumerate(names):
+            leg, joint = n.split("_")
+            act_perm[i] = names.index(f"{swap[leg]}_{joint}")
+            if joint == "HAA":
+                act_sign[i] = -1.0
+        obs_perm = np.arange(33, dtype=np.int32)
+        obs_sign = np.ones(33, np.float32)
+        obs_sign[0:3] = [1, -1, 1]  # gravity direction
+        obs_sign[3:6] = [-1, 1, -1]  # base angular velocity
+        obs_sign[6:9] = [1, -1, 1]  # base linear velocity
+        obs_perm[9:21] = 9 + act_perm
+        obs_sign[9:21] = act_sign
+        obs_perm[21:33] = 21 + act_perm
+        obs_sign[21:33] = act_sign
+        return obs_perm, obs_sign, act_perm, act_sign
+
+    def symmetry_fn(self, obs, action):
+        """(obs, action) → the mirrored pair (``action`` may be None), for
+        ``PPOConfig.symmetry_coef``."""
+        key = (obs.device, obs.dtype)
+        if self._mirror is None or self._mirror[0] != key:
+            obs_perm, obs_sign, act_perm, act_sign = self.mirror_spec()
+            as_index = dict(dtype=torch.long, device=obs.device)
+            as_sign = dict(dtype=obs.dtype, device=obs.device)
+            self._mirror = (key, torch.as_tensor(obs_perm, **as_index),
+                            torch.as_tensor(obs_sign, **as_sign),
+                            torch.as_tensor(act_perm, **as_index),
+                            torch.as_tensor(act_sign, **as_sign))
+        _, obs_perm, obs_sign, act_perm, act_sign = self._mirror
+        obs_m = obs[..., obs_perm] * obs_sign
+        act_m = None if action is None else action[..., act_perm] * act_sign
+        return obs_m, act_m

@@ -25,6 +25,12 @@ engine, e.g. from its coefficients in ``info``),
 :meth:`BaseEnv._model_params` (each env's model randomization for the
 engine) and :meth:`BaseEnv._sensor_bias` (each env's sensor calibration
 offsets, added to every corruption draw).
+
+The spaces' sizes are the reference's properties: ``action_size`` (from
+the subclass), ``observation_size`` (one reset of one env, cached),
+``discrete_actions`` (None: continuous) and ``termination_meaning``
+(``"failure"``), which the policy, ``rl.evaluate`` and PPO read;
+:meth:`BaseEnv.rollout` steps a fixed action sequence.
 """
 
 from __future__ import annotations
@@ -141,6 +147,7 @@ class BaseEnv:
         self.n_substeps = max(1, round(step_dt / engine.options.dt))
         self.max_steps = max_steps
         self.sensors = sensors
+        self._observation_size = None  # learned on first use
         if sensors is not None:
             # observations refresh at the suite's period: delay
             # interpolation counts buffer slots in periods
@@ -233,6 +240,31 @@ class BaseEnv:
         """Each env's additive sensor offsets, one (B, ns, ndim) tensor per
         sensor group, or None."""
         return None
+
+    # ---- spaces metadata (sizes), as the reference's
+    @property
+    def action_size(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def observation_size(self) -> int:
+        """Learned once from a reset of one env on the env's device (from
+        a fixed seed), then cached."""
+        if self._observation_size is None:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            self._observation_size = int(self.reset(gen, 1).obs.shape[-1])
+        return self._observation_size
+
+    @property
+    def discrete_actions(self) -> int | None:
+        """Number of discrete actions, or None for continuous."""
+        return None
+
+    @property
+    def termination_meaning(self) -> str:
+        """How ``evaluate`` reads MDP termination: ``"failure"`` (walkers:
+        terminated means fell) or ``"success"`` (goal tasks)."""
+        return "failure"
 
     def reset(self, generator: torch.Generator, batch_size: int) -> EnvState:
         """``batch_size`` fresh episodes drawn from ``generator``. With
@@ -346,3 +378,21 @@ class BaseEnv:
             steps=_pick(done, fresh.steps, nxt.steps),
             info=info,
         )
+
+    def rollout(self, state: EnvState, actions: torch.Tensor) -> tuple[EnvState, dict]:
+        """``step`` (with auto-reset) through the actions (T, B, A); returns
+        the final state and the stacked (T, B, ...) ``obs``, ``reward``,
+        ``terminated`` and ``truncated`` of every step."""
+        T, B = actions.shape[:2]
+        out = {
+            "obs": torch.empty(T, B, *state.obs.shape[1:], dtype=state.obs.dtype,
+                               device=state.obs.device),
+            "reward": torch.empty(T, B, dtype=state.reward.dtype, device=state.reward.device),
+            "terminated": torch.empty(T, B, dtype=torch.bool, device=state.obs.device),
+            "truncated": torch.empty(T, B, dtype=torch.bool, device=state.obs.device),
+        }
+        for t in range(T):
+            state = self.step(state, actions[t])
+            for k, buf in out.items():
+                buf[t] = getattr(state, k)
+        return state, out

@@ -184,6 +184,10 @@ class WalkerEnv(BaseEnv):
             self._q_stand, torch.zeros(self.tree.nv, dtype=self.tree.dtype, device=self.device)
         )
 
+    @property
+    def action_size(self) -> int:
+        return len(self.motors.name)
+
     def _episode_ground(self, info: dict):
         """Each env's ground: from its coefficients in ``info`` with a
         sampler, else the engine's own."""

@@ -12,7 +12,10 @@ with sphere contact sites (ANYmal's feet, env by env against
 float64), with PRISMATIC joints (the reference's sprung-slab kernel scene
 along z and along an oblique axis, the cartpole at its limits; env by
 env against float64, nominal and randomized) and on the Ant's and
-Spotmicro's env paths (one fused launch per env step).
+Spotmicro's env paths (one fused launch per env step); and PPO (A.8):
+the learner's update on the card against the CPU's, and one
+``train_step`` on the main path's env that launches K2 once per rollout
+env step.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -1783,3 +1786,69 @@ def test_warp_layout_is_checked(cuda_device, fault, monkeypatch):
         assert fn.launches == before
     finally:
         spec._warp.clear()
+
+
+def _ppo(env, B, rollout_len, minibatches, epochs):
+    from jiminy_tpu_torch.rl import PPOConfig
+    from jiminy_tpu_torch.rl.ppo import PPO
+
+    cfg = PPOConfig(num_envs=B, rollout_len=rollout_len, minibatches=minibatches, epochs=epochs,
+                    hidden=(256, 256), ent_coef=0.005, symmetry_coef=0.1, anneal_lr=True,
+                    total_iters=100)
+    return PPO(env, cfg, env.symmetry_fn)
+
+
+@pytest.mark.cuda
+def test_learner_on_card_matches_cpu(cuda_device):
+    """2 epochs × 4 minibatch updates of 1,024 rows (symmetry and the lr
+    schedule on) from the same params, batch and permutations: within 1e-5
+    of the CPU's, relative to the params' largest |value| (f32, TF32
+    off); the aux metrics within 1e-5."""
+    from jiminy_tpu_torch.envs import ANYmalEnv
+    from jiminy_tpu_torch.rl.networks import map_params, param_leaves
+    from jiminy_tpu_torch.rl.ppo import adam_init
+
+    env = ANYmalEnv(observe="state", device=cuda_device)
+    ppo = _ppo(env, 512, 8, 4, 2)
+    gen = torch.Generator().manual_seed(3)
+    params = ppo.policy.init(gen)
+    n = 4096
+    obs = torch.randn(n, 33, generator=gen)
+    with torch.no_grad():
+        action = ppo.policy.action_dist(params, obs)[0] + torch.randn(n, 12, generator=gen)
+        flat = {"obs": obs, "action": action, "logp": ppo.policy.log_prob(params, obs, action),
+                "value": ppo.policy.value(params, obs), "adv": torch.randn(n, generator=gen),
+                "ret": torch.randn(n, generator=gen)}
+    perms = torch.stack([torch.randperm(n, generator=gen) for _ in range(2)])
+    cpu = ppo.learn(params, adam_init(params), flat, perms, 0.005)
+    card = map_params(lambda x: x.to(cuda_device), params)
+    gpu = ppo.learn(card, adam_init(card), {k: v.to(cuda_device) for k, v in flat.items()},
+                    perms.to(cuda_device), 0.005)
+    pairs = list(zip(param_leaves(cpu[0]), param_leaves(gpu[0])))
+    scale = max(a.abs().max() for a, _ in pairs)
+    assert max((b.cpu() - a).abs().max() for a, b in pairs) <= 1e-5 * scale
+    for k in cpu[2]:
+        torch.testing.assert_close(gpu[2][k].cpu(), cpu[2][k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_train_step_launches_k2_once_per_env_step(cuda_device):
+    """One PPO iteration at B = 4096 (rollout 8) on the main path's env:
+    exactly one K2 launch per rollout env step and no other launch of
+    ours; finite params and metrics."""
+    from jiminy_tpu_torch.envs import ANYmalEnv
+    from jiminy_tpu_torch.ops.constraint_solve import solve_batched
+    from jiminy_tpu_torch.rl.networks import param_leaves
+
+    env = ANYmalEnv(observe="state", max_steps=500, device=cuda_device)
+    ppo = _ppo(env, 4096, 8, 4, 1)
+    carry = ppo.init(0, 4096)
+    torch.cuda.synchronize()
+    before = (solve_batched.launches, substep_batched.launches, substep_batched_multi.launches)
+    carry, metrics = ppo.train_step(carry)
+    torch.cuda.synchronize()
+    after = (solve_batched.launches, substep_batched.launches, substep_batched_multi.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 8)
+    assert all(bool(torch.isfinite(x).all()) for x in param_leaves(carry[0]))
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert carry[4] == 1 and carry[2].obs.shape == (4096, 33)

@@ -15,11 +15,14 @@ env with model randomization (fused and chunked), and on the Cassie env
 sensor path fused and chunked, with the self-collision pairs too, and
 the flexible-hip Cassie on the state path and the fused sensor path, the
 Ant and the Spotmicro on the state path and the fused and chunked sensor
-paths, and the PRISMATIC cartpole through ``Engine.step``. The
+paths, and the PRISMATIC cartpole through ``Engine.step``; then one PPO
+``train_step`` (B = 2, the symmetry loss on) and one ``evaluate`` step on
+the state-observing env. The
 modules that hold kernels, the sensor suite, the grounds, the terrain
 generators, the random processes, the model randomization, the
-constraints, the collision pairs, the biped, the Ant, the toys and the
-legged envs are named,
+constraints, the collision pairs, the biped, the Ant, the toys, the
+legged envs, the RL modules, the checkpoint and the train and evaluate
+entry points are named,
 so a rename cannot drop them from the walk. A second test imports each kernel module
 first in a fresh interpreter: the engine and ops packages import each
 other, and any order must work.
@@ -43,7 +46,10 @@ KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops
                   "jiminy_tpu_torch.engine.randomization", "jiminy_tpu_torch.engine.constraints",
                   "jiminy_tpu_torch.models.biped", "jiminy_tpu_torch.envs.legged",
                   "jiminy_tpu_torch.engine.collision", "jiminy_tpu_torch.models.ant",
-                  "jiminy_tpu_torch.models.toys")
+                  "jiminy_tpu_torch.models.toys", "jiminy_tpu_torch.rl.networks",
+                  "jiminy_tpu_torch.rl.ppo", "jiminy_tpu_torch.rl.evaluate",
+                  "jiminy_tpu_torch.rl.logging", "jiminy_tpu_torch.checkpoint",
+                  "jiminy_tpu_torch.tools.train", "jiminy_tpu_torch.tools.evaluate")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -131,6 +137,16 @@ eng = Engine(make_cartpole(device="cpu"), EngineOptions(contact_model="constrain
 sim = eng.step(eng.reset(torch.tensor([[2.399, 0.1], [-1.0, -0.1]])), torch.full((2, 1), 30.0),
                n_substeps=20)
 assert eng.backend == "substep" and float(sim.q[0, 0]) <= 2.4 + 1e-3
+from jiminy_tpu_torch.rl import PPOConfig, evaluate, greedy_policy, make_train_fn
+
+env = ANYmalEnv(observe="state", device="cpu")
+cfg = PPOConfig(num_envs=2, rollout_len=2, minibatches=2, epochs=1, hidden=(8, 8),
+                symmetry_coef=0.1)
+init_fn, train_step, policy = make_train_fn(env, cfg, symmetry_fn=env.symmetry_fn)
+carry, metrics = train_step(init_fn(0, 2))
+assert all(bool(torch.isfinite(v)) for v in metrics.values())
+stats = evaluate(env, greedy_policy(policy, carry[0]), n_envs=2, n_steps=1)
+assert stats["length_mean"] == 1.0 and stats["fall_fraction"] == 0.0
 leaked = sorted(k for k in sys.modules if k.partition(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK", len(mods))
