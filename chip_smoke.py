@@ -35,7 +35,7 @@ memory:
   gain and friction;
 - the same kernels on the Cassie biped (``cassie_substep``,
   ``cassie_substep_multi``, ``cassie_substep_multi_sensors`` in the
-  kernels line): the large frame (nb ≤ 32, nv ≤ 32, nc ≤ 48; the warp
+  kernels line): the large frame (nb ≤ 32, nv ≤ 32, nc ≤ 96; the warp
   body there too), the pushrods' distance
   rows ahead of the bounds and the shin springs, runtime branches of the
   same instantiations;
@@ -60,7 +60,14 @@ memory:
 - K2 and K2 with the sensor stage on the Ant and the Spotmicro
   (``ant_substep_multi``, ``ant_substep_multi_sensors``,
   ``spotmicro_substep_multi``, ``spotmicro_substep_multi_sensors``: 20
-  substeps per env step; the Ant's sensor update every second substep).
+  substeps per env step; the Ant's sensor update every second substep);
+- the kernels on the Atlas humanoid (A.23: ``atlas_substep_multi``,
+  ``atlas_substep_multi_sensors``: nb 24, nv 29, nc 47, 5 substeps of 4
+  ms) and on Atlas with its self-collision pairs
+  (``atlas_selfcol_substep_multi``, ``atlas_selfcol_substep_multi_sensors``,
+  ``atlas_selfcol_substep``, ``atlas_selfcol_constraint_solve``: nc 83,
+  the largest frame, nc ≤ 96, six PGS colors, X's 84 right-hand sides
+  and A's 83 columns three to a lane).
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -248,6 +255,16 @@ either frame, is checked to have run the warp body (`_check_warp`). The
 Cassie parts of phases 1–3 run after every ANYmal number, the slab scene
 last; at the end the ANYmal sensor K2 is timed again, after every
 large-frame launch, beside its time before them.
+
+Atlas (A.23) runs after the slab scene, last of the kernel parts: phase 1
+`phase_atlas_vs_plain` (K3, K2 and K2 with the sensor stage without and
+with the pairs, held to the float64 plain version, the bit-identities, K1
+at nc 83), phases 2 and 3 `phase_atlas_paths` (the state and sensor paths
+without and with the pairs through ``"auto"``, one K2 launch per env
+step; with the pairs ``"kernel"``, ``substep_fusion=False`` and
+``"inline"``; the rates, the pairs' path against ``"inline"``, the warp
+body's stages and the six kernels against their bounds); phase 0 prints
+their layouts beside the others'.
 
 4. the policy and PPO (A.7, A.8), after every kernel number
    (`phase_training`), on ``ANYmalEnv(observe="state", max_steps=500)``
@@ -815,7 +832,8 @@ def _warp_report(dev):
     bytes per env, W and the warps one SM holds (registers and shared
     memory counted) of K2 and K3 on ANYmal (flat and on the Fourier ground,
     K2 with and without the sensor stage) and on every large-frame model,
-    and of K1 on phase 1's systems and on each ``"kernel"`` path's."""
+    and of K1 on phase 1's systems and on each ``"kernel"`` path's (Atlas
+    with and without its pairs among them)."""
     from jiminy_tpu_torch.ops import _build
     from jiminy_tpu_torch.ops import constraint_solve as cs
     from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec, warp_blocks_per_sm
@@ -875,12 +893,22 @@ def _warp_report(dev):
          SensorKernelSpec(ftree, fsuite, 1)),
         ("prismatic slab", _slab_engine(dev), None),
     )
+    atlas_sens = SensorKernelSpec(_atlas_model(dev)[0], _atlas_model(dev)[2], 1)
+    large += (
+        ("atlas state", _atlas_engine(dev), None),
+        ("atlas sensors", _atlas_engine(dev), atlas_sens),
+        ("atlas self-collision", _atlas_engine(dev, pairs=True), None),
+        ("atlas self-collision sensors", _atlas_engine(dev, pairs=True), atlas_sens),
+    )
     for name, eng, s in large:
         report(name, eng.substep_spec, s)
     # K1: phase 1's systems, and the "kernel" paths' (ANYmal, its heightmap, Cassie)
     for name, cfg in list(_chain_configs().items()) + [
             ("anymal 'kernel' path", _anymal_engine(dev).substep_spec.cfg),
-            ("cassie 'kernel' path", _cassie_engine(dev).substep_spec.cfg)]:
+            ("cassie 'kernel' path", _cassie_engine(dev).substep_spec.cfg),
+            ("atlas 'kernel' path", _atlas_engine(dev).substep_spec.cfg),
+            ("atlas self-collision 'kernel' path",
+             _atlas_engine(dev, pairs=True).substep_spec.cfg)]:
         ws = cs.warp_workspace(cfg)
         print(f"[phase 0] K1 warp body on {name} (n {cfg.n}, nc {cfg.nc}): {ws.bytes_per_env} B "
               f"per env, W = {ws.W} envs per block ({ws.W * ws.bytes_per_env} B), warps per SM "
@@ -2480,6 +2508,408 @@ def _prismatic_path(dev, name, steps, fusion=True):
     return got, sim, eng
 
 
+# ---- the Atlas humanoid (A.23): AtlasEnv at the reference's defaults (20 ms
+# env steps of 5 substeps of 4 ms, PD kp 300, kd 15; examples/train.py --env
+# atlas asks target_speed=0.3), nc 47; with its self-collision pairs (two
+# leg capsule pairs, each lower arm against the torso box: 12 pair contacts,
+# atlas_selfcol_run5) nc 83, the largest frame of the kernels (nc ≤ 96)
+ATLAS_KW = dict(observe="state", target_speed=0.3)
+ATLAS_SENSOR_KW = dict(ATLAS_KW, observe="sensors", sensor_delay=0.004, imu_noise=0.02,
+                       encoder_noise=0.005)
+ATLAS_SUBSTEPS = 5
+
+
+@functools.cache
+def _atlas_model(dev):
+    """(tree, motors, suite) of the humanoid with atlas_sensors_run's suite
+    (4 ms period, 4 ms delay, noise 0.02 / 0.005)."""
+    from jiminy_tpu_torch.models.humanoid import make_atlas
+
+    return make_atlas(device=dev, sensor_period=4e-3, sensor_delay=0.004, imu_noise=0.02,
+                      encoder_noise=0.005)
+
+
+def _atlas_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver="substep",
+                  pairs=False):
+    """AtlasEnv's engine (PD kp 300, kd 15, 4 ms, 8 sweeps), with its
+    self-collision pairs with ``pairs``; in float64 on the float32 model's
+    constants."""
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
+    from jiminy_tpu_torch.models.humanoid import atlas_self_collision_pairs
+
+    tree, motors, _ = _atlas_model(dev)
+    opts = EngineOptions(contact_model="constraint", dt=4e-3, pgs_iters=8,
+                         compute_solver_residual=residual, substep_fusion=fusion,
+                         constraint_solver=solver)
+    return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
+                  controller=PDController(300.0, 15.0),
+                  collision_pairs=atlas_self_collision_pairs() if pairs else (), device=dev)
+
+
+def _atlas_inputs(engine, gen, B):
+    """Atlas states around the stand pose: the motor joints ±0.05 rad; in
+    a quarter of the envs both knees within 1 cm·rad of their lower limit
+    (either side of it, so that the bounds rows bind); in half of them the
+    legs rolled inward (hip rolls 0.05–0.3 rad) and the shoulders turned
+    in (0.2–0.5 rad), the legs' and the lower arms' pair rows active; the
+    base 1 cm low to 0.5 cm high (the sole corners penetrating, hovering
+    within the margin and clear) and tilted, v ~ 0.3·N(0, 1), λ0 ≥ 0, PD
+    targets ±0.1 rad around the joints, a root wrench of ~5 N·m and ~20
+    N."""
+    from jiminy_tpu_torch.models.humanoid import atlas_stand_q
+
+    t, dev = engine.tree, engine.device
+    kw = dict(generator=gen, device=dev)
+    qi = list(engine.motors.q_idx)
+    q = torch.as_tensor(atlas_stand_q(t), device=dev).repeat(B, 1)
+    q[:, qi] += 0.1 * torch.rand(B, len(qi), **kw) - 0.05
+
+    def j(name):
+        return t.q_off[t.joint_index(name)]
+
+    knees = [j("l_leg_kny"), j("r_leg_kny")]
+    q[:B // 4, knees] = 0.02 * torch.rand(B // 4, 2, **kw) - 0.01
+    h = B // 2
+    q[h:, j("l_leg_hpx")] = -0.05 - 0.25 * torch.rand(B - h, **kw)
+    q[h:, j("r_leg_hpx")] = 0.05 + 0.25 * torch.rand(B - h, **kw)
+    q[h:, j("l_arm_shx")] = -0.2 - 0.3 * torch.rand(B - h, **kw)
+    q[h:, j("r_arm_shx")] = 0.2 + 0.3 * torch.rand(B - h, **kw)
+    q[:, 2] += 0.015 * torch.rand(B, **kw) - 0.01
+    quat = torch.cat([0.06 * torch.rand(B, 3, **kw) - 0.03, torch.ones(B, 1, device=dev)], 1)
+    q[:, 3:7] = quat / quat.norm(dim=1, keepdim=True)
+    v = 0.3 * torch.randn(B, t.nv, **kw)
+    lam0 = (0.05 * torch.randn(B, engine.nc, **kw)).abs()
+    cmd = q[:, qi] + 0.2 * torch.rand(B, len(qi), **kw) - 0.1
+    wrench = torch.cat([5.0 * torch.randn(B, 3, **kw), 20.0 * torch.randn(B, 3, **kw)], 1)
+    return q, v, cmd, lam0, wrench
+
+
+def _atlas_sensor_inputs(engine, gen, q, v, n_upd):
+    """K2's sensor keywords at the states (q, v): the suite's kernel spec
+    (an update every substep), ring buffers of distinct slots (the reset
+    fill plus noise) and the corruption of ``n_upd`` updates."""
+    from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
+
+    suite, B = _atlas_model(engine.device)[2], q.shape[0]
+    bufs = suite.flatten_buffers(suite.reset(suite.sample_eps(gen, B), q, v))
+    bufs = bufs + 0.1 * torch.randn(bufs.shape, generator=gen, device=bufs.device)
+    eps = torch.cat([suite.sample_eps(gen, B) for _ in range(n_upd)], 1)
+    return dict(sensors=SensorKernelSpec(engine.tree, suite, 1), bufs=bufs, eps=eps)
+
+
+def phase_atlas_vs_plain(dev) -> dict:
+    """The kernels on the Atlas spec (nb 24, nv 29, 5 substeps of 4 ms),
+    without its pairs (nc 47) and with them (nc 83, six PGS colors), from
+    `_atlas_inputs` at B = 4096:
+
+    - the condition of M over the inputs (float64), printed, and the plain
+      float32 version's own distance to float64 (in the gates): they decide
+      the gate. Atlas's armature (0.15 on every joint) keeps κ(M) in
+      ANYmal's regime (~258), not Cassie's (~2.7e4), so without the pairs
+      one float32 substep is well posed and each kernel is held env by env
+      against the float64 plain version (`_gate_vs_f64`). With the pairs it
+      is not: each lower arm meets the torso box at 5 points along one
+      segment, 5 nearly dependent rows in one color, a Delassus block
+      close to singular, so one float32 substep of the plain version sits
+      ~1e-2 from float64 in v in a sizeable share of the envs (the gates
+      print the plain version's own distance); the kernels are then held by
+      the distribution of the per-env distance (`_gate_dist_vs_f64`), as
+      on Cassie;
+    - K3, K2 at n_sub = 1 and K2 with the sensor stage at n_sub = 1 (the
+      IMU, 23 encoders and 23 efforts) on q, v, λ (the pair rows included)
+      and the impulses, and the sensor K2's buffers scaled by reading
+      (`_reading_scale`), held to float64 by that gate beside the float32
+      plain version (the largest |kernel − plain f32| printed); with the
+      pairs at least a quarter of the envs with an active pair row (the
+      share printed); one launch each;
+    - K2 over the env step's 5 substeps against float64, by the
+      distribution (float32 compounds over the substeps), held without the
+      pairs and reported with them;
+    - the bit-identities: K3 given K2's applied τ equal to K2 at n_sub = 1
+      (`_k3_equals_k2`), K2 at n_sub = 5 equal to 5 chained launches of
+      one, the sensor K2's physics (n_sub = 5, five updates) equal to K2's;
+    - K1 at the pairs' configuration (n 29, nc 83, 8 sweeps) on random SPD
+      systems (`_rand_system`) within 1e-4 of ``solve_reference``, a second
+      launch bit-equal.
+
+    Returns each kernel's worst |kernel − plain f32| (K2 at n_sub = 1)."""
+    from jiminy_tpu_torch.core import algos
+    from jiminy_tpu_torch.ops.constraint_solve import solve_batched, solve_reference
+    from jiminy_tpu_torch.ops.substep_kernel import (
+        SensorKernelSpec,
+        substep_batched,
+        substep_batched_multi,
+        substep_multi_reference,
+        substep_reference,
+    )
+
+    names = ("q", "v", "lam", "residual", "impulse")
+    gen = torch.Generator(device=dev).manual_seed(90)
+    worst = {}
+    for pairs in (False, True):
+        label = "atlas self-collision" if pairs else "atlas"
+        key = "atlas_selfcol" if pairs else "atlas"
+        eng = _atlas_engine(dev, pairs=pairs)
+        spec = eng.substep_spec
+        spec64 = _atlas_engine(dev, torch.float64, pairs=pairs).substep_spec
+        args = _atlas_inputs(eng, gen, B_MAIN)
+        q, v, cmd, lam0, wrench = args
+        if not pairs:
+            t64 = spec64.tree
+            M = algos.crba(t64, q.double()) + torch.diag_embed(t64.armature.expand(B_MAIN, -1))
+            kappa = torch.linalg.cond(M)
+            qs = torch.quantile(kappa, torch.tensor([0.5, 0.99], dtype=kappa.dtype, device=dev))
+            print(f"[phase 1] atlas: condition of M (f64, armature included) over the inputs: "
+                  f"p50 {qs[0].item():.1f}, p99 {qs[1].item():.1f}, max {kappa.max().item():.1f}")
+        share = _active_pair_share(eng, q) if pairs else 0.0
+        sw = _atlas_sensor_inputs(eng, gen, q, v, 1)
+        sens = sw["sensors"]
+        tau = eng._joint_torque(cmd, q, v)
+        before = _counts()
+        k3 = substep_batched(spec, q, v, tau, lam0, wrench)
+        k2 = substep_batched_multi(spec, 1, *args)
+        ks = substep_batched_multi(spec, 1, *args, **sw)
+        launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+        r3 = substep_reference(spec, q, v, tau, lam0, wrench)
+        r2 = substep_multi_reference(spec, 1, *args)
+        rs = substep_multi_reference(spec, 1, *args, **sw)
+        a64 = [x.double() for x in args]
+        sw64 = dict(sensors=SensorKernelSpec(spec64.tree, sens.suite.to(dtype=torch.float64), 1),
+                    bufs=sw["bufs"].double(), eps=sw["eps"].double())
+        r3_64 = substep_reference(spec64, a64[0], a64[1], tau.double(), a64[3], a64[4])
+        r2_64 = substep_multi_reference(spec64, 1, *a64)
+        rs_64 = substep_multi_reference(spec64, 1, *a64, **sw64)
+        torch.cuda.synchronize()
+        errs = {kname: {n: _max_err(a, b) for n, a, b in zip(names, k, r)}
+                for kname, k, r in (("K3", k3, r3), ("K2", k2, r2), ("K2 sensors", ks, rs))}
+        scale = _reading_scale(sens, rs_64[7])
+        errs["K2 sensors"]["bufs_scaled"] = ((ks[7].double() - rs[7].double()).abs()
+                                             / scale).max().item()
+        gate = _gate_dist_vs_f64 if pairs else _gate_vs_f64
+        gates = {}
+        for kname, k, p32, p64 in (("K3", k3, r3, r3_64), ("K2", k2, r2, r2_64),
+                                   ("K2 sensors", ks, rs, rs_64)):
+            for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+                gates[f"{kname} {n}"] = gate(f"{label} {kname} {n}", k[i], p32[i], p64[i])
+        gates["K2 sensors bufs_scaled"] = gate(
+            f"{label} K2 sensors bufs", ks[7].double() / scale, rs[7].double() / scale,
+            rs_64[7] / scale)
+        pushed = (float((r3[2][:, spec.pair_off:] != 0).any(1).double().mean())
+                  if pairs else 0.0)
+        print(f"[phase 1] {label} (nb {spec.tree.nb}, nv {spec.tree.nv}, nc {spec.nc}, "
+              f"{spec.n_pc} pair contacts, colors {list(spec.cfg.contact_colors)}) B={B_MAIN}: "
+              f"share of envs with an active pair row {share:.4f}, with a pair row's λ nonzero "
+              f"{pushed:.4f}; max |kernel − plain f32| {json.dumps(errs)}; launches "
+              f"{json.dumps(launched)}; vs the f64 plain version: " + json.dumps(gates))
+        if launched != {"substep": 1, "substep_multi": 1, "substep_multi_sensors": 1}:
+            raise AssertionError(f"{label}: unexpected launches {launched}")
+        if pairs and share < ACTIVE_SHARE:
+            raise AssertionError(f"{label}: only {share} of the envs have an active pair row")
+        _k3_equals_k2(label, spec, args)
+        worst[f"{key}_substep"] = max(errs["K3"].values())
+        worst[f"{key}_substep_multi"] = max(errs["K2"].values())
+        worst[f"{key}_substep_multi_sensors"] = max(errs["K2 sensors"].values())
+
+        # a whole env step: K2 over 5 substeps held to float64; equal to 5
+        # chained launches; the sensor variant's physics K2's
+        n = ATLAS_SUBSTEPS
+        sw5 = _atlas_sensor_inputs(eng, gen, q, v, n)
+        k2n = substep_batched_multi(spec, n, *args)
+        ksn = substep_batched_multi(spec, n, *args, **sw5)
+        p32 = substep_multi_reference(spec, n, *args)
+        p64 = substep_multi_reference(spec64, n, *a64)
+        cq, cv, ccmd, clam, cw = args
+        for _ in range(n):
+            chained = substep_batched_multi(spec, 1, cq, cv, ccmd, clam, cw)
+            cq, cv, clam = chained[:3]
+        torch.cuda.synchronize()
+        whole = {f"K2 n_sub={n} {f}": _gate_dist_vs_f64(f"{label} K2 n_sub={n} {f}", k2n[i],
+                                                        p32[i], p64[i], check=not pairs)
+                 for i, f in ((0, "q"), (1, "v"), (2, "lam"))}
+        carried = all(torch.equal(k2n[i], chained[i]) for i in range(7))
+        sens_same = all(torch.equal(ksn[i], k2n[i]) for i in range(7))
+        # envs whose step ran away (|v| past 50 m/s), in each version: with
+        # the pairs float64 runs away where float32 does (ROADMAP C.7)
+        away = {name: int((out[1].abs().amax(dim=1) > 50.0).sum())
+                for name, out in (("kernel", k2n), ("plain f32", p32), ("plain f64", p64))}
+        print(f"[phase 1] {label} B={B_MAIN}: K2 at n_sub={n} vs the f64 plain version "
+              f"{json.dumps(whole)}; envs with |v| > 50 m/s after the step {json.dumps(away)}; "
+              f"equal to {n} chained K2 launches at n_sub=1: {carried}; K2 with the sensor "
+              f"stage ({n} updates): physics equal to K2's: {sens_same}")
+        if not (carried and sens_same):
+            raise AssertionError(f"{label}: K2 not the chained single substeps ({carried}) or the "
+                                 f"sensor variant's physics not K2's ({sens_same})")
+
+    # K1 at the pairs' configuration
+    cfg = dataclasses.replace(_atlas_engine(dev, pairs=True).substep_spec.cfg,
+                              compute_residual=True)
+    args = _rand_system(gen, B_MAIN, cfg.n, cfg.nc, dev)
+    vk, lk, rk = solve_batched(cfg, *args, device=dev)
+    vr, lr, rr = solve_reference(cfg, *args)
+    again = solve_batched(cfg, *args, device=dev)
+    torch.cuda.synchronize()
+    errs = [_max_err(vk, vr), _max_err(lk, lr), _max_err(rk, rr)]
+    same = all(torch.equal(a, b) for a, b in zip(again, (vk, lk, rk)))
+    print(f"[phase 1] K1 at atlas self-collision's configuration (n {cfg.n}, nc {cfg.nc}, colors "
+          f"{list(cfg.contact_colors)}, {cfg.iters} sweeps) B={B_MAIN}: max|dv|={errs[0]:.3g} "
+          f"max|dlam|={errs[1]:.3g} max|dres|={errs[2]:.3g}; a second launch bit-equal: {same}")
+    if not (all(e <= TOL for e in errs) and same):
+        raise AssertionError(f"K1 at nc {cfg.nc}: {errs}, deterministic {same}")
+    worst["atlas_selfcol_constraint_solve"] = max(errs)
+    return worst
+
+
+def phase_atlas_paths(dev, drive, drive_unfused, entry, path, act_gen) -> dict:
+    """Phases 2 and 3 of the Atlas humanoid (A.23), with ``run``'s helpers:
+    ``drive`` and ``drive_unfused`` (the counts set to 0 just before a
+    path and read just after; ``path`` holds each path's launches),
+    ``entry`` (a kernel's line in the kernels JSON):
+
+    - phase 2: ``AtlasEnv(target_speed=0.3)`` (``examples/train.py --env
+      atlas``) on the state and sensor paths, without and with its pairs,
+      through ``"auto"``: 25 env steps each, exactly one K2 launch per step
+      (with the sensor stage on the sensor paths) and no other, through the
+      warp body; finite q, v, obs (B, 55) and reward. With the pairs also
+      ``constraint_solver="kernel"`` (K1 at nc 83, 5 launches per step),
+      ``substep_fusion=False`` (K3, 5 per step) and ``"inline"`` (the plain
+      physics, no launch of ours; 2 steps);
+    - phase 3: each path's env-steps/s (3 loops: 25 steps, 5 on
+      ``"inline"``), the pairs' state path against ``"inline"`` in the same
+      call; K2's warp body stage by stage on Atlas and on Atlas with its
+      pairs (`tools/profile_warp_stages.py`); K2, K2 with the sensor stage
+      (5 updates), K3 and K1 against their bounds and plain versions.
+
+    Returns the paths' rates."""
+    from jiminy_tpu_torch.envs import AtlasEnv
+    from jiminy_tpu_torch.ops.constraint_solve import solve_batched, solve_reference
+    from jiminy_tpu_torch.ops.substep_kernel import (
+        substep_batched,
+        substep_batched_multi,
+        substep_multi_reference,
+        substep_reference,
+    )
+
+    atlas = {}  # label → (env, state)
+    for label, akw, counter, seed in (
+            ("atlas state path", ATLAS_KW, "substep_multi", 90),
+            ("atlas sensor path", ATLAS_SENSOR_KW, "substep_multi_sensors", 91),
+            ("atlas self-collision state path", dict(ATLAS_KW, self_collision=True),
+             "substep_multi", 92),
+            ("atlas self-collision sensor path", dict(ATLAS_SENSOR_KW, self_collision=True),
+             "substep_multi_sensors", 93)):
+        env_a = AtlasEnv(device=dev, **akw)
+        a_spec = env_a.engine.substep_spec
+        pairs = akw.get("self_collision", False)
+        if env_a.engine.backend != "substep" or a_spec.nc != (83 if pairs else 47) \
+                or env_a._fused_sensors != (akw["observe"] == "sensors"):
+            raise AssertionError(f"{label}: 'auto' resolves to {env_a.engine.backend!r} at nc "
+                                 f"{a_spec.nc}, not the whole-substep kernel's fused path")
+        st = drive(label, env_a, seed, STEPS, **{counter: STEPS})
+        ws = a_spec.warp_workspace()
+        print(f"[phase 2] {label}: nb {a_spec.tree.nb}, nv {a_spec.tree.nv}, nc {a_spec.nc}, "
+              f"colors {len(a_spec.cfg.contact_colors)}; obs {tuple(st.obs.shape)}; base height "
+              f"mean {st.sim.q[:, 2].mean().item():.4f} m; share of envs with an active pair "
+              f"row {_active_pair_share(env_a.engine, st.sim.q) if pairs else 0.0:.4f}; "
+              f"{ws.bytes_per_env} B per env, W {ws.W}")
+        if st.obs.shape != (B_MAIN, 55):
+            raise AssertionError(f"{label}: obs of shape {tuple(st.obs.shape)}")
+        atlas[label] = (env_a, st)
+    env_ap, state_ap = atlas["atlas self-collision state path"]
+    drive("atlas self-collision constraint_solver='kernel'",
+          AtlasEnv(device=dev, constraint_solver="kernel", self_collision=True, **ATLAS_KW), 94,
+          3, constraint_solve=3 * ATLAS_SUBSTEPS)
+    eng_ak3 = _atlas_engine(dev, residual=False, fusion=False, pairs=True)
+    drive_unfused("atlas self-collision substep_fusion=False", eng_ak3, walker=env_ap,
+                  start=state_ap, substep=3 * ATLAS_SUBSTEPS)
+    env_ai = AtlasEnv(device=dev, constraint_solver="inline", self_collision=True, **ATLAS_KW)
+    state_ai = drive("atlas self-collision constraint_solver='inline'", env_ai, 95, 2)
+
+    rates_a = {}
+    for label, (env_a, st) in list(atlas.items()) + [
+            ("atlas self-collision constraint_solver='inline'", (env_ai, state_ai))]:
+        inline = "inline" in label
+        steps = 5 if inline else STEPS
+        for _ in range(2 if inline else 5):  # warm-up
+            st = env_a.step(st, _uniform(act_gen, dev, 23))
+        torch.cuda.synchronize()
+        before = _counts()
+        rates_a[label], st = _env_rate(env_a, st, act_gen, dev, steps, 3)
+        launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+        print(f"[phase 3] env-steps/s at B={B_MAIN}, {label}: "
+              f"{[round(r, 1) for r in rates_a[label]]} (max {max(rates_a[label]):.1f}); "
+              f"launches in the {3 * steps} timed steps {json.dumps(launched)}")
+        want = {} if inline else {("substep_multi_sensors" if "sensor" in label
+                                   else "substep_multi"): 3 * steps}
+        if launched != want:
+            raise AssertionError(f"{label}: {launched} in {3 * steps} timed env steps")
+    fused_rate = max(rates_a["atlas self-collision state path"])
+    inline_rate = max(rates_a["atlas self-collision constraint_solver='inline'"])
+    print(f"[phase 3] atlas self-collision: the whole-substep kernel's state path at "
+          f"{fused_rate / inline_rate:.2f}× the inline plain physics' rate (max against max)")
+    from jiminy_tpu_torch.tools.profile_warp_stages import profile as stage_profile
+
+    for sc in (False, True):
+        for row in stage_profile(B_MAIN, dev, "atlas", self_collision=sc):
+            print(f"[phase 3] K2 warp body stages, {row['model']} {row['path']} (n_sub "
+                  f"{row['n_sub']}): share {json.dumps(row['share'])}; cycles per env per "
+                  f"substep {json.dumps(row['cycles_per_env_substep'])}")
+
+    # K2 over the env step's 5 substeps, with the sensor stage (5 updates),
+    # without and with the pairs; K3 and K1 with the pairs (nc 83)
+    agen = torch.Generator(device=dev).manual_seed(96)
+    k2_src = "jiminy_tpu/ops/substep_kernel.py:1815"
+    for pairs in (False, True):
+        key = "atlas_selfcol" if pairs else "atlas"
+        label = "atlas self-collision" if pairs else "atlas"
+        aeng = _atlas_engine(dev, residual=False, fusion=False, pairs=pairs)
+        aspec = aeng.substep_spec
+        aargs = _atlas_inputs(aeng, agen, B_MAIN)
+        asw = _atlas_sensor_inputs(aeng, agen, aargs[0], aargs[1], ATLAS_SUBSTEPS)
+        a_ops = B_MAIN * (ATLAS_SUBSTEPS * (_substep_flops(aspec) + _torque_flops(aspec))
+                          + 2 * aspec.tree.nv)
+        print(f"[phase 3] {label}: {_substep_flops(aspec)} FLOP per env per substep (pairs "
+              f"{_pair_flops(aspec)}, chain {_solve_flops(aspec.cfg)} at nv {aspec.tree.nv}, nc "
+              f"{aspec.nc}), torque {_torque_flops(aspec)}, sensor update "
+              f"{_sensor_flops(aspec, asw['sensors'])}")
+        entry(
+            f"{key}_substep_multi", WARP_SOURCE, k2_src,
+            path[f"{label} state path"]["substep_multi"],
+            _time_cuda(lambda: substep_batched_multi(aspec, ATLAS_SUBSTEPS, *aargs), 10),
+            _time_cuda(lambda: substep_multi_reference(aspec, ATLAS_SUBSTEPS, *aargs), 2),
+            _substep_multi_bytes(aspec, B_MAIN), a_ops,
+        )
+        entry(
+            f"{key}_substep_multi_sensors", WARP_SOURCE, k2_src,
+            path[f"{label} sensor path"]["substep_multi_sensors"],
+            _time_cuda(lambda: substep_batched_multi(aspec, ATLAS_SUBSTEPS, *aargs, **asw), 10),
+            _time_cuda(lambda: substep_multi_reference(aspec, ATLAS_SUBSTEPS, *aargs, **asw), 2),
+            _substep_multi_bytes(aspec, B_MAIN) + _sensor_bytes(asw["sensors"], B_MAIN,
+                                                                ATLAS_SUBSTEPS),
+            a_ops + B_MAIN * ATLAS_SUBSTEPS * _sensor_flops(aspec, asw["sensors"]),
+        )
+        if pairs:
+            aq, av, acmd, alam0, awrench = aargs
+            atau = aeng._joint_torque(acmd, aq, av)
+            entry(
+                "atlas_selfcol_substep", WARP_SOURCE, "jiminy_tpu/ops/substep_kernel.py:1678",
+                path["atlas self-collision substep_fusion=False"]["substep"],
+                _time_cuda(lambda: substep_batched(aspec, aq, av, atau, alam0, awrench), 20),
+                _time_cuda(lambda: substep_reference(aspec, aq, av, atau, alam0, awrench), 3),
+                _substep_bytes(aspec, B_MAIN), B_MAIN * _substep_flops(aspec),
+            )
+            acfg = aspec.cfg
+            k1_args = _rand_system(agen, B_MAIN, acfg.n, acfg.nc, dev)
+            entry(
+                "atlas_selfcol_constraint_solve", "jiminy_tpu_torch/csrc/constraint_solve.cu",
+                "jiminy_tpu/ops/constraint_solve.py:358",
+                path["atlas self-collision constraint_solver='kernel'"]["constraint_solve"],
+                _time_cuda(lambda: solve_batched(acfg, *k1_args, device=dev), 20),
+                _time_cuda(lambda: solve_reference(acfg, *k1_args), 3),
+                _solve_bytes(acfg, B_MAIN), _solve_flops(acfg) * B_MAIN,
+            )
+    return rates_a
+
+
 # ---- A.15's walkers: AntEnv (ant_run, ant_sensors_run5) and SpotmicroEnv
 # (spotmicro_run, spotmicro_sensors_run) as examples/train.py builds them:
 # the reference's defaults, 20 substeps per env step, the ANYmal frame
@@ -3875,6 +4305,11 @@ def run(dev) -> None:
         _time_cuda(lambda: substep_reference(sl_spec, sq, sv, sl_tau, slam0, swrench), 3),
         _substep_bytes(sl_spec, B_MAIN), B_MAIN * _substep_flops(sl_spec),
     )
+    # ---- A.23: the Atlas humanoid, its pairs the largest frame (nc 83), after
+    # every other part
+    main_err.update(phase_atlas_vs_plain(dev))
+    rates_a = phase_atlas_paths(dev, drive, drive_unfused, entry, path, act_gen)
+
     # after every large-frame launch: the ANYmal sensor K2 again, beside its
     # time before them (every kernel runs the warp body; none keeps local
     # memory that a launch could grow)
@@ -3890,7 +4325,8 @@ def run(dev) -> None:
                       "env_steps_per_s_kernel_path": rates_k1,
                       "env_steps_per_s_unfused_path": rates_k3,
                       "env_steps_per_s_cassie": rates_c, "env_steps_per_s_walkers": rates_w,
-                      "steps_per_s_prismatic_slab": rates_sl, "nvcc_build_s": build,
+                      "steps_per_s_prismatic_slab": rates_sl, "env_steps_per_s_atlas": rates_a,
+                      "nvcc_build_s": build,
                       "ppo": training}))
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())

@@ -33,14 +33,15 @@
 // (nc × lda), rhs, diag (nc), v_free (n), each region apart. L and A could
 // share their bytes (L is dead once X is formed), but each region keeps its
 // own so that the layout is one list of disjoint regions: ~8.3 KB per env
-// for ANYmal (n 18, nc 24), ~25 KB at n 29, nc 47 (two blocks of four envs
-// an SM), ~27.9 KB at the caps.
+// for ANYmal (n 18, nc 24), ~25 KB at n 29, nc 47 (Atlas; two blocks of
+// four envs an SM), ~53 KB at n 29, nc 83 (Atlas with its self-collision
+// pairs; one block of four envs an SM), ~69.4 KB at the caps (W = 3).
 
 #include "solve_chain.cuh"
 
 // Largest sizes the kernel takes (ops/constraint_solve.py MAX_N, MAX_NC).
 #define JT_MAX_N 32
-#define JT_MAX_NC 48
+#define JT_MAX_NC 96
 
 // The layout (ops/constraint_solve.py `_CHAIN_SLOTS`): W, the env's stride
 // (floats), the row strides, then each region's offset (floats, from the

@@ -150,8 +150,9 @@ __device__ __forceinline__ float jt_warp_max(float x) {
 // ---- the chain of one env on its warp (the counterpart of `_solve_chain`,
 // the plain version's arithmetic and sweep order): L (M's lower triangle, factored in
 // place, row stride ldm) with its diagonal in dL; X (nv × ldx) = M⁻¹[p |
-// Jᵀ], lane l the right-hand sides l, l + 32; A (nc × lda) = J·X[:, 1:] +
-// reg·I, lane l the columns l, l + 32 and their rows' setup; the grouped
+// Jᵀ], lane l the right-hand sides l, l + 32, l + 64 (nc ≤ 96); A (nc ×
+// lda) = J·X[:, 1:] + reg·I, lane l the columns l, l + 32, l + 64 and their
+// rows' setup; the grouped
 // PGS with each bounds span and each (color, row type) group across the
 // lanes from one λ, one row per lane, the equality rows one by one (a warp
 // dot); v⁺ across the dofs, the residual across the rows, strided. λ (nc)

@@ -85,7 +85,11 @@
 // narrow phase and 9 rows, and the chain grows with nc (37 against 28;
 // chip_smoke.py `_pair_flops`); its flexible twin (nb 17, nv 26, nq 29,
 // nc 28: two SPHERICAL joints above the hips) grows the columns, not the
-// rows (chip_smoke.py `_substep_flops` counts the SPHERICAL terms).
+// rows (chip_smoke.py `_substep_flops` counts the SPHERICAL terms). Atlas
+// (nb 24, nv 29, nc 47, 5 substeps) grows both; its self-collision pairs
+// (two capsule pairs, each lower arm against the torso box: 12 contacts,
+// nc 83) grow the chain most, A's nc² entries and the PGS sweeps
+// (chip_smoke.py `_pair_flops`): operation-bound still.
 //
 // The TPU kernel's lane-major layout (batch on the 128 vector lanes, the
 // tree unrolled into Python floats, the batch padded by repetition) does
@@ -93,9 +97,10 @@
 // same addresses by every lane of a warp, so it broadcasts from L1), and
 // bodies and rows are runtime loops, so one build serves every model. Both
 // kernels run one warp per env (substep_warp.cuh): four envs per block, so
-// B = 4096 is 4096 warps and an SM holds 12–16 of them; the env's working
+// B = 4096 is 4096 warps and an SM holds 4–16 of them; the env's working
 // set in shared memory, sized from the model and not from the caps (8,752 B
-// for ANYmal, 11,072 for Cassie, 13,792 for the slab; L factored in place
+// for ANYmal, 11,072 for Cassie, 13,792 for the slab, 25,776 for Atlas and
+// 53,712 with its pairs, where one block fills an SM; L factored in place
 // of M, the tree passes' arrays in the chain's X and A), with odd row
 // strides; the lanes across the bodies of one depth, the motors, the row
 // items, Cholesky's column, the right-hand sides of M⁻¹[p | Jᵀ], A's
@@ -1231,7 +1236,7 @@ __device__ __forceinline__ void jt_sensor_measure(const SpecView& s, const SensP
 // Largest sizes any instantiation takes (ops/substep_kernel.py MAX_* and
 // NQ_EXTRA check them before a launch too).
 #define JT_SUB_MAX_N 32
-#define JT_SUB_MAX_NC 48
+#define JT_SUB_MAX_NC 96
 #define JT_SUB_MAX_NB 32
 
 #include "substep_warp.cuh"

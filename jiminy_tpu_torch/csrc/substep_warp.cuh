@@ -6,10 +6,10 @@
 // (`substep_multi_warp_kernel`) runs it n_sub times with τ computed
 // in-kernel before each, K3 (`substep_warp_kernel`) once with τ given.
 // Every launch of either runs it, in every SENS / GEN / RAND instantiation
-// and for every model inside the kernels' caps (nb ≤ 32, nv ≤ 32, nc ≤ 48:
+// and for every model inside the kernels' caps (nb ≤ 32, nv ≤ 32, nc ≤ 96:
 // JT_SUB_MAX_*): the ANYmal frame (ANYmal, Ant, Spotmicro, the toys) and
 // the large frame (Cassie with its self-collision pairs and flexible hips,
-// the PRISMATIC slab scene) alike. Operations bound it, as substep.cuh's
+// the PRISMATIC slab scene, Atlas with and without its pairs) alike. Operations bound it, as substep.cuh's
 // note counts them. The plain versions (ops/substep_kernel.py
 // `substep_multi_reference` and `substep_reference`) are the yardstick;
 // the arithmetic follows them step for step, save the equality rows' dot
@@ -32,9 +32,11 @@
 // Delassus A, and the sensor stage's body arrays and readings. Row strides
 // are odd (no two lanes of a column walk on one bank). Bytes per env:
 // ANYmal 8,752, Cassie 11,072, with self-collision 15,168, flexible
-// 13,840, the slab 13,792; W = 4 for each. Registers (the launch bounds'
-// 128) hold an SM to 16 warps; shared memory holds it to 12 at nc 37–43
-// and to 8 at nc 46 (Cassie's self-collision, its ptbox and ptseg sets).
+// 13,840, the slab 13,792, Atlas 25,776, with its pairs (nc 83) 53,712;
+// W = 4 for each (3 past ~58 KB, at the caps). Registers (the launch
+// bounds' 128) hold an SM to 16 warps; shared memory holds it to 12 at
+// nc 37–43, to 8 at nc 46–47 (Cassie's self-collision, its ptbox and ptseg
+// sets; Atlas) and to 4 at nc 83 (Atlas with its pairs).
 //
 // Lanes, stage by stage, __syncwarp() between: τ across the motors and
 // dofs; local poses across the bodies, then FK with RNEA's forward pass and
@@ -49,7 +51,7 @@
 // sensors and its delay lines across their columns (the rings stay in
 // global memory). A stage with more items than lanes (the row items; X's
 // nc + 1 right-hand sides; A's nc columns with their rows' setup; the
-// residual) gives lane l the items l, l + 32, …; the equality rows' dot
+// residual) gives lane l the items l, l + 32, l + 64; the equality rows' dot
 // sums each lane's own entries in that order before the xor tree. Each PGS
 // group stays one row per lane: the C entry refuses a bounds span or a
 // color wider than a warp (a span has at most nv rows, a color at most

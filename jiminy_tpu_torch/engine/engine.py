@@ -27,10 +27,13 @@ The substep's physics has three backends, selected by
 - ``"inline"``: plain PyTorch physics with the plain chain (the
   reference's ``"xla"``), so the same physics runs with no kernel;
 - ``"auto"`` (the default): ``"substep"`` when the model is within the
-  whole-substep kernels' caps, else ``"kernel"`` when it is within the
-  chain kernel's. Beyond both, ``"inline"`` on the CPU (where every
-  backend runs the plain versions), and on CUDA a ValueError: the plain
-  physics runs on the card only when ``"inline"`` is asked for.
+  whole-substep kernels' caps (nb ≤ 32, nv ≤ 32, nc ≤ 96, ≤ 24 pair
+  contacts, ≤ 16 PGS colors: every model the port builds, Atlas with its
+  self-collision pairs at nc 83 included), else ``"kernel"`` when it is
+  within the chain kernel's (nv ≤ 32, nc ≤ 96). Beyond both, ``"inline"``
+  on the CPU (where every backend runs the plain versions), and on CUDA a
+  ValueError: the plain physics runs on the card only when ``"inline"``
+  is asked for.
   ``Engine.backend`` is the choice.
 
 Every backend runs the same substep: :func:`substep_reference` is the
@@ -246,8 +249,8 @@ class Engine:
             raise ValueError(
                 f"{e}; nor does the chain kernel take it (nv ≤ {chain_ops.MAX_N}, nc ≤ "
                 f"{chain_ops.MAX_NC}, ≤ {chain_ops.MAX_EQ} equality blocks, ≤ "
-                f"{chain_ops.MAX_COLORS} colors). A larger frame is ROADMAP A.23; pass "
-                "constraint_solver='inline' to run the plain physics on the card"
+                f"{chain_ops.MAX_COLORS} colors); pass constraint_solver='inline' to run "
+                "the plain physics on the card"
             ) from e
 
     def reset(self, q: torch.Tensor, v: torch.Tensor | None = None) -> SimState:

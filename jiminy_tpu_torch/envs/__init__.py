@@ -6,4 +6,4 @@ from jiminy_tpu_torch.envs.base import (  # noqa: F401
     EnvState,
     env_state_from_arrays,
 )
-from jiminy_tpu_torch.envs.legged import AntEnv, CassieEnv, SpotmicroEnv  # noqa: F401
+from jiminy_tpu_torch.envs.legged import AntEnv, AtlasEnv, CassieEnv, SpotmicroEnv  # noqa: F401

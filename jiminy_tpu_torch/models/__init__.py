@@ -2,6 +2,14 @@
 
 from jiminy_tpu_torch.models.ant import make_ant  # noqa: F401
 from jiminy_tpu_torch.models.biped import cassie_self_collision_pairs, make_cassie  # noqa: F401
+from jiminy_tpu_torch.models.humanoid import (  # noqa: F401
+    ATLAS,
+    HumanoidParams,
+    atlas_self_collision_pairs,
+    atlas_stand_q,
+    humanoid_hardware,
+    make_atlas,
+)
 from jiminy_tpu_torch.models.quadruped import (  # noqa: F401
     ANYMAL,
     SPOTMICRO,

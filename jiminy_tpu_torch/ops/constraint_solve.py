@@ -32,7 +32,7 @@ from jiminy_tpu_torch.ops import _warp
 # the chain kernel's caps (csrc/constraint_solve.cu JT_MAX_N, JT_MAX_NC;
 # csrc/solve_chain.cuh JT_MAX_EQ, JT_MAX_COLORS), and the widest PGS group
 # (a bounds span, a color's contacts): one row per lane of a warp
-MAX_N, MAX_NC, MAX_EQ, MAX_COLORS, MAX_GROUP = 32, 48, 32, 16, 32
+MAX_N, MAX_NC, MAX_EQ, MAX_COLORS, MAX_GROUP = 32, 96, 32, 16, 32
 # the warp kernel's layout (csrc/constraint_solve.cu JT_CL_*): a header,
 # then the offsets of its regions, all apart
 _CHAIN_HEAD = ("W", "stride", "ldm", "ldj", "ldx", "lda")

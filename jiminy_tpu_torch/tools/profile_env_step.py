@@ -1,6 +1,6 @@
-"""Where the time of the ANYmal, Cassie, Ant or Spotmicro env step goes on a GPU.
+"""Where the time of the ANYmal, Cassie, Atlas, Ant or Spotmicro env step goes on a GPU.
 
-    python -m jiminy_tpu_torch.tools.profile_env_step [--env anymal|cassie|ant|spotmicro]
+    python -m jiminy_tpu_torch.tools.profile_env_step [--env anymal|cassie|atlas|ant|spotmicro]
         [--batch 4096] [--steps 5] [--solver auto|substep|kernel|inline]
         [--observe state|sensors] [--terrain flat|fourier|perlin|perlin_grid|stairs]
         [--push N] [--push-duration S] [--randomize R] [--self-collision] [--flexibility]
@@ -15,6 +15,10 @@ legs' self-collision pairs (``examples/train.py --env cassie
 --self-collision``, ``cassie_selfcol_run5``) and ``--flexibility`` for
 the flexible hips (``examples/train.py --env cassie_flex``,
 ``cassie_flex_run5``: a SPHERICAL flexibility joint above each hip roll).
+``--env atlas`` runs ``AtlasEnv(target_speed=0.3)`` (``examples/train.py
+--env atlas``: 5 substeps of 4 ms), with ``--self-collision`` its four
+pairs (``atlas_selfcol_run5``: nc 83), on ``--observe`` and with
+``--push`` as above.
 ``--env ant`` and ``--env spotmicro`` run ``AntEnv()`` and
 ``SpotmicroEnv()`` at the reference's defaults (``examples/train.py --env
 ant | spotmicro``: 20 substeps per env step; the Ant's sensors every
@@ -53,7 +57,8 @@ import torch
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--env", default="anymal", choices=("anymal", "cassie", "ant", "spotmicro"))
+    ap.add_argument("--env", default="anymal",
+                    choices=("anymal", "cassie", "atlas", "ant", "spotmicro"))
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--solver", default="auto", choices=("auto", "substep", "kernel", "inline"))
@@ -65,19 +70,21 @@ def main() -> None:
     ap.add_argument("--randomize", type=float, default=0.0,
                     help="model randomization half-range R (0: none)")
     ap.add_argument("--self-collision", action="store_true",
-                    help="Cassie with its self-collision pairs")
+                    help="Cassie or Atlas with its self-collision pairs")
     ap.add_argument("--flexibility", action="store_true",
                     help="Cassie with its flexible hips")
     args = ap.parse_args()
-    if (args.self_collision or args.flexibility) and args.env != "cassie":
-        raise SystemExit("profile_env_step: --self-collision and --flexibility are Cassie's")
+    if args.flexibility and args.env != "cassie":
+        raise SystemExit("profile_env_step: --flexibility is Cassie's")
+    if args.self_collision and args.env not in ("cassie", "atlas"):
+        raise SystemExit("profile_env_step: --self-collision is Cassie's and Atlas's")
     if not torch.cuda.is_available():
         raise SystemExit("profile_env_step: no CUDA GPU available")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from jiminy_tpu_torch.engine.randomization import ModelRandomization
-    from jiminy_tpu_torch.envs import AntEnv, ANYmalEnv, CassieEnv, SpotmicroEnv
+    from jiminy_tpu_torch.envs import AntEnv, ANYmalEnv, AtlasEnv, CassieEnv, SpotmicroEnv
 
     dev = torch.device("cuda")
     r = args.randomize
@@ -102,6 +109,13 @@ def main() -> None:
                         push_duration=args.push_duration, model_randomization=randomization,
                         self_collision=args.self_collision, flexibility=args.flexibility,
                         device=dev, **sensors)
+    elif args.env == "atlas":
+        if args.terrain != "flat":
+            raise SystemExit("profile_env_step: the Atlas env runs on flat ground")
+        env = AtlasEnv(observe=args.observe, target_speed=0.3, constraint_solver=args.solver,
+                       push_magnitude=args.push, push_duration=args.push_duration,
+                       model_randomization=randomization, self_collision=args.self_collision,
+                       device=dev, **sensors)
     else:
         env = ANYmalEnv(observe=args.observe, step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
                         constraint_solver=args.solver, terrain=args.terrain,

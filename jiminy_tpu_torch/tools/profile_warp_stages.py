@@ -1,7 +1,8 @@
 """Where the time of K2's warp body goes, stage by stage, on a GPU.
 
     python -m jiminy_tpu_torch.tools.profile_warp_stages [--batch 4096]
-        [--env walkers|anymal|ant|spotmicro|cassie|slab] [--self-collision] [--flexibility]
+        [--env walkers|anymal|ant|spotmicro|cassie|atlas|slab] [--self-collision]
+        [--flexibility]
 
 Runs K2 (``substep_batched_multi``) through the measuring build of the
 nominal library (``csrc/substep_stages.cu``: ``csrc/substep.cuh`` with
@@ -13,7 +14,10 @@ or the large frame: ``--env cassie`` the biped of ``examples/train.py
 --env cassie`` (``CassieEnv(sim_dt=2e-3, target_speed=0.4)``, 10
 substeps, ``cassie_sensors_run``'s sensing), with ``--self-collision``
 its legs' capsule pairs (nc 37) and ``--flexibility`` its flexible hips
-(nv 26); ``--env slab`` the reference's PRISMATIC kernel scene
+(nv 26); ``--env atlas`` the humanoid of ``examples/train.py --env
+atlas`` (``AtlasEnv(target_speed=0.3)``, 5 substeps of 4 ms, nc 47, the
+same sensing), with ``--self-collision`` its four pairs (nc 83);
+``--env slab`` the reference's PRISMATIC kernel scene
 (tests/test_box_pairs.py's sprung slab and free cube with their box pair,
 nc 48; 6 substeps of 1 ms, the cube landing; no sensors). Prints one JSON
 line per model and path: the card (``nvidia-smi`` name and power limit),
@@ -120,7 +124,7 @@ def _slab_case(B, dev, gen):
 def _cases(env_name, self_collision, flexibility, B, dev):
     """(model name, spec, substeps, inputs, {path: kernel keywords}) of
     each model ``env_name`` names."""
-    from jiminy_tpu_torch.envs import AntEnv, ANYmalEnv, CassieEnv, SpotmicroEnv
+    from jiminy_tpu_torch.envs import AntEnv, ANYmalEnv, AtlasEnv, CassieEnv, SpotmicroEnv
     from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -136,6 +140,11 @@ def _cases(env_name, self_collision, flexibility, B, dev):
                             flexibility=flexibility, device=dev)
             name += "".join(f"_{f}" for f, on in (("selfcol", self_collision),
                                                    ("flex", flexibility)) if on)
+        elif name == "atlas":
+            env = AtlasEnv(target_speed=0.3, observe="sensors", sensor_delay=0.004,
+                           imu_noise=0.02, encoder_noise=0.005, self_collision=self_collision,
+                           device=dev)
+            name += "_selfcol" if self_collision else ""
         else:
             env = {"anymal": ANYmalEnv, "ant": AntEnv, "spotmicro": SpotmicroEnv}[name](
                 observe="sensors", device=dev)
@@ -167,9 +176,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--env", default="walkers",
-                    choices=("walkers", "anymal", "ant", "spotmicro", "cassie", "slab"))
+                    choices=("walkers", "anymal", "ant", "spotmicro", "cassie", "atlas", "slab"))
     ap.add_argument("--self-collision", action="store_true",
-                    help="with --env cassie: the legs' self-collision pairs")
+                    help="with --env cassie or atlas: the self-collision pairs")
     ap.add_argument("--flexibility", action="store_true",
                     help="with --env cassie: the flexible hips")
     args = ap.parse_args()

@@ -17,11 +17,11 @@ carries the first iteration's set-up). It checkpoints the carry to
 for ``max_steps − 1`` steps.
 
 Envs (``examples/train.py``'s ``make_env`` for the envs the port has):
-anymal, cassie, cassie_flex, ant, spotmicro, with ``--terrain``
-(anymal), ``--push``, ``--push-duration``, ``--observe``,
-``--sensor-delay``, ``--imu-noise``, ``--encoder-noise``, ``--randomize``
-and ``--self-collision`` (cassie). Refused, naming the ROADMAP item that
-ports them: atlas (A.23), cartpole and acrobot (A.16), ``--mdp
+anymal, cassie, cassie_flex, atlas (``target_speed=0.3``), ant,
+spotmicro, with ``--terrain`` (anymal), ``--push``, ``--push-duration``,
+``--observe``, ``--sensor-delay``, ``--imu-noise``, ``--encoder-noise``,
+``--randomize`` and ``--self-collision`` (cassie, atlas). Refused, naming
+the ROADMAP item that ports them: cartpole and acrobot (A.16), ``--mdp
 declarative`` and ``--pipeline`` (A.17). Runs on the card unless
 ``--device cpu``.
 """
@@ -35,8 +35,8 @@ import time
 
 import torch
 
-ENVS = ("anymal", "cassie", "cassie_flex", "ant", "spotmicro")
-UNPORTED_ENVS = {"atlas": "A.23", "cartpole": "A.16", "acrobot": "A.16"}
+ENVS = ("anymal", "cassie", "cassie_flex", "atlas", "ant", "spotmicro")
+UNPORTED_ENVS = {"cartpole": "A.16", "acrobot": "A.16"}
 
 
 def make_env(name: str, max_steps: int, terrain=None, push=0.0, observe="state",
@@ -63,13 +63,15 @@ def make_env(name: str, max_steps: int, terrain=None, push=0.0, observe="state",
                "encoder_noise": encoder_noise}
     if terrain not in (None, "flat") and name != "anymal":
         raise ValueError(f"--terrain is anymal's; {name} walks on flat ground")
-    if self_collision and name not in ("cassie", "cassie_flex"):
-        raise ValueError("--self-collision is cassie's")
+    if self_collision and name not in ("cassie", "cassie_flex", "atlas"):
+        raise ValueError("--self-collision is cassie's and atlas's")
     if name == "anymal":
         return E.ANYmalEnv(terrain=terrain, **sensing, **kw)
     if name in ("cassie", "cassie_flex"):
         return E.CassieEnv(sim_dt=2e-3, target_speed=0.4, self_collision=self_collision,
                            flexibility=name == "cassie_flex", **sensing, **kw)
+    if name == "atlas":
+        return E.AtlasEnv(target_speed=0.3, self_collision=self_collision, **sensing, **kw)
     if name == "ant":
         return E.AntEnv(**kw)
     if name == "spotmicro":
@@ -87,7 +89,7 @@ def add_env_args(ap: argparse.ArgumentParser) -> None:
                     help="observation source: privileged state or the delayed, noisy "
                     "sensor suite")
     ap.add_argument("--self-collision", action="store_true",
-                    help="cassie: the legs' self-collision pairs")
+                    help="cassie, atlas: the self-collision pairs")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 

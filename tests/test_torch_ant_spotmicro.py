@@ -23,6 +23,9 @@ from jiminy_tpu_torch.core.tree import ARRAY_FIELDS, STATIC_FIELDS, tree_from_ar
 from jiminy_tpu_torch.hardware.motors import motors_from_arrays
 from jiminy_tpu_torch.models import SPOTMICRO, make_ant, make_spotmicro, stand_q
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 MOTOR_FIELDS = (
     "v_idx", "q_idx", "name", "reduction", "effort_limit", "velocity_limit",
     "friction_dry", "friction_viscous", "friction_vel_eps",

@@ -38,6 +38,9 @@ from jiminy_tpu.envs.legged import SpotmicroEnv as JSpotmicroEnv
 from jiminy_tpu_torch.core.tree import ARRAY_FIELDS
 from jiminy_tpu_torch.envs import AntEnv, SpotmicroEnv, env_state_from_arrays
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 4
 ATOL = 1e-9
 N_STEPS = 2

@@ -27,6 +27,9 @@ from jiminy_tpu_torch.envs import ANYmalEnv, env_state_from_arrays
 from jiminy_tpu_torch.ops import solve_batched
 from jiminy_tpu_torch.ops.substep_kernel import substep_batched, substep_batched_multi
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 8
 SIM_FIELDS = ("t", "q", "v", "contact_forces", "solver_residual", "lam", "a", "tau")
 

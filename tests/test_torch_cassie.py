@@ -57,6 +57,9 @@ from jiminy_tpu_torch.ops.substep_kernel import (
     SensorKernelSpec,
 )
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 8
 DT = 2e-3
 KP, KD = 150.0, 6.0

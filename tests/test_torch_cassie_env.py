@@ -35,6 +35,9 @@ from jiminy_tpu.envs.legged import CassieEnv as JCassieEnv
 from jiminy_tpu_torch.core.tree import ARRAY_FIELDS
 from jiminy_tpu_torch.envs import CassieEnv, env_state_from_arrays
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 4
 ATOL = 1e-9
 KW = dict(sim_dt=2e-3, target_speed=0.4)

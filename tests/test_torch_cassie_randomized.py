@@ -41,6 +41,9 @@ from jiminy_tpu_torch.engine.constraints import distance_constraint_from_arrays
 from jiminy_tpu_torch.engine.randomization import ModelParams
 from jiminy_tpu_torch.hardware.motors import motors_from_arrays
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 4
 DT = 2e-3
 KP, KD = 150.0, 6.0

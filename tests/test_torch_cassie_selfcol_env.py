@@ -39,6 +39,9 @@ from jiminy_tpu_torch.core.tree import ARRAY_FIELDS
 from jiminy_tpu_torch.engine.collision import pair_rows
 from jiminy_tpu_torch.envs import CassieEnv, env_state_from_arrays
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 4
 ATOL = 1e-9
 KW = dict(sim_dt=2e-3, target_speed=0.4, self_collision=True)

@@ -31,6 +31,9 @@ from jiminy_tpu_torch.ops import constraint_solve as cs
 from jiminy_tpu_torch.ops import substep_kernel as sk
 from jiminy_tpu_torch.ops._warp import SMEM_PER_BLOCK, WARP_MAX_W
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 # chip_smoke.py phase 1's systems (`phase_kernel_vs_plain`) and the caps
 CONFIGS = {
     "anymal": cs.SolveConfig(n=18, nc=24, dt=5e-3, eq_blocks=(), bounds_span=(0, 12),
@@ -40,11 +43,15 @@ CONFIGS = {
                              relax=0.9),
     "atlas": cs.SolveConfig(n=29, nc=47, dt=2e-3, eq_blocks=(), bounds_span=(0, 23),
                             contact_colors=((23, 4), (35, 4)), iters=4),
-    "caps": cs.SolveConfig(n=32, nc=48, dt=2e-3, eq_blocks=(), bounds_span=(0, 12),
-                           contact_colors=((12, 12),), iters=8),
+    "atlas_selfcol": cs.SolveConfig(n=29, nc=83, dt=4e-3, eq_blocks=(), bounds_span=(0, 23),
+                                    contact_colors=((23, 4), (35, 4), (47, 1), (50, 1), (53, 5),
+                                                    (68, 5)), iters=8),
+    "caps": cs.SolveConfig(n=32, nc=96, dt=2e-3, eq_blocks=(), bounds_span=(0, 12),
+                           contact_colors=((12, 28),), iters=8),
 }
-# bytes per env, as csrc/constraint_solve.cu's note and PERF.md give them
-CHAIN_BYTES = {"anymal": 8304, "cassie": 10688, "atlas": 25040, "caps": 27904}
+# (bytes per env, W), as csrc/constraint_solve.cu's note and PERF.md give them
+CHAIN_BYTES = {"anymal": (8304, 4), "cassie": (10688, 4), "atlas": (25040, 4),
+               "atlas_selfcol": (52976, 4), "caps": (69376, 3)}
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -54,7 +61,7 @@ def test_chain_workspace_layout(name):
     assert cs.warp_workspace(cfg) is ws  # built once
     n, nc, lds, regions = cfg.n, cfg.nc, ws.lds, ws.regions
     stride = ws.bytes_per_env // 4
-    assert (ws.bytes_per_env, ws.W) == (CHAIN_BYTES[name], 4) and stride % 4 == 0
+    assert (ws.bytes_per_env, ws.W) == CHAIN_BYTES[name] and stride % 4 == 0
     assert ws.W == min(WARP_MAX_W, SMEM_PER_BLOCK // ws.bytes_per_env)
     assert lds["ldm"] >= n and lds["ldj"] >= n and lds["lda"] >= nc and lds["ldx"] >= nc + 1
     assert all(ld % 2 == 1 for ld in lds.values())
@@ -76,8 +83,8 @@ def test_chain_workspace_layout(name):
 @pytest.mark.parametrize("group", ["bounds_span", "color"])
 def test_chain_refuses_a_group_wider_than_a_warp(group):
     """One row per lane: a bounds span of 33 rows, or a color of 33
-    contacts, is not the chain kernel's (a color past 16 contacts is past
-    nc ≤ 48 as well); neither ``kernel_takes`` nor ``warp_workspace``
+    contacts, is not the chain kernel's (a color past 32 contacts is past
+    nc ≤ 96 as well); neither ``kernel_takes`` nor ``warp_workspace``
     takes it, so the engine never routes it to a refusal."""
     if group == "bounds_span":
         cfg = cs.SolveConfig(n=32, nc=48, dt=1e-3, eq_blocks=(), bounds_span=(0, 33),

@@ -48,6 +48,9 @@ from jiminy_tpu_torch.engine import ground as pg
 from jiminy_tpu_torch.engine.contact import surface_contacts
 from jiminy_tpu_torch.models.biped import cassie_self_collision_pairs
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 DT, ALPHA, MARGIN, SLOP, MAX_CORR = 2e-3, 0.25, 5e-3, 1e-3, 0.2
 B = 16
 CLOUD = ((0.06, 0.0, -0.17), (-0.06, 0.0, -0.17), (0.0, 0.08, -0.17), (0.0, -0.08, -0.17),

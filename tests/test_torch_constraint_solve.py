@@ -37,6 +37,9 @@ from jiminy_tpu_torch.ops.constraint_solve import (
     solve_reference,
 )
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 
 CONFIGS = {

@@ -48,6 +48,9 @@ from jiminy_tpu_torch.ops.substep_kernel import (
     substep_reference,
 )
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 CONFIGS = {
     "anymal": SolveConfig(
@@ -62,6 +65,12 @@ CONFIGS = {
         n=22, nc=26, dt=2e-3, eq_blocks=(BlockSpec("equality", 0, 4),),
         bounds_span=(4, 10), contact_colors=((14, 2), (20, 2)), iters=4,
         relax=0.9, compute_residual=True,
+    ),
+    # Atlas with its self-collision pairs: nc 83, three items per lane
+    "atlas_selfcol": SolveConfig(
+        n=29, nc=83, dt=4e-3, eq_blocks=(), bounds_span=(0, 23),
+        contact_colors=((23, 4), (35, 4), (47, 1), (50, 1), (53, 5), (68, 5)), iters=8,
+        compute_residual=True,
     ),
 }
 
@@ -1122,6 +1131,35 @@ def test_selfcol_env_is_one_fused_launch(cuda_device, path):
     assert bool(torch.isfinite(state.obs).all()) and state.obs.shape == (256, 29)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["state", "sensors", "selfcol", "selfcol_sensors"])
+def test_atlas_env_is_one_fused_launch(cuda_device, path):
+    """AtlasEnv(target_speed=0.3) (examples/train.py --env atlas) on the state
+    and sensor paths, without and with its self-collision pairs (nc 47,
+    83): ``constraint_solver="auto"`` resolves to the whole-substep kernel
+    on the card, one K2 launch per env step, no other, all through the warp
+    body."""
+    from jiminy_tpu_torch.envs import AtlasEnv
+
+    sensors = path.endswith("sensors")
+    kw = (dict(observe="sensors", sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005)
+          if sensors else dict(observe="state"))
+    env = AtlasEnv(target_speed=0.3, self_collision=path.startswith("selfcol"),
+                   device=cuda_device, **kw)
+    assert env.engine.backend == "substep" and env._fused_sensors == sensors
+    assert env.engine.nc == (83 if path.startswith("selfcol") else 47)
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
+    names = [(solve_batched, "launches"), (substep_batched, "launches"),
+             (substep_batched_multi, "launches"), (substep_batched_multi, "sensor_launches"),
+             (substep_batched_multi, "warp_launches")]
+    before = [getattr(fn, n) for fn, n in names]
+    for _ in range(3):
+        state = env.step(state, torch.zeros(256, 23, device=cuda_device))
+    launched = [getattr(fn, n) - b for (fn, n), b in zip(names, before)]
+    assert launched == ([0, 0, 0, 3, 3] if sensors else [0, 0, 3, 0, 3])
+    assert bool(torch.isfinite(state.obs).all()) and state.obs.shape == (256, 55)
+
+
 # ---- spherical flexibility (B.8): the flexible-hip Cassie
 
 @pytest.mark.cuda
@@ -1540,16 +1578,75 @@ def test_warp_k2_steps_as_chained_launches(cuda_device, sensors):
 
 # the large frame on the warp body: Cassie (its state and sensor paths'
 # spec), its three pair sets, its flexible hips, the PRISMATIC slab along z
-# and along the oblique axis
+# and along the oblique axis, Atlas without and with its pairs (nc 47, 83)
 LARGE_WARP_MODELS = ("cassie", "cassie_selfcol", "cassie_ptbox", "cassie_ptseg", "cassie_flex",
-                     "slab", "slab_oblique")
+                     "slab", "slab_oblique", "atlas", "atlas_selfcol")
 LARGE_B = 4097  # the batch the gates read; smaller batches are its first envs
+
+
+def _atlas_engine(dev, dtype=torch.float32, pairs=False, solver="substep"):
+    """AtlasEnv's engine (PD kp 300, kd 15, 4 ms, 8 sweeps), with its
+    self-collision pairs with ``pairs``, and atlas_sensors_run's suite."""
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
+    from jiminy_tpu_torch.models.humanoid import atlas_self_collision_pairs, make_atlas
+
+    tree, motors, suite = make_atlas(device=dev, sensor_period=4e-3, sensor_delay=0.004,
+                                     imu_noise=0.02, encoder_noise=0.005)
+    eng = Engine(tree.to(dtype=dtype),
+                 EngineOptions(contact_model="constraint", dt=4e-3, pgs_iters=8,
+                               compute_solver_residual=True, constraint_solver=solver),
+                 motors=motors.to(dtype=dtype), controller=PDController(300.0, 15.0),
+                 collision_pairs=atlas_self_collision_pairs() if pairs else (), device=dev)
+    return eng, suite.to(dtype=dtype)
+
+
+def _atlas_inputs(seed, B, engine):
+    """Stand poses with the motor joints ±0.05 rad, the knees of a quarter
+    of the envs at their lower limit, in the second half the hip and
+    shoulder rolls turned inward (the legs' and the arms' pair rows
+    active), the base 1 cm low to 0.5 cm high and tilted, PD targets, λ0 ≥ 0
+    and a root wrench, made with numpy."""
+    from jiminy_tpu_torch.models.humanoid import atlas_stand_q
+
+    rng = np.random.default_rng(seed)
+    t, dev = engine.tree, engine.device
+    qi = list(engine.motors.q_idx)
+    q = np.tile(atlas_stand_q(t).astype(np.float64), (B, 1))
+    q[:, qi] += rng.uniform(-0.05, 0.05, (B, len(qi)))
+
+    def j(name):
+        return t.q_off[t.joint_index(name)]
+
+    q[:B // 4, [j("l_leg_kny"), j("r_leg_kny")]] = rng.uniform(-0.01, 0.01, (B // 4, 2))
+    h = B // 2
+    q[h:, j("l_leg_hpx")] = -rng.uniform(0.05, 0.3, B - h)
+    q[h:, j("r_leg_hpx")] = rng.uniform(0.05, 0.3, B - h)
+    q[h:, j("l_arm_shx")] = -rng.uniform(0.2, 0.5, B - h)
+    q[h:, j("r_arm_shx")] = rng.uniform(0.2, 0.5, B - h)
+    q[:, 2] += rng.uniform(-0.01, 0.005, B)
+    quat = np.concatenate([rng.uniform(-0.03, 0.03, (B, 3)), np.ones((B, 1))], 1)
+    q[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    arrays = (q, 0.3 * rng.standard_normal((B, t.nv)),
+              q[:, qi] + rng.uniform(-0.1, 0.1, (B, len(qi))),
+              np.abs(0.05 * rng.standard_normal((B, engine.nc))),
+              np.concatenate([5.0 * rng.standard_normal((B, 3)),
+                              20.0 * rng.standard_normal((B, 3))], 1))
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in arrays]
 
 
 def _large_case(model, dev):
     """(spec, its float64 twin, float32 inputs at LARGE_B, the suite and
     its float64 twin or None, the gate): Cassie's models held by the
-    distribution of the per-env distance to float64, the slab env by env."""
+    distribution of the per-env distance to float64, the slab and Atlas
+    (κ(M) of a few hundred, ANYmal's regime) env by env, Atlas with its
+    pairs by the distribution (its arm-against-torso contacts make the
+    solve ill posed in float32, PERF.md §6)."""
+    if model.startswith("atlas"):
+        pairs = model == "atlas_selfcol"
+        (eng, suite), (eng64, suite64) = (_atlas_engine(dev, dt, pairs)
+                                          for dt in (torch.float32, torch.float64))
+        return (eng.substep_spec, eng64.substep_spec, _atlas_inputs(76, LARGE_B, eng), suite,
+                suite64, _assert_distribution_vs_f64 if pairs else _assert_env_by_env_vs_f64)
     if model.startswith("slab"):
         scene = "oblique" if model == "slab_oblique" else "slab"
         eng, eng64 = _prismatic_engine(dev, scene), _prismatic_engine(dev, scene, torch.float64)
@@ -1572,17 +1669,19 @@ def _large_case(model, dev):
 @pytest.mark.parametrize("model", LARGE_WARP_MODELS)
 def test_warp_k2_large_frame_matches_plain_versions(cuda_device, model, B):
     """K2's warp body over one substep on each large-frame model (nc 28 to
-    48: the strided stages, X's nc + 1 right-hand sides and A's nc columns
-    past one per lane, the pair contacts one per row item): through the
+    83: the strided stages, X's nc + 1 right-hand sides and A's nc columns
+    past one, and at Atlas's nc 83 two, per lane, the pair contacts one per
+    row item): through the
     warp body (its counter); two launches from the same inputs bit-equal;
     each env's bits those of the same env in a launch of LARGE_B envs (a
     warp's env does not depend on the batch or its ragged edge); q, v, λ
     and the impulses held to the float64 plain version by the model's gate
     at B ≥ 31 (Cassie by the distribution of the per-env distance, the
-    slab env by env; one env is no distribution); on Cassie and its
-    flexible twin the sensor stage's physics bit-equal to the sensor-free
-    launch and its buffers held as the physics is; on the slab (no
-    equality rows) K3 given K2's applied τ bit-equal."""
+    slab and Atlas env by env; one env is no distribution); on Cassie, its
+    flexible twin and Atlas with and without its pairs the sensor stage's
+    physics bit-equal to the sensor-free launch and its buffers held as the
+    physics is; on the slab (no equality rows) K3 given K2's applied τ
+    bit-equal."""
     from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec
 
     spec, spec64, big, suite, suite64, gate = _large_case(model, cuda_device)

@@ -61,6 +61,9 @@ from jiminy_tpu_torch.engine.constraints import (
 from jiminy_tpu_torch.engine.ground import FlatGround
 from jiminy_tpu_torch.ops.substep_kernel import SubstepSpec
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 6
 DT = 1e-3
 

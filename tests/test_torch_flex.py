@@ -59,6 +59,9 @@ from jiminy_tpu_torch.math import so3
 from jiminy_tpu_torch.models import make_cassie
 from jiminy_tpu_torch.models.biped import cassie_self_collision_pairs
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 8
 DT = 2e-3
 KP, KD = 150.0, 6.0

@@ -34,6 +34,9 @@ from jiminy_tpu_torch.engine import ground as pg
 from jiminy_tpu_torch.engine import terrain as pt
 from jiminy_tpu_torch.utils import random as pr
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 4
 ATOL = 1e-5
 

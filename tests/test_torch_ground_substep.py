@@ -55,6 +55,9 @@ from jiminy_tpu_torch.engine.terrain import perlin_ground
 from jiminy_tpu_torch.hardware.motors import motors_from_arrays
 from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 4
 DT = 5e-3
 KP, KD = 80.0, 2.0

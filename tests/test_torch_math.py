@@ -19,6 +19,9 @@ from jiminy_tpu.math import so3 as jso3
 from jiminy_tpu.math import spatial as jspatial
 from jiminy_tpu_torch.math import linalg, so3, spatial
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 B = 16
 

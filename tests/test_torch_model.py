@@ -26,6 +26,9 @@ from jiminy_tpu_torch.engine.contact import ContactParams, contact_params_from_a
 from jiminy_tpu_torch.hardware.motors import motors_from_arrays
 from jiminy_tpu_torch.models.quadruped import make_anymal, stand_q
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 8
 ATOL = 1e-5
 MOTOR_FIELDS = (

@@ -15,12 +15,13 @@ env with model randomization (fused and chunked), and on the Cassie env
 sensor path fused and chunked, with the self-collision pairs too, and
 the flexible-hip Cassie on the state path and the fused sensor path, the
 Ant and the Spotmicro on the state path and the fused and chunked sensor
-paths, and the PRISMATIC cartpole through ``Engine.step``; then one PPO
+paths, the Atlas humanoid with its self-collision pairs on the state path
+and the fused sensor path, and the PRISMATIC cartpole through ``Engine.step``; then one PPO
 ``train_step`` (B = 2, the symmetry loss on) and one ``evaluate`` step on
 the state-observing env. The
 modules that hold kernels, the sensor suite, the grounds, the terrain
 generators, the random processes, the model randomization, the
-constraints, the collision pairs, the biped, the Ant, the toys, the
+constraints, the collision pairs, the biped, the humanoid, the Ant, the toys, the
 legged envs, the RL modules, the checkpoint and the train and evaluate
 entry points are named,
 so a rename cannot drop them from the walk. A second test imports each kernel module
@@ -44,7 +45,8 @@ KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops
                   "jiminy_tpu_torch.hardware.sensors", "jiminy_tpu_torch.engine.ground",
                   "jiminy_tpu_torch.engine.terrain", "jiminy_tpu_torch.utils.random",
                   "jiminy_tpu_torch.engine.randomization", "jiminy_tpu_torch.engine.constraints",
-                  "jiminy_tpu_torch.models.biped", "jiminy_tpu_torch.envs.legged",
+                  "jiminy_tpu_torch.models.biped", "jiminy_tpu_torch.models.humanoid",
+                  "jiminy_tpu_torch.envs.legged",
                   "jiminy_tpu_torch.engine.collision", "jiminy_tpu_torch.models.ant",
                   "jiminy_tpu_torch.models.toys", "jiminy_tpu_torch.rl.networks",
                   "jiminy_tpu_torch.rl.ppo", "jiminy_tpu_torch.rl.evaluate",
@@ -78,6 +80,8 @@ import chip_smoke  # noqa: F401  (module only: main() is not run)
 
 import torch
 from jiminy_tpu_torch.envs import ANYmalEnv
+
+torch.set_num_threads(1)  # six xdist workers share the CPU
 
 for solver in ("substep", "kernel"):
     env = ANYmalEnv(observe="state", constraint_solver=solver, device="cpu")
@@ -128,6 +132,14 @@ for Env, nm, nobs in ((AntEnv, 8, 25), (SpotmicroEnv, 12, 33)):
         st = env.reset(torch.Generator().manual_seed(0), 2)
         st = env.step(st, torch.zeros(2, nm))
         assert bool(torch.isfinite(st.obs).all()) and st.obs.shape == (2, nobs)
+from jiminy_tpu_torch.envs import AtlasEnv
+
+for observe, fused, pairs in (("state", False, True), ("sensors", True, True)):
+    env = AtlasEnv(observe=observe, self_collision=pairs, sensor_delay=0.004, device="cpu")
+    env._fused_sensors = fused
+    st = env.reset(torch.Generator().manual_seed(0), 2)
+    st = env.step(st, torch.zeros(2, 23))
+    assert env.engine.nc == 83 and bool(torch.isfinite(st.obs).all()) and st.obs.shape == (2, 55)
 from jiminy_tpu_torch.engine import Engine, EngineOptions
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.models import make_cartpole

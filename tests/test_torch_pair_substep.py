@@ -53,6 +53,9 @@ from jiminy_tpu_torch.engine.constraints import distance_constraint_from_arrays
 from jiminy_tpu_torch.hardware.motors import motors_from_arrays
 from jiminy_tpu_torch.models.biped import cassie_self_collision_pairs
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 8
 MOTOR_FIELDS = (
     "v_idx", "q_idx", "name", "reduction", "effort_limit", "velocity_limit",

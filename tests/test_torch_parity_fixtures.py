@@ -24,6 +24,9 @@ from jiminy_tpu_torch.core.tree import ARRAY_FIELDS, STATIC_FIELDS, tree_from_ar
 from jiminy_tpu_torch.engine.engine import Engine, EngineOptions
 from jiminy_tpu_torch.hardware.motors import motors_from_arrays
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 FIXTURES = Path(__file__).resolve().parents[1] / "parity" / "fixtures"
 MOTOR_FIELDS = (
     "v_idx", "q_idx", "name", "reduction", "effort_limit", "velocity_limit",

@@ -39,6 +39,9 @@ from jiminy_tpu_torch.envs import ANYmalEnv
 from jiminy_tpu_torch.rl import MLPPolicy, evaluate, greedy_policy, policy_params_from_arrays
 from jiminy_tpu_torch.rl.networks import init_mlp, mlp_apply
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 OBS, ACT, N_DISCRETE, HIDDEN, B = 7, 3, 5, (16, 12), 9
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -50,6 +50,9 @@ from jiminy_tpu_torch.rl import PPOConfig, make_train_fn, policy_params_from_arr
 from jiminy_tpu_torch.rl.networks import param_leaves
 from jiminy_tpu_torch.rl.ppo import _gae, adam_init
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 # ---- the toy env: x' = A x + 0.3·Bm·clip(a, −1, 1)
 OBS, ACT, MAX_STEPS = 4, 2, 6
 A_MAT = np.array([[0.9, 0.1, 0.0, 0.0], [0.0, 0.9, 0.1, 0.0],

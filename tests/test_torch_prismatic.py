@@ -59,6 +59,9 @@ from jiminy_tpu_torch.engine.collision import Box, CollisionPair
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.models import toys
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 TOYS = ("make_pendulum", "make_double_pendulum", "make_cartpole", "make_acrobot", "make_ball",
         "make_free_box")
 SIM_FIELDS = ("q", "v", "lam", "contact_forces", "solver_residual", "a", "tau")

@@ -50,6 +50,9 @@ from jiminy_tpu_torch.hardware.motors import motors_from_arrays
 from jiminy_tpu_torch.models.quadruped import make_anymal
 from jiminy_tpu_torch.ops.substep_kernel import unpack_model_params
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 5
 MOTOR_FIELDS = (
     "v_idx", "q_idx", "name", "reduction", "effort_limit", "velocity_limit",

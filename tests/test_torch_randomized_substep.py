@@ -60,6 +60,9 @@ from jiminy_tpu_torch.engine.contact import contact_points_world
 from jiminy_tpu_torch.engine.randomization import ModelParams
 from jiminy_tpu_torch.hardware.motors import motors_from_arrays
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 4
 DT = 5e-3
 KP, KD = 80.0, 2.0

@@ -17,7 +17,9 @@ tests/test_checkpoint.py and tests/test_rl_logging.py.
 - The entry points ``tools.train`` and ``tools.evaluate`` on the CPU at a
   tiny size: one iteration writes ``metrics.jsonl``, ``ckpt/`` and
   ``eval.json``, and the evaluate tool reads the checkpoint back; the
-  envs and options still to port are refused, naming their ROADMAP item.
+  envs and options still to port are refused, naming their ROADMAP item;
+  ``--env atlas --self-collision`` builds ``examples/train.py``'s Atlas
+  (``target_speed=0.3``, its pairs: nc 83).
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ from jiminy_tpu_torch.envs import ANYmalEnv
 from jiminy_tpu_torch.envs.base import EnvState
 from jiminy_tpu_torch.rl import MetricsLogger, PPOConfig, make_train_fn, read_metrics
 from jiminy_tpu_torch.rl.networks import param_leaves
+
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
 
 B = 4
 
@@ -156,9 +161,12 @@ def test_train_and_evaluate_entry_points(tmp_path, monkeypatch, capsys):
     tool_evaluate.main()
     again = json.loads((tmp_path / "stats.json").read_text())
     assert again["length_mean"] == 2.0 and "iter" in capsys.readouterr().out
-    for env, item in (("atlas", "A.23"), ("cartpole", "A.16"), ("acrobot", "A.16")):
+    for env, item in (("cartpole", "A.16"), ("acrobot", "A.16")):
         with pytest.raises(NotImplementedError, match=item):
             tool_train.make_env(env, 10, device="cpu")
+    atlas = tool_train.make_env("atlas", 10, self_collision=True, device="cpu")
+    assert type(atlas).__name__ == "AtlasEnv" and atlas.engine.nc == 83
+    assert atlas.target_speed == 0.3 and atlas.observe_mode == "state"
     monkeypatch.setattr(sys, "argv", ["train", "--pipeline", "stack:4", "--device", "cpu"])
     with pytest.raises(SystemExit, match="A.17"):
         tool_train.main()

@@ -46,6 +46,9 @@ from jiminy_tpu_torch.ops.substep_kernel import (
     substep_batched_multi,
 )
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 4
 SIM_FIELDS = ("t", "q", "v", "contact_forces", "solver_residual", "lam", "a", "tau")
 KW = dict(step_dt=0.02, sim_dt=5e-3, pgs_iters=8, sensor_delay=0.004)

@@ -35,6 +35,9 @@ from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
 from jiminy_tpu_torch.models.quadruped import make_anymal
 from jiminy_tpu_torch.ops.substep_kernel import SensorKernelSpec, substep_multi_reference
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B, N_SUB, DT = 3, 4, 5e-3
 SENSORS = dict(sensor_period=DT, sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005)
 

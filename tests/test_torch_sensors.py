@@ -38,6 +38,9 @@ from jiminy_tpu_torch.hardware import sensors
 from jiminy_tpu_torch.math import so3
 from jiminy_tpu_torch.models.quadruped import make_anymal
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 3
 PERIOD = 5e-3
 FLAGSHIP = dict(sensor_period=PERIOD, sensor_delay=0.004, imu_noise=0.02, encoder_noise=0.005)

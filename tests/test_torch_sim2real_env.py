@@ -46,6 +46,9 @@ from jiminy_tpu_torch.engine import ground as pg
 from jiminy_tpu_torch.engine.randomization import ModelParams, ModelRandomization
 from jiminy_tpu_torch.envs import ANYmalEnv, env_state_from_arrays
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B, K = 4, 16
 SIM_FIELDS = ("t", "q", "v", "contact_forces", "solver_residual", "lam", "a", "tau")
 RANDOMIZE = dict(mass_scale=(0.8, 1.2), com_offset=0.02, inertia_scale=(0.8, 1.2),

@@ -71,6 +71,9 @@ from jiminy_tpu_torch.ops.substep_kernel import (
     substep_reference,
 )
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B = 8
 DT = 5e-3
 KP, KD = 80.0, 2.0
@@ -323,27 +326,31 @@ def test_auto_falls_back_beyond_the_kernel_caps():
 
 
 def test_auto_takes_the_plain_physics_beyond_48_rows():
-    """A model whose rows exceed 48 (Cassie's 28 and a box-box pair's 16
-    contacts, nc 76; more than 24 pair contacts is beyond the
-    whole-substep kernels too, as the reference gates them) runs the plain
-    physics under ``"auto"`` on the CPU: the chain kernel's nc ≤ 48 would
-    refuse it at the first step. On CUDA ``"auto"`` refuses it, naming
-    A.23 and ``"inline"``, rather than run the plain physics on the card."""
+    """A model whose rows exceed the chains' cap (96 since the Atlas slice;
+    48 before): Cassie's 28 and two box-box pairs' 32 contacts, nc 124;
+    more than 24 pair contacts is beyond the whole-substep kernels too, as
+    the reference gates them. It runs the plain physics under ``"auto"``
+    on the CPU: the chain kernel's nc ≤ 96 would refuse it at the first
+    step. On CUDA ``"auto"`` refuses it, naming the caps and
+    ``"inline"``, rather than run the plain physics on the card."""
     from jiminy_tpu_torch.engine.collision import Box, CollisionPair
     from jiminy_tpu_torch.models import make_cassie
+    from jiminy_tpu_torch.ops import constraint_solve as chain
 
     tree, motors, _, rods, stand = make_cassie(device="cpu")
-    boxes = (CollisionPair(Box("L_thigh", (0, 0, -0.17), (0.04, 0.04, 0.17)),
-                           Box("R_thigh", (0, 0, -0.17), (0.04, 0.04, 0.17))),)
+    boxes = tuple(CollisionPair(Box(f"L_{b}", (0, 0, -h), (0.04, 0.04, h)),
+                                Box(f"R_{b}", (0, 0, -h), (0.04, 0.04, h)))
+                  for b, h in (("thigh", 0.17), ("shin", 0.15)))
     eng = Engine(tree, EngineOptions(contact_model="constraint", dt=2e-3, pgs_iters=8),
                  motors=motors,
                  controller=PDController(150.0, 6.0), constraints=rods, collision_pairs=boxes,
                  device="cpu")
-    assert eng.substep_spec.n_pc == 16 and eng.nc == 28 + 48 and eng.backend == "inline"
+    assert eng.substep_spec.n_pc == 32 and eng.nc == 28 + 96 and eng.backend == "inline"
+    assert eng.nc > chain.MAX_NC == 96
     q = torch.as_tensor(stand)[None].repeat(2, 1)
     out = eng.step(eng.reset(q), torch.as_tensor(stand)[list(motors.q_idx)].repeat(2, 1))
-    assert bool(torch.isfinite(out.q).all()) and out.lam.shape == (2, 76)
-    with pytest.raises(ValueError, match=r"A\.23.*constraint_solver='inline'"):
+    assert bool(torch.isfinite(out.q).all()) and out.lam.shape == (2, 124)
+    with pytest.raises(ValueError, match=r"nc ≤ 96.*constraint_solver='inline'"):
         Engine.auto_backend(eng.substep_spec, torch.device("cuda"))
     assert Engine.auto_backend(eng.substep_spec, torch.device("cpu")) == "inline"
 

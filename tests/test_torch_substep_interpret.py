@@ -28,6 +28,9 @@ from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
 from jiminy_tpu_torch.hardware.motors import motors_from_arrays
 from jiminy_tpu_torch.ops.substep_kernel import substep_multi_reference
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B, N_SUB, DT = 4, 4, 5e-3
 MOTOR_FIELDS = (
     "v_idx", "q_idx", "name", "reduction", "effort_limit", "velocity_limit",

@@ -40,6 +40,9 @@ from jiminy_tpu.envs.anymal import ANYmalEnv as JANYmalEnv
 from jiminy_tpu_torch.engine import ground as pg
 from jiminy_tpu_torch.envs import ANYmalEnv, env_state_from_arrays
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 B, K = 4, 16
 SIM_FIELDS = ("t", "q", "v", "contact_forces", "solver_residual", "lam", "a", "tau")
 SLICE = dict(terrain="fourier", push_magnitude=100.0, push_duration=0.2, observe="sensors",

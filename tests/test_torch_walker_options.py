@@ -28,6 +28,9 @@ from jiminy_tpu_torch.engine.ground import FlatGround, sample_fourier_ground
 from jiminy_tpu_torch.envs import ANYmalEnv, CassieEnv
 from jiminy_tpu_torch.models.quadruped import make_anymal
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 
 def _fourier(generator, batch_shape):
     return sample_fourier_ground(generator, n_terms=4, amplitude=0.03, wavelength=1.5,

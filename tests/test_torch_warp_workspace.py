@@ -1,11 +1,12 @@
 """The shared-memory workspace of K2's warp body (``csrc/substep_warp.cuh``),
 as ``SubstepSpec.warp_workspace`` lays it out, on every model K2 runs, the
 ANYmal frame and the large frame (Cassie with its pairs and flexible hips,
-the PRISMATIC slab scene): every region inside the env's slice, the
-regions that live at one time apart, every offset on 16 bytes, W envs per
-block that fit one block's shared memory, the ints in the order the C
-entry point reads them; each large-frame model's bytes per env; a model
-past the kernels' caps refused, not routed. Builds the port's engines on
+the PRISMATIC slab scene, Atlas with and without its pairs): every region
+inside the env's slice, the regions that live at one time apart, every
+offset on 16 bytes, W envs per block that fit one block's shared memory,
+the ints in the order the C entry point reads them; each large-frame
+model's bytes per env; a model past the kernels' caps refused, not
+routed. Builds the port's engines on
 the CPU; no JAX."""
 
 from __future__ import annotations
@@ -20,10 +21,15 @@ from jiminy_tpu_torch.ops.substep_kernel import (
     SensorKernelSpec,
 )
 
+# six xdist workers share the CPU: one torch thread each
+torch.set_num_threads(1)
+
 # bytes per env, as PERF.md and csrc/substep_warp.cuh state them
 ANYMAL_BYTES = 8752
 LARGE_FRAME_BYTES = {"cassie_state": 11072, "cassie_sensors": 11072, "cassie_selfcol": 15168,
-                     "cassie_flex": 13840, "slab": 13792}
+                     "cassie_flex": 13840, "slab": 13792, "atlas_state": 25776,
+                     "atlas_sensors": 25776, "atlas_selfcol": 53712,
+                     "atlas_selfcol_sensors": 53712}
 
 
 def _walker_env(name, **kw):
@@ -55,7 +61,7 @@ def _slab_engine(n_cubes=1, solver="substep"):
     sprung PRISMATIC slab and free cube with their box pair, friction 0.8:
     nb 2, nv 7, 16 pair contacts, nc 48) with a direct motor on the slider;
     with ``n_cubes`` 2 a second cube and pair (32 pair contacts, nc 96:
-    past the kernels' caps)."""
+    past the kernels' 24 pair contacts)."""
     import numpy as np
 
     from jiminy_tpu_torch.core.tree import JointType, TreeBuilder
@@ -110,6 +116,14 @@ def _model(name):
         sens = (SensorKernelSpec(env.tree, env.sensors, env.n_substeps_per_obs)
                 if observe == "sensors" else None)
         return env.engine.substep_spec, sens
+    if name.startswith("atlas"):
+        from jiminy_tpu_torch.envs import AtlasEnv
+
+        observe = "sensors" if name.endswith("sensors") else "state"
+        env = AtlasEnv(observe=observe, self_collision="selfcol" in name, device="cpu")
+        sens = (SensorKernelSpec(env.tree, env.sensors, env.n_substeps_per_obs)
+                if observe == "sensors" else None)
+        return env.engine.substep_spec, sens
     if name == "forest":
         b = TreeBuilder(gravity=(0.0, 0.0, 0.0))
         for body in ("ball_a", "ball_b"):
@@ -148,7 +162,8 @@ def _model(name):
 MODELS = ("anymal_state", "anymal_sensors", "anymal_terrain", "anymal_sim2real", "anymal_spheres",
           "ant_state", "ant_sensors", "spotmicro_state", "spotmicro_sensors", "cartpole", "forest",
           "cassie_state", "cassie_sensors", "cassie_selfcol", "cassie_ptbox", "cassie_ptseg",
-          "cassie_flex", "cassie_flex_sensors", "slab")
+          "cassie_flex", "cassie_flex_sensors", "slab", "atlas_state", "atlas_sensors",
+          "atlas_selfcol", "atlas_selfcol_sensors")
 
 
 def _expected_sizes(spec, sens, lds):
@@ -178,7 +193,7 @@ def _disjoint(regions, names):
 def test_warp_workspace_layout(name):
     spec, sens = _model(name)
     t = spec.tree
-    assert t.nb <= 32 and t.nv <= 32 and spec.nc <= 48, "a model of the large frame's caps"
+    assert t.nb <= 32 and t.nv <= 32 and spec.nc <= 96, "a model of the large frame's caps"
     ws = spec.warp_workspace(sens)
     assert ws is not None and spec.warp_workspace(sens) is ws  # built once
     regions, lds = ws.regions, ws.lds
@@ -239,7 +254,7 @@ def test_large_frame_workspace_bytes(name):
 
 def test_past_the_caps_is_refused():
     """A model past the kernels' caps (the slab with two cubes: 32 pair
-    contacts, nc 96) gets no layout: ``warp_workspace`` raises, as the
+    contacts, past the 24 the kernels take) gets no layout: ``warp_workspace`` raises, as the
     entry points do, rather than route it anywhere."""
     spec = _slab_engine(n_cubes=2, solver="inline").substep_spec
     assert spec.nc == 96
