@@ -74,7 +74,7 @@ Phases (any failure raises and the script exits non-zero):
 0. a CUDA GPU is present; card name and power limit; nvcc build time of
    every source and ptxas's registers, stack and spills;
 1. every kernel against its plain version from the same inputs:
-   - K1 on random SPD systems (ANYmal, Atlas and Cassie layouts, with and
+   - K1 on random SPD systems (ANYmal, Atlas, Cassie, gantry and wheel layouts, with and
      without the KKT residual; ANYmal at B = 4096 with 8 sweeps; a ragged
      B = 1000), max |Δ| ≤ 1e-4 on v⁺, λ and the residual, and at B = 4096
      a second launch bit-equal;
@@ -266,6 +266,28 @@ step; with the pairs ``"kernel"``, ``substep_fusion=False`` and
 body's stages and the six kernels against their bounds); phase 0 prints
 their layouts beside the others'.
 
+The kinematic constraints, per-body wrenches and per-env friction (A.22,
+A.24) run after Atlas, `phase_chain_paths`: K1 in the gantry's (n 18, nc
+31, equality blocks of 6 and 1 rows) and the wheel's (n 6, nc 3) layouts
+at B = 4096 against its plain chain (and in phase 1's systems); three
+scenes through the entry points a user calls, each on K1 alone as the
+reference routes them: (a) ``ANYmalGantryEnv`` (the base welded 0.25 m
+above its stand pose, the LF knee locked) through ``"auto"``, 4 K1
+launches per env step, also counted by ``torch.profiler``; (b) ANYmal's
+engine stepped with ``fext_user`` (a lateral force on each shank) and
+``contact_params`` (each env's friction in [0.2, 1.2]), 4 per step, also
+counted by ``torch.profiler``; (c)
+wheels (``WheelConstraint``) and balls (``SphereConstraint``) on a
+Fourier ground per env, 1 per substep; each scene's kernel path substep
+by substep against its plain float32 and float64 paths (`_gate_vs_f64`);
+the gantry's weld error after 25 steps within 1.5× the plain float32
+path's (+1e-9) from one reset; rolling without slip on flat ground after
+0.5 s (contact point < 1e-2 m/s, tests/test_constraints.py's bound); the
+scenes' env-steps/s on ``"auto"`` and ``"inline"`` beside ANYmal's K2
+state path, and K1's time against its bound in each scene's layout
+(``gantry_constraint_solve``, ``fext_friction_constraint_solve``,
+``rolling_constraint_solve`` in the kernels line).
+
 4. the policy and PPO (A.7, A.8), after every kernel number
    (`phase_training`), on ``ANYmalEnv(observe="state", max_steps=500)``
    at ``examples/train.py``'s ANYmal settings (B = 2048, rollout 32, 4
@@ -374,7 +396,9 @@ def _time_cuda(fn, reps: int) -> float:
 
 
 def _chain_configs() -> dict:
-    """Phase 1's systems for K1: ANYmal's, Atlas's and Cassie's layouts."""
+    """Phase 1's systems for K1: ANYmal's, Atlas's and Cassie's layouts,
+    the gantry ANYmal's (a weld's 6 rows and a lock's 1 ahead of ANYmal's
+    rows) and the rolling wheel's (its 3 rows alone)."""
     from jiminy_tpu_torch.engine.solver import BlockSpec
     from jiminy_tpu_torch.ops.constraint_solve import SolveConfig
 
@@ -391,6 +415,15 @@ def _chain_configs() -> dict:
             n=22, nc=26, dt=2e-3, eq_blocks=(BlockSpec("equality", 0, 4),),
             bounds_span=(4, 10), contact_colors=((14, 2), (20, 2)),
             iters=4, relax=0.9,
+        ),
+        "gantry": SolveConfig(
+            n=18, nc=31, dt=5e-3,
+            eq_blocks=(BlockSpec("equality", 0, 6), BlockSpec("equality", 6, 1)),
+            bounds_span=(7, 12), contact_colors=((19, 2), (25, 2)), iters=4,
+        ),
+        "wheel": SolveConfig(
+            n=6, nc=3, dt=1e-3, eq_blocks=(BlockSpec("equality", 0, 3),), bounds_span=None,
+            contact_colors=(), iters=4,
         ),
     }
 
@@ -2910,6 +2943,408 @@ def phase_atlas_paths(dev, drive, drive_unfused, entry, path, act_gen) -> dict:
     return rates_a
 
 
+# ---- A.22 and A.24: the kinematic constraints, per-body wrenches and
+# per-env friction, each on the plain substep around K1 (the reference's
+# route for them)
+GANTRY_KW = dict(observe="state", step_dt=0.02, sim_dt=5e-3, pgs_iters=8)
+SHANK_FORCE = 40.0  # N along the world y on each shank, scene (b)
+FRICTION_RANGE = (0.2, 1.2)  # each env's ground friction, scene (b)
+ROLL_RADIUS = 0.2  # tests/test_constraints.py's wheel; the ball alike
+ROLL_SPIN = 5.0  # rad/s, rolling at v = ω·r
+SLIP_BOUND = 1e-2  # m/s, tests/test_constraints.py's bound on the contact point's speed
+# The kernel path's weld error against the plain float32 path's: at most
+# 1.5x it, plus a slack of 1e-9 (rad or m), a quarter of the smaller
+# reading on an H100 (4.4e-9 rad and 1.2e-8 m on either path), so that the
+# ratio decides.
+DRIFT_RATIO, DRIFT_SLACK = 1.5, 1e-9
+
+
+def _roll_engine(dev, kind, dtype=torch.float32, solver="auto", ground=None):
+    """tests/test_constraints.py's wheel (a free body, inertia diag(0.01,
+    0.02, 0.01), 1 kg, its hub a frame at the origin) under a
+    ``WheelConstraint`` of radius 0.2 about y, or a solid 1 kg ball of the
+    same radius under a ``SphereConstraint``; no contact site (n 6, nc 3),
+    1 ms substeps, 16 sweeps."""
+    from jiminy_tpu_torch.core.tree import JointType, TreeBuilder
+    from jiminy_tpu_torch.engine import Engine, EngineOptions
+    from jiminy_tpu_torch.engine.constraints import SphereConstraint, WheelConstraint
+
+    b = TreeBuilder()
+    i_ball = 0.4 * ROLL_RADIUS ** 2
+    inertia = (0.01, 0.02, 0.01) if kind == "wheel" else (i_ball, i_ball, i_ball)
+    body = b.add_body(kind, parent=-1, joint_type=JointType.FREE, mass=1.0, inertia=inertia,
+                      joint_name="root")
+    b.add_frame("hub", body)
+    c = (WheelConstraint(0, radius=ROLL_RADIUS) if kind == "wheel"
+         else SphereConstraint(0, radius=ROLL_RADIUS))
+    opts = EngineOptions(dt=1e-3, contact_model="constraint", constraint_solver=solver,
+                         compute_solver_residual=False)
+    return Engine(b.build(device=dev, dtype=dtype), opts, ground=ground, constraints=(c,),
+                  device=dev)
+
+
+def _roll_inputs(eng, gen, B, ground=None):
+    """Upright wheels (or balls) on the ground at random xy in [−1, 1]²,
+    the hub r above it, rolling along x at v = ω·r."""
+    dev = eng.device
+    q = torch.zeros(B, 7, device=dev)
+    q[:, :2] = 2.0 * torch.rand(B, 2, generator=gen, device=dev) - 1.0
+    q[:, 2] = ROLL_RADIUS + (0.0 if ground is None else ground.query(q[:, :2])[0])
+    q[:, 6] = 1.0
+    v = torch.zeros(B, 6, device=dev)
+    v[:, 0], v[:, 4] = ROLL_SPIN * ROLL_RADIUS, ROLL_SPIN
+    return q, v
+
+
+def _contact_speed(sim):
+    """(B,) speed of each wheel's lowest point (hub − r·e_z) on flat
+    ground, and (B, 3) the hub's world velocity."""
+    from jiminy_tpu_torch.math import so3
+
+    R = so3.quat_to_matrix(sim.q[:, 3:7])
+    v_w = (R @ sim.v[:, :3, None])[..., 0]
+    w_w = (R @ sim.v[:, 3:6, None])[..., 0]
+    down = torch.tensor([0.0, 0.0, -ROLL_RADIUS], device=sim.q.device).expand_as(w_w)
+    return torch.linalg.vector_norm(v_w + so3.cross(w_w, down), dim=-1), v_w
+
+
+def _shank_wrench(tree, B, dev):
+    """Scene (b)'s (B, nb, 6) local wrenches: ``SHANK_FORCE`` along the
+    local y of each shank, nothing elsewhere."""
+    f = torch.zeros(B, tree.nb, 6, device=dev)
+    for leg in ("LF", "RF", "LH", "RH"):
+        f[:, tree.frame_body[tree.frame_index(f"{leg}_SHANK_frame")], 4] = SHANK_FORCE
+    return f
+
+
+def _weld_error(env, sim) -> dict:
+    """The gantry's weld error over the envs, from its rows' target
+    −(α/dt)·[log(R·R_refᵀ); p − p_ref]: the largest orientation (rad) and
+    position (m) error."""
+    from jiminy_tpu_torch.core import algos
+
+    eng = env.engine
+    weld = eng.constraints[0]
+    _, t = weld.rows(eng.tree, sim.q, algos.forward_kinematics(eng.tree, sim.q),
+                     eng.substep_spec.dt)
+    err = t.double() / -weld.alpha_over_dt(eng.substep_spec.dt)
+    return {"rot": torch.linalg.vector_norm(err[:, :3], dim=-1).max().item(),
+            "pos": torch.linalg.vector_norm(err[:, 3:], dim=-1).max().item()}
+
+
+def _gate_substeps(label, n_sub, k_step, p_step, p64_step, sim, u) -> list:
+    """``n_sub`` substeps from ``sim`` with the command ``u``, each feeding
+    the kernel path ``k_step``, the plain float32 path ``p_step`` and the
+    plain float64 path ``p64_step`` (each ``(sim, u) → sim``) the same
+    inputs, held by `_gate_vs_f64` on q, v and λ; the kernel path carries
+    on. Returns the gates."""
+    gates = []
+    for i in range(n_sub):
+        nk, np32 = k_step(sim, u), p_step(sim, u)
+        sim64 = type(sim)(**{f: getattr(sim, f).double() for f in sim.FIELDS})
+        n64 = p64_step(sim64, u.double())
+        gates.append({f: _gate_vs_f64(f"{label} substep {i} {f}", getattr(nk, f),
+                                      getattr(np32, f), getattr(n64, f))
+                      for f in ("q", "v", "lam")})
+        sim = nk
+    torch.cuda.synchronize()
+    return gates
+
+
+def _profiled_launches(fn) -> dict:
+    """GPU kernel launches of ``fn()`` under ``torch.profiler``: K1's
+    (``solve_chain_warp``), the whole-substep kernels' (``substep``) and all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"k1": sum(e.count for e in ev if "solve_chain_warp" in e.key),
+            "substep": sum(e.count for e in ev if "substep" in e.key),
+            "all": sum(e.count for e in ev)}
+
+
+def _check_profiled(label, prof, k1) -> None:
+    """Fails unless the profiler recorded GPU kernels, ``k1`` of them K1's
+    and none a whole-substep kernel's."""
+    if not prof["all"]:
+        raise AssertionError(f"{label}: torch.profiler recorded no GPU kernel")
+    if prof["k1"] != k1 or prof["substep"]:
+        raise AssertionError(f"{label} under the profiler: {prof}, expected {k1} K1 launches "
+                             f"and no whole-substep kernel")
+
+
+def phase_chain_paths(dev, drive, entry, main_err, path, act_gen) -> dict:
+    """Phases 2 and 3 of the slice's three scenes (A.22, A.24), each
+    through the entry points a user calls and on the chain kernel K1, as
+    the reference routes them; with ``run``'s helpers (``drive``,
+    ``entry``, ``path``):
+
+    - (a) the gantry ANYmal, ``ANYmalGantryEnv(observe="state")``: the
+      base welded 0.25 m above its stand pose, the LF knee locked; through
+      ``"auto"`` (→ ``"kernel"``), nc 31: 4 K1 launches per env step and
+      no other kernel of ours (counted by the wrappers and by
+      ``torch.profiler``), 25 env steps;
+    - (b) ANYmal's engine (``"substep"``) through ``Engine.step(...,
+      fext_user=, contact_params=)``: a lateral force on each shank and
+      each env's friction drawn from U(0.2, 1.2): 4 K1 launches per step,
+      no K2 or K3 (counted by the wrappers and by ``torch.profiler``),
+      25 steps;
+    - (c) 4096 wheels (``WheelConstraint``) and 4096 balls
+      (``SphereConstraint``) on a Fourier ground per env
+      (``Engine.step(ground=)``), n 6, nc 3, 10 steps of 1 ms each;
+
+    K1 against its plain chain at B = 4096 in the gantry's and the
+    wheel's layouts (phase 1's tolerance); each scene's kernel path
+    substep by substep against its plain float32 and float64 paths
+    (`_gate_vs_f64`); the gantry's weld error after 25 steps within 1.5×
+    the plain float32 path's (+1e-9) from the same inputs; rolling
+    without slip on flat ground after 0.5 s (contact point < 1e-2 m/s);
+    the scenes' env-steps/s on ``"auto"`` and ``"inline"`` beside ANYmal's
+    K2 state path; K1's time and bound in each scene's layout. Returns the
+    rates."""
+    from jiminy_tpu_torch.engine.contact import ContactParams
+    from jiminy_tpu_torch.engine.ground import sample_fourier_ground
+    from jiminy_tpu_torch.envs import ANYmalEnv, ANYmalGantryEnv
+    from jiminy_tpu_torch.ops.constraint_solve import solve_batched, solve_reference
+
+    cs = "constraint_solve"
+    # ---- K1 in the scenes' layouts, against its plain chain; each scene's
+    # engine is checked below to build exactly this layout
+    held = {name: dataclasses.replace(_chain_configs()[name], iters=iters)
+            for name, iters in (("gantry", 8), ("wheel", 16))}
+    for name, cfg in held.items():
+        gen = torch.Generator(device=dev).manual_seed(100)
+        args = _rand_system(gen, B_MAIN, cfg.n, cfg.nc, dev)
+        vk, lk, _ = solve_batched(cfg, *args, device=dev)
+        vr, lr, _ = solve_reference(cfg, *args)
+        err = max(_max_err(vk, vr), _max_err(lk, lr))
+        print(f"[phase 1] K1 in the {name} layout (n {cfg.n}, nc {cfg.nc}, blocks "
+              f"{[tuple(b)[1:] for b in cfg.eq_blocks]}) at B={B_MAIN}: max|Δ| {err:.3g}")
+        if err > TOL:
+            raise AssertionError(f"K1 disagrees with its plain chain in the {name} layout: {err}")
+        main_err[f"{'gantry' if name == 'gantry' else 'rolling'}_{cs}"] = err
+
+    # ---- (a) the gantry
+    env_g = ANYmalGantryEnv(device=dev, **GANTRY_KW)
+    spec_g = env_g.engine.substep_spec
+    blocks = [tuple(b)[1:] for b in spec_g.cfg.eq_blocks]
+    print(f"[phase 2] gantry: 'auto' → {env_g.engine.backend!r}, nc {spec_g.nc}, equality blocks "
+          f"{blocks}, bounds {spec_g.cfg.bounds_span}, colors {spec_g.cfg.contact_colors}")
+    if env_g.engine.backend != "kernel" or spec_g.cfg != held["gantry"]:
+        raise AssertionError(f"the gantry does not resolve to the chain kernel in the layout "
+                             f"K1 was held in: {env_g.engine.backend!r}, {spec_g.cfg}")
+    st_g = drive("gantry path", env_g, 110, STEPS, constraint_solve=4 * STEPS)
+    prof = _profiled_launches(lambda: [env_g.step(st_g, _uniform(act_gen, dev)) for _ in range(2)])
+    print(f"[phase 2] gantry path, 2 env steps under torch.profiler: GPU kernel launches "
+          f"{json.dumps(prof)} (K1 {prof['k1'] / 2:.0f} per env step, of "
+          f"{prof['all'] / 2:.0f})")
+    _check_profiled("gantry path", prof, k1=8)
+    env_gi = ANYmalGantryEnv(device=dev, constraint_solver="inline", **GANTRY_KW)
+    env_g64 = ANYmalGantryEnv(device=dev, constraint_solver="inline", dtype=torch.float64,
+                              **GANTRY_KW)
+    u_g = env_g._action_to_command(_uniform(act_gen, dev), st_g.sim)
+    gates = _gate_substeps("gantry", env_g.n_substeps,
+                           lambda s, u: env_g.engine.step(s, u),
+                           lambda s, u: env_gi.engine.step(s, u),
+                           lambda s, u: env_g64.engine.step(s, u), st_g.sim, u_g)
+    print("[phase 2] gantry, one env step substep by substep, the kernel path vs the plain "
+          "float32 and float64 paths on the same inputs: " + json.dumps(gates))
+    # the weld's drift: 25 steps on each path from one reset, the same actions
+    s_k = env_g.reset(torch.Generator(device=dev).manual_seed(111), B_MAIN)
+    s_p = s_k
+    for _ in range(STEPS):
+        a = _uniform(act_gen, dev)
+        s_k, s_p = env_g.step_no_reset(s_k, a), env_gi.step_no_reset(s_p, a)
+    drift_k, drift_p = _weld_error(env_g, s_k.sim), _weld_error(env_gi, s_p.sim)
+    print(f"[phase 2] gantry weld error after {STEPS} env steps from one reset (largest over "
+          f"{B_MAIN} envs): kernel path {json.dumps(drift_k)}, plain float32 path "
+          f"{json.dumps(drift_p)}")
+    for k in ("rot", "pos"):
+        if drift_k[k] > DRIFT_RATIO * drift_p[k] + DRIFT_SLACK:
+            raise AssertionError(f"gantry weld drift {k}: kernel {drift_k[k]} against plain "
+                                 f"{drift_p[k]}")
+    _check_finite(s_k, "the gantry drift run")
+
+    # ---- (b) per-body wrenches and per-env friction on ANYmal's engine
+    env_b = ANYmalEnv(device=dev, **GANTRY_KW)
+    eng_b = env_b.engine
+    if eng_b.backend != "substep":
+        raise AssertionError("ANYmal's engine is not on the whole-substep kernels")
+    fgen = torch.Generator(device=dev).manual_seed(112)
+    lo, hi = FRICTION_RANGE
+    cp = ContactParams(friction=lo + (hi - lo) * torch.rand(B_MAIN, generator=fgen, device=dev))
+    fext = _shank_wrench(eng_b.tree, B_MAIN, dev)
+    extra = dict(fext_user=fext, contact_params=cp)
+    st_b = env_b.reset(torch.Generator(device=dev).manual_seed(113), B_MAIN)
+    sim_b = st_b.sim
+    torch.cuda.synchronize()
+    _reset_counts()
+    for _ in range(STEPS):
+        u = env_b._action_to_command(_uniform(act_gen, dev), sim_b)
+        sim_b = eng_b.step(sim_b, u, n_substeps=env_b.n_substeps, **extra)
+    torch.cuda.synchronize()
+    label = "external forces and per-env friction"
+    path[label] = got = _counts()
+    warp = _check_warp(label, eng_b.substep_spec, got)
+    print(f"[phase 2] {label} (ANYmal's engine, {SHANK_FORCE} N on each shank, friction "
+          f"{cp.friction.min().item():.3f}–{cp.friction.max().item():.3f}), {STEPS} steps at "
+          f"B={B_MAIN}: launches {json.dumps({n: c for n, c in got.items() if c})} (the warp "
+          f"body {warp}); base y speed mean {sim_b.v[:, 1].mean().item():.4f} m/s")
+    if got != _only(constraint_solve=4 * STEPS) or not bool(torch.isfinite(sim_b.v).all()):
+        raise AssertionError(f"{label}: launches {got}")
+    prof = _profiled_launches(lambda: [
+        eng_b.step(sim_b, u, n_substeps=env_b.n_substeps, **extra) for _ in range(2)])
+    print(f"[phase 2] {label}, 2 steps under torch.profiler: GPU kernel launches "
+          f"{json.dumps(prof)}")
+    _check_profiled(label, prof, k1=8)
+    eng_bi = _anymal_engine(dev, residual=False, solver="inline")
+    eng_b64 = _anymal_engine(dev, torch.float64, residual=False, solver="inline")
+    extra64 = dict(fext_user=fext.double(),
+                   contact_params=ContactParams(friction=cp.friction.double()))
+    u_b = env_b._action_to_command(_uniform(act_gen, dev), sim_b)
+    gates = _gate_substeps("external forces", env_b.n_substeps,
+                           lambda s, u: eng_b.step(s, u, **extra),
+                           lambda s, u: eng_bi.step(s, u, **extra),
+                           lambda s, u: eng_b64.step(s, u, **extra64), sim_b, u_b)
+    print(f"[phase 2] {label}, one env step substep by substep, the kernel path vs the plain "
+          f"float32 and float64 paths: " + json.dumps(gates))
+
+    # ---- (c) rolling: wheels and balls on a Fourier ground per env
+    rgen = torch.Generator(device=dev).manual_seed(114)
+
+    def fourier(batch_shape):
+        return sample_fourier_ground(rgen, n_terms=16, amplitude=0.08, wavelength=1.5, octaves=3,
+                                     batch_shape=batch_shape)
+
+    roll_launches = 0
+    for kind in ("wheel", "ball"):
+        template = fourier(())
+        eng_r = _roll_engine(dev, kind, ground=template)
+        grounds = fourier((B_MAIN,))
+        if eng_r.backend != "kernel" or eng_r.substep_spec.cfg != held["wheel"]:
+            raise AssertionError(f"{kind}: 'auto' → {eng_r.backend!r} in the layout "
+                                 f"{eng_r.substep_spec.cfg}")
+        q, v = _roll_inputs(eng_r, rgen, B_MAIN, grounds)
+        sim_r = eng_r.reset(q, v)
+        zero = torch.zeros(B_MAIN, 6, device=dev)
+        torch.cuda.synchronize()
+        _reset_counts()
+        for _ in range(10):
+            sim_r = eng_r.step(sim_r, zero, ground=grounds)
+        torch.cuda.synchronize()
+        path[f"rolling {kind}s"] = got = _counts()
+        _check_warp(f"rolling {kind}s", eng_r.substep_spec, got)
+        h, _ = grounds.query(sim_r.q[:, :2])
+        lift = (sim_r.q[:, 2] - h - ROLL_RADIUS).abs().max().item()
+        print(f"[phase 2] rolling {kind}s on a Fourier ground per env, 10 steps of 1 ms at "
+              f"B={B_MAIN}: launches {json.dumps({n: c for n, c in got.items() if c})}; |hub "
+              f"height − ground height under it − r| {lift:.3g} m at worst (the contact point "
+              f"lies along the normal)")
+        if got != _only(constraint_solve=10) or not bool(torch.isfinite(sim_r.v).all()):
+            raise AssertionError(f"rolling {kind}s: launches {got}")
+        roll_launches += got[cs]
+        eng_ri = _roll_engine(dev, kind, solver="inline", ground=template)
+        eng_r64 = _roll_engine(dev, kind, torch.float64, solver="inline", ground=template)
+        g64 = type(grounds)(grounds.gc.double())
+        gates = _gate_substeps(f"rolling {kind}s", 2,
+                               lambda s, u: eng_r.step(s, u, ground=grounds),
+                               lambda s, u: eng_ri.step(s, u, ground=grounds),
+                               lambda s, u: eng_r64.step(s, u, ground=g64), sim_r, zero)
+        print(f"[phase 2] rolling {kind}s, two substeps, the kernel path vs the plain float32 "
+              f"and float64 paths: " + json.dumps(gates))
+    # rolling without slip on flat ground for 0.5 s
+    eng_w = _roll_engine(dev, "wheel")
+    sim_w = eng_w.reset(*_roll_inputs(eng_w, rgen, B_MAIN))
+    torch.cuda.synchronize()
+    _reset_counts()
+    sim_w = eng_w.step(sim_w, torch.zeros(B_MAIN, 6, device=dev), n_substeps=500)
+    torch.cuda.synchronize()
+    got = _counts()
+    slip, v_w = _contact_speed(sim_w)
+    slip = slip.max().item()
+    print(f"[phase 2] rolling wheels on flat ground, 0.5 s (500 substeps) at B={B_MAIN}: "
+          f"launches {json.dumps({n: c for n, c in got.items() if c})}; contact-point speed "
+          f"{slip:.3g} m/s at worst (bound {SLIP_BOUND}); world forward speed "
+          f"{v_w[:, 0].min().item():.5f}–{v_w[:, 0].max().item():.5f} m/s (ω·r = "
+          f"{ROLL_SPIN * ROLL_RADIUS})")
+    if got != _only(constraint_solve=500) or not slip < SLIP_BOUND:
+        raise AssertionError(f"rolling without slip: launches {got}, contact speed {slip}")
+
+    # ---- phase 3: rates in this call, and K1's time in each layout
+    rates = {}
+    for _ in range(3):  # warm-up
+        st_g = env_g.step(st_g, _uniform(act_gen, dev))
+    before = _counts()
+    rates["gantry, 'auto' (K1)"], st_g = _env_rate(env_g, st_g, act_gen, dev, STEPS, 3)
+    launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+    if launched != {cs: 4 * 3 * STEPS}:
+        raise AssertionError(f"gantry path, timed: {launched}")
+    st_gi = env_gi.reset(torch.Generator(device=dev).manual_seed(115), B_MAIN)
+    st_gi = env_gi.step(st_gi, _uniform(act_gen, dev))  # warm-up
+    before = _counts()
+    rates["gantry, 'inline'"], _ = _env_rate(env_gi, st_gi, act_gen, dev, 5, 2)
+    if _counts() != before:
+        raise AssertionError("the inline gantry launched a kernel of ours")
+
+    def engine_rate(eng, sim, kw, steps, loops):
+        out = []
+        for _ in range(loops):
+            cmds = [env_b._action_to_command(_uniform(act_gen, dev), sim) for _ in range(steps)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for u in cmds:
+                sim = eng.step(sim, u, n_substeps=env_b.n_substeps, **kw)
+            torch.cuda.synchronize()
+            out.append(B_MAIN * steps / (time.perf_counter() - t0))
+        return out
+
+    eng_b.step(sim_b, u_b, n_substeps=4, **extra)  # warm-up
+    before = _counts()
+    rates["external forces and friction, 'substep' (K1)"] = engine_rate(eng_b, sim_b, extra,
+                                                                        STEPS, 3)
+    launched = {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+    if launched != {cs: 4 * 3 * STEPS}:
+        raise AssertionError(f"external forces path, timed: {launched}")
+    eng_bi.step(sim_b, u_b, n_substeps=4, **extra)  # warm-up
+    rates["external forces and friction, 'inline'"] = engine_rate(eng_bi, sim_b, extra, 5, 2)
+    st_m = env_b.reset(torch.Generator(device=dev).manual_seed(116), B_MAIN)
+    for _ in range(5):  # warm-up
+        st_m = env_b.step(st_m, _uniform(act_gen, dev))
+    rates["ANYmal state path (K2)"], _ = _env_rate(env_b, st_m, act_gen, dev, STEPS, 3)
+    for k, r in rates.items():
+        print(f"[phase 3] env-steps/s at B={B_MAIN}, {k}: {[round(x, 1) for x in r]} "
+              f"(max {max(r):.1f})")
+    k2 = max(rates["ANYmal state path (K2)"])
+    r_a = max(rates["gantry, 'auto' (K1)"]) / k2
+    r_b = max(rates["external forces and friction, 'substep' (K1)"]) / k2
+    print(f"[phase 3] against ANYmal's K2 state path (max against max): the gantry's K1 path "
+          f"{r_a:.4f}×, the external forces' {r_b:.4f}×")
+    src = "jiminy_tpu_torch/csrc/constraint_solve.cu"
+    k1_src = "jiminy_tpu/ops/constraint_solve.py:358"
+    gcfg = spec_g.cfg
+    for name, cfg, launches in (
+            ("gantry", gcfg, path["gantry path"][cs]),
+            ("fext_friction", eng_b.substep_spec.cfg, path[label][cs]),
+            ("rolling", eng_w.substep_spec.cfg, roll_launches)):
+        gen = torch.Generator(device=dev).manual_seed(117)
+        args = _rand_system(gen, B_MAIN, cfg.n, cfg.nc, dev)
+        if name == "fext_friction":
+            main_err[f"{name}_{cs}"] = max(
+                _max_err(a, b) for a, b in zip(solve_batched(cfg, *args, device=dev)[:2],
+                                               solve_reference(cfg, *args)[:2]))
+        print(f"[phase 3] K1 in the {name} layout: n {cfg.n}, nc {cfg.nc}, {cfg.iters} sweeps, "
+              f"{_solve_flops(cfg)} FLOP per env")
+        entry(f"{name}_{cs}", src, k1_src, launches,
+              _time_cuda(lambda: solve_batched(cfg, *args, device=dev), 50),
+              _time_cuda(lambda: solve_reference(cfg, *args), 5),
+              _solve_bytes(cfg, B_MAIN), _solve_flops(cfg) * B_MAIN)
+    return rates
+
+
 # ---- A.15's walkers: AntEnv (ant_run, ant_sensors_run5) and SpotmicroEnv
 # (spotmicro_run, spotmicro_sensors_run) as examples/train.py builds them:
 # the reference's defaults, 20 substeps per env step, the ANYmal frame
@@ -4309,6 +4744,9 @@ def run(dev) -> None:
     # every other part
     main_err.update(phase_atlas_vs_plain(dev))
     rates_a = phase_atlas_paths(dev, drive, drive_unfused, entry, path, act_gen)
+    # ---- A.22, A.24: the kinematic constraints, per-body wrenches and
+    # per-env friction on the chain kernel, after every other part
+    rates_chain = phase_chain_paths(dev, drive, entry, main_err, path, act_gen)
 
     # after every large-frame launch: the ANYmal sensor K2 again, beside its
     # time before them (every kernel runs the warp body; none keeps local
@@ -4326,6 +4764,7 @@ def run(dev) -> None:
                       "env_steps_per_s_unfused_path": rates_k3,
                       "env_steps_per_s_cassie": rates_c, "env_steps_per_s_walkers": rates_w,
                       "steps_per_s_prismatic_slab": rates_sl, "env_steps_per_s_atlas": rates_a,
+                      "env_steps_per_s_chain_paths": rates_chain,
                       "nvcc_build_s": build,
                       "ppo": training}))
     print(json.dumps({"kernels": kernels}))

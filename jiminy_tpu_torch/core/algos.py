@@ -1,8 +1,8 @@
 """Featherstone rigid-body algorithms over a batch of configurations.
 
 Counterpart of ``jiminy_tpu/core/algos.py`` (kinematics, body
-accelerations, RNEA with armature, CRBA, point Jacobians, Lie-group
-integrate) for FREE, REVOLUTE, PRISMATIC and SPHERICAL joints; a joint's columns
+accelerations, RNEA with armature, CRBA, point and 6-D frame Jacobians,
+Lie-group integrate) for FREE, REVOLUTE, PRISMATIC and SPHERICAL joints; a joint's columns
 enter every algorithm through its motion subspace alone. The reference
 writes them for one robot and vmaps; here every function takes batched
 ``q (B, nq)``, ``v (B, nv)`` and loops over bodies in Python (the
@@ -204,13 +204,10 @@ def crba(tree: KinematicTree, q, xl=None, inertials=None) -> torch.Tensor:
     return M + torch.diag_embed(inertials.armature)
 
 
-def point_jacobian(
-    tree: KinematicTree, xw: list[Transform], body: int, point_world
-) -> torch.Tensor:
-    """World-frame linear-velocity Jacobian (B, 3, nv) of a point attached
-    to ``body``, walking the ancestor chain."""
-    B = point_world.shape[0]
-    J = point_world.new_zeros(B, 3, tree.nv)
+def _chain_columns(tree: KinematicTree, xw: list[Transform], body: int, point_world):
+    """For ``body`` and each of its ancestors j: (j's velocity slice, its
+    world angular columns (B, 3, nv_j), the world linear velocity columns
+    of the point ``point_world`` (B, 3) that it moves (B, 3, nv_j))."""
     j = body
     while j >= 0:
         S = motion_subspace(tree, j)
@@ -219,8 +216,30 @@ def point_jacobian(
         v_cols = R @ S[3:, :]  # world linear at the joint origin
         r = (point_world - o)[:, None, :]
         lin = v_cols + so3.cross(w_cols.transpose(-1, -2), r).transpose(-1, -2)
-        J[:, :, tree.v_slice(j)] = lin
+        yield tree.v_slice(j), w_cols, lin
         j = tree.parent[j]
+
+
+def point_jacobian(
+    tree: KinematicTree, xw: list[Transform], body: int, point_world
+) -> torch.Tensor:
+    """World-frame linear-velocity Jacobian (B, 3, nv) of a point attached
+    to ``body``, walking the ancestor chain."""
+    J = point_world.new_zeros(point_world.shape[0], 3, tree.nv)
+    for sl, _, lin in _chain_columns(tree, xw, body, point_world):
+        J[:, :, sl] = lin
+    return J
+
+
+def frame_jacobian6(
+    tree: KinematicTree, xw: list[Transform], body: int, point_world
+) -> torch.Tensor:
+    """World-frame 6-D Jacobian (B, 6, nv) [angular; linear] of a frame at
+    ``point_world`` attached to ``body``."""
+    J = point_world.new_zeros(point_world.shape[0], 6, tree.nv)
+    for sl, w_cols, lin in _chain_columns(tree, xw, body, point_world):
+        J[:, :3, sl] = w_cols
+        J[:, 3:, sl] = lin
     return J
 
 

@@ -23,8 +23,9 @@ from jiminy_tpu_torch.math.spatial import Transform, mv
 @dataclasses.dataclass(frozen=True)
 class ContactParams:
     """The reference's ``engine.contacts`` option block. The impulse path
-    reads ``friction`` only; the penalty parameters are kept so models
-    cross unchanged."""
+    reads ``friction`` only (a float, or in ``Engine.step(...,
+    contact_params=)`` each env's (B,) tensor); the penalty parameters are
+    kept so models cross unchanged."""
 
     stiffness: float = 1e5
     damping: float = 2e3

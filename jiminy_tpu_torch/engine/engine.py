@@ -28,8 +28,9 @@ The substep's physics has three backends, selected by
   reference's ``"xla"``), so the same physics runs with no kernel;
 - ``"auto"`` (the default): ``"substep"`` when the model is within the
   whole-substep kernels' caps (nb ≤ 32, nv ≤ 32, nc ≤ 96, ≤ 24 pair
-  contacts, ≤ 16 PGS colors: every model the port builds, Atlas with its
-  self-collision pairs at nc 83 included), else ``"kernel"`` when it is
+  contacts, ≤ 16 PGS colors, no kinematic constraint but distance ones:
+  every model the port builds, Atlas with its self-collision pairs at nc
+  83 included), else ``"kernel"`` when it is
   within the chain kernel's (nv ≤ 32, nc ≤ 96). Beyond both, ``"inline"``
   on the CPU (where every backend runs the plain versions), and on CUDA a
   ValueError: the plain physics runs on the card only when ``"inline"``
@@ -38,6 +39,16 @@ The substep's physics has three backends, selected by
 
 Every backend runs the same substep: :func:`substep_reference` is the
 plain one, and the kernels are held against it.
+
+The inputs decide the route, as in the reference, and never a failure:
+per-body external wrenches (``step(..., fext_user=)``) and per-env
+contact parameters (``contact_params=``, a
+:class:`~jiminy_tpu_torch.engine.contact.ContactParams` whose friction
+may be a (B,) tensor) keep a step off the whole-substep kernels, so on
+any backend such a step runs the per-substep loop of the plain substep:
+around the chain kernel K1 on ``"substep"`` and ``"kernel"``, around the
+plain chain on ``"inline"``. So do kinematic constraints other than
+distance ones, through ``"auto"`` resolving to ``"kernel"``.
 
 :meth:`Engine.step_with_sensors` is the fused step with the sensor
 stage (the reference's ``step_with_sensors``): on the ``"substep"``
@@ -63,18 +74,22 @@ color, on every backend (the reference's ``pair_rows``); they need
 assembly, more than 24 pair contacts keep a model off the whole-substep
 kernels.
 
-Closed loops: ``constraints`` (distance constraints,
-:class:`~jiminy_tpu_torch.engine.constraints.DistanceConstraint`) are
-equality rows of every substep, stacked ahead of the joint bounds and
-contacts, on every backend. Joint springs (the tree's ``stiffness``: −k·q
+Kinematic constraints: ``constraints`` (any of
+:mod:`jiminy_tpu_torch.engine.constraints`' frame, joint, distance,
+sphere and wheel constraints) are equality rows of every substep, one
+block each, stacked ahead of the joint bounds and contacts, on every
+backend; the sphere and wheel rows roll on the step's ground. Only
+distance constraints (closed loops such as Cassie's pushrods) ride the
+whole-substep kernels, as in the reference: ``"substep"`` with any other
+raises at ``Engine(...)``. Joint springs (the tree's ``stiffness``: −k·q
 on 1-DoF joints, −k·log(quat) on the SPHERICAL flexibility joints) are
 part of the actuation torque and integrate implicitly with the joint
 damping.
 
 Contacts run as PGS rows: ``EngineOptions.contact_model`` defaults to the
 reference's ``"spring_damper"``, which the engine refuses. Not ported
-yet (each raises): penalty contacts and other steppers (ROADMAP A.16),
-kinematic constraints other than the distance constraint (A.22).
+yet (each raises): penalty contacts and other steppers (ROADMAP A.16);
+so the stiffness and damping of ``ContactParams`` stay unread.
 """
 
 from __future__ import annotations
@@ -176,8 +191,9 @@ class Engine:
     joint torque when there are none), a :class:`PDController`, or any
     ``fn(cmd, q, v) → motor command``. The first two are declarative, so
     the fused kernel can evaluate them in-kernel. ``constraints``: the
-    kinematic constraints of the model (distance constraints, e.g.
-    Cassie's pushrods), rows of every substep's solve.
+    kinematic constraints of the model (frame, joint, distance, sphere
+    and wheel constraints; e.g. Cassie's pushrods), rows of every
+    substep's solve.
     ``collision_pairs``: declared body-body pairs
     (:class:`~jiminy_tpu_torch.engine.collision.CollisionPair`), contact
     rows of every substep's solve."""
@@ -219,7 +235,7 @@ class Engine:
         # the static substep: row layout, solve configuration, constants
         self.substep_spec = spec = substep_ops.SubstepSpec(
             self.tree, opts, self.ground, motors=self.motors, torque=torque,
-            dist_constraints=self.constraints,
+            constraints=self.constraints,
             pairs=CollisionPairSet(self.tree, self.collision_pairs, float(opts.contacts.friction))
             if self.collision_pairs else None,
         )
@@ -338,22 +354,27 @@ class Engine:
             cfg, *(a.contiguous() for a in args), device=self.device
         )
 
-    def _impulse_substep(self, q, v, u, lam0, wrench, gc, mp=None):
+    def _impulse_substep(self, q, v, u, lam0, wrench, gc, mp=None, fext=None, friction=None):
         """One semi-implicit Euler substep with velocity-level PGS impulses
-        for distance constraints, joint bounds, ground contacts and
+        for kinematic constraints, joint bounds, ground contacts and
         collision pairs (``gc``: the per-env ground
         coefficients or None; ``mp``: the per-env packed model parameters
-        or None). Returns (q⁺, v⁺, contact_forces, residual, λ, a, τ)."""
+        or None; ``fext``: per-body wrenches or None; ``friction``: the
+        ground friction per env or None). K3 on ``"substep"`` unless
+        ``fext`` or ``friction`` is given; then, and on ``"kernel"``, the
+        plain substep around K1; on ``"inline"`` the plain substep.
+        Returns (q⁺, v⁺, contact_forces, residual, λ, a, τ)."""
         spec, dt = self.substep_spec, self.substep_spec.dt
         mscale = substep_ops.unpack_model_params(spec, mp)[1] if mp is not None else None
         tau = self._joint_torque(u, q, v, mscale)
         backend = self.backend
-        if backend == "substep":
+        if backend == "substep" and fext is None and friction is None:
             out = substep_ops.substep_batched(spec, q, v, tau, lam0, wrench, gc=gc, mp=mp)
         else:
-            solve = self._solve_chain_kernel if backend == "kernel" else None
+            solve = None if backend == "inline" else self._solve_chain_kernel
             out = substep_ops.substep_reference(
-                spec, q, v, tau, lam0, wrench, solve=solve, gc=gc, mp=mp
+                spec, q, v, tau, lam0, wrench, solve=solve, gc=gc, mp=mp, fext=fext,
+                friction=friction,
             )
         q_next, v_next, lam, residual, impulse = out
         return q_next, v_next, impulse / dt, residual, lam, (v_next - v) / dt, tau
@@ -421,9 +442,36 @@ class Engine:
         )
         return sim, bufs
 
+    def _friction(self, contact_params, batch_size: int):
+        """The ground friction that ``contact_params`` sets: None for None,
+        else a float or each env's (B,) tensor on the engine's device."""
+        if contact_params is None:
+            return None
+        mu = contact_params.friction
+        if not torch.is_tensor(mu):
+            return float(mu)
+        mu = mu.to(device=self.device, dtype=self.tree.dtype)
+        if mu.dim() > 1 or mu.numel() not in (1, batch_size):
+            raise ValueError(f"contact_params.friction of shape {tuple(mu.shape)} for a batch of "
+                             f"{batch_size}: a float or one per env")
+        return mu
+
+    def _fext(self, fext_user, batch_size: int):
+        """``fext_user`` (B, nb, 6) or (nb, 6) on the engine's device, or
+        None."""
+        if fext_user is None:
+            return None
+        f = fext_user.to(device=self.device, dtype=self.tree.dtype)
+        nb = self.tree.nb
+        if tuple(f.shape) not in ((nb, 6), (batch_size, nb, 6)):
+            raise ValueError(f"fext_user of shape {tuple(f.shape)}: expected ({nb}, 6) or "
+                             f"({batch_size}, {nb}, 6)")
+        return f
+
     def step(
         self, state: SimState, u: torch.Tensor, n_substeps: int = 1,
         base_wrench: torch.Tensor | None = None, ground=None, model_params=None,
+        fext_user: torch.Tensor | None = None, contact_params: ContactParams | None = None,
     ) -> SimState:
         """Advance by ``n_substeps × dt`` with the zero-order-hold command
         ``u`` (B, nm). ``base_wrench``: optional (B, 6) local [ang; lin]
@@ -433,14 +481,25 @@ class Engine:
         (None: the engine's ground); anything else raises ValueError.
         ``model_params``: optional (B, n_mp) packed rows
         (:meth:`_pack_model_params`) perturbing each env's inertials,
-        armature and motors."""
+        armature and motors. ``fext_user``: optional (B, nb, 6) or (nb,
+        6) local [ang; lin] wrenches on every body held over the step,
+        added to ``base_wrench``. ``contact_params``: optional
+        :class:`ContactParams` whose ``friction`` (a float or each env's
+        (B,) tensor) replaces the options' on the ground contacts (the
+        collision pairs keep theirs). Either of the last two keeps the
+        step off the whole-substep kernels, as in the reference: every
+        backend then runs the plain substep per substep, around the chain
+        kernel K1 on ``"substep"`` and ``"kernel"``."""
         spec, dt = self.substep_spec, self.substep_spec.dt
         q, v, t, lam = state.q, state.v, state.t, state.lam
         wrench = base_wrench
-        gc = self._ground_coef(ground, q.shape[0])
+        B = q.shape[0]
+        gc = self._ground_coef(ground, B)
         mp = model_params
-        substep_ops._check_mp("Engine.step", spec, mp, q.shape[0])
-        if self.backend == "substep":
+        substep_ops._check_mp("Engine.step", spec, mp, B)
+        fext, friction = self._fext(fext_user, B), self._friction(contact_params, B)
+        plain = fext is not None or friction is not None
+        if self.backend == "substep" and not plain:
             if wrench is None:  # the kernels always take one
                 wrench = q.new_zeros(q.shape[0], 6)
             if self.options.substep_fusion and spec.torque is not None:
@@ -453,7 +512,8 @@ class Engine:
                 )
         f_c, res, a, tau = state.contact_forces, state.solver_residual, state.a, state.tau
         for _ in range(n_substeps):
-            q, v, f_c, res, lam, a, tau = self._impulse_substep(q, v, u, lam, wrench, gc, mp)
+            q, v, f_c, res, lam, a, tau = self._impulse_substep(q, v, u, lam, wrench, gc, mp,
+                                                                fext, friction)
             t = t + dt
         return SimState(
             t=t, q=q, v=v, contact_forces=f_c, solver_residual=res,

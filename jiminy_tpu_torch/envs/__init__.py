@@ -1,6 +1,6 @@
 """Batched RL environments."""
 
-from jiminy_tpu_torch.envs.anymal import ANYmalEnv  # noqa: F401
+from jiminy_tpu_torch.envs.anymal import ANYmalEnv, ANYmalGantryEnv  # noqa: F401
 from jiminy_tpu_torch.envs.base import (  # noqa: F401
     BaseEnv,
     EnvState,

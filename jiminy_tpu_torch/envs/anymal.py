@@ -18,11 +18,18 @@ heightmap from ``terrain_seed`` with a flat spawn disk and spawns within
 (N) turns pushes on; ``push_prob``, ``push_duration``,
 ``model_randomization`` (per-episode masses, centres of mass, inertias,
 armature, motor gains and friction, sensor offsets), ``constraints``
-(kinematic constraints, of which the distance constraint is ported),
+(kinematic constraints: frame, joint, distance, sphere and wheel),
 ``collision_pairs`` (declared body-body pairs), ``min_height``,
 ``max_tilt_cos`` (the termination's limits) and ``nan_guard`` pass
 through to :class:`WalkerEnv`. Other options raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
+
+:class:`ANYmalGantryEnv` is ANYmal on a gantry: the base welded (a
+:class:`~jiminy_tpu_torch.engine.constraints.FrameConstraint`) 0.25 m
+above its stand pose, where it spawns, the legs free, and the left front
+knee held at its stand angle (a
+:class:`~jiminy_tpu_torch.engine.constraints.JointConstraint`: a
+failed-actuator test). Its ``"auto"`` resolves to the chain kernel.
 
 ``mirror_spec`` and ``symmetry_fn`` are the reference's left-right mirror
 (the reflection across the robot's xz-plane), which PPO's symmetry loss
@@ -35,6 +42,8 @@ import numpy as np
 import torch
 
 from jiminy_tpu_torch import resolve_device
+from jiminy_tpu_torch.core import algos
+from jiminy_tpu_torch.engine.constraints import FrameConstraint, JointConstraint
 from jiminy_tpu_torch.engine.ground import (
     StairsGround,
     sample_fourier_ground,
@@ -171,3 +180,33 @@ class ANYmalEnv(WalkerEnv):
         obs_m = obs[..., obs_perm] * obs_sign
         act_m = None if action is None else action[..., act_perm] * act_sign
         return obs_m, act_m
+
+
+class ANYmalGantryEnv(ANYmalEnv):
+    """ANYmal with its base welded ``LIFT`` m above the stand pose (where
+    each episode spawns) and the ``LOCKED`` joint held at its stand angle
+    (a failed-actuator test); the other options as :class:`ANYmalEnv`'s.
+    Rows: the weld's 6 and the lock's 1 ahead of the 12 bounds and 12
+    contacts (nc 31)."""
+
+    LIFT = 0.25
+    LOCKED = "LF_KFE"
+
+    def __init__(self, **kwargs):
+        if "constraints" in kwargs:
+            raise TypeError("ANYmalGantryEnv makes its own constraints")
+        tree = make_anymal(device="cpu", dtype=torch.float64)[0]
+        q = torch.as_tensor(stand_q(tree), dtype=torch.float64)[None].clone()
+        q[0, 2] += self.LIFT
+        frame = tree.frame_index("base_frame")
+        pose = algos.forward_kinematics(tree, q)[tree.frame_body[frame]].compose(
+            tree.frame_placement(frame))
+        weld = FrameConstraint(frame, ref_rot=pose.rot[0].numpy(), ref_pos=pose.pos[0].numpy())
+        j = tree.joint_index(self.LOCKED)
+        lock = JointConstraint(j, ref_q=float(q[0, tree.q_off[j]]))
+        super().__init__(constraints=(weld, lock), **kwargs)
+
+    def _sample_state(self, generator: torch.Generator, batch_size: int, info: dict):
+        q, v = super()._sample_state(generator, batch_size, info)
+        q[:, 2] = q[:, 2] + self.LIFT
+        return q, v

@@ -22,6 +22,9 @@ leading (B,) batch, so that auto-reset picks it like the rest: the hooks
 (after each step), :meth:`BaseEnv._step_ground` (a per-env ground for the
 engine, e.g. from its coefficients in ``info``),
 :meth:`BaseEnv._base_wrench` (a push on the root body),
+:meth:`BaseEnv._external_forces` (wrenches on any body; a step with them
+runs the engine's plain substep around the chain kernel, and on the
+sensor path the chunked fallback),
 :meth:`BaseEnv._model_params` (each env's model randomization for the
 engine) and :meth:`BaseEnv._sensor_bias` (each env's sensor calibration
 offsets, added to every corruption draw).
@@ -124,8 +127,8 @@ class BaseEnv:
     - ``_action_to_command(action, sim) -> (B, nm)``
 
     and optionally the per-env hooks ``_init_info``, ``_update_info``,
-    ``_step_ground``, ``_base_wrench``, ``_model_params`` and
-    ``_sensor_bias``.
+    ``_step_ground``, ``_base_wrench``, ``_external_forces``,
+    ``_model_params`` and ``_sensor_bias``.
     """
 
     def __init__(
@@ -229,6 +232,13 @@ class BaseEnv:
         next step (pushes), or None."""
         return None
 
+    def _external_forces(self, state: EnvState) -> torch.Tensor | None:
+        """(B, nb, 6) or (nb, 6) local [ang; lin] wrenches on the bodies
+        held over the next step (force profiles), or None. Generic, but a
+        step with them leaves the whole-substep kernels (the engine's
+        ``fext_user``); for pushes on the base prefer :meth:`_base_wrench`."""
+        return None
+
     def _model_params(self, info: dict):
         """Each env's packed model parameters (B, n_mp) for ``engine.step``
         (``Engine._pack_model_params``, drawn and packed into ``info`` at
@@ -294,17 +304,19 @@ class BaseEnv:
             info={"final_obs": obs, **info},
         )
 
-    def _step_sensors(self, state: EnvState, u: torch.Tensor, wrench, ground, mp):
+    def _step_sensors(self, state: EnvState, u: torch.Tensor, wrench, ground, mp, fext=None):
         """The engine step with the sensor updates → (sim, new flat
         buffers): fused (one K2 launch) when the engine's kernel takes
-        this ground, else chunked (n_obs_updates engine steps of
-        n_substeps_per_obs, each followed by the suite's update at the
-        accepted state). ``mp``: each env's model parameters or None."""
+        this ground and no ``fext`` is given, else chunked (n_obs_updates
+        engine steps of n_substeps_per_obs, each followed by the suite's
+        update at the accepted state). ``mp``: each env's model parameters
+        or None; ``fext``: the bodies' wrenches or None."""
         suite, eng = self.sensors, self.engine
         eps = self._sensor_eps(state.generator, state.obs.shape[0], self.n_obs_updates,
                                self._sensor_bias(state.info))
         bufs = state.info["sensor_bufs"]
-        if self._fused_sensors and eng._kernel_ground_ok(ground if ground is not None else eng.ground):
+        if self._fused_sensors and fext is None \
+                and eng._kernel_ground_ok(ground if ground is not None else eng.ground):
             return eng.step_with_sensors(
                 state.sim, u, self.n_substeps, suite, bufs, eps,
                 k_obs=self.n_substeps_per_obs, base_wrench=wrench, ground=ground,
@@ -313,22 +325,23 @@ class BaseEnv:
         sim, tup = state.sim, suite.unflatten_buffers(bufs)
         for e in eps.split(suite.n_eps, dim=1):
             sim = eng.step(sim, u, n_substeps=self.n_substeps_per_obs, base_wrench=wrench,
-                           ground=ground, model_params=mp)
+                           ground=ground, model_params=mp, fext_user=fext)
             tup = suite.update(tup, e, sim.q, sim.v, sim.a, sim.contact_forces, sim.tau)
         return sim, suite.flatten_buffers(tup)
 
     def step_no_reset(self, state: EnvState, action: torch.Tensor) -> EnvState:
         """One env step without auto-reset."""
         u = self._action_to_command(action, state.sim)
+        fext = self._external_forces(state)
         wrench = self._base_wrench(state)
         ground = self._step_ground(state.info)
         mp = self._model_params(state.info)
         info = dict(state.info)
         if self.sensors is None:
-            sim = self.engine.step(state.sim, u, n_substeps=self.n_substeps,
-                                   base_wrench=wrench, ground=ground, model_params=mp)
+            sim = self.engine.step(state.sim, u, n_substeps=self.n_substeps, base_wrench=wrench,
+                                   ground=ground, model_params=mp, fext_user=fext)
         else:
-            sim, info["sensor_bufs"] = self._step_sensors(state, u, wrench, ground, mp)
+            sim, info["sensor_bufs"] = self._step_sensors(state, u, wrench, ground, mp, fext)
         obs = self._make_obs(sim, info)
         reward = self._reward(state, action, sim)
         steps = state.steps + 1

@@ -27,8 +27,11 @@ push hooks:
   calibration offsets, ``info["sensor_bias"]`` (B, n_eps), added to every
   corruption draw. The draws come from :meth:`WalkerEnv._model_draws`,
   which a caller may replace;
-- ``constraints``: the robot's kinematic constraints (Cassie's pushrod
-  distance constraints), handed to the engine;
+- ``constraints``: kinematic constraints (frame, joint, distance,
+  sphere and wheel constraints: Cassie's pushrods, a gantry's weld, a
+  locked joint), handed to the engine; any but distance ones send
+  ``"auto"`` to the chain kernel (``constraint_solver="kernel"``), and the
+  state's ``lam`` has the engine's nc;
 - ``collision_pairs``: declared body-body pairs
   (:class:`~jiminy_tpu_torch.engine.collision.CollisionPair`, e.g.
   Cassie's leg capsules), handed to the engine;
@@ -119,7 +122,7 @@ class WalkerEnv(BaseEnv):
         push_prob: float = 0.01,  # per-step probability of a push onset
         push_duration: float = 0.1,  # s
         model_randomization: ModelRandomization | None = None,  # per-episode draws
-        constraints: tuple = (),  # kinematic constraints of the robot (closed loops)
+        constraints: tuple = (),  # kinematic constraints (engine.constraints)
         collision_pairs: tuple = (),  # engine.collision.CollisionPair
         nan_guard: bool = True,  # BaseEnv: auto-reset non-finite envs
         device="cuda",

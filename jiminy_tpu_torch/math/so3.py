@@ -2,7 +2,8 @@
 
 Counterpart of ``jiminy_tpu/math/so3.py``, the functions that the
 rigid-body algorithms, ``integrate``, the springs of the flexibility
-joints (``quat_log``), the observations and the sensors use.
+joints (``quat_log``), the frame constraint's orientation error
+(``log_matrix``), the observations and the sensors use.
 Quaternions are scalar-last ``(x, y, z, w)`` as in the reference
 (Pinocchio's layout). Every function works on any leading batch shape:
 quaternions are ``(..., 4)``, vectors ``(..., 3)`` and matrices
@@ -107,6 +108,12 @@ def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
     q = torch.gather(cases, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
     w = q[..., 3:4]
     return quat_normalize(q) * torch.sign(w + (w == 0).to(w.dtype))
+
+
+def log_matrix(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) → rotation vector (..., 3), as
+    ``quat_log(matrix_to_quat(R))``."""
+    return quat_log(matrix_to_quat(R))
 
 
 def quat_integrate(q: torch.Tensor, w_local: torch.Tensor, dt) -> torch.Tensor:

@@ -3,9 +3,10 @@
 Counterpart of ``jiminy_tpu/ops/substep_kernel.py``. One impulse substep
 of the engine, for every env of a batch:
 
-    FK → RNEA bias (with a root wrench) → CRBA + armature + dt·damping
-      + dt²·stiffness (implicit joint damping and springs)
-    → distance-constraint rows, joint-bound rows, ground-contact rows
+    FK → RNEA bias (with a root wrench; per-body wrenches on the plain
+      substep) → CRBA + armature + dt·damping + dt²·stiffness (implicit
+      joint damping and springs)
+    → kinematic-constraint rows, joint-bound rows, ground-contact rows
       color-major (the contact basis from the ground's normal at each
       point; a sphere site touches at its surface point) and the
       collision pairs' contact rows, one color per pair
@@ -56,13 +57,18 @@ RNEA and CRBA, the armature on M's diagonal and, in K2's torque, the
 reduction and friction. Kinematics, Jacobians and integration stay on
 the nominal tree.
 
-Closed loops: the engine's distance constraints are rows of their own,
-one equality block each, ahead of the bounds (``SubstepSpec(...,
-dist_constraints=)``). Joint springs (stiffness k per dof) integrate
-implicitly: −k·q on a 1-DoF joint and −k·log(quat) on a SPHERICAL one
-(the flexibility joints, 3 dofs each) in the actuation torque, dt²·k on
-M's diagonal and −dt·k·v in the free-motion torque (the τ a step
-returns is the first).
+Kinematic constraints (``SubstepSpec(..., constraints=)``: frame, joint,
+distance, sphere and wheel constraints) are rows of their own, one
+equality block each, ahead of the bounds. Only distance constraints
+(closed loops) ride the whole-substep kernels, as in the reference; with
+any other, :meth:`SubstepSpec.check_kernel_caps` refuses the model and it
+runs :func:`substep_reference` around the chain kernel. So do per-body
+external wrenches and per-env ground friction, which only
+:func:`substep_reference` takes (``fext=``, ``friction=``). Joint springs
+(stiffness k per dof) integrate implicitly: −k·q on a 1-DoF joint and
+−k·log(quat) on a SPHERICAL one (the flexibility joints, 3 dofs each) in
+the actuation torque, dt²·k on M's diagonal and −dt·k·v in the
+free-motion torque (the τ a step returns is the first).
 
 Contact sites may be spheres (``tree.contact_radius`` > 0): the site
 touches at centre − r·n̂, the normal taken at the centre's xy
@@ -79,8 +85,7 @@ motion subspace [0; axis]; bounded and sprung as REVOLUTE) and SPHERICAL
 4).
 
 Out of scope (each raises, naming its ROADMAP item): other steppers and
-the penalty contact model (A.16), kinematic constraints other than the
-distance constraint (A.22).
+the penalty contact model (A.16).
 """
 
 from __future__ import annotations
@@ -203,18 +208,21 @@ class TorqueSpec:
 class SubstepSpec:
     """Static description of one engine's impulse substep.
 
-    Rows are [distance | bounds | contacts color-major | pair contacts]:
-    one equality row per distance constraint (in declaration order, each
-    its own block), one row per bounded 1-DoF joint, then [t1, t2, n] per
+    Rows are [constraints | bounds | contacts color-major | pair
+    contacts]: each kinematic constraint's ``size`` equality rows (in
+    declaration order, each its own block), one row per bounded 1-DoF
+    joint, then [t1, t2, n] per
     contact site, the sites in ``color_order`` (interleaved halves:
     diagonal leg pairs on quadrupeds), each color's rows contiguous, then
     [t1, t2, n] per pair contact in generator order, each pair one color
     spanning its contacts (the reference's layout). ``torque`` (or None)
     is the declarative actuation path that K2 needs; ``motors`` the bank
-    it reads; ``dist_constraints`` the engine's distance constraints,
-    kept as ``constraints`` and as the reference's tuples (body 1, its
-    local point, body 2, its local point, distance, Baumgarte frequency)
-    in ``dist_constraints``; ``pairs`` the engine's
+    it reads; ``constraints`` the engine's kinematic constraints (any of
+    :data:`~jiminy_tpu_torch.engine.constraints.CONSTRAINTS`), and when
+    all of them are distance constraints, the kernels' form of them, the
+    reference's tuples (body 1, its local point, body 2, its local point,
+    distance, Baumgarte frequency), in ``dist_constraints``; ``pairs`` the
+    engine's
     :class:`~jiminy_tpu_torch.engine.collision.CollisionPairSet` or
     None."""
 
@@ -225,7 +233,7 @@ class SubstepSpec:
         ground,
         motors: Motors | None = None,
         torque: TorqueSpec | None = None,
-        dist_constraints=(),
+        constraints=(),
         pairs: collision.CollisionPairSet | None = None,
     ):
         if options.solver != "euler_symplectic":
@@ -242,12 +250,17 @@ class SubstepSpec:
         if isinstance(ground, ANALYTIC) and ground.coef().dim() != 1:
             raise ValueError("the engine's ground is one ground, not a batch: per-env "
                              "grounds go to step(ground=...)")
-        for c in dist_constraints:
-            if not isinstance(c, cstr.DistanceConstraint):
-                raise NotImplementedError(
-                    f"{type(c).__name__} is not ported yet: of the kinematic constraints "
-                    "only DistanceConstraint is (ROADMAP A.22)"
+        for c in constraints:
+            if not isinstance(c, cstr.CONSTRAINTS):
+                raise TypeError(
+                    f"{type(c).__name__} is not a kinematic constraint (one of "
+                    f"{', '.join(k.__name__ for k in cstr.CONSTRAINTS)})"
                 )
+            lock = isinstance(c, cstr.JointConstraint)
+            jt = JointType(tree.joint_type[c.joint]) if lock else None
+            if lock and jt not in (JointType.REVOLUTE, JointType.PRISMATIC):
+                raise ValueError(f"JointConstraint on joint {c.joint} ({jt.name}): only REVOLUTE "
+                                 "and PRISMATIC joints can be locked")
         stiff = tree.stiffness.detach().cpu().numpy()
         if torque is not None and motors is None:
             raise ValueError("a TorqueSpec needs the motor bank")
@@ -265,14 +278,22 @@ class SubstepSpec:
         self.friction = float(opts.contacts.friction)
         self.dt = float(opts.dt)
         self.springs = bool(np.any(stiff != 0))
-        self.constraints = tuple(dist_constraints)
+        self.constraints = tuple(constraints)
+        # the constraints the whole-substep kernels take: distance ones alone
+        self.other_constraints = sorted({type(c).__name__ for c in self.constraints
+                                         if not isinstance(c, cstr.DistanceConstraint)})
         fb, fp = tree.frame_body, tree.fp_pos.detach().cpu().numpy()
-        self.dist_constraints = [
+        self.dist_constraints = [] if self.other_constraints else [
             (fb[c.frame1], [float(x) for x in fp[c.frame1]], fb[c.frame2],
              [float(x) for x in fp[c.frame2]], float(c.distance), float(c.baumgarte_freq))
             for c in self.constraints
         ]
-        n_eq = self.n_dist = len(self.constraints)
+        self.n_dist = len(self.dist_constraints)
+        n_eq = sum(c.size for c in self.constraints)
+        eq_blocks, start = [], 0
+        for c in self.constraints:
+            eq_blocks.append(BlockSpec("equality", start, c.size))
+            start += c.size
         self.contact_radius = [float(r) for r in tree.contact_radius.detach().cpu().numpy()]
         self.spheres = any(r > 0.0 for r in self.contact_radius)
         self.pairs = pairs if pairs is not None and pairs.gens else None
@@ -299,7 +320,7 @@ class SubstepSpec:
             n=tree.nv,
             nc=self.nc,
             dt=self.dt,
-            eq_blocks=tuple(BlockSpec("equality", i, 1) for i in range(n_eq)),
+            eq_blocks=tuple(eq_blocks),
             bounds_span=(n_eq, nbj) if nbj else None,
             contact_colors=tuple(colors),
             iters=opts.pgs_iters,
@@ -339,10 +360,17 @@ class SubstepSpec:
     def check_kernel_caps(self, who: str):
         """Raise ValueError when the model is larger than the whole-substep
         kernels take (with more than 24 pair contacts, the reference's gate
-        on in-kernel assembly, or more PGS colors than the chain's 16), or
-        its ground is one they cannot query (a heightmap; more than 32
-        Fourier terms or 8 Perlin octaves)."""
+        on in-kernel assembly, or more PGS colors than the chain's 16), has
+        a kinematic constraint other than a distance constraint (the
+        reference's gate too), or its ground is one they cannot query (a
+        heightmap; more than 32 Fourier terms or 8 Perlin octaves)."""
         t = self.tree
+        if self.other_constraints:
+            raise ValueError(
+                f"{who}: {', '.join(self.other_constraints)} outside the whole-substep "
+                "kernels: only distance constraints (Cassie's pushrods) ride them; the chain "
+                "kernel takes the others (constraint_solver='kernel')"
+            )
         n_colors = len(self.cfg.contact_colors)
         max_nc, max_dist, max_colors = chain.MAX_NC, chain.MAX_EQ, chain.MAX_COLORS
         if t.nb > MAX_NB or t.nv > MAX_NV or not 1 <= self.nc <= max_nc \
@@ -679,9 +707,9 @@ def _check_gc(name, spec: SubstepSpec, gc, B):
 
 
 def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=None, gc=None,
-                      mp=None):
+                      mp=None, fext=None, friction=None):
     """One semi-implicit Euler substep with velocity-level PGS impulses
-    for distance constraints, joint bounds, ground contacts and collision
+    for kinematic constraints, joint bounds, ground contacts and collision
     pairs, joint damping and springs implicit: q (B, nq), v and τ (B, nv),
     λ0 (B, nc), ``wrench`` None or (B, 6) local [ang; lin] on the root
     body → (q⁺, v⁺, λ, residual (B,), world contact impulses (B, ncp,
@@ -689,8 +717,13 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
     the plain chain (``None``, the default) or a wrapper of the chain
     kernel, called as ``solve(cfg, M, p, v, J, target, mu, active, λ0)``.
     ``gc`` (B, n_gc): each env's analytic ground (None: the spec's
-    own ground). ``mp`` (B, n_mp): each env's packed model parameters
-    (None: the tree's inertials); the motor tail is not read here."""
+    own ground), which the sphere and wheel constraints roll on too.
+    ``mp`` (B, n_mp): each env's packed model parameters (None: the
+    tree's inertials); the motor tail is not read here. ``fext`` (B, nb,
+    6) or (nb, 6): each body's local [ang; lin] wrench, the root's added
+    to ``wrench``. ``friction`` (B,) or a float: each env's friction on
+    the ground-contact rows (None: the spec's); the pair rows keep their
+    pair's."""
     solve = solve if solve is not None else chain.solve_reference
     tree, opts = spec.tree, spec.options
     dt = spec.dt
@@ -706,16 +739,18 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
         tau = tau - dt * tree.stiffness * v
     else:
         M = M + torch.diag(dt * tree.damping)
-    fext = None
+    if fext is not None:
+        fext = fext.expand(B, tree.nb, 6)
     if wrench is not None:
-        fext = q.new_zeros(B, tree.nb, 6)
-        fext[:, 0] = wrench
+        fext = q.new_zeros(B, tree.nb, 6) if fext is None else fext.clone()
+        fext[:, 0] = fext[:, 0] + wrench
     bias = algos.rnea(tree, q, v, torch.zeros_like(v), fext=fext, xl=xl, inertials=inertials)
     p_free = tau - bias
 
+    ground = spec.ground_of(gc)
     Js, targets, actives, mus = [], [], [], []
     if spec.constraints:
-        Jd, td, _ = cstr.assemble(tree, spec.constraints, q, xw, dt)
+        Jd, td, _ = cstr.assemble(tree, spec.constraints, q, xw, dt, ground)
         Js.append(Jd)
         targets.append(td)
         actives.append(torch.ones_like(td))
@@ -728,7 +763,7 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
         mus.append(torch.zeros_like(tb))
     ncp = tree.ncp
     if ncp:
-        pts, _, depth, n = surface_contacts(tree, xw, vel, spec.ground_of(gc), spec.spheres)
+        pts, _, depth, n = surface_contacts(tree, xw, vel, ground, spec.spheres)
         t1, t2 = cstr.tangent_basis(n)
         # penetrating: Baumgarte push-back; hovering within the margin:
         # may approach the surface but not cross it
@@ -752,7 +787,11 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
         targets.append(tgt.reshape(B, 3 * ncp))
         act = (depth > -opts.contact_margin)[:, order].to(q.dtype)
         actives.append(act[:, :, None].expand(-1, -1, 3).reshape(B, 3 * ncp))
-        mus.append(torch.full_like(targets[-1], spec.friction))
+        mu_g = spec.friction if friction is None else friction
+        if torch.is_tensor(mu_g):
+            mus.append(mu_g.to(q.dtype).reshape(-1, 1).expand(B, 3 * ncp))
+        else:
+            mus.append(torch.full_like(targets[-1], mu_g))
     if spec.pairs is not None:
         for acc, x in zip((Js, targets, actives, mus), collision.pair_rows(
                 spec.pairs, tree, xw, dt, spec.alpha_c_over_dt, opts.contact_margin,

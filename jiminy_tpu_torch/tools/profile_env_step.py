@@ -4,6 +4,7 @@
         [--batch 4096] [--steps 5] [--solver auto|substep|kernel|inline]
         [--observe state|sensors] [--terrain flat|fourier|perlin|perlin_grid|stairs]
         [--push N] [--push-duration S] [--randomize R] [--self-collision] [--flexibility]
+        [--gantry]
 
 ``--env cassie`` runs ``CassieEnv(sim_dt=2e-3, target_speed=0.4)``
 (``examples/train.py --env cassie``: 10 substeps of 2 ms, the pushrods
@@ -23,7 +24,10 @@ pairs (``atlas_selfcol_run5``: nc 83), on ``--observe`` and with
 ``SpotmicroEnv()`` at the reference's defaults (``examples/train.py --env
 ant | spotmicro``: 20 substeps per env step; the Ant's sensors every
 second substep), on ``--observe`` and with ``--push`` as above.
-The rest is about ANYmal:
+The rest is about ANYmal. ``--gantry`` runs ``ANYmalGantryEnv`` (the
+base welded 0.25 m above its stand pose, the LF knee locked: a frame and
+a joint constraint, so ``"auto"`` is the chain kernel K1, 4 launches per
+env step) on ``--observe`` and ``--terrain`` flat; otherwise it:
 
 Runs ``ANYmalEnv(observe="state", device="cuda")`` (by default on its
 main path, ``constraint_solver="auto"``, which is the fused whole-substep
@@ -73,7 +77,11 @@ def main() -> None:
                     help="Cassie or Atlas with its self-collision pairs")
     ap.add_argument("--flexibility", action="store_true",
                     help="Cassie with its flexible hips")
+    ap.add_argument("--gantry", action="store_true",
+                    help="ANYmal welded on a gantry with a locked knee (the chain kernel)")
     args = ap.parse_args()
+    if args.gantry and (args.env != "anymal" or args.terrain != "flat" or args.randomize):
+        raise SystemExit("profile_env_step: --gantry is ANYmal's, on flat ground, nominal")
     if args.flexibility and args.env != "cassie":
         raise SystemExit("profile_env_step: --flexibility is Cassie's")
     if args.self_collision and args.env not in ("cassie", "atlas"):
@@ -84,7 +92,14 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from jiminy_tpu_torch.engine.randomization import ModelRandomization
-    from jiminy_tpu_torch.envs import AntEnv, ANYmalEnv, AtlasEnv, CassieEnv, SpotmicroEnv
+    from jiminy_tpu_torch.envs import (
+        AntEnv,
+        ANYmalEnv,
+        ANYmalGantryEnv,
+        AtlasEnv,
+        CassieEnv,
+        SpotmicroEnv,
+    )
 
     dev = torch.device("cuda")
     r = args.randomize
@@ -116,6 +131,10 @@ def main() -> None:
                        push_magnitude=args.push, push_duration=args.push_duration,
                        model_randomization=randomization, self_collision=args.self_collision,
                        device=dev, **sensors)
+    elif args.gantry:
+        env = ANYmalGantryEnv(observe=args.observe, step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
+                              constraint_solver=args.solver, push_magnitude=args.push,
+                              push_duration=args.push_duration, device=dev, **sensors)
     else:
         env = ANYmalEnv(observe=args.observe, step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
                         constraint_solver=args.solver, terrain=args.terrain,
@@ -165,6 +184,7 @@ def main() -> None:
         "randomize": r,
         "self_collision": args.self_collision,
         "flexibility": args.flexibility,
+        "gantry": args.gantry,
         "wall_ms_per_env_step": 1e3 * wall / n,
         "device_busy_ms_per_env_step": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - (busy_us / 1e6) / wall,

@@ -170,15 +170,33 @@ def test_reset_is_seeded():
 @pytest.mark.parametrize(
     "kwargs, item",
     [
-        ({"constraints": (object(),)}, "A.22"),
+        ({"constraints": (object(),)}, "not a kinematic constraint"),
         ({"reward_fn": object()}, "A.17"),
         ({"engine_options": object()}, "A.16"),
         ({"termination_fn": object()}, "A.17"),
     ],
 )
 def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Options still to port raise NotImplementedError naming their
+    ROADMAP item; a constraint that is none of the kinematic constraints
+    TypeError (every kind is ported, and reaches the engine:
+    ``test_constraints_pass_through``)."""
+    err = TypeError if "constraints" in kwargs else NotImplementedError
+    with pytest.raises(err, match=item):
         ANYmalEnv(device="cpu", **kwargs)
+
+
+def test_constraints_pass_through():
+    """A frame constraint reaches the engine: its six rows ahead of the
+    bounds and contacts, ``"auto"`` on the chain kernel, the state's λ as
+    wide as the engine's rows."""
+    from jiminy_tpu_torch.engine.constraints import FrameConstraint
+
+    env = ANYmalEnv(observe="state", device="cpu", constraints=(FrameConstraint(0),))
+    assert env.engine.constraints == (FrameConstraint(0),)
+    assert env.engine.backend == "kernel" and env.engine.nc == 30
+    st = env.reset(torch.Generator().manual_seed(0), 2)
+    assert st.sim.lam.shape == (2, 30)
 
 
 def test_collision_pairs_pass_through():

@@ -72,6 +72,17 @@ CONFIGS = {
         contact_colors=((23, 4), (35, 4), (47, 1), (50, 1), (53, 5), (68, 5)), iters=8,
         compute_residual=True,
     ),
+    # the gantry ANYmal: a weld's 6 rows and a lock's 1 ahead of ANYmal's
+    "gantry": SolveConfig(
+        n=18, nc=31, dt=5e-3,
+        eq_blocks=(BlockSpec("equality", 0, 6), BlockSpec("equality", 6, 1)),
+        bounds_span=(7, 12), contact_colors=((19, 2), (25, 2)), iters=8, compute_residual=True,
+    ),
+    # a rolling wheel: its 3 rows alone, no bounds, no contact color
+    "wheel": SolveConfig(
+        n=6, nc=3, dt=1e-3, eq_blocks=(BlockSpec("equality", 0, 3),), bounds_span=None,
+        contact_colors=(), iters=16, compute_residual=True,
+    ),
 }
 
 
@@ -171,13 +182,63 @@ def test_env_step_goes_through_the_kernel(cuda_device):
     torch.testing.assert_close(nk.v, ni.v, atol=ATOL, rtol=0)
 
 
-def _anymal_engine(dev, fusion=True):
+@pytest.mark.cuda
+def test_gantry_env_step_goes_through_the_kernel(cuda_device):
+    """The gantry ANYmal (a weld and a lock) through ``"auto"``: the chain
+    kernel, 4 K1 launches per env step and no whole-substep launch; each
+    substep equals the inline plain chain from the same inputs; an
+    explicit ``"substep"`` raises at construction."""
+    from jiminy_tpu_torch.envs import ANYmalGantryEnv
+
+    env = ANYmalGantryEnv(observe="state", device=cuda_device)
+    inline = ANYmalGantryEnv(observe="state", constraint_solver="inline", device=cuda_device)
+    assert env.engine.backend == "kernel" and env.engine.nc == 31
+    with pytest.raises(ValueError, match="FrameConstraint, JointConstraint outside"):
+        ANYmalGantryEnv(observe="state", constraint_solver="substep", device=cuda_device)
+    state = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
+    before = solve_batched.launches, substep_batched.launches, substep_batched_multi.launches
+    state = env.step(state, torch.zeros(256, 12, device=cuda_device))
+    assert (solve_batched.launches, substep_batched.launches,
+            substep_batched_multi.launches) == (before[0] + 4, before[1], before[2])
+    u = env._action_to_command(torch.zeros(256, 12, device=cuda_device), state.sim)
+    nk = env.engine.step(state.sim, u, n_substeps=1)
+    ni = inline.engine.step(state.sim, u, n_substeps=1)
+    for f in ("q", "v", "lam"):
+        torch.testing.assert_close(getattr(nk, f), getattr(ni, f), atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_external_forces_and_friction_take_the_chain_kernel(cuda_device):
+    """``fext_user`` and per-env friction keep ANYmal's ``"substep"``
+    engine off K2 and K3: one K1 launch per substep, each substep equal to
+    the inline plain chain's from the same inputs."""
+    from jiminy_tpu_torch.engine.contact import ContactParams
+
+    eng, inline = _anymal_engine(cuda_device), _anymal_engine(cuda_device, solver="inline")
+    q, v, cmd, lam0, wrench = _substep_inputs(3, 512, eng)
+    state = eng.reset(q, v)
+    state.lam = lam0
+    fext = torch.zeros(512, eng.tree.nb, 6, device=cuda_device)
+    fext[:, 6, 3:] = 30.0
+    kw = dict(base_wrench=wrench, fext_user=fext, contact_params=ContactParams(
+        friction=torch.linspace(0.2, 1.2, 512, device=cuda_device)))
+    before = solve_batched.launches, substep_batched.launches, substep_batched_multi.launches
+    nk = eng.step(state, cmd, n_substeps=4, **kw)
+    assert (solve_batched.launches, substep_batched.launches,
+            substep_batched_multi.launches) == (before[0] + 4, before[1], before[2])
+    nk = eng.step(state, cmd, **kw)
+    ni = inline.step(state, cmd, **kw)
+    for f in ("q", "v", "lam"):
+        torch.testing.assert_close(getattr(nk, f), getattr(ni, f), atol=ATOL, rtol=0)
+
+
+def _anymal_engine(dev, fusion=True, solver="substep"):
     from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
     from jiminy_tpu_torch.models.quadruped import make_anymal
 
     tree, motors, _ = make_anymal(device=dev)
     opts = EngineOptions(contact_model="constraint", dt=5e-3, pgs_iters=8,
-                         constraint_solver="substep",
+                         constraint_solver=solver,
                          substep_fusion=fusion)
     return Engine(tree, opts, motors=motors, controller=PDController(80.0, 2.0), device=dev)
 

@@ -18,8 +18,10 @@ is built by both packages' ``TreeBuilder`` and held field for field.
 - 1-DoF joint springs: ``TreeBuilder(stiffness=)``, the actuation torque
   −k·q on Cassie against the reference engine's ``_joint_torque``, and a
   sprung pendulum's period.
-- The engine refuses the other kinematic constraints (ROADMAP A.22);
-  ``SubstepSpec`` takes springs on spherical joints (A.14, held in
+- The engine refuses an object that is no kinematic constraint, and
+  takes the other kinds (frame, joint, sphere, wheel; held in
+  tests/test_torch_kinematic_constraints.py) off the whole-substep
+  kernels; ``SubstepSpec`` takes springs on spherical joints (A.14, held in
   tests/test_torch_flex.py) and a tree with a sprung prismatic joint,
   whose type it packs as 2 for the kernels (A.15, held in
   tests/test_torch_prismatic.py).
@@ -285,9 +287,15 @@ def test_sprung_pendulum_period():
 
 def test_other_constraints_and_spherical_springs_raise():
     tree = _trees(False)[1]
-    with pytest.raises(NotImplementedError, match="A.22"):
+    with pytest.raises(TypeError, match="not a kinematic constraint"):
         Engine(tree, EngineOptions(contact_model="constraint", dt=DT), constraints=(object(),),
                device="cpu")
+    # a lock beside the loop's distance row: off the whole-substep kernels
+    from jiminy_tpu_torch.engine.constraints import JointConstraint
+
+    eng = Engine(tree, EngineOptions(contact_model="constraint", dt=DT),
+                 constraints=(DistanceConstraint(0, 1, 0.5), JointConstraint(1)), device="cpu")
+    assert eng.backend == "kernel" and eng.nc == 2
     # springs on spherical joints (A.14, B.8) and prismatic joints (A.15,
     # B.10) are ported: the spec takes them, the stiffness and the joint
     # types packed for the kernels
