@@ -288,6 +288,23 @@ state path, and K1's time against its bound in each scene's layout
 (``gantry_constraint_solve``, ``fext_friction_constraint_solve``,
 ``rolling_constraint_solve`` in the kernels line).
 
+The paths off the impulse engine (A.16) run after them,
+`phase_penalty_paths`: (a) ANYmal on the reference's default penalty
+contacts and bounds (``engine_options=EngineOptions(dt=1e-3)``: the
+continuous path, plain PyTorch, no launch of ours, counted and under
+``torch.profiler``), its PD stance from the stand pose standing after 1 s
+(base z in [0.45, 0.6], tests/test_engine.py's bound); (b) ANYmal's
+impulse engine with an impulse and a profile force on its base through
+``"auto"``: 4 K1 launches per env step; (c) ``ANYmalGantryEnv`` on
+penalty contacts: K1 in a layout without contact rows (nc 19), 20
+launches per env step; (d) the cartpole and acrobot envs; each step
+substep by substep against the plain float32 and float64 paths
+(`_gate_vs_f64`), K1 at nc 19 against its plain chain and its bound
+(``gantry_penalty_constraint_solve``), each path's env-steps/s and
+launches per env step beside the K2 state path, ``simulate_adaptive`` on
+the pendulum against the CPU's counters, and the reference's
+``test_cartpole_improves`` (256 envs, 30 iterations).
+
 4. the policy and PPO (A.7, A.8), after every kernel number
    (`phase_training`), on ``ANYmalEnv(observe="state", max_steps=500)``
    at ``examples/train.py``'s ANYmal settings (B = 2048, rollout 32, 4
@@ -3032,12 +3049,13 @@ def _weld_error(env, sim) -> dict:
             "pos": torch.linalg.vector_norm(err[:, 3:], dim=-1).max().item()}
 
 
-def _gate_substeps(label, n_sub, k_step, p_step, p64_step, sim, u) -> list:
+def _gate_substeps(label, n_sub, k_step, p_step, p64_step, sim, u,
+                   fields=("q", "v", "lam")) -> list:
     """``n_sub`` substeps from ``sim`` with the command ``u``, each feeding
     the kernel path ``k_step``, the plain float32 path ``p_step`` and the
     plain float64 path ``p64_step`` (each ``(sim, u) → sim``) the same
-    inputs, held by `_gate_vs_f64` on q, v and λ; the kernel path carries
-    on. Returns the gates."""
+    inputs, held by `_gate_vs_f64` on ``fields`` (q, v and λ); the kernel
+    path carries on. Returns the gates."""
     gates = []
     for i in range(n_sub):
         nk, np32 = k_step(sim, u), p_step(sim, u)
@@ -3045,7 +3063,7 @@ def _gate_substeps(label, n_sub, k_step, p_step, p64_step, sim, u) -> list:
         n64 = p64_step(sim64, u.double())
         gates.append({f: _gate_vs_f64(f"{label} substep {i} {f}", getattr(nk, f),
                                       getattr(np32, f), getattr(n64, f))
-                      for f in ("q", "v", "lam")})
+                      for f in fields})
         sim = nk
     torch.cuda.synchronize()
     return gates
@@ -3343,6 +3361,351 @@ def phase_chain_paths(dev, drive, entry, main_err, path, act_gen) -> dict:
               _time_cuda(lambda: solve_reference(cfg, *args), 5),
               _solve_bytes(cfg, B_MAIN), _solve_flops(cfg) * B_MAIN)
     return rates
+
+
+# ---- A.16: the paths off the impulse engine. The reference's default
+# penalty contacts run the continuous path (plain PyTorch, no kernel); its
+# registered forces, penalty contacts beside constraints and bounds not run
+# as constraints keep an impulse model on the plain substep around K1
+PENALTY_OPTS = dict(dt=1e-3, compute_solver_residual=False)
+STANCE_Z = (0.45, 0.6)  # tests/test_engine.py TestPenaltyFrictionStability, after 1 s
+STANCE_STEPS = 50  # 1 s of 20 ms env steps
+IMPULSE_FORCE = (0.0, 60.0, 0.0)  # N, world, on the base in [0.02, 0.07) s, scene (b)
+CARTPOLE_PPO = dict(num_envs=256, rollout_len=32, minibatches=4, epochs=4, hidden=(64, 64))
+CARTPOLE_ITERS = 30  # tests/test_ppo.py test_cartpole_improves
+GATE_ENVS = 1024  # the envs of the continuous paths' gates, whose plain float32 leg runs on the CPU
+
+
+def _gantry_penalty_cfg():
+    """K1's layout on the gantry with penalty contacts: the weld's 6 rows
+    and the lock's 1, the 12 bound rows, no contact row (1 ms, 8 sweeps)."""
+    from jiminy_tpu_torch.engine.solver import BlockSpec
+    from jiminy_tpu_torch.ops.constraint_solve import SolveConfig
+
+    return SolveConfig(n=18, nc=19, dt=1e-3,
+                       eq_blocks=(BlockSpec("equality", 0, 6), BlockSpec("equality", 6, 1)),
+                       bounds_span=(7, 12), contact_colors=(), iters=8, compute_residual=False)
+
+
+def _sim_on(sim, dev, n=None):
+    """``sim`` on ``dev``, its first ``n`` envs (all for None)."""
+    return type(sim)(**{f: getattr(sim, f)[:n].to(dev) for f in sim.FIELDS})
+
+
+def _profile_force(t):
+    """Scene (b)'s profile force on the base: a 2 Hz lateral sway of 20 N
+    and a 10 N lift."""
+    return torch.stack([20.0 * torch.sin(4.0 * torch.pi * t), torch.zeros_like(t),
+                        torch.full_like(t, 10.0)], dim=-1)
+
+
+def _forces_engine(dev, dtype=torch.float32, solver="auto"):
+    """ANYmal's impulse engine (5 ms, 8 sweeps, PD 80/2) with an impulse
+    and a profile force on its base frame."""
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
+    from jiminy_tpu_torch.engine.forces import ImpulseForce, ProfileForce
+    from jiminy_tpu_torch.models.quadruped import make_anymal
+
+    tree, motors, _ = make_anymal(device=dev)
+    base = tree.frame_index("base_frame")
+    forces = (ImpulseForce(base, 0.02, 0.05, torch.tensor(IMPULSE_FORCE, dtype=dtype, device=dev)),
+              ProfileForce(base, _profile_force))
+    opts = EngineOptions(contact_model="constraint", dt=5e-3, pgs_iters=8,
+                         compute_solver_residual=False, constraint_solver=solver)
+    return Engine(tree.to(dtype=dtype), opts, motors=motors.to(dtype=dtype),
+                  controller=PDController(80.0, 2.0), forces=forces, device=dev)
+
+
+def _toy_actions(env, gen, dev):
+    """Each env's discrete action, uniform."""
+    return torch.randint(0, env.discrete_actions, (B_MAIN,), generator=gen, device=dev)
+
+
+def _toy_rate(env, state, gen, dev, steps, loops):
+    rates = []
+    for _ in range(loops):
+        acts = [_toy_actions(env, gen, dev) for _ in range(steps)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in acts:
+            state = env.step(state, a)
+        torch.cuda.synchronize()
+        rates.append(B_MAIN * steps / (time.perf_counter() - t0))
+    return rates, state
+
+
+def phase_penalty_paths(dev, drive, entry, main_err, path, act_gen) -> dict:
+    """Phases 2 and 3 of the paths off the impulse engine (A.16), through
+    the entry points a user calls, at B = 4096:
+
+    - (a) ANYmal on the reference's default contact model,
+      ``ANYmalEnv(observe="state", engine_options=EngineOptions(dt=1e-3,
+      compute_solver_residual=False))``: penalty contacts and bounds,
+      symplectic Euler, 20 substeps per env step, plain PyTorch: no launch
+      of ours (the counters, and ``torch.profiler``: no K1, K2 or K3); the
+      PD stance from the stand pose after 1 s (``Engine.step``) with the
+      base between 0.45 and 0.6 m, the reference test's bound;
+    - (b) ANYmal's impulse engine with an impulse and a profile force on
+      its base frame through ``"auto"`` (→ ``"kernel"``): 4 K1 launches
+      per env step and no K2 or K3 (the counters and the profiler);
+    - (c) ``ANYmalGantryEnv`` on the default contact model (dt 1 ms, 8
+      sweeps): the weld and lock rows and the 12 bound rows, the feet as
+      penalty contacts, nc 19: 20 K1 launches per env step;
+    - (d) ``CartPoleEnv`` and ``AcrobotEnv`` env steps (continuous, no
+      launch of ours);
+
+    each path's step substep by substep against its plain float32 and
+    float64 paths on the card (for (a) and (d), whose path is the plain
+    one, against the CPU's float32 run and the card's float64, on the
+    first 1,024 envs; `_gate_vs_f64`); K1 against its plain chain in the nc 19 layout and
+    timed against its bound (``gantry_penalty_constraint_solve``);
+    env-steps/s and launches per env step (the profiler) of each path
+    beside ANYmal's K2 state path; ``simulate_adaptive`` on the pendulum
+    in float64 with the CPU's counters; and the reference's
+    ``test_cartpole_improves`` (256 envs, 30 iterations, hidden (64, 64)):
+    the mean ``episode_done_frac`` of the last 5 iterations below half that
+    of the first 5. Returns the rates and the readings."""
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, FlatGround
+    from jiminy_tpu_torch.envs import AcrobotEnv, ANYmalEnv, ANYmalGantryEnv, CartPoleEnv
+    from jiminy_tpu_torch.models.quadruped import stand_q
+    from jiminy_tpu_torch.models.toys import make_pendulum
+    from jiminy_tpu_torch.ops.constraint_solve import solve_batched, solve_reference
+    from jiminy_tpu_torch.rl import PPOConfig, make_train_fn
+
+    cs = "constraint_solve"
+    out = {"rates": {}, "launches_per_env_step": {}}
+    rates, per_step = out["rates"], out["launches_per_env_step"]
+    t_phase = time.perf_counter()
+
+    # ---- K1 in the nc 19 layout, against its plain chain
+    gcfg = _gantry_penalty_cfg()
+    gen = torch.Generator(device=dev).manual_seed(120)
+    k1_args = _rand_system(gen, B_MAIN, gcfg.n, gcfg.nc, dev)
+    vk, lk, _ = solve_batched(gcfg, *k1_args, device=dev)
+    vr, lr, _ = solve_reference(gcfg, *k1_args)
+    err = max(_max_err(vk, vr), _max_err(lk, lr))
+    print(f"[phase 1] K1 in the gantry-penalty layout (n 18, nc 19: blocks of 6 and 1, 12 "
+          f"bounds, no contact row) at B={B_MAIN}: max|Δ| {err:.3g}")
+    if err > TOL:
+        raise AssertionError(f"K1 disagrees with its plain chain in the nc 19 layout: {err}")
+    main_err[f"gantry_penalty_{cs}"] = err
+
+    # ---- (a) ANYmal on penalty contacts: the continuous path
+    kw_a = dict(observe="state", engine_options=EngineOptions(**PENALTY_OPTS))
+    env_a = ANYmalEnv(device=dev, **kw_a)
+    eng_a = env_a.engine
+    if eng_a.impulse or eng_a.backend != "inline" or eng_a.nc or env_a.n_substeps != 20:
+        raise AssertionError(f"penalty ANYmal: impulse {eng_a.impulse}, backend "
+                             f"{eng_a.backend!r}, nc {eng_a.nc}, {env_a.n_substeps} substeps")
+    st_a = drive("penalty path (continuous, no kernel)", env_a, 121, 2)
+    # the reference test's stance: the PD holding the stand pose from rest, 1 s
+    q0 = torch.as_tensor(stand_q(eng_a.tree), device=dev).repeat(B_MAIN, 1)
+    sim = eng_a.reset(q0)
+    u0 = env_a._stand_targets.expand(B_MAIN, -1)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(STANCE_STEPS):
+        sim = eng_a.step(sim, u0, n_substeps=env_a.n_substeps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _counts()
+    z = sim.q[:, 2]
+    out["stance_z"] = [z.min().item(), z.max().item()]
+    print(f"[phase 2] penalty stance (the PD at the stand pose, tests/test_engine.py's case), "
+          f"{STANCE_STEPS} env steps = 1 s at B={B_MAIN} in {wall:.2f} s: base z "
+          f"{out['stance_z'][0]:.5f}–{out['stance_z'][1]:.5f} m (bound {STANCE_Z}); launches "
+          f"{json.dumps({n: c for n, c in got.items() if c})}")
+    if got != _only() or not (STANCE_Z[0] < z.min().item() and z.max().item() < STANCE_Z[1]):
+        raise AssertionError(f"penalty stance: launches {got}, base z {out['stance_z']}")
+    rates["penalty stance, Engine.step"] = [B_MAIN * STANCE_STEPS / wall]
+    prof = _profiled_launches(lambda: env_a.step(st_a, _uniform(act_gen, dev)))
+    print(f"[phase 2] penalty path, 1 env step under torch.profiler: GPU kernel launches "
+          f"{json.dumps(prof)}")
+    _check_profiled("penalty path", prof, k1=0)
+    per_step["penalty (a)"] = prof["all"]
+    env_a_cpu = ANYmalEnv(device="cpu", **kw_a)
+    env_a64 = ANYmalEnv(device=dev, dtype=torch.float64, **kw_a)
+
+    def on_cpu(eng):
+        return lambda s, u: _sim_on(eng.step(_sim_on(s, "cpu"), u.cpu()), dev)
+
+    # the CPU leg on the first GATE_ENVS envs: its time grows with the batch
+    u_a = env_a._action_to_command(_uniform(act_gen, dev), st_a.sim)[:GATE_ENVS]
+    gates = _gate_substeps("penalty", env_a.n_substeps, lambda s, u: eng_a.step(s, u),
+                           on_cpu(env_a_cpu.engine), lambda s, u: env_a64.engine.step(s, u),
+                           _sim_on(st_a.sim, dev, GATE_ENVS), u_a, fields=("q", "v"))
+    print(f"[phase 2] penalty path, one env step substep by substep on {GATE_ENVS} envs, the "
+          "card's float32 vs the CPU's float32 and the card's float64: " + json.dumps(gates))
+    rates["penalty (a), env.step"], _ = _env_rate(env_a, st_a, act_gen, dev, 2, 1)
+
+    # ---- (b) registered forces on ANYmal's impulse engine: K1
+    eng_b = _forces_engine(dev)
+    if eng_b.backend != "kernel" or eng_b.nc != 24:
+        raise AssertionError(f"registered forces: 'auto' → {eng_b.backend!r}, nc {eng_b.nc}")
+    walker = ANYmalEnv(observe="state", device=dev)
+    sim_b = walker.reset(torch.Generator(device=dev).manual_seed(122), B_MAIN).sim
+    n_b = 10
+    torch.cuda.synchronize()
+    _reset_counts()
+    for _ in range(n_b):
+        sim_b = eng_b.step(sim_b, walker._action_to_command(_uniform(act_gen, dev), sim_b),
+                           n_substeps=walker.n_substeps)
+    torch.cuda.synchronize()
+    label = "registered forces path"
+    path[label] = got = _counts()
+    warp = _check_warp(label, eng_b.substep_spec, got)
+    print(f"[phase 2] {label} (an impulse of {IMPULSE_FORCE} N on the base in [0.02, 0.07) s and "
+          f"a profile force), {n_b} steps of 4 substeps at B={B_MAIN}: launches "
+          f"{json.dumps({n: c for n, c in got.items() if c})} (the warp body {warp}); base y "
+          f"speed mean {sim_b.v[:, 1].mean().item():.4f} m/s")
+    if got != _only(constraint_solve=4 * n_b) or not bool(torch.isfinite(sim_b.v).all()):
+        raise AssertionError(f"{label}: launches {got}")
+    u_b = walker._action_to_command(_uniform(act_gen, dev), sim_b)
+    prof = _profiled_launches(lambda: [eng_b.step(sim_b, u_b, n_substeps=4) for _ in range(2)])
+    print(f"[phase 2] {label}, 2 steps under torch.profiler: GPU kernel launches "
+          f"{json.dumps(prof)}")
+    _check_profiled(label, prof, k1=8)
+    per_step["registered forces (b)"] = prof["all"] / 2
+    eng_bi, eng_b64 = _forces_engine(dev, solver="inline"), _forces_engine(dev, torch.float64,
+                                                                          "inline")
+    gates = _gate_substeps("registered forces", 4, lambda s, u: eng_b.step(s, u),
+                           lambda s, u: eng_bi.step(s, u), lambda s, u: eng_b64.step(s, u),
+                           sim_b, u_b)
+    print(f"[phase 2] {label}, one step substep by substep, the kernel path vs the plain float32 "
+          f"and float64 paths: " + json.dumps(gates))
+    before = _counts()
+    rb = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            sim_b = eng_b.step(sim_b, u_b, n_substeps=4)
+        torch.cuda.synchronize()
+        rb.append(B_MAIN * 3 / (time.perf_counter() - t0))
+    rates["registered forces (b), 'auto' (K1)"] = rb
+    if {n: c - before[n] for n, c in _counts().items() if c != before[n]} != {cs: 24}:
+        raise AssertionError("registered forces path, timed: not 4 K1 launches per step")
+
+    # ---- (c) the gantry on penalty contacts: K1 at nc 19
+    kw_c = dict(observe="state", engine_options=EngineOptions(pgs_iters=8, **PENALTY_OPTS))
+    env_c = ANYmalGantryEnv(device=dev, **kw_c)
+    spec_c = env_c.engine.substep_spec
+    print(f"[phase 2] gantry on penalty contacts: 'auto' → {env_c.engine.backend!r}, nc "
+          f"{spec_c.nc}, layout {spec_c.cfg}")
+    if env_c.engine.backend != "kernel" or spec_c.cfg != gcfg or not spec_c.penalty:
+        raise AssertionError(f"the penalty gantry is not on K1 in the nc 19 layout: {spec_c.cfg}")
+    n_c = 3
+    st_c = drive("gantry penalty path", env_c, 123, n_c, constraint_solve=20 * n_c)
+    prof = _profiled_launches(lambda: env_c.step(st_c, _uniform(act_gen, dev)))
+    print(f"[phase 2] gantry penalty path, 1 env step under torch.profiler: GPU kernel launches "
+          f"{json.dumps(prof)}")
+    _check_profiled("gantry penalty path", prof, k1=20)
+    per_step["gantry penalty (c)"] = prof["all"]
+    kw_ci = dict(kw_c, engine_options=dataclasses.replace(kw_c["engine_options"],
+                                                          constraint_solver="inline"))
+    env_ci = ANYmalGantryEnv(device=dev, **kw_ci)
+    env_c64 = ANYmalGantryEnv(device=dev, dtype=torch.float64, **kw_ci)
+    u_c = env_c._action_to_command(_uniform(act_gen, dev), st_c.sim)
+    gates = _gate_substeps("gantry penalty", env_c.n_substeps,
+                           lambda s, u: env_c.engine.step(s, u),
+                           lambda s, u: env_ci.engine.step(s, u),
+                           lambda s, u: env_c64.engine.step(s, u), st_c.sim, u_c)
+    print("[phase 2] gantry penalty path, one env step substep by substep, the kernel path vs the "
+          "plain float32 and float64 paths: " + json.dumps(gates))
+    before = _counts()
+    rates["gantry penalty (c), 'auto' (K1)"], st_c = _env_rate(env_c, st_c, act_gen, dev, 2, 2)
+    if {n: c - before[n] for n, c in _counts().items() if c != before[n]} != {cs: 80}:
+        raise AssertionError("gantry penalty path, timed: not 20 K1 launches per env step")
+
+    # ---- (d) the toy envs
+    tgen = torch.Generator(device=dev).manual_seed(124)
+    for name, Env in (("cartpole", CartPoleEnv), ("acrobot", AcrobotEnv)):
+        env_d, env_dc = Env(device=dev), Env(device="cpu")
+        env_d64 = Env(device=dev, dtype=torch.float64)
+        st_d = env_d.reset(torch.Generator(device=dev).manual_seed(125), B_MAIN)
+        torch.cuda.synchronize()
+        _reset_counts()
+        for _ in range(5):
+            st_d = env_d.step(st_d, _toy_actions(env_d, tgen, dev))
+        torch.cuda.synchronize()
+        path[f"{name} env"] = got = _counts()
+        _check_finite(st_d, f"the {name} env")
+        print(f"[phase 2] {name} env, 5 env steps at B={B_MAIN}: launches "
+              f"{json.dumps({n: c for n, c in got.items() if c})}; done this step "
+              f"{int(st_d.done.sum())}/{B_MAIN}")
+        if got != _only():
+            raise AssertionError(f"the {name} env launched a kernel of ours: {got}")
+        a = _toy_actions(env_d, tgen, dev)
+        prof = _profiled_launches(lambda: env_d.step(st_d, a))
+        _check_profiled(f"{name} env", prof, k1=0)
+        per_step[f"{name} (d)"] = prof["all"]
+        u_d = env_d._action_to_command(a, st_d.sim)[:GATE_ENVS]
+        gates = _gate_substeps(name, env_d.n_substeps, lambda s, u: env_d.engine.step(s, u),
+                               on_cpu(env_dc.engine), lambda s, u: env_d64.engine.step(s, u),
+                               _sim_on(st_d.sim, dev, GATE_ENVS), u_d, fields=("q", "v"))
+        print(f"[phase 2] {name} env, one env step substep by substep on {GATE_ENVS} envs, the "
+              f"card's float32 vs the CPU's float32 and the card's float64: " + json.dumps(gates))
+        rates[f"{name} (d)"], _ = _toy_rate(env_d, st_d, tgen, dev, 3, 2)
+
+    # ---- simulate_adaptive: one pendulum trajectory, float64, as on the CPU
+    adaptive = {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        eng_p = Engine(make_pendulum(device=where, dtype=torch.float64), EngineOptions(dt=1e-3),
+                       ground=FlatGround(height=-100.0), device=where)  # the tip's out of reach
+        st_p = eng_p.reset(torch.tensor([[1.2]], dtype=torch.float64, device=where))
+        fin, adaptive[key] = eng_p.simulate_adaptive(st_p, 1.0)
+        adaptive[key]["q"] = fin.q.item()
+    print(f"[phase 2] simulate_adaptive, the pendulum from 1.2 rad for 1 s (float64): card "
+          f"{json.dumps(adaptive['card'])}, CPU {json.dumps(adaptive['cpu'])}")
+    counters = ("accepted", "rejected", "iters")
+    if any(adaptive["card"][k] != adaptive["cpu"][k] for k in counters) \
+            or abs(adaptive["card"]["q"] - adaptive["cpu"]["q"]) > 1e-9:
+        raise AssertionError(f"simulate_adaptive on the card differs from the CPU: {adaptive}")
+    out["adaptive"] = adaptive["card"]
+
+    # ---- the reference's test_cartpole_improves on the card
+    env_t = CartPoleEnv(device=dev)
+    init_fn, train_step, _ = make_train_fn(env_t, PPOConfig(**CARTPOLE_PPO))
+    carry = init_fn(0, CARTPOLE_PPO["num_envs"])
+    done = []
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(CARTPOLE_ITERS):
+        carry, m = train_step(carry)
+        done.append(float(m["episode_done_frac"]))
+    wall = time.perf_counter() - t0
+    first, last = sum(done[:5]) / 5, sum(done[-5:]) / 5
+    out["cartpole_done_frac"] = done
+    launched = {n: c for n, c in _counts().items() if c}
+    print(f"[phase 4] cartpole PPO ({CARTPOLE_ITERS} iterations, {json.dumps(CARTPOLE_PPO)}) in "
+          f"{wall:.1f} s: episode_done_frac {[round(x, 5) for x in done]}; last 5 {last:.5f} "
+          f"against first 5 {first:.5f}; launches {json.dumps(launched)}")
+    finite = all(bool(torch.isfinite(W).all()) for W, _ in carry[0]["actor"])
+    if not (last < 0.5 * max(first, 1e-3)) or not finite or launched:
+        raise AssertionError(f"cartpole PPO did not improve: first {first}, last {last}")
+
+    # ---- phase 3: rates beside the K2 state path, and K1 at nc 19
+    env_k2 = ANYmalEnv(observe="state", device=dev)
+    st_k2 = env_k2.reset(torch.Generator(device=dev).manual_seed(126), B_MAIN)
+    for _ in range(5):
+        st_k2 = env_k2.step(st_k2, _uniform(act_gen, dev))
+    rates["ANYmal state path (K2)"], _ = _env_rate(env_k2, st_k2, act_gen, dev, STEPS, 3)
+    k2 = max(rates["ANYmal state path (K2)"])
+    for k, r in rates.items():
+        print(f"[phase 3] env-steps/s at B={B_MAIN}, {k}: {[round(x, 1) for x in r]} (max "
+              f"{max(r):.1f}, {max(r) / k2:.5f}× the K2 state path)")
+    print(f"[phase 3] GPU kernel launches per env step (torch.profiler): {json.dumps(per_step)}")
+    print(f"[phase 3] K1 in the gantry-penalty layout: n {gcfg.n}, nc {gcfg.nc}, {gcfg.iters} "
+          f"sweeps, {_solve_flops(gcfg)} FLOP per env")
+    entry(f"gantry_penalty_{cs}", "jiminy_tpu_torch/csrc/constraint_solve.cu",
+          "jiminy_tpu/ops/constraint_solve.py:358", path["gantry penalty path"][cs],
+          _time_cuda(lambda: solve_batched(gcfg, *k1_args, device=dev), 50),
+          _time_cuda(lambda: solve_reference(gcfg, *k1_args), 5),
+          _solve_bytes(gcfg, B_MAIN), _solve_flops(gcfg) * B_MAIN)
+    print(f"[phase 3] the paths off the impulse engine took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 # ---- A.15's walkers: AntEnv (ant_run, ant_sensors_run5) and SpotmicroEnv
@@ -4747,6 +5110,8 @@ def run(dev) -> None:
     # ---- A.22, A.24: the kinematic constraints, per-body wrenches and
     # per-env friction on the chain kernel, after every other part
     rates_chain = phase_chain_paths(dev, drive, entry, main_err, path, act_gen)
+    # ---- A.16: the paths off the impulse engine, after every other part
+    penalty = phase_penalty_paths(dev, drive, entry, main_err, path, act_gen)
 
     # after every large-frame launch: the ANYmal sensor K2 again, beside its
     # time before them (every kernel runs the warp body; none keeps local
@@ -4765,6 +5130,7 @@ def run(dev) -> None:
                       "env_steps_per_s_cassie": rates_c, "env_steps_per_s_walkers": rates_w,
                       "steps_per_s_prismatic_slab": rates_sl, "env_steps_per_s_atlas": rates_a,
                       "env_steps_per_s_chain_paths": rates_chain,
+                      "penalty_paths": penalty,
                       "nvcc_build_s": build,
                       "ppo": training}))
     print(json.dumps({"kernels": kernels}))

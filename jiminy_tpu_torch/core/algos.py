@@ -1,8 +1,8 @@
 """Featherstone rigid-body algorithms over a batch of configurations.
 
 Counterpart of ``jiminy_tpu/core/algos.py`` (kinematics, body
-accelerations, RNEA with armature, CRBA, point and 6-D frame Jacobians,
-Lie-group integrate) for FREE, REVOLUTE, PRISMATIC and SPHERICAL joints; a joint's columns
+accelerations, RNEA with armature, CRBA, ABA, point and 6-D frame
+Jacobians, Lie-group integrate) for FREE, REVOLUTE, PRISMATIC and SPHERICAL joints; a joint's columns
 enter every algorithm through its motion subspace alone. The reference
 writes them for one robot and vmaps; here every function takes batched
 ``q (B, nq)``, ``v (B, nv)`` and loops over bodies in Python (the
@@ -202,6 +202,69 @@ def crba(tree: KinematicTree, q, xl=None, inertials=None) -> torch.Tensor:
     if inertials is None:
         return M + torch.diag(tree.armature)
     return M + torch.diag_embed(inertials.armature)
+
+
+def _force_mat(x: Transform) -> torch.Tensor:
+    """Dense (..., 6, 6) force transform child → parent: [[R, p̂R], [0, R]]."""
+    R = x.rot
+    top = torch.cat([R, so3.hat(x.pos) @ R], dim=-1)
+    return torch.cat([top, torch.cat([torch.zeros_like(R), R], dim=-1)], dim=-2)
+
+
+def aba(tree: KinematicTree, q, v, tau, fext=None) -> torch.Tensor:
+    """Articulated-body forward dynamics with armature, a = FD(q, v, τ)
+    (B, nv); ``fext`` as in :func:`rnea`. The reference implementation
+    that the engine's mass-matrix solve is held against; the engine does
+    not call it."""
+    xl = local_transforms(tree, q)
+    g = tree.gravity
+    a0 = torch.cat([torch.zeros_like(g), -g])
+    nb = tree.nb
+    vel, c, IA, pA = [None] * nb, [None] * nb, [None] * nb, [None] * nb
+    S_all, U_all, Dinv_all, u_all = [None] * nb, [None] * nb, [None] * nb, [None] * nb
+    # pass 1: velocities and bias forces
+    for i in range(nb):
+        p = tree.parent[i]
+        S = S_all[i] = motion_subspace(tree, i)
+        vj = _joint_velocity(tree, i, S, v)
+        if p < 0:
+            vel[i] = vj
+            c[i] = torch.zeros_like(vj)
+        else:
+            vel[i] = xl[i].motion_parent_to_child(vel[p]) + vj
+            c[i] = motion_cross(vel[i], vj)
+        Ii = tree.body_inertia(i)
+        IA[i] = Ii.to_matrix()
+        pA[i] = motion_cross_force(vel[i], Ii.mul_motion(vel[i]))
+        if fext is not None:
+            pA[i] = pA[i] - fext[:, i]
+    # pass 2: articulated inertias, leaves to root
+    for i in range(nb - 1, -1, -1):
+        S = S_all[i]
+        sl = tree.v_slice(i)
+        U = IA[i] @ S  # (…, 6, nv_i)
+        D = S.T @ U + torch.diag(tree.armature[sl])
+        Dinv = 1.0 / D if S.shape[1] == 1 else torch.linalg.inv(D)
+        u = tau[:, sl] - pA[i] @ S
+        U_all[i], Dinv_all[i], u_all[i] = U, Dinv, u
+        p = tree.parent[i]
+        if p >= 0:
+            Ia = IA[i] - U @ Dinv @ U.transpose(-1, -2)
+            pa = pA[i] + mv(Ia, c[i]) + mv(U, mv(Dinv, u))
+            W = _force_mat(xl[i])
+            IA[p] = IA[p] + W @ Ia @ W.transpose(-1, -2)
+            pA[p] = pA[p] + mv(W, pa)
+    # pass 3: accelerations, root to leaves
+    acc = [None] * nb
+    qdd = torch.zeros_like(v)
+    for i in range(nb):
+        p = tree.parent[i]
+        a_up = a0 if p < 0 else acc[p]
+        a_prime = xl[i].motion_parent_to_child(a_up) + c[i]
+        qdd_i = mv(Dinv_all[i], u_all[i] - mv(U_all[i].transpose(-1, -2), a_prime))
+        qdd[:, tree.v_slice(i)] = qdd_i
+        acc[i] = a_prime + qdd_i @ S_all[i].T
+    return qdd
 
 
 def _chain_columns(tree: KinematicTree, xw: list[Transform], body: int, point_world):

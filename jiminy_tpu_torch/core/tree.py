@@ -7,7 +7,9 @@ tensors shared by every env of a batch.
 
 Models cross from the reference as numpy arrays: :func:`tree_from_arrays`
 takes every field of the reference's ``KinematicTree`` as a numpy array
-and returns the port's tree. :class:`TreeBuilder` is the subset of the
+and returns the port's tree. :func:`merge_trees` joins robots into one
+forest (several roots), the model of a multi-robot simulation whose
+robots a ``CouplingForce`` ties together. :class:`TreeBuilder` is the subset of the
 reference's builder that the port's own model builders need (moving
 bodies with their armature, damping and joint springs, fixed-body
 fusion, frames, world-anchored frames included, contact points, and
@@ -237,6 +239,36 @@ def tree_from_arrays(
         for k in ARRAY_FIELDS
     }
     return KinematicTree(**static, **arrays)
+
+
+def merge_trees(trees, prefixes=None) -> KinematicTree:
+    """Robots merged into one forest tree (one root per robot), their
+    bodies, joints, frames and contacts in order, the names prefixed per
+    robot (``"robot0/"``, … or ``prefixes``) and the indices remapped;
+    the gravity is the first tree's. Every tree must share one device and
+    dtype."""
+    trees = list(trees)
+    if prefixes is None:
+        prefixes = [f"robot{i}/" for i in range(len(trees))]
+    static = {k: [] for k in STATIC_FIELDS if k not in ("nb", "nq", "nv")}
+    b_off = q_base = v_base = 0
+    for t, pre in zip(trees, prefixes):
+        static["parent"] += [p + b_off if p >= 0 else -1 for p in t.parent]
+        static["joint_type"] += list(t.joint_type)
+        static["q_off"] += [o + q_base for o in t.q_off]
+        static["v_off"] += [o + v_base for o in t.v_off]
+        for k in ("body_name", "joint_name", "frame_name", "contact_frame_name"):
+            static[k] += [pre + n for n in getattr(t, k)]
+        static["frame_body"] += [b + b_off for b in t.frame_body]
+        static["contact_body"] += [b + b_off for b in t.contact_body]
+        b_off += t.nb
+        q_base += t.nq
+        v_base += t.nv
+    arrays = {k: torch.cat([getattr(t, k) for t in trees]) for k in ARRAY_FIELDS
+              if k != "gravity"}
+    return KinematicTree(nb=b_off, nq=q_base, nv=v_base,
+                         **{k: tuple(x) for k, x in static.items()},
+                         gravity=trees[0].gravity, **arrays)
 
 
 class TreeBuilder:

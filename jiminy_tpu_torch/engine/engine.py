@@ -1,10 +1,29 @@
 """The simulation engine: advances a batch of (t, q, v) states.
 
-Counterpart of ``jiminy_tpu/engine/engine.py`` for the slice's
-configuration: the impulse path (contacts and joint bounds as rows of a
-PGS velocity-level solve fused with a semi-implicit Euler step), a
-declarative :class:`PDController` or a direct motor command, and an
-optional (6,) local wrench on the root body held over the step.
+Counterpart of ``jiminy_tpu/engine/engine.py``. Two paths, as in the
+reference, chosen by the model:
+
+- the **impulse path** (a kinematic constraint, or
+  ``contact_model="constraint"``): contacts and joint bounds as rows of a
+  PGS velocity-level solve fused with a semi-implicit Euler step;
+- the **continuous path** (``contact_model="spring_damper"``, the
+  reference's default, and no kinematic constraint): penalty contacts
+  (:func:`~jiminy_tpu_torch.engine.contact.compute_contact_fext`) and
+  penalty joint bounds as forces, :meth:`Engine.dynamics` (CRBA, RNEA and
+  a Cholesky solve) integrated by the options' stepper (symplectic
+  Euler, its alias ``"euler_explicit"``, or RK4;
+  :mod:`jiminy_tpu_torch.engine.steppers`), and
+  :meth:`Engine.simulate_adaptive`, the adaptive DOPRI stepper for one
+  trajectory. It runs plain PyTorch: no solve, so no kernel.
+
+The actuation torque (:meth:`Engine._joint_torque`) is, in the
+reference's order: a declarative :class:`PDController`, a direct motor
+command or any ``fn(cmd, q, v)`` controller, the motor model, joint
+damping and springs, penalty bounds (``bounds_model``), and
+``internal_dynamics(q, v, t)``. Registered forces (``forces=``: impulse,
+profile and coupling forces of :mod:`jiminy_tpu_torch.engine.forces`),
+an optional (6,) local wrench on the root body and per-body wrenches
+join the bodies' ``fext`` on both paths.
 
 The ground is flat, a heightmap, or an analytic ground (Fourier, Perlin,
 Stairs; :mod:`jiminy_tpu_torch.engine.ground`), which ``step`` and
@@ -13,7 +32,7 @@ engine's own kind with a (B,) batch): the whole-substep kernels query it
 in-kernel from its coefficients. A heightmap is outside their scope, so
 ``"auto"`` resolves to ``"kernel"`` for it.
 
-The substep's physics has three backends, selected by
+The impulse substep's physics has three backends, selected by
 ``EngineOptions.constraint_solver``:
 
 - ``"substep"``: the whole-substep CUDA kernels of
@@ -27,15 +46,16 @@ The substep's physics has three backends, selected by
 - ``"inline"``: plain PyTorch physics with the plain chain (the
   reference's ``"xla"``), so the same physics runs with no kernel;
 - ``"auto"`` (the default): ``"substep"`` when the model is within the
-  whole-substep kernels' caps (nb ≤ 32, nv ≤ 32, nc ≤ 96, ≤ 24 pair
-  contacts, ≤ 16 PGS colors, no kinematic constraint but distance ones:
-  every model the port builds, Atlas with its self-collision pairs at nc
-  83 included), else ``"kernel"`` when it is
+  whole-substep kernels' scope and caps (symplectic Euler, contacts and
+  bounds as rows, no registered force, no kinematic constraint but
+  distance ones; nb ≤ 32, nv ≤ 32, nc ≤ 96, ≤ 24 pair contacts, ≤ 16
+  PGS colors: every impulse model the port builds, Atlas with its
+  self-collision pairs at nc 83 included), else ``"kernel"`` when it is
   within the chain kernel's (nv ≤ 32, nc ≤ 96). Beyond both, ``"inline"``
   on the CPU (where every backend runs the plain versions), and on CUDA a
   ValueError: the plain physics runs on the card only when ``"inline"``
-  is asked for.
-  ``Engine.backend`` is the choice.
+  is asked for. On the continuous path no solve runs, and ``"auto"`` is
+  ``"inline"``. ``Engine.backend`` is the choice.
 
 Every backend runs the same substep: :func:`substep_reference` is the
 plain one, and the kernels are held against it.
@@ -43,12 +63,16 @@ plain one, and the kernels are held against it.
 The inputs decide the route, as in the reference, and never a failure:
 per-body external wrenches (``step(..., fext_user=)``) and per-env
 contact parameters (``contact_params=``, a
-:class:`~jiminy_tpu_torch.engine.contact.ContactParams` whose friction
-may be a (B,) tensor) keep a step off the whole-substep kernels, so on
+:class:`~jiminy_tpu_torch.engine.contact.ContactParams` whose fields may
+be (B,) tensors) keep a step off the whole-substep kernels, so on
 any backend such a step runs the per-substep loop of the plain substep:
 around the chain kernel K1 on ``"substep"`` and ``"kernel"``, around the
-plain chain on ``"inline"``. So do kinematic constraints other than
-distance ones, through ``"auto"`` resolving to ``"kernel"``.
+plain chain on ``"inline"``. So do, through ``"auto"`` resolving to
+``"kernel"``, kinematic constraints other than distance ones, registered
+forces, penalty contacts beside kinematic constraints, and bounds not run
+as constraints (``bounds_model="penalty"`` or ``enable_bounds=False`` on
+the impulse path); ``"substep"`` with any of them raises at
+``Engine(...)``.
 
 :meth:`Engine.step_with_sensors` is the fused step with the sensor
 stage (the reference's ``step_with_sensors``): on the ``"substep"``
@@ -62,8 +86,8 @@ env's packed row (B, n_mp) that :meth:`Engine._pack_model_params` makes
 once from an :class:`~jiminy_tpu_torch.engine.randomization.ModelParams`
 with a (B,) batch): it rides the randomized instantiations of the
 whole-substep kernels (K2 with τ scaled in-kernel; K3 with τ from the
-scaled motors), and the plain physics of ``"kernel"`` and ``"inline"``
-reads the same rows.
+scaled motors), and the plain physics of ``"kernel"``, ``"inline"`` and
+the continuous path reads the same rows.
 
 Collision: contact sites may be spheres (the tree's ``contact_radius``),
 and ``collision_pairs`` (:class:`~jiminy_tpu_torch.engine.collision.CollisionPair`:
@@ -80,16 +104,10 @@ sphere and wheel constraints) are equality rows of every substep, one
 block each, stacked ahead of the joint bounds and contacts, on every
 backend; the sphere and wheel rows roll on the step's ground. Only
 distance constraints (closed loops such as Cassie's pushrods) ride the
-whole-substep kernels, as in the reference: ``"substep"`` with any other
-raises at ``Engine(...)``. Joint springs (the tree's ``stiffness``: −k·q
-on 1-DoF joints, −k·log(quat) on the SPHERICAL flexibility joints) are
-part of the actuation torque and integrate implicitly with the joint
-damping.
-
-Contacts run as PGS rows: ``EngineOptions.contact_model`` defaults to the
-reference's ``"spring_damper"``, which the engine refuses. Not ported
-yet (each raises): penalty contacts and other steppers (ROADMAP A.16);
-so the stiffness and damping of ``ContactParams`` stay unread.
+whole-substep kernels, as in the reference. Joint springs (the tree's
+``stiffness``: −k·q on 1-DoF joints, −k·log(quat) on the SPHERICAL
+flexibility joints) are part of the actuation torque and, on the impulse
+path, integrate implicitly with the joint damping.
 """
 
 from __future__ import annotations
@@ -100,11 +118,19 @@ import numpy as np
 import torch
 
 from jiminy_tpu_torch import resolve_device
-from jiminy_tpu_torch.core.tree import KinematicTree
+from jiminy_tpu_torch.core.tree import JointType, KinematicTree
+from jiminy_tpu_torch.core import algos
+from jiminy_tpu_torch.engine import steppers
 from jiminy_tpu_torch.engine.collision import CollisionPairSet
-from jiminy_tpu_torch.engine.contact import ContactParams
+from jiminy_tpu_torch.engine.contact import (
+    ContactParams,
+    compute_contact_fext,
+    contact_effective_mass,
+)
+from jiminy_tpu_torch.engine.forces import compute_forces
 from jiminy_tpu_torch.engine.ground import FlatGround, FourierGround, PerlinGround, StairsGround
 from jiminy_tpu_torch.hardware.motors import Motors
+from jiminy_tpu_torch.math import linalg
 
 # modules, not their names: ops.constraint_solve imports the engine's PGS
 # solver, so either package may be the one still importing
@@ -140,18 +166,21 @@ def sim_state_from_arrays(d: dict, device="cuda", dtype=torch.float32) -> SimSta
 
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
-    """The subset of the reference's EngineOptions that the slice reads
-    (same names and defaults, so ``contact_model="constraint"`` is asked
-    for, as the walker envs do; of ``constraint_solver``, the port's
-    ``"substep"``, ``"kernel"`` and ``"inline"`` are the reference's
-    ``"pallas_substep"``, ``"pallas"`` and ``"xla"``). Joint bounds always
-    run as PGS rows, the reference's choice on the impulse path."""
+    """The reference's EngineOptions (same names, defaults and order; of
+    ``constraint_solver``, the port's ``"substep"``, ``"kernel"`` and
+    ``"inline"`` are the reference's ``"pallas_substep"``, ``"pallas"``
+    and ``"xla"``). ``solver``: ``"euler_symplectic"`` (or its alias
+    ``"euler_explicit"``) or ``"runge_kutta_4"`` (continuous path only).
+    ``bounds_model``: ``"auto"`` (rows on the impulse path, else
+    penalty torques), ``"penalty"`` or ``"constraint"`` (rows; off the
+    impulse path, as in the reference, no bound at all)."""
 
     solver: str = "euler_symplectic"
     dt: float = 1e-3
     contacts: ContactParams = dataclasses.field(default_factory=ContactParams)
-    # "spring_damper" (penalty contacts, ROADMAP A.16: Engine refuses it)
-    # or "constraint" (contacts as PGS rows), the reference's default first
+    # "spring_damper" (penalty contacts, the continuous path unless a
+    # kinematic constraint asks for the impulse path) or "constraint"
+    # (contacts as PGS rows), the reference's default first
     contact_model: str = "spring_damper"
     pgs_iters: int = 16
     pgs_relax: float = 1.0
@@ -166,8 +195,13 @@ class EngineOptions:
     # active set
     contact_margin: float = 5e-3
     constraint_solver: str = "auto"  # "auto" | "substep" | "kernel" | "inline"
+    bounds_model: str = "auto"  # "auto" | "penalty" | "constraint"
     bounds_baumgarte_freq: float = 20.0
     compute_solver_residual: bool = True
+    # the penalty bounds' spring-damper
+    bounds_stiffness: float = 1e4
+    bounds_damping: float = 1e2
+    enable_bounds: bool = True
     # with constraint_solver="substep" and a declarative torque path (PD
     # or direct motor command): all substeps of a step() in one launch
     substep_fusion: bool = True
@@ -196,7 +230,17 @@ class Engine:
     substep's solve.
     ``collision_pairs``: declared body-body pairs
     (:class:`~jiminy_tpu_torch.engine.collision.CollisionPair`), contact
-    rows of every substep's solve."""
+    rows of every substep's solve. ``forces``: registered forces
+    (:mod:`jiminy_tpu_torch.engine.forces`), evaluated at each env's time.
+    ``internal_dynamics``: an optional ``fn(q, v, t) → (B, nv)`` torque
+    added last to the actuation torque (it keeps the torque off the fused
+    kernel, which cannot evaluate it).
+
+    ``contact_m_eff`` holds the contact sites' static tangential
+    effective masses (ncp,) that the penalty model's friction clamp
+    reads (:func:`~jiminy_tpu_torch.engine.contact.contact_effective_mass`,
+    rounded to float32 as the reference's), or None without penalty
+    contacts; a caller may replace it with another (ncp,) tensor."""
 
     def __init__(
         self,
@@ -207,6 +251,8 @@ class Engine:
         controller=None,
         constraints=(),
         collision_pairs=(),
+        forces=(),
+        internal_dynamics=None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -216,6 +262,8 @@ class Engine:
             device=self.device, dtype=self.tree.dtype
         )
         self.motors = motors.to(device=self.device) if motors is not None else None
+        if opts.solver not in steppers.STEPPERS:
+            raise ValueError(f"unknown solver {opts.solver!r}")
         if opts.constraint_solver not in ("auto", "substep", "kernel", "inline"):
             raise ValueError(f"unknown constraint_solver {opts.constraint_solver!r}")
         self.collision_pairs = tuple(collision_pairs)
@@ -231,14 +279,33 @@ class Engine:
         elif controller is None and self.motors is not None:
             torque = substep_ops.TorqueSpec.from_motors(self.motors)
         self.controller = controller
+        self.internal_dynamics = internal_dynamics
         self.constraints = tuple(constraints)
+        self.forces = tuple(forces)
         # the static substep: row layout, solve configuration, constants
         self.substep_spec = spec = substep_ops.SubstepSpec(
             self.tree, opts, self.ground, motors=self.motors, torque=torque,
             constraints=self.constraints,
             pairs=CollisionPairSet(self.tree, self.collision_pairs, float(opts.contacts.friction))
             if self.collision_pairs else None,
+            forces=self.forces,
         )
+        self.impulse = spec.impulse
+        if self.impulse and opts.solver not in ("euler_symplectic", "euler_explicit"):
+            raise ValueError("constraint/impulse dynamics requires the euler_symplectic stepper "
+                             "(velocity-level impulses)")
+        self._stepper = steppers.STEPPERS[opts.solver]
+        # K2 evaluates a declarative torque alone: an internal-dynamics hook
+        # keeps the torque outside (K3 with τ given), as in the reference
+        self._fusable = spec.torque is not None and internal_dynamics is None
+        self.contact_m_eff = None
+        if spec.penalty:
+            self.contact_m_eff = torch.as_tensor(
+                contact_effective_mass(self.tree), dtype=self.tree.dtype, device=self.device)
+        # the 1-DoF joints' q and v offsets, which the penalty bounds read
+        one = [i for i in range(self.tree.nb)
+               if self.tree.joint_type[i] in (JointType.REVOLUTE, JointType.PRISMATIC)]
+        self._one_dof = ([self.tree.q_off[i] for i in one], [self.tree.v_off[i] for i in one])
         self.nc = spec.nc
         self.backend = opts.constraint_solver
         if self.backend == "substep":
@@ -253,7 +320,10 @@ class Engine:
     def auto_backend(spec: substep_ops.SubstepSpec, device: torch.device) -> str:
         """What ``"auto"`` resolves to for ``spec`` on ``device``: the
         whole-substep kernels, else the chain kernel; beyond both
-        ``"inline"`` on the CPU, and a ValueError on CUDA."""
+        ``"inline"`` on the CPU, and a ValueError on CUDA. On the
+        continuous path, where no solve runs, ``"inline"``."""
+        if not spec.impulse:
+            return "inline"
         try:
             spec.check_kernel_caps("constraint_solver='auto'")
             return "substep"
@@ -286,16 +356,43 @@ class Engine:
             tau=torch.zeros(B, t.nv, **z),
         )
 
-    def _joint_torque(self, u, q, v, mscale=None):
-        """Command → actuation torque: inner-loop controller, motor
-        model, joint damping, 1-DoF joint springs (−k·q). ``mscale``:
-        each env's motor (gain, friction scale), (B, nm) each, or None."""
+    def _bound_torques(self, q, v):
+        """The penalty bounds (B, nv): a spring-damper of
+        ``bounds_stiffness`` and ``bounds_damping`` on every REVOLUTE and
+        PRISMATIC joint past a limit, pushing it back inside (zero when
+        ``enable_bounds`` is off)."""
+        tau = torch.zeros_like(v)
+        opts, tree = self.options, self.tree
+        qo, vo = self._one_dof
+        if not opts.enable_bounds or not qo:
+            return tau
+        ks, kd = opts.bounds_stiffness, opts.bounds_damping
+        below = torch.clamp_min(tree.q_min[qo] - q[:, qo], 0.0)
+        above = torch.clamp_min(q[:, qo] - tree.q_max[qo], 0.0)
+        active = (below > 0) | (above > 0)
+        f = ks * below - ks * above
+        tau[:, vo] = f - torch.where(active, kd * v[:, vo], torch.zeros_like(f))
+        return tau
+
+    def _joint_torque(self, u, q, v, mscale=None, t=None):
+        """Command → actuation torque, in the reference's order: the
+        inner-loop controller, the motor model, joint damping and 1-DoF
+        and spherical springs, the penalty bounds (``bounds_model``
+        ``"penalty"``), then ``internal_dynamics(q, v, t)``. ``mscale``:
+        each env's motor (gain, friction scale), (B, nm) each, or None;
+        ``t`` (B,): each env's time, which the internal dynamics read."""
         if self.substep_spec.torque is not None:  # declarative: PD or direct
-            return substep_ops.torque_reference(self.substep_spec, q, v, u, mscale)
-        if self.controller is not None:
-            u = self.controller(u, q, v)
-        tau = self.motors.compute_effort(u, v, mscale) if self.motors is not None else u
-        return substep_ops.with_springs(self.tree, q, tau - self.tree.damping * v)
+            tau = substep_ops.torque_reference(self.substep_spec, q, v, u, mscale)
+        else:
+            if self.controller is not None:
+                u = self.controller(u, q, v)
+            tau = self.motors.compute_effort(u, v, mscale) if self.motors is not None else u
+            tau = substep_ops.with_springs(self.tree, q, tau - self.tree.damping * v)
+        if self.substep_spec.bounds_mode == "penalty":
+            tau = tau + self._bound_torques(q, v)
+        if self.internal_dynamics is not None:
+            tau = tau + self.internal_dynamics(q, v, t)
+        return tau
 
     def _pack_model_params(self, model_params):
         """Each env's packed model parameters (B, n_mp) in the tree's
@@ -354,27 +451,30 @@ class Engine:
             cfg, *(a.contiguous() for a in args), device=self.device
         )
 
-    def _impulse_substep(self, q, v, u, lam0, wrench, gc, mp=None, fext=None, friction=None):
+    def _impulse_substep(self, q, v, u, lam0, wrench, gc, mp=None, fext=None, friction=None,
+                         t=None, contacts=None):
         """One semi-implicit Euler substep with velocity-level PGS impulses
         for kinematic constraints, joint bounds, ground contacts and
-        collision pairs (``gc``: the per-env ground
-        coefficients or None; ``mp``: the per-env packed model parameters
-        or None; ``fext``: per-body wrenches or None; ``friction``: the
-        ground friction per env or None). K3 on ``"substep"`` unless
-        ``fext`` or ``friction`` is given; then, and on ``"kernel"``, the
-        plain substep around K1; on ``"inline"`` the plain substep.
-        Returns (q⁺, v⁺, contact_forces, residual, λ, a, τ)."""
+        collision pairs (``gc``: the per-env ground coefficients or None;
+        ``mp``: the per-env packed model parameters or None; ``fext``:
+        per-body wrenches or None; ``friction``: the ground friction per
+        env or None; ``t`` (B,): each env's time; ``contacts``: the
+        penalty model's per-env ContactParams or None). K3 on
+        ``"substep"`` unless ``fext``, ``friction`` or ``contacts`` is
+        given; then, and on ``"kernel"``, the plain substep around K1; on
+        ``"inline"`` the plain substep. Returns (q⁺, v⁺, contact_forces,
+        residual, λ, a, τ)."""
         spec, dt = self.substep_spec, self.substep_spec.dt
         mscale = substep_ops.unpack_model_params(spec, mp)[1] if mp is not None else None
-        tau = self._joint_torque(u, q, v, mscale)
+        tau = self._joint_torque(u, q, v, mscale, t)
         backend = self.backend
-        if backend == "substep" and fext is None and friction is None:
+        if backend == "substep" and fext is None and friction is None and contacts is None:
             out = substep_ops.substep_batched(spec, q, v, tau, lam0, wrench, gc=gc, mp=mp)
         else:
             solve = None if backend == "inline" else self._solve_chain_kernel
             out = substep_ops.substep_reference(
                 spec, q, v, tau, lam0, wrench, solve=solve, gc=gc, mp=mp, fext=fext,
-                friction=friction,
+                friction=friction, t=t, contacts=contacts, m_eff=self.contact_m_eff,
             )
         q_next, v_next, lam, residual, impulse = out
         return q_next, v_next, impulse / dt, residual, lam, (v_next - v) / dt, tau
@@ -401,7 +501,7 @@ class Engine:
         if not (
             self.backend == "substep"
             and self.options.substep_fusion
-            and self.substep_spec.torque is not None
+            and self._fusable
             and k_obs >= 1
             and n_substeps % k_obs == 0
             and self._kernel_ground_ok(ground if ground is not None else self.ground)
@@ -442,19 +542,23 @@ class Engine:
         )
         return sim, bufs
 
-    def _friction(self, contact_params, batch_size: int):
-        """The ground friction that ``contact_params`` sets: None for None,
-        else a float or each env's (B,) tensor on the engine's device."""
+    def _contact_params(self, contact_params, batch_size: int):
+        """``contact_params`` with each field a float or each env's (B,)
+        tensor on the engine's device, or None for None."""
         if contact_params is None:
             return None
-        mu = contact_params.friction
-        if not torch.is_tensor(mu):
-            return float(mu)
-        mu = mu.to(device=self.device, dtype=self.tree.dtype)
-        if mu.dim() > 1 or mu.numel() not in (1, batch_size):
-            raise ValueError(f"contact_params.friction of shape {tuple(mu.shape)} for a batch of "
-                             f"{batch_size}: a float or one per env")
-        return mu
+        out = {}
+        for f in dataclasses.fields(ContactParams):
+            x = getattr(contact_params, f.name)
+            if torch.is_tensor(x):
+                x = x.to(device=self.device, dtype=self.tree.dtype)
+                if x.dim() > 1 or x.numel() not in (1, batch_size):
+                    raise ValueError(f"contact_params.{f.name} of shape {tuple(x.shape)} for a "
+                                     f"batch of {batch_size}: a float or one per env")
+            else:
+                x = float(x)
+            out[f.name] = x
+        return ContactParams(**out)
 
     def _fext(self, fext_user, batch_size: int):
         """``fext_user`` (B, nb, 6) or (nb, 6) on the engine's device, or
@@ -468,6 +572,36 @@ class Engine:
                              f"({batch_size}, {nb}, 6)")
         return f
 
+    def dynamics(self, q, v, t, u, ground=None, fext_user=None, contact_params=None,
+                 model_params=None):
+        """The continuous dynamics (the reference's ``dynamics``): (q, v,
+        t (B,), command u) → (a (B, nv), world penalty contact forces (B,
+        ncp, 3)). The penalty contacts on ``ground`` (None: the engine's),
+        the registered forces and ``fext_user`` (B, nb, 6) join the
+        bodies' wrenches; a = M⁻¹(τ − bias) by Cholesky. ``contact_params``
+        (a ContactParams, fields float or (B,)) replaces the options';
+        ``model_params`` (B, n_mp) are each env's packed model parameters
+        (:meth:`_pack_model_params`)."""
+        tree, spec = self.tree, self.substep_spec
+        inertials = mscale = None
+        if model_params is not None:
+            inertials, mscale = substep_ops.unpack_model_params(spec, model_params)
+        cparams = contact_params if contact_params is not None else self.options.contacts
+        xl = algos.local_transforms(tree, q)
+        xw, vel = algos.kinematics(tree, q, v, xl=xl)
+        fext, f_contact = compute_contact_fext(
+            tree, xw, vel, ground if ground is not None else self.ground, cparams,
+            dt=spec.dt, m_eff=self.contact_m_eff, spheres=spec.spheres)
+        if self.forces:
+            fext = fext + compute_forces(tree, self.forces, t, xw, vel)
+        if fext_user is not None:
+            fext = fext + fext_user
+        tau = self._joint_torque(u, q, v, mscale, t)
+        M = algos.crba(tree, q, xl=xl, inertials=inertials)
+        bias = algos.rnea(tree, q, v, torch.zeros_like(v), fext=fext, xl=xl,
+                          inertials=inertials)
+        return linalg.solve_psd(M, tau - bias), f_contact
+
     def step(
         self, state: SimState, u: torch.Tensor, n_substeps: int = 1,
         base_wrench: torch.Tensor | None = None, ground=None, model_params=None,
@@ -478,31 +612,40 @@ class Engine:
         spatial wrench on the root body held over the step (push
         disturbances). ``ground``: optional ground of the engine's own
         kind, an analytic one with a (B,) batch for per-env terrain
-        (None: the engine's ground); anything else raises ValueError.
-        ``model_params``: optional (B, n_mp) packed rows
+        (None: the engine's ground); on the impulse path anything else
+        raises ValueError. ``model_params``: optional (B, n_mp) packed rows
         (:meth:`_pack_model_params`) perturbing each env's inertials,
         armature and motors. ``fext_user``: optional (B, nb, 6) or (nb,
         6) local [ang; lin] wrenches on every body held over the step,
         added to ``base_wrench``. ``contact_params``: optional
-        :class:`ContactParams` whose ``friction`` (a float or each env's
-        (B,) tensor) replaces the options' on the ground contacts (the
-        collision pairs keep theirs). Either of the last two keeps the
-        step off the whole-substep kernels, as in the reference: every
-        backend then runs the plain substep per substep, around the chain
-        kernel K1 on ``"substep"`` and ``"kernel"``."""
+        :class:`ContactParams` whose fields (each a float or each env's
+        (B,) tensor) replace the options': the friction of the ground
+        contact rows (the collision pairs keep theirs), and every field of
+        the penalty model. On the impulse path either of the last two
+        keeps the step off the whole-substep kernels, as in the reference:
+        every backend then runs the plain substep per substep, around the
+        chain kernel K1 on ``"substep"`` and ``"kernel"``. On the
+        continuous path the options' stepper integrates
+        :meth:`dynamics`, which is then evaluated once more at the
+        accepted state for ``a`` and the contact forces; the residual is
+        0 and λ stays as it was."""
         spec, dt = self.substep_spec, self.substep_spec.dt
         q, v, t, lam = state.q, state.v, state.t, state.lam
-        wrench = base_wrench
         B = q.shape[0]
-        gc = self._ground_coef(ground, B)
         mp = model_params
         substep_ops._check_mp("Engine.step", spec, mp, B)
-        fext, friction = self._fext(fext_user, B), self._friction(contact_params, B)
-        plain = fext is not None or friction is not None
+        fext, cparams = self._fext(fext_user, B), self._contact_params(contact_params, B)
+        if not self.impulse:
+            return self._continuous_step(state, u, n_substeps, base_wrench, ground, mp, fext,
+                                         cparams)
+        wrench = base_wrench
+        gc = self._ground_coef(ground, B)
+        friction = cparams.friction if cparams is not None else None
+        plain = fext is not None or cparams is not None
         if self.backend == "substep" and not plain:
             if wrench is None:  # the kernels always take one
                 wrench = q.new_zeros(q.shape[0], 6)
-            if self.options.substep_fusion and spec.torque is not None:
+            if self.options.substep_fusion and self._fusable:
                 q, v, lam, res, impulse, a, tau = substep_ops.substep_batched_multi(
                     spec, n_substeps, q, v, u, lam, wrench, gc=gc, mp=mp
                 )
@@ -510,12 +653,70 @@ class Engine:
                     t=t + n_substeps * dt, q=q, v=v, contact_forces=impulse / dt,
                     solver_residual=res, lam=lam, a=a, tau=tau,
                 )
+        contacts = cparams if spec.penalty else None
         f_c, res, a, tau = state.contact_forces, state.solver_residual, state.a, state.tau
         for _ in range(n_substeps):
             q, v, f_c, res, lam, a, tau = self._impulse_substep(q, v, u, lam, wrench, gc, mp,
-                                                                fext, friction)
+                                                                fext, friction, t, contacts)
             t = t + dt
         return SimState(
             t=t, q=q, v=v, contact_forces=f_c, solver_residual=res,
             lam=lam, a=a, tau=tau,
         )
+
+    def _continuous_step(self, state, u, n_substeps, base_wrench, ground, mp, fext, cparams):
+        """``step`` on the continuous path (no solve, no kernel)."""
+        dt = self.substep_spec.dt
+        q, v, t = state.q, state.v, state.t
+        if base_wrench is not None:  # on the root body, beside the bodies' wrenches
+            bw = q.new_zeros(q.shape[0], self.tree.nb, 6)
+            bw[:, 0] = base_wrench
+            fext = bw if fext is None else fext + bw
+
+        def dyn(q_, v_, t_):
+            return self.dynamics(q_, v_, t_, u, ground, fext, cparams, mp)[0]
+
+        for _ in range(n_substeps):
+            q, v = self._stepper(self.tree, dyn, q, v, t, dt)
+            t = t + dt
+        a, f_contact = self.dynamics(q, v, t, u, ground, fext, cparams, mp)
+        mscale = (substep_ops.unpack_model_params(self.substep_spec, mp)[1]
+                  if mp is not None else None)
+        return SimState(
+            t=t, q=q, v=v, contact_forces=f_contact, solver_residual=q.new_zeros(q.shape[0]),
+            lam=state.lam, a=a, tau=self._joint_torque(u, q, v, mscale, t),
+        )
+
+    def simulate_adaptive(self, state: SimState, t_end: float, u=None, ground=None,
+                          dt_max: float | None = None, tol_abs: float = 1e-8,
+                          tol_rel: float = 1e-6) -> tuple[SimState, dict]:
+        """Integrate one trajectory to ``t_end`` with the adaptive DOPRI-5(4)
+        stepper and its PI controller (the reference's ``simulate_adaptive``:
+        the options' dt starts it, ``dt_max`` defaults to 20·dt). As in the
+        reference it is single-trajectory and needs the continuous path:
+        ``state`` is a batch of one, and the impulse path or a larger
+        batch raises ValueError. The loop reads its condition on the host
+        once per iteration. Returns (the final SimState, {"accepted",
+        "rejected", "iters"})."""
+        if self.impulse:
+            raise ValueError("adaptive stepping requires the spring-damper contact path")
+        if state.q.shape[0] != 1:
+            raise ValueError(f"simulate_adaptive integrates one trajectory (a batch of 1), got "
+                             f"{state.q.shape[0]}")
+        n_cmd = self.motors.nm if self.motors is not None else self.tree.nv
+        u = state.q.new_zeros(1, n_cmd) if u is None else u.to(device=self.device,
+                                                                 dtype=state.q.dtype)
+
+        def dyn(q_, v_, t_):
+            return self.dynamics(q_, v_, t_, u, ground)[0]
+
+        dt = self.substep_spec.dt
+        t, q, v, stats = steppers.integrate_adaptive(
+            self.tree, dyn, state.q, state.v, state.t, t_end, dt_init=dt,
+            dt_max=dt_max if dt_max is not None else dt * 20, tol_abs=tol_abs, tol_rel=tol_rel,
+        )
+        a, f_contact = self.dynamics(q, v, t, u, ground)
+        return SimState(
+            t=t, q=q, v=v, contact_forces=f_contact, solver_residual=q.new_zeros(1),
+            lam=state.lam, a=a, tau=self._joint_torque(u, q, v, t=t),
+        ), stats

@@ -20,8 +20,10 @@ heightmap from ``terrain_seed`` with a flat spawn disk and spawns within
 armature, motor gains and friction, sensor offsets), ``constraints``
 (kinematic constraints: frame, joint, distance, sphere and wheel),
 ``collision_pairs`` (declared body-body pairs), ``min_height``,
-``max_tilt_cos`` (the termination's limits) and ``nan_guard`` pass
-through to :class:`WalkerEnv`. Other options raise
+``max_tilt_cos`` (the termination's limits), ``nan_guard`` and
+``engine_options`` (the engine's options as a whole, e.g. the
+reference's default penalty contacts) pass through to
+:class:`WalkerEnv`. Other options raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 :class:`ANYmalGantryEnv` is ANYmal on a gantry: the base welded (a
@@ -54,7 +56,7 @@ from jiminy_tpu_torch.envs.locomotion import WalkerEnv, check_options
 from jiminy_tpu_torch.models.quadruped import make_anymal, stand_q
 
 _PASSED_ON = ("push_prob", "push_duration", "model_randomization", "constraints",
-              "collision_pairs", "min_height", "max_tilt_cos", "nan_guard")
+              "collision_pairs", "min_height", "max_tilt_cos", "nan_guard", "engine_options")
 
 
 class ANYmalEnv(WalkerEnv):

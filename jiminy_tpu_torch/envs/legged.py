@@ -47,8 +47,8 @@ every ``sim_dt`` (``sensor_period``, ``sensor_delay``, ``imu_noise``,
 ``encoder_noise`` as on ANYmal). Observation (B, 33); action (B, 12).
 
 ``max_tilt_cos``, ``nan_guard``, ``ground``, ``ground_sampler``,
-``spawn_radius`` and the push and randomization options pass through to
-:class:`WalkerEnv`; other options raise, naming the ROADMAP item that
+``spawn_radius``, ``engine_options`` and the push and randomization
+options pass through to :class:`WalkerEnv`; other options raise, naming the ROADMAP item that
 ports them.
 """
 
@@ -64,7 +64,8 @@ from jiminy_tpu_torch.models.humanoid import atlas_self_collision_pairs, atlas_s
 from jiminy_tpu_torch.models.quadruped import SPOTMICRO, make_spotmicro, stand_q
 
 _PASSED_ON = ("push_prob", "push_duration", "model_randomization", "collision_pairs",
-              "max_tilt_cos", "nan_guard", "ground", "ground_sampler", "spawn_radius")
+              "max_tilt_cos", "nan_guard", "ground", "ground_sampler", "spawn_radius",
+              "engine_options")
 
 
 class CassieEnv(WalkerEnv):

@@ -40,7 +40,11 @@ push hooks:
   (:class:`~jiminy_tpu_torch.envs.base.BaseEnv`).
 
 The engine runs contacts as PGS rows (``contact_model="constraint"``, as
-the reference's walker envs ask for).
+the reference's walker envs ask for), unless ``engine_options`` (an
+:class:`~jiminy_tpu_torch.engine.engine.EngineOptions`) replaces the
+env's own options as a whole, as in the reference: e.g. the reference's
+default penalty contacts and bounds on the continuous path
+(``EngineOptions(dt=1e-3)``), whose dt then sets the substeps per step.
 
 Action: (B, nm) PD target offsets around the stand pose in [-1, 1].
 Observation, ``observe="sensors"`` (the default, as in the reference):
@@ -77,7 +81,6 @@ from jiminy_tpu_torch.math.spatial import mtv, mv
 UNPORTED_OPTIONS = {
     "reward_fn": "A.17 (declarative layer)",
     "termination_fn": "A.17 (declarative layer)",
-    "engine_options": "A.16 (paths off the impulse engine)",
 }
 
 
@@ -125,6 +128,7 @@ class WalkerEnv(BaseEnv):
         constraints: tuple = (),  # kinematic constraints (engine.constraints)
         collision_pairs: tuple = (),  # engine.collision.CollisionPair
         nan_guard: bool = True,  # BaseEnv: auto-reset non-finite envs
+        engine_options: EngineOptions | None = None,  # replaces the options below
         device="cuda",
     ):
         if observe == "sensors":
@@ -147,16 +151,17 @@ class WalkerEnv(BaseEnv):
             # the engine's ground fixes the kernel's kind and term count;
             # each env's own coefficients come from info at every step
             ground = ground_sampler(torch.Generator(device=device).manual_seed(0), ())
+        opts = engine_options or EngineOptions(
+            dt=sim_dt,
+            contact_model="constraint",
+            pgs_iters=pgs_iters,
+            # RL envs do not read the solver residual
+            compute_solver_residual=False,
+            constraint_solver=constraint_solver,
+        )
         engine = Engine(
             tree,
-            EngineOptions(
-                dt=sim_dt,
-                contact_model="constraint",
-                pgs_iters=pgs_iters,
-                # RL envs do not read the solver residual
-                compute_solver_residual=False,
-                constraint_solver=constraint_solver,
-            ),
+            opts,
             ground=ground if ground is not None else FlatGround(),
             motors=motors,
             controller=PDController(kp, kd),

@@ -1,7 +1,7 @@
 """6-D spatial algebra (Featherstone) on batched tensors.
 
 Counterpart of ``jiminy_tpu/math/spatial.py``: the part of the algebra
-that FK, RNEA and CRBA use. Motion vectors are
+that FK, RNEA, CRBA and ABA use. Motion vectors are
 ``(angular ω, linear v)`` and force vectors ``(couple n, force f)``,
 shape ``(..., 6)``. A :class:`Transform` is the pose ``(rot, pos)`` of a
 child frame C in a parent frame A (``x_A = rot @ x_C + pos``); its fields
@@ -82,6 +82,14 @@ class SpatialInertia:
         ang = mv(self.inertia, w) + cross(self.h, v)
         lin = self.mass[..., None] * v - cross(self.h, w)
         return torch.cat([ang, lin], dim=-1)
+
+    def to_matrix(self) -> torch.Tensor:
+        """Dense (..., 6, 6) spatial inertia [[I, ĥ], [ĥᵀ, m·1]]."""
+        hx = hat(self.h)
+        m_eye = self.mass[..., None, None] * torch.eye(3, dtype=self.h.dtype, device=self.h.device)
+        top = torch.cat([self.inertia, hx], dim=-1)
+        bot = torch.cat([hx.transpose(-1, -2), m_eye], dim=-1)
+        return torch.cat([top, bot], dim=-2)
 
     def add(self, other: "SpatialInertia") -> "SpatialInertia":
         return SpatialInertia(

@@ -84,8 +84,16 @@ motion subspace [0; axis]; bounded and sprung as REVOLUTE) and SPHERICAL
 (a quaternion of 4 and ω local of 3; the kernels' frame takes nq ≤ nv +
 4).
 
-Out of scope (each raises, naming its ROADMAP item): other steppers and
-the penalty contact model (A.16).
+Off the kernels, as the reference's scope check routes them
+(:meth:`SubstepSpec.check_kernel_caps` refuses each, so ``"auto"`` takes
+the chain kernel and an explicit ``"substep"`` raises): penalty
+(spring-damper) contacts beside kinematic constraints, whose wrenches
+join the bodies' ``fext`` and which add no contact rows; registered
+forces (:mod:`jiminy_tpu_torch.engine.forces`), evaluated at each env's
+time; joint bounds as penalty torques or not at all (no bound rows); and
+a stepper other than symplectic Euler. :func:`substep_reference` takes
+all of them. With no row at all (nc = 0) it skips the solve: v⁺ = v +
+dt·M⁻¹·p.
 """
 
 from __future__ import annotations
@@ -101,13 +109,14 @@ from jiminy_tpu_torch.core import algos
 from jiminy_tpu_torch.core.tree import JointType, KinematicTree
 from jiminy_tpu_torch.engine import collision
 from jiminy_tpu_torch.engine import constraints as cstr
-from jiminy_tpu_torch.engine.contact import surface_contacts
+from jiminy_tpu_torch.engine import forces as registered
+from jiminy_tpu_torch.engine.contact import compute_contact_fext, surface_contacts
 from jiminy_tpu_torch.engine.ground import ANALYTIC, FlatGround, HeightmapGround
 from jiminy_tpu_torch.engine.randomization import Inertials
 from jiminy_tpu_torch.engine.solver import BlockSpec
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.hardware.sensors import SensorSuite
-from jiminy_tpu_torch.math import so3
+from jiminy_tpu_torch.math import linalg, so3
 from jiminy_tpu_torch.ops import _warp
 from jiminy_tpu_torch.ops._warp import SMEM_PER_BLOCK, WARP_MAX_W, WarpWorkspace  # noqa: F401
 # a module, not its names: the engine package imports this module while
@@ -115,6 +124,7 @@ from jiminy_tpu_torch.ops._warp import SMEM_PER_BLOCK, WARP_MAX_W, WarpWorkspace
 from jiminy_tpu_torch.ops import constraint_solve as chain
 
 _TORQUE_MODES = {"pd": 1, "direct": 2}
+BOUNDS_MODELS = ("auto", "penalty", "constraint")
 _HDR_I, _HDR_F = 10, 16  # header lengths of the packed spec (csrc/substep.cuh)
 # the float header's slots that say whether the tree has joint springs, how
 # many pair contact generators the spec holds and whether any contact site
@@ -215,7 +225,14 @@ class SubstepSpec:
     contact site, the sites in ``color_order`` (interleaved halves:
     diagonal leg pairs on quadrupeds), each color's rows contiguous, then
     [t1, t2, n] per pair contact in generator order, each pair one color
-    spanning its contacts (the reference's layout). ``torque`` (or None)
+    spanning its contacts (the reference's layout). The impulse path runs
+    (``impulse``) when there is a kinematic constraint or
+    ``contact_model="constraint"``; bound rows exist only there with the
+    bounds run as constraints (``bounds_mode``, ``enable_bounds``), and
+    contact rows only under ``"constraint"``; with penalty contacts
+    (``penalty``) the sites' wrenches join ``fext`` instead. On the
+    continuous path (no impulse) there is no row: nc = 0. ``forces``: the
+    engine's registered forces. ``torque`` (or None)
     is the declarative actuation path that K2 needs; ``motors`` the bank
     it reads; ``constraints`` the engine's kinematic constraints (any of
     :data:`~jiminy_tpu_torch.engine.constraints.CONSTRAINTS`), and when
@@ -235,16 +252,11 @@ class SubstepSpec:
         torque: TorqueSpec | None = None,
         constraints=(),
         pairs: collision.CollisionPairSet | None = None,
+        forces=(),
     ):
-        if options.solver != "euler_symplectic":
-            raise NotImplementedError(
-                f"stepper {options.solver!r} is not ported yet (ROADMAP A.16)"
-            )
-        if options.contact_model != "constraint":
-            raise NotImplementedError(
-                f"contact_model={options.contact_model!r}: penalty contacts are not ported yet "
-                "(ROADMAP A.16); contacts run as PGS rows with contact_model='constraint'"
-            )
+        if options.bounds_model not in BOUNDS_MODELS:
+            raise ValueError(f"unknown bounds_model {options.bounds_model!r} (one of "
+                             f"{', '.join(BOUNDS_MODELS)})")
         if not isinstance(ground, (FlatGround, HeightmapGround, *ANALYTIC)):
             raise TypeError(f"unknown ground {type(ground).__name__}")
         if isinstance(ground, ANALYTIC) and ground.coef().dim() != 1:
@@ -279,6 +291,18 @@ class SubstepSpec:
         self.dt = float(opts.dt)
         self.springs = bool(np.any(stiff != 0))
         self.constraints = tuple(constraints)
+        self.forces = tuple(forces)
+        for f in self.forces:
+            if not isinstance(f, registered.FORCES):
+                raise TypeError(f"{type(f).__name__} is not a registered force (one of "
+                                f"{', '.join(k.__name__ for k in registered.FORCES)})")
+        # the routes of the reference's _rebuild, _bounds_mode and
+        # _impulse_substep: which rows exist, and where the contacts go
+        self.impulse = bool(self.constraints) or opts.contact_model == "constraint"
+        bm = opts.bounds_model
+        self.bounds_mode = ("constraint" if self.impulse else "penalty") if bm == "auto" else bm
+        self.contact_rows = opts.contact_model == "constraint"
+        self.penalty = not self.contact_rows and tree.ncp > 0
         # the constraints the whole-substep kernels take: distance ones alone
         self.other_constraints = sorted({type(c).__name__ for c in self.constraints
                                          if not isinstance(c, cstr.DistanceConstraint)})
@@ -300,7 +324,10 @@ class SubstepSpec:
         self.pair_contacts = list(pairs.contacts_per_pair) if self.pairs else []
         self.n_pc = sum(self.pair_contacts)
 
-        self.bounded_joints = self._bounded_joints(tree)
+        # an explicit bounds_model="constraint" off the impulse path applies no
+        # bound at all, as in the reference
+        bound_rows = self.impulse and self.bounds_mode == "constraint" and opts.enable_bounds
+        self.bounded_joints = self._bounded_joints(tree) if bound_rows else []
         ncp = tree.ncp
         self.color_order = list(range(0, ncp, 2)) + list(range(1, ncp, 2))
         inv = [0] * ncp
@@ -310,8 +337,9 @@ class SubstepSpec:
         nbj = len(self.bounded_joints)
         n0 = len(range(0, ncp, 2))
         off = self.contact_off = n_eq + nbj
-        colors = [(off, n0), (off + 3 * n0, ncp - n0)] if ncp else []
-        self.pair_off = pair = off + 3 * ncp
+        n_rows = ncp if self.contact_rows else 0
+        colors = [(off, n0), (off + 3 * n0, ncp - n0)] if n_rows else []
+        self.pair_off = pair = off + 3 * n_rows
         for k in self.pair_contacts:  # one color per pair
             colors.append((pair, k))
             pair += 3 * k
@@ -358,19 +386,34 @@ class SubstepSpec:
         return n + 2 * self.torque.nm if self.torque is not None else n
 
     def check_kernel_caps(self, who: str):
-        """Raise ValueError when the model is larger than the whole-substep
-        kernels take (with more than 24 pair contacts, the reference's gate
-        on in-kernel assembly, or more PGS colors than the chain's 16), has
-        a kinematic constraint other than a distance constraint (the
-        reference's gate too), or its ground is one they cannot query (a
-        heightmap; more than 32 Fourier terms or 8 Perlin octaves)."""
-        t = self.tree
+        """Raise ValueError when the model is outside the whole-substep
+        kernels' scope, as the reference's scope check words it: a stepper
+        other than symplectic Euler, penalty contacts, registered forces,
+        bounds not run as constraints, or a kinematic constraint other
+        than a distance constraint (the chain kernel takes each of these
+        impulse models); or larger than they take (more than 24 pair
+        contacts, the reference's gate on in-kernel assembly, or more PGS
+        colors than the chain's 16); or its ground is one they cannot
+        query (a heightmap; more than 32 Fourier terms or 8 Perlin
+        octaves)."""
+        t, opts = self.tree, self.options
+        bad = []
+        if opts.solver not in ("euler_symplectic", "euler_explicit"):
+            bad.append("stepper must be euler_symplectic")
+        if opts.contact_model != "constraint":
+            bad.append("contact_model must be 'constraint'")
+        if self.forces:
+            bad.append("registered forces unsupported")
+        if self.bounds_mode != "constraint" or not opts.enable_bounds:
+            bad.append("bounds must run as constraints")
         if self.other_constraints:
-            raise ValueError(
-                f"{who}: {', '.join(self.other_constraints)} outside the whole-substep "
-                "kernels: only distance constraints (Cassie's pushrods) ride them; the chain "
-                "kernel takes the others (constraint_solver='kernel')"
+            bad.append(
+                f"{', '.join(self.other_constraints)} outside the whole-substep kernels: only "
+                "distance constraints (Cassie's pushrods) ride them"
             )
+        if bad:
+            raise ValueError(f"{who}: " + "; ".join(bad) + "; the chain kernel takes such an "
+                             "impulse model (constraint_solver='kernel')")
         n_colors = len(self.cfg.contact_colors)
         max_nc, max_dist, max_colors = chain.MAX_NC, chain.MAX_EQ, chain.MAX_COLORS
         if t.nb > MAX_NB or t.nv > MAX_NV or not 1 <= self.nc <= max_nc \
@@ -707,7 +750,7 @@ def _check_gc(name, spec: SubstepSpec, gc, B):
 
 
 def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=None, gc=None,
-                      mp=None, fext=None, friction=None):
+                      mp=None, fext=None, friction=None, t=None, contacts=None, m_eff=None):
     """One semi-implicit Euler substep with velocity-level PGS impulses
     for kinematic constraints, joint bounds, ground contacts and collision
     pairs, joint damping and springs implicit: q (B, nq), v and τ (B, nv),
@@ -723,7 +766,12 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
     6) or (nb, 6): each body's local [ang; lin] wrench, the root's added
     to ``wrench``. ``friction`` (B,) or a float: each env's friction on
     the ground-contact rows (None: the spec's); the pair rows keep their
-    pair's."""
+    pair's. ``t`` (B,): each env's time, which the spec's registered
+    forces read. With penalty contacts (``spec.penalty``) their wrenches
+    join ``fext`` (``contacts``: a ContactParams, each field a float or
+    (B,), None for the options'; ``m_eff`` (ncp,): the sites' tangential
+    effective masses for the friction clamp, or None), and the impulses
+    returned are their forces × dt. With no row (nc = 0) no solve runs."""
     solve = solve if solve is not None else chain.solve_reference
     tree, opts = spec.tree, spec.options
     dt = spec.dt
@@ -731,6 +779,7 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
     inertials = unpack_model_params(spec, mp)[0] if mp is not None else None
     xl = algos.local_transforms(tree, q)
     xw, vel = algos.kinematics(tree, q, v, xl=xl)
+    ground = spec.ground_of(gc)
     # implicit joint damping and springs (τ holds −K·q already):
     # (M + dt·C + dt²·K)·Δv = dt·(τ − C·v − dt·K·v − bias)
     M = algos.crba(tree, q, xl=xl, inertials=inertials)
@@ -744,10 +793,23 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
     if wrench is not None:
         fext = q.new_zeros(B, tree.nb, 6) if fext is None else fext.clone()
         fext[:, 0] = fext[:, 0] + wrench
+    if spec.forces:
+        f_reg = registered.compute_forces(tree, spec.forces, t, xw, vel)
+        fext = f_reg if fext is None else fext + f_reg
+    if spec.penalty:
+        f_pen, f_sd = compute_contact_fext(
+            tree, xw, vel, ground, contacts if contacts is not None else opts.contacts, dt=dt,
+            m_eff=m_eff, spheres=spec.spheres)
+        fext = f_pen if fext is None else fext + f_pen
     bias = algos.rnea(tree, q, v, torch.zeros_like(v), fext=fext, xl=xl, inertials=inertials)
     p_free = tau - bias
 
-    ground = spec.ground_of(gc)
+    ncp = tree.ncp
+    if spec.nc == 0:  # nothing to solve: the free motion
+        v_next = v + dt * linalg.solve_psd(M, p_free)
+        impulse = f_sd * dt if spec.penalty else q.new_zeros(B, ncp, 3)
+        return (algos.integrate(tree, q, v_next, dt), v_next, q.new_zeros(B, 0),
+                q.new_zeros(B), impulse)
     Js, targets, actives, mus = [], [], [], []
     if spec.constraints:
         Jd, td, _ = cstr.assemble(tree, spec.constraints, q, xw, dt, ground)
@@ -761,8 +823,8 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
         targets.append(tb)
         actives.append(torch.ones_like(tb))
         mus.append(torch.zeros_like(tb))
-    ncp = tree.ncp
-    if ncp:
+    rows = ncp and spec.contact_rows
+    if rows:
         pts, _, depth, n = surface_contacts(tree, xw, vel, ground, spec.spheres)
         t1, t2 = cstr.tangent_basis(n)
         # penetrating: Baumgarte push-back; hovering within the margin:
@@ -805,12 +867,14 @@ def substep_reference(spec: SubstepSpec, q, v, tau, lam0, wrench=None, solve=Non
     v_next, lam, residual = solve(spec.cfg, M, p_free, v, J, target, mu, active, lam0)
     q_next = algos.integrate(tree, q, v_next, dt)
 
-    if ncp:
+    if rows:
         off = spec.contact_off
         lam_c = lam[:, off:off + 3 * ncp].reshape(B, ncp, 3)[:, spec.color_inverse]
         impulse = t1 * lam_c[..., 0:1] + t2 * lam_c[..., 1:2] + n * lam_c[..., 2:3]
+    elif spec.penalty:
+        impulse = f_sd * dt
     else:
-        impulse = q.new_zeros(B, 0, 3)
+        impulse = q.new_zeros(B, ncp, 3)
     return q_next, v_next, lam, residual, impulse
 
 

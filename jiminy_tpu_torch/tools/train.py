@@ -16,14 +16,14 @@ carries the first iteration's set-up). It checkpoints the carry to
 ``<out>/eval.json``: ``rl.evaluate`` of the greedy policy at 256 envs
 for ``max_steps − 1`` steps.
 
-Envs (``examples/train.py``'s ``make_env`` for the envs the port has):
-anymal, cassie, cassie_flex, atlas (``target_speed=0.3``), ant,
-spotmicro, with ``--terrain`` (anymal), ``--push``, ``--push-duration``,
-``--observe``, ``--sensor-delay``, ``--imu-noise``, ``--encoder-noise``,
-``--randomize`` and ``--self-collision`` (cassie, atlas). Refused, naming
-the ROADMAP item that ports them: cartpole and acrobot (A.16), ``--mdp
-declarative`` and ``--pipeline`` (A.17). Runs on the card unless
-``--device cpu``.
+Envs (``examples/train.py``'s ``make_env``): anymal, cassie,
+cassie_flex, atlas (``target_speed=0.3``), ant, spotmicro, with
+``--terrain`` (anymal), ``--push``, ``--push-duration``, ``--observe``,
+``--sensor-delay``, ``--imu-noise``, ``--encoder-noise``, ``--randomize``
+and ``--self-collision`` (cassie, atlas); cartpole and acrobot at their
+own defaults (discrete actions, 500 steps an episode), as there. Refused,
+naming the ROADMAP item that ports them: ``--mdp declarative`` and
+``--pipeline`` (A.17). Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -35,8 +35,7 @@ import time
 
 import torch
 
-ENVS = ("anymal", "cassie", "cassie_flex", "atlas", "ant", "spotmicro")
-UNPORTED_ENVS = {"cartpole": "A.16", "acrobot": "A.16"}
+ENVS = ("anymal", "cassie", "cassie_flex", "atlas", "ant", "spotmicro", "cartpole", "acrobot")
 
 
 def make_env(name: str, max_steps: int, terrain=None, push=0.0, observe="state",
@@ -45,9 +44,10 @@ def make_env(name: str, max_steps: int, terrain=None, push=0.0, observe="state",
     """The env ``examples/train.py`` builds for ``name``, on ``device``."""
     from jiminy_tpu_torch import envs as E
 
-    if name in UNPORTED_ENVS:
-        raise NotImplementedError(f"env {name!r} is not ported yet (ROADMAP "
-                                  f"{UNPORTED_ENVS[name]})")
+    if name == "cartpole":
+        return E.CartPoleEnv(device=device)
+    if name == "acrobot":
+        return E.AcrobotEnv(device=device)
     kw = {"push_duration": push_duration, "max_steps": max_steps, "push_magnitude": push,
           "observe": observe, "device": device}
     if randomize:
@@ -81,7 +81,7 @@ def make_env(name: str, max_steps: int, terrain=None, push=0.0, observe="state",
 
 def add_env_args(ap: argparse.ArgumentParser) -> None:
     """The env options the train and evaluate entry points share."""
-    ap.add_argument("--env", default="anymal", choices=(*ENVS, *UNPORTED_ENVS))
+    ap.add_argument("--env", default="anymal", choices=ENVS)
     ap.add_argument("--max-steps", type=int, default=500)
     ap.add_argument("--terrain", default=None,
                     choices=[None, "flat", "perlin", "perlin_grid", "stairs", "fourier"])

@@ -172,7 +172,6 @@ def test_reset_is_seeded():
     [
         ({"constraints": (object(),)}, "not a kinematic constraint"),
         ({"reward_fn": object()}, "A.17"),
-        ({"engine_options": object()}, "A.16"),
         ({"termination_fn": object()}, "A.17"),
     ],
 )
@@ -184,6 +183,24 @@ def test_unported_options_raise(kwargs, item):
     err = TypeError if "constraints" in kwargs else NotImplementedError
     with pytest.raises(err, match=item):
         ANYmalEnv(device="cpu", **kwargs)
+
+
+def test_engine_options_replace_the_env_s():
+    """``engine_options`` replaces the env's own options as a whole, as in
+    the reference: its dt sets the substeps per step, and with the
+    reference's default contact model the env runs the continuous path
+    (penalty contacts and bounds, no solve)."""
+    from jiminy_tpu_torch.engine import EngineOptions
+
+    opts = EngineOptions(dt=1e-3, compute_solver_residual=False)
+    env = ANYmalEnv(observe="state", engine_options=opts, device="cpu")
+    eng = env.engine
+    assert eng.options is opts and env.n_substeps == 20
+    assert eng.backend == "inline" and not eng.impulse and eng.nc == 0
+    assert eng.substep_spec.bounds_mode == "penalty" and eng.contact_m_eff.shape == (4,)
+    st = env.step(env.reset(torch.Generator().manual_seed(0), 2), torch.zeros(2, 12))
+    assert bool(torch.isfinite(st.sim.q).all()) and st.sim.lam.shape == (2, 0)
+    assert 0.45 < float(st.sim.q[:, 2].min()) and float(st.sim.q[:, 2].max()) < 0.6
 
 
 def test_constraints_pass_through():

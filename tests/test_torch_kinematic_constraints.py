@@ -17,8 +17,9 @@ jiminy_tpu's.
   with a distance constraint and a lock (the row order across kinds),
   and the wheel on a Fourier ground per env.
 - tests/test_constraints.py's analytic cases on the port's engine: the
-  weld holds and recovers, the pendulum lock, rolling without slip and
-  slip removed.
+  weld holds and recovers, the pendulum lock (as the reference runs it:
+  default options, a penalty tip contact beside the lock), rolling
+  without slip and slip removed.
 - The refusals: ``"substep"`` with a frame constraint and a lock on a
   FREE joint raise ValueError at ``Engine(...)``, an object that is no
   constraint TypeError; ``"auto"`` picks ``"kernel"``.
@@ -511,13 +512,13 @@ def test_weld(z0, freq, atol):
 
 
 def test_lock_pendulum_off_vertical():
-    """The ground 2 m down, out of the tip's reach: the reference's case
-    runs its tip contact as a penalty (A.16), here it would be a contact
-    row fighting the lock."""
+    """The reference's case as it is: default options, so the tip's
+    contact is a penalty one on the default ground (the tip 0.88 m deep)
+    beside the lock's row, the lock holding."""
     tree = make_pendulum(device="cpu")
-    eng = Engine(tree, EngineOptions(dt=1e-3, contact_model="constraint"),
-                 ground=pg.FlatGround(height=-2.0),
+    eng = Engine(tree, EngineOptions(dt=1e-3),
                  constraints=(JointConstraint(0, ref_q=0.5, baumgarte_freq=20.0),), device="cpu")
+    assert eng.impulse and eng.substep_spec.penalty and eng.nc == 1 and eng.backend == "kernel"
     st = _run(eng, [0.5], 1.0)
     assert abs(float(st.q[0, 0]) - 0.5) < 1e-3
     assert abs(float(st.v[0, 0])) < 1e-3

@@ -16,13 +16,16 @@ sensor path fused and chunked, with the self-collision pairs too, and
 the flexible-hip Cassie on the state path and the fused sensor path, the
 Ant and the Spotmicro on the state path and the fused and chunked sensor
 paths, the Atlas humanoid with its self-collision pairs on the state path
-and the fused sensor path, and the PRISMATIC cartpole through ``Engine.step``; then one PPO
+and the fused sensor path, the PRISMATIC cartpole through ``Engine.step``,
+ANYmal on the reference's default penalty contacts (the continuous path)
+and the ``CartPoleEnv``; then one PPO
 ``train_step`` (B = 2, the symmetry loss on) and one ``evaluate`` step on
 the state-observing env. The
 modules that hold kernels, the sensor suite, the grounds, the terrain
 generators, the random processes, the model randomization, the
-constraints, the collision pairs, the biped, the humanoid, the Ant, the toys, the
-legged envs, the RL modules, the checkpoint and the train and evaluate
+constraints, the collision pairs, the registered forces, the steppers,
+the biped, the humanoid, the Ant, the toys, the legged and toy envs, the
+RL modules, the checkpoint and the train and evaluate
 entry points are named,
 so a rename cannot drop them from the walk. A second test imports each kernel module
 first in a fresh interpreter: the engine and ops packages import each
@@ -51,7 +54,9 @@ KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops
                   "jiminy_tpu_torch.models.toys", "jiminy_tpu_torch.rl.networks",
                   "jiminy_tpu_torch.rl.ppo", "jiminy_tpu_torch.rl.evaluate",
                   "jiminy_tpu_torch.rl.logging", "jiminy_tpu_torch.checkpoint",
-                  "jiminy_tpu_torch.tools.train", "jiminy_tpu_torch.tools.evaluate")
+                  "jiminy_tpu_torch.tools.train", "jiminy_tpu_torch.tools.evaluate",
+                  "jiminy_tpu_torch.engine.forces", "jiminy_tpu_torch.engine.steppers",
+                  "jiminy_tpu_torch.envs.cartpole", "jiminy_tpu_torch.envs.acrobot")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -149,6 +154,14 @@ eng = Engine(make_cartpole(device="cpu"), EngineOptions(contact_model="constrain
 sim = eng.step(eng.reset(torch.tensor([[2.399, 0.1], [-1.0, -0.1]])), torch.full((2, 1), 30.0),
                n_substeps=20)
 assert eng.backend == "substep" and float(sim.q[0, 0]) <= 2.4 + 1e-3
+env = ANYmalEnv(observe="state", engine_options=EngineOptions(dt=1e-3), device="cpu")
+st = env.step(env.reset(torch.Generator().manual_seed(0), 2), torch.zeros(2, 12))
+assert not env.engine.impulse and bool(torch.isfinite(st.sim.q).all())  # penalty contacts
+from jiminy_tpu_torch.envs import CartPoleEnv
+
+env = CartPoleEnv(device="cpu")
+st = env.step(env.reset(torch.Generator().manual_seed(0), 2), torch.ones(2, dtype=torch.long))
+assert st.obs.shape == (2, 4) and bool(torch.isfinite(st.obs).all())
 from jiminy_tpu_torch.rl import PPOConfig, evaluate, greedy_policy, make_train_fn
 
 env = ANYmalEnv(observe="state", device="cpu")

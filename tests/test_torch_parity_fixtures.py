@@ -4,8 +4,9 @@
 1 ms impulse substeps, 16 PGS sweeps, 0.5 s), ``ball_drop_impact`` (a
 point-contact ball against the exact discrete closed form) and
 ``wheel_roll_no_slip`` (a wheel under its ``WheelConstraint`` rolling
-against the continuous closed form, 0.2 ms substeps, 64 sweeps) are
-replayed in float64 on the CPU with the recorded ``traj.npz`` as it is,
+against the continuous closed form, 0.2 ms substeps, 64 sweeps) and
+``double_pendulum_rk4`` (a double pendulum on RK4 with 1 ms substeps for
+2 s, the continuous path: no contact row, no solve) are replayed in float64 on the CPU with the recorded ``traj.npz`` as it is,
 and held to each fixture's own tolerances, as ``jiminy_tpu/parity.py``
 ``compare`` holds the reference. The models cross from the reference's
 URDF/hardware pipeline through ``tree_from_arrays`` and
@@ -13,7 +14,8 @@ URDF/hardware pipeline through ``tree_from_arrays`` and
 motors), the meta's constraints through ``constraint_from_arrays``; the
 command is zero, as in ``compare``. The wheel's whole second is 5,000
 substeps; the tier-1 case replays the samples up to 0.25 s, the whole
-second is a ``slow`` case.
+second is a ``slow`` case. Likewise the double pendulum's first 0.5 s
+(500 RK4 substeps, ~10 s) are tier-1 and its 2 s ``slow``.
 """
 
 from __future__ import annotations
@@ -99,6 +101,8 @@ def _replay(name: str, solver: str, t_end: float | None = None):
         ("ball_drop_impact", "kernel", None),
         ("ball_drop_impact", "inline", None),
         ("wheel_roll_no_slip", "kernel", 0.25),
+        ("double_pendulum_rk4", "auto", 0.5),
+        pytest.param("double_pendulum_rk4", "auto", None, marks=pytest.mark.slow),
         pytest.param("wheel_roll_no_slip", "kernel", None, marks=pytest.mark.slow),
     ],
 )

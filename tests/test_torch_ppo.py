@@ -26,7 +26,8 @@
   the sign, from a step of the size lr.
 - Learning: the port's ``train`` on the toy env raises ``reward_mean``
   over 30 iterations (the counterpart of ``test_cartpole_improves``,
-  whose env is ROADMAP A.16).
+  which ``chip_smoke.py`` runs on the card with the port's
+  ``CartPoleEnv``).
 - ANYmal: one ``train_step`` at B = 8, rollout 4, on
   ``ANYmalEnv(observe="state", device="cpu")`` with the symmetry loss
   runs and its params are finite; ``ANYmalEnv.mirror_spec`` and

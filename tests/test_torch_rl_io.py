@@ -161,9 +161,9 @@ def test_train_and_evaluate_entry_points(tmp_path, monkeypatch, capsys):
     tool_evaluate.main()
     again = json.loads((tmp_path / "stats.json").read_text())
     assert again["length_mean"] == 2.0 and "iter" in capsys.readouterr().out
-    for env, item in (("cartpole", "A.16"), ("acrobot", "A.16")):
-        with pytest.raises(NotImplementedError, match=item):
-            tool_train.make_env(env, 10, device="cpu")
+    for env, cls in (("cartpole", "CartPoleEnv"), ("acrobot", "AcrobotEnv")):
+        toy = tool_train.make_env(env, 10, device="cpu")
+        assert type(toy).__name__ == cls and toy.discrete_actions in (2, 3)
     atlas = tool_train.make_env("atlas", 10, self_collision=True, device="cpu")
     assert type(atlas).__name__ == "AtlasEnv" and atlas.engine.nc == 83
     assert atlas.target_speed == 0.3 and atlas.observe_mode == "state"

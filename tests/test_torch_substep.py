@@ -418,9 +418,13 @@ def test_out_of_scope_raises(robot):
 
     with pytest.raises(TypeError, match="unknown ground"):
         SubstepSpec(tree, EngineOptions(contact_model="constraint"), Stairs())
-    with pytest.raises(NotImplementedError, match="A.16"):
-        SubstepSpec(tree, EngineOptions(contact_model="constraint", solver="runge_kutta_4"),
-                    FlatGround())
+    rk4 = SubstepSpec(tree, EngineOptions(contact_model="constraint", solver="runge_kutta_4"),
+                      FlatGround())
+    with pytest.raises(ValueError, match="stepper must be euler_symplectic"):
+        rk4.check_kernel_caps("test")
+    with pytest.raises(ValueError, match="requires the euler_symplectic stepper"):
+        Engine(tree, EngineOptions(contact_model="constraint", solver="runge_kutta_4"),
+               device="cpu")
     with pytest.raises(ValueError, match="unknown constraint_solver"):
         Engine(tree, EngineOptions(contact_model="constraint", constraint_solver="pallas"),
                device="cpu")

@@ -10,9 +10,10 @@ reference has them.
   non-finite env terminates with zero reward and observation; without it
   the NaN runs on and the env is not terminated (the reference's
   ``tests/test_health.py::test_guard_can_be_disabled``).
-- ``EngineOptions.contact_model`` defaults to the reference's
-  ``"spring_damper"``, which ``Engine`` refuses naming ROADMAP A.16, and
-  the walker envs ask for ``"constraint"`` as the reference's do.
+- ``EngineOptions`` has the reference's fields, order and defaults:
+  ``contact_model`` defaults to ``"spring_damper"``, on which ``Engine``
+  builds the continuous path and steps, and the walker envs ask for
+  ``"constraint"`` as the reference's do.
 """
 
 from __future__ import annotations
@@ -80,11 +81,17 @@ def test_nan_guard(nan_guard):
 
 def test_contact_model_default_is_the_reference_s():
     assert EngineOptions().contact_model == JEngineOptions().contact_model == "spring_damper"
+    ours = {f.name: f.default for f in dataclasses.fields(EngineOptions)}
+    theirs = {f.name: f.default for f in dataclasses.fields(JEngineOptions)}
+    assert list(ours) == list(theirs) and ours == theirs
     tree, motors, _ = make_anymal(device="cpu")
-    with pytest.raises(NotImplementedError, match="A.16"):
-        Engine(tree, motors=motors, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.16"):
-        Engine(tree, EngineOptions(dt=5e-3), motors=motors, device="cpu")
+    for opts in (None, EngineOptions(dt=5e-3)):  # the continuous path: no solve
+        eng = Engine(tree, opts, motors=motors, device="cpu")
+        assert eng.backend == "inline" and eng.nc == 0 and not eng.impulse
+    q = torch.as_tensor(tree.neutral_q())[None]
+    q[0, 2] = 1.0
+    sim = eng.step(eng.reset(q), torch.zeros(1, 12), n_substeps=2)
+    assert float(sim.q[0, 2]) < 1.0 and float(sim.v[0, 2]) < 0.0  # falling
     eng = Engine(tree, EngineOptions(dt=5e-3, contact_model="constraint"), motors=motors,
                  device="cpu")
     assert eng.backend == "substep" and eng.nc == 12 + 3 * tree.ncp
