@@ -326,6 +326,20 @@ the pendulum against the CPU's counters, and the reference's
      restored greedy policy at 256 envs for 50 steps: finite, one K2
      launch per step.
 
+5. the declarative layer (A.17, `phase_declarative`), after every other
+   path: ``anymal_sensors_run5``'s recipe, ``build_pipeline(ANYmalEnv(
+   observe="sensors", sensor_delay=0.004, imu_noise=0.02,
+   encoder_noise=0.005, <anymal_declarative_mdp>), [mahony, stack:4])`` at
+   B = 4096 (obs 148): exactly one launch of K2 with the sensor stage per
+   env step over 25 and no other; the profiler's launches per env step and
+   idle share beside the bare sensor env; the declarative MDP against the
+   hand-coded one (identical terminations, rewards within 1e-5) and the
+   declarative state path (one K2 per env step); env-steps/s of both, 3
+   loops; three PPO iterations at B = 2048 through ``tools/train.py``
+   (``--pipeline mahony,stack:4 --mdp declarative``), the carry's
+   checkpoint bit for bit, ``freeze_pipeline_stats`` of a
+   ``stack:4,normalize`` state.
+
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3977,7 +3991,7 @@ def _env_rate(env, state, act_gen, dev, steps, loops):
     """env-steps/s over ``loops`` timed loops of ``steps`` env steps."""
     rates = []
     for _ in range(loops):
-        acts = [_uniform(act_gen, dev, env.motors.nm) for _ in range(steps)]
+        acts = [_uniform(act_gen, dev, env.action_size) for _ in range(steps)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for a in acts:
@@ -4215,6 +4229,203 @@ def phase_training(dev) -> dict:
         raise AssertionError(f"evaluate: non-finite statistics {stats}")
     if got != _only(substep_multi=50):
         raise AssertionError(f"evaluate: expected 50 K2 launches, saw {got}")
+    return out
+
+
+# ---- phase 5: the declarative layer (A.17) on the sensor path: the
+# anymal_sensors_run5 recipe (mahony,stack:4) over the declarative MDP
+PIPELINE = [{"type": "mahony"}, {"type": "stack", "n": 4}]
+DECL_STEPS = 40  # the A/B's env steps; the legs folded over the second half
+DECL_REWARD_TOL = 1e-5  # tests/test_compositions_dogfood.py's
+
+
+def _leaves(x) -> list:
+    """Every tensor of a carry (generators as their states), in order."""
+    from jiminy_tpu_torch.engine.engine import SimState
+    from jiminy_tpu_torch.envs.base import EnvState
+    from jiminy_tpu_torch.envs.pipeline import WrapperState
+
+    if isinstance(x, (WrapperState, EnvState, SimState)):
+        return _leaves(vars(x))
+    if isinstance(x, dict):
+        return [y for k in sorted(x) for y in _leaves(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [y for v in x for y in _leaves(v)]
+    if isinstance(x, torch.Generator):
+        return [x.get_state()]
+    return [x] if torch.is_tensor(x) else []
+
+
+def _mdp_rollout(env, dev, seed):
+    """DECL_STEPS env steps from a fresh batch, uniform actions and then
+    the legs folded (constant −1): the (T, B) rewards and terminations."""
+    st = env.reset(torch.Generator(device=dev).manual_seed(seed), B_MAIN)
+    act_gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    rew, term = [], []
+    for i in range(DECL_STEPS):
+        a = _uniform(act_gen, dev) if i < DECL_STEPS // 2 else -torch.ones(B_MAIN, 12, device=dev)
+        st = env.step(st, a)
+        rew.append(st.reward)
+        term.append(st.terminated)
+    return torch.stack(rew), torch.stack(term)
+
+
+def phase_declarative(dev) -> dict:
+    """The declarative layer on the card: ``build_pipeline(ANYmalEnv(
+    **SENSOR_KW, <anymal_declarative_mdp>), [mahony, stack:4])`` at B =
+    4096 (obs 4 × 37 = 148): 25 env steps with the counts set to 0 just
+    before and read just after, exactly one launch of K2 with the sensor
+    stage per env step and no other; the profiler's launches per env step
+    and idle share of the pipeline and of the bare sensor env
+    (``tools/profile_env_step.py``'s ``profile_env``); the declarative MDP
+    against the hand-coded one on the sensor path from one generator and
+    the same actions (the second half folding the legs): identical
+    terminations (some), rewards within 1e-5; the declarative state path,
+    one K2 launch per env step; env-steps/s of the pipeline and of the
+    bare sensor env, 3 loops of 25 steps each; three PPO iterations at B =
+    2048 through ``tools/train.py``'s ``main`` (``--pipeline
+    mahony,stack:4 --mdp declarative``, ``--max-steps 50``): one K2 with
+    the sensor stage per rollout and evaluation step and no other launch,
+    ``reward_mean`` finite; its carry (a ``WrapperState``) through
+    ``CheckpointManager`` bit for bit; ``freeze_pipeline_stats`` of a
+    ``stack:4,normalize`` state: the batch mean of the per-env
+    statistics."""
+    import tempfile
+    from pathlib import Path
+
+    from jiminy_tpu_torch.checkpoint import CheckpointManager
+    from jiminy_tpu_torch.envs import (
+        ANYmalEnv,
+        anymal_declarative_mdp,
+        build_pipeline,
+        freeze_pipeline_stats,
+    )
+    from jiminy_tpu_torch.rl import read_metrics
+    from jiminy_tpu_torch.tools import train as tool_train
+    from jiminy_tpu_torch.tools.profile_env_step import profile_env
+
+    out = {}
+    r, t = anymal_declarative_mdp()
+    decl = ANYmalEnv(device=dev, reward_fn=r, termination_fn=t, **SENSOR_KW)
+    env = build_pipeline(decl, PIPELINE)
+    bare = ANYmalEnv(device=dev, **SENSOR_KW)
+    if not (decl._fused_sensors and bare._fused_sensors) or env.observation_size != 148:
+        raise AssertionError(f"pipeline: fused {decl._fused_sensors}, obs {env.observation_size}")
+    if hasattr(env, "symmetry_fn"):
+        raise AssertionError("the pipeline passes the inner env's mirror on")
+
+    # ---- 1. launches on the pipeline path, then the profiler beside the bare env
+    act_gen = torch.Generator(device=dev).manual_seed(40)
+    st = env.reset(torch.Generator(device=dev).manual_seed(41), B_MAIN)
+    torch.cuda.synchronize()
+    _reset_counts()
+    for _ in range(STEPS):
+        st = env.step(st, _uniform(act_gen, dev))
+    torch.cuda.synchronize()
+    got = _counts()
+    warp = _check_warp("pipeline path", decl.engine.substep_spec, got)
+    print(f"[phase 5] pipeline path (mahony, stack:4, declarative MDP), {STEPS} env steps at "
+          f"B={B_MAIN}: launches {json.dumps({n: c for n, c in got.items() if c})} (the warp "
+          f"body {warp}); obs {tuple(st.obs.shape)}")
+    if got != _only(substep_multi_sensors=STEPS) or st.obs.shape != (B_MAIN, 148):
+        raise AssertionError(f"pipeline path: launches {got}, obs {tuple(st.obs.shape)}")
+    _check_finite(st, "pipeline path")
+    quat = st.obs[:, 33:37]
+    print(f"[phase 5] pipeline path: |attitude estimate| {quat.norm(dim=1).min().item():.6f}–"
+          f"{quat.norm(dim=1).max().item():.6f}; done this step {int(st.done.sum())}")
+    for name, e in (("pipeline", env), ("bare sensor env", bare)):
+        prof = profile_env(e, B_MAIN, 5)
+        out[f"profile_{name}"] = prof
+        print(f"[phase 5] profiler, {name}, B={B_MAIN}: {json.dumps(prof)}")
+
+    # ---- 2. the declarative MDP against the hand-coded one; the state path
+    rew_d, term_d = _mdp_rollout(decl, dev, 42)
+    rew_h, term_h = _mdp_rollout(bare, dev, 42)
+    gap = (rew_d - rew_h).abs().max().item()
+    n_term = int(term_h.sum())
+    print(f"[phase 5] declarative vs hand-coded MDP, {DECL_STEPS} sensor-path steps at "
+          f"B={B_MAIN} (legs folded from step {DECL_STEPS // 2}): terminations "
+          f"{int(term_d.sum())} / {n_term}, identical {torch.equal(term_d, term_h)}; rewards max "
+          f"|d| {gap:.3g} (gate {DECL_REWARD_TOL})")
+    if not (torch.equal(term_d, term_h) and n_term > 0 and gap <= DECL_REWARD_TOL):
+        raise AssertionError(f"declarative MDP: terminations {int(term_d.sum())} / {n_term}, "
+                             f"rewards {gap}")
+    out.update(mdp_reward_gap=gap, mdp_terminations=n_term)
+    state_decl = ANYmalEnv(observe="state", step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
+                           reward_fn=r, termination_fn=t, device=dev)
+    st_s = state_decl.reset(torch.Generator(device=dev).manual_seed(43), B_MAIN)
+    torch.cuda.synchronize()
+    _reset_counts()
+    for _ in range(10):
+        st_s = state_decl.step(st_s, _uniform(act_gen, dev))
+    torch.cuda.synchronize()
+    got = _counts()
+    print(f"[phase 5] declarative state path, 10 env steps: launches "
+          f"{json.dumps({n: c for n, c in got.items() if c})}")
+    if got != _only(substep_multi=10):
+        raise AssertionError(f"declarative state path: launches {got}")
+    _check_finite(st_s, "declarative state path")
+
+    # ---- 3. rates, the pipeline and the bare sensor env in turns
+    st_b = bare.reset(torch.Generator(device=dev).manual_seed(44), B_MAIN)
+    for _ in range(5):  # warm-up
+        st_b = bare.step(st_b, _uniform(act_gen, dev))
+    rates_p, st = _env_rate(env, st, act_gen, dev, STEPS, 3)
+    rates_b, _ = _env_rate(bare, st_b, act_gen, dev, STEPS, 3)
+    print(f"[phase 5] env-steps/s at B={B_MAIN}, pipeline (mahony, stack:4, declarative MDP): "
+          f"{_spread(rates_p)}")
+    print(f"[phase 5] env-steps/s at B={B_MAIN}, bare sensor env: {_spread(rates_b)} (the "
+          f"pipeline {sum(rates_p) / sum(rates_b):.3f}× of it)")
+    print(f"[phase 5] {_gpu_line()}")
+    out.update(env_steps_per_s_pipeline=rates_p, env_steps_per_s_bare_sensor=rates_b)
+
+    # ---- 4. training through tools/train.py, the checkpoint, the frozen statistics
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        run_dir = Path(tmp) / "run"
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        env_t, carry, stats = tool_train.main([
+            "--env", "anymal", "--observe", "sensors", "--sensor-delay", "0.004",
+            "--imu-noise", "0.02", "--encoder-noise", "0.005", "--mdp", "declarative",
+            "--pipeline", "mahony,stack:4", "--iters", "3", "--num-envs", str(PPO_B),
+            "--max-steps", "50", "--device", dev.type, "--out", str(run_dir)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        got = _counts()
+        rows = read_metrics(run_dir)
+        reward = [row["reward_mean"] for row in rows]
+        steps = 3 * 32 + 49  # the rollouts' env steps and the evaluation's
+        print(f"[phase 5] tools/train.py --pipeline mahony,stack:4 --mdp declarative, 3 "
+              f"iterations at B={PPO_B} and the evaluation (256 envs × 49 steps) in "
+              f"{train_s:.2f} s: launches {json.dumps({n: c for n, c in got.items() if c})}; "
+              f"reward_mean {reward}; eval {json.dumps(stats)}")
+        if got != _only(substep_multi_sensors=steps):
+            raise AssertionError(f"training: expected {steps} sensor K2 launches, saw {got}")
+        if not (reward and all(torch.isfinite(torch.tensor(reward)))):
+            raise AssertionError(f"training: reward_mean {reward}")
+        mgr = CheckpointManager(Path(tmp) / "ckpt")
+        mgr.save(3, carry)
+        restored = mgr.restore(carry)
+    a, b = _leaves(carry), _leaves(restored)
+    same = len(a) == len(b) and all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+    print(f"[phase 5] the carry's checkpoint (a WrapperState of {len(a)} tensors) restored bit "
+          f"for bit: {same}")
+    if not same or type(restored[2]).__name__ != "WrapperState":
+        raise AssertionError("the pipeline carry's checkpoint does not round-trip")
+    norm = build_pipeline(bare, [{"type": "stack", "n": 4}, {"type": "normalize"}])
+    st_n = norm.reset(torch.Generator(device=dev).manual_seed(45), PPO_B)
+    for _ in range(5):
+        st_n = norm.step(st_n, _uniform(act_gen, dev)[:PPO_B])
+    frozen = freeze_pipeline_stats(norm, st_n)
+    want = st_n.layer["mean"].double().mean(0).float()
+    fresh = frozen.reset(torch.Generator(device=dev).manual_seed(46), 4)
+    held = torch.equal(frozen.stats["mean"], want) and torch.equal(fresh.layer["mean"][3], want)
+    print(f"[phase 5] freeze_pipeline_stats of a stack:4,normalize state (B={PPO_B}, 5 steps): "
+          f"the batch mean of the per-env statistics {held}; count {st_n.layer['count'][0].item()}")
+    if not held:
+        raise AssertionError("freeze_pipeline_stats is not the batch mean of the statistics")
+    out.update(train_s=train_s, reward_mean=reward)
     return out
 
 
@@ -5122,6 +5333,8 @@ def run(dev) -> None:
           f"({late_ms / sensor_k2_ms:.4f}×)")
     # ---- phase 4: the policy and PPO, after every kernel number
     training = phase_training(dev)
+    # ---- phase 5: the declarative layer (A.17), after every other path
+    declarative = phase_declarative(dev)
     print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_sensor_path": rates_s,
                       "env_steps_per_s_terrain_path": rates_t,
                       "env_steps_per_s_sim2real_path": rates_r,
@@ -5132,7 +5345,7 @@ def run(dev) -> None:
                       "env_steps_per_s_chain_paths": rates_chain,
                       "penalty_paths": penalty,
                       "nvcc_build_s": build,
-                      "ppo": training}))
+                      "ppo": training, "declarative": declarative}))
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,10 @@ restored run continues exactly as it would have.
 ``torch.load`` runs with ``weights_only=True`` (its default since torch
 2.6), which unpickles only tensors and plain containers. So the file
 holds only tensors, dicts, lists, tuples, strings and numbers: an
-``EnvState`` (and its ``SimState``) is stored as a tagged dict of its
-fields, a ``torch.Generator`` as its device and ``get_state()``, and both
-are rebuilt on restore.
+``EnvState`` (and its ``SimState``) and a pipeline's ``WrapperState``
+(nested to any depth) are stored as tagged dicts of their fields, a
+``torch.Generator`` as its device and ``get_state()``, and all are
+rebuilt on restore.
 
 - :func:`save_checkpoint` / :func:`restore_checkpoint` (with a template,
   e.g. from the train fn's ``init``, whose devices the restored tensors
@@ -30,10 +31,13 @@ import torch
 
 from jiminy_tpu_torch.engine.engine import SimState
 from jiminy_tpu_torch.envs.base import EnvState
+from jiminy_tpu_torch.envs.pipeline import WrapperState
 
 _ENV = "__env_state__"
+_WRAP = "__wrapper_state__"
 _GEN = "__generator__"
 _ENV_FIELDS = ("obs", "reward", "terminated", "truncated", "steps")
+_WRAP_FIELDS = ("inner", "layer", "obs", "info")
 
 
 def _encode(x):
@@ -48,6 +52,8 @@ def _encode(x):
             "generator": _encode(x.generator),
             "info": _encode(x.info),
         }}
+    if isinstance(x, WrapperState):
+        return {_WRAP: {k: _encode(getattr(x, k)) for k in _WRAP_FIELDS}}
     if isinstance(x, dict):
         return {k: _encode(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
@@ -80,6 +86,8 @@ def _decode(x, device: torch.device):
             generator=_decode(d["generator"], device),
             info=_decode(d["info"], device),
         )
+    if isinstance(x, dict) and _WRAP in x:
+        return WrapperState(**{k: _decode(v, device) for k, v in x[_WRAP].items()})
     if isinstance(x, dict):
         return {k: _decode(v, device) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
@@ -108,6 +116,10 @@ def _restore_like(template, x, where: str = "state"):
             generator=_restore_like(template.generator, d["generator"]),
             info=_restore_like(template.info, d["info"], f"{where}.info"),
         )
+    if isinstance(template, WrapperState):
+        d = x[_WRAP]
+        return WrapperState(**{k: _restore_like(getattr(template, k), d[k], f"{where}.{k}")
+                               for k in _WRAP_FIELDS})
     if isinstance(template, dict):
         if set(template) != set(x):
             raise ValueError(f"checkpoint {where}: keys {sorted(x)}, template {sorted(template)}")

@@ -2,7 +2,7 @@
 
 Counterpart of ``jiminy_tpu/core/algos.py`` (kinematics, body
 accelerations, RNEA with armature, CRBA, ABA, point and 6-D frame
-Jacobians, Lie-group integrate) for FREE, REVOLUTE, PRISMATIC and SPHERICAL joints; a joint's columns
+Jacobians, the centre of mass, the energy, Lie-group integrate) for FREE, REVOLUTE, PRISMATIC and SPHERICAL joints; a joint's columns
 enter every algorithm through its motion subspace alone. The reference
 writes them for one robot and vmaps; here every function takes batched
 ``q (B, nq)``, ``v (B, nv)`` and loops over bodies in Python (the
@@ -304,6 +304,33 @@ def frame_jacobian6(
         J[:, :3, sl] = w_cols
         J[:, 3:, sl] = lin
     return J
+
+
+def com_position(tree: KinematicTree, xw: list[Transform]) -> torch.Tensor:
+    """Whole-body centre of mass in the world frame (B, 3); a massless
+    body adds nothing."""
+    total_m = 0.0
+    weighted = torch.zeros_like(xw[0].pos)
+    for i in range(tree.nb):
+        m = tree.inertia_mass[i]
+        com_local = torch.where(m > 0, tree.inertia_h[i] / m, torch.zeros_like(tree.inertia_h[i]))
+        weighted = weighted + m * xw[i].apply(com_local)
+        total_m = total_m + m
+    return weighted / total_m
+
+
+def energy(tree: KinematicTree, q, v) -> tuple[torch.Tensor, torch.Tensor]:
+    """(kinetic, potential) energy, each (B,); the kinetic energy counts
+    the armature's ½·Σ armature·v²."""
+    xw, vel = kinematics(tree, q, v)
+    ke, pe = 0.0, 0.0
+    g = tree.gravity.to(q.dtype)
+    for i in range(tree.nb):
+        ke = ke + 0.5 * torch.sum(vel[i] * tree.body_inertia(i).mul_motion(vel[i]), dim=-1)
+        com_w = mv(xw[i].rot, tree.inertia_h[i]) + tree.inertia_mass[i] * xw[i].pos
+        pe = pe - torch.sum(g * com_w, dim=-1)
+    ke = ke + 0.5 * torch.sum(tree.armature * v * v, dim=-1)
+    return ke, pe
 
 
 def integrate(tree: KinematicTree, q, v, dt) -> torch.Tensor:

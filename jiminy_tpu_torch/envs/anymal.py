@@ -20,11 +20,12 @@ heightmap from ``terrain_seed`` with a flat spawn disk and spawns within
 armature, motor gains and friction, sensor offsets), ``constraints``
 (kinematic constraints: frame, joint, distance, sphere and wheel),
 ``collision_pairs`` (declared body-body pairs), ``min_height``,
-``max_tilt_cos`` (the termination's limits), ``nan_guard`` and
+``max_tilt_cos`` (the termination's limits), ``nan_guard``,
 ``engine_options`` (the engine's options as a whole, e.g. the
-reference's default penalty contacts) pass through to
-:class:`WalkerEnv`. Other options raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+reference's default penalty contacts), ``reward_fn`` and
+``termination_fn`` (a declarative MDP, e.g.
+:func:`anymal_declarative_mdp`'s) pass through to :class:`WalkerEnv`.
+Other options raise ``TypeError``.
 
 :class:`ANYmalGantryEnv` is ANYmal on a gantry: the base welded (a
 :class:`~jiminy_tpu_torch.engine.constraints.FrameConstraint`) 0.25 m
@@ -56,7 +57,8 @@ from jiminy_tpu_torch.envs.locomotion import WalkerEnv, check_options
 from jiminy_tpu_torch.models.quadruped import make_anymal, stand_q
 
 _PASSED_ON = ("push_prob", "push_duration", "model_randomization", "constraints",
-              "collision_pairs", "min_height", "max_tilt_cos", "nan_guard", "engine_options")
+              "collision_pairs", "min_height", "max_tilt_cos", "nan_guard", "engine_options",
+              "reward_fn", "termination_fn")
 
 
 class ANYmalEnv(WalkerEnv):
@@ -212,3 +214,31 @@ class ANYmalGantryEnv(ANYmalEnv):
         q, v = super()._sample_state(generator, batch_size, info)
         q[:, 2] = q[:, 2] + self.LIFT
         return q, v
+
+
+def anymal_declarative_mdp(target_speed: float = 0.8, min_height: float = 0.3,
+                           max_tilt_cos: float = 0.6):
+    """ANYmal's MDP rebuilt from the declarative layer: a reward and a
+    termination composed (:mod:`~jiminy_tpu_torch.envs.compositions`)
+    over :class:`~jiminy_tpu_torch.envs.quantities.QuantityContext`,
+    equal to :class:`WalkerEnv`'s hand-coded ones at these defaults.
+    Returns ``(reward_fn, termination_fn)`` for
+    ``ANYmalEnv(reward_fn=..., termination_fn=...)``."""
+    from jiminy_tpu_torch.envs import compositions as C
+
+    # exp(−err²/0.25) is radial_basis(err², cutoff) at this cutoff
+    cutoff = float(np.sqrt(0.25 * np.log(1.0 / C.CUTOFF_ESP)))
+    reward_fn = C.additive_mixture([
+        (1.0, C.tracking_reward(lambda ctx: ctx.base_velocity_world[:, 0], target_speed, cutoff)),
+        # uprightness: cos(tilt) = R[2, 2] = −(the gravity direction)_z
+        (0.5, C.quantity_reward(lambda ctx: ctx.base_tilt)),
+        (-0.1, C.quantity_reward(lambda ctx: torch.square(ctx.base_velocity_world[:, 1])
+                                 + 0.5 * torch.square(ctx.base_angular_velocity[:, 2]))),
+        (0.005, C.action_penalty(1.0)),
+        (-0.05, C.quantity_reward(lambda ctx: torch.square(ctx.base_velocity_world[:, 2]))),
+    ])
+    termination_fn = C.any_termination([
+        C.base_tilt_termination(max_tilt_cos),
+        C.base_height_termination(min_height),
+    ])
+    return reward_fn, termination_fn

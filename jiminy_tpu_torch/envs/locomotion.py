@@ -37,7 +37,15 @@ push hooks:
   Cassie's leg capsules), handed to the engine;
 - ``nan_guard`` (default True): an env whose state goes non-finite or
   explodes terminates with zero reward and observation
-  (:class:`~jiminy_tpu_torch.envs.base.BaseEnv`).
+  (:class:`~jiminy_tpu_torch.envs.base.BaseEnv`);
+- ``reward_fn`` and ``termination_fn`` (the declarative MDP,
+  :mod:`~jiminy_tpu_torch.envs.compositions`): each, when given, replaces
+  the hand-coded reward or termination below, called on a
+  :class:`~jiminy_tpu_torch.envs.quantities.QuantityContext` of the step's
+  state over each env's own ground (e.g.
+  :func:`~jiminy_tpu_torch.envs.anymal.anymal_declarative_mdp`). They are
+  host-side tensor code after the physics: the kernel launches of a step
+  are the same.
 
 The engine runs contacts as PGS rows (``contact_model="constraint"``, as
 the reference's walker envs ask for), unless ``engine_options`` (an
@@ -76,26 +84,12 @@ from jiminy_tpu_torch.math import so3
 from jiminy_tpu_torch.math.spatial import mtv, mv
 
 
-# options of the reference's walker envs that the port does not take yet,
-# by the ROADMAP item that ports them
-UNPORTED_OPTIONS = {
-    "reward_fn": "A.17 (declarative layer)",
-    "termination_fn": "A.17 (declarative layer)",
-}
-
-
 def check_options(env: str, kwargs: dict, passed_on: tuple):
-    """Refuse an option of ``kwargs`` that is not in ``passed_on``:
-    NotImplementedError naming its ROADMAP item for an option still to
-    port, TypeError for an unknown one."""
+    """Refuse, with TypeError, an option of ``kwargs`` that is not in
+    ``passed_on``."""
     for k in kwargs:
-        if k in passed_on:
-            continue
-        if k not in UNPORTED_OPTIONS:
+        if k not in passed_on:
             raise TypeError(f"{env}: unexpected argument {k!r}")
-        raise NotImplementedError(
-            f"{env}({k}=...) is not ported yet (ROADMAP {UNPORTED_OPTIONS[k]})"
-        )
 
 
 class WalkerEnv(BaseEnv):
@@ -129,6 +123,8 @@ class WalkerEnv(BaseEnv):
         collision_pairs: tuple = (),  # engine.collision.CollisionPair
         nan_guard: bool = True,  # BaseEnv: auto-reset non-finite envs
         engine_options: EngineOptions | None = None,  # replaces the options below
+        reward_fn=None,  # compositions.RewardFn: replaces the hand-coded reward
+        termination_fn=None,  # compositions.TerminationFn: replaces the hand-coded one
         device="cuda",
     ):
         if observe == "sensors":
@@ -185,6 +181,8 @@ class WalkerEnv(BaseEnv):
         self.push_prob = push_prob
         self.push_steps = max(1, round(push_duration / step_dt))
         self.model_randomization = model_randomization
+        self._reward_fn = reward_fn
+        self._termination_fn = termination_fn
         self._q_stand = torch.as_tensor(
             stand_pose, dtype=self.tree.dtype, device=self.device
         )
@@ -325,7 +323,14 @@ class WalkerEnv(BaseEnv):
     def _action_to_command(self, action, sim):
         return self._stand_targets + self.action_scale * torch.clamp(action, -1.0, 1.0)
 
+    def _quantity_ctx(self, sim: SimState, info: dict):
+        from jiminy_tpu_torch.envs.quantities import QuantityContext
+
+        return QuantityContext(self.tree, sim, ground=self._episode_ground(info))
+
     def _reward(self, prev: EnvState, action, sim: SimState) -> torch.Tensor:
+        if self._reward_fn is not None:
+            return self._reward_fn(self._quantity_ctx(sim, prev.info), action)
         R, grav_b, w_b, v_b = self._base_frames(sim)
         v_world = mv(R, v_b)
         track = torch.exp(-torch.square(v_world[:, 0] - self.target_speed) / 0.25)
@@ -341,6 +346,8 @@ class WalkerEnv(BaseEnv):
         )
 
     def _terminated(self, sim: SimState, info: dict) -> torch.Tensor:
+        if self._termination_fn is not None:
+            return self._termination_fn(self._quantity_ctx(sim, info))
         _, grav_b, _, _ = self._base_frames(sim)
         fallen = grav_b[:, 2] > -self.max_tilt_cos
         # the height above each env's own ground

@@ -3,7 +3,8 @@
 Counterpart of ``jiminy_tpu/math/so3.py``, the functions that the
 rigid-body algorithms, ``integrate``, the springs of the flexibility
 joints (``quat_log``), the frame constraint's orientation error
-(``log_matrix``), the observations and the sensors use.
+(``log_matrix``), the observations, the sensors and the declarative layer
+(``quat_identity``, ``quat_conj``, ``quat_to_rpy``) use.
 Quaternions are scalar-last ``(x, y, z, w)`` as in the reference
 (Pinocchio's layout). Every function works on any leading batch shape:
 quaternions are ``(..., 4)``, vectors ``(..., 3)`` and matrices
@@ -22,6 +23,12 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.shape != b.shape:
         a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
+
+
+def quat_identity(batch_shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    """Identity rotation ``(0, 0, 0, 1)`` of shape ``(*batch_shape, 4)``."""
+    q = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+    return q.expand(*batch_shape, 4).clone()
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -43,6 +50,11 @@ def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (the inverse of a unit quaternion)."""
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -133,3 +145,14 @@ def hat(v: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def quat_to_rpy(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion → roll-pitch-yaw (..., 3), XYZ extrinsic; the pitch's
+    sine clamped to [−1, 1]."""
+    x, y, z, w = q.unbind(-1)
+    roll = torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    sinp = torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0)
+    pitch = torch.asin(sinp)
+    yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    return torch.stack([roll, pitch, yaw], dim=-1)

@@ -8,8 +8,11 @@ params from the run's torch checkpoints (``<run>/ckpt/``, the newest
 step; ``tools/train.py --out`` writes them), sizes the policy from them,
 and runs ``rl.evaluate``'s batched greedy rollout on the env that
 ``tools/train.py`` builds for ``--env`` (``--max-steps``, ``--terrain``,
-``--observe``, ``--self-collision`` as there). Prints the statistics as
-JSON. Runs on the card unless ``--device cpu``.
+``--observe``, ``--sensor-delay``, ``--imu-noise``, ``--encoder-noise``,
+``--self-collision``, ``--mdp`` and ``--pipeline`` as there; a pipeline's
+normalization statistics frozen from the checkpointed carry, as
+``freeze_pipeline_stats`` does). Prints the statistics as JSON. Runs on
+the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import pathlib
 
 import torch
 
-from jiminy_tpu_torch.tools.train import add_env_args, make_env
+from jiminy_tpu_torch.tools.train import add_env_args, build_env
 
 
 def main() -> None:
@@ -34,14 +37,18 @@ def main() -> None:
     args = ap.parse_args()
 
     from jiminy_tpu_torch.checkpoint import restore_raw
+    from jiminy_tpu_torch.envs import freeze_pipeline_stats
     from jiminy_tpu_torch.rl import MLPPolicy, evaluate, greedy_policy
 
-    env = make_env(args.env, args.max_steps, terrain=args.terrain, observe=args.observe,
-                   self_collision=args.self_collision, device=args.device)
+    env = build_env(args)
     carry = restore_raw(pathlib.Path(args.run) / "ckpt", device=env.device)
+    if args.pipeline:  # the normalization statistics are part of the trained artifact
+        env = freeze_pipeline_stats(env, carry[2])
     params = carry[0]
     hidden = [W.shape[1] for W, _ in params["actor"][:-1]]
-    policy = MLPPolicy(env.observation_size, env.action_size, hidden=hidden)
+    discrete = env.discrete_actions is not None
+    policy = MLPPolicy(env.observation_size, env.discrete_actions if discrete else env.action_size,
+                       discrete=discrete, hidden=hidden)
     stats = evaluate(env, greedy_policy(policy, params), n_envs=args.n_envs,
                      n_steps=args.n_steps,
                      generator=torch.Generator(device=env.device).manual_seed(args.seed))

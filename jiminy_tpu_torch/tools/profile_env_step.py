@@ -4,7 +4,7 @@
         [--batch 4096] [--steps 5] [--solver auto|substep|kernel|inline]
         [--observe state|sensors] [--terrain flat|fourier|perlin|perlin_grid|stairs]
         [--push N] [--push-duration S] [--randomize R] [--self-collision] [--flexibility]
-        [--gantry]
+        [--gantry] [--mdp hardcoded|declarative] [--pipeline LAYERS]
 
 ``--env cassie`` runs ``CassieEnv(sim_dt=2e-3, target_speed=0.4)``
 (``examples/train.py --env cassie``: 10 substeps of 2 ms, the pushrods
@@ -40,9 +40,12 @@ terrain slice is ``--observe sensors --terrain fourier --push 100
 with ``--randomize R`` per-episode model randomization mapped as
 examples/train.py maps it (mass and inertia scales 1 ± R, centre-of-mass
 offsets ±0.1·R m, motor gain 1 ± R/2; the sim-to-real slice adds
-``--randomize 0.2``: the randomized K2), under
-``torch.profiler`` for a few env steps after a warm-up, and prints one
-JSON line: the card (``nvidia-smi`` name and power limit), wall ms per env
+``--randomize 0.2``: the randomized K2), with ``--mdp declarative``
+``anymal_declarative_mdp``'s reward and termination, wrapped in
+``--pipeline`` (``tools/train.py``'s syntax, e.g. ``mahony,stack:4``, the
+sensor artifacts' recipe, with ``--observe sensors``), under
+``torch.profiler`` for a few env steps after a warm-up
+(:func:`profile_env`), and prints one JSON line: the card (``nvidia-smi`` name and power limit), wall ms per env
 step, device busy ms per env step (the sum of GPU kernel times), the
 device's idle share, GPU kernel launches per env step and, profiled
 apart, per step without auto-reset and per reset (an env step runs one
@@ -79,7 +82,13 @@ def main() -> None:
                     help="Cassie with its flexible hips")
     ap.add_argument("--gantry", action="store_true",
                     help="ANYmal welded on a gantry with a locked knee (the chain kernel)")
+    ap.add_argument("--mdp", default="hardcoded", choices=("hardcoded", "declarative"),
+                    help="ANYmal: the declarative reward and termination")
+    ap.add_argument("--pipeline", default=None,
+                    help="declarative wrapper layers, e.g. mahony,stack:4 (tools/train.py's)")
     args = ap.parse_args()
+    if args.mdp != "hardcoded" and (args.env != "anymal" or args.gantry):
+        raise SystemExit("profile_env_step: --mdp declarative is ANYmal's")
     if args.gantry and (args.env != "anymal" or args.terrain != "flat" or args.randomize):
         raise SystemExit("profile_env_step: --gantry is ANYmal's, on flat ground, nominal")
     if args.flexibility and args.env != "cassie":
@@ -88,9 +97,6 @@ def main() -> None:
         raise SystemExit("profile_env_step: --self-collision is Cassie's and Atlas's")
     if not torch.cuda.is_available():
         raise SystemExit("profile_env_step: no CUDA GPU available")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from jiminy_tpu_torch.engine.randomization import ModelRandomization
     from jiminy_tpu_torch.envs import (
         AntEnv,
@@ -99,7 +105,10 @@ def main() -> None:
         AtlasEnv,
         CassieEnv,
         SpotmicroEnv,
+        anymal_declarative_mdp,
+        build_pipeline,
     )
+    from jiminy_tpu_torch.tools.train import parse_pipeline
 
     dev = torch.device("cuda")
     r = args.randomize
@@ -136,20 +145,58 @@ def main() -> None:
                               constraint_solver=args.solver, push_magnitude=args.push,
                               push_duration=args.push_duration, device=dev, **sensors)
     else:
+        mdp = {}
+        if args.mdp == "declarative":
+            mdp["reward_fn"], mdp["termination_fn"] = anymal_declarative_mdp()
         env = ANYmalEnv(observe=args.observe, step_dt=0.02, sim_dt=5e-3, pgs_iters=8,
                         constraint_solver=args.solver, terrain=args.terrain,
                         push_magnitude=args.push, push_duration=args.push_duration,
-                        model_randomization=randomization, device=dev, **sensors)
+                        model_randomization=randomization, device=dev, **sensors, **mdp)
+    engine = env.engine
+    env = build_pipeline(env, parse_pipeline(args.pipeline))
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(json.dumps({
+        "gpu": gpu,
+        "env": args.env,
+        "batch": args.batch,
+        "constraint_solver": engine.backend,
+        "observe": args.observe,
+        "terrain": args.terrain,
+        "push_magnitude": args.push,
+        "randomize": r,
+        "self_collision": args.self_collision,
+        "flexibility": args.flexibility,
+        "gantry": args.gantry,
+        "mdp": args.mdp,
+        "pipeline": args.pipeline,
+        **profile_env(env, args.batch, args.steps),
+    }))
+
+
+def profile_env(env, batch: int, steps: int) -> dict:
+    """``steps`` env steps of ``env`` (an env or a pipeline on the card)
+    at ``batch`` under ``torch.profiler`` after as many of warm-up: wall
+    ms, device busy ms (the sum of GPU kernel times), the device's idle
+    share and GPU kernel launches per env step, the launches per step
+    without auto-reset and per reset profiled apart (an env step runs one
+    of each), and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device(env.device)
     gen = torch.Generator(device=dev).manual_seed(0)
-    state = env.reset(gen, args.batch)
-    acts = [torch.rand(args.batch, env.motors.nm, generator=gen, device=dev) * 2 - 1
-            for _ in range(2 * args.steps)]
-    for a in acts[:args.steps]:  # warm-up
+    state = env.reset(gen, batch)
+    acts = [torch.rand(batch, env.action_size, generator=gen, device=dev) * 2 - 1
+            for _ in range(2 * steps)]
+    for a in acts[:steps]:  # warm-up
         state = env.step(state, a)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for a in acts[args.steps:]:
+        for a in acts[steps:]:
             state = env.step(state, a)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -159,42 +206,26 @@ def main() -> None:
     # without auto-reset, and the reset that auto-reset runs every step
     split = {}
     for name, fn in (("step_no_reset", lambda a: env.step_no_reset(state, a)),
-                     ("reset", lambda a: env.reset(gen, args.batch))):
+                     ("reset", lambda a: env.reset(gen, batch))):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as part:
-            for a in acts[args.steps:]:
+            for a in acts[steps:]:
                 fn(a)
             torch.cuda.synchronize()
         split[name] = sum(
             e.count for e in part.key_averages() if e.device_type == DeviceType.CUDA
-        ) / args.steps
+        ) / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    gpu = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    n = args.steps
-    print(json.dumps({
-        "gpu": gpu,
-        "env": args.env,
-        "batch": args.batch,
-        "constraint_solver": env.engine.backend,
-        "observe": args.observe,
-        "terrain": args.terrain,
-        "push_magnitude": args.push,
-        "randomize": r,
-        "self_collision": args.self_collision,
-        "flexibility": args.flexibility,
-        "gantry": args.gantry,
-        "wall_ms_per_env_step": 1e3 * wall / n,
-        "device_busy_ms_per_env_step": busy_us / 1e3 / n,
+    return {
+        "wall_ms_per_env_step": 1e3 * wall / steps,
+        "device_busy_ms_per_env_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - (busy_us / 1e6) / wall,
-        "gpu_kernel_launches_per_env_step": sum(e.count for e in kernels) / n,
+        "gpu_kernel_launches_per_env_step": sum(e.count for e in kernels) / steps,
         "gpu_kernel_launches_per_step_no_reset": split["step_no_reset"],
         "gpu_kernel_launches_per_reset": split["reset"],
         "top_kernels_ms_per_env_step": {
-            e.key[:80]: e.self_device_time_total / 1e3 / n for e in top
+            e.key[:80]: e.self_device_time_total / 1e3 / steps for e in top
         },
-    }))
+    }
 
 
 if __name__ == "__main__":

@@ -21,9 +21,18 @@ cassie_flex, atlas (``target_speed=0.3``), ant, spotmicro, with
 ``--terrain`` (anymal), ``--push``, ``--push-duration``, ``--observe``,
 ``--sensor-delay``, ``--imu-noise``, ``--encoder-noise``, ``--randomize``
 and ``--self-collision`` (cassie, atlas); cartpole and acrobot at their
-own defaults (discrete actions, 500 steps an episode), as there. Refused,
-naming the ROADMAP item that ports them: ``--mdp declarative`` and
-``--pipeline`` (A.17). Runs on the card unless ``--device cpu``.
+own defaults (discrete actions, 500 steps an episode), as there.
+``--mdp declarative`` (anymal only) trains on ``anymal_declarative_mdp``'s
+reward and termination. ``--pipeline`` wraps the env in declarative
+layers, comma-separated innermost first (``stack:N``, default N = 4;
+``mahony``; ``normalize``: e.g. ``mahony,stack:4``, the sensor
+artifacts' recipe); a pipeline trains without the symmetry loss (the
+observation's layout is the pipeline's), and the evaluation freezes the
+normalization statistics of the last carry (``freeze_pipeline_stats``).
+Runs on the card unless ``--device cpu``.
+
+``main(argv)`` returns (the env, the final carry, the evaluation's
+statistics).
 """
 
 from __future__ import annotations
@@ -40,10 +49,12 @@ ENVS = ("anymal", "cassie", "cassie_flex", "atlas", "ant", "spotmicro", "cartpol
 
 def make_env(name: str, max_steps: int, terrain=None, push=0.0, observe="state",
              sensor_delay=0.0, imu_noise=0.0, encoder_noise=0.0, push_duration=0.1,
-             randomize=None, self_collision=False, device="cuda"):
+             randomize=None, self_collision=False, mdp="hardcoded", device="cuda"):
     """The env ``examples/train.py`` builds for ``name``, on ``device``."""
     from jiminy_tpu_torch import envs as E
 
+    if mdp != "hardcoded" and name != "anymal":
+        raise ValueError(f"--mdp {mdp} is anymal's; {name} has its hand-coded MDP only")
     if name == "cartpole":
         return E.CartPoleEnv(device=device)
     if name == "acrobot":
@@ -66,6 +77,8 @@ def make_env(name: str, max_steps: int, terrain=None, push=0.0, observe="state",
     if self_collision and name not in ("cassie", "cassie_flex", "atlas"):
         raise ValueError("--self-collision is cassie's and atlas's")
     if name == "anymal":
+        if mdp == "declarative":
+            kw["reward_fn"], kw["termination_fn"] = E.anymal_declarative_mdp()
         return E.ANYmalEnv(terrain=terrain, **sensing, **kw)
     if name in ("cassie", "cassie_flex"):
         return E.CassieEnv(sim_dt=2e-3, target_speed=0.4, self_collision=self_collision,
@@ -79,6 +92,32 @@ def make_env(name: str, max_steps: int, terrain=None, push=0.0, observe="state",
     raise ValueError(f"unknown env {name!r}")
 
 
+def parse_pipeline(spec: str | None) -> list[dict]:
+    """``--pipeline`` → ``build_pipeline``'s layers, as examples/train.py
+    parses it: comma-separated ``kind[:arg]``, ``stack:N`` (N = 4 by
+    default)."""
+    layers = []
+    for part in spec.split(",") if spec else ():
+        kind, _, arg = part.partition(":")
+        layer = {"type": kind}
+        if kind == "stack":
+            layer["n"] = int(arg or 4)
+        layers.append(layer)
+    return layers
+
+
+def build_env(args, **kw):
+    """The env of the parsed shared options (``add_env_args``) and
+    ``make_env``'s other arguments ``kw``, wrapped in its pipeline."""
+    from jiminy_tpu_torch.envs import build_pipeline
+
+    env = make_env(args.env, args.max_steps, terrain=args.terrain, observe=args.observe,
+                   sensor_delay=args.sensor_delay, imu_noise=args.imu_noise,
+                   encoder_noise=args.encoder_noise, self_collision=args.self_collision,
+                   mdp=args.mdp, device=args.device, **kw)
+    return build_pipeline(env, parse_pipeline(args.pipeline))
+
+
 def add_env_args(ap: argparse.ArgumentParser) -> None:
     """The env options the train and evaluate entry points share."""
     ap.add_argument("--env", default="anymal", choices=ENVS)
@@ -90,10 +129,19 @@ def add_env_args(ap: argparse.ArgumentParser) -> None:
                     "sensor suite")
     ap.add_argument("--self-collision", action="store_true",
                     help="cassie, atlas: the self-collision pairs")
+    ap.add_argument("--sensor-delay", type=float, default=0.0)
+    ap.add_argument("--imu-noise", type=float, default=0.0)
+    ap.add_argument("--encoder-noise", type=float, default=0.0)
+    ap.add_argument("--mdp", default="hardcoded", choices=["hardcoded", "declarative"],
+                    help="anymal: the hand-coded reward and termination or the same composed "
+                    "from the declarative layer")
+    ap.add_argument("--pipeline", default=None,
+                    help="declarative wrapper layers, innermost first, e.g. 'mahony,stack:4' "
+                    "or 'stack:4,normalize'")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 
-def main() -> None:
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_env_args(ap)
     ap.add_argument("--iters", type=int, default=4000)
@@ -110,26 +158,17 @@ def main() -> None:
                     "motor gain ±10%%, centre of mass ±2 cm")
     ap.add_argument("--ent-anneal", action="store_true",
                     help="anneal the entropy bonus linearly to 0 over the run")
-    ap.add_argument("--sensor-delay", type=float, default=0.0)
-    ap.add_argument("--imu-noise", type=float, default=0.0)
-    ap.add_argument("--encoder-noise", type=float, default=0.0)
-    ap.add_argument("--mdp", default="hardcoded", choices=["hardcoded", "declarative"],
-                    help="declarative: not ported yet (ROADMAP A.17)")
-    ap.add_argument("--pipeline", default=None, help="not ported yet (ROADMAP A.17)")
-    args = ap.parse_args()
-    if args.mdp != "hardcoded" or args.pipeline:
-        raise SystemExit("--mdp declarative and --pipeline are not ported yet (ROADMAP A.17)")
+    args = ap.parse_args(argv)
     out = pathlib.Path(args.out or f"runs/{args.env}_run")
     out.mkdir(parents=True, exist_ok=True)
 
     from jiminy_tpu_torch.checkpoint import CheckpointManager
+    from jiminy_tpu_torch.envs import freeze_pipeline_stats
     from jiminy_tpu_torch.rl import MetricsLogger, PPOConfig, evaluate, greedy_policy
     from jiminy_tpu_torch.rl.ppo import make_train_fn
 
-    env = make_env(args.env, args.max_steps, args.terrain, args.push, args.observe,
-                   args.sensor_delay, args.imu_noise, args.encoder_noise,
-                   push_duration=args.push_duration, randomize=args.randomize,
-                   self_collision=args.self_collision, device=args.device)
+    env = build_env(args, push=args.push, push_duration=args.push_duration,
+                    randomize=args.randomize)
     symmetry_fn = getattr(env, "symmetry_fn", None)
     cfg = PPOConfig(
         num_envs=args.num_envs,
@@ -175,7 +214,9 @@ def main() -> None:
                 mgr.save(i, carry)
     mgr.save(args.iters, carry)
 
-    stats = evaluate(env, greedy_policy(policy, carry[0]), n_envs=256,
+    # the normalization statistics are part of the trained artifact
+    eval_env = freeze_pipeline_stats(env, carry[2])
+    stats = evaluate(eval_env, greedy_policy(policy, carry[0]), n_envs=256,
                      n_steps=args.max_steps - 1,
                      generator=torch.Generator(device=env.device).manual_seed(123))
     (out / "eval.json").write_text(json.dumps(stats, indent=1))
@@ -183,6 +224,7 @@ def main() -> None:
     total = args.iters * steps_per_iter
     dt = time.perf_counter() - t0
     print(f"done: {total:,} env-steps in {dt:,.0f}s ({total / dt:,.0f}/s)")
+    return env, carry, stats
 
 
 if __name__ == "__main__":

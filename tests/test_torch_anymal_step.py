@@ -171,18 +171,23 @@ def test_reset_is_seeded():
     "kwargs, item",
     [
         ({"constraints": (object(),)}, "not a kinematic constraint"),
-        ({"reward_fn": object()}, "A.17"),
-        ({"termination_fn": object()}, "A.17"),
+        ({"reward_fn": object(), "reward": 1.0}, "unexpected argument 'reward'"),
+        ({"termination_fn": object(), "termination": 1.0}, "unexpected argument 'termination'"),
     ],
 )
 def test_unported_options_raise(kwargs, item):
-    """Options still to port raise NotImplementedError naming their
-    ROADMAP item; a constraint that is none of the kinematic constraints
-    TypeError (every kind is ported, and reaches the engine:
-    ``test_constraints_pass_through``)."""
-    err = TypeError if "constraints" in kwargs else NotImplementedError
-    with pytest.raises(err, match=item):
+    """Every option of the reference's is ported: the declarative MDP's
+    ``reward_fn`` and ``termination_fn`` (A.17) reach the env, an option
+    the reference does not have raises TypeError, and so does a
+    constraint that is none of the kinematic constraints (every kind
+    reaches the engine: ``test_constraints_pass_through``)."""
+    with pytest.raises(TypeError, match=item):
         ANYmalEnv(device="cpu", **kwargs)
+    fn = next(iter(kwargs.values()))
+    if "reward_fn" in kwargs:
+        assert ANYmalEnv(reward_fn=fn, observe="state", device="cpu")._reward_fn is fn
+    if "termination_fn" in kwargs:
+        assert ANYmalEnv(termination_fn=fn, observe="state", device="cpu")._termination_fn is fn
 
 
 def test_engine_options_replace_the_env_s():

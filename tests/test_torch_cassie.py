@@ -344,5 +344,8 @@ def test_unported_options_raise():
     env = CassieEnv(flexibility=True, observe="state", device="cpu")
     assert env.engine.backend == "substep" and env.tree.nv == 26 and env.engine.nc == 28
     assert env.reset(torch.Generator().manual_seed(0), 2).obs.shape == (2, 29)
-    with pytest.raises(NotImplementedError, match="A.17"):
-        CassieEnv(reward_fn=object(), device="cpu")
+    # the declarative MDP (A.17) passes through; an unknown option raises
+    fn = object()
+    assert CassieEnv(reward_fn=fn, observe="state", device="cpu")._reward_fn is fn
+    with pytest.raises(TypeError, match="unexpected argument 'reward'"):
+        CassieEnv(reward=fn, device="cpu")

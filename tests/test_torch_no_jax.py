@@ -18,15 +18,16 @@ Ant and the Spotmicro on the state path and the fused and chunked sensor
 paths, the Atlas humanoid with its self-collision pairs on the state path
 and the fused sensor path, the PRISMATIC cartpole through ``Engine.step``,
 ANYmal on the reference's default penalty contacts (the continuous path)
-and the ``CartPoleEnv``; then one PPO
+and the ``CartPoleEnv``; a step of the declarative ANYmal MDP through
+``mahony``, ``stack:4`` and ``normalize``; then one PPO
 ``train_step`` (B = 2, the symmetry loss on) and one ``evaluate`` step on
 the state-observing env. The
 modules that hold kernels, the sensor suite, the grounds, the terrain
 generators, the random processes, the model randomization, the
 constraints, the collision pairs, the registered forces, the steppers,
 the biped, the humanoid, the Ant, the toys, the legged and toy envs, the
-RL modules, the checkpoint and the train and evaluate
-entry points are named,
+RL modules, the checkpoint, the train and evaluate entry points and the
+declarative layer's modules are named,
 so a rename cannot drop them from the walk. A second test imports each kernel module
 first in a fresh interpreter: the engine and ops packages import each
 other, and any order must work.
@@ -56,7 +57,10 @@ KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops
                   "jiminy_tpu_torch.rl.logging", "jiminy_tpu_torch.checkpoint",
                   "jiminy_tpu_torch.tools.train", "jiminy_tpu_torch.tools.evaluate",
                   "jiminy_tpu_torch.engine.forces", "jiminy_tpu_torch.engine.steppers",
-                  "jiminy_tpu_torch.envs.cartpole", "jiminy_tpu_torch.envs.acrobot")
+                  "jiminy_tpu_torch.envs.cartpole", "jiminy_tpu_torch.envs.acrobot",
+                  "jiminy_tpu_torch.envs.blocks", "jiminy_tpu_torch.envs.quantities",
+                  "jiminy_tpu_torch.envs.compositions", "jiminy_tpu_torch.envs.pipeline",
+                  "jiminy_tpu_torch.envs.gym_adapter", "jiminy_tpu_torch.envs.registration")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -172,6 +176,13 @@ carry, metrics = train_step(init_fn(0, 2))
 assert all(bool(torch.isfinite(v)) for v in metrics.values())
 stats = evaluate(env, greedy_policy(policy, carry[0]), n_envs=2, n_steps=1)
 assert stats["length_mean"] == 1.0 and stats["fall_fraction"] == 0.0
+from jiminy_tpu_torch.envs import anymal_declarative_mdp, build_pipeline
+
+r, t = anymal_declarative_mdp()
+env = build_pipeline(ANYmalEnv(sensor_delay=0.004, reward_fn=r, termination_fn=t, device="cpu"),
+                     [{"type": "mahony"}, {"type": "stack", "n": 4}, {"type": "normalize"}])
+st = env.step(env.reset(torch.Generator().manual_seed(0), 2), torch.zeros(2, 12))
+assert st.obs.shape == (2, 148) and bool(torch.isfinite(st.obs).all())
 leaked = sorted(k for k in sys.modules if k.partition(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK", len(mods))

@@ -167,6 +167,8 @@ def test_train_and_evaluate_entry_points(tmp_path, monkeypatch, capsys):
     atlas = tool_train.make_env("atlas", 10, self_collision=True, device="cpu")
     assert type(atlas).__name__ == "AtlasEnv" and atlas.engine.nc == 83
     assert atlas.target_speed == 0.3 and atlas.observe_mode == "state"
-    monkeypatch.setattr(sys, "argv", ["train", "--pipeline", "stack:4", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="A.17"):
-        tool_train.main()
+    # the declarative MDP is anymal's (examples/train.py applies it there only)
+    decl = tool_train.make_env("anymal", 10, mdp="declarative", device="cpu")
+    assert decl._reward_fn is not None and decl._termination_fn is not None
+    with pytest.raises(ValueError, match="anymal's"):
+        tool_train.make_env("cassie", 10, mdp="declarative", device="cpu")
