@@ -340,6 +340,38 @@ the pendulum against the CPU's counters, and the reference's
    checkpoint bit for bit, ``freeze_pipeline_stats`` of a
    ``stack:4,normalize`` state.
 
+6. the URDF builders (A.20) and scale-out (A.18, `phase_urdf_and_scaleout`),
+   after every other part:
+   - ``build_robot("data/anymal.urdf", "data/anymal_hardware.toml",
+     freeflyer=True)`` → ``WalkerEnv(robot, stand_pose=stand_q, observe="state")`` at
+     the main path's settings and ``data/atlas.urdf`` with its hardware
+     TOML (the torso's SPHERICAL flexibility: nb 25, nv 32, nc 47, inside
+     K2's caps) at AtlasEnv's: 10 env steps each at B = 4096, exactly one
+     K2 launch per step; K2 on the URDF ANYmal at n_sub = 1 against its
+     plain version within 1e-4;
+   - the capsule-foot ANYmal (``foot_radius`` 0.02, ``foot_len`` 0.08: 8
+     sphere sites, nc 36) from ``quadruped_urdf``: K2 at n_sub = 1, B =
+     4096, env by env against the float64 plain version (`_gate_vs_f64`)
+     from perturbed stand poses and again from the states that the stand
+     run ends in; from ANYmal's bare-foot stand poses (feet 2–4 cm deep)
+     by the distribution rules (`_gate_dist_vs_f64`) and the per-env
+     rule's 1 % of exceptions, each exception held by an ensemble of its
+     own copies with q's joints moved by ~1 float32 ulp
+     (`_capsule_deep_gate`); the reference's ``test_capsule_feet_stand`` at B = 4096
+     (zero actions, 25 env steps: one K2 launch per step, every base above
+     0.45 m, finite, none terminated);
+   - PPO on ANYmal at phase 4's settings (B = 2048) through
+     ``make_distributed_train`` at world size 1 over NCCL: one train step
+     from the same init bit for bit the single-device one (params, Adam's
+     moments and count, metrics), 32 K2 launches each; both iterations'
+     times in turns; ``dryrun_multichip(1, realistic=True)``; then two
+     ranks over gloo on this card (``launch_cpu_ring``, B = 1024 per rank,
+     2 iterations): the ranks' params bit-identical, 32 K2 launches per
+     rank per iteration;
+   - K2's time, plain time and bound on the URDF ANYmal and on the
+     capsule feet (``urdf_anymal_substep_multi``,
+     ``capsule_feet_substep_multi`` in the kernels line).
+
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -859,8 +891,9 @@ def _anymal_engine(dev, dtype=torch.float32, residual=True, fusion=True, solver=
                   controller=PDController(80.0, 2.0), ground=ground, device=dev)
 
 
-def _substep_inputs(engine, gen, B):
-    """ANYmal states around the stand pose: joints ±0.15 rad, in a
+def _substep_inputs(engine, gen, B, stand=None):
+    """ANYmal states around the stand pose (``stand``: another stand pose
+    of the tree, e.g. with capsule feet): joints ±0.15 rad, in a
     quarter of the envs the four HAA joints within 1 cm·rad of a position
     limit (either side of it, so that the bounds rows bind), base 2 cm
     low to 1 cm high (feet penetrating, hovering within the contact margin
@@ -871,7 +904,7 @@ def _substep_inputs(engine, gen, B):
     dev, t = engine.device, engine.tree
     kw = dict(generator=gen, device=dev)
     qi = list(engine.motors.q_idx)
-    q = torch.as_tensor(stand_q(t), device=dev).repeat(B, 1)
+    q = torch.as_tensor(stand_q(t) if stand is None else stand, device=dev).repeat(B, 1)
     q[:, qi] += 0.3 * torch.rand(B, len(qi), **kw) - 0.15
     haa = [t.q_off[t.joint_index(n)] for n in t.joint_name if n.endswith("_HAA")]
     hi = t.q_max[haa].to(dev)
@@ -4429,6 +4462,336 @@ def phase_declarative(dev) -> dict:
     return out
 
 
+# ---- phase 6: the URDF builders (A.20) and scale-out (A.18)
+CAPSULE_FEET = dict(foot_radius=0.02, foot_len=0.08)  # tests/test_collision.py's capsule feet
+URDF_STEPS = 10
+RING_CFG = dict(rollout_len=32, minibatches=8, epochs=4, hidden=(256, 256), lr=3e-4,
+                ent_coef=0.005, symmetry_coef=0.1, anneal_lr=True, total_iters=PPO_TOTAL_ITERS)
+RING_WORKER = """
+import hashlib, json, time
+from jiminy_tpu_torch.envs import ANYmalEnv
+from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi
+from jiminy_tpu_torch.rl import PPOConfig
+from jiminy_tpu_torch.rl.distributed import make_distributed_train
+from jiminy_tpu_torch.rl.networks import param_leaves
+
+env = ANYmalEnv(observe="state", max_steps=500, device="cuda")
+init_fn, train_step, _ = make_distributed_train(env, PPOConfig(**{cfg}),
+                                                symmetry_fn=env.symmetry_fn)
+carry = init_fn(0)
+launches, seconds = [], []
+for _ in range({iters}):
+    torch.cuda.synchronize()
+    before, t0 = substep_batched_multi.launches, time.perf_counter()
+    carry, metrics = train_step(carry)
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - t0)
+    launches.append(substep_batched_multi.launches - before)
+flat = torch.cat([x.reshape(-1) for x in param_leaves(carry[0])]).cpu().numpy()
+print("RING " + json.dumps({{"rank": dist.get_rank(), "batch": carry[2].obs.shape[0],
+                            "launches": launches, "seconds": seconds,
+                            "params_sha256": hashlib.sha256(flat.tobytes()).hexdigest(),
+                            "reward_mean": float(metrics["reward_mean"])}}), flush=True)
+"""
+
+
+def _capsule_robot(dev, dtype=torch.float32):
+    """The capsule-foot ANYmal through the URDF route, and its params."""
+    from jiminy_tpu_torch.models.quadruped import ANYMAL, quadruped_hardware, quadruped_urdf
+    from jiminy_tpu_torch.robot import build_robot
+
+    p = dataclasses.replace(ANYMAL, **CAPSULE_FEET)
+    return build_robot(quadruped_urdf(p), quadruped_hardware(p), freeflyer=True, device=dev,
+                       dtype=dtype), p
+
+
+def _robot_engine(robot, dt, dtype=torch.float32):
+    """``robot``'s whole-substep engine at ``dt``, 8 PGS sweeps, PD 80/2,
+    as the walker envs build it."""
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
+
+    opts = EngineOptions(contact_model="constraint", dt=dt, pgs_iters=8,
+                         compute_solver_residual=False, constraint_solver="substep")
+    return Engine(robot.tree.to(dtype=dtype), opts, motors=robot.motors.to(dtype=dtype),
+                  controller=PDController(80.0, 2.0), device=robot.tree.device)
+
+
+def _capsule_gate(label, eng, eng64, eng_cpu, args) -> float:
+    """K2 at n_sub = 1 from ``args`` against the plain version in float32
+    and float64, env by env (`_gate_vs_f64`); returns max |K2 − plain
+    f32|. Printed beside it, for the 8 envs where K2's v is farthest from
+    float64: the plain float32 version on the CPU (``eng_cpu``), a second
+    float32 rounding of the same physics."""
+    from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi, substep_multi_reference
+
+    k2 = substep_batched_multi(eng.substep_spec, 1, *args)
+    p32 = substep_multi_reference(eng.substep_spec, 1, *args)
+    p64 = substep_multi_reference(eng64.substep_spec, 1, *[x.double() for x in args])
+    torch.cuda.synchronize()
+    names = ("q", "v", "lam", "residual", "impulse")
+    err = {n: _max_err(a, b) for n, a, b in zip(names, k2, p32)}
+    loaded = float((p64[4][..., 2] != 0).any(1).double().mean())
+    far = torch.topk(_env_err(k2[1], p64[1]), 8).indices
+    cpu = substep_multi_reference(eng_cpu.substep_spec, 1, *[x[far].cpu() for x in args])
+    print(f"[phase 6] {label}: the 8 envs where K2's v is farthest from f64, |v − f64| of K2 "
+          f"{[f'{x:.3g}' for x in _env_err(k2[1][far], p64[1][far]).tolist()]}, of the plain "
+          f"f32 version on the card {[f'{x:.3g}' for x in _env_err(p32[1][far], p64[1][far]).tolist()]}"
+          f" and on the CPU {[f'{x:.3g}' for x in _env_err(cpu[1], p64[1][far].cpu()).tolist()]}")
+    gates = {n: _gate_vs_f64(f"{label} {n}", k2[i], p32[i], p64[i])
+             for i, n in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse"))}
+    print(f"[phase 6] {label} B={args[0].shape[0]}: share of envs with a loaded site {loaded:.4f}; "
+          f"max |K2 − plain f32| {json.dumps(err)}; vs the f64 plain version {json.dumps(gates)}")
+    if loaded < 0.5:
+        raise AssertionError(f"{label}: {loaded} of the envs loaded")
+    return max(err.values())
+
+
+def _capsule_deep_gate(label, eng, eng64, args) -> float:
+    """K2 at n_sub = 1 from ``args`` (feet 2–4 cm inside the ground)
+    against the plain version in float32 and float64. Over the batch: the
+    distribution rules (`_gate_dist_vs_f64`), and `_gate_vs_f64`'s
+    per-env rule with its 1 % of exceptions. Each exception (the 8 farthest
+    from float64 if there are more) is held by its own rounding ensemble:
+    1024 copies of the env with the joints of q moved by 1e-7·N(0, 1),
+    about one float32 ulp, K2 and the plain version in float32 against
+    float64 on each copy by the distribution rules. q sets M, J and the
+    Delassus matrix; where the solve amplifies their float32 rounding, the
+    plain version's own distance to float64 spreads over the copies, and
+    K2 must fall in that spread. Returns max |K2 − plain f32| over the
+    batch."""
+    from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi, substep_multi_reference
+
+    def outs(a):
+        k2 = substep_batched_multi(eng.substep_spec, 1, *a)
+        p32 = substep_multi_reference(eng.substep_spec, 1, *a)
+        p64 = substep_multi_reference(eng64.substep_spec, 1, *[x.double() for x in a])
+        torch.cuda.synchronize()
+        return k2, p32, p64
+
+    fields = ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse"))
+    k2, p32, p64 = outs(args)
+    B, dev = args[0].shape[0], args[0].device
+    worse = torch.zeros(B, dtype=torch.bool, device=dev)
+    for i, _ in fields:
+        worse |= _env_err(k2[i], p64[i]) > 2.0 * _env_err(p32[i], p64[i]) + TOL
+    gates = {n: _gate_dist_vs_f64(f"{label} {n}", k2[i], p32[i], p64[i], worst_of=~worse)
+             for i, n in fields}
+    err = {n: _max_err(a, b) for n, a, b in zip(("q", "v", "lam", "residual", "impulse"), k2, p32)}
+    print(f"[phase 6] {label} B={B}: {int(worse.sum())} envs where K2 is further from f64 than 2 "
+          f"× the plain f32 version + 1e-4; max |K2 − plain f32| {json.dumps(err)}; vs the f64 "
+          f"plain version {json.dumps(gates)}")
+    if worse.double().mean() > ENV_EXCEPTIONS:
+        raise AssertionError(f"{label}: K2 is further from f64 than 2 × the plain f32 version "
+                             f"+ 1e-4 in more than 1 % of the envs ({int(worse.sum())})")
+    dk = _env_err(k2[1], p64[1])
+    qi = list(eng.motors.q_idx)
+    gen = torch.Generator(device=dev).manual_seed(55)
+    for e in sorted(worse.nonzero().flatten().tolist(), key=lambda e: -dk[e].item())[:8]:
+        copies = [x[e:e + 1].repeat(1024, 1) for x in args]
+        copies[0][:, qi] += 1e-7 * torch.randn(1024, len(qi), generator=gen, device=dev)
+        ek2, ep32, ep64 = outs(copies)
+        ens = {n: _gate_dist_vs_f64(f"{label} env {e}'s ensemble {n}", ek2[i], ep32[i], ep64[i])
+               for i, n in fields}
+        print(f"[phase 6] {label}: env {e}, |v − f64| of K2 {dk[e].item():.4g}, of the plain f32 "
+              f"version {_env_err(p32[1][e:e + 1], p64[1][e:e + 1]).item():.4g}; its ensemble "
+              f"of 1024 copies, q's joints moved by 1e-7·N(0, 1): {json.dumps(ens)}")
+    return max(err.values())
+
+
+def _carries_equal(a, b) -> dict:
+    """Which parts of two PPO carries and metrics ((carry, metrics)) are
+    bit-identical."""
+    from jiminy_tpu_torch.rl.networks import param_leaves
+
+    (ca, ma), (cb, mb) = a, b
+    return {
+        "params": all(torch.equal(x, y) for x, y in zip(param_leaves(ca[0]), param_leaves(cb[0]))),
+        "adam": torch.equal(ca[1]["count"], cb[1]["count"]) and all(
+            torch.equal(x, y) for k in ("mu", "nu") for x, y in zip(ca[1][k], cb[1][k])),
+        "metrics": set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma),
+        "env obs": torch.equal(ca[2].obs, cb[2].obs),
+    }
+
+
+def phase_urdf_and_scaleout(dev, drive, entry, main_err, path) -> dict:
+    """Phase 6 (see the module's docstring) with ``run``'s ``drive``,
+    ``entry``, ``main_err`` and ``path``; returns its numbers."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from jiminy_tpu_torch.envs import ANYmalEnv
+    from jiminy_tpu_torch.envs.locomotion import WalkerEnv
+    from jiminy_tpu_torch.models.humanoid import atlas_stand_q
+    from jiminy_tpu_torch.models.quadruped import stand_q
+    from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi, substep_multi_reference
+    from jiminy_tpu_torch.rl import PPOConfig
+    from jiminy_tpu_torch.rl.distributed import make_distributed_train
+    from jiminy_tpu_torch.rl.launch import dryrun_multichip, initialize_cluster, launch_cpu_ring
+    from jiminy_tpu_torch.rl.ppo import PPO
+    from jiminy_tpu_torch.robot import build_robot
+
+    out = {}
+    data = Path(__file__).resolve().parent / "data"
+    main_kw = dict(step_dt=0.02, sim_dt=5e-3, pgs_iters=8, observe="state", device=dev)
+
+    # ---- the URDF path: ANYmal and Atlas from data/
+    robot = build_robot(data / "anymal.urdf", data / "anymal_hardware.toml", freeflyer=True,
+                        device=dev)
+    env_u = WalkerEnv(robot, stand_pose=stand_q(robot.tree), **main_kw)
+    drive("urdf anymal state path", env_u, 50, URDF_STEPS, substep_multi=URDF_STEPS)
+    u_eng = _robot_engine(robot, 5e-3)
+    u_args = _substep_inputs(u_eng, torch.Generator(device=dev).manual_seed(51), B_MAIN)
+    k2 = substep_batched_multi(u_eng.substep_spec, 1, *u_args)
+    p32 = substep_multi_reference(u_eng.substep_spec, 1, *u_args)
+    torch.cuda.synchronize()
+    err = {n: _max_err(a, b) for n, a, b in zip(("q", "v", "lam", "residual", "impulse"), k2, p32)}
+    print(f"[phase 6] urdf anymal K2 n_sub=1 B={B_MAIN}: max |K2 − plain f32| {json.dumps(err)} "
+          f"(gate {TOL})")
+    if max(err.values()) > TOL:
+        raise AssertionError(f"urdf anymal: K2 off its plain version by {err}")
+    main_err["urdf_anymal_substep_multi"] = max(err.values())
+
+    atlas = build_robot(data / "atlas.urdf", data / "atlas_hardware.toml", freeflyer=True,
+                        device=dev)
+    env_a = WalkerEnv(atlas, stand_pose=atlas_stand_q(atlas.tree), step_dt=0.02, sim_dt=4e-3, kp=300.0,
+                      kd=15.0, action_scale=0.4, target_speed=0.3, min_height=0.55,
+                      observe="state", device=dev)
+    a_spec = env_a.engine.substep_spec
+    print(f"[phase 6] urdf atlas with the torso flexibility: nb {atlas.tree.nb}, nq "
+          f"{atlas.tree.nq}, nv {atlas.tree.nv}, nc {env_a.engine.nc}; backend "
+          f"{env_a.engine.backend!r}")
+    if env_a.engine.backend != "substep":
+        raise AssertionError("the URDF Atlas does not take the whole-substep kernel")
+    a_spec.warp_workspace()  # raises past K2's caps
+    drive("urdf atlas (torso flexibility) state path", env_a, 52, URDF_STEPS,
+          substep_multi=URDF_STEPS)
+
+    # ---- the capsule-foot ANYmal: K2's sphere-site branch at nc 36
+    cap, p = _capsule_robot(dev)
+    cap64, _ = _capsule_robot(dev, torch.float64)
+    cap_cpu, _ = _capsule_robot(torch.device("cpu"))
+    env_c = WalkerEnv(cap, stand_pose=stand_q(cap.tree, p), max_steps=100, reset_noise=0.02,
+                      min_height=0.4, observe="state", device=dev)
+    c_eng, c_eng64 = _robot_engine(cap, env_c.engine.options.dt), _robot_engine(
+        cap64, env_c.engine.options.dt, torch.float64)
+    c_spec = c_eng.substep_spec
+    if not (c_spec.spheres and c_spec.nc == 36 and env_c.engine.backend == "substep"):
+        raise AssertionError(f"capsule feet: spheres {c_spec.spheres}, nc {c_spec.nc}, backend "
+                             f"{env_c.engine.backend}")
+    c_cpu = _robot_engine(cap_cpu, env_c.engine.options.dt)
+    c_args = _substep_inputs(c_eng, torch.Generator(device=dev).manual_seed(53), B_MAIN,
+                             stand=stand_q(cap.tree, p))
+    worst = _capsule_gate("capsule feet, perturbed stand poses", c_eng, c_eng64, c_cpu, c_args)
+    d_args = _substep_inputs(c_eng, torch.Generator(device=dev).manual_seed(53), B_MAIN)
+    worst = max(worst, _capsule_deep_gate("capsule feet, bare-foot stand poses (2–4 cm deep)",
+                                          c_eng, c_eng64, d_args))
+    st = env_c.reset(torch.Generator(device=dev).manual_seed(54), B_MAIN)
+    zero = torch.zeros(B_MAIN, 12, device=dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    for _ in range(25):  # 0.5 s, tests/test_collision.py's test_capsule_feet_stand
+        st = env_c.step(st, zero)
+    torch.cuda.synchronize()
+    path["capsule feet stand"] = got = _counts()
+    warp = _check_warp("capsule feet stand", env_c.engine.substep_spec, got)
+    z = st.sim.q[:, 2]
+    print(f"[phase 6] capsule feet stand, 25 env steps of {env_c.n_substeps} substeps at "
+          f"B={B_MAIN}, zero actions: launches {json.dumps({n: c for n, c in got.items() if c})} "
+          f"(the warp body {warp}); base height {z.min().item():.4f}–{z.max().item():.4f} m; "
+          f"terminated {int(st.terminated.sum())}")
+    if got != _only(substep_multi=25):
+        raise AssertionError(f"capsule feet stand: {got}")
+    _check_finite(st, "capsule feet stand")
+    if not (bool((z > 0.45).all()) and not bool(st.terminated.any())):
+        raise AssertionError("capsule feet: a base fell below 0.45 m or an env terminated")
+    qi = list(c_eng.motors.q_idx)
+    s_args = [st.sim.q, st.sim.v, st.sim.q[:, qi], st.sim.lam,
+              torch.zeros(B_MAIN, 6, device=dev)]
+    worst = max(worst, _capsule_gate("capsule feet, the stand run's states", c_eng, c_eng64,
+                                     c_cpu, s_args))
+    main_err["capsule_feet_substep_multi"] = worst
+
+    # ---- scale-out: world size 1 over NCCL against the single-device step
+    cfg = _ppo_cfg()
+    env = ANYmalEnv(observe="state", max_steps=500, device=dev)
+    initialize_cluster(num_processes=1, process_id=0, backend="nccl")
+    try:
+        init_fn, d_step, _ = make_distributed_train(env, cfg, symmetry_fn=env.symmetry_fn)
+        ppo = PPO(env, cfg, env.symmetry_fn)
+        carries = {"distributed": init_fn(0), "single": ppo.init(0, PPO_B)}
+        steps = {"distributed": d_step, "single": ppo.train_step}
+        first, launched = {}, {}
+        for name in ("distributed", "single"):
+            torch.cuda.synchronize()
+            _reset_counts()
+            first[name] = steps[name](carries[name])
+            torch.cuda.synchronize()
+            launched[name] = _counts()
+            carries[name] = first[name][0]
+        same = _carries_equal(first["distributed"], first["single"])
+        print(f"[phase 6] PPO at B={PPO_B} through make_distributed_train at world size 1 over "
+              f"NCCL against the single-device train_step, one iteration from the same init: "
+              f"bit-identical {json.dumps(same)}; K2 launches "
+              f"{json.dumps({k: v['substep_multi'] for k, v in launched.items()})}")
+        if not all(same.values()):
+            raise AssertionError(f"world size 1 differs from the single-device step: {same}")
+        for name, got in launched.items():
+            if got != _only(substep_multi=cfg.rollout_len):
+                raise AssertionError(f"{name} train step: {got}")
+        times = {"distributed": [], "single": []}
+        for name in ("distributed", "single", "single", "distributed"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carries[name], _ = steps[name](carries[name])
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+        print(f"[phase 6] iteration ms at B={PPO_B} (rollout {cfg.rollout_len}, "
+              f"{cfg.epochs} × {cfg.minibatches} updates), in turns: world size 1 "
+              f"{[round(t, 2) for t in times['distributed']]}, single device "
+              f"{[round(t, 2) for t in times['single']]}")
+        out["iteration_ms"] = times
+        out["dryrun_realistic_reward_mean"] = dryrun_multichip(1, realistic=True, device=dev)
+    finally:
+        dist.destroy_process_group()
+
+    # ---- K2 on the URDF ANYmal and on the capsule feet: time, plain, bound
+    for name, eng, n_sub, args, launched_by in (
+            ("urdf_anymal_substep_multi", u_eng, env_u.n_substeps, u_args,
+             "urdf anymal state path"),
+            ("capsule_feet_substep_multi", c_eng, env_c.n_substeps, c_args,
+             "capsule feet stand")):
+        spec = eng.substep_spec
+        ops = B_MAIN * (n_sub * (_substep_flops(spec) + _torque_flops(spec)) + 2 * spec.tree.nv)
+        entry(
+            name, WARP_SOURCE,
+            "jiminy_tpu/ops/substep_kernel.py:1815" if name.startswith("urdf")
+            else "jiminy_tpu/ops/substep_kernel.py:862",
+            path[launched_by]["substep_multi"],
+            _time_cuda(lambda: substep_batched_multi(spec, n_sub, *args), 20),
+            _time_cuda(lambda: substep_multi_reference(spec, n_sub, *args), 3),
+            _substep_multi_bytes(spec, B_MAIN), ops,
+        )
+    # ---- two ranks over gloo on this card
+    ring_cfg = dict(RING_CFG, num_envs=PPO_B)
+    t0 = time.perf_counter()
+    logs = launch_cpu_ring(2, RING_WORKER.format(cfg=repr(ring_cfg), iters=2), timeout=600)
+    ring = [json.loads(line[5:]) for log in logs for line in log.splitlines()
+            if line.startswith("RING ")]
+    print(f"[phase 6] 2 ranks over gloo on this card ({time.perf_counter() - t0:.1f} s with "
+          f"the processes' start): {json.dumps(ring)}")
+    if sorted(r["rank"] for r in ring) != [0, 1]:
+        raise AssertionError(f"the ring reported {ring}")
+    if ring[0]["params_sha256"] != ring[1]["params_sha256"]:
+        raise AssertionError("the two ranks' params differ after 2 iterations")
+    for r in ring:
+        if r["batch"] != PPO_B // 2 or r["launches"] != [cfg.rollout_len] * 2:
+            raise AssertionError(f"rank {r['rank']}: batch {r['batch']}, K2 launches "
+                                 f"{r['launches']}")
+    out["ring"] = ring
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA GPU available")
@@ -5335,6 +5698,8 @@ def run(dev) -> None:
     training = phase_training(dev)
     # ---- phase 5: the declarative layer (A.17), after every other path
     declarative = phase_declarative(dev)
+    # ---- phase 6: the URDF builders (A.20) and scale-out (A.18), last
+    urdf_scaleout = phase_urdf_and_scaleout(dev, drive, entry, main_err, path)
     print(json.dumps({"env_steps_per_s": rates, "env_steps_per_s_sensor_path": rates_s,
                       "env_steps_per_s_terrain_path": rates_t,
                       "env_steps_per_s_sim2real_path": rates_r,
@@ -5345,7 +5710,8 @@ def run(dev) -> None:
                       "env_steps_per_s_chain_paths": rates_chain,
                       "penalty_paths": penalty,
                       "nvcc_build_s": build,
-                      "ppo": training, "declarative": declarative}))
+                      "ppo": training, "declarative": declarative,
+                      "urdf_and_scaleout": urdf_scaleout}))
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,15 @@ Models cross from the reference as numpy arrays: :func:`tree_from_arrays`
 takes every field of the reference's ``KinematicTree`` as a numpy array
 and returns the port's tree. :func:`merge_trees` joins robots into one
 forest (several roots), the model of a multi-robot simulation whose
-robots a ``CouplingForce`` ties together. :class:`TreeBuilder` is the subset of the
-reference's builder that the port's own model builders need (moving
-bodies with their armature, damping and joint springs, fixed-body
-fusion, frames, world-anchored frames included, contact points, and
-spherical flexibility joints inserted upstream of a joint) on FREE,
-REVOLUTE, PRISMATIC and SPHERICAL joints.
+robots a ``CouplingForce`` ties together. :func:`map_configuration` and
+:func:`map_velocity` carry a state between two trees by joint name (the
+rigid ↔ flexible state maps). :class:`TreeBuilder` is the reference's
+builder (moving bodies with their armature, damping and joint springs,
+fixed-body fusion, frames, world-anchored frames included, contact
+points, spheres and capsules, and spherical flexibility and revolute
+backlash joints inserted upstream of a joint) on FREE, REVOLUTE,
+PRISMATIC and SPHERICAL joints; the URDF parser (``io/urdf.py``) drives
+it.
 """
 
 from __future__ import annotations
@@ -181,6 +184,10 @@ class KinematicTree:
         )
 
     @property
+    def nf(self) -> int:
+        return len(self.frame_body)
+
+    @property
     def ncp(self) -> int:
         return len(self.contact_body)
 
@@ -193,6 +200,10 @@ class KinematicTree:
     def frame_placement(self, k: int) -> Transform:
         """Pose of frame k in its body."""
         return Transform(rot=self.fp_rot[k], pos=self.fp_pos[k])
+
+    def q_slice(self, i: int) -> slice:
+        o = self.q_off[i]
+        return slice(o, o + JOINT_NQ[self.joint_type[i]])
 
     def v_slice(self, i: int) -> slice:
         o = self.v_off[i]
@@ -271,9 +282,30 @@ def merge_trees(trees, prefixes=None) -> KinematicTree:
                          gravity=trees[0].gravity, **arrays)
 
 
+def map_configuration(src: KinematicTree, dst: KinematicTree, q_src: torch.Tensor) -> torch.Tensor:
+    """A configuration (..., src.nq) of ``src`` as one (..., dst.nq) of
+    ``dst``, joint by joint name; a joint that ``src`` lacks (an inserted
+    flexibility or backlash joint) stays neutral."""
+    neutral = torch.as_tensor(dst.neutral_q(), dtype=q_src.dtype, device=q_src.device)
+    q = neutral.expand(*q_src.shape[:-1], dst.nq).clone()
+    for j, name in enumerate(dst.joint_name):
+        if name in src.joint_name:
+            q[..., dst.q_slice(j)] = q_src[..., src.q_slice(src.joint_index(name))]
+    return q
+
+
+def map_velocity(src: KinematicTree, dst: KinematicTree, v_src: torch.Tensor) -> torch.Tensor:
+    """The velocity counterpart of :func:`map_configuration` (absent
+    joints at rest)."""
+    v = v_src.new_zeros(*v_src.shape[:-1], dst.nv)
+    for j, name in enumerate(dst.joint_name):
+        if name in src.joint_name:
+            v[..., dst.v_slice(j)] = v_src[..., src.v_slice(src.joint_index(name))]
+    return v
+
+
 class TreeBuilder:
-    """Imperative builder: the subset of the reference's TreeBuilder that
-    the port's model builders use. Fixed bodies are fused into their
+    """Imperative builder, the reference's TreeBuilder. Fixed bodies are fused into their
     parent (inertia composition) and kept as operational frames; the
     numpy arithmetic is the reference's, so built trees match it."""
 
@@ -415,6 +447,42 @@ class TreeBuilder:
             (self.stiffness, per_axis(stiffness)), (self.q_min, np.full(4, -1e6, np.float32)),
             (self.q_max, np.full(4, 1e6, np.float32)), (self.v_max, np.full(3, 1e6, np.float32)),
             (self.u_max, np.full(3, 1e6, np.float32)),
+        ):
+            dst.insert(i, x)
+        self.parent[i + 1] = i
+        self.jp[i + 1] = np.eye(4, dtype=np.float32)
+        return i
+
+    def insert_backlash(self, joint_name: str, play: float, armature: float = 1e-4,
+                        damping: float = 0.0) -> int:
+        """Insert a passive backlash joint upstream of the named joint: a
+        massless revolute body ``<body>_backlash`` about the same axis,
+        bounded to ±play/2 (by the bounds rows), with ``armature`` so that
+        the DoF has some inertia. It takes the joint's body index, parent
+        and placement; the original body hangs off it at the identity, and
+        every body index ≥ it shifts by one. Returns its index."""
+        i = self.joint_name.index(joint_name)
+        name = self.body_name[i] + "_backlash"
+
+        def bump(idx: int) -> int:
+            return idx + 1 if idx >= i else idx
+
+        self.parent = [bump(p) for p in self.parent]
+        self.frame_body = [bump(b) for b in self.frame_body]
+        self.contact_body = [bump(b) for b in self.contact_body]
+
+        half = float(play) / 2.0
+        for dst, x in (
+            (self.parent, self.parent[i]), (self.joint_type, JointType.REVOLUTE),
+            (self.jp, self.jp[i]), (self.axis, self.axis[i].copy()),
+            (self.mass, 0.0), (self.com, np.zeros(3, np.float32)),
+            (self.inertia_com, np.zeros((3, 3), np.float32)),
+            (self.body_name, name), (self.joint_name, name + "_joint"),
+            (self.armature, np.full(1, armature, np.float32)),
+            (self.damping, np.full(1, damping, np.float32)),
+            (self.stiffness, np.zeros(1, np.float32)),
+            (self.q_min, np.full(1, -half, np.float32)), (self.q_max, np.full(1, half, np.float32)),
+            (self.v_max, np.full(1, 1e6, np.float32)), (self.u_max, np.full(1, 1e6, np.float32)),
         ):
             dst.insert(i, x)
         self.parent[i + 1] = i

@@ -20,8 +20,8 @@ activation; each pair is one PGS color (:func:`pair_rows`). The
 whole-substep kernels run the same narrow phases in-kernel
 (``csrc/substep.cuh`` ``jt_pair_contact``).
 
-:func:`shape_for_link` needs a robot parsed from a URDF, which the port
-does not have yet (ROADMAP A.20).
+:func:`shape_for_link` turns a link's parsed URDF ``<collision>`` geometry
+(``robot.Robot.collision_shapes``) into one of these shapes.
 """
 
 from __future__ import annotations
@@ -91,11 +91,43 @@ class CollisionPair:
 
 
 def shape_for_link(robot, link: str, index: int = 0, exact: bool = True):
-    """The primitive of a URDF link's ``<collision>`` geometry. Needs a
-    robot parsed from a URDF, which is not ported yet."""
-    raise NotImplementedError(
-        "shape_for_link needs a robot parsed from a URDF, not ported yet (ROADMAP A.20)"
-    )
+    """The pair shape of entry ``index`` of a URDF link's ``<collision>``
+    geometry (``robot.collision_shapes``): a sphere or capsule as it is;
+    with ``exact`` a box as the oriented :class:`Box` rebuilt from its
+    corners and a mesh as its :class:`ConvexMesh` of support points, else
+    either as its fitted bounding :class:`Capsule`. E.g.
+    ``CollisionPair(shape_for_link(r, "l_shin"), shape_for_link(r,
+    "r_shin"))``."""
+    if link not in robot.collision_shapes:
+        raise ValueError(f"link {link!r} has no parsed <collision> geometry "
+                         f"(available: {sorted(robot.collision_shapes)})")
+    body, geoms = robot.collision_shapes[link]
+    g = geoms[index]
+    if g[0] == "sphere":
+        return Sphere(body, tuple(np.asarray(g[1], np.float32)), float(g[2]))
+    if g[0] == "capsule":
+        return Capsule(body, tuple(np.asarray(g[1], np.float32)),
+                       tuple(np.asarray(g[2], np.float32)), float(g[3]))
+    if g[0] == "mesh":
+        p0, p1, r = g[2]
+        if exact:
+            return ConvexMesh(body, tuple(map(tuple, np.asarray(g[1], np.float32))),
+                              (tuple(p0), tuple(p1), float(r)))
+        return Capsule(body, tuple(p0), tuple(p1), float(r))
+    if g[0] == "box":
+        corners = np.asarray(g[1], np.float64)  # (8, 3) in the body frame
+        if not exact:
+            p0, p1, r = fit_capsule(corners)
+            return Capsule(body, tuple(p0), tuple(p1), float(r))
+        # the corners' enumeration (x slowest, z fastest) fixes the edges
+        c = corners.mean(axis=0)
+        d = corners - c
+        edges = (d[4] - d[0], d[2] - d[0], d[1] - d[0])
+        R = np.stack([e / np.linalg.norm(e) for e in edges], axis=-1)
+        h = 0.5 * np.array([np.linalg.norm(e) for e in edges])
+        return Box(body, tuple(c.astype(np.float32)), tuple(h.astype(np.float32)),
+                   tuple(map(tuple, R.astype(np.float32))))
+    raise ValueError(f"unknown collision geometry kind {g[0]!r}")
 
 
 def fit_capsule(v: np.ndarray) -> tuple[np.ndarray, np.ndarray, float]:

@@ -137,11 +137,17 @@ class BaseEnv:
         step_dt: float,
         max_steps: int = 1000,
         sensors=None,
+        observe_dt: float | None = None,
         nan_guard: bool = True,
     ):
-        """``nan_guard``: terminate, with zero reward and observation, any
-        env whose state goes non-finite or explodes, so that auto-reset
-        recovers it (the reference's default)."""
+        """``observe_dt``: the period of the observation's refresh. With
+        ``sensors`` it defaults to the suite's period and must equal it
+        (delay interpolation counts buffer slots in periods), and
+        ``step_dt`` must be a multiple of it, itself a multiple of the
+        engine's dt, or ValueError; without, it is stored (default
+        ``step_dt``). ``nan_guard``: terminate, with zero reward and
+        observation, any env whose state goes non-finite or explodes, so
+        that auto-reset recovers it (the reference's default)."""
         self.engine = engine
         self.nan_guard = nan_guard
         self.tree = engine.tree
@@ -152,9 +158,12 @@ class BaseEnv:
         self.sensors = sensors
         self._observation_size = None  # learned on first use
         if sensors is not None:
-            # observations refresh at the suite's period: delay
-            # interpolation counts buffer slots in periods
-            self.observe_dt = float(sensors.period)
+            self.observe_dt = float(sensors.period if observe_dt is None else observe_dt)
+            if abs(self.observe_dt - sensors.period) > 1e-9:
+                raise ValueError(
+                    f"observe_dt={self.observe_dt} must equal the sensor suite period "
+                    f"{sensors.period} (delay interpolation counts buffer slots in periods)"
+                )
             self.n_obs_updates = max(1, round(step_dt / self.observe_dt))
             self.n_substeps_per_obs = max(1, round(self.observe_dt / engine.options.dt))
             if self.n_obs_updates * self.n_substeps_per_obs != self.n_substeps:
@@ -163,7 +172,7 @@ class BaseEnv:
                     f"itself a multiple of the engine dt={engine.options.dt}"
                 )
         else:
-            self.observe_dt = float(step_dt)
+            self.observe_dt = float(observe_dt or step_dt)
             self.n_obs_updates = 1
             self.n_substeps_per_obs = self.n_substeps
         # does the sensor path run the kernel's sensor stage (one launch

@@ -82,6 +82,7 @@ from jiminy_tpu_torch.envs.base import BaseEnv, EnvState
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.math import so3
 from jiminy_tpu_torch.math.spatial import mtv, mv
+from jiminy_tpu_torch.robot import Robot
 
 
 def check_options(env: str, kwargs: dict, passed_on: tuple):
@@ -93,11 +94,16 @@ def check_options(env: str, kwargs: dict, passed_on: tuple):
 
 
 class WalkerEnv(BaseEnv):
+    """``robot``: a :class:`~jiminy_tpu_torch.robot.Robot`, which gives the
+    tree, the motors and, unless ``sensors`` is given, the sensors
+    (``WalkerEnv(robot, stand_pose=...)``), or a tree with its ``motors``
+    (``WalkerEnv(tree, motors, stand_pose, ..., sensors=...)``)."""
+
     def __init__(
         self,
-        tree: KinematicTree,
-        motors: Motors,
-        stand_pose,  # (nq,) nominal configuration, feet on the ground
+        robot: Robot | KinematicTree,
+        motors: Motors | None = None,
+        stand_pose=None,  # (nq,) nominal configuration, feet on the ground
         step_dt: float = 0.02,
         sim_dt: float = 2.5e-3,
         max_steps: int = 1000,
@@ -127,6 +133,17 @@ class WalkerEnv(BaseEnv):
         termination_fn=None,  # compositions.TerminationFn: replaces the hand-coded one
         device="cuda",
     ):
+        if isinstance(robot, Robot):
+            if motors is not None:
+                raise TypeError("WalkerEnv(robot, ...) takes the robot's motors: pass "
+                                "stand_pose= by keyword and no motors")
+            motors = robot.motors
+            sensors = robot.sensors if sensors is None else sensors
+            tree = robot.tree
+        else:
+            tree = robot
+        if motors is None or stand_pose is None:
+            raise TypeError("WalkerEnv needs the robot's motors and a stand pose")
         if observe == "sensors":
             if sensors is None:
                 raise ValueError(

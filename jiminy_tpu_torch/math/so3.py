@@ -4,7 +4,8 @@ Counterpart of ``jiminy_tpu/math/so3.py``, the functions that the
 rigid-body algorithms, ``integrate``, the springs of the flexibility
 joints (``quat_log``), the frame constraint's orientation error
 (``log_matrix``), the observations, the sensors and the declarative layer
-(``quat_identity``, ``quat_conj``, ``quat_to_rpy``) use.
+(``quat_identity``, ``quat_conj``, ``quat_to_rpy``) and the URDF
+builders (``rpy_to_quat``) use.
 Quaternions are scalar-last ``(x, y, z, w)`` as in the reference
 (Pinocchio's layout). Every function works on any leading batch shape:
 quaternions are ``(..., 4)``, vectors ``(..., 3)`` and matrices
@@ -144,6 +145,22 @@ def hat(v: torch.Tensor) -> torch.Tensor:
             torch.stack([-y, x, zero], -1),
         ],
         dim=-2,
+    )
+
+
+def rpy_to_quat(rpy: torch.Tensor) -> torch.Tensor:
+    """Roll-pitch-yaw (..., 3), XYZ extrinsic (the URDF convention) →
+    quaternion (..., 4)."""
+    c, s = torch.cos(0.5 * rpy).unbind(-1), torch.sin(0.5 * rpy).unbind(-1)
+    (cr, cp, cy), (sr, sp, sy) = c, s
+    return torch.stack(
+        [
+            sr * cp * cy - cr * sp * sy,
+            cr * sp * cy + sr * cp * sy,
+            cr * cp * sy - sr * sp * cy,
+            cr * cp * cy + sr * sp * sy,
+        ],
+        dim=-1,
     )
 
 

@@ -8,15 +8,21 @@ from jiminy_tpu_torch.models.humanoid import (  # noqa: F401
     atlas_self_collision_pairs,
     atlas_stand_q,
     humanoid_hardware,
+    humanoid_urdf,
     make_atlas,
 )
 from jiminy_tpu_torch.models.quadruped import (  # noqa: F401
     ANYMAL,
     SPOTMICRO,
+    STAND_HEIGHT,
     QuadrupedParams,
+    anymal_hardware,
+    anymal_urdf,
     make_anymal,
     make_quadruped,
     make_spotmicro,
+    quadruped_hardware,
+    quadruped_urdf,
     stand_q,
 )
 from jiminy_tpu_torch.models.toys import (  # noqa: F401

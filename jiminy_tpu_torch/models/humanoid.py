@@ -11,7 +11,8 @@ the pipeline's order: the flexibility joint, the sole contact points
 bank and the sensor suite (the pelvis IMU, 23 encoders, 23 effort
 sensors). ``tests/test_torch_atlas.py`` holds the tree, motors, sensors,
 stand pose and self-collision pairs field for field against the
-reference's.
+reference's. :func:`humanoid_urdf` writes the reference's URDF text, which
+``robot.build_robot`` parses (``tests/test_torch_urdf.py``).
 
 Morphology (23 actuated DoF): pelvis (floating) → torso (yaw, pitch,
 roll); per leg {l, r}: hip yaw, roll, pitch, knee, ankle pitch, roll; per
@@ -31,7 +32,8 @@ from jiminy_tpu_torch.core.tree import JointType, KinematicTree, TreeBuilder
 from jiminy_tpu_torch.engine.collision import Box, Capsule, CollisionPair
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.hardware.sensors import SensorSuite
-from jiminy_tpu_torch.models.quadruped import _box_inertia, _sensor_specs
+from jiminy_tpu_torch.models.quadruped import _box_inertia
+from jiminy_tpu_torch.robot import sensor_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +130,39 @@ def _links_and_joints(p: HumanoidParams):
             (f"{side}_arm_wrz", elb, wrist, (0, 0, -p.lower_arm_len), (0, 0, 1), -1.6, 1.6, arm),
         ]
     return links, joints
+
+
+def humanoid_urdf(p: HumanoidParams = ATLAS) -> str:
+    """The humanoid of ``p`` as URDF text, the reference's document to the
+    character: the pelvis and the torso chain's links, the three back
+    joints, then per side the leg's six links and joints and the arm's
+    four links and joints."""
+    links, joints = _links_and_joints(p)
+
+    def link(name):
+        mass, com, (ixx, iyy, izz) = links[name]
+        return (f'  <link name="{name}"><inertial>'
+                f'<origin xyz="{com[0]} {com[1]} {com[2]}" rpy="0 0 0"/>'
+                f'<mass value="{mass}"/>'
+                f'<inertia ixx="{ixx}" ixy="0" ixz="0" iyy="{iyy}" iyz="0" '
+                f'izz="{izz}"/></inertial></link>')
+
+    def joint(name, parent, child, xyz, axis, lo, hi, effort):
+        return (f'  <joint name="{name}" type="revolute">'
+                f'<origin xyz="{xyz[0]} {xyz[1]} {xyz[2]}" rpy="0 0 0"/>'
+                f'<parent link="{parent}"/><child link="{child}"/>'
+                f'<axis xyz="{" ".join(map(str, axis))}"/>'
+                f'<limit lower="{lo}" upper="{hi}" effort="{effort}" velocity="{p.velocity}"/>'
+                f"</joint>")
+
+    names = list(links)
+    out = [f'<robot name="{p.name}">', *map(link, names[:4]), *(joint(*j) for j in joints[:3])]
+    for s in range(2):  # per side: the leg's links and joints, then the arm's
+        ln, jn = names[4 + 10 * s:14 + 10 * s], joints[3 + 10 * s:13 + 10 * s]
+        out += [*map(link, ln[:6]), *(joint(*j) for j in jn[:6]),
+                *map(link, ln[6:]), *(joint(*j) for j in jn[6:])]
+    out.append("</robot>")
+    return "\n".join(out)
 
 
 def humanoid_hardware(
@@ -270,7 +305,7 @@ def make_atlas(
         device=device,
         dtype=dtype,
     )
-    return tree, motors, SensorSuite.build(tree, _sensor_specs(hw), sensor_period)
+    return tree, motors, SensorSuite.build(tree, sensor_specs(hw), sensor_period)
 
 
 def atlas_stand_q(tree: KinematicTree) -> np.ndarray:

@@ -1,17 +1,24 @@
 """The quadruped family: ANYmal (the flagship) and Spotmicro.
 
 Counterpart of ``jiminy_tpu/models/quadruped.py``. The reference writes
-each robot as URDF text from its :class:`QuadrupedParams` and runs it
-through its URDF parser and hardware pipeline; the port builds the same
-tree directly (:func:`make_quadruped`), in the order that parser visits
-it (depth-first from the base, last-pushed leg first), with the feet
-fused into the shanks as fixed frames and contact points at the foot
-frames, and the sensor suite from the same hardware description.
+each robot as URDF text from its :class:`QuadrupedParams`
+(:func:`quadruped_urdf`, which the port writes too, to the character)
+and runs it through its URDF parser and hardware pipeline. The port
+builds the bare-point-foot robots directly (:func:`make_quadruped`), in
+the order that parser visits the URDF (depth-first from the base,
+last-pushed leg first), with the feet fused into the shanks as fixed
+frames and contact points at the foot frames, and the sensor suite from
+the same hardware description. Capsule feet (``foot_radius > 0``: a
+``<collision>`` capsule on each foot link, opted in through
+``collisionBodyNames``, two end spheres per foot) come from the URDF
+route, as in the reference: :func:`make_quadruped` then runs
+``build_robot(quadruped_urdf(p), quadruped_hardware(p), freeflyer=True)``.
 ``tests/test_torch_model.py`` holds ANYmal's tree field for field against
 ``jiminy_tpu.models.make_anymal()``'s, ``tests/test_torch_sensors.py``
-its suite against the reference's ``robot.sensors``, and
+its suite against the reference's ``robot.sensors``,
 ``tests/test_torch_ant_spotmicro.py`` Spotmicro's tree, motors, sensors
-and stand pose against ``make_spotmicro()``'s.
+and stand pose against ``make_spotmicro()``'s, and
+``tests/test_torch_urdf.py`` the URDF text and the capsule-foot robot.
 
 Morphology (12 actuated DoF): base (floating) → per leg {LF, RF, LH,
 RH}: HAA (x-axis) → HFE (y) → KFE (y); feet are fixed links.
@@ -27,6 +34,7 @@ import torch
 from jiminy_tpu_torch.core.tree import JointType, KinematicTree, TreeBuilder
 from jiminy_tpu_torch.hardware.motors import Motors
 from jiminy_tpu_torch.hardware.sensors import SensorSuite
+from jiminy_tpu_torch.robot import build_robot, sensor_specs
 
 # leg name → (x sign, y sign)
 _LEGS = {"LF": (1, 1), "RF": (1, -1), "LH": (-1, 1), "RH": (-1, -1)}
@@ -34,10 +42,11 @@ _LEGS = {"LF": (1, 1), "RF": (1, -1), "LH": (-1, 1), "RH": (-1, -1)}
 
 @dataclasses.dataclass(frozen=True)
 class QuadrupedParams:
-    """Morphology parameters (the reference's, without the capsule-foot
-    options, which the reference builds through its URDF ``<collision>``
-    parsing, ROADMAP A.20; the sites themselves are ported:
-    ``TreeBuilder.add_contact_capsule``)."""
+    """Morphology parameters. ``foot_radius > 0`` gives each foot link a
+    ``<collision>`` capsule of that radius and length ``foot_len`` along
+    y, which the hardware opts in through ``collisionBodyNames``: each foot
+    touches the ground at its capsule's surface (two end spheres) and can
+    rock and roll. 0: bare contact points (the default)."""
 
     name: str = "anymal"
     base_mass: float = 16.8
@@ -59,6 +68,8 @@ class QuadrupedParams:
     friction_viscous: float = 0.05
     stand_hfe: float = 0.4
     stand_kfe: float = -0.8
+    foot_radius: float = 0.0
+    foot_len: float = 0.0
 
 
 ANYMAL = QuadrupedParams()
@@ -98,8 +109,10 @@ def quadruped_hardware(
     imu_noise: float = 0.0,
     encoder_noise: float = 0.0,
 ) -> dict:
-    """Motor, contact-frame and sensor constants (the reference's hardware
-    description, same schema as a ``*_hardware.toml``)."""
+    """Motor, contact and sensor constants (the reference's hardware
+    description, same schema as a ``*_hardware.toml``). With capsule feet
+    the feet are ``collisionBodyNames`` and each contact sensor reads its
+    foot's first end sphere."""
     motors, encoders, efforts = {}, {}, {}
     for leg in _LEGS:
         for j in ("HAA", "HFE", "KFE"):
@@ -115,8 +128,14 @@ def quadruped_hardware(
             }
             encoders[jn] = {"joint_name": jn, "delay": sensor_delay, "noiseStd": encoder_noise}
             efforts[jn] = {"motor_name": jn}
+    if p.foot_radius > 0:
+        global_cfg = {"collisionBodyNames": [f"{leg}_FOOT" for leg in _LEGS]}
+        site = "_col0_a"
+    else:
+        global_cfg = {"contactFrameNames": [f"{leg}_FOOT" for leg in _LEGS]}
+        site = ""
     return {
-        "Global": {"contactFrameNames": [f"{leg}_FOOT" for leg in _LEGS]},
+        "Global": global_cfg,
         "Motor": {"SimpleMotor": motors},
         "Sensor": {
             "ImuSensor": {
@@ -125,40 +144,18 @@ def quadruped_hardware(
             "EncoderSensor": encoders,
             "EffortSensor": efforts,
             "ContactSensor": {
-                f"{leg}_FOOT_SENSOR": {"frame_name": f"{leg}_FOOT"} for leg in _LEGS
+                f"{leg}_FOOT_SENSOR": {"frame_name": f"{leg}_FOOT{site}"} for leg in _LEGS
             },
         },
     }
 
 
-# hardware section → (sensor type, key of its target), in the order the
-# reference's robot builder reads them (jiminy_tpu/robot.py)
-_SENSOR_SECTIONS = {
-    "ImuSensor": ("imu", "frame_name"),
-    "EncoderSensor": ("encoder", "joint_name"),
-    "EffortSensor": ("effort", None),
-    "ContactSensor": ("contact", "frame_name"),
-    "ForceSensor": ("force", "frame_name"),
-}
-
-
-def _sensor_specs(hw: dict) -> list[dict]:
-    """The hardware's sensors as ``*_spec`` dicts; an effort sensor reads
-    its motor's joint, a contact sensor the contact point of its name."""
-    specs = []
-    for section, (typ, key) in _SENSOR_SECTIONS.items():
-        for name, cfg in hw.get("Sensor", {}).get(section, {}).items():
-            target = (
-                hw["Motor"]["SimpleMotor"][cfg["motor_name"]]["joint_name"]
-                if key is None else cfg[key]
-            )
-            specs.append(dict(
-                type=typ, name=name, target=target,
-                delay=float(cfg.get("delay", 0.0)),
-                bias=float(cfg.get("bias", 0.0)),
-                noise_std=float(cfg.get("noiseStd", 0.0)),
-            ))
-    return specs
+def anymal_hardware(sensor_delay: float = 0.0, imu_noise: float = 0.0,
+                    encoder_noise: float = 0.0) -> dict:
+    """ANYmal's hardware description (:func:`quadruped_hardware` of
+    :data:`ANYMAL`)."""
+    return quadruped_hardware(ANYMAL, sensor_delay=sensor_delay, imu_noise=imu_noise,
+                              encoder_noise=encoder_noise)
 
 
 def _links_and_joints(p: QuadrupedParams):
@@ -195,6 +192,56 @@ def _links_and_joints(p: QuadrupedParams):
     return links, joints
 
 
+def quadruped_urdf(p: QuadrupedParams) -> str:
+    """The quadruped of ``p`` as URDF text, the reference's document to
+    the character: the base link, then per leg its four links and four
+    joints (the foot joint fixed); with capsule feet a ``<collision>``
+    capsule on each foot link, its axis turned onto y."""
+    links, joints = _links_and_joints(p)
+
+    def link(name):
+        mass, com, (ixx, iyy, izz) = links[name]
+        extra = ""
+        if name.endswith("_FOOT") and p.foot_radius > 0:
+            extra = f"""
+    <collision>
+      <origin xyz="0 0 0" rpy="1.5707963267948966 0 0"/>
+      <geometry><capsule radius="{p.foot_radius}" length="{p.foot_len}"/></geometry>
+    </collision>"""
+        return f"""  <link name="{name}">
+    <inertial>
+      <origin xyz="{com[0]} {com[1]} {com[2]}" rpy="0 0 0"/>
+      <mass value="{mass}"/>
+      <inertia ixx="{ixx}" ixy="0" ixz="0" iyy="{iyy}" iyz="0" izz="{izz}"/>
+    </inertial>{extra}
+  </link>"""
+
+    def joint(name, jtype, parent, child, xyz, axis, lower, upper):
+        ax = f'\n    <axis xyz="{" ".join(map(str, axis))}"/>' if axis else ""
+        lim = ""
+        if jtype == "revolute":
+            lim = (f'\n    <limit lower="{lower}" upper="{upper}" effort="{p.effort}" '
+                   f'velocity="{p.velocity}"/>')
+        return f"""  <joint name="{name}" type="{jtype}">
+    <origin xyz="{xyz[0]} {xyz[1]} {xyz[2]}" rpy="0 0 0"/>
+    <parent link="{parent}"/>
+    <child link="{child}"/>{ax}{lim}
+  </joint>"""
+
+    names = list(links)
+    parts = [f'<robot name="{p.name}">', link(names[0])]
+    for k in range(len(_LEGS)):  # each leg's 4 links, then its 4 joints
+        parts += [link(n) for n in names[1 + 4 * k:5 + 4 * k]]
+        parts += [joint(*j) for j in joints[4 * k:4 * k + 4]]
+    parts.append("</robot>")
+    return "\n".join(parts)
+
+
+def anymal_urdf() -> str:
+    """The ANYmal-class instance of the family as URDF text."""
+    return quadruped_urdf(ANYMAL)
+
+
 def make_quadruped(
     params: QuadrupedParams,
     device="cuda",
@@ -208,7 +255,14 @@ def make_quadruped(
     sensors, sampled every ``sensor_period`` s: one IMU on the base frame
     and the 12 encoders (``sensor_delay``; Gaussian noise of std
     ``imu_noise`` and ``encoder_noise``), 12 effort sensors and the 4 foot
-    contact sensors (no delay, no noise)."""
+    contact sensors (no delay, no noise). Capsule feet (``foot_radius >
+    0``) are built through the URDF route (``robot.build_robot``)."""
+    hw = quadruped_hardware(params, sensor_delay, imu_noise, encoder_noise)
+    if params.foot_radius > 0:
+        robot = build_robot(quadruped_urdf(params), hw, freeflyer=True,
+                            sensor_period=sensor_period, name=params.name, device=device,
+                            dtype=dtype)
+        return robot.tree, robot.motors, robot.sensors
     links, joints = _links_and_joints(params)
     b = TreeBuilder()
     carrier = {}  # link → (body index carrying it, 4×4 offset)
@@ -246,7 +300,6 @@ def make_quadruped(
                 b.add_frame(child + "_frame", idx)
             stack.append(child)
 
-    hw = quadruped_hardware(params, sensor_delay, imu_noise, encoder_noise)
     for cname in hw["Global"]["contactFrameNames"]:
         f = frames[cname]
         b.add_contact_point(cname, b.frame_body[f], b.fp[f][:3, 3])
@@ -268,7 +321,7 @@ def make_quadruped(
         device=device,
         dtype=dtype,
     )
-    return tree, motors, SensorSuite.build(tree, _sensor_specs(hw), sensor_period)
+    return tree, motors, SensorSuite.build(tree, sensor_specs(hw), sensor_period)
 
 
 def make_anymal(device="cuda", dtype=torch.float32, sensor_period: float = 0.01,
@@ -287,6 +340,9 @@ def make_spotmicro(device="cuda", dtype=torch.float32, sensor_period: float = 0.
                           **kwargs)
 
 
+STAND_HEIGHT = 0.57  # the reference's nominal base height, m
+
+
 def stand_q(tree: KinematicTree, params: QuadrupedParams = ANYMAL) -> np.ndarray:
     """Nominal standing configuration (freeflyer + 12 joints), numpy f32."""
     q = np.zeros(tree.nq, dtype=np.float32)
@@ -294,6 +350,7 @@ def stand_q(tree: KinematicTree, params: QuadrupedParams = ANYMAL) -> np.ndarray
     q[2] = (
         params.thigh_len * np.cos(hfe)
         + params.shank_len * np.cos(hfe + kfe)
+        + params.foot_radius  # capsule feet ride on their surface point
         + 0.01
     )
     q[6] = 1.0  # identity quaternion (xyzw)

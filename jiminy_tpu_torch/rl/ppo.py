@@ -1,6 +1,6 @@
 """PPO: batched rollouts on the env's device and a clipped-surrogate learner.
 
-Counterpart of ``jiminy_tpu/rl/ppo.py`` on one device. The reference
+Counterpart of ``jiminy_tpu/rl/ppo.py``. The reference
 fuses the rollout (``lax.scan`` over ``env.step``) and the update into one
 jitted ``train_step``; here ``train_step`` runs the same stages eagerly
 on the env's device: the rollout into preallocated (T, B, ...) buffers,
@@ -15,6 +15,16 @@ max_norm, Adam's bias-corrected step divides by sqrt(ν̂) + 1e-5, and with
 ``anneal_lr`` the rate falls linearly to 0 over ``total_iters · epochs ·
 minibatches`` updates, the first update at ``lr`` itself (optax counts
 minibatch updates).
+
+Data-parallel runs (``rl/distributed.py``) give :class:`PPO` an
+``all_mean`` hook, the counterpart of the reference's ``axis``: the mean
+over the ranks of a list of tensors. It averages every minibatch's
+gradients after ``torch.autograd.grad`` and before the clip and Adam (the
+reference's ``pmean`` of the grads, ``ppo.py:262``), and the iteration's
+metrics once at the end (its ``pmean`` of the metrics; the last
+minibatch's aux terms are among them, and the mean of values already
+equal on every rank is those values, so its ``pmean`` of every aux term
+gives the same numbers).
 
 Truncation: envs auto-reset when done but expose the observation of the
 finished step (``info["final_obs"]``), so the TD target bootstraps
@@ -103,10 +113,12 @@ class PPO:
     returns its ``init`` and ``train_step``. The carry is ``(params,
     opt_state, env_state, generator, it)``."""
 
-    def __init__(self, env, cfg: PPOConfig, symmetry_fn: Callable | None = None):
+    def __init__(self, env, cfg: PPOConfig, symmetry_fn: Callable | None = None,
+                 all_mean: Callable | None = None):
         self.env = env
         self.cfg = cfg
         self.symmetry_fn = symmetry_fn
+        self.all_mean = all_mean
         discrete = env.discrete_actions is not None
         act_size = env.discrete_actions if discrete else env.action_size
         self.policy = MLPPolicy(env.observation_size, act_size, discrete=discrete,
@@ -250,6 +262,8 @@ class PPO:
             total, aux = self.loss(params_from_leaves(params, leaves), batch, ent_coef)
             grads = torch.autograd.grad(total, leaves)
         with torch.no_grad():
+            if self.all_mean is not None:
+                grads = self.all_mean(grads)
             params, opt_state = self._apply_grads(params, opt_state, grads)
         return params, opt_state, {k: v.detach() for k, v in aux.items()}
 
@@ -310,6 +324,8 @@ class PPO:
             "episode_done_frac": torch.mean(traj["done"].to(traj["reward"].dtype)),
             **aux,
         }
+        if self.all_mean is not None:
+            metrics = dict(zip(metrics, self.all_mean(list(metrics.values()))))
         return (params, opt_state, states, gen, it + 1), metrics
 
 
@@ -318,7 +334,8 @@ def make_train_fn(env, cfg: PPOConfig, symmetry_fn: Callable | None = None):
     n_envs)`` → carry; ``train_step(carry, noise=None, perms=None)`` →
     (carry, metrics). ``symmetry_fn(obs, action) → (obs_mirrored,
     action_mirrored)``: the robot's mirror; with ``cfg.symmetry_coef > 0``
-    the loss adds symmetry_coef · mean‖π(mirror(obs)) − mirror(π(obs))‖²."""
+    the loss adds symmetry_coef · mean‖π(mirror(obs)) − mirror(π(obs))‖².
+    A data-parallel run goes through ``rl/distributed.py``."""
     ppo = PPO(env, cfg, symmetry_fn)
     return ppo.init, ppo.train_step, ppo.policy
 

@@ -17,7 +17,9 @@
   as its two end spheres, ``add_contact_capsule``, on a free body) on a
   Fourier ground: points, velocities (the rolling lever arm), depths and
   normals against the reference's in float64 within 1e-12.
-- ``shape_for_link`` raises, naming ROADMAP A.20.
+- ``shape_for_link`` on a robot parsed from a URDF (a capsule shin)
+  equals the reference's, and refuses a link without ``<collision>``
+  geometry with the reference's ValueError.
 """
 
 from __future__ import annotations
@@ -240,8 +242,23 @@ def test_pair_rows_match_reference(case, cassie, atlas):
 
 
 def test_shape_for_link_waits_for_the_urdf_parser():
-    with pytest.raises(NotImplementedError, match="A.20"):
-        pc.shape_for_link(object(), "l_shin")
+    """The URDF parser has landed: a capsule shin parses to the
+    reference's shape, and a link without geometry raises as there."""
+    from jiminy_tpu.robot import build_robot as j_build_robot
+    from jiminy_tpu_torch.robot import build_robot
+
+    urdf = """<robot name="leg"><link name="l_shin"><inertial><mass value="1.0"/>
+      <inertia ixx="0.01" iyy="0.01" izz="0.01" ixy="0" ixz="0" iyz="0"/></inertial>
+      <collision><origin xyz="0 0 -0.2" rpy="0.1 0 0"/>
+      <geometry><capsule radius="0.04" length="0.3"/></geometry></collision></link></robot>"""
+    got = pc.shape_for_link(build_robot(urdf, {}, freeflyer=True, device="cpu"), "l_shin")
+    want = jc.shape_for_link(j_build_robot(urdf, {}, freeflyer=True), "l_shin")
+    assert isinstance(got, pc.Capsule) and got.body == want.body == 0
+    np.testing.assert_allclose(np.array([got.p0, got.p1]), np.array([want.p0, want.p1]),
+                               rtol=0, atol=1e-7)
+    assert got.radius == want.radius == pytest.approx(0.04)
+    with pytest.raises(ValueError, match="no parsed <collision> geometry"):
+        pc.shape_for_link(build_robot(urdf, {}, freeflyer=True, device="cpu"), "r_shin")
 
 
 def test_sphere_site_surface_contacts_match_reference():

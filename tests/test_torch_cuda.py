@@ -15,7 +15,9 @@ env against float64, nominal and randomized) and on the Ant's and
 Spotmicro's env paths (one fused launch per env step); and PPO (A.8):
 the learner's update on the card against the CPU's, and one
 ``train_step`` on the main path's env that launches K2 once per rollout
-env step.
+env step; the capsule-foot ANYmal built from its URDF (K2 env by env
+against float64) and the distributed train step at world size 1 over
+NCCL (bit for bit the single-device step).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -243,11 +245,12 @@ def _anymal_engine(dev, fusion=True, solver="substep"):
     return Engine(tree, opts, motors=motors, controller=PDController(80.0, 2.0), device=dev)
 
 
-def _substep_inputs(seed, B, engine):
-    """Perturbed stand poses (feet penetrating, hovering and clear), PD
-    targets, λ0 ≥ 0 and a root wrench, made with numpy."""
+def _substep_inputs(seed, B, engine, stand=None):
+    """Perturbed stand poses (feet penetrating, hovering and clear; around
+    ``stand``, else ANYmal's), PD targets, λ0 ≥ 0 and a root wrench, made
+    with numpy."""
     rng = np.random.default_rng(seed)
-    q = np.tile(stand_q(engine.tree), (B, 1)).astype(np.float64)
+    q = np.tile(stand_q(engine.tree) if stand is None else stand, (B, 1)).astype(np.float64)
     q[:, 7:] += rng.uniform(-0.15, 0.15, (B, 12))
     q[:, 2] += rng.uniform(-0.02, 0.01, B)
     quat = np.concatenate([rng.uniform(-0.05, 0.05, (B, 3)), np.ones((B, 1))], 1)
@@ -2012,3 +2015,76 @@ def test_train_step_launches_k2_once_per_env_step(cuda_device):
     assert all(bool(torch.isfinite(x).all()) for x in param_leaves(carry[0]))
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert carry[4] == 1 and carry[2].obs.shape == (4096, 33)
+
+
+# ---- the URDF builders (A.20) and scale-out (A.18)
+def _capsule_engine(dev, dtype=torch.float32):
+    """The capsule-foot ANYmal (foot_radius 0.02, foot_len 0.08: 8 sphere
+    sites, nc 36) through ``build_robot``, its engine at 5 ms, 8 PGS
+    sweeps, and its stand pose."""
+    import dataclasses
+
+    from jiminy_tpu_torch.engine import Engine, EngineOptions, PDController
+    from jiminy_tpu_torch.models.quadruped import ANYMAL, quadruped_hardware, quadruped_urdf
+    from jiminy_tpu_torch.robot import build_robot
+
+    p = dataclasses.replace(ANYMAL, foot_radius=0.02, foot_len=0.08)
+    robot = build_robot(quadruped_urdf(p), quadruped_hardware(p), freeflyer=True, device=dev,
+                        dtype=dtype)
+    opts = EngineOptions(contact_model="constraint", dt=5e-3, pgs_iters=8,
+                         constraint_solver="substep")
+    return Engine(robot.tree, opts, motors=robot.motors, controller=PDController(80.0, 2.0),
+                  device=dev), stand_q(robot.tree, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sub", [1, 4])
+def test_capsule_feet_k2_matches_plain_version(cuda_device, n_sub):
+    """K2 on the capsule-foot ANYmal (the sphere-site branch at nc 36),
+    env by env against the float64 plain version, at B = 1000."""
+    (eng, stand), (eng64, _) = _capsule_engine(cuda_device), _capsule_engine(cuda_device,
+                                                                             torch.float64)
+    spec = eng.substep_spec
+    assert spec.spheres and spec.nc == 36
+    args = _substep_inputs(46, 1000, eng, stand)
+    out = substep_batched_multi(spec, n_sub, *args)
+    p32 = substep_multi_reference(spec, n_sub, *args)
+    p64 = substep_multi_reference(eng64.substep_spec, n_sub, *[x.double() for x in args])
+    torch.cuda.synchronize()
+    assert float((p64[4][..., 2] != 0).any(1).double().mean()) > 0.5
+    for i, name in ((0, "q"), (1, "v"), (2, "lam"), (4, "impulse")):
+        _assert_env_by_env_vs_f64(f"capsule feet n_sub={n_sub} {name}", out[i], p32[i], p64[i])
+
+
+@pytest.mark.cuda
+def test_distributed_world_size_one_is_bit_identical(cuda_device):
+    """``make_distributed_train`` over NCCL at world size 1: one train
+    step from ``init_fn(0)`` equals the single-device step from
+    ``init_fn(0, B)`` bit for bit (params, Adam's state, metrics) and
+    launches K2 as often, once per rollout env step."""
+    import torch.distributed as dist
+
+    from jiminy_tpu_torch.envs import ANYmalEnv
+    from jiminy_tpu_torch.rl.distributed import make_distributed_train
+    from jiminy_tpu_torch.rl.launch import initialize_cluster
+    from jiminy_tpu_torch.rl.networks import param_leaves
+
+    env = ANYmalEnv(observe="state", max_steps=500, device=cuda_device)
+    ppo = _ppo(env, 1024, 8, 4, 1)
+    initialize_cluster(num_processes=1, process_id=0, backend="nccl")
+    try:
+        init_fn, train_step, _ = make_distributed_train(env, ppo.cfg, symmetry_fn=env.symmetry_fn)
+        outs = []
+        for init, step in ((init_fn, train_step), (lambda s: ppo.init(s, 1024), ppo.train_step)):
+            carry = init(0)
+            torch.cuda.synchronize()
+            before = substep_batched_multi.launches
+            outs.append(step(carry) + (substep_batched_multi.launches - before,))
+    finally:
+        dist.destroy_process_group()
+    (a, ma, na), (b, mb, nb) = outs
+    assert na == nb == 8
+    for x, y in zip(param_leaves(a[0]) + a[1]["mu"] + a[1]["nu"],
+                    param_leaves(b[0]) + b[1]["mu"] + b[1]["nu"]):
+        assert torch.equal(x, y)
+    assert set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma)

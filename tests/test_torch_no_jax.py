@@ -19,15 +19,18 @@ paths, the Atlas humanoid with its self-collision pairs on the state path
 and the fused sensor path, the PRISMATIC cartpole through ``Engine.step``,
 ANYmal on the reference's default penalty contacts (the continuous path)
 and the ``CartPoleEnv``; a step of the declarative ANYmal MDP through
-``mahony``, ``stack:4`` and ``normalize``; then one PPO
+``mahony``, ``stack:4`` and ``normalize``; the ANYmal of
+``data/anymal.urdf`` and its hardware TOML through ``build_robot`` and a
+``WalkerEnv`` step; then one PPO
 ``train_step`` (B = 2, the symmetry loss on) and one ``evaluate`` step on
 the state-observing env. The
 modules that hold kernels, the sensor suite, the grounds, the terrain
 generators, the random processes, the model randomization, the
 constraints, the collision pairs, the registered forces, the steppers,
 the biped, the humanoid, the Ant, the toys, the legged and toy envs, the
-RL modules, the checkpoint, the train and evaluate entry points and the
-declarative layer's modules are named,
+RL modules (the distributed train step and the launcher too), the
+checkpoint, the train and evaluate entry points, the declarative layer's
+modules, the URDF parser, the STL reader and the robot builder are named,
 so a rename cannot drop them from the walk. A second test imports each kernel module
 first in a fresh interpreter: the engine and ops packages import each
 other, and any order must work.
@@ -60,7 +63,9 @@ KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops
                   "jiminy_tpu_torch.envs.cartpole", "jiminy_tpu_torch.envs.acrobot",
                   "jiminy_tpu_torch.envs.blocks", "jiminy_tpu_torch.envs.quantities",
                   "jiminy_tpu_torch.envs.compositions", "jiminy_tpu_torch.envs.pipeline",
-                  "jiminy_tpu_torch.envs.gym_adapter", "jiminy_tpu_torch.envs.registration")
+                  "jiminy_tpu_torch.envs.gym_adapter", "jiminy_tpu_torch.envs.registration",
+                  "jiminy_tpu_torch.io.urdf", "jiminy_tpu_torch.io.stl", "jiminy_tpu_torch.robot",
+                  "jiminy_tpu_torch.rl.distributed", "jiminy_tpu_torch.rl.launch")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -183,6 +188,14 @@ env = build_pipeline(ANYmalEnv(sensor_delay=0.004, reward_fn=r, termination_fn=t
                      [{"type": "mahony"}, {"type": "stack", "n": 4}, {"type": "normalize"}])
 st = env.step(env.reset(torch.Generator().manual_seed(0), 2), torch.zeros(2, 12))
 assert st.obs.shape == (2, 148) and bool(torch.isfinite(st.obs).all())
+from jiminy_tpu_torch.envs.locomotion import WalkerEnv
+from jiminy_tpu_torch.models import stand_q
+from jiminy_tpu_torch.robot import build_robot
+
+robot = build_robot("data/anymal.urdf", "data/anymal_hardware.toml", freeflyer=True, device="cpu")
+env = WalkerEnv(robot, stand_pose=stand_q(robot.tree), observe="state", device="cpu")
+st = env.step(env.reset(torch.Generator().manual_seed(0), 2), torch.zeros(2, 12))
+assert env.engine.nc == 24 and bool(torch.isfinite(st.obs).all())
 leaked = sorted(k for k in sys.modules if k.partition(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK", len(mods))
