@@ -19,7 +19,8 @@ rebuilt on restore.
 - :func:`restore_raw`: without a template, on one device (what
   ``tools/evaluate.py`` reads the params with);
 - :class:`CheckpointManager`: step-indexed files ``<dir>/<step>.pt``,
-  keeping the newest ``max_to_keep``.
+  keeping the newest ``max_to_keep``; ``restore(..., partial=True)``
+  restores the entries that the template and the file share.
 """
 
 from __future__ import annotations
@@ -132,6 +133,16 @@ def _restore_like(template, x, where: str = "state"):
     return x
 
 
+def _restore_partial(template, x, where: str = "state"):
+    """:func:`_restore_like` over the dict entries present in both
+    ``template`` and ``x``; the template's own value where ``x`` lacks
+    one."""
+    if isinstance(template, dict) and isinstance(x, dict) and not (_ENV in x or _WRAP in x):
+        return {k: _restore_partial(v, x[k], f"{where}.{k}") if k in x else v
+                for k, v in template.items()}
+    return _restore_like(template, x, where)
+
+
 def save_checkpoint(path: str | Path, state) -> None:
     """Save ``state`` (e.g. a PPO carry) to the file ``path``, written
     whole or not at all (a temporary file renamed into place)."""
@@ -182,11 +193,24 @@ class CheckpointManager:
         for old in self.steps_in(self.directory)[:-self.max_to_keep]:
             (self.directory / f"{old}.pt").unlink()
 
-    def restore(self, template, step: int | None = None):
+    def restore(self, template, step: int | None = None, partial: bool = False):
+        """The checkpoint of ``step`` (default: the newest) in
+        ``template``'s structure. ``partial=True`` restores only the
+        entries present in both, at any depth, and keeps the template's
+        own elsewhere: a checkpoint written before fields were added or
+        removed still restores."""
         step = self.latest_step if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        return restore_checkpoint(self.directory / f"{int(step)}.pt", template)
+        path = self.directory / f"{int(step)}.pt"
+        if not partial:
+            return restore_checkpoint(path, template)
+        return _restore_partial(template, torch.load(path, map_location="cpu",
+                                                     weights_only=True))
+
+    def close(self) -> None:
+        """Nothing to release: every save is written whole when it
+        returns (kept for the reference's interface)."""
 
     @property
     def latest_step(self) -> int | None:

@@ -2,7 +2,8 @@
 
 Counterpart of ``jiminy_tpu/core/algos.py`` (kinematics, body
 accelerations, RNEA with armature, CRBA, ABA, point and 6-D frame
-Jacobians, the centre of mass, the energy, Lie-group integrate) for FREE, REVOLUTE, PRISMATIC and SPHERICAL joints; a joint's columns
+Jacobians, the centre of mass, the energy, Lie-group integrate and
+difference, the frames' poses) for FREE, REVOLUTE, PRISMATIC and SPHERICAL joints; a joint's columns
 enter every algorithm through its motion subspace alone. The reference
 writes them for one robot and vmaps; here every function takes batched
 ``q (B, nq)``, ``v (B, nv)`` and loops over bodies in Python (the
@@ -21,6 +22,7 @@ from jiminy_tpu_torch.math.spatial import (
     Transform,
     motion_cross,
     motion_cross_force,
+    mtv,
     mv,
 )
 
@@ -98,6 +100,20 @@ def kinematics(tree: KinematicTree, q, v, xl=None):
             xw.append(xw[p].compose(xl[i]))
             vel.append(xl[i].motion_parent_to_child(vel[p]) + vj)
     return xw, vel
+
+
+def frame_kinematics(tree: KinematicTree, xw: list[Transform], vel: list | None = None):
+    """World poses of every operational frame and, with ``vel``, their
+    origins' world linear velocities (B, 3). Returns (poses, velocities or
+    None)."""
+    poses, lvs = [], []
+    for k in range(tree.nf):
+        b = tree.frame_body[k]
+        poses.append(xw[b].compose(tree.frame_placement(k)))
+        if vel is not None:
+            w_l, v_l = vel[b][..., :3], vel[b][..., 3:]
+            lvs.append(mv(xw[b].rot, v_l + so3.cross(w_l, tree.fp_pos[k])))
+    return poses, (lvs if vel is not None else None)
 
 
 def body_accelerations(tree: KinematicTree, q, v, a):
@@ -355,3 +371,24 @@ def integrate(tree: KinematicTree, q, v, dt) -> torch.Tensor:
         elif t == JointType.SPHERICAL:
             out[:, qo:qo + 4] = so3.quat_integrate(q[:, qo:qo + 4], v[:, vo:vo + 3], dt)
     return out
+
+
+def difference(tree: KinematicTree, q1, q2) -> torch.Tensor:
+    """q2 ⊖ q1 in the tangent space (B, nv), the inverse of
+    :func:`integrate` on the manifold: local translation and log of the
+    relative quaternion for FREE joints, the log for SPHERICAL ones, the
+    plain difference elsewhere."""
+    dv = q1.new_zeros(*q1.shape[:-1], tree.nv)
+    for i in range(tree.nb):
+        t = tree.joint_type[i]
+        qo, vo = tree.q_off[i], tree.v_off[i]
+        if t == JointType.FREE:
+            quat1, quat2 = q1[..., qo + 3:qo + 7], q2[..., qo + 3:qo + 7]
+            dv[..., vo:vo + 3] = mtv(so3.quat_to_matrix(quat1), q2[..., qo:qo + 3] - q1[..., qo:qo + 3])
+            dv[..., vo + 3:vo + 6] = so3.quat_log(so3.quat_mul(so3.quat_conj(quat1), quat2))
+        elif t == JointType.SPHERICAL:
+            dv[..., vo:vo + 3] = so3.quat_log(
+                so3.quat_mul(so3.quat_conj(q1[..., qo:qo + 4]), q2[..., qo:qo + 4]))
+        else:
+            dv[..., vo] = q2[..., qo] - q1[..., qo]
+    return dv

@@ -108,6 +108,13 @@ whole-substep kernels, as in the reference. Joint springs (the tree's
 ``stiffness``: −k·q on 1-DoF joints, −k·log(quat) on the SPHERICAL
 flexibility joints) are part of the actuation torque and, on the impulse
 path, integrate implicitly with the joint damping.
+
+The reference's conveniences: :meth:`Engine.get_options` and
+:meth:`Engine.set_options` (which rebuild everything derived from the
+options, so a live env follows them), :meth:`Engine.simulate` (a loop of
+``step`` calls under a controller, the trajectory recorded on the device
+and read once), ``reset()`` at the neutral pose and
+``n_constraint_rows``.
 """
 
 from __future__ import annotations
@@ -217,6 +224,15 @@ class PDController:
         self.kp = kp
         self.kd = kd
 
+    def bind(self, motors: Motors):
+        """The same law as a plain ``fn(cmd, q, v, t=None)`` on (B, ·)
+        tensors, for callers outside the engine's declarative path."""
+        def fn(cmd, q, v, t=None):
+            qm, vm = motors.joint_state(q, v)
+            return self.kp * (cmd - qm) - self.kd * vm
+
+        return fn
+
 
 class Engine:
     """Pure step function of one robot model, batched over envs.
@@ -257,32 +273,46 @@ class Engine:
     ):
         self.device = resolve_device(device)
         self.tree = tree.to(device=self.device)
-        self.options = opts = options or EngineOptions()
+        self.options = options or EngineOptions()
         self.ground = (ground if ground is not None else FlatGround()).to(
             device=self.device, dtype=self.tree.dtype
         )
         self.motors = motors.to(device=self.device) if motors is not None else None
+        # the declarative torque path, as TorqueSpec.from_motors's extra
+        # arguments: (kp, kd) for a PDController, () for a direct motor
+        # command, None for neither (τ computed outside the kernels)
+        self._torque = None
+        if isinstance(controller, PDController):
+            if motors is None:
+                raise ValueError("PDController requires motors")
+            self._torque = (controller.kp, controller.kd)
+            controller = None  # declarative: spec.torque evaluates it
+        elif controller is None and self.motors is not None:
+            self._torque = ()
+        self.controller = controller
+        self.internal_dynamics = internal_dynamics
+        self.constraints = tuple(constraints)
+        self.collision_pairs = tuple(collision_pairs)
+        self.forces = tuple(forces)
+        self._rebuild()
+
+    def _rebuild(self) -> None:
+        """(Re)derive everything that depends on the options: the static
+        substep (row layout, solve configuration, constants), the stepper,
+        the backend, ``nc`` and the sensor-spec cache. ``__init__`` and
+        :meth:`set_options` call it, so changed options never leave a stale
+        spec behind."""
+        opts = self.options
         if opts.solver not in steppers.STEPPERS:
             raise ValueError(f"unknown solver {opts.solver!r}")
         if opts.constraint_solver not in ("auto", "substep", "kernel", "inline"):
             raise ValueError(f"unknown constraint_solver {opts.constraint_solver!r}")
-        self.collision_pairs = tuple(collision_pairs)
         if self.collision_pairs and opts.contact_model != "constraint":
             raise ValueError("collision_pairs require contact_model='constraint' "
                              "(pair impulses resolve in the PGS)")
         torque = None
-        if isinstance(controller, PDController):
-            if motors is None:
-                raise ValueError("PDController requires motors")
-            torque = substep_ops.TorqueSpec.from_motors(self.motors, controller.kp, controller.kd)
-            controller = None  # declarative: spec.torque evaluates it
-        elif controller is None and self.motors is not None:
-            torque = substep_ops.TorqueSpec.from_motors(self.motors)
-        self.controller = controller
-        self.internal_dynamics = internal_dynamics
-        self.constraints = tuple(constraints)
-        self.forces = tuple(forces)
-        # the static substep: row layout, solve configuration, constants
+        if self._torque is not None:
+            torque = substep_ops.TorqueSpec.from_motors(self.motors, *self._torque)
         self.substep_spec = spec = substep_ops.SubstepSpec(
             self.tree, opts, self.ground, motors=self.motors, torque=torque,
             constraints=self.constraints,
@@ -297,7 +327,7 @@ class Engine:
         self._stepper = steppers.STEPPERS[opts.solver]
         # K2 evaluates a declarative torque alone: an internal-dynamics hook
         # keeps the torque outside (K3 with τ given), as in the reference
-        self._fusable = spec.torque is not None and internal_dynamics is None
+        self._fusable = spec.torque is not None and self.internal_dynamics is None
         self.contact_m_eff = None
         if spec.penalty:
             self.contact_m_eff = torch.as_tensor(
@@ -315,6 +345,33 @@ class Engine:
         elif self.backend == "auto":
             self.backend = self.auto_backend(spec, self.device)
         self._sensor_specs: dict = {}
+        self._sensor_ready: dict = {}
+
+    @property
+    def n_constraint_rows(self) -> int:
+        """Rows of the stacked PGS system (kinematic constraints, bounds,
+        ground contacts, pair contacts); 0 on the continuous path. The
+        reference's name for :attr:`nc`."""
+        return self.nc if self.impulse else 0
+
+    def get_options(self) -> dict:
+        """The options as a nested dict (the reference's ``get_options``)."""
+        return dataclasses.asdict(self.options)
+
+    def set_options(self, updates: dict) -> None:
+        """Replace the options named in ``updates`` (a partial dict;
+        ``"contacts"`` a partial dict of its fields) and rebuild what
+        derives from them (the reference's ``set_options``)."""
+        updates = dict(updates)
+        contacts = updates.pop("contacts", None)
+        opts = dataclasses.replace(self.options, **updates)
+        if contacts is not None:
+            cur = dataclasses.asdict(opts.contacts)
+            cur.update(contacts)
+            opts = dataclasses.replace(
+                opts, contacts=ContactParams(**{k: float(x) for k, x in cur.items()}))
+        self.options = opts
+        self._rebuild()
 
     @staticmethod
     def auto_backend(spec: substep_ops.SubstepSpec, device: torch.device) -> str:
@@ -339,8 +396,14 @@ class Engine:
                 "the plain physics on the card"
             ) from e
 
-    def reset(self, q: torch.Tensor, v: torch.Tensor | None = None) -> SimState:
-        """Fresh state at (q, v) for a batch: q (B, nq), v (B, nv)."""
+    def reset(self, q: torch.Tensor | None = None, v: torch.Tensor | None = None,
+              batch_size: int = 1) -> SimState:
+        """Fresh state at (q, v) for a batch: q (B, nq), v (B, nv). With q
+        None, the neutral configuration for ``batch_size`` envs in the
+        tree's dtype (the reference's ``reset()``)."""
+        if q is None:
+            q = torch.as_tensor(self.tree.neutral_q(), dtype=self.tree.dtype,
+                                device=self.device).expand(batch_size, -1).clone()
         q = q.to(device=self.device)
         B, dt_ = q.shape[0], q.dtype
         t = self.tree
@@ -507,11 +570,17 @@ class Engine:
             and self._kernel_ground_ok(ground if ground is not None else self.ground)
         ):
             return False
-        try:
-            self._sensor_spec(suite, k_obs).check_kernel_caps("sensor_fusion_ready")
-        except ValueError:
-            return False
-        return True
+        # the caps' answer per (suite, k_obs), kept until the next rebuild
+        key = (id(suite), int(k_obs))
+        hit = self._sensor_ready.get(key)
+        if hit is None or hit[0] is not suite:
+            try:
+                self._sensor_spec(suite, k_obs).check_kernel_caps("sensor_fusion_ready")
+                ok = True
+            except ValueError:
+                ok = False
+            hit = self._sensor_ready[key] = (suite, ok)
+        return hit[1]
 
     def step_with_sensors(
         self, state: SimState, u: torch.Tensor, n_substeps: int, suite,
@@ -720,3 +789,26 @@ class Engine:
             t=t, q=q, v=v, contact_forces=f_contact, solver_residual=q.new_zeros(1),
             lam=state.lam, a=a, tau=self._joint_torque(u, q, v, t=t),
         ), stats
+
+    def simulate(self, state: SimState, t_end: float, controller=None,
+                 control_dt: float | None = None, ground=None) -> tuple[SimState, dict]:
+        """Run to ``t_end`` under ``controller(q, v, t) → u`` (on (B, ·)
+        tensors; None: a zero command) updated every ``control_dt``
+        (default: every substep), one :meth:`step` per update (the
+        reference's ``simulate``). t, q and v after each step go into
+        preallocated tensors on the engine's device, which reach the host
+        once, at the end. Returns (the final state, {"t" (T, B), "q" (T,
+        B, nq), "v" (T, B, nv)} as numpy arrays)."""
+        dt = self.options.dt
+        n_sub = max(1, round((control_dt or dt) / dt))
+        n_ctrl = max(1, round(t_end / (n_sub * dt)))
+        B = state.q.shape[0]
+        n_cmd = self.motors.nm if self.motors is not None else self.tree.nv
+        log = {"t": state.t.new_empty(n_ctrl, B), "q": state.q.new_empty(n_ctrl, *state.q.shape),
+               "v": state.v.new_empty(n_ctrl, *state.v.shape)}
+        zero = state.q.new_zeros(B, n_cmd)
+        for i in range(n_ctrl):
+            u = controller(state.q, state.v, state.t) if controller is not None else zero
+            state = self.step(state, u, n_substeps=n_sub, ground=ground)
+            log["t"][i], log["q"][i], log["v"][i] = state.t, state.q, state.v
+        return state, {k: x.cpu().numpy() for k, x in log.items()}

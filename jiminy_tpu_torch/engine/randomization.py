@@ -121,6 +121,20 @@ class ModelParams:
         )
 
 
+    def apply_to_motors(self, motors):
+        """``motors`` with each env's parameters (B, nm): the reduction
+        times the gain, the dry and viscous friction times the friction
+        scale; None for None."""
+        if motors is None:
+            return None
+        return dataclasses.replace(
+            motors,
+            reduction=motors.reduction * self.motor_gain,
+            friction_dry=motors.friction_dry * self.motor_friction_scale,
+            friction_viscous=motors.friction_viscous * self.motor_friction_scale,
+        )
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelRandomization:
     """Sampling ranges of :class:`ModelParams`, uniform per episode (the

@@ -175,12 +175,29 @@ class BaseEnv:
             self.observe_dt = float(observe_dt or step_dt)
             self.n_obs_updates = 1
             self.n_substeps_per_obs = self.n_substeps
-        # does the sensor path run the kernel's sensor stage (one launch
-        # per env step) rather than the chunked fallback? Decided once;
-        # setting it False forces the fallback
-        self._fused_sensors = sensors is not None and engine.sensor_fusion_ready(
-            sensors, self.n_substeps, self.n_substeps_per_obs
+        # the opt-out of the kernel's sensor stage: setting _fused_sensors
+        # False forces the chunked fallback
+        self._fused_sensors_enabled = True
+
+    @property
+    def _fused_sensors(self) -> bool:
+        """Does the sensor path run the kernel's sensor stage (one launch
+        per env step) rather than the chunked fallback? Read at every
+        step, so a later ``engine.set_options`` (``substep_fusion``,
+        ``constraint_solver``) takes effect, as in the reference;
+        ``Engine.sensor_fusion_ready`` keeps its answer, so this costs no
+        work per step."""
+        return (
+            self.sensors is not None
+            and self._fused_sensors_enabled
+            and self.engine.sensor_fusion_ready(
+                self.sensors, self.n_substeps, self.n_substeps_per_obs
+            )
         )
+
+    @_fused_sensors.setter
+    def _fused_sensors(self, value: bool) -> None:
+        self._fused_sensors_enabled = bool(value)
 
     def _sample_state(self, generator, batch_size, info):
         raise NotImplementedError

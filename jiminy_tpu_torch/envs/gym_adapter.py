@@ -4,8 +4,8 @@ Counterpart of ``jiminy_tpu/envs/gym_adapter.py``: a thin shell over the
 batched core, a batch of one driven through ``step_no_reset`` (the caller
 resets at the end of an episode, as gymnasium's protocol has it), for
 interactive use and the gymnasium ecosystem. Needs ``gymnasium``
-(``ImportError`` without it). ``render`` waits for the viewers (ROADMAP
-A.19).
+(``ImportError`` without it). ``render`` draws the current state with the
+3-D viewer (:func:`jiminy_tpu_torch.viewer3d.render_env`, PIL).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ def make_gym_env(env, seed: int = 0):
         raise ImportError("gymnasium is not available")
 
     class _Adapter(gymnasium.Env):
-        metadata = {"render_modes": []}
+        metadata = {"render_modes": ["rgb_array"]}
 
         def __init__(self):
             self._env = env
@@ -60,6 +60,10 @@ def make_gym_env(env, seed: int = 0):
                     bool(s.truncated[0]), {})
 
         def render(self):
-            raise NotImplementedError("rendering is not ported yet (ROADMAP A.19: the viewers)")
+            """An rgb_array frame (400, 400, 3) uint8: the shaded 3-D view
+            of the current state on the episode's own ground."""
+            from jiminy_tpu_torch.viewer3d import render_env
+
+            return render_env(self._env, self._state)
 
     return _Adapter()

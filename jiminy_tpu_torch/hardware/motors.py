@@ -97,6 +97,11 @@ class Motors:
         out[:, list(self.v_idx)] = tau_m - fric
         return out
 
+    def command_from_joint(self, tau_joint: torch.Tensor) -> torch.Tensor:
+        """(B, nm) joint-side torques → motor commands (divided by the
+        reduction), for controllers that think joint-side."""
+        return tau_joint / self.reduction
+
     def joint_state(self, q: torch.Tensor, v: torch.Tensor):
         """Motor-ordered joint positions and velocities, (B, nm) each."""
         return q[..., list(self.q_idx)], v[..., list(self.v_idx)]

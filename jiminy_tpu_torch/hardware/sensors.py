@@ -294,6 +294,14 @@ class SensorSuite:
             out[g.type] = m
         return out
 
+    def names(self, typ: str) -> tuple:
+        """The names of the sensors of type ``typ``, in their group's
+        order (empty without such a group)."""
+        for g in self.groups:
+            if g.type == typ:
+                return g.name
+        return ()
+
     def flatten_buffers(self, bufs: tuple) -> torch.Tensor:
         """Ring buffers → (B, n_buf) in [group][sensor][slot][dim] order,
         the kernel's layout."""

@@ -5,7 +5,7 @@ rigid-body algorithms, ``integrate``, the springs of the flexibility
 joints (``quat_log``), the frame constraint's orientation error
 (``log_matrix``), the observations, the sensors and the declarative layer
 (``quat_identity``, ``quat_conj``, ``quat_to_rpy``) and the URDF
-builders (``rpy_to_quat``) use.
+builders (``rpy_to_quat``) use, and ``quat_rotate`` / ``quat_rotate_inv``.
 Quaternions are scalar-last ``(x, y, z, w)`` as in the reference
 (Pinocchio's layout). Every function works on any leading batch shape:
 quaternions are ``(..., 4)``, vectors ``(..., 3)`` and matrices
@@ -56,6 +56,20 @@ def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
     """Conjugate (the inverse of a unit quaternion)."""
     return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``v`` (..., 3) turned by the unit quaternion ``q`` (frame B → A when
+    q is B's orientation in A), by the two-cross-product formula."""
+    t = 2.0 * cross(q[..., :3], v)
+    return v + q[..., 3:] * t + cross(q[..., :3], t)
+
+
+def quat_rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``v`` turned by the inverse of ``q``."""
+    u = -q[..., :3]
+    t = 2.0 * cross(u, v)
+    return v + q[..., 3:] * t + cross(u, t)
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:

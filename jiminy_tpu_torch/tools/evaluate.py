@@ -9,7 +9,8 @@ step; ``tools/train.py --out`` writes them), sizes the policy from them,
 and runs ``rl.evaluate``'s batched greedy rollout on the env that
 ``tools/train.py`` builds for ``--env`` (``--max-steps``, ``--terrain``,
 ``--observe``, ``--sensor-delay``, ``--imu-noise``, ``--encoder-noise``,
-``--self-collision``, ``--mdp`` and ``--pipeline`` as there; a pipeline's
+``--self-collision``, ``--mdp``, ``--pipeline``, ``--solver`` and
+``--fusion`` as there; a pipeline's
 normalization statistics frozen from the checkpointed carry, as
 ``freeze_pipeline_stats`` does). Prints the statistics as JSON. Runs on
 the card unless ``--device cpu``.

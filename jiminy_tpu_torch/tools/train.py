@@ -23,7 +23,12 @@ cassie_flex, atlas (``target_speed=0.3``), ant, spotmicro, with
 and ``--self-collision`` (cassie, atlas); cartpole and acrobot at their
 own defaults (discrete actions, 500 steps an episode), as there.
 ``--mdp declarative`` (anymal only) trains on ``anymal_declarative_mdp``'s
-reward and termination. ``--pipeline`` wraps the env in declarative
+reward and termination. ``--solver`` (``auto``, ``substep``, ``kernel``,
+``inline``, or the reference's ``pallas_substep``, ``pallas``, ``xla``
+for the same three: :data:`SOLVERS`) and ``--fusion`` / ``--no-fusion``
+set the engine's ``constraint_solver`` and ``substep_fusion`` through
+``Engine.set_options`` after the env is built, as ``examples/train.py``
+does. ``--pipeline`` wraps the env in declarative
 layers, comma-separated innermost first (``stack:N``, default N = 4;
 ``mahony``; ``normalize``: e.g. ``mahony,stack:4``, the sensor
 artifacts' recipe); a pipeline trains without the symmetry loss (the
@@ -45,6 +50,13 @@ import time
 import torch
 
 ENVS = ("anymal", "cassie", "cassie_flex", "atlas", "ant", "spotmicro", "cartpole", "acrobot")
+# --solver: the port's backends, and the reference's names for the same ones
+SOLVERS = {
+    "auto": "auto",
+    "substep": "substep", "pallas_substep": "substep",  # the whole-substep kernels (K2, K3)
+    "kernel": "kernel", "pallas": "kernel",  # plain physics around the chain kernel (K1)
+    "inline": "inline", "xla": "inline",  # plain physics, no kernel
+}
 
 
 def make_env(name: str, max_steps: int, terrain=None, push=0.0, observe="state",
@@ -106,15 +118,31 @@ def parse_pipeline(spec: str | None) -> list[dict]:
     return layers
 
 
+def engine_overrides(args) -> dict:
+    """The engine options that ``--solver`` and ``--fusion`` set (the
+    reference's names mapped through :data:`SOLVERS`)."""
+    out = {}
+    if args.solver is not None:
+        out["constraint_solver"] = SOLVERS[args.solver]
+    if args.fusion is not None:
+        out["substep_fusion"] = args.fusion
+    return out
+
+
 def build_env(args, **kw):
     """The env of the parsed shared options (``add_env_args``) and
-    ``make_env``'s other arguments ``kw``, wrapped in its pipeline."""
+    ``make_env``'s other arguments ``kw``, its engine's options set by
+    ``--solver`` and ``--fusion`` (``Engine.set_options``), wrapped in its
+    pipeline."""
     from jiminy_tpu_torch.envs import build_pipeline
 
     env = make_env(args.env, args.max_steps, terrain=args.terrain, observe=args.observe,
                    sensor_delay=args.sensor_delay, imu_noise=args.imu_noise,
                    encoder_noise=args.encoder_noise, self_collision=args.self_collision,
                    mdp=args.mdp, device=args.device, **kw)
+    overrides = engine_overrides(args)
+    if overrides:
+        env.engine.set_options(overrides)
     return build_pipeline(env, parse_pipeline(args.pipeline))
 
 
@@ -138,6 +166,12 @@ def add_env_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--pipeline", default=None,
                     help="declarative wrapper layers, innermost first, e.g. 'mahony,stack:4' "
                     "or 'stack:4,normalize'")
+    ap.add_argument("--solver", default=None, choices=list(SOLVERS),
+                    help="the engine's constraint_solver (default: the env's, 'auto'); the "
+                    "reference's pallas_substep, pallas and xla name substep, kernel, inline")
+    ap.add_argument("--fusion", action=argparse.BooleanOptionalAction, default=None,
+                    help="EngineOptions.substep_fusion: every substep of an env step in one "
+                    "K2 launch (the default), or --no-fusion for one K3 launch per substep")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 

@@ -1,10 +1,10 @@
-"""Host-side random processes: the PCG32 generator and table-based Perlin
-noise.
+"""Host-side random processes: the PCG32 generator, table-based Perlin
+noise and two periodic processes.
 
-Counterpart of ``PCG32`` and ``PerlinNoise`` in
-``jiminy_tpu/utils/random.py`` (numpy only, so the port keeps its own
-copy): a bit-exact PCG-XSH-RR 32-bit generator and 1/2/3-D gradient noise
-with a PCG32-seeded permutation table. ``engine.terrain.perlin_ground``
+Counterpart of ``jiminy_tpu/utils/random.py`` (numpy only, so the port
+keeps its own copy): a bit-exact PCG-XSH-RR 32-bit generator, 1/2/3-D
+gradient noise with a PCG32-seeded permutation table, and the periodic
+Gaussian and Fourier processes drawn from PCG32. ``engine.terrain.perlin_ground``
 draws its heightmap grids with them at env-build time, off the hot path,
 so a seed gives the same terrain in both packages to the bit.
 """
@@ -152,3 +152,44 @@ class PerlinNoise:
             amp *= persistence
             freq *= lacunarity
         return out / norm
+
+
+class PeriodicGaussianProcess:
+    """A stationary periodic Gaussian process f(t) of unit variance with a
+    squared-exponential kernel on the circle, sampled through its Fourier
+    spectrum (exact for a periodic kernel): ``wavelength`` is the
+    correlation length, ``period`` T."""
+
+    def __init__(self, seed: int, wavelength: float, period: float, num_harmonics: int = 32):
+        rng = PCG32(seed)
+        self.period = period
+        k = np.arange(1, num_harmonics + 1)
+        # the periodic SE kernel's spectrum ∝ exp(−2 (π k ℓ / T)²)
+        spec = np.exp(-2.0 * (np.pi * k * wavelength / period) ** 2)
+        std = np.sqrt(spec / max(spec.sum(), 1e-12))
+        self.a = rng.normal_vec(num_harmonics) * std
+        self.b = rng.normal_vec(num_harmonics) * std
+        self.k = k
+
+    def __call__(self, t) -> np.ndarray:
+        t = np.asarray(t, np.float64)
+        phase = np.multiply.outer(t, 2.0 * np.pi * self.k / self.period)
+        return np.cos(phase) @ self.a + np.sin(phase) @ self.b
+
+
+class PeriodicFourierProcess:
+    """A random Fourier series with a flat spectrum up to
+    ``num_harmonics``."""
+
+    def __init__(self, seed: int, period: float, num_harmonics: int = 8):
+        rng = PCG32(seed)
+        self.period = period
+        self.k = np.arange(1, num_harmonics + 1)
+        scale = 1.0 / np.sqrt(num_harmonics)
+        self.a = rng.normal_vec(num_harmonics) * scale
+        self.b = rng.normal_vec(num_harmonics) * scale
+
+    def __call__(self, t) -> np.ndarray:
+        t = np.asarray(t, np.float64)
+        phase = np.multiply.outer(t, 2.0 * np.pi * self.k / self.period)
+        return np.cos(phase) @ self.a + np.sin(phase) @ self.b

@@ -17,7 +17,9 @@ the learner's update on the card against the CPU's, and one
 ``train_step`` on the main path's env that launches K2 once per rollout
 env step; the capsule-foot ANYmal built from its URDF (K2 env by env
 against float64) and the distributed train step at world size 1 over
-NCCL (bit for bit the single-device step).
+NCCL (bit for bit the single-device step); the convenience layer (A.19):
+the Simulator's K2 launches and its log's round trip, ``set_options``
+rerouting a live sensor env, PCG32 and the parity mode on the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -2088,3 +2090,114 @@ def test_distributed_world_size_one_is_bit_identical(cuda_device):
                     param_leaves(b[0]) + b[1]["mu"] + b[1]["nu"]):
         assert torch.equal(x, y)
     assert set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma)
+
+
+# ---- the convenience layer (A.19)
+def _counts():
+    return (solve_batched.launches, substep_batched.launches, substep_batched_multi.launches,
+            substep_batched_multi.sensor_launches)
+
+
+def _launched(before):
+    torch.cuda.synchronize()
+    return tuple(a - b for a, b in zip(_counts(), before))
+
+
+@pytest.mark.cuda
+def test_simulator_runs_k2_and_its_log_rebuilds(cuda_device, tmp_path):
+    """``Simulator.simulate`` of ANYmal built from its URDF at B = 1: one
+    K2 launch per engine step and no other; the log read back bit for
+    bit, the robot rebuilt from it simulates the same log bit for bit;
+    ``simulate_batch`` at B = 64 bit for bit the hand-written loop of
+    ``Engine.step``, one K2 launch per control step."""
+    from jiminy_tpu_torch.engine import EngineOptions
+    from jiminy_tpu_torch.io.serialization import build_robot_from_log
+    from jiminy_tpu_torch.simulator import Simulator
+    from jiminy_tpu_torch.telemetry import TelemetryLog
+
+    opts = EngineOptions(dt=2.5e-3, contact_model="constraint", pgs_iters=8)
+    sim = Simulator.build("data/anymal.urdf", "data/anymal_hardware.toml", freeflyer=True,
+                          options=opts, device=cuda_device)
+    q0 = torch.as_tensor(stand_q(sim.tree), device=cuda_device)
+    tgt = q0[None, list(sim.robot.motors.q_idx)]
+
+    def pd(q, v, t):
+        qm, vm = sim.robot.motors.joint_state(q, v)
+        return 80.0 * (tgt - qm) - 2.0 * vm
+
+    torch.cuda.synchronize()
+    before = _counts()
+    _, log = sim.simulate(0.1, q0=q0, controller=pd)
+    assert _launched(before) == (0, 0, 40, 0) and len(log) == 40
+    log.write_binary(tmp_path / "run.jtpu")
+    back = TelemetryLog.read_binary(tmp_path / "run.jtpu")
+    assert all(np.array_equal(back.columns[k], c) for k, c in log.columns.items())
+    sim2 = Simulator(build_robot_from_log(back, device=cuda_device), options=opts,
+                     device=cuda_device)
+    _, log2 = sim2.simulate(0.1, q0=q0, controller=pd)
+    assert all(np.array_equal(log2.columns[k], c) for k, c in log.columns.items())
+    sim.engine.set_options({"dt": 5e-3})
+    qb = q0.repeat(64, 1)
+    qb[:, 7:] += 0.05 * torch.rand(64, 12, generator=torch.Generator(device=cuda_device)
+                                   .manual_seed(0), device=cuda_device)
+    vb = torch.zeros(64, sim.tree.nv, device=cuda_device)
+    before = _counts()
+    fin = sim.simulate_batch(0.2, qb, vb, controller=pd, control_dt=0.02)
+    assert _launched(before) == (0, 0, 10, 0)
+    st = sim.engine.reset(qb, vb)
+    for _ in range(10):
+        st = sim.engine.step(st, pd(st.q, st.v, st.t), n_substeps=4)
+    for f in ("q", "v", "lam"):
+        assert torch.equal(getattr(st, f), getattr(fin, f)), f
+
+
+@pytest.mark.cuda
+def test_set_options_reroutes_the_sensor_env(cuda_device):
+    """``engine.set_options({"substep_fusion": False})`` on a live sensor
+    env: its next step runs the chunked path (K3 × 4, no sensor K2); with
+    fusion on again, one K2 with the sensor stage. ``pgs_iters`` 16 on the
+    state env steps bit for bit as a freshly built engine."""
+    from jiminy_tpu_torch.envs import ANYmalEnv
+
+    env = ANYmalEnv(observe="sensors", sensor_delay=0.004, device=cuda_device)
+    st = env.reset(torch.Generator(device=cuda_device).manual_seed(0), 256)
+    a = torch.zeros(256, 12, device=cuda_device)
+    env.engine.set_options({"substep_fusion": False})
+    before = _counts()
+    st = env.step(st, a)
+    assert not env._fused_sensors and _launched(before) == (0, 4, 0, 0)
+    env.engine.set_options({"substep_fusion": True})
+    before = _counts()
+    st = env.step(st, a)
+    assert env._fused_sensors and _launched(before) == (0, 0, 0, 1)
+    state_env = ANYmalEnv(observe="state", device=cuda_device)
+    fresh = ANYmalEnv(observe="state", pgs_iters=16, device=cuda_device).engine
+    state_env.engine.set_options({"pgs_iters": 16})
+    s0 = state_env.reset(torch.Generator(device=cuda_device).manual_seed(1), 256).sim
+    u = state_env._action_to_command(a, s0)
+    x, y = state_env.engine.step(s0, u, n_substeps=4), fresh.step(s0, u, n_substeps=4)
+    for f in ("q", "v", "lam"):
+        assert torch.equal(getattr(x, f), getattr(y, f)), f
+
+
+@pytest.mark.cuda
+def test_pcg32_and_parity_on_the_card(cuda_device):
+    """PCG32 on the card bit for bit the CPU's; ``parity.compare`` of a
+    fixture in float64 on the card within 1e-9 of the CPU's report."""
+    from jiminy_tpu_torch import parity
+    from jiminy_tpu_torch.utils.pcg_torch import pcg32_init, pcg32_next
+
+    seeds = torch.arange(1000, dtype=torch.int64)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        st, xs = pcg32_init(seeds.to(dev), device=dev), []
+        for _ in range(8):
+            st, x = pcg32_next(st)
+            xs.append(x.cpu())
+        outs.append(torch.stack(xs))
+    assert torch.equal(*outs)
+    card = parity.compare("parity/fixtures/ball_drop_impact", device=cuda_device)
+    cpu = parity.compare("parity/fixtures/ball_drop_impact", device="cpu")
+    assert card.ok and cpu.ok and card.device.startswith("cuda")
+    assert abs(card.max_drift_q - cpu.max_drift_q) <= 1e-9
+    assert abs(card.max_drift_v - cpu.max_drift_v) <= 1e-9

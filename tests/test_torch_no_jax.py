@@ -21,7 +21,9 @@ ANYmal on the reference's default penalty contacts (the continuous path)
 and the ``CartPoleEnv``; a step of the declarative ANYmal MDP through
 ``mahony``, ``stack:4`` and ``normalize``; the ANYmal of
 ``data/anymal.urdf`` and its hardware TOML through ``build_robot`` and a
-``WalkerEnv`` step; then one PPO
+``WalkerEnv`` step, and through the ``Simulator`` (a log written, read,
+its robot rebuilt, an HTML report, a rendered frame), a PCG32 draw; then
+one PPO
 ``train_step`` (B = 2, the symmetry loss on) and one ``evaluate`` step on
 the state-observing env. The
 modules that hold kernels, the sensor suite, the grounds, the terrain
@@ -65,7 +67,12 @@ KERNEL_MODULES = ("jiminy_tpu_torch.ops.constraint_solve", "jiminy_tpu_torch.ops
                   "jiminy_tpu_torch.envs.compositions", "jiminy_tpu_torch.envs.pipeline",
                   "jiminy_tpu_torch.envs.gym_adapter", "jiminy_tpu_torch.envs.registration",
                   "jiminy_tpu_torch.io.urdf", "jiminy_tpu_torch.io.stl", "jiminy_tpu_torch.robot",
-                  "jiminy_tpu_torch.rl.distributed", "jiminy_tpu_torch.rl.launch")
+                  "jiminy_tpu_torch.rl.distributed", "jiminy_tpu_torch.rl.launch",
+                  "jiminy_tpu_torch.simulator", "jiminy_tpu_torch.telemetry",
+                  "jiminy_tpu_torch.dynamics", "jiminy_tpu_torch.io.serialization",
+                  "jiminy_tpu_torch.utils.health", "jiminy_tpu_torch.utils.pcg_torch",
+                  "jiminy_tpu_torch.plot", "jiminy_tpu_torch.viewer", "jiminy_tpu_torch.viewer3d",
+                  "jiminy_tpu_torch.parity")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -196,6 +203,25 @@ robot = build_robot("data/anymal.urdf", "data/anymal_hardware.toml", freeflyer=T
 env = WalkerEnv(robot, stand_pose=stand_q(robot.tree), observe="state", device="cpu")
 st = env.step(env.reset(torch.Generator().manual_seed(0), 2), torch.zeros(2, 12))
 assert env.engine.nc == 24 and bool(torch.isfinite(st.obs).all())
+import tempfile
+from pathlib import Path
+
+from jiminy_tpu_torch.io.serialization import build_robot_from_log
+from jiminy_tpu_torch.plot import export_html
+from jiminy_tpu_torch.simulator import Simulator
+from jiminy_tpu_torch.telemetry import read_log
+from jiminy_tpu_torch.utils.pcg_torch import pcg32_init, pcg32_next
+
+sim = Simulator(robot, EngineOptions(dt=5e-3, contact_model="constraint", pgs_iters=8),
+                device="cpu")
+final, log = sim.simulate(0.01, q0=stand_q(robot.tree))
+with tempfile.TemporaryDirectory() as d:
+    log.write_binary(Path(d) / "run.jtpu")
+    back = read_log(Path(d) / "run.jtpu")
+    export_html(back, Path(d) / "report.html")
+assert len(back) == 2 and build_robot_from_log(back, device="cpu").tree.nq == 19
+assert sim.render(size=64).shape == (64, 64, 3)
+assert int(pcg32_next(pcg32_init(42, device="cpu"))[1]) >= 0
 leaked = sorted(k for k in sys.modules if k.partition(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK", len(mods))

@@ -419,8 +419,8 @@ def test_gym_adapter_and_registry():
     for _ in range(3):
         obs, reward, terminated, truncated, info = env.step(env.action_space.sample())
     assert obs.shape == (4,) and reward == 1.0 and not (terminated or truncated)
-    with pytest.raises(NotImplementedError, match="A.19"):
-        env.unwrapped.render()
+    frame = env.unwrapped.render()  # the viewer's shaded frame of the current state
+    assert frame.shape == (400, 400, 3) and frame.dtype == np.uint8 and frame.std() > 0
     walker = make_gym_env(build_pipeline(CartPoleEnv(continuous=True, device="cpu"),
                                          [{"type": "stack", "n": 2}]))
     assert walker.action_space.shape == (1,) and walker.observation_space.shape == (8,)
