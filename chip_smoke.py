@@ -365,9 +365,14 @@ the pendulum against the CPU's counters, and the reference's
      from the same init bit for bit the single-device one (params, Adam's
      moments and count, metrics), 32 K2 launches each; both iterations'
      times in turns; ``dryrun_multichip(1, realistic=True)``; then two
-     ranks over gloo on this card (``launch_cpu_ring``, B = 1024 per rank,
-     2 iterations): the ranks' params bit-identical, 32 K2 launches per
-     rank per iteration;
+     ranks over gloo on this card (``launch_cpu_ring``, B = 1024 per rank)
+     run 4 iterations, saving a checkpoint through ``CheckpointManager``
+     after the second, and print a digest of each rank's whole carry
+     (params, Adam's moments and count, its env state, both generators)
+     and metrics; two fresh ranks restore the checkpoint, run 2
+     iterations and print theirs: the digests bit-identical rank by rank,
+     the ranks' params bit-identical, 32 K2 launches per rank per
+     iteration, ``restore_raw`` in this process 2 × 1024 env rows;
    - K2's time, plain time and bound on the URDF ANYmal and on the
      capsule feet (``urdf_anymal_substep_multi``,
      ``capsule_feet_substep_multi`` in the kernels line).
@@ -398,6 +403,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -4522,6 +4528,7 @@ RING_CFG = dict(rollout_len=32, minibatches=8, epochs=4, hidden=(256, 256), lr=3
                 ent_coef=0.005, symmetry_coef=0.1, anneal_lr=True, total_iters=PPO_TOTAL_ITERS)
 RING_WORKER = """
 import hashlib, json, time
+from jiminy_tpu_torch.checkpoint import CheckpointManager
 from jiminy_tpu_torch.envs import ANYmalEnv
 from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi
 from jiminy_tpu_torch.rl import PPOConfig
@@ -4531,21 +4538,57 @@ from jiminy_tpu_torch.rl.networks import param_leaves
 env = ANYmalEnv(observe="state", max_steps=500, device="cuda")
 init_fn, train_step, _ = make_distributed_train(env, PPOConfig(**{cfg}),
                                                 symmetry_fn=env.symmetry_fn)
-carry = init_fn(0)
+mgr = CheckpointManager({ckpt!r})
+carry = init_fn(0) if {mode!r} == "save" else mgr.restore(init_fn(0))
 launches, seconds = [], []
-for _ in range({iters}):
+for i in range({iters}):
+    if {mode!r} == "save" and i == {iters} // 2:
+        mgr.save(i, carry)
     torch.cuda.synchronize()
     before, t0 = substep_batched_multi.launches, time.perf_counter()
     carry, metrics = train_step(carry)
     torch.cuda.synchronize()
     seconds.append(time.perf_counter() - t0)
     launches.append(substep_batched_multi.launches - before)
-flat = torch.cat([x.reshape(-1) for x in param_leaves(carry[0])]).cpu().numpy()
-print("RING " + json.dumps({{"rank": dist.get_rank(), "batch": carry[2].obs.shape[0],
-                            "launches": launches, "seconds": seconds,
-                            "params_sha256": hashlib.sha256(flat.tobytes()).hexdigest(),
+
+
+def sha(tensors):
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+params, opt, st, gen, it = carry
+digest = {{
+    "params": sha(param_leaves(params)),
+    "adam": sha([opt["count"], *opt["mu"], *opt["nu"]]),
+    "env": sha([getattr(st.sim, k) for k in st.sim.FIELDS]
+               + [st.obs, st.reward, st.terminated, st.truncated, st.steps]
+               + [st.info[k] for k in sorted(st.info)]),
+    "generators": sha([st.generator.get_state(), gen.get_state()]),
+    "metrics": sha([metrics[k] for k in sorted(metrics)]),
+    "iteration": it,
+}}
+print("RING " + json.dumps({{"rank": dist.get_rank(), "batch": st.obs.shape[0],
+                            "launches": launches, "seconds": seconds, "digest": digest,
                             "reward_mean": float(metrics["reward_mean"])}}), flush=True)
 """
+
+
+def _ring(mode, cfg, ckpt, iters) -> tuple[list, float]:
+    """One ring of 2 gloo ranks running ``RING_WORKER``: each rank's
+    report, rank order, and the ring's seconds with its processes' start."""
+    from jiminy_tpu_torch.rl.launch import launch_cpu_ring
+
+    t0 = time.perf_counter()
+    logs = launch_cpu_ring(2, RING_WORKER.format(cfg=repr(cfg), iters=iters, mode=mode,
+                                                 ckpt=str(ckpt)), timeout=600)
+    ring = sorted((json.loads(line[5:]) for log in logs for line in log.splitlines()
+                   if line.startswith("RING ")), key=lambda r: r["rank"])
+    if [r["rank"] for r in ring] != [0, 1]:
+        raise AssertionError(f"the {mode} ring reported {ring}")
+    return ring, time.perf_counter() - t0
 
 
 def _capsule_robot(dev, dtype=torch.float32):
@@ -4673,6 +4716,7 @@ def phase_urdf_and_scaleout(dev, drive, entry, main_err, path) -> dict:
 
     import torch.distributed as dist
 
+    from jiminy_tpu_torch.checkpoint import restore_raw
     from jiminy_tpu_torch.envs import ANYmalEnv
     from jiminy_tpu_torch.envs.locomotion import WalkerEnv
     from jiminy_tpu_torch.models.humanoid import atlas_stand_q
@@ -4680,7 +4724,7 @@ def phase_urdf_and_scaleout(dev, drive, entry, main_err, path) -> dict:
     from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi, substep_multi_reference
     from jiminy_tpu_torch.rl import PPOConfig
     from jiminy_tpu_torch.rl.distributed import make_distributed_train
-    from jiminy_tpu_torch.rl.launch import dryrun_multichip, initialize_cluster, launch_cpu_ring
+    from jiminy_tpu_torch.rl.launch import dryrun_multichip, initialize_cluster
     from jiminy_tpu_torch.rl.ppo import PPO
     from jiminy_tpu_torch.robot import build_robot
 
@@ -4825,23 +4869,36 @@ def phase_urdf_and_scaleout(dev, drive, entry, main_err, path) -> dict:
             _time_cuda(lambda: substep_multi_reference(spec, n_sub, *args), 3),
             _substep_multi_bytes(spec, B_MAIN), ops,
         )
-    # ---- two ranks over gloo on this card
+    # ---- two ranks over gloo on this card: 4 iterations, a checkpoint
+    # after the second; fresh ranks restore it and run the last 2
     ring_cfg = dict(RING_CFG, num_envs=PPO_B)
-    t0 = time.perf_counter()
-    logs = launch_cpu_ring(2, RING_WORKER.format(cfg=repr(ring_cfg), iters=2), timeout=600)
-    ring = [json.loads(line[5:]) for log in logs for line in log.splitlines()
-            if line.startswith("RING ")]
-    print(f"[phase 6] 2 ranks over gloo on this card ({time.perf_counter() - t0:.1f} s with "
-          f"the processes' start): {json.dumps(ring)}")
-    if sorted(r["rank"] for r in ring) != [0, 1]:
-        raise AssertionError(f"the ring reported {ring}")
-    if ring[0]["params_sha256"] != ring[1]["params_sha256"]:
-        raise AssertionError("the two ranks' params differ after 2 iterations")
-    for r in ring:
-        if r["batch"] != PPO_B // 2 or r["launches"] != [cfg.rollout_len] * 2:
+    with tempfile.TemporaryDirectory() as ckpt:
+        ring, sec = _ring("save", ring_cfg, ckpt, 4)
+        print(f"[phase 6] 2 ranks over gloo on this card, 4 iterations with a checkpoint after "
+              f"the second ({sec:.1f} s with the processes' start): {json.dumps(ring)}")
+        resumed, sec = _ring("restore", ring_cfg, ckpt, 2)
+        print(f"[phase 6] 2 fresh ranks restore the checkpoint and run 2 iterations: "
+              f"{sec:.1f} s with the processes' start: {json.dumps(resumed)}")
+        raw = restore_raw(ckpt, device=dev)
+    if ring[0]["digest"]["params"] != ring[1]["digest"]["params"]:
+        raise AssertionError("the two ranks' params differ after 4 iterations")
+    for r, (a, b) in enumerate(zip(ring, resumed)):
+        same = {k: a["digest"][k] == b["digest"][k] for k in a["digest"]}
+        print(f"[phase 6] rank {r}: the restarted run against the uninterrupted one, "
+              f"bit-identical {json.dumps(same)}")
+        if not all(same.values()):
+            raise AssertionError(f"rank {r}: the restarted run differs: {same}")
+    for r in ring + resumed:
+        if r["batch"] != PPO_B // 2 or r["launches"] != [cfg.rollout_len] * len(r["launches"]):
             raise AssertionError(f"rank {r['rank']}: batch {r['batch']}, K2 launches "
                                  f"{r['launches']}")
-    out["ring"] = ring
+    rows = raw[2].obs.shape[0]
+    print(f"[phase 6] restore_raw of the 2-rank checkpoint in this process: {rows} env rows, "
+          f"{len(raw[3])} run generators, iteration {raw[4]}")
+    if rows != PPO_B or len(raw[3]) != 2 or raw[4] != 2:
+        raise AssertionError(f"restore_raw: {rows} rows, {len(raw[3])} generators, iteration "
+                             f"{raw[4]}")
+    out["ring"], out["restart_ring"], out["restart_seconds"] = ring, resumed, sec
     return out
 
 

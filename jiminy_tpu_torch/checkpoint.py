@@ -21,14 +21,34 @@ rebuilt on restore.
 - :class:`CheckpointManager`: step-indexed files ``<dir>/<step>.pt``,
   keeping the newest ``max_to_keep``; ``restore(..., partial=True)``
   restores the entries that the template and the file share.
+
+Across ranks (``torch.distributed`` initialised, world size W > 1) every
+function and method here is collective: every rank calls it, and rank 0
+alone touches the file system. A save gathers the ranks' carries to rank
+0, which writes one checkpoint of the global carry, as the reference's
+Orbax checkpoint holds its sharded arrays: the replicated leaves once
+(they must be bit-identical on every rank: params, Adam's state, the
+iteration), the env-state rows of every rank in rank order (every tensor
+of one dim or more inside an ``EnvState`` or ``WrapperState``, the rows
+that ``rl/distributed.py`` gives each rank; every rank holds as many),
+every rank's generators in rank order, and W. A restore at W gives each
+rank its own rows and generators back; at another world size it raises
+``ValueError`` (per-rank generators cannot be re-sharded the way the
+reference's replicated key can). :func:`restore_raw` of such a
+checkpoint returns the global carry, each generator a list of the ranks'
+generators. A failure on any rank raises on every rank, and a save is
+listed and restored only once it is whole. Without a group, or at world
+size 1, a checkpoint is the carry alone, as before.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from jiminy_tpu_torch.engine.engine import SimState
 from jiminy_tpu_torch.envs.base import EnvState
@@ -37,6 +57,8 @@ from jiminy_tpu_torch.envs.pipeline import WrapperState
 _ENV = "__env_state__"
 _WRAP = "__wrapper_state__"
 _GEN = "__generator__"
+_RANKS = "__ranks__"  # a checkpoint of W > 1 ranks: {_RANKS: W, "state": the global carry}
+_PER_RANK = "__per_rank__"  # every rank's generator, in rank order
 _ENV_FIELDS = ("obs", "reward", "terminated", "truncated", "steps")
 _WRAP_FIELDS = ("inner", "layer", "obs", "info")
 
@@ -79,6 +101,8 @@ def _decode(x, device: torch.device):
         if torch.device(x[_GEN]).type != device.type:
             return x
         return _generator(x["state"], device)
+    if isinstance(x, dict) and _PER_RANK in x:
+        return [_decode(g, device) for g in x[_PER_RANK]]
     if isinstance(x, dict) and _ENV in x:
         d = x[_ENV]
         return EnvState(
@@ -143,55 +167,206 @@ def _restore_partial(template, x, where: str = "state"):
     return _restore_like(template, x, where)
 
 
+def _world() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _portable(e: Exception) -> Exception:
+    """``e``, or a RuntimeError naming it where ``e`` cannot be pickled to
+    the other ranks."""
+    try:
+        pickle.dumps(e)
+        return e
+    except Exception:
+        return RuntimeError(f"{type(e).__name__}: {e}")
+
+
+def _on_rank0(fn, scatter: bool = False):
+    """``fn()`` on rank 0 of W > 1 ranks (on the one process otherwise);
+    its result on every rank, or, with ``scatter``, item r of its result
+    on rank r. The exception it raises, raised on every rank."""
+    if _world() == 1:
+        return fn()[0] if scatter else fn()
+    ok, value = True, None
+    if dist.get_rank() == 0:
+        try:
+            value = fn()
+        except Exception as e:  # raised below on every rank, rank 0 included
+            ok, value = False, _portable(e)
+    box = [(ok, value if not (ok and scatter) else None)]
+    dist.broadcast_object_list(box, src=0)
+    ok, shared = box[0]
+    if not ok:
+        raise shared
+    if not scatter:
+        return shared
+    mine = [None]
+    dist.scatter_object_list(mine, value if dist.get_rank() == 0 else None, src=0)
+    return mine[0]
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-identical (NaNs included)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def _merge(parts: list, rows: bool = False, where: str = "state"):
+    """The ranks' stored forms → the global carry's (see the module
+    docstring); raises ValueError where a replicated leaf differs between
+    ranks or the ranks' rows differ in shape."""
+    x = parts[0]
+    if isinstance(x, torch.Tensor):
+        if rows and x.dim():
+            if any(p.shape != x.shape for p in parts):
+                raise ValueError(f"checkpoint {where}: the ranks hold rows of shapes "
+                                 f"{[tuple(p.shape) for p in parts]}, not one shape")
+            return torch.cat(parts)
+        if not all(_same(p, x) for p in parts):
+            raise ValueError(f"checkpoint {where}: differs between ranks, where only env-state "
+                             f"rows and generators may")
+        return x
+    if isinstance(x, dict) and _GEN in x:
+        return {_PER_RANK: parts}
+    if isinstance(x, dict):
+        if any(set(p) != set(x) for p in parts):
+            raise ValueError(f"checkpoint {where}: the ranks' keys differ")
+        return {k: _merge([p[k] for p in parts], rows or k in (_ENV, _WRAP), f"{where}.{k}")
+                for k in x}
+    if isinstance(x, (list, tuple)):
+        if any(len(p) != len(x) for p in parts):
+            raise ValueError(f"checkpoint {where}: the ranks' lengths differ")
+        return type(x)(_merge([p[i] for p in parts], rows, f"{where}[{i}]")
+                       for i in range(len(x)))
+    if any(p != x for p in parts):
+        raise ValueError(f"checkpoint {where}: {parts} differs between ranks")
+    return x
+
+
+def _split(x, rank: int, world: int, rows: bool = False):
+    """Rank ``rank``'s part of the global carry's stored form ``x``."""
+    if isinstance(x, torch.Tensor):
+        if rows and x.dim():
+            n = x.shape[0] // world
+            return x[rank * n:(rank + 1) * n].clone()  # pickled alone, not with every row
+        return x
+    if isinstance(x, dict) and _PER_RANK in x:
+        return x[_PER_RANK][rank]
+    if isinstance(x, dict):
+        return {k: _split(v, rank, world, rows or k in (_ENV, _WRAP)) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_split(v, rank, world, rows) for v in x)
+    return x
+
+
+def _load(path: Path):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _parts(path: Path, world: int) -> list:
+    """Each of ``world`` ranks' stored form of the checkpoint at ``path``;
+    ValueError unless it was saved at that world size."""
+    x = _load(path)
+    saved = x[_RANKS] if isinstance(x, dict) and _RANKS in x else 1
+    if saved != world:
+        raise ValueError(f"checkpoint {path} was saved by {saved} ranks and cannot be restored "
+                         f"at world size {world}: each rank's generators are its own")
+    return [x] if world == 1 else [_split(x["state"], r, world) for r in range(world)]
+
+
+def _write(path: Path, obj) -> None:
+    """``obj`` to ``path``, whole or not at all: a temporary file of this
+    process renamed into place."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    try:
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
 def save_checkpoint(path: str | Path, state) -> None:
     """Save ``state`` (e.g. a PPO carry) to the file ``path``, written
-    whole or not at all (a temporary file renamed into place)."""
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(path.name + ".tmp")
-    torch.save(_encode(state), tmp)
-    os.replace(tmp, path)
+    whole or not at all. Across ranks every rank calls it with its own
+    carry, and the file holds the global one (the module docstring)."""
+    path, world = Path(path), _world()
+    if world == 1:
+        _write(path, _encode(state))
+        return
+    try:
+        mine = _encode(state)
+    except Exception as e:  # the other ranks must not wait for this rank's part
+        mine = _portable(e)
+    parts = [None] * world if dist.get_rank() == 0 else None
+    dist.gather_object(mine, parts, dst=0)
+
+    def write():
+        for r, p in enumerate(parts):
+            if isinstance(p, Exception):
+                raise RuntimeError(f"checkpoint {path}: rank {r} failed: {type(p).__name__}: {p}")
+        _write(path, {_RANKS: world, "state": _merge(parts)})
+
+    _on_rank0(write)
 
 
 def restore_checkpoint(path: str | Path, template):
     """The state saved at ``path``, in ``template``'s structure and on its
-    devices."""
-    return _restore_like(template, torch.load(Path(path), map_location="cpu",
-                                              weights_only=True))
+    devices; across ranks, this rank's part of it (saved at this world
+    size, else ValueError)."""
+    return _restore_like(template, _on_rank0(lambda: _parts(Path(path), _world()), scatter=True))
+
+
+def _newest(path: Path) -> Path:
+    """``path``, or the newest step's file if it is a directory."""
+    if not path.is_dir():
+        return path
+    steps = _steps(path)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint in {path}")
+    return path / f"{steps[-1]}.pt"
 
 
 def restore_raw(path: str | Path, device="cpu"):
     """The state saved at ``path`` (a file, or a :class:`CheckpointManager`
     directory: its newest step) without a template, its tensors and
-    generators on ``device``. A generator saved from another kind of
-    device (a CUDA generator's state does not fit a CPU one) stays in its
-    stored form, ``{"__generator__": device, "state": ByteTensor}``."""
-    path = Path(path)
-    if path.is_dir():
-        steps = CheckpointManager.steps_in(path)
-        if not steps:
-            raise FileNotFoundError(f"no checkpoint in {path}")
-        path = path / f"{steps[-1]}.pt"
-    return _decode(torch.load(path, map_location="cpu", weights_only=True), torch.device(device))
+    generators on ``device``; of a checkpoint saved across ranks the
+    global carry, each generator a list of the ranks' in rank order. A
+    generator saved from another kind of device (a CUDA generator's state
+    does not fit a CPU one) stays in its stored form, ``{"__generator__":
+    device, "state": ByteTensor}``."""
+    x = _on_rank0(lambda: _load(_newest(Path(path))))
+    if isinstance(x, dict) and _RANKS in x:
+        x = x["state"]
+    return _decode(x, torch.device(device))
+
+
+def _steps(directory: Path) -> list:
+    return sorted(int(p.stem) for p in Path(directory).glob("*.pt") if p.stem.isdigit())
 
 
 class CheckpointManager:
     """Rolling checkpoints of a training loop: ``<directory>/<step>.pt``,
-    the newest ``max_to_keep`` kept."""
+    the newest ``max_to_keep`` kept. Across ranks every method is
+    collective (the module docstring)."""
 
     def __init__(self, directory: str | Path, max_to_keep: int = 3):
         self.directory = Path(directory)
-        self.directory.mkdir(parents=True, exist_ok=True)
+        _on_rank0(lambda: self.directory.mkdir(parents=True, exist_ok=True))
         self.max_to_keep = max_to_keep
 
     @staticmethod
     def steps_in(directory: Path) -> list:
-        return sorted(int(p.stem) for p in Path(directory).glob("*.pt") if p.stem.isdigit())
+        return _on_rank0(lambda: _steps(directory))
 
     def save(self, step: int, state) -> None:
         save_checkpoint(self.directory / f"{int(step)}.pt", state)
-        for old in self.steps_in(self.directory)[:-self.max_to_keep]:
-            (self.directory / f"{old}.pt").unlink()
+
+        def prune():
+            for old in _steps(self.directory)[:-self.max_to_keep]:
+                (self.directory / f"{old}.pt").unlink()
+
+        _on_rank0(prune)
 
     def restore(self, template, step: int | None = None, partial: bool = False):
         """The checkpoint of ``step`` (default: the newest) in
@@ -205,8 +380,7 @@ class CheckpointManager:
         path = self.directory / f"{int(step)}.pt"
         if not partial:
             return restore_checkpoint(path, template)
-        return _restore_partial(template, torch.load(path, map_location="cpu",
-                                                     weights_only=True))
+        return _restore_partial(template, _on_rank0(lambda: _parts(path, _world()), scatter=True))
 
     def close(self) -> None:
         """Nothing to release: every save is written whole when it

@@ -1,8 +1,10 @@
 """Projected Gauss-Seidel (PGS) impulse solver over a batch of systems.
 
 Counterpart of ``jiminy_tpu/engine/solver.py`` (``pgs_solve_grouped``,
-``kkt_residual``, ``BlockSpec``). Fixed iteration count, inactive rows
-masked to zero, and the same sweep order, which decides the numbers:
+``kkt_residual``, ``BlockSpec``, and ``pgs_solve``, the row-sequential
+solve that tests hold the grouped one against). Fixed iteration count,
+inactive rows masked to zero, and the same sweep order, which decides
+the numbers:
 
 1. equality rows, one at a time (Gauss-Seidel);
 2. the bounds span, all rows at once from the same λ, clamped ≥ 0;
@@ -32,6 +34,57 @@ class BlockSpec(NamedTuple):
 def _row_dot(A_rows: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     """(B, r, nc) rows · (B, nc) λ → (B, r)."""
     return (A_rows @ lam[:, :, None])[..., 0]
+
+
+def pgs_solve(
+    A: torch.Tensor,
+    b: torch.Tensor,
+    blocks: Sequence[BlockSpec],
+    mu: torch.Tensor,
+    active: torch.Tensor,
+    lam0: torch.Tensor | None = None,
+    iters: int = 16,
+    relax: float = 1.0,
+):
+    """Row-sequential PGS: every row in block order, each from the λ its
+    predecessors left (a contact block: its normal clamped ≥ 0, then its
+    two tangents, then the projection onto the cone of radius μ·λn;
+    "lower" rows clamped ≥ 0, "upper" rows ≤ 0). Returns (λ (B, nc), the
+    largest |b − A·λ| over the active rows (B,))."""
+    active = active.to(torch.bool)
+    lam = torch.zeros_like(b) if lam0 is None else lam0
+    lam = torch.where(active, lam, torch.zeros_like(lam))
+    diag = torch.clamp_min(torch.diagonal(A, dim1=-2, dim2=-1), 1e-8)
+
+    def row(i):
+        r = b[:, i] - _row_dot(A[:, i:i + 1], lam)[:, 0]
+        return lam[:, i] + relax * r / diag[:, i]
+
+    def put(i, li):
+        lam[:, i] = torch.where(active[:, i], li, torch.zeros_like(li))
+
+    for _ in range(iters):
+        for blk in blocks:
+            s = blk.start
+            if blk.kind == "contact":
+                put(s + 2, torch.clamp_min(row(s + 2), 0.0))
+                for i in (s, s + 1):
+                    put(i, row(i))
+                tn = torch.linalg.vector_norm(lam[:, s:s + 2], dim=-1)
+                lim = mu[:, s + 2] * lam[:, s + 2]
+                scale = torch.where(tn > lim, lim / torch.clamp_min(tn, 1e-12),
+                                    torch.ones_like(tn))
+                lam[:, s:s + 2] = lam[:, s:s + 2] * scale[:, None]
+                continue
+            for i in range(s, s + blk.size):
+                li = row(i)
+                if blk.kind == "lower":
+                    li = torch.clamp_min(li, 0.0)
+                elif blk.kind == "upper":
+                    li = torch.clamp_max(li, 0.0)
+                put(i, li)
+    r = torch.where(active, torch.abs(b - _row_dot(A, lam)), torch.zeros_like(b))
+    return lam, torch.amax(torch.clamp_min(r, 0.0), dim=-1)
 
 
 def kkt_residual(A, b, lam, active, bounds_span, contact_colors):

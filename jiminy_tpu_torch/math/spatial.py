@@ -15,7 +15,7 @@ import dataclasses
 
 import torch
 
-from jiminy_tpu_torch.math.so3 import cross, hat
+from jiminy_tpu_torch.math.so3 import cross, hat, quat_to_matrix
 
 
 def mv(R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -33,14 +33,38 @@ class Transform:
     rot: torch.Tensor  # (..., 3, 3)
     pos: torch.Tensor  # (..., 3)
 
+    @staticmethod
+    def identity(dtype=torch.float32, device="cpu") -> "Transform":
+        return Transform(rot=torch.eye(3, dtype=dtype, device=device),
+                         pos=torch.zeros(3, dtype=dtype, device=device))
+
+    @staticmethod
+    def from_quat_pos(quat: torch.Tensor, pos: torch.Tensor) -> "Transform":
+        """From a unit quaternion (x, y, z, w) and a position."""
+        return Transform(rot=quat_to_matrix(quat), pos=pos)
+
     def compose(self, other: "Transform") -> "Transform":
         """self ∘ other: pose of C in A from B-in-A (self) and C-in-B."""
         return Transform(
             rot=self.rot @ other.rot, pos=mv(self.rot, other.pos) + self.pos
         )
 
+    def inverse(self) -> "Transform":
+        rot_t = self.rot.transpose(-1, -2)
+        return Transform(rot=rot_t, pos=-mv(rot_t, self.pos))
+
     def apply(self, point: torch.Tensor) -> torch.Tensor:
         return mv(self.rot, point) + self.pos
+
+    def apply_inv(self, point: torch.Tensor) -> torch.Tensor:
+        """A point from A-coordinates to C-coordinates."""
+        return mtv(self.rot, point - self.pos)
+
+    def motion_child_to_parent(self, m: torch.Tensor) -> torch.Tensor:
+        """A motion in C (at C's origin) → in A (at A's origin)."""
+        w = mv(self.rot, m[..., :3])
+        v = mv(self.rot, m[..., 3:]) + cross(self.pos, w)
+        return torch.cat([w, v], dim=-1)
 
     def motion_parent_to_child(self, m: torch.Tensor) -> torch.Tensor:
         w = mtv(self.rot, m[..., :3])
@@ -50,6 +74,12 @@ class Transform:
     def force_child_to_parent(self, f: torch.Tensor) -> torch.Tensor:
         lin = mv(self.rot, f[..., 3:])
         ang = mv(self.rot, f[..., :3]) + cross(self.pos, lin)
+        return torch.cat([ang, lin], dim=-1)
+
+    def force_parent_to_child(self, f: torch.Tensor) -> torch.Tensor:
+        """A force in A (at A's origin) → in C (at C's origin)."""
+        lin = mtv(self.rot, f[..., 3:])
+        ang = mtv(self.rot, f[..., :3] - cross(self.pos, f[..., 3:]))
         return torch.cat([ang, lin], dim=-1)
 
 
@@ -75,6 +105,16 @@ class SpatialInertia:
     mass: torch.Tensor  # (...)
     h: torch.Tensor  # (..., 3)
     inertia: torch.Tensor  # (..., 3, 3)
+
+    @staticmethod
+    def from_params(mass, com, inertia_at_com) -> "SpatialInertia":
+        """From the mass, the CoM and the rotational inertia about the CoM
+        (the URDF's parameters), moved to the body origin by the parallel
+        axis theorem."""
+        mass, com, ic = (torch.as_tensor(x) for x in (mass, com, inertia_at_com))
+        ch = hat(com)
+        io = ic + mass[..., None, None] * (ch @ ch.transpose(-1, -2))
+        return SpatialInertia(mass=mass, h=mass[..., None] * com, inertia=io)
 
     def mul_motion(self, m: torch.Tensor) -> torch.Tensor:
         """f = I·m."""
@@ -112,3 +152,12 @@ class SpatialInertia:
             + hat(h_a) @ ph.transpose(-1, -2)
         )
         return SpatialInertia(mass=m.expand(h_a.shape[:-1]), h=h_a, inertia=i_a)
+
+
+def transform_matrix_motion(x: Transform) -> torch.Tensor:
+    """The dense (..., 6, 6) Plücker motion transform of ``x`` (child →
+    parent): [[R, 0], [p̂·R, R]]."""
+    R = x.rot
+    pR = hat(x.pos) @ R
+    top = torch.cat([R, torch.zeros_like(R)], dim=-1)
+    return torch.cat([top, torch.cat([pR, R], dim=-1)], dim=-2)

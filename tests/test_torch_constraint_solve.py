@@ -5,6 +5,11 @@
   ``solve_reference`` (vmapped) on the ANYmal, Atlas and Cassie layouts
   at B = 16, atol 1e-4 (float32 reassociation, as in
   tests/test_pallas_solve.py).
+- The row-sequential ``pgs_solve`` matches the JAX one on the same
+  layouts (the bounds as "lower" rows, ANYmal's last six as "upper"),
+  float32 within 1e-6, and shares the grouped solve's fixed point on
+  tests/test_solver_grouped.py's block-diagonal system (100 sweeps, atol
+  1e-4, that test's tolerance).
 - One case matches the Pallas kernel itself,
   ``solve_batched_pallas(interpret=True)``, at B = 8.
 - ``solve_batched`` runs the plain version for CPU tensors, and raises
@@ -28,7 +33,7 @@ from jiminy_tpu.engine.solver import kkt_residual as j_kkt_residual
 from jiminy_tpu.ops import SolveConfig as JSolveConfig
 from jiminy_tpu.ops import solve_batched_pallas
 from jiminy_tpu.ops import solve_reference as j_solve_reference
-from jiminy_tpu_torch.engine.solver import BlockSpec, kkt_residual, pgs_solve_grouped
+from jiminy_tpu_torch.engine.solver import BlockSpec, kkt_residual, pgs_solve, pgs_solve_grouped
 from jiminy_tpu_torch.ops import _build
 from jiminy_tpu_torch.ops.constraint_solve import (
     SolveConfig,
@@ -155,6 +160,63 @@ def test_pgs_and_residual_match_jax(name):
     )
     kt = kkt_residual(At, bt, torch.as_tensor(np.array(lam_ref)), actt, cfg.bounds_span, cfg.contact_colors)
     np.testing.assert_allclose(kt.numpy(), np.asarray(kj), atol=ATOL, rtol=0)
+
+
+def _sequential_blocks(name, cls):
+    """The config's rows as ``pgs_solve`` blocks: its equality blocks, the
+    bounds one "lower" row each (ANYmal's last six "upper"), its contacts
+    one "contact" block each."""
+    c = CONFIGS[name]
+    s, k = c["bounds_span"]
+    blocks = [cls(*b) for b in c["eq_blocks"]]
+    n_upper = 6 if name == "anymal" else 0
+    blocks += [cls("lower" if i < s + k - n_upper else "upper", i, 1) for i in range(s, s + k)]
+    blocks += [cls("contact", cs + 3 * j, 3) for cs, n in c["contact_colors"] for j in range(n)]
+    return blocks
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_sequential_pgs_matches_jax(name):
+    from jiminy_tpu.engine.solver import pgs_solve as j_pgs_solve
+
+    cfg, _ = _configs(name)
+    M, _, _, J, target, mu, active, lam0 = _rand_system(2, 16, cfg.n, cfg.nc)
+    A = (J @ np.linalg.solve(M, J.transpose(0, 2, 1)) + 1e-6 * np.eye(cfg.nc)).astype(np.float32)
+    jblocks = _sequential_blocks(name, JBlockSpec)
+    lam_ref, res_ref = jax.jit(jax.vmap(lambda A, b, mu, act, l0: j_pgs_solve(
+        A, b, jblocks, mu, act, lam0=l0, iters=cfg.iters, relax=cfg.relax)))(
+        A, target, mu, active, lam0)
+    lam, res = pgs_solve(*_torch_args((A, target)), _sequential_blocks(name, BlockSpec),
+                         *_torch_args((mu, active, lam0)), iters=cfg.iters, relax=cfg.relax)
+    assert lam.dtype == torch.float32
+    np.testing.assert_allclose(lam.numpy(), np.asarray(lam_ref), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(res.numpy(), np.asarray(res_ref), atol=1e-6, rtol=0)
+
+
+def test_sequential_pgs_shares_the_grouped_fixed_point():
+    """tests/test_solver_grouped.py::test_matches_sequential_without_coupling
+    with the port's ``pgs_solve`` against the reference's
+    ``pgs_solve_grouped``: on a block-diagonal A both reach the same λ."""
+    from jiminy_tpu.engine.solver import pgs_solve_grouped as j_pgs_grouped
+
+    rng = np.random.default_rng(5)
+    n_bounds, n_contacts = 4, 4
+    nc = n_bounds + 3 * n_contacts
+    A = 2.0 * np.eye(nc)
+    for c in range(n_contacts):
+        s = n_bounds + 3 * c
+        G = rng.standard_normal((3, 3))
+        A[s:s + 3, s:s + 3] = G @ G.T + 2.0 * np.eye(3)
+    A, b = A.astype(np.float32), (2.0 * rng.standard_normal(nc)).astype(np.float32)
+    active = np.ones(nc, bool)
+    mu = np.concatenate([np.zeros(n_bounds), np.full(3 * n_contacts, 0.8)]).astype(np.float32)
+    lam_grp, _ = j_pgs_grouped(A, b, mu, active, eq_blocks=[], bounds_span=(0, n_bounds),
+                               contact_colors=[(n_bounds, 2), (n_bounds + 6, 2)], iters=100)
+    blocks = [BlockSpec("lower", i, 1) for i in range(n_bounds)]
+    blocks += [BlockSpec("contact", n_bounds + 3 * c, 3) for c in range(n_contacts)]
+    lam, _ = pgs_solve(*_torch_args((A[None], b[None])), blocks,
+                       *_torch_args((mu[None], active[None])), iters=100)
+    np.testing.assert_allclose(lam[0].numpy(), np.asarray(lam_grp), atol=1e-4, rtol=0)
 
 
 def test_solve_reference_matches_pallas_kernel():

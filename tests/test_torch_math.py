@@ -2,7 +2,11 @@
 
 Inputs are made from a numpy seed and handed to both packages; the JAX
 function runs vmapped on the CPU, the port's on batched CPU tensors.
-Tolerance: atol 1e-5 (float32 reassociation)."""
+Tolerance: atol 1e-5 (float32 reassociation); the spatial functions
+that the API-coverage walk found unported (``Transform.identity``,
+``from_quat_pos``, ``inverse``, ``apply_inv``,
+``motion_child_to_parent``, ``force_parent_to_child``,
+``SpatialInertia.from_params``, ``transform_matrix_motion``) 1e-6."""
 
 from __future__ import annotations
 
@@ -185,3 +189,66 @@ def test_spatial_matches_reference(name):
         out, ref = (out,), (ref,)
     for o, r in zip(out, ref):
         _close(o, r)
+
+
+def _spatial_extra_cases():
+    rng = _rng(4)
+    R, p, q = _rot(rng), _vec(rng), _quat(rng)
+    m6, f6, pt = _vec(rng, d=6), _vec(rng, d=6), _vec(rng)
+    mass = np.abs(_vec(rng, d=1))[:, 0] + 0.5
+    com = _vec(rng, scale=0.1)
+    ic = np.stack([np.diag(x) for x in np.abs(_vec(rng)) + 0.1]).astype(np.float32)
+
+    def jx(R, p):
+        return jspatial.Transform(rot=R, pos=p)
+
+    def tx(R, p):
+        return spatial.Transform(rot=R, pos=p)
+
+    def pose(x):
+        return x.rot, x.pos
+
+    def inertia(s):
+        return s.mass, s.h, s.inertia
+
+    return {
+        "from_quat_pos": (lambda q, p: pose(spatial.Transform.from_quat_pos(q, p)),
+                          lambda q, p: pose(jspatial.Transform.from_quat_pos(q, p)), (q, p)),
+        "inverse": (lambda R, p: pose(tx(R, p).inverse()),
+                    lambda R, p: pose(jx(R, p).inverse()), (R, p)),
+        "apply_inv": (lambda R, p, x: tx(R, p).apply_inv(x),
+                      lambda R, p, x: jx(R, p).apply_inv(x), (R, p, pt)),
+        "motion_child_to_parent": (lambda R, p, m: tx(R, p).motion_child_to_parent(m),
+                                   lambda R, p, m: jx(R, p).motion_child_to_parent(m),
+                                   (R, p, m6)),
+        "force_parent_to_child": (lambda R, p, f: tx(R, p).force_parent_to_child(f),
+                                  lambda R, p, f: jx(R, p).force_parent_to_child(f),
+                                  (R, p, f6)),
+        "inertia_from_params": (
+            lambda m, c, i: inertia(spatial.SpatialInertia.from_params(m, c, i)),
+            lambda m, c, i: inertia(jspatial.SpatialInertia.from_params(m, c, i)),
+            (mass, com, ic)),
+        "transform_matrix_motion": (lambda R, p: spatial.transform_matrix_motion(tx(R, p)),
+                                    lambda R, p: jspatial.transform_matrix_motion(jx(R, p)),
+                                    (R, p)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_spatial_extra_cases()))
+def test_spatial_extras_match_reference(name):
+    port_fn, ref_fn, args = _spatial_extra_cases()[name]
+    ref = jax.vmap(ref_fn)(*[jnp.asarray(a) for a in args])
+    out = port_fn(*[_t(a) for a in args])
+    if not isinstance(out, tuple):
+        out, ref = (out,), (ref,)
+    for o, r in zip(out, ref):
+        assert o.dtype == torch.float32
+        _close(o, r, atol=1e-6)
+
+
+def test_transform_identity_matches_reference():
+    ref, out = jspatial.Transform.identity(), spatial.Transform.identity()
+    for o, r in ((out.rot, ref.rot), (out.pos, ref.pos)):
+        assert o.dtype == torch.float32
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+    assert spatial.Transform.identity(torch.float64).rot.dtype == torch.float64
