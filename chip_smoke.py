@@ -372,7 +372,12 @@ the pendulum against the CPU's counters, and the reference's
      and metrics; two fresh ranks restore the checkpoint, run 2
      iterations and print theirs: the digests bit-identical rank by rank,
      the ranks' params bit-identical, 32 K2 launches per rank per
-     iteration, ``restore_raw`` in this process 2 × 1024 env rows;
+     iteration, ``restore_raw`` in this process 2 × 1024 env rows; then
+     one child process restores that 2-rank checkpoint at world size 1
+     over NCCL (`_restore_at_world_size_one`: the re-shard) and runs 2
+     iterations, bit for bit ``PPO.train_step`` from ``restore_raw``'s
+     global carry with rank 0's generators, B = 2048, 32 K2 launches per
+     iteration, its seconds printed;
    - K2's time, plain time and bound on the URDF ANYmal and on the
      capsule feet (``urdf_anymal_substep_multi``,
      ``capsule_feet_substep_multi`` in the kernels line).
@@ -4527,13 +4532,13 @@ URDF_STEPS = 10
 RING_CFG = dict(rollout_len=32, minibatches=8, epochs=4, hidden=(256, 256), lr=3e-4,
                 ent_coef=0.005, symmetry_coef=0.1, anneal_lr=True, total_iters=PPO_TOTAL_ITERS)
 RING_WORKER = """
-import hashlib, json, time
+import json, time
+from chip_smoke import _digest
 from jiminy_tpu_torch.checkpoint import CheckpointManager
 from jiminy_tpu_torch.envs import ANYmalEnv
 from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi
 from jiminy_tpu_torch.rl import PPOConfig
 from jiminy_tpu_torch.rl.distributed import make_distributed_train
-from jiminy_tpu_torch.rl.networks import param_leaves
 
 env = ANYmalEnv(observe="state", max_steps=500, device="cuda")
 init_fn, train_step, _ = make_distributed_train(env, PPOConfig(**{cfg}),
@@ -4550,30 +4555,79 @@ for i in range({iters}):
     torch.cuda.synchronize()
     seconds.append(time.perf_counter() - t0)
     launches.append(substep_batched_multi.launches - before)
-
-
-def sha(tensors):
-    h = hashlib.sha256()
-    for x in tensors:
-        h.update(x.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
-    return h.hexdigest()
-
-
-params, opt, st, gen, it = carry
-digest = {{
-    "params": sha(param_leaves(params)),
-    "adam": sha([opt["count"], *opt["mu"], *opt["nu"]]),
-    "env": sha([getattr(st.sim, k) for k in st.sim.FIELDS]
-               + [st.obs, st.reward, st.terminated, st.truncated, st.steps]
-               + [st.info[k] for k in sorted(st.info)]),
-    "generators": sha([st.generator.get_state(), gen.get_state()]),
-    "metrics": sha([metrics[k] for k in sorted(metrics)]),
-    "iteration": it,
-}}
-print("RING " + json.dumps({{"rank": dist.get_rank(), "batch": st.obs.shape[0],
-                            "launches": launches, "seconds": seconds, "digest": digest,
+print("RING " + json.dumps({{"rank": dist.get_rank(), "batch": carry[2].obs.shape[0],
+                            "launches": launches, "seconds": seconds,
+                            "digest": _digest(carry, metrics),
                             "reward_mean": float(metrics["reward_mean"])}}), flush=True)
 """
+
+
+def _digest(carry, metrics) -> dict:
+    """A PPO carry and its metrics as sha256 digests of their parts
+    (params; Adam's moments and count; the env state with its info; the
+    env and run generators; the metrics) and the iteration."""
+    import hashlib
+
+    from jiminy_tpu_torch.rl.networks import param_leaves
+
+    def sha(tensors):
+        h = hashlib.sha256()
+        for x in tensors:
+            h.update(x.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()
+
+    params, opt, st, gen, it = carry
+    return {
+        "params": sha(param_leaves(params)),
+        "adam": sha([opt["count"], *opt["mu"], *opt["nu"]]),
+        "env": sha([getattr(st.sim, k) for k in st.sim.FIELDS]
+                   + [st.obs, st.reward, st.terminated, st.truncated, st.steps]
+                   + [st.info[k] for k in sorted(st.info)]),
+        "generators": sha([st.generator.get_state(), gen.get_state()]),
+        "metrics": sha([metrics[k] for k in sorted(metrics)]),
+        "iteration": it,
+    }
+
+
+def _restore_at_world_size_one(ckpt: str, cfg: dict) -> dict:
+    """Run in a child process (`_in_child`): the 2-rank checkpoint in
+    ``ckpt`` restored through ``make_distributed_train`` at world size 1
+    over NCCL, and ``PPO.train_step`` from ``restore_raw``'s global carry
+    with rank 0's generators, 2 iterations each on ANYmal at ``cfg``:
+    each run's batch, K2 launches per iteration and `_digest`."""
+    import torch.distributed as dist
+
+    from jiminy_tpu_torch.checkpoint import CheckpointManager, restore_raw
+    from jiminy_tpu_torch.envs import ANYmalEnv
+    from jiminy_tpu_torch.ops.substep_kernel import substep_batched_multi
+    from jiminy_tpu_torch.rl import PPOConfig
+    from jiminy_tpu_torch.rl.distributed import make_distributed_train
+    from jiminy_tpu_torch.rl.launch import initialize_cluster
+    from jiminy_tpu_torch.rl.ppo import PPO
+
+    initialize_cluster(num_processes=1, process_id=0, backend="nccl")
+    try:
+        env = ANYmalEnv(observe="state", max_steps=500, device="cuda")
+        cfg = PPOConfig(**cfg)
+        init_fn, d_step, _ = make_distributed_train(env, cfg, symmetry_fn=env.symmetry_fn)
+        params, opt, st, gens, it = restore_raw(ckpt, device="cuda")
+        runs = {"restored": (d_step, CheckpointManager(ckpt).restore(init_fn(0))),
+                "single": (PPO(env, cfg, env.symmetry_fn).train_step,
+                           (params, opt, st.replace(generator=st.generator[0]), gens[0], it))}
+        out = {}
+        for name, (step, carry) in runs.items():
+            launches = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                before = substep_batched_multi.launches
+                carry, metrics = step(carry)
+                torch.cuda.synchronize()
+                launches.append(substep_batched_multi.launches - before)
+            out[name] = {"batch": carry[2].obs.shape[0], "launches": launches,
+                         "digest": _digest(carry, metrics)}
+        return out
+    finally:
+        dist.destroy_process_group()
 
 
 def _ring(mode, cfg, ckpt, iters) -> tuple[list, float]:
@@ -4879,7 +4933,23 @@ def phase_urdf_and_scaleout(dev, drive, entry, main_err, path) -> dict:
         resumed, sec = _ring("restore", ring_cfg, ckpt, 2)
         print(f"[phase 6] 2 fresh ranks restore the checkpoint and run 2 iterations: "
               f"{sec:.1f} s with the processes' start: {json.dumps(resumed)}")
+        t0 = time.perf_counter()
+        alone = _in_child("_restore_at_world_size_one", ckpt, ring_cfg)
+        alone_sec = time.perf_counter() - t0
         raw = restore_raw(ckpt, device=dev)
+    same = {k: alone["restored"]["digest"][k] == alone["single"]["digest"][k]
+            for k in alone["single"]["digest"]}
+    print(f"[phase 6] one child process restores the 2-rank checkpoint at world size 1 over NCCL "
+          f"and runs 2 iterations, against the single-device train_step from restore_raw's "
+          f"carry with rank 0's generators ({alone_sec:.1f} s with the process's start): "
+          f"bit-identical {json.dumps(same)}; batch, K2 launches per iteration "
+          f"{json.dumps({k: (v['batch'], v['launches']) for k, v in alone.items()})}")
+    if not all(same.values()):
+        raise AssertionError(f"the world-size-1 restore differs from the single device: {same}")
+    for name, run in alone.items():
+        if run["batch"] != PPO_B or run["launches"] != [cfg.rollout_len] * 2:
+            raise AssertionError(f"the world-size-1 restore, {name}: batch {run['batch']}, K2 "
+                                 f"launches {run['launches']}")
     if ring[0]["digest"]["params"] != ring[1]["digest"]["params"]:
         raise AssertionError("the two ranks' params differ after 4 iterations")
     for r, (a, b) in enumerate(zip(ring, resumed)):
@@ -4899,6 +4969,7 @@ def phase_urdf_and_scaleout(dev, drive, entry, main_err, path) -> dict:
         raise AssertionError(f"restore_raw: {rows} rows, {len(raw[3])} generators, iteration "
                              f"{raw[4]}")
     out["ring"], out["restart_ring"], out["restart_seconds"] = ring, resumed, sec
+    out["world_size_one_restore"], out["world_size_one_seconds"] = alone, alone_sec
     return out
 
 
@@ -4953,22 +5024,23 @@ def _batch_setup(dev):
 def _batch_control_step_launches() -> dict:
     """GPU kernels of one ``simulate_batch`` control step with its reset
     (``torch.profiler``), after a warm-up; run in a fresh process by
-    `_profile_in_child`."""
+    `_in_child`."""
     dev = torch.device("cuda")
     sim, qb, vb, pd = _batch_setup(dev)
     sim.simulate_batch(0.02, qb, vb, pd, control_dt=0.02)
     return _profiled_launches(lambda: sim.simulate_batch(0.02, qb, vb, pd, control_dt=0.02))
 
 
-def _profile_in_child(fn_name: str) -> dict:
-    """``fn_name()`` of this module in a fresh Python process (the kernels
-    load from their build; nothing is rebuilt): in this process, after
-    phases 5 and 6, ``torch.profiler`` has recorded no GPU kernel on the
-    card, and an NCCL group alone does not do that
-    (``tools/probe_profiler.py``). Returns its JSON."""
+def _in_child(fn_name: str, *args) -> dict:
+    """``fn_name(*args)`` of this module in a fresh Python process (the
+    kernels load from their build; nothing is rebuilt); returns its JSON.
+    Phase 7 profiles in one: in this process, after phases 5 and 6,
+    ``torch.profiler`` has recorded no GPU kernel on the card, and an
+    NCCL group alone does not do that (``tools/probe_profiler.py``).
+    Phase 6 restores at world size 1 in one, a process group of its own."""
     here = str(Path(__file__).resolve().parent)
     out = subprocess.run([sys.executable, "-c", f"import json, chip_smoke as cs; "
-                          f"print(json.dumps(cs.{fn_name}()))"],
+                          f"print(json.dumps(cs.{fn_name}(*{args!r})))"],
                          cwd=here, capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise AssertionError(f"{fn_name} in a child process: {out.stderr[-2000:]}")
@@ -5150,7 +5222,7 @@ def phase_convenience(dev, path, kernels) -> dict:
     for _ in range(5):  # warm-up
         st_e = env.step(st_e, _uniform(act_gen, dev))
     rates_k2, st_e = _env_rate(env, st_e, act_gen, dev, STEPS, 3)
-    prof = _profile_in_child("_batch_control_step_launches")
+    prof = _in_child("_batch_control_step_launches")
     flags = state_flags(fin_b)
     out["b"] = {"env_steps_per_s": rates_b, "k2_state_path_env_steps_per_s": rates_k2,
                 "kernels_per_control_step": prof}

@@ -29,16 +29,32 @@ alone touches the file system. A save gathers the ranks' carries to rank
 Orbax checkpoint holds its sharded arrays: the replicated leaves once
 (they must be bit-identical on every rank: params, Adam's state, the
 iteration), the env-state rows of every rank in rank order (every tensor
-of one dim or more inside an ``EnvState`` or ``WrapperState``, the rows
-that ``rl/distributed.py`` gives each rank; every rank holds as many),
-every rank's generators in rank order, and W. A restore at W gives each
-rank its own rows and generators back; at another world size it raises
-``ValueError`` (per-rank generators cannot be re-sharded the way the
-reference's replicated key can). :func:`restore_raw` of such a
-checkpoint returns the global carry, each generator a list of the ranks'
-generators. A failure on any rank raises on every rank, and a save is
-listed and restored only once it is whole. Without a group, or at world
-size 1, a checkpoint is the carry alone, as before.
+of one dim or more inside an ``EnvState`` or ``WrapperState``, its
+``info`` included: the rows that ``rl/distributed.py`` gives each rank;
+every rank holds as many), every rank's generators in rank order, and W.
+
+A restore at any world size W′ re-shards that carry, as Orbax restores
+the reference's ``P(axis)`` arrays onto any mesh: the replicated leaves
+come back as saved on every rank; rank r′ of W′ takes the global env
+rows [r′·B/W′, (r′+1)·B/W′), as ``rl/distributed.py``'s ``shard_rows``
+lays them out (``ValueError`` naming B, W and W′ where B does not divide
+by W′); and the generators follow the rule of ``rl/distributed.py``'s
+``rank_generators``: at W′ = W each rank gets its own back, bit for bit;
+at W′ ≠ W rank 0 takes rank 0's saved generators (so W′ = 1 continues as
+the single-device run from rank 0's draws) and each rank r′ > 0 derives
+its env generator (the one inside its env state) and its run generator
+(the one outside it) from rank 0's saved run generator and r′, on the
+template's device. A checkpoint of one process (W = 1) re-shards the
+same way.
+:func:`restore_raw` of a multi-rank checkpoint returns the global carry,
+each generator a list of the ranks' generators. A failure on any rank
+raises on every rank, and a save is listed and restored only once it is
+whole. Without a group, or at world size 1, a checkpoint is the carry
+alone, as before.
+
+Every env-state tensor of one dim or more is taken as per-env rows; the
+env states of every env that PPO trains hold no other
+(``tests/test_torch_checkpoint_restart.py`` walks them).
 """
 
 from __future__ import annotations
@@ -53,12 +69,14 @@ import torch.distributed as dist
 from jiminy_tpu_torch.engine.engine import SimState
 from jiminy_tpu_torch.envs.base import EnvState
 from jiminy_tpu_torch.envs.pipeline import WrapperState
+from jiminy_tpu_torch.rl.distributed import rank_generators
 
 _ENV = "__env_state__"
 _WRAP = "__wrapper_state__"
 _GEN = "__generator__"
 _RANKS = "__ranks__"  # a checkpoint of W > 1 ranks: {_RANKS: W, "state": the global carry}
 _PER_RANK = "__per_rank__"  # every rank's generator, in rank order
+_DERIVED = "__derived__"  # a generator that rank_generators derives at the restore
 _ENV_FIELDS = ("obs", "reward", "terminated", "truncated", "steps")
 _WRAP_FIELDS = ("inner", "layer", "obs", "info")
 
@@ -130,6 +148,11 @@ def _restore_like(template, x, where: str = "state"):
                              f"template has {tuple(template.shape)}")
         return x.to(device=template.device)
     if isinstance(template, torch.Generator):
+        if _DERIVED in x:
+            d = x[_DERIVED]
+            source = _generator(d["source"]["state"], d["source"][_GEN])
+            env_gen, run_gen = rank_generators(source, d["rank"], template.device)
+            return env_gen if d["env"] else run_gen
         return _generator(x["state"], template.device)
     if isinstance(template, EnvState):
         d = x[_ENV]
@@ -243,19 +266,46 @@ def _merge(parts: list, rows: bool = False, where: str = "state"):
     return x
 
 
-def _split(x, rank: int, world: int, rows: bool = False):
-    """Rank ``rank``'s part of the global carry's stored form ``x``."""
+def _is_gen(x) -> bool:
+    return isinstance(x, dict) and (_GEN in x or _PER_RANK in x)
+
+
+def _gens(x, rows: bool = False) -> list:
+    """(inside an env state, rank 0's stored form) of every generator of
+    the global carry's stored form ``x``, in order."""
+    if _is_gen(x):
+        return [(rows, x[_PER_RANK][0] if _PER_RANK in x else x)]
+    if isinstance(x, dict):
+        return [g for k, v in x.items() for g in _gens(v, rows or k in (_ENV, _WRAP))]
+    if isinstance(x, (list, tuple)):
+        return [g for v in x for g in _gens(v, rows)]
+    return []
+
+
+def _split(x, rank: int, world: int, saved: int, source=None, rows: bool = False,
+           where: str = "state"):
+    """Rank ``rank`` of ``world``'s part of the stored form ``x`` of a
+    global carry that ``saved`` ranks wrote (the module docstring);
+    ``source``: rank 0's saved run generator, which the other ranks
+    derive theirs from where ``world`` differs from ``saved``."""
     if isinstance(x, torch.Tensor):
         if rows and x.dim():
+            if x.shape[0] % world:
+                raise ValueError(f"checkpoint {where}: {x.shape[0]} env rows, saved by {saved} "
+                                 f"ranks, do not divide among {world} ranks")
             n = x.shape[0] // world
             return x[rank * n:(rank + 1) * n].clone()  # pickled alone, not with every row
         return x
-    if isinstance(x, dict) and _PER_RANK in x:
-        return x[_PER_RANK][rank]
+    if _is_gen(x):
+        if world == saved or rank == 0:
+            return x[_PER_RANK][rank] if _PER_RANK in x else x
+        return {_DERIVED: {"rank": rank, "env": rows, "source": source}}
     if isinstance(x, dict):
-        return {k: _split(v, rank, world, rows or k in (_ENV, _WRAP)) for k, v in x.items()}
+        return {k: _split(v, rank, world, saved, source, rows or k in (_ENV, _WRAP),
+                          f"{where}.{k}") for k, v in x.items()}
     if isinstance(x, (list, tuple)):
-        return type(x)(_split(v, rank, world, rows) for v in x)
+        return type(x)(_split(v, rank, world, saved, source, rows, f"{where}[{i}]")
+                       for i, v in enumerate(x))
     return x
 
 
@@ -264,14 +314,18 @@ def _load(path: Path):
 
 
 def _parts(path: Path, world: int) -> list:
-    """Each of ``world`` ranks' stored form of the checkpoint at ``path``;
-    ValueError unless it was saved at that world size."""
+    """Each of ``world`` ranks' stored form of the checkpoint at ``path``,
+    saved at any world size (the module docstring)."""
     x = _load(path)
     saved = x[_RANKS] if isinstance(x, dict) and _RANKS in x else 1
-    if saved != world:
-        raise ValueError(f"checkpoint {path} was saved by {saved} ranks and cannot be restored "
-                         f"at world size {world}: each rank's generators are its own")
-    return [x] if world == 1 else [_split(x["state"], r, world) for r in range(world)]
+    if saved == world == 1:
+        return [x]
+    state = x["state"] if saved > 1 else x
+    # rank 0's run generator: the first outside the env states (the
+    # PPO carry's only one), else the env state's
+    gens = sorted(_gens(state), key=lambda g: g[0]) if world != saved else []
+    source = gens[0][1] if gens else None
+    return [_split(state, r, world, saved, source) for r in range(world)]
 
 
 def _write(path: Path, obj) -> None:
@@ -312,8 +366,8 @@ def save_checkpoint(path: str | Path, state) -> None:
 
 def restore_checkpoint(path: str | Path, template):
     """The state saved at ``path``, in ``template``'s structure and on its
-    devices; across ranks, this rank's part of it (saved at this world
-    size, else ValueError)."""
+    devices; across ranks, this rank's part of it, re-sharded where it
+    was saved at another world size (the module docstring)."""
     return _restore_like(template, _on_rank0(lambda: _parts(Path(path), _world()), scatter=True))
 
 

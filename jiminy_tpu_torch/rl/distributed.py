@@ -18,6 +18,13 @@ the action noise and the permutations) with ``seed + 2 + r·RANK_SEED_STRIDE``
 and its envs' auto-reset generator with ``seed + 1 + r·RANK_SEED_STRIDE``;
 rank 0 keeps the single-device run's generators, so that at world size 1
 a train step is the single-device one bit for bit.
+
+A checkpoint saved by W ranks restores at any world size W′ whose ranks
+share the rows evenly (``checkpoint.py``): at W′ = W each rank gets its
+own generators back; at W′ ≠ W rank 0 takes rank 0's saved ones, and
+rank r′ > 0 takes :func:`rank_generators` of rank 0's saved run
+generator: the port's ``fold_in``. Unlike the reference's per-env keys,
+which move with their rows, the ranks > 0 then draw new streams.
 """
 
 from __future__ import annotations
@@ -48,6 +55,20 @@ def shard_rows(x, start: int, stop: int):
     if isinstance(x, (tuple, list)):
         return type(x)(shard_rows(v, start, stop) for v in x)
     return x
+
+
+def rank_generators(run_gen: torch.Generator, rank: int, device) -> tuple:
+    """(env generator, run generator) of rank ``rank`` > 0 after a restore
+    at another world size: one seed s in [0, 2⁶²) drawn from a clone of
+    ``run_gen`` (rank 0's restored run generator, which does not move),
+    then ``init_fn``'s layout with s for the seed: the env generator
+    seeded s + 1 + rank·RANK_SEED_STRIDE, the run generator s + 2 +
+    rank·RANK_SEED_STRIDE, both on ``device``."""
+    clone = torch.Generator(device=run_gen.device)
+    clone.set_state(run_gen.get_state())
+    s = int(torch.randint(0, 2**62, (), generator=clone, device=run_gen.device))
+    return tuple(torch.Generator(device=device).manual_seed(s + k + rank * RANK_SEED_STRIDE)
+                 for k in (1, 2))
 
 
 def all_mean_fn(group=None) -> Callable:
